@@ -1,0 +1,24 @@
+"""stair_tpu_torch — the PyTorch + CUDA (Hopper) port of ``stair_tpu``.
+
+The JAX package ``stair_tpu`` is the reference; this package mirrors its
+paths and names so each module has an obvious counterpart:
+
+  * ``models/modules.py`` ↔ ``stair_tpu/models/modules.py`` (helpers, init)
+  * ``models/nmn.py``     ↔ ``stair_tpu/models/nmn.py`` (``VideoNMN``)
+  * ``ops/lstm.py``       ↔ ``stair_tpu/ops/lstm.py`` (BiLSTM recurrence)
+  * ``ops/mega_exec.py``  ↔ ``stair_tpu/ops/mega_exec.py`` (executor)
+  * ``testing/workload.py`` ↔ ``stair_tpu/testing/workload.py``
+
+Every Pallas kernel on the ported path is a hand-written CUDA C++ kernel
+under ``ops/csrc/``, built with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_build.py``). Each kernel wrapper runs its plain PyTorch version for
+CPU tensors and launches the kernel (or raises) for CUDA tensors.
+
+The host layers that never touched JAX — ``stair_tpu.ir``,
+``stair_tpu.programs`` and ``stair_tpu.runtime`` (the C++ parser, lowerer
+and tokenizer) — are imported, not copied. Nothing here imports ``jax``.
+"""
+
+from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,269 @@
+"""VideoNMN: the batched NMN question-answering forward (port of
+``stair_tpu/models/nmn.py``).
+
+The serving forward: two masked BiLSTM encoders (video and question), the
+executor over three typed register files, and the answer decoder. The
+encoders' recurrence and the executor run in the two CUDA kernels on the
+card (``ops/lstm.py bilstm``, ``ops/mega_exec.py mega_exec``) and in their
+plain versions on the CPU. Parameters keep the JAX package's key paths and
+``[in, out]`` layouts, so ``weights.params_from_numpy`` carries a JAX
+params tree over unchanged.
+
+Only the executor route is ported (the JAX package's XLA ragged-dot scan is
+its CPU/training fallback); the forward is deterministic (no dropout).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from stair_tpu_torch.models import modules as M
+from stair_tpu_torch.ops.lstm import bilstm_forward, init_lstm_params
+from stair_tpu_torch.ops.mega_exec import mega_exec
+
+
+@dataclass(frozen=True)
+class NMNConfig:
+    """Twin of ``stair_tpu.models.nmn.NMNConfig`` (same fields/defaults)."""
+
+    hidden_size: int = 512
+    video_size: int = 2048
+    text_size: int = 300
+    dropout: float = 0.25
+    answer_vocab_length: int = 172
+    max_video_length: int = 150
+    object_types: int = 1
+    have_pretrain_head: bool = True
+    #: 'parity' reproduces the reference Filter pooling quirk; 'softmax' fixes it.
+    filter_attention: str = "parity"
+    #: 'float32' or 'bfloat16' (executor matmuls and tokens in bf16).
+    compute_dtype: str = "float32"
+    #: only 'lstm' is ported.
+    encoder: str = "lstm"
+    max_steps: int = 32
+    num_vec: int = 24
+    num_frames: int = 8
+    num_attn: int = 10
+
+    @property
+    def conv_temporal(self) -> bool:
+        return self.max_video_length > 32
+
+    def to_dict(self):
+        return dict(self.__dict__)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(flat):
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+class VideoNMN(nn.Module):
+    """The NMN model. Parameters live in one ``nn.ParameterDict`` keyed by
+    the JAX key path joined with ``/``; ``param_tree()`` gives the nested
+    view the functions below index."""
+
+    def __init__(self, config: NMNConfig, params: dict | None = None, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        if config.encoder != "lstm":
+            raise NotImplementedError("only the lstm encoder is ported")
+        self.config = config
+        if params is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            params = self.init(generator, device)
+        self.weights = nn.ParameterDict({
+            k: nn.Parameter(torch.as_tensor(v, device=device),
+                            requires_grad=False)
+            for k, v in _flatten(params).items()
+        })
+
+    # -- parameters ----------------------------------------------------------
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """A fresh params tree with the JAX package's keys and shapes."""
+        cfg = self.config
+        H = cfg.hidden_size
+        return {
+            "modules": M.init_module_params(gen, {
+                "hidden_size": H,
+                "max_video_length": cfg.max_video_length,
+                "object_types": cfg.object_types,
+                "have_pretrain_head": cfg.have_pretrain_head,
+            }, device),
+            "video_encoder": init_lstm_params(gen, cfg.video_size, H // 2,
+                                              device),
+            "text_encoder": init_lstm_params(gen, cfg.text_size, H // 2,
+                                             device),
+            "decoder": {
+                "l1": M._init_linear(gen, 2 * H, 2 * H, device),
+                "l2": M._init_linear(gen, 2 * H, cfg.answer_vocab_length,
+                                     device),
+            },
+            "choice_proj": M._init_linear(gen, 2 * H, H, device),
+        }
+
+    def param_tree(self) -> dict:
+        return _unflatten(dict(self.weights.items()))
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.config.compute_dtype == "bfloat16"
+                else torch.float32)
+
+    # -- encoders ------------------------------------------------------------
+
+    def _encode_batched(self, enc_params, x, mask):
+        """[B, L, D] -> (tokens [B, L, H] dt, sentence [B, H] f32,
+        (fwd, bwd) halves [B, L, H/2] dt). The recurrence goes to
+        ``bilstm_reference`` for CPU tensors and to the kernel for CUDA
+        tensors."""
+        dt = self.compute_dtype
+        mm = dt if dt != torch.float32 else None
+        return bilstm_forward(enc_params, x, mask, mm_dtype=mm,
+                              token_dtype=dt)
+
+    def encode_sentences(self, embeddings, mask):
+        """Batch-encode standalone phrases -> sentence features [N, H]."""
+        return self._encode_batched(
+            self.param_tree()["text_encoder"], embeddings, mask)[1]
+
+    # -- the executor --------------------------------------------------------
+
+    @staticmethod
+    def _fused_tables(mods):
+        """Stack the [H, H]-matmul module families into expert tables.
+
+        Stage-1 rows (two-layer MLP): [filter.repr, filter.kw x3, ff.repr,
+        ff.kw x3, localize.v1/v2, null, hasitem.l1/l2(padded)].
+        Pooled-dense rows: [filter.dense, ff.dense, null].
+        Stage-2 rows: [ff.dense, temporal.dense, localize.k, null].
+        """
+        f, ff = mods["filter"], mods["filterframe"]
+        loc, hi, tmp = mods["localize"], mods["hasitem"], mods["temporal"]
+        w = f["repr_w1"]
+        H = w.shape[0]
+        zw = torch.zeros((1, H, H), dtype=w.dtype, device=w.device)
+        zb = torch.zeros((1, H), dtype=w.dtype, device=w.device)
+        l2w = torch.nn.functional.pad(hi["l2"]["w"], (0, H - 1))
+        l2b = torch.nn.functional.pad(hi["l2"]["b"], (0, H - 1))
+        cat = torch.cat
+        return {
+            "w1u": cat([f["repr_w1"][None], f["kw_w1"], ff["repr_w1"][None],
+                        ff["kw_w1"], loc["v1"]["w"][None], zw,
+                        hi["l1"]["w"][None]]),
+            "b1u": cat([f["repr_b1"][None], f["kw_b1"], ff["repr_b1"][None],
+                        ff["kw_b1"], loc["v1"]["b"][None], zb,
+                        hi["l1"]["b"][None]]),
+            "w2u": cat([f["repr_w2"][None], f["kw_w2"], ff["repr_w2"][None],
+                        ff["kw_w2"], loc["v2"]["w"][None], zw, l2w[None]]),
+            "b2u": cat([f["repr_b2"][None], f["kw_b2"], ff["repr_b2"][None],
+                        ff["kw_b2"], loc["v2"]["b"][None], zb, l2b[None]]),
+            "dense3": cat([f["dense"]["w"][None], ff["dense"]["w"][None],
+                           zw]),
+            "db3": cat([f["dense"]["b"][None], ff["dense"]["b"][None], zb]),
+            "w2t": cat([ff["dense"]["w"][None], tmp["dense"]["w"][None],
+                        loc["k"]["w"][None], zw]),
+            "b2t": cat([ff["dense"]["b"][None], tmp["dense"]["b"][None],
+                        loc["k"]["b"][None], zb]),
+        }
+
+    def run_trace(self, params, trace_fields, video_halves, video_mask,
+                  token_halves, token_mask, aux_vec=None):
+        """Execute all programs; returns the final register files (dt)."""
+        dt = self.compute_dtype
+        mods = params["modules"]
+        if dt != torch.float32:
+            mods = tree_map(lambda x: x.to(dt), mods)
+            video_mask = video_mask.to(dt)
+        tables = self._fused_tables(mods)
+        halves = tuple(tuple(p.to(dt) for p in pair)
+                       for pair in (video_halves, token_halves))
+        aux_in = None if aux_vec is None else aux_vec.to(dt)
+        return mega_exec(self.config, mods, tables, trace_fields, halves[0],
+                         video_mask, halves[1], token_mask, aux_vec=aux_in)
+
+    # -- full forward --------------------------------------------------------
+
+    @torch.no_grad()
+    def forward(self, batch):
+        """Encoders + executor + answer decoder on a padded batch.
+
+        ``batch`` keys: question [B, L, text_size], question_mask [B, L],
+        video [B, F, video_size], video_mask [B, F], trace (dict of [B, T]
+        int tensors), root_reg [B], root_is_vec [B]; optionally aux_emb
+        [B, T, La, text_size] and aux_mask [B, T, La]. Returns the JAX
+        forward's dict: logits, question_feature, token_features,
+        regs_vec, regs_frames, regs_attn (float32) and root.
+        """
+        cfg = self.config
+        params = self.param_tree()
+        _, _, video_halves = self._encode_batched(
+            params["video_encoder"], batch["video"], batch["video_mask"])
+        token_features, question_feature, token_halves = (
+            self._encode_batched(params["text_encoder"], batch["question"],
+                                 batch["question_mask"]))
+        aux_vec = None
+        if batch.get("aux_emb") is not None:
+            ae = batch["aux_emb"]
+            B_, T_, La, td = ae.shape
+            aux_vec = self.encode_sentences(
+                ae.reshape(B_ * T_, La, td),
+                batch["aux_mask"].reshape(B_ * T_, La),
+            ).reshape(B_, T_, -1)
+        rv, rf, ra = self.run_trace(
+            params, batch["trace"], video_halves, batch["video_mask"],
+            token_halves, batch["question_mask"], aux_vec=aux_vec)
+
+        B = rv.shape[0]
+        ar = torch.arange(B, device=rv.device)
+        root_reg = batch["root_reg"].long()
+        root_vec = rv[ar, root_reg].float()
+        # Non-vec roots: masked mean of the root frames register.
+        root_frames = rf[ar, torch.clamp(root_reg, max=cfg.num_frames)]
+        vmask = batch["video_mask"].float()
+        fallback = torch.sum(root_frames.float() * vmask[:, :, None], 1) / (
+            torch.clamp(vmask.sum(1, keepdim=True), min=1.0))
+        root = torch.where(batch["root_is_vec"].bool()[:, None], root_vec,
+                           fallback)
+        rv, rf, ra = rv.float(), rf.float(), ra.float()
+
+        hidden = torch.cat([root, question_feature], dim=-1)
+        h = torch.relu(M.linear(params["decoder"]["l1"], hidden))
+        logits = M.linear(params["decoder"]["l2"], h)
+        return {
+            "logits": logits,
+            "question_feature": question_feature,
+            "token_features": token_features,
+            "regs_vec": rv,
+            "regs_frames": rf,
+            "regs_attn": ra,
+            "root": root,
+        }
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}

@@ -1,0 +1,493 @@
+"""The executor megakernel (port of ``stair_tpu/ops/mega_exec.py``).
+
+One example's whole instruction trace runs per CUDA thread block
+(``csrc/mega_exec.cu``): the block walks its ``[T, 17]`` instruction row
+over three typed register files (vec ``[Nv+1, H]``, frames ``[Nf+1, F,
+H]``, attn ``[Na+1, F]``) and returns the final files, which are the
+auditable intermediates.
+
+``prepare_args`` packs the inputs exactly as the JAX package does (the
+scalar pack with its ``e1`` expert code, temporal band matrices in conv
+mode or the linear stack otherwise, casts to the compute dtype).
+``mega_exec_reference`` is the plain version: an eager executor batched
+over B and looping over T that mirrors ``_make_kernel`` opcode by opcode,
+rounding to the compute dtype at the same sites (``lin_dt`` and friends).
+``mega_exec_call`` is the kernel wrapper: plain version for CPU tensors,
+the CUDA kernel for CUDA tensors, or an error; ``mega_exec`` packs and
+calls it, as the JAX function does. Eval only: no dropout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stair_tpu.ir.lowering import Opcode
+from stair_tpu_torch.models.modules import (
+    conv1d_same_matrix, cosine, cosine_matrix, layer_norm, masked_softmax,
+)
+from stair_tpu_torch.ops import _build
+from stair_tpu_torch.utils.device import exact_f32
+
+# Scalar field columns of the per-example [T, NSF] instruction block.
+(F_OP, F_E1, F_VA, F_VB, F_VC, F_FA, F_FB, F_AA, F_AB, F_MODE, F_COUNT,
+ F_SS, F_SE, F_OUT_V, F_OUT_F, F_OUT_A, F_OUT_AB) = range(17)
+NSF = 17
+
+#: names of ``prepare_args``'s tensors, in order (the kernel's pointer table)
+ARG_NAMES = (
+    "scal", "vf_a", "vf_b", "vm", "tok_a", "tok_b", "tm", "aux",
+    "w1u", "b1u", "w2u", "b2u", "w2t", "b2t", "fdw", "fdb",
+    "cw", "cb", "eqw", "eqb", "xw", "xb", "qw", "qb",
+    "taw1", "tab1", "taw2", "tab2", "exw1", "exb1", "exw2", "exb2",
+    "supw", "supb", "ffwf", "ffkw", "ffab", "fltw", "fltk", "fltb",
+    "lns", "lnb", "beta", "t1", "t2", "t3", "tb1", "tb2", "tb3",
+)
+
+
+def prepare_args(cfg, mods, tables, trace_fields, video_halves,
+                 video_mask, token_halves, token_mask, aux_vec=None):
+    """Pack the executor's inputs into the kernel argument tuple.
+
+    ``mods``/``tables`` are already in the compute dtype; halves are
+    ``(fwd, bwd)`` ``[B, F|L, H/2]`` pairs in that dtype. Returns
+    ``(meta, args)``: ``meta = (B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft)``
+    and ``args`` in ``ARG_NAMES`` order, every tensor contiguous.
+    """
+    vf_a, vf_b = video_halves
+    tok_a, tok_b = token_halves
+    B, F, Hh = vf_a.shape
+    L = tok_a.shape[1]
+    H = 2 * Hh
+    assert vf_b.shape == vf_a.shape and tok_b.shape == tok_a.shape
+    assert tok_a.shape[-1] == Hh
+    T = trace_fields["opcode"].shape[1]
+    dt = vf_a.dtype
+    dev = vf_a.device
+    Nv, Nf, Na = cfg.num_vec + 1, cfg.num_frames + 1, cfg.num_attn + 1
+
+    # ---- scalar pack: [B, T, NSF] int32 --------------------------------
+    op = trace_fields["opcode"].long()
+    mode = trace_fields["mode"].long()
+    is_ff = (op == int(Opcode.FILTERFRAME_V)) | (
+        op == int(Opcode.FILTERFRAME_K))
+    is_filter = is_ff | (op == int(Opcode.FILTER_V)) | (
+        op == int(Opcode.FILTER_K))
+    is_kw = (op == int(Opcode.FILTER_K)) | (op == int(Opcode.FILTERFRAME_K))
+    is_locsup = ((op == int(Opcode.LOCALIZE))
+                 | (op == int(Opcode.SUPERLATIVE_V))
+                 | (op == int(Opcode.SUPERLATIVE_F)))
+    zero = torch.zeros_like(op)
+    e1 = torch.where(
+        is_filter,
+        torch.where(is_ff, 4, zero) + torch.where(is_kw, 1 + mode, zero),
+        torch.where(is_locsup, 8,
+                    torch.where(op == int(Opcode.HASITEM), 10, 9 + zero)),
+    )
+    scal = torch.stack([
+        op, e1, trace_fields["va"].long(), trace_fields["vb"].long(),
+        trace_fields["vc"].long(), trace_fields["fa"].long(),
+        trace_fields["fb"].long(), trace_fields["aa"].long(),
+        trace_fields["ab"].long(), mode, trace_fields["count"].long(),
+        trace_fields["span_start"].long(), trace_fields["span_end"].long(),
+        trace_fields["out_vec"].long(), trace_fields["out_frames"].long(),
+        trace_fields["out_attn"].long(), trace_fields["out_attn_b"].long(),
+    ], dim=-1).to(torch.int32).contiguous()                  # [B, T, NSF]
+
+    # ---- temporal band matrices (hoisted; tiny) -------------------------
+    tmp = mods["temporal"]
+    if cfg.conv_temporal:
+        def bands(w):
+            return torch.stack([
+                conv1d_same_matrix(ww.float(), F).T for ww in w
+            ]).to(dt)
+
+        t1m, t2m, t3m = (bands(tmp["c1_w"]), bands(tmp["c2_w"]),
+                         bands(tmp["c3_w"]))
+        tb1, tb2, tb3 = (
+            tmp[k][:, None, None].expand(3, 1, F).to(dt)
+            for k in ("c1_b", "c2_b", "c3_b")
+        )
+    else:
+        t1m, t2m, t3m = (tmp["l1_w"].to(dt), tmp["l2_w"].to(dt),
+                         tmp["l3_w"].to(dt))
+        tb1, tb2, tb3 = (tmp[k][:, None, :].to(dt)
+                         for k in ("l1_b", "l2_b", "l3_b"))
+
+    if aux_vec is None:
+        aux_vec = torch.zeros((B, T, H), dtype=dt, device=dev)
+
+    ffw = mods["filterframe"]["attn_w"].to(dt)               # [2H, 1]
+    flw = mods["filter"]["attn_w"].to(dt)                    # [2H, 1]
+    fsoft = cfg.filter_attention == "softmax"
+
+    def row(x):
+        return torch.as_tensor(x).to(dt).reshape(1, -1)
+
+    args = (
+        scal,
+        vf_a, vf_b,
+        video_mask.to(dt).reshape(B, 1, F),
+        tok_a, tok_b,
+        token_mask.to(dt).reshape(B, 1, L),
+        aux_vec.to(dt),
+        tables["w1u"], tables["b1u"][:, None, :],
+        tables["w2u"], tables["b2u"][:, None, :],
+        tables["w2t"], tables["b2t"][:, None, :],
+        tables["dense3"][0], row(tables["db3"][0]),
+        mods["compare"]["w"].to(dt), row(mods["compare"]["b"]),
+        mods["equals"]["w"].to(dt), row(mods["equals"]["b"]),
+        mods["xor"]["w"].to(dt), row(mods["xor"]["b"]),
+        mods["query"]["l1"]["w"].to(dt), row(mods["query"]["l1"]["b"]),
+        mods["toaction"]["l1"]["w"].to(dt),
+        row(mods["toaction"]["l1"]["b"]),
+        mods["toaction"]["l2"]["w"].to(dt),
+        row(mods["toaction"]["l2"]["b"]),
+        mods["exists"]["l1"]["w"].to(dt), row(mods["exists"]["l1"]["b"]),
+        mods["exists"]["l2"]["w"].to(dt), row(mods["exists"]["l2"]["b"]),
+        mods["superlative"]["dense"]["w"].to(dt),
+        row(mods["superlative"]["dense"]["b"]),
+        ffw[:H], ffw[H:],
+        row(mods["filterframe"]["attn_b"]).reshape(1, 1),
+        flw[:H], flw[H:],
+        row(mods["filter"]["attn_b"]).reshape(1, 1),
+        row(tmp["ln"]["scale"]), row(tmp["ln"]["bias"]),
+        row(mods["relate"]["beta"][:F]),
+        t1m, t2m, t3m, tb1, tb2, tb3,
+    )
+    args = tuple(a.contiguous() for a in args)
+    meta = (B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft)
+    return meta, args
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def mega_exec_reference(meta, args):
+    """Eager executor over ``prepare_args`` output, batched over B.
+
+    Values are carried in float32 holding compute-dtype numbers; ``rd``
+    rounds to the compute dtype exactly where the JAX kernel casts, and
+    every matmul multiplies compute-dtype values with float32 accumulation
+    (``preferred_element_type=f32``). Returns ``(rv, rf, ra)`` in dt.
+    """
+    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
+    dev = args[0].device
+    if dev.type == "cuda":
+        exact_f32()
+    a = dict(zip(ARG_NAMES, (x if x.dtype == torch.int32 else x.float()
+                             for x in args)))
+    scal = a["scal"].long()
+
+    def rd(x):
+        return x.to(dt).float()
+
+    def lin_dt(x, w, b):
+        return rd(rd(rd(x) @ w) + b)
+
+    relu = torch.relu
+    vm = a["vm"][:, 0]                                       # [B, F]
+    vmask_b = vm > 0
+    w2t, b2t = a["w2t"], a["b2t"][:, 0]
+    ar = torch.arange(B, device=dev)
+
+    rv = torch.zeros(B, Nv, H, device=dev)
+    ra = torch.zeros(B, Na, F, device=dev)
+    rf = torch.zeros(B, Nf, F, H, device=dev)
+    feat = torch.zeros(B, F, H, device=dev)
+    video = torch.cat([a["vf_a"], a["vf_b"]], dim=-1)
+    rf[:, 0] = rd(video * vm[:, :, None])
+
+    def loc_cos(kw, featf, vmr):
+        """kw [n, H] vs feat [n, F, H] -> [n, F] rescaled cosine scores."""
+        cos_k = rd(cosine_matrix(kw[:, None, :], featf)[:, 0])
+        return (cos_k + 1.0) * 0.49 * vmr
+
+    def superlative(scores, actions, amask, mode_r, vmr):
+        """scores [n, K, F], actions [n, K, H], amask [n, K] -> [n, H]."""
+        row = (scores * vmr[:, None, :]).sum(-1)            # [n, K]
+        w = masked_softmax(row, amask)
+        w = torch.where(mode_r[:, None] == 1, 1.0 - w, w)
+        w = torch.where(amask, w, torch.zeros_like(w))
+        pooled = (w[:, :, None] * actions).sum(1)
+        return relu(lin_dt(pooled, a["supw"], a["supb"][0]))
+
+    def rows_of(mask):
+        return torch.nonzero(mask).flatten()
+
+    pos = torch.arange(L, device=dev)
+    for t in range(T):
+        s = scal[:, t]
+        op, e1, mode, count = s[:, F_OP], s[:, F_E1], s[:, F_MODE], \
+            s[:, F_COUNT]
+        va = rv[ar, s[:, F_VA]]
+        vb = rv[ar, s[:, F_VB]]
+        aa = ra[ar, s[:, F_AA]]
+        ab = ra[ar, s[:, F_AB]]
+        fa = rf[ar, s[:, F_FA]]
+        is_filter = (op >= int(Opcode.FILTER_V)) & (
+            op <= int(Opcode.FILTERFRAME_K))
+
+        ra[ar, s[:, F_OUT_A]] = 0.0
+        ra[ar, s[:, F_OUT_AB]] = 0.0
+
+        # ---- stage 1: expert two-layer frames MLP (null expert 9) ------
+        for e in torch.unique(e1).tolist():
+            if e == 9:
+                continue
+            r = rows_of(e1 == e)
+            h = rd(relu(fa[r] @ a["w1u"][e] + a["b1u"][e]))
+            h2 = h @ a["w2u"][e] + a["b2u"][e]
+            feat[r] = rd(torch.where(is_filter[r, None, None], relu(h2), h2))
+
+        nv = torch.zeros(B, H, device=dev)
+
+        def on(*codes):
+            m = torch.zeros_like(op, dtype=torch.bool)
+            for c in codes:
+                m |= op == int(c)
+            return rows_of(m)
+
+        r = on(Opcode.PUSH_TEXT)
+        if r.numel():
+            ss, se = s[r, F_SS], s[r, F_SE]
+            valid = (a["tm"][r, 0] > 0).float()
+            in_span = ((pos[None] >= ss[:, None])
+                       & (pos[None] < se[:, None])).float()
+            span_w = torch.where(ss[:, None] < 0, valid, in_span * valid)
+            pa = (span_w[:, None, :] @ a["tok_a"][r])[:, 0]
+            pb = (span_w[:, None, :] @ a["tok_b"][r])[:, 0]
+            push = torch.cat([pa, pb], -1) / torch.clamp(
+                span_w.sum(-1, keepdim=True), min=1.0)
+            aux_row = a["aux"][r, t]
+            nv[r] = rd(torch.where(ss[:, None] == -2, aux_row, push))
+
+        r = on(Opcode.AND_VEC)
+        if r.numel():
+            nv[r] = torch.minimum(va[r], vb[r])
+
+        r = on(Opcode.CHOOSE)
+        if r.numel():
+            vc = rv[r, s[r, F_VC]]
+            first = cosine(va[r], vc) > cosine(vb[r], vc)
+            nv[r] = torch.where(first[:, None], va[r], vb[r])
+
+        for code, w, b in ((Opcode.COMPARE, "cw", "cb"),
+                           (Opcode.EQUALS, "eqw", "eqb")):
+            r = on(code)
+            if r.numel():
+                y = va[r] @ a[w][:H] + vb[r] @ a[w][H:]
+                nv[r] = relu(rd(rd(y) + a[b][0]))
+
+        r = on(Opcode.XOR)
+        if r.numel():
+            d = rd(torch.abs(va[r] - vb[r]))
+            xw = a["xw"]
+            y = d @ xw[:H] + va[r] @ xw[H:2 * H] + vb[r] @ xw[2 * H:]
+            nv[r] = relu(rd(rd(y) + a["xb"][0]))
+
+        r = on(Opcode.QUERY)
+        if r.numel():
+            nv[r] = relu(lin_dt(va[r], a["qw"], a["qb"][0]))
+
+        r = on(Opcode.TOACTION)
+        if r.numel():
+            y = va[r] @ a["taw1"][:H] + vb[r] @ a["taw1"][H:]
+            h = relu(rd(rd(y) + a["tab1"][0]))
+            nv[r] = relu(lin_dt(h, a["taw2"], a["tab2"][0]))
+
+        r = on(Opcode.EXISTS)
+        if r.numel():
+            prod = rd(vb[r] * va[r])
+            w1 = a["exw1"]
+            y = vb[r] @ w1[:H] + va[r] @ w1[H:2 * H] + prod @ w1[2 * H:]
+            h = relu(rd(rd(y) + a["exb1"][0]))
+            nv[r] = relu(lin_dt(h, a["exw2"], a["exb2"][0]))
+
+        r = on(Opcode.FILTER_V, Opcode.FILTER_K)
+        if r.numel():
+            fr, vmr = feat[r], vm[r]
+            if fsoft:
+                logits = (fr @ a["fltw"])[:, :, 0]
+                kb = (va[r] @ a["fltk"])[:, 0] + a["fltb"][0, 0]
+                soft = masked_softmax(logits + kb[:, None], vmask_b[r])
+                w = torch.where(op[r, None] == int(Opcode.FILTER_V), soft,
+                                vmr)
+            else:
+                w = vmr
+            pooled = (fr * (w * vmr)[:, :, None]).sum(1)
+            nv[r] = relu(lin_dt(pooled, a["fdw"], a["fdb"][0]))
+
+        r = on(Opcode.SUPERLATIVE_V)
+        if r.numel():
+            fr, vmr = feat[r], vm[r]
+            ka = lin_dt(va[r], w2t[2], b2t[2])
+            kb = lin_dt(vb[r], w2t[2], b2t[2])
+            scores = torch.stack(
+                [loc_cos(ka, fr, vmr), loc_cos(kb, fr, vmr)], 1)
+            actions = torch.stack([va[r], vb[r]], 1)
+            amask = torch.arange(2, device=dev)[None] < count[r, None]
+            nv[r] = superlative(scores, actions, amask, mode[r], vmr)
+
+        r = on(Opcode.SUPERLATIVE_F)
+        if r.numel():
+            fr, vmr = feat[r], vm[r]
+            fb = rf[r, s[r, F_FB]]
+            kf = lin_dt(fb, w2t[2], b2t[2])                  # [n, F, H]
+            cosm = rd(cosine_matrix(kf, fr))                 # [n, F, F]
+            scores = (cosm + 1.0) * 0.49 * vmr[:, None, :]
+            nv[r] = superlative(scores, fb, vmr > 0, mode[r], vmr)
+
+        rv[ar, s[:, F_OUT_V]] = rd(nv)
+
+        # ---- frames producers -------------------------------------------
+        r = on(Opcode.FILTERFRAME_V, Opcode.FILTERFRAME_K)
+        if r.numel():
+            fr, vmr = feat[r], vm[r]
+            gk = (va[r] @ a["ffkw"])[:, 0] + a["ffab"][0, 0]
+            glog = (fr @ a["ffwf"])[:, :, 0]
+            gate = torch.where(op[r, None] == int(Opcode.FILTERFRAME_V),
+                               torch.sigmoid(glog + gk[:, None]),
+                               torch.ones_like(glog))
+            x2 = rd(gate[:, :, None] * fr)
+            y2 = x2 @ w2t[0] + b2t[0]
+            rf[r, s[r, F_OUT_F]] = rd(relu(y2) * vmr[:, :, None])
+
+        r = on(Opcode.TEMPORAL)
+        if r.numel():
+            vmr, md = vm[r], mode[r]
+            am = torch.where(count[r, None] == 2, (aa[r] + ab[r]) * 0.5,
+                             aa[r])
+            midx = torch.clamp(md - 1, min=0)
+            amd = rd(am)[:, None, :]
+            h1 = rd(relu(amd @ a["t1"][midx] + a["tb1"][midx]))
+            h2 = rd(relu(h1 @ a["t2"][midx] + a["tb2"][midx]))
+            g = torch.sigmoid(h2 @ a["t3"][midx] + a["tb3"][midx])[:, 0]
+            related = torch.where(md[:, None] == 0, am, g) * vmr
+            x2 = rd(related[:, :, None] * fa[r])
+            ry = relu(x2 @ w2t[1] + b2t[1])
+            ln = layer_norm({"scale": a["lns"][0], "bias": a["lnb"][0]}, ry)
+            rf[r, s[r, F_OUT_F]] = rd(ln)
+            ra[r, s[r, F_OUT_AB]] = rd(related)
+
+        r = on(Opcode.ATTNVIDEO)
+        if r.numel():
+            rf[r, s[r, F_OUT_F]] = rd(aa[r][:, :, None] * fa[r])
+
+        # ---- attn producers ---------------------------------------------
+        r = on(Opcode.AND_ATTN, Opcode.XORFRAME)
+        if r.numel():
+            v = torch.where(op[r, None] == int(Opcode.AND_ATTN),
+                            torch.minimum(aa[r], ab[r]),
+                            torch.abs(aa[r] - ab[r]))
+            ra[r, s[r, F_OUT_A]] = rd(v)
+
+        r = on(Opcode.HASITEM)
+        if r.numel():
+            hv = torch.sigmoid(feat[r][:, :, 0])
+            ra[r, s[r, F_OUT_A]] = rd(hv * vm[r])
+
+        r = on(Opcode.EXISTSFRAME)
+        if r.numel():
+            cos = cosine(fa[r], va[r][:, None, :])
+            ra[r, s[r, F_OUT_A]] = rd((cos + 1.0) * 0.49 * vm[r])
+
+        r = on(Opcode.RELATE)
+        if r.numel():
+            beta = a["beta"][0]
+            shifted = torch.where(mode[r, None] == 1, aa[r] - beta,
+                                  aa[r] + beta)
+            ra[r, s[r, F_OUT_A]] = rd(masked_softmax(shifted, vmask_b[r]))
+
+        r = on(Opcode.LOCALIZE)
+        if r.numel():
+            fr, vmr = feat[r], vm[r]
+            ka = lin_dt(va[r], w2t[2], b2t[2])
+            kb = lin_dt(vb[r], w2t[2], b2t[2])
+            ra[r, s[r, F_OUT_A]] = rd(loc_cos(ka, fr, vmr))
+            ra[r, s[r, F_OUT_AB]] = rd(loc_cos(kb, fr, vmr))
+
+    return rv.to(dt), rf.to(dt), ra.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+#: largest H, F and L the kernel's per-block shared arrays hold
+MAX_H, MAX_F, MAX_L = 1024, 256, 1024
+
+
+def _arg_shapes(B, T, F, H, Hh, L):
+    """The shape of every ``prepare_args`` tensor, in ``ARG_NAMES`` order."""
+    row, col, one = (1, H), (H, 1), (1, 1)
+    sq, w2, w3 = (H, H), (2 * H, H), (3 * H, H)
+    return (
+        (B, T, NSF), (B, F, Hh), (B, F, Hh), (B, 1, F), (B, L, Hh),
+        (B, L, Hh), (B, 1, L), (B, T, H),
+        (11, H, H), (11, 1, H), (11, H, H), (11, 1, H), (4, H, H),
+        (4, 1, H), sq, row,
+        w2, row, w2, row, w3, row, sq, row,
+        w2, row, sq, row, w3, row, sq, row,
+        sq, row, col, col, one, col, col, one,
+        row, row, (1, F), (3, F, F), (3, F, F), (3, F, F), (3, 1, F),
+        (3, 1, F), (3, 1, F),
+    )
+
+
+def mega_exec_call(meta, args):
+    """Executor over prepared args: plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (or an error). Returns (rv, rf, ra) in dt."""
+    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
+    dev = args[0].device
+    if dev.type == "cpu":
+        return mega_exec_reference(meta, args)
+    if dev.type != "cuda":
+        raise ValueError(f"mega_exec: unsupported device {dev}")
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mega_exec kernel: unsupported dtype {dt}")
+    if (H != 2 * Hh or not (2 <= H <= MAX_H) or not (1 <= F <= MAX_F)
+            or not (1 <= L <= MAX_L)):
+        raise ValueError(f"mega_exec kernel: H={H} (even, <= {MAX_H}), "
+                         f"F={F} (<= {MAX_F}), L={L} (<= {MAX_L})")
+    if len(args) != len(ARG_NAMES):
+        raise ValueError("mega_exec: wrong argument count")
+    for name, x, shape in zip(ARG_NAMES, args,
+                              _arg_shapes(B, T, F, H, Hh, L)):
+        _build.check_tensor(f"mega_exec {name}", x,
+                            torch.int32 if name == "scal" else dt, shape,
+                            dev)
+    rv = torch.empty(B, Nv, H, dtype=dt, device=dev)
+    rf = torch.empty(B, Nf, F, H, dtype=dt, device=dev)
+    ra = torch.empty(B, Na, F, dtype=dt, device=dev)
+    if B == 0:
+        return rv, rf, ra
+    # Per-example float32 workspace: stage-1 hidden / GEMM operand tile,
+    # the feat tile (persists across steps), and the temporal pre-LN rows.
+    ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * len(args))(*[x.data_ptr() for x in args])
+    lib = _build.build()
+    err = lib.stair_mega_exec_fwd(
+        ctypes.cast(ptrs, ctypes.c_void_p), len(args),
+        rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
+        B, T, Nv, Nf, Na, F, H, L,
+        int(dt == torch.bfloat16), int(bool(fsoft)),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "mega_exec")
+    _build.LAUNCHES["mega_exec"] += 1
+    return rv, rf, ra
+
+
+def mega_exec(cfg, mods, tables, trace_fields, video_halves, video_mask,
+              token_halves, token_mask, aux_vec=None):
+    """Run the whole executor over a batch; returns the three final
+    register files (rv [B, Nv+1, H], rf [B, Nf+1, F, H], ra [B, Na+1, F])
+    in the compute dtype."""
+    meta, args = prepare_args(
+        cfg, mods, tables, trace_fields, video_halves, video_mask,
+        token_halves, token_mask, aux_vec=aux_vec,
+    )
+    return mega_exec_call(meta, args)
