@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving forward on one NVIDIA GPU.
+"""Drive the PyTorch port's serving forward and train step on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +19,26 @@ Phases (any failure raises, and the script exits non-zero):
    native parse/lower with span linking, tokenization to ids, pinned H2D,
    device embedding gather, ``VideoNMN.forward``, logits fetch — for a few
    batches, with launch counters proving both kernels ran, and kernel vs
-   plain route on one batch.
+   plain route on one batch;
+6. BiLSTM training kernels (forward with state stacks, backward and its
+   dwh/dbias reduction) vs their plain versions at the training shapes
+   (B = 128, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
+   float32 and bf16, with holes and an all-padding row; two backward runs
+   must give identical bits;
+7. executor training kernels (forward with dropout 0.25, backward and its
+   weight-gradient reduction) vs their plain versions over the all-opcode
+   programs at H = 512, both Filter modes and both temporal modes, float32
+   (three runs, the last two on inputs moved by 1e-4 to move ReLU kinks:
+   all within 5e-2, two of three within 1e-4) and bf16 (within 1e-1); two
+   backward runs must give identical bits;
+8. the training slice at ``scripts/bench_train_step.py``'s configuration
+   (H = 512, video 1024, text 300, F = 64, 172 answers, 64 object types,
+   bf16, dropout 0.25, B = 128, fake supervision, Adam at lr 2e-4 with the
+   trainer's 1.0 -> 0.1 schedule): 10 steps on the kernel route with launch
+   counts per step and a falling loss, one step kernel vs plain route (the
+   loss in bf16; the gradients leaf by leaf in float32, where rounding
+   sites agree), ms per step on both routes, and each training kernel's
+   time beside its plain version's at these shapes.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Every time printed is measured in this
@@ -38,6 +57,15 @@ import torch
 NUM_BATCHES = 8
 BATCH = 1024
 QUESTION_LEN = 16
+#: the training phases' widths: scripts/bench_train_step.py's configuration
+HIDDEN, VIDEO_D, TEXT_D, FRAMES = 512, 1024, 300, 64
+TRAIN_BATCH = 128
+TRAIN_STEPS = 10
+#: per training step: video + question encoders through the train pair,
+#: the class table through the eval kernel, one executor pair
+TRAIN_LAUNCHES = {"bilstm": 1, "bilstm_train": 2, "bilstm_bwd": 2,
+                  "bilstm_dwh": 2, "mega_exec": 0, "mega_exec_train": 1,
+                  "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
 
 
 def log(msg):
@@ -51,33 +79,49 @@ def require(cond, msg):
 
 @contextlib.contextmanager
 def plain_route():
-    """Route the model's two kernel calls to their plain PyTorch versions
-    (on the same CUDA tensors) for a comparison run; fails if a kernel was
-    launched inside it all the same."""
+    """Route every kernel call of the model (serving and training) to its
+    plain PyTorch version (on the same CUDA tensors) for a comparison run;
+    fails if a kernel was launched inside it all the same."""
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
 
-    saved = TL.bilstm, TX.mega_exec_call
-    TL.bilstm, TX.mega_exec_call = TL.bilstm_reference, \
-        TX.mega_exec_reference
+    def lstm_train(*args, token_dtype=torch.float32):
+        return TL.bilstm_reference(*args, token_dtype=token_dtype,
+                                   return_stacks=True)
+
+    def mega_train(meta, args, rate, seed):
+        return TX.mega_exec_reference(meta, args, rate=rate, seed=seed)
+
+    swaps = [(TL, "bilstm", TL.bilstm_reference),
+             (TL, "bilstm_train_call", lstm_train),
+             (TL, "bilstm_bwd_call", TL.bilstm_bwd_reference),
+             (TX, "mega_exec_call", TX.mega_exec_reference),
+             (TX, "mega_exec_train_call", mega_train),
+             (TG, "mega_exec_bwd_call", TG.mega_exec_bwd_reference)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
     _build.reset_launches()
     try:
         yield
     finally:
-        TL.bilstm, TX.mega_exec_call = saved
+        for m, n, f in saved:
+            setattr(m, n, f)
     require(not any(_build.LAUNCHES.values()),
             f"the plain route launched kernels: {_build.LAUNCHES}")
 
 
 @contextlib.contextmanager
-def kernel_route():
-    """Fail unless every kernel was launched inside the block."""
+def kernel_route(keys):
+    """Fail unless every kernel named in ``keys`` was launched inside the
+    block."""
     from stair_tpu_torch.ops import _build
 
     _build.reset_launches()
     yield
-    require(all(_build.LAUNCHES.values()),
+    require(all(_build.LAUNCHES[k] for k in keys),
             f"the kernel route skipped a kernel: {_build.LAUNCHES}")
 
 
@@ -146,7 +190,7 @@ def phase_mega(dev):
             gen = torch.Generator().manual_seed(F)
             halves = [torch.randn(B, n, 256, generator=gen).to(dev, dtype)
                       for n in (F, F, L, L)]
-            mods = tree_map(lambda x: x.to(dtype),
+            mods = tree_map(lambda x: x.detach().to(dtype),
                             model.param_tree()["modules"])
             meta, args = TX.prepare_args(
                 cfg, mods, VideoNMN._fused_tables(mods), batch["trace"],
@@ -231,14 +275,14 @@ def phase_slice(dev, card):
 
     # ---- kernel route vs plain route on one batch -------------------------
     b0 = device_batch(hb0)
-    with kernel_route():
+    with kernel_route(("bilstm", "mega_exec")):
         kern = forward(b0).float()
     with plain_route():
         plain = forward(b0).float()
     torch.cuda.synchronize()
     agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
     require(agree >= 0.98, f"kernel/plain argmax agreement {agree}")
-    with kernel_route():
+    with kernel_route(("bilstm", "mega_exec")):
         dev_ms = cuda_time_ms(lambda: forward(b0), iters=5, warmup=1)
     with plain_route():
         plain_dev_ms = cuda_time_ms(lambda: forward(b0), iters=3, warmup=1)
@@ -250,7 +294,7 @@ def phase_slice(dev, card):
 
     # ---- each kernel on the main path's own inputs ----------------------
     dt = model.compute_dtype
-    p = model.param_tree()
+    p = tree_map(lambda x: x.detach(), model.param_tree())
     vargs = TL._prep(p["video_encoder"], b0["video"], b0["video_mask"], dt)
     qargs = TL._prep(p["text_encoder"], b0["question"], b0["question_mask"],
                      dt)
@@ -304,6 +348,376 @@ def phase_slice(dev, card):
     ]
 
 
+def rel_err(a, b):
+    """max |a - b| over max |b| (float32), the gradient comparisons'
+    measure: one bound per tensor whatever its scale."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+
+def phase_lstm_train(dev):
+    from stair_tpu_torch.ops import lstm as TL
+
+    gen = torch.Generator().manual_seed(1)
+    errs = {}
+    for name, L, D in (("video", FRAMES, VIDEO_D), ("question", QUESTION_LEN,
+                                                       TEXT_D)):
+        for dtype, ftol, btol in ((torch.float32, 1e-4, 1e-4),
+                                  (torch.bfloat16, 2e-2, 2e-2)):
+            args = lstm_inputs(gen, dev, TRAIN_BATCH, L, D, HIDDEN // 2, dtype)
+            out = TL.bilstm_train_call(*args, token_dtype=dtype)
+            torch.cuda.synchronize()
+            ref = TL.bilstm_reference(*args, token_dtype=dtype,
+                                      return_stacks=True)
+            fwd = max(max_err(out[:3], ref[:3]), max_err(out[3], ref[3]))
+            require(fwd <= ftol, f"bilstm_train {name} {dtype}: {fwd}")
+            require(out[0][5].abs().max().item() == 0.0,
+                    "all-padding row has nonzero tokens")
+            B, h = TRAIN_BATCH, HIDDEN // 2
+            dtok = [torch.randn(B, L, h, generator=gen).to(dev, dtype)
+                    for _ in range(2)]
+            dsent = torch.randn(B, 2 * h, generator=gen).to(dev)
+            kb = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
+            kb2 = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
+                    "bilstm backward is not deterministic")
+            rb = TL.bilstm_bwd_reference(*args, ref[3], *dtok, dsent)
+            bwd = {n: rel_err(x, y) for n, x, y in zip(
+                ("dxp_f", "dxp_b", "dwh_f", "dwh_b", "dbias_f", "dbias_b"),
+                kb, rb)}
+            worst = max(bwd.values())
+            require(worst <= btol, f"bilstm_bwd {name} {dtype}: {bwd}")
+            errs[(name, str(dtype))] = (fwd, max_err(kb, rb))
+            log(f"[lstm train] {name} B={B} L={L} D={D} h={h} {dtype}: "
+                f"forward+stacks max_abs_err {fwd:.3e} (atol {ftol}); "
+                f"backward max rel err {worst:.3e} (bound {btol}: "
+                f"{', '.join(f'{k} {v:.2e}' for k, v in bwd.items())}); "
+                "two backward runs bit-identical ok")
+    return errs
+
+
+def phase_mega_train(dev):
+    from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.testing import workload as W
+
+    rate, seed = 0.25, (1234567, 2 ** 31 - 5)
+    names = (("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux")
+             + TX.ARG_NAMES[TG.N_DATA:])
+    errs = {}
+    for F, attention in ((16, "parity"), (FRAMES, "softmax"),
+                         (FRAMES, "parity")):
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = NMNConfig(
+                hidden_size=HIDDEN, video_size=VIDEO_D, text_size=TEXT_D,
+                max_video_length=F, object_types=3, max_steps=16,
+                num_vec=10, num_frames=6, num_attn=8,
+                filter_attention=attention,
+                compute_dtype="float32" if dtype == torch.float32
+                else "bfloat16")
+            model = W.build_model(cfg, seed=4, device=dev)
+            batch = W.to_device(W.opcode_batch(
+                cfg, W.OPCODE_PROGRAMS * 2, seed=F + 1), dev)
+            B, L = batch["question"].shape[:2]
+            gen = torch.Generator().manual_seed(F + 1)
+            halves = [torch.randn(B, n, HIDDEN // 2, generator=gen)
+                      .to(dev, dtype)
+                      for n in (F, F, L, L)]
+            mods = tree_map(lambda x: x.detach().to(dtype),
+                            model.param_tree()["modules"])
+            gouts = None
+            ftol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 3e-2)
+            # The softmax Filter's keyword weights and bias shift every
+            # logit of one softmax alike, so their exact gradient is 0 and
+            # both sides hold float32 rounding noise: bound their size
+            # against the Filter logit weights' gradient instead.
+            vanish = ("fltk", "fltb") if attention == "softmax" else ()
+            # float32: a ReLU pre-activation within rounding of 0 can take
+            # the other side under the kernel's summation order, and its
+            # whole cotangent moves (up to ~2e-2 of a gradient at F = 64,
+            # H = 512). So the inputs are run three times, as drawn and
+            # twice with 1e-4 relative noise, which moves such kinks and
+            # leaves a logic error in place: every run within 5e-2, and
+            # two of three within 1e-4. bf16: one run within 1e-1.
+            runs = 3 if dtype == torch.float32 else 1
+            tight, loose = (1e-4, 5e-2) if runs == 3 else (1e-1, 1e-1)
+            worsts = []
+            for k in range(runs):
+                hk = halves if k == 0 else [
+                    h * (1 + 1e-4 * torch.randn(
+                        h.shape, generator=gen).to(dev, dtype))
+                    for h in halves]
+                meta, args = TX.prepare_args(
+                    cfg, mods, VideoNMN._fused_tables(mods), batch["trace"],
+                    hk[:2], batch["video_mask"], hk[2:],
+                    batch["question_mask"])
+                out = TX.mega_exec_train_call(meta, args, rate, seed)
+                torch.cuda.synchronize()
+                ref = TX.mega_exec_reference(meta, args, rate=rate, seed=seed)
+                for o, r, what in zip(out, ref, ("regs_vec", "regs_frames",
+                                                 "regs_attn")):
+                    torch.testing.assert_close(o.float(), r.float(),
+                                               rtol=ftol[0], atol=ftol[1],
+                                               msg=what)
+                if gouts is None:
+                    gouts = [torch.randn(o.shape, generator=gen).to(dev)
+                             for o in out]
+                kb = TG.mega_exec_bwd_call(meta, args, out, gouts, rate, seed)
+                if k == 0:
+                    kb2 = TG.mega_exec_bwd_call(meta, args, out, gouts, rate,
+                                                seed)
+                    torch.cuda.synchronize()
+                    require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
+                            "executor backward is not deterministic")
+                rb = TG.mega_exec_bwd_reference(meta, args, out, gouts, rate,
+                                                seed)
+                grads, plain = dict(zip(names, kb)), dict(zip(names, rb))
+                ref_scale = max(float(plain["fltw"].float().abs().max()),
+                                1e-12)
+                noise = max((float(t[n].float().abs().max()) / ref_scale
+                             for t in (grads, plain) for n in vanish),
+                            default=0.0)
+                require(noise <= 1e-3,
+                        f"mega_exec_bwd {vanish} not ~0: {noise}")
+                bwd = {n: rel_err(grads[n], plain[n]) for n in names
+                       if n not in vanish}
+                worst = max(bwd, key=bwd.get)
+                require(bwd[worst] <= loose,
+                        f"mega_exec_bwd F={F} {attention} {dtype} run {k}: "
+                        f"bound {loose}: {bwd}")
+                worsts.append((bwd[worst], worst))
+                if k == 0:
+                    e0 = (max_err(out, ref), max_err(kb, rb))
+            n_tight = sum(w <= tight for w, _ in worsts)
+            require(2 * n_tight > runs,
+                    f"mega_exec_bwd F={F} {attention} {dtype}: only "
+                    f"{n_tight} of {runs} runs within {tight}: {worsts}")
+            errs[(F, attention, str(dtype))] = e0
+            log(f"[mega_exec train] all {len(W.OPCODE_PROGRAMS)} opcode "
+                f"programs x2 H={HIDDEN} F={F} {attention} rate {rate} {dtype}: "
+                f"forward max_abs_err {e0[0]:.3e} (rtol {ftol[0]}, atol "
+                f"{ftol[1]}); backward over {len(bwd)} gradients max rel "
+                f"err per run {[(f'{w:.2e}', n) for w, n in worsts]} "
+                f"({n_tight} of {runs} within {tight}, all within {loose})"
+                + (f"; {'/'.join(vanish)} (0 in exact arithmetic) at "
+                   f"{noise:.2e} of the fltw gradient (bound 1e-3)"
+                   if vanish else "")
+                + "; two backward runs bit-identical ok")
+    return errs
+
+
+def phase_train(dev, card):
+    from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import lstm as TL
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.train.loop import make_train_step, trainer_defaults
+    from stair_tpu_torch.train.losses import total_loss
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    base = W.workload_config(hidden_size=HIDDEN, video_size=VIDEO_D,
+                             text_size=TEXT_D, max_video_length=FRAMES)
+    cfg = NMNConfig(**{**base.to_dict(), "compute_dtype": "bfloat16",
+                       "dropout": 0.25})
+    log(f"[train] config {json.dumps(cfg.to_dict())}")
+    batch = W.add_fake_supervision(
+        W.make_batch(cfg, batch_size=TRAIN_BATCH,
+                     question_len=QUESTION_LEN), cfg)
+    batch = W.to_device(batch, dev)
+    args = trainer_defaults()    # lr 2e-4, schedule 1.0 -> 0.1, window 32
+    model = W.build_model(cfg, seed=0, device=dev)
+
+    def grads_of(m, seed):
+        m.zero_grad(set_to_none=True)
+        loss, _ = total_loss(m, batch, torch.Generator().manual_seed(seed),
+                             1.0, 1.0, 1.0, 1.0,
+                             contrastive_window=args.contrastive_window)
+        loss.backward()
+        return float(loss.detach()), {
+            k: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+            for k, p in m.weights.items()}
+
+    def norm_rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    # ---- one step, kernel route vs plain route ---------------------------
+    # Gradients leaf by leaf in float32 (the same weights, batch and
+    # dropout masks): in bf16 the two routes round at different sites and
+    # ReLUs take different sides, so leaves move by up to ~0.17 (max) and
+    # ~0.09 (norm) with no logic at fault. In float32 a ReLU pre-activation
+    # within rounding of 0 still moves a leaf by up to ~2e-3 in norm (a
+    # logic error moves it by O(1)): bound 1e-2 on ||kernel - plain|| /
+    # ||plain|| per leaf. The bf16 step's loss agrees within 1e-4.
+    keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
+    model32 = W.build_model(NMNConfig(**{**cfg.to_dict(),
+                                         "compute_dtype": "float32"}),
+                            seed=0, device=dev)
+    for m, dtype in ((model32, "float32"), (model, "bfloat16")):
+        with kernel_route(keys):
+            lk, gk = grads_of(m, 7)
+        with plain_route():
+            lp, gp = grads_of(m, 7)
+        require(abs(lk - lp) <= 1e-4 * abs(lp),
+                f"{dtype} step loss kernel {lk} vs plain {lp}")
+        if dtype == "float32":
+            live = [k for k in gk if gp[k].abs().max() > 0]
+            rels = {k: norm_rel(gk[k], gp[k]) for k in live}
+            worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
+            mx = max(rel_err(gk[k], gp[k]) for k in live)
+            require(worst[0][1] <= 1e-2, f"kernel vs plain gradients {worst}")
+            log(f"[train] one step's float32 gradients, kernel vs plain route"
+                f" over {len(live)} leaves: worst norm rel err "
+                f"{[(k, f'{v:.2e}') for k, v in worst]} (bound 1e-2), median "
+                f"{float(np.median(list(rels.values()))):.2e}, max-based "
+                f"worst {mx:.2e}; loss {lk:.6f} vs {lp:.6f}")
+        else:
+            log(f"[train] one bf16 step's loss, kernel vs plain route: "
+                f"{lk:.6f} vs {lp:.6f} (bound 1e-4 relative)")
+    del model32
+
+    # ---- the counted main-path run: 10 steps on the kernel route --------
+    step = make_train_step(model, args)
+    step(batch, torch.Generator().manual_seed(100), 1.0, 1.0)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        m = step(batch, torch.Generator().manual_seed(i), 1.0, 1.0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    losses = [float(x) for x in losses]
+    for k, n in TRAIN_LAUNCHES.items():
+        require(launches[k] == n * TRAIN_STEPS,
+                f"{k} launches {launches[k]} != {n * TRAIN_STEPS}")
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(np.mean(losses[-3:]) < np.mean(losses[:3]),
+            f"loss did not fall: {losses}")
+    log(f"[train] {TRAIN_STEPS} steps B={TRAIN_BATCH}: losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}; "
+        f"{wall * 1e3 / TRAIN_STEPS:.3f} ms per step (host clock, "
+        f"synchronized); card {card}")
+    k_ms = cuda_time_ms(lambda: step(batch, torch.Generator().manual_seed(
+        200), 1.0, 1.0), iters=5, warmup=1)
+    with plain_route():
+        p_ms = cuda_time_ms(lambda: step(
+            batch, torch.Generator().manual_seed(300), 1.0, 1.0),
+            iters=2, warmup=1)
+    log(f"[train] ms per step (CUDA events): kernel route {k_ms:.3f}, plain "
+        f"route {p_ms:.3f}; card {card}")
+
+    # ---- each training kernel at these shapes, and its plain version ----
+    dt = model.compute_dtype
+    p = tree_map(lambda x: x.detach(), model.param_tree())
+    vargs = TL._prep(p["video_encoder"], batch["video"], batch["video_mask"],
+                     dt)
+    qargs = TL._prep(p["text_encoder"], batch["question"],
+                     batch["question_mask"], dt)
+    kv = TL.bilstm_train_call(*vargs, token_dtype=dt)
+    kq = TL.bilstm_train_call(*qargs, token_dtype=dt)
+    rv_ = TL.bilstm_reference(*vargs, token_dtype=dt, return_stacks=True)
+    rq_ = TL.bilstm_reference(*qargs, token_dtype=dt, return_stacks=True)
+    e_lt = max(max_err(kv[:3], rv_[:3]), max_err(kq[:3], rq_[:3]))
+    gen = torch.Generator().manual_seed(5)
+
+    def cot(a):
+        return torch.randn(a.shape, generator=gen).to(dev, a.dtype)
+
+    vcot = (cot(kv[0]), cot(kv[1]), cot(kv[2]))
+    qcot = (cot(kq[0]), cot(kq[1]), cot(kq[2]))
+    kbv = TL.bilstm_bwd_call(*vargs, kv[3], *vcot)
+    rbv = TL.bilstm_bwd_reference(*vargs, kv[3], *vcot)
+    kbq = TL.bilstm_bwd_call(*qargs, kq[3], *qcot)
+    rbq = TL.bilstm_bwd_reference(*qargs, kq[3], *qcot)
+    e_lb = max(max_err(kbv, rbv), max_err(kbq, rbq))
+    r_lb = max(max(rel_err(x, y) for x, y in zip(kbv, rbv)),
+               max(rel_err(x, y) for x, y in zip(kbq, rbq)))
+    require(e_lt <= 2e-2 and r_lb <= 2e-2,
+            f"bilstm train main-path errors {e_lt} {r_lb}")
+    mods = tree_map(lambda x: x.to(dt), p["modules"])
+    meta, margs = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], kv[:2],
+        batch["video_mask"].to(dt), kq[:2], batch["question_mask"])
+    seed = (11, 22)
+    km = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
+    rm = TX.mega_exec_reference(meta, margs, rate=cfg.dropout, seed=seed)
+    e_mt = max_err(km, rm)
+    for o, r in zip(km, rm):
+        torch.testing.assert_close(o.float(), r.float(), rtol=1e-2, atol=3e-2)
+    mcot = [cot(o) for o in km]
+    kmb = TG.mega_exec_bwd_call(meta, margs, km, mcot, cfg.dropout, seed)
+    rmb = TG.mega_exec_bwd_reference(meta, margs, km, mcot, cfg.dropout,
+                                     seed)
+    e_mb = max_err(kmb, rmb)
+    r_mb = max(rel_err(x, y) for x, y in zip(kmb, rmb))
+    require(r_mb <= 1e-1, f"mega_exec_bwd main-path rel err {r_mb}")
+    log(f"[main-path inputs] bilstm_train max_abs_err {e_lt:.3e}; "
+        f"bilstm_bwd max_abs_err {e_lb:.3e} (max rel {r_lb:.2e}); "
+        f"mega_exec_train max_abs_err {e_mt:.3e}; mega_exec_bwd max_abs_err "
+        f"{e_mb:.3e} (max rel {r_mb:.2e}) ok")
+    t = {
+        "bilstm_train": cuda_time_ms(
+            lambda: (TL.bilstm_train_call(*vargs, token_dtype=dt),
+                     TL.bilstm_train_call(*qargs, token_dtype=dt)), iters=5),
+        "bilstm_train_plain": cuda_time_ms(
+            lambda: (TL.bilstm_reference(*vargs, token_dtype=dt,
+                                         return_stacks=True),
+                     TL.bilstm_reference(*qargs, token_dtype=dt,
+                                         return_stacks=True)), iters=2),
+        "bilstm_bwd": cuda_time_ms(
+            lambda: (TL.bilstm_bwd_call(*vargs, kv[3], *vcot),
+                     TL.bilstm_bwd_call(*qargs, kq[3], *qcot)), iters=5),
+        "bilstm_bwd_plain": cuda_time_ms(
+            lambda: (TL.bilstm_bwd_reference(*vargs, kv[3], *vcot),
+                     TL.bilstm_bwd_reference(*qargs, kq[3], *qcot)),
+            iters=2),
+        "mega_exec_train": cuda_time_ms(
+            lambda: TX.mega_exec_train_call(meta, margs, cfg.dropout, seed),
+            iters=5),
+        "mega_exec_train_plain": cuda_time_ms(
+            lambda: TX.mega_exec_reference(meta, margs, rate=cfg.dropout,
+                                           seed=seed), iters=2),
+        "mega_exec_bwd": cuda_time_ms(
+            lambda: TG.mega_exec_bwd_call(meta, margs, km, mcot,
+                                          cfg.dropout, seed), iters=3),
+        "mega_exec_bwd_plain": cuda_time_ms(
+            lambda: TG.mega_exec_bwd_reference(meta, margs, km, mcot,
+                                               cfg.dropout, seed),
+            iters=1, warmup=1),
+    }
+    for k, v in t.items():
+        log(f"[kernel time] {k}: {v:.3f} ms per call (CUDA events, bf16, "
+            f"train-step shapes B={TRAIN_BATCH}); card {card}")
+    return [
+        {"name": "bilstm_train", "route": "cuda",
+         "source": "stair_tpu_torch/ops/csrc/bilstm.cu",
+         "replaces": "stair_tpu/ops/lstm.py:583",
+         "launches": launches["bilstm_train"], "max_abs_err": e_lt,
+         "ms": t["bilstm_train"], "plain_ms": t["bilstm_train_plain"]},
+        {"name": "bilstm_bwd", "route": "cuda",
+         "source": "stair_tpu_torch/ops/csrc/bilstm.cu",
+         "replaces": "stair_tpu/ops/lstm.py:390",
+         "launches": launches["bilstm_bwd"], "max_abs_err": e_lb,
+         "ms": t["bilstm_bwd"], "plain_ms": t["bilstm_bwd_plain"]},
+        {"name": "mega_exec_train", "route": "cuda",
+         "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
+         "replaces": "stair_tpu/ops/mega_grad.py:1016",
+         "launches": launches["mega_exec_train"], "max_abs_err": e_mt,
+         "ms": t["mega_exec_train"], "plain_ms": t["mega_exec_train_plain"]},
+        {"name": "mega_exec_bwd", "route": "cuda",
+         "source": "stair_tpu_torch/ops/csrc/mega_grad.cu",
+         "replaces": "stair_tpu/ops/mega_grad.py:111",
+         "launches": launches["mega_exec_bwd"], "max_abs_err": e_mb,
+         "ms": t["mega_exec_bwd"], "plain_ms": t["mega_exec_bwd_plain"]},
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
@@ -329,6 +743,9 @@ def main():
     phase_lstm(dev)
     phase_mega(dev)
     kernels = phase_slice(dev, card)
+    phase_lstm_train(dev)
+    phase_mega_train(dev)
+    kernels += phase_train(dev, card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

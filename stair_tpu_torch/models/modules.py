@@ -1,7 +1,8 @@
 """Module helpers and parameter init (port of ``stair_tpu/models/modules.py``).
 
-Only what the serving forward needs is here: the small building blocks the
-executor's plain version and the decoder use, and ``init_module_params``
+The small building blocks the executor's plain version, the decoder and
+the losses use (with ``dropout`` and ``l2_normalize`` for training), and
+``init_module_params``
 with the JAX package's key tree and shapes. Linear weights keep the
 ``[in, out]`` convention, so parameters carry over key path by key path.
 """
@@ -17,6 +18,23 @@ COS_EPS = 1e-8  # torch.nn.CosineSimilarity eps
 
 def linear(p, x):
     return x @ p["w"] + p["b"]
+
+
+def dropout(x, rate, generator, deterministic):
+    """Inverted dropout with a keep mask drawn from ``generator`` (a
+    ``torch.Generator``; its numbers cannot equal ``jax.random``'s)."""
+    if deterministic or rate == 0.0:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = (u >= rate).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def l2_normalize(x, dim=-1, eps=1e-12):
+    """torch F.normalize semantics (norm clamped below by eps), with the
+    grad-safe sqrt: exactly-zero rows give zero, not NaN, cotangents."""
+    norm = _safe_sqrt(torch.sum(x * x, dim=dim, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
 
 
 def _safe_sqrt(s):

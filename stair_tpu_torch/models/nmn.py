@@ -10,7 +10,13 @@ plain versions on the CPU. Parameters keep the JAX package's key paths and
 params tree over unchanged.
 
 Only the executor route is ported (the JAX package's XLA ragged-dot scan is
-its CPU/training fallback); the forward is deterministic (no dropout).
+its CPU fallback). ``forward(batch, generator, deterministic=False)`` is
+the training forward: the differentiable encoders (``bilstm_forward_train``,
+TPU kernels #2/#3), the training executor (``mega_exec_train``, kernels
+#5/#6, counter-hash dropout seeded from ``generator``) and decoder dropout.
+The serving forward (``deterministic=True``, the default) runs under
+``torch.no_grad`` on the eval kernels. There are no route knobs: CPU tensors
+take the plain versions, CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -21,8 +27,11 @@ import torch
 from torch import nn
 
 from stair_tpu_torch.models import modules as M
-from stair_tpu_torch.ops.lstm import bilstm_forward, init_lstm_params
+from stair_tpu_torch.ops.lstm import (
+    bilstm_forward, bilstm_forward_train, init_lstm_params,
+)
 from stair_tpu_torch.ops.mega_exec import mega_exec
+from stair_tpu_torch.ops.mega_grad import mega_exec_train
 
 
 @dataclass(frozen=True)
@@ -94,8 +103,7 @@ class VideoNMN(nn.Module):
                 generator = torch.Generator().manual_seed(0)
             params = self.init(generator, device)
         self.weights = nn.ParameterDict({
-            k: nn.Parameter(torch.as_tensor(v, device=device),
-                            requires_grad=False)
+            k: nn.Parameter(torch.as_tensor(v, device=device))
             for k, v in _flatten(params).items()
         })
 
@@ -138,16 +146,20 @@ class VideoNMN(nn.Module):
         """[B, L, D] -> (tokens [B, L, H] dt, sentence [B, H] f32,
         (fwd, bwd) halves [B, L, H/2] dt). The recurrence goes to
         ``bilstm_reference`` for CPU tensors and to the kernel for CUDA
-        tensors."""
+        tensors: the differentiable training pair when autograd is on
+        (``bilstm_forward_train``), the eval kernel otherwise."""
         dt = self.compute_dtype
         mm = dt if dt != torch.float32 else None
-        return bilstm_forward(enc_params, x, mask, mm_dtype=mm,
-                              token_dtype=dt)
+        fn = bilstm_forward_train if torch.is_grad_enabled() else \
+            bilstm_forward
+        return fn(enc_params, x, mask, mm_dtype=mm, token_dtype=dt)
 
-    def encode_sentences(self, embeddings, mask):
+    def encode_sentences(self, embeddings, mask, params=None):
         """Batch-encode standalone phrases -> sentence features [N, H]."""
-        return self._encode_batched(
-            self.param_tree()["text_encoder"], embeddings, mask)[1]
+        if params is None:
+            params = self.param_tree()
+        return self._encode_batched(params["text_encoder"], embeddings,
+                                    mask)[1]
 
     # -- the executor --------------------------------------------------------
 
@@ -190,8 +202,10 @@ class VideoNMN(nn.Module):
         }
 
     def run_trace(self, params, trace_fields, video_halves, video_mask,
-                  token_halves, token_mask, aux_vec=None):
-        """Execute all programs; returns the final register files (dt)."""
+                  token_halves, token_mask, aux_vec=None, seed=None):
+        """Execute all programs; returns the final register files (dt).
+        With ``seed`` (two int32 values) it is the training executor with
+        dropout at ``config.dropout``."""
         dt = self.compute_dtype
         mods = params["modules"]
         if dt != torch.float32:
@@ -201,13 +215,18 @@ class VideoNMN(nn.Module):
         halves = tuple(tuple(p.to(dt) for p in pair)
                        for pair in (video_halves, token_halves))
         aux_in = None if aux_vec is None else aux_vec.to(dt)
+        if seed is not None:
+            return mega_exec_train(
+                self.config, mods, tables, trace_fields, halves[0],
+                video_mask, halves[1], token_mask, self.config.dropout, seed,
+                aux_vec=aux_in)
         return mega_exec(self.config, mods, tables, trace_fields, halves[0],
                          video_mask, halves[1], token_mask, aux_vec=aux_in)
 
     # -- full forward --------------------------------------------------------
 
-    @torch.no_grad()
-    def forward(self, batch):
+    def forward(self, batch, generator: torch.Generator | None = None,
+                deterministic: bool = True):
         """Encoders + executor + answer decoder on a padded batch.
 
         ``batch`` keys: question [B, L, text_size], question_mask [B, L],
@@ -216,9 +235,24 @@ class VideoNMN(nn.Module):
         [B, T, La, text_size] and aux_mask [B, T, La]. Returns the JAX
         forward's dict: logits, question_feature, token_features,
         regs_vec, regs_frames, regs_attn (float32) and root.
+
+        ``deterministic=False`` with a ``generator`` is the training
+        forward (autograd on, dropout drawn from ``generator``: the
+        executor's hash seed, then the decoder mask); without a generator
+        the forward is deterministic, as in JAX without an rng.
         """
+        if generator is None or deterministic:
+            with torch.no_grad():
+                return self._forward(batch, None)
+        return self._forward(batch, generator)
+
+    def _forward(self, batch, gen):
         cfg = self.config
         params = self.param_tree()
+        if gen is None:
+            params = tree_map(lambda x: x.detach(), params)
+        seed = None if gen is None else tuple(torch.randint(
+            0, 2 ** 31 - 1, (2,), generator=gen, device=gen.device).tolist())
         _, _, video_halves = self._encode_batched(
             params["video_encoder"], batch["video"], batch["video_mask"])
         token_features, question_feature, token_halves = (
@@ -230,11 +264,12 @@ class VideoNMN(nn.Module):
             B_, T_, La, td = ae.shape
             aux_vec = self.encode_sentences(
                 ae.reshape(B_ * T_, La, td),
-                batch["aux_mask"].reshape(B_ * T_, La),
+                batch["aux_mask"].reshape(B_ * T_, La), params,
             ).reshape(B_, T_, -1)
         rv, rf, ra = self.run_trace(
             params, batch["trace"], video_halves, batch["video_mask"],
-            token_halves, batch["question_mask"], aux_vec=aux_vec)
+            token_halves, batch["question_mask"], aux_vec=aux_vec,
+            seed=seed)
 
         B = rv.shape[0]
         ar = torch.arange(B, device=rv.device)
@@ -251,6 +286,7 @@ class VideoNMN(nn.Module):
 
         hidden = torch.cat([root, question_feature], dim=-1)
         h = torch.relu(M.linear(params["decoder"]["l1"], hidden))
+        h = M.dropout(h, cfg.dropout, gen, gen is None)
         logits = M.linear(params["decoder"]["l2"], h)
         return {
             "logits": logits,
@@ -261,6 +297,26 @@ class VideoNMN(nn.Module):
             "regs_attn": ra,
             "root": root,
         }
+
+
+def choice_logits(model, out, cand_emb, cand_mask, cand_valid, params=None):
+    """Score multiple-choice candidates (STAR; the port of
+    ``stair_tpu.models.nmn.choice_logits``): candidates are text-encoded
+    and scored against a projection of [program output; question feature].
+    ``cand_emb`` [B, C, Lc, text]; returns [B, C] with -inf on invalid
+    slots."""
+    if params is None:
+        params = model.param_tree()
+    B, C, Lc, text = cand_emb.shape
+    reps = model.encode_sentences(
+        cand_emb.reshape(B * C, Lc, text), cand_mask.reshape(B * C, Lc),
+        params).reshape(B, C, -1)                           # [B, C, H]
+    query = torch.relu(M.linear(
+        params["choice_proj"],
+        torch.cat([out["root"], out["question_feature"]], dim=-1)))
+    scores = torch.einsum("bh,bch->bc", query, reps)
+    return torch.where(cand_valid > 0, scores,
+                       torch.full_like(scores, -torch.inf))
 
 
 def tree_map(fn, tree):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 At first use every ``csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
+``sm_90a`` (one ``nvcc`` process per source, all started together) and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library lands in ``build/kernels/<hash>/`` at the repo root
 (listed in ``.gitignore``), keyed by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached library.
@@ -9,8 +10,21 @@ edited source rebuilds and an unchanged one loads the cached library.
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
 ``check`` raises when that is not 0. ``LAUNCHES`` holds one plain integer
-per kernel, which each wrapper increments where it launches its kernel
-and nowhere else.
+per kernel launch site, which each wrapper increments where it launches
+its kernel and nowhere else:
+
+- ``bilstm``, ``bilstm_train``: the BiLSTM forward, eval and training
+  (``csrc/bilstm.cu``);
+- ``bilstm_bwd``, ``bilstm_dwh``: its backward, the reverse walk and the
+  dwh/dbias reduction launch;
+- ``mega_exec``, ``mega_exec_train``: the executor forward, eval and
+  training (``csrc/mega_exec.cu``);
+- ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward
+  (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
+  reduction launch.
+
+``header_ints`` reads ``constexpr int`` values from a ``csrc`` header, so
+a limit the kernels check has one home (``csrc/mega_limits.cuh``).
 """
 
 from __future__ import annotations
@@ -19,6 +33,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,11 +47,15 @@ BUILD_ROOT = os.path.join(_REPO, "build", "kernels")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 #: kernel name -> launches since the last ``reset_launches``
-LAUNCHES = {"bilstm": 0, "mega_exec": 0}
+LAUNCHES = {
+    "bilstm": 0, "bilstm_train": 0, "bilstm_bwd": 0, "bilstm_dwh": 0,
+    "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
+    "mega_exec_wgrad": 0,
+}
 
 _lib = None
 #: what the last build printed (ptxas register/spill report) and took
@@ -46,6 +65,20 @@ BUILD_INFO = {"seconds": 0.0, "log": "", "cached": False}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def header_ints(name: str) -> dict:
+    """``constexpr int NAME = value;`` definitions of ``csrc/<name>``."""
+    with open(os.path.join(_CSRC, name)) as f:
+        text = f.read()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr\s+int\s+(\w+)\s*=\s*(-?\d+)\s*;", text)}
+
+
+def pointers(tensors):
+    """A ctypes array of the tensors' device pointers (a ``void* const*``
+    argument)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _nvcc():
@@ -81,33 +114,65 @@ def build():
         BUILD_INFO["cached"] = True
     else:
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *srcs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_INFO["log"] = proc.stdout + proc.stderr
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs = [os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
+                for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        BUILD_INFO["log"] = "".join(logs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n%s" % BUILD_INFO["log"])
+        tmp = f"{so}.{tag}"
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        for obj in objs:
+            os.remove(obj)
         if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (%d):\n%s" % (proc.returncode, BUILD_INFO["log"])
-            )
+            raise RuntimeError("nvcc link failed:\n%s"
+                               % (proc.stdout + proc.stderr))
         os.replace(tmp, so)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
+    U, Fl = ctypes.c_uint, ctypes.c_float
     lib.stair_bilstm_fwd.restype = I
     lib.stair_bilstm_fwd.argtypes = [
         P, P, P, P, P, P, P,       # xp_f, xp_b, mask, wh_f, wh_b, bias_f/b
         P, P, P,                   # tok_f, tok_b, sent
+        P,                         # state stacks (null in eval)
         I, I, I, I,                # B, L, h, bf16
         P,                         # stream
     ]
+    for fn in (lib.stair_bilstm_bwd, lib.stair_bilstm_dwh):
+        fn.restype = I
+        fn.argtypes = [P, I, I, I, I, P]   # pointers, B, L, h, bf16, stream
     lib.stair_mega_exec_fwd.restype = I
     lib.stair_mega_exec_fwd.argtypes = [
         P, I,                      # pointer table, its length
         P, P, P, P,                # rv, rf, ra, workspace
         I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
         I, I,                      # bf16, fsoft
+        I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
         P,                         # stream
     ]
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"stair_mega_exec_bwd_{sfx}")
+        fn.restype = I
+        fn.argtypes = [
+            P, I,                      # pointer table, its length
+            P,                         # workspace
+            I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
+            I,                         # fsoft
+            I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh,
+            P,                         # scale; stream
+        ]
+        fn = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")
+        fn.restype = I
+        fn.argtypes = [P, I, I, I, I, I, P]  # pointers, n, B, T, F, H, stream
     _lib = lib
     return lib
 
@@ -121,10 +186,22 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def on_cpu(name, t) -> bool:
+    """The wrappers' route: True for a CPU tensor (the plain version runs),
+    False for a CUDA tensor (the kernel launches); any other device
+    raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
 def check_tensor(name, t, dtype, shape, device):
     """Raise unless ``t`` is what a kernel takes: on ``device``, of
-    ``dtype`` and ``shape``, contiguous, and not requiring grad (the CUDA
-    kernels have no backward yet)."""
+    ``dtype`` and ``shape``, contiguous, and detached. A kernel reads raw
+    device pointers and records nothing for autograd; gradients go through
+    the ``torch.autograd.Function``s around the forward and backward
+    kernels (``lstm.BiLSTMTrain``, ``mega_grad.MegaExecTrain``), which
+    hand the kernels detached tensors."""
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, "
                          f"got {t.device}")
@@ -136,4 +213,5 @@ def check_tensor(name, t, dtype, shape, device):
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if t.requires_grad:
-        raise ValueError(f"{name}: the CUDA kernels have no backward yet")
+        raise ValueError(f"{name}: a kernel takes detached tensors; "
+                         "differentiate through the autograd Functions")

@@ -1,8 +1,13 @@
-// Executor megakernel, forward only (eval, no dropout).
+// Executor megakernel, forward: eval, and training with dropout.
 //
-// Replaces the TPU kernel stair_tpu/ops/mega_exec.py _make_kernel
-// (train=False), reached through forward_call / mega_exec. Inputs are the
-// tensors of ops/mega_exec.py prepare_args, in ARG_NAMES order.
+// Replaces the TPU kernel stair_tpu/ops/mega_exec.py _make_kernel, reached
+// through forward_call: train=False (mega_exec) and, with a seed, the
+// training forward (ops/mega_grad.py _train_fn / mega_exec_train), which
+// multiplies the JAX kernel's eight dropout sites by the counter-hash mask
+// hash_keep (common.cuh) keyed on (seed, example, step, site), so the
+// backward kernel (mega_grad.cu) recomputes the masks instead of storing
+// them. Inputs are the tensors of ops/mega_exec.py prepare_args, in
+// ARG_NAMES order.
 //
 // Design. One thread block per example runs that example's whole
 // instruction trace: it loads its own [T, 17] int32 instruction row step by
@@ -32,7 +37,7 @@
 // block. mma.sync / wgmma tiles and grouping examples by expert so that
 // weight tiles are shared are later work.
 
-#include "common.cuh"
+#include "mega_common.cuh"
 
 namespace {
 
@@ -42,43 +47,17 @@ using stair::sigmoid_f;
 using stair::to_f;
 using stair::warp_max;
 using stair::warp_sum;
-
-constexpr int NSF = 17;
-enum {
-  F_OP, F_E1, F_VA, F_VB, F_VC, F_FA, F_FB, F_AA, F_AB, F_MODE, F_COUNT,
-  F_SS, F_SE, F_OUT_V, F_OUT_F, F_OUT_A, F_OUT_AB
-};
-// stair_tpu/ir/lowering.py Opcode
-enum {
-  OP_PUSH = 1, OP_ANDV = 2, OP_ANDA = 3, OP_CMP = 4, OP_EQ = 5,
-  OP_CHOOSE = 6, OP_XOR = 7, OP_XORF = 8, OP_QUERY = 9, OP_TOA = 10,
-  OP_HAS = 11, OP_EX = 12, OP_EXF = 13, OP_LOC = 14, OP_SUPV = 15,
-  OP_SUPF = 16, OP_TEMP = 17, OP_ATTNV = 18, OP_FV = 19, OP_FK = 20,
-  OP_FFV = 21, OP_FFK = 22, OP_REL = 23
-};
-
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int MAX_H = 1024;
-constexpr int MAX_F = 256;
-constexpr int NARGS = 49;
-constexpr float COS_EPS = 1e-8f;
-
-// GEMM tile: BM x BN outputs per pass, BK-deep k slices, 4 x 4 per thread.
-constexpr int BM = 64, BN = 64, BK = 16;
+using stair::MAX_F;
+using stair::MAX_H;
+using stair::MAX_L;
+using namespace stair::mega;
 
 template <typename T>
-struct Args {
-  const int* scal;
-  const T *vf_a, *vf_b, *vm, *tok_a, *tok_b, *tm, *aux;
-  const T *w1u, *b1u, *w2u, *b2u, *w2t, *b2t, *fdw, *fdb;
-  const T *cw, *cb, *eqw, *eqb, *xw, *xb, *qw, *qb;
-  const T *taw1, *tab1, *taw2, *tab2, *exw1, *exb1, *exw2, *exb2;
-  const T *supw, *supb, *ffwf, *ffkw, *ffab, *fltw, *fltk, *fltb;
-  const T *lns, *lnb, *beta, *t1, *t2, *t3, *tb1, *tb2, *tb3;
+struct Args : Tensors<T> {
   T *rv, *rf, *ra;
   float* ws;
   int B, T_, Nv, Nf, Na, F, H, L, fsoft;
+  stair::Dropout dr;
 };
 
 struct Smem {
@@ -90,108 +69,19 @@ struct Smem {
   int ins[NSF];
 };
 
-// Sum of v over the block; every thread gets the total.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  float r = lane < NWARPS ? red[lane] : 0.f;
-  return warp_sum(r);
-}
-
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  float r = lane < NWARPS ? red[lane] : -INFINITY;
-  return warp_max(r);
-}
-
 // C[M, N] = A[M, K] (row stride lda) @ W[K, N]; epi(m, n, acc) per output.
 // Called by the whole block; returns after a barrier.
 template <typename TA, typename TW, typename Epi>
 __device__ void gemm(const TA* A, int lda, const TW* W, int M, int K, int N,
                      Smem& sm, Epi epi) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-          const int mm = i / BK, kk = i % BK;
-          const int m = m0 + mm, k = k0 + kk;
-          sm.As[kk][mm] = (m < M && k < K) ? to_f(A[(size_t)m * lda + k]) : 0.f;
-        }
-        for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-          const int kk = i / BN, nn = i % BN;
-          const int k = k0 + kk, n = n0 + nn;
-          sm.Ws[kk][nn] = (k < K && n < N) ? to_f(W[(size_t)k * N + n]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = sm.As[kk][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = sm.Ws[kk][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-          if (m < M && n < N) epi(m, n, acc[i][j]);
-        }
-    }
-  }
-  __syncthreads();
-}
-
-// out[n] = sum over segments s of (x_s[0:K] @ W[s*K:(s+1)*K, n]), the
-// segment dots summed left to right in float32 (the JAX kernel's
-// dot(va, W[:H]) + dot(vb, W[H:]) form). Each thread owns columns n.
-template <typename T, typename Epi>
-__device__ void vecmat(const float* x0, const float* x1, const float* x2,
-                       const T* W, int K, int N, Epi epi) {
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float y = 0.f;
-    const float* xs[3] = {x0, x1, x2};
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      if (xs[s] == nullptr) break;
-      const float* x = xs[s];
-      const T* w = W + (size_t)s * K * N + n;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) acc = fmaf(x[k], to_f(w[(size_t)k * N]), acc);
-      y = s == 0 ? acc : y + acc;
-    }
-    epi(n, y);
-  }
+  stair::mega::gemm<float, false, false>(A, lda, 1, W, N, 1, M, K, N,
+                                         &sm.As[0][0], &sm.Ws[0][0], epi);
 }
 
 // Masked softmax over F entries held one per thread (f = threadIdx.x);
 // an all-masked row gives 0. Returns this thread's weight.
 __device__ float block_masked_softmax(float x, bool valid, Smem& sm) {
-  const float m = block_max(valid ? x : -INFINITY, sm.red);
-  const float e = valid ? expf(x - m) : 0.f;
-  const float s = block_sum(e, sm.red);
-  return e / fmaxf(s, 1e-30f);
+  return stair::mega::block_masked_softmax(x, valid, sm.red);
 }
 
 // Localize/superlative cosine row of keyword kw [H] (shared) against the
@@ -264,6 +154,7 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const stair::Dropout dr = a.dr;
 
   T* rv = a.rv + (size_t)b * Nv * H;
   T* rf = a.rf + (size_t)b * Nf * F * H;
@@ -330,11 +221,13 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       const T* w2 = a.w2u + (size_t)e1 * H * H;
       const T* b2 = a.b2u + (size_t)e1 * H;
       gemm(fa, H, w1, F, H, H, sm, [&](int m, int n, float acc) {
-        ws_h[(size_t)m * H + n] = rd<T>(fmaxf(acc + to_f(b1[n]), 0.f));
+        ws_h[(size_t)m * H + n] =
+            rd<T>(fmaxf(acc + to_f(b1[n]), 0.f) * dr.keep(m, n, b, t, 0));
       });
       gemm(ws_h, H, w2, F, H, H, sm, [&](int m, int n, float acc) {
         const float v = acc + to_f(b2[n]);
-        feat[(size_t)m * H + n] = rd<T>(is_filter ? fmaxf(v, 0.f) : v);
+        feat[(size_t)m * H + n] =
+            rd<T>(is_filter ? fmaxf(v, 0.f) * dr.keep(m, n, b, t, 1) : v);
       });
     }
 
@@ -407,12 +300,14 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       __syncthreads();
     } else if (op == OP_QUERY) {
       vecmat<T>(sm.va, nullptr, nullptr, a.qw, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f);
+        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f) *
+                   dr.keep(0, n, b, t, 4);
       });
       __syncthreads();
     } else if (op == OP_TOA) {
       vecmat<T>(sm.va, sm.vb, nullptr, a.taw1, H, H, [&](int n, float y) {
-        sm.x1[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f);
+        sm.x1[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f) *
+                         dr.keep(0, n, b, t, 5));
       });
       __syncthreads();
       vecmat<T>(sm.x1, nullptr, nullptr, a.taw2, H, H, [&](int n, float y) {
@@ -425,11 +320,13 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
         sm.x1[j] = rd<T>(sm.vb[j] * sm.va[j]);
       __syncthreads();
       vecmat<T>(sm.vb, sm.va, sm.x1, a.exw1, H, H, [&](int n, float y) {
-        sm.x2[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f);
+        sm.x2[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f) *
+                         dr.keep(0, n, b, t, 6));
       });
       __syncthreads();
       vecmat<T>(sm.x2, nullptr, nullptr, a.exw2, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f);
+        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f) *
+                   dr.keep(0, n, b, t, 7);
       });
       __syncthreads();
     } else if (op == OP_FV || op == OP_FK) {
@@ -564,8 +461,9 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       __syncthreads();
       const T* b20 = a.b2t;
       gemm(ws_h, H, a.w2t, F, H, H, sm, [&](int m, int n, float acc) {
-        fout[(size_t)m * H + n] =
-            from_f<T>(fmaxf(acc + to_f(b20[n]), 0.f) * sm.vm[m]);
+        fout[(size_t)m * H + n] = from_f<T>(
+            fmaxf(acc + to_f(b20[n]), 0.f) * dr.keep(m, n, b, t, 2) *
+            sm.vm[m]);
       });
     } else if (op == OP_TEMP) {
       const int midx = mode - 1 > 0 ? mode - 1 : 0;
@@ -604,7 +502,8 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       const T* b21 = a.b2t + H;
       gemm(ws_h, H, a.w2t + (size_t)H * H, F, H, H, sm,
            [&](int m, int n, float acc) {
-             ws_y[(size_t)m * H + n] = fmaxf(acc + to_f(b21[n]), 0.f);
+             ws_y[(size_t)m * H + n] =
+                 fmaxf(acc + to_f(b21[n]), 0.f) * dr.keep(m, n, b, t, 2);
            });
       for (int f = warp; f < F; f += NWARPS) {
         const float* y = ws_y + (size_t)f * H;
@@ -636,7 +535,8 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
                                           : fabsf(sm.aa[f] - sm.ab[f]));
     } else if (op == OP_HAS) {
       for (int f = tid; f < F; f += THREADS)
-        aout[f] = from_f<T>(sigmoid_f(feat[(size_t)f * H]) * sm.vm[f]);
+        aout[f] = from_f<T>(sigmoid_f(feat[(size_t)f * H]) *
+                            dr.keep(0, f, b, t, 3) * sm.vm[f]);
     } else if (op == OP_EXF) {
       float n2 = 0.f;
       for (int k = tid; k < H; k += THREADS) n2 += sm.va[k] * sm.va[k];
@@ -689,18 +589,9 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
 template <typename T>
 int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
            int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
-           int fsoft, cudaStream_t stream) {
+           int fsoft, stair::Dropout dr, cudaStream_t stream) {
   Args<T> a;
-  int i = 0;
-  a.scal = (const int*)p[i++];
-  const T** fields[] = {
-      &a.vf_a, &a.vf_b, &a.vm, &a.tok_a, &a.tok_b, &a.tm, &a.aux,
-      &a.w1u, &a.b1u, &a.w2u, &a.b2u, &a.w2t, &a.b2t, &a.fdw, &a.fdb,
-      &a.cw, &a.cb, &a.eqw, &a.eqb, &a.xw, &a.xb, &a.qw, &a.qb,
-      &a.taw1, &a.tab1, &a.taw2, &a.tab2, &a.exw1, &a.exb1, &a.exw2, &a.exb2,
-      &a.supw, &a.supb, &a.ffwf, &a.ffkw, &a.ffab, &a.fltw, &a.fltk, &a.fltb,
-      &a.lns, &a.lnb, &a.beta, &a.t1, &a.t2, &a.t3, &a.tb1, &a.tb2, &a.tb3};
-  for (const T** f : fields) *f = (const T*)p[i++];
+  a.fill(p);
   a.rv = (T*)rv;
   a.rf = (T*)rf;
   a.ra = (T*)ra;
@@ -714,6 +605,7 @@ int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   a.H = H;
   a.L = L;
   a.fsoft = fsoft;
+  a.dr = dr;
   mega_exec_kernel<T><<<B, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -722,19 +614,24 @@ int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
 
 // ptrs: the NARGS tensors of ops/mega_exec.py prepare_args (ARG_NAMES
 // order); rv/rf/ra: the output register files (written in full); ws: a
-// float32 [B, 3, F, H] workspace. H even and <= 1024, F <= 256, L <= 1024.
-// Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue).
+// float32 [B, 3, F, H] workspace. H even and <= MAX_H, F <= MAX_F, L <=
+// MAX_L (mega_limits.cuh). drop != 0: training forward, dropout with
+// hash_keep(seed0, seed1, thresh, scale); drop = 0: eval. Returns
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue).
 extern "C" int stair_mega_exec_fwd(const void* const* ptrs, int nptrs,
                                    void* rv, void* rf, void* ra, void* ws,
                                    int B, int T, int Nv, int Nf, int Na,
                                    int F, int H, int L, int bf16, int fsoft,
+                                   int drop, int seed0, int seed1,
+                                   unsigned thresh, float scale,
                                    void* stream) {
-  if (nptrs != NARGS || H > MAX_H || F > MAX_F || L > MAX_H || (H & 1))
+  if (nptrs != NARGS || H > MAX_H || F > MAX_F || L > MAX_L || (H & 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const stair::Dropout dr{drop, seed0, seed1, thresh, scale};
   if (bf16)
     return launch<__nv_bfloat16>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F,
-                                 H, L, fsoft, st);
+                                 H, L, fsoft, dr, st);
   return launch<float>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
-                       st);
+                       dr, st);
 }

@@ -14,12 +14,14 @@ over B and looping over T that mirrors ``_make_kernel`` opcode by opcode,
 rounding to the compute dtype at the same sites (``lin_dt`` and friends).
 ``mega_exec_call`` is the kernel wrapper: plain version for CPU tensors,
 the CUDA kernel for CUDA tensors, or an error; ``mega_exec`` packs and
-calls it, as the JAX function does. Eval only: no dropout.
+calls it, as the JAX function does.
+
+Training: ``mega_exec_train_call`` is the forward with the counter-hash
+dropout ``hash_keep`` at the JAX kernel's eight sites (TPU kernel #5); the
+backward and the autograd Function are in ``ops/mega_grad.py``.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -34,6 +36,57 @@ from stair_tpu_torch.utils.device import exact_f32
 (F_OP, F_E1, F_VA, F_VB, F_VC, F_FA, F_FB, F_AA, F_AB, F_MODE, F_COUNT,
  F_SS, F_SE, F_OUT_V, F_OUT_F, F_OUT_A, F_OUT_AB) = range(17)
 NSF = 17
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) without int64 overflow."""
+    lo = (x * (c & 0xFFFF)) & _U32
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def hash_keep(shape, b, t, site, seed0, seed1, rate, device=None):
+    """The executor's dropout mask (port of ``stair_tpu/ops/mega_exec.py
+    hash_keep``): float32 ``{0, 1/(1-rate)}`` over ``shape`` (rows, cols).
+
+    JAX computes a murmur3-style hash of (row, column, example ``b``, step
+    ``t``, ``site``, seed) in wrapping int32 arithmetic with logical right
+    shifts; here the same bits come from int64 tensors reduced mod 2^32
+    after every multiply and add. ``b`` may be an int or an int64 tensor of
+    example indices ``[n]``; the result is then ``[n, rows, cols]``."""
+    rows, cols = shape
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    h = (_mul32(r, 0x9E3779B1) + _mul32(c, 0x85EBCA77)) & _U32
+    b = torch.as_tensor(b, dtype=torch.int64, device=device)
+    key = ((seed0 & _U32) + _mul32(b & _U32, 0xC2B2AE3D)
+           + _mul32(torch.tensor(t & _U32, device=device), 0x27D4EB2F)
+           + _mul32(torch.tensor(site & _U32, device=device), 0x165667B1)
+           ) & _U32
+    h = h ^ key.reshape(key.shape + (1, 1))
+    h = (h + (seed1 & _U32)) & _U32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    u = (h >> 8) & 0xFFFFFF
+    thresh = int(rate * float(1 << 24))
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    return torch.where(u >= thresh, scale.to(device),
+                       torch.zeros((), device=device))
+
+
+def dropout_params(rate, seed):
+    """The kernels' dropout arguments ``(on, seed0, seed1, thresh,
+    scale)``; off when ``seed`` is None or ``rate`` is 0, as in JAX."""
+    if seed is None or rate <= 0.0:
+        return 0, 0, 0, 0, 1.0
+    s0, s1 = (int(v) for v in seed)
+    return 1, s0, s1, int(rate * float(1 << 24)), float(1.0 / (1.0 - rate))
+
 
 #: names of ``prepare_args``'s tensors, in order (the kernel's pointer table)
 ARG_NAMES = (
@@ -165,13 +218,38 @@ def prepare_args(cfg, mods, tables, trace_fields, video_halves,
 # Plain version
 # ---------------------------------------------------------------------------
 
-def mega_exec_reference(meta, args):
+class _Abs(torch.autograd.Function):
+    """``|x|`` with JAX's slope at 0 (+1), where torch's ``abs`` has 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def mega_exec_reference(meta, args, rate=0.0, seed=None):
     """Eager executor over ``prepare_args`` output, batched over B.
 
     Values are carried in float32 holding compute-dtype numbers; ``rd``
     rounds to the compute dtype exactly where the JAX kernel casts, and
     every matmul multiplies compute-dtype values with float32 accumulation
     (``preferred_element_type=f32``). Returns ``(rv, rf, ra)`` in dt.
+
+    With ``seed`` (two ints) and ``rate`` > 0 it is the training forward:
+    ``hash_keep`` dropout at the JAX kernel's sites 0-7. It is
+    differentiable (the plain version of the backward kernel is autograd
+    through it): ``|x|`` has slope +1 at 0 and ``min`` splits ties, as in
+    JAX. Register writes are gradient-transparent (``put``): every step
+    that writes a slot receives the cotangent of the slot's final value,
+    as the JAX backward kernel gives it by reading the final cotangent
+    files of an SSA machine. That differs from plain autodiff only for
+    slots written more than once: the scratch slots, which take the zero
+    writes and Localize's second score row when it has one keyword.
     """
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = args[0].device
@@ -214,8 +292,22 @@ def mega_exec_reference(meta, args):
         pooled = (w[:, :, None] * actions).sum(1)
         return relu(lin_dt(pooled, a["supw"], a["supb"][0]))
 
+    def put(file, rows, idx, val):
+        old = file[rows, idx]
+        file[rows, idx] = val + (old - old.detach())
+
     def rows_of(mask):
         return torch.nonzero(mask).flatten()
+
+    drop_on, s0, s1, _, _ = dropout_params(rate, seed)
+
+    def drop(x, r, t, site):
+        """x [n, rows, cols] or [n, cols] (one row) of examples r."""
+        if not drop_on:
+            return x
+        shape = tuple(x.shape[1:]) if x.dim() == 3 else (1, x.shape[-1])
+        m = hash_keep(shape, r, t, site, s0, s1, rate, dev)
+        return x * (m if x.dim() == 3 else m[:, 0])
 
     pos = torch.arange(L, device=dev)
     for t in range(T):
@@ -230,17 +322,18 @@ def mega_exec_reference(meta, args):
         is_filter = (op >= int(Opcode.FILTER_V)) & (
             op <= int(Opcode.FILTERFRAME_K))
 
-        ra[ar, s[:, F_OUT_A]] = 0.0
-        ra[ar, s[:, F_OUT_AB]] = 0.0
+        put(ra, ar, s[:, F_OUT_A], 0.0)
+        put(ra, ar, s[:, F_OUT_AB], 0.0)
 
         # ---- stage 1: expert two-layer frames MLP (null expert 9) ------
         for e in torch.unique(e1).tolist():
             if e == 9:
                 continue
             r = rows_of(e1 == e)
-            h = rd(relu(fa[r] @ a["w1u"][e] + a["b1u"][e]))
+            h = rd(drop(relu(fa[r] @ a["w1u"][e] + a["b1u"][e]), r, t, 0))
             h2 = h @ a["w2u"][e] + a["b2u"][e]
-            feat[r] = rd(torch.where(is_filter[r, None, None], relu(h2), h2))
+            feat[r] = rd(torch.where(is_filter[r, None, None],
+                                     drop(relu(h2), r, t, 1), h2))
 
         nv = torch.zeros(B, H, device=dev)
 
@@ -283,19 +376,19 @@ def mega_exec_reference(meta, args):
 
         r = on(Opcode.XOR)
         if r.numel():
-            d = rd(torch.abs(va[r] - vb[r]))
+            d = rd(_Abs.apply(va[r] - vb[r]))
             xw = a["xw"]
             y = d @ xw[:H] + va[r] @ xw[H:2 * H] + vb[r] @ xw[2 * H:]
             nv[r] = relu(rd(rd(y) + a["xb"][0]))
 
         r = on(Opcode.QUERY)
         if r.numel():
-            nv[r] = relu(lin_dt(va[r], a["qw"], a["qb"][0]))
+            nv[r] = drop(relu(lin_dt(va[r], a["qw"], a["qb"][0])), r, t, 4)
 
         r = on(Opcode.TOACTION)
         if r.numel():
             y = va[r] @ a["taw1"][:H] + vb[r] @ a["taw1"][H:]
-            h = relu(rd(rd(y) + a["tab1"][0]))
+            h = rd(drop(relu(rd(rd(y) + a["tab1"][0])), r, t, 5))
             nv[r] = relu(lin_dt(h, a["taw2"], a["tab2"][0]))
 
         r = on(Opcode.EXISTS)
@@ -303,8 +396,8 @@ def mega_exec_reference(meta, args):
             prod = rd(vb[r] * va[r])
             w1 = a["exw1"]
             y = vb[r] @ w1[:H] + va[r] @ w1[H:2 * H] + prod @ w1[2 * H:]
-            h = relu(rd(rd(y) + a["exb1"][0]))
-            nv[r] = relu(lin_dt(h, a["exw2"], a["exb2"][0]))
+            h = rd(drop(relu(rd(rd(y) + a["exb1"][0])), r, t, 6))
+            nv[r] = drop(relu(lin_dt(h, a["exw2"], a["exb2"][0])), r, t, 7)
 
         r = on(Opcode.FILTER_V, Opcode.FILTER_K)
         if r.numel():
@@ -340,7 +433,7 @@ def mega_exec_reference(meta, args):
             scores = (cosm + 1.0) * 0.49 * vmr[:, None, :]
             nv[r] = superlative(scores, fb, vmr > 0, mode[r], vmr)
 
-        rv[ar, s[:, F_OUT_V]] = rd(nv)
+        put(rv, ar, s[:, F_OUT_V], rd(nv))
 
         # ---- frames producers -------------------------------------------
         r = on(Opcode.FILTERFRAME_V, Opcode.FILTERFRAME_K)
@@ -353,7 +446,8 @@ def mega_exec_reference(meta, args):
                                torch.ones_like(glog))
             x2 = rd(gate[:, :, None] * fr)
             y2 = x2 @ w2t[0] + b2t[0]
-            rf[r, s[r, F_OUT_F]] = rd(relu(y2) * vmr[:, :, None])
+            put(rf, r, s[r, F_OUT_F],
+                rd(drop(relu(y2), r, t, 2) * vmr[:, :, None]))
 
         r = on(Opcode.TEMPORAL)
         if r.numel():
@@ -367,47 +461,48 @@ def mega_exec_reference(meta, args):
             g = torch.sigmoid(h2 @ a["t3"][midx] + a["tb3"][midx])[:, 0]
             related = torch.where(md[:, None] == 0, am, g) * vmr
             x2 = rd(related[:, :, None] * fa[r])
-            ry = relu(x2 @ w2t[1] + b2t[1])
+            ry = drop(relu(x2 @ w2t[1] + b2t[1]), r, t, 2)
             ln = layer_norm({"scale": a["lns"][0], "bias": a["lnb"][0]}, ry)
-            rf[r, s[r, F_OUT_F]] = rd(ln)
-            ra[r, s[r, F_OUT_AB]] = rd(related)
+            put(rf, r, s[r, F_OUT_F], rd(ln))
+            put(ra, r, s[r, F_OUT_AB], rd(related))
 
         r = on(Opcode.ATTNVIDEO)
         if r.numel():
-            rf[r, s[r, F_OUT_F]] = rd(aa[r][:, :, None] * fa[r])
+            put(rf, r, s[r, F_OUT_F], rd(aa[r][:, :, None] * fa[r]))
 
         # ---- attn producers ---------------------------------------------
         r = on(Opcode.AND_ATTN, Opcode.XORFRAME)
         if r.numel():
             v = torch.where(op[r, None] == int(Opcode.AND_ATTN),
                             torch.minimum(aa[r], ab[r]),
-                            torch.abs(aa[r] - ab[r]))
-            ra[r, s[r, F_OUT_A]] = rd(v)
+                            _Abs.apply(aa[r] - ab[r]))
+            put(ra, r, s[r, F_OUT_A], rd(v))
 
         r = on(Opcode.HASITEM)
         if r.numel():
-            hv = torch.sigmoid(feat[r][:, :, 0])
-            ra[r, s[r, F_OUT_A]] = rd(hv * vm[r])
+            hv = drop(torch.sigmoid(feat[r][:, :, 0]), r, t, 3)
+            put(ra, r, s[r, F_OUT_A], rd(hv * vm[r]))
 
         r = on(Opcode.EXISTSFRAME)
         if r.numel():
             cos = cosine(fa[r], va[r][:, None, :])
-            ra[r, s[r, F_OUT_A]] = rd((cos + 1.0) * 0.49 * vm[r])
+            put(ra, r, s[r, F_OUT_A], rd((cos + 1.0) * 0.49 * vm[r]))
 
         r = on(Opcode.RELATE)
         if r.numel():
             beta = a["beta"][0]
             shifted = torch.where(mode[r, None] == 1, aa[r] - beta,
                                   aa[r] + beta)
-            ra[r, s[r, F_OUT_A]] = rd(masked_softmax(shifted, vmask_b[r]))
+            put(ra, r, s[r, F_OUT_A],
+                rd(masked_softmax(shifted, vmask_b[r])))
 
         r = on(Opcode.LOCALIZE)
         if r.numel():
             fr, vmr = feat[r], vm[r]
             ka = lin_dt(va[r], w2t[2], b2t[2])
             kb = lin_dt(vb[r], w2t[2], b2t[2])
-            ra[r, s[r, F_OUT_A]] = rd(loc_cos(ka, fr, vmr))
-            ra[r, s[r, F_OUT_AB]] = rd(loc_cos(kb, fr, vmr))
+            put(ra, r, s[r, F_OUT_A], rd(loc_cos(ka, fr, vmr)))
+            put(ra, r, s[r, F_OUT_AB], rd(loc_cos(kb, fr, vmr)))
 
     return rv.to(dt), rf.to(dt), ra.to(dt)
 
@@ -416,8 +511,10 @@ def mega_exec_reference(meta, args):
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-#: largest H, F and L the kernel's per-block shared arrays hold
-MAX_H, MAX_F, MAX_L = 1024, 256, 1024
+#: largest H, F and L the executor kernels' per-block arrays hold, read
+#: from their one home, ``csrc/mega_limits.cuh``
+_LIMITS = _build.header_ints("mega_limits.cuh")
+MAX_H, MAX_F, MAX_L = _LIMITS["MAX_H"], _LIMITS["MAX_F"], _LIMITS["MAX_L"]
 
 
 def _arg_shapes(B, T, F, H, Hh, L):
@@ -437,28 +534,47 @@ def _arg_shapes(B, T, F, H, Hh, L):
     )
 
 
+def check_args(key, meta, args):
+    """Raise unless the executor kernels take ``args``; returns the
+    device."""
+    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
+    dev = args[0].device
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{key} kernel: unsupported dtype {dt}")
+    if (H != 2 * Hh or not (2 <= H <= MAX_H) or not (1 <= F <= MAX_F)
+            or not (1 <= L <= MAX_L)):
+        raise ValueError(f"{key} kernel: H={H} (even, <= {MAX_H}), "
+                         f"F={F} (<= {MAX_F}), L={L} (<= {MAX_L})")
+    if len(args) != len(ARG_NAMES):
+        raise ValueError(f"{key}: wrong argument count")
+    for name, x, shape in zip(ARG_NAMES, args,
+                              _arg_shapes(B, T, F, H, Hh, L)):
+        _build.check_tensor(f"{key} {name}", x,
+                            torch.int32 if name == "scal" else dt, shape,
+                            dev)
+    return dev
+
+
 def mega_exec_call(meta, args):
     """Executor over prepared args: plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (or an error). Returns (rv, rf, ra) in dt."""
-    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
-    dev = args[0].device
-    if dev.type == "cpu":
+    if _build.on_cpu("mega_exec", args[0]):
         return mega_exec_reference(meta, args)
-    if dev.type != "cuda":
-        raise ValueError(f"mega_exec: unsupported device {dev}")
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"mega_exec kernel: unsupported dtype {dt}")
-    if (H != 2 * Hh or not (2 <= H <= MAX_H) or not (1 <= F <= MAX_F)
-            or not (1 <= L <= MAX_L)):
-        raise ValueError(f"mega_exec kernel: H={H} (even, <= {MAX_H}), "
-                         f"F={F} (<= {MAX_F}), L={L} (<= {MAX_L})")
-    if len(args) != len(ARG_NAMES):
-        raise ValueError("mega_exec: wrong argument count")
-    for name, x, shape in zip(ARG_NAMES, args,
-                              _arg_shapes(B, T, F, H, Hh, L)):
-        _build.check_tensor(f"mega_exec {name}", x,
-                            torch.int32 if name == "scal" else dt, shape,
-                            dev)
+    return _launch("mega_exec", meta, args, dropout_params(0.0, None))
+
+
+def mega_exec_train_call(meta, args, rate, seed):
+    """Training forward (TPU kernel #5): ``mega_exec_call`` with
+    ``hash_keep`` dropout at ``rate`` keyed on ``seed`` (two int32 values).
+    Plain version for CPU tensors, the kernel for CUDA tensors."""
+    if _build.on_cpu("mega_exec_train", args[0]):
+        return mega_exec_reference(meta, args, rate=rate, seed=seed)
+    return _launch("mega_exec_train", meta, args, dropout_params(rate, seed))
+
+
+def _launch(key, meta, args, drop):
+    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
+    dev = check_args(key, meta, args)
     rv = torch.empty(B, Nv, H, dtype=dt, device=dev)
     rf = torch.empty(B, Nf, F, H, dtype=dt, device=dev)
     ra = torch.empty(B, Na, F, dtype=dt, device=dev)
@@ -467,17 +583,16 @@ def mega_exec_call(meta, args):
     # Per-example float32 workspace: stage-1 hidden / GEMM operand tile,
     # the feat tile (persists across steps), and the temporal pre-LN rows.
     ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(args))(*[x.data_ptr() for x in args])
     lib = _build.build()
     err = lib.stair_mega_exec_fwd(
-        ctypes.cast(ptrs, ctypes.c_void_p), len(args),
+        _build.pointers(args), len(args),
         rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
         B, T, Nv, Nf, Na, F, H, L,
-        int(dt == torch.bfloat16), int(bool(fsoft)),
+        int(dt == torch.bfloat16), int(bool(fsoft)), *drop,
         _build.stream_ptr(dev),
     )
-    _build.check(err, "mega_exec")
-    _build.LAUNCHES["mega_exec"] += 1
+    _build.check(err, key)
+    _build.LAUNCHES[key] += 1
     return rv, rf, ra
 
 

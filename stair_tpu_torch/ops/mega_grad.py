@@ -1,0 +1,191 @@
+"""The executor's training path (port of ``stair_tpu/ops/mega_grad.py``).
+
+``mega_exec_train`` runs the executor forward with counter-hash dropout
+(``mega_exec.mega_exec_train_call``, TPU kernel #5) inside
+``MegaExecTrain``, a ``torch.autograd.Function`` over ``prepare_args``'
+tuple, whose backward is ``mega_exec_bwd_call`` (TPU kernel #6). As in the
+JAX package, ``prepare_args`` (the casts to the compute dtype, the fused
+expert tables, the temporal band matrices) stays outside the Function, so
+the weight gradients reach the float32 master parameters through ordinary
+autograd.
+
+``mega_exec_bwd_call`` is the kernel wrapper: for CPU tensors it runs the
+plain version ``mega_exec_bwd_reference`` (torch autograd through the plain
+training forward ``mega_exec_reference``); for CUDA tensors it launches
+``csrc/mega_grad.cu`` (the reverse walk ``mega_exec_bwd``, then the weight
+gradient reduction ``mega_exec_wgrad``) or raises. Cotangents enter cast to
+the compute dtype; weight gradients leave in float32 and the Function casts
+them to each argument's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stair_tpu_torch.ops import _build
+from stair_tpu_torch.ops import mega_exec as TX
+
+#: args-tuple layout: 8 data entries then the weights. Gradients are owed
+#: for DATA_GRAD_IDX (vf_a, vf_b, tok_a, tok_b, aux) and every weight.
+N_DATA = 8
+DATA_GRAD_IDX = (1, 2, 4, 5, 7)
+NSLOT = 5
+
+#: record tables of the reduction launch: (ARG_NAMES of weight and bias,
+#: experts, input rows as a multiple of H), in mega_grad.cu's order
+TABLES = (
+    ("w1u", "b1u", 11, 1), ("w2u", "b2u", 11, 1), ("w2t", "b2t", 4, 1),
+    ("fdw", "fdb", 1, 1), ("cw", "cb", 1, 2), ("eqw", "eqb", 1, 2),
+    ("xw", "xb", 1, 3), ("qw", "qb", 1, 1), ("taw1", "tab1", 1, 2),
+    ("taw2", "tab2", 1, 1), ("exw1", "exb1", 1, 3), ("exw2", "exb2", 1, 1),
+    ("supw", "supb", 1, 1),
+)
+
+
+def small_tables(H, F):
+    """(name, size) of the small tables in a per-example partial, in
+    mega_grad.cu ``Small``'s order."""
+    return (("ffwf", H), ("ffkw", H), ("ffab", 1), ("fltw", H), ("fltk", H),
+            ("fltb", 1), ("lns", H), ("lnb", H), ("beta", F),
+            ("t1", 3 * F * F), ("t2", 3 * F * F), ("t3", 3 * F * F),
+            ("tb1", 3 * F), ("tb2", 3 * F), ("tb3", 3 * F))
+
+
+def workspace_floats(Nv, Nf, Na, F, H, L, T):
+    """Per-example float32 workspace of the walk (mega_grad.cu ``Ws``)."""
+    return (Nv * H + Na * F + (Nf + 7) * F * H + 2 * F * F + L * H + T * H)
+
+
+def mega_exec_bwd_reference(meta, args, outs, gouts, rate=0.0, seed=None):
+    """The plain backward: torch autograd through ``mega_exec_reference``
+    (the training forward, same dropout masks). Returns ``(dvf_a, dvf_b,
+    dtok_a, dtok_b, daux)`` in the compute dtype and the weight gradients
+    in float32, in ``ARG_NAMES`` order from index ``N_DATA``."""
+    dt = meta[9]
+    want = list(DATA_GRAD_IDX) + list(range(N_DATA, len(args)))
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(i in want)
+                  for i, a in enumerate(args)]
+        new = TX.mega_exec_reference(meta, leaves, rate=rate, seed=seed)
+        pairs = [(o, g.to(dt)) for o, g in zip(new, gouts)
+                 if o.requires_grad]
+        grads = torch.autograd.grad(
+            [o for o, _ in pairs], [leaves[i] for i in want],
+            [g for _, g in pairs], allow_unused=True)
+    grads = [torch.zeros_like(leaves[i]) if g is None else g
+             for i, g in zip(want, grads)]
+    data = tuple(g.to(dt) for g in grads[:len(DATA_GRAD_IDX)])
+    return data + tuple(g.float() for g in grads[len(DATA_GRAD_IDX):])
+
+
+def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None):
+    """Backward (TPU kernel #6): plain version for CPU tensors, the kernels
+    for CUDA tensors. ``outs`` are the forward's final files (rv, rf, ra),
+    ``gouts`` their cotangents. Same contract as
+    ``mega_exec_bwd_reference``."""
+    if _build.on_cpu("mega_exec_bwd", args[0]):
+        return mega_exec_bwd_reference(meta, args, outs, gouts, rate, seed)
+    return _launch_bwd(meta, args, outs, gouts,
+                       TX.dropout_params(rate, seed))
+
+
+def _launch_bwd(meta, args, outs, gouts, drop):
+    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
+    dev = TX.check_args("mega_exec_bwd", meta, args)
+    if F > 256:
+        raise ValueError(f"mega_exec_bwd kernel: F={F} (<= 256)")
+    gouts = tuple(g.to(dt).contiguous() for g in gouts)
+    for name, x in zip(("rv", "rf", "ra", "drv", "drf", "dra"),
+                       tuple(outs) + gouts):
+        shape = {"v": (B, Nv, H), "f": (B, Nf, F, H), "a": (B, Na, F)}
+        _build.check_tensor(f"mega_exec_bwd {name}", x, dt,
+                            shape[name[-1]], dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dvid = torch.zeros(B, F, H, dtype=dt, device=dev)
+    dtok = torch.zeros(B, L, H, dtype=dt, device=dev)
+    daux = torch.zeros(B, T, H, dtype=dt, device=dev)
+    n_small = sum(n for _, n in small_tables(H, F))
+    nrec = B * T
+    meta_rec = torch.full((nrec, NSLOT, 3), -1, dtype=torch.int32,
+                          device=dev)
+    recs = [torch.empty(nrec, F, H, **f32) for _ in range(6)] + [
+        torch.empty(nrec, 3 * H, **f32), torch.empty(nrec, H, **f32),
+        torch.empty(nrec, H, **f32), torch.empty(nrec, H, **f32)]
+    small = torch.empty(B, n_small, **f32)
+    wgrads = [(torch.zeros(E, K * H, H, **f32), torch.zeros(E, H, **f32))
+              for _, _, E, K in TABLES]
+    dsmall = torch.zeros(n_small, **f32)
+    if B > 0:
+        ws = torch.empty(B, workspace_floats(Nv, Nf, Na, F, H, L, T), **f32)
+        lib = _build.build()
+        stream = _build.stream_ptr(dev)
+        sfx = "bf16" if dt == torch.bfloat16 else "f32"
+        ptrs = (*args, *outs, *gouts, dvid, dtok, daux, meta_rec, *recs,
+                small)
+        err = getattr(lib, f"stair_mega_exec_bwd_{sfx}")(
+            _build.pointers(ptrs), len(ptrs), ws.data_ptr(),
+            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop, stream)
+        _build.check(err, "mega_exec_bwd")
+        _build.LAUNCHES["mega_exec_bwd"] += 1
+        wptrs = (meta_rec, *recs, small,
+                 *[t for pair in wgrads for t in pair], dsmall)
+        err = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")(
+            _build.pointers(wptrs), len(wptrs), B, T, F, H, stream)
+        _build.check(err, "mega_exec_wgrad")
+        _build.LAUNCHES["mega_exec_wgrad"] += 1
+    by_name = {}
+    shapes = dict(zip(TX.ARG_NAMES, TX._arg_shapes(B, T, F, H, Hh, L)))
+    for (wn, bn, _, _), (dw, db) in zip(TABLES, wgrads):
+        by_name[wn] = dw.reshape(shapes[wn])
+        by_name[bn] = db.reshape(shapes[bn])
+    o = 0
+    for name, n in small_tables(H, F):
+        by_name[name] = dsmall[o:o + n].reshape(shapes[name])
+        o += n
+    weights = tuple(by_name[n] for n in TX.ARG_NAMES[N_DATA:])
+    return (dvid[..., :Hh].contiguous(), dvid[..., Hh:].contiguous(),
+            dtok[..., :Hh].contiguous(), dtok[..., Hh:].contiguous(),
+            daux) + weights
+
+
+class MegaExecTrain(torch.autograd.Function):
+    """``(meta, rate, seed, *args) -> (rv, rf, ra)`` with the hand-written
+    backward (the port of ``_train_fn``'s custom VJP). The forward and
+    backward calls get detached tensors; the masks are recomputed from
+    ``seed``, not stored."""
+
+    @staticmethod
+    def forward(ctx, meta, rate, seed, *args):
+        dargs = tuple(a.detach() for a in args)
+        outs = TX.mega_exec_train_call(meta, dargs, rate, seed)
+        ctx.meta, ctx.rate, ctx.seed = meta, rate, seed
+        ctx.save_for_backward(*dargs, *outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, grv, grf, gra):
+        saved = ctx.saved_tensors
+        # the saved outputs come back attached to the graph
+        args, outs = saved[:-3], tuple(o.detach() for o in saved[-3:])
+        gouts = tuple(torch.zeros_like(o) if g is None else g
+                      for g, o in zip((grv, grf, gra), outs))
+        grads = mega_exec_bwd_call(ctx.meta, args, outs, gouts, ctx.rate,
+                                   ctx.seed)
+        d_args = [None] * len(args)
+        for i, g in zip(DATA_GRAD_IDX, grads[:len(DATA_GRAD_IDX)]):
+            d_args[i] = g
+        for i, g in enumerate(grads[len(DATA_GRAD_IDX):], start=N_DATA):
+            d_args[i] = g.to(args[i].dtype)
+        return (None, None, None, *d_args)
+
+
+def mega_exec_train(cfg, mods, tables, trace_fields, video_halves,
+                    video_mask, token_halves, token_mask, rate, seed,
+                    aux_vec=None):
+    """Training executor: ``mega_exec``'s contract plus ``rate`` (dropout)
+    and ``seed`` (two int32 values). Differentiable w.r.t. the module
+    weights, the video/token direction stacks and ``aux_vec``."""
+    meta, args = TX.prepare_args(
+        cfg, mods, tables, trace_fields, video_halves, video_mask,
+        token_halves, token_mask, aux_vec=aux_vec)
+    return MegaExecTrain.apply(meta, float(rate), tuple(seed), *args)

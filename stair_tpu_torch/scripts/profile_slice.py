@@ -1,14 +1,24 @@
-"""Where the serving forward's device time goes, on one NVIDIA GPU.
+"""Where the serving forward's or the train step's device time goes, on
+one NVIDIA GPU.
 
-    python -m stair_tpu_torch.scripts.profile_slice [--steps 3] [--trace PATH]
+    python -m stair_tpu_torch.scripts.profile_slice [--train] [--steps 3]
+        [--trace PATH]
 
-Builds the bench configuration (``testing.workload.ServingBatches``
-defaults: H = 512, video 1024, text 300, F = 64, 172 answers, bf16, B =
-1024, the 128-program pool), times the host parse/lower/tokenize of a
-batch, then runs ``--steps`` steady serving steps (H2D, embedding gather,
-``VideoNMN.forward``, logits fetch) under ``torch.profiler`` and prints the
-device time per step of the heaviest operators and the device's busy share
-of the wall time. ``--trace`` writes the Chrome trace.
+Serving (the default): builds the bench configuration
+(``testing.workload.ServingBatches`` defaults: H = 512, video 1024, text
+300, F = 64, 172 answers, bf16, B = 1024, the 128-program pool), times the
+host parse/lower/tokenize of a batch, then runs ``--steps`` steady serving
+steps (H2D, embedding gather, ``VideoNMN.forward``, logits fetch).
+
+``--train``: the train step at ``scripts/bench_train_step.py``'s
+configuration (``workload_config``: H = 512, video 1024, text 300, F = 64,
+172 answers, 64 object types; bf16, dropout 0.25, B = 128, fake
+supervision, Adam with the trainer's schedule), ``--steps`` steady steps
+of ``train.loop.make_train_step`` on one device-resident batch.
+
+Either way the steps run under ``torch.profiler``; it prints the device
+time per step of the heaviest operators and the device's busy share of the
+wall time. ``--trace`` writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -42,17 +52,8 @@ def busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--trace", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_slice: no CUDA device")
-    dev = torch.device("cuda", 0)
-    print(card_identity().splitlines()[0])
-    exact_f32()
-    _build.build()
+def serving_step(dev):
+    """The serving forward of one batch of the bench configuration."""
     serving = W.ServingBatches(dev)
     model = W.build_model(serving.cfg, seed=0, device=dev)
 
@@ -67,6 +68,43 @@ def main():
     def step():
         return model(serving.device_batch(hb))["logits"].float().cpu()
 
+    return step
+
+
+def train_step(dev):
+    """One train step of ``scripts/bench_train_step.py``'s configuration."""
+    from stair_tpu_torch.models.nmn import NMNConfig
+    from stair_tpu_torch.train.loop import make_train_step, trainer_defaults
+
+    cfg = NMNConfig(**{**W.workload_config().to_dict(),
+                       "compute_dtype": "bfloat16", "dropout": 0.25})
+    batch = W.to_device(W.add_fake_supervision(
+        W.make_batch(cfg, batch_size=128), cfg), dev)
+    model = W.build_model(cfg, seed=0, device=dev)
+    update = make_train_step(model, trainer_defaults())
+    gen = torch.Generator().manual_seed(0)
+    print(f"train step: {cfg.to_dict()}, B = 128")
+
+    def step():
+        return update(batch, gen, 1.0, 1.0)["loss"].item()
+
+    return step
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of serving")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: no CUDA device")
+    dev = torch.device("cuda", 0)
+    print(card_identity().splitlines()[0])
+    exact_f32()
+    _build.build()
+    step = train_step(dev) if args.train else serving_step(dev)
     for _ in range(2):
         step()
     torch.cuda.synchronize()

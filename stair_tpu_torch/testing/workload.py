@@ -314,6 +314,31 @@ OPCODE_PROGRAMS = [
 ]
 
 
+def add_fake_supervision(batch, cfg: NMNConfig, text_size=None, seed=0):
+    """Dense supervision arrays so the full train step can run (the twin of
+    ``stair_tpu/testing/workload.py add_fake_supervision``: the same numpy
+    arrays from the same seed)."""
+    rng = np.random.RandomState(seed)
+    B, T = batch["trace"]["opcode"].shape
+    F = cfg.max_video_length
+    text = text_size or cfg.text_size
+    C, P, Lc = 16, 2, 4
+    batch.update({
+        "sup_channel": rng.randint(0, 6, (B, T)).astype(np.int32),
+        "sup_bool": rng.randint(0, 2, (B, T)).astype(np.float32),
+        "sup_attn": rng.rand(B, T, 2, F).astype(np.float32),
+        "sup_attn_rows": rng.randint(1, 3, (B, T)).astype(np.int32),
+        "class_emb": rng.randn(C, Lc, text).astype(np.float32),
+        "class_emb_mask": np.ones((C, Lc), np.float32),
+        "class_valid": np.ones((C,), np.float32),
+        "sup_class": rng.randint(-1, C, (B, T, P)).astype(np.int32),
+        "ff_index": np.zeros((2, 2), np.int32),
+        "ff_gold": np.zeros((2, F, cfg.object_types), np.float32),
+        "ff_valid": np.zeros((2,), np.float32),
+    })
+    return batch
+
+
 def opcode_batch(cfg: NMNConfig, programs, seed=0, question_len=10,
                  aux=False):
     """A numpy batch over token-level ``programs`` with ragged masks

@@ -3,7 +3,8 @@
 A subprocess with ``sys.modules["jax"] = None`` (any ``import jax`` then
 raises) imports ``stair_tpu_torch`` and runs one tiny CPU forward, then
 ``chip_smoke.py``'s serving path (host parse/lower, tokenize, gather,
-forward) at tiny widths; ``chip_smoke.py`` imports only the port. The
+forward) and one train step (losses, backward, Adam) at tiny widths;
+``chip_smoke.py`` imports only the port. The
 port's sources carry no JAX/flax/optax import. ``python chip_smoke.py``
 exits non-zero, quickly and without its result line, where there is no
 CUDA device.
@@ -46,6 +47,17 @@ model = W.build_model(serving.cfg, seed=0)
 logits = model(serving.device_batch(serving.host_batch(0)))["logits"]
 assert logits.shape == (4, serving.cfg.answer_vocab_length)
 assert torch.isfinite(logits).all()
+
+# one train step: training forward with dropout, the supervision losses,
+# backward, Adam
+from stair_tpu_torch.train.loop import make_train_step, trainer_defaults
+cfg = NMNConfig(**{**cfg.to_dict(), "dropout": 0.25})
+model = W.build_model(cfg, seed=0)
+batch = W.to_device(W.add_fake_supervision(
+    W.make_batch(cfg, batch_size=3, question_len=5), cfg))
+step = make_train_step(model, trainer_defaults(contrastive_window=2))
+m = step(batch, torch.Generator().manual_seed(0), 1.0, 1.0)
+assert torch.isfinite(m["loss"])
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
        and sys.modules[m] is not None]

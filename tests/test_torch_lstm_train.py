@@ -1,0 +1,157 @@
+"""Port parity: the BiLSTM training pair (stair_tpu_torch/ops/lstm.py).
+
+``bilstm_forward_train`` (the ``BiLSTMTrain`` autograd Function over the
+training forward and the explicit backward) is held against the JAX
+package's ``bilstm_pallas_train(..., interpret=True)`` (TPU kernels #2 and
+#3 under the Pallas interpreter) on the same numpy inputs and weights:
+tokens, sentence and the gradients of every parameter and of ``x``, with
+non-suffix masks and an all-padding row; float32 at rtol 1e-4 / atol 1e-5,
+bf16 at 2e-2 (as tests/test_lstm_pallas.py). The plain explicit backward is
+held against torch autograd of ``bilstm_reference`` in float32. The CUDA
+kernels are held against the plain versions on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stair_tpu_torch.ops import lstm as TL
+from stair_tpu_torch.weights import params_from_numpy
+from torch_port_util import cuda_device, to_numpy_tree  # noqa: F401
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from stair_tpu.ops import lstm as JL
+except ImportError:  # the GPU machine has no JAX: only cuda tests run there
+    jax = None
+needs_jax = pytest.mark.skipif(jax is None, reason="JAX not installed")
+
+
+def _data(B, L, D, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, L, D).astype(np.float32)
+    mask = (np.arange(L)[None] < rng.randint(1, L + 1, size=(B, 1)))
+    mask = mask.astype(np.float32) * (rng.rand(B, L) > 0.3)   # holes
+    mask[:, 0] = 1.0
+    mask[2] = 0.0                                             # all padding
+    return x, mask, rng
+
+
+@needs_jax
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bilstm_train_matches_jax_pallas_train(bf16):
+    B, L, D, h = 6, 7, 10, 16
+    x, mask, rng = _data(B, L, D, seed=4)
+    p = JL.init_lstm_params(jax.random.PRNGKey(3), D, h)
+    gt = rng.randn(B, L, 2 * h).astype(np.float32)
+    gs = rng.randn(B, 2 * h).astype(np.float32)
+    jmm, jtd = (jnp.bfloat16, jnp.bfloat16) if bf16 else (None, jnp.float32)
+
+    def jloss(p, x):
+        tok, sent = JL.bilstm_pallas_train(
+            p, x, jnp.asarray(mask), mm_dtype=jmm, interpret=True,
+            block_batch=8, token_dtype=jtd)
+        return (jnp.sum(tok.astype(jnp.float32) * gt) + jnp.sum(sent * gs),
+                (tok, sent))
+
+    (jv, (jtok, jsent)), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(p, jnp.asarray(x))
+
+    tp = {d: {k: v.requires_grad_(True) for k, v in leaves.items()}
+          for d, leaves in params_from_numpy(to_numpy_tree(p)).items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    tok, sent, _ = TL.bilstm_forward_train(
+        tp, tx, torch.from_numpy(mask), mm_dtype=dt if bf16 else None,
+        token_dtype=dt)
+    loss = (tok.float() * torch.from_numpy(gt)).sum() + (
+        sent * torch.from_numpy(gs)).sum()
+    loss.backward()
+
+    tol = dict(rtol=2e-2, atol=2e-2) if bf16 else dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(jv), float(loss.detach()), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(jtok, np.float32),
+                               tok.detach().float().numpy(), **tol)
+    np.testing.assert_allclose(np.asarray(jsent), sent.detach().numpy(),
+                               **tol)
+    assert np.abs(tok.detach().float().numpy()[2]).max() == 0.0
+    np.testing.assert_allclose(np.asarray(jgx), tx.grad.numpy(), **tol)
+    for d in ("fwd", "bwd"):
+        for k in ("wi", "wh", "bi", "bh"):
+            np.testing.assert_allclose(
+                np.asarray(jgp[d][k]), tp[d][k].grad.numpy(), **tol,
+                err_msg=f"{d}/{k}")
+
+
+def test_bilstm_bwd_reference_matches_autograd_f32():
+    """The explicit adjoint recurrence equals torch autograd of the plain
+    forward (non-suffix masks, an all-padding row)."""
+    B, L, D, h = 5, 8, 6, 8
+    x, mask, _ = _data(B, L, D, seed=9)
+    gen = torch.Generator().manual_seed(0)
+    p = TL.init_lstm_params(gen, D, h)
+    args = TL._prep(p, torch.from_numpy(x), torch.from_numpy(mask))
+    leaves = [a.clone().requires_grad_(i in (0, 1, 3, 4))
+              for i, a in enumerate(args)]
+    out = TL.bilstm_reference(*leaves)
+    cots = [torch.randn(o.shape, generator=gen) for o in out]
+    torch.autograd.backward(out, cots)
+    _, _, _, stacks = TL.bilstm_reference(*args, return_stacks=True)
+    dxp_f, dxp_b, dwh_f, dwh_b, _, _ = TL.bilstm_bwd_reference(
+        *args, stacks, *cots)
+    for mine, leaf in ((dxp_f, 0), (dxp_b, 1), (dwh_f, 3), (dwh_b, 4)):
+        torch.testing.assert_close(mine, leaves[leaf].grad, rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_bilstm_train_wrappers_route_cpu_to_plain_and_reject_others():
+    gen = torch.Generator().manual_seed(0)
+    p = TL.init_lstm_params(gen, 6, 4)
+    args = TL._prep(p, torch.randn(3, 5, 6, generator=gen), torch.ones(3, 5))
+    out = TL.bilstm_train_call(*args)
+    ref = TL.bilstm_reference(*args, return_stacks=True)
+    for a, b in zip(out[:3] + out[3], ref[:3] + ref[3]):
+        assert torch.equal(a, b)
+    cots = (torch.ones(3, 5, 4), torch.ones(3, 5, 4), torch.ones(3, 8))
+    bwd = TL.bilstm_bwd_call(*args, out[3], *cots)
+    for a, b in zip(bwd, TL.bilstm_bwd_reference(*args, out[3], *cots)):
+        assert torch.equal(a, b)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError):
+        TL.bilstm_train_call(*meta)
+    with pytest.raises(ValueError):
+        TL.bilstm_bwd_call(*meta, [s.to("meta") for s in out[3]],
+                           *[c.to("meta") for c in cots])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_train_kernels_vs_plain_on_card(cuda_device, dtype):
+    """Training forward (with stacks) and backward kernels vs the plain
+    versions; B not a multiple of the row tile; the backward twice gives
+    identical bits."""
+    gen = torch.Generator().manual_seed(2)
+    B, L, D, h = 37, 12, 20, 64
+    x, mask, _ = _data(B, L, D, seed=6)
+    p = TL.init_lstm_params(gen, D, h, device=cuda_device)
+    mm = None if dtype == torch.float32 else dtype
+    args = TL._prep(p, torch.from_numpy(x).to(cuda_device),
+                    torch.from_numpy(mask).to(cuda_device), mm)
+    out = TL.bilstm_train_call(*args, token_dtype=dtype)
+    ref = TL.bilstm_reference(*args, token_dtype=dtype, return_stacks=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(out[:3] + out[3], ref[:3] + ref[3]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    cots = [torch.randn(B, L, h, generator=gen).to(cuda_device, dtype)
+            for _ in range(2)] + [torch.randn(B, 2 * h, generator=gen)
+                                  .to(cuda_device)]
+    k1 = TL.bilstm_bwd_call(*args, out[3], *cots)
+    k2 = TL.bilstm_bwd_call(*args, out[3], *cots)
+    rb = TL.bilstm_bwd_reference(*args, out[3], *cots)
+    for a, b, r in zip(k1, k2, rb):
+        assert torch.equal(a, b)
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(a.float(), r.float(), rtol=tol,
+                                   atol=tol * scale)

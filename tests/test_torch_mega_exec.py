@@ -107,8 +107,8 @@ def test_mega_exec_reference_vs_jax_megakernel_interpret():
         (torch.from_numpy(tok_a), torch.from_numpy(tok_b)),
         torch.from_numpy(batch["question_mask"]))
     for j, t in zip((rv, rf, ra), out):
-        np.testing.assert_allclose(np.asarray(j), t.numpy(), rtol=1e-4,
-                                   atol=1e-4)
+        np.testing.assert_allclose(np.asarray(j), t.detach().numpy(),
+                                   rtol=1e-4, atol=1e-4)
 
 
 @needs_jax
@@ -137,7 +137,7 @@ def test_prepare_args_matches_jax():
         assert len(jargs) == len(targs) == len(TX.ARG_NAMES)
         for name, j, t in zip(TX.ARG_NAMES, jargs, targs):
             np.testing.assert_allclose(
-                np.asarray(j).reshape(t.shape), t.numpy(), rtol=1e-6,
+                np.asarray(j).reshape(t.shape), t.detach().numpy(), rtol=1e-6,
                 atol=1e-6, err_msg=name)
 
 
@@ -188,7 +188,8 @@ def test_mega_exec_kernel_vs_plain_on_card(cuda_device, dtype, F, fsoft):
     Hh = cfg.hidden_size // 2
     halves = [torch.from_numpy(rng.randn(B, n, Hh).astype(np.float32))
               .to(cuda_device, dtype) for n in (F, F, L, L)]
-    mods = tree_map(lambda x: x.to(dtype), model.param_tree()["modules"])
+    mods = tree_map(lambda x: x.detach().to(dtype),
+                    model.param_tree()["modules"])
     meta, args = TX.prepare_args(
         cfg, mods, model._fused_tables(mods), batch["trace"],
         (halves[0], halves[1]), batch["video_mask"],

@@ -1,0 +1,267 @@
+"""Port parity: the executor's training pair (stair_tpu_torch/ops/
+mega_exec.py ``mega_exec_train_call``, stair_tpu_torch/ops/mega_grad.py).
+
+``hash_keep`` is bit-exact against JAX's over shapes, seeds (near 2^31
+too), examples, steps and sites. ``mega_exec_train`` (the autograd Function
+over the training forward and the plain backward) is held against the JAX
+package's ``mega_exec_train(..., interpret=True)`` (TPU kernels #5 and #6
+under the Pallas interpreter) on the same numpy inputs and weights: at
+dropout 0.25 with the same seed the masks are bit-exact, so the register
+files match at float32 tolerance (rtol/atol 1e-4), and so do every data
+cotangent and every weight gradient (rtol 1e-4 of each tensor's largest
+value, with a 1e-6 floor for gradients that are 0 in exact arithmetic),
+over every opcode, for both Filter modes and both temporal modes.
+Two cases pin the |x| slope at 0 (XOR / XORFRAME with equal operands) and
+the min tie split (AND_VEC / AND_ATTN). The CUDA kernels are held against
+the plain versions on the card.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+from stair_tpu_torch.ops import _build
+from stair_tpu_torch.ops import mega_exec as TX
+from stair_tpu_torch.ops import mega_grad as TG
+from stair_tpu_torch.testing import workload as TW
+from torch_port_util import cuda_device, port_model  # noqa: F401
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from stair_tpu.ops import mega_exec as JX
+    from stair_tpu.ops import mega_grad as JG
+    from test_mega_exec import PROGRAMS, _batch, _build as _jbuild
+except ImportError:  # the GPU machine has no JAX: only cuda tests run there
+    jax = None
+needs_jax = pytest.mark.skipif(jax is None, reason="JAX not installed")
+
+
+@needs_jax
+@pytest.mark.parametrize("shape,b,t,site,seed0,seed1,rate", [
+    ((16, 32), 3, 5, 0, 123, 456, 0.25),
+    ((1, 64), 127, 12, 7, 2 ** 31 - 2, 2 ** 31 - 1, 0.5),
+    ((48, 16), 0, 0, 3, -5, 7, 0.1),
+    ((8, 512), 1023, 31, 2, 2 ** 31 - 1, -2 ** 31, 0.25),
+])
+def test_hash_keep_bit_exact_vs_jax(shape, b, t, site, seed0, seed1, rate):
+    ref = np.asarray(JX.hash_keep(shape, jnp.int32(b), jnp.int32(t), site,
+                                  jnp.int32(seed0), jnp.int32(seed1), rate))
+    out = TX.hash_keep(shape, b, t, site, seed0, seed1, rate).numpy()
+    assert ref.dtype == out.dtype and np.array_equal(ref, out)
+    many = TX.hash_keep(shape, torch.tensor([b, 0]), t, site, seed0, seed1,
+                        rate)
+    assert np.array_equal(many[0].numpy(), ref)
+
+
+def _train_parity(F, attention, programs, rate, seed_data=1):
+    """Forward and every gradient of the port's training executor vs JAX's
+    megakernel pair under the interpreter."""
+    cfg, model, params = _jbuild(max_video_length=F,
+                                 filter_attention=attention)
+    batch, _ = _batch(cfg, programs, seed=seed_data)
+    rng = np.random.RandomState(0)
+    B, L = batch["video"].shape[0], batch["question"].shape[1]
+    Hh = cfg.hidden_size // 2
+    halves = [rng.randn(B, n, Hh).astype(np.float32) for n in (F, F, L, L)]
+    seed = (12345, 2 ** 31 - 7)
+    trace = batch["trace"]
+
+    def jf(vfa, vfb, toka, tokb, mods):
+        return JG.mega_exec_train(
+            cfg, mods, model._fused_tables(mods),
+            {k: jnp.asarray(v) for k, v in trace.items()}, (vfa, vfb),
+            jnp.asarray(batch["video_mask"]), (toka, tokb),
+            jnp.asarray(batch["question_mask"]), rate,
+            jnp.asarray(seed, jnp.int32), interpret=True)
+
+    outs, vjp = jax.vjp(jf, *[jnp.asarray(h) for h in halves],
+                        params["modules"])
+    cots = [rng.randn(*o.shape).astype(np.float32) for o in outs]
+    jgrads = vjp(tuple(jnp.asarray(c) for c in cots))
+
+    pm = port_model(cfg, params)
+    mods = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                    pm.param_tree()["modules"])
+    th = [torch.from_numpy(h).requires_grad_(True) for h in halves]
+    tout = TG.mega_exec_train(
+        pm.config, mods, pm._fused_tables(mods),
+        {k: torch.from_numpy(v) for k, v in trace.items()}, (th[0], th[1]),
+        torch.from_numpy(batch["video_mask"]), (th[2], th[3]),
+        torch.from_numpy(batch["question_mask"]), rate, seed)
+    for name, j, t in zip(("regs_vec", "regs_frames", "regs_attn"), outs,
+                          tout):
+        np.testing.assert_allclose(np.asarray(j), t.detach().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    torch.autograd.backward(tout, [torch.from_numpy(c) for c in cots])
+
+    def check(a, b, name):
+        a = np.asarray(a)
+        scale = max(np.abs(a).max(), 1e-6)
+        # 1e-6 absolute floor: gradients that vanish in exact arithmetic
+        # (the softmax Filter's keyword bias, a shift of every logit) are
+        # float32 rounding noise of about 1e-8 on both sides.
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-4 * scale + 1e-6, err_msg=name)
+
+    for i, name in enumerate(("vf_a", "vf_b", "tok_a", "tok_b")):
+        check(jgrads[i], th[i].grad.numpy(), name)
+
+    def walk(j, t, path):
+        if isinstance(j, dict):
+            for k in j:
+                walk(j[k], t[k], f"{path}/{k}")
+        else:
+            g = t.grad if t.grad is not None else torch.zeros_like(t)
+            check(j, g.numpy(), path)
+
+    walk(jgrads[4], mods, "modules")
+
+
+@needs_jax
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax")])
+def test_mega_exec_train_matches_jax_at_dropout(F, attention):
+    _train_parity(F, attention, PROGRAMS, rate=0.25)
+
+
+@needs_jax
+@pytest.mark.parametrize("F,attention", [(48, "parity"), (16, "softmax")])
+def test_mega_exec_train_grads_match_jax_other_modes(F, attention):
+    progs = PROGRAMS[12:21] if attention == "parity" else PROGRAMS[17:]
+    _train_parity(F, attention, progs, rate=0.25, seed_data=2)
+
+
+@needs_jax
+def test_abs_slope_and_min_ties_follow_jax():
+    """Equal operands: |x| takes slope +1 at 0 (XOR, XORFRAME) and min
+    splits its cotangent 0.5 / 0.5 (AND_VEC, AND_ATTN); dropout off, so
+    the two HasItem attentions are equal bit for bit."""
+    progs = [
+        (["Xor", "cup", "cup"], {}),
+        (["And", "cup", "cup"], {}),
+        (["Xor", "HasItem", "video", "HasItem", "video"], {}),
+        (["And", "HasItem", "video", "HasItem", "video"], {}),
+    ]
+    _train_parity(16, "parity", progs, rate=0.0)
+
+
+def test_mega_train_wrappers_route_cpu_to_plain_and_reject_others():
+    cfg = NMNConfig(hidden_size=16, video_size=8, text_size=6,
+                    max_video_length=8, max_steps=16, num_vec=10,
+                    num_frames=6, num_attn=8)
+    model = TW.build_model(cfg, seed=0)
+    batch = TW.to_device(TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS[:6]))
+    B, L = batch["question"].shape[:2]
+    halves = [torch.randn(B, n, 8) for n in (8, 8, L, L)]
+    mods = tree_map(lambda x: x.detach(), model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, model._fused_tables(mods), batch["trace"], halves[:2],
+        batch["video_mask"], halves[2:], batch["question_mask"])
+    seed = (3, 4)
+    out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    for a, b in zip(out, TX.mega_exec_reference(meta, args, 0.25, seed)):
+        assert torch.equal(a, b)
+    cots = [torch.ones_like(o) for o in out]
+    grads = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    ref = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed)
+    assert len(grads) == 5 + len(TX.ARG_NAMES) - TG.N_DATA
+    for a, b in zip(grads, ref):
+        assert torch.equal(a, b)
+    on_meta = tuple(a.to("meta") for a in args)
+    with pytest.raises(ValueError):
+        TX.mega_exec_train_call(meta, on_meta, 0.25, seed)
+    with pytest.raises(ValueError):
+        TG.mega_exec_bwd_call(meta, on_meta, out, cots, 0.25, seed)
+
+
+def test_kernels_take_detached_tensors_only():
+    """The wrappers' tensor check refuses a tensor that requires grad, and
+    says that gradients go through the autograd Functions."""
+    dev = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="expected a tensor on cuda"):
+        _build.check_tensor("x", torch.zeros(2), torch.float32, (2,), dev)
+    # A CUDA tensor that requires grad, stood in for on a CPU-only machine.
+    fake = type("T", (), {"is_cuda": True, "device": dev,
+                          "dtype": torch.float32, "shape": (2,),
+                          "is_contiguous": lambda self: True,
+                          "requires_grad": True})()
+    with pytest.raises(ValueError, match="autograd Functions"):
+        _build.check_tensor("x", fake, torch.float32, (2,), dev)
+
+
+def test_executor_size_limits_have_one_home():
+    """MAX_H / MAX_F / MAX_L live in csrc/mega_limits.cuh only; the Python
+    wrappers read them from there, and no kernel source redefines them."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    with open(os.path.join(csrc, "mega_limits.cuh")) as f:
+        header = dict(re.findall(r"constexpr int (MAX_\w+) = (\d+);",
+                                 f.read()))
+    assert {k: int(v) for k, v in header.items()} == {
+        "MAX_H": TX.MAX_H, "MAX_F": TX.MAX_F, "MAX_L": TX.MAX_L}
+    for name in os.listdir(csrc):
+        if name.endswith((".cu", ".cuh")) and name != "mega_limits.cuh":
+            with open(os.path.join(csrc, name)) as f:
+                assert not re.search(r"constexpr int MAX_[HFL]\b", f.read()), \
+                    name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax")])
+def test_mega_train_kernels_vs_plain_on_card(cuda_device, dtype, F,
+                                             attention):
+    """Training forward and backward kernels vs the plain versions over
+    every opcode at dropout 0.25; the backward twice gives identical bits.
+    float32 at 1e-4 of each gradient's scale; bf16 within 1e-1 (the kernel
+    rounds cotangents at the JAX kernel's sites, autograd at the
+    forward's casts); the softmax Filter's fltk/fltb gradients, 0 in exact
+    arithmetic, within 1e-3 of the fltw gradient's scale."""
+    cfg = NMNConfig(
+        hidden_size=64, video_size=24, text_size=20, answer_vocab_length=7,
+        max_video_length=F, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8, filter_attention=attention,
+        compute_dtype="float32" if dtype == torch.float32 else "bfloat16")
+    model = TW.build_model(cfg, seed=1, device=cuda_device)
+    batch = TW.to_device(TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS, seed=8),
+                         cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.randn(B, n, 32, generator=gen).to(cuda_device, dtype)
+              for n in (F, F, L, L)]
+    mods = tree_map(lambda x: x.detach().to(dtype),
+                    model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], halves[:2],
+        batch["video_mask"], halves[2:], batch["question_mask"])
+    seed = (123, 456)
+    out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    ref = TX.mega_exec_reference(meta, args, 0.25, seed)
+    ftol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 3e-2)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=ftol[0],
+                                   atol=ftol[1])
+    cots = [torch.randn(o.shape, generator=gen).to(cuda_device) for o in out]
+    k1 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    k2 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    rb = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed)
+    bound = 1e-4 if dtype == torch.float32 else 1e-1
+    names = ("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux") + \
+        TX.ARG_NAMES[TG.N_DATA:]
+    grads = dict(zip(names, rb))
+    for name, a, b, r in zip(names, k1, k2, rb):
+        assert torch.equal(a, b), name
+        if attention == "softmax" and name in ("fltk", "fltb"):
+            # a shift of every logit of one softmax: 0 in exact arithmetic,
+            # float32 noise on both sides, bounded against the Filter
+            # logit weights' gradient
+            ref = float(grads["fltw"].float().abs().max())
+            assert float(a.float().abs().max()) <= 1e-3 * ref, name
+            continue
+        scale = max(float(r.float().abs().max()), 1e-12)
+        assert float((a.float() - r.float()).abs().max()) <= bound * scale, \
+            name
