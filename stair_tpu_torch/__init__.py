@@ -7,6 +7,8 @@ paths and names so each module has an obvious counterpart:
   * ``models/nmn.py``     ↔ ``stair_tpu/models/nmn.py`` (``VideoNMN``)
   * ``ops/lstm.py``       ↔ ``stair_tpu/ops/lstm.py`` (BiLSTM recurrence)
   * ``ops/mega_exec.py``  ↔ ``stair_tpu/ops/mega_exec.py`` (executor)
+  * ``ops/attention.py``   ↔ ``stair_tpu/ops/attention.py`` (flash attention)
+  * ``llm/``              ↔ ``stair_tpu/llm/`` (decoder, CLIP, Video-ChatGPT)
   * ``testing/workload.py`` ↔ ``stair_tpu/testing/workload.py``
 
 Every Pallas kernel on the ported path is a hand-written CUDA C++ kernel
@@ -14,9 +16,10 @@ under ``ops/csrc/``, built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_build.py``). Each kernel wrapper runs its plain PyTorch version for
 CPU tensors and launches the kernel (or raises) for CUDA tensors.
 
-The host layers that never touched JAX — ``stair_tpu.ir``,
-``stair_tpu.programs`` and ``stair_tpu.runtime`` (the C++ parser, lowerer
-and tokenizer) — are imported, not copied. Nothing here imports ``jax``.
+Nothing here imports ``jax`` or ``stair_tpu``: the host layers a ported
+path needs (``programs/``, ``ir/``, ``runtime/`` with the C++ parser,
+lowerer and tokenizer, ``train/args.py``, ``data/dataset.py``) are the
+port's own copies at the same relative paths.
 """
 
 from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN  # noqa: F401

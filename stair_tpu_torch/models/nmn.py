@@ -24,7 +24,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from stair_tpu_torch.models import modules as M
 from stair_tpu_torch.ops.lstm import (
@@ -32,6 +31,9 @@ from stair_tpu_torch.ops.lstm import (
 )
 from stair_tpu_torch.ops.mega_exec import mega_exec
 from stair_tpu_torch.ops.mega_grad import mega_exec_train
+from stair_tpu_torch.weights import (  # noqa: F401  (tree_map: re-export)
+    ParamModule, tree_map,
+)
 
 
 @dataclass(frozen=True)
@@ -65,29 +67,7 @@ class NMNConfig:
         return dict(self.__dict__)
 
 
-def _flatten(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        key = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(_flatten(v, key + "/"))
-        else:
-            out[key] = v
-    return out
-
-
-def _unflatten(flat):
-    tree: dict = {}
-    for key, v in flat.items():
-        node = tree
-        *path, leaf = key.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
-
-
-class VideoNMN(nn.Module):
+class VideoNMN(ParamModule):
     """The NMN model. Parameters live in one ``nn.ParameterDict`` keyed by
     the JAX key path joined with ``/``; ``param_tree()`` gives the nested
     view the functions below index."""
@@ -102,10 +82,7 @@ class VideoNMN(nn.Module):
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             params = self.init(generator, device)
-        self.weights = nn.ParameterDict({
-            k: nn.Parameter(torch.as_tensor(v, device=device))
-            for k, v in _flatten(params).items()
-        })
+        self._hold(params, device)
 
     # -- parameters ----------------------------------------------------------
 
@@ -131,9 +108,6 @@ class VideoNMN(nn.Module):
             },
             "choice_proj": M._init_linear(gen, 2 * H, H, device),
         }
-
-    def param_tree(self) -> dict:
-        return _unflatten(dict(self.weights.items()))
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -317,9 +291,3 @@ def choice_logits(model, out, cand_emb, cand_mask, cand_valid, params=None):
     scores = torch.einsum("bh,bch->bc", query, reps)
     return torch.where(cand_valid > 0, scores,
                        torch.full_like(scores, -torch.inf))
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}

@@ -21,7 +21,9 @@ its kernel and nowhere else:
   training (``csrc/mega_exec.cu``);
 - ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
-  reduction launch.
+  reduction launch;
+- ``flash_attn``: the masked flash-attention forward
+  (``csrc/flash_attn.cu``).
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` header, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``).
@@ -54,7 +56,7 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "bilstm": 0, "bilstm_train": 0, "bilstm_bwd": 0, "bilstm_dwh": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
-    "mega_exec_wgrad": 0,
+    "mega_exec_wgrad": 0, "flash_attn": 0,
 }
 
 _lib = None
@@ -173,6 +175,8 @@ def build():
         fn = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")
         fn.restype = I
         fn.argtypes = [P, I, I, I, I, I, P]  # pointers, n, B, T, F, H, stream
+    lib.stair_flash_attn_fwd.restype = I
+    lib.stair_flash_attn_fwd.argtypes = [P, P]   # FlashArgs*, stream
     _lib = lib
     return lib
 

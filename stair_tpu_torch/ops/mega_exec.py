@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from stair_tpu.ir.lowering import Opcode
+from stair_tpu_torch.ir.lowering import Opcode
 from stair_tpu_torch.models.modules import (
     conv1d_same_matrix, cosine, cosine_matrix, layer_norm, masked_softmax,
 )

@@ -1,8 +1,8 @@
-"""Where the serving forward's or the train step's device time goes, on
-one NVIDIA GPU.
+"""Where the device time of the NMN serving forward, the NMN train step or
+Video-ChatGPT serving goes, on one NVIDIA GPU.
 
-    python -m stair_tpu_torch.scripts.profile_slice [--train] [--steps 3]
-        [--trace PATH]
+    python -m stair_tpu_torch.scripts.profile_slice [--train | --videochat]
+        [--steps 3] [--trace PATH]
 
 Serving (the default): builds the bench configuration
 (``testing.workload.ServingBatches`` defaults: H = 512, video 1024, text
@@ -16,9 +16,19 @@ configuration (``workload_config``: H = 512, video 1024, text 300, F = 64,
 supervision, Adam with the trainer's schedule), ``--steps`` steady steps
 of ``train.loop.make_train_step`` on one device-resident batch.
 
-Either way the steps run under ``torch.profiler``; it prints the device
-time per step of the heaviest operators and the device's busy share of the
-wall time. ``--trace`` writes the Chrome trace.
+``--videochat``: Video-ChatGPT serving at full width (Llama-7B + CLIP
+ViT-L/14 in bf16, weights from a seed, batch 4, 100 frames of 240 x 320 per
+video, 64 new tokens, greedy; ``--layers`` cuts the decoder's depth), as
+three parts profiled one after the other: the CLIP tower with resize and
+pooling (``encode_video_batch``), the prefill (``Decoder.prefill``: GEMMs,
+the attention kernel, eager rope / norm / activation passes) and the whole
+generation (``video_chatgpt_infer_batch``: prompt building, splice,
+prefill, 64 KV-cache decode steps).
+
+Each part's steps run under ``torch.profiler``; it prints the device time
+per step of the heaviest operators and the device's busy share of the wall
+time (host gaps are the rest). ``--trace`` writes the Chrome trace (of the
+last part).
 """
 
 from __future__ import annotations
@@ -91,10 +101,71 @@ def train_step(dev):
     return step
 
 
+def videochat_steps(dev, layers):
+    """The three parts of one Video-ChatGPT serving batch at full width."""
+    from stair_tpu_torch.llm import videochat_infer as VI
+    from stair_tpu_torch.testing import videochat as VW
+
+    questions, tokenizer, frames = VW.QUESTIONS, VW.tokenizer(), VW.frame_sets()
+    model = VW.build_model(dev, decoder_layers=layers)
+    new_tokens = VW.NEW_TOKENS
+    video_tokens = VI.encode_video_batch(model, frames)
+    ids, start, plen, _ = VI.build_prompt_batch(
+        model, tokenizer, questions, max_new_tokens=new_tokens)
+    with torch.no_grad():
+        embeds = model.splice_embeds(ids, video_tokens, start)
+    zeros = torch.zeros(len(questions), dtype=torch.int32, device=dev)
+    print(f"videochat: Llama ({layers} layers, d 4096) + CLIP ViT-L/14, "
+          f"bf16, batch {len(questions)}, prompt_len {plen.tolist()}, "
+          f"L {ids.shape[1]}, {new_tokens} new tokens")
+    return {
+        "CLIP tower + resize + pooling (encode_video_batch)":
+            lambda: VI.encode_video_batch(model, frames),
+        "prefill (Decoder.prefill)":
+            lambda: model.decoder.prefill(embeds, zeros, plen),
+        f"generation (prefill + {new_tokens} decode steps)":
+            lambda: VI.video_chatgpt_infer_batch(
+                model, tokenizer, questions, frames,
+                max_new_tokens=new_tokens, temperature=0.0,
+                video_tokens=video_tokens),
+    }
+
+
+def profile_steps(name, step, n, trace=None, warmup=2, top=20):
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(prof.key_averages(),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"== {name}")
+    print(f"{'operator':70s} {'device ms/step':>14s} {'calls/step':>10s}")
+    for e in rows[:top]:
+        if e.self_device_time_total <= 0:
+            break
+        print(f"{e.key[:70]:70s} {e.self_device_time_total / n / 1e3:14.3f} "
+              f"{e.count / n:10.1f}")
+    busy = busy_ms(prof)
+    print(f"device busy {busy:.3f} ms of {wall:.3f} ms wall for {n} steps: "
+          f"busy share {busy / wall:.3f}")
+    if trace:
+        prof.export_chrome_trace(trace)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true",
-                    help="profile the train step instead of serving")
+                    help="profile the NMN train step instead of serving")
+    ap.add_argument("--videochat", action="store_true",
+                    help="profile Video-ChatGPT serving at full width")
+    ap.add_argument("--layers", type=int, default=32,
+                    help="decoder depth for --videochat")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -104,31 +175,15 @@ def main():
     print(card_identity().splitlines()[0])
     exact_f32()
     _build.build()
-    step = train_step(dev) if args.train else serving_step(dev)
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    n = args.steps
-    rows = sorted(prof.key_averages(),
-                  key=lambda e: e.self_device_time_total, reverse=True)
-    print(f"{'operator':70s} {'device ms/step':>14s} {'calls/step':>10s}")
-    for e in rows[:20]:
-        if e.self_device_time_total <= 0:
-            break
-        print(f"{e.key[:70]:70s} {e.self_device_time_total / n / 1e3:14.3f} "
-              f"{e.count / n:10.1f}")
-    busy = busy_ms(prof)
-    print(f"device busy {busy:.3f} ms of {wall:.3f} ms wall for {n} steps: "
-          f"busy share {busy / wall:.3f}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if args.videochat:
+        steps = videochat_steps(dev, args.layers)
+    elif args.train:
+        steps = {"train step": train_step(dev)}
+    else:
+        steps = {"serving step": serving_step(dev)}
+    for name, step in steps.items():
+        profile_steps(name, step, args.steps, args.trace,
+                      warmup=1 if args.videochat else 2)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ A JAX-free twin of ``stair_tpu/testing/workload.py``. That module imports
 ``stair_tpu.models.nmn`` (and with it JAX) at its top, so its numpy-only
 host code — the program templates and pool, the hash embeddings, the
 embedding arena, ``workload_config`` and ``make_batch`` — is copied here;
-only ``workload_config`` and ``build_model`` return the port's types. Parsing, lowering and native tokenization are the shared
-``stair_tpu.programs`` / ``stair_tpu.ir`` / ``stair_tpu.runtime`` layers.
+only ``workload_config`` and ``build_model`` return the port's types.
+Parsing, lowering and native tokenization are the port's own copies of
+the host layers (``programs/``, ``ir/``, ``runtime/``).
 """
 
 from __future__ import annotations
@@ -15,11 +16,13 @@ import ctypes
 import numpy as np
 import torch
 
-from stair_tpu.ir.lowering import lower_program, pad_traces
-from stair_tpu.programs.parser import parse_nmn_program
-from stair_tpu.programs.spans import link_program_spans
-from stair_tpu.runtime.loader import native_parse_lower_batch
+from stair_tpu_torch.ir.lowering import lower_program, pad_traces
 from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
+from stair_tpu_torch.programs.parser import parse_nmn_program
+from stair_tpu_torch.programs.spans import link_program_spans
+from stair_tpu_torch.runtime.loader import (
+    _pack_strings, native_lib, native_parse_lower_batch,
+)
 
 #: Annotation-level program templates (the parser rewrites them exactly as it
 #: would real AGQA annotations).
@@ -56,8 +59,8 @@ def link_lower(program: str, question: str):
 
 def parse_lower_batch(cfg: NMNConfig, programs: list[str],
                       questions: list[str]):
-    """Parse, span-link and lower a batch in the shared C++ parser
-    (``stair_tpu.runtime.loader.native_parse_lower_batch``), padded to the
+    """Parse, span-link and lower a batch in the C++ parser
+    (``runtime.loader.native_parse_lower_batch``), padded to the
     config's capacities; raises if the native library cannot be built."""
     tb = native_parse_lower_batch(
         programs, cfg.max_steps, cfg.num_vec, cfg.num_frames, cfg.num_attn,
@@ -183,8 +186,6 @@ class EmbeddingArena:
         (``stair_tokenize_ids``) when the native library is available,
         mirroring this arena's first-seen id assignment; new words the
         tokenizer meets are synced back as embedding rows."""
-        from stair_tpu.runtime.loader import _pack_strings, native_lib
-
         lib = native_lib()
         if lib is None or not all(q.isascii() for q in questions):
             return np.stack(

@@ -7,8 +7,8 @@ an Adam update with the trainer's linear learning-rate schedule. Adam
 follows ``optax.adam(lr_schedule)``: ``m_hat / (sqrt(v_hat) + 1e-8)`` with
 the schedule read at the step count before the update, which is what
 ``torch.optim.Adam`` under a ``LambdaLR`` stepped after each update gives.
-``args`` is the trainer's argument namespace (the shared, JAX-free
-``stair_tpu.train.args``): lr, scheduler_start_factor /
+``args`` is the trainer's argument namespace (the port's own
+``train/args.py``): lr, scheduler_start_factor /
 scheduler_end_factor / scheduler_total_iters, module_loss_weight,
 decoder_loss_weight, modules_no_intermediate_train, contrastive_window.
 The data-parallel route waits for a later slice.
@@ -20,14 +20,12 @@ import argparse
 
 import torch
 
-from stair_tpu.train.args import build_parser
-
+from stair_tpu_torch.train.args import build_parser
 from stair_tpu_torch.train.losses import total_loss
 
 
 def trainer_defaults(**overrides) -> argparse.Namespace:
-    """The trainer CLI's argument defaults (``stair_tpu.train.args``,
-    shared and JAX-free) as a namespace, with ``overrides`` applied."""
+    """The trainer CLI's argument defaults (``train/args.py``) as a namespace, with ``overrides`` applied."""
     parser = build_parser()
     ns = {a.dest: a.default for a in parser._actions if a.dest != "help"}
     ns.update(overrides)

@@ -7,18 +7,17 @@ ExistsFrame/Temporal/Localize, in-batch (or windowed) contrastive CE for
 Filter/ToAction/Superlative against the text-encoded class table (encoded
 under ``torch.no_grad``, as the JAX ``stop_gradient``), optional
 FilterFrame BCE, and the answer CE. ``SUP_*`` and ``OP_FAMILY`` come from
-the shared, JAX-free ``stair_tpu.data.dataset`` and
-``stair_tpu.ir.lowering``.
+the port's own ``data/dataset.py`` and ``ir/lowering.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stair_tpu.data.dataset import (
+from stair_tpu_torch.data.dataset import (
     SUP_ATTN1, SUP_ATTN2, SUP_BOOL, SUP_CONTRAST, SUP_EQUALS,
 )
-from stair_tpu.ir.lowering import OP_FAMILY, Opcode
+from stair_tpu_torch.ir.lowering import OP_FAMILY, Opcode
 from stair_tpu_torch.models.modules import l2_normalize, linear
 from stair_tpu_torch.models.nmn import choice_logits, tree_map
 

@@ -1,13 +1,15 @@
-"""The port never needs JAX, and chip_smoke.py refuses to run off the card.
+"""The port needs neither JAX nor the JAX package, and chip_smoke.py
+refuses to run off the card.
 
-A subprocess with ``sys.modules["jax"] = None`` (any ``import jax`` then
-raises) imports ``stair_tpu_torch`` and runs one tiny CPU forward, then
+A subprocess with ``sys.modules["jax"] = None`` and
+``sys.modules["stair_tpu"] = None`` (any import of either then raises)
+imports ``stair_tpu_torch`` and runs one tiny CPU forward, then
 ``chip_smoke.py``'s serving path (host parse/lower, tokenize, gather,
-forward) and one train step (losses, backward, Adam) at tiny widths;
-``chip_smoke.py`` imports only the port. The
-port's sources carry no JAX/flax/optax import. ``python chip_smoke.py``
-exits non-zero, quickly and without its result line, where there is no
-CUDA device.
+forward), one train step (losses, backward, Adam) and one tiny
+``video_chatgpt_infer_batch`` at tiny widths; ``chip_smoke.py`` imports
+only the port. The port's sources carry no JAX/flax/optax import and no
+import of ``stair_tpu``. ``python chip_smoke.py`` exits non-zero, quickly
+and without its result line, where there is no CUDA device.
 """
 
 import os
@@ -22,7 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_FORWARD = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "stair_tpu"):
     sys.modules[name] = None
 import torch
 import stair_tpu_torch
@@ -58,8 +60,22 @@ batch = W.to_device(W.add_fake_supervision(
 step = make_train_step(model, trainer_defaults(contrastive_window=2))
 m = step(batch, torch.Generator().manual_seed(0), 1.0, 1.0)
 assert torch.isfinite(m["loss"])
+
+# one tiny Video-ChatGPT inference batch: CLIP tower, pooling, splice,
+# prefill through the attention wrapper, KV-cache decode
+import argparse
+import numpy as np
+from stair_tpu_torch.llm import videochat_infer as VI
+vmodel, tok = VI.initialize_model(argparse.Namespace(
+    model_path=None, vision_path=None, model_ckpt=None, device="cpu"))
+frames = [np.random.RandomState(i).randint(0, 255, (4, 60, 70, 3))
+          .astype(np.uint8) for i in range(2)]
+answers = VI.video_chatgpt_infer_batch(
+    vmodel, tok, ["what did they do ?", "question video"], frames,
+    max_new_tokens=4, temperature=0.0)
+assert len(answers) == 2 and all(isinstance(a, str) for a in answers)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stair_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad
 print("OK")
@@ -82,7 +98,11 @@ def test_port_imports_and_runs_with_jax_blocked():
 
 
 def test_port_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    # ``stair_tpu\b`` does not match ``stair_tpu_torch`` (``_`` is a word
+    # character): any ``import stair_tpu``, ``from stair_tpu import`` or
+    # ``from stair_tpu.x import`` is an offence.
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|stair_tpu)\b", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "stair_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

@@ -119,7 +119,7 @@ def test_port_workload_twin_matches_jax():
 def test_native_parse_lower_matches_python_link_lower():
     """The serving path's C++ parse/lower with span linking gives the
     traces of the Python parse + link + lower, padded alike."""
-    from stair_tpu.ir.lowering import pad_traces
+    from stair_tpu_torch.ir.lowering import pad_traces
 
     pool = TW.program_pool(24)
     traces = [TW.link_lower(p, q) for p, q in pool]

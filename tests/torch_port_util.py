@@ -22,10 +22,38 @@ def cuda_device():
 
 
 def to_numpy_tree(tree):
-    """JAX pytree of arrays -> nested dict of float32/int numpy arrays."""
+    """JAX pytree of arrays (dicts, lists) -> the same tree of numpy
+    arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy_tree(v) for v in tree]
     return np.asarray(tree)
+
+
+def tree_shapes(tree):
+    """The same tree with every leaf replaced by its shape."""
+    if isinstance(tree, dict):
+        return {k: tree_shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def assert_trees_equal(want, got, prefix=""):
+    """Two params trees (dicts, lists, arrays) have the same keys and equal
+    leaves, bit for bit."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and want.keys() == got.keys(), prefix
+        for k in want:
+            assert_trees_equal(want[k], got[k], f"{prefix}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert isinstance(got, list) and len(want) == len(got), prefix
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert_trees_equal(a, b, f"{prefix}/{i}")
+    else:
+        np.testing.assert_array_equal(np.asarray(want), got, prefix)
+        assert np.asarray(want).dtype == got.dtype, prefix
 
 
 def port_model(jax_cfg, jax_params, device=None):
