@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths on one NVIDIA GPU: the NMN serving
-forward, the NMN train step and Video-ChatGPT serving.
+"""Drive the PyTorch port's four paths on one NVIDIA GPU: the NMN serving
+forward, the NMN train step, Video-ChatGPT serving and LLM training.
 
     python3 chip_smoke.py
 
@@ -54,7 +54,27 @@ Phases (any failure raises, and the script exits non-zero):
    layers of the same widths the kernel route against the plain route
    (prefill hidden states below ``prompt_len``, first greedy token); then
    one ``VideoPrefixLM.forward`` at GPT-2 widths with the video-visible
-   prefix mask against its plain route.
+   prefix mask against its plain route;
+11. the attention backward kernels (dQ; dK/dV) vs their plain version over
+   the mask cases of phase 9 plus grouped heads with one kv head and D = 32,
+   float32 (within 2e-4 of each gradient's largest value) and bf16 (within
+   2e-2), on strided q/k/v and a non-contiguous dO: identical bits on a
+   second launch, padding rows exactly 0, no NaN at ``valid_len`` 0; then
+   their times at the SFT step's shape beside the plain version's and
+   autograd through ``scaled_dot_product_attention`` (a yardstick only);
+12. the SFT train step at full width: phase 10's Llama-7B in bf16 with the
+   projector alone tuned (in float32), batch 8 x 512 tokens with ragged
+   ``valid_len``, through ``videochat_train.make_sft_step``: a finite loss
+   that falls on the repeated batch, 32 + 32 + 32 attention launches per
+   step, ms per step and peak memory without remat and with
+   ``remat='full'``; then at 2 decoder layers of full width every gradient
+   leaf of the kernel route against the plain route in float32, and the
+   bf16 loss of both routes;
+13. both trainers as entry points on the card at their CLI defaults, on
+   seeded tiny data: ``videochat_train.main`` then ``videochat_infer`` on
+   the checkpoint it saved; ``with_video_lm.main`` for the GPT-2 family
+   with the video loss and for Llama with LoRA, each then ``--func test``
+   on what it saved.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are ``{"kernels": [...]}`` (per
@@ -86,6 +106,10 @@ TRAIN_STEPS = 10
 TRAIN_LAUNCHES = {"bilstm": 1, "bilstm_train": 2, "bilstm_bwd": 2,
                   "bilstm_dwh": 2, "mega_exec": 0, "mega_exec_train": 1,
                   "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
+
+
+#: the SFT step: videochat_train.py's defaults (batch 8, 512 tokens)
+SFT_BATCH, SFT_LEN, SFT_STEPS, SFT_LR = 8, 512, 6, 3e-4
 
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet): dense FLOP/s by
@@ -1070,7 +1094,7 @@ def phase_videochat(dev, card):
         f"{t['plain_ms']:.3f} ms, scaled_dot_product_attention "
         f"{t['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
         f"{entry['bound_by']}; card {card}")
-    del model, p, layer, embeds, hidden, q, k, v, out, ref, mask
+    del p, layer, embeds, hidden, q, k, v, out, ref, mask
     torch.cuda.empty_cache()
 
     # ---- 2 decoder + 2 tower layers: kernel route vs plain route -----------
@@ -1153,7 +1177,401 @@ def phase_videochat(dev, card):
             f"(bound {tol}), 12 flash_attn launches ok")
         del lm
     torch.cuda.empty_cache()
-    return [entry]
+    return [entry], model
+
+
+def attention_bwd_bounds(q, k, v, valid_len, prefix_len, causal=True):
+    """The two backward kernels on these inputs. dQ: three products per
+    live (row, column) pair and head (``Q K^T``, ``dO V^T``, ``dS K``), 6 D
+    operations; q, dO, k, v rows below ``valid_len``, lse and di read, dQ
+    written. dK/dV: four products (the first two again, ``P^T dO``, ``dS^T
+    Q``), 8 D operations; the same reads, dK and dV written."""
+    from stair_tpu_torch.ops.attention import attention_mask
+
+    B, H, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    pairs = float(attention_mask(prefix_len, valid_len, Lq, Lkv,
+                                 causal).sum())
+    rows_q = float(valid_len.clamp(max=Lq).sum())
+    rows_kv = float(valid_len.clamp(max=Lkv).sum())
+    es = q.element_size()
+    reads = es * D * (2 * H * rows_q + 2 * Hkv * rows_kv) + 8 * B * H * Lq
+    return (bound(6.0 * D * H * pairs, reads + es * D * B * H * Lq, q.dtype),
+            bound(8.0 * D * H * pairs, reads + 2 * es * D * B * Hkv * Lkv,
+                  q.dtype))
+
+
+def phase_attention_bwd(dev, card):
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import attention as TA
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    L = 640
+    # name, B, H, Hkv, Lq, Lkv, D, prefix_len, valid_len, causal
+    cases = [
+        ("causal L640", 4, 32, 32, L, L, 128, [0] * 4, [L, 500, 0, 611], True),
+        ("ragged L611", 4, 32, 32, 611, 611, 128, [0] * 4, [611, 300, 1, 64],
+         True),
+        ("GQA 32/8", 4, 32, 8, L, L, 128, [0, 100, 0, 0], [L, 333, 17, L],
+         True),
+        ("GQA 8/1 D64", 2, 8, 1, 130, 130, 64, [0, 30], [130, 99], True),
+        ("D64 mixed prefix", 4, 12, 12, 128, 128, 64, [64, 10, 0, 128],
+         [128, 100, 70, 128], True),
+        ("prefix > valid", 2, 12, 12, 200, 200, 64, [150, 300], [100, 200],
+         True),
+        ("non-causal Lq != Lkv", 2, 4, 4, 100, 333, 64, [0, 0], [333, 90],
+         False),
+        ("causal Lq != Lkv GQA", 2, 4, 2, 100, 160, 64, [20, 0], [160, 90],
+         True),
+        ("D32 odd lengths", 2, 3, 3, 77, 77, 32, [5, 0], [77, 60], True),
+        ("D40 (scalar kernels)", 2, 3, 3, 77, 91, 40, [5, 0], [91, 60], True),
+    ]
+    for name, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal in cases:
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            def draw(heads, n):       # [B, L, H, D] seen as [B, H, L, D]
+                return torch.randn(B, n, heads, D, generator=gen,
+                                   device=dev).to(dtype).transpose(1, 2)
+
+            q, k, v = draw(H, Lq), draw(Hkv, Lkv), draw(Hkv, Lkv)
+            dout = torch.randn(B, H, Lq, D + 8, generator=gen,
+                               device=dev).to(dtype)[..., :D]
+            pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+            scale = D ** -0.5
+            out, lse = TA.flash_attention(q, k, v, pl, vl, causal=causal,
+                                          return_lse=True)
+            with kernel_route(("flash_attn_bwd_dq", "flash_attn_bwd_dkv")):
+                got = TA._launch_backward(q, k, v, out, lse, dout, pl, vl,
+                                          causal, scale)
+            again = TA._launch_backward(q, k, v, out, lse, dout, pl, vl,
+                                        causal, scale)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            want = TA.flash_backward_reference(q, k, v, out, lse, dout, pl,
+                                               vl, causal, scale)
+            require(not any(_build.LAUNCHES.values()),
+                    "the plain backward launched a kernel")
+            errs = []
+            for g, g2, w, n_rows in zip(got, again, want, (Lq, Lkv, Lkv)):
+                require(torch.equal(g, g2),
+                        f"attention backward {name} {dtype}: bits differ "
+                        "between two launches")
+                require(bool(torch.isfinite(g.float()).all()),
+                        f"attention backward {name} {dtype}: not finite")
+                require(g.transpose(1, 2).is_contiguous(),
+                        "gradient not in [B, L, heads, D] memory")
+                for b, n in enumerate(valid):
+                    require(n >= n_rows
+                            or float(g[b, :, n:].float().abs().max()) == 0.0,
+                            f"attention backward {name}: padding rows not 0")
+                errs.append(float((g.float() - w.float()).abs().max())
+                            / max(float(w.float().abs().max()), 1e-30))
+            require(max(errs) <= tol,
+                    f"attention backward {name} {dtype}: dq/dk/dv {errs}")
+            log(f"[flash_attn_bwd] {name} B={B} H={H}/{Hkv} L={Lq}/{Lkv} "
+                f"D={D} {dtype}: max|a-b|/max|b| dq {errs[0]:.3e} dk "
+                f"{errs[1]:.3e} dv {errs[2]:.3e} (bound {tol}), same bits "
+                "twice, padding rows 0 ok")
+
+
+def sft_attention_entries(dev, card, model, batch, launches):
+    """Kernels #8 and #9 on the SFT step's own q, k, v (layer 0 of the
+    full-width model) and a seeded cotangent: error against the plain
+    version, time, bound, and autograd through
+    ``scaled_dot_product_attention`` as the yardstick. ``launches`` are the
+    counts read after the counted SFT run."""
+    from stair_tpu_torch.llm.decoder import _norm
+    from stair_tpu_torch.ops import attention as TA
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    B, L = batch["token_ids"].shape
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    vl = batch["valid_len"]
+    with torch.no_grad():
+        p = model.decoder.param_tree()
+        layer = p["layers"][0]
+        embeds = model.splice_embeds(batch["token_ids"],
+                                     batch["video_tokens"],
+                                     batch["splice_start"])
+        pos = torch.arange(L, device=dev)[None, :].expand(B, L)
+        q, k, v = model.decoder._project_qkv(
+            layer, _norm(layer["ln1"], embeds, "rms",
+                         model.config.decoder.rms_eps),
+            model.decoder._rope_of(pos))
+    D = q.shape[-1]
+    scale = D ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(12)
+    dout = torch.randn(B, L, q.shape[1], D, generator=gen, device=dev).to(
+        q.dtype).transpose(1, 2)
+    out, lse = TA.flash_attention(q, k, v, zeros, vl, return_lse=True)
+    got = TA._launch_backward(q, k, v, out, lse, dout, zeros, vl, True, scale)
+    want = TA.flash_backward_reference(q, k, v, out, lse, dout, zeros, vl,
+                                       True, scale)
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in
+            zip(got, want)]
+    rel = [e / max(float(w.float().abs().max()), 1e-30)
+           for e, w in zip(errs, want)]
+    require(max(rel) <= 2e-2, f"attention backward on the SFT step's inputs: "
+            f"max|a-b|/max|b| {rel}")
+    args, _, keep = TA._backward_args(q, k, v, out, lse, dout, zeros, vl,
+                                      True, scale)
+    mask = TA.attention_mask(zeros, vl, L, L)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        a, b, c = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa(a, b, c, attn_mask=mask).backward(dout)
+
+    def library_forward():
+        with torch.no_grad():
+            sdpa(q, k, v, attn_mask=mask)
+
+    t = {
+        "dq": cuda_time_ms(lambda: TA._launch_dq(args, dev), iters=30,
+                           warmup=3),
+        "dkv": cuda_time_ms(lambda: TA._launch_dkv(args, dev), iters=30,
+                            warmup=3),
+        "whole": cuda_time_ms(
+            lambda: TA._launch_backward(q, k, v, out, lse, dout, zeros, vl,
+                                        True, scale), iters=30, warmup=3),
+        "plain": cuda_time_ms(
+            lambda: TA.flash_backward_reference(q, k, v, out, lse, dout,
+                                                zeros, vl, True, scale),
+            iters=3, warmup=1),
+        "forward": cuda_time_ms(
+            lambda: TA.flash_attention(q, k, v, zeros, vl, return_lse=True),
+            iters=30, warmup=3),
+    }
+    lib = max(cuda_time_ms(library, iters=20, warmup=3)
+              - cuda_time_ms(library_forward, iters=20, warmup=3), 0.0)
+    b_dq, b_dkv = attention_bwd_bounds(q, k, v, vl, zeros)
+    log(f"[main-path inputs] flash_attn backward B={B} H={q.shape[1]} L={L} "
+        f"D={D} bf16, valid {vl.tolist()}: max_abs_err dq {errs[0]:.3e} dk "
+        f"{errs[1]:.3e} dv {errs[2]:.3e} (max|a-b|/max|b| {max(rel):.3e}, "
+        f"bound 2e-2); dQ kernel {t['dq']:.4f} ms (bound "
+        f"{b_dq['bound_ms']:.4f} ms by {b_dq['bound_by']}), dK/dV kernel "
+        f"{t['dkv']:.4f} ms (bound {b_dkv['bound_ms']:.4f} ms by "
+        f"{b_dkv['bound_by']}), both with di {t['whole']:.4f} ms, forward "
+        f"with lse {t['forward']:.4f} ms; plain backward {t['plain']:.3f} "
+        f"ms; scaled_dot_product_attention backward through autograd (boolean "
+        f"mask, forward + backward less forward) {lib:.4f} ms for dQ, dK "
+        f"and dV together (yardstick only); card {card}")
+    # the plain version and the library call compute all three gradients at
+    # once: their times stand in both rows
+    src = "stair_tpu_torch/ops/csrc/flash_attn_bwd.cu"
+    return [
+        {"name": "flash_attn_bwd_dq", "route": "cuda", "source": src,
+         "replaces": "stair_tpu/ops/attention.py:238",
+         "launches": launches["flash_attn_bwd_dq"], "max_abs_err": errs[0],
+         "ms": t["dq"], "plain_ms": t["plain"], "library_ms": lib, **b_dq},
+        {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": src,
+         "replaces": "stair_tpu/ops/attention.py:292",
+         "launches": launches["flash_attn_bwd_dkv"],
+         "max_abs_err": max(errs[1:]), "ms": t["dkv"], "plain_ms": t["plain"],
+         "library_ms": lib, **b_dkv},
+    ]
+
+
+def phase_sft(dev, card, model):
+    import dataclasses
+
+    from stair_tpu_torch.llm import optim as TO
+    from stair_tpu_torch.llm import videochat_train as VT
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.testing import videochat as VW
+
+    n_layers = model.config.decoder.num_layers
+    batch = VW.sft_batch(seed=0, batch=SFT_BATCH, length=SFT_LEN, device=dev)
+    n_targets = int((batch["labels"][:, 1:] >= 0).sum())
+
+    # ---- full width, projector-only: the decoder is frozen in bf16, the
+    # projector is tuned in float32; the backward crosses every layer
+    for key, p in model.weights.items():
+        p.data = p.data.float()
+    step = VT.make_sft_step(model, TO.make_adamw(
+        VT.trainable_parameters(model, projector_only=True),
+        TO.warmup_cosine_decay_schedule(0.0, SFT_LR, 1, 2 * SFT_STEPS),
+        weight_decay=0.0))
+
+    def run(steps):
+        """``steps`` steps; returns (losses, ms per step after the first,
+        peak GiB, launches)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses = [step(batch)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps - 1):
+            losses.append(step(batch))
+        end.record()
+        torch.cuda.synchronize()
+        return ([float(x) for x in losses],
+                start.elapsed_time(end) / (steps - 1),
+                torch.cuda.max_memory_allocated() / 2**30,
+                dict(_build.LAUNCHES))
+
+    losses, ms, peak, launches = run(SFT_STEPS)
+    require(all(np.isfinite(losses)), f"SFT loss not finite: {losses}")
+    # the schedule's first rate is 0: the loss can fall from step 2 on
+    require(losses[-1] < losses[1], f"SFT loss does not fall: {losses}")
+    for key in ("flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        require(launches[key] == n_layers * SFT_STEPS,
+                f"{key}: {launches[key]} launches in {SFT_STEPS} steps of "
+                f"{n_layers} layers")
+    require(all(p.grad is None for p in model.decoder.parameters()),
+            "a frozen decoder parameter got a gradient")
+    per_step = {k: v // SFT_STEPS for k, v in launches.items() if v}
+    log(f"[sft] Llama-7B bf16, projector-only (float32 projector), batch "
+        f"{SFT_BATCH} x {SFT_LEN} tokens, valid_len "
+        f"{batch['valid_len'].tolist()}, {n_targets} targets, AdamW peak lr "
+        f"{SFT_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{SFT_STEPS} steps on a repeated batch ({[round(x, 4) for x in losses]}); "
+        f"{ms:.1f} ms per step (CUDA events), peak memory {peak:.2f} GiB "
+        f"without remat; launches per step {per_step}; card {card}")
+
+    model.decoder.config = dataclasses.replace(
+        model.decoder.config, remat=True, remat_policy="full")
+    r_losses, r_ms, r_peak, r_launches = run(3)
+    model.decoder.config = dataclasses.replace(
+        model.decoder.config, remat=False)
+    require(all(np.isfinite(r_losses)), f"SFT loss with remat: {r_losses}")
+    require(r_launches["flash_attn"] == 2 * n_layers * 3
+            and r_launches["flash_attn_bwd_dq"] == n_layers * 3
+            and r_launches["flash_attn_bwd_dkv"] == n_layers * 3,
+            f"launches with remat='full': {r_launches}")
+    require(r_peak < peak, "remat='full' did not lower the peak memory")
+    log(f"[sft] the same with remat='full': {r_ms:.1f} ms per step, peak "
+        f"memory {r_peak:.2f} GiB, {2 * n_layers} flash_attn + {n_layers} + "
+        f"{n_layers} backward launches per step (each layer's forward runs "
+        f"again in the backward); loss {r_losses[0]:.4f} -> {r_losses[-1]:.4f}")
+
+    return sft_attention_entries(dev, card, model, batch, launches)
+
+
+def phase_sft_routes(dev):
+    """2 decoder layers of full width: every gradient leaf of the kernel
+    route against the plain route (autograd through the dense attention) in
+    float32, and the bf16 loss of both."""
+    from stair_tpu_torch.testing import videochat as VW
+    from stair_tpu_torch.weights import flatten_tree
+
+    batch = VW.sft_batch(seed=1, batch=4, length=SFT_LEN, device=dev)
+    keys = ("flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    for dtype in (torch.float32, torch.bfloat16):
+        small = VW.build_model(dev, 2, 2, seed=1, dtype=dtype)
+
+        def loss_and_grads():
+            small.zero_grad(set_to_none=True)
+            loss = small.sft_loss(batch)
+            loss.backward()
+            return float(loss.detach()), {
+                k: p.grad.clone() for k, p in
+                flatten_tree(small.param_tree()).items()
+                if p.grad is not None}
+
+        with kernel_route(keys):
+            loss_k, grads_k = loss_and_grads()
+        with plain_route():
+            loss_p, grads_p = loss_and_grads()
+        rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+        if dtype == torch.bfloat16:
+            # both routes round the attention output to bf16, at different
+            # sites; the loss is a mean over some 500 targets
+            require(rel_loss <= 5e-3, f"bf16 SFT loss kernel {loss_k} vs "
+                    f"plain {loss_p}")
+            log(f"[sft] 2 layers of full width, bf16: loss kernel route "
+                f"{loss_k:.5f} vs plain route {loss_p:.5f}, relative "
+                f"{rel_loss:.3e} (bound 5e-3)")
+            continue
+        require(grads_k.keys() == grads_p.keys() and len(grads_k) >= 22,
+                "the routes gave gradients to different leaves")
+        worst = ("", 0.0)
+        for key, g in grads_p.items():
+            err = float((grads_k[key] - g).norm() / g.norm().clamp(min=1e-30))
+            if err > worst[1]:
+                worst = (key, err)
+        # float32 on both routes: only the order of the sums differs
+        require(rel_loss <= 1e-5 and worst[1] <= 1e-3,
+                f"float32 SFT routes: loss {rel_loss}, worst leaf {worst}")
+        log(f"[sft] 2 layers of full width, float32, batch 4 x {SFT_LEN}: "
+            f"loss kernel route {loss_k:.6f} vs plain route {loss_p:.6f}; "
+            f"{len(grads_k)} gradient leaves, worst ||kernel - plain|| / "
+            f"||plain|| {worst[1]:.3e} at {worst[0]} (bound 1e-3)")
+        del grads_k, grads_p
+        del small
+        torch.cuda.empty_cache()
+
+
+def phase_trainers(dev):
+    """Both trainer CLIs on the card at their defaults, on seeded tiny data
+    written to a temporary directory."""
+    import argparse
+    import shutil
+    import tempfile
+
+    from stair_tpu_torch.llm import videochat_infer as VI
+    from stair_tpu_torch.llm import videochat_train as VT
+    from stair_tpu_torch.llm import with_video_lm as WL
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.testing import videochat as VW
+
+    root = tempfile.mkdtemp(prefix="stair_smoke_")
+    try:
+        paths = VW.write_tiny_data(root)
+        keys = ("flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+        out = f"{root}/sft"
+        with kernel_route(keys):
+            loss = VT.main(["--data-path", paths["conv"], "--features-dir",
+                            paths["chat_features"], "--output", out,
+                            "--num-epochs", "1", "--report-interval", "1"])
+            launches = dict(_build.LAUNCHES)
+        # 16 conversations, batch 8: 2 steps of 4 layers
+        require(np.isfinite(loss) and all(launches[k] == 8 for k in keys),
+                f"videochat_train: loss {loss}, launches {launches}")
+        model, tok = VI.initialize_model(argparse.Namespace(
+            model_path=None, vision_path=None, model_ckpt=out, device=None))
+        require(model.decoder.embed.is_cuda
+                and model.config.decoder.d_model == 256, "reloaded model")
+        with kernel_route(("flash_attn",)):
+            answers = VI.video_chatgpt_infer_batch(
+                model, tok, VW.QUESTIONS, VW.frame_sets(frames=8),
+                max_new_tokens=8)
+        require(len(answers) == 4 and all(isinstance(a, str)
+                                          for a in answers), "answers")
+        log(f"[trainers] videochat_train.main (defaults: d 256, 4 layers, "
+            f"head_dim 64, float32, batch 8 x 512), 1 epoch = 2 steps: loss "
+            f"{loss:.4f}, launches {({k: launches[k] for k in keys})}; "
+            f"videochat_infer --model-ckpt on what it saved answered "
+            f"{[a[:16] for a in answers]}")
+
+        common = ["--rgb-path", paths["rgb"], "--train-filename",
+                  paths["train"], "--valid-filename", paths["valid"],
+                  "--test-filename", paths["test"],
+                  "--gpt-filter-result-path", paths["filter"],
+                  "--report-interval", "1"]
+        for family, extra in (("VideoGPT", []), ("Llama", ["--llm-lora"])):
+            out = f"{root}/{family}"
+            with kernel_route(keys):
+                best = WL.main([*common, "--lm-model", family, "--output",
+                                out, "--num-epochs", "1",
+                                "--gpt-video-loss-weight", "1", *extra])
+                launches = dict(_build.LAUNCHES)
+            with kernel_route(("flash_attn",)):
+                acc = WL.main([*common, "--func", "test", "--model-ckpt",
+                               out])
+            require(0.0 <= best <= 1.0 and acc == best,
+                    f"with_video_lm {family}: valid {best} test {acc} (the "
+                    "same records)")
+            log(f"[trainers] with_video_lm.main --lm-model {family} "
+                f"{' '.join(extra)} (defaults: d 512, 4 layers, head_dim 64, "
+                f"float32) with the video loss (prefix_len > 0), 1 epoch: "
+                f"launches {({k: launches[k] for k in keys})}; --func test "
+                f"on what it saved: acc {acc:.4f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -1185,7 +1603,14 @@ def main():
     phase_mega_train(dev)
     kernels += phase_train(dev, card)
     phase_attention(dev, card)
-    kernels += phase_videochat(dev, card)
+    entries, model = phase_videochat(dev, card)
+    kernels += entries
+    phase_attention_bwd(dev, card)
+    kernels += phase_sft(dev, card, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_sft_routes(dev)
+    phase_trainers(dev)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,18 @@ grouped attention over the KV cache, as in the JAX package.
 ``Decoder`` is an ``nn.Module`` that holds the JAX params tree leaf by leaf
 (``weights.flatten_tree`` key paths, ``w`` stored ``[in, out]``); its
 methods take tensors, never a params argument. The generation entry points
-(``prefill``, ``decode_one``, ``generate``) run under ``torch.no_grad()``.
+(``prefill``, ``decode_one``, ``generate``) run under ``torch.no_grad()``;
+``hidden_states`` and ``forward_tokens`` are differentiable (the attention
+goes through ``ops.attention.FlashAttention``, whose backward is the pair
+of backward kernels). Freezing is ``requires_grad_(False)`` on the frozen
+parameters; ``add_lora`` adapters train over a frozen base that way.
+
+``DecoderConfig.remat`` rematerialises each layer in the backward pass:
+``remat_policy='full'`` keeps only the layer inputs
+(``torch.utils.checkpoint``, non-reentrant) and recomputes the layer, the
+attention forward kernel included; ``'dots'`` keeps the outputs of the
+matrix products as well (selective checkpointing) and recomputes the rest.
+Gradients are the same with and without.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from dataclasses import asdict, dataclass
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from stair_tpu_torch.ops import attention as A
 from stair_tpu_torch.weights import ParamModule
@@ -48,8 +60,7 @@ class DecoderConfig:
     rope_theta: float = 10000.0
     lora_rank: int = 0
     rms_eps: float = 1e-6
-    #: activation rematerialisation in the backward pass; kept so the
-    #: config round-trips, unused until the training slice
+    #: rematerialise each layer in the backward pass (module docstring)
     remat: bool = False
     remat_policy: str = "dots"            # 'dots' | 'full'
 
@@ -153,6 +164,19 @@ def init_linear(gen, fan_in, fan_out, device=None, dtype=torch.float32):
         return (x * (2 * bound) - bound).to(device=device, dtype=dtype)
 
     return {"w": u((fan_in, fan_out)), "b": u((fan_out,))}
+
+
+def _save_dots():
+    """Selective-checkpoint contexts of ``remat_policy='dots'``: matrix
+    product outputs are saved, everything else is recomputed."""
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.addmm.default, aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (_ckpt.CheckpointPolicy.MUST_SAVE if op in dots
+                else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return _ckpt.create_selective_checkpoint_contexts(policy)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +319,8 @@ class Decoder(ParamModule):
         collects each layer's (k, v) ``[B, kv, L, hd]``."""
         cfg = self.config
         rope = self._rope_of(positions)
-        for layer in p["layers"]:
+
+        def one_layer(layer, x):
             a_in = _norm(layer["ln1"], x, cfg.norm, cfg.rms_eps)
             q, k, v = self._project_qkv(layer, a_in, rope)
             if caches is not None:
@@ -303,7 +328,18 @@ class Decoder(ParamModule):
                 # every token as one batched product per kv head
                 caches.append((k.contiguous(), v.contiguous()))
             attn = A.flash_attention(q, k, v, prefix_len, valid_len)
-            x = self._layer_tail(layer, x, attn.transpose(1, 2))
+            return self._layer_tail(layer, x, attn.transpose(1, 2))
+
+        remat = cfg.remat and torch.is_grad_enabled() and caches is None
+        for layer in p["layers"]:
+            if not remat:
+                x = one_layer(layer, x)
+            elif cfg.remat_policy == "full":
+                x = _ckpt.checkpoint(one_layer, layer, x, use_reentrant=False)
+            else:
+                x = _ckpt.checkpoint(
+                    one_layer, layer, x, use_reentrant=False,
+                    context_fn=_save_dots)
         return _norm(p["ln_f"], x, cfg.norm, cfg.rms_eps)
 
     def hidden_states(self, input_embeds, prefix_len, valid_len,

@@ -1,15 +1,15 @@
 """Video-prefix language model: video features spliced ahead of the text
-(port of ``stair_tpu/llm/video_prefix.py``, forward half).
+(port of ``stair_tpu/llm/video_prefix.py``).
 
 Video features pass through a ``video_ff`` adapter into the embedding
 stream ahead of the text; sequences are packed contiguously ``[video |
 prompt | answer | pad]`` with per-example lengths. With
 ``video_visible=True`` the video tokens are visible to every position: the
 attention kernel's per-example ``prefix_len`` (this is its one caller with
-``prefix_len > 0``). The reply and video losses, ``splice_filter_outputs``
-and the ``with_video_lm`` trainer wait for the LLM training slice; the
-tokenizer protocol (``SimpleTokenizer``, ``load_tokenizer``), batch packing
-and the exact-match metric are here.
+``prefix_len > 0``, in ``video_loss``). Here too: the reply and video
+losses, ``splice_filter_outputs``, the tokenizer protocol
+(``SimpleTokenizer``, ``load_tokenizer``), batch packing and the
+exact-match metric; the trainer is ``llm/with_video_lm.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from stair_tpu_torch.llm.decoder import Decoder, DecoderConfig, init_linear
+from stair_tpu_torch.llm.videochat import shifted_cross_entropy
 from stair_tpu_torch.models.modules import linear
 from stair_tpu_torch.weights import ParamModule
 from stair_tpu_torch.programs.text import tokenize
@@ -79,6 +80,35 @@ def load_tokenizer(path_or_none, corpus_texts=None):
             tok.pad_token = tok.eos_token
         return tok
     return SimpleTokenizer.build(corpus_texts or [])
+
+
+# ---------------------------------------------------------------------------
+# Filter-output prompt splicing
+# ---------------------------------------------------------------------------
+
+def splice_filter_outputs(
+    question_text: str,
+    filter_outputs: dict | None,
+    max_per_module: int = 1,
+    max_total: int = 5,
+    by_level: int = 0,
+) -> str:
+    """Prepend '<keyword> <answer>.' strings from STAIR Filter retrievals."""
+    if not filter_outputs:
+        return question_text
+    entries = list(filter_outputs.values())
+    if by_level:
+        entries = [e for e in entries if e[0] <= by_level]
+    entries.sort(key=lambda e: -e[0])       # low tree level last -> first
+    texts = []
+    for _level, keyword, answers in entries:
+        for ans in answers[:max_per_module]:
+            texts.append(f"{keyword} {ans}.")
+    if not by_level and len(texts) > max_total:
+        texts = texts[:max_total]
+    if texts:
+        return " ".join(texts) + " " + question_text
+    return question_text
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +181,35 @@ class VideoPrefixLM(ParamModule):
                   else torch.zeros_like(total_len))
         hidden = self.decoder.hidden_states(embeds, prefix, total_len)
         return self.decoder.logits_from_hidden(hidden), hidden
+
+    # -- losses --------------------------------------------------------------
+
+    def reply_loss(self, batch):
+        """Answer-span CE with shifted labels; returns ``(loss, logits)``.
+
+        batch['labels'] [B, F+Lt]: token id at answer positions, IGNORE
+        elsewhere (already aligned to the packed stream).
+        """
+        logits, _ = self.forward(batch, video_visible=False)
+        return shifted_cross_entropy(logits, batch["labels"]), logits
+
+    def video_loss(self, batch):
+        """Next-frame feature regression under the video-visible mask (the
+        attention's ``prefix_len > 0`` path): per-example means over the
+        valid frames, summed over the batch."""
+        _, hidden = self.forward(batch, video_visible=True)
+        p = super().param_tree()
+        pred = linear(p["video_inverse_ff"], hidden).float()   # [B, L, vd]
+        video = batch["video"].float()                         # [B, F, vd]
+        Fmax = video.shape[1]
+        target = video[:, 1:]                                  # predict t+1
+        pred = pred[:, : Fmax - 1]
+        steps = torch.arange(Fmax - 1, device=video.device)[None, :]
+        valid = (steps < (batch["video_len"][:, None] - 1)).float()
+        se = torch.mean(torch.square(pred - target), dim=-1) * valid
+        per_example = torch.sum(se, dim=1) / torch.clamp(
+            torch.sum(valid, dim=1), min=1.0)
+        return torch.sum(per_example)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
 """Video-ChatGPT path: CLIP features -> spatio-temporal tokens -> Llama
-(port of ``stair_tpu/llm/videochat.py``, serving half).
+(port of ``stair_tpu/llm/videochat.py``).
 
 Raw video frames are encoded by the CLIP tower (``llm/clip.py``), pooled
 into ``max_temporal`` temporal + S spatial tokens, projected by
 ``mm_projector`` and written into the Llama embedding stream over the
 ``<vid_patch>`` span, whose start is known when the prompt is made. Generation is
 the decoder's prefill + KV-cache loop with keyword stopping. ``sft_loss``
-waits for the LLM training slice.
+is the supervised fine-tuning loss ``llm/videochat_train.py`` minimises.
 """
 
 from __future__ import annotations
@@ -41,6 +41,20 @@ def spatio_temporal_pool(features, max_temporal: int = 100):
         temporal = temporal[:max_temporal]
     spatial = torch.mean(features, dim=0)
     return torch.cat([temporal, spatial], dim=0)
+
+
+def shifted_cross_entropy(logits, labels):
+    """Next-token CE: ``logits[:, :-1]`` against ``labels[:, 1:]``, labels
+    below 0 ignored, summed and divided by ``max(#targets, 1)``; computed
+    in float32."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    mask = (shift_labels >= 0).float()
+    safe = torch.clamp(shift_labels, min=0)
+    lse = torch.logsumexp(shift_logits, dim=-1)
+    picked = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
+    return torch.sum((lse - picked) * mask) / torch.clamp(
+        torch.sum(mask), min=1.0)
 
 
 @dataclass(frozen=True)
@@ -95,8 +109,11 @@ class VideoChatModel(ParamModule):
         splice_start [B]: first ``<vid_patch>`` position.
         """
         embeds = self.decoder.embed[token_ids]             # a fresh tensor
-        projected = linear(super().param_tree()["mm_projector"],
-                           video_tokens.to(embeds.dtype))
+        # the projector runs in its own dtype (a trainer may keep it in
+        # float32 over a bf16 decoder); its output takes the embeddings'
+        proj = super().param_tree()["mm_projector"]
+        projected = linear(proj, video_tokens.to(proj["w"].dtype)).to(
+            embeds.dtype)
         V = projected.shape[1]
         # the start is clamped so the span fits, as dynamic_update_slice does
         start = torch.clamp(splice_start.long(), 0, embeds.shape[1] - V)
@@ -112,6 +129,18 @@ class VideoChatModel(ParamModule):
             embeds, torch.zeros(B, dtype=torch.int32, device=embeds.device),
             valid_len.to(torch.int32))
         return self.decoder.logits_from_hidden(hidden)
+
+    def sft_loss(self, batch):
+        """Supervised fine-tuning: CE on non-masked targets (the trainer
+        masks everything but assistant replies).
+
+        batch: token_ids [B, L], labels [B, L] (-1 ignored), video_tokens,
+        splice_start, valid_len. The mean is over the unmasked targets,
+        at least 1, in float32.
+        """
+        logits = self.forward(batch["token_ids"], batch["video_tokens"],
+                              batch["splice_start"], batch["valid_len"])
+        return shifted_cross_entropy(logits, batch["labels"])
 
     @torch.no_grad()
     def generate(self, token_ids, video_tokens, splice_start, prompt_len,

@@ -14,8 +14,13 @@ device unless ``--device cpu`` is given.
 Air-gapped mode: without ``--model-path`` a randomly-initialized tiny model
 exercises the full pipeline (smoke tests only). With ``--model-path`` /
 ``--vision-path`` (local directories and files; nothing is downloaded) the
-Llama and CLIP weights are imported through ``transformers``. Loading a
-``--model-ckpt`` of the JAX trainer (``params.msgpack``) is not ported yet.
+Llama and CLIP weights are imported through ``transformers``.
+``--model-ckpt DIR`` loads a trainer's ``params.msgpack`` (a whole tree or
+the projector alone; either package's) over the air-gapped model: one
+rebuilt from the ``decoder`` / ``vision`` entries of the directory's
+``config.json`` when ``videochat_train`` of this package wrote it, with its
+``tokenizer.json``, else the tiny default, whose shapes the checkpoint must
+then have.
 """
 
 from __future__ import annotations
@@ -39,26 +44,35 @@ from stair_tpu_torch.llm.videochat import (
     VideoChatModel,
     build_video_prompt,
 )
+from stair_tpu_torch.train.checkpoint import load_params
+from stair_tpu_torch.utils.device import pick_device
 from stair_tpu_torch.weights import params_from_numpy
 
 
-def _device(args):
-    name = getattr(args, "device", None)
-    if name:
-        return torch.device(name)
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-    return torch.device("cuda", 0)
+def _checkpoint_setup(ckpt_dir):
+    """``(decoder config, vision config, max_temporal, tokenizer)`` recorded
+    beside a checkpoint, each None where the directory does not say."""
+    dec = vis = max_temporal = tokenizer = None
+    cfg_path = os.path.join(ckpt_dir, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            saved = json.load(f)
+        if "decoder" in saved and "vision" in saved:
+            dec = DecoderConfig(**saved["decoder"])
+            vis = ClipVisionConfig(**saved["vision"])
+            max_temporal = saved["max_temporal"]
+    tok_path = os.path.join(ckpt_dir, "tokenizer.json")
+    if os.path.exists(tok_path):
+        with open(tok_path) as f:
+            t = json.load(f)
+        tokenizer = SimpleTokenizer(t["word2id"], t["eos"], t["pad"])
+    return dec, vis, max_temporal, tokenizer
 
 
 def initialize_model(args):
     """Build (model, tokenizer) on ``args.device``. Loads HF weights when
     ``args.model_path`` is a local directory."""
-    device = _device(args)
-    if getattr(args, "model_ckpt", None):
-        raise NotImplementedError(
-            "--model-ckpt (the JAX trainer's params.msgpack) is not ported "
-            "yet; pass --model-path/--vision-path or neither")
+    device = pick_device(getattr(args, "device", None))
     if args.model_path and os.path.isdir(args.model_path):
         from transformers import AutoConfig, AutoTokenizer
 
@@ -90,22 +104,31 @@ def initialize_model(args):
         })
         model = VideoChatModel(cfg, params).to(device=device, dtype=dtype)
         return model, tokenizer
-    # Air-gapped tiny model.
-    dec_cfg = DecoderConfig.llama(
-        vocab_size=512, d_model=64, num_heads=4, num_layers=2, d_ff=128,
-        max_len=1024,
-    )
-    vis_cfg = ClipVisionConfig(
-        image_size=56, patch_size=14, d_model=32, num_heads=2,
-        num_layers=2, d_ff=64,
-    )
-    cfg = VideoChatConfig(decoder=dec_cfg, vision=vis_cfg, max_temporal=20)
+    # Air-gapped tiny model, or the one a trainer's checkpoint describes.
+    ckpt = getattr(args, "model_ckpt", None)
+    dec_cfg, vis_cfg, max_temporal, tokenizer = (
+        _checkpoint_setup(ckpt) if ckpt else (None,) * 4)
+    if dec_cfg is None:
+        dec_cfg = DecoderConfig.llama(
+            vocab_size=512, d_model=64, num_heads=4, num_layers=2, d_ff=128,
+            max_len=1024,
+        )
+        vis_cfg = ClipVisionConfig(
+            image_size=56, patch_size=14, d_model=32, num_heads=2,
+            num_layers=2, d_ff=64,
+        )
+        max_temporal = 20
+    cfg = VideoChatConfig(decoder=dec_cfg, vision=vis_cfg,
+                          max_temporal=max_temporal)
     model = VideoChatModel(
         cfg, generator=torch.Generator().manual_seed(0)).to(device)
-    tokenizer = SimpleTokenizer.build([
-        DEFAULT_VIDEO_PATCH_TOKEN, "<vid_start>", "<vid_end>",
-        "question answer video what did they do ?",
-    ])
+    if tokenizer is None:
+        tokenizer = SimpleTokenizer.build([
+            DEFAULT_VIDEO_PATCH_TOKEN, "<vid_start>", "<vid_end>",
+            "question answer video what did they do ?",
+        ])
+    if ckpt:
+        load_params(ckpt, model)
     return model, tokenizer
 
 

@@ -23,7 +23,9 @@ its kernel and nowhere else:
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
 - ``flash_attn``: the masked flash-attention forward
-  (``csrc/flash_attn.cu``).
+  (``csrc/flash_attn.cu``);
+- ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
+  (``csrc/flash_attn_bwd.cu``), the dQ launch and the dK/dV launch.
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` header, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``).
@@ -56,7 +58,8 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "bilstm": 0, "bilstm_train": 0, "bilstm_bwd": 0, "bilstm_dwh": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
-    "mega_exec_wgrad": 0, "flash_attn": 0,
+    "mega_exec_wgrad": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
+    "flash_attn_bwd_dkv": 0,
 }
 
 _lib = None
@@ -177,6 +180,9 @@ def build():
         fn.argtypes = [P, I, I, I, I, I, P]  # pointers, n, B, T, F, H, stream
     lib.stair_flash_attn_fwd.restype = I
     lib.stair_flash_attn_fwd.argtypes = [P, P]   # FlashArgs*, stream
+    for fn in (lib.stair_flash_attn_bwd_dq, lib.stair_flash_attn_bwd_dkv):
+        fn.restype = I
+        fn.argtypes = [P, P]                     # FlashBwdArgs*, stream
     _lib = lib
     return lib
 
@@ -204,7 +210,8 @@ def check_tensor(name, t, dtype, shape, device):
     ``dtype`` and ``shape``, contiguous, and detached. A kernel reads raw
     device pointers and records nothing for autograd; gradients go through
     the ``torch.autograd.Function``s around the forward and backward
-    kernels (``lstm.BiLSTMTrain``, ``mega_grad.MegaExecTrain``), which
+    kernels (``lstm.BiLSTMTrain``, ``mega_grad.MegaExecTrain``,
+    ``attention.FlashAttention``), which
     hand the kernels detached tensors."""
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, "

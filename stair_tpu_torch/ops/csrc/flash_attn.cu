@@ -37,9 +37,7 @@
 // column wipes an all-masked tile through alpha = 0, and inf - inf never
 // occurs because the new max is finite), round p to v's type before P V,
 // sum p before that rounding, and divide once at the end.
-#include "common.cuh"
-
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace stair {
 
@@ -60,7 +58,6 @@ struct FlashArgs {
   float sm_scale;
 };
 
-constexpr float MASK_VALUE = -1e30f;
 constexpr int BQ = 64;       // query rows per block (16 per warp)
 constexpr int THREADS = 128;
 
@@ -70,11 +67,6 @@ __device__ __forceinline__ int kv_end_of(int q0, int valid, int prefix,
   int end = valid;
   if (causal) end = min(end, max(q0 + BQ, prefix));
   return end;
-}
-
-__device__ __forceinline__ bool live(int row, int col, int valid, int prefix,
-                                     int causal) {
-  return col < valid && (!causal || col <= row || col < prefix);
 }
 
 // A block whose rows are all padding: zeros and +inf.
@@ -216,39 +208,6 @@ flash_fwd_simple(const FlashArgs a) {
 // ---------------------------------------------------------------------------
 
 constexpr int MKV = 64;      // key rows per tile
-constexpr int PAD = 8;       // bf16 elements of row padding in shared memory
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Stage ``rows`` x D bf16 (16-byte chunks) into shared memory with row
-// stride D + PAD; rows at or past ``limit`` become zeros.
-template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int first,
-                                           int limit, int rows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < limit)
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(first + r) * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -278,7 +237,7 @@ flash_fwd_mma(const FlashArgs a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
 
-  stage_tile<D>(Qs, q, a.q_sl, q0, a.Lq, BQ);
+  stage_tile<D, THREADS>(Qs, q, a.q_sl, q0, a.Lq, BQ);
   __syncthreads();
   // This warp's 16 query rows as A fragments, kept for the whole walk.
   uint32_t qf[KS][4];
@@ -307,8 +266,8 @@ flash_fwd_mma(const FlashArgs a) {
   const int kv_end = kv_end_of(q0, valid, prefix, a.causal);
   for (int kv0 = 0; kv0 < kv_end; kv0 += MKV) {
     __syncthreads();
-    stage_tile<D>(Ks, k, a.k_sl, kv0, a.Lkv, MKV);
-    stage_tile<D>(Vs, v, a.v_sl, kv0, a.Lkv, MKV);
+    stage_tile<D, THREADS>(Ks, k, a.k_sl, kv0, a.Lkv, MKV);
+    stage_tile<D, THREADS>(Vs, v, a.v_sl, kv0, a.Lkv, MKV);
     __syncthreads();
 
     float s[NT][4];

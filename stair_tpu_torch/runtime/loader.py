@@ -350,6 +350,51 @@ def windowed(iterable, depth: int = 4):
         yield buf.popleft()
 
 
+def device_prefetch(batches, device):
+    """Iterate ``batches`` (dicts of numpy arrays) as dicts of tensors on
+    ``device``, prepared one batch ahead on a worker thread. For a CUDA
+    device the worker pins each array and starts its host-to-device copy on
+    a side stream, so the copy overlaps the previous step; the consumer's
+    stream waits for the copy's event before the batch is handed out.
+    Values that are not arrays pass through."""
+    import torch
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    side = torch.cuda.Stream(device) if on_card else None
+
+    def put(v):
+        if not isinstance(v, np.ndarray):
+            return v
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if on_card:
+            t = t.pin_memory().to(device, non_blocking=True)
+        return t
+
+    def worker():
+        for b in batches:
+            if not on_card:
+                yield {k: put(v) for k, v in b.items()}, None
+                continue
+            with torch.cuda.stream(side):
+                out = {k: put(v) for k, v in b.items()}
+                done = torch.cuda.Event()
+                done.record(side)
+            yield out, done
+
+    def consume():
+        for out, done in PrefetchIterator(worker()):
+            if done is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(done)
+                for t in out.values():
+                    if torch.is_tensor(t):
+                        t.record_stream(cur)
+            yield out
+
+    return consume()
+
+
 class PrefetchIterator:
     """Run a batch generator on a background thread with a bounded queue."""
 

@@ -1,8 +1,8 @@
-"""Where the device time of the NMN serving forward, the NMN train step or
-Video-ChatGPT serving goes, on one NVIDIA GPU.
+"""Where the device time of the NMN serving forward, the NMN train step,
+Video-ChatGPT serving or the Video-ChatGPT SFT step goes, on one NVIDIA GPU.
 
-    python -m stair_tpu_torch.scripts.profile_slice [--train | --videochat]
-        [--steps 3] [--trace PATH]
+    python -m stair_tpu_torch.scripts.profile_slice
+        [--train | --videochat | --sft] [--steps 3] [--trace PATH]
 
 Serving (the default): builds the bench configuration
 (``testing.workload.ServingBatches`` defaults: H = 512, video 1024, text
@@ -24,6 +24,13 @@ pooling (``encode_video_batch``), the prefill (``Decoder.prefill``: GEMMs,
 the attention kernel, eager rope / norm / activation passes) and the whole
 generation (``video_chatgpt_infer_batch``: prompt building, splice,
 prefill, 64 KV-cache decode steps).
+
+``--sft``: the projector-only SFT step at full width (Llama-7B in bf16,
+frozen; the projector in float32; batch 8 x 512 tokens with ragged
+``valid_len``; ``videochat_train.make_sft_step``; ``--layers`` cuts the
+depth, ``--remat full|dots`` rematerialises the layers): forward, backward
+through every layer with the attention forward and backward kernels, one
+AdamW update of the projector.
 
 Each part's steps run under ``torch.profiler``; it prints the device time
 per step of the heaviest operators and the device's busy share of the wall
@@ -131,6 +138,30 @@ def videochat_steps(dev, layers):
     }
 
 
+def sft_step(dev, layers, remat):
+    """One projector-only SFT step at full width on a seeded batch."""
+    import dataclasses
+
+    from stair_tpu_torch.llm import optim as TO
+    from stair_tpu_torch.llm import videochat_train as VT
+    from stair_tpu_torch.testing import videochat as VW
+
+    model = VW.build_model(dev, decoder_layers=layers, vision_layers=1)
+    for p in model.weights.values():
+        p.data = p.data.float()
+    if remat:
+        model.decoder.config = dataclasses.replace(
+            model.decoder.config, remat=True, remat_policy=remat)
+    batch = VW.sft_batch(device=dev)
+    update = VT.make_sft_step(model, TO.make_adamw(
+        VT.trainable_parameters(model, projector_only=True),
+        lambda step: 3e-4, weight_decay=0.0))
+    print(f"sft step: Llama ({layers} layers, d 4096) bf16 frozen, float32 "
+          f"projector tuned, batch {tuple(batch['token_ids'].shape)}, "
+          f"valid_len {batch['valid_len'].tolist()}, remat {remat or 'off'}")
+    return lambda: update(batch).item()
+
+
 def profile_steps(name, step, n, trace=None, warmup=2, top=20):
     for _ in range(warmup):
         step()
@@ -164,8 +195,12 @@ def main():
                     help="profile the NMN train step instead of serving")
     ap.add_argument("--videochat", action="store_true",
                     help="profile Video-ChatGPT serving at full width")
+    ap.add_argument("--sft", action="store_true",
+                    help="profile the projector-only SFT step at full width")
+    ap.add_argument("--remat", choices=["full", "dots"], default=None,
+                    help="rematerialisation policy for --sft")
     ap.add_argument("--layers", type=int, default=32,
-                    help="decoder depth for --videochat")
+                    help="decoder depth for --videochat and --sft")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -177,13 +212,18 @@ def main():
     _build.build()
     if args.videochat:
         steps = videochat_steps(dev, args.layers)
+    elif args.sft:
+        steps = {"SFT step": sft_step(dev, args.layers, args.remat)}
     elif args.train:
         steps = {"train step": train_step(dev)}
     else:
         steps = {"serving step": serving_step(dev)}
     for name, step in steps.items():
         profile_steps(name, step, args.steps, args.trace,
-                      warmup=1 if args.videochat else 2)
+                      warmup=1 if args.videochat or args.sft else 2)
+    if args.sft:
+        print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              "GiB (under the profiler)")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The card's identity, exact-f32 settings, and a CUDA-event timer."""
+"""The card's identity, the entry points' device choice, exact-f32
+settings, and a CUDA-event timer."""
 
 from __future__ import annotations
 
@@ -17,6 +18,17 @@ def card_identity() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+def pick_device(name=None) -> torch.device:
+    """The device an entry point runs on: ``name`` when given (``--device
+    cpu`` in the tests), else the first CUDA device; without one it exits
+    instead of falling back to the CPU."""
+    if name:
+        return torch.device(name)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def exact_f32():

@@ -10,8 +10,8 @@ with ``/`` (a list index is its decimal digits: ``layers/0/q/w``);
 ``flatten_tree`` / ``unflatten_tree`` convert. ``params_to_numpy``
 is the inverse and round-trips bit for bit; ``grads_to_numpy`` gives the
 gradients in the same tree, so a test compares every gradient leaf by its
-JAX key path. (Reading the JAX package's ``params.msgpack`` checkpoints is
-not ported yet.)
+JAX key path. ``train/checkpoint.py`` reads and writes the JAX package's
+``params.msgpack`` checkpoints.
 """
 
 from __future__ import annotations
@@ -96,8 +96,10 @@ def params_to_numpy(tree) -> dict:
 
 
 def grads_to_numpy(model) -> dict:
-    """The ``.grad`` of every parameter of a ``VideoNMN``, as a nested dict
-    of numpy arrays under the JAX key paths (zeros where a parameter got no
+    """The ``.grad`` of every parameter of a model with ``param_tree()``
+    (``VideoNMN``, ``Decoder`` with or without LoRA leaves,
+    ``VideoChatModel``, ``VideoPrefixLM``), as the same nested tree of numpy
+    arrays under the JAX key paths (zeros where a parameter got no
     gradient, as JAX's grad gives)."""
     def leaf(p):
         g = p.grad if p.grad is not None else torch.zeros_like(p)

@@ -150,6 +150,13 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     ln = torch.tensor([8], dtype=torch.int32)
     with pytest.raises(ValueError, match="unsupported device"):
         TA.flash_attention(q.to("meta"), k, v, ln, ln)
+    # tensors that require grad are taken: gradients come back through
+    # FlashAttention (its backward is held in test_torch_attention_bwd.py)
+    q.requires_grad_()
+    out = TA.flash_attention(q, k, v, ln, ln)
+    out.sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    assert q.grad.abs().max() > 0
 
 
 # name, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, strided

@@ -6,7 +6,9 @@ package's originals give on the same inputs.
 from the port's own C++ sources), ``train/args.py`` and the constants of
 ``data/dataset.py``: every program of the workload pool parsed,
 span-linked, lowered and padded by both; the native batch path of both;
-the argument parsers option by option; the constants value by value.
+the argument parsers option by option; the constants value by value;
+``load_video_features`` on a seeded feature directory and
+``splice_filter_outputs`` string for string.
 """
 
 import os
@@ -176,3 +178,43 @@ def test_build_parser_has_the_same_options_and_defaults():
     assert table(TAr.build_parser()) == table(JAr.build_parser())
     argv = ["--rgb-path", "feats", "--batch-size", "8", "--lr", "0.001"]
     assert vars(TAr.get_args(argv)) == vars(JAr.get_args(argv))
+
+
+def test_load_video_features_agrees(tmp_path):
+    rng = np.random.RandomState(0)
+    for i, shape in enumerate([(24, 8), (7, 8), (30, 1, 8)]):
+        np.save(tmp_path / f"V{i}.npy", rng.randn(*shape).astype(np.float64))
+    np.save(tmp_path / "other.npy", rng.randn(4, 8))
+    used = {"V0", "V1", "V2", "missing"}
+    want = JDS.load_video_features(str(tmp_path), None, used, 10)
+    got = TDS.load_video_features(str(tmp_path), None, used, 10)
+    assert want.keys() == got.keys() == {"V0", "V1", "V2"}
+    for k in want:
+        np.testing.assert_array_equal(want[k], got[k])
+        assert got[k].dtype == np.float32 and got[k].shape[0] <= 10
+    with pytest.raises(ValueError, match="not found"):
+        TDS.load_video_features(str(tmp_path / "nope"), None, used, 10)
+
+
+FILTER_OUTPUTS = {
+    0: (1, "holding", ["cup", "dish", "phone"]),
+    1: (3, "before", ["opening the door"]),
+    2: (2, "after", ["sitting", "standing"]),
+    3: (2, "object", []),
+}
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"max_per_module": 2}, {"max_per_module": 3, "max_total": 2},
+    {"by_level": 2}, {"by_level": 1, "max_per_module": 5, "max_total": 1},
+    {"by_level": 9, "max_total": 0},
+], ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()) or "defaults")
+def test_splice_filter_outputs_agrees(kw):
+    from stair_tpu.llm import video_prefix as JP
+    from stair_tpu_torch.llm import video_prefix as TP
+
+    q = "Question: what did they hold ? Answer:"
+    for outputs in (FILTER_OUTPUTS, None, {}, {0: (1, "holding", [])}):
+        assert (TP.splice_filter_outputs(q, outputs, **kw)
+                == JP.splice_filter_outputs(q, outputs, **kw))
+    assert TP.splice_filter_outputs(q, FILTER_OUTPUTS, **kw) != q

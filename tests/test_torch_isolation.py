@@ -5,9 +5,11 @@ A subprocess with ``sys.modules["jax"] = None`` and
 ``sys.modules["stair_tpu"] = None`` (any import of either then raises)
 imports ``stair_tpu_torch`` and runs one tiny CPU forward, then
 ``chip_smoke.py``'s serving path (host parse/lower, tokenize, gather,
-forward), one train step (losses, backward, Adam) and one tiny
-``video_chatgpt_infer_batch`` at tiny widths; ``chip_smoke.py`` imports
-only the port. The port's sources carry no JAX/flax/optax import and no
+forward), one train step (losses, backward, Adam), one tiny
+``video_chatgpt_infer_batch`` at tiny widths and both LLM trainer CLIs
+with their checkpoints; ``chip_smoke.py`` imports only the port and its
+``kernels`` line names the nine ported kernels, each with a launch
+counter. The port's sources carry no JAX/flax/optax import and no
 import of ``stair_tpu``. ``python chip_smoke.py`` exits non-zero, quickly
 and without its result line, where there is no CUDA device.
 """
@@ -74,6 +76,34 @@ answers = VI.video_chatgpt_infer_batch(
     vmodel, tok, ["what did they do ?", "question video"], frames,
     max_new_tokens=4, temperature=0.0)
 assert len(answers) == 2 and all(isinstance(a, str) for a in answers)
+
+# the LLM training path: both trainer CLIs on seeded tiny data (attention
+# forward and backward through the autograd Function), the checkpoint
+# codec, and the inference CLI's model on the saved checkpoint
+import tempfile
+from stair_tpu_torch.llm import videochat_train as VT, with_video_lm as WL
+from stair_tpu_torch.testing import videochat as VW
+root = tempfile.mkdtemp()
+paths = VW.write_tiny_data(root, video_token_len=26, vision_dim=16)
+loss = VT.main(["--data-path", paths["conv"], "--features-dir",
+                paths["chat_features"], "--output", root + "/sft",
+                "--device", "cpu", "--hidden-size", "64", "--lm-layers", "2",
+                "--vision-dim", "16", "--vision-image-size", "28",
+                "--max-temporal", "22", "--max-len", "96", "--batch-size",
+                "8", "--num-epochs", "1", "--tune-mm-projector-only"])
+assert loss == loss
+vmodel, tok = VI.initialize_model(argparse.Namespace(
+    model_path=None, vision_path=None, model_ckpt=root + "/sft",
+    device="cpu"))
+assert vmodel.config.decoder.d_model == 64
+common = ["--rgb-path", paths["rgb"], "--train-filename", paths["train"],
+          "--valid-filename", paths["valid"], "--test-filename",
+          paths["test"], "--device", "cpu", "--hidden-size", "64",
+          "--lm-layers", "1", "--max-video-length", "8",
+          "--tokenizer-max-length", "16", "--batch-size", "8"]
+best = WL.main([*common, "--num-epochs", "1", "--output", root + "/lm"])
+assert WL.main([*common, "--func", "test", "--model-ckpt",
+                root + "/lm"]) == best
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stair_tpu")
        and sys.modules[m] is not None]
@@ -120,6 +150,25 @@ def test_chip_smoke_imports_only_the_port():
         mods = {m.split(".")[0] for m in pat.findall(f.read())}
     assert "stair_tpu_torch" in mods
     assert "stair_tpu" not in mods
+
+
+def test_chip_smoke_lists_nine_kernels_with_launch_counters():
+    from stair_tpu_torch.ops import _build
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        text = f.read()
+    names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
+    assert len(names) == len(set(names)) == 9, names
+    assert set(names) <= set(_build.LAUNCHES), names
+    assert {"flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"} <= set(
+        names)
+    for src in set(re.findall(r'"(stair_tpu_torch/ops/csrc/\w+\.cu)"',
+                              text)):
+        assert os.path.exists(os.path.join(REPO, src)), src
+    for site in set(re.findall(r'"replaces": "(stair_tpu/[\w/.]+):(\d+)"',
+                               text)):
+        with open(os.path.join(REPO, site[0])) as f:
+            assert int(site[1]) <= len(f.readlines()), site
 
 
 def test_chip_smoke_fails_fast_without_a_gpu():

@@ -168,10 +168,12 @@ def test_keywords_stopping_truncates():
     assert stop.truncate("a b") == "a b"
 
 
-def test_model_ckpt_is_refused_with_a_clear_error():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TI.initialize_model(argparse.Namespace(**{**ARGS,
-                                                  "model_ckpt": "/x"}))
+def test_model_ckpt_is_refused_with_a_clear_error(tmp_path):
+    """A directory that holds no ``params.msgpack`` is refused by name (a
+    trainer's checkpoint loads: test_torch_llm_trainers.py)."""
+    with pytest.raises(FileNotFoundError, match="params.msgpack"):
+        TI.initialize_model(argparse.Namespace(
+            **{**ARGS, "model_ckpt": str(tmp_path)}))
 
 
 def _cli_args(tmp_path, samples, extra=()):

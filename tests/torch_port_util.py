@@ -79,3 +79,22 @@ def assert_close(ref, out, keys, rtol, atol):
             out[key].detach().float().cpu().numpy(),
             rtol=rtol, atol=atol, err_msg=key,
         )
+
+
+def assert_grad_trees_close(want, got, rel=1e-4, prefix=""):
+    """Every gradient leaf within ``rel`` of the wanted leaf's scale
+    (``max|a - b| <= rel * max|b|``, plus 1e-6 for leaves that are 0 but
+    for rounding, such as the gradient of a key bias)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and want.keys() == got.keys(), prefix
+        for k in want:
+            assert_grad_trees_close(want[k], got[k], rel, f"{prefix}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(want) == len(got), prefix
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert_grad_trees_close(a, b, rel, f"{prefix}/{i}")
+    else:
+        want, got = np.asarray(want, np.float32), np.asarray(got, np.float32)
+        assert want.shape == got.shape, prefix
+        err = float(np.abs(want - got).max()) if want.size else 0.0
+        assert err <= rel * float(np.abs(want).max()) + 1e-6, (prefix, err)
