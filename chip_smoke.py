@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths on one NVIDIA GPU: the NMN serving
-forward, the NMN train step, Video-ChatGPT serving and LLM training.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: the NMN serving
+forward and train step (on the megakernel route, and on the scan
+executor's per-step and reversible routes), Video-ChatGPT serving and LLM
+training.
 
     python3 chip_smoke.py
 
@@ -74,7 +76,30 @@ Phases (any failure raises, and the script exits non-zero):
    seeded tiny data: ``videochat_train.main`` then ``videochat_infer`` on
    the checkpoint it saved; ``with_video_lm.main`` for the GPT-2 family
    with the video loss and for Llama with LoRA, each then ``--func test``
-   on what it saved.
+   on what it saved;
+14. the register-slot kernels (set, zero, add) vs their plain versions on
+   the three register files at the training shapes (B = 128: vec
+   ``[128, 25, 512]``, frames ``[128, 9, 64, 512]``, attn ``[128, 11, 64]``),
+   float32 and bf16, random slots including the scratch slot: equal bits,
+   and every other slot equal to what it was;
+15. the fused executor-step kernel vs its plain version at every step of
+   the all-opcode programs at H = 512 (F = 16 linear and F = 64 conv
+   temporal), float32 within 1e-4 and bf16 within atol 3e-2 + rtol 1e-2:
+   every output and the whole frames file;
+16. the serving path at full width on the scan executor (phase 5's
+   configuration and batches through ``VideoNMN(executor="step")``): per
+   batch ``T`` launches of the step kernel, 2 of the BiLSTM kernel and
+   none of the megakernel; logits and the three register files against the
+   megakernel route on one batch (an example whose Choose step saw two
+   cosines tie within bf16 rounding, and kept another keyword on each
+   route, is held to that tie and left out of the file comparison); q/s
+   and device ms per batch beside that route's;
+17. the train step on the reversible executor (phase 8's configuration with
+   ``executor="rev"``): per step ``4 T`` slot sets, ``8 T`` slot zeros and
+   ``7 T`` slot adds, the BiLSTM training kernels as in phase 8 and no
+   megakernel; a finite, falling loss over 10 steps; one step's loss and
+   every gradient leaf in float32 against ``executor="step"`` under the
+   same seed; ms per step beside phase 8's.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are ``{"kernels": [...]}`` (per
@@ -107,6 +132,13 @@ TRAIN_LAUNCHES = {"bilstm": 1, "bilstm_train": 2, "bilstm_bwd": 2,
                   "bilstm_dwh": 2, "mega_exec": 0, "mega_exec_train": 1,
                   "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
 
+
+#: what an earlier phase measured and a later one prints beside its own
+SEEN = {}
+STEP_BATCHES = 4
+#: two cosines closer than this (about four bf16 steps below 1) are a tie
+#: that the executor routes may break differently
+CHOOSE_TIE = 1.6e-2
 
 #: the SFT step: videochat_train.py's defaults (batch 8, 512 tokens)
 SFT_BATCH, SFT_LEN, SFT_STEPS, SFT_LR = 8, 512, 6, 3e-4
@@ -208,9 +240,11 @@ def plain_route():
     fails if a kernel was launched inside it all the same."""
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import attention as TA
+    from stair_tpu_torch.ops import executor_step as TE
     from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.ops import regslots as TR
 
     def attention(q, k, v, prefix_len, valid_len, causal=True,
                   sm_scale=None, return_lse=False):
@@ -232,7 +266,11 @@ def plain_route():
              (TX, "mega_exec_call", TX.mega_exec_reference),
              (TX, "mega_exec_train_call", mega_train),
              (TG, "mega_exec_bwd_call", TG.mega_exec_bwd_reference),
-             (TA, "flash_attention", attention)]
+             (TA, "flash_attention", attention),
+             (TE, "fused_step", TE.fused_step_reference),
+             (TR, "slot_set", TR.slot_set_reference),
+             (TR, "slot_zero", TR.slot_zero_reference),
+             (TR, "slot_add", TR.slot_add_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -424,6 +462,8 @@ def phase_slice(dev, card):
     log(f"[slice] device forward per batch of {BATCH} (CUDA events): "
         f"kernel route {dev_ms:.3f} ms, plain route {plain_dev_ms:.3f} ms; "
         f"card {card}")
+    SEEN.update(serving=serving, mega_model=model, mega_qps=qps,
+                mega_dev_ms=dev_ms)
 
     # ---- each kernel on the main path's own inputs ----------------------
     dt = model.compute_dtype
@@ -755,6 +795,8 @@ def phase_train(dev, card):
             iters=2, warmup=1)
     log(f"[train] ms per step (CUDA events): kernel route {k_ms:.3f}, plain "
         f"route {p_ms:.3f}; card {card}")
+    SEEN.update(train_cfg=cfg, train_batch=batch, train_args=args,
+                mega_train_ms=k_ms)
 
     # ---- each training kernel at these shapes, and its plain version ----
     dt = model.compute_dtype
@@ -1574,6 +1616,462 @@ def phase_trainers(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def slot_files(dev, dtype, gen):
+    """The three register files at the training shapes with random values,
+    and per file a slot index per example (the scratch slot among them) and
+    a value block."""
+    B = TRAIN_BATCH
+    shapes = {"rv": (B, 25, HIDDEN), "rf": (B, 9, FRAMES, HIDDEN),
+              "ra": (B, 11, FRAMES)}
+    out = {}
+    for name, shape in shapes.items():
+        file = torch.randn(shape, generator=gen).to(dev, dtype)
+        val = torch.randn(shape[0], *shape[2:], generator=gen).to(dev, dtype)
+        idx = torch.randint(0, shape[1], (B,), generator=gen).to(
+            dev, torch.int32)
+        idx[:4] = shape[1] - 1
+        out[name] = (file, idx, val)
+    return out
+
+
+#: the slot calls of one step of the reversible executor, by file
+SLOT_CALLS = {"slot_set": ("rv", "rf", "ra", "ra"),
+              "slot_zero": ("ra", "ra", "rf", "rv") * 2,
+              "slot_add": ("rv", "rv", "rv", "rf", "rf", "ra", "ra")}
+
+
+def phase_slots(dev, card):
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import regslots as TR
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    gen = torch.Generator().manual_seed(14)
+    ops = {"slot_set": (TR.slot_set, TR.slot_set_reference, True),
+           "slot_zero": (TR.slot_zero, TR.slot_zero_reference, False),
+           "slot_add": (TR.slot_add, TR.slot_add_reference, True)}
+    for dtype in (torch.float32, torch.bfloat16):
+        files = slot_files(dev, dtype, gen)
+        for key, (kern, plain, takes_val) in ops.items():
+            for name, (file, idx, val) in files.items():
+                args = (idx, val) if takes_val else (idx,)
+                _build.reset_launches()
+                got = kern(file.clone(), *args)
+                torch.cuda.synchronize()
+                require(_build.LAUNCHES[key] == 1, f"{key} did not launch")
+                want = plain(file.clone(), *args)
+                require(torch.equal(got, want),
+                        f"{key} {name} {dtype}: kernel != plain version")
+                keep = torch.ones(file.shape[:2], dtype=torch.bool,
+                                  device=dev)
+                keep[torch.arange(file.shape[0], device=dev),
+                     idx.long()] = False
+                require(torch.equal(got[keep], file[keep]),
+                        f"{key} {name} {dtype}: an untouched slot changed")
+                require(not torch.equal(got[~keep], file[~keep]),
+                        f"{key} {name} {dtype}: the indexed slots kept "
+                        "their values")
+        log(f"[slots] set / zero / add on rv {tuple(files['rv'][0].shape)}, "
+            f"rf {tuple(files['rf'][0].shape)}, ra "
+            f"{tuple(files['ra'][0].shape)} {dtype}: equal bits to the plain "
+            "versions, untouched slots unchanged ok")
+
+    # ---- times at the train step's shapes (bf16), per step of the scan --
+    files = slot_files(dev, torch.bfloat16, gen)
+    rows = torch.arange(TRAIN_BATCH, device=dev)
+    zero = torch.zeros((), dtype=torch.bfloat16, device=dev)
+
+    def library(key, file, idx, val):
+        """One PyTorch call that computes the same function."""
+        ix = (rows, idx.long())
+        if key == "slot_set":
+            return file.index_put_(ix, val)
+        if key == "slot_zero":
+            return file.index_put_(ix, zero)
+        return file.index_put_(ix, val, accumulate=True)
+
+    entries = {}
+    for key, (kern, plain, takes_val) in ops.items():
+        calls = [files[n] for n in SLOT_CALLS[key]]
+
+        def run(fn, with_key=False):
+            for file, idx, val in calls:
+                a = (idx, val) if takes_val else (idx,)
+                fn(key, file, idx, val) if with_key else fn(file, *a)
+
+        ms = cuda_time_ms(lambda: run(kern), iters=20)
+        plain_ms = cuda_time_ms(lambda: run(plain), iters=20)
+        lib_ms = cuda_time_ms(lambda: run(library, True), iters=20)
+        nbytes = 0
+        for file, idx, val in calls:
+            slot = val.numel() * val.element_size()
+            moved = {"slot_set": 2, "slot_zero": 1, "slot_add": 3}[key]
+            nbytes += moved * slot + idx.numel() * idx.element_size()
+        b = bound(0.0, nbytes, torch.bfloat16)
+        entries[key] = {"ms": ms, "plain_ms": plain_ms, **b,
+                        "library_ms": lib_ms}
+        log(f"[kernel time] {key}: the {len(calls)} calls of one executor "
+            f"step (files {'/'.join(SLOT_CALLS[key])}) {ms:.4f} ms, plain "
+            f"version {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes) "
+            f"(CUDA events, bf16, B={TRAIN_BATCH}); card {card}")
+    return entries
+
+
+def step_bound(args, dtype):
+    """One launch of the fused step on these inputs: the products of the
+    live tiles (two [F, H] @ [H, H] per live stage 1, one per stage-2
+    projection, two [H] @ [H, H] per Localize tile) over the peak rate,
+    against every operand row read once (the frames operand, two vec rows,
+    the masks and schedule), the weights of each expert present read once,
+    and every output written once."""
+    from stair_tpu_torch.ops import executor_step as TE
+
+    scal, rv, rf = args[0], args[1], args[2]
+    B, _, F, H = rf.shape
+    es = rf.element_size()
+    e1, e2 = scal[TE.S_E1], scal[TE.S_E2]
+    stage1 = e1 != TE.E1_NULL
+    proj = (e2 == TE.E2_FF) | (e2 == TE.E2_TEMPORAL)
+    writes = proj | (e2 == TE.E2_ATTNVIDEO)
+    loc = e1 == TE.E1_LOCALIZE
+    n1, n2 = int(stage1.sum()), int(proj.sum())
+    flops = 2.0 * F * H * H * (2 * n1 + n2) + 4.0 * H * H * int(loc.sum())
+    experts1 = len(torch.unique(e1[stage1]))
+    experts2 = len(torch.unique(e2[proj]))
+    nbytes = (
+        B * (F * H + 2 * H + 2 * F) * es + scal.numel() * 4 + B * 4
+        + int((e2 == TE.E2_ATTNVIDEO).sum()) * F * es
+        + (experts1 * 2 + experts2 + bool(loc.any())) * (H * H + H) * es
+        + int(writes.sum()) * F * H * es
+        + B * H * es + 2 * B * F * es + 2 * B * F * 4)
+    return bound(flops, nbytes, dtype)
+
+
+def phase_step_kernel(dev):
+    """Kernel #10 against its plain version at every step of the all-opcode
+    programs: the model runs on the ``"step"`` executor and each call of
+    ``fused_step`` is made twice, kernel and plain version, on clones."""
+    from stair_tpu_torch.models.nmn import NMNConfig
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.testing import workload as W
+
+    names = ("rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")
+    real = TE.fused_step
+    for F in (16, FRAMES):
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = NMNConfig(
+                hidden_size=HIDDEN, video_size=VIDEO_D, text_size=TEXT_D,
+                max_video_length=F, object_types=3, max_steps=16,
+                num_vec=10, num_frames=6, num_attn=8,
+                compute_dtype="float32" if dtype == torch.float32
+                else "bfloat16")
+            model = W.build_model(cfg, seed=3, device=dev, executor="step")
+            batch = W.to_device(W.opcode_batch(
+                cfg, W.OPCODE_PROGRAMS * 8, seed=F), dev)
+            tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 3e-2)
+            seen = {"err": 0.0, "e1": set(), "e2": set()}
+
+            def both(*args):
+                want = TE.fused_step_reference(*(a.clone() for a in args))
+                got = real(*args)
+                torch.cuda.synchronize()
+                for g, w, what in zip(got, want, names):
+                    torch.testing.assert_close(
+                        g.float(), w.float(), rtol=tol[0], atol=tol[1],
+                        msg=lambda m: f"executor_step {what}: {m}")
+                seen["err"] = max(seen["err"], max_err(got, want))
+                seen["e1"] |= set(args[0][TE.S_E1].tolist())
+                seen["e2"] |= set(args[0][TE.S_E2].tolist())
+                return got
+
+            TE.fused_step = both
+            _build.reset_launches()
+            try:
+                out = model(batch)
+            finally:
+                TE.fused_step = real
+            T = batch["trace"]["opcode"].shape[1]
+            require(_build.LAUNCHES["executor_step"] == T,
+                    f"executor_step launches {_build.LAUNCHES}")
+            require(seen["e2"] == set(range(5)) and {0, 4, 8, 9, 10}
+                    <= seen["e1"], f"families not covered: {seen}")
+            require(bool(torch.isfinite(out["logits"]).all()),
+                    "non-finite logits on the step route")
+            log(f"[executor_step] all {len(W.OPCODE_PROGRAMS)} opcode "
+                f"programs x8 H={HIDDEN} F={F} "
+                f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
+                f"{dtype}: {T} steps, every output and the whole frames "
+                f"file, max_abs_err {seen['err']:.3e} (rtol {tol[0]}, atol "
+                f"{tol[1]}), stage-1 experts {sorted(seen['e1'])} ok")
+
+
+def phase_step_slice(dev, card):
+    """The serving path on the scan executor, beside the megakernel route
+    of ``phase_slice`` (the same configuration, batches and weights)."""
+    from stair_tpu_torch.models.nmn import VideoNMN
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.testing.workload import choose_flips
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    serving, mega = SEEN["serving"], SEEN["mega_model"]
+    cfg = serving.cfg
+    model = VideoNMN(cfg, mega.param_tree(), device=dev, executor="step")
+    host_batch, device_batch = serving.host_batch, serving.device_batch
+
+    def forward(b):
+        return model(b)["logits"]
+
+    hb0 = host_batch(NUM_BATCHES)
+    b0 = device_batch(hb0)
+    T = b0["trace"]["opcode"].shape[1]
+    forward(b0)                                   # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the counted main-path run ------------------------------------
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fetched = [forward(device_batch(host_batch(i))).float().cpu()
+               for i in range(STEP_BATCHES)]
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    require(launches["executor_step"] == T * STEP_BATCHES
+            and launches["bilstm"] == 2 * STEP_BATCHES
+            and launches["mega_exec"] == 0,
+            f"step route launches {launches} (T = {T})")
+    for lg in fetched:
+        require(lg.shape == (BATCH, cfg.answer_vocab_length)
+                and bool(torch.isfinite(lg).all()), "step route logits")
+    qps = STEP_BATCHES * BATCH / wall
+    log(f"[step slice] {STEP_BATCHES} batches x {BATCH} questions on "
+        f"executor='step': {qps:.1f} q/s end to end (megakernel route "
+        f"{SEEN['mega_qps']:.1f}), launches per batch: executor_step {T}, "
+        f"bilstm 2, mega_exec 0; card {card}")
+
+    # ---- against the megakernel route on one batch ------------------------
+    with kernel_route(("bilstm", "executor_step")):
+        out = model(b0)
+    with kernel_route(("bilstm", "mega_exec")):
+        ref = mega(b0)
+    agree = (out["logits"].argmax(-1) == ref["logits"].argmax(-1)
+             ).float().mean().item()
+    require(agree >= 0.98, f"step / mega argmax agreement {agree}")
+    # Two routes that round to bf16 at the same sites but for one: the
+    # Filter head pools the float32 feat tile in the step kernel and the
+    # rounded one in the megakernel (as the two TPU kernels do), and the
+    # sums run in other orders. So: the executor's bf16 tolerance (atol
+    # 3e-2 + rtol 1e-2) on all but 1e-5 of a file's elements, and twice
+    # that on every element. Choose is the one module with a hard select:
+    # where its two cosines tie within CHOOSE_TIE the routes may keep
+    # different keywords, and such an example is held to that and left out.
+    flipped, margin = choose_flips(b0["trace"], out["regs_vec"],
+                                   ref["regs_vec"])
+    n_flipped = int(flipped.sum())
+    worst_tie = float(margin[flipped].max()) if n_flipped else 0.0
+    require(n_flipped <= BATCH // 200 and worst_tie <= CHOOSE_TIE,
+            f"step vs mega: {n_flipped} examples chose another keyword, "
+            f"cosines apart by up to {worst_tie:.3e}")
+    same = ~flipped
+    errs, outside = {}, {}
+    for k in ("regs_vec", "regs_frames", "regs_attn"):
+        diff = (out[k][same] - ref[k][same]).abs()
+        tol = 3e-2 + 1e-2 * ref[k][same].abs()
+        outside[k] = int((diff > tol).sum())
+        errs[k] = float(diff.max())
+        require(outside[k] <= 1e-5 * diff.numel()
+                and bool((diff <= 2 * tol).all()),
+                f"step vs mega {k}: {outside[k]} of {diff.numel()} elements "
+                f"outside the tolerance, worst {float((diff / tol).max()):.2f}"
+                " of it")
+    require(float(out["regs_frames"][:, cfg.num_frames].abs().max()) == 0.0,
+            "the scratch frames slot is not zero")
+    dev_ms = cuda_time_ms(lambda: forward(b0), iters=5, warmup=1)
+    with plain_route():
+        plain = model(b0)["logits"]
+        plain_ms = cuda_time_ms(lambda: forward(b0), iters=2, warmup=1)
+    p_agree = (plain.argmax(-1) == out["logits"].argmax(-1)
+               ).float().mean().item()
+    require(p_agree >= 0.98, f"step kernel / plain route agreement {p_agree}")
+    log(f"[step slice] vs the megakernel route on one batch: argmax "
+        f"agreement {agree:.4f}, logits max_abs_err "
+        f"{float((out['logits'] - ref['logits']).abs().max()):.3e}, register "
+        f"files max_abs_err {({k: f'{v:.3e}' for k, v in errs.items()})}, "
+        f"elements outside atol 3e-2 + rtol 1e-2: {outside} (at most 1e-5 "
+        f"of a file, none beyond twice the tolerance; {n_flipped} of "
+        f"{int(torch.isfinite(margin).sum())} examples with a Choose kept "
+        f"the other keyword, cosines apart by {worst_tie:.3e} <= "
+        f"{CHOOSE_TIE}, least gap in the batch {float(margin.min()):.3e}); "
+        f"kernel vs plain "
+        f"route argmax agreement {p_agree:.4f}")
+    log(f"[step slice] device forward per batch of {BATCH} (CUDA events): "
+        f"executor='step' {dev_ms:.3f} ms (plain route {plain_ms:.3f} ms), "
+        f"megakernel route {SEEN['mega_dev_ms']:.3f} ms; card {card}")
+
+    # ---- the kernel on the main path's own inputs, step by step -----------
+    calls = []
+    real = TE.fused_step
+
+    def record(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return real(*args)
+
+    TE.fused_step = record
+    try:
+        model(b0)
+    finally:
+        TE.fused_step = real
+    require(len(calls) == T, "fused_step calls")
+    err = 0.0
+    for args in calls:
+        got = real(*(a.clone() for a in args))
+        want = TE.fused_step_reference(*(a.clone() for a in args))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                       atol=3e-2)
+        err = max(err, max_err(got, want))
+    # timed in place: a repeat rewrites the same frames slots
+    ms = cuda_time_ms(lambda: [real(*a) for a in calls], iters=5)
+    plain_ms = cuda_time_ms(
+        lambda: [TE.fused_step_reference(*a) for a in calls], iters=2)
+    b = add_bounds(*[step_bound(a, model.compute_dtype) for a in calls])
+    log(f"[main-path inputs] executor_step over the {T} steps of one batch: "
+        f"max_abs_err {err:.3e} (rtol 1e-2, atol 3e-2); {ms:.3f} ms, plain "
+        f"version {plain_ms:.3f} ms, bound {b} (CUDA events, bf16); card "
+        f"{card}")
+    return {"name": "executor_step", "route": "cuda",
+            "source": "stair_tpu_torch/ops/csrc/executor_step.cu",
+            "replaces": "stair_tpu/ops/executor_step.py:49",
+            "launches": launches["executor_step"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def phase_rev_train(dev, card, slot_entries):
+    """The train step on the reversible executor, beside ``phase_train``'s
+    (the same configuration, batch and trainer arguments)."""
+    from stair_tpu_torch.models.nmn import NMNConfig
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import regslots as TR
+    from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.train.loop import make_train_step
+    from stair_tpu_torch.train.losses import total_loss
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    cfg, batch, args = (SEEN["train_cfg"], SEEN["train_batch"],
+                        SEEN["train_args"])
+    T = batch["trace"]["opcode"].shape[1]
+    want = {**TRAIN_LAUNCHES, "mega_exec_train": 0, "mega_exec_bwd": 0,
+            "mega_exec_wgrad": 0, "executor_step": 0, "slot_set": 4 * T,
+            "slot_zero": 8 * T, "slot_add": 7 * T}
+
+    # ---- one float32 step: "rev" against "step" under the same seed ------
+    cfg32 = NMNConfig(**{**cfg.to_dict(), "compute_dtype": "float32"})
+    got = {}
+    for executor in ("step", "rev"):
+        m = W.build_model(cfg32, seed=0, device=dev, executor=executor)
+        _build.reset_launches()
+        loss, _ = total_loss(m, batch, torch.Generator().manual_seed(7), 1.0,
+                             1.0, 1.0, 1.0,
+                             contrastive_window=args.contrastive_window)
+        loss.backward()
+        torch.cuda.synchronize()
+        # a leaf the loss does not reach has no gradient on the autograd
+        # route and a zero one on the reversible route
+        got[executor] = (float(loss.detach()), {
+            k: torch.zeros_like(p) if p.grad is None else p.grad
+            for k, p in m.weights.items()}, dict(_build.LAUNCHES))
+        del m
+    require(all(got["step"][2][k] == 0 for k in (
+        "slot_set", "slot_zero", "slot_add", "mega_exec_train")),
+        f"step route launches {got['step'][2]}")
+    ls, lr = got["step"][0], got["rev"][0]
+    require(abs(ls - lr) <= 1e-5 * abs(ls), f"rev loss {lr} vs step {ls}")
+    worst = max(((rel_err(got["rev"][1][k], g), k)
+                 for k, g in got["step"][1].items()
+                 if float(g.abs().max()) > 0))
+    # the same step function and masks on both routes; the weight
+    # cotangents are summed over steps in another order
+    require(worst[0] <= 1e-4, f"rev vs step gradients: worst {worst}")
+    log(f"[rev train] one float32 step, executor='rev' vs 'step' under one "
+        f"seed: loss {lr:.6f} vs {ls:.6f}; {len(got['step'][1])} gradient "
+        f"leaves, worst max|a-b|/max|b| {worst[0]:.3e} at {worst[1]} (bound "
+        f"1e-4)")
+    del got
+
+    # ---- the counted main-path run: 10 steps ------------------------------
+    model = W.build_model(cfg, seed=0, device=dev, executor="rev")
+    step = make_train_step(model, args)
+    # Warm-up, with every slot call of the step made twice: the kernel on
+    # the file, the plain version on a copy of it.
+    plains = {"slot_set": TR.slot_set_reference,
+              "slot_zero": TR.slot_zero_reference,
+              "slot_add": TR.slot_add_reference}
+    reals = {k: getattr(TR, k) for k in plains}
+    slot_err = dict.fromkeys(plains, 0.0)
+
+    def checked(key):
+        def call(file, idx, *val):
+            want = plains[key](file.clone(), idx, *val)
+            got = reals[key](file, idx, *val)
+            slot_err[key] = max(slot_err[key], float(
+                (got.float() - want.float()).abs().max()))
+            return got
+        return call
+
+    for k in plains:
+        setattr(TR, k, checked(k))
+    try:
+        step(batch, torch.Generator().manual_seed(100), 1.0, 1.0)
+    finally:
+        for k, fn in reals.items():
+            setattr(TR, k, fn)
+    require(all(v == 0.0 for v in slot_err.values()),
+            f"slot kernels differ from their plain versions: {slot_err}")
+    log(f"[main-path inputs] slot_set / slot_zero / slot_add over every call "
+        f"of one train step: max_abs_err {slot_err} (equal bits required) ok")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        losses.append(step(batch, torch.Generator().manual_seed(i), 1.0,
+                           1.0)["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    losses = [float(x) for x in losses]
+    for k, n in want.items():
+        require(launches[k] == n * TRAIN_STEPS,
+                f"{k} launches {launches[k]} != {n * TRAIN_STEPS}")
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(np.mean(losses[-3:]) < np.mean(losses[:3]),
+            f"loss did not fall: {losses}")
+    k_ms = cuda_time_ms(lambda: step(batch, torch.Generator().manual_seed(
+        200), 1.0, 1.0), iters=3, warmup=1)
+    log(f"[rev train] {TRAIN_STEPS} steps B={TRAIN_BATCH} on executor='rev' "
+        f"(T = {T}): losses {[round(x, 4) for x in losses]}; launches per "
+        f"step: slot_set {4 * T}, slot_zero {8 * T}, slot_add {7 * T}, "
+        f"bilstm_train 2, bilstm_bwd 2, no megakernel; "
+        f"{wall * 1e3 / TRAIN_STEPS:.3f} ms per step (host clock), "
+        f"{k_ms:.3f} ms (CUDA events) beside the megakernel route's "
+        f"{SEEN['mega_train_ms']:.3f} ms; card {card}")
+    source = "stair_tpu_torch/ops/csrc/regslots.cu"
+    return [
+        {"name": "slot_set", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/regslots.py:76",
+         "launches": launches["slot_set"],
+         "max_abs_err": slot_err["slot_set"], **slot_entries["slot_set"]},
+        {"name": "slot_zero", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/regslots.py:82",
+         "launches": launches["slot_zero"],
+         "max_abs_err": slot_err["slot_zero"], **slot_entries["slot_zero"]},
+        {"name": "slot_add", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/regslots.py:87",
+         "launches": launches["slot_add"],
+         "max_abs_err": slot_err["slot_add"], **slot_entries["slot_add"]},
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
@@ -1611,6 +2109,10 @@ def main():
     torch.cuda.empty_cache()
     phase_sft_routes(dev)
     phase_trainers(dev)
+    slot_entries = phase_slots(dev, card)
+    phase_step_kernel(dev)
+    kernels.append(phase_step_slice(dev, card))
+    kernels += phase_rev_train(dev, card, slot_entries)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

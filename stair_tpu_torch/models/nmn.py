@@ -1,22 +1,40 @@
-"""VideoNMN: the batched NMN question-answering forward (port of
+"""VideoNMN: the batched NMN question-answering model (port of
 ``stair_tpu/models/nmn.py``).
 
-The serving forward: two masked BiLSTM encoders (video and question), the
-executor over three typed register files, and the answer decoder. The
-encoders' recurrence and the executor run in the two CUDA kernels on the
-card (``ops/lstm.py bilstm``, ``ops/mega_exec.py mega_exec``) and in their
-plain versions on the CPU. Parameters keep the JAX package's key paths and
-``[in, out]`` layouts, so ``weights.params_from_numpy`` carries a JAX
-params tree over unchanged.
+Two masked BiLSTM encoders (video and question), the executor over three
+typed register files (vec ``[Nv+1, H]``, frames ``[Nf+1, F, H]``, attn
+``[Na+1, F]`` per example), and the answer decoder. Parameters keep the JAX
+package's key paths and ``[in, out]`` layouts, so
+``weights.params_from_numpy`` carries a JAX params tree over unchanged.
 
-Only the executor route is ported (the JAX package's XLA ragged-dot scan is
-its CPU fallback). ``forward(batch, generator, deterministic=False)`` is
-the training forward: the differentiable encoders (``bilstm_forward_train``,
-TPU kernels #2/#3), the training executor (``mega_exec_train``, kernels
-#5/#6, counter-hash dropout seeded from ``generator``) and decoder dropout.
-The serving forward (``deterministic=True``, the default) runs under
-``torch.no_grad`` on the eval kernels. There are no route knobs: CPU tensors
-take the plain versions, CUDA tensors the kernels.
+The executor is chosen when the model is built, ``VideoNMN(config, ...,
+executor=...)``, where the JAX package reads environment variables:
+
+- ``"mega"`` (default): one kernel runs an example's whole program
+  (``ops/mega_exec.py``: TPU kernel #4 in eval, #5 / #6 in training).
+- ``"step"``: the scan executor. A Python loop over the ``T`` padded steps;
+  each step reads its operands from the register files by index, computes
+  every module family for the batch and writes four registers back. In
+  eval with the parity Filter the ``[F, H]``-level families of a step run
+  in one kernel (``ops/executor_step.py fused_step``, TPU kernel #10:
+  ``T`` launches per forward) and its frames result lands in the frames
+  file in place. In eval with the softmax Filter, and in training, they
+  run as expert-grouped ``torch.matmul`` stages over the expert-sorted
+  rows (``_Scan.heavy_stages``), differentiated by autograd.
+- ``"rev"``: training through the reversible executor
+  (``models/rev_exec.py``): the same step function, no stored carries, the
+  register writes and the backward's cotangent updates through the slot
+  kernels (``ops/regslots.py``, TPU kernels #11-#13); eval as ``"step"``.
+
+Every route runs the encoders' BiLSTM kernels (#1 in eval, #2 / #3 in
+training). ``forward(batch, generator, deterministic=False)`` is the
+training forward: the executor's dropout is keyed on a seed drawn from
+``generator`` (the megakernel's counter hash; on the scan routes a
+``torch.Generator`` re-seeded from ``(seed, step)``, so that a replayed
+step sees the forward's masks), then the decoder mask. The serving forward
+(``deterministic=True``, the default) runs under ``torch.no_grad``. There
+is no knob between a kernel and its plain version: CPU tensors take the
+plain versions, CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +43,12 @@ from dataclasses import dataclass
 
 import torch
 
+from stair_tpu_torch.ir.lowering import Opcode
 from stair_tpu_torch.models import modules as M
+from stair_tpu_torch.models.rev_exec import (
+    RevCore, gather_operands, init_regs, rev_exec,
+)
+from stair_tpu_torch.ops import executor_step as ES
 from stair_tpu_torch.ops.lstm import (
     bilstm_forward, bilstm_forward_train, init_lstm_params,
 )
@@ -34,6 +57,10 @@ from stair_tpu_torch.ops.mega_grad import mega_exec_train
 from stair_tpu_torch.weights import (  # noqa: F401  (tree_map: re-export)
     ParamModule, tree_map,
 )
+
+
+#: the executors of ``VideoNMN`` (see the module docstring)
+EXECUTORS = ("mega", "step", "rev")
 
 
 @dataclass(frozen=True)
@@ -73,11 +100,16 @@ class VideoNMN(ParamModule):
     view the functions below index."""
 
     def __init__(self, config: NMNConfig, params: dict | None = None, *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 executor: str = "mega"):
         super().__init__()
         if config.encoder != "lstm":
             raise NotImplementedError("only the lstm encoder is ported")
+        if executor not in EXECUTORS:
+            raise ValueError(f"executor {executor!r}: expected one of "
+                             f"{EXECUTORS}")
         self.config = config
+        self.executor = executor
         if params is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
@@ -189,6 +221,11 @@ class VideoNMN(ParamModule):
         halves = tuple(tuple(p.to(dt) for p in pair)
                        for pair in (video_halves, token_halves))
         aux_in = None if aux_vec is None else aux_vec.to(dt)
+        if self.executor != "mega":
+            return self._run_scan(
+                mods, tables, trace_fields, torch.cat(halves[0], dim=-1),
+                video_mask, torch.cat(halves[1], dim=-1), token_mask, aux_in,
+                seed)
         if seed is not None:
             return mega_exec_train(
                 self.config, mods, tables, trace_fields, halves[0],
@@ -196,6 +233,38 @@ class VideoNMN(ParamModule):
                 aux_vec=aux_in)
         return mega_exec(self.config, mods, tables, trace_fields, halves[0],
                          video_mask, halves[1], token_mask, aux_vec=aux_in)
+
+    def _run_scan(self, mods, tables, trace_fields, video_frames, video_mask,
+                  token_features, token_mask, aux_vec, seed):
+        """The scan executor (``"step"`` and ``"rev"``): a loop over the
+        ``T`` steps on register files indexed per example."""
+        cfg = self.config
+        B, F, H = video_frames.shape
+        T = trace_fields["opcode"].shape[1]
+        scan = _Scan(cfg, trace_fields, seed, video_frames.dtype)
+        video0 = video_frames * video_mask[:, :, None]
+        if aux_vec is None:
+            aux = torch.zeros(T, B, H, dtype=video_frames.dtype,
+                              device=video_frames.device)
+        else:
+            aux = aux_vec.transpose(0, 1)
+        # the Temporal conv layers as banded matrices, built once for the
+        # T steps (an empty tuple in linear mode)
+        bands = (M.temporal_bands(mods["temporal"], F)
+                 if cfg.conv_temporal else ())
+        consts = (mods, tables, token_features, token_mask, video_mask,
+                  bands)
+        core = RevCore(scan.step, scan.fields, cfg.num_vec, cfg.num_frames,
+                       cfg.num_attn)
+        if self.executor == "rev" and seed is not None:
+            return rev_exec(core, video0, consts, aux.contiguous())
+        regs = init_regs(core, video0)
+        for t in range(T):
+            regs = scan.advance(regs, consts, t, aux[t])
+        # The scratch frames slot needs no re-zeroing after the loop: the
+        # fused step writes nothing for a tile without a frames result, and
+        # the other route writes zeros there.
+        return regs
 
     # -- full forward --------------------------------------------------------
 
@@ -291,3 +360,434 @@ def choice_logits(model, out, cand_emb, cand_mask, cand_valid, params=None):
     scores = torch.einsum("bh,bch->bc", query, reps)
     return torch.where(cand_valid > 0, scores,
                        torch.full_like(scores, -torch.inf))
+
+
+# ---------------------------------------------------------------------------
+# The scan executor
+# ---------------------------------------------------------------------------
+
+def _select(is_op, candidates, default):
+    """Pick, per example, the candidate of the example's opcode:
+    ``is_op[code]`` is the ``[B]`` mask of the examples that run ``code``."""
+    out = default
+    for code, value in candidates:
+        hit = is_op[code].reshape((-1,) + (1,) * (value.dim() - 1))
+        out = torch.where(hit, value.to(out.dtype), out)
+    return out
+
+
+def _grouped(x, table, bias, sizes, null):
+    """Expert-grouped ``x @ table[g] + bias[g]``: the rows of ``x`` are
+    sorted by expert and ``sizes`` (host integers) gives each expert's row
+    count. One ``torch.matmul`` per expert present; the ``null`` expert's
+    rows (zero weights) come back as zeros without a product. No weight is
+    ever gathered per example."""
+    outs, start = [], 0
+    for g, n in enumerate(sizes):
+        if n == 0:
+            continue
+        rows = x[start:start + n]
+        if g == null:
+            outs.append(rows.new_zeros(rows.shape[:-1] + table.shape[-1:]))
+        else:
+            outs.append(rows @ table[g] + bias[g])
+        start += n
+    return torch.cat(outs)
+
+
+def _superlative(dense, scores, actions, amask, mode, vm):
+    """Soft-argmax over candidate actions: scores [n, K, F], actions
+    [n, K, H], amask [n, K] -> [n, H] (in the scores' dtype)."""
+    row = torch.sum(scores * vm[:, None, :], dim=2)
+    w = M.masked_softmax(row, amask, dim=1)
+    w = torch.where((mode == 1)[:, None], 1.0 - w, w) * amask
+    pooled = torch.sum(w[:, :, None] * actions, dim=1)
+    return torch.relu(pooled @ dense["w"].to(pooled.dtype)
+                      + dense["b"].to(pooled.dtype))
+
+
+class _Scan:
+    """One run of the scan executor over a batch: the dispatch schedule of
+    all ``T`` steps, computed once from the trace before the loop, and the
+    step function that the ``"step"`` loop, the ``"rev"`` forward and the
+    ``"rev"`` backward's replay share.
+
+    The schedule (expert codes, sort permutations, the fused kernel's
+    packed ``[12, B]`` rows, the SUPERLATIVE_F rows) lives on the device;
+    the group sizes of every step come to the host in ONE transfer, because
+    ``_grouped`` slices rows with host integers.
+    """
+
+    def __init__(self, cfg, trace_fields, seed, dtype):
+        self.cfg = cfg
+        self.dt = dtype
+        self.rate = cfg.dropout
+        self.seed = seed
+        self.deterministic = seed is None
+        self.parity = cfg.filter_attention == "parity"
+        #: eval with the parity Filter: the per-step kernel (#10)
+        self.fused = self.deterministic and self.parity
+        f = {k: v.to(torch.int32).t().contiguous()
+             for k, v in trace_fields.items()}                # [T, B]
+        self.fields = f
+        op, mode = f["opcode"], f["mode"]
+        T, B = op.shape
+
+        #: opcode -> [T, B] mask of the steps that run it
+        self.op_is = {code: op == int(code) for code in Opcode}
+
+        def is_op(*codes):
+            m = torch.zeros_like(op, dtype=torch.bool)
+            for c in codes:
+                m |= self.op_is[c]
+            return m
+
+        is_ff = is_op(Opcode.FILTERFRAME_V, Opcode.FILTERFRAME_K)
+        is_filter = is_ff | is_op(Opcode.FILTER_V, Opcode.FILTER_K)
+        is_kw = is_op(Opcode.FILTER_K, Opcode.FILTERFRAME_K)
+        is_supf = is_op(Opcode.SUPERLATIVE_F)
+        is_locsup = is_supf | is_op(Opcode.LOCALIZE, Opcode.SUPERLATIVE_V)
+        zero = torch.zeros_like(op)
+        # stage-1 experts: [filter x4 | filterframe x4 | localize | null |
+        # hasitem]; stage-2 families as the fused kernel's e2 codes
+        e1 = torch.where(
+            is_filter,
+            torch.where(is_ff, 4, zero) + torch.where(is_kw, 1 + mode, zero),
+            torch.where(is_locsup, 8,
+                        torch.where(is_op(Opcode.HASITEM), 10, 9 + zero)))
+        e2 = torch.where(
+            is_ff, ES.E2_FF, torch.where(
+                is_op(Opcode.TEMPORAL), ES.E2_TEMPORAL, torch.where(
+                    is_supf, ES.E2_SUPF, torch.where(
+                        is_op(Opcode.ATTNVIDEO), ES.E2_ATTNVIDEO,
+                        ES.E2_NULL + zero))))
+        self.is_ff, self.is_filter, self.is_supf = is_ff, is_filter, is_supf
+        self.is_temporal = is_op(Opcode.TEMPORAL)
+        self.is_ffv = is_op(Opcode.FILTERFRAME_V)
+        self.is_filter_v = is_op(Opcode.FILTER_V)
+
+        def counts(codes, n):
+            return torch.nn.functional.one_hot(codes.long(), n).sum(1)
+
+        def sort(keys):
+            perm = torch.argsort(keys, dim=1, stable=True)
+            return perm, torch.argsort(perm, dim=1)
+
+        host = [counts(e1, ES.NUM_E1), is_supf.sum(1, keepdim=True)]
+        #: rows whose opcode is SUPERLATIVE_F first, per step
+        self.supf_rows = torch.argsort((~is_supf).to(torch.int8), dim=1,
+                                       stable=True)
+        if self.fused:
+            self.perm1, self.inv1 = sort(e1 * 5 + e2)
+            perm = self.perm1
+
+            def g(a):
+                return torch.gather(a.to(torch.int32), 1, perm)
+
+            w2t_code = torch.where(e2 == ES.E2_SUPF, 3, e2.clamp(max=3))
+            self.scal = torch.stack([
+                perm.to(torch.int32), g(e1), g(w2t_code), g(e2), g(f["fa"]),
+                g(f["fb"]), g(f["va"]), g(f["aa"]), g(is_filter),
+                g(self.is_ffv), g(f["vb"]), g(f["out_frames"]),
+            ], dim=1).contiguous()                            # [T, NS, B]
+        else:
+            e2 = e2.clamp(max=ES.E2_NULL)    # attnvideo: no projection
+            self.perm1, self.inv1 = sort(e1)
+            self.perm2, self.inv2 = sort(e2)
+            host.append(counts(e2, 4))
+        host = torch.cat(host, dim=1).cpu().tolist()   # the one transfer
+        self.sizes1 = [row[:ES.NUM_E1] for row in host]
+        self.nsup = [row[ES.NUM_E1] for row in host]
+        self.sizes2 = [row[ES.NUM_E1 + 1:] for row in host]
+
+    # -- dropout ---------------------------------------------------------
+
+    def _generator(self, t, device):
+        """The generator of step ``t``'s masks, a function of ``(seed,
+        t)`` alone: the reversible backward replays a step and must draw
+        the masks its forward drew."""
+        if self.deterministic or self.rate == 0.0:
+            return None
+        s0, s1 = (int(v) for v in self.seed)
+        gen = torch.Generator(device=device)
+        gen.manual_seed((((s0 << 31) ^ s1) * 4099 + t) % (1 << 63))
+        return gen
+
+    # -- one step --------------------------------------------------------
+
+    def step(self, operands, consts, t, aux_t):
+        """Step ``t`` for the whole batch on gathered operands (the grouped
+        torch route): the four register writes ``(new_vec, new_frames,
+        new_attn, new_attn_b)``. Every differentiable value arrives through
+        the arguments, so the reversible backward can replay it."""
+        mods, tables, tokens, tmask, vmask, bands = consts
+        gen = self._generator(t, vmask.device)
+        heavy = self.heavy_stages(operands, t, mods, tables, vmask, bands,
+                                  gen)
+        return self.step_one(mods, operands, t, vmask, tokens, tmask, aux_t,
+                             heavy, gen)
+
+    def advance(self, regs, consts, t, aux_t):
+        """Read step ``t``'s operands from ``regs``, run it and write its
+        results back (index ops; in place on the files ``_run_scan``
+        allocated)."""
+        f = self.fields
+        rv, rf, ra = regs
+        ar = torch.arange(rv.shape[0], device=rv.device)
+        if self.fused:
+            mods, tables, tokens, tmask, vmask, bands = consts
+            ops = (rv[ar, f["va"][t]], rv[ar, f["vb"][t]],
+                   rv[ar, f["vc"][t]], None, None,
+                   ra[ar, f["aa"][t]], ra[ar, f["ab"][t]])
+            # the frames write happens inside the kernel
+            heavy = self.heavy_fused(regs, ops, t, mods, tables, vmask,
+                                     bands)
+            new = self.step_one(mods, ops, t, vmask, tokens, tmask, aux_t,
+                                heavy, None)
+        else:
+            new = self.step(gather_operands(regs, f, t), consts, t, aux_t)
+            rf.index_put_((ar, f["out_frames"][t]), new[1])
+        rv.index_put_((ar, f["out_vec"][t]), new[0])
+        ra.index_put_((ar, f["out_attn"][t]), new[2])
+        ra.index_put_((ar, f["out_attn_b"][t]), new[3])
+        return rv, rf, ra
+
+    def step_one(self, mods, operands, t, vmask, tokens, tmask, aux_t, heavy,
+                 gen):
+        """The cheap ``[H]``- and ``[F]``-level modules and the opcode
+        selection of step ``t``; ``heavy`` carries the outputs of the
+        ``[F, H]``-level families."""
+        f, dt = self.fields, self.dt
+        rate, det = self.rate, self.deterministic
+        mode = f["mode"][t]
+        is_op = {code: m[t] for code, m in self.op_is.items()}
+        va, vb, vc, fa, _fb, aa, ab = operands
+        B, H = va.shape
+        F = aa.shape[1]
+
+        # --- span-mean text push (float32 sum, one rounding) -------------
+        s, e = f["span_start"][t][:, None], f["span_end"][t][:, None]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        valid = tmask > 0
+        span_w = torch.where(s < 0, valid,
+                             (pos >= s) & (pos < e) & valid).float()
+        push_text = torch.einsum("bl,blh->bh", span_w, tokens.float()) / (
+            torch.clamp(span_w.sum(1, keepdim=True), min=1.0))
+        # -2 marks the substitution of a program word's own text encoding
+        push_text = torch.where(s == -2, aux_t, push_text.to(dt))
+
+        # --- vec candidates (dropout sites in this order) -----------------
+        query = M.query_module(mods["query"], va, rate, gen, det)
+        toaction = M.toaction_module(mods["toaction"], va, vb, rate, gen, det)
+        exists = M.exists_module(mods["exists"], va, vb, rate, gen, det)
+        new_vec = _select(is_op, [
+            (Opcode.PUSH_TEXT, push_text),
+            (Opcode.AND_VEC, M.and_module(va, vb)),
+            (Opcode.COMPARE, M.compare_module(mods["compare"], va, vb)),
+            (Opcode.EQUALS, M.equals_module(mods["equals"], va, vb)),
+            (Opcode.CHOOSE, M.choose_module(va, vb, vc)),
+            (Opcode.XOR, M.xor_module(mods["xor"], va, vb)),
+            (Opcode.QUERY, query),
+            (Opcode.TOACTION, toaction),
+            (Opcode.EXISTS, exists),
+            (Opcode.FILTER_V, heavy["filter_vec"]),
+            (Opcode.FILTER_K, heavy["filter_vec"]),
+            (Opcode.SUPERLATIVE_V, heavy["sup_v"]),
+            (Opcode.SUPERLATIVE_F, heavy["sup_f"]),
+        ], va.new_zeros(B, H))
+
+        # --- frames candidates (the fused kernel wrote them already) ------
+        new_frames = None
+        if "temporal_out" in heavy:
+            new_frames = _select(is_op, [
+                (Opcode.TEMPORAL, heavy["temporal_out"]),
+                (Opcode.ATTNVIDEO, M.attnvideo_module(fa, aa)),
+                (Opcode.FILTERFRAME_V, heavy["ff_frames"]),
+                (Opcode.FILTERFRAME_K, heavy["ff_frames"]),
+            ], fa.new_zeros(fa.shape))
+
+        # --- attn candidates ----------------------------------------------
+        existsframe = (heavy["existsframe"] if "existsframe" in heavy
+                       else M.existsframe_module(va, fa, vmask))
+        new_attn = _select(is_op, [
+            (Opcode.AND_ATTN, M.and_module(aa, ab)),
+            (Opcode.XORFRAME, M.xorframe_module(aa, ab)),
+            (Opcode.HASITEM, heavy["hasitem"]),
+            (Opcode.EXISTSFRAME, existsframe),
+            (Opcode.LOCALIZE, heavy["loc_scores"][:, 0]),
+            (Opcode.RELATE, M.relate_module(mods["relate"], mode == 1, aa,
+                                            vmask > 0)),
+        ], aa.new_zeros(B, F))
+        new_attn_b = _select(is_op, [
+            (Opcode.LOCALIZE, heavy["loc_scores"][:, 1]),
+            (Opcode.TEMPORAL, heavy["temporal_rel"]),
+        ], aa.new_zeros(B, F))
+        return new_vec, new_frames, new_attn, new_attn_b
+
+    def _related(self, mods, t, aa, ab, vmask, bands):
+        """The Temporal module's gated attention for every row: [B, F]."""
+        f = self.fields
+        attn_mean = torch.where((f["count"][t] == 2)[:, None],
+                                (aa + ab) / 2.0, aa)
+        return M.temporal_related_attn_batched(
+            mods["temporal"], f["mode"][t], attn_mean,
+            self.cfg.conv_temporal, bands or None) * vmask
+
+    def _filter_dense(self, t, pooled_s, tables):
+        """The Filter head's dense layer on pooled rows in stage-1 sorted
+        order ([filter | filterframe | the rest] -> ``dense3``), back in
+        example order."""
+        sizes1 = self.sizes1[t]
+        n0, n1 = sum(sizes1[:4]), sum(sizes1[4:8])
+        return torch.relu(_grouped(
+            pooled_s, tables["dense3"], tables["db3"],
+            [n0, n1, pooled_s.shape[0] - n0 - n1], 2))[self.inv1[t]]
+
+    def _sup_v(self, mods, t, loc_scores, va, vb, vmask):
+        """SUPERLATIVE_V: soft-argmax over the one or two keyword vectors
+        by their Localize scores [B, 2, F]."""
+        pair = torch.stack([va, vb], dim=1)                  # [B, 2, H]
+        pair_mask = torch.arange(2, device=va.device)[None] < (
+            self.fields["count"][t][:, None])
+        return _superlative(mods["superlative"]["dense"], loc_scores, pair,
+                            pair_mask, self.fields["mode"][t], vmask)
+
+    def _sup_f(self, mods, t, kw_f, vfeat, fb, vmask, like):
+        """SUPERLATIVE_F on its own rows (its all-pairs ``[F, F]`` cosine
+        is the fattest product of a step and its opcode is rare); zeros
+        elsewhere. ``kw_f`` / ``vfeat`` / ``fb`` are given for those rows."""
+        rows = self.supf_rows[t, :self.nsup[t]]
+        out = like.new_zeros(like.shape)
+        if not self.nsup[t]:
+            return out
+        vm = vmask[rows]
+        scores = (M.cosine_matrix(kw_f, vfeat) + 1.0) * 0.49 * vm[:, None, :]
+        sup = _superlative(mods["superlative"]["dense"], scores, fb, vm > 0,
+                           self.fields["mode"][t][rows], vm)
+        return out.index_copy(0, rows, sup.to(out.dtype))
+
+    def heavy_stages(self, operands, t, mods, tables, vmask, bands, gen):
+        """All ``[F, H]``-matmul module families of step ``t`` for the whole
+        batch as expert-grouped stages (``_fused_tables``): per step each
+        example needs at most one family of each stage, so the batch is
+        sorted by expert and each expert present is one ``torch.matmul``;
+        rows whose opcode needs none go to a null expert. A row's unused
+        family outputs are discarded by ``step_one``'s opcode selection.
+        Dropout sites, in order: stage-1 hidden, stage-1 output, stage-2
+        output, hasitem."""
+        rate, det = self.rate, self.deterministic
+        va, vb, _vc, fa, fb, aa, ab = operands
+        H = fa.shape[-1]
+        is_ff, is_supf = self.is_ff[t], self.is_supf[t]
+        is_temporal = self.is_temporal[t]
+
+        # ---- stage 1: two-layer frames MLP ------------------------------
+        perm1, inv1, sizes1 = self.perm1[t], self.inv1[t], self.sizes1[t]
+        h = _grouped(fa[perm1], tables["w1u"], tables["b1u"], sizes1,
+                     ES.E1_NULL)
+        h = M.dropout(torch.relu(h), rate, gen, det)
+        h2 = _grouped(h, tables["w2u"], tables["b2u"], sizes1, ES.E1_NULL)
+        # filter rows relu + dropout; localize v2 / hasitem l2 stay linear
+        feat_like = M.dropout(torch.relu(h2), rate, gen, det)
+        feat_s = torch.where(self.is_filter[t][perm1][:, None, None],
+                             feat_like, h2)
+        out1 = feat_s[inv1]                                  # [B, F, H]
+
+        # ---- filter heads (sorted domain) -------------------------------
+        vm_s, va_s = vmask[perm1], va[perm1]
+        if self.parity:
+            weights = vm_s[:, :, None]
+        else:
+            aw = mods["filter"]["attn_w"]
+            logits = (feat_s @ aw[:H] + (
+                va_s @ aw[H:] + mods["filter"]["attn_b"])[:, None, :])[..., 0]
+            soft = M.masked_softmax(logits, vm_s > 0)
+            weights = torch.where(
+                self.is_filter_v[t][perm1][:, None, None], soft[:, :, None],
+                vm_s[:, :, None])
+        pooled = torch.sum(weights * feat_s * vm_s[:, :, None], dim=1)
+        filter_vec = self._filter_dense(t, pooled, tables)
+        # FilterFrame sigmoid gate (vec keyword) or identity
+        ffw = mods["filterframe"]["attn_w"]
+        gate = torch.sigmoid(feat_s @ ffw[:H] + (
+            va_s @ ffw[H:] + mods["filterframe"]["attn_b"])[:, None, :])
+        gate = torch.where(self.is_ffv[t][perm1][:, None, None], gate,
+                           torch.ones_like(gate))
+        x_ff = (gate * feat_s)[inv1]
+
+        related = self._related(mods, t, aa, ab, vmask, bands)   # [B, F]
+
+        # ---- stage 2: output projections --------------------------------
+        # experts: [ff.dense | temporal.dense | localize.k | null]
+        x2 = torch.where(
+            is_ff[:, None, None], x_ff, torch.where(
+                is_temporal[:, None, None], related[:, :, None] * fa,
+                torch.where(is_supf[:, None, None], fb, fa)))
+        perm2, inv2 = self.perm2[t], self.inv2[t]
+        y2 = _grouped(x2[perm2], tables["w2t"], tables["b2t"],
+                      self.sizes2[t], ES.E2_NULL)[inv2]
+        # shared relu + dropout epilogue (rows are ff XOR temporal); the
+        # localize.k output (SUPERLATIVE_F's keywords) stays linear
+        base = M.dropout(torch.relu(y2), rate, gen, det)
+        ff_frames = base * vmask[:, :, None]
+        temporal_out = M.layer_norm(mods["temporal"]["ln"], base)
+
+        # ---- localize / superlative heads -------------------------------
+        kw_pair = M.linear(mods["localize"]["k"],
+                           torch.stack([va, vb], dim=1))     # [B, 2, H]
+        loc_scores = (M.cosine_matrix(kw_pair, out1) + 1.0) * 0.49 * (
+            vmask[:, None, :])                               # [B, 2, F]
+        sup_v = self._sup_v(mods, t, loc_scores, va, vb, vmask)
+        rows = self.supf_rows[t, :self.nsup[t]]
+        sup_f = self._sup_f(mods, t, y2[rows], out1[rows], fb[rows], vmask,
+                            sup_v)
+
+        hasitem = M.dropout(torch.sigmoid(out1[..., 0]), rate, gen,
+                            det) * vmask
+        return {
+            "filter_vec": filter_vec, "ff_frames": ff_frames,
+            "loc_scores": loc_scores, "sup_v": sup_v, "sup_f": sup_f,
+            "temporal_out": temporal_out, "temporal_rel": related,
+            "hasitem": hasitem,
+        }
+
+    def heavy_fused(self, regs, operands, t, mods, tables, vmask, bands):
+        """The same families through the fused step kernel (eval, parity
+        Filter): operands come straight from the register files inside the
+        kernel, and the frames result is written into ``rf`` there. What
+        stays outside: the Temporal gate's tiny ``[B, F]`` stack, the
+        Filter head's grouped dense on the pooled rows, the superlative
+        soft-argmax, and SUPERLATIVE_F on its own rows."""
+        f, dt = self.fields, self.dt
+        rv, rf, ra = regs
+        va, vb, _vc, _fa, _fb, aa, ab = operands
+        H = va.shape[-1]
+        related = self._related(mods, t, aa, ab, vmask, bands)
+        ffw = mods["filterframe"]["attn_w"]
+        gkb = (va @ ffw[H:] + mods["filterframe"]["attn_b"]).float()
+        ln, lock = mods["temporal"]["ln"], mods["localize"]["k"]
+        _, pooled_s, hasitem, exf, loc_a, loc_b = ES.fused_step(
+            self.scal[t], rv, rf, ra, related.to(dt), vmask.to(dt), gkb,
+            tables["w1u"], tables["b1u"], tables["w2u"], tables["b2u"],
+            tables["w2t"], tables["b2t"], ffw[:H].contiguous(),
+            ln["scale"][None], ln["bias"][None], lock["w"], lock["b"][None])
+
+        filter_vec = self._filter_dense(t, pooled_s, tables)
+        loc_scores = torch.stack([loc_a, loc_b], dim=1)      # [B, 2, F] f32
+        sup_v = self._sup_v(mods, t, loc_scores, va, vb, vmask)
+
+        # SUPERLATIVE_F: its keywords (fb through localize.k) and the
+        # stage-1 localize projection of fa, recomputed for its rows alone
+        # (the kernel emits no [B, F, H] feat buffer).
+        rows = self.supf_rows[t, :self.nsup[t]]
+        fbc = rf[rows, f["fb"][t][rows]]
+        fac = rf[rows, f["fa"][t][rows]]
+        kw_f = fbc @ tables["w2t"][2] + tables["b2t"][2]
+        hid = torch.relu(fac @ tables["w1u"][8] + tables["b1u"][8])
+        vfeat = hid @ tables["w2u"][8] + tables["b2u"][8]
+        sup_f = self._sup_f(mods, t, kw_f, vfeat, fbc, vmask, sup_v)
+        return {
+            "filter_vec": filter_vec, "loc_scores": loc_scores,
+            "sup_v": sup_v, "sup_f": sup_f, "temporal_rel": related,
+            "hasitem": hasitem, "existsframe": exf,
+        }

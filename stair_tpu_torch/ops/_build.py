@@ -25,7 +25,11 @@ its kernel and nowhere else:
 - ``flash_attn``: the masked flash-attention forward
   (``csrc/flash_attn.cu``);
 - ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
-  (``csrc/flash_attn_bwd.cu``), the dQ launch and the dK/dV launch.
+  (``csrc/flash_attn_bwd.cu``), the dQ launch and the dK/dV launch;
+- ``executor_step``: one step of the scan executor
+  (``csrc/executor_step.cu``);
+- ``slot_set``, ``slot_zero``, ``slot_add``: the in-place register-slot
+  updates (``csrc/regslots.cu``).
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` header, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``).
@@ -59,7 +63,8 @@ LAUNCHES = {
     "bilstm": 0, "bilstm_train": 0, "bilstm_bwd": 0, "bilstm_dwh": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
     "mega_exec_wgrad": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
-    "flash_attn_bwd_dkv": 0,
+    "flash_attn_bwd_dkv": 0, "executor_step": 0, "slot_set": 0,
+    "slot_zero": 0, "slot_add": 0,
 }
 
 _lib = None
@@ -183,6 +188,20 @@ def build():
     for fn in (lib.stair_flash_attn_bwd_dq, lib.stair_flash_attn_bwd_dkv):
         fn.restype = I
         fn.argtypes = [P, P]                     # FlashBwdArgs*, stream
+    lib.stair_executor_step.restype = I
+    lib.stair_executor_step.argtypes = [
+        P, I,                      # pointer table, its length
+        P,                         # workspace
+        I, I, I, I, I, I,          # B, Nv, Nf, Na, F, H
+        I,                         # bf16
+        P,                         # stream
+    ]
+    Lg = ctypes.c_long
+    for fn, val in ((lib.stair_slot_set, [P]), (lib.stair_slot_zero, []),
+                    (lib.stair_slot_add, [P])):
+        fn.restype = I
+        # file, idx, [val,] B, N, slot elements, bf16, stream
+        fn.argtypes = [P, P, *val, I, I, Lg, I, P]
     _lib = lib
     return lib
 

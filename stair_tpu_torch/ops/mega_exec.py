@@ -27,7 +27,8 @@ import torch
 
 from stair_tpu_torch.ir.lowering import Opcode
 from stair_tpu_torch.models.modules import (
-    conv1d_same_matrix, cosine, cosine_matrix, layer_norm, masked_softmax,
+    abs_jax, conv1d_same_matrix, cosine, cosine_matrix, layer_norm,
+    masked_softmax,
 )
 from stair_tpu_torch.ops import _build
 from stair_tpu_torch.utils.device import exact_f32
@@ -218,20 +219,6 @@ def prepare_args(cfg, mods, tables, trace_fields, video_halves,
 # Plain version
 # ---------------------------------------------------------------------------
 
-class _Abs(torch.autograd.Function):
-    """``|x|`` with JAX's slope at 0 (+1), where torch's ``abs`` has 0."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return x.abs()
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return torch.where(x >= 0, g, -g)
-
-
 def mega_exec_reference(meta, args, rate=0.0, seed=None):
     """Eager executor over ``prepare_args`` output, batched over B.
 
@@ -376,7 +363,7 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
 
         r = on(Opcode.XOR)
         if r.numel():
-            d = rd(_Abs.apply(va[r] - vb[r]))
+            d = rd(abs_jax(va[r] - vb[r]))
             xw = a["xw"]
             y = d @ xw[:H] + va[r] @ xw[H:2 * H] + vb[r] @ xw[2 * H:]
             nv[r] = relu(rd(rd(y) + a["xb"][0]))
@@ -475,7 +462,7 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
         if r.numel():
             v = torch.where(op[r, None] == int(Opcode.AND_ATTN),
                             torch.minimum(aa[r], ab[r]),
-                            _Abs.apply(aa[r] - ab[r]))
+                            abs_jax(aa[r] - ab[r]))
             put(ra, r, s[r, F_OUT_A], rd(v))
 
         r = on(Opcode.HASITEM)

@@ -2,7 +2,8 @@
 Video-ChatGPT serving or the Video-ChatGPT SFT step goes, on one NVIDIA GPU.
 
     python -m stair_tpu_torch.scripts.profile_slice
-        [--train | --videochat | --sft] [--steps 3] [--trace PATH]
+        [--train | --videochat | --sft] [--executor mega|step|rev]
+        [--steps 3] [--trace PATH]
 
 Serving (the default): builds the bench configuration
 (``testing.workload.ServingBatches`` defaults: H = 512, video 1024, text
@@ -15,6 +16,11 @@ configuration (``workload_config``: H = 512, video 1024, text 300, F = 64,
 172 answers, 64 object types; bf16, dropout 0.25, B = 128, fake
 supervision, Adam with the trainer's schedule), ``--steps`` steady steps
 of ``train.loop.make_train_step`` on one device-resident batch.
+
+``--executor`` picks the NMN model's executor for both: ``mega`` (the
+default), ``step`` (serving through the per-step kernel) or, with
+``--train``, ``rev`` (the reversible executor and the slot kernels) or
+``step`` (the grouped stages under autograd).
 
 ``--videochat``: Video-ChatGPT serving at full width (Llama-7B + CLIP
 ViT-L/14 in bf16, weights from a seed, batch 4, 100 frames of 240 x 320 per
@@ -33,8 +39,9 @@ through every layer with the attention forward and backward kernels, one
 AdamW update of the projector.
 
 Each part's steps run under ``torch.profiler``; it prints the device time
-per step of the heaviest operators and the device's busy share of the wall
-time (host gaps are the rest). ``--trace`` writes the Chrome trace (of the
+per step of the heaviest operators (and of every kernel of the port, however
+light) and the device's busy share of the wall time (host gaps are the
+rest). ``--trace`` writes the Chrome trace (of the
 last part).
 """
 
@@ -49,6 +56,11 @@ from torch.profiler import ProfilerActivity, profile
 from stair_tpu_torch.ops import _build
 from stair_tpu_torch.testing import workload as W
 from stair_tpu_torch.utils.device import card_identity, exact_f32
+
+
+#: substrings of the port's own kernels' names: their rows are printed
+#: even where they fall below the heaviest operators
+PORT_KERNELS = ("bilstm_", "mega_", "flash_", "step_kernel", "slot_kernel")
 
 
 def busy_ms(prof) -> float:
@@ -69,10 +81,11 @@ def busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def serving_step(dev):
+def serving_step(dev, executor):
     """The serving forward of one batch of the bench configuration."""
     serving = W.ServingBatches(dev)
-    model = W.build_model(serving.cfg, seed=0, device=dev)
+    model = W.build_model(serving.cfg, seed=0, device=dev, executor=executor)
+    print(f"serving step: executor {executor!r}")
 
     host_ms = []
     for i in range(5):
@@ -88,7 +101,7 @@ def serving_step(dev):
     return step
 
 
-def train_step(dev):
+def train_step(dev, executor):
     """One train step of ``scripts/bench_train_step.py``'s configuration."""
     from stair_tpu_torch.models.nmn import NMNConfig
     from stair_tpu_torch.train.loop import make_train_step, trainer_defaults
@@ -97,10 +110,10 @@ def train_step(dev):
                        "compute_dtype": "bfloat16", "dropout": 0.25})
     batch = W.to_device(W.add_fake_supervision(
         W.make_batch(cfg, batch_size=128), cfg), dev)
-    model = W.build_model(cfg, seed=0, device=dev)
+    model = W.build_model(cfg, seed=0, device=dev, executor=executor)
     update = make_train_step(model, trainer_defaults())
     gen = torch.Generator().manual_seed(0)
-    print(f"train step: {cfg.to_dict()}, B = 128")
+    print(f"train step: executor {executor!r}, {cfg.to_dict()}, B = 128")
 
     def step():
         return update(batch, gen, 1.0, 1.0)["loss"].item()
@@ -162,7 +175,7 @@ def sft_step(dev, layers, remat):
     return lambda: update(batch).item()
 
 
-def profile_steps(name, step, n, trace=None, warmup=2, top=20):
+def profile_steps(name, step, n, trace=None, warmup=2, top=24):
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
@@ -177,14 +190,18 @@ def profile_steps(name, step, n, trace=None, warmup=2, top=20):
                   key=lambda e: e.self_device_time_total, reverse=True)
     print(f"== {name}")
     print(f"{'operator':70s} {'device ms/step':>14s} {'calls/step':>10s}")
-    for e in rows[:top]:
-        if e.self_device_time_total <= 0:
-            break
+    shown = [e for e in rows[:top] if e.self_device_time_total > 0]
+    shown += [e for e in rows[top:] if e.self_device_time_total > 0
+              and any(k in e.key for k in PORT_KERNELS)]
+    for e in shown:
         print(f"{e.key[:70]:70s} {e.self_device_time_total / n / 1e3:14.3f} "
               f"{e.count / n:10.1f}")
     busy = busy_ms(prof)
+    launches = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                   for e in prof.events())
     print(f"device busy {busy:.3f} ms of {wall:.3f} ms wall for {n} steps: "
-          f"busy share {busy / wall:.3f}")
+          f"busy share {busy / wall:.3f}; {launches / n:.0f} device "
+          "launches and copies per step")
     if trace:
         prof.export_chrome_trace(trace)
 
@@ -197,6 +214,9 @@ def main():
                     help="profile Video-ChatGPT serving at full width")
     ap.add_argument("--sft", action="store_true",
                     help="profile the projector-only SFT step at full width")
+    ap.add_argument("--executor", choices=["mega", "step", "rev"],
+                    default="mega",
+                    help="the NMN executor (serving and --train)")
     ap.add_argument("--remat", choices=["full", "dots"], default=None,
                     help="rematerialisation policy for --sft")
     ap.add_argument("--layers", type=int, default=32,
@@ -215,9 +235,9 @@ def main():
     elif args.sft:
         steps = {"SFT step": sft_step(dev, args.layers, args.remat)}
     elif args.train:
-        steps = {"train step": train_step(dev)}
+        steps = {"train step": train_step(dev, args.executor)}
     else:
-        steps = {"serving step": serving_step(dev)}
+        steps = {"serving step": serving_step(dev, args.executor)}
     for name, step in steps.items():
         profile_steps(name, step, args.steps, args.trace,
                       warmup=1 if args.videochat or args.sft else 2)

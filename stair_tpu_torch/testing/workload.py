@@ -12,11 +12,13 @@ the host layers (``programs/``, ``ir/``, ``runtime/``).
 from __future__ import annotations
 
 import ctypes
+import zlib
 
 import numpy as np
 import torch
 
-from stair_tpu_torch.ir.lowering import lower_program, pad_traces
+from stair_tpu_torch.ir.lowering import Opcode, lower_program, pad_traces
+from stair_tpu_torch.models.modules import cosine
 from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
 from stair_tpu_torch.programs.parser import parse_nmn_program
 from stair_tpu_torch.programs.spans import link_program_spans
@@ -133,6 +135,10 @@ class HashEmbeddings:
     """Deterministic word->vector table standing in for GloVe in benches
     (same per-question lookup/stack host cost, no 2GB file)."""
 
+    #: appended to every word before it seeds its vector: another salt,
+    #: another table
+    salt = ""
+
     def __init__(self, dim: int = 300):
         self.dim = dim
         self._cache: dict[str, np.ndarray] = {}
@@ -140,7 +146,9 @@ class HashEmbeddings:
     def _vector(self, word: str) -> np.ndarray:
         vec = self._cache.get(word)
         if vec is None:
-            seed = hash(word) % (2 ** 31)
+            # not hash(): Python salts it per process
+            seed = zlib.crc32((word + self.salt).encode("utf-8")) % (
+                2 ** 31)
             vec = np.random.RandomState(seed).randn(self.dim).astype(
                 np.float32
             )
@@ -383,10 +391,10 @@ def to_device(batch, device=None, pin=False):
     return t.to(device, non_blocking=pin)
 
 
-def build_model(cfg: NMNConfig, seed=0, device=None):
+def build_model(cfg: NMNConfig, seed=0, device=None, executor="mega"):
     """A ``VideoNMN`` with random weights drawn from ``seed``."""
     return VideoNMN(cfg, generator=torch.Generator().manual_seed(seed),
-                    device=device)
+                    device=device, executor=executor)
 
 
 class ServingBatches:
@@ -445,3 +453,28 @@ class ServingBatches:
                         self.table[ids.clamp(min=0).long()], 0.0)
         return dict(d, question=q, question_mask=valid.float(),
                     video=self.video, video_mask=self.video_mask)
+
+
+def choose_flips(trace, rv_a, rv_b):
+    """Per example of two routes' vec files: whether a Choose step kept
+    another operand in ``rv_a`` than in ``rv_b``, and the least
+    ``|cos(kw1, q) - cos(kw2, q)|`` over the example's Choose steps
+    (float32, from ``rv_b``; inf without one). The files are SSA, so they
+    still hold every step's operands beside its result."""
+    B, T = trace["opcode"].shape
+    ar = torch.arange(B, device=rv_b.device)
+    flipped = torch.zeros(B, dtype=torch.bool, device=rv_b.device)
+    margin = torch.full((B,), float("inf"), device=rv_b.device)
+    for t in range(T):
+        is_choose = trace["opcode"][:, t] == int(Opcode.CHOOSE)
+        if not bool(is_choose.any()):
+            continue
+        va, vb, vc, dst = (trace[k][:, t].long()
+                           for k in ("va", "vb", "vc", "out_vec"))
+        first = [(rv[ar, dst] == rv[ar, va]).all(-1) for rv in (rv_a, rv_b)]
+        flipped |= is_choose & (first[0] != first[1])
+        q = rv_b[ar, vc].float()
+        gap = (cosine(rv_b[ar, va].float(), q)
+               - cosine(rv_b[ar, vb].float(), q)).abs()
+        margin = torch.where(is_choose, torch.minimum(margin, gap), margin)
+    return flipped, margin

@@ -3,12 +3,15 @@ refuses to run off the card.
 
 A subprocess with ``sys.modules["jax"] = None`` and
 ``sys.modules["stair_tpu"] = None`` (any import of either then raises)
-imports ``stair_tpu_torch`` and runs one tiny CPU forward, then
-``chip_smoke.py``'s serving path (host parse/lower, tokenize, gather,
-forward), one train step (losses, backward, Adam), one tiny
+imports ``stair_tpu_torch`` (the scan executor's modules too:
+``models/rev_exec.py``, ``ops/executor_step.py``, ``ops/regslots.py``) and
+runs one tiny CPU forward, then ``chip_smoke.py``'s serving path (host
+parse/lower, tokenize, gather, forward), one train step (losses, backward,
+Adam), one tiny forward on the ``"step"`` executor and one train step on the
+``"rev"`` executor, one tiny
 ``video_chatgpt_infer_batch`` at tiny widths and both LLM trainer CLIs
 with their checkpoints; ``chip_smoke.py`` imports only the port and its
-``kernels`` line names the nine ported kernels, each with a launch
+``kernels`` line names the thirteen ported kernels, each with a launch
 counter. The port's sources carry no JAX/flax/optax import and no
 import of ``stair_tpu``. ``python chip_smoke.py`` exits non-zero, quickly
 and without its result line, where there is no CUDA device.
@@ -30,7 +33,10 @@ for name in ("jax", "jaxlib", "flax", "optax", "stair_tpu"):
     sys.modules[name] = None
 import torch
 import stair_tpu_torch
-from stair_tpu_torch.models.nmn import NMNConfig
+import stair_tpu_torch.models.rev_exec
+import stair_tpu_torch.ops.executor_step
+import stair_tpu_torch.ops.regslots
+from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
 from stair_tpu_torch.testing import workload as W
 
 cfg = NMNConfig(**{**W.workload_config(
@@ -61,6 +67,17 @@ batch = W.to_device(W.add_fake_supervision(
     W.make_batch(cfg, batch_size=3, question_len=5), cfg))
 step = make_train_step(model, trainer_defaults(contrastive_window=2))
 m = step(batch, torch.Generator().manual_seed(0), 1.0, 1.0)
+assert torch.isfinite(m["loss"])
+
+# the scan executor: one forward through the fused step's plain version,
+# one train step through the reversible executor and the slot updates
+stepper = VideoNMN(cfg, model.param_tree(), executor="step")
+out = stepper({k: v for k, v in batch.items()})
+assert torch.isfinite(out["logits"]).all()
+rev = VideoNMN(cfg, generator=torch.Generator().manual_seed(0),
+               executor="rev")
+m = make_train_step(rev, trainer_defaults(contrastive_window=2))(
+    batch, torch.Generator().manual_seed(0), 1.0, 1.0)
 assert torch.isfinite(m["loss"])
 
 # one tiny Video-ChatGPT inference batch: CLIP tower, pooling, splice,
@@ -158,9 +175,12 @@ def test_chip_smoke_lists_nine_kernels_with_launch_counters():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         text = f.read()
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
-    assert len(names) == len(set(names)) == 9, names
+    # thirteen since the scan executor's kernels landed (the test keeps
+    # the name it had when there were nine)
+    assert len(names) == len(set(names)) == 13, names
     assert set(names) <= set(_build.LAUNCHES), names
-    assert {"flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"} <= set(
+    assert {"flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+            "executor_step", "slot_set", "slot_zero", "slot_add"} <= set(
         names)
     for src in set(re.findall(r'"(stair_tpu_torch/ops/csrc/\w+\.cu)"',
                               text)):
@@ -180,3 +200,21 @@ def test_chip_smoke_fails_fast_without_a_gpu():
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_serving_inputs_do_not_depend_on_the_hash_salt():
+    # the word vectors behind ``ServingBatches`` are seeded by the word, and
+    # Python salts ``hash(str)`` per process: two processes with different
+    # salts must draw the same table
+    code = ("from stair_tpu_torch.testing.workload import HashEmbeddings\n"
+            "v = HashEmbeddings(8)._vector('holding')\n"
+            "print(v.tobytes().hex())\n")
+    seen = set()
+    for salt in ("1", "2"):
+        proc = subprocess.run(
+            [sys.executable, "-c", code], cwd=REPO,
+            env={**_env(), "PYTHONHASHSEED": salt},
+            capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        seen.add(proc.stdout.strip())
+    assert len(seen) == 1, seen

@@ -56,14 +56,14 @@ def assert_trees_equal(want, got, prefix=""):
         assert np.asarray(want).dtype == got.dtype, prefix
 
 
-def port_model(jax_cfg, jax_params, device=None):
+def port_model(jax_cfg, jax_params, device=None, executor="mega"):
     """The port's VideoNMN with the JAX model's config and weights."""
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
     from stair_tpu_torch.weights import params_from_numpy
 
     cfg = NMNConfig(**jax_cfg.to_dict())
     return VideoNMN(cfg, params_from_numpy(to_numpy_tree(jax_params)),
-                    device=device)
+                    device=device, executor=executor)
 
 
 def torch_batch(batch, device=None):
