@@ -26,8 +26,9 @@ Phases (any failure raises, and the script exits non-zero):
 6. BiLSTM training kernels (forward with state stacks, backward and its
    dwh/dbias reduction) vs their plain versions at the training shapes
    (B = 128, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
-   float32 and bf16, with holes and an all-padding row; two backward runs
-   must give identical bits;
+   float32 and bf16, with holes and an all-padding row; the backward on
+   both of its routes (bf16: the cluster route and the general route;
+   float32: the general route), two runs of each with identical bits;
 7. executor training kernels (forward with dropout 0.25, backward and its
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
@@ -38,16 +39,22 @@ Phases (any failure raises, and the script exits non-zero):
    (H = 512, video 1024, text 300, F = 64, 172 answers, 64 object types,
    bf16, dropout 0.25, B = 128, fake supervision, Adam at lr 2e-4 with the
    trainer's 1.0 -> 0.1 schedule): 10 steps on the kernel route with launch
-   counts per step and a falling loss, one step kernel vs plain route (the
+   counts per step (the BiLSTM backward on its cluster route, none on the
+   general route) and a falling loss, one step kernel vs plain route (the
    loss in bf16; the gradients leaf by leaf in float32, where rounding
    sites agree), ms per step on both routes, and each training kernel's
-   time beside its plain version's at these shapes;
+   time beside its plain version's at these shapes (the BiLSTM backward
+   also on its general route);
 9. the attention kernel vs its plain version: B = 4, H = 32, D = 128 at
    L = 640 and a ragged L = 611 (strided views), grouped heads 32 / 8,
    D = 64 with mixed ``prefix_len``, non-causal with Lq != Lkv, a head_dim
-   the tensor-core kernel refuses, ``valid_len`` from 0 to L; out and lse,
-   float32 within 1e-4 and bf16 within 2e-2; its time beside the plain
-   version's and ``scaled_dot_product_attention``'s (a yardstick only);
+   the tensor-core kernel refuses, ``valid_len`` from 0 to L and at 1,
+   127, 128, 129 (edges of the tensor-core kernel's query tiles); out and
+   lse, float32 within 1e-4 and bf16 within 2e-2; its time beside the plain
+   version's and ``scaled_dot_product_attention``'s (a yardstick only),
+   the kernel's and the yardstick's as device time over calls replayed
+   from a CUDA graph (``graph_ms``: the wrapper's host time exceeds the
+   kernel's), as in phase 10's kernel entry;
 10. Video-ChatGPT serving at full width: Llama-7B (32 layers, d 4096) and
    CLIP ViT-L/14 in bf16 with weights made on the card from a seed, batch
    4, 100 frames per video, 64 new tokens, greedy: ``encode_video_batch``
@@ -126,10 +133,13 @@ QUESTION_LEN = 16
 HIDDEN, VIDEO_D, TEXT_D, FRAMES = 512, 1024, 300, 64
 TRAIN_BATCH = 128
 TRAIN_STEPS = 10
-#: per training step: video + question encoders through the train pair,
-#: the class table through the eval kernel, one executor pair
-TRAIN_LAUNCHES = {"bilstm": 1, "bilstm_train": 2, "bilstm_bwd": 2,
-                  "bilstm_dwh": 2, "mega_exec": 0, "mega_exec_train": 1,
+#: per training step: video + question encoders through the train pair
+#: (the backward on its bf16 cluster route: walk, dwh slices, their sum;
+#: none on the general route), the class table through the eval kernel,
+#: one executor pair
+TRAIN_LAUNCHES = {"bilstm": 1, "bilstm_train": 2, "bilstm_bwd": 0,
+                  "bilstm_dwh": 0, "bilstm_bwd_tc": 2, "bilstm_dwh_tc": 2,
+                  "bilstm_dwh_sum": 2, "mega_exec": 0, "mega_exec_train": 1,
                   "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
 
 
@@ -228,6 +238,25 @@ def lstm_library_ms(B, L, D, h, dev, dtype, train=False):
     return fwd, max(both - fwd, 0.0)
 
 
+def graph_ms(fn, iters=20):
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in
+    one CUDA graph and replayed, so that no host time sits between the
+    launches (at the main path's shapes the attention wrapper's Python
+    takes longer than its kernel, and back-to-back calls time the host)."""
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    return cuda_time_ms(graph.replay, iters=5, warmup=2) / iters
+
+
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -282,6 +311,20 @@ def plain_route():
             setattr(m, n, f)
     require(not any(_build.LAUNCHES.values()),
             f"the plain route launched kernels: {_build.LAUNCHES}")
+
+
+@contextlib.contextmanager
+def general_lstm_bwd():
+    """Send the BiLSTM backward through its general route
+    (``bilstm_bwd`` + ``bilstm_dwh``) whatever ``lstm.bwd_route`` picks."""
+    from stair_tpu_torch.ops import lstm as TL
+
+    pick = TL.bwd_route
+    TL.bwd_route = lambda dtype, h: "general"
+    try:
+        yield
+    finally:
+        TL.bwd_route = pick
 
 
 @contextlib.contextmanager
@@ -540,6 +583,7 @@ def rel_err(a, b):
 
 
 def phase_lstm_train(dev):
+    from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import lstm as TL
 
     gen = torch.Generator().manual_seed(1)
@@ -561,23 +605,35 @@ def phase_lstm_train(dev):
             dtok = [torch.randn(B, L, h, generator=gen).to(dev, dtype)
                     for _ in range(2)]
             dsent = torch.randn(B, 2 * h, generator=gen).to(dev)
-            kb = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
-            kb2 = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
-            torch.cuda.synchronize()
-            require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
-                    "bilstm backward is not deterministic")
             rb = TL.bilstm_bwd_reference(*args, ref[3], *dtok, dsent)
-            bwd = {n: rel_err(x, y) for n, x, y in zip(
-                ("dxp_f", "dxp_b", "dwh_f", "dwh_b", "dbias_f", "dbias_b"),
-                kb, rb)}
-            worst = max(bwd.values())
-            require(worst <= btol, f"bilstm_bwd {name} {dtype}: {bwd}")
-            errs[(name, str(dtype))] = (fwd, max_err(kb, rb))
-            log(f"[lstm train] {name} B={B} L={L} D={D} h={h} {dtype}: "
-                f"forward+stacks max_abs_err {fwd:.3e} (atol {ftol}); "
-                f"backward max rel err {worst:.3e} (bound {btol}: "
-                f"{', '.join(f'{k} {v:.2e}' for k, v in bwd.items())}); "
-                "two backward runs bit-identical ok")
+            routes = (("cluster", "bilstm_bwd_tc", contextlib.nullcontext),
+                      ("general", "bilstm_bwd", general_lstm_bwd))
+            for route, key, ctx in routes:
+                if route != "general" and TL.bwd_route(dtype, h) != route:
+                    continue   # float32 takes only the general route
+                with ctx():
+                    _build.reset_launches()
+                    kb = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
+                    kb2 = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
+                    torch.cuda.synchronize()
+                require(_build.LAUNCHES[key] == 2,
+                        f"bilstm backward {route} route launches "
+                        f"{_build.LAUNCHES}")
+                require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
+                        f"bilstm backward ({route}) is not deterministic")
+                bwd = {n: rel_err(x, y) for n, x, y in zip(
+                    ("dxp_f", "dxp_b", "dwh_f", "dwh_b", "dbias_f",
+                     "dbias_b"), kb, rb)}
+                worst = max(bwd.values())
+                require(worst <= btol,
+                        f"bilstm_bwd {route} {name} {dtype}: {bwd}")
+                errs[(name, str(dtype), route)] = (fwd, max_err(kb, rb))
+                log(f"[lstm train] {name} B={B} L={L} D={D} h={h} {dtype}: "
+                    f"forward+stacks max_abs_err {fwd:.3e} (atol {ftol}); "
+                    f"backward on the {route} route ({key}) max rel err "
+                    f"{worst:.3e} (bound {btol}: "
+                    f"{', '.join(f'{k} {v:.2e}' for k, v in bwd.items())}); "
+                    "two backward runs bit-identical ok")
     return errs
 
 
@@ -736,12 +792,15 @@ def phase_train(dev, card):
     # within rounding of 0 still moves a leaf by up to ~2e-3 in norm (a
     # logic error moves it by O(1)): bound 1e-2 on ||kernel - plain|| /
     # ||plain|| per leaf. The bf16 step's loss agrees within 1e-4.
+    # float32 takes the backward's general route (the exact one)
     keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
+    keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
+        "bilstm_bwd", "bilstm_dwh")
     model32 = W.build_model(NMNConfig(**{**cfg.to_dict(),
                                          "compute_dtype": "float32"}),
                             seed=0, device=dev)
     for m, dtype in ((model32, "float32"), (model, "bfloat16")):
-        with kernel_route(keys):
+        with kernel_route(keys32 if dtype == "float32" else keys):
             lk, gk = grads_of(m, 7)
         with plain_route():
             lp, gp = grads_of(m, 7)
@@ -822,6 +881,14 @@ def phase_train(dev, card):
     kbq = TL.bilstm_bwd_call(*qargs, kq[3], *qcot)
     rbq = TL.bilstm_bwd_reference(*qargs, kq[3], *qcot)
     e_lb = max(max_err(kbv, rbv), max_err(kbq, rbq))
+
+    def general_bwd_ms():
+        """The same two calls on the backward's general route (the
+        kernels the cluster route replaced on the main path)."""
+        with general_lstm_bwd():
+            return cuda_time_ms(
+                lambda: (TL.bilstm_bwd_call(*vargs, kv[3], *vcot),
+                         TL.bilstm_bwd_call(*qargs, kq[3], *qcot)), iters=3)
     r_lb = max(max(rel_err(x, y) for x, y in zip(kbv, rbv)),
                max(rel_err(x, y) for x, y in zip(kbq, rbq)))
     require(e_lt <= 2e-2 and r_lb <= 2e-2,
@@ -859,6 +926,7 @@ def phase_train(dev, card):
         "bilstm_bwd": cuda_time_ms(
             lambda: (TL.bilstm_bwd_call(*vargs, kv[3], *vcot),
                      TL.bilstm_bwd_call(*qargs, kq[3], *qcot)), iters=5),
+        "bilstm_bwd_general": general_bwd_ms(),
         "bilstm_bwd_plain": cuda_time_ms(
             lambda: (TL.bilstm_bwd_reference(*vargs, kv[3], *vcot),
                      TL.bilstm_bwd_reference(*qargs, kq[3], *qcot)),
@@ -910,7 +978,7 @@ def phase_train(dev, card):
         {"name": "bilstm_bwd", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/bilstm.cu",
          "replaces": "stair_tpu/ops/lstm.py:390",
-         "launches": launches["bilstm_bwd"], "max_abs_err": e_lb,
+         "launches": launches["bilstm_bwd_tc"], "max_abs_err": e_lb,
          "ms": t["bilstm_bwd"], "plain_ms": t["bilstm_bwd_plain"]},
         {"name": "mega_exec_train", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
@@ -963,6 +1031,8 @@ def phase_attention(dev, card):
          False, 0),
         ("D40 (scalar kernel)", 2, 3, 3, 77, 91, 40, [5, 0], [91, 60], True,
          0),
+        ("valid at query-tile edges", 4, 8, 8, 300, 300, 128,
+         [0, 0, 5, 0], [1, 127, 128, 129], True, 1),
     ]
     for name, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, strided in cases:
         for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -1003,15 +1073,13 @@ def phase_attention(dev, card):
     vl = torch.tensor([531, 560, 548, 537], dtype=torch.int32, device=dev)
     mask = TA.attention_mask(pl, vl, L, L)[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = cuda_time_ms(lambda: TA.flash_attention(q, k, v, pl, vl), iters=50,
-                      warmup=5)
+    ms = graph_ms(lambda: TA.flash_attention(q, k, v, pl, vl))
     plain = cuda_time_ms(lambda: TA.reference_attention(q, k, v, pl, vl),
                          iters=5)
-    lib = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=20,
-                       warmup=3)
+    lib = graph_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     b = attention_bound(q, k, v, vl, pl)
     log(f"[flash_attn] B=4 H=32 L={L} D=128 bf16, valid 531-560: kernel "
-        f"{ms:.4f} ms, plain version {plain:.3f} ms, "
+        f"{ms:.4f} ms (CUDA graph replay), plain version {plain:.3f} ms, "
         f"scaled_dot_product_attention with the boolean mask {lib:.4f} ms "
         f"(yardstick only), bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
         f"card {card}")
@@ -1119,12 +1187,10 @@ def phase_videochat(dev, card):
     mask = TA.attention_mask(zeros, plen, Lmax, Lmax)[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t = {
-        "ms": cuda_time_ms(lambda: TA.flash_attention(q, k, v, zeros, plen),
-                           iters=50, warmup=5),
+        "ms": graph_ms(lambda: TA.flash_attention(q, k, v, zeros, plen)),
         "plain_ms": cuda_time_ms(
             lambda: TA.reference_attention(q, k, v, zeros, plen), iters=5),
-        "library_ms": cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=mask),
-                                   iters=20, warmup=3),
+        "library_ms": graph_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
     }
     entry = {"name": "flash_attn", "route": "cuda",
              "source": "stair_tpu_torch/ops/csrc/flash_attn.cu",
@@ -1132,9 +1198,10 @@ def phase_videochat(dev, card):
              "launches": launches["flash_attn"], "max_abs_err": err, **t,
              **attention_bound(q, k, v, plen, zeros)}
     log(f"[main-path inputs] flash_attn B={VW.BATCH} H=32 L={Lmax} D=128 "
-        f"bf16: max_abs_err {err:.3e} (rtol 1e-2, atol 2e-2); {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.3f} ms, scaled_dot_product_attention "
-        f"{t['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
+        f"bf16: max_abs_err {err:.3e} (rtol 1e-2, atol 2e-2); {t['ms']:.4f} "
+        f"ms, plain {t['plain_ms']:.3f} ms, scaled_dot_product_attention "
+        f"{t['library_ms']:.4f} ms (kernel and SDPA by CUDA graph replay), "
+        f"bound {entry['bound_ms']:.4f} ms by "
         f"{entry['bound_by']}; card {card}")
     del p, layer, embeds, hidden, q, k, v, out, ref, mask
     torch.cuda.empty_cache()
@@ -2051,7 +2118,7 @@ def phase_rev_train(dev, card, slot_entries):
     log(f"[rev train] {TRAIN_STEPS} steps B={TRAIN_BATCH} on executor='rev' "
         f"(T = {T}): losses {[round(x, 4) for x in losses]}; launches per "
         f"step: slot_set {4 * T}, slot_zero {8 * T}, slot_add {7 * T}, "
-        f"bilstm_train 2, bilstm_bwd 2, no megakernel; "
+        f"bilstm_train 2, bilstm_bwd_tc 2, no megakernel; "
         f"{wall * 1e3 / TRAIN_STEPS:.3f} ms per step (host clock), "
         f"{k_ms:.3f} ms (CUDA events) beside the megakernel route's "
         f"{SEEN['mega_train_ms']:.3f} ms; card {card}")

@@ -15,8 +15,13 @@ its kernel and nowhere else:
 
 - ``bilstm``, ``bilstm_train``: the BiLSTM forward, eval and training
   (``csrc/bilstm.cu``);
-- ``bilstm_bwd``, ``bilstm_dwh``: its backward, the reverse walk and the
-  dwh/dbias reduction launch;
+- ``bilstm_bwd``, ``bilstm_dwh``: its backward on the general route
+  (float32, and the shapes the cluster kernel refuses), the reverse walk
+  and the dwh/dbias reduction launch;
+- ``bilstm_bwd_tc``, ``bilstm_dwh_tc``, ``bilstm_dwh_sum``: its backward on
+  the cluster route (bf16, the main path's), the reverse walk on a
+  thread-block cluster, the tensor-core dwh slices and their sum in split
+  order with dbias;
 - ``mega_exec``, ``mega_exec_train``: the executor forward, eval and
   training (``csrc/mega_exec.cu``);
 - ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward
@@ -31,8 +36,9 @@ its kernel and nowhere else:
 - ``slot_set``, ``slot_zero``, ``slot_add``: the in-place register-slot
   updates (``csrc/regslots.cu``).
 
-``header_ints`` reads ``constexpr int`` values from a ``csrc`` header, so
-a limit the kernels check has one home (``csrc/mega_limits.cuh``).
+``header_ints`` reads ``constexpr int`` values from a ``csrc`` source, so
+a limit the kernels check has one home (``csrc/mega_limits.cuh``; the
+BiLSTM cluster route's ``TC_MAX_H`` in ``csrc/bilstm.cu``).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ NVCC_FLAGS = [
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES = {
     "bilstm": 0, "bilstm_train": 0, "bilstm_bwd": 0, "bilstm_dwh": 0,
+    "bilstm_bwd_tc": 0, "bilstm_dwh_tc": 0, "bilstm_dwh_sum": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
     "mega_exec_wgrad": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
     "flash_attn_bwd_dkv": 0, "executor_step": 0, "slot_set": 0,
@@ -160,6 +167,11 @@ def build():
     for fn in (lib.stair_bilstm_bwd, lib.stair_bilstm_dwh):
         fn.restype = I
         fn.argtypes = [P, I, I, I, I, P]   # pointers, B, L, h, bf16, stream
+    for fn in (lib.stair_bilstm_bwd_tc, lib.stair_bilstm_dwh_tc):
+        fn.restype = I
+        fn.argtypes = [P, I, I, I, P]      # pointers, B, L, h, stream
+    lib.stair_bilstm_dwh_sum.restype = I
+    lib.stair_bilstm_dwh_sum.argtypes = [P, I, I, P]  # pointers, nb, h, stream
     lib.stair_mega_exec_fwd.restype = I
     lib.stair_mega_exec_fwd.argtypes = [
         P, I,                      # pointer table, its length

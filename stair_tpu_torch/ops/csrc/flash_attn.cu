@@ -12,26 +12,42 @@
 // 8 L D bytes of q, k, v and out in bf16: L / 4 operations per byte, below
 // the card's ~295 until L ~ 1200. At this repo's lengths (L 128 to 640) the
 // bound is therefore the bytes, as long as the [L, L] scores never reach
-// device memory. The design keeps them on chip: one block per (example,
-// head, 64 query rows) walks the live key tiles once, with scores, the
-// running max and sum and the output accumulator in registers, and K/V
-// tiles staged in shared memory (K/V are re-read once per query tile, from
-// L2 at these sizes). Tiles wholly above the diagonal and past the prefix,
-// or past valid, are never visited; a block whose rows are all padding
-// writes zeros and leaves. It is a simple kernel: tile loads are
-// synchronous (no cp.async or TMA pipeline) and the products are mma.sync,
-// not wgmma, so it runs at several times its bound; chip_smoke.py prints
-// both numbers.
+// device memory. Both kernels keep them on chip: one block per (example,
+// head, query tile) walks the live key tiles once, with scores, the running
+// max and sum and the output accumulator in registers. Tiles wholly above
+// the diagonal and past the prefix, or past valid, are never visited; a
+// block whose rows are all padding writes zeros and leaves.
 //
 // Two kernels share that shape:
-//  - flash_fwd_mma (bf16, head_dim 64 or 128, 16-byte aligned rows): the
-//    products run on the tensor cores through mma.sync m16n8k16 with
-//    float32 accumulation; each warp owns 16 query rows; the score
+//  - flash_fwd_mma (bf16, head_dim 64 or 128, 16-byte aligned rows). In
+//    practice it is bound by how well the key-tile loads and the barriers
+//    overlap the products, not by the card's peaks, so the design aims at
+//    that. K and V tiles of 64 keys go through a two-stage ring in shared
+//    memory filled by cp.async (16-byte chunks, zero-fill past Lkv): tile
+//    j + 1 is in flight while tile j's products run, one barrier pair per
+//    tile. 64 query rows per block, 4 warps of 16 rows, Q loaded once and
+//    kept as A fragments in registers; at 204 registers a thread two such
+//    blocks share an SM, and one block's products run while the other
+//    waits at a barrier. 128-row blocks of 8 warps read K and V half as
+//    often but fit one block per SM, and measured slower at every shape of
+//    this repo's paths (scripts/flash_tile_rows.py builds and times both). The
+//    products are mma.sync m16n8k16 with float32 accumulation: the score
 //    accumulators are re-packed in registers as the A operand of P V and
-//    V's B operand comes through ldmatrix.trans;
+//    V's B operand comes through ldmatrix.trans. wgmma (64-row warpgroup
+//    tiles, B from shared memory) would raise the tensor-core rate, but
+//    these products are small (16 x 64 x D per warp and tile) and the
+//    kernel is not bound by their rate at these lengths; it stays on
+//    mma.sync, with wgmma queued as the kernel's next step. The softmax
+//    runs in base 2: the running max m2 is kept in units of scale log2(e),
+//    p = exp2(fma(s, scale log2(e), -m2)) is one FMA and one exp2, and
+//    lse = (m2 + log2 l) ln 2 is written in natural log for the backward.
+//    The mask test runs only on tiles that cut a warp's rows (the diagonal,
+//    valid or prefix); tiles wholly inside skip it. Under a causal mask the
+//    grid launches the heaviest query tiles (the last rows) first;
 //  - flash_fwd_simple (float32 or bf16, any head_dim <= 128, any strides):
-//    plain float32 FMA loops, one key column per lane; it is the exact
-//    float32 route and takes the shapes the tensor-core kernel refuses.
+//    plain float32 FMA loops, one key column per lane, 64 query rows per
+//    block and synchronous tile loads; it is the exact float32 route and
+//    takes the shapes the tensor-core kernel refuses.
 // Both mask ragged edges themselves (lengths need not divide a tile), use
 // MASK_VALUE = -1e30 with the running max starting at -inf (a later live
 // column wipes an all-masked tile through alpha = 0, and inf - inf never
@@ -61,25 +77,26 @@ struct FlashArgs {
 constexpr int BQ = 64;       // query rows per block (16 per warp)
 constexpr int THREADS = 128;
 
-// The key range [0, kv_end) a query tile starting at q0 has to visit.
-__device__ __forceinline__ int kv_end_of(int q0, int valid, int prefix,
-                                         int causal) {
+// The key range [0, kv_end) a tile of ``rows`` query rows starting at q0
+// has to visit.
+__device__ __forceinline__ int kv_end_of(int q0, int rows, int valid,
+                                         int prefix, int causal) {
   int end = valid;
-  if (causal) end = min(end, max(q0 + BQ, prefix));
+  if (causal) end = min(end, max(q0 + rows, prefix));
   return end;
 }
 
-// A block whose rows are all padding: zeros and +inf.
-template <typename T>
+// A block whose ROWS rows are all padding: zeros and +inf. NT threads.
+template <typename T, int ROWS, int NT>
 __device__ void write_dead_tile(const FlashArgs& a, int b, int h, int q0) {
   T* o = (T*)a.o + b * a.o_sb + h * a.o_sh;
-  const int rows = min(BQ, a.Lq - q0);
-  for (int i = threadIdx.x; i < rows * a.D; i += THREADS) {
+  const int rows = min(ROWS, a.Lq - q0);
+  for (int i = threadIdx.x; i < rows * a.D; i += NT) {
     const int r = i / a.D, d = i % a.D;
     o[(long long)(q0 + r) * a.o_sl + d] = from_f<T>(0.f);
   }
   if (a.lse)
-    for (int r = threadIdx.x; r < rows; r += THREADS)
+    for (int r = threadIdx.x; r < rows; r += NT)
       a.lse[((long long)b * a.H + h) * a.Lq + q0 + r] = INFINITY;
 }
 
@@ -106,7 +123,7 @@ flash_fwd_simple(const FlashArgs a) {
   const int valid = min(valid_q, a.Lkv);      // live key columns end here
   const int prefix = a.prefix_len[b];
   if (q0 >= valid_q || valid <= 0) {
-    write_dead_tile<T>(a, b, h, q0);
+    write_dead_tile<T, BQ, THREADS>(a, b, h, q0);
     return;
   }
   const int hk = h / (a.H / a.Hkv);
@@ -132,7 +149,7 @@ flash_fwd_simple(const FlashArgs a) {
   const float* Qw = Qs + warp * SROWS * D;
   const int row0 = q0 + warp * SROWS;
 
-  const int kv_end = kv_end_of(q0, valid, prefix, a.causal);
+  const int kv_end = kv_end_of(q0, BQ, valid, prefix, a.causal);
   for (int kv0 = 0; kv0 < kv_end; kv0 += SKV) {
     __syncthreads();
     for (int i = tid; i < SKV * D; i += THREADS) {
@@ -207,10 +224,15 @@ flash_fwd_simple(const FlashArgs a) {
 // tensor-core kernel (bf16, head_dim 64 or 128)
 // ---------------------------------------------------------------------------
 
-constexpr int MKV = 64;      // key rows per tile
+constexpr int MQ = 64;         // query rows per block (16 per warp)
+constexpr int MTHREADS = 128;  // 4 warps; two blocks per SM
+constexpr int MKV = 64;        // key rows per tile
+constexpr int STAGES = 2;      // K/V tiles in flight in the cp.async ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MTHREADS, 2)
 flash_fwd_mma(const FlashArgs a) {
   typedef __nv_bfloat16 T;
   constexpr int LD = D + PAD;
@@ -218,16 +240,20 @@ flash_fwd_mma(const FlashArgs a) {
   constexpr int NT = MKV / 8;  // score n-tiles per warp
   constexpr int OT = D / 8;    // output n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
-  T* Ks = Qs + BQ * LD;                    // [MKV][LD]
-  T* Vs = Ks + MKV * LD;                   // [MKV][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [MQ][LD]
+  T* Ks = Qs + MQ * LD;                    // [STAGES][MKV][LD]
+  T* Vs = Ks + STAGES * MKV * LD;          // [STAGES][MKV][LD]
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  // Grid (H, B, query tiles): the tile index varies slowest, and under a
+  // causal mask it is reversed, so the tiles with the most live keys start
+  // first and the short ones fill the tail.
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * MQ, h = blockIdx.x, b = blockIdx.y;
   const int valid_q = a.valid_len[b];         // rows at or past it: padding
   const int valid = min(valid_q, a.Lkv);      // live key columns end here
   const int prefix = a.prefix_len[b];
   if (q0 >= valid_q || valid <= 0) {
-    write_dead_tile<T>(a, b, h, q0);
+    write_dead_tile<T, MQ, MTHREADS>(a, b, h, q0);
     return;
   }
   const int hk = h / (a.H / a.Hkv);
@@ -236,39 +262,51 @@ flash_fwd_mma(const FlashArgs a) {
   const T* v = (const T*)a.v + b * a.v_sb + hk * a.v_sh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
+  const float c2 = a.sm_scale * LOG2E;   // raw score -> base-2 exponent
 
-  stage_tile<D, THREADS>(Qs, q, a.q_sl, q0, a.Lq, BQ);
-  __syncthreads();
-  // This warp's 16 query rows as A fragments, kept for the whole walk.
+  const int kv_end = kv_end_of(q0, MQ, valid, prefix, a.causal);
+  const int ntiles = (kv_end + MKV - 1) / MKV;
+  // Group 0: Q and the first K/V tile.
+  stage_tile_async<D, MTHREADS>(Qs, q, a.q_sl, q0, a.Lq, MQ);
+  stage_tile_async<D, MTHREADS>(Ks, k, a.k_sl, 0, a.Lkv, MKV);
+  stage_tile_async<D, MTHREADS>(Vs, v, a.v_sl, 0, a.Lkv, MKV);
+  cp_async_commit();
+
   uint32_t qf[KS][4];
-  {
-    const T* base = Qs + (warp * 16 + g) * LD + t * 2;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(base + kk * 16);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + kk * 16);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + kk * 16 + 8);
-      qf[kk][3] =
-          *reinterpret_cast<const uint32_t*>(base + 8 * LD + kk * 16 + 8);
-    }
-  }
-
   float o[OT][4];
 #pragma unroll
   for (int n = 0; n < OT; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  // Row state of rows g (index 0) and g + 8 (index 1); l is this lane's
-  // partial sum, reduced over the quad at the end.
+  // Row state of rows g (index 0) and g + 8 (index 1): m is the running
+  // max in base-2 units (raw score times c2); l is this lane's partial
+  // sum, reduced over the quad at the end.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int row_lo = q0 + warp * 16 + g;
+  const int row_min = q0 + warp * 16;
+  const int row_lo = row_min + g;
 
-  const int kv_end = kv_end_of(q0, valid, prefix, a.causal);
-  for (int kv0 = 0; kv0 < kv_end; kv0 += MKV) {
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * MKV;
+    // Tile j + 1 goes into the other stage while tile j is used; the group
+    // is committed even when empty, so "all but the newest" is tile j.
+    if (j + 1 < ntiles) {
+      const int st = (j + 1) % STAGES;
+      stage_tile_async<D, MTHREADS>(Ks + st * MKV * LD, k, a.k_sl, kv0 + MKV,
+                                    a.Lkv, MKV);
+      stage_tile_async<D, MTHREADS>(Vs + st * MKV * LD, v, a.v_sl, kv0 + MKV,
+                                    a.Lkv, MKV);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    stage_tile<D, THREADS>(Ks, k, a.k_sl, kv0, a.Lkv, MKV);
-    stage_tile<D, THREADS>(Vs, v, a.v_sl, kv0, a.Lkv, MKV);
-    __syncthreads();
+    if (j == 0) {
+      // This warp's 16 query rows as A fragments, kept for the whole walk.
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        load_a_frag(qf[kk], Qs + warp * 16 * LD + kk * 16, LD, g, t);
+    }
+    const T* Kt = Ks + (j % STAGES) * MKV * LD;
+    const T* Vt = Vs + (j % STAGES) * MKV * LD;
 
     float s[NT][4];
 #pragma unroll
@@ -279,31 +317,45 @@ flash_fwd_mma(const FlashArgs a) {
     for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const T* kb = Ks + (n * 8 + g) * LD + kk * 16 + t * 2;
+        const T* kb = Kt + (n * 8 + g) * LD + kk * 16 + t * 2;
         mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kb),
                  *reinterpret_cast<const uint32_t*>(kb + 8));
       }
     }
 
+    // The mask test runs only where the tile cuts this warp's rows: past
+    // valid, or above the diagonal and past the prefix. A tile wholly
+    // inside the mask (the same answer for all 32 lanes) skips it.
+    const bool inside =
+        kv0 + MKV <= valid &&
+        (!a.causal || kv0 + MKV - 1 <= row_min || kv0 + MKV <= prefix);
     float m_cur[2] = {MASK_VALUE, MASK_VALUE};
+    if (inside) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row_lo + (i / 2) * 8;
-        const int col = kv0 + n * 8 + t * 2 + (i % 2);
-        s[n][i] = live(row, col, valid, prefix, a.causal)
-                      ? s[n][i] * a.sm_scale : MASK_VALUE;
-        m_cur[i / 2] = fmaxf(m_cur[i / 2], s[n][i]);
+        for (int i = 0; i < 4; ++i)
+          m_cur[i / 2] = fmaxf(m_cur[i / 2], s[n][i]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = row_lo + (i / 2) * 8;
+          const int col = kv0 + n * 8 + t * 2 + (i % 2);
+          if (!live(row, col, valid, prefix, a.causal)) s[n][i] = MASK_VALUE;
+          m_cur[i / 2] = fmaxf(m_cur[i / 2], s[n][i]);
+        }
       }
     }
+    // Raw scores and their max; c2 > 0, so max(s) c2 = max(s c2) exactly.
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 1));
       m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 2));
-      const float m_new = fmaxf(m[r], m_cur[r]);
-      alpha[r] = expf(m[r] - m_new);
+      const float m_new = fmaxf(m[r], m_cur[r] * c2);
+      alpha[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
       l[r] *= alpha[r];
     }
@@ -311,7 +363,7 @@ flash_fwd_mma(const FlashArgs a) {
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[n][i] = expf(s[n][i] - m[i / 2]);
+        s[n][i] = exp2f(fmaf(s[n][i], c2, -m[i / 2]));
         l[i / 2] += s[n][i];
       }
     }
@@ -323,7 +375,9 @@ flash_fwd_mma(const FlashArgs a) {
       o[n][3] *= alpha[1];
     }
 
-    // P V: two adjacent score n-tiles are one 16-deep A fragment.
+    // P V: two adjacent score n-tiles are one 16-deep A fragment; V's B
+    // fragments come through ldmatrix .trans (registers 0,1 of output
+    // tile n, 2,3 of tile n + 1).
 #pragma unroll
     for (int kk = 0; kk < MKV / 16; ++kk) {
       uint32_t pa[4];
@@ -331,26 +385,16 @@ flash_fwd_mma(const FlashArgs a) {
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // ldmatrix x4 .trans: lanes 0-7 address key rows 0-7 of the step and
-      // lanes 8-15 rows 8-15, at output columns n*8..; lanes 16-31 the
-      // same rows at columns (n+1)*8... Registers 0,1 are the B fragment
-      // of output tile n, registers 2,3 of tile n + 1.
-      const T* vrow = Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
-                      + (lane >> 4) * 8;
 #pragma unroll
       for (int n = 0; n < OT; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        const uint32_t addr =
-            (uint32_t)__cvta_generic_to_shared(vrow + n * 8);
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(addr));
-        mma_bf16(o[n], pa, b0, b1);
-        mma_bf16(o[n + 1], pa, b2, b3);
+        uint32_t vb[4];
+        load_b_trans(vb, Vt + kk * 16 * LD + n * 8, LD, lane);
+        mma_bf16(o[n], pa, vb[0], vb[1]);
+        mma_bf16(o[n + 1], pa, vb[2], vb[3]);
       }
     }
+    // Every warp is done with this stage before tile j + 2 refills it.
+    __syncthreads();
   }
 
 #pragma unroll
@@ -372,18 +416,17 @@ flash_fwd_mma(const FlashArgs a) {
           __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     if (a.lse && t == 0)
       a.lse[((long long)b * a.H + h) * a.Lq + row] =
-          pad ? INFINITY : m[r] + logf(l[r]);
+          pad ? INFINITY : (m[r] + log2f(l[r])) * LN2;
   }
 }
 
 template <typename K>
-cudaError_t launch(K kernel, const FlashArgs& a, size_t smem,
-                   cudaStream_t stream) {
+cudaError_t launch(K kernel, const FlashArgs& a, size_t smem, dim3 grid,
+                   int threads, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  kernel<<<grid, THREADS, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -398,13 +441,19 @@ extern "C" int stair_flash_attn_fwd(const stair::FlashArgs* args,
   if (a.mma) {
     if (!a.bf16 || (a.D != 64 && a.D != 128))
       return (int)cudaErrorInvalidValue;
-    const size_t smem =
-        (size_t)(BQ + 2 * MKV) * (a.D + PAD) * sizeof(__nv_bfloat16);
-    return (int)(a.D == 64 ? launch(flash_fwd_mma<64>, a, smem, st)
-                           : launch(flash_fwd_mma<128>, a, smem, st));
+    const size_t smem = (size_t)(MQ + 2 * STAGES * MKV) * (a.D + PAD) *
+                        sizeof(__nv_bfloat16);
+    const dim3 grid(a.H, a.B, (a.Lq + MQ - 1) / MQ);
+    return (int)(a.D == 64
+                     ? launch(flash_fwd_mma<64>, a, smem, grid, MTHREADS, st)
+                     : launch(flash_fwd_mma<128>, a, smem, grid, MTHREADS,
+                              st));
   }
   const size_t smem = sizeof(float) * ((size_t)BQ * a.D + SKV * (a.D + 1) +
                                        SKV * a.D + 4 * SROWS * SKV);
-  return (int)(a.bf16 ? launch(flash_fwd_simple<__nv_bfloat16>, a, smem, st)
-                      : launch(flash_fwd_simple<float>, a, smem, st));
+  const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
+  return (int)(a.bf16 ? launch(flash_fwd_simple<__nv_bfloat16>, a, smem, grid,
+                               THREADS, st)
+                      : launch(flash_fwd_simple<float>, a, smem, grid,
+                               THREADS, st));
 }

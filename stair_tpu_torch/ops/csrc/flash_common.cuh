@@ -1,11 +1,10 @@
 // What the flash-attention forward (flash_attn.cu) and backward
-// (flash_attn_bwd.cu) kernels share: the two-integer mask, the mma.sync
-// bf16 product, and the staging of a bf16 tile into padded shared memory.
+// (flash_attn_bwd.cu) kernels share: the two-integer mask, the staging of
+// a bf16 tile into padded shared memory (synchronous, or by cp.async for
+// the forward's K/V ring) and the fragment loads of the mma.sync product.
 #pragma once
 
 #include "common.cuh"
-
-#include <stdint.h>
 
 namespace stair {
 
@@ -17,20 +16,6 @@ constexpr int PAD = 8;       // bf16 elements of row padding in shared memory
 __device__ __forceinline__ bool live(int row, int col, int valid, int prefix,
                                      int causal) {
   return col < valid && (!causal || col <= row || col < prefix);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 // Stage ``rows`` x D bf16 (16-byte chunks) into shared memory with row
@@ -48,6 +33,23 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
       val = *reinterpret_cast<const uint4*>(
           src + (long long)(first + r) * stride + c * 8);
     *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c * 8) = val;
+  }
+}
+
+// stage_tile with cp.async: the copies are started, not waited for (the
+// caller commits and waits). Rows at or past ``limit`` become zeros.
+template <int D, int NT>
+__device__ __forceinline__ void stage_tile_async(__nv_bfloat16* dst,
+                                                 const __nv_bfloat16* src,
+                                                 long long stride, int first,
+                                                 int limit, int rows) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool in = first + r < limit;
+    cp_async16(dst + r * (D + PAD) + c * 8,
+               src + (long long)(in ? first + r : first) * stride + c * 8,
+               in);
   }
 }
 
@@ -70,13 +72,8 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&f)[4],
 __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
                                              const __nv_bfloat16* base, int ld,
                                              int lane) {
-  const __nv_bfloat16* p =
-      base + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
+  ldmatrix_x4_trans(
+      b, base + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
 }
 
 }  // namespace stair

@@ -14,7 +14,10 @@ the hand-written kernel ``csrc/bilstm.cu`` or raises.
 Training: ``bilstm_train_call`` is the forward that also returns the
 float32 post-mask h/c state stacks, ``bilstm_bwd_call`` the backward over
 them (plain ``bilstm_bwd_reference``, an explicit adjoint recurrence, on
-the CPU; the kernels ``bilstm_bwd`` + ``bilstm_dwh`` on the card).
+the CPU; on the card the kernels of the route ``bwd_route`` picks: the
+cluster route ``bilstm_bwd_tc`` + ``bilstm_dwh_tc`` + ``bilstm_dwh_sum``
+for bf16 at the main path's shapes, the general route ``bilstm_bwd`` +
+``bilstm_dwh`` otherwise).
 ``BiLSTMTrain`` is the ``torch.autograd.Function`` around the two (the
 port of ``_train_core``) and ``bilstm_forward_train`` the port of
 ``bilstm_pallas_train``; ``_prep``'s input projection stays outside the
@@ -24,6 +27,7 @@ gradients.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -264,12 +268,32 @@ def bilstm_bwd_reference(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b,
     return dxp_f, dxp_b, dwh_f, dwh_b, db_f, db_b
 
 
+@functools.lru_cache(maxsize=None)
+def _consts():
+    """The backward kernels' sizes, from ``csrc/bilstm.cu``."""
+    return _build.header_ints("bilstm.cu")
+
+
+def bwd_route(dtype, h) -> str:
+    """The backward's kernel route for xp and wh of ``dtype`` at hidden size
+    ``h``, chosen before any launch: ``"cluster"`` (``bilstm_bwd_tc``: bf16,
+    h a multiple of 64 up to ``TC_MAX_H``) or ``"general"`` (``bilstm_bwd``:
+    float32, the exact route, and every other h the wrapper takes)."""
+    if (dtype == torch.bfloat16 and h % 64 == 0
+            and 64 <= h <= _consts()["TC_MAX_H"]):
+        return "cluster"
+    return "general"
+
+
 def bilstm_bwd_call(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, stacks,
                     dtok_f, dtok_b, dsent):
     """Backward (TPU kernel #3): plain version on CPU; on the card the
-    kernel ``bilstm_bwd`` (dxp and per-block dbias partials) then
-    ``bilstm_dwh`` (dwh and the dbias sum). Same contract as
-    ``bilstm_bwd_reference``; ``dtok`` in xp's dtype, ``dsent`` float32."""
+    kernels of ``bwd_route``: the cluster route ``bilstm_bwd_tc`` (dxp and
+    per-tile dbias partials), ``bilstm_dwh_tc`` (dwh in row slices) and
+    ``bilstm_dwh_sum`` (the slices and the dbias partials in order), or the
+    general route ``bilstm_bwd`` then ``bilstm_dwh`` (dwh and the dbias
+    sum). Same contract as ``bilstm_bwd_reference``; ``dtok`` in xp's
+    dtype, ``dsent`` float32."""
     if _build.on_cpu("bilstm_bwd", xp_f):
         return bilstm_bwd_reference(xp_f, xp_b, mask, wh_f, wh_b, bias_f,
                                     bias_b, stacks, dtok_f, dtok_b, dsent)
@@ -294,14 +318,29 @@ def bilstm_bwd_call(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, stacks,
                   for _ in range(2))
     if B == 0 or L == 0:
         return dxp_f, dxp_b, dwh_f, dwh_b, db_f, db_b
-    nb = -(-B // _build.header_ints("bilstm.cu")["BT"])  # row tiles
+    nb = -(-B // _consts()["BT"])  # row tiles
     part = torch.empty(nb, 2, G, dtype=torch.float32, device=dev)
     lib = _build.build()
-    bf16 = int(dt == torch.bfloat16)
     stream = _build.stream_ptr(dev)
-    err = lib.stair_bilstm_bwd(
-        _build.pointers((*args, *stacks, dtok_f, dtok_b, dsent, dxp_f,
-                         dxp_b, part)), B, L, h, bf16, stream)
+    ptrs = _build.pointers((*args, *stacks, dtok_f, dtok_b, dsent, dxp_f,
+                            dxp_b, part))
+    if bwd_route(dt, h) == "cluster":
+        _build.check(lib.stair_bilstm_bwd_tc(ptrs, B, L, h, stream),
+                     "bilstm_bwd_tc")
+        _build.LAUNCHES["bilstm_bwd_tc"] += 1
+        slices = torch.empty(2, _consts()["DW_SPLIT"], h, G,
+                             dtype=torch.float32, device=dev)
+        _build.check(lib.stair_bilstm_dwh_tc(
+            _build.pointers((stacks[0], stacks[2], dxp_f, dxp_b, slices)),
+            B, L, h, stream), "bilstm_dwh_tc")
+        _build.LAUNCHES["bilstm_dwh_tc"] += 1
+        _build.check(lib.stair_bilstm_dwh_sum(
+            _build.pointers((slices, part, dwh_f, dwh_b, db_f, db_b)), nb,
+            h, stream), "bilstm_dwh_sum")
+        _build.LAUNCHES["bilstm_dwh_sum"] += 1
+        return dxp_f, dxp_b, dwh_f, dwh_b, db_f, db_b
+    bf16 = int(dt == torch.bfloat16)
+    err = lib.stair_bilstm_bwd(ptrs, B, L, h, bf16, stream)
     _build.check(err, "bilstm_bwd")
     _build.LAUNCHES["bilstm_bwd"] += 1
     err = lib.stair_bilstm_dwh(

@@ -65,6 +65,8 @@ KERNEL_CASES = [
     ("noncausal", 2, 2, 64, 16, [0, 0], [64, 37], False, 32),
     ("D64", 2, 2, 64, 64, [10, 0], [64, 50], True, 32),
     ("D128", 1, 2, 64, 128, [0], [60], True, 64),
+    ("valid-edges", 4, 2, 256, 32, [0, 0, 5, 0], [1, 127, 128, 129], True,
+     128),
 ]
 
 
@@ -168,6 +170,14 @@ CARD_CASES = [
      [128, 100, 70, 128], True, 0),
     ("noncausal", 2, 4, 4, 100, 333, 64, [0, 0], [333, 90], False, 0),
     ("D40", 2, 3, 3, 77, 91, 40, [5, 0], [91, 60], True, 0),
+    # valid_len at the edges of the tensor-core kernel's 64-row query tiles
+    # (and of 128-row ones), and Lq not a multiple of either
+    ("valid-edges", 4, 8, 8, 300, 300, 128, [0, 0, 5, 0], [1, 127, 128, 129],
+     True, 1),
+    ("Lq200-D64", 4, 4, 2, 200, 200, 64, [0, 0, 0, 130], [129, 128, 200, 200],
+     True, 0),
+    ("noncausal-edges", 3, 4, 4, 257, 257, 128, [0, 0, 0], [1, 128, 257],
+     False, 1),
 ]
 
 
@@ -177,7 +187,7 @@ CARD_CASES = [
 def test_kernel_vs_plain_on_card(cuda_device, case, dtype):
     """The CUDA kernel against the plain version on the same CUDA tensors:
     float32 within 1e-4, bf16 within 2e-2, lse within 1e-4, the same +inf
-    pattern."""
+    pattern, padding rows exactly 0."""
     _, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, strided = case
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(cuda_device, dt)
@@ -196,3 +206,4 @@ def test_kernel_vs_plain_on_card(cuda_device, case, dtype):
     fin = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(lse), fin)
     torch.testing.assert_close(lse[fin], ref_lse[fin], rtol=0, atol=1e-4)
+    _check_padding_rows(out.float().cpu().numpy(), lse.cpu().numpy(), valid)

@@ -8,13 +8,16 @@ tokens, sentence and the gradients of every parameter and of ``x``, with
 non-suffix masks and an all-padding row; float32 at rtol 1e-4 / atol 1e-5,
 bf16 at 2e-2 (as tests/test_lstm_pallas.py). The plain explicit backward is
 held against torch autograd of ``bilstm_reference`` in float32. The CUDA
-kernels are held against the plain versions on the card.
+kernels are held against the plain versions on the card; the backward's
+route choice and the cluster kernel's shared-memory limit are checked on
+the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from stair_tpu_torch.ops import _build
 from stair_tpu_torch.ops import lstm as TL
 from stair_tpu_torch.weights import params_from_numpy
 from torch_port_util import cuda_device, to_numpy_tree  # noqa: F401
@@ -155,3 +158,89 @@ def test_bilstm_train_kernels_vs_plain_on_card(cuda_device, dtype):
         scale = float(r.float().abs().max())
         torch.testing.assert_close(a.float(), r.float(), rtol=tol,
                                    atol=tol * scale)
+
+
+# The backward's route, chosen before any launch: the cluster kernel takes
+# bf16 at h a multiple of 64 up to TC_MAX_H (the main path's h = 256), the
+# general kernel everything else (float32 always: it is the exact route).
+ROUTE_CASES = [
+    (torch.float32, 16, "general"), (torch.float32, 64, "general"),
+    (torch.float32, 256, "general"), (torch.float32, 512, "general"),
+    (torch.bfloat16, 16, "general"), (torch.bfloat16, 64, "cluster"),
+    (torch.bfloat16, 100, "general"), (torch.bfloat16, 128, "cluster"),
+    (torch.bfloat16, 192, "cluster"), (torch.bfloat16, 256, "cluster"),
+    (torch.bfloat16, 320, "general"), (torch.bfloat16, 512, "general"),
+]
+
+
+@pytest.mark.parametrize("dtype,h,route", ROUTE_CASES,
+                         ids=[f"{str(d)[6:]}-h{h}" for d, h, _ in ROUTE_CASES])
+def test_bilstm_bwd_route_choice(dtype, h, route):
+    assert TL.bwd_route(dtype, h) == route
+
+
+def _tc_smem_bytes(h, c):
+    """Per-CTA shared memory of the cluster kernel at hidden size ``h``, as
+    ``csrc/bilstm.cu tc_smem_bytes`` computes it from the same constants:
+    the ``[h, h]`` wh slice and ``[8, h]`` dgates in bf16, three ``[8, h]``
+    float32 buffers, and two stages of one step's inputs (float32
+    ``h_{t-1}``, ``c_t``, ``c_{t-1}``, mask; bf16 xp and dtok), rows
+    padded."""
+    bt, u = c["BT"], h // 4
+    stage = 4 * bt * (h + c["TC_FPAD"] + 2 * u + 1) + 2 * bt * (h + u)
+    return (2 * (h + bt) * (h + c["TC_PAD"])
+            + 4 * 3 * bt * (h + c["TC_FPAD"]) + 2 * stage)
+
+
+@pytest.mark.parametrize("h", [64, 128, 192, 256])
+def test_bilstm_bwd_cluster_smem_fits_one_cta(h):
+    """Every h the cluster route takes fits the 232,448 bytes a block may
+    use; the limit is TC_MAX_H of csrc/bilstm.cu, read as the kernel reads
+    it, and the next multiple of 64 would not fit."""
+    c = _build.header_ints("bilstm.cu")
+    assert h <= c["TC_MAX_H"]
+    assert TL.bwd_route(torch.bfloat16, h) == "cluster"
+    assert _tc_smem_bytes(h, c) <= 232448
+    assert _tc_smem_bytes(c["TC_MAX_H"] + 64, c) > 232448
+    assert c["TC_CLUSTER"] * (h // c["TC_CLUSTER"]) == h
+
+
+# name, B, L, D: the main path's video and question encoders at B 128, and
+# a batch that is not a multiple of the 8-row tile
+CLUSTER_CASES = [("video", 128, 64, 1024), ("question", 128, 16, 300),
+                 ("ragged-B", 125, 20, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLUSTER_CASES, ids=[c[0] for c in CLUSTER_CASES])
+def test_bilstm_bwd_cluster_kernel_vs_plain_on_card(cuda_device, case):
+    """The cluster route at h 256 in bf16 against the plain backward, with
+    holes and an all-padding row: within 2e-2 of each gradient's largest
+    value; a second run gives the same bits; its three launch keys, none of
+    the general route."""
+    _, B, L, D = case
+    h, dt = 256, torch.bfloat16
+    gen = torch.Generator().manual_seed(11)
+    x, mask, _ = _data(B, L, D, seed=B + L)
+    p = TL.init_lstm_params(gen, D, h, device=cuda_device)
+    args = TL._prep(p, torch.from_numpy(x).to(cuda_device),
+                    torch.from_numpy(mask).to(cuda_device), dt)
+    out = TL.bilstm_train_call(*args, token_dtype=dt)
+    cots = [torch.randn(B, L, h, generator=gen).to(cuda_device, dt)
+            for _ in range(2)] + [torch.randn(B, 2 * h, generator=gen)
+                                  .to(cuda_device)]
+    _build.reset_launches()
+    k1 = TL.bilstm_bwd_call(*args, out[3], *cots)
+    k2 = TL.bilstm_bwd_call(*args, out[3], *cots)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bilstm_bwd_tc"] == 2
+    assert _build.LAUNCHES["bilstm_dwh_tc"] == 2
+    assert _build.LAUNCHES["bilstm_dwh_sum"] == 2
+    assert _build.LAUNCHES["bilstm_bwd"] == 0
+    rb = TL.bilstm_bwd_reference(*args, out[3], *cots)
+    for a, b, r in zip(k1, k2, rb):
+        assert torch.equal(a, b)
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(a.float(), r.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+    assert float(k1[0][2].abs().max()) == 0.0    # the all-padding row
