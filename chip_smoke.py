@@ -11,9 +11,13 @@ Phases (any failure raises, and the script exits non-zero):
 1. device: refuse to run without CUDA; print the card's name and power
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. build: compile the CUDA kernels from ``stair_tpu_torch/ops/csrc``;
-3. BiLSTM kernel vs its plain version at the slice's shapes (B = 1024,
-   h = 256; video L = 64 / D = 1024, question L = 16 / D = 300), with
-   non-suffix masks and an all-padding row, float32 and bf16;
+3. BiLSTM forward kernels vs their plain version at the slice's shapes (B
+   = 1024, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
+   with non-suffix masks and an all-padding row: float32 on the general
+   route, bf16 on the cluster route and the general route, and on both at
+   the batches whose tiles ``lstm.fwd_tile`` picks otherwise (the train
+   step's 128, the class table's 64, a ragged 125); two launches of each
+   with identical bits;
 4. executor kernel vs its plain version over the all-opcode program set at
    H = 512, both Filter modes and both temporal modes (F = 16 linear,
    F = 64 conv), float32 and bf16;
@@ -21,14 +25,16 @@ Phases (any failure raises, and the script exits non-zero):
    text 300, F = 64, 172 answers, bf16, B = 1024, the 128-program pool):
    native parse/lower with span linking, tokenization to ids, pinned H2D,
    device embedding gather, ``VideoNMN.forward``, logits fetch — for a few
-   batches, with launch counters proving both kernels ran, and kernel vs
-   plain route on one batch;
+   batches, with launch counters proving both kernels ran (the BiLSTM on
+   its cluster route, none on the general route), and kernel vs plain
+   route on one batch;
 6. BiLSTM training kernels (forward with state stacks, backward and its
    dwh/dbias reduction) vs their plain versions at the training shapes
    (B = 128, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
-   float32 and bf16, with holes and an all-padding row; the backward on
-   both of its routes (bf16: the cluster route and the general route;
-   float32: the general route), two runs of each with identical bits;
+   float32 and bf16, with holes and an all-padding row; the forward and
+   the backward each on both of their routes (bf16: the cluster route and
+   the general route; float32: the general route), the backward on the
+   cluster forward's stacks, two runs of each with identical bits;
 7. executor training kernels (forward with dropout 0.25, backward and its
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
@@ -39,12 +45,12 @@ Phases (any failure raises, and the script exits non-zero):
    (H = 512, video 1024, text 300, F = 64, 172 answers, 64 object types,
    bf16, dropout 0.25, B = 128, fake supervision, Adam at lr 2e-4 with the
    trainer's 1.0 -> 0.1 schedule): 10 steps on the kernel route with launch
-   counts per step (the BiLSTM backward on its cluster route, none on the
-   general route) and a falling loss, one step kernel vs plain route (the
+   counts per step (the BiLSTM forward and backward on their cluster
+   routes, none on the general routes) and a falling loss, one step kernel vs plain route (the
    loss in bf16; the gradients leaf by leaf in float32, where rounding
    sites agree), ms per step on both routes, and each training kernel's
-   time beside its plain version's at these shapes (the BiLSTM backward
-   also on its general route);
+   time beside its plain version's at these shapes (the BiLSTM forward and
+   backward also on their general routes);
 9. the attention kernel vs its plain version: B = 4, H = 32, D = 128 at
    L = 640 and a ragged L = 611 (strided views), grouped heads 32 / 8,
    D = 64 with mixed ``prefix_len``, non-causal with Lq != Lkv, a head_dim
@@ -134,13 +140,15 @@ HIDDEN, VIDEO_D, TEXT_D, FRAMES = 512, 1024, 300, 64
 TRAIN_BATCH = 128
 TRAIN_STEPS = 10
 #: per training step: video + question encoders through the train pair
-#: (the backward on its bf16 cluster route: walk, dwh slices, their sum;
-#: none on the general route), the class table through the eval kernel,
-#: one executor pair
-TRAIN_LAUNCHES = {"bilstm": 1, "bilstm_train": 2, "bilstm_bwd": 0,
-                  "bilstm_dwh": 0, "bilstm_bwd_tc": 2, "bilstm_dwh_tc": 2,
-                  "bilstm_dwh_sum": 2, "mega_exec": 0, "mega_exec_train": 1,
-                  "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
+#: (forward and backward on their bf16 cluster routes: the forward, the
+#: backward's walk, dwh slices and their sum; none on the general routes),
+#: the class table through the eval kernel's cluster route, one executor
+#: pair
+TRAIN_LAUNCHES = {"bilstm": 0, "bilstm_train": 0, "bilstm_tc": 1,
+                  "bilstm_train_tc": 2, "bilstm_bwd": 0, "bilstm_dwh": 0,
+                  "bilstm_bwd_tc": 2, "bilstm_dwh_tc": 2, "bilstm_dwh_sum": 2,
+                  "mega_exec": 0, "mega_exec_train": 1, "mega_exec_bwd": 1,
+                  "mega_exec_wgrad": 1}
 
 
 #: what an earlier phase measured and a later one prints beside its own
@@ -314,6 +322,26 @@ def plain_route():
 
 
 @contextlib.contextmanager
+def general_lstm_fwd():
+    """Send the BiLSTM forward (eval and training) through its general
+    route (``bilstm`` / ``bilstm_train``) whatever ``lstm.fwd_route``
+    picks."""
+    from stair_tpu_torch.ops import lstm as TL
+
+    pick = TL.fwd_route
+    TL.fwd_route = lambda dtype, h: "general"
+    try:
+        yield
+    finally:
+        TL.fwd_route = pick
+
+
+#: the BiLSTM forward's routes: name, launch-key suffix, context
+FWD_ROUTES = (("cluster", "_tc", contextlib.nullcontext),
+              ("general", "", general_lstm_fwd))
+
+
+@contextlib.contextmanager
 def general_lstm_bwd():
     """Send the BiLSTM backward through its general route
     (``bilstm_bwd`` + ``bilstm_dwh``) whatever ``lstm.bwd_route`` picks."""
@@ -358,27 +386,78 @@ def lstm_inputs(gen, dev, B, L, D, h, dtype):
     return TL._prep(p, x, mask.to(dev), mm)
 
 
+#: phase 3's BiLSTM cases: name, B, L, D. Serving's two encoders at B
+#: 1024, then the batches whose tiles ``lstm.fwd_tile`` picks otherwise:
+#: the train step's B 128, the class table's 64, a ragged B
+LSTM_CASES = (("video", BATCH, 64, 1024), ("question", BATCH, 16, 300),
+              ("video", TRAIN_BATCH, 64, 1024),
+              ("question", TRAIN_BATCH, 16, 300),
+              ("class table", 64, 16, 300), ("ragged", 125, 16, 300))
+
+
+def run_lstm_routes(dev, args, dtype, key, call, check):
+    """``call()`` on each of the BiLSTM forward's routes that takes
+    ``dtype`` (float32: the general route alone): twice, with identical
+    bits and two launches of ``key`` plus the route's suffix and none of
+    the other route's; ``check(route, out)`` holds each against the plain
+    version. Returns {route: (out, batch tile or None)}."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import lstm as TL
+
+    B, h = args[0].shape[0], args[0].shape[-1] // 4
+    outs = {}
+    for route, sfx, ctx in FWD_ROUTES:
+        if route != "general" and TL.fwd_route(dtype, h) != route:
+            continue
+        with ctx():
+            _build.reset_launches()
+            out, out2 = call(), call()
+            torch.cuda.synchronize()
+        other = key + ("" if sfx else "_tc")
+        require(_build.LAUNCHES[key + sfx] == 2
+                and _build.LAUNCHES[other] == 0,
+                f"{key} {route} route launches {_build.LAUNCHES}")
+        flat = [t for o in (out, out2) for t in (
+            (*o[:3], *o[3]) if len(o) == 4 else o)]
+        n = len(flat) // 2
+        require(all(torch.equal(x, y) for x, y in zip(flat[:n], flat[n:])),
+                f"{key} {route} route: two launches differ")
+        require(out[0][5].abs().max().item() == 0.0,
+                f"{key} {route} route: all-padding row has nonzero tokens")
+        check(route, out)
+        tile = (TL.fwd_tile(B, TL._clusters_held(dev, h))
+                if route == "cluster" else None)
+        outs[route] = (out, tile)
+    return outs
+
+
 def phase_lstm(dev):
     from stair_tpu_torch.ops import lstm as TL
 
     gen = torch.Generator().manual_seed(0)
     errs = {}
-    for name, L, D in (("video", 64, 1024), ("question", 16, 300)):
-        for dtype, tol in ((torch.float32, (1e-4, 1e-4)),
-                           (torch.bfloat16, (0.0, 2e-2))):
-            args = lstm_inputs(gen, dev, BATCH, L, D, 256, dtype)
-            out = TL.bilstm(*args, token_dtype=dtype)
-            torch.cuda.synchronize()
+    for name, B, L, D in LSTM_CASES:
+        dtypes = ((torch.float32, (1e-4, 1e-4)),) if B == BATCH else ()
+        for dtype, tol in dtypes + ((torch.bfloat16, (0.0, 2e-2)),):
+            args = lstm_inputs(gen, dev, B, L, D, 256, dtype)
             ref = TL.bilstm_reference(*args, token_dtype=dtype)
-            for o, r, what in zip(out, ref, ("tok_f", "tok_b", "sent")):
-                torch.testing.assert_close(o.float(), r.float(), rtol=tol[0],
-                                           atol=tol[1], msg=what)
-            require(out[0][5].abs().max().item() == 0.0,
-                    "all-padding row has nonzero tokens")
-            e = max_err(out, ref)
-            errs[(name, str(dtype))] = e
-            log(f"[lstm] {name} B={BATCH} L={L} D={D} h=256 {dtype}: "
-                f"max_abs_err {e:.3e} (rtol {tol[0]}, atol {tol[1]}) ok")
+
+            def check(route, out):
+                for o, r, what in zip(out, ref, ("tok_f", "tok_b", "sent")):
+                    torch.testing.assert_close(
+                        o.float(), r.float(), rtol=tol[0], atol=tol[1],
+                        msg=f"{name} B={B} {dtype} {route} route {what}")
+
+            outs = run_lstm_routes(
+                dev, args, dtype, "bilstm",
+                lambda: TL.bilstm(*args, token_dtype=dtype), check)
+            for route, (out, tile) in outs.items():
+                e = max_err(out, ref)
+                errs[(name, B, str(dtype), route)] = e
+                log(f"[lstm] {name} B={B} L={L} D={D} h=256 {dtype} {route} "
+                    f"route{f' (batch tile {tile})' if tile else ''}: "
+                    f"max_abs_err {e:.3e} (rtol {tol[0]}, atol {tol[1]}), "
+                    "two launches bit-identical ok")
     return errs
 
 
@@ -475,8 +554,10 @@ def phase_slice(dev, card):
         fetched.append(forward(device_batch(hb)).float().cpu())
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    require(launches["bilstm"] == 2 * NUM_BATCHES,
-            f"bilstm launches {launches['bilstm']} != {2 * NUM_BATCHES}")
+    require(launches["bilstm_tc"] == 2 * NUM_BATCHES
+            and launches["bilstm"] == 0,
+            f"bilstm_tc launches {launches['bilstm_tc']} != "
+            f"{2 * NUM_BATCHES} (general route {launches['bilstm']})")
     require(launches["mega_exec"] == NUM_BATCHES,
             f"mega_exec launches {launches['mega_exec']} != {NUM_BATCHES}")
     for lg in fetched:
@@ -489,14 +570,14 @@ def phase_slice(dev, card):
 
     # ---- kernel route vs plain route on one batch -------------------------
     b0 = device_batch(hb0)
-    with kernel_route(("bilstm", "mega_exec")):
+    with kernel_route(("bilstm_tc", "mega_exec")):
         kern = forward(b0).float()
     with plain_route():
         plain = forward(b0).float()
     torch.cuda.synchronize()
     agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
     require(agree >= 0.98, f"kernel/plain argmax agreement {agree}")
-    with kernel_route(("bilstm", "mega_exec")):
+    with kernel_route(("bilstm_tc", "mega_exec")):
         dev_ms = cuda_time_ms(lambda: forward(b0), iters=5, warmup=1)
     with plain_route():
         plain_dev_ms = cuda_time_ms(lambda: forward(b0), iters=3, warmup=1)
@@ -532,11 +613,18 @@ def phase_slice(dev, card):
     log(f"[main-path inputs] bilstm max_abs_err {lstm_err:.3e} (atol 2e-2); "
         f"mega_exec max_abs_err {mega_err:.3e} (rtol 1e-2, atol 3e-2) ok")
 
+    def both():
+        return (TL.bilstm(*vargs, token_dtype=dt),
+                TL.bilstm(*qargs, token_dtype=dt))
+
+    with general_lstm_fwd():
+        general_ms = cuda_time_ms(both, iters=3)
     t = {
         "bilstm_video": cuda_time_ms(lambda: TL.bilstm(*vargs,
                                                        token_dtype=dt)),
         "bilstm_question": cuda_time_ms(lambda: TL.bilstm(*qargs,
                                                           token_dtype=dt)),
+        "bilstm_general": general_ms,
         "bilstm_video_plain": cuda_time_ms(
             lambda: TL.bilstm_reference(*vargs, token_dtype=dt), iters=3),
         "bilstm_question_plain": cuda_time_ms(
@@ -558,12 +646,17 @@ def phase_slice(dev, card):
                    tensor_bytes(args, km), dt)
     log(f"[bound] bilstm {lstm_b}, nn.LSTM (full length, with its input "
         f"projection) {lstm_lib:.3f} ms; mega_exec {mega_b}; card {card}")
+    log(f"[kernel time] bilstm, both encoders: cluster route "
+        f"{t['bilstm_video'] + t['bilstm_question']:.4f} ms (batch tile "
+        f"{TL.fwd_tile(BATCH, TL._clusters_held(dev, 256))}), general route "
+        f"{general_ms:.4f} ms, nn.LSTM {lstm_lib:.4f} ms; card {card}")
     return [
         {"name": "bilstm", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/bilstm.cu",
          "replaces": "stair_tpu/ops/lstm.py:136",
-         "launches": launches["bilstm"], "max_abs_err": lstm_err,
+         "launches": launches["bilstm_tc"], "max_abs_err": lstm_err,
          "ms": t["bilstm_video"] + t["bilstm_question"],
+         "general_ms": general_ms,
          "plain_ms": t["bilstm_video_plain"] + t["bilstm_question_plain"],
          **lstm_b, "library_ms": lstm_lib},
         {"name": "mega_exec", "route": "cuda",
@@ -593,14 +686,24 @@ def phase_lstm_train(dev):
         for dtype, ftol, btol in ((torch.float32, 1e-4, 1e-4),
                                   (torch.bfloat16, 2e-2, 2e-2)):
             args = lstm_inputs(gen, dev, TRAIN_BATCH, L, D, HIDDEN // 2, dtype)
-            out = TL.bilstm_train_call(*args, token_dtype=dtype)
-            torch.cuda.synchronize()
             ref = TL.bilstm_reference(*args, token_dtype=dtype,
                                       return_stacks=True)
-            fwd = max(max_err(out[:3], ref[:3]), max_err(out[3], ref[3]))
-            require(fwd <= ftol, f"bilstm_train {name} {dtype}: {fwd}")
-            require(out[0][5].abs().max().item() == 0.0,
-                    "all-padding row has nonzero tokens")
+            fwd_errs = {}
+
+            def check(route, out):
+                fwd_errs[route] = max(max_err(out[:3], ref[:3]),
+                                      max_err(out[3], ref[3]))
+                require(fwd_errs[route] <= ftol,
+                        f"bilstm_train {name} {dtype} {route} route: "
+                        f"{fwd_errs[route]}")
+
+            outs = run_lstm_routes(
+                dev, args, dtype, "bilstm_train",
+                lambda: TL.bilstm_train_call(*args, token_dtype=dtype), check)
+            # the backward runs on the stacks of the route the main path
+            # takes (bf16: the cluster forward's)
+            out = outs[TL.fwd_route(dtype, HIDDEN // 2)][0]
+            fwd = max(fwd_errs.values())
             B, h = TRAIN_BATCH, HIDDEN // 2
             dtok = [torch.randn(B, L, h, generator=gen).to(dev, dtype)
                     for _ in range(2)]
@@ -628,8 +731,12 @@ def phase_lstm_train(dev):
                 require(worst <= btol,
                         f"bilstm_bwd {route} {name} {dtype}: {bwd}")
                 errs[(name, str(dtype), route)] = (fwd, max_err(kb, rb))
+                ferr = ", ".join(f"{k} route {v:.3e}"
+                                 for k, v in fwd_errs.items())
                 log(f"[lstm train] {name} B={B} L={L} D={D} h={h} {dtype}: "
-                    f"forward+stacks max_abs_err {fwd:.3e} (atol {ftol}); "
+                    f"forward+stacks max_abs_err {ferr} (atol {ftol}; batch "
+                    f"tile {outs[TL.fwd_route(dtype, h)][1]}; two launches "
+                    "of each bit-identical); "
                     f"backward on the {route} route ({key}) max rel err "
                     f"{worst:.3e} (bound {btol}: "
                     f"{', '.join(f'{k} {v:.2e}' for k, v in bwd.items())}); "
@@ -795,7 +902,7 @@ def phase_train(dev, card):
     # float32 takes the backward's general route (the exact one)
     keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
     keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
-        "bilstm_bwd", "bilstm_dwh")
+        "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh")
     model32 = W.build_model(NMNConfig(**{**cfg.to_dict(),
                                          "compute_dtype": "float32"}),
                             seed=0, device=dev)
@@ -882,6 +989,14 @@ def phase_train(dev, card):
     rbq = TL.bilstm_bwd_reference(*qargs, kq[3], *qcot)
     e_lb = max(max_err(kbv, rbv), max_err(kbq, rbq))
 
+    def general_fwd_ms():
+        """The two training-forward calls on the general route."""
+        with general_lstm_fwd():
+            return cuda_time_ms(
+                lambda: (TL.bilstm_train_call(*vargs, token_dtype=dt),
+                         TL.bilstm_train_call(*qargs, token_dtype=dt)),
+                iters=3)
+
     def general_bwd_ms():
         """The same two calls on the backward's general route (the
         kernels the cluster route replaced on the main path)."""
@@ -918,6 +1033,7 @@ def phase_train(dev, card):
         "bilstm_train": cuda_time_ms(
             lambda: (TL.bilstm_train_call(*vargs, token_dtype=dt),
                      TL.bilstm_train_call(*qargs, token_dtype=dt)), iters=5),
+        "bilstm_train_general": general_fwd_ms(),
         "bilstm_train_plain": cuda_time_ms(
             lambda: (TL.bilstm_reference(*vargs, token_dtype=dt,
                                          return_stacks=True),
@@ -973,13 +1089,15 @@ def phase_train(dev, card):
         {"name": "bilstm_train", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/bilstm.cu",
          "replaces": "stair_tpu/ops/lstm.py:583",
-         "launches": launches["bilstm_train"], "max_abs_err": e_lt,
-         "ms": t["bilstm_train"], "plain_ms": t["bilstm_train_plain"]},
+         "launches": launches["bilstm_train_tc"], "max_abs_err": e_lt,
+         "ms": t["bilstm_train"], "general_ms": t["bilstm_train_general"],
+         "plain_ms": t["bilstm_train_plain"]},
         {"name": "bilstm_bwd", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/bilstm.cu",
          "replaces": "stair_tpu/ops/lstm.py:390",
          "launches": launches["bilstm_bwd_tc"], "max_abs_err": e_lb,
-         "ms": t["bilstm_bwd"], "plain_ms": t["bilstm_bwd_plain"]},
+         "ms": t["bilstm_bwd"], "general_ms": t["bilstm_bwd_general"],
+         "plain_ms": t["bilstm_bwd_plain"]},
         {"name": "mega_exec_train", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
          "replaces": "stair_tpu/ops/mega_grad.py:1016",
@@ -1904,8 +2022,8 @@ def phase_step_slice(dev, card):
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     require(launches["executor_step"] == T * STEP_BATCHES
-            and launches["bilstm"] == 2 * STEP_BATCHES
-            and launches["mega_exec"] == 0,
+            and launches["bilstm_tc"] == 2 * STEP_BATCHES
+            and launches["bilstm"] == 0 and launches["mega_exec"] == 0,
             f"step route launches {launches} (T = {T})")
     for lg in fetched:
         require(lg.shape == (BATCH, cfg.answer_vocab_length)
@@ -1914,12 +2032,12 @@ def phase_step_slice(dev, card):
     log(f"[step slice] {STEP_BATCHES} batches x {BATCH} questions on "
         f"executor='step': {qps:.1f} q/s end to end (megakernel route "
         f"{SEEN['mega_qps']:.1f}), launches per batch: executor_step {T}, "
-        f"bilstm 2, mega_exec 0; card {card}")
+        f"bilstm_tc 2, bilstm 0, mega_exec 0; card {card}")
 
     # ---- against the megakernel route on one batch ------------------------
-    with kernel_route(("bilstm", "executor_step")):
+    with kernel_route(("bilstm_tc", "executor_step")):
         out = model(b0)
-    with kernel_route(("bilstm", "mega_exec")):
+    with kernel_route(("bilstm_tc", "mega_exec")):
         ref = mega(b0)
     agree = (out["logits"].argmax(-1) == ref["logits"].argmax(-1)
              ).float().mean().item()
@@ -2118,7 +2236,7 @@ def phase_rev_train(dev, card, slot_entries):
     log(f"[rev train] {TRAIN_STEPS} steps B={TRAIN_BATCH} on executor='rev' "
         f"(T = {T}): losses {[round(x, 4) for x in losses]}; launches per "
         f"step: slot_set {4 * T}, slot_zero {8 * T}, slot_add {7 * T}, "
-        f"bilstm_train 2, bilstm_bwd_tc 2, no megakernel; "
+        f"bilstm_train_tc 2, bilstm_bwd_tc 2, no megakernel; "
         f"{wall * 1e3 / TRAIN_STEPS:.3f} ms per step (host clock), "
         f"{k_ms:.3f} ms (CUDA events) beside the megakernel route's "
         f"{SEEN['mega_train_ms']:.3f} ms; card {card}")

@@ -13,8 +13,11 @@ Each C entry point takes device pointers and the CUDA stream as
 per kernel launch site, which each wrapper increments where it launches
 its kernel and nowhere else:
 
-- ``bilstm``, ``bilstm_train``: the BiLSTM forward, eval and training
-  (``csrc/bilstm.cu``);
+- ``bilstm``, ``bilstm_train``: the BiLSTM forward, eval and training,
+  on its general route (float32, and the shapes the cluster kernel
+  refuses; ``csrc/bilstm.cu``);
+- ``bilstm_tc``, ``bilstm_train_tc``: the BiLSTM forward, eval and
+  training, on its cluster route (bf16, the main path's);
 - ``bilstm_bwd``, ``bilstm_dwh``: its backward on the general route
   (float32, and the shapes the cluster kernel refuses), the reverse walk
   and the dwh/dbias reduction launch;
@@ -38,7 +41,7 @@ its kernel and nowhere else:
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` source, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``; the
-BiLSTM cluster route's ``TC_MAX_H`` in ``csrc/bilstm.cu``).
+BiLSTM cluster routes' ``TC_MAX_H`` and batch tiles in ``csrc/bilstm.cu``).
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ NVCC_FLAGS = [
 
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES = {
-    "bilstm": 0, "bilstm_train": 0, "bilstm_bwd": 0, "bilstm_dwh": 0,
+    "bilstm": 0, "bilstm_train": 0, "bilstm_tc": 0, "bilstm_train_tc": 0,
+    "bilstm_bwd": 0, "bilstm_dwh": 0,
     "bilstm_bwd_tc": 0, "bilstm_dwh_tc": 0, "bilstm_dwh_sum": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
     "mega_exec_wgrad": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
@@ -156,22 +160,7 @@ def build():
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
     U, Fl = ctypes.c_uint, ctypes.c_float
-    lib.stair_bilstm_fwd.restype = I
-    lib.stair_bilstm_fwd.argtypes = [
-        P, P, P, P, P, P, P,       # xp_f, xp_b, mask, wh_f, wh_b, bias_f/b
-        P, P, P,                   # tok_f, tok_b, sent
-        P,                         # state stacks (null in eval)
-        I, I, I, I,                # B, L, h, bf16
-        P,                         # stream
-    ]
-    for fn in (lib.stair_bilstm_bwd, lib.stair_bilstm_dwh):
-        fn.restype = I
-        fn.argtypes = [P, I, I, I, I, P]   # pointers, B, L, h, bf16, stream
-    for fn in (lib.stair_bilstm_bwd_tc, lib.stair_bilstm_dwh_tc):
-        fn.restype = I
-        fn.argtypes = [P, I, I, I, P]      # pointers, B, L, h, stream
-    lib.stair_bilstm_dwh_sum.restype = I
-    lib.stair_bilstm_dwh_sum.argtypes = [P, I, I, P]  # pointers, nb, h, stream
+    bind_bilstm(lib)
     lib.stair_mega_exec_fwd.restype = I
     lib.stair_mega_exec_fwd.argtypes = [
         P, I,                      # pointer table, its length
@@ -216,6 +205,36 @@ def build():
         fn.argtypes = [P, P, *val, I, I, Lg, I, P]
     _lib = lib
     return lib
+
+
+def bind_bilstm(lib):
+    """Set the argument types of the BiLSTM entry points of ``lib`` (the
+    whole library, or ``csrc/bilstm.cu`` built alone)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.stair_bilstm_fwd.restype = I
+    lib.stair_bilstm_fwd.argtypes = [
+        P, P, P, P, P, P, P,       # xp_f, xp_b, mask, wh_f, wh_b, bias_f/b
+        P, P, P,                   # tok_f, tok_b, sent
+        P,                         # state stacks (null in eval)
+        I, I, I, I,                # B, L, h, bf16
+        P,                         # stream
+    ]
+    lib.stair_bilstm_fwd_tc.restype = I
+    lib.stair_bilstm_fwd_tc.argtypes = [
+        P, P,                      # pointers, state stacks (null in eval)
+        I, I, I, I,                # B, L, h, batch tile
+        P,                         # stream
+    ]
+    for fn in (lib.stair_bilstm_bwd, lib.stair_bilstm_dwh):
+        fn.restype = I
+        fn.argtypes = [P, I, I, I, I, P]   # pointers, B, L, h, bf16, stream
+    for fn in (lib.stair_bilstm_bwd_tc, lib.stair_bilstm_dwh_tc):
+        fn.restype = I
+        fn.argtypes = [P, I, I, I, P]      # pointers, B, L, h, stream
+    lib.stair_bilstm_dwh_sum.restype = I
+    lib.stair_bilstm_dwh_sum.argtypes = [P, I, I, P]  # pointers, nb, h, stream
+    lib.stair_bilstm_fwd_tc_clusters.restype = I
+    lib.stair_bilstm_fwd_tc_clusters.argtypes = [I, I, P]  # h, tile, &out
 
 
 def check(err: int, name: str):

@@ -7,31 +7,74 @@
 // stacks as residuals). The backward replaces _bilstm_bwd_kernel, reached
 // through _backward_call. The input
 // projection xp = x @ wi is hoisted out (a plain matmul, ops/lstm.py
-// _prep); this kernel runs only the [Bt, h] @ [h, 4h] recurrent product and
-// the gate math, for both directions in one launch.
+// _prep); these kernels run only the [Bt, h] @ [h, 4h] recurrent product
+// and the gate math, for both directions in one launch. Training forward:
+// the same kernels also write the post-mask h and c of every step ([B, L,
+// h] float32 per direction, in position order for both directions), the
+// JAX kernel's residuals. Masked steps carry state; tokens are zeroed
+// there; the float32 final carries are the sentence feature. Both
+// directions write each token row at its original position (the backward
+// direction walks positions L-1 .. 0).
 //
-// Design. Grid (ceil(B / BT), 2): one block per tile of BT batch rows and
-// direction; the backward direction walks positions L-1 .. 0 and writes
-// each token row at its original position. The block keeps the carried h
-// and c of its BT rows in shared memory (float32), plus the matmul operand
-// h (rounded to wh's dtype, as the JAX kernel's h.astype(wh.dtype)) in a
+// Forward, two routes, picked by ops/lstm.py fwd_route before the launch.
+//
+// Cluster route (bf16, h a multiple of 64 up to TC_MAX_H; the main path's
+// h = 256): bilstm_fwd_tc_kernel<H, BT>. What bounds the general route
+// below is wh: [h, 4h], 512 KB per direction at h = 256, above one block's
+// 227 KB, streamed from L2 at every step through float32 FMA loops, about
+// 60 us a step whatever B. This route keeps wh on chip across a
+// thread-block cluster of TC_CLUSTER = 4 CTAs per (tile of BT batch rows,
+// direction): CTA c owns hidden units [c U, c U + U), U = h / 4, and their
+// four gate columns, and loads its [h, h] slice of wh into shared memory
+// once. One CTA fills an SM, and an H100 SXM holds 30 such clusters at
+// once (four SMs of one GPC each), not 132 / 4. A step's time grows with
+// BT (h 256, NVIDIA H100 80GB HBM3 at 700 W, scripts/bilstm_fwd_tiles.py:
+// about 2.4 us at BT 8, 5 us at BT 40, 11 us at BT 72, where registers
+// spill), so two waves of BT 40 beat one of BT 72 at B 1024 and the tiles
+// stop at FWD_BT_MAX = 40: lstm.fwd_tile picks the smallest BT (a
+// multiple of 8) whose 2 ceil(B / BT) clusters run in one wave, else BT
+// 40 (B 1024: BT 40 in two waves; B 128: BT 16 in one). Per step each
+// CTA:
+//  (a) forms rd(h_{t-1}) wh[:, cols] for its BT rows on the tensor cores
+//      (mma.sync m16n8k16, the batch rows as the n8 side, wh^T through
+//      ldmatrix .trans). A warp owns 8 units and all four of their gates
+//      (two m-tiles: i|f and g|o), so a thread's accumulators hold the
+//      four gates of its (row, unit) pairs; with at most 4 n-tiles a warp
+//      (BT up to 32), even and odd k-steps accumulate in two chains added
+//      at the end, rows_product's order, so the backward's recompute
+//      equals these gates; at BT 40 (serving's B 1024) registers allow
+//      one chain, and the two agree up to the order of the float32 sum;
+//  (b) swaps half the accumulators between lanes g and g ^ 1, so that a
+//      thread holds one row of two adjacent units (its xp loads, token and
+//      stack stores and operand writes are 32- or 64-bit), and runs the
+//      gate math at the JAX kernel's order ((xp + bias) + h wh) with
+//      sigmoid and tanh through __expf (within ~1e-6 of expf / tanhf). It
+//      keeps its carried h and c in registers, writes tokens (and stacks)
+//      and rd(h_t) of its units into its own operand buffer of parity t+1;
+//  (c) pushes those [BT, U] operands into its three peers' buffers of the
+//      same parity through distributed shared memory (a gather: no sum, so
+//      no order), and meets them at one cluster barrier. A buffer is
+//      written again two steps later, after every peer has passed the
+//      barrier between. Masked rows push their carried h; rows past B
+//      push zeros.
+// Each thread loads the next step's xp and mask into registers before the
+// push, so they land during the barrier and the next product. wh and the
+// operand buffers are unpadded with 16-byte chunks XOR-swizzled by row
+// (fwd_smem_bytes), so that an ldmatrix or a B fragment meets no bank
+// conflict. What stays: 80 dependent steps (64 video + 16 question), each
+// a chain of the product, the gate math, a CTA barrier and a cluster
+// barrier, with the work of a step serial within one CTA per SM; the
+// route stays far from the byte bound.
+//
+// General route (float32, the exact route, and the shapes the cluster
+// kernel refuses): bilstm_kernel. Grid (ceil(B / BT), 2): one block per
+// tile of BT = 8 batch rows and direction. The block keeps the carried h
+// and c of its rows in shared memory (float32), plus the matmul operand h
+// (rounded to wh's dtype, as the JAX kernel's h.astype(wh.dtype)) in a
 // ping-pong pair: threads read all of h_{t-1} from one buffer and write
 // h_t to the other, with one barrier per step. Each thread owns hidden
-// units j and computes their four gate dots; the weight columns j, j+h,
-// j+2h, j+3h are coalesced across threads. Masked steps carry state;
-// tokens are zeroed there; the float32 final carries are the sentence
-// feature.
-//
-// What bounds the forward on an H100: the 64-step (video) sequential
-// dependence, and wh — [h, 4h], 512 KB per direction in bf16 at h = 256 —
-// which is above one block's 227 KB of shared memory, so every block
-// streams it from L2 (50 MB) at every step. Gate dots run on the CUDA
-// cores in float32. The backward's cluster route below keeps wh on chip;
-// the forward gets the same design in a later change.
-//
-// Training forward: the same kernel also writes the post-mask h and c of
-// every step ([B, L, h] float32 per direction, in position order for both
-// directions), the JAX kernel's residuals.
+// units j and computes their four gate dots from wh in device memory; the
+// weight columns j, j+h, j+2h, j+3h are coalesced across threads.
 //
 // Backward, two routes. The sequential dependence of the adjoint walk is
 // only dh <- dh (1 - valid) + dgates wh^T (and dc's elementwise update);
@@ -57,9 +100,10 @@
 //      traffic (a pre-pass would write and read back a float32 [B, L, 4h]
 //      per direction, 64 MB for the video encoder), and its operands are
 //      loaded a step ahead into registers, so their latency hides behind
-//      the previous step. The gates equal the forward's up to the order of
-//      the float32 sum over h (the forward sums in its own FMA loop), not
-//      bit for bit;
+//      the previous step. The gates equal the cluster forward's: by
+//      construction where it runs two k chains (BT up to 32: the train
+//      step's BT 16), up to the order of the float32 sum at larger tiles
+//      and against the general forward's FMA loop;
 //  (b) runs the elementwise adjoint at the forward's summation order
 //      ((xp + bias) + h wh), writes dgates (rounded to xp's dtype) to dxp,
 //      and keeps its dbias sums, dh and dc in registers;
@@ -1014,6 +1058,336 @@ int launch_dwh_tc(void* const* p, int B, int L, int h, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Forward, cluster route (bf16, h a multiple of 64 up to TC_MAX_H)
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_BT_MIN = 8;    // batch tiles: the multiples of this
+constexpr int FWD_BT_MAX = 40;   // up to this (lstm.fwd_tile picks one)
+
+// Per-CTA shared memory of the cluster forward at hidden size h and batch
+// tile bt: the wh slice [h][h] and two operand buffers rd(h) [bt][h], bf16,
+// unpadded, swizzled. The tests mirror it (tests/test_torch_lstm.py).
+__host__ __device__ constexpr size_t fwd_smem_bytes(int h, int bt) {
+  return 2 * (size_t)h * h + 2 * 2 * (size_t)bt * h;
+}
+static_assert(fwd_smem_bytes(TC_MAX_H, FWD_BT_MAX) <= 232448,
+              "the cluster forward's largest tile does not fit one CTA");
+
+// Offset of element (row, col) in a [rows][H] bf16 tile whose 16-byte
+// chunks are XOR-swizzled by row: the 8 rows of an ldmatrix (or the 8
+// rows of a B fragment) fall in 8 different bank groups with no padding.
+template <int H>
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * H + (((col >> 3) ^ (row & 7)) << 3) + (col & 7);
+}
+
+// sigmoid and tanh through the fast exponential: within ~1e-6 of
+// sigmoid_f and tanhf, at a third of their instructions (the cluster
+// forward's gate math is on its critical path; bf16 route only).
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+}
+
+struct FwdTcArgs {
+  const __nv_bfloat16* xp[2];
+  const float* mask;
+  const __nv_bfloat16* wh[2];
+  const float* bias[2];
+  __nv_bfloat16* tok[2];
+  float* sent;
+  float* hst[2];   // null in eval
+  float* cst[2];
+  int B, L;
+};
+
+template <int H, int BT>
+__global__ void __cluster_dims__(TC_CLUSTER, 1, 1)
+    __launch_bounds__(TC_THREADS, 1)
+    bilstm_fwd_tc_kernel(const FwdTcArgs a) {
+  typedef __nv_bfloat16 T;
+  constexpr int U = H / TC_CLUSTER, G = 4 * H;
+  constexpr int NW = TC_THREADS / 32;
+  constexpr int UG = U / 8;                    // 8-unit groups of the CTA
+  static_assert(UG >= 1 && UG <= NW, "h out of the cluster route's range");
+  constexpr int RG = NW / UG;                  // warps per unit group
+  constexpr int NT = BT / 8;                   // n8 tiles of batch rows
+  constexpr int NTW = (NT + RG - 1) / RG;      // n-tiles per warp
+  constexpr int KCH = NTW <= 4 ? 2 : 1;        // k chains (registers)
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();    // owns units [c U, c U + U)
+  const int tile = blockIdx.x / TC_CLUSTER, dir = blockIdx.y;
+  const int B = a.B, L = a.L, b0 = tile * BT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // Warp w owns units ug 8 .. ug 8 + 7 (local) of n-tiles rg, rg + RG, ...
+  const int ug = warp % UG, rg = warp / UG;
+  const bool active = rg < RG;
+  // After the exchange of accumulators in (b), this thread owns row
+  // 2 t4 + odd of each of its n-tiles and the local units u0, u0 + 1.
+  const int odd = g & 1, u0 = ug * 8 + (g & ~1);
+  const T* xp = a.xp[dir];
+  T* tok = a.tok[dir];
+  float* hst = a.hst[dir];
+  float* cst = a.cst[dir];
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ws = reinterpret_cast<T*>(smem_raw);   // [H][H] wh[:, cols], swizzled
+  T* op = Ws + H * H;                       // [2][BT][H] rd(h), swizzled
+
+  // Local gate column n = gate U + u is global column gate H + c U + u.
+  for (int i = tid; i < H * H / 8; i += TC_THREADS) {
+    const int k = i / (H / 8), n8 = (i % (H / 8)) * 8;
+    cp_async16(Ws + swz<H>(k, n8),
+               a.wh[dir] + (size_t)k * G + (n8 / U) * H + c * U + n8 % U,
+               true);
+  }
+  cp_async_commit();
+  for (int i = tid; i < BT * H / 2; i += TC_THREADS)   // h_{-1} = 0
+    reinterpret_cast<uint32_t*>(op)[i] = 0u;
+
+  // Step s's xp (the four gates of units u0, u0 + 1, as bf16 pairs) and
+  // mask of this thread's rows, into registers a step ahead; zero past B.
+  uint32_t xv[NTW][4];
+  float mv[NTW];
+  auto load_step = [&](int s) {
+    const int t = dir ? L - 1 - s : s;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int b = b0 + (rg + RG * j) * 8 + 2 * t4 + odd;
+      const bool in = active && rg + RG * j < NT && b < B;
+      const uint32_t* x = reinterpret_cast<const uint32_t*>(
+          xp + ((size_t)b * L + t) * G + c * U + u0);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xv[j][q] = in ? __ldg(x + q * H / 2) : 0u;
+      mv[j] = in ? __ldg(a.mask + (size_t)b * L + t) : 0.f;
+    }
+  };
+  load_step(0);
+
+  float bias[2][4], hc[NTW][2], cc[NTW][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      bias[w][q] = a.bias[dir][q * H + c * U + u0 + w];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+    hc[j][0] = hc[j][1] = cc[j][0] = cc[j][1] = 0.f;
+  T* peer[TC_CLUSTER];   // peer[q]: the operand buffers of rank c + q
+#pragma unroll
+  for (int q = 1; q < TC_CLUSTER; ++q)
+    peer[q] = cluster.map_shared_rank(op, (c + q) % TC_CLUSTER);
+
+  // Every CTA of the cluster has started, holds its wh slice and zero
+  // h_{-1}, before any peer writes into it.
+  cp_async_wait<0>();
+  cluster_arrive();
+  cluster_wait();
+
+  const int lr = lane & 7, q1 = (lane >> 3) & 1, q2 = lane >> 4;
+  for (int s = 0; s < L; ++s) {
+    const int t = dir ? L - 1 - s : s;
+    const T* cur = op + (s & 1) * BT * H;           // rd(h_{t-1}), all units
+    T* nxt = op + ((s + 1) & 1) * BT * H;           // rd(h_t)
+    // (a) gates[row][gate U + unit] = rd(h_{t-1})[row] wh[:, cols]. Lanes
+    // 8q .. 8q + 7 address matrix q of the x4 load: q & 1 picks the gate
+    // of the upper 8 rows of A (m-tile m holds gates 2 m and 2 m + 1),
+    // q >> 1 the upper 8 columns (k).
+    float acc[2][NTW][KCH][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < KCH; ++e)
+          acc[m][j][e][0] = acc[m][j][e][1] = acc[m][j][e][2] =
+              acc[m][j][e][3] = 0.f;
+    if (active) {
+#pragma unroll
+      for (int k0 = 0; k0 < H; k0 += 16) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          ldmatrix_x4_trans(af[m], Ws + swz<H>(k0 + lr + q2 * 8,
+                                               (2 * m + q1) * U + ug * 8));
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int row = (rg + RG * j) * 8 + g;
+          if (row < BT) {
+            const uint32_t b0v = *reinterpret_cast<const uint32_t*>(
+                cur + swz<H>(row, k0 + 2 * t4));
+            const uint32_t b1v = *reinterpret_cast<const uint32_t*>(
+                cur + swz<H>(row, k0 + 8 + 2 * t4));
+            mma_bf16(acc[0][j][(k0 / 16) % KCH], af[0], b0v, b1v);
+            mma_bf16(acc[1][j][(k0 / 16) % KCH], af[1], b0v, b1v);
+          }
+        }
+      }
+      // (b) Accumulator i of m-tile m is gate 2 m + i / 2 of row 2 t4 +
+      // i % 2 and unit g. Lanes g and g ^ 1 (lane ^ 4) swap halves, so
+      // that a thread holds row 2 t4 + odd of units u0 and u0 + 1; then
+      // the gate math of those two pairs.
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int nt = rg + RG * j;
+        if (nt >= NT) break;
+        const int r = nt * 8 + 2 * t4 + odd, b = b0 + r;
+        float gate[2][4];   // [unit u0 + w][gate q]
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float r0 = acc[q / 2][j][0][(q % 2) * 2];       // row 2 t4
+          float r1 = acc[q / 2][j][0][(q % 2) * 2 + 1];   // row 2 t4 + 1
+          if constexpr (KCH == 2) {
+            r0 += acc[q / 2][j][1][(q % 2) * 2];
+            r1 += acc[q / 2][j][1][(q % 2) * 2 + 1];
+          }
+          const float mine = odd ? r1 : r0;
+          const float other = __shfl_xor_sync(0xffffffffu, odd ? r0 : r1, 4);
+          const __nv_bfloat162 x2 =
+              *reinterpret_cast<const __nv_bfloat162*>(&xv[j][q]);
+          gate[0][q] = (to_f(x2.x) + bias[0][q]) + (odd ? other : mine);
+          gate[1][q] = (to_f(x2.y) + bias[1][q]) + (odd ? mine : other);
+        }
+        const bool v = mv[j] > 0.f;
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const float ig = sigmoid_fast(gate[w][0]);
+          const float fg = sigmoid_fast(gate[w][1]);
+          const float gt = tanh_fast(gate[w][2]);
+          const float og = sigmoid_fast(gate[w][3]);
+          const float c_new = fg * cc[j][w] + ig * gt;
+          const float h_new = og * tanh_fast(c_new);
+          if (v) {
+            hc[j][w] = h_new;
+            cc[j][w] = c_new;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(nxt + swz<H>(r, c * U + u0)) =
+            pack_bf16(hc[j][0], hc[j][1]);
+        if (b < B) {
+          const size_t o = ((size_t)b * L + t) * H + c * U + u0;
+          *reinterpret_cast<uint32_t*>(tok + o) =
+              v ? pack_bf16(hc[j][0], hc[j][1]) : 0u;
+          if (hst != nullptr) {
+            *reinterpret_cast<float2*>(hst + o) =
+                make_float2(hc[j][0], hc[j][1]);
+            *reinterpret_cast<float2*>(cst + o) =
+                make_float2(cc[j][0], cc[j][1]);
+          }
+        }
+      }
+    }
+    if (s + 1 == L) break;
+    load_step(s + 1);         // lands during the exchange and the product
+    __syncthreads();          // this CTA's columns of rd(h_t) are written
+    // (c) Push them to the peers, chunk for chunk at the same swizzled
+    // offsets.
+    for (int i = tid; i < BT * (U / 8); i += TC_THREADS) {
+      const int off = swz<H>(i / (U / 8), c * U + (i % (U / 8)) * 8);
+      const uint4 v = *reinterpret_cast<const uint4*>(nxt + off);
+#pragma unroll
+      for (int q = 1; q < TC_CLUSTER; ++q)
+        *reinterpret_cast<uint4*>(peer[q] + ((s + 1) & 1) * BT * H + off) =
+            v;
+    }
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int nt = rg + RG * j;
+      if (nt >= NT) break;
+      const int b = b0 + nt * 8 + 2 * t4 + odd;
+      if (b < B)
+        *reinterpret_cast<float2*>(a.sent + (size_t)b * 2 * H + dir * H +
+                                   c * U + u0) =
+            make_float2(hc[j][0], hc[j][1]);
+    }
+  }
+  // No CTA leaves while a peer may still reach its shared memory.
+  cluster.sync();
+}
+
+// With a != null: launch on a's batch; else write to *clusters how many
+// clusters of four such CTAs the card holds at once.
+template <int H, int BT>
+int fwd_tc_hb(const FwdTcArgs* a, int* clusters, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes(H, BT);
+  cudaError_t e = cudaFuncSetAttribute(
+      bilstm_fwd_tc_kernel<H, BT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // Once per (size, tile) before a launch: can one cluster be resident?
+  static bool checked = false;
+  if (a == nullptr || !checked) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(TC_CLUSTER, 2);
+    cfg.blockDim = dim3(TC_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(
+        &n, (void*)bilstm_fwd_tc_kernel<H, BT>, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (a == nullptr) {
+      *clusters = n;
+      return 0;
+    }
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    checked = true;
+  }
+  const dim3 grid(((a->B + BT - 1) / BT) * TC_CLUSTER, 2);
+  bilstm_fwd_tc_kernel<H, BT><<<grid, TC_THREADS, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// fwd_tc_hb<H, bt> for a runtime bt, a multiple of FWD_BT_MIN up to
+// FWD_BT_MAX.
+template <int H, int BT = FWD_BT_MIN>
+int fwd_tc_h(const FwdTcArgs* a, int bt, int* clusters, cudaStream_t s) {
+  if (bt == BT) return fwd_tc_hb<H, BT>(a, clusters, s);
+  if constexpr (BT < FWD_BT_MAX)
+    return fwd_tc_h<H, BT + FWD_BT_MIN>(a, bt, clusters, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int fwd_tc(const FwdTcArgs* a, int h, int bt, int* clusters,
+           cudaStream_t s) {
+  switch (h) {   // h a multiple of 64 up to TC_MAX_H
+    case 64: return fwd_tc_h<64>(a, bt, clusters, s);
+    case 128: return fwd_tc_h<128>(a, bt, clusters, s);
+    case 192: return fwd_tc_h<192>(a, bt, clusters, s);
+    case 256: return fwd_tc_h<256>(a, bt, clusters, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_fwd_tc(void* const* p, void* const* st, int B, int L, int h,
+                  int bt, cudaStream_t stream) {
+  typedef __nv_bfloat16 T;
+  FwdTcArgs a;
+  for (int d = 0; d < 2; ++d) {
+    a.xp[d] = (const T*)p[0 + d];
+    a.wh[d] = (const T*)p[3 + d];
+    a.bias[d] = (const float*)p[5 + d];
+    a.tok[d] = (T*)p[7 + d];
+    a.hst[d] = st ? (float*)st[2 * d] : nullptr;
+    a.cst[d] = st ? (float*)st[2 * d + 1] : nullptr;
+  }
+  a.mask = (const float*)p[2];
+  a.sent = (float*)p[9];
+  a.B = B;
+  a.L = L;
+  return fwd_tc(&a, h, bt, nullptr, stream);
+}
+
 }  // namespace
 
 // xp_f/xp_b [B, L, 4h], mask [B, L] f32, wh_f/wh_b [h, 4h], bias [4h] f32
@@ -1035,6 +1409,23 @@ extern "C" int stair_bilstm_fwd(const void* xp_f, const void* xp_b,
                                  tok_f, tok_b, sent, s, B, L, h, st);
   return launch<float>(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, tok_f,
                        tok_b, sent, s, B, L, h, st);
+}
+
+// The forward's cluster route (bf16 only; h a multiple of 64 up to
+// TC_MAX_H; bt a multiple of FWD_BT_MIN up to FWD_BT_MAX). ptrs: xp_f,
+// xp_b, mask, wh_f, wh_b, bias_f, bias_b, tok_f, tok_b, sent as
+// stair_bilstm_fwd's; stacks null (eval) or its four float32 stacks.
+// Returns cudaGetLastError() after the launch.
+extern "C" int stair_bilstm_fwd_tc(void* const* ptrs, void* const* stacks,
+                                   int B, int L, int h, int bt,
+                                   void* stream) {
+  return launch_fwd_tc(ptrs, stacks, B, L, h, bt, (cudaStream_t)stream);
+}
+
+// How many clusters of the forward's cluster route (hidden size h, batch
+// tile bt) the card holds at once, into *clusters. Returns a cudaError_t.
+extern "C" int stair_bilstm_fwd_tc_clusters(int h, int bt, int* clusters) {
+  return fwd_tc(nullptr, h, bt, clusters, 0);
 }
 
 // ptrs: xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, h_f, c_f, h_b, c_b

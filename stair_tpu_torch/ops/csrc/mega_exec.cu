@@ -511,12 +511,17 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
         for (int k = lane; k < H; k += 32) s += y[k];
         const float mu = warp_sum(s) / H;
         float s2 = 0.f;
-        for (int k = lane; k < H; k += 32) s2 += (y[k] - mu) * (y[k] - mu);
+        // as the plain version and the TPU kernel: the square and the
+        // last product rounded on their own (no contraction into an
+        // FMA), rsqrt (the backward's recompute in mega_grad.cu too)
+        for (int k = lane; k < H; k += 32)
+          s2 += __fmul_rn(y[k] - mu, y[k] - mu);
         const float var = warp_sum(s2) / H;
-        const float inv = 1.0f / sqrtf(var + 1e-5f);
+        const float inv = rsqrtf(var + 1e-5f);
         for (int k = lane; k < H; k += 32)
           fout[(size_t)f * H + k] = from_f<T>(
-              (y[k] - mu) * inv * to_f(a.lns[k]) + to_f(a.lnb[k]));
+              __fmul_rn((y[k] - mu) * inv, to_f(a.lns[k])) +
+              to_f(a.lnb[k]));
       }
       for (int f = tid; f < F; f += THREADS)
         ra[(size_t)out_ab * F + f] = from_f<T>(sm.f3[f]);

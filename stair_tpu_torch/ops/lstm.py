@@ -9,10 +9,15 @@ sentence feature. Gate layout is torch's ``[i, f, g, o]``.
 
 ``bilstm`` is the kernel wrapper: for CPU tensors it runs
 ``bilstm_reference`` (the plain recurrence); for CUDA tensors it launches
-the hand-written kernel ``csrc/bilstm.cu`` or raises.
+the hand-written kernel of the route ``fwd_route`` picks in
+``csrc/bilstm.cu`` (the cluster route ``bilstm_tc`` for bf16 at the main
+path's shapes, on a batch tile ``fwd_tile`` picks from B and how many
+clusters the card holds; the general route ``bilstm`` otherwise) or
+raises.
 
 Training: ``bilstm_train_call`` is the forward that also returns the
-float32 post-mask h/c state stacks, ``bilstm_bwd_call`` the backward over
+float32 post-mask h/c state stacks (on the same two routes:
+``bilstm_train_tc``, ``bilstm_train``), ``bilstm_bwd_call`` the backward over
 them (plain ``bilstm_bwd_reference``, an explicit adjoint recurrence, on
 the CPU; on the card the kernels of the route ``bwd_route`` picks: the
 cluster route ``bilstm_bwd_tc`` + ``bilstm_dwh_tc`` + ``bilstm_dwh_sum``
@@ -27,6 +32,7 @@ gradients.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -159,6 +165,8 @@ def _check_kernel_args(name, xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b,
 
 
 def _launch_fwd(key, args, token_dtype, stacks):
+    """Launch the forward on the route ``fwd_route`` picks: the cluster
+    kernel (launch key ``key + "_tc"``) or the general one (``key``)."""
     xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b = args
     dev = xp_f.device
     B, L, h = _check_kernel_args(key, *args, token_dtype,
@@ -172,14 +180,20 @@ def _launch_fwd(key, args, token_dtype, stacks):
     if B == 0 or L == 0:
         return tok_f, tok_b, sent, st
     lib = _build.build()
-    ptrs = _build.pointers(st) if stacks else None
-    err = lib.stair_bilstm_fwd(
-        xp_f.data_ptr(), xp_b.data_ptr(), mask.data_ptr(),
-        wh_f.data_ptr(), wh_b.data_ptr(), bias_f.data_ptr(),
-        bias_b.data_ptr(), tok_f.data_ptr(), tok_b.data_ptr(),
-        sent.data_ptr(), ptrs, B, L, h, int(dt == torch.bfloat16),
-        _build.stream_ptr(dev),
-    )
+    sptrs = _build.pointers(st) if stacks else None
+    stream = _build.stream_ptr(dev)
+    if fwd_route(dt, h) == "cluster":
+        key += "_tc"
+        err = lib.stair_bilstm_fwd_tc(
+            _build.pointers((*args, tok_f, tok_b, sent)), sptrs, B, L, h,
+            fwd_tile(B, _clusters_held(dev, h)), stream)
+    else:
+        err = lib.stair_bilstm_fwd(
+            xp_f.data_ptr(), xp_b.data_ptr(), mask.data_ptr(),
+            wh_f.data_ptr(), wh_b.data_ptr(), bias_f.data_ptr(),
+            bias_b.data_ptr(), tok_f.data_ptr(), tok_b.data_ptr(),
+            sent.data_ptr(), sptrs, B, L, h, int(dt == torch.bfloat16),
+            stream)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
     return tok_f, tok_b, sent, st
@@ -203,8 +217,8 @@ def bilstm_train_call(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b,
                       token_dtype=torch.float32):
     """Training forward (TPU kernel #2): ``bilstm``'s outputs plus the
     float32 post-mask state stacks ``(h_f, c_f, h_b, c_b)``, each ``[B, L,
-    h]`` in position order. Plain version on CPU, the kernel on the card
-    (h <= 512)."""
+    h]`` in position order. Plain version on CPU, the kernel of
+    ``fwd_route`` on the card (h <= 512)."""
     if _build.on_cpu("bilstm_train", xp_f):
         return bilstm_reference(xp_f, xp_b, mask, wh_f, wh_b, bias_f,
                                 bias_b, token_dtype, return_stacks=True)
@@ -270,8 +284,53 @@ def bilstm_bwd_reference(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b,
 
 @functools.lru_cache(maxsize=None)
 def _consts():
-    """The backward kernels' sizes, from ``csrc/bilstm.cu``."""
+    """The kernels' sizes and limits, from ``csrc/bilstm.cu``."""
     return _build.header_ints("bilstm.cu")
+
+
+def _cluster_route(dtype, h) -> str:
+    if (dtype == torch.bfloat16 and h % 64 == 0
+            and 64 <= h <= _consts()["TC_MAX_H"]):
+        return "cluster"
+    return "general"
+
+
+def fwd_route(dtype, h) -> str:
+    """The forward's kernel route (eval and training) for xp and wh of
+    ``dtype`` at hidden size ``h``, chosen before any launch: ``"cluster"``
+    (``bilstm_tc`` / ``bilstm_train_tc``: bf16, h a multiple of 64 up to
+    ``TC_MAX_H``) or ``"general"`` (``bilstm`` / ``bilstm_train``: float32,
+    the exact route, and every other h the wrapper takes)."""
+    return _cluster_route(dtype, h)
+
+
+def fwd_tile(B, clusters) -> int:
+    """The cluster forward's batch tile for ``B`` rows on a card that holds
+    ``clusters`` of its clusters at once (30 on an H100 SXM: one CTA per
+    SM, four SMs of one GPC per cluster): the smallest multiple of
+    ``FWD_BT_MIN`` up to ``FWD_BT_MAX`` whose grid (2 directions x
+    ``ceil(B / tile)`` clusters) runs in one wave, else ``FWD_BT_MAX``.
+    A step takes longer the larger the tile (``csrc/bilstm.cu``), so the
+    smallest tile that needs no second wave wins, and above ``FWD_BT_MAX``
+    a tile loses to two waves of it (B 1024 takes 40 in two waves, B 128
+    16 in one)."""
+    c = _consts()
+    bt = c["FWD_BT_MIN"]
+    while bt < c["FWD_BT_MAX"] and 2 * -(-B // bt) > clusters:
+        bt += c["FWD_BT_MIN"]
+    return bt
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(dev, h) -> int:
+    """How many clusters of the forward's cluster route at hidden size
+    ``h`` (largest tile) the card ``dev`` holds at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.check(_build.build().stair_bilstm_fwd_tc_clusters(
+            h, _consts()["FWD_BT_MAX"], ctypes.byref(n)),
+            "bilstm_fwd_tc_clusters")
+    return n.value
 
 
 def bwd_route(dtype, h) -> str:
@@ -279,10 +338,7 @@ def bwd_route(dtype, h) -> str:
     ``h``, chosen before any launch: ``"cluster"`` (``bilstm_bwd_tc``: bf16,
     h a multiple of 64 up to ``TC_MAX_H``) or ``"general"`` (``bilstm_bwd``:
     float32, the exact route, and every other h the wrapper takes)."""
-    if (dtype == torch.bfloat16 and h % 64 == 0
-            and 64 <= h <= _consts()["TC_MAX_H"]):
-        return "cluster"
-    return "general"
+    return _cluster_route(dtype, h)
 
 
 def bilstm_bwd_call(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, stacks,

@@ -6,13 +6,16 @@ the JAX package's ``jax.vmap(bilstm)`` (the scan) and against
 interpreter) on the same numpy inputs and weights: float32 at rtol/atol
 2e-5, bf16 matmuls at 2e-2 (as tests/test_lstm_pallas.py). Masks need not
 be a suffix, and an all-padding row gives zero tokens and a zero sentence.
-The CUDA kernel is held against the plain version on the card.
+The CUDA kernels are held against the plain version on the card; the
+forward's route and batch-tile choice and the cluster kernel's shared
+memory are checked on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from stair_tpu_torch.ops import _build
 from stair_tpu_torch.ops import lstm as TL
 from stair_tpu_torch.weights import params_from_numpy
 from torch_port_util import cuda_device, to_numpy_tree  # noqa: F401
@@ -140,3 +143,116 @@ def test_bilstm_kernel_vs_plain_on_card(cuda_device, dtype):
     for a, b in zip(out, ref):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
     assert out[0][3].abs().max().item() == 0.0
+
+
+# The forward's route, chosen before any launch: the cluster kernel takes
+# bf16 at h a multiple of 64 up to TC_MAX_H (the main path's h = 256), the
+# general kernel everything else (float32 always: it is the exact route).
+FWD_ROUTE_CASES = [
+    (torch.float32, 16, "general"), (torch.float32, 64, "general"),
+    (torch.float32, 256, "general"), (torch.float32, 1024, "general"),
+    (torch.bfloat16, 16, "general"), (torch.bfloat16, 64, "cluster"),
+    (torch.bfloat16, 100, "general"), (torch.bfloat16, 128, "cluster"),
+    (torch.bfloat16, 192, "cluster"), (torch.bfloat16, 256, "cluster"),
+    (torch.bfloat16, 320, "general"), (torch.bfloat16, 1024, "general"),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,h,route", FWD_ROUTE_CASES,
+    ids=[f"{str(d)[6:]}-h{h}" for d, h, _ in FWD_ROUTE_CASES])
+def test_bilstm_fwd_route_choice(dtype, h, route):
+    assert TL.fwd_route(dtype, h) == route
+
+
+# B, clusters the card holds, the tile: an H100 SXM holds 30 clusters of
+# four one-CTA-per-SM blocks (132 SMs). The train step's B 128 runs in one
+# wave (2 directions x ceil(B / tile) <= 30) on the smallest such tile; a
+# batch no tile up to FWD_BT_MAX = 40 fits in one wave, serving's B 1024
+# among them, takes 40 (on the card two waves of 40 beat one of 72).
+TILE_CASES = [(1, 30, 8), (64, 30, 8), (120, 30, 8), (125, 30, 16),
+              (128, 30, 16), (600, 30, 40), (1024, 30, 40), (1440, 30, 40),
+              (4096, 30, 40), (1024, 16, 40), (128, 64, 8)]
+
+
+@pytest.mark.parametrize("B,clusters,tile", TILE_CASES,
+                         ids=[f"B{b}-c{c}" for b, c, _ in TILE_CASES])
+def test_bilstm_fwd_tile_choice(B, clusters, tile):
+    c = _build.header_ints("bilstm.cu")
+    got = TL.fwd_tile(B, clusters)
+    assert got == tile
+    assert got % c["FWD_BT_MIN"] == 0 and got <= c["FWD_BT_MAX"]
+    waves = -(-2 * -(-B // got) // clusters)
+    if got < c["FWD_BT_MAX"]:   # one wave, and no smaller tile gives one
+        assert waves == 1
+        smaller = got - c["FWD_BT_MIN"]
+        assert smaller == 0 or 2 * -(-B // smaller) > clusters
+
+
+def _fwd_smem_bytes(h, bt):
+    """Per-CTA shared memory of the cluster forward, as ``csrc/bilstm.cu
+    fwd_smem_bytes`` computes it: the ``[h, h]`` wh slice and two ``[bt,
+    h]`` operand buffers, bf16, unpadded."""
+    return 2 * h * h + 2 * 2 * bt * h
+
+
+@pytest.mark.parametrize("h", [64, 128, 192, 256])
+def test_bilstm_fwd_cluster_smem_fits_one_cta(h):
+    """Every (h, tile) the cluster forward is compiled for fits the 232,448
+    bytes a block may use."""
+    c = _build.header_ints("bilstm.cu")
+    assert TL.fwd_route(torch.bfloat16, h) == "cluster"
+    for bt in range(c["FWD_BT_MIN"], c["FWD_BT_MAX"] + 1, c["FWD_BT_MIN"]):
+        assert _fwd_smem_bytes(h, bt) <= 232448, bt
+
+
+# name, B, L, D: the main paths' encoders (serving's B 1024, the train
+# step's B 128), the class table's B 64, and a ragged B
+FWD_CLUSTER_CASES = [("video-serving", 1024, 64, 1024),
+                     ("question-serving", 1024, 16, 300),
+                     ("video-train", 128, 64, 1024),
+                     ("question-train", 128, 16, 300),
+                     ("class-table", 64, 16, 300), ("ragged-B", 125, 20, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FWD_CLUSTER_CASES,
+                         ids=[c[0] for c in FWD_CLUSTER_CASES])
+def test_bilstm_fwd_cluster_kernel_vs_plain_on_card(cuda_device, case):
+    """The cluster forward at h 256 in bf16, eval and training, against the
+    plain recurrence (tokens, sentence and stacks within 2e-2), with holes
+    and an all-padding row; two launches give the same bits; only its
+    launch keys count; then the cluster backward on its stacks against the
+    plain backward (2e-2 of each gradient's largest value)."""
+    _, B, L, D = case
+    h, dt = 256, torch.bfloat16
+    gen = torch.Generator().manual_seed(12)
+    x, mask = _data(B, L, D, seed=B + L, holes=True, empty_row=3)
+    p = TL.init_lstm_params(gen, D, h, device=cuda_device)
+    args = TL._prep(p, torch.from_numpy(x).to(cuda_device),
+                    torch.from_numpy(mask).to(cuda_device), dt)
+    _build.reset_launches()
+    ev1, ev2 = (TL.bilstm(*args, token_dtype=dt) for _ in range(2))
+    tr1, tr2 = (TL.bilstm_train_call(*args, token_dtype=dt)
+                for _ in range(2))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bilstm_tc"] == 2
+    assert _build.LAUNCHES["bilstm_train_tc"] == 2
+    assert _build.LAUNCHES["bilstm"] == _build.LAUNCHES["bilstm_train"] == 0
+    ref = TL.bilstm_reference(*args, token_dtype=dt, return_stacks=True)
+    for got, again in ((ev1, ev2), (tr1[:3] + tr1[3], tr2[:3] + tr2[3])):
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+    for a, b in zip(ev1 + tr1[:3] + tr1[3], ref[:3] + ref[:3] + ref[3]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert float(ev1[0][3].abs().max()) == 0.0   # the all-padding row
+    cots = [torch.randn(B, L, h, generator=gen).to(cuda_device, dt)
+            for _ in range(2)] + [torch.randn(B, 2 * h, generator=gen)
+                                  .to(cuda_device)]
+    kb = TL.bilstm_bwd_call(*args, tr1[3], *cots)
+    rb = TL.bilstm_bwd_reference(*args, tr1[3], *cots)
+    for a, r in zip(kb, rb):
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(a.float(), r.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
