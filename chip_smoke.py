@@ -74,9 +74,12 @@ Phases (any failure raises, and the script exits non-zero):
    the mask cases of phase 9 plus grouped heads with one kv head and D = 32,
    float32 (within 2e-4 of each gradient's largest value) and bf16 (within
    2e-2), on strided q/k/v and a non-contiguous dO: identical bits on a
-   second launch, padding rows exactly 0, no NaN at ``valid_len`` 0; then
-   their times at the SFT step's shape beside the plain version's and
-   autograd through ``scaled_dot_product_attention`` (a yardstick only);
+   second launch, padding rows exactly 0, no NaN at ``valid_len`` 0, the
+   ``di`` that the dQ launch writes against the plain version's (1e-5 of
+   each row's sum of |O dO|, 0 on padding rows), and exactly two CUDA
+   launches in one backward (``torch.profiler``'s device events); the
+   build's ptxas lines for every kernel, with no spill allowed in the
+   backward's tensor-core kernels;
 12. the SFT train step at full width: phase 10's Llama-7B in bf16 with the
    projector alone tuned (in float32), batch 8 x 512 tokens with ragged
    ``valid_len``, through ``videochat_train.make_sft_step``: a finite loss
@@ -84,7 +87,11 @@ Phases (any failure raises, and the script exits non-zero):
    step, ms per step and peak memory without remat and with
    ``remat='full'``; then at 2 decoder layers of full width every gradient
    leaf of the kernel route against the plain route in float32, and the
-   bf16 loss of both routes;
+   bf16 loss of both routes; on the step's own q, k, v the backward
+   kernels against their plain version, and their times (each kernel and
+   the whole backward, ``di`` included, by CUDA-graph replay) beside the
+   plain version's and autograd through ``scaled_dot_product_attention``
+   (a yardstick only);
 13. both trainers as entry points on the card at their CLI defaults, on
    seeded tiny data: ``videochat_train.main`` then ``videochat_infer`` on
    the checkpoint it saved; ``with_video_lm.main`` for the GPT-2 family
@@ -247,22 +254,11 @@ def lstm_library_ms(B, L, D, h, dev, dtype, train=False):
 
 
 def graph_ms(fn, iters=20):
-    """Device milliseconds per call of ``fn``: ``iters`` calls captured in
-    one CUDA graph and replayed, so that no host time sits between the
-    launches (at the main path's shapes the attention wrapper's Python
-    takes longer than its kernel, and back-to-back calls time the host)."""
-    from stair_tpu_torch.utils.device import cuda_time_ms
+    """Device milliseconds per call of ``fn`` by CUDA-graph replay
+    (``utils.device.graph_ms``)."""
+    from stair_tpu_torch.utils import device
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):      # warm-up outside the capture
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(iters):
-            fn()
-    return cuda_time_ms(graph.replay, iters=5, warmup=2) / iters
+    return device.graph_ms(fn, iters)
 
 
 def require(cond, msg):
@@ -1410,9 +1406,10 @@ def phase_videochat(dev, card):
 def attention_bwd_bounds(q, k, v, valid_len, prefix_len, causal=True):
     """The two backward kernels on these inputs. dQ: three products per
     live (row, column) pair and head (``Q K^T``, ``dO V^T``, ``dS K``), 6 D
-    operations; q, dO, k, v rows below ``valid_len``, lse and di read, dQ
-    written. dK/dV: four products (the first two again, ``P^T dO``, ``dS^T
-    Q``), 8 D operations; the same reads, dK and dV written."""
+    operations; q, O, dO, k, v rows below ``valid_len`` and lse read, dQ
+    and di written. dK/dV: four products (the first two again, ``P^T dO``,
+    ``dS^T Q``), 8 D operations; q, dO, k, v rows below ``valid_len``, lse
+    and di read, dK and dV written."""
     from stair_tpu_torch.ops.attention import attention_mask
 
     B, H, Lq, D = q.shape
@@ -1422,10 +1419,54 @@ def attention_bwd_bounds(q, k, v, valid_len, prefix_len, causal=True):
     rows_q = float(valid_len.clamp(max=Lq).sum())
     rows_kv = float(valid_len.clamp(max=Lkv).sum())
     es = q.element_size()
-    reads = es * D * (2 * H * rows_q + 2 * Hkv * rows_kv) + 8 * B * H * Lq
-    return (bound(6.0 * D * H * pairs, reads + es * D * B * H * Lq, q.dtype),
-            bound(8.0 * D * H * pairs, reads + 2 * es * D * B * Hkv * Lkv,
-                  q.dtype))
+    reads = es * D * (2 * H * rows_q + 2 * Hkv * rows_kv) + 4 * B * H * Lq
+    stat = 4 * B * H * Lq                       # di, written then read
+    return (bound(6.0 * D * H * pairs,
+                  reads + es * D * H * rows_q + es * D * B * H * Lq + stat,
+                  q.dtype),
+            bound(8.0 * D * H * pairs,
+                  reads + stat + 2 * es * D * B * Hkv * Lkv, q.dtype))
+
+
+def check_di(TA, q, k, v, out, lse, dout, pl, vl, causal, scale, valid):
+    """``di`` as the dQ launch writes it against ``reference_di``: within
+    1e-5 of each live row's ``sum |f32(O) f32(dO)|`` (float32 sums in
+    another order), exactly 0 on padding rows. Returns the largest
+    relative error."""
+    args, _, keep = TA._backward_args(q, k, v, out, lse, dout, pl, vl,
+                                      causal, scale)
+    TA._launch_dq(args, q.device)
+    want = TA.reference_di(out, dout, vl)
+    scale_ = TA.reference_di(out.float().abs(), dout.float().abs(), vl)
+    got = keep["di"]
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), "di not finite")
+    rel = float(((got - want).abs() / scale_.clamp(min=1e-30)).max())
+    require(rel <= 1e-5, f"di of the dQ launch: {rel} of its row's scale")
+    for b, n in enumerate(valid):
+        require(float(got[b, :, n:].abs().sum()) == 0.0,
+                "di not 0 on padding rows")
+    return rel
+
+
+def backward_launches(TA, q, k, v, out, lse, dout, pl, vl, causal, scale):
+    """CUDA launches (kernels, copies, fills) of one ``_launch_backward``
+    call, from ``torch.profiler``'s device events; fails unless they are
+    exactly the dQ and the dK/dV kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TA._launch_backward(q, k, v, out, lse, dout, pl, vl, causal, scale)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(len(names) == 2 and "flash_bwd_dq" in names[0]
+            and "flash_bwd_dkv" in names[1],
+            f"one attention backward launched {names}")
+    return len(names)
 
 
 def phase_attention_bwd(dev, card):
@@ -1478,6 +1519,10 @@ def phase_attention_bwd(dev, card):
                                                vl, causal, scale)
             require(not any(_build.LAUNCHES.values()),
                     "the plain backward launched a kernel")
+            di_err = check_di(TA, q, k, v, out, lse, dout, pl, vl, causal,
+                              scale, valid)
+            n_launch = backward_launches(TA, q, k, v, out, lse, dout, pl, vl,
+                                         causal, scale)
             errs = []
             for g, g2, w, n_rows in zip(got, again, want, (Lq, Lkv, Lkv)):
                 require(torch.equal(g, g2),
@@ -1498,7 +1543,9 @@ def phase_attention_bwd(dev, card):
             log(f"[flash_attn_bwd] {name} B={B} H={H}/{Hkv} L={Lq}/{Lkv} "
                 f"D={D} {dtype}: max|a-b|/max|b| dq {errs[0]:.3e} dk "
                 f"{errs[1]:.3e} dv {errs[2]:.3e} (bound {tol}), same bits "
-                "twice, padding rows 0 ok")
+                f"twice, padding rows 0 ok; di from the dQ launch "
+                f"{di_err:.3e} of its row's sum |O dO| (bound 1e-5), 0 on "
+                f"padding rows; {n_launch} CUDA launches in one backward")
 
 
 def sft_attention_entries(dev, card, model, batch, launches):
@@ -1553,14 +1600,15 @@ def sft_attention_entries(dev, card, model, batch, launches):
         with torch.no_grad():
             sdpa(q, k, v, attn_mask=mask)
 
+    # the dK/dV launch reads the di that the dQ launch wrote: one dQ launch
+    # first, then each kernel and the whole backward by graph replay
+    TA._launch_dq(args, dev)
     t = {
-        "dq": cuda_time_ms(lambda: TA._launch_dq(args, dev), iters=30,
-                           warmup=3),
-        "dkv": cuda_time_ms(lambda: TA._launch_dkv(args, dev), iters=30,
-                            warmup=3),
-        "whole": cuda_time_ms(
+        "dq": graph_ms(lambda: TA._launch_dq(args, dev)),
+        "dkv": graph_ms(lambda: TA._launch_dkv(args, dev)),
+        "whole": graph_ms(
             lambda: TA._launch_backward(q, k, v, out, lse, dout, zeros, vl,
-                                        True, scale), iters=30, warmup=3),
+                                        True, scale)),
         "plain": cuda_time_ms(
             lambda: TA.flash_backward_reference(q, k, v, out, lse, dout,
                                                 zeros, vl, True, scale),
@@ -1569,8 +1617,7 @@ def sft_attention_entries(dev, card, model, batch, launches):
             lambda: TA.flash_attention(q, k, v, zeros, vl, return_lse=True),
             iters=30, warmup=3),
     }
-    lib = max(cuda_time_ms(library, iters=20, warmup=3)
-              - cuda_time_ms(library_forward, iters=20, warmup=3), 0.0)
+    lib = max(graph_ms(library) - graph_ms(library_forward), 0.0)
     b_dq, b_dkv = attention_bwd_bounds(q, k, v, vl, zeros)
     log(f"[main-path inputs] flash_attn backward B={B} H={q.shape[1]} L={L} "
         f"D={D} bf16, valid {vl.tolist()}: max_abs_err dq {errs[0]:.3e} dk "
@@ -1578,11 +1625,13 @@ def sft_attention_entries(dev, card, model, batch, launches):
         f"bound 2e-2); dQ kernel {t['dq']:.4f} ms (bound "
         f"{b_dq['bound_ms']:.4f} ms by {b_dq['bound_by']}), dK/dV kernel "
         f"{t['dkv']:.4f} ms (bound {b_dkv['bound_ms']:.4f} ms by "
-        f"{b_dkv['bound_by']}), both with di {t['whole']:.4f} ms, forward "
-        f"with lse {t['forward']:.4f} ms; plain backward {t['plain']:.3f} "
-        f"ms; scaled_dot_product_attention backward through autograd (boolean "
-        f"mask, forward + backward less forward) {lib:.4f} ms for dQ, dK "
-        f"and dV together (yardstick only); card {card}")
+        f"{b_dkv['bound_by']}), the whole backward (both launches, di "
+        f"included) {t['whole']:.4f} ms, all three by CUDA-graph replay; "
+        f"forward with lse {t['forward']:.4f} ms; plain backward "
+        f"{t['plain']:.3f} ms; scaled_dot_product_attention backward "
+        f"through autograd (boolean mask, forward + backward less forward, "
+        f"by CUDA-graph replay) {lib:.4f} ms for dQ, dK and dV together "
+        f"(yardstick only); card {card}")
     # the plain version and the library call compute all three gradients at
     # once: their times stand in both rows
     src = "stair_tpu_torch/ops/csrc/flash_attn_bwd.cu"
@@ -1590,12 +1639,14 @@ def sft_attention_entries(dev, card, model, batch, launches):
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": src,
          "replaces": "stair_tpu/ops/attention.py:238",
          "launches": launches["flash_attn_bwd_dq"], "max_abs_err": errs[0],
-         "ms": t["dq"], "plain_ms": t["plain"], "library_ms": lib, **b_dq},
+         "ms": t["dq"], "whole_ms": t["whole"], "plain_ms": t["plain"],
+         "library_ms": lib, **b_dq},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": src,
          "replaces": "stair_tpu/ops/attention.py:292",
          "launches": launches["flash_attn_bwd_dkv"],
-         "max_abs_err": max(errs[1:]), "ms": t["dkv"], "plain_ms": t["plain"],
-         "library_ms": lib, **b_dkv},
+         "max_abs_err": max(errs[1:]), "ms": t["dkv"],
+         "whole_ms": t["whole"], "plain_ms": t["plain"], "library_ms": lib,
+         **b_dkv},
     ]
 
 
@@ -2275,9 +2326,20 @@ def main():
     _build.build()
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s "
         f"({'cached' if _build.BUILD_INFO['cached'] else 'compiled'})")
-    for line in _build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    report = _build.ptxas_report(_build.BUILD_INFO["log"])
+    require(_build.BUILD_INFO["cached"] or all(
+        any(r["kernel"].startswith(k) for r in report)
+        for k in ("flash_bwd_dq_mma", "flash_bwd_dkv_mma")),
+        "the build log names no attention backward kernel")
+    for r in report:
+        log(f"[build] ptxas {r['kernel']}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+        # the attention backward's tensor-core kernels are designed to keep
+        # their accumulators in registers
+        if r["kernel"].startswith(("flash_bwd_dq_mma", "flash_bwd_dkv_mma")):
+            require(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                    f"ptxas spills in {r['kernel']}: {r}")
 
     phase_lstm(dev)
     phase_mega(dev)

@@ -41,7 +41,9 @@ its kernel and nowhere else:
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` source, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``; the
-BiLSTM cluster routes' ``TC_MAX_H`` and batch tiles in ``csrc/bilstm.cu``).
+BiLSTM cluster routes' ``TC_MAX_H`` and batch tiles in ``csrc/bilstm.cu``;
+the attention backward's dK/dV tile in ``csrc/flash_attn_bwd.cu``).
+``ptxas_report`` reads registers and spills per kernel from a build log.
 """
 
 from __future__ import annotations
@@ -94,6 +96,63 @@ def header_ints(name: str) -> dict:
         text = f.read()
     return {k: int(v) for k, v in
             re.findall(r"constexpr\s+int\s+(\w+)\s*=\s*(-?\d+)\s*;", text)}
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable name for a mangled kernel symbol of the port:
+    ``flash_bwd_dkv_mma<128, 4, 32, 2>`` for
+    ``_ZN5stair17flash_bwd_dkv_mmaILi128ELi4ELi32ELi2EEEvNS_12...``;
+    integer, ``float`` and named template arguments; anything else as it
+    is."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    pos, name = 3, None
+    while pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group())
+        pos += len(m.group())
+        name = mangled[pos:pos + n]
+        pos += n
+    if name is None:
+        return mangled
+    if pos >= len(mangled) or mangled[pos] != "I":
+        return name
+    targs = []
+    for tok in re.finditer(r"Li(-?\d+)E|(f)|(\d+)", mangled[pos + 1:]):
+        if tok.group(1) is not None:
+            targs.append(tok.group(1))
+        elif tok.group(2):
+            targs.append("float")
+        else:
+            n = int(tok.group(3))
+            start = pos + 1 + tok.end()
+            targs.append(mangled[start:start + n])
+            break
+        if mangled[pos + 1 + tok.end():].startswith("E"):
+            break
+    return f"{name}<{', '.join(targs)}>"
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel compiled in an ``nvcc -Xptxas -v`` log: ``{"kernel":
+    kernel_label, "registers", "spill_stores", "spill_loads"}`` (bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": kernel_label(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def pointers(tensors):

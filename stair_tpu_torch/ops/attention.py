@@ -41,14 +41,17 @@ launches ``csrc/flash_attn_bwd.cu`` (TPU kernels #8 ``_bwd_dq_kernel`` and
 Function runs ``reference_attention`` and ``flash_backward_reference``, the
 backward's plain version. Conventions of the backward:
 
-* ``di = rowsum(out * dO)`` ``[B, H, Lq]`` float32 is a torch expression
-  in the wrapper, as the JAX package computes it outside its kernels;
-* ``P = exp(S - lse)`` on live pairs and 0 elsewhere (a masked pair never
-  reaches ``exp``), ``dP = dO V^T``, ``dS = P (dP - di) scale``, ``dQ = dS
-  K``, ``dV = P^T dO``, ``dK = dS^T Q``, all accumulated in float32; ``P``
-  is rounded to the input dtype before ``P^T dO`` and ``dS`` before ``dS
-  K`` and ``dS^T Q`` (the JAX kernels keep ``P`` in float32 there, so bf16
-  agrees with them by tolerance, float32 exactly in form);
+* ``di = rowsum(out * dO)`` ``[B, H, Lq]`` float32 (``reference_di``; 0 on
+  padding rows) is computed by the dQ launch from the rows it reads and
+  written to a buffer that the dK/dV launch reads: a backward is exactly
+  two CUDA launches (the JAX package computes ``di`` outside its kernels);
+* ``P = exp(S - lse)`` on live pairs and 0 elsewhere (a masked pair's P
+  is 0 whatever ``exp`` gives there), ``dP = dO V^T``, ``dS = P (dP - di)
+  scale``, ``dQ = dS K``, ``dV = P^T dO``, ``dK = dS^T Q``, all
+  accumulated in float32; ``P`` is rounded to the input dtype before ``P^T
+  dO`` and ``dS`` before ``dS K`` and ``dS^T Q`` (the JAX kernels keep
+  ``P`` in float32 there, so bf16 agrees with them by tolerance, float32
+  exactly in form);
 * query rows at or past ``valid_len`` are padding: their ``dO`` is read
   as 0, so dQ is 0 there and they add nothing to dK/dV; dK/dV rows at or
   past ``valid_len`` are 0; ``valid_len`` 0 gives zeros, never NaN;
@@ -123,6 +126,23 @@ def reference_attention(q, k, v, prefix_len, valid_len, causal=True,
     return out, lse.reshape(B, H, Lq)
 
 
+def _live_rows(x, valid_len):
+    """``x`` ``[B, H, L, ...]`` with rows at or past ``valid_len`` set to
+    0 (whatever they held, NaN included)."""
+    B, L = x.shape[0], x.shape[2]
+    rows = torch.arange(L, device=x.device)[None, :] < valid_len[:, None]
+    rows = rows.reshape(B, 1, L, *([1] * (x.dim() - 3)))
+    return torch.where(rows, x, torch.zeros_like(x))
+
+
+def reference_di(out, dout, valid_len):
+    """``di = rowsum(out * dO)`` ``[B, H, Lq]`` in the accumulation type,
+    ``dO`` read as 0 on rows at or past ``valid_len`` (so ``di`` is 0
+    there): the plain version of what the dQ kernel writes."""
+    do = _live_rows(_f(dout), valid_len)
+    return _live_rows((_f(out) * do).sum(dim=-1), valid_len)
+
+
 def flash_backward_reference(q, k, v, out, lse, dout, prefix_len, valid_len,
                              causal=True, sm_scale=None):
     """The backward's plain version: dense and explicit, with the kernels'
@@ -137,10 +157,8 @@ def flash_backward_reference(q, k, v, out, lse, dout, prefix_len, valid_len,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     mask = attention_mask(prefix_len, valid_len, Lq, Lkv, causal)
     mask = mask[:, None, None]                          # [B, 1, 1, Lq, Lkv]
-    rows = torch.arange(Lq, device=q.device)[None, :] < valid_len[:, None]
-    do = _f(dout)
-    do = torch.where(rows[:, None, :, None], do, torch.zeros_like(do))
-    di = (_f(out) * do).sum(dim=-1).reshape(B, Hkv, g, Lq, 1)
+    do = _live_rows(_f(dout), valid_len)
+    di = reference_di(out, dout, valid_len).reshape(B, Hkv, g, Lq, 1)
     qg = _f(q).reshape(B, Hkv, g, Lq, D)
     dog = do.reshape(B, Hkv, g, Lq, D)
     kf, vf = _f(k), _f(v)
@@ -219,10 +237,7 @@ def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse):
         if lse is not None:
             lse.fill_(math.inf)
         return out, lse
-    # The tensor-core kernel loads 16-byte chunks: bf16, D 64 or 128, and
-    # every row start 16-byte aligned. Anything else takes the scalar one.
-    mma = (dt == torch.bfloat16 and D in (64, 128)
-           and all(_aligned(t) for t in (q, k, v)))
+    mma = route(dt, D, all(_aligned(t) for t in (q, k, v))) == "mma"
     args = _Args(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -245,10 +260,10 @@ class _BwdArgs(ctypes.Structure):
     """``FlashBwdArgs`` of ``csrc/flash_attn_bwd.cu``, field for field."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in
-         ("q", "k", "v", "dout", "lse", "di", "dq", "dk", "dv",
+         ("q", "k", "v", "o", "dout", "lse", "di", "dq", "dk", "dv",
           "prefix_len", "valid_len")]
         + [(f"{t}_{s}", ctypes.c_longlong)
-           for t in ("q", "k", "v", "do", "dq", "dk", "dv")
+           for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
            for s in ("sb", "sh", "sl")]
         + [(n, ctypes.c_int) for n in
            ("B", "H", "Hkv", "Lq", "Lkv", "D", "causal", "bf16", "mma")]
@@ -262,19 +277,32 @@ def _aligned(t):
             and all(t.stride(i) % 8 == 0 for i in range(3)))
 
 
+def route(dtype, head_dim, aligned):
+    """The attention kernels' route, forward and backward: ``"mma"`` (the
+    tensor-core kernels, which load 16-byte chunks: bf16, head_dim 64 or
+    128, every row of every operand 16-byte aligned) or ``"simple"`` (the
+    float32-FMA kernels: everything else)."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128) and aligned:
+        return "mma"
+    return "simple"
+
+
 def _backward_args(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
                    scale):
-    """Check the backward's tensors, allocate dQ, dK and dV and fill the
-    kernels' argument block. Returns ``(args, (dq, dk, dv), keep)``; ``args``
-    is None where there is nothing to launch (an empty dimension; the
-    gradients are then zeros). ``keep`` holds the tensors whose pointers
-    ``args`` carries."""
+    """Check the backward's tensors, allocate dQ, dK, dV and the ``di``
+    buffer that the dQ launch fills, and fill the kernels' argument block.
+    Returns ``(args, (dq, dk, dv), keep)``; ``args`` is None where there is
+    nothing to launch (an empty dimension; the gradients are then zeros).
+    ``keep`` maps names to the tensors whose pointers ``args`` carries
+    (``keep["di"]`` holds ``di`` once ``_launch_dq`` has run)."""
     dev = q.device
     B, H, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
     dt = q.dtype
     if dout.stride(3) != 1:
         dout = dout.contiguous()
+    if out.stride(3) != 1:
+        out = out.contiguous()
     _check("q", q, dt, (B, H, Lq, D), dev)
     _check("k", k, dt, (B, Hkv, Lkv, D), dev)
     _check("v", v, dt, (B, Hkv, Lkv, D), dev)
@@ -285,28 +313,30 @@ def _backward_args(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
     dk = torch.empty(B, Lkv, Hkv, D, dtype=dt, device=dev).transpose(1, 2)
     dv = torch.empty(B, Lkv, Hkv, D, dtype=dt, device=dev).transpose(1, 2)
     if B == 0 or Lq == 0 or Lkv == 0:
-        return None, (dq.zero_(), dk.zero_(), dv.zero_()), ()
-    lse = lse.contiguous()
-    di = (out.float() * dout.float()).sum(dim=-1).contiguous()
-    prefix_len, valid_len = prefix_len.contiguous(), valid_len.contiguous()
-    mma = (dt == torch.bfloat16 and D in (64, 128)
-           and all(_aligned(t) for t in (q, k, v, dout)))
+        return None, (dq.zero_(), dk.zero_(), dv.zero_()), {}
+    keep = {"q": q, "k": k, "v": v, "out": out, "dout": dout,
+            "lse": lse.contiguous(),
+            "di": torch.empty(B, H, Lq, dtype=torch.float32, device=dev),
+            "prefix_len": prefix_len.contiguous(),
+            "valid_len": valid_len.contiguous()}
+    aligned = all(_aligned(t) for t in (q, k, v, out, dout))
+    mma = route(dt, D, aligned) == "mma"
     args = _BwdArgs(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), prefix_len.data_ptr(), valid_len.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *(keep[n].data_ptr() for n in ("q", "k", "v", "out", "dout", "lse",
+                                       "di")),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        keep["prefix_len"].data_ptr(), keep["valid_len"].data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
         *dv.stride()[:3],
         B, H, Hkv, Lq, Lkv, D, int(bool(causal)),
         int(dt == torch.bfloat16), int(mma), float(scale),
     )
-    return args, (dq, dk, dv), (q, k, v, dout, lse, di, prefix_len,
-                                valid_len)
+    return args, (dq, dk, dv), keep
 
 
 def _launch_dq(args, dev):
-    """Kernel #8: dQ of ``_backward_args``'s block."""
+    """Kernel #8: dQ and ``di`` of ``_backward_args``'s block."""
     lib = _build.build()
     _build.check(lib.stair_flash_attn_bwd_dq(ctypes.byref(args),
                                              _build.stream_ptr(dev)),
@@ -315,7 +345,9 @@ def _launch_dq(args, dev):
 
 
 def _launch_dkv(args, dev):
-    """Kernel #9: dK and dV of ``_backward_args``'s block."""
+    """Kernel #9: dK and dV of ``_backward_args``'s block; it reads the
+    ``di`` that ``_launch_dq`` wrote, so it runs after that launch on the
+    same stream."""
     lib = _build.build()
     _build.check(lib.stair_flash_attn_bwd_dkv(ctypes.byref(args),
                                               _build.stream_ptr(dev)),

@@ -77,15 +77,6 @@ struct FlashArgs {
 constexpr int BQ = 64;       // query rows per block (16 per warp)
 constexpr int THREADS = 128;
 
-// The key range [0, kv_end) a tile of ``rows`` query rows starting at q0
-// has to visit.
-__device__ __forceinline__ int kv_end_of(int q0, int rows, int valid,
-                                         int prefix, int causal) {
-  int end = valid;
-  if (causal) end = min(end, max(q0 + rows, prefix));
-  return end;
-}
-
 // A block whose ROWS rows are all padding: zeros and +inf. NT threads.
 template <typename T, int ROWS, int NT>
 __device__ void write_dead_tile(const FlashArgs& a, int b, int h, int q0) {
@@ -227,8 +218,6 @@ flash_fwd_simple(const FlashArgs a) {
 constexpr int MQ = 64;         // query rows per block (16 per warp)
 constexpr int MTHREADS = 128;  // 4 warps; two blocks per SM
 constexpr int MKV = 64;        // key rows per tile
-constexpr int STAGES = 2;      // K/V tiles in flight in the cp.async ring
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
@@ -303,7 +292,7 @@ flash_fwd_mma(const FlashArgs a) {
       // This warp's 16 query rows as A fragments, kept for the whole walk.
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        load_a_frag(qf[kk], Qs + warp * 16 * LD + kk * 16, LD, g, t);
+        load_a_frag(qf[kk], Qs + warp * 16 * LD + kk * 16, LD, lane);
     }
     const T* Kt = Ks + (j % STAGES) * MKV * LD;
     const T* Vt = Vs + (j % STAGES) * MKV * LD;

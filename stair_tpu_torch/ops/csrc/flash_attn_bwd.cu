@@ -1,52 +1,89 @@
 // Masked flash attention, backward (replaces the TPU kernels
 // stair_tpu/ops/attention.py _bwd_dq_kernel and _bwd_dkv_kernel, TPU
-// kernels #8 and #9).
+// kernels #8 and #9, and the row sums di that the JAX package computes
+// outside them).
 //
-// Given q, k, v, the forward's row log-sum-exp ``lse`` and the cotangent
-// ``dO`` (plus di = rowsum(O * dO), which the wrapper computes), with the
-// forward's two-integer mask:
+// Given q, k, v, the forward's output O and row log-sum-exp ``lse`` and
+// the cotangent ``dO``, with the forward's two-integer mask:
+//   di = rowsum(O * dO)           (computed and written by the dQ launch)
 //   S  = scale * Q K^T            P  = exp(S - lse) on live pairs, else 0
 //   dP = dO V^T                   dS = P * (dP - di) * scale
 //   dQ = dS K      dV = P^T dO      dK = dS^T Q
-// Two launches, no float atomics, so every output element is written once
-// by one thread and the bits repeat run to run:
-//  - the dQ kernel: one block per (example, query head, 64 query rows)
-//    walks the live key tiles (the forward's range) with dQ in registers;
-//  - the dK/dV kernel: one block per (example, kv head, key tile) walks the
-//    query heads of its group in ascending order and, for each, the live
-//    query tiles, with dK and dV in registers. Grouped-query heads are
-//    summed here, in float32, in that fixed order; k and v are never
-//    expanded.
+// Two launches on one stream and nothing else, no float atomics, so every
+// output element is written once by one thread and the bits repeat run to
+// run:
+//  - the dQ launch: one block per (example, query head, 64 query rows)
+//    computes di of its rows from O and dO, writes it to the [B, H, Lq]
+//    buffer, and walks the live key tiles (the forward's range) with dQ in
+//    registers;
+//  - the dK/dV launch (after it, reading di): one block per (example, kv
+//    head, key tile) walks the query heads of its group in ascending order
+//    and, for each, the live query tiles, with dK and dV in registers.
+//    Grouped-query heads are summed here, in float32, in that fixed order;
+//    k and v are never expanded.
 // Key tiles past ``valid`` and query tiles wholly above the diagonal (and
 // past the prefix) are never visited. Query rows at or past ``valid`` are
-// padding: their dO is read as 0 and their P is 0, so dQ is 0 there and
-// they add nothing to dK/dV; dK/dV rows at or past ``valid`` are 0. A
-// masked pair never reaches exp, so (-1e30) - (+inf) and inf - inf do not
-// occur and valid = 0 gives zeros.
+// padding: their dO is read as 0, so di is 0 there, their P is 0, dQ is 0
+// and they add nothing to dK/dV; dK/dV rows at or past ``valid`` are 0. A
+// masked pair's P is 0 whatever exp gave, and valid = 0 gives zeros.
 //
 // Rounding sites (float32 everywhere else): P is rounded to the input type
 // before P^T dO and dS before dS K and dS^T Q (no-ops in float32).
 //
 // What bounds it on an H100: per live (row, column) pair and head the dQ
-// kernel does three products of depth D (6 D operations) and the dK/dV
-// kernel four (8 D; Q K^T and dO V^T are computed in both), against q, k,
-// v, dO read and dQ (or dK, dV) written once: about 2 L^2 D operations per
-// head under a causal mask against 12 L D bytes in bf16, L / 6 operations
-// per byte, below the card's ~295 until L ~ 1800. At this repo's lengths
-// (L 128 to 640) the bound is the bytes, as for the forward. The design
-// keeps S, P, dP and dS on chip and re-reads the other operand's tiles
-// from L2. Like the forward it is a simple kernel: synchronous tile loads,
-// mma.sync products, no wgmma/TMA pipeline, so it runs at several times
-// its bound; chip_smoke.py prints both numbers.
+// launch does three products of depth D (6 D operations) and the dK/dV
+// launch four (8 D; Q K^T and dO V^T are computed in both), against q, k,
+// v, O, dO read and dQ (or dK, dV) written once: about 2 L^2 D operations
+// per head under a causal mask against 14 L D bytes in bf16, below the
+// card's ~295 operations per byte at this repo's lengths (L 128 to 640).
+// The bound is the bytes, as for the forward; at the SFT step's shape the
+// operation bound alone is about half of it. In practice neither bound is
+// near: the first port (synchronous tile loads, a barrier pair around
+// each, the lightest causal tiles first, the mask tested on every element
+// and di as four eager passes outside) ran its products at about 64 and
+// 87 TFLOP/s on an H100 SXM at the SFT step's shape (B 8, 32 heads, L 512,
+// D 128). The kernels wait on loads and barriers, not on the tensor
+// cores, and the design attacks that; it runs them at about 126 and 139
+// TFLOP/s there, and the whole backward in 0.35 ms against about 0.8 ms
+// for the first port with its eager di:
 //
-// Two variants per kernel behind one C entry point each:
+// Two variants per launch behind one C entry point each:
 //  - *_mma (bf16, head_dim 64 or 128, 16-byte aligned rows): mma.sync
-//    m16n8k16 with float32 accumulation. The dK/dV kernel computes the
-//    transposed tiles S^T = K Q^T and dP^T = V dO^T so that each warp owns
-//    16 key rows and P^T, dS^T come out of the accumulators in the layout
-//    the next product's A operand wants;
+//    m16n8k16 with float32 accumulation, every operand fragment through
+//    ldmatrix. The streamed tiles come through two-stage cp.async rings
+//    in shared memory (16-byte chunks, zero-fill past the limit): tile
+//    j + 1 is in flight while tile j's products run, one barrier pair per
+//    tile. P = exp2(fma(s, scale log2 e, -lse log2 e)) with the row's lse
+//    scaled to base 2 once, and the mask test runs only on tiles that the
+//    diagonal, ``valid`` or the prefix cut (the same answer for all 32
+//    lanes of a warp otherwise). A warp whose tile is wholly masked skips
+//    its products.
+//    dQ: 4 warps of 16 query rows, two blocks per SM (the forward's
+//    shape); Q and dO staged once, K and V tiles of 64 keys in the ring;
+//    di formed before the walk from O (registers) and the staged dO. The
+//    grid is (H, B, query tiles) with the tile index slowest and, under a
+//    causal mask, reversed: the tiles with the most live keys start first
+//    and the short ones fill the tail.
+//    dK/dV: each warp owns 16 key rows of K and V in shared memory and
+//    their dK, dV in registers (128 a thread at D 128); Q, dO, lse and di
+//    tiles of DKV_MQ query rows come through the ring. It computes the
+//    transposed tiles S^T = K Q^T and dP^T = V dO^T so that P^T and dS^T
+//    come out of the accumulators in the layout the next product's A
+//    operand wants. The grid is (Hkv, B, key tiles) with the key-tile index
+//    slowest and ascending: under a causal mask key tile 0 walks the most
+//    query tiles. The tile (warps, query rows per step, blocks per SM) is
+//    set per head_dim below, by measurement (scripts/flash_bwd_tiles.py
+//    builds and times the candidates): 4 warps (64 key rows), 64 query
+//    rows per step, two blocks per SM at both head_dims. At the SFT step's
+//    shape it took 0.200-0.202 ms, against 0.206-0.208 with 32 query rows
+//    per step and 0.229-0.242 for blocks of 128 key rows (8 warps, one
+//    block per SM); 0.0403 ms at the prefix-LM trainer's D 64 against
+//    0.0420-0.0474 (H100 SXM, 700 W). At D 128 it takes 255 registers a
+//    thread and no spill;
 //  - *_simple (float32 or bf16, any head_dim <= 128, any strides): float32
-//    FMA loops; the exact float32 route and the shapes the other refuses.
+//    FMA loops and synchronous tile loads; the exact float32 route and the
+//    shapes the other refuses. Its dQ kernel computes di as the tensor-core
+//    one does.
 #include "flash_common.cuh"
 
 namespace stair {
@@ -55,9 +92,10 @@ struct FlashBwdArgs {
   const void* q;
   const void* k;
   const void* v;
+  const void* o;
   const void* dout;
   const float* lse;  // [B, H, Lq]
-  const float* di;   // [B, H, Lq]
+  float* di;         // [B, H, Lq]: written by the dQ launch, read by dK/dV
   void* dq;
   void* dk;
   void* dv;
@@ -66,6 +104,7 @@ struct FlashBwdArgs {
   long long q_sb, q_sh, q_sl;  // element strides: batch, head, row
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
+  long long o_sb, o_sh, o_sl;
   long long do_sb, do_sh, do_sl;
   long long dq_sb, dq_sh, dq_sl;
   long long dk_sb, dk_sh, dk_sl;
@@ -78,11 +117,23 @@ struct FlashBwdArgs {
 constexpr int THREADS = 128;
 constexpr int BQ = 64;       // query rows per dQ block (16 per warp)
 constexpr int SDJ = 4;       // head_dim / 32, at most
+constexpr int MKV = 64;      // key rows per tile of the tensor-core dQ kernel
+
+// The tensor-core dK/dV kernel's tile per head_dim: warps per block (16
+// key rows each), query rows per ring step, and the blocks per SM it is
+// designed for (its __launch_bounds__ minimum; the launch refuses a card
+// that holds fewer). Picked by scripts/flash_bwd_tiles.py.
+constexpr int DKV_WARPS_D64 = 4;
+constexpr int DKV_MQ_D64 = 64;
+constexpr int DKV_MINB_D64 = 2;
+constexpr int DKV_WARPS_D128 = 4;
+constexpr int DKV_MQ_D128 = 64;
+constexpr int DKV_MINB_D128 = 2;
 
 template <typename T>
 __device__ void zero_rows(T* base, long long stride, int first, int rows,
-                          int D) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+                          int D, int nt) {
+  for (int i = threadIdx.x; i < rows * D; i += nt) {
     const int r = i / D, d = i % D;
     base[(long long)(first + r) * stride + d] = from_f<T>(0.f);
   }
@@ -93,6 +144,15 @@ __device__ void zero_rows(T* base, long long stride, int first, int rows,
 __device__ __forceinline__ int q_begin_of(int kv0, int prefix, int causal,
                                           int step) {
   return (causal && kv0 >= prefix) ? (kv0 / step) * step : 0;
+}
+
+// A dQ block whose rows are all padding: dQ and di are 0 there.
+template <typename T>
+__device__ void dead_dq_tile(const FlashBwdArgs& a, T* dq, float* di,
+                             int q0) {
+  const int rows = min(BQ, a.Lq - q0);
+  zero_rows<T>(dq, a.dq_sl, q0, rows, a.D, THREADS);
+  for (int r = threadIdx.x; r < rows; r += THREADS) di[q0 + r] = 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -121,12 +181,14 @@ flash_bwd_dq_simple(const FlashBwdArgs a) {
   const int valid = min(valid_q, a.Lkv);
   const int prefix = a.prefix_len[b];
   T* dq = (T*)a.dq + b * a.dq_sb + h * a.dq_sh;
+  const long long stat = ((long long)b * a.H + h) * a.Lq;
   if (q0 >= valid_q || valid <= 0) {
-    zero_rows<T>(dq, a.dq_sl, q0, min(BQ, a.Lq - q0), D);
+    dead_dq_tile<T>(a, dq, a.di + stat, q0);
     return;
   }
   const int hk = h / (a.H / a.Hkv);
   const T* q = (const T*)a.q + b * a.q_sb + h * a.q_sh;
+  const T* o = (const T*)a.o + b * a.o_sb + h * a.o_sh;
   const T* go = (const T*)a.dout + b * a.do_sb + h * a.do_sh;
   const T* k = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
   const T* v = (const T*)a.v + b * a.v_sb + hk * a.v_sh;
@@ -139,15 +201,23 @@ flash_bwd_dq_simple(const FlashBwdArgs a) {
     Qs[i] = in ? to_f(q[(long long)(q0 + r) * a.q_sl + d]) : 0.f;
     Gs[i] = in ? to_f(go[(long long)(q0 + r) * a.do_sl + d]) : 0.f;
   }
+  __syncthreads();
 
   const int row0 = q0 + warp * SROWS;
   float lse_r[SROWS], di_r[SROWS], acc[SROWS][SDJ];
-  const long long stat = ((long long)b * a.H + h) * a.Lq;
 #pragma unroll
   for (int r = 0; r < SROWS; ++r) {
-    const bool in = row0 + r < q_end;
-    lse_r[r] = in ? a.lse[stat + row0 + r] : INFINITY;
-    di_r[r] = in ? a.di[stat + row0 + r] : 0.f;
+    const int row = row0 + r;
+    const bool in = row < q_end;
+    // di = rowsum(O * dO), dO taken as 0 on padding rows
+    float part = 0.f;
+    if (in)
+      for (int d = lane; d < D; d += 32)
+        part = fmaf(to_f(o[(long long)row * a.o_sl + d]),
+                    Gs[(warp * SROWS + r) * D + d], part);
+    di_r[r] = warp_sum(part);
+    if (lane == 0 && row < a.Lq) a.di[stat + row] = di_r[r];
+    lse_r[r] = in ? a.lse[stat + row] : INFINITY;
 #pragma unroll
     for (int j = 0; j < SDJ; ++j) acc[r][j] = 0.f;
   }
@@ -155,8 +225,7 @@ flash_bwd_dq_simple(const FlashBwdArgs a) {
   const float* Qw = Qs + warp * SROWS * D;
   const float* Gw = Gs + warp * SROWS * D;
 
-  int kv_end = valid;
-  if (a.causal) kv_end = min(kv_end, max(q0 + BQ, prefix));
+  const int kv_end = kv_end_of(q0, BQ, valid, prefix, a.causal);
   for (int kv0 = 0; kv0 < kv_end; kv0 += SKV) {
     __syncthreads();
     for (int i = tid; i < SKV * D; i += THREADS) {
@@ -240,8 +309,8 @@ flash_bwd_dkv_simple(const FlashBwdArgs a) {
   T* dv = (T*)a.dv + b * a.dv_sb + hk * a.dv_sh;
   if (kv0 >= valid) {
     const int rows = min(SBKV, a.Lkv - kv0);
-    zero_rows<T>(dk, a.dk_sl, kv0, rows, D);
-    zero_rows<T>(dv, a.dv_sl, kv0, rows, D);
+    zero_rows<T>(dk, a.dk_sl, kv0, rows, D, THREADS);
+    zero_rows<T>(dv, a.dv_sl, kv0, rows, D, THREADS);
     return;
   }
   const T* k = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
@@ -352,54 +421,108 @@ flash_bwd_dkv_simple(const FlashBwdArgs a) {
 // tensor-core kernels (bf16, head_dim 64 or 128)
 // ---------------------------------------------------------------------------
 
-constexpr int MKV = 64;      // key rows per tile (dQ) and per block (dK/dV)
-
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dq_mma(const FlashBwdArgs a) {
   typedef __nv_bfloat16 T;
   constexpr int LD = D + PAD;
   constexpr int KS = D / 16;   // k-steps of Q K^T and dO V^T
   constexpr int NT = MKV / 8;  // score n-tiles per warp
   constexpr int OT = D / 8;    // dQ n-tiles per warp
+  constexpr int CH = D / 8;    // 16-byte chunks per row
+  constexpr int OCH = BQ * CH / THREADS;  // chunks of O per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
   T* Gs = Qs + BQ * LD;                    // [BQ][LD]   dO
-  T* Ks = Gs + BQ * LD;                    // [MKV][LD]
-  T* Vs = Ks + MKV * LD;                   // [MKV][LD]
+  T* Ks = Gs + BQ * LD;                    // [STAGES][MKV][LD]
+  T* Vs = Ks + STAGES * MKV * LD;          // [STAGES][MKV][LD]
+  float* di_s = reinterpret_cast<float*>(Vs + STAGES * MKV * LD);  // [BQ]
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  // Grid (H, B, query tiles): the tile index varies slowest and, under a
+  // causal mask, runs reversed, so the tiles with the most live keys start
+  // first.
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ, h = blockIdx.x, b = blockIdx.y;
   const int valid_q = a.valid_len[b];
   const int valid = min(valid_q, a.Lkv);
   const int prefix = a.prefix_len[b];
   T* dq = (T*)a.dq + b * a.dq_sb + h * a.dq_sh;
+  const long long stat = ((long long)b * a.H + h) * a.Lq;
   if (q0 >= valid_q || valid <= 0) {
-    zero_rows<T>(dq, a.dq_sl, q0, min(BQ, a.Lq - q0), D);
+    dead_dq_tile<T>(a, dq, a.di + stat, q0);
     return;
   }
   const int hk = h / (a.H / a.Hkv);
   const T* q = (const T*)a.q + b * a.q_sb + h * a.q_sh;
+  const T* o = (const T*)a.o + b * a.o_sb + h * a.o_sh;
   const T* go = (const T*)a.dout + b * a.do_sb + h * a.do_sh;
   const T* k = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
   const T* v = (const T*)a.v + b * a.v_sb + hk * a.v_sh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
   const int q_end = min(a.Lq, valid_q);
+  const float c2 = a.sm_scale * LOG2E;   // raw score -> base-2 exponent
 
-  stage_tile<D, THREADS>(Qs, q, a.q_sl, q0, q_end, BQ);
-  stage_tile<D, THREADS>(Gs, go, a.do_sl, q0, q_end, BQ);
+  const int kv_end = kv_end_of(q0, BQ, valid, prefix, a.causal);
+  const int ntiles = (kv_end + MKV - 1) / MKV;
+  // Group 0: Q, dO and the first K/V tile.
+  stage_tile_async<D, THREADS>(Qs, q, a.q_sl, q0, q_end, BQ);
+  stage_tile_async<D, THREADS>(Gs, go, a.do_sl, q0, q_end, BQ);
+  stage_tile_async<D, THREADS>(Ks, k, a.k_sl, 0, a.Lkv, MKV);
+  stage_tile_async<D, THREADS>(Vs, v, a.v_sl, 0, a.Lkv, MKV);
+  cp_async_commit();
+  // This thread's chunks of O for di, loaded while the group is in flight
+  // (chunk i = tid + j THREADS: row i / CH, the CH lanes of a row are
+  // neighbours in one warp). Padding rows read nothing.
+  uint4 oc[OCH];
+#pragma unroll
+  for (int j = 0; j < OCH; ++j) {
+    const int i = tid + j * THREADS, r = i / CH, c = i % CH;
+    oc[j] = q0 + r < q_end
+                ? *reinterpret_cast<const uint4*>(
+                      o + (long long)(q0 + r) * a.o_sl + c * 8)
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
 
-  // Row state of rows g (index 0) and g + 8 (index 1).
-  const int row_lo = q0 + warp * 16 + g;
-  const long long stat = ((long long)b * a.H + h) * a.Lq;
-  float lse_r[2], di_r[2];
-  bool in_r[2];
+  // Row state of rows g (index 0) and g + 8 (index 1); lse in base 2.
+  const int row_min = q0 + warp * 16;
+  const int row_lo = row_min + g;
+  float lse2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    in_r[r] = row_lo + r * 8 < q_end;
-    lse_r[r] = in_r[r] ? a.lse[stat + row_lo + r * 8] : INFINITY;
-    di_r[r] = in_r[r] ? a.di[stat + row_lo + r * 8] : 0.f;
+    const int row = row_lo + r * 8;
+    lse2[r] = row < q_end ? a.lse[stat + row] * LOG2E : INFINITY;
   }
+
+  // di = rowsum(f32(O) f32(dO)) once dO has landed: this thread's chunks,
+  // then a sum over the CH lanes of the row; dO is 0 on padding rows, so
+  // di is too. Done before the walk, so that the O chunks' registers are
+  // free for it.
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < OCH; ++j) {
+    const int i = tid + j * THREADS, r = i / CH, c = i % CH;
+    const uint4 gv = *reinterpret_cast<const uint4*>(Gs + r * LD + c * 8);
+    const __nv_bfloat162* op =
+        reinterpret_cast<const __nv_bfloat162*>(&oc[j]);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    float part = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 of = __bfloat1622float2(op[e]);
+      const float2 gf = __bfloat1622float2(gp[e]);
+      part = fmaf(of.x, gf.x, part);
+      part = fmaf(of.y, gf.y, part);
+    }
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (c == 0) di_s[r] = part;
+  }
+  __syncthreads();
+  const float di_r[2] = {di_s[warp * 16 + g], di_s[warp * 16 + g + 8]};
+  if (tid < BQ && q0 + tid < a.Lq) a.di[stat + q0 + tid] = di_s[tid];
   float acc[OT][4];
 #pragma unroll
   for (int n = 0; n < OT; ++n)
@@ -407,65 +530,87 @@ flash_bwd_dq_mma(const FlashBwdArgs a) {
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   const T* Qw = Qs + warp * 16 * LD;
   const T* Gw = Gs + warp * 16 * LD;
+  // A warp whose 16 rows are all padding has dQ = 0: it skips the products.
+  const bool warp_live = row_min < q_end;
 
-  int kv_end = valid;
-  if (a.causal) kv_end = min(kv_end, max(q0 + BQ, prefix));
-  for (int kv0 = 0; kv0 < kv_end; kv0 += MKV) {
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * MKV;
+    // Tile j + 1 goes into the other stage while tile j is used; the group
+    // is committed even when empty, so "all but the newest" is tile j.
+    if (j + 1 < ntiles) {
+      const int st = (j + 1) % STAGES;
+      stage_tile_async<D, THREADS>(Ks + st * MKV * LD, k, a.k_sl, kv0 + MKV,
+                                   a.Lkv, MKV);
+      stage_tile_async<D, THREADS>(Vs + st * MKV * LD, v, a.v_sl, kv0 + MKV,
+                                   a.Lkv, MKV);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    stage_tile<D, THREADS>(Ks, k, a.k_sl, kv0, a.Lkv, MKV);
-    stage_tile<D, THREADS>(Vs, v, a.v_sl, kv0, a.Lkv, MKV);
-    __syncthreads();
+    const T* Kt = Ks + (j % STAGES) * MKV * LD;
+    const T* Vt = Vs + (j % STAGES) * MKV * LD;
 
-    float s[NT][4], dp[NT][4];
+    if (warp_live) {
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4], ga[4];
-      load_a_frag(qa, Qw + kk * 16, LD, g, t);
-      load_a_frag(ga, Gw + kk * 16, LD, g, t);
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], ga[4];
+        load_a_frag(qa, Qw + kk * 16, LD, lane);
+        load_a_frag(ga, Gw + kk * 16, LD, lane);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t kb[4], vb[4];
+          load_b_frags(kb, Kt + n * 8 * LD + kk * 16, LD, lane);
+          load_b_frags(vb, Vt + n * 8 * LD + kk * 16, LD, lane);
+          mma_bf16(s[n], qa, kb[0], kb[1]);
+          mma_bf16(s[n + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[n], ga, vb[0], vb[1]);
+          mma_bf16(dp[n + 1], ga, vb[2], vb[3]);
+        }
+      }
+      // s becomes dS. The mask test runs only where the tile cuts this
+      // warp's rows: past valid or the padding rows, or above the diagonal
+      // and past the prefix.
+      const bool inside =
+          kv0 + MKV <= valid && row_min + 16 <= q_end &&
+          (!a.causal || kv0 + MKV - 1 <= row_min || kv0 + MKV <= prefix);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const T* kb = Ks + (n * 8 + g) * LD + kk * 16 + t * 2;
-        const T* vb = Vs + (n * 8 + g) * LD + kk * 16 + t * 2;
-        mma_bf16(s[n], qa, *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
-        mma_bf16(dp[n], ga, *reinterpret_cast<const uint32_t*>(vb),
-                 *reinterpret_cast<const uint32_t*>(vb + 8));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = exp2f(fmaf(s[n][i], c2, -lse2[i / 2]));
+          if (!inside) {
+            const int row = row_lo + (i / 2) * 8;
+            const int col = kv0 + n * 8 + t * 2 + (i % 2);
+            if (!(row < q_end && live(row, col, valid, prefix, a.causal)))
+              p = 0.f;
+          }
+          s[n][i] = p * (dp[n][i] - di_r[i / 2]) * a.sm_scale;
+        }
+      }
+      // dQ += dS K: two adjacent score n-tiles are one 16-deep A fragment.
+#pragma unroll
+      for (int kk = 0; kk < MKV / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n = 0; n < OT; n += 2) {
+          uint32_t bb[4];
+          load_b_trans(bb, Kt + kk * 16 * LD + n * 8, LD, lane);
+          mma_bf16(acc[n], pa, bb[0], bb[1]);
+          mma_bf16(acc[n + 1], pa, bb[2], bb[3]);
+        }
       }
     }
-    // s becomes dS
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row_lo + (i / 2) * 8;
-        const int col = kv0 + n * 8 + t * 2 + (i % 2);
-        const bool ok =
-            in_r[i / 2] && live(row, col, valid, prefix, a.causal);
-        const float p =
-            ok ? expf(s[n][i] * a.sm_scale - lse_r[i / 2]) : 0.f;
-        s[n][i] = p * (dp[n][i] - di_r[i / 2]) * a.sm_scale;
-      }
-    }
-    // dQ += dS K: two adjacent score n-tiles are one 16-deep A fragment.
-#pragma unroll
-    for (int kk = 0; kk < MKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < OT; n += 2) {
-        uint32_t bb[4];
-        load_b_trans(bb, Ks + kk * 16 * LD + n * 8, LD, lane);
-        mma_bf16(acc[n], pa, bb[0], bb[1]);
-        mma_bf16(acc[n + 1], pa, bb[2], bb[3]);
-      }
-    }
+    // Every warp is done with this stage before tile j + 2 refills it.
+    __syncthreads();
   }
 
 #pragma unroll
@@ -480,33 +625,39 @@ flash_bwd_dq_mma(const FlashBwdArgs a) {
   }
 }
 
-// MQ: query rows per tile (a multiple of 16).
-template <int D, int MQ>
-__global__ void __launch_bounds__(THREADS)
+// WARPS warps of 16 key rows each; MQ query rows per ring step (a multiple
+// of 16); MINB blocks per SM.
+template <int D, int WARPS, int MQ, int MINB>
+__global__ void __launch_bounds__(WARPS * 32, MINB)
 flash_bwd_dkv_mma(const FlashBwdArgs a) {
   typedef __nv_bfloat16 T;
+  constexpr int NTH = WARPS * 32;
+  constexpr int BKV = WARPS * 16;  // key rows per block
   constexpr int LD = D + PAD;
   constexpr int KS = D / 16;   // k-steps of K Q^T and V dO^T
   constexpr int NQ = MQ / 8;   // transposed-score n-tiles per warp
   constexpr int OT = D / 8;    // dK / dV n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [MKV][LD]
-  T* Vs = Ks + MKV * LD;                   // [MKV][LD]
-  T* Qs = Vs + MKV * LD;                   // [MQ][LD]
-  T* Gs = Qs + MQ * LD;                    // [MQ][LD]   dO
-  float* lse_s = reinterpret_cast<float*>(Gs + MQ * LD);  // [MQ]
-  float* di_s = lse_s + MQ;                                // [MQ]
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [BKV][LD]
+  T* Vs = Ks + BKV * LD;                   // [BKV][LD]
+  T* Qs = Vs + BKV * LD;                   // [STAGES][MQ][LD]
+  T* Gs = Qs + STAGES * MQ * LD;           // [STAGES][MQ][LD]   dO
+  // [STAGES][MQ] each
+  float* lse_s = reinterpret_cast<float*>(Gs + STAGES * MQ * LD);
+  float* di_s = lse_s + STAGES * MQ;
 
-  const int kv0 = blockIdx.x * MKV, hk = blockIdx.y, b = blockIdx.z;
+  // Grid (Hkv, B, key tiles): the key-tile index varies slowest, ascending;
+  // under a causal mask key tile 0 walks the most query tiles.
+  const int kv0 = blockIdx.z * BKV, hk = blockIdx.x, b = blockIdx.y;
   const int valid_q = a.valid_len[b];
   const int valid = min(valid_q, a.Lkv);
   const int prefix = a.prefix_len[b];
   T* dk = (T*)a.dk + b * a.dk_sb + hk * a.dk_sh;
   T* dv = (T*)a.dv + b * a.dv_sb + hk * a.dv_sh;
   if (kv0 >= valid) {
-    const int rows = min(MKV, a.Lkv - kv0);
-    zero_rows<T>(dk, a.dk_sl, kv0, rows, D);
-    zero_rows<T>(dv, a.dv_sl, kv0, rows, D);
+    const int rows = min(BKV, a.Lkv - kv0);
+    zero_rows<T>(dk, a.dk_sl, kv0, rows, D, NTH);
+    zero_rows<T>(dv, a.dv_sl, kv0, rows, D, NTH);
     return;
   }
   const T* k = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
@@ -514,82 +665,114 @@ flash_bwd_dkv_mma(const FlashBwdArgs a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int G = a.H / a.Hkv;
+  const float c2 = a.sm_scale * LOG2E;
 
-  stage_tile<D, THREADS>(Ks, k, a.k_sl, kv0, a.Lkv, MKV);
-  stage_tile<D, THREADS>(Vs, v, a.v_sl, kv0, a.Lkv, MKV);
+  // Steps: the G query heads of the group in ascending order, and in each
+  // the query tiles from q_begin to q_end (the same count for every head).
+  const int q_end = min(a.Lq, valid_q);
+  const int q_begin = q_begin_of(kv0, prefix, a.causal, MQ);
+  const int nq = q_end > q_begin ? (q_end - q_begin + MQ - 1) / MQ : 0;
+  const int nsteps = G * nq;
+  auto stage_step = [&](int i, int st) {
+    const int hq = hk * G + i / nq, r0 = q_begin + (i % nq) * MQ;
+    const T* q = (const T*)a.q + b * a.q_sb + hq * a.q_sh;
+    const T* go = (const T*)a.dout + b * a.do_sb + hq * a.do_sh;
+    stage_tile_async<D, NTH>(Qs + st * MQ * LD, q, a.q_sl, r0, q_end, MQ);
+    stage_tile_async<D, NTH>(Gs + st * MQ * LD, go, a.do_sl, r0, q_end, MQ);
+    const long long stat = ((long long)b * a.H + hq) * a.Lq;
+    for (int r = tid; r < MQ; r += NTH) {
+      const bool in = r0 + r < q_end;
+      const long long at = stat + (in ? r0 + r : 0);
+      cp_async4(lse_s + st * MQ + r, a.lse + at, in);
+      cp_async4(di_s + st * MQ + r, a.di + at, in);
+    }
+  };
+  // Group 0: this block's K and V rows and the first step's tiles.
+  stage_tile_async<D, NTH>(Ks, k, a.k_sl, kv0, a.Lkv, BKV);
+  stage_tile_async<D, NTH>(Vs, v, a.v_sl, kv0, a.Lkv, BKV);
+  if (nsteps > 0) stage_step(0, 0);
+  cp_async_commit();
 
   float acc_k[OT][4], acc_v[OT][4];
 #pragma unroll
   for (int n = 0; n < OT; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+  const int kw0 = kv0 + warp * 16;       // this warp's first key row
+  const int col_lo = kw0 + g;            // key rows g and g + 8
   const T* Kw = Ks + warp * 16 * LD;
   const T* Vw = Vs + warp * 16 * LD;
-  const int col_lo = kv0 + warp * 16 + g;   // key rows g and g + 8
 
-  const int q_end = min(a.Lq, valid_q);
-  const int q_begin = q_begin_of(kv0, prefix, a.causal, MQ);
-  for (int hq = hk * G; hq < hk * G + G; ++hq) {
-    const T* q = (const T*)a.q + b * a.q_sb + hq * a.q_sh;
-    const T* go = (const T*)a.dout + b * a.do_sb + hq * a.do_sh;
-    const long long stat = ((long long)b * a.H + hq) * a.Lq;
-    for (int r0 = q_begin; r0 < q_end; r0 += MQ) {
-      __syncthreads();
-      stage_tile<D, THREADS>(Qs, q, a.q_sl, r0, q_end, MQ);
-      stage_tile<D, THREADS>(Gs, go, a.do_sl, r0, q_end, MQ);
-      for (int i = tid; i < MQ; i += THREADS) {
-        const bool in = r0 + i < q_end;
-        lse_s[i] = in ? a.lse[stat + r0 + i] : INFINITY;
-        di_s[i] = in ? a.di[stat + r0 + i] : 0.f;
-      }
-      __syncthreads();
-
+  for (int i = 0; i < nsteps; ++i) {
+    if (i + 1 < nsteps) stage_step(i + 1, (i + 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int r0 = q_begin + (i % nq) * MQ;
+    const int stage = i % STAGES;
+    const T* Qt = Qs + stage * MQ * LD;
+    const T* Gt = Gs + stage * MQ * LD;
+    const float* lse_t = lse_s + stage * MQ;
+    const float* di_t = di_s + stage * MQ;
+    // This warp's keys are all past valid, or all above the tile's last
+    // query row and past the prefix: P = 0, nothing to add.
+    const bool dead = kw0 >= valid || (a.causal && kw0 >= prefix &&
+                                       kw0 > r0 + MQ - 1);
+    if (!dead) {
       // Transposed tiles: rows are this warp's 16 key rows, columns the
-      // tile's query rows.
-      float st[NQ][4], dpt[NQ][4];
+      // step's query rows.
+      float pt[NQ][4], dpt[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+        for (int e = 0; e < 4; ++e) pt[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t ka[4], va[4];
-        load_a_frag(ka, Kw + kk * 16, LD, g, t);
-        load_a_frag(va, Vw + kk * 16, LD, g, t);
+        load_a_frag(ka, Kw + kk * 16, LD, lane);
+        load_a_frag(va, Vw + kk * 16, LD, lane);
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const T* qb = Qs + (n * 8 + g) * LD + kk * 16 + t * 2;
-          const T* gb = Gs + (n * 8 + g) * LD + kk * 16 + t * 2;
-          mma_bf16(st[n], ka, *reinterpret_cast<const uint32_t*>(qb),
-                   *reinterpret_cast<const uint32_t*>(qb + 8));
-          mma_bf16(dpt[n], va, *reinterpret_cast<const uint32_t*>(gb),
-                   *reinterpret_cast<const uint32_t*>(gb + 8));
+        for (int n = 0; n < NQ; n += 2) {
+          uint32_t qb[4], gb[4];
+          load_b_frags(qb, Qt + n * 8 * LD + kk * 16, LD, lane);
+          load_b_frags(gb, Gt + n * 8 * LD + kk * 16, LD, lane);
+          mma_bf16(pt[n], ka, qb[0], qb[1]);
+          mma_bf16(pt[n + 1], ka, qb[2], qb[3]);
+          mma_bf16(dpt[n], va, gb[0], gb[1]);
+          mma_bf16(dpt[n + 1], va, gb[2], gb[3]);
         }
       }
-      // st becomes P^T, dpt becomes dS^T
+      // pt becomes P^T, dpt becomes dS^T; the mask test only where the
+      // step cuts this warp's keys.
+      const bool inside =
+          kw0 + 16 <= valid && r0 + MQ <= q_end &&
+          (!a.causal || kw0 + 15 <= r0 || kw0 + 16 <= prefix);
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
+        const int rl = n * 8 + t * 2;
+        const float l2[2] = {lse_t[rl] * LOG2E, lse_t[rl + 1] * LOG2E};
+        const float dd[2] = {di_t[rl], di_t[rl + 1]};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = col_lo + (i / 2) * 8;
-          const int rl = n * 8 + t * 2 + (i % 2);
-          const int row = r0 + rl;
-          const bool ok =
-              row < q_end && live(row, col, valid, prefix, a.causal);
-          const float p =
-              ok ? expf(st[n][i] * a.sm_scale - lse_s[rl]) : 0.f;
-          st[n][i] = p;
-          dpt[n][i] = p * (dpt[n][i] - di_s[rl]) * a.sm_scale;
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(pt[n][e], c2, -l2[e % 2]));
+          if (!inside) {
+            const int col = col_lo + (e / 2) * 8;
+            const int row = r0 + rl + (e % 2);
+            if (!(row < q_end && live(row, col, valid, prefix, a.causal)))
+              p = 0.f;
+          }
+          pt[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - dd[e % 2]) * a.sm_scale;
         }
       }
-      // dV += P^T dO and dK += dS^T Q, 16 query rows per step.
+      // dV += P^T dO and dK += dS^T Q, 16 query rows per k-step.
 #pragma unroll
       for (int kk = 0; kk < MQ / 16; ++kk) {
         uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+        pa[0] = pack_bf16(pt[2 * kk][0], pt[2 * kk][1]);
+        pa[1] = pack_bf16(pt[2 * kk][2], pt[2 * kk][3]);
+        pa[2] = pack_bf16(pt[2 * kk + 1][0], pt[2 * kk + 1][1]);
+        pa[3] = pack_bf16(pt[2 * kk + 1][2], pt[2 * kk + 1][3]);
         sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
         sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
         sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
@@ -597,15 +780,17 @@ flash_bwd_dkv_mma(const FlashBwdArgs a) {
 #pragma unroll
         for (int n = 0; n < OT; n += 2) {
           uint32_t bb[4];
-          load_b_trans(bb, Gs + kk * 16 * LD + n * 8, LD, lane);
+          load_b_trans(bb, Gt + kk * 16 * LD + n * 8, LD, lane);
           mma_bf16(acc_v[n], pa, bb[0], bb[1]);
           mma_bf16(acc_v[n + 1], pa, bb[2], bb[3]);
-          load_b_trans(bb, Qs + kk * 16 * LD + n * 8, LD, lane);
+          load_b_trans(bb, Qt + kk * 16 * LD + n * 8, LD, lane);
           mma_bf16(acc_k[n], sa, bb[0], bb[1]);
           mma_bf16(acc_k[n + 1], sa, bb[2], bb[3]);
         }
       }
     }
+    // Every warp is done with this stage before step i + 2 refills it.
+    __syncthreads();
   }
 
 #pragma unroll
@@ -624,14 +809,44 @@ flash_bwd_dkv_mma(const FlashBwdArgs a) {
   }
 }
 
+// Shared memory of the tensor-core kernels per block (bytes).
+constexpr size_t dq_mma_smem(int D) {
+  return (size_t)(2 * BQ + 2 * STAGES * MKV) * (D + PAD) * 2 + BQ * 4;
+}
+constexpr size_t dkv_mma_smem(int D, int warps, int mq) {
+  return (size_t)(2 * 16 * warps + 2 * STAGES * mq) * (D + PAD) * 2 +
+         2 * STAGES * mq * 4;
+}
+
+// Launch ``kernel`` with ``smem`` bytes of dynamic shared memory; a
+// kernel designed for ``min_blocks`` blocks per SM refuses a card that
+// holds fewer (cudaErrorLaunchOutOfResources) instead of running slower.
 template <typename K>
-cudaError_t launch(K kernel, const FlashBwdArgs& a, dim3 grid, size_t smem,
-                   cudaStream_t stream) {
+cudaError_t launch(K kernel, const FlashBwdArgs& a, dim3 grid, int threads,
+                   size_t smem, int min_blocks, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(a);
+  if (min_blocks > 1) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    if (blocks < min_blocks) return cudaErrorLaunchOutOfResources;
+  }
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D, int WARPS, int MQ, int MINB>
+cudaError_t launch_dkv_mma(const FlashBwdArgs& a, cudaStream_t stream) {
+  const dim3 grid(a.Hkv, a.B, (a.Lkv + 16 * WARPS - 1) / (16 * WARPS));
+  return launch(flash_bwd_dkv_mma<D, WARPS, MQ, MINB>, a, grid, WARPS * 32,
+                dkv_mma_smem(D, WARPS, MQ), MINB, stream);
 }
 
 static bool bad_args(const FlashBwdArgs& a) {
@@ -649,19 +864,20 @@ extern "C" int stair_flash_attn_bwd_dq(const stair::FlashBwdArgs* args,
   const FlashBwdArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
   if (a.mma) {
-    const size_t smem =
-        (size_t)(2 * BQ + 2 * MKV) * (a.D + PAD) * sizeof(__nv_bfloat16);
-    return (int)(a.D == 64 ? launch(flash_bwd_dq_mma<64>, a, grid, smem, st)
-                           : launch(flash_bwd_dq_mma<128>, a, grid, smem, st));
+    const dim3 grid(a.H, a.B, (a.Lq + BQ - 1) / BQ);
+    return (int)(a.D == 64 ? launch(flash_bwd_dq_mma<64>, a, grid, THREADS,
+                                    dq_mma_smem(64), 2, st)
+                           : launch(flash_bwd_dq_mma<128>, a, grid, THREADS,
+                                    dq_mma_smem(128), 2, st));
   }
+  const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
   const size_t smem = sizeof(float) * ((size_t)2 * BQ * a.D +
                                        2 * SKV * (a.D + 1) + 4 * SROWS * SKV);
-  return (int)(a.bf16
-                   ? launch(flash_bwd_dq_simple<__nv_bfloat16>, a, grid, smem,
-                            st)
-                   : launch(flash_bwd_dq_simple<float>, a, grid, smem, st));
+  return (int)(a.bf16 ? launch(flash_bwd_dq_simple<__nv_bfloat16>, a, grid,
+                               THREADS, smem, 1, st)
+                      : launch(flash_bwd_dq_simple<float>, a, grid, THREADS,
+                               smem, 1, st));
 }
 
 extern "C" int stair_flash_attn_bwd_dkv(const stair::FlashBwdArgs* args,
@@ -670,24 +886,18 @@ extern "C" int stair_flash_attn_bwd_dkv(const stair::FlashBwdArgs* args,
   const FlashBwdArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
-  if (a.mma) {
-    const dim3 grid((a.Lkv + MKV - 1) / MKV, a.Hkv, a.B);
-    // 64 query rows per tile at head_dim 64; 32 at 128, where dK and dV
-    // alone fill 128 registers a thread.
-    const int mq = a.D == 64 ? 64 : 32;
-    const size_t smem =
-        (size_t)(2 * MKV + 2 * mq) * (a.D + PAD) * sizeof(__nv_bfloat16) +
-        2 * mq * sizeof(float);
+  if (a.mma)
     return (int)(a.D == 64
-                     ? launch(flash_bwd_dkv_mma<64, 64>, a, grid, smem, st)
-                     : launch(flash_bwd_dkv_mma<128, 32>, a, grid, smem, st));
-  }
+                     ? launch_dkv_mma<64, DKV_WARPS_D64, DKV_MQ_D64,
+                                      DKV_MINB_D64>(a, st)
+                     : launch_dkv_mma<128, DKV_WARPS_D128, DKV_MQ_D128,
+                                      DKV_MINB_D128>(a, st));
   const dim3 grid((a.Lkv + SBKV - 1) / SBKV, a.Hkv, a.B);
   const size_t smem =
       sizeof(float) * ((size_t)2 * SBKV * a.D + 2 * SQ * (a.D + 1) +
                        2 * 4 * CW * SQ);
-  return (int)(a.bf16
-                   ? launch(flash_bwd_dkv_simple<__nv_bfloat16>, a, grid, smem,
-                            st)
-                   : launch(flash_bwd_dkv_simple<float>, a, grid, smem, st));
+  return (int)(a.bf16 ? launch(flash_bwd_dkv_simple<__nv_bfloat16>, a, grid,
+                               THREADS, smem, 1, st)
+                      : launch(flash_bwd_dkv_simple<float>, a, grid, THREADS,
+                               smem, 1, st));
 }

@@ -1,7 +1,7 @@
 // What the flash-attention forward (flash_attn.cu) and backward
-// (flash_attn_bwd.cu) kernels share: the two-integer mask, the staging of
-// a bf16 tile into padded shared memory (synchronous, or by cp.async for
-// the forward's K/V ring) and the fragment loads of the mma.sync product.
+// (flash_attn_bwd.cu) kernels share: the two-integer mask, the cp.async
+// staging of a bf16 tile into padded shared memory for the kernels' tile
+// rings, and the fragment loads of the mma.sync product.
 #pragma once
 
 #include "common.cuh"
@@ -10,6 +10,8 @@ namespace stair {
 
 constexpr float MASK_VALUE = -1e30f;
 constexpr int PAD = 8;       // bf16 elements of row padding in shared memory
+constexpr int STAGES = 2;    // tiles in flight in a cp.async ring
+constexpr float LOG2E = 1.4426950408889634f;
 
 // Column ``col`` is live for query row ``row``: below ``valid`` and either
 // not causal, on or below the diagonal, or inside the visible prefix.
@@ -18,26 +20,18 @@ __device__ __forceinline__ bool live(int row, int col, int valid, int prefix,
   return col < valid && (!causal || col <= row || col < prefix);
 }
 
-// Stage ``rows`` x D bf16 (16-byte chunks) into shared memory with row
-// stride D + PAD; rows at or past ``limit`` become zeros. NT threads.
-template <int D, int NT>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int first,
-                                           int limit, int rows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += NT) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < limit)
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(first + r) * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c * 8) = val;
-  }
+// The key range [0, kv_end) a tile of ``rows`` query rows starting at q0
+// has to visit.
+__device__ __forceinline__ int kv_end_of(int q0, int rows, int valid,
+                                         int prefix, int causal) {
+  int end = valid;
+  if (causal) end = min(end, max(q0 + rows, prefix));
+  return end;
 }
 
-// stage_tile with cp.async: the copies are started, not waited for (the
-// caller commits and waits). Rows at or past ``limit`` become zeros.
+// Start copying ``rows`` x D bf16 (16-byte chunks) into shared memory with
+// row stride D + PAD by cp.async; the caller commits and waits. Rows at or
+// past ``limit`` become zeros. NT threads.
 template <int D, int NT>
 __device__ __forceinline__ void stage_tile_async(__nv_bfloat16* dst,
                                                  const __nv_bfloat16* src,
@@ -54,16 +48,25 @@ __device__ __forceinline__ void stage_tile_async(__nv_bfloat16* dst,
 }
 
 // The 16 x 16 bf16 A fragment (row-major) of mma m16n8k16 whose top-left
-// element is ``base`` in a shared tile of row stride ``ld``: g = lane / 4
-// is the row, t = lane % 4 the column pair.
+// element is ``base`` in a shared tile of row stride ``ld``, in one
+// ldmatrix x4 (matrices: rows 0-7 / 8-15 x columns 0-7, then rows 0-7 /
+// 8-15 x columns 8-15).
 __device__ __forceinline__ void load_a_frag(uint32_t (&f)[4],
                                             const __nv_bfloat16* base, int ld,
-                                            int g, int t) {
-  const __nv_bfloat16* p = base + g * ld + t * 2;
-  f[0] = *reinterpret_cast<const uint32_t*>(p);
-  f[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  f[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  f[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+                                            int lane) {
+  ldmatrix_x4(
+      f, base + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
+}
+
+// The B fragments of two adjacent n-tiles of a product whose B^T is
+// row-major in shared memory (B^T rows = the product's columns, B^T
+// columns = its depth): ldmatrix x4 of the 16 x 16 block at ``base``;
+// registers 0,1 are the fragment of B^T rows 0-7, 2,3 of rows 8-15.
+__device__ __forceinline__ void load_b_frags(uint32_t (&b)[4],
+                                             const __nv_bfloat16* base,
+                                             int ld, int lane) {
+  ldmatrix_x4(
+      b, base + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8);
 }
 
 // ldmatrix x4 .trans of a 16 (rows, the product's depth) x 16 (columns)

@@ -1,5 +1,5 @@
 """The card's identity, the entry points' device choice, exact-f32
-settings, and a CUDA-event timer."""
+settings, and two CUDA-event timers."""
 
 from __future__ import annotations
 
@@ -52,3 +52,21 @@ def cuda_time_ms(fn, iters=10, warmup=2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in
+    one CUDA graph and replayed, so that no host time sits between the
+    launches (at the main path's shapes the attention wrappers' Python
+    takes longer than their kernels, and back-to-back calls time the
+    host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    return cuda_time_ms(graph.replay, iters=5, warmup=2) / iters

@@ -23,6 +23,7 @@ import torch
 
 from stair_tpu_torch.ops import _build
 from stair_tpu_torch.ops import attention as TA
+from stair_tpu_torch.scripts import flash_bwd_tiles
 from torch_port_util import cuda_device  # noqa: F401
 
 try:
@@ -253,6 +254,14 @@ CARD_CASES = [
     ("gqaH-D64", 2, 8, 1, 130, 130, 64, [0, 30], [130, 99], True),
     ("LqLkv", 2, 4, 2, 100, 160, 64, [20, 0], [160, 90], True),
     ("noncausal", 2, 4, 4, 100, 333, 64, [0, 0], [333, 90], False),
+    # valid_len at the edges of the 64-row query tiles and 64- or 128-row
+    # key blocks of the tensor-core kernels
+    ("tile-edges", 6, 4, 4, 160, 160, 128, [0] * 6,
+     [63, 64, 65, 127, 128, 129], True),
+    ("tile-edges-D64", 6, 4, 2, 160, 160, 64, [0, 0, 70, 0, 0, 0],
+     [63, 64, 65, 127, 128, 129], True),
+    ("gqa32", 2, 32, 1, 200, 200, 128, [0, 50], [200, 131], True),
+    ("noncausal-D128", 2, 4, 2, 130, 70, 128, [0, 0], [70, 50], False),
 ]
 
 
@@ -313,3 +322,210 @@ def test_function_launches_the_kernels_on_card(cuda_device):
     assert _build.LAUNCHES["flash_attn_bwd_dkv"] == 1
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (tq, tk, tv))
+
+
+def _card_inputs(case, dtype, dev):
+    _, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal = case
+    q, k, v, do = _inputs(B, H, Hkv, Lq, Lkv, D, seed=Lq + 1, scale=1.0)
+    tq, tk, tv = (_t(x.transpose(0, 2, 1, 3).copy(), dtype, dev)
+                  .transpose(1, 2) for x in (q, k, v))
+    pl, vl = _lens(prefix, valid, dev)
+    out, lse = TA.flash_attention(tq, tk, tv, pl, vl, causal=causal,
+                                  return_lse=True)
+    return tq, tk, tv, out, lse, _t(do, dtype, dev), pl, vl
+
+
+DI_CASES = [c for c in CARD_CASES
+            if c[0] in ("causal", "ragged", "valid0", "odd-D32", "gqa4",
+                        "tile-edges-D64", "noncausal-D128")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DI_CASES, ids=[c[0] for c in DI_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_di_written_by_the_dq_launch_on_card(cuda_device, case, dtype):
+    """The dQ launch writes ``di = rowsum(f32(O) f32(dO))``: within 1e-5 of
+    each live row's sum of ``|O dO|`` (float32 sums in another order) of
+    ``reference_di``, exactly 0 on padding rows."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    tq, tk, tv, out, lse, tdo, pl, vl = _card_inputs(case, dt, cuda_device)
+    D = tq.shape[-1]
+    args, _, keep = TA._backward_args(tq, tk, tv, out, lse, tdo, pl, vl,
+                                      case[-1], 1.0 / math.sqrt(D))
+    TA._launch_dq(args, cuda_device)
+    torch.cuda.synchronize()
+    got = keep["di"]
+    want = TA.reference_di(out, tdo, vl)
+    scale = TA.reference_di(out.float().abs(), tdo.float().abs(), vl)
+    assert torch.isfinite(got).all()
+    assert float(((got - want).abs() / scale.clamp(min=1e-30)).max()) <= 1e-5
+    for b, nv in enumerate(case[8]):
+        assert float(got[b, :, nv:].abs().sum()) == 0.0, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_backward_is_two_launches_on_card(cuda_device, dtype):
+    """One ``_launch_backward`` call is the dQ launch then the dK/dV launch
+    and nothing else on the device (``torch.profiler`` device events): no
+    eager ``di``, no copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = CARD_CASES[0]
+    tq, tk, tv, out, lse, tdo, pl, vl = _card_inputs(case, dt, cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TA._launch_backward(tq, tk, tv, out, lse, tdo, pl, vl, True,
+                            1.0 / math.sqrt(tq.shape[-1]))
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert "flash_bwd_dq" in names[0] and "flash_bwd_dkv" in names[1], names
+
+
+# dtype, head_dim, aligned -> route
+ROUTES = [
+    (torch.bfloat16, 64, True, "mma"),
+    (torch.bfloat16, 128, True, "mma"),
+    (torch.bfloat16, 128, False, "simple"),
+    (torch.bfloat16, 96, True, "simple"),
+    (torch.bfloat16, 32, True, "simple"),
+    (torch.float32, 64, True, "simple"),
+    (torch.float32, 128, True, "simple"),
+]
+
+
+@pytest.mark.parametrize(
+    "route", ROUTES,
+    ids=[f"{str(r[0])[6:]}-D{r[1]}-{'al' if r[2] else 'un'}" for r in ROUTES])
+def test_kernel_route_choice(route):
+    """Forward and backward take the tensor-core kernels on the same
+    inputs."""
+    dtype, D, aligned, want = route
+    assert TA.route(dtype, D, aligned) == want
+
+
+#: the card's shared memory: per block, and per SM (each block reserves
+#: 1 KB of it)
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+
+
+@pytest.mark.parametrize("tile", [None, *flash_bwd_tiles.CANDIDATES.values()],
+                         ids=["source", *flash_bwd_tiles.CANDIDATES])
+@pytest.mark.parametrize("D", [64, 128])
+def test_backward_shared_memory_fits(tile, D):
+    """Every compiled tile of the tensor-core kernels (the source's and the
+    tile script's candidates) fits a block's shared memory, and as many
+    blocks as it is designed for fit one SM."""
+    tile = tile or flash_bwd_tiles.source_tile(D)
+    dq, dkv = flash_bwd_tiles.smem_bytes(D, tile)
+    warps, mq, minb = tile
+    assert mq % 16 == 0 and warps in (4, 8)
+    assert dq <= SMEM_BLOCK and dkv <= SMEM_BLOCK
+    assert 2 * (dq + SMEM_RESERVED) <= SMEM_SM     # dQ: two blocks per SM
+    assert minb * (dkv + SMEM_RESERVED) <= SMEM_SM
+    # the source's arithmetic at the first port's tiles
+    assert flash_bwd_tiles.smem_bytes(128, (4, 32, 2))[1] == (
+        (2 * 64 + 4 * 32) * 136 * 2 + 512)
+    assert dq == (2 * 64 + 4 * 64) * (D + 8) * 2 + 256
+
+
+def test_tile_script_rewrites_the_source_tile():
+    text = flash_bwd_tiles.tile_source((8, 64, 1))
+    for d in (64, 128):
+        assert f"constexpr int DKV_WARPS_D{d} = 8;" in text
+        assert f"constexpr int DKV_MQ_D{d} = 64;" in text
+        assert f"constexpr int DKV_MINB_D{d} = 1;" in text
+    assert text.count("constexpr int DKV_") == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_backward_args_allocate_di_and_compute_nothing(monkeypatch, dtype):
+    """``_backward_args`` allocates the ``di`` buffer that the dQ launch
+    fills and runs no arithmetic of its own (no eager ``di``): every aten
+    op it runs is an allocation or a view."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(TA, "_check", lambda *a: None)
+    B, H, Hkv, L, D = 2, 4, 2, 24, 64
+    q, k, v, do = _inputs(B, H, Hkv, L, L, D, seed=4)
+    tq, tk, tv, tdo = (_t(x.transpose(0, 2, 1, 3).copy(), dtype)
+                       .transpose(1, 2) for x in (q, k, v, do))
+    pl, vl = _lens([0, 3], [24, 17])
+    out, lse = TA.reference_attention(tq, tk, tv, pl, vl)
+    with Ops() as ops:
+        args, grads, keep = TA._backward_args(tq, tk, tv, out, lse, tdo, pl,
+                                              vl, True, 0.125)
+    assert set(ops.names) <= {"empty", "transpose"}, ops.names
+    di = keep["di"]
+    assert di.shape == (B, H, L) and di.dtype == torch.float32
+    assert args.di == di.data_ptr() and args.o == out.data_ptr()
+    assert (args.o_sb, args.o_sh, args.o_sl) == out.stride()[:3]
+    assert args.mma == (dtype == torch.bfloat16)
+    assert [g.shape for g in grads] == [tq.shape, tk.shape, tv.shape]
+
+
+def test_reference_di_reads_padding_rows_as_zero():
+    rng = np.random.RandomState(8)
+    out = rng.randn(2, 3, 7, 5).astype(np.float32)
+    do = rng.randn(2, 3, 7, 5).astype(np.float32)
+    do[1, :, 4:] = np.nan
+    got = TA.reference_di(_t(out), _t(do), torch.tensor([7, 4])).numpy()
+    want = (out.astype(np.float64) * do).sum(-1)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[1, :, :4], want[1, :, :4], rtol=1e-5,
+                               atol=1e-6)
+    assert np.all(got[1, :, 4:] == 0.0)
+
+
+def test_ptxas_report_names_kernels_and_spills():
+    """``chip_smoke.py`` and the tile script read registers and spills per
+    kernel from the build log with ``_build.ptxas_report``."""
+    dkv = ("_ZN5stair17flash_bwd_dkv_mmaILi128ELi4ELi32ELi2EEEv"
+           "NS_12FlashBwdArgsE")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{dkv}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {dkv}",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN5stair19flash_bwd_dq_simpleI13__nv_bfloat16EEvNS_12FlashBwdArgsE'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, "
+        "528 bytes cmem[0]",
+    ])
+    assert _build.ptxas_report(log) == [
+        {"kernel": "flash_bwd_dkv_mma<128, 4, 32, 2>", "spill_stores": 8,
+         "spill_loads": 12, "registers": 255},
+        {"kernel": "flash_bwd_dq_simple<__nv_bfloat16>", "spill_stores": 0,
+         "spill_loads": 0, "registers": 168},
+    ]
+    assert _build.kernel_label(
+        "_ZN5stair16flash_bwd_dq_mmaILi64EEEvNS_12FlashBwdArgsE") == (
+        "flash_bwd_dq_mma<64>")
+    assert _build.kernel_label("not_mangled") == "not_mangled"
+
+
+def test_ab_script_runs_checkouts_in_turns():
+    """``scripts/attention_bwd_ab.py`` compares checkouts in turns on one
+    card: A B B A."""
+    from stair_tpu_torch.scripts import attention_bwd_ab
+
+    assert attention_bwd_ab.turn_order(["a", "b"], 2) == ["a", "b", "b", "a"]
+    assert attention_bwd_ab.turn_order(["a"], 3) == ["a", "a", "a"]
