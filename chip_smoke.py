@@ -10,7 +10,9 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device: refuse to run without CUDA; print the card's name and power
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
-2. build: compile the CUDA kernels from ``stair_tpu_torch/ops/csrc``;
+2. build: compile the CUDA kernels from ``stair_tpu_torch/ops/csrc``, print
+   every kernel's ptxas registers and spills, and fail on a spill in the
+   tensor-core kernels (the attention backward's and the executor's);
 3. BiLSTM forward kernels vs their plain version at the slice's shapes (B
    = 1024, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
    with non-suffix masks and an all-padding row: float32 on the general
@@ -20,14 +22,16 @@ Phases (any failure raises, and the script exits non-zero):
    with identical bits;
 4. executor kernel vs its plain version over the all-opcode program set at
    H = 512, both Filter modes and both temporal modes (F = 16 linear,
-   F = 64 conv), float32 and bf16;
+   F = 64 conv), float32 (the general route) and bf16 on both of its
+   routes (the tensor-core kernel and the general one);
 5. the slice end to end at the bench configuration (H = 512, video 1024,
    text 300, F = 64, 172 answers, bf16, B = 1024, the 128-program pool):
    native parse/lower with span linking, tokenization to ids, pinned H2D,
    device embedding gather, ``VideoNMN.forward``, logits fetch — for a few
    batches, with launch counters proving both kernels ran (the BiLSTM on
-   its cluster route, none on the general route), and kernel vs plain
-   route on one batch;
+   its cluster route and the executor on its tensor-core route, none on
+   the general routes), kernel vs plain route on one batch, and both
+   executor routes against the plain version on the main path's inputs;
 6. BiLSTM training kernels (forward with state stacks, backward and its
    dwh/dbias reduction) vs their plain versions at the training shapes
    (B = 128, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
@@ -39,18 +43,24 @@ Phases (any failure raises, and the script exits non-zero):
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
    (three runs, the last two on inputs moved by 1e-4 to move ReLU kinks:
-   all within 5e-2, two of three within 1e-4) and bf16 (within 1e-1); two
-   backward runs must give identical bits;
+   all within 5e-2, two of three within 1e-4) and bf16 on both backward
+   routes (tensor-core and general, within 1e-1); two backward runs must
+   give identical bits; the tensor-core walk's recompute helper
+   (``gemm_rows``) against the training forward's (``gemm``) at the walk's
+   shapes, for both roundings of A: equal bits;
 8. the training slice at ``scripts/bench_train_step.py``'s configuration
    (H = 512, video 1024, text 300, F = 64, 172 answers, 64 object types,
    bf16, dropout 0.25, B = 128, fake supervision, Adam at lr 2e-4 with the
    trainer's 1.0 -> 0.1 schedule): 10 steps on the kernel route with launch
    counts per step (the BiLSTM forward and backward on their cluster
-   routes, none on the general routes) and a falling loss, one step kernel vs plain route (the
+   routes, the executor backward on its tensor-core route, none on the
+   general routes) and a falling loss, one step kernel vs plain route (the
    loss in bf16; the gradients leaf by leaf in float32, where rounding
-   sites agree), ms per step on both routes, and each training kernel's
-   time beside its plain version's at these shapes (the BiLSTM forward and
-   backward also on their general routes);
+   sites agree), ms per step on both routes, each training kernel against
+   its plain version on the step's own inputs (the executor backward on the
+   plain forward's register files, the inputs the plain backward sees) and
+   its time beside its plain version's at these shapes (the BiLSTM forward and
+   backward and the executor backward also on their general routes);
 9. the attention kernel vs its plain version: B = 4, H = 32, D = 128 at
    L = 640 and a ragged L = 611 (strided views), grouped heads 32 / 8,
    D = 64 with mixed ``prefix_len``, non-causal with Lq != Lkv, a head_dim
@@ -150,12 +160,15 @@ TRAIN_STEPS = 10
 #: (forward and backward on their bf16 cluster routes: the forward, the
 #: backward's walk, dwh slices and their sum; none on the general routes),
 #: the class table through the eval kernel's cluster route, one executor
-#: pair
+#: training forward (#5, the general route) and its backward on the
+#: tensor-core route (the walk and the weight gradients; none on the
+#: general route)
 TRAIN_LAUNCHES = {"bilstm": 0, "bilstm_train": 0, "bilstm_tc": 1,
                   "bilstm_train_tc": 2, "bilstm_bwd": 0, "bilstm_dwh": 0,
                   "bilstm_bwd_tc": 2, "bilstm_dwh_tc": 2, "bilstm_dwh_sum": 2,
-                  "mega_exec": 0, "mega_exec_train": 1, "mega_exec_bwd": 1,
-                  "mega_exec_wgrad": 1}
+                  "mega_exec": 0, "mega_exec_tc": 0, "mega_exec_train": 1,
+                  "mega_exec_bwd": 0, "mega_exec_wgrad": 0,
+                  "mega_exec_bwd_tc": 1, "mega_exec_wgrad_tc": 1}
 
 
 #: what an earlier phase measured and a later one prints beside its own
@@ -352,6 +365,28 @@ def general_lstm_bwd():
 
 
 @contextlib.contextmanager
+def general_mega():
+    """Send the executor's eval forward and backward through their general
+    routes (``mega_exec``; ``mega_exec_bwd`` + ``mega_exec_wgrad``)
+    whatever ``mega_exec.fwd_route`` and ``mega_grad.bwd_route`` pick."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+
+    picks = TX.fwd_route, TG.bwd_route
+    TX.fwd_route = lambda *a: "general"
+    TG.bwd_route = lambda *a: "general"
+    try:
+        yield
+    finally:
+        TX.fwd_route, TG.bwd_route = picks
+
+
+#: the bf16 executor's routes: name, eval launch key, context
+MEGA_ROUTES = (("tc", "mega_exec_tc", contextlib.nullcontext),
+               ("general", "mega_exec", general_mega))
+
+
+@contextlib.contextmanager
 def kernel_route(keys):
     """Fail unless every kernel named in ``keys`` was launched inside the
     block."""
@@ -459,6 +494,7 @@ def phase_lstm(dev):
 
 def phase_mega(dev):
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+    from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.testing import workload as W
 
@@ -485,8 +521,6 @@ def phase_mega(dev):
                 cfg, mods, VideoNMN._fused_tables(mods), batch["trace"],
                 halves[:2], batch["video_mask"], halves[2:],
                 batch["question_mask"])
-            out = TX.mega_exec_call(meta, args)
-            torch.cuda.synchronize()
             ref = TX.mega_exec_reference(meta, args)
             if dtype == torch.float32:
                 tol = (1e-4, 1e-4)
@@ -495,22 +529,38 @@ def phase_mega(dev):
                 # [8, 16)), so rtol 1e-2 allows about 1.3 to 2.6 steps; the
                 # float32 check at 1e-4 is what catches logic errors
                 tol = (1e-2, 3e-2)
-            for o, r, what in zip(out, ref, ("regs_vec", "regs_frames",
-                                             "regs_attn")):
-                torch.testing.assert_close(o.float(), r.float(), rtol=tol[0],
-                                           atol=tol[1], msg=what)
-            agree = np.mean([
-                (o.float().argmax(-1) == r.float().argmax(-1)).float()
-                .mean().item() for o, r in zip(out, ref)])
-            if dtype == torch.bfloat16:
-                require(agree >= 0.98, f"register argmax agreement {agree}")
-            e = max_err(out, ref)
-            errs[(F, attention, str(dtype))] = e
-            log(f"[mega_exec] all {len(W.OPCODE_PROGRAMS)} opcode programs "
-                f"x8 H=512 F={F} {attention} "
-                f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
-                f"{dtype}: max_abs_err {e:.3e}, row argmax agreement "
-                f"{agree:.4f} (rtol {tol[0]}, atol {tol[1]}) ok")
+            # float32 has the general route alone; bf16 both
+            for route, key, ctx in MEGA_ROUTES:
+                if TX.fwd_route(dtype, 512, F, False) != route and (
+                        route != "general"):
+                    continue
+                with ctx():
+                    _build.reset_launches()
+                    out = TX.mega_exec_call(meta, args)
+                    torch.cuda.synchronize()
+                other = "mega_exec" if key == "mega_exec_tc" else \
+                    "mega_exec_tc"
+                require(_build.LAUNCHES[key] == 1
+                        and _build.LAUNCHES[other] == 0,
+                        f"mega_exec {route} route launches {_build.LAUNCHES}")
+                for o, r, what in zip(out, ref, ("regs_vec", "regs_frames",
+                                                 "regs_attn")):
+                    torch.testing.assert_close(
+                        o.float(), r.float(), rtol=tol[0], atol=tol[1],
+                        msg=f"{route} route {what}")
+                agree = np.mean([
+                    (o.float().argmax(-1) == r.float().argmax(-1)).float()
+                    .mean().item() for o, r in zip(out, ref)])
+                if dtype == torch.bfloat16:
+                    require(agree >= 0.98,
+                            f"{route} route register argmax agreement {agree}")
+                e = max_err(out, ref)
+                errs[(F, attention, str(dtype), route)] = e
+                log(f"[mega_exec] all {len(W.OPCODE_PROGRAMS)} opcode "
+                    f"programs x8 H=512 F={F} {attention} "
+                    f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
+                    f"{dtype} {route} route: max_abs_err {e:.3e}, row argmax "
+                    f"agreement {agree:.4f} (rtol {tol[0]}, atol {tol[1]}) ok")
     return errs
 
 
@@ -554,8 +604,10 @@ def phase_slice(dev, card):
             and launches["bilstm"] == 0,
             f"bilstm_tc launches {launches['bilstm_tc']} != "
             f"{2 * NUM_BATCHES} (general route {launches['bilstm']})")
-    require(launches["mega_exec"] == NUM_BATCHES,
-            f"mega_exec launches {launches['mega_exec']} != {NUM_BATCHES}")
+    require(launches["mega_exec_tc"] == NUM_BATCHES
+            and launches["mega_exec"] == 0,
+            f"mega_exec_tc launches {launches['mega_exec_tc']} != "
+            f"{NUM_BATCHES} (general route {launches['mega_exec']})")
     for lg in fetched:
         require(lg.shape == (BATCH, cfg.answer_vocab_length), "logits shape")
         require(bool(torch.isfinite(lg).all()), "non-finite logits")
@@ -566,14 +618,14 @@ def phase_slice(dev, card):
 
     # ---- kernel route vs plain route on one batch -------------------------
     b0 = device_batch(hb0)
-    with kernel_route(("bilstm_tc", "mega_exec")):
+    with kernel_route(("bilstm_tc", "mega_exec_tc")):
         kern = forward(b0).float()
     with plain_route():
         plain = forward(b0).float()
     torch.cuda.synchronize()
     agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
     require(agree >= 0.98, f"kernel/plain argmax agreement {agree}")
-    with kernel_route(("bilstm_tc", "mega_exec")):
+    with kernel_route(("bilstm_tc", "mega_exec_tc")):
         dev_ms = cuda_time_ms(lambda: forward(b0), iters=5, warmup=1)
     with plain_route():
         plain_dev_ms = cuda_time_ms(lambda: forward(b0), iters=3, warmup=1)
@@ -601,13 +653,19 @@ def phase_slice(dev, card):
     meta, args = TX.prepare_args(
         cfg, mods, VideoNMN._fused_tables(mods), b0["trace"], kv[:2],
         b0["video_mask"].to(dt), kq[:2], b0["question_mask"])
-    km = TX.mega_exec_call(meta, args)
     rm = TX.mega_exec_reference(meta, args)
-    mega_err = max_err(km, rm)
-    for o, r in zip(km, rm):
-        torch.testing.assert_close(o.float(), r.float(), rtol=1e-2, atol=3e-2)
+    mega_errs = {}
+    for route, _, ctx in MEGA_ROUTES:
+        with ctx():
+            km = TX.mega_exec_call(meta, args)
+        mega_errs[route] = max_err(km, rm)
+        for o, r in zip(km, rm):
+            torch.testing.assert_close(o.float(), r.float(), rtol=1e-2,
+                                       atol=3e-2, msg=f"{route} route")
+    mega_err = mega_errs["tc"]
     log(f"[main-path inputs] bilstm max_abs_err {lstm_err:.3e} (atol 2e-2); "
-        f"mega_exec max_abs_err {mega_err:.3e} (rtol 1e-2, atol 3e-2) ok")
+        f"mega_exec max_abs_err tensor-core route {mega_err:.3e}, general "
+        f"route {mega_errs['general']:.3e} (rtol 1e-2, atol 3e-2) ok")
 
     def both():
         return (TL.bilstm(*vargs, token_dtype=dt),
@@ -615,6 +673,11 @@ def phase_slice(dev, card):
 
     with general_lstm_fwd():
         general_ms = cuda_time_ms(both, iters=3)
+
+    def general_ms_of(fn):
+        with general_mega():
+            return cuda_time_ms(fn, iters=3)
+
     t = {
         "bilstm_video": cuda_time_ms(lambda: TL.bilstm(*vargs,
                                                        token_dtype=dt)),
@@ -627,6 +690,8 @@ def phase_slice(dev, card):
             lambda: TL.bilstm_reference(*qargs, token_dtype=dt), iters=3),
         "mega_exec": cuda_time_ms(lambda: TX.mega_exec_call(meta, args),
                                   iters=5),
+        "mega_exec_general": general_ms_of(
+            lambda: TX.mega_exec_call(meta, args)),
         "mega_exec_plain": cuda_time_ms(
             lambda: TX.mega_exec_reference(meta, args), iters=3),
     }
@@ -658,9 +723,10 @@ def phase_slice(dev, card):
         {"name": "mega_exec", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
          "replaces": "stair_tpu/ops/mega_exec.py:123",
-         "launches": launches["mega_exec"], "max_abs_err": mega_err,
-         "ms": t["mega_exec"], "plain_ms": t["mega_exec_plain"],
-         **mega_b, "library_ms": None},
+         "executor_route": "tc",
+         "launches": launches["mega_exec_tc"], "max_abs_err": mega_err,
+         "ms": t["mega_exec"], "general_ms": t["mega_exec_general"],
+         "plain_ms": t["mega_exec_plain"], **mega_b, "library_ms": None},
     ]
 
 
@@ -807,47 +873,82 @@ def phase_mega_train(dev):
                 if gouts is None:
                     gouts = [torch.randn(o.shape, generator=gen).to(dev)
                              for o in out]
-                kb = TG.mega_exec_bwd_call(meta, args, out, gouts, rate, seed)
-                if k == 0:
-                    kb2 = TG.mega_exec_bwd_call(meta, args, out, gouts, rate,
-                                                seed)
-                    torch.cuda.synchronize()
-                    require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
-                            "executor backward is not deterministic")
                 rb = TG.mega_exec_bwd_reference(meta, args, out, gouts, rate,
                                                 seed)
-                grads, plain = dict(zip(names, kb)), dict(zip(names, rb))
-                ref_scale = max(float(plain["fltw"].float().abs().max()),
-                                1e-12)
-                noise = max((float(t[n].float().abs().max()) / ref_scale
-                             for t in (grads, plain) for n in vanish),
-                            default=0.0)
-                require(noise <= 1e-3,
-                        f"mega_exec_bwd {vanish} not ~0: {noise}")
-                bwd = {n: rel_err(grads[n], plain[n]) for n in names
-                       if n not in vanish}
-                worst = max(bwd, key=bwd.get)
-                require(bwd[worst] <= loose,
-                        f"mega_exec_bwd F={F} {attention} {dtype} run {k}: "
-                        f"bound {loose}: {bwd}")
-                worsts.append((bwd[worst], worst))
-                if k == 0:
-                    e0 = (max_err(out, ref), max_err(kb, rb))
+                plain = dict(zip(names, rb))
+                # float32: the general route alone; bf16: both routes, the
+                # tensor-core one first (its worst error is the run's)
+                for route, _, ctx in MEGA_ROUTES:
+                    if route == "tc" and TG.bwd_route(dtype, HIDDEN, F) != "tc":
+                        continue
+                    with ctx():
+                        kb = TG.mega_exec_bwd_call(meta, args, out, gouts,
+                                                   rate, seed)
+                        if k == 0:
+                            kb2 = TG.mega_exec_bwd_call(meta, args, out,
+                                                        gouts, rate, seed)
+                            torch.cuda.synchronize()
+                            require(all(torch.equal(x, y)
+                                        for x, y in zip(kb, kb2)),
+                                    f"executor backward ({route} route) is "
+                                    "not deterministic")
+                    grads = dict(zip(names, kb))
+                    ref_scale = max(float(plain["fltw"].float().abs().max()),
+                                    1e-12)
+                    noise = max((float(t[n].float().abs().max()) / ref_scale
+                                 for t in (grads, plain) for n in vanish),
+                                default=0.0)
+                    require(noise <= 1e-3,
+                            f"mega_exec_bwd {route} route {vanish} not ~0: "
+                            f"{noise}")
+                    bwd = {n: rel_err(grads[n], plain[n]) for n in names
+                           if n not in vanish}
+                    worst = max(bwd, key=bwd.get)
+                    require(bwd[worst] <= loose,
+                            f"mega_exec_bwd {route} route F={F} {attention} "
+                            f"{dtype} run {k}: bound {loose}: {bwd}")
+                    if route == "general" and dtype == torch.bfloat16:
+                        general_worst = (bwd[worst], worst)
+                        continue
+                    worsts.append((bwd[worst], worst))
+                    if k == 0:
+                        e0 = (max_err(out, ref), max_err(kb, rb))
             n_tight = sum(w <= tight for w, _ in worsts)
             require(2 * n_tight > runs,
                     f"mega_exec_bwd F={F} {attention} {dtype}: only "
                     f"{n_tight} of {runs} runs within {tight}: {worsts}")
             errs[(F, attention, str(dtype))] = e0
+            routes = ("tensor-core route" if dtype == torch.bfloat16
+                      else "general route")
             log(f"[mega_exec train] all {len(W.OPCODE_PROGRAMS)} opcode "
                 f"programs x2 H={HIDDEN} F={F} {attention} rate {rate} {dtype}: "
                 f"forward max_abs_err {e0[0]:.3e} (rtol {ftol[0]}, atol "
-                f"{ftol[1]}); backward over {len(bwd)} gradients max rel "
-                f"err per run {[(f'{w:.2e}', n) for w, n in worsts]} "
+                f"{ftol[1]}); backward ({routes}) over {len(bwd)} gradients "
+                f"max rel err per run {[(f'{w:.2e}', n) for w, n in worsts]} "
                 f"({n_tight} of {runs} within {tight}, all within {loose})"
+                + (f"; general route {general_worst[0]:.2e} at "
+                   f"{general_worst[1]}" if dtype == torch.bfloat16 else "")
                 + (f"; {'/'.join(vanish)} (0 in exact arithmetic) at "
                    f"{noise:.2e} of the fltw gradient (bound 1e-3)"
                    if vanish else "")
                 + "; two backward runs bit-identical ok")
+    # The tensor-core walk recomputes the training forward's values with
+    # gemm_rows; it must give gemm's bits at the walk's shapes ([F, H] @ [H,
+    # H] and [F, H] @ [H, F]), A rounded to bf16 as it is loaded or not.
+    gen = torch.Generator().manual_seed(9)
+    for M, K, N in ((FRAMES, HIDDEN, HIDDEN), (16, HIDDEN, HIDDEN),
+                    (FRAMES, HIDDEN, FRAMES)):
+        A = torch.randn(M, K, generator=gen).to(dev)
+        Bm = (torch.randn(K, N, generator=gen) / K ** 0.5).to(
+            dev, torch.bfloat16)
+        for ra in (False, True):
+            old, new = TG.recompute_check(A, Bm, ra)
+            torch.cuda.synchronize()
+            require(torch.equal(old, new),
+                    f"gemm_rows != gemm at M={M} K={K} N={N} ra={ra}: "
+                    f"max diff {float((old - new).abs().max())}")
+        log(f"[recompute] gemm_rows equals gemm bit for bit at [{M}, {K}] @ "
+            f"[{K}, {N}], A rounded to bf16 at load and not ok")
     return errs
 
 
@@ -898,7 +999,8 @@ def phase_train(dev, card):
     # float32 takes the backward's general route (the exact one)
     keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
     keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
-        "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh")
+        "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh",
+        "mega_exec_bwd", "mega_exec_wgrad")
     model32 = W.build_model(NMNConfig(**{**cfg.to_dict(),
                                          "compute_dtype": "float32"}),
                             seed=0, device=dev)
@@ -1000,6 +1102,12 @@ def phase_train(dev, card):
             return cuda_time_ms(
                 lambda: (TL.bilstm_bwd_call(*vargs, kv[3], *vcot),
                          TL.bilstm_bwd_call(*qargs, kq[3], *qcot)), iters=3)
+    def general_bwd_mega_ms():
+        """The executor backward on its general route (the kernels the
+        tensor-core route replaced on the main path)."""
+        with general_mega():
+            return cuda_time_ms(lambda: TG.mega_exec_bwd_call(
+                meta, margs, km, mcot, cfg.dropout, seed), iters=3)
     r_lb = max(max(rel_err(x, y) for x, y in zip(kbv, rbv)),
                max(rel_err(x, y) for x, y in zip(kbq, rbq)))
     require(e_lt <= 2e-2 and r_lb <= 2e-2,
@@ -1015,16 +1123,27 @@ def phase_train(dev, card):
     for o, r in zip(km, rm):
         torch.testing.assert_close(o.float(), r.float(), rtol=1e-2, atol=3e-2)
     mcot = [cot(o) for o in km]
-    kmb = TG.mega_exec_bwd_call(meta, margs, km, mcot, cfg.dropout, seed)
-    rmb = TG.mega_exec_bwd_reference(meta, margs, km, mcot, cfg.dropout,
+    # The backward takes the forward's register files as an input, and the
+    # plain backward differentiates through the plain forward, whose files
+    # are rm; so the kernel is handed rm too, and both see one forward.
+    # Handed km, which differs from rm by bf16 steps (the check above), a
+    # relu of a head with few records can take the other side: this run's
+    # weights moved the Compare head's gradients by ~0.15 of their scale
+    # that way on both executor routes alike, which says nothing of the
+    # backward; that number is printed beside, not bounded.
+    kmb = TG.mega_exec_bwd_call(meta, margs, rm, mcot, cfg.dropout, seed)
+    rmb = TG.mega_exec_bwd_reference(meta, margs, rm, mcot, cfg.dropout,
                                      seed)
     e_mb = max_err(kmb, rmb)
     r_mb = max(rel_err(x, y) for x, y in zip(kmb, rmb))
     require(r_mb <= 1e-1, f"mega_exec_bwd main-path rel err {r_mb}")
+    r_km = max(rel_err(x, y) for x, y in zip(
+        TG.mega_exec_bwd_call(meta, margs, km, mcot, cfg.dropout, seed), rmb))
     log(f"[main-path inputs] bilstm_train max_abs_err {e_lt:.3e}; "
         f"bilstm_bwd max_abs_err {e_lb:.3e} (max rel {r_lb:.2e}); "
-        f"mega_exec_train max_abs_err {e_mt:.3e}; mega_exec_bwd max_abs_err "
-        f"{e_mb:.3e} (max rel {r_mb:.2e}) ok")
+        f"mega_exec_train max_abs_err {e_mt:.3e}; mega_exec_bwd on the plain "
+        f"forward's files max_abs_err {e_mb:.3e} (max rel {r_mb:.2e}, bound "
+        f"1e-1) ok; on the kernel forward's files max rel {r_km:.2e}")
     t = {
         "bilstm_train": cuda_time_ms(
             lambda: (TL.bilstm_train_call(*vargs, token_dtype=dt),
@@ -1052,6 +1171,7 @@ def phase_train(dev, card):
         "mega_exec_bwd": cuda_time_ms(
             lambda: TG.mega_exec_bwd_call(meta, margs, km, mcot,
                                           cfg.dropout, seed), iters=3),
+        "mega_exec_bwd_general": general_bwd_mega_ms(),
         "mega_exec_bwd_plain": cuda_time_ms(
             lambda: TG.mega_exec_bwd_reference(meta, margs, km, mcot,
                                                cfg.dropout, seed),
@@ -1102,8 +1222,10 @@ def phase_train(dev, card):
         {"name": "mega_exec_bwd", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/mega_grad.cu",
          "replaces": "stair_tpu/ops/mega_grad.py:111",
-         "launches": launches["mega_exec_bwd"], "max_abs_err": e_mb,
-         "ms": t["mega_exec_bwd"], "plain_ms": t["mega_exec_bwd_plain"]},
+         "executor_route": "tc",
+         "launches": launches["mega_exec_bwd_tc"], "max_abs_err": e_mb,
+         "ms": t["mega_exec_bwd"], "general_ms": t["mega_exec_bwd_general"],
+         "plain_ms": t["mega_exec_bwd_plain"]},
     ]]
 
 
@@ -2074,7 +2196,8 @@ def phase_step_slice(dev, card):
     launches = dict(_build.LAUNCHES)
     require(launches["executor_step"] == T * STEP_BATCHES
             and launches["bilstm_tc"] == 2 * STEP_BATCHES
-            and launches["bilstm"] == 0 and launches["mega_exec"] == 0,
+            and launches["bilstm"] == 0 and launches["mega_exec"] == 0
+            and launches["mega_exec_tc"] == 0,
             f"step route launches {launches} (T = {T})")
     for lg in fetched:
         require(lg.shape == (BATCH, cfg.answer_vocab_length)
@@ -2083,12 +2206,12 @@ def phase_step_slice(dev, card):
     log(f"[step slice] {STEP_BATCHES} batches x {BATCH} questions on "
         f"executor='step': {qps:.1f} q/s end to end (megakernel route "
         f"{SEEN['mega_qps']:.1f}), launches per batch: executor_step {T}, "
-        f"bilstm_tc 2, bilstm 0, mega_exec 0; card {card}")
+        f"bilstm_tc 2, bilstm 0, mega_exec_tc 0, mega_exec 0; card {card}")
 
     # ---- against the megakernel route on one batch ------------------------
     with kernel_route(("bilstm_tc", "executor_step")):
         out = model(b0)
-    with kernel_route(("bilstm_tc", "mega_exec")):
+    with kernel_route(("bilstm_tc", "mega_exec_tc")):
         ref = mega(b0)
     agree = (out["logits"].argmax(-1) == ref["logits"].argmax(-1)
              ).float().mean().item()
@@ -2196,8 +2319,8 @@ def phase_rev_train(dev, card, slot_entries):
     cfg, batch, args = (SEEN["train_cfg"], SEEN["train_batch"],
                         SEEN["train_args"])
     T = batch["trace"]["opcode"].shape[1]
-    want = {**TRAIN_LAUNCHES, "mega_exec_train": 0, "mega_exec_bwd": 0,
-            "mega_exec_wgrad": 0, "executor_step": 0, "slot_set": 4 * T,
+    want = {**TRAIN_LAUNCHES, "mega_exec_train": 0, "mega_exec_bwd_tc": 0,
+            "mega_exec_wgrad_tc": 0, "executor_step": 0, "slot_set": 4 * T,
             "slot_zero": 8 * T, "slot_add": 7 * T}
 
     # ---- one float32 step: "rev" against "step" under the same seed ------
@@ -2327,17 +2450,18 @@ def main():
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s "
         f"({'cached' if _build.BUILD_INFO['cached'] else 'compiled'})")
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
+    # the attention backward's and the executor's tensor-core kernels are
+    # designed to keep their accumulators and state in registers
+    no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma", "mega_exec_tc_kernel",
+                "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel")
     require(_build.BUILD_INFO["cached"] or all(
-        any(r["kernel"].startswith(k) for r in report)
-        for k in ("flash_bwd_dq_mma", "flash_bwd_dkv_mma")),
-        "the build log names no attention backward kernel")
+        any(r["kernel"].startswith(k) for r in report) for k in no_spill),
+        f"the build log names not all of {no_spill}")
     for r in report:
         log(f"[build] ptxas {r['kernel']}: {r.get('registers')} registers, "
             f"{r.get('spill_stores')} bytes spill stores, "
             f"{r.get('spill_loads')} bytes spill loads")
-        # the attention backward's tensor-core kernels are designed to keep
-        # their accumulators in registers
-        if r["kernel"].startswith(("flash_bwd_dq_mma", "flash_bwd_dkv_mma")):
+        if r["kernel"].startswith(no_spill):
             require(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
                     f"ptxas spills in {r['kernel']}: {r}")
 

@@ -26,10 +26,15 @@ its kernel and nowhere else:
   thread-block cluster, the tensor-core dwh slices and their sum in split
   order with dbias;
 - ``mega_exec``, ``mega_exec_train``: the executor forward, eval and
-  training (``csrc/mega_exec.cu``);
-- ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward
+  training, on its general route (``csrc/mega_exec.cu``
+  ``mega_exec_kernel``; the training forward always takes it);
+- ``mega_exec_tc``: the eval forward on its tensor-core route (bf16, the
+  main path's; ``mega_exec_tc_kernel``);
+- ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward on the general route
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
+- ``mega_exec_bwd_tc``, ``mega_exec_wgrad_tc``: the backward on the
+  tensor-core route (bf16, the main path's);
 - ``flash_attn``: the masked flash-attention forward
   (``csrc/flash_attn.cu``);
 - ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
@@ -74,8 +79,9 @@ LAUNCHES = {
     "bilstm": 0, "bilstm_train": 0, "bilstm_tc": 0, "bilstm_train_tc": 0,
     "bilstm_bwd": 0, "bilstm_dwh": 0,
     "bilstm_bwd_tc": 0, "bilstm_dwh_tc": 0, "bilstm_dwh_sum": 0,
-    "mega_exec": 0, "mega_exec_train": 0, "mega_exec_bwd": 0,
-    "mega_exec_wgrad": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
+    "mega_exec": 0, "mega_exec_train": 0, "mega_exec_tc": 0,
+    "mega_exec_bwd": 0, "mega_exec_wgrad": 0, "mega_exec_bwd_tc": 0,
+    "mega_exec_wgrad_tc": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
     "flash_attn_bwd_dkv": 0, "executor_step": 0, "slot_set": 0,
     "slot_zero": 0, "slot_add": 0,
 }
@@ -229,7 +235,22 @@ def build():
         I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
         P,                         # stream
     ]
-    for sfx in ("f32", "bf16"):
+    lib.stair_mega_exec_fwd_tc.restype = I
+    lib.stair_mega_exec_fwd_tc.argtypes = [
+        P, I,                      # pointer table, its length
+        P, P, P, P,                # rv, rf, ra, workspace
+        I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
+        I,                         # fsoft
+        P,                         # stream
+    ]
+    Lg = ctypes.c_long
+    for fn in (lib.stair_mega_exec_tc_smem, lib.stair_mega_exec_bwd_smem):
+        fn.restype = Lg
+        fn.argtypes = [I, I, I]    # F, H, L (forward) / F, H, tc (backward)
+    lib.stair_mega_recompute_check.restype = I
+    # A, B, M, K, N, ra, out_gemm, out_rows, stream
+    lib.stair_mega_recompute_check.argtypes = [P, P, I, I, I, I, P, P, P]
+    for sfx in ("f32", "bf16", "tc"):
         fn = getattr(lib, f"stair_mega_exec_bwd_{sfx}")
         fn.restype = I
         fn.argtypes = [
@@ -256,7 +277,6 @@ def build():
         I,                         # bf16
         P,                         # stream
     ]
-    Lg = ctypes.c_long
     for fn, val in ((lib.stair_slot_set, [P]), (lib.stair_slot_zero, []),
                     (lib.stair_slot_add, [P])):
         fn.restype = I

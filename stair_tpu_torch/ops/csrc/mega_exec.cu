@@ -31,11 +31,15 @@
 // where the JAX kernel casts (lin_dt and friends), so bf16 results track
 // the TPU kernel's rounding sites.
 //
-// What bounds it on an H100: B = 1024 blocks of about three heavy
-// [64 x 512] @ [512 x 512] products per step on the float32 CUDA cores
-// (no tensor cores yet), with the weight tiles re-read from L2 by every
-// block. mma.sync / wgmma tiles and grouping examples by expert so that
-// weight tiles are shared are later work.
+// Two routes (ops/mega_exec.py fwd_route picks one before the launch):
+// mega_exec_kernel below, the general route (float32; the training forward
+// #5, whose values the backward recomputes bit for bit; every width the
+// other refuses), and mega_exec_tc_kernel further down, the tensor-core
+// route for the bf16 eval forward.
+//
+// What bounds mega_exec_kernel on an H100: B = 1024 blocks of about three
+// heavy [64 x 512] @ [512 x 512] products per step on the float32 CUDA
+// cores, with the weight tiles re-read from L2 by every block.
 
 #include "mega_common.cuh"
 
@@ -591,6 +595,671 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core route: mega_exec_tc_kernel (eval, bf16, no dropout).
+//
+// The same walk as mega_exec_kernel, one block per example, with three
+// changes. (1) Every [F, H] @ [H, H] product (the stage-1 expert MLP, the
+// stage-2 projections, SUPF's keyword rows) runs on mma.sync (tc_gemm): its
+// A operand is bf16 in shared memory and already rounded to bf16 by the
+// JAX kernel's casts (fa, fb and the registers are bf16; the stage-1
+// hidden, feat and the gated operand rows are rd<T> values), so only the
+// order of the float32 sums changes; W streams from L2 through a cp.async
+// ring. The epilogues round at the same sites. (2) The stage-1 hidden and
+// feat stay on chip as bf16 tiles: two [F, H + 8] tiles that swap roles (the
+// operand tile, then the other's output). Only SUPF's keyword rows and
+// TEMPORAL's pre-LayerNorm rows (float32) go to the [F, H] workspace.
+// (3) The vec-level [1, H] @ [H, H] products (vecmat_tc) read W as 16-byte
+// vectors along n, split k across threads and sum the partials in shared
+// memory in a fixed order. Eval has no backward that must agree with it, so
+// the summation order is free; the training forward (#5) stays on
+// mega_exec_kernel, whose values the backward recomputes bit for bit.
+//
+// Shared memory at F = 64, H = 512: the operand tile 66.5 KB, feat 66.5 KB,
+// the W ring 54 KB (three stages of 64 x 128 bf16), six [max(H, L)] float
+// vectors, the vec products' 8 KB of partials: ~206 KB, one block an SM.
+//
+// What bounds it on an H100: B = 1024 blocks in ~8 waves of one block per
+// SM; per heavy step two or three [64 x 512] @ [512 x 512] products whose
+// 512 KB weight tables each block reads from L2 (64 operations a byte, so
+// L2 bandwidth and the mma.sync rate are of one size), and the latency of the
+// vec-level ops between them. Grouping examples by expert, so that one
+// weight tile serves several examples, and wgmma are later work.
+
+using bf16 = __nv_bfloat16;
+
+// float slots of the vec products' k-split partials
+constexpr int TC_PARTS = THREADS * 8;
+// tc_gemm's chunk width here: two row tiles a warp (the walk, short of
+// registers, takes one)
+constexpr int FWD_BN = 128;
+
+// Dynamic shared memory of mega_exec_tc_kernel in bytes (ops/mega_exec.py
+// tc_smem_bytes mirrors it).
+__host__ __device__ inline size_t tc_smem_bytes(int F, int H, int L) {
+  const size_t V = (size_t)(((H > L ? H : L) + 3) & ~3);
+  return 2 * (size_t)F * (H + TC_PAD) * sizeof(bf16) +
+         (size_t)tc_ring<FWD_BN>() * sizeof(bf16) +
+         (6 * V + TC_PARTS + 6 * (size_t)F + NWARPS) * sizeof(float);
+}
+
+// out[n] = sum over segments s of x_s[0:K] @ W[s*K:(s+1)*K, n]. Thread t
+// reads the 16-byte vectors W[k, 8g .. 8g + 7] of column group g = t % G
+// (G = N / 8) for the k of its split q = t / G, so a warp reads contiguous
+// rows of W; the splits' partials meet in part and are summed in split
+// order. Called by the whole block; returns after a barrier.
+template <typename Epi>
+__device__ void vecmat_tc(const float* x0, const float* x1, const float* x2,
+                          const bf16* W, int K, int N, float* part, Epi epi) {
+  const int G = N / 8, S = THREADS / G;
+  const int g = threadIdx.x % G, q = threadIdx.x / G;
+  if (q < S) {
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    const float* xs[3] = {x0, x1, x2};
+    const int ck = (K + S - 1) / S, kb = q * ck;
+    const int ke = K < kb + ck ? K : kb + ck;
+    for (int s = 0; s < 3 && xs[s] != nullptr; ++s) {
+      const float* x = xs[s];
+      const bf16* w = W + (size_t)s * K * N + g * 8;
+#pragma unroll 8
+      for (int k = kb; k < ke; ++k) {
+        const uint4 v = *reinterpret_cast<const uint4*>(w + (size_t)k * N);
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+        const float xk = x[k];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(p[i]);
+          acc[2 * i] = fmaf(xk, f.x, acc[2 * i]);
+          acc[2 * i + 1] = fmaf(xk, f.y, acc[2 * i + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[q * N + g * 8 + i] = acc[i];
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    float y = 0.f;
+    for (int qq = 0; qq < S; ++qq) y += part[qq * N + n];
+    epi(n, y);
+  }
+  __syncthreads();
+}
+
+// Pointers into mega_exec_tc_kernel's dynamic shared memory.
+struct TcSmem {
+  bf16* tile[2];   // [F, H + TC_PAD] each: the operand tile and feat
+  bf16* ring;      // tc_gemm's weight ring
+  float *va, *vb, *vc, *nv, *x1, *x2, *part;
+  float *vm, *aa, *ab, *f1, *f2, *f3, *red;
+};
+
+// loc_cos over the feat tile (bf16, row stride ld).
+__device__ void loc_cos_tc(const float* kw, const bf16* feat, int ld, int F,
+                           int H, float* out, const TcSmem& s) {
+  float nk2 = 0.f;
+  for (int k = threadIdx.x; k < H; k += THREADS) nk2 += kw[k] * kw[k];
+  const float nk = sqrtf(fmaxf(block_sum(nk2, s.red), 1e-30f));
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int f = w; f < F; f += NWARPS) {
+    const bf16* row = feat + (size_t)f * ld;
+    float d = 0.f, n2 = 0.f;
+    for (int k = lane; k < H; k += 32) {
+      const float v = to_f(row[k]);
+      d += v * kw[k];
+      n2 += v * v;
+    }
+    d = warp_sum(d);
+    n2 = warp_sum(n2);
+    if (lane == 0) {
+      const float nf = sqrtf(fmaxf(n2, 1e-30f));
+      const float c = rd<bf16>(d / fmaxf(nf * nk, COS_EPS));
+      out[f] = (c + 1.0f) * 0.49f * s.vm[f];
+    }
+  }
+  __syncthreads();
+}
+
+// superlative with vecmat_tc (see superlative).
+template <typename Act>
+__device__ void superlative_tc(float* row, int K, int mode, int count_or_neg,
+                               const bf16* supw, const bf16* supb, int H,
+                               const TcSmem& s, Act act, float* pooled) {
+  const int k = threadIdx.x;
+  bool valid = false;
+  float x = 0.f;
+  if (k < K) {
+    valid = count_or_neg >= 0 ? (k < count_or_neg) : (s.vm[k] > 0.f);
+    x = row[k];
+  }
+  float w = stair::mega::block_masked_softmax(x, valid, s.red);
+  if (mode == 1) w = 1.0f - w;
+  if (!valid) w = 0.f;
+  __syncthreads();
+  if (k < K) row[k] = w;
+  __syncthreads();
+  for (int j = threadIdx.x; j < H; j += THREADS) {
+    float p = 0.f;
+    for (int kk = 0; kk < K; ++kk) p += row[kk] * act(kk, j);
+    pooled[j] = rd<bf16>(p);
+  }
+  __syncthreads();
+  vecmat_tc(pooled, nullptr, nullptr, supw, H, H, s.part, [&](int n, float y) {
+    s.nv[n] = fmaxf(rd<bf16>(rd<bf16>(y) + to_f(supb[n])), 0.f);
+  });
+}
+
+__global__ void __launch_bounds__(THREADS)
+    mega_exec_tc_kernel(const Args<bf16> a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ int ins[NSF];
+  using T = bf16;
+  const int b = blockIdx.x;
+  const int F = a.F, H = a.H, L = a.L, Hh = H / 2, LDT = H + TC_PAD;
+  const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  TcSmem s;
+  {
+    bf16* p = reinterpret_cast<bf16*>(tc_smem);
+    s.tile[0] = p; p += (size_t)F * LDT;
+    s.tile[1] = p; p += (size_t)F * LDT;
+    s.ring = p; p += tc_ring<FWD_BN>();
+    float* q = reinterpret_cast<float*>(p);
+    const int V = ((H > L ? H : L) + 3) & ~3;
+    float** vs[] = {&s.va, &s.vb, &s.vc, &s.nv, &s.x1, &s.x2};
+    for (float** v : vs) { *v = q; q += V; }
+    s.part = q; q += TC_PARTS;
+    float** fs[] = {&s.vm, &s.aa, &s.ab, &s.f1, &s.f2, &s.f3};
+    for (float** v : fs) { *v = q; q += F; }
+    s.red = q;
+  }
+
+  T* rv = a.rv + (size_t)b * Nv * H;
+  T* rf = a.rf + (size_t)b * Nf * F * H;
+  T* ra = a.ra + (size_t)b * Na * F;
+  float* wsg = a.ws + (size_t)b * F * H;   // SUPF kw_f / TEMP pre-LN rows
+  const size_t FH = (size_t)F * H;
+
+  // rows of a [F, H] frames register (global) into a tile, four 16-byte
+  // vectors a thread in flight
+  auto load_tile = [&](bf16* dst, const T* src) {
+    const int per = H / 8, n = F * per;
+    for (int i0 = tid; i0 < n; i0 += 4 * THREADS) {
+      uint4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + j * THREADS;
+        if (i < n)
+          v[j] = *reinterpret_cast<const uint4*>(src + (size_t)(i / per) * H +
+                                                 (i % per) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + j * THREADS;
+        if (i < n)
+          *reinterpret_cast<uint4*>(dst + (size_t)(i / per) * LDT +
+                                    (i % per) * 8) = v[j];
+      }
+    }
+    __syncthreads();
+  };
+
+  // ---- register-file init: frames register 0 <- video * vmask ----------
+  for (int f = tid; f < F; f += THREADS)
+    s.vm[f] = to_f(a.vm[(size_t)b * F + f]);
+  for (int i = tid; i < Nv * H; i += THREADS) rv[i] = from_f<T>(0.f);
+  for (int i = tid; i < Na * F; i += THREADS) ra[i] = from_f<T>(0.f);
+  for (int i = tid; i < F * LDT; i += THREADS) s.tile[0][i] = from_f<T>(0.f);
+  __syncthreads();
+  pass<true>(FH, [&](size_t i) {
+    const int f = (int)(i / H), j = (int)(i % H);
+    const T v = j < Hh ? a.vf_a[((size_t)b * F + f) * Hh + j]
+                       : a.vf_b[((size_t)b * F + f) * Hh + j - Hh];
+    return to_f(v) * s.vm[f];
+  }, [&](size_t i, float v) { rf[i] = from_f<T>(v); });
+  for (size_t i = FH + tid; i < (size_t)Nf * FH; i += THREADS)
+    rf[i] = from_f<T>(0.f);
+  __syncthreads();
+
+  auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
+  int fcur = 0;   // which tile holds feat
+
+  for (int t = 0; t < a.T_; ++t) {
+    if (tid < NSF) ins[tid] = a.scal[((size_t)b * a.T_ + t) * NSF + tid];
+    __syncthreads();
+    const int op = ins[F_OP], e1 = ins[F_E1];
+    const int mode = ins[F_MODE], count = ins[F_COUNT];
+    const int iva = clampi(ins[F_VA], Nv), ivb = clampi(ins[F_VB], Nv);
+    const int ivc = clampi(ins[F_VC], Nv);
+    const int ifa = clampi(ins[F_FA], Nf), ifb = clampi(ins[F_FB], Nf);
+    const int iaa = clampi(ins[F_AA], Na), iab = clampi(ins[F_AB], Na);
+    const int out_v = clampi(ins[F_OUT_V], Nv);
+    const int out_f = clampi(ins[F_OUT_F], Nf);
+    const int out_a = clampi(ins[F_OUT_A], Na);
+    const int out_ab = clampi(ins[F_OUT_AB], Na);
+    const bool is_filter = op >= OP_FV && op <= OP_FFK;
+    const T* fa = rf + (size_t)ifa * FH;
+
+    // ---- operand reads, then the zero writes of out_attn/out_attn_b ----
+    for (int j = tid; j < H; j += THREADS) {
+      s.va[j] = to_f(rv[(size_t)iva * H + j]);
+      s.vb[j] = to_f(rv[(size_t)ivb * H + j]);
+      s.nv[j] = 0.f;
+    }
+    for (int f = tid; f < F; f += THREADS) {
+      s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
+      s.ab[f] = to_f(ra[(size_t)iab * F + f]);
+    }
+    __syncthreads();
+    for (int f = tid; f < F; f += THREADS) {
+      ra[(size_t)out_a * F + f] = from_f<T>(0.f);
+      ra[(size_t)out_ab * F + f] = from_f<T>(0.f);
+    }
+    __syncthreads();
+
+    // ---- stage 1: expert two-layer frames MLP (e1 == 9: null) ---------
+    // fa -> the free tile; hidden -> feat's tile; feat -> the free tile.
+    if (e1 != 9) {
+      bf16* x = s.tile[fcur ^ 1];
+      bf16* h = s.tile[fcur];
+      const T* b1 = a.b1u + (size_t)e1 * H;
+      const T* b2 = a.b2u + (size_t)e1 * H;
+      load_tile(x, fa);
+      tc_gemm<false, FWD_BN>(x, LDT, a.w1u + (size_t)e1 * H * H, H, F, H, H,
+                             s.ring, [&](int m, int n, float acc) {
+        h[(size_t)m * LDT + n] = from_f<T>(fmaxf(acc + to_f(b1[n]), 0.f));
+      });
+      tc_gemm<false, FWD_BN>(h, LDT, a.w2u + (size_t)e1 * H * H, H, F, H, H,
+                             s.ring, [&](int m, int n, float acc) {
+        const float v = acc + to_f(b2[n]);
+        x[(size_t)m * LDT + n] = from_f<T>(is_filter ? fmaxf(v, 0.f) : v);
+      });
+      fcur ^= 1;
+    }
+    const bf16* feat = s.tile[fcur];
+    bf16* opnd = s.tile[fcur ^ 1];
+    auto ft = [&](int f, int k) { return to_f(feat[(size_t)f * LDT + k]); };
+
+    // ---- vec producers (write s.nv; zeros for non-vec ops) ------------
+    if (op == OP_PUSH) {
+      const int ss = ins[F_SS], se = ins[F_SE];
+      float* span_w = s.x1;  // [L]
+      for (int p = tid; p < L; p += THREADS) {
+        const bool valid = to_f(a.tm[(size_t)b * L + p]) > 0.f;
+        const bool in_span = p >= ss && p < se;
+        span_w[p] = (ss < 0 ? valid : (in_span && valid)) ? 1.f : 0.f;
+      }
+      __syncthreads();
+      float den = 0.f;
+      for (int p = 0; p < L; ++p) den += span_w[p];
+      den = fmaxf(den, 1.0f);
+      for (int j = tid; j < H; j += THREADS) {
+        float v;
+        if (ss == -2) {
+          v = to_f(a.aux[((size_t)b * a.T_ + t) * H + j]);
+        } else {
+          const T* tok = j < Hh ? a.tok_a : a.tok_b;
+          const int jj = j < Hh ? j : j - Hh;
+          float acc = 0.f;
+          for (int p = 0; p < L; ++p)
+            acc += span_w[p] * to_f(tok[((size_t)b * L + p) * Hh + jj]);
+          v = acc / den;
+        }
+        s.nv[j] = rd<T>(v);
+      }
+      __syncthreads();
+    } else if (op == OP_ANDV) {
+      for (int j = tid; j < H; j += THREADS)
+        s.nv[j] = rd<T>(fminf(s.va[j], s.vb[j]));
+      __syncthreads();
+    } else if (op == OP_CHOOSE) {
+      float dac = 0.f, dbc = 0.f, na = 0.f, nb = 0.f, nc = 0.f;
+      for (int j = tid; j < H; j += THREADS) {
+        const float c = to_f(rv[(size_t)ivc * H + j]);
+        dac += s.va[j] * c;
+        dbc += s.vb[j] * c;
+        na += s.va[j] * s.va[j];
+        nb += s.vb[j] * s.vb[j];
+        nc += c * c;
+      }
+      dac = block_sum(dac, s.red);
+      dbc = block_sum(dbc, s.red);
+      na = sqrtf(fmaxf(block_sum(na, s.red), 1e-30f));
+      nb = sqrtf(fmaxf(block_sum(nb, s.red), 1e-30f));
+      nc = sqrtf(fmaxf(block_sum(nc, s.red), 1e-30f));
+      const bool first =
+          dac / fmaxf(na * nc, COS_EPS) > dbc / fmaxf(nb * nc, COS_EPS);
+      for (int j = tid; j < H; j += THREADS)
+        s.nv[j] = first ? s.va[j] : s.vb[j];
+      __syncthreads();
+    } else if (op == OP_CMP || op == OP_EQ) {
+      const T* w = op == OP_CMP ? a.cw : a.eqw;
+      const T* bb = op == OP_CMP ? a.cb : a.eqb;
+      vecmat_tc(s.va, s.vb, nullptr, w, H, H, s.part, [&](int n, float y) {
+        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(bb[n])), 0.f);
+      });
+    } else if (op == OP_XOR) {
+      for (int j = tid; j < H; j += THREADS)
+        s.x1[j] = rd<T>(fabsf(s.va[j] - s.vb[j]));
+      __syncthreads();
+      vecmat_tc(s.x1, s.va, s.vb, a.xw, H, H, s.part, [&](int n, float y) {
+        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.xb[n])), 0.f);
+      });
+    } else if (op == OP_QUERY) {
+      vecmat_tc(s.va, nullptr, nullptr, a.qw, H, H, s.part,
+                [&](int n, float y) {
+        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f);
+      });
+    } else if (op == OP_TOA) {
+      vecmat_tc(s.va, s.vb, nullptr, a.taw1, H, H, s.part,
+                [&](int n, float y) {
+        s.x1[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f));
+      });
+      vecmat_tc(s.x1, nullptr, nullptr, a.taw2, H, H, s.part,
+                [&](int n, float y) {
+        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.tab2[n])), 0.f);
+      });
+    } else if (op == OP_EX) {
+      // exists: kw = va, feat = vb, x = [feat, kw, feat * kw]
+      for (int j = tid; j < H; j += THREADS)
+        s.x1[j] = rd<T>(s.vb[j] * s.va[j]);
+      __syncthreads();
+      vecmat_tc(s.vb, s.va, s.x1, a.exw1, H, H, s.part, [&](int n, float y) {
+        s.x2[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f));
+      });
+      vecmat_tc(s.x2, nullptr, nullptr, a.exw2, H, H, s.part,
+                [&](int n, float y) {
+        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f);
+      });
+    } else if (op == OP_FV || op == OP_FK) {
+      if (a.fsoft) {
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32) d += ft(f, k) * to_f(a.fltw[k]);
+          d = warp_sum(d);
+          if (lane == 0) s.f1[f] = d;
+        }
+        float kb = 0.f;
+        for (int k = tid; k < H; k += THREADS) kb += s.va[k] * to_f(a.fltk[k]);
+        kb = block_sum(kb, s.red) + to_f(a.fltb[0]);
+        const int f = tid;
+        const bool valid = f < F && s.vm[f] > 0.f;
+        const float x = f < F ? s.f1[f] + kb : 0.f;
+        const float soft = stair::mega::block_masked_softmax(x, valid, s.red);
+        if (f < F) {
+          const float w = op == OP_FV ? soft : s.vm[f];
+          s.f2[f] = w * s.vm[f];
+        }
+      } else {
+        for (int f = tid; f < F; f += THREADS) s.f2[f] = s.vm[f] * s.vm[f];
+      }
+      __syncthreads();
+      for (int k = tid; k < H; k += THREADS) {
+        float p = 0.f;
+        for (int f = 0; f < F; ++f) p += ft(f, k) * s.f2[f];
+        s.x1[k] = rd<T>(p);
+      }
+      __syncthreads();
+      vecmat_tc(s.x1, nullptr, nullptr, a.fdw, H, H, s.part,
+                [&](int n, float y) {
+        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.fdb[n])), 0.f);
+      });
+    } else if (op == OP_SUPV) {
+      const T* wk = a.w2t + 2 * (size_t)H * H;
+      const T* bk = a.b2t + 2 * (size_t)H;
+      vecmat_tc(s.va, nullptr, nullptr, wk, H, H, s.part, [&](int n, float y) {
+        s.x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+      });
+      vecmat_tc(s.vb, nullptr, nullptr, wk, H, H, s.part, [&](int n, float y) {
+        s.x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+      });
+      loc_cos_tc(s.x1, feat, LDT, F, H, s.f1, s);
+      loc_cos_tc(s.x2, feat, LDT, F, H, s.f2, s);
+      float r0 = 0.f, r1 = 0.f;
+      for (int f = tid; f < F; f += THREADS) {
+        r0 += s.f1[f] * s.vm[f];
+        r1 += s.f2[f] * s.vm[f];
+      }
+      r0 = block_sum(r0, s.red);
+      r1 = block_sum(r1, s.red);
+      if (tid == 0) {
+        s.f3[0] = r0;
+        s.f3[1] = r1;
+      }
+      __syncthreads();
+      const float* va = s.va;
+      const float* vb = s.vb;
+      superlative_tc(s.f3, 2, mode, count < 0 ? 0 : count, a.supw, a.supb, H,
+                     s, [&](int k, int j) { return k == 0 ? va[j] : vb[j]; },
+                     s.vc);
+    } else if (op == OP_SUPF) {
+      const T* wk = a.w2t + 2 * (size_t)H * H;
+      const T* bk = a.b2t + 2 * (size_t)H;
+      // kw_f = lin_dt(fb, w2t[2], b2t[2]) -> wsg [F, H]; fb stays in the
+      // free tile for the pooling
+      load_tile(opnd, rf + (size_t)ifb * FH);
+      tc_gemm<false, FWD_BN>(opnd, LDT, wk, H, F, H, H, s.ring,
+                             [&](int m, int n, float acc) {
+        wsg[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
+      });
+      for (int r = warp; r < F; r += NWARPS) {
+        float n1 = 0.f, n2 = 0.f;
+        for (int k = lane; k < H; k += 32) {
+          const float x = wsg[(size_t)r * H + k], y = ft(r, k);
+          n1 += x * x;
+          n2 += y * y;
+        }
+        n1 = warp_sum(n1);
+        n2 = warp_sum(n2);
+        if (lane == 0) {
+          s.f1[r] = sqrtf(fmaxf(n1, 1e-30f));
+          s.f2[r] = sqrtf(fmaxf(n2, 1e-30f));
+        }
+      }
+      __syncthreads();
+      for (int i = warp; i < F; i += NWARPS) {
+        const float* ki = wsg + (size_t)i * H;
+        float row = 0.f;
+        for (int f = 0; f < F; ++f) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32) d += ki[k] * ft(f, k);
+          d = warp_sum(d);
+          const float c = rd<T>(d / fmaxf(s.f1[i] * s.f2[f], COS_EPS));
+          row += ((c + 1.0f) * 0.49f * s.vm[f]) * s.vm[f];
+        }
+        if (lane == 0) s.f3[i] = row;
+      }
+      __syncthreads();
+      const bf16* fbt = opnd;
+      superlative_tc(s.f3, F, mode, -1, a.supw, a.supb, H, s,
+                     [&](int k, int j) {
+                       return to_f(fbt[(size_t)k * LDT + j]);
+                     },
+                     s.x1);
+    }
+
+    for (int j = tid; j < H; j += THREADS)
+      rv[(size_t)out_v * H + j] = from_f<T>(s.nv[j]);
+
+    // ---- frames producers --------------------------------------------
+    T* fout = rf + (size_t)out_f * FH;
+    if (op == OP_FFV || op == OP_FFK) {
+      float gk = 0.f;
+      for (int k = tid; k < H; k += THREADS) gk += s.va[k] * to_f(a.ffkw[k]);
+      gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
+      for (int f = warp; f < F; f += NWARPS) {
+        float d = 0.f;
+        for (int k = lane; k < H; k += 32) d += ft(f, k) * to_f(a.ffwf[k]);
+        d = warp_sum(d);
+        if (lane == 0) s.f1[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+      }
+      __syncthreads();
+      for (int i = tid; i < F * H; i += THREADS) {
+        const int f = i / H, k = i % H;
+        opnd[(size_t)f * LDT + k] = from_f<T>(s.f1[f] * ft(f, k));
+      }
+      __syncthreads();
+      const T* b20 = a.b2t;
+      tc_gemm<false, FWD_BN>(opnd, LDT, a.w2t, H, F, H, H, s.ring,
+                             [&](int m, int n, float acc) {
+        fout[(size_t)m * H + n] =
+            from_f<T>(fmaxf(acc + to_f(b20[n]), 0.f) * s.vm[m]);
+      });
+    } else if (op == OP_TEMP) {
+      const int midx = mode - 1 > 0 ? mode - 1 : 0;
+      const size_t FF = (size_t)F * F;
+      for (int f = tid; f < F; f += THREADS) {
+        const float am = count == 2 ? (s.aa[f] + s.ab[f]) * 0.5f : s.aa[f];
+        s.f1[f] = am;
+        s.f2[f] = rd<T>(am);
+      }
+      __syncthreads();
+      for (int j = tid; j < F; j += THREADS) {
+        float acc = 0.f;
+        for (int i = 0; i < F; ++i)
+          acc += s.f2[i] * to_f(a.t1[midx * FF + (size_t)i * F + j]);
+        s.f3[j] = rd<T>(fmaxf(acc + to_f(a.tb1[midx * F + j]), 0.f));
+      }
+      __syncthreads();
+      for (int j = tid; j < F; j += THREADS) {
+        float acc = 0.f;
+        for (int i = 0; i < F; ++i)
+          acc += s.f3[i] * to_f(a.t2[midx * FF + (size_t)i * F + j]);
+        s.f2[j] = rd<T>(fmaxf(acc + to_f(a.tb2[midx * F + j]), 0.f));
+      }
+      __syncthreads();
+      for (int j = tid; j < F; j += THREADS) {
+        float acc = 0.f;
+        for (int i = 0; i < F; ++i)
+          acc += s.f2[i] * to_f(a.t3[midx * FF + (size_t)i * F + j]);
+        const float g = sigmoid_f(acc + to_f(a.tb3[midx * F + j]));
+        s.f3[j] = (mode == 0 ? s.f1[j] : g) * s.vm[j];  // related
+      }
+      __syncthreads();
+      pass<true>(FH, [&](size_t i) { return s.f3[i / H] * to_f(fa[i]); },
+                 [&](size_t i, float v) {
+                   opnd[(i / H) * LDT + i % H] = from_f<T>(v);
+                 });
+      __syncthreads();
+      const T* b21 = a.b2t + H;
+      tc_gemm<false, FWD_BN>(opnd, LDT, a.w2t + (size_t)H * H, H, F, H, H,
+                             s.ring, [&](int m, int n, float acc) {
+        wsg[(size_t)m * H + n] = fmaxf(acc + to_f(b21[n]), 0.f);
+      });
+      for (int f = warp; f < F; f += NWARPS) {
+        const float* y = wsg + (size_t)f * H;
+        float sm = 0.f;
+        for (int k = lane; k < H; k += 32) sm += y[k];
+        const float mu = warp_sum(sm) / H;
+        float s2 = 0.f;
+        // rsqrt and the products rounded on their own, as mega_exec_kernel
+        for (int k = lane; k < H; k += 32)
+          s2 += __fmul_rn(y[k] - mu, y[k] - mu);
+        const float var = warp_sum(s2) / H;
+        const float inv = rsqrtf(var + 1e-5f);
+        for (int k = lane; k < H; k += 32)
+          fout[(size_t)f * H + k] = from_f<T>(
+              __fmul_rn((y[k] - mu) * inv, to_f(a.lns[k])) +
+              to_f(a.lnb[k]));
+      }
+      for (int f = tid; f < F; f += THREADS)
+        ra[(size_t)out_ab * F + f] = from_f<T>(s.f3[f]);
+      __syncthreads();
+    } else if (op == OP_ATTNV) {
+      pass<true>(FH, [&](size_t i) { return s.aa[i / H] * to_f(fa[i]); },
+                 [&](size_t i, float v) { fout[i] = from_f<T>(v); });
+      __syncthreads();
+    }
+
+    // ---- attn producers ----------------------------------------------
+    T* aout = ra + (size_t)out_a * F;
+    if (op == OP_ANDA || op == OP_XORF) {
+      for (int f = tid; f < F; f += THREADS)
+        aout[f] = from_f<T>(op == OP_ANDA ? fminf(s.aa[f], s.ab[f])
+                                          : fabsf(s.aa[f] - s.ab[f]));
+    } else if (op == OP_HAS) {
+      for (int f = tid; f < F; f += THREADS)
+        aout[f] = from_f<T>(sigmoid_f(ft(f, 0)) * s.vm[f]);
+    } else if (op == OP_EXF) {
+      float n2 = 0.f;
+      for (int k = tid; k < H; k += THREADS) n2 += s.va[k] * s.va[k];
+      const float nva = sqrtf(fmaxf(block_sum(n2, s.red), 1e-30f));
+      for (int f = warp; f < F; f += NWARPS) {
+        float d = 0.f, nx = 0.f;
+        for (int k = lane; k < H; k += 32) {
+          const float x = to_f(fa[(size_t)f * H + k]);
+          d += x * s.va[k];
+          nx += x * x;
+        }
+        d = warp_sum(d);
+        nx = sqrtf(fmaxf(warp_sum(nx), 1e-30f));
+        if (lane == 0) {
+          const float c = d / fmaxf(nx * nva, COS_EPS);
+          aout[f] = from_f<T>((c + 1.0f) * 0.49f * s.vm[f]);
+        }
+      }
+    } else if (op == OP_REL) {
+      const int f = tid;
+      const bool valid = f < F && s.vm[f] > 0.f;
+      float x = 0.f;
+      if (f < F) {
+        const float beta = to_f(a.beta[f]);
+        x = mode == 1 ? s.aa[f] - beta : s.aa[f] + beta;
+      }
+      const float w = stair::mega::block_masked_softmax(x, valid, s.red);
+      if (f < F) aout[f] = from_f<T>(w);
+    } else if (op == OP_LOC) {
+      const T* wk = a.w2t + 2 * (size_t)H * H;
+      const T* bk = a.b2t + 2 * (size_t)H;
+      vecmat_tc(s.va, nullptr, nullptr, wk, H, H, s.part, [&](int n, float y) {
+        s.x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+      });
+      vecmat_tc(s.vb, nullptr, nullptr, wk, H, H, s.part, [&](int n, float y) {
+        s.x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+      });
+      loc_cos_tc(s.x1, feat, LDT, F, H, s.f1, s);
+      loc_cos_tc(s.x2, feat, LDT, F, H, s.f2, s);
+      for (int f = tid; f < F; f += THREADS) {
+        aout[f] = from_f<T>(s.f1[f]);
+        ra[(size_t)out_ab * F + f] = from_f<T>(s.f2[f]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
+              int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
+              int fsoft, cudaStream_t stream) {
+  Args<bf16> a;
+  a.fill(p);
+  a.rv = (bf16*)rv;
+  a.rf = (bf16*)rf;
+  a.ra = (bf16*)ra;
+  a.ws = (float*)ws;
+  a.B = B;
+  a.T_ = T_;
+  a.Nv = Nv;
+  a.Nf = Nf;
+  a.Na = Na;
+  a.F = F;
+  a.H = H;
+  a.L = L;
+  a.fsoft = fsoft;
+  a.dr = stair::Dropout{0, 0, 0, 0u, 1.f};
+  const size_t smem = tc_smem_bytes(F, H, L);
+  cudaError_t e = cudaFuncSetAttribute(
+      mega_exec_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  mega_exec_tc_kernel<<<B, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
            int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
@@ -639,4 +1308,25 @@ extern "C" int stair_mega_exec_fwd(const void* const* ptrs, int nptrs,
                                  H, L, fsoft, dr, st);
   return launch<float>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
                        dr, st);
+}
+
+// The tensor-core route (mega_exec_tc_kernel): bf16, eval (no dropout), H a
+// multiple of 64 in [64, TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F], L
+// <= MAX_L; ops/mega_exec.py fwd_route picks it. Arguments as
+// stair_mega_exec_fwd's; ws: a float32 [B, F, H] workspace.
+extern "C" int stair_mega_exec_fwd_tc(const void* const* ptrs, int nptrs,
+                                      void* rv, void* rf, void* ra, void* ws,
+                                      int B, int T, int Nv, int Nf, int Na,
+                                      int F, int H, int L, int fsoft,
+                                      void* stream) {
+  if (nptrs != NARGS || H % 64 || H < 64 || H > stair::TC_MAX_H || F % 16 ||
+      F < 16 || F > stair::TC_MAX_F || L > MAX_L)
+    return (int)cudaErrorInvalidValue;
+  return launch_tc(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
+                   (cudaStream_t)stream);
+}
+
+// Dynamic shared memory of mega_exec_tc_kernel at (F, H, L), in bytes.
+extern "C" long stair_mega_exec_tc_smem(int F, int H, int L) {
+  return (long)tc_smem_bytes(F, H, L);
 }

@@ -8,4 +8,9 @@ namespace stair {
 constexpr int MAX_H = 1024;
 constexpr int MAX_F = 256;
 constexpr int MAX_L = 1024;
+// The tensor-core routes (mega_exec_tc_kernel, mega_bwd_tc_kernel) hold two
+// (forward) or one (backward) [F, H + 8] bf16 tile in shared memory: H a
+// multiple of 64 up to TC_MAX_H, F a multiple of 16 up to TC_MAX_F.
+constexpr int TC_MAX_H = 512;
+constexpr int TC_MAX_F = 64;
 }  // namespace stair

@@ -14,7 +14,11 @@ over B and looping over T that mirrors ``_make_kernel`` opcode by opcode,
 rounding to the compute dtype at the same sites (``lin_dt`` and friends).
 ``mega_exec_call`` is the kernel wrapper: plain version for CPU tensors,
 the CUDA kernel for CUDA tensors, or an error; ``mega_exec`` packs and
-calls it, as the JAX function does.
+calls it, as the JAX function does. ``fwd_route`` picks the kernel before
+the launch: the tensor-core route (``mega_exec_tc_kernel``, launch key
+``mega_exec_tc``) for the bf16 eval forward at the shapes it takes, the
+general route (``mega_exec_kernel``: ``mega_exec``, ``mega_exec_train``)
+for everything else, the training forward included.
 
 Training: ``mega_exec_train_call`` is the forward with the counter-hash
 dropout ``hash_keep`` at the JAX kernel's eight sites (TPU kernel #5); the
@@ -559,6 +563,46 @@ def mega_exec_train_call(meta, args, rate, seed):
     return _launch("mega_exec_train", meta, args, dropout_params(rate, seed))
 
 
+#: the tensor-core route's limits (``csrc/mega_limits.cuh``)
+TC_MAX_H, TC_MAX_F = _LIMITS["TC_MAX_H"], _LIMITS["TC_MAX_F"]
+#: the CUDA sources' tiles that size the tensor-core route's shared memory
+_TILES = _build.header_ints("mega_common.cuh")
+SMEM_MAX = 232448   # bytes a block may use on an H100 (227 KB)
+
+
+def tc_shape(H, F) -> bool:
+    """True where the executor's tensor-core kernels take the widths: H a
+    multiple of 64 in [64, TC_MAX_H], F a multiple of 16 in [16,
+    TC_MAX_F] (whole mma tiles; the bf16 tiles fit in shared memory)."""
+    return (H % 64 == 0 and 64 <= H <= TC_MAX_H and F % 16 == 0
+            and 16 <= F <= TC_MAX_F)
+
+
+def fwd_route(dtype, H, F, drop) -> str:
+    """The forward's kernel route, chosen before any launch: ``"tc"``
+    (``mega_exec_tc_kernel``, launch key ``mega_exec_tc``: the bf16 eval
+    forward, no dropout, at the widths ``tc_shape`` takes) or
+    ``"general"`` (``mega_exec_kernel``: float32, every other width, and
+    the training forward, ``drop`` true, whose values the backward
+    recomputes bit for bit)."""
+    if dtype == torch.bfloat16 and not drop and tc_shape(H, F):
+        return "tc"
+    return "general"
+
+
+def tc_smem_bytes(F, H, L) -> int:
+    """Dynamic shared memory of ``mega_exec_tc_kernel`` per block, as
+    ``csrc/mega_exec.cu tc_smem_bytes`` computes it: two ``[F, H + 8]``
+    bf16 tiles, the weight ring, six float vectors of
+    ``max(H, L)``, the vec products' partials, six ``[F]`` vectors."""
+    t = _TILES
+    V = (max(H, L) + 3) & ~3
+    bn = _build.header_ints("mega_exec.cu")["FWD_BN"]
+    stage = bn * (t["TC_BK"] + t["TC_PAD"])
+    return (2 * F * (H + t["TC_PAD"]) * 2 + t["TC_STAGES"] * stage * 2
+            + (6 * V + t["THREADS"] * 8 + 6 * F + t["THREADS"] // 32) * 4)
+
+
 def _launch(key, meta, args, drop):
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = check_args(key, meta, args)
@@ -567,17 +611,29 @@ def _launch(key, meta, args, drop):
     ra = torch.empty(B, Na, F, dtype=dt, device=dev)
     if B == 0:
         return rv, rf, ra
-    # Per-example float32 workspace: stage-1 hidden / GEMM operand tile,
-    # the feat tile (persists across steps), and the temporal pre-LN rows.
-    ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
     lib = _build.build()
-    err = lib.stair_mega_exec_fwd(
-        _build.pointers(args), len(args),
-        rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
-        B, T, Nv, Nf, Na, F, H, L,
-        int(dt == torch.bfloat16), int(bool(fsoft)), *drop,
-        _build.stream_ptr(dev),
-    )
+    if fwd_route(dt, H, F, key == "mega_exec_train") == "tc":
+        # float32 [F, H] workspace: SUPF's keyword rows, TEMPORAL's pre-LN
+        # rows (the hidden and feat tiles stay in shared memory)
+        ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
+        key = "mega_exec_tc"
+        err = lib.stair_mega_exec_fwd_tc(
+            _build.pointers(args), len(args),
+            rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
+            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)),
+            _build.stream_ptr(dev))
+    else:
+        # Per-example float32 workspace: stage-1 hidden / GEMM operand
+        # tile, the feat tile (persists across steps), and the temporal
+        # pre-LN rows.
+        ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
+        err = lib.stair_mega_exec_fwd(
+            _build.pointers(args), len(args),
+            rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
+            B, T, Nv, Nf, Na, F, H, L,
+            int(dt == torch.bfloat16), int(bool(fsoft)), *drop,
+            _build.stream_ptr(dev),
+        )
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
     return rv, rf, ra

@@ -12,8 +12,11 @@ autograd.
 ``mega_exec_bwd_call`` is the kernel wrapper: for CPU tensors it runs the
 plain version ``mega_exec_bwd_reference`` (torch autograd through the plain
 training forward ``mega_exec_reference``); for CUDA tensors it launches
-``csrc/mega_grad.cu`` (the reverse walk ``mega_exec_bwd``, then the weight
-gradient reduction ``mega_exec_wgrad``) or raises. Cotangents enter cast to
+``csrc/mega_grad.cu`` (the reverse walk, then the weight gradient
+reduction) on the route ``bwd_route`` picks before the launch, or raises:
+the tensor-core route (launch keys ``mega_exec_bwd_tc``,
+``mega_exec_wgrad_tc``) for bf16 at the widths it takes, the general route
+(``mega_exec_bwd``, ``mega_exec_wgrad``) otherwise. Cotangents enter cast to
 the compute dtype; weight gradients leave in float32 and the Function casts
 them to each argument's dtype.
 """
@@ -51,9 +54,49 @@ def small_tables(H, F):
             ("tb1", 3 * F), ("tb2", 3 * F), ("tb3", 3 * F))
 
 
-def workspace_floats(Nv, Nf, Na, F, H, L, T):
-    """Per-example float32 workspace of the walk (mega_grad.cu ``Ws``)."""
-    return (Nv * H + Na * F + (Nf + 7) * F * H + 2 * F * F + L * H + T * H)
+def workspace_floats(Nv, Nf, Na, F, H, L, T, tc=False):
+    """Per-example float32 workspace of the walk (mega_grad.cu ``Ws``). The
+    tensor-core route adds the float32 dY rows of its five record slots
+    and lays its ten ``[F, H]``, two ``[F, F]`` and two ``[H]`` slots out at
+    ``TC_MAX_F`` and ``TC_MAX_H``."""
+    rest = Nv * H + Na * F + Nf * F * H + L * H + T * H
+    if tc:
+        F_, H_ = TX.TC_MAX_F, TX.TC_MAX_H
+        return 10 * F_ * H_ + 2 * F_ * F_ + 2 * H_ + rest
+    return rest + 7 * F * H + 2 * F * F
+
+
+def bwd_route(dtype, H, F) -> str:
+    """The backward's kernel route, chosen before any launch: ``"tc"``
+    (``mega_bwd_tc_kernel`` + ``mega_wgrad_tc_kernel``: bf16 at the widths
+    ``mega_exec.tc_shape`` takes; the recompute on ``gemm_rows``, bit for
+    bit #5's, the bf16 gradient and weight products on the tensor cores) or
+    ``"general"`` (``mega_bwd_kernel`` + ``mega_wgrad_kernel``: float32,
+    the exact route, and every other width)."""
+    if dtype == torch.bfloat16 and TX.tc_shape(H, F):
+        return "tc"
+    return "general"
+
+
+def bwd_smem_bytes(F, H, tc) -> int:
+    """Dynamic shared memory of the walk per block, as ``csrc/mega_grad.cu
+    bwd_smem_floats`` computes it: NHV ``[H]`` and NFV + 5 ``[F]`` float
+    vectors (at TC_MAX_H and TC_MAX_F on the tensor-core route), gemm's
+    tiles; on the tensor-core route, 16-byte aligned, the
+    larger of gemm_rows' double buffer and the bf16 ``[F, H + 8]``
+    cotangent tile with tc_gemm's ring."""
+    t, g = TX._TILES, _build.header_ints("mega_grad.cu")
+    SH, SF = (TX.TC_MAX_H, TX.TC_MAX_F) if tc else (H, F)
+    n = (g["NHV"] * SH + (g["NFV"] + 5) * SF + t["BK"] * (t["BM"] + 1)
+         + t["BK"] * t["BN"] + t["THREADS"] // 32)
+    if tc:
+        n = (n + 3) & ~3
+        stage = t["TC_BN"] * (t["TC_BK"] + t["TC_PAD"])
+        gr_bn = t["THREADS"] // (t["GR_BM"] // t["GR_TM"]) * t["GR_TN"]
+        rows = 2 * (t["GR_BM"] * (t["GR_BK"] + t["GR_PAD"])
+                    + t["GR_BK"] * gr_bn)
+        n += max((F * (H + t["TC_PAD"]) + t["TC_STAGES"] * stage) // 2, rows)
+    return 4 * n
 
 
 def mega_exec_bwd_reference(meta, args, outs, gouts, rate=0.0, seed=None):
@@ -89,11 +132,33 @@ def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None):
                        TX.dropout_params(rate, seed))
 
 
+def recompute_check(A, Bm, ra):
+    """The card check of the tensor-core walk's recompute products: runs
+    ``gemm`` (the training forward's product) and ``gemm_rows`` (the walk's)
+    on the same operands and epilogue (``out[m, n] = acc``): A float32
+    ``[M, K]`` (rounded to bf16 as it is loaded where ``ra``), B bf16 ``[K,
+    N]`` on the card, M <= 64, K % 16 == 0, N % 8 == 0. Returns the two
+    float32 ``[M, N]`` results, which must be equal bit for bit."""
+    dev = A.device
+    M, K = A.shape
+    N = Bm.shape[1]
+    _build.check_tensor("recompute_check A", A, torch.float32, (M, K), dev)
+    _build.check_tensor("recompute_check B", Bm, torch.bfloat16, (K, N), dev)
+    old = torch.empty(M, N, dtype=torch.float32, device=dev)
+    new = torch.empty_like(old)
+    err = _build.build().stair_mega_recompute_check(
+        A.data_ptr(), Bm.data_ptr(), M, K, N, int(bool(ra)), old.data_ptr(),
+        new.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "mega_recompute_check")
+    return old, new
+
+
 def _launch_bwd(meta, args, outs, gouts, drop):
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = TX.check_args("mega_exec_bwd", meta, args)
     if F > 256:
         raise ValueError(f"mega_exec_bwd kernel: F={F} (<= 256)")
+    tc = bwd_route(dt, H, F) == "tc"
     gouts = tuple(g.to(dt).contiguous() for g in gouts)
     for name, x in zip(("rv", "rf", "ra", "drv", "drf", "dra"),
                        tuple(outs) + gouts):
@@ -108,31 +173,38 @@ def _launch_bwd(meta, args, outs, gouts, drop):
     nrec = B * T
     meta_rec = torch.full((nrec, NSLOT, 3), -1, dtype=torch.int32,
                           device=dev)
-    recs = [torch.empty(nrec, F, H, **f32) for _ in range(6)] + [
-        torch.empty(nrec, 3 * H, **f32), torch.empty(nrec, H, **f32),
-        torch.empty(nrec, H, **f32), torch.empty(nrec, H, **f32)]
+    # the weight products' records: X and dY rows, float32 on the general
+    # route, bf16 on the tensor-core route with float32 bias partials
+    rt = dict(dtype=dt if tc else torch.float32, device=dev)
+    recs = [torch.empty(nrec, F, H, **rt) for _ in range(6)] + [
+        torch.empty(nrec, 3 * H, **rt), torch.empty(nrec, H, **rt),
+        torch.empty(nrec, H, **rt), torch.empty(nrec, H, **rt)]
+    bias = (torch.empty(nrec, NSLOT, H, **f32),) if tc else ()
     small = torch.empty(B, n_small, **f32)
     wgrads = [(torch.zeros(E, K * H, H, **f32), torch.zeros(E, H, **f32))
               for _, _, E, K in TABLES]
     dsmall = torch.zeros(n_small, **f32)
     if B > 0:
-        ws = torch.empty(B, workspace_floats(Nv, Nf, Na, F, H, L, T), **f32)
+        ws = torch.empty(B, workspace_floats(Nv, Nf, Na, F, H, L, T, tc),
+                         **f32)
         lib = _build.build()
         stream = _build.stream_ptr(dev)
-        sfx = "bf16" if dt == torch.bfloat16 else "f32"
+        sfx = "tc" if tc else ("bf16" if dt == torch.bfloat16 else "f32")
+        walk, wgrad = (("mega_exec_bwd_tc", "mega_exec_wgrad_tc") if tc
+                       else ("mega_exec_bwd", "mega_exec_wgrad"))
         ptrs = (*args, *outs, *gouts, dvid, dtok, daux, meta_rec, *recs,
-                small)
+                *bias, small)
         err = getattr(lib, f"stair_mega_exec_bwd_{sfx}")(
             _build.pointers(ptrs), len(ptrs), ws.data_ptr(),
             B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop, stream)
-        _build.check(err, "mega_exec_bwd")
-        _build.LAUNCHES["mega_exec_bwd"] += 1
-        wptrs = (meta_rec, *recs, small,
+        _build.check(err, walk)
+        _build.LAUNCHES[walk] += 1
+        wptrs = (meta_rec, *recs, *bias, small,
                  *[t for pair in wgrads for t in pair], dsmall)
         err = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")(
             _build.pointers(wptrs), len(wptrs), B, T, F, H, stream)
-        _build.check(err, "mega_exec_wgrad")
-        _build.LAUNCHES["mega_exec_wgrad"] += 1
+        _build.check(err, wgrad)
+        _build.LAUNCHES[wgrad] += 1
     by_name = {}
     shapes = dict(zip(TX.ARG_NAMES, TX._arg_shapes(B, T, F, H, Hh, L)))
     for (wn, bn, _, _), (dw, db) in zip(TABLES, wgrads):

@@ -201,3 +201,91 @@ def test_mega_exec_kernel_vs_plain_on_card(cuda_device, dtype, F, fsoft):
     for name, a, b in zip(("rv", "rf", "ra"), out, ref):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol[0],
                                    atol=tol[1], msg=name)
+
+
+# The eval forward's route, chosen before any launch: the tensor-core
+# kernel takes bf16 without dropout at H a multiple of 64 in [64, 512] and
+# F a multiple of 16 in [16, 64] (the main path's H 512, F 64); float32,
+# the training forward (drop) and every other width take the general
+# kernel.
+FWD_ROUTE_CASES = [
+    (torch.bfloat16, 512, 64, False, "tc"),
+    (torch.bfloat16, 512, 64, True, "general"),
+    (torch.float32, 512, 64, False, "general"),
+    (torch.bfloat16, 64, 16, False, "tc"),
+    (torch.bfloat16, 192, 48, False, "tc"),
+    (torch.bfloat16, 32, 16, False, "general"),
+    (torch.bfloat16, 96, 16, False, "general"),
+    (torch.bfloat16, 1024, 64, False, "general"),
+    (torch.bfloat16, 512, 8, False, "general"),
+    (torch.bfloat16, 512, 100, False, "general"),
+    (torch.bfloat16, 512, 128, False, "general"),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,H,F,drop,route", FWD_ROUTE_CASES,
+    ids=[f"{str(d)[6:]}-H{h}-F{f}{'-drop' if x else ''}"
+         for d, h, f, x, _ in FWD_ROUTE_CASES])
+def test_mega_exec_fwd_route_choice(dtype, H, F, drop, route):
+    assert TX.fwd_route(dtype, H, F, drop) == route
+
+
+@pytest.mark.parametrize("L", [16, 1024])
+def test_mega_exec_tc_shared_memory_fits(L):
+    """Every width the tensor-core route takes fits one block's 227 KB of
+    shared memory (two bf16 frame tiles, the weight ring, the vectors), and
+    the main path's shape needs what the source's plan says (~206 KB)."""
+    for H in range(64, TX.TC_MAX_H + 1, 64):
+        for F in range(16, TX.TC_MAX_F + 1, 16):
+            assert TX.tc_smem_bytes(F, H, L) <= TX.SMEM_MAX, (F, H, L)
+    if L == 16:
+        assert TX.tc_smem_bytes(64, 512, 16) == 210464
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc", "general"])
+@pytest.mark.parametrize("F,fsoft", [(16, False), (16, True), (64, False),
+                                     (64, True)])
+def test_mega_exec_bf16_routes_vs_plain_on_card(cuda_device, monkeypatch,
+                                                route, F, fsoft):
+    """Both bf16 eval routes against the plain version over every opcode at
+    H = 192 (ragged 128-column chunks and k splits in the tensor-core
+    kernel), atol 3e-2 plus rtol 1e-2; one launch of the route's key and
+    none of the other's; the kernel's shared memory is what
+    ``tc_smem_bytes`` says."""
+    from stair_tpu_torch.ops import _build
+
+    if route == "general":
+        monkeypatch.setattr(TX, "fwd_route", lambda *a: "general")
+    cfg = NMNConfig(
+        hidden_size=192, video_size=24, text_size=20, answer_vocab_length=7,
+        max_video_length=F, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8,
+        filter_attention="softmax" if fsoft else "parity",
+        compute_dtype="bfloat16")
+    model = TW.build_model(cfg, seed=1, device=cuda_device)
+    batch = TW.to_device(TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS * 2, seed=8),
+                         cuda_device)
+    rng = np.random.RandomState(F)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.from_numpy(rng.randn(B, n, 96).astype(np.float32))
+              .to(cuda_device, torch.bfloat16) for n in (F, F, L, L)]
+    mods = tree_map(lambda x: x.detach().to(torch.bfloat16),
+                    model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, model._fused_tables(mods), batch["trace"],
+        (halves[0], halves[1]), batch["video_mask"],
+        (halves[2], halves[3]), batch["question_mask"])
+    _build.reset_launches()
+    out = TX.mega_exec_call(meta, args)
+    torch.cuda.synchronize()
+    key, other = (("mega_exec_tc", "mega_exec") if route == "tc"
+                  else ("mega_exec", "mega_exec_tc"))
+    assert _build.LAUNCHES[key] == 1 and _build.LAUNCHES[other] == 0
+    ref = TX.mega_exec_reference(meta, args)
+    for name, a, b in zip(("rv", "rf", "ra"), out, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=3e-2, msg=name)
+    assert (_build.build().stair_mega_exec_tc_smem(F, 192, L)
+            == TX.tc_smem_bytes(F, 192, L))

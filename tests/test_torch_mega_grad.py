@@ -265,3 +265,171 @@ def test_mega_train_kernels_vs_plain_on_card(cuda_device, dtype, F,
         scale = max(float(r.float().abs().max()), 1e-12)
         assert float((a.float() - r.float()).abs().max()) <= bound * scale, \
             name
+
+
+# The backward's route, chosen before any launch: the tensor-core walk and
+# weight-gradient kernels take bf16 at the widths mega_exec.tc_shape takes
+# (H a multiple of 64 in [64, 512], F a multiple of 16 in [16, 64]);
+# float32 (the exact route) and every other width take the general kernels.
+BWD_ROUTE_CASES = [
+    (torch.bfloat16, 512, 64, "tc"), (torch.float32, 512, 64, "general"),
+    (torch.bfloat16, 64, 16, "tc"), (torch.bfloat16, 192, 48, "tc"),
+    (torch.bfloat16, 32, 16, "general"), (torch.bfloat16, 160, 16, "general"),
+    (torch.bfloat16, 576, 64, "general"), (torch.bfloat16, 512, 24, "general"),
+    (torch.bfloat16, 512, 80, "general"), (torch.float32, 64, 16, "general"),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,H,F,route", BWD_ROUTE_CASES,
+    ids=[f"{str(d)[6:]}-H{h}-F{f}" for d, h, f, _ in BWD_ROUTE_CASES])
+def test_mega_bwd_route_choice(dtype, H, F, route):
+    assert TG.bwd_route(dtype, H, F) == route
+
+
+def test_mega_bwd_tc_shared_memory_fits():
+    """The walk's shared memory on the tensor-core route (its vectors, the
+    bf16 cotangent tile and tc_gemm's ring, or gemm_rows' buffers) fits one
+    block's 227 KB at every width the route takes; the general route's is
+    unchanged (37,216 bytes at F 64, H 512)."""
+    for H in range(64, TX.TC_MAX_H + 1, 64):
+        for F in range(16, TX.TC_MAX_F + 1, 16):
+            assert TG.bwd_smem_bytes(F, H, True) <= TX.SMEM_MAX, (F, H)
+    assert TG.bwd_smem_bytes(64, 512, False) == 37216
+    assert TG.bwd_smem_bytes(64, 512, True) == 131424
+
+
+def test_mega_bwd_tc_workspace_adds_the_dy_rows():
+    """The tensor-core walk keeps its five slots' float32 dY rows in the
+    workspace (three [F, H], two [H]) until a step's records are written,
+    and lays its [F, H], [F, F] and [H] slots out at the route's largest F
+    and H: at those widths it is the general layout plus the dY rows."""
+    args = (10, 6, 8, TX.TC_MAX_F, TX.TC_MAX_H, 16, 13)
+    F, H = TX.TC_MAX_F, TX.TC_MAX_H
+    assert (TG.workspace_floats(*args, tc=True)
+            - TG.workspace_floats(*args)) == 3 * F * H + 2 * H
+    small = (10, 6, 8, 16, 64, 16, 13)
+    assert (TG.workspace_floats(*small, tc=True)
+            > TG.workspace_floats(*small))
+
+
+def _bwd_case(dev, H, F, attention, copies):
+    """Prepared bf16 args over the all-opcode programs (``copies`` times),
+    the training forward's files at dropout 0.25 and seeded cotangents."""
+    cfg = NMNConfig(
+        hidden_size=H, video_size=24, text_size=20, answer_vocab_length=7,
+        max_video_length=F, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8, filter_attention=attention,
+        compute_dtype="bfloat16")
+    model = TW.build_model(cfg, seed=1, device=dev)
+    batch = TW.to_device(
+        TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS * copies, seed=8), dev)
+    gen = torch.Generator().manual_seed(F)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.randn(B, n, H // 2, generator=gen)
+              .to(dev, torch.bfloat16) for n in (F, F, L, L)]
+    mods = tree_map(lambda x: x.detach().to(torch.bfloat16),
+                    model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], halves[:2],
+        batch["video_mask"], halves[2:], batch["question_mask"])
+    out = TX.mega_exec_train_call(meta, args, 0.25, (123, 456))
+    cots = [torch.randn(o.shape, generator=gen).to(dev) for o in out]
+    return meta, args, out, cots
+
+
+GRAD_NAMES = ("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux") + \
+    TX.ARG_NAMES[TG.N_DATA:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc", "general"])
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (16, "softmax"),
+                                         (64, "parity"), (64, "softmax")])
+def test_mega_bwd_bf16_routes_vs_plain_on_card(cuda_device, monkeypatch,
+                                               route, F, attention):
+    """Both bf16 backward routes against the plain backward over every
+    opcode at dropout 0.25, at the widths of the bf16 check above (H 64),
+    within 1e-1 of each gradient's scale; two runs give identical bits; one
+    launch of each of the route's two keys and none of the other route's."""
+    if route == "general":
+        monkeypatch.setattr(TG, "bwd_route", lambda *a: "general")
+    seed = (123, 456)
+    meta, args, out, cots = _bwd_case(cuda_device, 64, F, attention, 1)
+    _build.reset_launches()
+    k1 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    k2 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    torch.cuda.synchronize()
+    keys = ("mega_exec_bwd_tc", "mega_exec_wgrad_tc")
+    gen_keys = ("mega_exec_bwd", "mega_exec_wgrad")
+    want, other = (keys, gen_keys) if route == "tc" else (gen_keys, keys)
+    assert all(_build.LAUNCHES[k] == 2 for k in want)
+    assert not any(_build.LAUNCHES[k] for k in other)
+    rb = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed)
+    grads = dict(zip(GRAD_NAMES, rb))
+    for name, a, b, r in zip(GRAD_NAMES, k1, k2, rb):
+        assert torch.equal(a, b), name
+        if attention == "softmax" and name in ("fltk", "fltb"):
+            ref = float(grads["fltw"].float().abs().max())
+            assert float(a.float().abs().max()) <= 1e-3 * ref, name
+            continue
+        scale = max(float(r.float().abs().max()), 1e-12)
+        assert float((a.float() - r.float()).abs().max()) <= 1e-1 * scale, \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", ["parity", "softmax"])
+def test_mega_bwd_tc_route_equals_general_route_on_card(cuda_device,
+                                                        monkeypatch,
+                                                        attention):
+    """The tensor-core backward against the general one at H 192 (ragged
+    128-column chunks) and F 64 over the all-opcode programs twice: the two
+    share every recomputed value bit for bit (so every relu mask and
+    rounding site of the forward) and differ only in the order of the
+    products' sums, so every gradient agrees within 1e-2 of its scale. (At
+    these widths both routes differ from the plain version's supb by
+    ~0.18 of its scale: the JAX kernel's SUPF backward recomputes the
+    cosine scores unrounded where the forward rounds them,
+    stair_tpu/ops/mega_grad.py:710-713, and the port's kernels keep that.)"""
+    seed = (123, 456)
+    meta, args, out, cots = _bwd_case(cuda_device, 192, 64, attention, 2)
+    tc = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    monkeypatch.setattr(TG, "bwd_route", lambda *a: "general")
+    gen = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    torch.cuda.synchronize()
+    grads = dict(zip(GRAD_NAMES, gen))
+    for name, a, g in zip(GRAD_NAMES, tc, gen):
+        if attention == "softmax" and name in ("fltk", "fltb"):
+            # 0 in exact arithmetic: float32 noise on both routes, bounded
+            # as above against the Filter logit weights' gradient
+            ref = float(grads["fltw"].float().abs().max())
+            assert float(a.float().abs().max()) <= 1e-3 * ref, name
+            continue
+        scale = max(float(g.float().abs().max()), 1e-12)
+        assert float((a.float() - g.float()).abs().max()) <= 1e-2 * scale, \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ra", [False, True])
+@pytest.mark.parametrize("M,K,N", [(64, 512, 512), (16, 512, 512),
+                                   (48, 192, 192), (64, 512, 64)])
+def test_recompute_rows_equal_gemm_on_card(cuda_device, ra, M, K, N):
+    """The tensor-core walk's recompute helper (gemm_rows) gives gemm's bits
+    (the training forward's products) on the same operands, at the walk's
+    shapes (F x H @ H x H, and F x H @ H x F), with A rounded to bf16 as it
+    is loaded (ra) or not; float32 A that is not exact in bf16, so that
+    ``ra`` changes the result."""
+    gen = torch.Generator().manual_seed(M + K + N)
+    A = torch.randn(M, K, generator=gen).to(cuda_device)
+    Bm = (torch.randn(K, N, generator=gen) / K ** 0.5).to(
+        cuda_device, torch.bfloat16)
+    old, new = TG.recompute_check(A, Bm, ra)
+    torch.cuda.synchronize()
+    assert torch.equal(old, new)
+    want = (A.to(torch.bfloat16).float() if ra else A).double() @ \
+        Bm.double()
+    assert float((old.double() - want).abs().max()) < 1e-3
+    assert (_build.build().stair_mega_exec_bwd_smem(M, K, 1)
+            == TG.bwd_smem_bytes(M, K, True))
