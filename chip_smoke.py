@@ -6,7 +6,9 @@ training.
 
     python3 chip_smoke.py
 
-Phases (any failure raises, and the script exits non-zero):
+Phases (any failure raises, and the script exits non-zero; a check
+marked as an open fault fails the run at its end instead, after every phase
+has printed what it measured):
 
 1. device: refuse to run without CUDA; print the card's name and power
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
@@ -47,7 +49,7 @@ Phases (any failure raises, and the script exits non-zero):
    routes (tensor-core and general, within 1e-1); two backward runs must
    give identical bits; the tensor-core walk's recompute helper
    (``gemm_rows``) against the training forward's (``gemm``) at the walk's
-   shapes, for both roundings of A: equal bits;
+   shapes, for both roundings of A, A in bf16 and in float32: equal bits;
 8. the training slice at ``scripts/bench_train_step.py``'s configuration
    (H = 512, video 1024, text 300, F = 64, 172 answers, 64 object types,
    bf16, dropout 0.25, B = 128, fake supervision, Adam at lr 2e-4 with the
@@ -58,8 +60,9 @@ Phases (any failure raises, and the script exits non-zero):
    loss in bf16; the gradients leaf by leaf in float32, where rounding
    sites agree), ms per step on both routes, each training kernel against
    its plain version on the step's own inputs (the executor backward on the
-   plain forward's register files, the inputs the plain backward sees) and
-   its time beside its plain version's at these shapes (the BiLSTM forward and
+   kernel forward's register files, as the step hands them, within 1e-1:
+   an open fault, ROADMAP Queue 3; and on the plain forward's, the inputs
+   the plain backward sees, within 1e-1) and its time beside its plain version's at these shapes (the BiLSTM forward and
    backward and the executor backward also on their general routes);
 9. the attention kernel vs its plain version: B = 4, H = 32, D = 128 at
    L = 640 and a ragged L = 611 (strided views), grouped heads 32 / 8,
@@ -277,6 +280,18 @@ def graph_ms(fn, iters=20):
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+#: checks that failed under ``require_at_end``
+FAILED = []
+
+
+def require_at_end(cond, msg):
+    """A check whose failure fails the run at its end, after every phase
+    has run and printed what it measured."""
+    if not cond:
+        log(f"[FAILED] {msg}")
+        FAILED.append(msg)
 
 
 @contextlib.contextmanager
@@ -934,21 +949,25 @@ def phase_mega_train(dev):
                 + "; two backward runs bit-identical ok")
     # The tensor-core walk recomputes the training forward's values with
     # gemm_rows; it must give gemm's bits at the walk's shapes ([F, H] @ [H,
-    # H] and [F, H] @ [H, F]), A rounded to bf16 as it is loaded or not.
+    # H] and [F, H] @ [H, F]), A rounded to bf16 as it is loaded or not, A
+    # in bf16 (as every recompute of the walk passes it) and in float32.
     gen = torch.Generator().manual_seed(9)
     for M, K, N in ((FRAMES, HIDDEN, HIDDEN), (16, HIDDEN, HIDDEN),
                     (FRAMES, HIDDEN, FRAMES)):
-        A = torch.randn(M, K, generator=gen).to(dev)
+        A32 = torch.randn(M, K, generator=gen).to(dev)
         Bm = (torch.randn(K, N, generator=gen) / K ** 0.5).to(
             dev, torch.bfloat16)
-        for ra in (False, True):
-            old, new = TG.recompute_check(A, Bm, ra)
-            torch.cuda.synchronize()
-            require(torch.equal(old, new),
-                    f"gemm_rows != gemm at M={M} K={K} N={N} ra={ra}: "
-                    f"max diff {float((old - new).abs().max())}")
+        for A in (A32.to(torch.bfloat16), A32):
+            for ra in (False, True):
+                old, new = TG.recompute_check(A, Bm, ra)
+                torch.cuda.synchronize()
+                require(torch.equal(old, new),
+                        f"gemm_rows != gemm at M={M} K={K} N={N} A "
+                        f"{A.dtype} ra={ra}: max diff "
+                        f"{float((old - new).abs().max())}")
         log(f"[recompute] gemm_rows equals gemm bit for bit at [{M}, {K}] @ "
-            f"[{K}, {N}], A rounded to bf16 at load and not ok")
+            f"[{K}, {N}], A in bf16 and in float32, rounded to bf16 at load "
+            f"and not ok")
     return errs
 
 
@@ -1123,27 +1142,41 @@ def phase_train(dev, card):
     for o, r in zip(km, rm):
         torch.testing.assert_close(o.float(), r.float(), rtol=1e-2, atol=3e-2)
     mcot = [cot(o) for o in km]
-    # The backward takes the forward's register files as an input, and the
-    # plain backward differentiates through the plain forward, whose files
-    # are rm; so the kernel is handed rm too, and both see one forward.
-    # Handed km, which differs from rm by bf16 steps (the check above), a
-    # relu of a head with few records can take the other side: this run's
-    # weights moved the Compare head's gradients by ~0.15 of their scale
-    # that way on both executor routes alike, which says nothing of the
-    # backward; that number is printed beside, not bounded.
-    kmb = TG.mega_exec_bwd_call(meta, margs, rm, mcot, cfg.dropout, seed)
-    rmb = TG.mega_exec_bwd_reference(meta, margs, rm, mcot, cfg.dropout,
+    # The train step hands the backward the kernel forward's register files
+    # (km): the main-path check, bound 1e-1. The plain backward reads no
+    # files: it differentiates through the plain forward, whose files are
+    # rm; the kernel backward handed rm is held to the same bound beside it,
+    # and the general route handed km is printed with them.
+    names = ("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux") + tuple(
+        TX.ARG_NAMES[TG.N_DATA:])
+    rmb = TG.mega_exec_bwd_reference(meta, margs, km, mcot, cfg.dropout,
                                      seed)
+
+    def worst(out):
+        rels = sorted(((rel_err(x, y), n) for n, x, y in zip(names, out, rmb)),
+                      reverse=True)
+        return rels[0][0], [(n, f"{r:.3e}") for r, n in rels[:3]]
+
+    kmb = TG.mega_exec_bwd_call(meta, margs, km, mcot, cfg.dropout, seed)
     e_mb = max_err(kmb, rmb)
-    r_mb = max(rel_err(x, y) for x, y in zip(kmb, rmb))
-    require(r_mb <= 1e-1, f"mega_exec_bwd main-path rel err {r_mb}")
-    r_km = max(rel_err(x, y) for x, y in zip(
-        TG.mega_exec_bwd_call(meta, margs, km, mcot, cfg.dropout, seed), rmb))
+    r_mb, w_mb = worst(kmb)
+    r_rm, w_rm = worst(TG.mega_exec_bwd_call(meta, margs, rm, mcot,
+                                             cfg.dropout, seed))
+    with general_mega():
+        r_gen, w_gen = worst(TG.mega_exec_bwd_call(meta, margs, km, mcot,
+                                                   cfg.dropout, seed))
     log(f"[main-path inputs] bilstm_train max_abs_err {e_lt:.3e}; "
         f"bilstm_bwd max_abs_err {e_lb:.3e} (max rel {r_lb:.2e}); "
-        f"mega_exec_train max_abs_err {e_mt:.3e}; mega_exec_bwd on the plain "
-        f"forward's files max_abs_err {e_mb:.3e} (max rel {r_mb:.2e}, bound "
-        f"1e-1) ok; on the kernel forward's files max rel {r_km:.2e}")
+        f"mega_exec_train max_abs_err {e_mt:.3e}; mega_exec_bwd max rel err "
+        f"(bound 1e-1) on the kernel forward's files {r_mb:.3e} "
+        f"(max_abs_err {e_mb:.3e}; worst {w_mb}), general route there "
+        f"{r_gen:.3e} ({w_gen}), on the plain forward's files {r_rm:.3e} "
+        f"({w_rm})")
+    require(r_rm <= 1e-1,
+            f"mega_exec_bwd on the plain forward's files rel err {r_rm}")
+    # an open fault (ROADMAP Queue 3): the run goes on and fails at its end
+    require_at_end(r_mb <= 1e-1, f"mega_exec_bwd main-path rel err {r_mb} "
+                   f"(bound 1e-1): {w_mb}")
     t = {
         "bilstm_train": cuda_time_ms(
             lambda: (TL.bilstm_train_call(*vargs, token_dtype=dt),
@@ -1220,7 +1253,7 @@ def phase_train(dev, card):
          "launches": launches["mega_exec_train"], "max_abs_err": e_mt,
          "ms": t["mega_exec_train"], "plain_ms": t["mega_exec_train_plain"]},
         {"name": "mega_exec_bwd", "route": "cuda",
-         "source": "stair_tpu_torch/ops/csrc/mega_grad.cu",
+         "source": "stair_tpu_torch/ops/csrc/mega_grad_tc.cu",
          "replaces": "stair_tpu/ops/mega_grad.py:111",
          "executor_route": "tc",
          "launches": launches["mega_exec_bwd_tc"], "max_abs_err": e_mb,
@@ -2485,6 +2518,7 @@ def main():
     kernels.append(phase_step_slice(dev, card))
     kernels += phase_rev_train(dev, card, slot_entries)
     log(json.dumps({"kernels": kernels}))
+    require(not FAILED, f"{len(FAILED)} check(s) failed: {FAILED}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -34,7 +34,7 @@ its kernel and nowhere else:
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
 - ``mega_exec_bwd_tc``, ``mega_exec_wgrad_tc``: the backward on the
-  tensor-core route (bf16, the main path's);
+  tensor-core route (bf16, the main path's; ``csrc/mega_grad_tc.cu``);
 - ``flash_attn``: the masked flash-attention forward
   (``csrc/flash_attn.cu``);
 - ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
@@ -244,12 +244,13 @@ def build():
         P,                         # stream
     ]
     Lg = ctypes.c_long
-    for fn in (lib.stair_mega_exec_tc_smem, lib.stair_mega_exec_bwd_smem):
-        fn.restype = Lg
-        fn.argtypes = [I, I, I]    # F, H, L (forward) / F, H, tc (backward)
+    lib.stair_mega_exec_tc_smem.restype = Lg
+    lib.stair_mega_exec_tc_smem.argtypes = [I, I, I]        # F, H, L
+    lib.stair_mega_exec_bwd_tc_smem.restype = Lg
+    lib.stair_mega_exec_bwd_tc_smem.argtypes = [I, I]       # F, H
     lib.stair_mega_recompute_check.restype = I
-    # A, B, M, K, N, ra, out_gemm, out_rows, stream
-    lib.stair_mega_recompute_check.argtypes = [P, P, I, I, I, I, P, P, P]
+    # A, B, M, K, N, ra, a_bf16, out_gemm, out_rows, stream
+    lib.stair_mega_recompute_check.argtypes = [P, P, I, I, I, I, I, P, P, P]
     for sfx in ("f32", "bf16", "tc"):
         fn = getattr(lib, f"stair_mega_exec_bwd_{sfx}")
         fn.restype = I

@@ -36,41 +36,11 @@
 // are per-example float32 partials, summed over examples in order by the
 // same launch. No float atomics: two runs give the same bits.
 //
-// Two routes (ops/mega_grad.py bwd_route picks one before the launch). The
-// general route (mega_bwd_kernel, mega_wgrad_kernel: float32, and the
-// shapes the other refuses) runs every product on the float32 CUDA cores
-// with gemm, 64 x 64 tiles of 4 x 4 outputs a thread, and keeps float32
-// records. The tensor-core route (mega_bwd_tc_kernel, mega_wgrad_tc_kernel:
-// bf16, H a multiple of 64 up to TC_MAX_H, F a multiple of 16 up to
-// TC_MAX_F) splits the walk's products in two:
-// - the recompute products (stage 1, SUPF's keyword rows, the FilterFrame
-//   and Temporal projections) rebuild values of the training forward (#5,
-//   mega_exec_kernel, which keeps gemm), so they run gemm_rows (and
-//   vecmat_rows): gemm's chains bit for bit, on 16-byte loads staged one
-//   slice ahead and one barrier a slice;
-// - the gradient products whose operands are both exact in bf16 (the
-//   cotangent rounded as it is loaded, as the JAX kernel's .astype(dt), and
-//   a bf16 weight table: SUPF, FilterFrame and Temporal's rd(dY) @ W^T and
-//   stage 1's two) run on mma.sync (tc_gemm); only their order of sums
-//   changes. The products of the float32 cotangent m1 (SUPF) stay on gemm.
-// Its records are bf16 rows (the weight products round them anyway: half
-// the bytes), and each (record, slot) gets a float32 [H] bias partial, the
-// row sum of the unrounded dY; mega_wgrad_tc_kernel takes X^T dY on mma.sync
-// over 128 x 128 tiles, the rows of an expert's records gathered in
-// (example, step) order into 32-row chunks through a cp.async ring, and sums
-// the bias partials in the same order.
-//
 // What bounds it on an H100: one block per example (B = 128 blocks at the
-// training shape, under one per SM). On the general route about nine [F x
-// H] @ [H x H] products per heavy step on the float32 CUDA cores; on the
-// tensor-core route the recompute products' float32 FMAs (about four of
-// them per heavy step, the same chains as #5's, so they cannot move to the
-// tensor cores until #5 does) and the latency of the per-step vec and
-// elementwise passes through L2. Moving #5 and this recompute onto the
-// tensor cores together, and splitting an example across a thread-block
-// cluster, are later work.
-
-#include <type_traits>
+// training shape, under one per SM), and about nine [F x H] @ [H x H]
+// products per heavy step on the float32 CUDA cores, with operands read
+// from L2. Tensor cores, grouping examples by expert, and splitting an
+// example across blocks are later work.
 
 #include "mega_common.cuh"
 
@@ -103,13 +73,12 @@ __constant__ int TB_SLOT[NTABLES] = {0, 1, 2, 3, 3, 3, 3, 3, 3, 4, 3, 4, 3};
 
 // Offsets of the small tables in a per-example partial (float32):
 // ffwf [H], ffkw [H], ffab [1], fltw [H], fltk [H], fltb [1], lns [H],
-// lnb [H], beta [F], t1/t2/t3 [3, F, F], tb1/tb2/tb3 [3, F]. (int: under
-// MAX_H and MAX_F they stay far below 2^31, and half the registers.)
+// lnb [H], beta [F], t1/t2/t3 [3, F, F], tb1/tb2/tb3 [3, F].
 struct Small {
-  int ffwf, ffkw, ffab, fltw, fltk, fltb, lns, lnb, beta, t1, t2, t3, tb1,
+  long ffwf, ffkw, ffab, fltw, fltk, fltb, lns, lnb, beta, t1, t2, t3, tb1,
       tb2, tb3, size;
   __host__ __device__ Small(int H, int F) {
-    int o = 0;
+    long o = 0;
     ffwf = o; o += H;
     ffkw = o; o += H;
     ffab = o; o += 1;
@@ -119,46 +88,24 @@ struct Small {
     lns = o; o += H;
     lnb = o; o += H;
     beta = o; o += F;
-    t1 = o; o += 3 * F * F;
-    t2 = o; o += 3 * F * F;
-    t3 = o; o += 3 * F * F;
-    tb1 = o; o += 3 * F;
-    tb2 = o; o += 3 * F;
-    tb3 = o; o += 3 * F;
+    t1 = o; o += 3L * F * F;
+    t2 = o; o += 3L * F * F;
+    t3 = o; o += 3L * F * F;
+    tb1 = o; o += 3L * F;
+    tb2 = o; o += 3L * F;
+    tb3 = o; o += 3L * F;
     size = o;
   }
 };
 
-// Per-example float32 workspace, in floats. The tensor-core route adds the
-// float32 dY rows of its five record slots (d0 .. d4), kept until the step
-// ends and its bf16 records and bias partials are written, and puts its
-// [F, H], [F, F] and [H] slots first at strides of the route's largest F and
-// H, so that their offsets are compile-time constants (no register holds
-// them across the walk); ops/mega_grad.py workspace_floats mirrors it.
+// Per-example float32 workspace, in floats.
 struct Ws {
-  int grv, gra, grf, feat, hpre, h2, gfeat, w1, w2, gof, m1, m2, dtok, daux,
-      d0, d1, d2, d3, d4, size;
+  long grv, gra, grf, feat, hpre, h2, gfeat, w1, w2, gof, m1, m2, dtok, daux,
+      size;
   __host__ __device__ Ws(int Nv, int Nf, int Na, int F, int H, int L,
-                         int T, bool tc = false) {
-    const int FH = F * H;
-    int o = 0;
-    if (tc) {
-      const int S = stair::TC_MAX_F * stair::TC_MAX_H;
-      const int SF = stair::TC_MAX_F * stair::TC_MAX_F;
-      int* fh[] = {&feat, &hpre, &h2, &gfeat, &w1, &w2, &gof, &d0, &d1, &d2};
-      for (int* f : fh) { *f = o; o += S; }
-      m1 = o; o += SF;
-      m2 = o; o += SF;
-      d3 = o; o += stair::TC_MAX_H;
-      d4 = o; o += stair::TC_MAX_H;
-      grv = o; o += (long)Nv * H;
-      gra = o; o += (long)Na * F;
-      grf = o; o += Nf * FH;
-      dtok = o; o += (long)L * H;
-      daux = o; o += (long)T * H;
-      size = o;
-      return;
-    }
+                         int T) {
+    const long FH = (long)F * H;
+    long o = 0;
     grv = o; o += (long)Nv * H;
     gra = o; o += (long)Na * F;
     grf = o; o += Nf * FH;
@@ -173,97 +120,38 @@ struct Ws {
     m2 = o; o += (long)F * F;
     dtok = o; o += (long)L * H;
     daux = o; o += (long)T * H;
-    d0 = d1 = d2 = d3 = d4 = 0;
     size = o;
   }
 };
 
-// TC: the tensor-core route (records in bf16, RT; bias partials).
-template <typename T, bool TC>
+template <typename T>
 struct BArgs : Tensors<T> {
-  using RT = std::conditional_t<TC, __nv_bfloat16, float>;
   const T *rv, *rf, *ra, *drv, *drf, *dra;
   T *dvid, *dtok, *daux;
   int* meta;                       // [B, T, NSLOT, 3]: table, expert, rows
-  RT *X0, *D0, *X1, *D1, *X2, *D2, *X3, *D3, *X4, *D4;
-  float* bias;                     // TC: [B, T, NSLOT, H] row sums of dY
+  float *X0, *D0, *X1, *D1, *X2, *D2, *X3, *D3, *X4, *D4;
   float* small;                    // [B, Small.size]
   float* ws;                       // [B, Ws.size]
   int B, T_, Nv, Nf, Na, F, H, L, fsoft;
   stair::Dropout dr;
 };
 
-// Shared-memory scratch, laid out in dynamic shared memory; tc: the
-// tensor-core route's product scratch (gemm_rows' buffers, or the bf16
-// cotangent tile and tc_gemm's ring).
+// Shared-memory scratch, laid out in dynamic shared memory.
 struct Sh {
   float* hv[NHV];
   float* fv[NFV];
   float *vm, *aa, *ab, *goa, *goab;
-  float *As, *Bs, *red, *tc;
+  float *As, *Bs, *red;
 };
-
-// Dynamic shared memory of the walk in floats (the product scratch of the
-// tensor-core route 16-byte aligned at the end); ops/mega_grad.py
-// bwd_smem_bytes mirrors it. The tensor-core route lays its vectors out at
-// the route's largest H and F, so that every shared-memory address is a
-// compile-time offset and holds no register across the walk.
-__host__ __device__ inline long bwd_smem_floats(int F, int H, bool tc) {
-  const int SH = tc ? stair::TC_MAX_H : H, SF = tc ? stair::TC_MAX_F : F;
-  long n = (long)NHV * SH + (long)(NFV + 5) * SF + BK * (BM + 1) + BK * BN +
-           NWARPS;
-  if (tc) {
-    n = (n + 3) & ~3L;
-    const long t = ((long)F * (H + TC_PAD) + tc_ring<TC_BN>()) / 2;
-    n += t > GR_FLOATS ? t : GR_FLOATS;
-  }
-  return n;
-}
 
 __device__ inline void sync() { __syncthreads(); }
 
 // out[k] = sum_n rd(g[n]) * W[k * ldw + n] for k < K (the JAX kernel's
-// mmT: g.astype(dt) @ W^T). Warp per row of W; lanes walk the row, on the
-// tensor-core route (TC) 8 bf16 a lane as one 16-byte vector, MV_ROWS rows
-// at a time (N % 8 == 0 there).
-constexpr int MV_ROWS = 4;
-
-template <typename T, bool TC = false>
+// mmT: g.astype(dt) @ W^T). Warp per row of W; lanes walk the row.
+template <typename T>
 __device__ void mmT_vec(const float* g, const T* W, long ldw, int K, int N,
                         float* out) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if constexpr (TC) {
-    for (int k0 = MV_ROWS * w; k0 < K; k0 += MV_ROWS * NWARPS) {
-      float acc[MV_ROWS];
-#pragma unroll
-      for (int r = 0; r < MV_ROWS; ++r) acc[r] = 0.f;
-      for (int n = lane * 8; n < N; n += 256) {
-        float gv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) gv[i] = rd<T>(g[n + i]);
-#pragma unroll
-        for (int r = 0; r < MV_ROWS; ++r) {
-          if (k0 + r >= K) break;
-          const uint4 v =
-              *reinterpret_cast<const uint4*>(W + (k0 + r) * ldw + n);
-          const __nv_bfloat162* p =
-              reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 f = __bfloat1622float2(p[i]);
-            acc[r] += gv[2 * i] * f.x + gv[2 * i + 1] * f.y;
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < MV_ROWS; ++r) {
-        const float v = warp_sum(acc[r]);
-        if (lane == 0 && k0 + r < K) out[k0 + r] = v;
-      }
-    }
-    sync();
-    return;
-  }
   for (int k = w; k < K; k += NWARPS) {
     const T* row = W + k * ldw;
     float acc = 0.f;
@@ -288,7 +176,7 @@ __device__ inline void set_meta(int* meta, int slot, int table, int expert,
 // (shared): adds g_rows into grows [F, H] (global float32) and writes g_kw
 // [H] to gkw (shared). Norms sqrt(max(ss, 1e-30)), denominator
 // max(nr * nk, eps), clamped branches zeroed (the JAX cos_rows_bwd).
-template <bool TC, typename TR>
+template <typename TR>
 __device__ void cos_rows_bwd(const float* g, const TR* rows, const float* kw,
                              int F, int H, float* grows, float* gkw, Sh& s) {
   float* gdot = s.fv[9];
@@ -322,10 +210,10 @@ __device__ void cos_rows_bwd(const float* g, const TR* rows, const float* kw,
   for (int f = threadIdx.x; f < F; f += THREADS) t += gdn[f];
   const float gnk_tot = block_sum(t, s.red);
   const float gssk = ssk > 1e-30f ? gnk_tot / (2.0f * nk) : 0.f;
-  pass<TC>((size_t)F * H, [&](size_t i) {
+  for (size_t i = threadIdx.x; i < (size_t)F * H; i += THREADS) {
     const int f = (int)(i / H), k = (int)(i % H);
-    return grows[i] + (gdot[f] * kw[k] + 2.0f * gnr[f] * to_f(rows[i]));
-  }, [&](size_t i, float v) { grows[i] = v; });
+    grows[i] += gdot[f] * kw[k] + 2.0f * gnr[f] * to_f(rows[i]);
+  }
   for (int k = threadIdx.x; k < H; k += THREADS) {
     float a = 0.f;
     for (int f = 0; f < F; ++f) a += gdot[f] * to_f(rows[(size_t)f * H + k]);
@@ -345,12 +233,12 @@ namespace {
 // the softmax cotangent (g_scores[k, f] = grow[k] * vm[f]); gpool [H]
 // (shared) receives mmT(g1, supw). The caller routes g_actions[k, j] =
 // wv[k] * gpool[j].
-template <typename T, bool TC, typename RX, typename Score, typename Act>
+template <typename T, typename Score, typename Act>
 __device__ void superlative_bwd(int K, Score score, Act act,
                                 const float* amask, int mode, const T* supw,
                                 const T* supb, const float* gov, int H,
                                 int F, float* wv, float* grow, float* gpool,
-                                RX* X3, float* D3, int* meta, Sh& s) {
+                                float* X3, float* D3, int* meta, Sh& s) {
   float* row = s.fv[6];
   float* smx = s.fv[7];
   float* pooled = s.hv[8];
@@ -377,21 +265,17 @@ __device__ void superlative_bwd(int K, Score score, Act act,
     float p = 0.f;
     for (int k = 0; k < K; ++k) p += wv[k] * act(k, j);
     pooled[j] = rd<T>(p);
-    X3[j] = from_f<RX>(pooled[j]);
+    X3[j] = pooled[j];
   }
   sync();
-  auto epi = [&](int n, float y) {
+  vecmat<T>(pooled, nullptr, nullptr, supw, H, H, [&](int n, float y) {
     const float pre = rd<T>(rd<T>(y) + to_f(supb[n]));
     g1[n] = pre > 0.f ? gov[n] : 0.f;
     D3[n] = g1[n];
-  };
-  if constexpr (TC)
-    vecmat_rows(pooled, nullptr, nullptr, supw, H, H, epi);
-  else
-    vecmat<T>(pooled, nullptr, nullptr, supw, H, H, epi);
+  });
   set_meta(meta, 3, TB_SUPW, 0, 1);
   sync();
-  mmT_vec<T, TC>(g1, supw, H, H, H, gpool);
+  mmT_vec<T>(g1, supw, H, H, H, gpool);
   float* gsm = s.fv[8];
   for (int k = threadIdx.x; k < K; k += THREADS) {
     float gw = 0.f;
@@ -407,67 +291,37 @@ __device__ void superlative_bwd(int K, Score score, Act act,
   sync();
 }
 
-// rd(D) @ W^T on the tensor cores (the gradient products of the
-// tensor-core route): D [F, H] float32 is rounded to bf16 as it is staged
-// into a tile in shared memory (the JAX kernel's .astype(dt) of the
-// cotangent), B(k, n) = W[n * H + k]; scratch holds the tile, then
-// tc_gemm's ring. epi(m, n, acc) per output.
-template <typename Epi>
-__device__ void grad_tc(const float* D, const __nv_bfloat16* W, int F, int H,
-                        float* scratch, Epi epi) {
-  __nv_bfloat16* At = reinterpret_cast<__nv_bfloat16*>(scratch);
-  const int ld = H + TC_PAD, per = H / 4;
-  for (int i = threadIdx.x; i < F * per; i += THREADS) {
-    const int r = i / per, c = i % per;
-    const float4 v =
-        *reinterpret_cast<const float4*>(D + (size_t)r * H + c * 4);
-    __nv_bfloat162* d =
-        reinterpret_cast<__nv_bfloat162*>(At + (size_t)r * ld + c * 4);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-  __syncthreads();
-  tc_gemm<true>(At, ld, W, H, F, H, H, At + (size_t)F * ld, epi);
-}
-
-// The reverse walk of one example (block), on the general route (TC false:
-// gemm, float32 records) or the tensor-core route (TC true, T = bf16:
-// gemm_rows for the recompute products, grad_tc for the bf16 gradient
-// products, bf16 records with bias partials).
-template <typename T, bool TC>
-__device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
-  using RT = typename BArgs<T, TC>::RT;
-  extern __shared__ __align__(16) float smem[];
+template <typename T>
+__global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
+  extern __shared__ float smem[];
+  __shared__ int ins[NSF];
   const int b = blockIdx.x;
   const int F = a.F, H = a.H, L = a.L, T_ = a.T_, Hh = H / 2;
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const stair::Dropout& dr = a.dr;   // read where used, from the arguments
+  const stair::Dropout dr = a.dr;
   const size_t FH = (size_t)F * H;
 
-  // vector strides: compile-time on the tensor-core route (bwd_smem_floats)
-  const int SH = TC ? stair::TC_MAX_H : H, SF = TC ? stair::TC_MAX_F : F;
   Sh s;
   {
     float* p = smem;
-    for (int i = 0; i < NHV; ++i) { s.hv[i] = p; p += SH; }
-    for (int i = 0; i < NFV; ++i) { s.fv[i] = p; p += SF; }
-    s.vm = p; p += SF;
-    s.aa = p; p += SF;
-    s.ab = p; p += SF;
-    s.goa = p; p += SF;
-    s.goab = p; p += SF;
+    for (int i = 0; i < NHV; ++i) { s.hv[i] = p; p += H; }
+    for (int i = 0; i < NFV; ++i) { s.fv[i] = p; p += F; }
+    s.vm = p; p += F;
+    s.aa = p; p += F;
+    s.ab = p; p += F;
+    s.goa = p; p += F;
+    s.goab = p; p += F;
     s.As = p; p += BK * (BM + 1);
     s.Bs = p; p += BK * BN;
-    s.red = p; p += NWARPS;
-    s.tc = smem + ((p - smem + 3) & ~3L);
+    s.red = p;
   }
   float *va = s.hv[0], *vb = s.hv[1], *vc = s.hv[2], *gov = s.hv[3];
   float *x1 = s.hv[4], *x2 = s.hv[5], *u1 = s.hv[6], *u2 = s.hv[7];
   float* vm = s.vm;
 
-  const Ws wl(Nv, Nf, Na, F, H, L, T_, TC);
+  const Ws wl(Nv, Nf, Na, F, H, L, T_);
   float* ws = a.ws + (size_t)b * wl.size;
   float* grv = ws + wl.grv;
   float* gra = ws + wl.gra;
@@ -500,56 +354,25 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
     grf[i] = to_f(a.drf[(size_t)b * Nf * FH + i]);
   for (size_t i = tid; i < (size_t)L * H; i += THREADS) dtokw[i] = 0.f;
   for (size_t i = tid; i < (size_t)T_ * H; i += THREADS) dauxw[i] = 0.f;
-  for (int i = tid; i < sl.size; i += THREADS) sp[i] = 0.f;
+  for (long i = tid; i < sl.size; i += THREADS) sp[i] = 0.f;
   sync();
 
   auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
-
-  // [F, H] @ [H, H] products: the recompute of a forward value (A(m, k) =
-  // A[m * H + k], B(k, n) = B[k * H + n]), bit for bit as #5 computed it;
-  // and a gradient product rd(D) @ W^T.
-  auto recompute = [&](const auto* A, const auto* Bm, auto epi) {
-    if constexpr (TC)
-      gemm_rows<T, false, false>(A, H, Bm, H, F, H, H, s.tc, epi);
-    else
-      gemm<T, false, false>(A, H, 1, Bm, H, 1, F, H, H, s.As, s.Bs, epi);
-  };
-  // the vec-level recompute ([1, H] @ [H, H] over up to three segments)
-  auto vecmul = [&](const float* x0, const float* x1, const float* x2,
-                    const T* W, auto epi) {
-    if constexpr (TC)
-      vecmat_rows(x0, x1, x2, W, H, H, epi);
-    else
-      vecmat<T>(x0, x1, x2, W, H, H, epi);
-  };
-  auto grad = [&](const float* D, const T* W, auto epi) {
-    if constexpr (TC)
-      grad_tc(D, W, F, H, s.tc, epi);
-    else
-      gemm<T, true, false>(D, H, 1, W, 1, H, F, H, H, s.As, s.Bs, epi);
-  };
 
   for (int t = T_ - 1; t >= 0; --t) {
     if (tid < NSF) ins[tid] = a.scal[((size_t)b * T_ + t) * NSF + tid];
     const size_t rec = (size_t)b * T_ + t;
     int* meta = a.meta + rec * NSLOT * 3;
-    // Record slot q of this step: its X rows (RT) and dY rows (float32; on
-    // the tensor-core route in the workspace until the step ends), taken
-    // where an op writes them, so that no register holds them across it.
-    const size_t rw[NSLOT] = {FH, FH, FH, (size_t)H, (size_t)H};
-    auto Xq = [&](int q) -> RT* {
-      RT* const x[NSLOT] = {a.X0, a.X1, a.X2, a.X3, a.X4};
-      return x[q] + rec * (q == 3 ? 3 * (size_t)H : rw[q]);
-    };
-    auto Dq = [&](int q) -> float* {
-      if constexpr (TC) {
-        const int d[NSLOT] = {wl.d0, wl.d1, wl.d2, wl.d3, wl.d4};
-        return ws + d[q];
-      } else {
-        float* const d[NSLOT] = {a.D0, a.D1, a.D2, a.D3, a.D4};
-        return d[q] + rec * rw[q];
-      }
-    };
+    float* X0 = a.X0 + rec * FH;
+    float* D0 = a.D0 + rec * FH;
+    float* X1 = a.X1 + rec * FH;
+    float* D1 = a.D1 + rec * FH;
+    float* X2 = a.X2 + rec * FH;
+    float* D2 = a.D2 + rec * FH;
+    float* X3 = a.X3 + rec * 3 * H;
+    float* D3 = a.D3 + rec * H;
+    float* X4 = a.X4 + rec * H;
+    float* D4 = a.D4 + rec * H;
     if (tid < NSLOT) {
       meta[tid * 3] = -1;
       meta[tid * 3 + 1] = 0;
@@ -584,8 +407,8 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
     }
     for (size_t i = tid; i < FH; i += THREADS) gfeat[i] = 0.f;
     if (op == OP_FFV || op == OP_FFK || op == OP_TEMP || op == OP_ATTNV)
-      pass<TC>(FH, [&](size_t i) { return grf[(size_t)out_f * FH + i]; },
-               [&](size_t i, float v) { gof[i] = v; });
+      for (size_t i = tid; i < FH; i += THREADS)
+        gof[i] = grf[(size_t)out_f * FH + i];
     sync();
 
     // ---- stage-1 recompute: hidden into X1 (the w2u record's X), its
@@ -595,14 +418,15 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
     const T* sw2 = a.w2u + (size_t)e1 * H * H;
     const T* sb2 = a.b2u + (size_t)e1 * H;
     if (e1 != 9) {
-      RT* const X1 = Xq(1);
-      recompute(fa, sw1, [&](int m, int n, float acc) {
+      gemm<T, false, false>(fa, H, 1, sw1, H, 1, F, H, H, s.As, s.Bs,
+                            [&](int m, int n, float acc) {
         const float v = acc + to_f(sb1[n]);
         hpre[(size_t)m * H + n] = v;
         X1[(size_t)m * H + n] =
-            from_f<RT>(rd<T>(fmaxf(v, 0.f) * dr.keep(m, n, b, t, 0)));
+            rd<T>(fmaxf(v, 0.f) * dr.keep(m, n, b, t, 0));
       });
-      recompute(X1, sw2, [&](int m, int n, float acc) {
+      gemm<T, false, false>(X1, H, 1, sw2, H, 1, F, H, H, s.As, s.Bs,
+                            [&](int m, int n, float acc) {
         const float v = acc + to_f(sb2[n]);
         h2w[(size_t)m * H + n] = v;
         feat[(size_t)m * H + n] =
@@ -662,8 +486,6 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       }
       sync();
     } else if (op == OP_CMP || op == OP_EQ || op == OP_XOR) {
-      RT* const X3 = Xq(3);
-      float* const D3 = Dq(3);
       // relu(lin over [d,] va, vb) backward (Compare / Equals / Xor)
       const bool x = op == OP_XOR;
       const T* w = op == OP_CMP ? a.cw : (op == OP_EQ ? a.eqw : a.xw);
@@ -674,12 +496,12 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         const float d = fabsf(va[j] - vb[j]);
         x1[j] = rd<T>(d);
         if (x) {
-          X3[j] = from_f<RT>(x1[j]);
-          X3[H + j] = from_f<RT>(va[j]);
-          X3[2 * H + j] = from_f<RT>(vb[j]);
+          X3[j] = x1[j];
+          X3[H + j] = va[j];
+          X3[2 * H + j] = vb[j];
         } else {
-          X3[j] = from_f<RT>(va[j]);
-          X3[H + j] = from_f<RT>(vb[j]);
+          X3[j] = va[j];
+          X3[H + j] = vb[j];
         }
       }
       sync();
@@ -689,17 +511,17 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         D3[n] = g1[n];
       };
       if (x)
-        vecmul(x1, va, vb, w, epi);
+        vecmat<T>(x1, va, vb, w, H, H, epi);
       else
-        vecmul(va, vb, nullptr, w, epi);
+        vecmat<T>(va, vb, nullptr, w, H, H, epi);
       set_meta(meta, 3, op == OP_CMP ? TB_CW : (op == OP_EQ ? TB_EQW : TB_XW),
                0, 1);
       sync();
       // segment s of W^T: rows s*H .. s*H + H - 1
-      mmT_vec<T, TC>(g1, w, H, H, H, u1);
-      mmT_vec<T, TC>(g1, w + (size_t)H * H, H, H, H, u2);
+      mmT_vec<T>(g1, w, H, H, H, u1);
+      mmT_vec<T>(g1, w + (size_t)H * H, H, H, H, u2);
       if (x) {
-        mmT_vec<T, TC>(g1, w + (size_t)2 * H * H, H, H, H, x2);
+        mmT_vec<T>(g1, w + (size_t)2 * H * H, H, H, H, x2);
         for (int j = tid; j < H; j += THREADS) {
           const float sgn = va[j] - vb[j] >= 0.f ? 1.f : -1.f;
           grv[(size_t)iva * H + j] += u1[j] * sgn + u2[j];
@@ -713,25 +535,19 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       }
       sync();
     } else if (op == OP_QUERY) {
-      RT* const X3 = Xq(3);
-      float* const D3 = Dq(3);
       float* g1 = s.hv[9];
-      for (int j = tid; j < H; j += THREADS) X3[j] = from_f<RT>(va[j]);
-      vecmul(va, nullptr, nullptr, a.qw, [&](int n, float y) {
+      for (int j = tid; j < H; j += THREADS) X3[j] = va[j];
+      vecmat<T>(va, nullptr, nullptr, a.qw, H, H, [&](int n, float y) {
         const float pre = rd<T>(rd<T>(y) + to_f(a.qb[n]));
         g1[n] = pre > 0.f ? gov[n] * dr.keep(0, n, b, t, 4) : 0.f;
         D3[n] = g1[n];
       });
       set_meta(meta, 3, TB_QW, 0, 1);
       sync();
-      mmT_vec<T, TC>(g1, a.qw, H, H, H, u1);
+      mmT_vec<T>(g1, a.qw, H, H, H, u1);
       for (int j = tid; j < H; j += THREADS) grv[(size_t)iva * H + j] += u1[j];
       sync();
     } else if (op == OP_TOA || op == OP_EX) {
-      RT* const X3 = Xq(3);
-      float* const D3 = Dq(3);
-      RT* const X4 = Xq(4);
-      float* const D4 = Dq(4);
       // Two-layer heads: pre1 = lin over segments, h = rd(relu(pre1) *
       // mask), out = relu(lin_dt(h)) [* mask7 for Exists].
       const bool ex = op == OP_EX;
@@ -747,26 +563,26 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       for (int j = tid; j < H; j += THREADS) {
         x1[j] = rd<T>(vb[j] * va[j]);  // Exists' product operand
         if (ex) {
-          X3[j] = from_f<RT>(vb[j]);
-          X3[H + j] = from_f<RT>(va[j]);
-          X3[2 * H + j] = from_f<RT>(x1[j]);
+          X3[j] = vb[j];
+          X3[H + j] = va[j];
+          X3[2 * H + j] = x1[j];
         } else {
-          X3[j] = from_f<RT>(va[j]);
-          X3[H + j] = from_f<RT>(vb[j]);
+          X3[j] = va[j];
+          X3[H + j] = vb[j];
         }
       }
       sync();
       auto epiA = [&](int n, float y) {
         pre1[n] = rd<T>(rd<T>(y) + to_f(bA[n]));
         hh[n] = rd<T>(fmaxf(pre1[n], 0.f) * dr.keep(0, n, b, t, siteA));
-        X4[n] = from_f<RT>(hh[n]);
+        X4[n] = hh[n];
       };
       if (ex)
-        vecmul(vb, va, x1, wA, epiA);
+        vecmat<T>(vb, va, x1, wA, H, H, epiA);
       else
-        vecmul(va, vb, nullptr, wA, epiA);
+        vecmat<T>(va, vb, nullptr, wA, H, H, epiA);
       sync();
-      vecmul(hh, nullptr, nullptr, wB, [&](int n, float y) {
+      vecmat<T>(hh, nullptr, nullptr, wB, H, H, [&](int n, float y) {
         const float pre2 = rd<T>(rd<T>(y) + to_f(bB[n]));
         const float g = ex ? gov[n] * dr.keep(0, n, b, t, 7) : gov[n];
         g2[n] = pre2 > 0.f ? g : 0.f;
@@ -774,17 +590,17 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       });
       set_meta(meta, 4, ex ? TB_EXW2 : TB_TAW2, 0, 1);
       sync();
-      mmT_vec<T, TC>(g2, wB, H, H, H, u1);
+      mmT_vec<T>(g2, wB, H, H, H, u1);
       for (int j = tid; j < H; j += THREADS) {
         gh[j] = pre1[j] > 0.f ? u1[j] * dr.keep(0, j, b, t, siteA) : 0.f;
         D3[j] = gh[j];
       }
       set_meta(meta, 3, ex ? TB_EXW1 : TB_TAW1, 0, 1);
       sync();
-      mmT_vec<T, TC>(gh, wA, H, H, H, u1);
-      mmT_vec<T, TC>(gh, wA + (size_t)H * H, H, H, H, u2);
+      mmT_vec<T>(gh, wA, H, H, H, u1);
+      mmT_vec<T>(gh, wA + (size_t)H * H, H, H, H, u2);
       if (ex) {
-        mmT_vec<T, TC>(gh, wA + (size_t)2 * H * H, H, H, H, x2);  // g3
+        mmT_vec<T>(gh, wA + (size_t)2 * H * H, H, H, H, x2);  // g3
         for (int j = tid; j < H; j += THREADS) {
           grv[(size_t)ivb * H + j] += u1[j] + x2[j] * va[j];
           grv[(size_t)iva * H + j] += u2[j] + x2[j] * vb[j];
@@ -797,8 +613,6 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       }
       sync();
     } else if (op == OP_FV || op == OP_FK) {
-      RT* const X3 = Xq(3);
-      float* const D3 = Dq(3);
       float* wvm = s.fv[0];   // w * vm
       float* soft = s.fv[1];
       float* gpool = s.hv[10];
@@ -831,20 +645,19 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         float p = 0.f;
         for (int f = 0; f < F; ++f) p += feat[(size_t)f * H + k] * wvm[f];
         x1[k] = rd<T>(p);
-        X3[k] = from_f<RT>(x1[k]);
+        X3[k] = x1[k];
       }
       sync();
-      vecmul(x1, nullptr, nullptr, a.fdw, [&](int n, float y) {
+      vecmat<T>(x1, nullptr, nullptr, a.fdw, H, H, [&](int n, float y) {
         const float pre = rd<T>(rd<T>(y) + to_f(a.fdb[n]));
         g1[n] = pre > 0.f ? gov[n] : 0.f;
         D3[n] = g1[n];
       });
       set_meta(meta, 3, TB_FDW, 0, 1);
       sync();
-      mmT_vec<T, TC>(g1, a.fdw, H, H, H, gpool);
-      pass<TC>(FH, [&](size_t i) {
-        return gfeat[i] + wvm[i / H] * gpool[i % H];
-      }, [&](size_t i, float v) { gfeat[i] = v; });
+      mmT_vec<T>(g1, a.fdw, H, H, H, gpool);
+      for (size_t i = tid; i < FH; i += THREADS)
+        gfeat[i] += wvm[i / H] * gpool[i % H];
       sync();
       if (sm_on) {
         float* gw = s.fv[2];
@@ -863,9 +676,8 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         for (int f = tid; f < F; f += THREADS)
           gl[f] = soft[f] * (gw[f] - dot);
         sync();
-        pass<TC>(FH, [&](size_t i) {
-          return gfeat[i] + gl[i / H] * to_f(a.fltw[i % H]);
-        }, [&](size_t i, float v) { gfeat[i] = v; });
+        for (size_t i = tid; i < FH; i += THREADS)
+          gfeat[i] += gl[i / H] * to_f(a.fltw[i % H]);
         float gs = 0.f;
         for (int f = tid; f < F; f += THREADS) gs += gl[f];
         const float gkb = block_sum(gs, s.red);
@@ -881,19 +693,15 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         sync();
       }
     } else if (op == OP_LOC || op == OP_SUPV || op == OP_SUPF) {
-      RT* const X3 = Xq(3);
-      float* const D3 = Dq(3);
-      RT* const X2 = Xq(2);
-      float* const D2 = Dq(2);
       const T* wk = a.w2t + 2 * (size_t)H * H;
       const T* bk = a.b2t + 2 * (size_t)H;
       float* gkw = s.hv[11];
       if (op != OP_SUPF) {
         // keywords ka, kb = lin_dt(va|vb, w2t[2], b2t[2]) into x1, x2
-        vecmul(va, nullptr, nullptr, wk, [&](int n, float y) {
+        vecmat<T>(va, nullptr, nullptr, wk, H, H, [&](int n, float y) {
           x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
         });
-        vecmul(vb, nullptr, nullptr, wk, [&](int n, float y) {
+        vecmat<T>(vb, nullptr, nullptr, wk, H, H, [&](int n, float y) {
           x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
         });
         sync();
@@ -938,7 +746,7 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
           float* grow = s.fv[5];
           const float* s0 = sc[0];
           const float* s1 = sc[1];
-          superlative_bwd<T, TC>(
+          superlative_bwd<T>(
               2, [&](int k, int f) { return k == 0 ? s0[f] : s1[f]; },
               [&](int k, int j) { return k == 0 ? va[j] : vb[j]; }, amask,
               mode, a.supw, a.supb, gov, H, F, wv, grow, u1, X3, D3, meta, s);
@@ -963,13 +771,13 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
           for (int f = tid; f < F; f += THREADS)
             gcos[f] = gsc[q][f] * 0.49f * vm[f];
           sync();
-          cos_rows_bwd<TC>(gcos, feat, kws[q], F, H, gfeat, gkw, s);
+          cos_rows_bwd(gcos, feat, kws[q], F, H, gfeat, gkw, s);
           const float* vsrc = q == 0 ? va : vb;
           for (int j = tid; j < H; j += THREADS) {
-            X2[(size_t)q * H + j] = from_f<RT>(vsrc[j]);
+            X2[(size_t)q * H + j] = vsrc[j];
             D2[(size_t)q * H + j] = gkw[j];
           }
-          mmT_vec<T, TC>(gkw, wk, H, H, H, u2);
+          mmT_vec<T>(gkw, wk, H, H, H, u2);
           for (int j = tid; j < H; j += THREADS)
             grv[(size_t)idx[q] * H + j] += u2[j];
           sync();
@@ -981,7 +789,8 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         // the F candidate rows of fb, then the cosine-matrix VJP.
         const T* fb = rf + (size_t)ifb * FH;
         float* gfb = grf + (size_t)ifb * FH;
-        recompute(fb, wk, [&](int m, int n, float acc) {
+        gemm<T, false, false>(fb, H, 1, wk, H, 1, F, H, H, s.As, s.Bs,
+                              [&](int m, int n, float acc) {
           w1[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
         });
         gemm<T, false, false>(w1, H, 1, feat, 1, H, F, H, F, s.As, s.Bs,
@@ -1017,12 +826,12 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         sync();
         float* wv = s.fv[4];
         float* grow = s.fv[5];
-        superlative_bwd<T, TC>(
+        superlative_bwd<T>(
             F, [&](int k, int f) { return m1[(size_t)k * F + f]; },
             [&](int k, int j) { return to_f(fb[(size_t)k * H + j]); }, vm,
             mode, a.supw, a.supb, gov, H, F, wv, grow, u1, X3, D3, meta, s);
-        pass<TC>(FH, [&](size_t i) { return gfb[i] + wv[i / H] * u1[i % H]; },
-                 [&](size_t i, float v) { gfb[i] = v; });
+        for (size_t i = tid; i < FH; i += THREADS)
+          gfb[i] += wv[i / H] * u1[i % H];
         // gcosm [F, F] into m1; then gdot (m1) and gden (m2)
         for (int i = tid; i < F * F; i += THREADS) {
           const int r = i / F, f = i % F;
@@ -1056,30 +865,18 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
           gfeat[(size_t)m * H + n] +=
               acc + 2.0f * dnf[m] * feat[(size_t)m * H + n];
         });
-        pass<TC>(FH, [&](size_t i) { return to_f(fb[i]); },
-                 [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
+        for (size_t i = tid; i < FH; i += THREADS) X2[i] = to_f(fb[i]);
         set_meta(meta, 2, TB_W2T, 2, F);
-        // fb += mmT(g_kf, w2t[2]); the tensor-core route stores the product
-        // and adds it in a batched pass
-        if constexpr (TC) {
-          grad(D2, wk, [&](int m, int n, float acc) {
-            w2[(size_t)m * H + n] = acc;
-          });
-          pass<TC>(FH, [&](size_t i) { return gfb[i] + w2[i]; },
-                   [&](size_t i, float v) { gfb[i] = v; });
-          sync();
-        } else {
-          grad(D2, wk, [&](int m, int n, float acc) {
-            gfb[(size_t)m * H + n] += acc;
-          });
-        }
+        // fb += mmT(g_kf, w2t[2])
+        gemm<T, true, false>(D2, H, 1, wk, 1, H, F, H, H, s.As, s.Bs,
+                             [&](int m, int n, float acc) {
+          gfb[(size_t)m * H + n] += acc;
+        });
       }
     }
 
     // ================= frames producers ================================
     if (op == OP_FFV || op == OP_FFK) {
-      RT* const X2 = Xq(2);
-      float* const D2 = Dq(2);
       float* gate = s.fv[0];
       float gk = 0.f;
       for (int k = tid; k < H; k += THREADS) gk += va[k] * to_f(a.ffkw[k]);
@@ -1092,32 +889,23 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         if (lane == 0) gate[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
       }
       sync();
-      pass<TC>(FH, [&](size_t i) { return rd<T>(gate[i / H] * feat[i]); },
-               [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
+      for (size_t i = tid; i < FH; i += THREADS)
+        X2[i] = rd<T>(gate[i / H] * feat[i]);
       sync();
-      // D2 = relu'(y2) * g_out * vm * mask; the tensor-core route stores y2
-      // and applies the rest in a batched pass
-      auto d2_of = [&](int m, int n, float y2) {
-        return y2 > 0.f
+      gemm<T, false, false>(X2, H, 1, a.w2t, H, 1, F, H, H, s.As, s.Bs,
+                            [&](int m, int n, float acc) {
+        const float y2 = acc + to_f(a.b2t[n]);
+        D2[(size_t)m * H + n] = y2 > 0.f
             ? gof[(size_t)m * H + n] * vm[m] * dr.keep(m, n, b, t, 2)
             : 0.f;
-      };
-      recompute(X2, a.w2t, [&](int m, int n, float acc) {
-        const float y2 = acc + to_f(a.b2t[n]);
-        D2[(size_t)m * H + n] = TC ? y2 : d2_of(m, n, y2);
       });
-      if constexpr (TC) {
-        pass<TC>(FH, [&](size_t i) {
-          return d2_of((int)(i / H), (int)(i % H), D2[i]);
-        }, [&](size_t i, float v) { D2[i] = v; });
-        sync();
-      }
       set_meta(meta, 2, TB_W2T, 0, F);
-      grad(D2, a.w2t, [&](int m, int n, float acc) {
+      gemm<T, true, false>(D2, H, 1, a.w2t, 1, H, F, H, H, s.As, s.Bs,
+                           [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
-      pass<TC>(FH, [&](size_t i) { return gfeat[i] + gate[i / H] * w2[i]; },
-               [&](size_t i, float v) { gfeat[i] = v; });
+      for (size_t i = tid; i < FH; i += THREADS)
+        gfeat[i] += gate[i / H] * w2[i];
       sync();
       if (op == OP_FFV) {
         float* gpre = s.fv[1];
@@ -1129,9 +917,8 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
           if (lane == 0) gpre[f] = d * gate[f] * (1.0f - gate[f]);
         }
         sync();
-        pass<TC>(FH, [&](size_t i) {
-          return gfeat[i] + gpre[i / H] * to_f(a.ffwf[i % H]);
-        }, [&](size_t i, float v) { gfeat[i] = v; });
+        for (size_t i = tid; i < FH; i += THREADS)
+          gfeat[i] += gpre[i / H] * to_f(a.ffwf[i % H]);
         float gs = 0.f;
         for (int f = tid; f < F; f += THREADS) gs += gpre[f];
         const float ggk = block_sum(gs, s.red);
@@ -1147,8 +934,6 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         sync();
       }
     } else if (op == OP_TEMP) {
-      RT* const X2 = Xq(2);
-      float* const D2 = Dq(2);
       const int midx = mode - 1 > 0 ? mode - 1 : 0;
       const size_t FF = (size_t)F * F;
       const T* t1w = a.t1 + midx * FF;
@@ -1183,11 +968,12 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         rel[j] = (mode == 0 ? am[j] : gsig[j]) * vm[j];
       }
       sync();
-      pass<TC>(FH, [&](size_t i) { return rd<T>(rel[i / H] * to_f(fa[i])); },
-               [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
+      for (size_t i = tid; i < FH; i += THREADS)
+        X2[i] = rd<T>(rel[i / H] * to_f(fa[i]));
       sync();
       // y2 into w2, ry = relu(y2) * mask into w1
-      recompute(X2, a.w2t + (size_t)H * H, [&](int m, int n, float acc) {
+      gemm<T, false, false>(X2, H, 1, a.w2t + (size_t)H * H, H, 1, F, H, H,
+                            s.As, s.Bs, [&](int m, int n, float acc) {
         const float y2 = acc + to_f(a.b2t[H + n]);
         w2[(size_t)m * H + n] = y2;
         w1[(size_t)m * H + n] = fmaxf(y2, 0.f) * dr.keep(m, n, b, t, 2);
@@ -1229,21 +1015,22 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
         sp[sl.lns + k] += gs;
         sp[sl.lnb + k] += bs;
       }
-      pass<TC>(FH, [&](size_t i) {
+      for (size_t i = tid; i < FH; i += THREADS) {
         const int f = (int)(i / H), k = (int)(i % H);
         const float xhat = (w1[i] - mu[f]) * rstd[f];
         const float gx = gof[i] * to_f(a.lns[k]);
         const float gb = rstd[f] * (gx - mgx[f] - xhat * mgxx[f]);
-        return w2[i] > 0.f ? gb * dr.keep(f, k, b, t, 2) : 0.f;
-      }, [&](size_t i, float v) { D2[i] = v; });
+        D2[i] = w2[i] > 0.f ? gb * dr.keep(f, k, b, t, 2) : 0.f;
+      }
       set_meta(meta, 2, TB_W2T, 1, F);
       sync();
-      grad(D2, a.w2t + (size_t)H * H, [&](int m, int n, float acc) {
+      gemm<T, true, false>(D2, H, 1, a.w2t + (size_t)H * H, 1, H, F, H, H,
+                           s.As, s.Bs, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
       float *gr0 = s.fv[7], *gp3 = s.fv[8], *gh2 = s.fv[9], *gh1 = s.fv[10];
-      pass<TC>(FH, [&](size_t i) { return gfa[i] + rel[i / H] * w2[i]; },
-               [&](size_t i, float v) { gfa[i] = v; });
+      for (size_t i = tid; i < FH; i += THREADS)
+        gfa[i] += rel[i / H] * w2[i];
       for (int f = warp; f < F; f += NWARPS) {
         float d = 0.f;
         for (int k = lane; k < H; k += 32)
@@ -1293,8 +1080,8 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       }
       sync();
     } else if (op == OP_ATTNV) {
-      pass<TC>(FH, [&](size_t i) { return gfa[i] + s.aa[i / H] * gof[i]; },
-               [&](size_t i, float v) { gfa[i] = v; });
+      for (size_t i = tid; i < FH; i += THREADS)
+        gfa[i] += s.aa[i / H] * gof[i];
       for (int f = warp; f < F; f += NWARPS) {
         float d = 0.f;
         for (int k = lane; k < H; k += 32)
@@ -1330,7 +1117,7 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
       for (int f = tid; f < F; f += THREADS)
         gcos[f] = s.goa[f] * 0.49f * vm[f];
       sync();
-      cos_rows_bwd<TC>(gcos, fa, va, F, H, gfa, u1, s);
+      cos_rows_bwd(gcos, fa, va, F, H, gfa, u1, s);
       for (int j = tid; j < H; j += THREADS) grv[(size_t)iva * H + j] += u1[j];
       sync();
     } else if (op == OP_REL) {
@@ -1354,79 +1141,26 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
 
     // ---- stage-1 backward over the collected g_feat ---------------------
     if (e1 != 9) {
-      RT* const X0 = Xq(0);
-      float* const D0 = Dq(0);
-      float* const D1 = Dq(1);
-      pass<TC>(FH, [&](size_t i) {
+      for (size_t i = tid; i < FH; i += THREADS) {
         const int m = (int)(i / H), n = (int)(i % H);
-        return is_filter ? (h2w[i] > 0.f
-                                ? gfeat[i] * dr.keep(m, n, b, t, 1)
-                                : 0.f)
-                         : gfeat[i];
-      }, [&](size_t i, float v) { D1[i] = v; });
-      pass<TC>(FH, [&](size_t i) { return to_f(fa[i]); },
-               [&](size_t i, float v) { X0[i] = from_f<RT>(v); });
+        D1[i] = is_filter ? (h2w[i] > 0.f
+                                 ? gfeat[i] * dr.keep(m, n, b, t, 1)
+                                 : 0.f)
+                          : gfeat[i];
+        X0[i] = to_f(fa[i]);
+      }
       set_meta(meta, 1, TB_W2U, e1, F);
       set_meta(meta, 0, TB_W1U, e1, F);
       sync();
-      auto d0_of = [&](size_t i, float acc) {
-        return hpre[i] > 0.f
-            ? acc * dr.keep((int)(i / H), (int)(i % H), b, t, 0) : 0.f;
-      };
-      if constexpr (TC) {
-        // store-only epilogues, then batched passes for the mask and the
-        // accumulation
-        grad(D1, sw2, [&](int m, int n, float acc) {
-          D0[(size_t)m * H + n] = acc;
-        });
-        pass<TC>(FH, [&](size_t i) { return d0_of(i, D0[i]); },
-                 [&](size_t i, float v) { D0[i] = v; });
-        sync();
-        grad(D0, sw1, [&](int m, int n, float acc) {
-          w2[(size_t)m * H + n] = acc;
-        });
-        pass<TC>(FH, [&](size_t i) { return gfa[i] + w2[i]; },
-                 [&](size_t i, float v) { gfa[i] = v; });
-      } else {
-        grad(D1, sw2, [&](int m, int n, float acc) {
-          const size_t i = (size_t)m * H + n;
-          D0[i] = d0_of(i, acc);
-        });
-        grad(D0, sw1, [&](int m, int n, float acc) {
-          gfa[(size_t)m * H + n] += acc;
-        });
-      }
-    }
-
-    // ---- tensor-core route: the step's records as bf16 rows, and each
-    // used slot's bias partial (the float32 row sum of dY, rows in order) -
-    if constexpr (TC) {
-      sync();
-      RT* const Rs[NSLOT] = {a.D0, a.D1, a.D2, a.D3, a.D4};
-      for (int q = 0; q < NSLOT; ++q) {
-        if (meta[q * 3] < 0) continue;
-        const int rows = meta[q * 3 + 2];
-        const float* Dv = Dq(q);
-        RT* R = Rs[q] + rec * rw[q];
-        float* bias = a.bias + (rec * NSLOT + q) * H;
-        for (int n = tid; n < H; n += THREADS) {
-          float sum = 0.f;
-          for (int r0 = 0; r0 < rows; r0 += 8) {   // 8 rows' loads in flight
-            float v[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              v[j] = r0 + j < rows ? Dv[(size_t)(r0 + j) * H + n] : 0.f;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              if (r0 + j < rows) {
-                sum += v[j];
-                R[(size_t)(r0 + j) * H + n] = from_f<RT>(v[j]);
-              }
-            }
-          }
-          bias[n] = sum;
-        }
-      }
+      gemm<T, true, false>(D1, H, 1, sw2, 1, H, F, H, H, s.As, s.Bs,
+                           [&](int m, int n, float acc) {
+        const size_t i = (size_t)m * H + n;
+        D0[i] = hpre[i] > 0.f ? acc * dr.keep(m, n, b, t, 0) : 0.f;
+      });
+      gemm<T, true, false>(D0, H, 1, sw1, 1, H, F, H, H, s.As, s.Bs,
+                           [&](int m, int n, float acc) {
+        gfa[(size_t)m * H + n] += acc;
+      });
     }
   }
 
@@ -1438,21 +1172,6 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T, TC>& a, int* ins) {
   for (size_t i = tid; i < (size_t)T_ * H; i += THREADS)
     a.daux[(size_t)b * T_ * H + i] = from_f<T>(dauxw[i]);
 }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    mega_bwd_kernel(const BArgs<T, false> a) {
-  __shared__ int ins[NSF];
-  bwd_walk<T, false>(a, ins);
-}
-
-#ifdef STAIR_GRAD_TC
-__global__ void __launch_bounds__(THREADS)
-    mega_bwd_tc_kernel(const BArgs<__nv_bfloat16, true> a) {
-  __shared__ int ins[NSF];
-  bwd_walk<__nv_bfloat16, true>(a, ins);
-}
-#endif
 
 // Weight gradients from the walk's records: block (n tile, k tile, job)
 // computes the 64 x 64 tile of dW[table][expert] = sum over records of
@@ -1469,21 +1188,6 @@ struct WArgs {
   int B, T_, F, H, njobs;
 };
 
-// The small tables' sum (the job past the record tables): one flat element
-// range over the grid's (x, y) blocks, examples summed in order.
-__device__ void small_sum(const float* small, float* dsmall, int B, int H,
-                          int F) {
-  const long n = Small(H, F).size;
-  const long stride = (long)gridDim.x * gridDim.y * THREADS;
-  for (long e = ((long)blockIdx.y * gridDim.x + blockIdx.x) * THREADS +
-                threadIdx.x;
-       e < n; e += stride) {
-    float acc = 0.f;
-    for (int b = 0; b < B; ++b) acc += small[(size_t)b * n + e];
-    dsmall[e] = acc;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS) mega_wgrad_kernel(const WArgs a) {
   __shared__ float Xs[BK][BM];
@@ -1491,7 +1195,15 @@ __global__ void __launch_bounds__(THREADS) mega_wgrad_kernel(const WArgs a) {
   const int H = a.H, F = a.F;
   const int tid = threadIdx.x;
   if ((int)blockIdx.z >= a.njobs) {
-    small_sum(a.small, a.dsmall, a.B, H, F);
+    // small tables: one flat element range, examples summed in order
+    const long n = Small(H, F).size;
+    const long stride = (long)gridDim.x * gridDim.y * THREADS;
+    for (long e = ((long)blockIdx.y * gridDim.x + blockIdx.x) * THREADS + tid;
+         e < n; e += stride) {
+      float acc = 0.f;
+      for (int b = 0; b < a.B; ++b) acc += a.small[(size_t)b * n + e];
+      a.dsmall[e] = acc;
+    }
     return;
   }
   int job = blockIdx.z, table = 0;
@@ -1554,199 +1266,11 @@ __global__ void __launch_bounds__(THREADS) mega_wgrad_kernel(const WArgs a) {
     a.db[table][(size_t)expert * H + n0 + tid] = bsum;
 }
 
-#ifdef STAIR_GRAD_TC
-// Weight gradients of the tensor-core route: block (n tile, k tile, job)
-// owns the WG_TILE x WG_TILE tile of dW[table][expert] = X^T dY over the
-// bf16 records. It takes the records of its (table, expert) in (example,
-// step) order, a window of THREADS records at a time (compacted by a block
-// scan), and streams their rows in WG_KC-row chunks through a two-stage
-// cp.async ring (a chunk may span records: the vec slots have one row a
-// record), with mma.sync on each chunk: warp w owns rows 64 (w % 2) and
-// columns 32 (w / 2) of the tile. The k-tile-0 blocks sum the records' bias
-// partials in the same order. No atomics: two runs give the same bits.
-constexpr int WG_TILE = 128, WG_KC = 32, WG_LD = WG_TILE + 8;
-
-struct WTArgs {
-  const int* meta;
-  const __nv_bfloat16 *X[NSLOT], *D[NSLOT];
-  const float* bias;
-  const float* small;
-  float* dw[NTABLES];
-  float* db[NTABLES];
-  float* dsmall;
-  int B, T_, F, H, njobs;
-};
-
-// Exclusive prefix sum of v over the block; total gets the sum.
-__device__ int block_scan(int v, int* wsum, int& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  __syncthreads();
-  if (lane == 31) wsum[w] = x;
-  __syncthreads();
-  int off = 0;
-  total = 0;
-  for (int i = 0; i < NWARPS; ++i) {
-    off += i < w ? wsum[i] : 0;
-    total += wsum[i];
-  }
-  return off + x - v;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    mega_wgrad_tc_kernel(const WTArgs a) {
-  using bf16 = __nv_bfloat16;
-  __shared__ __align__(16) bf16 Xs[2][WG_KC][WG_LD];
-  __shared__ __align__(16) bf16 Ds[2][WG_KC][WG_LD];
-  __shared__ int rec_of[THREADS];
-  __shared__ int start[THREADS + 1];
-  __shared__ int wsum[NWARPS];
-  const int H = a.H, F = a.F;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if ((int)blockIdx.z >= a.njobs) {
-    small_sum(a.small, a.dsmall, a.B, H, F);
-    return;
-  }
-  int job = blockIdx.z, table = 0;
-  while (job >= TB_E[table]) job -= TB_E[table++];
-  const int expert = job;
-  const int Kin = TB_K[table] * H, slot = TB_SLOT[table];
-  const int k0 = blockIdx.y * WG_TILE, n0 = blockIdx.x * WG_TILE;
-  if (k0 >= Kin || n0 >= H) return;
-  const long xrow = slot == 3 ? 3L * H : H;  // X row stride of the slot
-  const long xrec = slot <= 2 ? (long)F * H : xrow;
-  const long drec = slot <= 2 ? (long)F * H : H;
-  const bf16* X = a.X[slot];
-  const bf16* D = a.D[slot];
-  const int wm = warp & 1, wn = warp >> 1;
-  const int lr = lane & 7, q1 = (lane >> 3) & 1, q2 = lane >> 4;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  float bsum = 0.f;   // column n0 + tid of db (k tile 0, tid < WG_TILE)
-  const int nrec = a.B * a.T_;
-  for (int base = 0; base < nrec; base += THREADS) {
-    const int r = base + tid;
-    bool match = false;
-    int rows = 0;
-    if (r < nrec) {
-      const int* m = a.meta + ((size_t)r * NSLOT + slot) * 3;
-      match = m[0] == table && m[1] == expert;
-      rows = match ? m[2] : 0;
-    }
-    int nm, R;
-    const int pos = block_scan(match ? 1 : 0, wsum, nm);
-    const int row0 = block_scan(rows, wsum, R);
-    if (match) {
-      rec_of[pos] = r;
-      start[pos] = row0;
-    }
-    if (tid == 0) start[nm] = R;
-    __syncthreads();
-    if (k0 == 0 && tid < WG_TILE && n0 + tid < H)
-      for (int j = 0; j < nm; ++j)
-        bsum += a.bias[((size_t)rec_of[j] * NSLOT + slot) * H + n0 + tid];
-    // chunk rows g0 .. g0 + WG_KC - 1 of the window into stage st
-    auto load = [&](int st, int g0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = tid + h * THREADS;   // 16 pieces of 8 a row
-        const int rr = p / (WG_TILE / 8), c = p % (WG_TILE / 8);
-        const int g = g0 + rr;
-        const bool in = g < R;
-        long xo = 0, dof = 0;
-        if (in) {
-          int lo = 0, hi = nm - 1;   // the last record starting at <= g
-          while (lo < hi) {
-            const int mid = (lo + hi + 1) >> 1;
-            if (start[mid] <= g) lo = mid; else hi = mid - 1;
-          }
-          const long rec = rec_of[lo], row = g - start[lo];
-          xo = rec * xrec + row * xrow;
-          dof = rec * drec + row * H;
-        }
-        const bool xin = in && k0 + c * 8 < Kin, din = in && n0 + c * 8 < H;
-        stair::cp_async16(&Xs[st][rr][c * 8],
-                          X + (xin ? xo + k0 + c * 8 : 0), xin);
-        stair::cp_async16(&Ds[st][rr][c * 8],
-                          D + (din ? dof + n0 + c * 8 : 0), din);
-      }
-      stair::cp_async_commit();
-    };
-    const int nch = (R + WG_KC - 1) / WG_KC;
-    if (nch > 0) load(0, 0);
-    for (int ch = 0; ch < nch; ++ch) {
-      stair::cp_async_wait<0>();
-      __syncthreads();   // chunk ch landed; chunk ch - 1's stage is free
-      if (ch + 1 < nch) load((ch + 1) & 1, (ch + 1) * WG_KC);
-      const int st = ch & 1;
-#pragma unroll
-      for (int kk = 0; kk < WG_KC; kk += 16) {
-        uint32_t af[4][4], bf[2][4];
-#pragma unroll
-        for (int x = 0; x < 4; ++x)   // A[k_in][row] = Xs[row][k_in]
-          stair::ldmatrix_x4_trans(
-              af[x], &Xs[st][kk + lr + q2 * 8][wm * 64 + x * 16 + q1 * 8]);
-#pragma unroll
-        for (int y = 0; y < 2; ++y)   // B[row][n] = Ds[row][n]
-          stair::ldmatrix_x4_trans(
-              bf[y], &Ds[st][kk + lr + q1 * 8][wn * 32 + y * 16 + q2 * 8]);
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-#pragma unroll
-          for (int y = 0; y < 4; ++y)
-            stair::mma_bf16(acc[x][y], af[x], bf[y / 2][(y % 2) * 2],
-                            bf[y / 2][(y % 2) * 2 + 1]);
-      }
-    }
-    __syncthreads();   // the window's lists and ring are free
-  }
-  float* dw = a.dw[table] + (size_t)expert * Kin * H;
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int k = k0 + wm * 64 + x * 16 + g;
-      const int n = n0 + wn * 32 + y * 8 + tq * 2;
-      if (n < H) {
-        if (k < Kin)
-          *reinterpret_cast<float2*>(dw + (size_t)k * H + n) =
-              make_float2(acc[x][y][0], acc[x][y][1]);
-        if (k + 8 < Kin)
-          *reinterpret_cast<float2*>(dw + (size_t)(k + 8) * H + n) =
-              make_float2(acc[x][y][2], acc[x][y][3]);
-      }
-    }
-  if (k0 == 0 && tid < WG_TILE && n0 + tid < H)
-    a.db[table][(size_t)expert * H + n0 + tid] = bsum;
-}
-#endif
-
-// The walk's kernel for a route's arguments.
 template <typename T>
-auto bwd_kernel(const BArgs<T, false>&) { return mega_bwd_kernel<T>; }
-#ifdef STAIR_GRAD_TC
-auto bwd_kernel(const BArgs<__nv_bfloat16, true>&) {
-  return mega_bwd_tc_kernel;
-}
-#endif
-
-template <typename T, bool TC>
 int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
                int Na, int F, int H, int L, int fsoft, stair::Dropout dr,
                cudaStream_t stream) {
-  using RT = typename BArgs<T, TC>::RT;
-  BArgs<T, TC> a;
+  BArgs<T> a;
   a.fill(p);
   int i = NARGS;
   a.rv = (const T*)p[i++];
@@ -1759,10 +1283,9 @@ int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
   a.dtok = (T*)p[i++];
   a.daux = (T*)p[i++];
   a.meta = (int*)p[i++];
-  RT** recs[] = {&a.X0, &a.D0, &a.X1, &a.D1, &a.X2,
-                 &a.D2, &a.X3, &a.D3, &a.X4, &a.D4};
-  for (RT** r : recs) *r = (RT*)p[i++];
-  a.bias = TC ? (float*)p[i++] : nullptr;
+  float** recs[] = {&a.X0, &a.D0, &a.X1, &a.D1, &a.X2,
+                    &a.D2, &a.X3, &a.D3, &a.X4, &a.D4};
+  for (float** r : recs) *r = (float*)p[i++];
   a.small = (float*)p[i++];
   a.ws = (float*)ws;
   a.B = B;
@@ -1775,27 +1298,21 @@ int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
   a.L = L;
   a.fsoft = fsoft;
   a.dr = dr;
-  const size_t smem = bwd_smem_floats(F, H, TC) * sizeof(float);
-  const auto kernel = bwd_kernel(a);
+  const size_t smem = ((size_t)NHV * H + (size_t)(NFV + 5) * F +
+                       BK * (BM + 1) + BK * BN + NWARPS) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mega_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, THREADS, smem, stream>>>(a);
+  mega_bwd_kernel<T><<<B, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Number of pointers stair_mega_exec_bwd_* takes: the NARGS prepare_args
-// tensors, rv, rf, ra, drv, drf, dra, dvid, dtok, daux, meta, ten record
-// buffers and the small partials.
-constexpr int NBWD = NARGS + 10 + 2 * NSLOT + 1;
-
-// Each translation unit builds one route and dtype, so the three build in
-// parallel: this file the general route in float32 (entry points *_f32),
-// mega_grad_bf16.cu the general route in bf16 (*_bf16), mega_grad_tc.cu
-// the tensor-core route (*_tc and the recompute check).
-#ifndef STAIR_GRAD_TC
+// Each translation unit instantiates one compute dtype, so the two build
+// in parallel: this file float32 (entry points *_f32), mega_grad_bf16.cu
+// bf16 (entry points *_bf16).
 #ifdef STAIR_GRAD_BF16
 using GradT = __nv_bfloat16;
 #define STAIR_GRAD_ENTRY(name) name##_bf16
@@ -1803,6 +1320,11 @@ using GradT = __nv_bfloat16;
 using GradT = float;
 #define STAIR_GRAD_ENTRY(name) name##_f32
 #endif
+
+// Number of pointers stair_mega_exec_bwd_* takes: the NARGS prepare_args
+// tensors, rv, rf, ra, drv, drf, dra, dvid, dtok, daux, meta, ten record
+// buffers and the small partials.
+constexpr int NBWD = NARGS + 10 + 2 * NSLOT + 1;
 
 // ptrs: see NBWD. ws: float32 [B, Ws(Nv, Nf, Na, F, H, L, T).size]; record
 // buffers X0..D2 [B*T, F, H], X3 [B*T, 3H], D3/X4/D4 [B*T, H], meta int32
@@ -1817,8 +1339,8 @@ extern "C" int STAIR_GRAD_ENTRY(stair_mega_exec_bwd)(
       (H & 1))
     return (int)cudaErrorInvalidValue;
   const stair::Dropout dr{drop, seed0, seed1, thresh, scale};
-  return launch_bwd<GradT, false>(ptrs, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
-                                  dr, (cudaStream_t)stream);
+  return launch_bwd<GradT>(ptrs, ws, B, T, Nv, Nf, Na, F, H, L, fsoft, dr,
+                           (cudaStream_t)stream);
 }
 
 // ptrs: meta, X0, D0, ..., X4, D4, small (as stair_mega_exec_bwd_*), then
@@ -1852,103 +1374,3 @@ extern "C" int STAIR_GRAD_ENTRY(stair_mega_exec_wgrad)(
   mega_wgrad_kernel<GradT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
-#endif  // STAIR_GRAD_TC
-
-#ifdef STAIR_GRAD_TC
-// The tensor-core route (ops/mega_grad.py bwd_route): bf16, H a multiple
-// of 64 in [64, TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F]. ptrs: as
-// stair_mega_exec_bwd_bf16's, with the record buffers in bf16 and the bias
-// partials (float32 [B*T, NSLOT, H]) after them; ws: float32 [B, Ws(Nv,
-// Nf, Na, F, H, L, T, true).size].
-extern "C" int stair_mega_exec_bwd_tc(
-    const void* const* ptrs, int nptrs, void* ws, int B, int T, int Nv,
-    int Nf, int Na, int F, int H, int L, int fsoft, int drop, int seed0,
-    int seed1, unsigned thresh, float scale, void* stream) {
-  if (nptrs != NBWD + 1 || H % 64 || H < 64 || H > stair::TC_MAX_H ||
-      F % 16 || F < 16 || F > stair::TC_MAX_F || L > MAX_L)
-    return (int)cudaErrorInvalidValue;
-  const stair::Dropout dr{drop, seed0, seed1, thresh, scale};
-  return launch_bwd<__nv_bfloat16, true>(ptrs, ws, B, T, Nv, Nf, Na, F, H, L,
-                                         fsoft, dr, (cudaStream_t)stream);
-}
-
-// ptrs: meta, X0, D0, ..., X4, D4 (bf16), the bias partials, small, then
-// the outputs as stair_mega_exec_wgrad_bf16's.
-extern "C" int stair_mega_exec_wgrad_tc(const void* const* ptrs, int nptrs,
-                                        int B, int T, int F, int H,
-                                        void* stream) {
-  if (nptrs != 1 + 2 * NSLOT + 2 + 2 * NTABLES + 1 || H % 64)
-    return (int)cudaErrorInvalidValue;
-  WTArgs a;
-  int i = 0;
-  a.meta = (const int*)ptrs[i++];
-  for (int s = 0; s < NSLOT; ++s) {
-    a.X[s] = (const __nv_bfloat16*)ptrs[i++];
-    a.D[s] = (const __nv_bfloat16*)ptrs[i++];
-  }
-  a.bias = (const float*)ptrs[i++];
-  a.small = (const float*)ptrs[i++];
-  for (int t = 0; t < NTABLES; ++t) {
-    a.dw[t] = (float*)ptrs[i++];
-    a.db[t] = (float*)ptrs[i++];
-  }
-  a.dsmall = (float*)ptrs[i++];
-  a.B = B;
-  a.T_ = T;
-  a.F = F;
-  a.H = H;
-  a.njobs = 11 + 11 + 4 + 10;  // sum of TB_E
-  dim3 grid((H + WG_TILE - 1) / WG_TILE, (3 * H + WG_TILE - 1) / WG_TILE,
-            a.njobs + 1);
-  mega_wgrad_tc_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory of the walk in bytes (tc: the tensor-core route).
-extern "C" long stair_mega_exec_bwd_smem(int F, int H, int tc) {
-  return bwd_smem_floats(F, H, tc != 0) * (long)sizeof(float);
-}
-
-// The recompute products' check: block 0 runs gemm, block 1 gemm_rows, on
-// the same operands (A float32 [M, K], rounded to bf16 where ra; B bf16
-// [K, N]) and epilogue (out[m * N + n] = acc), into out_gemm and
-// out_rows. M <= 64, K % 16 == 0, N % 8 == 0.
-__global__ void __launch_bounds__(THREADS)
-    recompute_check_kernel(const float* A, const __nv_bfloat16* Bm, int M,
-                           int K, int N, int ra, float* out_gemm,
-                           float* out_rows) {
-  extern __shared__ __align__(16) float buf[];
-  using bf16 = __nv_bfloat16;
-  float* out = blockIdx.x == 0 ? out_gemm : out_rows;
-  auto epi = [&](int m, int n, float acc) { out[(size_t)m * N + n] = acc; };
-  if (blockIdx.x == 0) {
-    if (ra)
-      gemm<bf16, true, false>(A, K, 1, Bm, N, 1, M, K, N, buf,
-                              buf + BK * (BM + 1), epi);
-    else
-      gemm<bf16, false, false>(A, K, 1, Bm, N, 1, M, K, N, buf,
-                               buf + BK * (BM + 1), epi);
-  } else {
-    if (ra)
-      gemm_rows<bf16, true, false>(A, K, Bm, N, M, K, N, buf, epi);
-    else
-      gemm_rows<bf16, false, false>(A, K, Bm, N, M, K, N, buf, epi);
-  }
-}
-
-extern "C" int stair_mega_recompute_check(const void* A, const void* Bm,
-                                          int M, int K, int N, int ra,
-                                          void* out_gemm, void* out_rows,
-                                          void* stream) {
-  if (M > GR_BM || K % GR_BK || N % 8) return (int)cudaErrorInvalidValue;
-  const size_t smem = GR_FLOATS * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      recompute_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  recompute_check_kernel<<<2, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)A, (const __nv_bfloat16*)Bm, M, K, N, ra,
-      (float*)out_gemm, (float*)out_rows);
-  return (int)cudaGetLastError();
-}
-#endif

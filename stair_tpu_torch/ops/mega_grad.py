@@ -12,11 +12,12 @@ autograd.
 ``mega_exec_bwd_call`` is the kernel wrapper: for CPU tensors it runs the
 plain version ``mega_exec_bwd_reference`` (torch autograd through the plain
 training forward ``mega_exec_reference``); for CUDA tensors it launches
-``csrc/mega_grad.cu`` (the reverse walk, then the weight gradient
-reduction) on the route ``bwd_route`` picks before the launch, or raises:
-the tensor-core route (launch keys ``mega_exec_bwd_tc``,
+the reverse walk, then the weight gradient reduction, on the route
+``bwd_route`` picks before the launch, or raises: the tensor-core route
+(``csrc/mega_grad_tc.cu``, launch keys ``mega_exec_bwd_tc``,
 ``mega_exec_wgrad_tc``) for bf16 at the widths it takes, the general route
-(``mega_exec_bwd``, ``mega_exec_wgrad``) otherwise. Cotangents enter cast to
+(``csrc/mega_grad.cu``, ``mega_exec_bwd``, ``mega_exec_wgrad``)
+otherwise. Cotangents enter cast to
 the compute dtype; weight gradients leave in float32 and the Function casts
 them to each argument's dtype.
 """
@@ -80,12 +81,14 @@ def bwd_route(dtype, H, F) -> str:
 
 def bwd_smem_bytes(F, H, tc) -> int:
     """Dynamic shared memory of the walk per block, as ``csrc/mega_grad.cu
-    bwd_smem_floats`` computes it: NHV ``[H]`` and NFV + 5 ``[F]`` float
-    vectors (at TC_MAX_H and TC_MAX_F on the tensor-core route), gemm's
-    tiles; on the tensor-core route, 16-byte aligned, the
+    launch_bwd`` (general route) or ``csrc/mega_grad_tc.cu
+    bwd_smem_floats`` (tensor-core route) computes it: NHV ``[H]`` and NFV
+    + 5 ``[F]`` float vectors (at TC_MAX_H and TC_MAX_F on the tensor-core
+    route), gemm's tiles; on the tensor-core route, 16-byte aligned, the
     larger of gemm_rows' double buffer and the bf16 ``[F, H + 8]``
     cotangent tile with tc_gemm's ring."""
-    t, g = TX._TILES, _build.header_ints("mega_grad.cu")
+    t = TX._TILES
+    g = _build.header_ints("mega_grad_tc.cu" if tc else "mega_grad.cu")
     SH, SF = (TX.TC_MAX_H, TX.TC_MAX_F) if tc else (H, F)
     n = (g["NHV"] * SH + (g["NFV"] + 5) * SF + t["BK"] * (t["BM"] + 1)
          + t["BK"] * t["BN"] + t["THREADS"] // 32)
@@ -135,20 +138,24 @@ def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None):
 def recompute_check(A, Bm, ra):
     """The card check of the tensor-core walk's recompute products: runs
     ``gemm`` (the training forward's product) and ``gemm_rows`` (the walk's)
-    on the same operands and epilogue (``out[m, n] = acc``): A float32
-    ``[M, K]`` (rounded to bf16 as it is loaded where ``ra``), B bf16 ``[K,
-    N]`` on the card, M <= 64, K % 16 == 0, N % 8 == 0. Returns the two
-    float32 ``[M, N]`` results, which must be equal bit for bit."""
+    on the same operands and epilogue (``out[m, n] = acc``): A ``[M, K]``
+    in bf16 (as the walk passes it) or float32, rounded to bf16 as it is
+    loaded where ``ra``; B bf16 ``[K, N]``; both on the card, M <= 64, K %
+    16 == 0, N % 8 == 0. Returns the two float32 ``[M, N]`` results, which
+    must be equal bit for bit."""
     dev = A.device
     M, K = A.shape
     N = Bm.shape[1]
-    _build.check_tensor("recompute_check A", A, torch.float32, (M, K), dev)
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"recompute_check A: {A.dtype} (float32 or bf16)")
+    _build.check_tensor("recompute_check A", A, A.dtype, (M, K), dev)
     _build.check_tensor("recompute_check B", Bm, torch.bfloat16, (K, N), dev)
     old = torch.empty(M, N, dtype=torch.float32, device=dev)
     new = torch.empty_like(old)
     err = _build.build().stair_mega_recompute_check(
-        A.data_ptr(), Bm.data_ptr(), M, K, N, int(bool(ra)), old.data_ptr(),
-        new.data_ptr(), _build.stream_ptr(dev))
+        A.data_ptr(), Bm.data_ptr(), M, K, N, int(bool(ra)),
+        int(A.dtype == torch.bfloat16), old.data_ptr(), new.data_ptr(),
+        _build.stream_ptr(dev))
     _build.check(err, "mega_recompute_check")
     return old, new
 

@@ -10,11 +10,10 @@ Each ROOT is a checkout (``.`` for this one, or a ``git archive`` of
 another commit unpacked under a gitignored directory). The checkouts run
 in the order given, then reversed (A B B A for two and ``--turns 2``),
 each in a fresh process that imports that checkout's own
-``stair_tpu_torch`` and ``chip_smoke.py``. A process builds that
-checkout's BiLSTM and executor sources alone (``bilstm.cu``,
-``mega_exec.cu``, ``mega_grad*.cu``: what the NMN paths launch; cached per
-checkout after its first turn) and prints one JSON line per round, on the
-main paths' own inputs (weights from seed 0):
+``stair_tpu_torch`` and ``chip_smoke.py`` and builds that checkout's kernel
+library with its own ``_build.build`` (cached per checkout after its first
+turn). It prints one JSON line per round, on the main paths' own inputs
+(weights from seed 0):
 
 - ``fwd_ms``: #4, ``mega_exec_call`` on a serving batch of 1024 (H 512,
   F 64, bf16, the 128-program pool), and ``fwd_general_ms`` on the
@@ -26,7 +25,8 @@ main paths' own inputs (weights from seed 0):
   wrapper's allocations), and ``walk_ms`` / ``wgrad_ms``: the device time
   of its walk and weight-gradient kernels (``torch.profiler``), with
   ``bwd_general_ms`` on the general route where the checkout has
-  ``mega_grad.bwd_route``.
+  ``mega_grad.bwd_route``; ``bwd_f32_ms``: the same call in float32 (the
+  general route in every checkout), on a float32 model's inputs.
 
 Then, unless ``--no-phases``, that checkout's ``chip_smoke.py`` phases 5
 (serving) and 8 (the train step), which print q/s, device ms per batch,
@@ -37,59 +37,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import hashlib
 import json
 import os
 import subprocess
 import sys
-import types
 
 import torch
-
-#: the sources the NMN paths launch
-SOURCES = ("bilstm.cu", "mega_exec.cu", "mega_grad.cu", "mega_grad_bf16.cu",
-           "mega_grad_tc.cu")
-
-
-def turn_order(roots, turns):
-    """The checkouts in the order they run: as given, then reversed, and so
-    on for ``turns`` rounds."""
-    order = []
-    for turn in range(turns):
-        order += list(roots) if turn % 2 == 0 else list(roots)[::-1]
-    return order
-
-
-class _Partial:
-    """A library built from some of the sources: the entry points it has,
-    and a stand-in that takes ``argtypes`` for the others."""
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        try:
-            return getattr(self._lib, name)
-        except AttributeError:
-            return types.SimpleNamespace()
-
-
-def build_nmn(_build):
-    """Build (or load the cached) library of ``SOURCES`` alone with the
-    checkout's own ``_build.build``."""
-    sources, cdll = _build._sources, ctypes.CDLL
-
-    def some():
-        srcs, deps = sources()
-        return [s for s in srcs if os.path.basename(s) in SOURCES], deps
-
-    _build._sources = some
-    ctypes.CDLL = lambda path, *a, **k: _Partial(cdll(path, *a, **k))
-    try:
-        return _build.build()
-    finally:
-        _build._sources, ctypes.CDLL = sources, cdll
 
 
 @contextlib.contextmanager
@@ -134,6 +88,37 @@ def kernel_ms(fn, names, iters=5):
     return out
 
 
+def train_inputs(cfg, batch, dtype, dev, seed):
+    """The executor backward's inputs at the train step's shapes in
+    ``dtype`` (a model of that compute dtype from seed 0): ``(meta, args,
+    outs, cotangents)``."""
+    from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+    from stair_tpu_torch.ops import lstm as TL
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.testing import workload as W
+
+    cfg = NMNConfig(**{**cfg.to_dict(), "compute_dtype": dtype})
+    model = W.build_model(cfg, seed=0, device=dev)
+    dt = model.compute_dtype
+    p = tree_map(lambda x: x.detach(), model.param_tree())
+    with torch.no_grad():
+        v = TL.bilstm_train_call(*TL._prep(
+            p["video_encoder"], batch["video"], batch["video_mask"], dt),
+            token_dtype=dt)
+        q = TL.bilstm_train_call(*TL._prep(
+            p["text_encoder"], batch["question"], batch["question_mask"],
+            dt), token_dtype=dt)
+    mods = tree_map(lambda x: x.to(dt), p["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], v[:2],
+        batch["video_mask"].to(dt), q[:2], batch["question_mask"])
+    outs = TX.mega_exec_train_call(meta, args, cfg.dropout, seed)
+    gen = torch.Generator().manual_seed(5)
+    cots = [torch.randn(o.shape, generator=gen).to(dev, o.dtype)
+            for o in outs]
+    return meta, args, outs, cots
+
+
 def one(root, tag, phases):
     """Time one checkout (this process imports its modules)."""
     sys.path.insert(0, root)
@@ -147,7 +132,7 @@ def one(root, tag, phases):
         card_identity, cuda_time_ms, exact_f32,
     )
 
-    build_nmn(_build)
+    _build.build()
     dev = torch.device("cuda", 0)
     exact_f32()
     card = card_identity().splitlines()[0]
@@ -177,24 +162,10 @@ def one(root, tag, phases):
                         "dropout": 0.25})
     batch = W.to_device(W.add_fake_supervision(
         W.make_batch(tcfg, batch_size=128, question_len=16), tcfg), dev)
-    tmodel = W.build_model(tcfg, seed=0, device=dev)
-    tp = tree_map(lambda x: x.detach(), tmodel.param_tree())
-    with torch.no_grad():
-        tv = TL.bilstm_train_call(*TL._prep(
-            tp["video_encoder"], batch["video"], batch["video_mask"], dt),
-            token_dtype=dt)
-        tq = TL.bilstm_train_call(*TL._prep(
-            tp["text_encoder"], batch["question"], batch["question_mask"],
-            dt), token_dtype=dt)
-    tmods = tree_map(lambda x: x.to(dt), tp["modules"])
-    tmeta, targs = TX.prepare_args(
-        tcfg, tmods, VideoNMN._fused_tables(tmods), batch["trace"], tv[:2],
-        batch["video_mask"].to(dt), tq[:2], batch["question_mask"])
     seed = (11, 22)
-    tout = TX.mega_exec_train_call(tmeta, targs, tcfg.dropout, seed)
-    gen = torch.Generator().manual_seed(5)
-    cots = [torch.randn(o.shape, generator=gen).to(dev, o.dtype)
-            for o in tout]
+    tmeta, targs, tout, cots = train_inputs(tcfg, batch, "bfloat16", dev,
+                                            seed)
+    f32 = train_inputs(tcfg, batch, "float32", dev, seed)
 
     def fwd():
         return TX.mega_exec_call(meta, args)
@@ -221,8 +192,10 @@ def one(root, tag, phases):
         if hasattr(TG, "bwd_route"):
             with forced(TG, "bwd_route", "general"):
                 row["bwd_general_ms"] = cuda_time_ms(bwd, iters=3)
+        row["bwd_f32_ms"] = cuda_time_ms(
+            lambda: TG.mega_exec_bwd_call(*f32, tcfg.dropout, seed), iters=3)
         print(json.dumps(row), flush=True)
-    del args, targs, tout, cots, model, tmodel
+    del args, targs, tout, cots, model, f32
     torch.cuda.empty_cache()
 
     if phases:
@@ -245,6 +218,10 @@ def main():
     if opts.one:
         one(*opts.one, phases=not opts.no_phases)
         return
+    # imported here, not at the top: a --one process imports the
+    # stair_tpu_torch of the checkout it times
+    from stair_tpu_torch.scripts.attention_bwd_ab import turn_order
+
     roots = [os.path.abspath(r) for r in opts.roots]
     for root in turn_order(roots, opts.turns):
         tag = os.path.relpath(root)

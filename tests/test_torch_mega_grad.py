@@ -412,24 +412,26 @@ def test_mega_bwd_tc_route_equals_general_route_on_card(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ra", [False, True])
 @pytest.mark.parametrize("M,K,N", [(64, 512, 512), (16, 512, 512),
                                    (48, 192, 192), (64, 512, 64)])
-def test_recompute_rows_equal_gemm_on_card(cuda_device, ra, M, K, N):
+def test_recompute_rows_equal_gemm_on_card(cuda_device, ra, M, K, N,
+                                           a_dtype):
     """The tensor-core walk's recompute helper (gemm_rows) gives gemm's bits
     (the training forward's products) on the same operands, at the walk's
     shapes (F x H @ H x H, and F x H @ H x F), with A rounded to bf16 as it
-    is loaded (ra) or not; float32 A that is not exact in bf16, so that
-    ``ra`` changes the result."""
+    is loaded (ra) or not: A in bf16, as every recompute of the walk passes
+    it (8 values a 16-byte load), and in float32 that is not exact in bf16,
+    so that ``ra`` changes the result (4 values a load)."""
     gen = torch.Generator().manual_seed(M + K + N)
-    A = torch.randn(M, K, generator=gen).to(cuda_device)
+    A = torch.randn(M, K, generator=gen).to(cuda_device, a_dtype)
     Bm = (torch.randn(K, N, generator=gen) / K ** 0.5).to(
         cuda_device, torch.bfloat16)
     old, new = TG.recompute_check(A, Bm, ra)
     torch.cuda.synchronize()
     assert torch.equal(old, new)
-    want = (A.to(torch.bfloat16).float() if ra else A).double() @ \
-        Bm.double()
+    want = (A.to(torch.bfloat16) if ra else A).double() @ Bm.double()
     assert float((old.double() - want).abs().max()) < 1e-3
-    assert (_build.build().stair_mega_exec_bwd_smem(M, K, 1)
+    assert (_build.build().stair_mega_exec_bwd_tc_smem(M, K)
             == TG.bwd_smem_bytes(M, K, True))
