@@ -223,7 +223,7 @@ def prepare_args(cfg, mods, tables, trace_fields, video_halves,
 # Plain version
 # ---------------------------------------------------------------------------
 
-def mega_exec_reference(meta, args, rate=0.0, seed=None):
+def mega_exec_reference(meta, args, rate=0.0, seed=None, files=None):
     """Eager executor over ``prepare_args`` output, batched over B.
 
     Values are carried in float32 holding compute-dtype numbers; ``rd``
@@ -241,6 +241,12 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
     files of an SSA machine. That differs from plain autodiff only for
     slots written more than once: the scratch slots, which take the zero
     writes and Localize's second score row when it has one keyword.
+
+    With ``files`` (a forward's final ``(rv, rf, ra)``) every register read
+    takes its value from ``files`` and passes its cotangent to the slot it
+    read, as the backward kernel reads the saved files: autograd through
+    it is the VJP at that forward's values. Given this function's own
+    output, the values and gradients are the same as without ``files``.
     """
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = args[0].device
@@ -287,6 +293,13 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
         old = file[rows, idx]
         file[rows, idx] = val + (old - old.detach())
 
+    given = None if files is None else [f.float() for f in files]
+
+    def read(file, k, rows, idx):
+        """Register read of ``file`` (``given[k]``'s value with ``files``)."""
+        x = file[rows, idx]
+        return x if given is None else given[k][rows, idx] + (x - x.detach())
+
     def rows_of(mask):
         return torch.nonzero(mask).flatten()
 
@@ -305,11 +318,11 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
         s = scal[:, t]
         op, e1, mode, count = s[:, F_OP], s[:, F_E1], s[:, F_MODE], \
             s[:, F_COUNT]
-        va = rv[ar, s[:, F_VA]]
-        vb = rv[ar, s[:, F_VB]]
-        aa = ra[ar, s[:, F_AA]]
-        ab = ra[ar, s[:, F_AB]]
-        fa = rf[ar, s[:, F_FA]]
+        va = read(rv, 0, ar, s[:, F_VA])
+        vb = read(rv, 0, ar, s[:, F_VB])
+        aa = read(ra, 2, ar, s[:, F_AA])
+        ab = read(ra, 2, ar, s[:, F_AB])
+        fa = read(rf, 1, ar, s[:, F_FA])
         is_filter = (op >= int(Opcode.FILTER_V)) & (
             op <= int(Opcode.FILTERFRAME_K))
 
@@ -354,7 +367,7 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
 
         r = on(Opcode.CHOOSE)
         if r.numel():
-            vc = rv[r, s[r, F_VC]]
+            vc = read(rv, 0, r, s[r, F_VC])
             first = cosine(va[r], vc) > cosine(vb[r], vc)
             nv[r] = torch.where(first[:, None], va[r], vb[r])
 
@@ -418,7 +431,7 @@ def mega_exec_reference(meta, args, rate=0.0, seed=None):
         r = on(Opcode.SUPERLATIVE_F)
         if r.numel():
             fr, vmr = feat[r], vm[r]
-            fb = rf[r, s[r, F_FB]]
+            fb = read(rf, 1, r, s[r, F_FB])
             kf = lin_dt(fb, w2t[2], b2t[2])                  # [n, F, H]
             cosm = rd(cosine_matrix(kf, fr))                 # [n, F, F]
             scores = (cosm + 1.0) * 0.49 * vmr[:, None, :]

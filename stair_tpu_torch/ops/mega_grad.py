@@ -102,17 +102,25 @@ def bwd_smem_bytes(F, H, tc) -> int:
     return 4 * n
 
 
-def mega_exec_bwd_reference(meta, args, outs, gouts, rate=0.0, seed=None):
+def mega_exec_bwd_reference(meta, args, outs, gouts, rate=0.0, seed=None,
+                            at_files=False):
     """The plain backward: torch autograd through ``mega_exec_reference``
     (the training forward, same dropout masks). Returns ``(dvf_a, dvf_b,
     dtok_a, dtok_b, daux)`` in the compute dtype and the weight gradients
-    in float32, in ``ARG_NAMES`` order from index ``N_DATA``."""
+    in float32, in ``ARG_NAMES`` order from index ``N_DATA``.
+
+    By default it differentiates through its own forward and reads no
+    files. With ``at_files`` every register read takes its value from
+    ``outs``, as the kernel walk's recompute does: the VJP at the forward
+    that made ``outs``, the same function the kernel computes, so that a
+    bf16 step between two forwards' files cannot move a relu's side."""
     dt = meta[9]
     want = list(DATA_GRAD_IDX) + list(range(N_DATA, len(args)))
     with torch.enable_grad():
         leaves = [a.detach().requires_grad_(i in want)
                   for i, a in enumerate(args)]
-        new = TX.mega_exec_reference(meta, leaves, rate=rate, seed=seed)
+        new = TX.mega_exec_reference(meta, leaves, rate=rate, seed=seed,
+                                     files=outs if at_files else None)
         pairs = [(o, g.to(dt)) for o, g in zip(new, gouts)
                  if o.requires_grad]
         grads = torch.autograd.grad(

@@ -150,6 +150,98 @@ def test_abs_slope_and_min_ties_follow_jax():
     _train_parity(16, "parity", progs, rate=0.0)
 
 
+@needs_jax
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax")])
+def test_mega_bwd_reference_at_files_matches_jax_kernel(F, attention):
+    """The JAX backward kernel #6 (``backward_call``, interpreted) reads
+    every register value from the files it is handed. Handed files that
+    are not its forward's own (the plain forward's plus noise), it agrees
+    with the plain backward ``at_files`` within 1e-4 of each gradient's
+    scale, and not with the plain backward through its own forward."""
+    cfg, model, params = _jbuild(max_video_length=F,
+                                 filter_attention=attention)
+    batch, _ = _batch(cfg, PROGRAMS, seed=1)
+    rng = np.random.RandomState(0)
+    B, L = batch["video"].shape[0], batch["question"].shape[1]
+    Hh = cfg.hidden_size // 2
+    halves = [rng.randn(B, n, Hh).astype(np.float32) for n in (F, F, L, L)]
+    trace = batch["trace"]
+    rate, seed = 0.25, (12345, 2 ** 31 - 7)
+    jmeta, jargs = JX.prepare_args(
+        cfg, params["modules"], model._fused_tables(params["modules"]),
+        {k: jnp.asarray(v) for k, v in trace.items()},
+        tuple(jnp.asarray(h) for h in halves[:2]),
+        jnp.asarray(batch["video_mask"]),
+        tuple(jnp.asarray(h) for h in halves[2:]),
+        jnp.asarray(batch["question_mask"]))
+    pm = port_model(cfg, params)
+    mods = tree_map(lambda x: x.detach(), pm.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        pm.config, mods, pm._fused_tables(mods),
+        {k: torch.from_numpy(v) for k, v in trace.items()},
+        tuple(torch.from_numpy(h) for h in halves[:2]),
+        torch.from_numpy(batch["video_mask"]),
+        tuple(torch.from_numpy(h) for h in halves[2:]),
+        torch.from_numpy(batch["question_mask"]))
+    outs = TX.mega_exec_reference(meta, args, rate, seed)
+    gen = torch.Generator().manual_seed(3)
+    files = tuple(o + 0.05 * torch.randn(o.shape, generator=gen) * (o != 0)
+                  for o in outs)
+    cots = [torch.randn(o.shape, generator=gen) for o in outs]
+    jg = JG.backward_call(jmeta, rate, jnp.asarray(seed, jnp.int32), jargs,
+                          tuple(jnp.asarray(f.numpy()) for f in files),
+                          tuple(jnp.asarray(c.numpy()) for c in cots),
+                          interpret=True)
+    names = ("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux") + \
+        TX.ARG_NAMES[TG.N_DATA:]
+    for at in (True, False):
+        tg = TG.mega_exec_bwd_reference(meta, args, files, cots, rate, seed,
+                                        at_files=at)
+        close = []
+        for name, j, t in zip(names, jg, tg):
+            j, t = np.asarray(j), t.numpy()
+            # the tolerance of _train_parity's check
+            tol = dict(rtol=1e-4, atol=1e-4 * max(np.abs(j).max(), 1e-6)
+                       + 1e-6)
+            if at:
+                np.testing.assert_allclose(j, t, err_msg=name, **tol)
+            close.append(np.allclose(t, j, **tol))
+        assert all(close) == at
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mega_bwd_reference_at_own_files_is_default(dtype):
+    """Handed the forward's own files, the plain backward at the files
+    gives the default's bits, over every opcode at dropout 0.25."""
+    cfg = NMNConfig(
+        hidden_size=32, video_size=12, text_size=10, answer_vocab_length=7,
+        max_video_length=16, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8,
+        compute_dtype="float32" if dtype == torch.float32 else "bfloat16")
+    model = TW.build_model(cfg, seed=1)
+    batch = TW.to_device(TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS, seed=8))
+    gen = torch.Generator().manual_seed(0)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.randn(B, n, 16, generator=gen).to(dtype)
+              for n in (16, 16, L, L)]
+    mods = tree_map(lambda x: x.detach().to(dtype),
+                    model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], halves[:2],
+        batch["video_mask"], halves[2:], batch["question_mask"])
+    seed = (123, 456)
+    out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    for a, b in zip(out, TX.mega_exec_reference(meta, args, 0.25, seed,
+                                                files=out)):
+        assert torch.equal(a, b)
+    cots = [torch.randn(o.shape, generator=gen) for o in out]
+    ref = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed)
+    at = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed,
+                                    at_files=True)
+    for a, b in zip(ref, at):
+        assert torch.equal(a, b)
+
+
 def test_mega_train_wrappers_route_cpu_to_plain_and_reject_others():
     cfg = NMNConfig(hidden_size=16, video_size=8, text_size=6,
                     max_video_length=8, max_steps=16, num_vec=10,
