@@ -43,27 +43,29 @@ Phases (any failure raises, and the script exits non-zero):
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
    (three runs, the last two on inputs moved by 1e-4 to move ReLU kinks:
-   all within 5e-2, two of three within 1e-4) and bf16 on both backward
-   routes (tensor-core and general, within 1e-1); two backward runs must
-   give identical bits; the tensor-core walk's recompute helper
-   (``gemm_rows``) against the training forward's (``gemm``) at the walk's
-   shapes, for both roundings of A, A in bf16 and in float32: equal bits;
+   all within 5e-2, two of three within 1e-4) and bf16 on both routes
+   (tensor-core and general: the forward within atol 3e-2 + rtol 1e-2, the
+   backward within 1e-1, each backward handed its own route's forward);
+   two backward runs must give identical bits; the tensor-core walk's
+   recompute products against the training forward's own calls at the
+   walk's shapes (the matrix and the vec-level products, alone and as
+   stage 1's chained pair): equal bits;
 8. the training slice at ``scripts/bench_train_step.py``'s configuration
    (H = 512, video 1024, text 300, F = 64, 172 answers, 64 object types,
    bf16, dropout 0.25, B = 128, fake supervision, Adam at lr 2e-4 with the
    trainer's 1.0 -> 0.1 schedule): 10 steps on the kernel route with launch
    counts per step (the BiLSTM forward and backward on their cluster
-   routes, the executor backward on its tensor-core route, none on the
-   general routes) and a falling loss, one step kernel vs plain route (the
-   loss in bf16; the gradients leaf by leaf in float32, where rounding
-   sites agree), ms per step on both routes, each training kernel against
-   its plain version on the step's own inputs (the executor backward, both
-   routes, on the kernel forward's register files, as the step hands them,
-   against autograd at those files, within 1e-1; and on the plain
-   forward's files against autograd through the plain forward, within
-   1e-1) and its time beside its plain version's at these shapes (the
-   BiLSTM forward and backward and the executor backward also on their
-   general routes);
+   routes, the executor forward and backward on their tensor-core routes,
+   none on the general routes) and a falling loss, one step kernel vs
+   plain route (the loss in bf16; the gradients leaf by leaf in float32,
+   where rounding sites agree), ms per step on both routes, each training kernel against
+   its plain version on the step's own inputs (the executor backward on
+   each route handed that route's forward's register files, as the step
+   hands them, against autograd at those files, within 1e-1; and on the
+   plain forward's files against autograd through the plain forward,
+   within 1e-1) and its time beside its plain version's at these shapes
+   (the BiLSTM forward and backward and the executor forward and backward
+   also on their general routes);
 9. the attention kernel vs its plain version: B = 4, H = 32, D = 128 at
    L = 640 and a ragged L = 611 (strided views), grouped heads 32 / 8,
    D = 64 with mixed ``prefix_len``, non-causal with Lq != Lkv, a head_dim
@@ -163,15 +165,16 @@ TRAIN_STEPS = 10
 #: (forward and backward on their bf16 cluster routes: the forward, the
 #: backward's walk, dwh slices and their sum; none on the general routes),
 #: the class table through the eval kernel's cluster route, one executor
-#: training forward (#5, the general route) and its backward on the
-#: tensor-core route (the walk and the weight gradients; none on the
-#: general route)
+#: training forward (#5) and its backward (the walk and the weight
+#: gradients), both on their tensor-core routes (none on the general
+#: routes)
 TRAIN_LAUNCHES = {"bilstm": 0, "bilstm_train": 0, "bilstm_tc": 1,
                   "bilstm_train_tc": 2, "bilstm_bwd": 0, "bilstm_dwh": 0,
                   "bilstm_bwd_tc": 2, "bilstm_dwh_tc": 2, "bilstm_dwh_sum": 2,
-                  "mega_exec": 0, "mega_exec_tc": 0, "mega_exec_train": 1,
-                  "mega_exec_bwd": 0, "mega_exec_wgrad": 0,
-                  "mega_exec_bwd_tc": 1, "mega_exec_wgrad_tc": 1}
+                  "mega_exec": 0, "mega_exec_tc": 0, "mega_exec_train": 0,
+                  "mega_exec_train_tc": 1, "mega_exec_bwd": 0,
+                  "mega_exec_wgrad": 0, "mega_exec_bwd_tc": 1,
+                  "mega_exec_wgrad_tc": 1}
 
 
 #: what an earlier phase measured and a later one prints beside its own
@@ -369,9 +372,10 @@ def general_lstm_bwd():
 
 @contextlib.contextmanager
 def general_mega():
-    """Send the executor's eval forward and backward through their general
-    routes (``mega_exec``; ``mega_exec_bwd`` + ``mega_exec_wgrad``)
-    whatever ``mega_exec.fwd_route`` and ``mega_grad.bwd_route`` pick."""
+    """Send the executor's forward (eval and training) and backward through
+    their general routes (``mega_exec``, ``mega_exec_train``;
+    ``mega_exec_bwd`` + ``mega_exec_wgrad``) whatever
+    ``mega_exec.fwd_route`` and ``mega_grad.bwd_route`` pick."""
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
 
@@ -387,6 +391,8 @@ def general_mega():
 #: the bf16 executor's routes: name, eval launch key, context
 MEGA_ROUTES = (("tc", "mega_exec_tc", contextlib.nullcontext),
                ("general", "mega_exec", general_mega))
+#: the training forward's launch key on each route
+TRAIN_KEYS = {"tc": "mega_exec_train_tc", "general": "mega_exec_train"}
 
 
 @contextlib.contextmanager
@@ -811,6 +817,7 @@ def phase_lstm_train(dev):
 
 def phase_mega_train(dev):
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+    from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.testing import workload as W
@@ -855,7 +862,7 @@ def phase_mega_train(dev):
             # two of three within 1e-4. bf16: one run within 1e-1.
             runs = 3 if dtype == torch.float32 else 1
             tight, loose = (1e-4, 5e-2) if runs == 3 else (1e-1, 1e-1)
-            worsts = []
+            worsts, fwd_err = [], {}
             for k in range(runs):
                 hk = halves if k == 0 else [
                     h * (1 + 1e-4 * torch.randn(
@@ -865,26 +872,38 @@ def phase_mega_train(dev):
                     cfg, mods, VideoNMN._fused_tables(mods), batch["trace"],
                     hk[:2], batch["video_mask"], hk[2:],
                     batch["question_mask"])
-                out = TX.mega_exec_train_call(meta, args, rate, seed)
-                torch.cuda.synchronize()
                 ref = TX.mega_exec_reference(meta, args, rate=rate, seed=seed)
-                for o, r, what in zip(out, ref, ("regs_vec", "regs_frames",
-                                                 "regs_attn")):
-                    torch.testing.assert_close(o.float(), r.float(),
-                                               rtol=ftol[0], atol=ftol[1],
-                                               msg=what)
                 if gouts is None:
-                    gouts = [torch.randn(o.shape, generator=gen).to(dev)
-                             for o in out]
-                rb = TG.mega_exec_bwd_reference(meta, args, out, gouts, rate,
+                    gouts = [torch.randn(r.shape, generator=gen).to(dev)
+                             for r in ref]
+                rb = TG.mega_exec_bwd_reference(meta, args, ref, gouts, rate,
                                                 seed)
                 plain = dict(zip(names, rb))
                 # float32: the general route alone; bf16: both routes, the
-                # tensor-core one first (its worst error is the run's)
+                # tensor-core one first (its worst error is the run's). Each
+                # route's forward against the plain version, and its backward
+                # handed that forward's files (the walk recomputes its own
+                # route's forward values bit for bit)
                 for route, _, ctx in MEGA_ROUTES:
-                    if route == "tc" and TG.bwd_route(dtype, HIDDEN, F) != "tc":
+                    if route == "tc" and TX.fwd_route(dtype, HIDDEN, F,
+                                                      True) != "tc":
                         continue
                     with ctx():
+                        _build.reset_launches()
+                        out = TX.mega_exec_train_call(meta, args, rate, seed)
+                        torch.cuda.synchronize()
+                        require(_build.LAUNCHES[TRAIN_KEYS[route]] == 1 and
+                                sum(_build.LAUNCHES[key] for key in
+                                    TRAIN_KEYS.values()) == 1,
+                                f"mega_exec_train {route} route launches "
+                                f"{_build.LAUNCHES}")
+                        for o, r, what in zip(out, ref, ("regs_vec",
+                                                         "regs_frames",
+                                                         "regs_attn")):
+                            torch.testing.assert_close(
+                                o.float(), r.float(), rtol=ftol[0],
+                                atol=ftol[1], msg=f"{route} route {what}")
+                        fwd_err[route] = max_err(out, ref)
                         kb = TG.mega_exec_bwd_call(meta, args, out, gouts,
                                                    rate, seed)
                         if k == 0:
@@ -915,7 +934,7 @@ def phase_mega_train(dev):
                         continue
                     worsts.append((bwd[worst], worst))
                     if k == 0:
-                        e0 = (max_err(out, ref), max_err(kb, rb))
+                        e0 = (fwd_err[route], max_err(kb, rb))
             n_tight = sum(w <= tight for w, _ in worsts)
             require(2 * n_tight > runs,
                     f"mega_exec_bwd F={F} {attention} {dtype}: only "
@@ -923,9 +942,10 @@ def phase_mega_train(dev):
             errs[(F, attention, str(dtype))] = e0
             routes = ("tensor-core route" if dtype == torch.bfloat16
                       else "general route")
+            ferr = ", ".join(f"{r} route {e:.3e}" for r, e in fwd_err.items())
             log(f"[mega_exec train] all {len(W.OPCODE_PROGRAMS)} opcode "
                 f"programs x2 H={HIDDEN} F={F} {attention} rate {rate} {dtype}: "
-                f"forward max_abs_err {e0[0]:.3e} (rtol {ftol[0]}, atol "
+                f"forward max_abs_err {ferr} (rtol {ftol[0]}, atol "
                 f"{ftol[1]}); backward ({routes}) over {len(bwd)} gradients "
                 f"max rel err per run {[(f'{w:.2e}', n) for w, n in worsts]} "
                 f"({n_tight} of {runs} within {tight}, all within {loose})"
@@ -935,27 +955,35 @@ def phase_mega_train(dev):
                    f"{noise:.2e} of the fltw gradient (bound 1e-3)"
                    if vanish else "")
                 + "; two backward runs bit-identical ok")
-    # The tensor-core walk recomputes the training forward's values with
-    # gemm_rows; it must give gemm's bits at the walk's shapes ([F, H] @ [H,
-    # H] and [F, H] @ [H, F]), A rounded to bf16 as it is loaded or not, A
-    # in bf16 (as every recompute of the walk passes it) and in float32.
+    # The tensor-core walk recomputes the training forward's values with the
+    # forward's own product code (walk_gemm, vecmat_tc); each must give the
+    # bits of the forward's call at the walk's shapes ([F, H] @ [H, H],
+    # [F, H] @ [H, F], and the vec-level product over 1-3 segments), alone
+    # and as stage 1's chained pair (the hidden kept as each kernel keeps
+    # it).
     gen = torch.Generator().manual_seed(9)
-    for M, K, N in ((FRAMES, HIDDEN, HIDDEN), (16, HIDDEN, HIDDEN),
-                    (FRAMES, HIDDEN, FRAMES)):
-        A32 = torch.randn(M, K, generator=gen).to(dev)
-        Bm = (torch.randn(K, N, generator=gen) / K ** 0.5).to(
-            dev, torch.bfloat16)
-        for A in (A32.to(torch.bfloat16), A32):
-            for ra in (False, True):
-                old, new = TG.recompute_check(A, Bm, ra)
+    for i, (M, K, N) in enumerate(((FRAMES, HIDDEN, HIDDEN),
+                                   (16, HIDDEN, HIDDEN),
+                                   (FRAMES, HIDDEN, FRAMES))):
+        for vec in (False, True):
+            S = 1 + i   # segments of the vec-level product
+            rows = S * K if vec else K
+            A = torch.randn(S if vec else M, K, generator=gen).to(
+                dev, torch.bfloat16)
+            if vec:     # the executor's vectors: float32 holding bf16 values
+                A = A.float()
+            Bm = (torch.randn(rows, N, generator=gen) / K ** 0.5).to(
+                dev, torch.bfloat16)
+            for chain in (False, True):
+                fwd, walk = TG.recompute_check(A, Bm, vec, chain)
                 torch.cuda.synchronize()
-                require(torch.equal(old, new),
-                        f"gemm_rows != gemm at M={M} K={K} N={N} A "
-                        f"{A.dtype} ra={ra}: max diff "
-                        f"{float((old - new).abs().max())}")
-        log(f"[recompute] gemm_rows equals gemm bit for bit at [{M}, {K}] @ "
-            f"[{K}, {N}], A in bf16 and in float32, rounded to bf16 at load "
-            f"and not ok")
+                require(torch.equal(fwd, walk),
+                        f"walk's recompute != #5's product at M={M} K={K} "
+                        f"N={N} vec={vec} chain={chain}: max diff "
+                        f"{float((fwd - walk).abs().max())}")
+        log(f"[recompute] the walk's products equal #5's bit for bit at "
+            f"[{M}, {K}] @ [{K}, {N}] and the vec-level [{S} x {K}] @ "
+            f"[{S * K}, {N}], alone and chained ok")
     return errs
 
 
@@ -1007,7 +1035,7 @@ def phase_train(dev, card):
     keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
     keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
         "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh",
-        "mega_exec_bwd", "mega_exec_wgrad")
+        "mega_exec_train", "mega_exec_bwd", "mega_exec_wgrad")
     model32 = W.build_model(NMNConfig(**{**cfg.to_dict(),
                                          "compute_dtype": "float32"}),
                             seed=0, device=dev)
@@ -1109,12 +1137,11 @@ def phase_train(dev, card):
             return cuda_time_ms(
                 lambda: (TL.bilstm_bwd_call(*vargs, kv[3], *vcot),
                          TL.bilstm_bwd_call(*qargs, kq[3], *qcot)), iters=3)
-    def general_bwd_mega_ms():
-        """The executor backward on its general route (the kernels the
-        tensor-core route replaced on the main path)."""
+    def general_mega_ms(fn):
+        """``fn`` on the executor's general routes (the kernels the
+        tensor-core routes replaced on the main path)."""
         with general_mega():
-            return cuda_time_ms(lambda: TG.mega_exec_bwd_call(
-                meta, margs, km, mcot, cfg.dropout, seed), iters=3)
+            return cuda_time_ms(fn, iters=3)
     r_lb = max(max(rel_err(x, y) for x, y in zip(kbv, rbv)),
                max(rel_err(x, y) for x, y in zip(kbq, rbq)))
     require(e_lt <= 2e-2 and r_lb <= 2e-2,
@@ -1133,13 +1160,15 @@ def phase_train(dev, card):
     # The train step hands the backward the kernel forward's register files
     # (km), and the walk reads every register value from them, as the JAX
     # kernel #6 does: its plain version is autograd at those files
-    # (at_files), the main-path check, bound 1e-1, on both routes. The
-    # kernel handed the plain forward's files (rm) is held to the plain
-    # backward through the plain forward, whose files are rm, within the
-    # same bound. Printed beside: the kernel on km against the plain
-    # backward through the plain forward, and the plain VJP at km against
-    # it too; the two read alike when the gap is the forwards' bf16 steps
-    # moving a relu's side, not the backward.
+    # (at_files), the main-path check, bound 1e-1. The general route is held
+    # the same way on its own forward's files (kmg): each route's walk
+    # recomputes its own forward's values bit for bit. The kernel handed
+    # the plain forward's files (rm) is held to the plain backward through
+    # the plain forward, whose files are rm, within the same bound. Printed
+    # beside: the kernel on km against the plain backward through the plain
+    # forward, and the plain VJP at km against it too; the two read alike
+    # when the gap is the forwards' bf16 steps moving a relu's side, not
+    # the backward.
     names = ("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux") + tuple(
         TX.ARG_NAMES[TG.N_DATA:])
 
@@ -1156,18 +1185,23 @@ def phase_train(dev, card):
     e_mb = max_err(kmb, rmb)
     r_mb, w_mb = worst(kmb, rmb)
     with general_mega():
+        kmg = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
+        e_mtg = max_err(kmg, rm)
         r_gen, w_gen = worst(TG.mega_exec_bwd_call(
-            meta, margs, km, mcot, cfg.dropout, seed), rmb)
+            meta, margs, kmg, mcot, cfg.dropout, seed),
+            TG.mega_exec_bwd_reference(meta, margs, kmg, mcot, cfg.dropout,
+                                       seed, at_files=True))
     r_rm, w_rm = worst(TG.mega_exec_bwd_call(meta, margs, rm, mcot,
                                              cfg.dropout, seed), rrb)
     r_fwd, w_fwd = worst(kmb, rrb)
     r_pf, w_pf = worst(rmb, rrb)
     log(f"[main-path inputs] bilstm_train max_abs_err {e_lt:.3e}; "
         f"bilstm_bwd max_abs_err {e_lb:.3e} (max rel {r_lb:.2e}); "
-        f"mega_exec_train max_abs_err {e_mt:.3e}; mega_exec_bwd max rel err "
-        f"(bound 1e-1) on the kernel forward's files {r_mb:.3e} "
-        f"(max_abs_err {e_mb:.3e}; worst {w_mb}), general route there "
-        f"{r_gen:.3e} ({w_gen}), on the plain forward's files {r_rm:.3e} "
+        f"mega_exec_train max_abs_err {e_mt:.3e} (general route "
+        f"{e_mtg:.3e}); mega_exec_bwd max rel err (bound 1e-1) on the "
+        f"kernel forward's files {r_mb:.3e} (max_abs_err {e_mb:.3e}; worst "
+        f"{w_mb}), the general route on its forward's files {r_gen:.3e} "
+        f"({w_gen}), on the plain forward's files {r_rm:.3e} "
         f"({w_rm}); through the plain forward instead: the kernel on km "
         f"{r_fwd:.3e} ({w_fwd}), the plain VJP at km {r_pf:.3e} ({w_pf})")
     require(r_mb <= 1e-1 and r_gen <= 1e-1,
@@ -1197,13 +1231,17 @@ def phase_train(dev, card):
         "mega_exec_train": cuda_time_ms(
             lambda: TX.mega_exec_train_call(meta, margs, cfg.dropout, seed),
             iters=5),
+        "mega_exec_train_general": general_mega_ms(
+            lambda: TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)),
         "mega_exec_train_plain": cuda_time_ms(
             lambda: TX.mega_exec_reference(meta, margs, rate=cfg.dropout,
                                            seed=seed), iters=2),
         "mega_exec_bwd": cuda_time_ms(
             lambda: TG.mega_exec_bwd_call(meta, margs, km, mcot,
                                           cfg.dropout, seed), iters=3),
-        "mega_exec_bwd_general": general_bwd_mega_ms(),
+        "mega_exec_bwd_general": general_mega_ms(
+            lambda: TG.mega_exec_bwd_call(meta, margs, kmg, mcot, cfg.dropout,
+                                          seed)),
         "mega_exec_bwd_plain": cuda_time_ms(
             lambda: TG.mega_exec_bwd_reference(meta, margs, km, mcot,
                                                cfg.dropout, seed,
@@ -1250,8 +1288,11 @@ def phase_train(dev, card):
         {"name": "mega_exec_train", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
          "replaces": "stair_tpu/ops/mega_grad.py:1016",
-         "launches": launches["mega_exec_train"], "max_abs_err": e_mt,
-         "ms": t["mega_exec_train"], "plain_ms": t["mega_exec_train_plain"]},
+         "executor_route": "tc",
+         "launches": launches["mega_exec_train_tc"], "max_abs_err": e_mt,
+         "ms": t["mega_exec_train"],
+         "general_ms": t["mega_exec_train_general"],
+         "plain_ms": t["mega_exec_train_plain"]},
         {"name": "mega_exec_bwd", "route": "cuda",
          "source": "stair_tpu_torch/ops/csrc/mega_grad_tc.cu",
          "replaces": "stair_tpu/ops/mega_grad.py:111",
@@ -2352,7 +2393,7 @@ def phase_rev_train(dev, card, slot_entries):
     cfg, batch, args = (SEEN["train_cfg"], SEEN["train_batch"],
                         SEEN["train_args"])
     T = batch["trace"]["opcode"].shape[1]
-    want = {**TRAIN_LAUNCHES, "mega_exec_train": 0, "mega_exec_bwd_tc": 0,
+    want = {**TRAIN_LAUNCHES, "mega_exec_train_tc": 0, "mega_exec_bwd_tc": 0,
             "mega_exec_wgrad_tc": 0, "executor_step": 0, "slot_set": 4 * T,
             "slot_zero": 8 * T, "slot_add": 7 * T}
 
@@ -2374,7 +2415,8 @@ def phase_rev_train(dev, card, slot_entries):
             for k, p in m.weights.items()}, dict(_build.LAUNCHES))
         del m
     require(all(got["step"][2][k] == 0 for k in (
-        "slot_set", "slot_zero", "slot_add", "mega_exec_train")),
+        "slot_set", "slot_zero", "slot_add", "mega_exec_train",
+        "mega_exec_train_tc")),
         f"step route launches {got['step'][2]}")
     ls, lr = got["step"][0], got["rev"][0]
     require(abs(ls - lr) <= 1e-5 * abs(ls), f"rev loss {lr} vs step {ls}")
@@ -2485,7 +2527,8 @@ def main():
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
     # the attention backward's and the executor's tensor-core kernels are
     # designed to keep their accumulators and state in registers
-    no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma", "mega_exec_tc_kernel",
+    no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+                "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),

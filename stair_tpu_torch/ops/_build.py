@@ -27,9 +27,10 @@ its kernel and nowhere else:
   order with dbias;
 - ``mega_exec``, ``mega_exec_train``: the executor forward, eval and
   training, on its general route (``csrc/mega_exec.cu``
-  ``mega_exec_kernel``; the training forward always takes it);
-- ``mega_exec_tc``: the eval forward on its tensor-core route (bf16, the
-  main path's; ``mega_exec_tc_kernel``);
+  ``mega_exec_kernel``: float32, and the widths the other refuses);
+- ``mega_exec_tc``, ``mega_exec_train_tc``: the eval and training forward
+  on its tensor-core route (bf16, the main paths'; ``mega_exec_tc_kernel``
+  without and with dropout);
 - ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward on the general route
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
@@ -80,8 +81,9 @@ LAUNCHES = {
     "bilstm_bwd": 0, "bilstm_dwh": 0,
     "bilstm_bwd_tc": 0, "bilstm_dwh_tc": 0, "bilstm_dwh_sum": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_tc": 0,
-    "mega_exec_bwd": 0, "mega_exec_wgrad": 0, "mega_exec_bwd_tc": 0,
-    "mega_exec_wgrad_tc": 0, "flash_attn": 0, "flash_attn_bwd_dq": 0,
+    "mega_exec_train_tc": 0, "mega_exec_bwd": 0, "mega_exec_wgrad": 0,
+    "mega_exec_bwd_tc": 0, "mega_exec_wgrad_tc": 0, "flash_attn": 0,
+    "flash_attn_bwd_dq": 0,
     "flash_attn_bwd_dkv": 0, "executor_step": 0, "slot_set": 0,
     "slot_zero": 0, "slot_add": 0,
 }
@@ -108,8 +110,8 @@ def kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel symbol of the port:
     ``flash_bwd_dkv_mma<128, 4, 32, 2>`` for
     ``_ZN5stair17flash_bwd_dkv_mmaILi128ELi4ELi32ELi2EEEvNS_12...``;
-    integer, ``float`` and named template arguments; anything else as it
-    is."""
+    integer, ``bool``, ``float`` and named template arguments; anything
+    else as it is."""
     if not mangled.startswith("_ZN"):
         return mangled
     pos, name = 3, None
@@ -124,13 +126,16 @@ def kernel_label(mangled: str) -> str:
     if pos >= len(mangled) or mangled[pos] != "I":
         return name
     targs = []
-    for tok in re.finditer(r"Li(-?\d+)E|(f)|(\d+)", mangled[pos + 1:]):
+    for tok in re.finditer(r"Li(-?\d+)E|Lb([01])E|(f)|(\d+)",
+                           mangled[pos + 1:]):
         if tok.group(1) is not None:
             targs.append(tok.group(1))
-        elif tok.group(2):
+        elif tok.group(2) is not None:
+            targs.append("true" if tok.group(2) == "1" else "false")
+        elif tok.group(3):
             targs.append("float")
         else:
-            n = int(tok.group(3))
+            n = int(tok.group(4))
             start = pos + 1 + tok.end()
             targs.append(mangled[start:start + n])
             break
@@ -243,14 +248,24 @@ def build():
         I,                         # fsoft
         P,                         # stream
     ]
+    lib.stair_mega_exec_fwd_tc_train.restype = I
+    lib.stair_mega_exec_fwd_tc_train.argtypes = [
+        P, I,                      # pointer table, its length
+        P, P, P, P,                # rv, rf, ra, workspace
+        I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
+        I,                         # fsoft
+        I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
+        P,                         # stream
+    ]
     Lg = ctypes.c_long
     lib.stair_mega_exec_tc_smem.restype = Lg
     lib.stair_mega_exec_tc_smem.argtypes = [I, I, I]        # F, H, L
     lib.stair_mega_exec_bwd_tc_smem.restype = Lg
     lib.stair_mega_exec_bwd_tc_smem.argtypes = [I, I]       # F, H
     lib.stair_mega_recompute_check.restype = I
-    # A, B, M, K, N, ra, a_bf16, out_gemm, out_rows, stream
-    lib.stair_mega_recompute_check.argtypes = [P, P, I, I, I, I, I, P, P, P]
+    # A, B, M, K, N, vec, chain, hbuf, out_fwd, out_walk, stream
+    lib.stair_mega_recompute_check.argtypes = [P, P, I, I, I, I, I, P, P, P,
+                                               P]
     for sfx in ("f32", "bf16", "tc"):
         fn = getattr(lib, f"stair_mega_exec_bwd_{sfx}")
         fn.restype = I

@@ -1,13 +1,14 @@
 // Device helpers shared by the executor's forward (mega_exec.cu) and
-// backward (mega_grad.cu) kernels: the instruction layout and opcodes, the
-// argument table of ops/mega_exec.py prepare_args, block reductions, and
-// the block-wide matrix products. Both kernels use the same products with
-// the same loop order, so the backward recomputes the forward's values bit
-// for bit (relu boundaries and bf16 roundings then agree): gemm (the
-// training forward's own) and gemm_rows (the same chains on a faster
-// tiling, for the backward's tensor-core route). tc_gemm runs the products
-// whose operands are exact in bf16 on the tensor cores, where the order of
-// the sums may change.
+// backward (mega_grad.cu, mega_grad_tc.cu) kernels: the instruction layout
+// and opcodes, the argument table of ops/mega_exec.py prepare_args, block
+// reductions, and the block-wide matrix products. Each backward recomputes
+// its route's training forward bit for bit (relu boundaries and bf16
+// roundings then agree) by calling the forward's own product code: gemm
+// and vecmat on the general route (mega_exec_kernel and mega_grad.cu), and
+// on the tensor-core route tc_gemm (fwd_gemm in mega_exec_tc_kernel,
+// walk_gemm in the walk: the same k steps and fragments, another chunk
+// width) and vecmat_tc in both. stair_mega_recompute_check holds each pair
+// equal on the card.
 #pragma once
 
 #include "common.cuh"
@@ -186,177 +187,6 @@ __device__ void vecmat(const float* x0, const float* x1, const float* x2,
   }
 }
 
-// gemm_rows: gemm's products with gemm's bits. Each output keeps gemm's
-// chain exactly: acc = fmaf(a_k, b_k, acc) for k ascending from 0, a_k and
-// b_k rounded to T where RA / RB say, the same epilogue. Only the tiling
-// differs: GR_BM x GR_BN outputs a pass, GR_TM x GR_TN a thread (thread
-// (ty, tx) = (tid / GR_NTX, tid % GR_NTX) owns rows GR_TM ty + i and
-// columns 4 tx + j + (GR_BN / 2) (j / 4)), 16-deep k slices read from
-// global memory as 16-byte vectors into registers one slice ahead,
-// converted to float once and stored into a double buffer, one barrier a
-// slice. A(m, k) = A[m * lda + k], B(k, n) = B[k * ldb + n]; K % 16 == 0,
-// N % 8 == 0, rows 16-byte aligned. buf: GR_FLOATS floats, 16-byte
-// aligned. Called by the whole block; returns after a barrier.
-constexpr int GR_BM = 64;
-constexpr int GR_BK = 16;
-constexpr int GR_PAD = 4;
-constexpr int GR_TM = 4;
-constexpr int GR_TN = 4;
-constexpr int GR_NTX = THREADS / (GR_BM / GR_TM);
-constexpr int GR_BN = GR_NTX * GR_TN;
-constexpr int GR_LDA = GR_BK + GR_PAD;
-constexpr int GR_STAGE = GR_BM * GR_LDA + GR_BK * GR_BN;
-constexpr int GR_FLOATS = 2 * GR_STAGE;
-
-template <typename T, bool RA, bool RB, typename TA, typename TB,
-          typename Epi>
-__device__ void gemm_rows(const TA* A, long lda, const TB* Bm, long ldb,
-                          int M, int K, int N, float* buf, Epi epi) {
-  constexpr int VA = 16 / sizeof(TA), VB = 16 / sizeof(TB);
-  constexpr int NVA = GR_BM * GR_BK / VA;             // <= THREADS
-  constexpr int NB = GR_BK * GR_BN / VB;              // B vectors a slice
-  constexpr int NVB = (NB + THREADS - 1) / THREADS;   // a thread
-  static_assert(NVA <= THREADS && (GR_TN == 4 || GR_TN == 8),
-                "gemm_rows slice split");
-  const int tid = threadIdx.x, ty = tid / GR_NTX, tx = tid % GR_NTX;
-  uint4 ra = make_uint4(0, 0, 0, 0), rb[NVB];
-  for (int m0 = 0; m0 < M; m0 += GR_BM) {
-    for (int n0 = 0; n0 < N; n0 += GR_BN) {
-      auto fetch = [&](int k0) {
-        if (tid < NVA) {
-          const int r = tid / (GR_BK / VA), c = tid % (GR_BK / VA);
-          ra = m0 + r < M ? *reinterpret_cast<const uint4*>(
-                                A + (m0 + r) * lda + k0 + c * VA)
-                          : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int j = 0; j < NVB; ++j) {
-          const int p = tid + j * THREADS;
-          const int r = p / (GR_BN / VB), c = p % (GR_BN / VB);
-          if (p < NB)
-            rb[j] = n0 + c * VB < N ? *reinterpret_cast<const uint4*>(
-                                          Bm + (long)(k0 + r) * ldb + n0 +
-                                          c * VB)
-                                    : make_uint4(0, 0, 0, 0);
-        }
-      };
-      auto stash = [&](int s) {
-        float* As = buf + s * GR_STAGE;
-        float* Bs = As + GR_BM * GR_LDA;
-        if (tid < NVA) {
-          const int r = tid / (GR_BK / VA), c = tid % (GR_BK / VA);
-          const TA* e = reinterpret_cast<const TA*>(&ra);
-#pragma unroll
-          for (int i = 0; i < VA; ++i) {
-            float v = to_f(e[i]);
-            if (RA) v = rd<T>(v);
-            As[r * GR_LDA + c * VA + i] = v;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NVB; ++j) {
-          const int p = tid + j * THREADS;
-          if (p >= NB) break;
-          const int r = p / (GR_BN / VB), c = p % (GR_BN / VB);
-          const TB* e = reinterpret_cast<const TB*>(&rb[j]);
-#pragma unroll
-          for (int i = 0; i < VB; ++i) {
-            float v = to_f(e[i]);
-            if (RB) v = rd<T>(v);
-            Bs[r * GR_BN + c * VB + i] = v;
-          }
-        }
-      };
-      float acc[GR_TM][GR_TN];
-#pragma unroll
-      for (int i = 0; i < GR_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < GR_TN; ++j) acc[i][j] = 0.f;
-      fetch(0);
-      stash(0);
-      __syncthreads();
-      const int ns = K / GR_BK;
-      for (int s = 0; s < ns; ++s) {
-        const bool more = s + 1 < ns;
-        if (more) fetch((s + 1) * GR_BK);
-        const float* As = buf + (s & 1) * GR_STAGE;
-        const float* Bs = As + GR_BM * GR_LDA;
-#pragma unroll
-        for (int kq = 0; kq < GR_BK; kq += 4) {
-          float4 a4[GR_TM];
-#pragma unroll
-          for (int i = 0; i < GR_TM; ++i)
-            a4[i] = *reinterpret_cast<const float4*>(
-                As + (ty * GR_TM + i) * GR_LDA + kq);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            float b[GR_TN];
-#pragma unroll
-            for (int h = 0; h < GR_TN / 4; ++h) {
-              const float4 b4 = *reinterpret_cast<const float4*>(
-                  Bs + (kq + kk) * GR_BN + h * (GR_BN / 2) + tx * 4);
-              b[4 * h] = b4.x;
-              b[4 * h + 1] = b4.y;
-              b[4 * h + 2] = b4.z;
-              b[4 * h + 3] = b4.w;
-            }
-#pragma unroll
-            for (int i = 0; i < GR_TM; ++i) {
-              const float a = reinterpret_cast<const float*>(&a4[i])[kk];
-#pragma unroll
-              for (int j = 0; j < GR_TN; ++j)
-                acc[i][j] = fmaf(a, b[j], acc[i][j]);
-            }
-          }
-        }
-        if (more) stash((s + 1) & 1);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < GR_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < GR_TN; ++j) {
-          const int m = m0 + ty * GR_TM + i;
-          const int n = n0 + (j / 4) * (GR_BN / 2) + tx * 4 + j % 4;
-          if (m < M && n < N) epi(m, n, acc[i][j]);
-        }
-    }
-  }
-  __syncthreads();
-}
-
-// vecmat_rows: vecmat's outputs with vecmat's bits (each column's chain
-// acc = fmaf(x_k, W[k, n], acc), k ascending from 0 per segment, the
-// segments summed left to right), for the tensor-core walk's recompute:
-// thread t owns the column pair 2t, 2t + 1 and reads both weights as one
-// 4-byte vector a row, with many rows in flight. N even.
-template <typename Epi>
-__device__ void vecmat_rows(const float* x0, const float* x1, const float* x2,
-                            const __nv_bfloat16* W, int K, int N, Epi epi) {
-  for (int n = 2 * threadIdx.x; n < N; n += 2 * THREADS) {
-    float y0 = 0.f, y1 = 0.f;
-    const float* xs[3] = {x0, x1, x2};
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      if (xs[s] == nullptr) break;
-      const float* x = xs[s];
-      const __nv_bfloat162* w =
-          reinterpret_cast<const __nv_bfloat162*>(W + (size_t)s * K * N + n);
-      float a0 = 0.f, a1 = 0.f;
-#pragma unroll 16
-      for (int k = 0; k < K; ++k) {
-        const float2 f = __bfloat1622float2(w[(size_t)k * (N / 2)]);
-        a0 = fmaf(x[k], f.x, a0);
-        a1 = fmaf(x[k], f.y, a1);
-      }
-      y0 = s == 0 ? a0 : y0 + a0;
-      y1 = s == 0 ? a1 : y1 + a1;
-    }
-    epi(n, y0);
-    epi(n + 1, y1);
-  }
-}
-
 // An elementwise pass over n elements, value(i) then store(i, v), with
 // BATCH elements a thread computed (their loads in flight together) before
 // any is stored: the stores may alias the loads' arrays, so a plain loop
@@ -504,6 +334,116 @@ __device__ void tc_gemm(const __nv_bfloat16* As, int lda,
         }
       }
     }
+  }
+  __syncthreads();
+}
+
+// Rows of a [M, K] bf16 matrix in global memory (row stride K, K % 8 ==
+// 0, 16-byte aligned) into a shared-memory tile of row stride ld, four
+// 16-byte vectors a thread in flight. Called by the whole block; returns
+// after a barrier.
+__device__ inline void load_tile(__nv_bfloat16* dst, int ld,
+                                 const __nv_bfloat16* src, int M, int K) {
+  const int per = K / 8, n = M * per;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * THREADS) {
+    uint4 v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n)
+        v[j] = *reinterpret_cast<const uint4*>(src + (size_t)(i / per) * K +
+                                               (i % per) * 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n)
+        *reinterpret_cast<uint4*>(dst + (size_t)(i / per) * ld +
+                                  (i % per) * 8) = v[j];
+    }
+  }
+  __syncthreads();
+}
+
+// The executor's [M, K] @ [K, N] products on the tensor-core route, one
+// definition for the training forward and the walk that recomputes it:
+// B(k, n) = W[k * N + n] (bf16, read-only), epi(m, n, acc) per output.
+//
+// fwd_gemm: as mega_exec_tc_kernel (#4, #5) runs them, A a bf16 tile in
+// shared memory (row stride K + TC_PAD), chunks of FWD_BN columns (two row
+// tiles a warp), the ring apart.
+// walk_gemm: as mega_bwd_tc_kernel (#6) recomputes them, A bf16 rows in
+// global memory (a register file or a record), staged into tile [M, K +
+// TC_PAD] with the ring after it, chunks of TC_BN columns (one row tile a
+// warp: the walk is short of registers).
+// Each output takes the same k steps in the same order with its operands in
+// the same fragment positions (row tiles start at multiples of 16, column
+// tiles at multiples of 8 in both), so the two give the same bits;
+// stair_mega_recompute_check shows it on the card.
+constexpr int FWD_BN = 128;
+
+template <typename Epi>
+__device__ void fwd_gemm(const __nv_bfloat16* As, const __nv_bfloat16* W,
+                         int M, int K, int N, __nv_bfloat16* ring, Epi epi) {
+  tc_gemm<false, FWD_BN>(As, K + TC_PAD, W, N, M, K, N, ring, epi);
+}
+
+template <typename Epi>
+__device__ void walk_gemm(const __nv_bfloat16* A, const __nv_bfloat16* W,
+                          int M, int K, int N, __nv_bfloat16* tile, Epi epi) {
+  const int ld = K + TC_PAD;
+  load_tile(tile, ld, A, M, K);
+  tc_gemm<false, TC_BN>(tile, ld, W, N, M, K, N, tile + (size_t)M * ld, epi);
+}
+
+// float slots of vecmat_tc's k-split partials
+constexpr int TC_PARTS = THREADS * 8;
+
+// vecmat_tc: the tensor-core route's vec-level products (the forward's and
+// the walk's recompute, so one set of bits): out[n] = sum over segments s
+// of x_s[0:K] @ W[s*K:(s+1)*K, n], x_s float32 (shared memory), W bf16.
+// Thread t reads the 16-byte vectors W[k, 8g .. 8g + 7] of column group g
+// = t % G (G = N / 8, N % 8 == 0) for the k of its split q = t / G, so a
+// warp reads contiguous rows of W; the splits' partials meet in part
+// (TC_PARTS floats) and are summed in split order. Called by the whole
+// block; returns after a barrier.
+template <typename Epi>
+__device__ void vecmat_tc(const float* x0, const float* x1, const float* x2,
+                          const __nv_bfloat16* W, int K, int N, float* part,
+                          Epi epi) {
+  const int G = N / 8, S = THREADS / G;
+  const int g = threadIdx.x % G, q = threadIdx.x / G;
+  if (q < S) {
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    const float* xs[3] = {x0, x1, x2};
+    const int ck = (K + S - 1) / S, kb = q * ck;
+    const int ke = K < kb + ck ? K : kb + ck;
+    for (int s = 0; s < 3 && xs[s] != nullptr; ++s) {
+      const float* x = xs[s];
+      const __nv_bfloat16* w = W + (size_t)s * K * N + g * 8;
+#pragma unroll 8
+      for (int k = kb; k < ke; ++k) {
+        const uint4 v = *reinterpret_cast<const uint4*>(w + (size_t)k * N);
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+        const float xk = x[k];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(p[i]);
+          acc[2 * i] = fmaf(xk, f.x, acc[2 * i]);
+          acc[2 * i + 1] = fmaf(xk, f.y, acc[2 * i + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[q * N + g * 8 + i] = acc[i];
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    float y = 0.f;
+    for (int qq = 0; qq < S; ++qq) y += part[qq * N + n];
+    epi(n, y);
   }
   __syncthreads();
 }

@@ -5,9 +5,9 @@
 // training forward (ops/mega_grad.py _train_fn / mega_exec_train), which
 // multiplies the JAX kernel's eight dropout sites by the counter-hash mask
 // hash_keep (common.cuh) keyed on (seed, example, step, site), so the
-// backward kernel (mega_grad.cu) recomputes the masks instead of storing
-// them. Inputs are the tensors of ops/mega_exec.py prepare_args, in
-// ARG_NAMES order.
+// backward kernels (mega_grad.cu, mega_grad_tc.cu) recompute the masks
+// instead of storing them. Inputs are the tensors of ops/mega_exec.py
+// prepare_args, in ARG_NAMES order.
 //
 // Design. One thread block per example runs that example's whole
 // instruction trace: it loads its own [T, 17] int32 instruction row step by
@@ -23,19 +23,20 @@
 // the wrapper allocates. The weight tables (~12 MB in bf16 at H = 512)
 // stream from L2.
 //
-// Every [F, H] @ [H, H] product (expert MLPs, stage-2 projections,
-// localize keywords) is a shared-memory tiled loop on the CUDA cores with
-// float32 accumulation: 64 x 64 output tiles, 16-deep k slices, 4 x 4
-// outputs per thread. Vec-level [1, H] @ [H, H] products give each thread
-// whole output columns. Values are rounded to the compute dtype exactly
-// where the JAX kernel casts (lin_dt and friends), so bf16 results track
-// the TPU kernel's rounding sites.
+// In mega_exec_kernel every [F, H] @ [H, H] product (expert MLPs, stage-2
+// projections, localize keywords) is a shared-memory tiled loop on the
+// CUDA cores with float32 accumulation: 64 x 64 output tiles, 16-deep k
+// slices, 4 x 4 outputs per thread. Vec-level [1, H] @ [H, H] products
+// give each thread whole output columns. Values are rounded to the compute
+// dtype exactly where the JAX kernel casts (lin_dt and friends), so bf16
+// results track the TPU kernel's rounding sites.
 //
 // Two routes (ops/mega_exec.py fwd_route picks one before the launch):
-// mega_exec_kernel below, the general route (float32; the training forward
-// #5, whose values the backward recomputes bit for bit; every width the
-// other refuses), and mega_exec_tc_kernel further down, the tensor-core
-// route for the bf16 eval forward.
+// mega_exec_kernel below, the general route (float32 and every width the
+// other refuses, eval and training; mega_grad.cu's walk recomputes its
+// training values bit for bit), and mega_exec_tc_kernel further down, the
+// tensor-core route for bf16, eval (#4) and training (#5; mega_grad_tc.cu's
+// walk recomputes its values bit for bit).
 //
 // What bounds mega_exec_kernel on an H100: B = 1024 blocks of about three
 // heavy [64 x 512] @ [512 x 512] products per step on the float32 CUDA
@@ -596,43 +597,45 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: mega_exec_tc_kernel (eval, bf16, no dropout).
+// The tensor-core route: mega_exec_tc_kernel<TRAIN> (bf16; TRAIN false:
+// eval, #4; TRAIN true: the training forward #5, with dropout).
 //
 // The same walk as mega_exec_kernel, one block per example, with three
 // changes. (1) Every [F, H] @ [H, H] product (the stage-1 expert MLP, the
-// stage-2 projections, SUPF's keyword rows) runs on mma.sync (tc_gemm): its
-// A operand is bf16 in shared memory and already rounded to bf16 by the
-// JAX kernel's casts (fa, fb and the registers are bf16; the stage-1
-// hidden, feat and the gated operand rows are rd<T> values), so only the
-// order of the float32 sums changes; W streams from L2 through a cp.async
-// ring. The epilogues round at the same sites. (2) The stage-1 hidden and
-// feat stay on chip as bf16 tiles: two [F, H + 8] tiles that swap roles (the
-// operand tile, then the other's output). Only SUPF's keyword rows and
-// TEMPORAL's pre-LayerNorm rows (float32) go to the [F, H] workspace.
-// (3) The vec-level [1, H] @ [H, H] products (vecmat_tc) read W as 16-byte
-// vectors along n, split k across threads and sum the partials in shared
-// memory in a fixed order. Eval has no backward that must agree with it, so
-// the summation order is free; the training forward (#5) stays on
-// mega_exec_kernel, whose values the backward recomputes bit for bit.
+// stage-2 projections, SUPF's keyword rows) runs on mma.sync (fwd_gemm,
+// mega_common.cuh): its A operand is bf16 in shared memory and already
+// rounded to bf16 by the JAX kernel's casts (fa, fb and the registers are
+// bf16; the stage-1 hidden, feat and the gated operand rows are rd<T>
+// values), so only the order of the float32 sums changes; W streams from
+// L2 through a cp.async ring. The epilogues round at the same sites.
+// (2) The stage-1 hidden and feat stay on chip as bf16 tiles: two [F, H +
+// 8] tiles that swap roles (the operand tile, then the other's output).
+// Only SUPF's keyword rows and TEMPORAL's pre-LayerNorm rows (float32) go
+// to the [F, H] workspace. (3) The vec-level [1, H] @ [H, H] products
+// (vecmat_tc) read W as 16-byte vectors along n, split k across threads
+// and sum the partials in shared memory in a fixed order.
+//
+// Training multiplies by the counter-hash mask at mega_exec_kernel's eight
+// sites with its keys; the eval instantiation compiles without them. The
+// backward's tensor-core walk (mega_grad_tc.cu) recomputes #5's values with
+// the same product code (walk_gemm, vecmat_tc) and epilogues, so a change
+// to this route's products or their order moves the walk's recompute too,
+// and stair_mega_recompute_check must hold the pair equal.
 //
 // Shared memory at F = 64, H = 512: the operand tile 66.5 KB, feat 66.5 KB,
 // the W ring 54 KB (three stages of 64 x 128 bf16), six [max(H, L)] float
 // vectors, the vec products' 8 KB of partials: ~206 KB, one block an SM.
 //
-// What bounds it on an H100: B = 1024 blocks in ~8 waves of one block per
-// SM; per heavy step two or three [64 x 512] @ [512 x 512] products whose
-// 512 KB weight tables each block reads from L2 (64 operations a byte, so
-// L2 bandwidth and the mma.sync rate are of one size), and the latency of the
-// vec-level ops between them. Grouping examples by expert, so that one
-// weight tile serves several examples, and wgmma are later work.
+// What bounds it on an H100: per heavy step two or three [64 x 512] @ [512
+// x 512] products whose 512 KB weight tables each block reads from L2 (64
+// operations a byte, so L2 bandwidth and the mma.sync rate are of one
+// size), and the latency of the vec-level ops between them. At serving B =
+// 1024, ~8 waves of one block per SM; at the train step's B = 128 one
+// wave, so #5's time is one example's latency through its T steps.
+// Grouping examples by expert, so that one weight tile serves several
+// examples, and wgmma are later work.
 
 using bf16 = __nv_bfloat16;
-
-// float slots of the vec products' k-split partials
-constexpr int TC_PARTS = THREADS * 8;
-// tc_gemm's chunk width here: two row tiles a warp (the walk, short of
-// registers, takes one)
-constexpr int FWD_BN = 128;
 
 // Dynamic shared memory of mega_exec_tc_kernel in bytes (ops/mega_exec.py
 // tc_smem_bytes mirrors it).
@@ -641,51 +644,6 @@ __host__ __device__ inline size_t tc_smem_bytes(int F, int H, int L) {
   return 2 * (size_t)F * (H + TC_PAD) * sizeof(bf16) +
          (size_t)tc_ring<FWD_BN>() * sizeof(bf16) +
          (6 * V + TC_PARTS + 6 * (size_t)F + NWARPS) * sizeof(float);
-}
-
-// out[n] = sum over segments s of x_s[0:K] @ W[s*K:(s+1)*K, n]. Thread t
-// reads the 16-byte vectors W[k, 8g .. 8g + 7] of column group g = t % G
-// (G = N / 8) for the k of its split q = t / G, so a warp reads contiguous
-// rows of W; the splits' partials meet in part and are summed in split
-// order. Called by the whole block; returns after a barrier.
-template <typename Epi>
-__device__ void vecmat_tc(const float* x0, const float* x1, const float* x2,
-                          const bf16* W, int K, int N, float* part, Epi epi) {
-  const int G = N / 8, S = THREADS / G;
-  const int g = threadIdx.x % G, q = threadIdx.x / G;
-  if (q < S) {
-    float acc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    const float* xs[3] = {x0, x1, x2};
-    const int ck = (K + S - 1) / S, kb = q * ck;
-    const int ke = K < kb + ck ? K : kb + ck;
-    for (int s = 0; s < 3 && xs[s] != nullptr; ++s) {
-      const float* x = xs[s];
-      const bf16* w = W + (size_t)s * K * N + g * 8;
-#pragma unroll 8
-      for (int k = kb; k < ke; ++k) {
-        const uint4 v = *reinterpret_cast<const uint4*>(w + (size_t)k * N);
-        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-        const float xk = x[k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(p[i]);
-          acc[2 * i] = fmaf(xk, f.x, acc[2 * i]);
-          acc[2 * i + 1] = fmaf(xk, f.y, acc[2 * i + 1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) part[q * N + g * 8 + i] = acc[i];
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float y = 0.f;
-    for (int qq = 0; qq < S; ++qq) y += part[qq * N + n];
-    epi(n, y);
-  }
-  __syncthreads();
 }
 
 // Pointers into mega_exec_tc_kernel's dynamic shared memory.
@@ -751,6 +709,7 @@ __device__ void superlative_tc(float* row, int K, int mode, int count_or_neg,
   });
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
     mega_exec_tc_kernel(const Args<bf16> a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -784,29 +743,6 @@ __global__ void __launch_bounds__(THREADS)
   float* wsg = a.ws + (size_t)b * F * H;   // SUPF kw_f / TEMP pre-LN rows
   const size_t FH = (size_t)F * H;
 
-  // rows of a [F, H] frames register (global) into a tile, four 16-byte
-  // vectors a thread in flight
-  auto load_tile = [&](bf16* dst, const T* src) {
-    const int per = H / 8, n = F * per;
-    for (int i0 = tid; i0 < n; i0 += 4 * THREADS) {
-      uint4 v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = i0 + j * THREADS;
-        if (i < n)
-          v[j] = *reinterpret_cast<const uint4*>(src + (size_t)(i / per) * H +
-                                                 (i % per) * 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = i0 + j * THREADS;
-        if (i < n)
-          *reinterpret_cast<uint4*>(dst + (size_t)(i / per) * LDT +
-                                    (i % per) * 8) = v[j];
-      }
-    }
-    __syncthreads();
-  };
 
   // ---- register-file init: frames register 0 <- video * vmask ----------
   for (int f = tid; f < F; f += THREADS)
@@ -843,6 +779,14 @@ __global__ void __launch_bounds__(THREADS)
     const int out_ab = clampi(ins[F_OUT_AB], Na);
     const bool is_filter = op >= OP_FV && op <= OP_FFK;
     const T* fa = rf + (size_t)ifa * FH;
+    // v times the dropout mask of (r, c) at one of the eight sites
+    // (training); v itself in eval
+    auto drop = [&](float v, int r, int c, int site) {
+      if constexpr (TRAIN)
+        return v * a.dr.keep(r, c, b, t, site);
+      else
+        return v;
+    };
 
     // ---- operand reads, then the zero writes of out_attn/out_attn_b ----
     for (int j = tid; j < H; j += THREADS) {
@@ -868,15 +812,17 @@ __global__ void __launch_bounds__(THREADS)
       bf16* h = s.tile[fcur];
       const T* b1 = a.b1u + (size_t)e1 * H;
       const T* b2 = a.b2u + (size_t)e1 * H;
-      load_tile(x, fa);
-      tc_gemm<false, FWD_BN>(x, LDT, a.w1u + (size_t)e1 * H * H, H, F, H, H,
-                             s.ring, [&](int m, int n, float acc) {
-        h[(size_t)m * LDT + n] = from_f<T>(fmaxf(acc + to_f(b1[n]), 0.f));
+      load_tile(x, LDT, fa, F, H);
+      fwd_gemm(x, a.w1u + (size_t)e1 * H * H, F, H, H, s.ring,
+               [&](int m, int n, float acc) {
+        h[(size_t)m * LDT + n] =
+            from_f<T>(drop(fmaxf(acc + to_f(b1[n]), 0.f), m, n, 0));
       });
-      tc_gemm<false, FWD_BN>(h, LDT, a.w2u + (size_t)e1 * H * H, H, F, H, H,
-                             s.ring, [&](int m, int n, float acc) {
+      fwd_gemm(h, a.w2u + (size_t)e1 * H * H, F, H, H, s.ring,
+               [&](int m, int n, float acc) {
         const float v = acc + to_f(b2[n]);
-        x[(size_t)m * LDT + n] = from_f<T>(is_filter ? fmaxf(v, 0.f) : v);
+        x[(size_t)m * LDT + n] =
+            from_f<T>(is_filter ? drop(fmaxf(v, 0.f), m, n, 1) : v);
       });
       fcur ^= 1;
     }
@@ -952,12 +898,13 @@ __global__ void __launch_bounds__(THREADS)
     } else if (op == OP_QUERY) {
       vecmat_tc(s.va, nullptr, nullptr, a.qw, H, H, s.part,
                 [&](int n, float y) {
-        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f);
+        s.nv[n] = drop(fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f), 0, n, 4);
       });
     } else if (op == OP_TOA) {
       vecmat_tc(s.va, s.vb, nullptr, a.taw1, H, H, s.part,
                 [&](int n, float y) {
-        s.x1[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f));
+        s.x1[n] = rd<T>(
+            drop(fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f), 0, n, 5));
       });
       vecmat_tc(s.x1, nullptr, nullptr, a.taw2, H, H, s.part,
                 [&](int n, float y) {
@@ -969,11 +916,12 @@ __global__ void __launch_bounds__(THREADS)
         s.x1[j] = rd<T>(s.vb[j] * s.va[j]);
       __syncthreads();
       vecmat_tc(s.vb, s.va, s.x1, a.exw1, H, H, s.part, [&](int n, float y) {
-        s.x2[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f));
+        s.x2[n] = rd<T>(
+            drop(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f), 0, n, 6));
       });
       vecmat_tc(s.x2, nullptr, nullptr, a.exw2, H, H, s.part,
                 [&](int n, float y) {
-        s.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f);
+        s.nv[n] = drop(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f), 0, n, 7);
       });
     } else if (op == OP_FV || op == OP_FK) {
       if (a.fsoft) {
@@ -1041,9 +989,8 @@ __global__ void __launch_bounds__(THREADS)
       const T* bk = a.b2t + 2 * (size_t)H;
       // kw_f = lin_dt(fb, w2t[2], b2t[2]) -> wsg [F, H]; fb stays in the
       // free tile for the pooling
-      load_tile(opnd, rf + (size_t)ifb * FH);
-      tc_gemm<false, FWD_BN>(opnd, LDT, wk, H, F, H, H, s.ring,
-                             [&](int m, int n, float acc) {
+      load_tile(opnd, LDT, rf + (size_t)ifb * FH, F, H);
+      fwd_gemm(opnd, wk, F, H, H, s.ring, [&](int m, int n, float acc) {
         wsg[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
       });
       for (int r = warp; r < F; r += NWARPS) {
@@ -1104,10 +1051,9 @@ __global__ void __launch_bounds__(THREADS)
       }
       __syncthreads();
       const T* b20 = a.b2t;
-      tc_gemm<false, FWD_BN>(opnd, LDT, a.w2t, H, F, H, H, s.ring,
-                             [&](int m, int n, float acc) {
+      fwd_gemm(opnd, a.w2t, F, H, H, s.ring, [&](int m, int n, float acc) {
         fout[(size_t)m * H + n] =
-            from_f<T>(fmaxf(acc + to_f(b20[n]), 0.f) * s.vm[m]);
+            from_f<T>(drop(fmaxf(acc + to_f(b20[n]), 0.f), m, n, 2) * s.vm[m]);
       });
     } else if (op == OP_TEMP) {
       const int midx = mode - 1 > 0 ? mode - 1 : 0;
@@ -1146,9 +1092,9 @@ __global__ void __launch_bounds__(THREADS)
                  });
       __syncthreads();
       const T* b21 = a.b2t + H;
-      tc_gemm<false, FWD_BN>(opnd, LDT, a.w2t + (size_t)H * H, H, F, H, H,
-                             s.ring, [&](int m, int n, float acc) {
-        wsg[(size_t)m * H + n] = fmaxf(acc + to_f(b21[n]), 0.f);
+      fwd_gemm(opnd, a.w2t + (size_t)H * H, F, H, H, s.ring,
+               [&](int m, int n, float acc) {
+        wsg[(size_t)m * H + n] = drop(fmaxf(acc + to_f(b21[n]), 0.f), m, n, 2);
       });
       for (int f = warp; f < F; f += NWARPS) {
         const float* y = wsg + (size_t)f * H;
@@ -1183,7 +1129,7 @@ __global__ void __launch_bounds__(THREADS)
                                           : fabsf(s.aa[f] - s.ab[f]));
     } else if (op == OP_HAS) {
       for (int f = tid; f < F; f += THREADS)
-        aout[f] = from_f<T>(sigmoid_f(ft(f, 0)) * s.vm[f]);
+        aout[f] = from_f<T>(drop(sigmoid_f(ft(f, 0)), 0, f, 3) * s.vm[f]);
     } else if (op == OP_EXF) {
       float n2 = 0.f;
       for (int k = tid; k < H; k += THREADS) n2 += s.va[k] * s.va[k];
@@ -1232,9 +1178,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <bool TRAIN>
 int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
               int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
-              int fsoft, cudaStream_t stream) {
+              int fsoft, stair::Dropout dr, cudaStream_t stream) {
   Args<bf16> a;
   a.fill(p);
   a.rv = (bf16*)rv;
@@ -1250,13 +1197,13 @@ int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   a.H = H;
   a.L = L;
   a.fsoft = fsoft;
-  a.dr = stair::Dropout{0, 0, 0, 0u, 1.f};
+  a.dr = dr;
   const size_t smem = tc_smem_bytes(F, H, L);
   cudaError_t e = cudaFuncSetAttribute(
-      mega_exec_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mega_exec_tc_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  mega_exec_tc_kernel<<<B, THREADS, smem, stream>>>(a);
+  mega_exec_tc_kernel<TRAIN><<<B, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1310,23 +1257,44 @@ extern "C" int stair_mega_exec_fwd(const void* const* ptrs, int nptrs,
                        dr, st);
 }
 
-// The tensor-core route (mega_exec_tc_kernel): bf16, eval (no dropout), H a
-// multiple of 64 in [64, TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F], L
-// <= MAX_L; ops/mega_exec.py fwd_route picks it. Arguments as
+// The widths the tensor-core route takes: H a multiple of 64 in [64,
+// TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F], L <= MAX_L.
+static bool tc_takes(int nptrs, int F, int H, int L) {
+  return nptrs == NARGS && H % 64 == 0 && H >= 64 && H <= stair::TC_MAX_H &&
+         F % 16 == 0 && F >= 16 && F <= stair::TC_MAX_F && L <= MAX_L;
+}
+
+// The tensor-core route, eval (mega_exec_tc_kernel<false>, #4): bf16 at
+// the widths tc_takes; ops/mega_exec.py fwd_route picks it. Arguments as
 // stair_mega_exec_fwd's; ws: a float32 [B, F, H] workspace.
 extern "C" int stair_mega_exec_fwd_tc(const void* const* ptrs, int nptrs,
                                       void* rv, void* rf, void* ra, void* ws,
                                       int B, int T, int Nv, int Nf, int Na,
                                       int F, int H, int L, int fsoft,
                                       void* stream) {
-  if (nptrs != NARGS || H % 64 || H < 64 || H > stair::TC_MAX_H || F % 16 ||
-      F < 16 || F > stair::TC_MAX_F || L > MAX_L)
-    return (int)cudaErrorInvalidValue;
-  return launch_tc(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
-                   (cudaStream_t)stream);
+  if (!tc_takes(nptrs, F, H, L)) return (int)cudaErrorInvalidValue;
+  return launch_tc<false>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L,
+                          fsoft, stair::Dropout{0, 0, 0, 0u, 1.f},
+                          (cudaStream_t)stream);
 }
 
-// Dynamic shared memory of mega_exec_tc_kernel at (F, H, L), in bytes.
+// The tensor-core route, training (mega_exec_tc_kernel<true>, #5): as
+// stair_mega_exec_fwd_tc, with stair_mega_exec_fwd's dropout arguments
+// (drop = 0: no mask).
+extern "C" int stair_mega_exec_fwd_tc_train(
+    const void* const* ptrs, int nptrs, void* rv, void* rf, void* ra,
+    void* ws, int B, int T, int Nv, int Nf, int Na, int F, int H, int L,
+    int fsoft, int drop, int seed0, int seed1, unsigned thresh, float scale,
+    void* stream) {
+  if (!tc_takes(nptrs, F, H, L)) return (int)cudaErrorInvalidValue;
+  return launch_tc<true>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L,
+                         fsoft, stair::Dropout{drop, seed0, seed1, thresh,
+                                               scale},
+                         (cudaStream_t)stream);
+}
+
+// Dynamic shared memory of mega_exec_tc_kernel (both instantiations) at
+// (F, H, L), in bytes.
 extern "C" long stair_mega_exec_tc_smem(int F, int H, int L) {
   return (long)tc_smem_bytes(F, H, L);
 }

@@ -12,11 +12,12 @@
 // - The walk (mega_bwd_tc_kernel), one block per example in reverse, as
 //   the general route's. Its recompute products (stage 1, SUPF's keyword
 //   rows, the FilterFrame and Temporal projections, the vec-level layers)
-//   rebuild values of the training forward (#5, mega_exec_kernel, which
-//   keeps gemm and vecmat), so they run gemm_rows and vecmat_rows: gemm's
-//   and vecmat's chains bit for bit, on 16-byte loads staged one slice
-//   ahead and one barrier a slice (stair_mega_recompute_check holds
-//   gemm_rows equal to gemm). The gradient products whose operands are
+//   rebuild values of this route's training forward (#5,
+//   mega_exec_tc_kernel<true>), so they call #5's own product code on the
+//   tensor cores: walk_gemm (tc_gemm at #5's k order, the A rows staged
+//   from the files or records into a bf16 tile) and vecmat_tc, with #5's
+//   epilogues; stair_mega_recompute_check holds each equal to the
+//   forward's call on the card. The gradient products whose operands are
 //   both exact in bf16 (the cotangent rounded as it is loaded, as the JAX
 //   kernel's .astype(dt), and a bf16 weight table: SUPF, FilterFrame and
 //   Temporal's rd(dY) @ W^T and stage 1's two) run on mma.sync (grad_tc,
@@ -31,12 +32,11 @@
 //   the same order. No float atomics: two runs give the same bits.
 //
 // What bounds it on an H100: one block per example (B = 128 blocks at the
-// training shape, under one per SM); the recompute products' float32 FMAs
-// (about four per heavy step, the same chains as #5's, so they cannot move
-// to the tensor cores until #5 does) and the latency of the per-step vec
-// and elementwise passes through L2. Moving #5 and this recompute onto the
-// tensor cores together, and splitting an example across a thread-block
-// cluster, are later work.
+// training shape, under one per SM): the latency of the per-step vec and
+// elementwise passes over float32 [F, H] rows through L2, then the tensor-
+// core products (about four recompute and four gradient products per heavy
+// step). Splitting an example across a thread-block cluster is later
+// work.
 
 #include "mega_common.cuh"
 
@@ -142,8 +142,8 @@ struct BArgs : Tensors<T> {
 };
 
 // Shared-memory scratch, laid out in dynamic shared memory; tc: the
-// product scratch (gemm_rows' buffers, or the bf16 cotangent tile and
-// tc_gemm's ring).
+// product scratch (a bf16 [F, H + TC_PAD] operand tile and tc_gemm's ring,
+// or vecmat_tc's partials).
 struct Sh {
   float* hv[NHV];
   float* fv[NFV];
@@ -152,8 +152,9 @@ struct Sh {
 };
 
 // Dynamic shared memory of the walk in floats (the product scratch 16-byte
-// aligned at the end); ops/mega_grad.py bwd_smem_bytes mirrors it. The
-// vectors are laid out at the route's largest H and F, so that every
+// aligned at the end: the larger of the operand tile with tc_gemm's ring
+// and vecmat_tc's partials); ops/mega_grad.py bwd_smem_bytes mirrors it.
+// The vectors are laid out at the route's largest H and F, so that every
 // shared-memory address is a compile-time offset and holds no register
 // across the walk.
 __host__ __device__ inline long bwd_smem_floats(int F, int H) {
@@ -161,7 +162,7 @@ __host__ __device__ inline long bwd_smem_floats(int F, int H) {
            BK * (BM + 1) + BK * BN + NWARPS;
   n = (n + 3) & ~3L;
   const long t = ((long)F * (H + TC_PAD) + tc_ring<TC_BN>()) / 2;
-  return n + (t > GR_FLOATS ? t : GR_FLOATS);
+  return n + (t > TC_PARTS ? t : TC_PARTS);
 }
 
 __device__ inline void sync() { __syncthreads(); }
@@ -317,7 +318,7 @@ __device__ void superlative_bwd(int K, Score score, Act act,
     g1[n] = pre > 0.f ? gov[n] : 0.f;
     D3[n] = g1[n];
   };
-  vecmat_rows(pooled, nullptr, nullptr, supw, H, H, epi);
+  vecmat_tc(pooled, nullptr, nullptr, supw, H, H, s.tc, epi);
   set_meta(meta, 3, TB_SUPW, 0, 1);
   sync();
   mmT_vec<T>(g1, supw, H, H, H, gpool);
@@ -358,9 +359,9 @@ __device__ void grad_tc(const float* D, const __nv_bfloat16* W, int F, int H,
   tc_gemm<true>(At, ld, W, H, F, H, H, At + (size_t)F * ld, epi);
 }
 
-// The reverse walk of one example (block): gemm_rows for the recompute
-// products, grad_tc for the bf16 gradient products, bf16 records with bias
-// partials.
+// The reverse walk of one example (block): #5's walk_gemm and vecmat_tc
+// for the recompute products, grad_tc for the bf16 gradient products, bf16
+// records with bias partials.
 template <typename T>
 __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
   using RT = typename BArgs<T>::RT;
@@ -432,16 +433,16 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
 
   auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
 
-  // [F, H] @ [H, H] products: the recompute of a forward value (A(m, k) =
-  // A[m * H + k], B(k, n) = B[k * H + n]), bit for bit as #5 computed it;
-  // and a gradient product rd(D) @ W^T.
-  auto recompute = [&](const auto* A, const auto* Bm, auto epi) {
-    gemm_rows<T, false, false>(A, H, Bm, H, F, H, H, s.tc, epi);
+  // [F, H] @ [H, H] products: the recompute of a forward value (A bf16
+  // rows of a file or a record, B(k, n) = B[k * H + n]), bit for bit as #5
+  // computed it; and a gradient product rd(D) @ W^T.
+  auto recompute = [&](const RT* A, const T* Bm, auto epi) {
+    walk_gemm(A, Bm, F, H, H, reinterpret_cast<RT*>(s.tc), epi);
   };
   // the vec-level recompute ([1, H] @ [H, H] over up to three segments)
   auto vecmul = [&](const float* x0, const float* x1, const float* x2,
                     const T* W, auto epi) {
-    vecmat_rows(x0, x1, x2, W, H, H, epi);
+    vecmat_tc(x0, x1, x2, W, H, H, s.tc, epi);
   };
   auto grad = [&](const float* D, const T* W, auto epi) {
     grad_tc(D, W, F, H, s.tc, epi);
@@ -509,18 +510,27 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
     const T* sb2 = a.b2u + (size_t)e1 * H;
     if (e1 != 9) {
       RT* const X1 = Xq(1);
+      // store-only epilogues (the pre-activations), then batched passes
+      // for #5's rounding epilogues
       recompute(fa, sw1, [&](int m, int n, float acc) {
-        const float v = acc + to_f(sb1[n]);
-        hpre[(size_t)m * H + n] = v;
-        X1[(size_t)m * H + n] =
-            from_f<RT>(rd<T>(fmaxf(v, 0.f) * dr.keep(m, n, b, t, 0)));
+        hpre[(size_t)m * H + n] = acc + to_f(sb1[n]);
       });
+      pass<true>(FH, [&](size_t i) {
+        return rd<T>(fmaxf(hpre[i], 0.f) *
+                     dr.keep((int)(i / H), (int)(i % H), b, t, 0));
+      }, [&](size_t i, float v) { X1[i] = from_f<RT>(v); });
+      sync();
       recompute(X1, sw2, [&](int m, int n, float acc) {
-        const float v = acc + to_f(sb2[n]);
-        h2w[(size_t)m * H + n] = v;
-        feat[(size_t)m * H + n] =
-            rd<T>(is_filter ? fmaxf(v, 0.f) * dr.keep(m, n, b, t, 1) : v);
+        h2w[(size_t)m * H + n] = acc + to_f(sb2[n]);
       });
+      pass<true>(FH, [&](size_t i) {
+        const float v = h2w[i];
+        return rd<T>(is_filter ? fmaxf(v, 0.f) * dr.keep((int)(i / H),
+                                                         (int)(i % H), b, t,
+                                                         1)
+                               : v);
+      }, [&](size_t i, float v) { feat[i] = v; });
+      sync();
     }
 
     // ================= vec producers ===================================
@@ -1093,10 +1103,13 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       sync();
       // y2 into w2, ry = relu(y2) * mask into w1
       recompute(X2, a.w2t + (size_t)H * H, [&](int m, int n, float acc) {
-        const float y2 = acc + to_f(a.b2t[H + n]);
-        w2[(size_t)m * H + n] = y2;
-        w1[(size_t)m * H + n] = fmaxf(y2, 0.f) * dr.keep(m, n, b, t, 2);
+        w2[(size_t)m * H + n] = acc + to_f(a.b2t[H + n]);
       });
+      pass<true>(FH, [&](size_t i) {
+        return fmaxf(w2[i], 0.f) *
+               dr.keep((int)(i / H), (int)(i % H), b, t, 2);
+      }, [&](size_t i, float v) { w1[i] = v; });
+      sync();
       float* mgx = s.fv[9];
       float* mgxx = s.fv[10];
       for (int f = warp; f < F; f += NWARPS) {
@@ -1635,57 +1648,102 @@ extern "C" long stair_mega_exec_bwd_tc_smem(int F, int H) {
   return bwd_smem_floats(F, H) * (long)sizeof(float);
 }
 
-// The recompute products' check: block 0 runs gemm, block 1 gemm_rows, on
-// the same operands (A [M, K] in TA, float32 or bf16 as the walk's
-// recompute passes it, rounded to bf16 where ra; B bf16 [K, N]) and
-// epilogue (out[m * N + n] = acc), into out_gemm and out_rows. M <= 64,
-// K % 16 == 0, N % 8 == 0.
-template <typename TA>
+// The recompute products' check: block 0 runs each product as the
+// training forward #5 (mega_exec_tc_kernel<true>) calls it, block 1 as the
+// walk (mega_bwd_tc_kernel) recomputes it, on the same operands and
+// epilogue (the float32 sum stored as it is), into out_fwd and out_walk.
+//
+// Matrix (vec 0): A bf16 [M, K], B bf16 [K, N]; out [M, N] = A @ B: fwd_gemm
+// on A staged into a shared-memory tile, against walk_gemm on A's rows in
+// global memory. With chain, stage 1's pair instead: h = bf16(relu(A @ B)),
+// out = h @ B[:N, :N], the forward keeping h as a tile in shared memory, the
+// walk as bf16 rows in global memory (hbuf [M, N], as its X1 record).
+// M % 16 == 0, M <= 64, K % 64 == 0, N % 8 == 0; chained N % 64 == 0 and N
+// <= K.
+// Vec (vec 1): x float32 [M, K], M <= 3 segments, B bf16 [M K, N]; out [N]
+// = vecmat_tc over the segments (the forward's partials after its vectors,
+// the walk's in its product scratch); with chain h = rd(relu(rd(y))), out =
+// vecmat_tc(h, B[:N, :N]). N % 8 == 0; chained N <= K.
 __global__ void __launch_bounds__(THREADS)
-    recompute_check_kernel(const TA* A, const __nv_bfloat16* Bm, int M,
-                           int K, int N, int ra, float* out_gemm,
-                           float* out_rows) {
-  extern __shared__ __align__(16) float buf[];
+    recompute_check_kernel(const void* A, const __nv_bfloat16* Bm, int M,
+                           int K, int N, int vec, int chain,
+                           __nv_bfloat16* hbuf, float* out_fwd,
+                           float* out_walk) {
+  extern __shared__ __align__(16) unsigned char buf[];
   using bf16 = __nv_bfloat16;
-  float* out = blockIdx.x == 0 ? out_gemm : out_rows;
-  auto epi = [&](int m, int n, float acc) { out[(size_t)m * N + n] = acc; };
-  if (blockIdx.x == 0) {
-    if (ra)
-      gemm<bf16, true, false>(A, K, 1, Bm, N, 1, M, K, N, buf,
-                              buf + BK * (BM + 1), epi);
-    else
-      gemm<bf16, false, false>(A, K, 1, Bm, N, 1, M, K, N, buf,
-                               buf + BK * (BM + 1), epi);
+  const bool fwd = blockIdx.x == 0;
+  float* out = fwd ? out_fwd : out_walk;
+  auto store = [&](int m, int n, float acc) { out[(size_t)m * N + n] = acc; };
+  if (vec) {
+    float* x = reinterpret_cast<float*>(buf);
+    float* h = x + M * K;
+    float* part = fwd ? h + N : h + N + 4;   // at another offset in each
+    for (int i = threadIdx.x; i < M * K; i += THREADS)
+      x[i] = reinterpret_cast<const float*>(A)[i];
+    __syncthreads();
+    const float* xs[3] = {x, M > 1 ? x + K : nullptr,
+                          M > 2 ? x + 2 * K : nullptr};
+    auto out_vec = [&](int n, float y) { out[n] = y; };
+    if (!chain) {
+      vecmat_tc(xs[0], xs[1], xs[2], Bm, K, N, part, out_vec);
+      return;
+    }
+    vecmat_tc(xs[0], xs[1], xs[2], Bm, K, N, part, [&](int n, float y) {
+      h[n] = rd<bf16>(fmaxf(rd<bf16>(y), 0.f));
+    });
+    vecmat_tc(h, nullptr, nullptr, Bm, N, N, part, out_vec);
+    return;
+  }
+  const bf16* Ab = reinterpret_cast<const bf16*>(A);
+  bf16* t0 = reinterpret_cast<bf16*>(buf);
+  if (fwd) {
+    bf16* th = t0 + (size_t)M * (K + TC_PAD);
+    bf16* ring = th + (size_t)M * (N + TC_PAD);
+    load_tile(t0, K + TC_PAD, Ab, M, K);
+    if (!chain) {
+      fwd_gemm(t0, Bm, M, K, N, ring, store);
+      return;
+    }
+    fwd_gemm(t0, Bm, M, K, N, ring, [&](int m, int n, float acc) {
+      th[(size_t)m * (N + TC_PAD) + n] = from_f<bf16>(fmaxf(acc, 0.f));
+    });
+    fwd_gemm(th, Bm, M, N, N, ring, store);
   } else {
-    if (ra)
-      gemm_rows<bf16, true, false>(A, K, Bm, N, M, K, N, buf, epi);
-    else
-      gemm_rows<bf16, false, false>(A, K, Bm, N, M, K, N, buf, epi);
+    if (!chain) {
+      walk_gemm(Ab, Bm, M, K, N, t0, store);
+      return;
+    }
+    walk_gemm(Ab, Bm, M, K, N, t0, [&](int m, int n, float acc) {
+      hbuf[(size_t)m * N + n] = from_f<bf16>(rd<bf16>(fmaxf(acc, 0.f)));
+    });
+    walk_gemm(hbuf, Bm, M, N, N, t0, store);
   }
 }
 
-template <typename TA>
-int recompute_check(const void* A, const void* Bm, int M, int K, int N,
-                    int ra, void* out_gemm, void* out_rows, void* stream) {
-  const size_t smem = GR_FLOATS * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      recompute_check_kernel<TA>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  recompute_check_kernel<TA><<<2, THREADS, smem, (cudaStream_t)stream>>>(
-      (const TA*)A, (const __nv_bfloat16*)Bm, M, K, N, ra,
-      (float*)out_gemm, (float*)out_rows);
-  return (int)cudaGetLastError();
+// Dynamic shared memory of recompute_check_kernel in bytes.
+static size_t check_smem_bytes(int M, int K, int N, int vec) {
+  if (vec) return ((size_t)M * K + N + 4 + TC_PARTS) * sizeof(float);
+  return ((size_t)M * (K + TC_PAD) + (size_t)M * (N + TC_PAD) +
+          tc_ring<FWD_BN>()) * sizeof(__nv_bfloat16);
 }
 
-// a_bf16: A is bf16 (the walk's operands), else float32.
 extern "C" int stair_mega_recompute_check(const void* A, const void* Bm,
-                                          int M, int K, int N, int ra,
-                                          int a_bf16, void* out_gemm,
-                                          void* out_rows, void* stream) {
-  if (M > GR_BM || K % GR_BK || N % 8) return (int)cudaErrorInvalidValue;
-  return a_bf16 ? recompute_check<__nv_bfloat16>(A, Bm, M, K, N, ra,
-                                                 out_gemm, out_rows, stream)
-                : recompute_check<float>(A, Bm, M, K, N, ra, out_gemm,
-                                         out_rows, stream);
+                                          int M, int K, int N, int vec,
+                                          int chain, void* hbuf,
+                                          void* out_fwd, void* out_walk,
+                                          void* stream) {
+  const bool ok =
+      vec ? (M >= 1 && M <= 3 && N % 8 == 0 && (!chain || N <= K))
+          : (M % 16 == 0 && M >= 16 && M <= 64 && K % TC_BK == 0 &&
+             N % 8 == 0 && (!chain || (N % TC_BK == 0 && N <= K)));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const size_t smem = check_smem_bytes(M, K, N, vec);
+  cudaError_t e = cudaFuncSetAttribute(
+      recompute_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  recompute_check_kernel<<<2, THREADS, smem, (cudaStream_t)stream>>>(
+      A, (const __nv_bfloat16*)Bm, M, K, N, vec, chain,
+      (__nv_bfloat16*)hbuf, (float*)out_fwd, (float*)out_walk);
+  return (int)cudaGetLastError();
 }

@@ -15,14 +15,16 @@ rounding to the compute dtype at the same sites (``lin_dt`` and friends).
 ``mega_exec_call`` is the kernel wrapper: plain version for CPU tensors,
 the CUDA kernel for CUDA tensors, or an error; ``mega_exec`` packs and
 calls it, as the JAX function does. ``fwd_route`` picks the kernel before
-the launch: the tensor-core route (``mega_exec_tc_kernel``, launch key
-``mega_exec_tc``) for the bf16 eval forward at the shapes it takes, the
-general route (``mega_exec_kernel``: ``mega_exec``, ``mega_exec_train``)
-for everything else, the training forward included.
+the launch: the tensor-core route (``mega_exec_tc_kernel``, launch keys
+``mega_exec_tc`` for eval and ``mega_exec_train_tc`` for training) for
+bf16 at the shapes it takes, the general route (``mega_exec_kernel``:
+``mega_exec``, ``mega_exec_train``) for float32 and every other width.
 
 Training: ``mega_exec_train_call`` is the forward with the counter-hash
 dropout ``hash_keep`` at the JAX kernel's eight sites (TPU kernel #5); the
-backward and the autograd Function are in ``ops/mega_grad.py``.
+backward and the autograd Function are in ``ops/mega_grad.py``, whose
+``bwd_route`` follows this forward's route, so that each backward walk
+recomputes its own route's forward bit for bit.
 """
 
 from __future__ import annotations
@@ -570,7 +572,11 @@ def mega_exec_call(meta, args):
 def mega_exec_train_call(meta, args, rate, seed):
     """Training forward (TPU kernel #5): ``mega_exec_call`` with
     ``hash_keep`` dropout at ``rate`` keyed on ``seed`` (two int32 values).
-    Plain version for CPU tensors, the kernel for CUDA tensors."""
+    Plain version for CPU tensors; for CUDA tensors the kernel on the route
+    ``fwd_route(dt, H, F, True)`` picks (``mega_exec_tc_kernel<true>``,
+    launch key ``mega_exec_train_tc``, or ``mega_exec_kernel``,
+    ``mega_exec_train``). Hand the backward this call's register files:
+    its walk on the same route recomputes them bit for bit."""
     if _build.on_cpu("mega_exec_train", args[0]):
         return mega_exec_reference(meta, args, rate=rate, seed=seed)
     return _launch("mega_exec_train", meta, args, dropout_params(rate, seed))
@@ -593,25 +599,26 @@ def tc_shape(H, F) -> bool:
 
 def fwd_route(dtype, H, F, drop) -> str:
     """The forward's kernel route, chosen before any launch: ``"tc"``
-    (``mega_exec_tc_kernel``, launch key ``mega_exec_tc``: the bf16 eval
-    forward, no dropout, at the widths ``tc_shape`` takes) or
-    ``"general"`` (``mega_exec_kernel``: float32, every other width, and
-    the training forward, ``drop`` true, whose values the backward
-    recomputes bit for bit)."""
-    if dtype == torch.bfloat16 and not drop and tc_shape(H, F):
+    (``mega_exec_tc_kernel``: bf16 at the widths ``tc_shape`` takes; eval,
+    launch key ``mega_exec_tc``, or the training forward with dropout,
+    ``drop`` true, ``mega_exec_train_tc``) or ``"general"``
+    (``mega_exec_kernel``: float32 and every other width; ``mega_exec``,
+    ``mega_exec_train``). The training forward's route is also the
+    backward's (``mega_grad.bwd_route``): each route's walk recomputes its
+    own forward's values bit for bit."""
+    if dtype == torch.bfloat16 and tc_shape(H, F):
         return "tc"
     return "general"
 
 
 def tc_smem_bytes(F, H, L) -> int:
-    """Dynamic shared memory of ``mega_exec_tc_kernel`` per block, as
-    ``csrc/mega_exec.cu tc_smem_bytes`` computes it: two ``[F, H + 8]``
-    bf16 tiles, the weight ring, six float vectors of
+    """Dynamic shared memory of ``mega_exec_tc_kernel`` per block (eval and
+    training alike), as ``csrc/mega_exec.cu tc_smem_bytes`` computes it:
+    two ``[F, H + 8]`` bf16 tiles, the weight ring, six float vectors of
     ``max(H, L)``, the vec products' partials, six ``[F]`` vectors."""
     t = _TILES
     V = (max(H, L) + 3) & ~3
-    bn = _build.header_ints("mega_exec.cu")["FWD_BN"]
-    stage = bn * (t["TC_BK"] + t["TC_PAD"])
+    stage = t["FWD_BN"] * (t["TC_BK"] + t["TC_PAD"])
     return (2 * F * (H + t["TC_PAD"]) * 2 + t["TC_STAGES"] * stage * 2
             + (6 * V + t["THREADS"] * 8 + 6 * F + t["THREADS"] // 32) * 4)
 
@@ -625,16 +632,21 @@ def _launch(key, meta, args, drop):
     if B == 0:
         return rv, rf, ra
     lib = _build.build()
-    if fwd_route(dt, H, F, key == "mega_exec_train") == "tc":
+    train = key == "mega_exec_train"
+    if fwd_route(dt, H, F, train) == "tc":
         # float32 [F, H] workspace: SUPF's keyword rows, TEMPORAL's pre-LN
         # rows (the hidden and feat tiles stay in shared memory)
         ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
-        key = "mega_exec_tc"
-        err = lib.stair_mega_exec_fwd_tc(
-            _build.pointers(args), len(args),
-            rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
-            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)),
-            _build.stream_ptr(dev))
+        common = (_build.pointers(args), len(args),
+                  rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
+                  B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)))
+        if train:
+            key = "mega_exec_train_tc"
+            err = lib.stair_mega_exec_fwd_tc_train(
+                *common, *drop, _build.stream_ptr(dev))
+        else:
+            key = "mega_exec_tc"
+            err = lib.stair_mega_exec_fwd_tc(*common, _build.stream_ptr(dev))
     else:
         # Per-example float32 workspace: stage-1 hidden / GEMM operand
         # tile, the feat tile (persists across steps), and the temporal

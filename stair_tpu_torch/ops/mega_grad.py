@@ -17,9 +17,12 @@ the reverse walk, then the weight gradient reduction, on the route
 (``csrc/mega_grad_tc.cu``, launch keys ``mega_exec_bwd_tc``,
 ``mega_exec_wgrad_tc``) for bf16 at the widths it takes, the general route
 (``csrc/mega_grad.cu``, ``mega_exec_bwd``, ``mega_exec_wgrad``)
-otherwise. Cotangents enter cast to
-the compute dtype; weight gradients leave in float32 and the Function casts
-them to each argument's dtype.
+otherwise. ``bwd_route`` is the training forward's route
+(``mega_exec.fwd_route``): each walk recomputes the forward values it needs
+(relu masks, bf16 roundings) with its own forward's product code, bit for
+bit, so it is handed the register files of the forward on its route.
+Cotangents enter cast to the compute dtype; weight gradients leave in
+float32 and the Function casts them to each argument's dtype.
 """
 
 from __future__ import annotations
@@ -68,15 +71,16 @@ def workspace_floats(Nv, Nf, Na, F, H, L, T, tc=False):
 
 
 def bwd_route(dtype, H, F) -> str:
-    """The backward's kernel route, chosen before any launch: ``"tc"``
-    (``mega_bwd_tc_kernel`` + ``mega_wgrad_tc_kernel``: bf16 at the widths
-    ``mega_exec.tc_shape`` takes; the recompute on ``gemm_rows``, bit for
-    bit #5's, the bf16 gradient and weight products on the tensor cores) or
-    ``"general"`` (``mega_bwd_kernel`` + ``mega_wgrad_kernel``: float32,
-    the exact route, and every other width)."""
-    if dtype == torch.bfloat16 and TX.tc_shape(H, F):
-        return "tc"
-    return "general"
+    """The backward's kernel route, chosen before any launch: the training
+    forward's (``mega_exec.fwd_route(dtype, H, F, True)``), so that the two
+    cannot drift apart. ``"tc"`` (``mega_bwd_tc_kernel`` +
+    ``mega_wgrad_tc_kernel``: bf16 at the widths ``mega_exec.tc_shape``
+    takes; the recompute on #5's tensor-core product code, bit for bit
+    ``mega_exec_tc_kernel<true>``'s, the bf16 gradient and weight products
+    on the tensor cores) or ``"general"`` (``mega_bwd_kernel`` +
+    ``mega_wgrad_kernel``: float32, the exact route, and every other width;
+    the recompute on ``mega_exec_kernel``'s ``gemm`` and ``vecmat``)."""
+    return TX.fwd_route(dtype, H, F, True)
 
 
 def bwd_smem_bytes(F, H, tc) -> int:
@@ -85,8 +89,8 @@ def bwd_smem_bytes(F, H, tc) -> int:
     bwd_smem_floats`` (tensor-core route) computes it: NHV ``[H]`` and NFV
     + 5 ``[F]`` float vectors (at TC_MAX_H and TC_MAX_F on the tensor-core
     route), gemm's tiles; on the tensor-core route, 16-byte aligned, the
-    larger of gemm_rows' double buffer and the bf16 ``[F, H + 8]``
-    cotangent tile with tc_gemm's ring."""
+    larger of the bf16 ``[F, H + 8]`` operand tile with tc_gemm's ring and
+    vecmat_tc's partials (``THREADS * 8`` floats)."""
     t = TX._TILES
     g = _build.header_ints("mega_grad_tc.cu" if tc else "mega_grad.cu")
     SH, SF = (TX.TC_MAX_H, TX.TC_MAX_F) if tc else (H, F)
@@ -95,10 +99,8 @@ def bwd_smem_bytes(F, H, tc) -> int:
     if tc:
         n = (n + 3) & ~3
         stage = t["TC_BN"] * (t["TC_BK"] + t["TC_PAD"])
-        gr_bn = t["THREADS"] // (t["GR_BM"] // t["GR_TM"]) * t["GR_TN"]
-        rows = 2 * (t["GR_BM"] * (t["GR_BK"] + t["GR_PAD"])
-                    + t["GR_BK"] * gr_bn)
-        n += max((F * (H + t["TC_PAD"]) + t["TC_STAGES"] * stage) // 2, rows)
+        n += max((F * (H + t["TC_PAD"]) + t["TC_STAGES"] * stage) // 2,
+                 t["THREADS"] * 8)
     return 4 * n
 
 
@@ -143,29 +145,41 @@ def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None):
                        TX.dropout_params(rate, seed))
 
 
-def recompute_check(A, Bm, ra):
-    """The card check of the tensor-core walk's recompute products: runs
-    ``gemm`` (the training forward's product) and ``gemm_rows`` (the walk's)
-    on the same operands and epilogue (``out[m, n] = acc``): A ``[M, K]``
-    in bf16 (as the walk passes it) or float32, rounded to bf16 as it is
-    loaded where ``ra``; B bf16 ``[K, N]``; both on the card, M <= 64, K %
-    16 == 0, N % 8 == 0. Returns the two float32 ``[M, N]`` results, which
-    must be equal bit for bit."""
+def recompute_check(A, Bm, vec=False, chain=False):
+    """The card check of the tensor-core pair: runs each product as the
+    training forward #5 (``mega_exec_tc_kernel<true>``) calls it and as
+    the backward's walk (``mega_bwd_tc_kernel``) recomputes it, on the same
+    operands and epilogue (the float32 sum stored as it is). Returns the
+    two float32 results (forward's, walk's), which must be equal bit for
+    bit.
+
+    Matrix product (``vec`` false): A bf16 ``[M, K]`` (the walk's operands
+    are bf16 rows of a file or a record), B bf16 ``[K, N]``; ``fwd_gemm``
+    (A in a shared-memory tile, 128-column chunks) against ``walk_gemm``
+    (64-column chunks); M a multiple of 16 up to 64, K of 64, N of 8.
+    Vec-level product (``vec``): A float32 ``[S, K]``, S <= 3 segments, B
+    bf16 ``[S K, N]``; ``vecmat_tc`` as each kernel calls it. With
+    ``chain``, stage 1's two products in a row: ``h = bf16(relu(A @ B))``
+    kept as each kernel keeps it (the forward in shared memory, the walk
+    as bf16 rows in global memory), then ``h @ B[:N, :N]`` (N <= K; for
+    the matrix product N a multiple of 64)."""
     dev = A.device
     M, K = A.shape
     N = Bm.shape[1]
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"recompute_check A: {A.dtype} (float32 or bf16)")
-    _build.check_tensor("recompute_check A", A, A.dtype, (M, K), dev)
-    _build.check_tensor("recompute_check B", Bm, torch.bfloat16, (K, N), dev)
-    old = torch.empty(M, N, dtype=torch.float32, device=dev)
-    new = torch.empty_like(old)
+    _build.check_tensor("recompute_check A", A,
+                        torch.float32 if vec else torch.bfloat16, (M, K), dev)
+    _build.check_tensor("recompute_check B", Bm, torch.bfloat16,
+                        (M * K if vec else K, N), dev)
+    out = torch.empty(*(() if vec else (M,)), N, dtype=torch.float32,
+                      device=dev)
+    walk = torch.empty_like(out)
+    hbuf = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
     err = _build.build().stair_mega_recompute_check(
-        A.data_ptr(), Bm.data_ptr(), M, K, N, int(bool(ra)),
-        int(A.dtype == torch.bfloat16), old.data_ptr(), new.data_ptr(),
+        A.data_ptr(), Bm.data_ptr(), M, K, N, int(bool(vec)),
+        int(bool(chain)), hbuf.data_ptr(), out.data_ptr(), walk.data_ptr(),
         _build.stream_ptr(dev))
     _build.check(err, "mega_recompute_check")
-    return old, new
+    return out, walk
 
 
 def _launch_bwd(meta, args, outs, gouts, drop):

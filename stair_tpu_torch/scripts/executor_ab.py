@@ -16,11 +16,15 @@ turn). It prints one JSON line per round, on the main paths' own inputs
 (weights from seed 0):
 
 - ``fwd_ms``: #4, ``mega_exec_call`` on a serving batch of 1024 (H 512,
-  F 64, bf16, the 128-program pool), and ``fwd_general_ms`` on the
-  general route where the checkout has ``mega_exec.fwd_route``;
+  F 64, bf16, the 128-program pool), ``fwd_general_ms`` on the general
+  route where the checkout has ``mega_exec.fwd_route``, and
+  ``fwd_digest``: a SHA-256 of #4's three register files, which two
+  checkouts with the same #4 print alike;
 - ``train_fwd_ms``: #5, ``mega_exec_train_call`` at the train step's B
-  128 (dropout 0.25), and ``train_digest``: a SHA-256 of #5's three
-  register files, which two checkouts with the same #5 print alike;
+  128 (dropout 0.25), ``train_fwd_general_ms`` on the general route where
+  the checkout has ``mega_exec.fwd_route``, and ``train_digest`` /
+  ``train_f32_digest``: the same hash of #5's files in bf16 (the route the
+  checkout picks) and in float32 (the general route in every checkout);
 - ``bwd_ms``: #6, one ``mega_exec_bwd_call`` (its two launches and the
   wrapper's allocations), and ``walk_ms`` / ``wgrad_ms``: the device time
   of its walk and weight-gradient kernels (``torch.profiler``), with
@@ -170,21 +174,25 @@ def one(root, tag, phases):
     def fwd():
         return TX.mega_exec_call(meta, args)
 
+    def train_fwd():
+        return TX.mega_exec_train_call(tmeta, targs, tcfg.dropout, seed)
+
     def bwd():
         return TG.mega_exec_bwd_call(tmeta, targs, tout, cots, tcfg.dropout,
                                      seed)
 
     for rnd in range(2):
         row = {"tag": tag, "card": card, "round": rnd,
-               "fwd_ms": cuda_time_ms(fwd, iters=5)}
+               "fwd_ms": cuda_time_ms(fwd, iters=5),
+               "fwd_digest": digest(fwd()),
+               "train_fwd_ms": cuda_time_ms(train_fwd, iters=5),
+               "train_digest": digest(train_fwd())}
         if hasattr(TX, "fwd_route"):
             with forced(TX, "fwd_route", "general"):
                 row["fwd_general_ms"] = cuda_time_ms(fwd, iters=3)
-        row["train_fwd_ms"] = cuda_time_ms(
-            lambda: TX.mega_exec_train_call(tmeta, targs, tcfg.dropout, seed),
-            iters=5)
-        row["train_digest"] = digest(
-            TX.mega_exec_train_call(tmeta, targs, tcfg.dropout, seed))
+                row["train_fwd_general_ms"] = cuda_time_ms(train_fwd, iters=3)
+        row["train_f32_digest"] = digest(TX.mega_exec_train_call(
+            f32[0], f32[1], tcfg.dropout, seed))
         row["bwd_ms"] = cuda_time_ms(bwd, iters=5)
         parts = kernel_ms(bwd, ("mega_bwd", "mega_wgrad"))
         row["walk_ms"] = parts["mega_bwd"]

@@ -203,14 +203,14 @@ def test_mega_exec_kernel_vs_plain_on_card(cuda_device, dtype, F, fsoft):
                                    atol=tol[1], msg=name)
 
 
-# The eval forward's route, chosen before any launch: the tensor-core
-# kernel takes bf16 without dropout at H a multiple of 64 in [64, 512] and
-# F a multiple of 16 in [16, 64] (the main path's H 512, F 64); float32,
-# the training forward (drop) and every other width take the general
-# kernel.
+# The forward's route, chosen before any launch: the tensor-core kernel
+# takes bf16, eval and training (drop) alike, at H a multiple of 64 in [64,
+# 512] and F a multiple of 16 in [16, 64] (the main paths' H 512, F 64);
+# float32 and every other width take the general kernel.
 FWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 64, False, "tc"),
-    (torch.bfloat16, 512, 64, True, "general"),
+    (torch.bfloat16, 512, 64, True, "tc"),
+    (torch.bfloat16, 192, 48, True, "tc"),
     (torch.float32, 512, 64, False, "general"),
     (torch.bfloat16, 64, 16, False, "tc"),
     (torch.bfloat16, 192, 48, False, "tc"),
@@ -241,6 +241,82 @@ def test_mega_exec_tc_shared_memory_fits(L):
             assert TX.tc_smem_bytes(F, H, L) <= TX.SMEM_MAX, (F, H, L)
     if L == 16:
         assert TX.tc_smem_bytes(64, 512, 16) == 210464
+
+
+def test_mega_exec_tc_train_shares_the_shared_memory_plan():
+    """Both instantiations of the tensor-core kernel (eval, training) are
+    launched by the one ``launch_tc<TRAIN>``, which sizes their shared
+    memory with ``tc_smem_bytes`` (the function ``TX.tc_smem_bytes``
+    mirrors and the card tests compare), and each C entry point takes one
+    of them."""
+    import os
+    import re
+
+    from stair_tpu_torch.ops import _build
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_exec.cu")) as f:
+        src = f.read()
+    launch = src[src.index("template <bool TRAIN>\nint launch_tc("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "const size_t smem = tc_smem_bytes(F, H, L);" in launch
+    assert "mega_exec_tc_kernel<TRAIN><<<B, THREADS, smem, stream>>>" in launch
+    entries = dict(re.findall(
+        r'extern "C" int (stair_mega_exec_fwd_tc\w*)\(.*?launch_tc<(\w+)>',
+        src, re.S))
+    assert entries == {"stair_mega_exec_fwd_tc": "false",
+                       "stair_mega_exec_fwd_tc_train": "true"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc", "general"])
+@pytest.mark.parametrize("F,fsoft", [(16, False), (16, True), (48, False),
+                                     (48, True)])
+def test_mega_exec_train_bf16_routes_vs_plain_on_card(cuda_device,
+                                                      monkeypatch, route, F,
+                                                      fsoft):
+    """Both bf16 training forwards (#5) against the plain version at
+    dropout 0.25 over every opcode at H = 192 (ragged 128-column chunks and
+    k splits in the tensor-core kernel), atol 3e-2 plus rtol 1e-2 (as the
+    eval routes below); one launch of the route's key and none of the
+    other's; the training instantiation's shared memory is what
+    ``tc_smem_bytes`` says."""
+    from stair_tpu_torch.ops import _build
+
+    if route == "general":
+        monkeypatch.setattr(TX, "fwd_route", lambda *a: "general")
+    cfg = NMNConfig(
+        hidden_size=192, video_size=24, text_size=20, answer_vocab_length=7,
+        max_video_length=F, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8,
+        filter_attention="softmax" if fsoft else "parity",
+        compute_dtype="bfloat16")
+    model = TW.build_model(cfg, seed=1, device=cuda_device)
+    batch = TW.to_device(TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS * 2, seed=8),
+                         cuda_device)
+    rng = np.random.RandomState(F)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.from_numpy(rng.randn(B, n, 96).astype(np.float32))
+              .to(cuda_device, torch.bfloat16) for n in (F, F, L, L)]
+    mods = tree_map(lambda x: x.detach().to(torch.bfloat16),
+                    model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, model._fused_tables(mods), batch["trace"],
+        (halves[0], halves[1]), batch["video_mask"],
+        (halves[2], halves[3]), batch["question_mask"])
+    seed = (123, 456)
+    _build.reset_launches()
+    out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    torch.cuda.synchronize()
+    key, other = (("mega_exec_train_tc", "mega_exec_train") if route == "tc"
+                  else ("mega_exec_train", "mega_exec_train_tc"))
+    assert _build.LAUNCHES[key] == 1 and _build.LAUNCHES[other] == 0
+    ref = TX.mega_exec_reference(meta, args, rate=0.25, seed=seed)
+    for name, a, b in zip(("rv", "rf", "ra"), out, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=3e-2, msg=name)
+    assert (_build.build().stair_mega_exec_tc_smem(F, 192, L)
+            == TX.tc_smem_bytes(F, 192, L))
 
 
 @pytest.mark.cuda

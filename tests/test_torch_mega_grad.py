@@ -28,6 +28,7 @@ from stair_tpu_torch.ops import _build
 from stair_tpu_torch.ops import mega_exec as TX
 from stair_tpu_torch.ops import mega_grad as TG
 from stair_tpu_torch.testing import workload as TW
+from test_torch_mega_exec import FWD_ROUTE_CASES
 from torch_port_util import cuda_device, port_model  # noqa: F401
 
 try:
@@ -379,14 +380,38 @@ def test_mega_bwd_route_choice(dtype, H, F, route):
     assert TG.bwd_route(dtype, H, F) == route
 
 
+#: the widths of the forward's route cases
+FWD_WIDTHS = sorted({(h, f) for _, h, f, _, _ in FWD_ROUTE_CASES})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,F", FWD_WIDTHS,
+                         ids=[f"H{h}-F{f}" for h, f in FWD_WIDTHS])
+def test_mega_bwd_route_follows_fwd_route(dtype, H, F):
+    """The backward takes the training forward's route at every width, so
+    that each walk is handed (and recomputes) its own route's forward."""
+    assert TG.bwd_route(dtype, H, F) == TX.fwd_route(dtype, H, F, True)
+
+
 def test_mega_bwd_tc_shared_memory_fits():
-    """The walk's shared memory on the tensor-core route (its vectors, the
-    bf16 cotangent tile and tc_gemm's ring, or gemm_rows' buffers) fits one
-    block's 227 KB at every width the route takes; the general route's is
+    """The walk's shared memory on the tensor-core route (its vectors, then
+    the bf16 operand tile with tc_gemm's ring or vecmat_tc's partials,
+    whichever is larger) fits one block's 227 KB at every width the route
+    takes, and holds the partials at the smallest; the general route's is
     unchanged (37,216 bytes at F 64, H 512)."""
     for H in range(64, TX.TC_MAX_H + 1, 64):
         for F in range(16, TX.TC_MAX_F + 1, 16):
             assert TG.bwd_smem_bytes(F, H, True) <= TX.SMEM_MAX, (F, H)
+    t = TX._TILES
+    g = _build.header_ints("mega_grad_tc.cu")
+    vectors = 4 * ((g["NHV"] * TX.TC_MAX_H + (g["NFV"] + 5) * TX.TC_MAX_F
+                    + t["BK"] * (t["BM"] + 1) + t["BK"] * t["BN"]
+                    + t["THREADS"] // 32 + 3) & ~3)
+    for H in range(64, TX.TC_MAX_H + 1, 64):
+        for F in range(16, TX.TC_MAX_F + 1, 16):
+            scratch = TG.bwd_smem_bytes(F, H, True) - vectors
+            assert scratch >= 2 * F * (H + t["TC_PAD"]), (F, H)
+            assert scratch >= 4 * t["THREADS"] * 8, (F, H)
     assert TG.bwd_smem_bytes(64, 512, False) == 37216
     assert TG.bwd_smem_bytes(64, 512, True) == 131424
 
@@ -442,10 +467,13 @@ def test_mega_bwd_bf16_routes_vs_plain_on_card(cuda_device, monkeypatch,
                                                route, F, attention):
     """Both bf16 backward routes against the plain backward over every
     opcode at dropout 0.25, at the widths of the bf16 check above (H 64),
-    within 1e-1 of each gradient's scale; two runs give identical bits; one
-    launch of each of the route's two keys and none of the other route's."""
+    within 1e-1 of each gradient's scale, each handed its own route's
+    training forward (the general route's forward and backward both sent
+    there: ``bwd_route`` follows ``fwd_route``); two runs give identical
+    bits; one launch of each of the route's two keys and none of the other
+    route's."""
     if route == "general":
-        monkeypatch.setattr(TG, "bwd_route", lambda *a: "general")
+        monkeypatch.setattr(TX, "fwd_route", lambda *a: "general")
     seed = (123, 456)
     meta, args, out, cots = _bwd_case(cuda_device, 64, F, attention, 1)
     _build.reset_launches()
@@ -476,19 +504,22 @@ def test_mega_bwd_tc_route_equals_general_route_on_card(cuda_device,
                                                         monkeypatch,
                                                         attention):
     """The tensor-core backward against the general one at H 192 (ragged
-    128-column chunks) and F 64 over the all-opcode programs twice: the two
-    share every recomputed value bit for bit (so every relu mask and
-    rounding site of the forward) and differ only in the order of the
-    products' sums, so every gradient agrees within 1e-2 of its scale. (At
-    these widths both routes differ from the plain version's supb by
-    ~0.18 of its scale: the JAX kernel's SUPF backward recomputes the
-    cosine scores unrounded where the forward rounds them,
-    stair_tpu/ops/mega_grad.py:710-713, and the port's kernels keep that.)"""
+    128-column chunks) and F 64 over the all-opcode programs twice, each
+    route handed its own route's training forward (the walk recomputes its
+    own forward's values bit for bit, so every relu mask and rounding site
+    it uses is that forward's): the two forwards differ only in the order
+    of their products' sums, and so do the backwards, so every gradient
+    agrees within 1e-2 of its scale. (At these widths both routes differ
+    from the plain version's supb by ~0.18 of its scale: the JAX kernel's
+    SUPF backward recomputes the cosine scores unrounded where the forward
+    rounds them, stair_tpu/ops/mega_grad.py:710-713, and the port's kernels
+    keep that.)"""
     seed = (123, 456)
     meta, args, out, cots = _bwd_case(cuda_device, 192, 64, attention, 2)
     tc = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
-    monkeypatch.setattr(TG, "bwd_route", lambda *a: "general")
-    gen = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    monkeypatch.setattr(TX, "fwd_route", lambda *a: "general")
+    out_gen = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    gen = TG.mega_exec_bwd_call(meta, args, out_gen, cots, 0.25, seed)
     torch.cuda.synchronize()
     grads = dict(zip(GRAD_NAMES, gen))
     for name, a, g in zip(GRAD_NAMES, tc, gen):
@@ -503,27 +534,53 @@ def test_mega_bwd_tc_route_equals_general_route_on_card(cuda_device,
             name
 
 
+#: the walk's product shapes (M, K, N): [F, H] @ [H, H] at F 64 and 16,
+#: ragged 128-column chunks at H 192, and [F, H] @ [H, F]; the vec-level
+#: product takes the same K and N over ``VEC_SEGMENTS`` segments
+RECOMPUTE_SHAPES = [(64, 512, 512), (16, 512, 512), (48, 192, 192),
+                    (64, 512, 64)]
+VEC_SEGMENTS = {(64, 512, 512): 3, (16, 512, 512): 1, (48, 192, 192): 2,
+                (64, 512, 64): 3}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("ra", [False, True])
-@pytest.mark.parametrize("M,K,N", [(64, 512, 512), (16, 512, 512),
-                                   (48, 192, 192), (64, 512, 64)])
-def test_recompute_rows_equal_gemm_on_card(cuda_device, ra, M, K, N,
-                                           a_dtype):
-    """The tensor-core walk's recompute helper (gemm_rows) gives gemm's bits
-    (the training forward's products) on the same operands, at the walk's
-    shapes (F x H @ H x H, and F x H @ H x F), with A rounded to bf16 as it
-    is loaded (ra) or not: A in bf16, as every recompute of the walk passes
-    it (8 values a 16-byte load), and in float32 that is not exact in bf16,
-    so that ``ra`` changes the result (4 values a load)."""
+@pytest.mark.parametrize("product", ["matrix", "vec"])
+@pytest.mark.parametrize("chain", [False, True])
+@pytest.mark.parametrize("M,K,N", RECOMPUTE_SHAPES)
+def test_recompute_products_equal_forward_on_card(cuda_device, M, K, N,
+                                                  chain, product):
+    """The tensor-core walk's recompute products give the bits of the
+    training forward's own calls on the same operands (``recompute_check``):
+    the matrix product (``walk_gemm``, 64-column chunks, A's bf16 rows from
+    global memory, against ``fwd_gemm``, 128-column chunks, A in a
+    shared-memory tile) and the vec-level product (``vecmat_tc``, partials
+    at each kernel's place), alone and as stage 1's chained pair (the
+    hidden rounded to bf16, kept in shared memory by the forward and in
+    global memory by the walk). Both are the float32 sums of the bf16
+    products within 1e-3; the walk's shared memory is what
+    ``bwd_smem_bytes`` says."""
+    vec = product == "vec"
     gen = torch.Generator().manual_seed(M + K + N)
-    A = torch.randn(M, K, generator=gen).to(cuda_device, a_dtype)
-    Bm = (torch.randn(K, N, generator=gen) / K ** 0.5).to(
+    S = VEC_SEGMENTS[(M, K, N)]
+    A = torch.randn(S if vec else M, K, generator=gen).to(
         cuda_device, torch.bfloat16)
-    old, new = TG.recompute_check(A, Bm, ra)
+    if vec:     # the executor's vectors: float32 holding bf16 values
+        A = A.float()
+    Bm = (torch.randn(S * K if vec else K, N, generator=gen) / K ** 0.5).to(
+        cuda_device, torch.bfloat16)
+    fwd, walk = TG.recompute_check(A, Bm, vec, chain)
     torch.cuda.synchronize()
-    assert torch.equal(old, new)
-    want = (A.to(torch.bfloat16) if ra else A).double() @ Bm.double()
-    assert float((old.double() - want).abs().max()) < 1e-3
+    assert torch.equal(fwd, walk)
+    Bd = Bm.double()
+    if vec:
+        want = sum(A[s].double() @ Bd[s * K:(s + 1) * K] for s in range(S))
+    else:
+        want = A.double() @ Bd
+    if chain:
+        h = want.float().clamp_min(0).to(torch.bfloat16).double()
+        want = h @ Bd[:N, :N]
+    assert float((fwd.double() - want).abs().max()) < 1e-3 * max(
+        float(want.abs().max()), 1.0)
+    # the walk's shared memory at (F, H) = (M, K), as bwd_smem_bytes says
     assert (_build.build().stair_mega_exec_bwd_tc_smem(M, K)
             == TG.bwd_smem_bytes(M, K, True))
