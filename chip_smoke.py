@@ -116,22 +116,31 @@ Phases (any failure raises, and the script exits non-zero):
    the three register files at the training shapes (B = 128: vec
    ``[128, 25, 512]``, frames ``[128, 9, 64, 512]``, attn ``[128, 11, 64]``),
    float32 and bf16, random slots including the scratch slot: equal bits,
-   and every other slot equal to what it was;
+   and every other slot equal to what it was; ``slot_add_many`` on the
+   seven adds of a ``"rev"`` step (repeated slots: vb = va, fb = fa, ab =
+   aa on some examples) in one launch: equal bits to the seven plain adds
+   and to seven ``slot_add`` launches in turn; its time beside the seven
+   launches', seven ``index_put_(accumulate=True)`` and the bound;
 15. the fused executor-step kernel vs its plain version at every step of
    the all-opcode programs at H = 512 (F = 16 linear and F = 64 conv
-   temporal), float32 within 1e-4 and bf16 within atol 3e-2 + rtol 1e-2:
-   every output and the whole frames file;
+   temporal), float32 on the general route within 1e-4 and bf16 on both
+   routes (the tensor-core kernel, which ``step_route`` picks, and the
+   general one) within atol 3e-2 + rtol 1e-2: every output and the whole
+   frames file, ``T`` launches of the route's key;
 16. the serving path at full width on the scan executor (phase 5's
    configuration and batches through ``VideoNMN(executor="step")``): per
-   batch ``T`` launches of the step kernel, 2 of the BiLSTM kernel and
-   none of the megakernel; logits and the three register files against the
-   megakernel route on one batch (an example whose Choose step saw two
-   cosines tie within bf16 rounding, and kept another keyword on each
-   route, is held to that tie and left out of the file comparison); q/s
-   and device ms per batch beside that route's;
+   batch ``T`` launches of the tensor-core step kernel, none of the
+   general one, 2 of the BiLSTM kernel and none of the megakernel; logits
+   and the three register files against the megakernel route on one batch
+   (an example whose Choose step saw two cosines tie within bf16 rounding,
+   and kept another keyword on each route, is held to that tie and left
+   out of the file comparison); q/s and device ms per batch beside that
+   route's; the 13 launches of the batch on both routes against the plain
+   version, with their times and bound;
 17. the train step on the reversible executor (phase 8's configuration with
    ``executor="rev"``): per step ``4 T`` slot sets, ``8 T`` slot zeros and
-   ``7 T`` slot adds, the BiLSTM training kernels as in phase 8 and no
+   ``T`` launches of ``slot_add_many`` (the seven adds of a step; no
+   ``slot_add``), the BiLSTM training kernels as in phase 8 and no
    megakernel; a finite, falling loss over 10 steps; one step's loss and
    every gradient leaf in float32 against ``executor="step"`` under the
    same seed; ms per step beside phase 8's.
@@ -141,7 +150,10 @@ read just after. The last two lines are ``{"kernels": [...]}`` (per
 kernel: launches on its main path, error against the plain version on the
 main path's inputs, its time, the plain version's, the bound the card's
 peaks allow for this run's inputs, and a library call's time where one
-computes the same function) and ``{"ok": true, "device": {...}}``. Every
+computes the same function) and ``{"ok": true, "device": {...}}``. The
+step kernel's general route (``executor_step``) counts the launches of its
+own path, phase 15's float32 forward at F = 64; ``slot_add`` shows 0, as
+the ``"rev"`` path now makes its adds through ``slot_add_many``. Every
 time printed is measured in this run, on the card named above it.
 """
 
@@ -322,7 +334,8 @@ def plain_route():
              (TE, "fused_step", TE.fused_step_reference),
              (TR, "slot_set", TR.slot_set_reference),
              (TR, "slot_zero", TR.slot_zero_reference),
-             (TR, "slot_add", TR.slot_add_reference)]
+             (TR, "slot_add", TR.slot_add_reference),
+             (TR, "slot_add_many", TR.slot_add_many_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -2072,6 +2085,47 @@ SLOT_CALLS = {"slot_set": ("rv", "rf", "ra", "ra"),
               "slot_add": ("rv", "rv", "rv", "rf", "rf", "ra", "ra")}
 
 
+def step_adds(dev, dtype, gen):
+    """The three register files at the training shapes, and the seven adds
+    of one step of the reversible executor on them (``SLOT_CALLS``'s
+    files), each with its own slot index per example: vb == va on half the
+    examples, vc == va on a quarter, fb == fa and ab == aa on half, as an
+    instruction that reads one register twice makes them."""
+    files = {n: f for n, (f, _, _) in slot_files(dev, dtype, gen).items()}
+    entries = []
+    for n in SLOT_CALLS["slot_add"]:
+        f = files[n]
+        idx = torch.randint(0, f.shape[1], (f.shape[0],), generator=gen).to(
+            dev, torch.int32)
+        val = torch.randn(f.shape[0], *f.shape[2:], generator=gen).to(
+            dev, dtype)
+        entries.append((n, idx, val))
+    half = TRAIN_BATCH // 2
+    for first, later, rows in ((0, 1, half), (0, 2, half // 2),
+                               (3, 4, half), (5, 6, half)):
+        entries[later][1][:rows] = entries[first][1][:rows]
+    return files, entries
+
+
+def slot_add_bytes(files, entries):
+    """Compulsory bytes of the adds: each value block read once, each slot
+    the adds touch read and written once however many add to it, and the
+    indices."""
+    nbytes = 0
+    for n, f in files.items():
+        mine = [(i, v) for m, i, v in entries if m == n]
+        if not mine:
+            continue
+        slots = torch.unique(torch.stack([
+            torch.arange(f.shape[0], device=f.device) * f.shape[1] + i.long()
+            for i, _ in mine]))
+        per = f[0, 0].numel() * f.element_size()
+        nbytes += 2 * per * slots.numel() + sum(
+            v.numel() * v.element_size() + i.numel() * i.element_size()
+            for i, v in mine)
+    return nbytes
+
+
 def phase_slots(dev, card):
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import regslots as TR
@@ -2081,6 +2135,7 @@ def phase_slots(dev, card):
     ops = {"slot_set": (TR.slot_set, TR.slot_set_reference, True),
            "slot_zero": (TR.slot_zero, TR.slot_zero_reference, False),
            "slot_add": (TR.slot_add, TR.slot_add_reference, True)}
+    SEEN["slot_err"] = dict.fromkeys(ops, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         files = slot_files(dev, dtype, gen)
         for key, (kern, plain, takes_val) in ops.items():
@@ -2093,6 +2148,8 @@ def phase_slots(dev, card):
                 want = plain(file.clone(), *args)
                 require(torch.equal(got, want),
                         f"{key} {name} {dtype}: kernel != plain version")
+                SEEN["slot_err"][key] = max(SEEN["slot_err"][key], float(
+                    (got.float() - want.float()).abs().max()))
                 keep = torch.ones(file.shape[:2], dtype=torch.bool,
                                   device=dev)
                 keep[torch.arange(file.shape[0], device=dev),
@@ -2106,6 +2163,41 @@ def phase_slots(dev, card):
             f"rf {tuple(files['rf'][0].shape)}, ra "
             f"{tuple(files['ra'][0].shape)} {dtype}: equal bits to the plain "
             "versions, untouched slots unchanged ok")
+        # the seven adds of a step in one launch, repeated slots included
+        base, entries = step_adds(dev, dtype, gen)
+        outs = {}
+        for how in ("many", "kernel", "plain"):
+            fs = {n: f.clone() for n, f in base.items()}
+            _build.reset_launches()
+            if how == "many":
+                TR.slot_add_many((fs[n], i, v) for n, i, v in entries)
+            else:
+                add = TR.slot_add if how == "kernel" else \
+                    TR.slot_add_reference
+                for n, i, v in entries:
+                    add(fs[n], i, v)
+            torch.cuda.synchronize()
+            want = {"many": {"slot_add_many": 1},
+                    "kernel": {"slot_add": len(entries)}, "plain": {}}[how]
+            require({k: v for k, v in _build.LAUNCHES.items() if v} == want,
+                    f"slot_add_many check, {how}: {_build.LAUNCHES}")
+            outs[how] = fs
+        for n, f in base.items():
+            require(torch.equal(outs["many"][n], outs["plain"][n])
+                    and torch.equal(outs["many"][n], outs["kernel"][n]),
+                    f"slot_add_many {n} {dtype}: not the seven adds in turn")
+            keep = torch.ones(f.shape[:2], dtype=torch.bool, device=dev)
+            for m, i, _ in entries:
+                if m == n:
+                    keep[torch.arange(f.shape[0], device=dev),
+                         i.long()] = False
+            require(torch.equal(outs["many"][n][keep], f[keep]),
+                    f"slot_add_many {n} {dtype}: an untouched slot changed")
+        log(f"[slots] slot_add_many, the {len(entries)} adds of a step in "
+            f"one launch (files {'/'.join(SLOT_CALLS['slot_add'])}, vb = va "
+            f"on half the examples, vc = va on a quarter, fb = fa and ab = "
+            f"aa on half) {dtype}: equal bits to the seven plain adds and to "
+            "seven slot_add launches in turn, untouched slots unchanged ok")
 
     # ---- times at the train step's shapes (bf16), per step of the scan --
     files = slot_files(dev, torch.bfloat16, gen)
@@ -2146,6 +2238,42 @@ def phase_slots(dev, card):
             f"version {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} ms, bound "
             f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes) "
             f"(CUDA events, bf16, B={TRAIN_BATCH}); card {card}")
+
+    # one launch for the seven adds, beside the seven slot_add launches
+    base, adds = step_adds(dev, torch.bfloat16, gen)
+    many = [(base[n], i, v) for n, i, v in adds]
+
+    def each(fn):
+        for f, i, v in many:
+            fn(f, i, v)
+
+    def library():
+        for f, i, v in many:
+            f.index_put_((rows, i.long()), v, accumulate=True)
+
+    ms = cuda_time_ms(lambda: TR.slot_add_many(many), iters=20)
+    seven_ms = cuda_time_ms(lambda: each(TR.slot_add), iters=20)
+    plain_ms = cuda_time_ms(lambda: TR.slot_add_many_reference(many),
+                            iters=20)
+    lib_ms = cuda_time_ms(library, iters=20)
+    # the device's own time, without the wrappers' Python between launches
+    dev_ms = graph_ms(lambda: TR.slot_add_many(many))
+    seven_dev_ms = graph_ms(lambda: each(TR.slot_add))
+    nbytes = slot_add_bytes(base, adds)
+    b = bound(0.0, nbytes, torch.bfloat16)
+    entries["slot_add_many"] = {"ms": ms, "plain_ms": plain_ms, **b,
+                                "library_ms": lib_ms, "seven_ms": seven_ms,
+                                "graph_ms": dev_ms,
+                                "seven_graph_ms": seven_dev_ms}
+    log(f"[kernel time] slot_add_many: the {len(many)} adds of one executor "
+        f"step in one launch {ms:.4f} ms, the same as {len(many)} slot_add "
+        f"launches {seven_ms:.4f} ms (back to back: the wrappers' Python "
+        f"paces both); by CUDA-graph replay {dev_ms:.4f} ms and "
+        f"{seven_dev_ms:.4f} ms; plain version {plain_ms:.4f} ms, "
+        f"{len(many)} index_put_(accumulate=True) {lib_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes: repeated "
+        f"slots read and written once) (CUDA events, bf16, B={TRAIN_BATCH}); "
+        f"card {card}")
     return entries
 
 
@@ -2179,10 +2307,31 @@ def step_bound(args, dtype):
     return bound(flops, nbytes, dtype)
 
 
+@contextlib.contextmanager
+def step_route(route):
+    """Send the fused step through ``route`` (``"tc"`` or ``"general"``)
+    whatever ``executor_step.step_route`` picks; ``None``: as it picks."""
+    from stair_tpu_torch.ops import executor_step as TE
+
+    pick = TE.step_route
+    if route is not None:
+        TE.step_route = lambda *a: route
+    try:
+        yield
+    finally:
+        TE.step_route = pick
+
+
+#: the fused step's launch key on each route
+STEP_KEYS = {"tc": "executor_step_tc", "general": "executor_step"}
+
+
 def phase_step_kernel(dev):
     """Kernel #10 against its plain version at every step of the all-opcode
     programs: the model runs on the ``"step"`` executor and each call of
-    ``fused_step`` is made twice, kernel and plain version, on clones."""
+    ``fused_step`` is made twice, kernel and plain version, on clones; bf16
+    on both routes, float32 on the general one. Returns the launches of the
+    float32 forward at F = 64, the general route's own path."""
     from stair_tpu_torch.models.nmn import NMNConfig
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import executor_step as TE
@@ -2190,55 +2339,68 @@ def phase_step_kernel(dev):
 
     names = ("rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")
     real = TE.fused_step
+    general_launches = 0
     for F in (16, FRAMES):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, routes in ((torch.float32, ("general",)),
+                              (torch.bfloat16, ("tc", "general"))):
             cfg = NMNConfig(
                 hidden_size=HIDDEN, video_size=VIDEO_D, text_size=TEXT_D,
                 max_video_length=F, object_types=3, max_steps=16,
                 num_vec=10, num_frames=6, num_attn=8,
                 compute_dtype="float32" if dtype == torch.float32
                 else "bfloat16")
+            require(TE.step_route(dtype, F, HIDDEN) == routes[0],
+                    f"step_route({dtype}, {F}, {HIDDEN})")
             model = W.build_model(cfg, seed=3, device=dev, executor="step")
             batch = W.to_device(W.opcode_batch(
                 cfg, W.OPCODE_PROGRAMS * 8, seed=F), dev)
             tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 3e-2)
-            seen = {"err": 0.0, "e1": set(), "e2": set()}
+            for route in routes:
+                seen = {"err": 0.0, "e1": set(), "e2": set()}
 
-            def both(*args):
-                want = TE.fused_step_reference(*(a.clone() for a in args))
-                got = real(*args)
-                torch.cuda.synchronize()
-                for g, w, what in zip(got, want, names):
-                    torch.testing.assert_close(
-                        g.float(), w.float(), rtol=tol[0], atol=tol[1],
-                        msg=lambda m: f"executor_step {what}: {m}")
-                seen["err"] = max(seen["err"], max_err(got, want))
-                seen["e1"] |= set(args[0][TE.S_E1].tolist())
-                seen["e2"] |= set(args[0][TE.S_E2].tolist())
-                return got
+                def both(*args):
+                    want = TE.fused_step_reference(*(a.clone() for a in args))
+                    got = real(*args)
+                    torch.cuda.synchronize()
+                    for g, w, what in zip(got, want, names):
+                        torch.testing.assert_close(
+                            g.float(), w.float(), rtol=tol[0], atol=tol[1],
+                            msg=lambda m: f"executor_step {route} {what}: {m}")
+                    seen["err"] = max(seen["err"], max_err(got, want))
+                    seen["e1"] |= set(args[0][TE.S_E1].tolist())
+                    seen["e2"] |= set(args[0][TE.S_E2].tolist())
+                    return got
 
-            TE.fused_step = both
-            _build.reset_launches()
-            try:
-                out = model(batch)
-            finally:
-                TE.fused_step = real
-            T = batch["trace"]["opcode"].shape[1]
-            require(_build.LAUNCHES["executor_step"] == T,
-                    f"executor_step launches {_build.LAUNCHES}")
-            require(seen["e2"] == set(range(5)) and {0, 4, 8, 9, 10}
-                    <= seen["e1"], f"families not covered: {seen}")
-            require(bool(torch.isfinite(out["logits"]).all()),
-                    "non-finite logits on the step route")
-            log(f"[executor_step] all {len(W.OPCODE_PROGRAMS)} opcode "
-                f"programs x8 H={HIDDEN} F={F} "
-                f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
-                f"{dtype}: {T} steps, every output and the whole frames "
-                f"file, max_abs_err {seen['err']:.3e} (rtol {tol[0]}, atol "
-                f"{tol[1]}), stage-1 experts {sorted(seen['e1'])} ok")
+                TE.fused_step = both
+                try:
+                    with step_route(None if route == routes[0] else route):
+                        _build.reset_launches()
+                        out = model(batch)
+                        launches = dict(_build.LAUNCHES)
+                finally:
+                    TE.fused_step = real
+                T = batch["trace"]["opcode"].shape[1]
+                key = STEP_KEYS[route]
+                require(launches[key] == T and all(
+                    launches[k] == 0 for k in STEP_KEYS.values() if k != key),
+                        f"{key} launches {launches}")
+                if dtype == torch.float32 and F == FRAMES:
+                    general_launches = launches[key]
+                require(seen["e2"] == set(range(5)) and {0, 4, 8, 9, 10}
+                        <= seen["e1"], f"families not covered: {seen}")
+                require(bool(torch.isfinite(out["logits"]).all()),
+                        "non-finite logits on the step route")
+                log(f"[executor_step] all {len(W.OPCODE_PROGRAMS)} opcode "
+                    f"programs x8 H={HIDDEN} F={F} "
+                    f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
+                    f"{dtype} on the {route} route ({key}): {T} steps, every "
+                    f"output and the whole frames file, max_abs_err "
+                    f"{seen['err']:.3e} (rtol {tol[0]}, atol {tol[1]}), "
+                    f"stage-1 experts {sorted(seen['e1'])} ok")
+    return general_launches
 
 
-def phase_step_slice(dev, card):
+def phase_step_slice(dev, card, general_launches):
     """The serving path on the scan executor, beside the megakernel route
     of ``phase_slice`` (the same configuration, batches and weights)."""
     from stair_tpu_torch.models.nmn import VideoNMN
@@ -2268,7 +2430,8 @@ def phase_step_slice(dev, card):
                for i in range(STEP_BATCHES)]
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    require(launches["executor_step"] == T * STEP_BATCHES
+    require(launches["executor_step_tc"] == T * STEP_BATCHES
+            and launches["executor_step"] == 0
             and launches["bilstm_tc"] == 2 * STEP_BATCHES
             and launches["bilstm"] == 0 and launches["mega_exec"] == 0
             and launches["mega_exec_tc"] == 0,
@@ -2279,11 +2442,12 @@ def phase_step_slice(dev, card):
     qps = STEP_BATCHES * BATCH / wall
     log(f"[step slice] {STEP_BATCHES} batches x {BATCH} questions on "
         f"executor='step': {qps:.1f} q/s end to end (megakernel route "
-        f"{SEEN['mega_qps']:.1f}), launches per batch: executor_step {T}, "
-        f"bilstm_tc 2, bilstm 0, mega_exec_tc 0, mega_exec 0; card {card}")
+        f"{SEEN['mega_qps']:.1f}), launches per batch: executor_step_tc "
+        f"{T}, executor_step 0, bilstm_tc 2, bilstm 0, mega_exec_tc 0, "
+        f"mega_exec 0; card {card}")
 
     # ---- against the megakernel route on one batch ------------------------
-    with kernel_route(("bilstm_tc", "executor_step")):
+    with kernel_route(("bilstm_tc", "executor_step_tc")):
         out = model(b0)
     with kernel_route(("bilstm_tc", "mega_exec_tc")):
         ref = mega(b0)
@@ -2355,28 +2519,48 @@ def phase_step_slice(dev, card):
     finally:
         TE.fused_step = real
     require(len(calls) == T, "fused_step calls")
-    err = 0.0
-    for args in calls:
-        got = real(*(a.clone() for a in args))
-        want = TE.fused_step_reference(*(a.clone() for a in args))
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
-                                       atol=3e-2)
-        err = max(err, max_err(got, want))
-    # timed in place: a repeat rewrites the same frames slots
-    ms = cuda_time_ms(lambda: [real(*a) for a in calls], iters=5)
+    errs, ms = {}, {}
+    for route in STEP_KEYS:
+        err = 0.0
+        with step_route(route):
+            for args in calls:
+                _build.reset_launches()
+                got = real(*(a.clone() for a in args))
+                require(_build.LAUNCHES[STEP_KEYS[route]] == 1,
+                        f"{route} route: {_build.LAUNCHES}")
+                want = TE.fused_step_reference(*(a.clone() for a in args))
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               rtol=1e-2, atol=3e-2)
+                err = max(err, max_err(got, want))
+            # timed in place: a repeat rewrites the same frames slots
+            ms[route] = cuda_time_ms(lambda: [real(*a) for a in calls],
+                                     iters=5)
+        errs[route] = err
     plain_ms = cuda_time_ms(
         lambda: [TE.fused_step_reference(*a) for a in calls], iters=2)
     b = add_bounds(*[step_bound(a, model.compute_dtype) for a in calls])
     log(f"[main-path inputs] executor_step over the {T} steps of one batch: "
-        f"max_abs_err {err:.3e} (rtol 1e-2, atol 3e-2); {ms:.3f} ms, plain "
-        f"version {plain_ms:.3f} ms, bound {b} (CUDA events, bf16); card "
-        f"{card}")
-    return {"name": "executor_step", "route": "cuda",
-            "source": "stair_tpu_torch/ops/csrc/executor_step.cu",
-            "replaces": "stair_tpu/ops/executor_step.py:49",
-            "launches": launches["executor_step"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+        f"tensor-core route max_abs_err {errs['tc']:.3e} and {ms['tc']:.3f} "
+        f"ms, general route max_abs_err {errs['general']:.3e} and "
+        f"{ms['general']:.3f} ms (rtol 1e-2, atol 3e-2); plain version "
+        f"{plain_ms:.3f} ms, bound {b} (CUDA events, bf16); card {card}")
+    source = "stair_tpu_torch/ops/csrc/executor_step.cu"
+    return [
+        {"name": "executor_step_tc", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/executor_step.py:49",
+         "launches": launches["executor_step_tc"], "max_abs_err": errs["tc"],
+         "ms": ms["tc"], "general_ms": ms["general"], "plain_ms": plain_ms,
+         **b, "library_ms": None},
+        # the general route: timed on the same inputs; its launches are
+        # those of its own path, the float32 forward of phase 15
+        {"name": "executor_step", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/executor_step.py:49",
+         "launches": general_launches, "launches_path": "float32 forward "
+         "on executor='step', F 64 (phase 15)",
+         "max_abs_err": errs["general"], "ms": ms["general"],
+         "plain_ms": plain_ms, **b, "library_ms": None},
+    ]
 
 
 def phase_rev_train(dev, card, slot_entries):
@@ -2394,8 +2578,9 @@ def phase_rev_train(dev, card, slot_entries):
                         SEEN["train_args"])
     T = batch["trace"]["opcode"].shape[1]
     want = {**TRAIN_LAUNCHES, "mega_exec_train_tc": 0, "mega_exec_bwd_tc": 0,
-            "mega_exec_wgrad_tc": 0, "executor_step": 0, "slot_set": 4 * T,
-            "slot_zero": 8 * T, "slot_add": 7 * T}
+            "mega_exec_wgrad_tc": 0, "executor_step": 0,
+            "executor_step_tc": 0, "slot_set": 4 * T, "slot_zero": 8 * T,
+            "slot_add": 0, "slot_add_many": T}
 
     # ---- one float32 step: "rev" against "step" under the same seed ------
     cfg32 = NMNConfig(**{**cfg.to_dict(), "compute_dtype": "float32"})
@@ -2415,8 +2600,8 @@ def phase_rev_train(dev, card, slot_entries):
             for k, p in m.weights.items()}, dict(_build.LAUNCHES))
         del m
     require(all(got["step"][2][k] == 0 for k in (
-        "slot_set", "slot_zero", "slot_add", "mega_exec_train",
-        "mega_exec_train_tc")),
+        "slot_set", "slot_zero", "slot_add", "slot_add_many",
+        "mega_exec_train", "mega_exec_train_tc")),
         f"step route launches {got['step'][2]}")
     ls, lr = got["step"][0], got["rev"][0]
     require(abs(ls - lr) <= 1e-5 * abs(ls), f"rev loss {lr} vs step {ls}")
@@ -2436,10 +2621,11 @@ def phase_rev_train(dev, card, slot_entries):
     model = W.build_model(cfg, seed=0, device=dev, executor="rev")
     step = make_train_step(model, args)
     # Warm-up, with every slot call of the step made twice: the kernel on
-    # the file, the plain version on a copy of it.
+    # the file, the plain version on a copy of it (one copy per file for
+    # the adds, whose entries share files).
     plains = {"slot_set": TR.slot_set_reference,
               "slot_zero": TR.slot_zero_reference,
-              "slot_add": TR.slot_add_reference}
+              "slot_add_many": TR.slot_add_many_reference}
     reals = {k: getattr(TR, k) for k in plains}
     slot_err = dict.fromkeys(plains, 0.0)
 
@@ -2450,7 +2636,17 @@ def phase_rev_train(dev, card, slot_entries):
             slot_err[key] = max(slot_err[key], float(
                 (got.float() - want.float()).abs().max()))
             return got
-        return call
+
+        def call_many(entries):
+            entries = list(entries)
+            copies = {id(f): f.clone() for f, _, _ in entries}
+            plains[key]([(copies[id(f)], i, v) for f, i, v in entries])
+            got = reals[key](entries)
+            for f, _, _ in entries:
+                slot_err[key] = max(slot_err[key], float(
+                    (f.float() - copies[id(f)].float()).abs().max()))
+            return got
+        return call_many if key == "slot_add_many" else call
 
     for k in plains:
         setattr(TR, k, checked(k))
@@ -2461,8 +2657,9 @@ def phase_rev_train(dev, card, slot_entries):
             setattr(TR, k, fn)
     require(all(v == 0.0 for v in slot_err.values()),
             f"slot kernels differ from their plain versions: {slot_err}")
-    log(f"[main-path inputs] slot_set / slot_zero / slot_add over every call "
-        f"of one train step: max_abs_err {slot_err} (equal bits required) ok")
+    log(f"[main-path inputs] slot_set / slot_zero / slot_add_many over every "
+        f"call of one train step: max_abs_err {slot_err} (equal bits "
+        "required) ok")
     torch.cuda.synchronize()
     _build.reset_launches()
     losses = []
@@ -2484,7 +2681,8 @@ def phase_rev_train(dev, card, slot_entries):
         200), 1.0, 1.0), iters=3, warmup=1)
     log(f"[rev train] {TRAIN_STEPS} steps B={TRAIN_BATCH} on executor='rev' "
         f"(T = {T}): losses {[round(x, 4) for x in losses]}; launches per "
-        f"step: slot_set {4 * T}, slot_zero {8 * T}, slot_add {7 * T}, "
+        f"step: slot_set {4 * T}, slot_zero {8 * T}, slot_add_many {T} (the "
+        f"seven adds of a step in one launch), slot_add 0, "
         f"bilstm_train_tc 2, bilstm_bwd_tc 2, no megakernel; "
         f"{wall * 1e3 / TRAIN_STEPS:.3f} ms per step (host clock), "
         f"{k_ms:.3f} ms (CUDA events) beside the megakernel route's "
@@ -2499,10 +2697,20 @@ def phase_rev_train(dev, card, slot_entries):
          "replaces": "stair_tpu/ops/regslots.py:82",
          "launches": launches["slot_zero"],
          "max_abs_err": slot_err["slot_zero"], **slot_entries["slot_zero"]},
+        # the seven adds of a step, now one slot_add_many launch: no
+        # slot_add on this path; its time is the seven launches' of phase
+        # 14, its error that of its launches there against the plain
+        # version (equal bits required)
         {"name": "slot_add", "route": "cuda", "source": source,
          "replaces": "stair_tpu/ops/regslots.py:87",
          "launches": launches["slot_add"],
-         "max_abs_err": slot_err["slot_add"], **slot_entries["slot_add"]},
+         "max_abs_err": SEEN["slot_err"]["slot_add"],
+         **slot_entries["slot_add"]},
+        {"name": "slot_add_many", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/regslots.py:87",
+         "launches": launches["slot_add_many"],
+         "max_abs_err": slot_err["slot_add_many"],
+         **slot_entries["slot_add_many"]},
     ]
 
 
@@ -2529,7 +2737,8 @@ def main():
     # designed to keep their accumulators and state in registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
-                "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel")
+                "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
+                "executor_step_tc_kernel")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),
         f"the build log names not all of {no_spill}")
@@ -2557,8 +2766,8 @@ def main():
     phase_sft_routes(dev)
     phase_trainers(dev)
     slot_entries = phase_slots(dev, card)
-    phase_step_kernel(dev)
-    kernels.append(phase_step_slice(dev, card))
+    general_launches = phase_step_kernel(dev)
+    kernels += phase_step_slice(dev, card, general_launches)
     kernels += phase_rev_train(dev, card, slot_entries)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

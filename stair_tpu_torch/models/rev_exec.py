@@ -15,9 +15,9 @@ cotangents back.
 under ``no_grad`` with the four writes of a step through ``slot_set``; its
 backward takes the four output cotangents in reverse write order and
 ``slot_zero``s them, rebuilds the input files with ``slot_zero``, replays
-the step with ``torch.enable_grad`` and ``torch.autograd.grad``, and
-``slot_add``s the seven operand cotangents (``ops/regslots.py``: CUDA
-kernels on the card, index assignment on the CPU). Forward and backward
+the step with ``torch.enable_grad`` and ``torch.autograd.grad``, and adds
+the seven operand cotangents with one ``slot_add_many`` (``ops/regslots.py``:
+CUDA kernels on the card, index assignment on the CPU). Forward and backward
 allocate or clone every file they update, so the in-place slot updates
 never touch a tensor the caller holds. The step must give the same result
 when it is replayed: its dropout masks are a function of ``(seed, step)``,
@@ -168,13 +168,12 @@ class _RevExec(torch.autograd.Function):
             d_ops = [torch.zeros_like(o) if g is None else g
                      for o, g in zip(ops, grads[:7])]
 
-            regslots.slot_add(d_rv, f["va"][t], d_ops[0])
-            regslots.slot_add(d_rv, f["vb"][t], d_ops[1])
-            regslots.slot_add(d_rv, f["vc"][t], d_ops[2])
-            regslots.slot_add(d_rf, f["fa"][t], d_ops[3])
-            regslots.slot_add(d_rf, f["fb"][t], d_ops[4])
-            regslots.slot_add(d_ra, f["aa"][t], d_ops[5])
-            regslots.slot_add(d_ra, f["ab"][t], d_ops[6])
+            # in read order: an instruction that reads one register twice
+            # adds twice to its slot, in turn
+            regslots.slot_add_many(zip(
+                (d_rv, d_rv, d_rv, d_rf, d_rf, d_ra, d_ra),
+                (f[k][t] for k in ("va", "vb", "vc", "fa", "fb", "aa",
+                                   "ab")), d_ops))
 
             if grads[7] is not None:
                 d_aux[t] = grads[7]

@@ -40,10 +40,15 @@ its kernel and nowhere else:
   (``csrc/flash_attn.cu``);
 - ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
   (``csrc/flash_attn_bwd.cu``), the dQ launch and the dK/dV launch;
-- ``executor_step``: one step of the scan executor
-  (``csrc/executor_step.cu``);
+- ``executor_step``: one step of the scan executor on its general route
+  (``csrc/executor_step.cu`` ``step_kernel``: float32, and the widths the
+  other refuses);
+- ``executor_step_tc``: one step on its tensor-core route (bf16, the main
+  path's; ``executor_step_tc_kernel``);
 - ``slot_set``, ``slot_zero``, ``slot_add``: the in-place register-slot
-  updates (``csrc/regslots.cu``).
+  updates (``csrc/regslots.cu``);
+- ``slot_add_many``: several slot adds in one launch (the reversible
+  executor's seven a step).
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` source, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``; the
@@ -84,8 +89,8 @@ LAUNCHES = {
     "mega_exec_train_tc": 0, "mega_exec_bwd": 0, "mega_exec_wgrad": 0,
     "mega_exec_bwd_tc": 0, "mega_exec_wgrad_tc": 0, "flash_attn": 0,
     "flash_attn_bwd_dq": 0,
-    "flash_attn_bwd_dkv": 0, "executor_step": 0, "slot_set": 0,
-    "slot_zero": 0, "slot_add": 0,
+    "flash_attn_bwd_dkv": 0, "executor_step": 0, "executor_step_tc": 0,
+    "slot_set": 0, "slot_zero": 0, "slot_add": 0, "slot_add_many": 0,
 }
 
 _lib = None
@@ -293,11 +298,24 @@ def build():
         I,                         # bf16
         P,                         # stream
     ]
+    lib.stair_executor_step_tc.restype = I
+    lib.stair_executor_step_tc.argtypes = [
+        P, I,                      # pointer table, its length
+        P,                         # workspace
+        I, I, I, I, I, I,          # B, Nv, Nf, Na, F, H
+        P,                         # stream
+    ]
+    lib.stair_executor_step_tc_smem.restype = Lg
+    lib.stair_executor_step_tc_smem.argtypes = [I, I]       # F, H
     for fn, val in ((lib.stair_slot_set, [P]), (lib.stair_slot_zero, []),
                     (lib.stair_slot_add, [P])):
         fn.restype = I
         # file, idx, [val,] B, N, slot elements, bf16, stream
         fn.argtypes = [P, P, *val, I, I, Lg, I, P]
+    lib.stair_slot_add_many.restype = I
+    # files, idxs, vals (host arrays of device pointers), slot elements,
+    # N (host arrays), entries, B, bf16, stream
+    lib.stair_slot_add_many.argtypes = [P, P, P, P, P, I, I, I, P]
     _lib = lib
     return lib
 

@@ -17,7 +17,9 @@ stage-1 hidden after the ReLU, ``feat`` (pooled and hasitem come from the
 unrounded float32), the keyword through ``localize.k`` before and after its
 bias, the Localize cosine before ``(+ 1) * 0.49``, the stage-2 operand; the
 LayerNorm in float32 with eps 1e-5. The wrapper runs it for CPU tensors and
-the kernel for CUDA tensors.
+the kernel for CUDA tensors, on the route ``step_route`` picks: the
+tensor-core kernel (``executor_step_tc_kernel``, bf16 at the widths
+``mega_exec.tc_shape`` takes) or the general one (``step_kernel``).
 
 Rows nobody reads: the TPU kernel leaves ``pooled`` / ``hasitem`` of a tile
 without a stage 1 and ``loc_a`` / ``loc_b`` of a tile that is neither
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from stair_tpu_torch.ops import _build
+from stair_tpu_torch.ops import mega_exec as TX
 from stair_tpu_torch.ops.mega_exec import MAX_F, MAX_H
 from stair_tpu_torch.utils.device import exact_f32
 
@@ -146,6 +149,35 @@ def fused_step_reference(scal, rv, rf, ra, related, vmask, gkb,
             unsort(loc[0], torch.float32), unsort(loc[1], torch.float32))
 
 
+def step_route(dtype, F, H) -> str:
+    """The fused step's kernel route, chosen before the launch: ``"tc"``
+    (``executor_step_tc_kernel``, launch key ``executor_step_tc``: bf16 at
+    the widths ``mega_exec.tc_shape`` takes, H a multiple of 64 up to
+    ``TC_MAX_H`` and F a multiple of 16 up to ``TC_MAX_F``) or
+    ``"general"`` (``step_kernel``, ``executor_step``: float32 and every
+    other width)."""
+    if dtype == torch.bfloat16 and TX.tc_shape(H, F):
+        return "tc"
+    return "general"
+
+
+#: the pooled partials' row groups of the tensor-core kernel
+POOL_ROWS = _build.header_ints("executor_step.cu")["POOL_ROWS"]
+
+
+def step_tc_smem_bytes(F, H) -> int:
+    """Dynamic shared memory of ``executor_step_tc_kernel`` per block, as
+    ``csrc/executor_step.cu step_tc_smem_bytes`` computes it: two ``[F, H
+    + 8]`` bf16 tiles, the weight ring, three float vectors of ``H``, the
+    pooled partials (``POOL_ROWS`` rows of ``H``; the vec products'
+    partials share them), three ``[F]`` vectors and the warp sums."""
+    t = TX._TILES
+    ring = t["TC_STAGES"] * t["FWD_BN"] * (t["TC_BK"] + t["TC_PAD"])
+    parts = max(POOL_ROWS * H, t["THREADS"] * 8)
+    return (2 * F * (H + t["TC_PAD"]) * 2 + ring * 2
+            + (3 * H + parts + 3 * F + t["THREADS"] // 32) * 4)
+
+
 def fused_step(scal, rv, rf, ra, related, vmask, gkb,
                w1u, b1u, w2u, b2u, w2t, b2t, ffwf, ln_scale, ln_bias,
                loc_kw, loc_kb):
@@ -167,7 +199,7 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
     order; ``hasitem`` / ``existsframe`` [B, F] in the compute dtype and
     ``loc_a`` / ``loc_b`` [B, F] float32 in example order. SUPERLATIVE_F's
     inputs are not produced here. Plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors.
+    kernel of ``step_route`` for CUDA tensors.
     """
     if _build.on_cpu("executor_step", rf):
         return fused_step_reference(
@@ -202,13 +234,30 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
     loc_b = torch.empty(B, F, dtype=torch.float32, device=dev)
     if B == 0:
         return rf, pooled, has, exf, loc_a, loc_b
-    # Per-tile float32 workspace: the stage-1 hidden / stage-2 operand, and
-    # the feat tile (later the Temporal pre-LayerNorm rows).
-    ws = torch.empty(B, 2, F, H, dtype=torch.float32, device=dev)
     ptrs = (*(t for _, t, _, _ in ins), pooled, has, exf, loc_a, loc_b)
-    err = _build.build().stair_executor_step(
-        _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf, Na, F, H,
-        int(dt == torch.bfloat16), _build.stream_ptr(dev))
-    _build.check(err, "executor_step")
-    _build.LAUNCHES["executor_step"] += 1
+    lib = _build.build()
+    if step_route(dt, F, H) == "tc":
+        # read as 16-byte vectors (cp.async, the weight ring, vecmat_tc)
+        for name, t in (("rf", rf), ("w1u", w1u), ("w2u", w2u),
+                        ("w2t", w2t), ("loc_kw", loc_kw)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"executor_step_tc {name}: the tensor-core "
+                                 "kernel needs 16-byte aligned data")
+        key = "executor_step_tc"
+        # float32 workspace: the Temporal pre-LayerNorm rows (the hidden
+        # and feat tiles stay in shared memory)
+        ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
+        err = lib.stair_executor_step_tc(
+            _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf, Na,
+            F, H, _build.stream_ptr(dev))
+    else:
+        key = "executor_step"
+        # Per-tile float32 workspace: the stage-1 hidden / stage-2
+        # operand, and the feat tile (later the Temporal pre-LN rows).
+        ws = torch.empty(B, 2, F, H, dtype=torch.float32, device=dev)
+        err = lib.stair_executor_step(
+            _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf, Na,
+            F, H, int(dt == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, key)
+    _build.LAUNCHES[key] += 1
     return rf, pooled, has, exf, loc_a, loc_b

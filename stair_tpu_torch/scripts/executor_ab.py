@@ -31,6 +31,16 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   ``bwd_general_ms`` on the general route where the checkout has
   ``mega_grad.bwd_route``; ``bwd_f32_ms``: the same call in float32 (the
   general route in every checkout), on a float32 model's inputs.
+- ``step_ms``: #10, the ``T`` (13) ``fused_step`` launches of a serving
+  batch of 1024 on ``executor="step"`` on the route the checkout picks,
+  ``step_general_ms`` on the general route where the checkout has
+  ``executor_step.step_route``, and ``step_digest``: the same hash of the
+  general route's outputs on those 13 calls (their inputs recorded with the
+  general route, so every checkout hands it the same bits);
+- ``slot_add_ms``: #13, the seven slot adds of one ``"rev"`` backward step
+  at the train shapes (bf16, B 128) as the checkout's ``rev_exec`` makes
+  them (one ``slot_add_many`` where the checkout has it, else seven
+  ``slot_add``), and ``slot_add_seven_ms``: seven ``slot_add`` launches.
 
 Then, unless ``--no-phases``, that checkout's ``chip_smoke.py`` phases 5
 (serving) and 8 (the train step), which print q/s, device ms per batch,
@@ -123,6 +133,75 @@ def train_inputs(cfg, batch, dtype, dev, seed):
     return meta, args, outs, cots
 
 
+def step_rows(dev):
+    """``step_ms``, ``step_general_ms`` and ``step_digest`` (see the module
+    docstring) on the 13 ``fused_step`` calls of one serving batch."""
+    from stair_tpu_torch.models.nmn import VideoNMN
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    serving = W.ServingBatches(dev, batch_size=1024, question_len=16)
+    base = W.build_model(serving.cfg, seed=0, device=dev)
+    model = VideoNMN(serving.cfg, base.param_tree(), device=dev,
+                     executor="step")
+    b0 = serving.device_batch(serving.host_batch(0))
+    routed = hasattr(TE, "step_route")
+    calls, real = [], TE.fused_step
+
+    def record(*a):
+        calls.append(tuple(x.clone() for x in a))
+        return real(*a)
+
+    TE.fused_step = record
+    try:
+        with (forced(TE, "step_route", "general") if routed
+              else contextlib.nullcontext()):
+            model(b0)
+    finally:
+        TE.fused_step = real
+
+    def run():
+        return [real(*a) for a in calls]
+
+    row = {"step_ms": cuda_time_ms(run, iters=5)}
+    with (forced(TE, "step_route", "general") if routed
+          else contextlib.nullcontext()):
+        if routed:
+            row["step_general_ms"] = cuda_time_ms(run, iters=5)
+        # hashed call by call (a generator: one call's outputs held at once)
+        row["step_digest"] = digest(
+            x for a in calls for x in real(*(t.clone() for t in a)))
+    return row
+
+
+def slot_rows(dev):
+    """``slot_add_ms`` and ``slot_add_seven_ms`` (see the module
+    docstring) on files of the train step's shapes from a fixed seed."""
+    from stair_tpu_torch.ops import regslots as TR
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    gen = torch.Generator().manual_seed(13)
+    B = 128
+    shapes = {"rv": (B, 25, 512), "rf": (B, 9, 64, 512), "ra": (B, 11, 64)}
+    files = {n: torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+             for n, s in shapes.items()}
+    adds = [(files[n], torch.randint(0, shapes[n][1], (B,), generator=gen)
+             .to(dev, torch.int32),
+             torch.randn(B, *shapes[n][2:], generator=gen).to(
+                 dev, torch.bfloat16))
+            for n in ("rv", "rv", "rv", "rf", "rf", "ra", "ra")]
+
+    def seven():
+        for f, i, v in adds:
+            TR.slot_add(f, i, v)
+
+    many = getattr(TR, "slot_add_many", None)
+    return {"slot_add_ms": cuda_time_ms(
+                (lambda: many(adds)) if many else seven, iters=20),
+            "slot_add_seven_ms": cuda_time_ms(seven, iters=20)}
+
+
 def one(root, tag, phases):
     """Time one checkout (this process imports its modules)."""
     sys.path.insert(0, root)
@@ -205,6 +284,9 @@ def one(root, tag, phases):
         print(json.dumps(row), flush=True)
     del args, targs, tout, cots, model, f32
     torch.cuda.empty_cache()
+    for rnd in range(2):
+        print(json.dumps({"tag": tag, "card": card, "round": rnd,
+                          **step_rows(dev), **slot_rows(dev)}), flush=True)
 
     if phases:
         import chip_smoke

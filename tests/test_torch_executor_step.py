@@ -16,7 +16,9 @@ Localize / Superlative tiles, and the frames file: the written slot of
 FilterFrame / Temporal / AttnVideo tiles, and every slot but the written
 one untouched. float32 at 1e-5; bf16 within atol 3e-2 + rtol 1e-2 (XLA on
 the CPU may skip a rounding between fused ops; one bf16 step of an O(1)
-value is 8e-3). On the card, the kernel against the plain version.
+value is 8e-3). On the card, each kernel route against the plain version.
+The route choice (``step_route``) and the tensor-core kernel's shared
+memory plan are checked here against the CUDA source.
 """
 
 import numpy as np
@@ -173,6 +175,70 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
         assert torch.equal(w, g)
 
 
+STEP_ROUTE_CASES = [
+    (torch.bfloat16, 64, 512, "tc"), (torch.bfloat16, 16, 64, "tc"),
+    (torch.bfloat16, 48, 128, "tc"), (torch.bfloat16, 16, 192, "tc"),
+    (torch.float32, 64, 512, "general"), (torch.float32, 16, 128, "general"),
+    (torch.bfloat16, 20, 96, "general"), (torch.bfloat16, 20, 512, "general"),
+    (torch.bfloat16, 64, 96, "general"), (torch.bfloat16, 80, 512, "general"),
+    (torch.bfloat16, 64, 576, "general"), (torch.bfloat16, 8, 64, "general"),
+    (torch.bfloat16, 16, 32, "general"), (torch.float16, 64, 512, "general"),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,F,H,route", STEP_ROUTE_CASES,
+    ids=[f"{str(d)[6:]}-F{f}-H{h}" for d, f, h, _ in STEP_ROUTE_CASES])
+def test_step_route_choice(dtype, F, H, route):
+    """bf16 at the widths the megakernel's tensor-core route takes goes to
+    the tensor-core step kernel, everything else to the general one."""
+    assert TE.step_route(dtype, F, H) == route
+
+
+def _source_smem_bytes():
+    """``step_tc_smem_bytes`` of ``csrc/executor_step.cu`` as a Python
+    function: its return expression with the casts dropped, the sizes and
+    constants filled in and the ternary as ``max``."""
+    import os
+    import re
+
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import mega_exec as TX
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "executor_step.cu")) as f:
+        src = f.read()
+    body = src[src.index("inline size_t step_tc_smem_bytes(int F, int H) {"):]
+    expr = body[body.index("return") + 6:body.index(";")]
+    expr = " ".join(expr.split()).replace("(size_t)", "")
+    expr = expr.replace("sizeof(bf16)", "2").replace("sizeof(float)", "4")
+    expr = expr.replace("tc_ring<FWD_BN>()",
+                        "(TC_STAGES * FWD_BN * (TC_BK + TC_PAD))")
+    expr = re.sub(r"\(([^()?]+) > ([^()?]+) \? \1 : \2\)", r"max(\1, \2)",
+                  expr)
+    assert "?" not in expr and "<" not in expr, expr
+    consts = {**TX._TILES, **_build.header_ints("executor_step.cu")}
+    consts["TC_PARTS"] = consts["THREADS"] * 8
+    consts["NWARPS"] = consts["THREADS"] // 32
+    return lambda F, H: eval(expr, {"max": max}, {**consts, "F": F, "H": H})
+
+
+def test_step_tc_shared_memory_matches_the_source_and_fits():
+    """``step_tc_smem_bytes`` equals the CUDA source's formula at every
+    width the tensor-core route takes, and every such block (the dynamic
+    plan and the schedule column) fits the 227 KB a block may use, the
+    main path's F 64, H 512 at 228,128 bytes."""
+    from stair_tpu_torch.ops import mega_exec as TX
+
+    source = _source_smem_bytes()
+    for H in range(64, TX.TC_MAX_H + 1, 64):
+        for F in range(16, TX.TC_MAX_F + 1, 16):
+            assert TE.step_route(torch.bfloat16, F, H) == "tc"
+            assert TE.step_tc_smem_bytes(F, H) == source(F, H), (F, H)
+            assert TE.step_tc_smem_bytes(F, H) + 4 * TE.NS <= TX.SMEM_MAX
+    assert TE.step_tc_smem_bytes(64, 512) == 228128
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype,rtol,atol", [
     ("float32", 1e-4, 1e-4), ("bfloat16", 1e-2, 3e-2)])
@@ -180,8 +246,10 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 def test_fused_step_kernel_vs_plain_version_on_card(cuda_device, F,
                                                     compute_dtype, rtol,
                                                     atol):
-    """The kernel against ``fused_step_reference`` on CUDA tensors: every
-    output whole, and the whole frames file."""
+    """The kernel of the route ``step_route`` picks (float32: the general
+    one; bf16 at H 128: the tensor-core one) against
+    ``fused_step_reference`` on CUDA tensors: every output whole, and the
+    whole frames file."""
     from stair_tpu_torch.ops import _build
 
     args = step_inputs(compute_dtype, F=F, H=128, device=cuda_device)
@@ -189,9 +257,66 @@ def test_fused_step_kernel_vs_plain_version_on_card(cuda_device, F,
     _build.reset_launches()
     got = TE.fused_step(*args)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["executor_step"] == 1
+    route = TE.step_route(args[2].dtype, F, 128)
+    assert route == ("tc" if compute_dtype == "bfloat16" else "general")
+    key = "executor_step_tc" if route == "tc" else "executor_step"
+    assert _build.LAUNCHES[key] == 1 and sum(_build.LAUNCHES.values()) == 1
     assert got[0] is args[2]
     for w, g, what in zip(want, got, ("rf", "pooled", "hasitem",
                                       "existsframe", "loc_a", "loc_b")):
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=atol, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc", "general"])
+@pytest.mark.parametrize("F", [16, 48])
+def test_fused_step_bf16_routes_vs_plain_and_repeat_on_card(cuda_device, F,
+                                                            route):
+    """Both bf16 routes against ``fused_step_reference`` (atol 3e-2 + rtol
+    1e-2) at H 128, and a second launch on the same inputs gives the same
+    bits (the tensor-core kernel sums its pooled partials in a fixed
+    order, without atomics)."""
+    from stair_tpu_torch.ops import _build
+
+    args = step_inputs("bfloat16", F=F, H=128, device=cuda_device)
+    want = TE.fused_step_reference(*(a.clone() for a in args))
+    pick = TE.step_route
+    TE.step_route = lambda *a: route
+    try:
+        _build.reset_launches()
+        got = TE.fused_step(*(a.clone() for a in args))
+        again = TE.fused_step(*(a.clone() for a in args))
+        torch.cuda.synchronize()
+    finally:
+        TE.step_route = pick
+    key = "executor_step_tc" if route == "tc" else "executor_step"
+    assert _build.LAUNCHES[key] == 2 and sum(_build.LAUNCHES.values()) == 2
+    for w, g, g2, what in zip(want, got, again, (
+            "rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")):
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                   atol=3e-2, msg=what)
+        assert torch.equal(g, g2), what
+    if route == "tc":
+        assert (_build.build().stair_executor_step_tc_smem(F, 128)
+                == TE.step_tc_smem_bytes(F, 128))
+
+
+@pytest.mark.cuda
+def test_fused_step_tc_refuses_unaligned_rows_on_card(cuda_device):
+    """The tensor-core route reads rf and the weight tables as 16-byte
+    vectors: a frames file that is not 16-byte aligned raises, with no
+    launch and no fallback to another route."""
+    from stair_tpu_torch.ops import _build
+
+    args = list(step_inputs("bfloat16", F=16, H=128, device=cuda_device))
+    rf = args[2]
+    shifted = torch.empty(rf.numel() + 1, dtype=rf.dtype,
+                          device=cuda_device)[1:].view(rf.shape)
+    shifted.copy_(rf)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args[2] = shifted
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        TE.fused_step(*args)
+    assert sum(_build.LAUNCHES.values()) == 0

@@ -175,13 +175,14 @@ def test_chip_smoke_lists_nine_kernels_with_launch_counters():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         text = f.read()
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
-    # thirteen since the scan executor's kernels landed (the test keeps
-    # the name it had when there were nine)
-    assert len(names) == len(set(names)) == 13, names
+    # fifteen since the scan executor's step kernel gained its tensor-core
+    # route and the slot adds their many-entry launch (the test keeps the
+    # name it had when there were nine)
+    assert len(names) == len(set(names)) == 15, names
     assert set(names) <= set(_build.LAUNCHES), names
     assert {"flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-            "executor_step", "slot_set", "slot_zero", "slot_add"} <= set(
-        names)
+            "executor_step", "executor_step_tc", "slot_set", "slot_zero",
+            "slot_add", "slot_add_many"} <= set(names)
     for src in set(re.findall(r'"(stair_tpu_torch/ops/csrc/\w+\.cu)"',
                               text)):
         assert os.path.exists(os.path.join(REPO, src)), src

@@ -162,7 +162,7 @@ def test_rev_path_engaged(monkeypatch):
     import stair_tpu_torch.ops.regslots as RS
 
     calls = {"fwd": 0, "bwd": 0, "slot_set": 0, "slot_zero": 0,
-             "slot_add": 0}
+             "slot_add": 0, "slot_add_many": 0}
     fwd, bwd = TR._RevExec.forward, TR._RevExec.backward
 
     def count(key, fn):
@@ -175,7 +175,7 @@ def test_rev_path_engaged(monkeypatch):
                         staticmethod(count("fwd", fwd)))
     monkeypatch.setattr(TR._RevExec, "backward",
                         staticmethod(count("bwd", bwd)))
-    for key in ("slot_set", "slot_zero", "slot_add"):
+    for key in ("slot_set", "slot_zero", "slot_add", "slot_add_many"):
         monkeypatch.setattr(RS, key, count(key, getattr(RS, key)))
     cfg = _cfg(0.25)
     batch = _batch(cfg)
@@ -183,7 +183,7 @@ def test_rev_path_engaged(monkeypatch):
     _, rev = _models(cfg)
     _port_grads(rev, batch)
     assert calls == {"fwd": 1, "bwd": 1, "slot_set": 4 * T,
-                     "slot_zero": 8 * T, "slot_add": 7 * T}
+                     "slot_zero": 8 * T, "slot_add": 0, "slot_add_many": T}
     # eval on the same model is the "step" route
     rev(torch_batch(batch))
     assert calls["fwd"] == 1
@@ -208,7 +208,7 @@ def test_rev_backward_leaves_the_forward_outputs_alone():
 @pytest.mark.cuda
 def test_rev_matches_step_on_card_with_slot_kernel_counts(cuda_device):
     """On CUDA tensors the ``"rev"`` route launches the slot kernels (4 T
-    sets, 8 T zeros, 7 T adds per step) and no megakernel, and gives the
+    sets, 8 T zeros, T launches of the seven adds per step) and no megakernel, and gives the
     ``"step"`` route's loss and gradients under one seed (float32, 1e-4 of
     each leaf's scale: the replay reorders no sums, the accumulation of the
     weight cotangents over steps does)."""
@@ -230,7 +230,8 @@ def test_rev_matches_step_on_card_with_slot_kernel_counts(cuda_device):
                          dict(_build.LAUNCHES))
     launches = got["rev"][2]
     assert (launches["slot_set"], launches["slot_zero"],
-            launches["slot_add"]) == (4 * T, 8 * T, 7 * T)
+            launches["slot_add_many"], launches["slot_add"]) == (
+                4 * T, 8 * T, T, 0)
     assert launches["mega_exec_train"] == launches["executor_step"] == 0
     assert got["step"][2]["slot_set"] == 0
     assert got["rev"][0] == pytest.approx(got["step"][0], rel=1e-5)
