@@ -120,7 +120,16 @@ Phases (any failure raises, and the script exits non-zero):
    seven adds of a ``"rev"`` step (repeated slots: vb = va, fb = fa, ab =
    aa on some examples) in one launch: equal bits to the seven plain adds
    and to seven ``slot_add`` launches in turn; its time beside the seven
-   launches', seven ``index_put_(accumulate=True)`` and the bound;
+   launches', seven ``index_put_(accumulate=True)`` and the bound; in the
+   same way ``slot_set_many`` on the four sets of a step and
+   ``slot_zero_many`` on its eight reads-and-zeros (four output cotangents
+   read out, then zeroed, then the same slots of the register files; the
+   two attn entries on one slot for half the examples): equal bits, the
+   read-outs included, to the plain versions and to the one-entry
+   launches in turn (a gather before each zero that reads out), and each
+   one launch's time as the executor makes it (one ``SlotPlan`` call)
+   back to back and by CUDA-graph replay, beside the one-entry launches'
+   (both ways), the plain versions', ``index_put_``'s and the bound;
 15. the fused executor-step kernel vs its plain version at every step of
    the all-opcode programs at H = 512 (F = 16 linear and F = 64 conv
    temporal), float32 on the general route within 1e-4 and bf16 on both
@@ -138,12 +147,14 @@ Phases (any failure raises, and the script exits non-zero):
    route's; the 13 launches of the batch on both routes against the plain
    version, with their times and bound;
 17. the train step on the reversible executor (phase 8's configuration with
-   ``executor="rev"``): per step ``4 T`` slot sets, ``8 T`` slot zeros and
-   ``T`` launches of ``slot_add_many`` (the seven adds of a step; no
-   ``slot_add``), the BiLSTM training kernels as in phase 8 and no
-   megakernel; a finite, falling loss over 10 steps; one step's loss and
-   every gradient leaf in float32 against ``executor="step"`` under the
-   same seed; ms per step beside phase 8's.
+   ``executor="rev"``): per step ``T`` launches each of ``slot_set_many``
+   (a step's four sets), ``slot_zero_many`` (its eight reads-and-zeros)
+   and ``slot_add_many`` (its seven adds), none of the single updates, the
+   BiLSTM training kernels as in phase 8 and no megakernel; a warm-up step
+   whose every slot launch is held to its plain version (equal bits, the
+   read-outs included); a finite, falling loss over 10 steps; one step's
+   loss and every gradient leaf in float32 against ``executor="step"``
+   under the same seed; ms per step beside phase 8's.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are ``{"kernels": [...]}`` (per
@@ -152,14 +163,16 @@ main path's inputs, its time, the plain version's, the bound the card's
 peaks allow for this run's inputs, and a library call's time where one
 computes the same function) and ``{"ok": true, "device": {...}}``. The
 step kernel's general route (``executor_step``) counts the launches of its
-own path, phase 15's float32 forward at F = 64; ``slot_add`` shows 0, as
-the ``"rev"`` path now makes its adds through ``slot_add_many``. Every
-time printed is measured in this run, on the card named above it.
+own path, phase 15's float32 forward at F = 64; ``slot_set``,
+``slot_zero`` and ``slot_add`` show 0, as the ``"rev"`` path makes its
+updates through the many-entry launches. Every time printed is measured in
+this run, on the card named above it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import time
 
@@ -332,10 +345,8 @@ def plain_route():
              (TG, "mega_exec_bwd_call", TG.mega_exec_bwd_reference),
              (TA, "flash_attention", attention),
              (TE, "fused_step", TE.fused_step_reference),
-             (TR, "slot_set", TR.slot_set_reference),
-             (TR, "slot_zero", TR.slot_zero_reference),
-             (TR, "slot_add", TR.slot_add_reference),
-             (TR, "slot_add_many", TR.slot_add_many_reference)]
+             # every slot update goes through a plan's call
+             (TR.SlotPlan, "__call__", TR.SlotPlan.reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -2083,6 +2094,13 @@ def slot_files(dev, dtype, gen):
 SLOT_CALLS = {"slot_set": ("rv", "rf", "ra", "ra"),
               "slot_zero": ("ra", "ra", "rf", "rv") * 2,
               "slot_add": ("rv", "rv", "rv", "rf", "rf", "ra", "ra")}
+#: the same step's four sets and eight reads-and-zeros as ``rev_exec``
+#: makes them, one launch each: the zero reads the four output cotangents
+#: out of the cotangent files (``d_``) and zeroes them, then the same slots
+#: of the register files
+STEP_SLOTS = {"set": SLOT_CALLS["slot_set"],
+              "zero": ("d_ra", "d_ra", "d_rf", "d_rv", "ra", "ra", "rf",
+                       "rv")}
 
 
 def step_adds(dev, dtype, gen):
@@ -2107,21 +2125,63 @@ def step_adds(dev, dtype, gen):
     return files, entries
 
 
-def slot_add_bytes(files, entries):
-    """Compulsory bytes of the adds: each value block read once, each slot
-    the adds touch read and written once however many add to it, and the
-    indices."""
+def step_slots(dev, dtype, gen, kind):
+    """The register files at the training shapes (for "zero" also their
+    cotangent files ``d_rv``, ``d_rf``, ``d_ra``), and one step's
+    ``STEP_SLOTS[kind]`` on them in order: ``(name, idx, val)`` for a set,
+    ``(name, idx, out)`` for a zero, ``out`` a ``[B, ...]`` read-out on the
+    cotangent files and None on the others. The two attn entries name one
+    slot on half the examples (out_attn == out_attn_b through the scratch
+    slot), and the zeros' last four entries the first four's slots."""
+    files = {n: f for n, (f, _, _) in slot_files(dev, dtype, gen).items()}
+    if kind == "zero":
+        files.update({"d_" + n: torch.randn(f.shape, generator=gen).to(
+            dev, dtype) for n, f in list(files.items())})
+    names = STEP_SLOTS[kind]
+    idx = []
+    for n in names[:4]:
+        f = files[n]
+        i = torch.randint(0, f.shape[1], (f.shape[0],), generator=gen).to(
+            dev, torch.int32)
+        i[:4] = f.shape[1] - 1
+        idx.append(i)
+    a, ab = (k for k, n in enumerate(names[:4]) if n.endswith("ra"))
+    idx[ab][:TRAIN_BATCH // 2] = idx[a][:TRAIN_BATCH // 2]
+    idx += idx[:len(names) - 4]
+    extra = [
+        torch.randn(TRAIN_BATCH, *files[n].shape[2:], generator=gen).to(
+            dev, dtype) if kind == "set"
+        else torch.empty((TRAIN_BATCH, *files[n].shape[2:]), dtype=dtype,
+                         device=dev) if n.startswith("d_") else None
+        for n in names]
+    return files, list(zip(names, idx, extra))
+
+
+def slot_bytes(kind, files, entries):
+    """Compulsory bytes of one launch's ``(name, idx, val or out)``
+    entries: each value block read once and each read-out written once;
+    each slot the entries name written once however many name it, and read
+    once for an add or for a zero that reads it out; the indices."""
     nbytes = 0
     for n, f in files.items():
         mine = [(i, v) for m, i, v in entries if m == n]
         if not mine:
             continue
-        slots = torch.unique(torch.stack([
-            torch.arange(f.shape[0], device=f.device) * f.shape[1] + i.long()
-            for i, _ in mine]))
+
+        def unique(idxs):
+            if not idxs:
+                return 0
+            return torch.unique(torch.stack([
+                torch.arange(f.shape[0], device=f.device) * f.shape[1]
+                + i.long() for i in idxs])).numel()
+
+        touched = unique([i for i, _ in mine])
+        read = {"add": touched, "set": 0,
+                "zero": unique([i for i, o in mine if o is not None])}[kind]
         per = f[0, 0].numel() * f.element_size()
-        nbytes += 2 * per * slots.numel() + sum(
-            v.numel() * v.element_size() + i.numel() * i.element_size()
+        nbytes += per * (touched + read) + sum(
+            i.numel() * i.element_size()
+            + (0 if v is None else v.numel() * v.element_size())
             for i, v in mine)
     return nbytes
 
@@ -2198,6 +2258,8 @@ def phase_slots(dev, card):
             f"on half the examples, vc = va on a quarter, fb = fa and ab = "
             f"aa on half) {dtype}: equal bits to the seven plain adds and to "
             "seven slot_add launches in turn, untouched slots unchanged ok")
+        for kind in ("set", "zero"):
+            check_step_slots(dev, dtype, gen, kind)
 
     # ---- times at the train step's shapes (bf16), per step of the scan --
     files = slot_files(dev, torch.bfloat16, gen)
@@ -2259,7 +2321,7 @@ def phase_slots(dev, card):
     # the device's own time, without the wrappers' Python between launches
     dev_ms = graph_ms(lambda: TR.slot_add_many(many))
     seven_dev_ms = graph_ms(lambda: each(TR.slot_add))
-    nbytes = slot_add_bytes(base, adds)
+    nbytes = slot_bytes("add", base, adds)
     b = bound(0.0, nbytes, torch.bfloat16)
     entries["slot_add_many"] = {"ms": ms, "plain_ms": plain_ms, **b,
                                 "library_ms": lib_ms, "seven_ms": seven_ms,
@@ -2274,7 +2336,142 @@ def phase_slots(dev, card):
         f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes: repeated "
         f"slots read and written once) (CUDA events, bf16, B={TRAIN_BATCH}); "
         f"card {card}")
+    for kind in ("set", "zero"):
+        entries[f"slot_{kind}_many"] = time_step_slots(dev, card, gen, kind)
     return entries
+
+
+def one_entry_sequence(kind, ents, keep=True):
+    """A step's updates as the reversible executor made them before they
+    were planned: one single-update launch per entry, each read-out an
+    index gather before its zero (copied into the entry's ``out`` where
+    ``keep``). ``ents``: ``(file, idx, val or out)``."""
+    from stair_tpu_torch.models.rev_exec import take
+    from stair_tpu_torch.ops import regslots as TR
+
+    for f, i, x in ents:
+        if kind == "set":
+            TR.slot_set(f, i, x)
+            continue
+        if x is not None:
+            g = take(f, i)
+            if keep:
+                x.copy_(g)
+        TR.slot_zero(f, i)
+
+
+def check_step_slots(dev, dtype, gen, kind):
+    """One launch of a step's four sets or eight reads-and-zeros (repeated
+    slots included) against the plain versions in turn and the one-entry
+    launches in turn: equal bits in every file and read-out, and every
+    slot no entry names unchanged."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import regslots as TR
+
+    base, entries = step_slots(dev, dtype, gen, kind)
+    key = f"slot_{kind}_many"
+    got = {}
+    for how in ("many", "one", "plain"):
+        fs = {n: f.clone() for n, f in base.items()}
+        ents = [(fs[n], i, x if kind == "set" or x is None
+                 else torch.full_like(x, 7.0)) for n, i, x in entries]
+        _build.reset_launches()
+        if how == "one":
+            one_entry_sequence(kind, ents)
+        elif kind == "set":
+            (TR.slot_set_many if how == "many"
+             else TR.slot_set_many_reference)(ents)
+        else:
+            (TR.slot_zero_many if how == "many"
+             else TR.slot_zero_many_reference)(
+                [(f, i) for f, i, _ in ents], [o for _, _, o in ents])
+        torch.cuda.synchronize()
+        want = {"many": {key: 1}, "one": {f"slot_{kind}": len(ents)},
+                "plain": {}}[how]
+        require({k: v for k, v in _build.LAUNCHES.items() if v} == want,
+                f"{key} check, {how}: {_build.LAUNCHES}")
+        got[how] = (fs, [x for _, _, x in ents] if kind == "zero" else [])
+    for how in ("one", "plain"):
+        for n in base:
+            require(torch.equal(got["many"][0][n], got[how][0][n]),
+                    f"{key} {n} {dtype}: not the {how} updates in turn")
+        for a, b in zip(got["many"][1], got[how][1]):
+            require(a is None or torch.equal(a, b),
+                    f"{key} {dtype}: a read-out differs from the {how} "
+                    "updates'")
+    for n, f in base.items():
+        keep = torch.ones(f.shape[:2], dtype=torch.bool, device=dev)
+        for m, i, _ in entries:
+            if m == n:
+                keep[torch.arange(f.shape[0], device=dev), i.long()] = False
+        require(torch.equal(got["many"][0][n][keep], f[keep]),
+                f"{key} {n} {dtype}: an untouched slot changed")
+    if kind == "zero":
+        # out_attn == out_attn_b: the second read-out sees the first's zero
+        rows = (entries[0][1] == entries[1][1]).nonzero()[:, 0]
+        require(rows.numel() > 0 and not got["many"][1][1][rows].any(),
+                f"{key} {dtype}: the repeated slot's second read-out is "
+                "not 0")
+    log(f"[slots] {key}, the {len(entries)} "
+        f"{'sets' if kind == 'set' else 'reads-and-zeros'} of a step in one "
+        f"launch (files {'/'.join(STEP_SLOTS[kind])}, the two attn entries "
+        f"on one slot for half the examples) {dtype}: equal bits to the "
+        f"plain versions and to {len(entries)} one-entry launches in turn"
+        f"{', read-outs included' if kind == 'zero' else ''}, untouched "
+        "slots unchanged ok")
+
+
+def time_step_slots(dev, card, gen, kind):
+    """A step's four sets or eight reads-and-zeros at the train step's
+    shapes (bf16), made as the reversible executor makes them (one call of
+    a ``SlotPlan``): back to back and by CUDA-graph replay, beside the
+    one-entry launches in turn (the route the plan replaced, gathers
+    included), the plain versions, ``index_put_`` and the bound."""
+    from stair_tpu_torch.ops import regslots as TR
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    base, entries = step_slots(dev, torch.bfloat16, gen, kind)
+    key = f"slot_{kind}_many"
+    plan = TR.SlotPlan(kind, [
+        (base[n], i.view(1, -1)) if kind == "set" or x is None
+        else (base[n], i.view(1, -1), x) for n, i, x in entries])
+    vals = [x for _, _, x in entries] if kind == "set" else ()
+    ents = [(base[n], i, x) for n, i, x in entries]
+    rows = torch.arange(TRAIN_BATCH, device=dev)
+    zero = torch.zeros((), dtype=torch.bfloat16, device=dev)
+
+    def library():
+        for f, i, x in ents:
+            ix = (rows, i.long())
+            if kind == "set":
+                f.index_put_(ix, x)
+            else:
+                if x is not None:
+                    f[ix]
+                f.index_put_(ix, zero)
+
+    ms = cuda_time_ms(lambda: plan(0, vals), iters=20)
+    one_ms = cuda_time_ms(lambda: one_entry_sequence(kind, ents, False),
+                          iters=20)
+    plain_ms = cuda_time_ms(lambda: plan.reference(0, vals), iters=20)
+    lib_ms = cuda_time_ms(library, iters=20)
+    dev_ms = graph_ms(lambda: plan(0, vals))
+    one_dev_ms = graph_ms(lambda: one_entry_sequence(kind, ents, False))
+    nbytes = slot_bytes(kind, base, entries)
+    b = bound(0.0, nbytes, torch.bfloat16)
+    what = "sets" if kind == "set" else "reads-and-zeros"
+    log(f"[kernel time] {key}: the {len(entries)} {what} of one executor "
+        f"step in one launch {ms:.4f} ms, the same as {len(entries)} "
+        f"one-entry launches{' and 4 gathers' if kind == 'zero' else ''} "
+        f"{one_ms:.4f} ms (back to back); by CUDA-graph replay {dev_ms:.4f} "
+        f"ms and {one_dev_ms:.4f} ms (the files stay in the 50 MB L2); "
+        f"plain version {plain_ms:.4f} ms, index_put_"
+        f"{' and gathers' if kind == 'zero' else ''} {lib_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes) (CUDA "
+        f"events, bf16, B={TRAIN_BATCH}); card {card}")
+    return {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+            "one_entry_ms": one_ms, "graph_ms": dev_ms,
+            "one_entry_graph_ms": one_dev_ms}
 
 
 def step_bound(args, dtype):
@@ -2579,8 +2776,9 @@ def phase_rev_train(dev, card, slot_entries):
     T = batch["trace"]["opcode"].shape[1]
     want = {**TRAIN_LAUNCHES, "mega_exec_train_tc": 0, "mega_exec_bwd_tc": 0,
             "mega_exec_wgrad_tc": 0, "executor_step": 0,
-            "executor_step_tc": 0, "slot_set": 4 * T, "slot_zero": 8 * T,
-            "slot_add": 0, "slot_add_many": T}
+            "executor_step_tc": 0, "slot_set": 0, "slot_zero": 0,
+            "slot_add": 0, "slot_set_many": T, "slot_zero_many": T,
+            "slot_add_many": T}
 
     # ---- one float32 step: "rev" against "step" under the same seed ------
     cfg32 = NMNConfig(**{**cfg.to_dict(), "compute_dtype": "float32"})
@@ -2600,8 +2798,9 @@ def phase_rev_train(dev, card, slot_entries):
             for k, p in m.weights.items()}, dict(_build.LAUNCHES))
         del m
     require(all(got["step"][2][k] == 0 for k in (
-        "slot_set", "slot_zero", "slot_add", "slot_add_many",
-        "mega_exec_train", "mega_exec_train_tc")),
+        "slot_set", "slot_zero", "slot_add", "slot_set_many",
+        "slot_zero_many", "slot_add_many", "mega_exec_train",
+        "mega_exec_train_tc")),
         f"step route launches {got['step'][2]}")
     ls, lr = got["step"][0], got["rev"][0]
     require(abs(ls - lr) <= 1e-5 * abs(ls), f"rev loss {lr} vs step {ls}")
@@ -2620,46 +2819,43 @@ def phase_rev_train(dev, card, slot_entries):
     # ---- the counted main-path run: 10 steps ------------------------------
     model = W.build_model(cfg, seed=0, device=dev, executor="rev")
     step = make_train_step(model, args)
-    # Warm-up, with every slot call of the step made twice: the kernel on
-    # the file, the plain version on a copy of it (one copy per file for
-    # the adds, whose entries share files).
-    plains = {"slot_set": TR.slot_set_reference,
-              "slot_zero": TR.slot_zero_reference,
-              "slot_add_many": TR.slot_add_many_reference}
-    reals = {k: getattr(TR, k) for k in plains}
-    slot_err = dict.fromkeys(plains, 0.0)
+    # Warm-up, with every slot launch of the step made twice: the plan's
+    # kernel on its files, its plain versions on copies of the files and
+    # read-outs (a shallow copy of the plan that names the copies).
+    real = TR.SlotPlan.__call__
+    slot_err = {f"slot_{k}_many": 0.0 for k in ("set", "zero", "add")}
+    checked_calls = dict.fromkeys(slot_err, 0)
 
-    def checked(key):
-        def call(file, idx, *val):
-            want = plains[key](file.clone(), idx, *val)
-            got = reals[key](file, idx, *val)
-            slot_err[key] = max(slot_err[key], float(
-                (got.float() - want.float()).abs().max()))
-            return got
+    def checked(plan, t, vals=()):
+        vals = list(vals)
+        shadow = copy.copy(plan)
+        copies = {id(f): f.clone() for f in plan.files}
+        shadow.files = tuple(copies[id(f)] for f in plan.files)
+        shadow.outs = tuple(None if o is None else o.clone()
+                            for o in plan.outs)
+        shadow.reference(t, vals)
+        got = real(plan, t, vals)
+        for a, b in zip((*plan.files, *plan.outs),
+                        (*shadow.files, *shadow.outs)):
+            if a is not None:
+                slot_err[plan.key] = max(slot_err[plan.key], float(
+                    (a.float() - b.float()).abs().max()))
+        checked_calls[plan.key] += 1
+        return got
 
-        def call_many(entries):
-            entries = list(entries)
-            copies = {id(f): f.clone() for f, _, _ in entries}
-            plains[key]([(copies[id(f)], i, v) for f, i, v in entries])
-            got = reals[key](entries)
-            for f, _, _ in entries:
-                slot_err[key] = max(slot_err[key], float(
-                    (f.float() - copies[id(f)].float()).abs().max()))
-            return got
-        return call_many if key == "slot_add_many" else call
-
-    for k in plains:
-        setattr(TR, k, checked(k))
+    TR.SlotPlan.__call__ = checked
     try:
         step(batch, torch.Generator().manual_seed(100), 1.0, 1.0)
     finally:
-        for k, fn in reals.items():
-            setattr(TR, k, fn)
+        TR.SlotPlan.__call__ = real
     require(all(v == 0.0 for v in slot_err.values()),
             f"slot kernels differ from their plain versions: {slot_err}")
-    log(f"[main-path inputs] slot_set / slot_zero / slot_add_many over every "
-        f"call of one train step: max_abs_err {slot_err} (equal bits "
-        "required) ok")
+    require(all(n == T for n in checked_calls.values()),
+            f"slot launches checked in one step: {checked_calls}, not {T} "
+            "each")
+    log(f"[main-path inputs] slot_set_many / slot_zero_many (read-outs "
+        f"included) / slot_add_many over every launch of one train step "
+        f"({T} each): max_abs_err {slot_err} (equal bits required) ok")
     torch.cuda.synchronize()
     _build.reset_launches()
     losses = []
@@ -2681,31 +2877,44 @@ def phase_rev_train(dev, card, slot_entries):
         200), 1.0, 1.0), iters=3, warmup=1)
     log(f"[rev train] {TRAIN_STEPS} steps B={TRAIN_BATCH} on executor='rev' "
         f"(T = {T}): losses {[round(x, 4) for x in losses]}; launches per "
-        f"step: slot_set {4 * T}, slot_zero {8 * T}, slot_add_many {T} (the "
-        f"seven adds of a step in one launch), slot_add 0, "
+        f"step: slot_set_many {T}, slot_zero_many {T}, slot_add_many {T} "
+        f"(a step's four sets, eight reads-and-zeros and seven adds, one "
+        f"launch each), slot_set / slot_zero / slot_add 0, "
         f"bilstm_train_tc 2, bilstm_bwd_tc 2, no megakernel; "
         f"{wall * 1e3 / TRAIN_STEPS:.3f} ms per step (host clock), "
         f"{k_ms:.3f} ms (CUDA events) beside the megakernel route's "
         f"{SEEN['mega_train_ms']:.3f} ms; card {card}")
     source = "stair_tpu_torch/ops/csrc/regslots.cu"
+    # The single updates are the one-entry case of the same kernels and are
+    # not on this path: their times are the one-entry launches of a step in
+    # turn (phase 14), their errors those launches' against the plain
+    # versions there (equal bits required).
     return [
         {"name": "slot_set", "route": "cuda", "source": source,
          "replaces": "stair_tpu/ops/regslots.py:76",
          "launches": launches["slot_set"],
-         "max_abs_err": slot_err["slot_set"], **slot_entries["slot_set"]},
+         "max_abs_err": SEEN["slot_err"]["slot_set"],
+         **slot_entries["slot_set"]},
         {"name": "slot_zero", "route": "cuda", "source": source,
          "replaces": "stair_tpu/ops/regslots.py:82",
          "launches": launches["slot_zero"],
-         "max_abs_err": slot_err["slot_zero"], **slot_entries["slot_zero"]},
-        # the seven adds of a step, now one slot_add_many launch: no
-        # slot_add on this path; its time is the seven launches' of phase
-        # 14, its error that of its launches there against the plain
-        # version (equal bits required)
+         "max_abs_err": SEEN["slot_err"]["slot_zero"],
+         **slot_entries["slot_zero"]},
         {"name": "slot_add", "route": "cuda", "source": source,
          "replaces": "stair_tpu/ops/regslots.py:87",
          "launches": launches["slot_add"],
          "max_abs_err": SEEN["slot_err"]["slot_add"],
          **slot_entries["slot_add"]},
+        {"name": "slot_set_many", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/regslots.py:76",
+         "launches": launches["slot_set_many"],
+         "max_abs_err": slot_err["slot_set_many"],
+         **slot_entries["slot_set_many"]},
+        {"name": "slot_zero_many", "route": "cuda", "source": source,
+         "replaces": "stair_tpu/ops/regslots.py:82",
+         "launches": launches["slot_zero_many"],
+         "max_abs_err": slot_err["slot_zero_many"],
+         **slot_entries["slot_zero_many"]},
         {"name": "slot_add_many", "route": "cuda", "source": source,
          "replaces": "stair_tpu/ops/regslots.py:87",
          "launches": launches["slot_add_many"],

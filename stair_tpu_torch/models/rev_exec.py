@@ -12,14 +12,16 @@ under autograd on the gathered operands, and scatters the operand
 cotangents back.
 
 ``rev_exec`` is a ``torch.autograd.Function``. Its forward runs the loop
-under ``no_grad`` with the four writes of a step through ``slot_set``; its
-backward takes the four output cotangents in reverse write order and
-``slot_zero``s them, rebuilds the input files with ``slot_zero``, replays
-the step with ``torch.enable_grad`` and ``torch.autograd.grad``, and adds
-the seven operand cotangents with one ``slot_add_many`` (``ops/regslots.py``:
-CUDA kernels on the card, index assignment on the CPU). Forward and backward
-allocate or clone every file they update, so the in-place slot updates
-never touch a tensor the caller holds. The step must give the same result
+under ``no_grad`` with the four writes of a step in one set; its backward
+reads out and zeroes the four output cotangents in reverse write order and
+rebuilds the input files by zeroing the written slots, all in one zero,
+replays the step with ``torch.enable_grad`` and ``torch.autograd.grad``,
+and adds the seven operand cotangents in one add. Each of the three is a
+``regslots.SlotPlan`` over the trace's ``[T, B]`` index tables, built once
+per scan (CUDA kernels on the card: one launch a step each; index
+assignment on the CPU). Forward and backward allocate or clone every file
+they update, so the in-place slot updates never touch a tensor the caller
+holds. The step must give the same result
 when it is replayed: its dropout masks are a function of ``(seed, step)``,
 not of a generator's running state (``models/nmn.py``).
 """
@@ -100,14 +102,14 @@ class _RevExec(torch.autograd.Function):
         with torch.no_grad():
             consts = rebuild(leaves)
             rv, rf, ra = init_regs(core, video0)
+            # order matters: attn_b last, as in the autograd route
+            write = regslots.SlotPlan("set", zip(
+                (rv, rf, ra, ra),
+                (f[k] for k in ("out_vec", "out_frames", "out_attn",
+                                "out_attn_b"))))
             for t in range(T):
                 ops = gather_operands((rv, rf, ra), f, t)
-                nv, nf, na, nab = core.step(ops, consts, t, aux[t])
-                # order matters: attn_b last, as in the autograd route
-                regslots.slot_set(rv, f["out_vec"][t], nv)
-                regslots.slot_set(rf, f["out_frames"][t], nf)
-                regslots.slot_set(ra, f["out_attn"][t], na)
-                regslots.slot_set(ra, f["out_attn_b"][t], nab)
+                write(t, core.step(ops, consts, t, aux[t]))
         ctx.core, ctx.rebuild = core, rebuild
         # Residuals: the final registers and the raw inputs, nothing per step.
         ctx.save_for_backward(rv, rf, ra, aux, *leaves)
@@ -132,28 +134,27 @@ class _RevExec(torch.autograd.Function):
         d_live = [torch.zeros_like(x) for x in live]
         d_aux = torch.zeros_like(aux)
 
+        # Output cotangents, read out and zeroed in reverse write order so
+        # that an attn slot written twice in one step (out_attn ==
+        # out_attn_b, only via scratch) credits the surviving write; then
+        # the step's INPUT files: SSA slots were zero before their write,
+        # and the scratch slot is never read, so zero serves there.
+        outs = [f[k] for k in ("out_attn_b", "out_attn", "out_frames",
+                               "out_vec")]
+        d_new_attn_b, d_new_attn, d_new_frames, d_new_vec = d_new = [
+            x.new_empty((x.shape[0], *x.shape[2:]))
+            for x in (d_ra, d_ra, d_rf, d_rv)]
+        unwrite = regslots.SlotPlan("zero", [
+            *zip((d_ra, d_ra, d_rf, d_rv), outs, d_new),
+            *zip((ra, ra, rf, rv), outs)])
+        # in read order: an instruction that reads one register twice adds
+        # twice to its slot, in turn
+        scatter = regslots.SlotPlan("add", zip(
+            (d_rv, d_rv, d_rv, d_rf, d_rf, d_ra, d_ra),
+            (f[k] for k in ("va", "vb", "vc", "fa", "fb", "aa", "ab"))))
+
         for t in reversed(range(T)):
-            out_v, out_f = f["out_vec"][t], f["out_frames"][t]
-            out_a, out_ab = f["out_attn"][t], f["out_attn_b"][t]
-            # Output cotangents, taken in reverse write order so that an
-            # attn slot written twice in one step (out_attn == out_attn_b,
-            # only via scratch) credits the surviving write.
-            d_new_attn_b = take(d_ra, out_ab)
-            regslots.slot_zero(d_ra, out_ab)
-            d_new_attn = take(d_ra, out_a)
-            regslots.slot_zero(d_ra, out_a)
-            d_new_frames = take(d_rf, out_f)
-            regslots.slot_zero(d_rf, out_f)
-            d_new_vec = take(d_rv, out_v)
-            regslots.slot_zero(d_rv, out_v)
-
-            # The step's INPUT files: SSA slots were zero before their
-            # write; the scratch slot is never read, so zero serves there.
-            regslots.slot_zero(ra, out_ab)
-            regslots.slot_zero(ra, out_a)
-            regslots.slot_zero(rf, out_f)
-            regslots.slot_zero(rv, out_v)
-
+            unwrite(t)
             ops = [o.requires_grad_(True)
                    for o in gather_operands((rv, rf, ra), f, t)]
             aux_t = aux[t].detach().requires_grad_(True)
@@ -168,12 +169,7 @@ class _RevExec(torch.autograd.Function):
             d_ops = [torch.zeros_like(o) if g is None else g
                      for o, g in zip(ops, grads[:7])]
 
-            # in read order: an instruction that reads one register twice
-            # adds twice to its slot, in turn
-            regslots.slot_add_many(zip(
-                (d_rv, d_rv, d_rv, d_rf, d_rf, d_ra, d_ra),
-                (f[k][t] for k in ("va", "vb", "vc", "fa", "fb", "aa",
-                                   "ab")), d_ops))
+            scatter(t, d_ops)
 
             if grads[7] is not None:
                 d_aux[t] = grads[7]

@@ -45,10 +45,12 @@ its kernel and nowhere else:
   other refuses);
 - ``executor_step_tc``: one step on its tensor-core route (bf16, the main
   path's; ``executor_step_tc_kernel``);
-- ``slot_set``, ``slot_zero``, ``slot_add``: the in-place register-slot
-  updates (``csrc/regslots.cu``);
-- ``slot_add_many``: several slot adds in one launch (the reversible
-  executor's seven a step).
+- ``slot_set_many``, ``slot_zero_many``, ``slot_add_many``: several
+  in-place register-slot updates of one kind in one launch
+  (``csrc/regslots.cu``; the reversible executor's four sets, eight zeros
+  and seven adds of a scan step);
+- ``slot_set``, ``slot_zero``, ``slot_add``: a single update, the
+  one-entry case of the same kernels.
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` source, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``; the
@@ -90,7 +92,8 @@ LAUNCHES = {
     "mega_exec_bwd_tc": 0, "mega_exec_wgrad_tc": 0, "flash_attn": 0,
     "flash_attn_bwd_dq": 0,
     "flash_attn_bwd_dkv": 0, "executor_step": 0, "executor_step_tc": 0,
-    "slot_set": 0, "slot_zero": 0, "slot_add": 0, "slot_add_many": 0,
+    "slot_set": 0, "slot_zero": 0, "slot_add": 0, "slot_set_many": 0,
+    "slot_zero_many": 0, "slot_add_many": 0,
 }
 
 _lib = None
@@ -307,15 +310,9 @@ def build():
     ]
     lib.stair_executor_step_tc_smem.restype = Lg
     lib.stair_executor_step_tc_smem.argtypes = [I, I]       # F, H
-    for fn, val in ((lib.stair_slot_set, [P]), (lib.stair_slot_zero, []),
-                    (lib.stair_slot_add, [P])):
-        fn.restype = I
-        # file, idx, [val,] B, N, slot elements, bf16, stream
-        fn.argtypes = [P, P, *val, I, I, Lg, I, P]
-    lib.stair_slot_add_many.restype = I
-    # files, idxs, vals (host arrays of device pointers), slot elements,
-    # N (host arrays), entries, B, bf16, stream
-    lib.stair_slot_add_many.argtypes = [P, P, P, P, P, I, I, I, P]
+    lib.stair_slot_launch.restype = I
+    # SlotLaunch* (regslots._Launch), step t, stream
+    lib.stair_slot_launch.argtypes = [P, Lg, P]
     _lib = lib
     return lib
 

@@ -1,4 +1,5 @@
-// Register-file slot updates, in place: set, zero, add.
+// Register-file slot updates, in place: set, zero (with an optional
+// read-out), add.
 //
 // Replaces the TPU kernels stair_tpu/ops/regslots.py _set_kernel,
 // _zero_kernel and _add_kernel (reached through _pallas_set, _pallas_zero
@@ -6,37 +7,47 @@
 // example; each kernel touches only slot (b, idx[b]) of every example b:
 //
 //   set:  file[b, idx[b]]  = val[b]
-//   zero: file[b, idx[b]]  = 0
+//   zero: out[b] = file[b, idx[b]] (where an output is named), then
+//         file[b, idx[b]]  = 0
 //   add:  file[b, idx[b]] += val[b]   (in the file's type, one rounding)
 //
 // Design. The TPU kernels alias the file onto their output and let a block
 // index map driven by the prefetched indices pick the slot; here the file
 // is simply written through its pointer, and a block reads its own index.
-// One launch per call over a grid of (example, chunk of the slot). A slot
-// is `slot` contiguous elements; where its byte size and the pointers allow
-// it a thread moves 16 bytes per load and store, else one element. The
-// (b, idx[b]) pairs of one call are unique by construction, so no two
-// blocks write the same address: no atomics. An index outside [0, N)
-// touches nothing.
+// One launch makes up to MAX_ENTRIES updates of one kind, in the order
+// given: the reversible executor's four sets of a scan step in its
+// forward, and in its backward the step's eight zeros (four of them
+// reading the output cotangents out first) and its seven adds. The entries
+// travel by value in the kernel's parameters, so the launch needs no copy
+// to the device. Entries may share a file and a slot (out_attn ==
+// out_attn_b through the scratch slot; an instruction that reads one
+// register twice adds twice to it), and then the updates must happen in
+// the order given: a set leaves the last value, a second read-out sees the
+// zero the first one wrote, each add is rounded on its own. Entries on one
+// file have one slot length and the whole launch one unit (16-byte chunks
+// where every entry allows it, else elements), so unit u of a slot belongs
+// to the same thread in every entry: the thread walks the entries in order
+// over its units, which gives the sequential result with no atomics and no
+// race. An index outside [0, N) touches nothing.
 //
-// The add takes several calls in one launch (stair_slot_add_many, up to
-// MAX_ADDS; stair_slot_add is its one-entry case): the reversible
-// executor's backward adds a step's seven operand cotangents in one go.
-// The entries travel by value in the kernel's parameters, so the launch
-// needs no copy to the device. Entries may share a file and a slot (an
-// instruction that reads one register twice adds twice to it), and then
-// the adds must happen in the order given, each with its own rounding.
-// Entries on one file have one slot length and the whole launch one unit
-// (16-byte chunks where every entry allows it, else elements), so unit u
-// of a slot belongs to the same thread in every entry: the thread walks
-// the entries in order over its units, which gives the sequential result
-// with no atomics and no race.
+// The caller describes a launch once (SlotLaunch: files, the base of each
+// entry's [T, B] int32 index table, values or read-outs) and then names
+// only the scan step t: entry e reads its indices at idx[e] + t * B. So a
+// step's updates cost one launch and no per-call checks on the host
+// (ops/regslots.py SlotPlan); a single update is the one-entry case.
 //
-// What bounds it on an H100: bytes. A call moves slot bytes only (set:
-// read val, write slot; zero: write slot; add: read both, write slot),
-// never the file, which is the point of the kernels; at the training
-// shapes that is 8 KB to 8 MB per call, so the smaller files are bound by
-// the launch itself, and a step's seven adds by one launch.
+// What bounds it on an H100: bytes. A launch moves slot bytes only (set:
+// read val, write slot; zero: write slot, and read it into the read-out;
+// add: read both, write slot), never the file, which is the point of the
+// kernels. At the training shapes (B 128 bf16) a step's sets and its zeros
+// each move ~17 MB, 8.4 MB of it in the frames file's 64 KB slots: the
+// set / zero grid gives each block 512 16-byte units of an example's slot
+// (1,024 blocks for the frames entry, all resident at once on the 132
+// SMs), and a thread issues its loads before its stores. Tensor cores and
+// TMA buy nothing for a copy this size; what the design removes is the
+// host's time between launches.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -45,12 +56,18 @@ namespace {
 using stair::from_f;
 using stair::to_f;
 
-enum { MODE_SET = 0, MODE_ZERO = 1 };
+// kinds of a launch (ops/regslots.py reads these)
+constexpr int KIND_ADD = 0;
+constexpr int KIND_SET = 1;
+constexpr int KIND_ZERO = 2;
 constexpr int THREADS = 256;
-// 16-byte chunks one block handles (a loop of ITEMS per thread)
+// units a thread of the add handles (a loop of ITEMS)
 constexpr int ITEMS = 4;
-// entries of one add launch
-constexpr int MAX_ADDS = 8;
+// units a thread of the set / zero handles: half the add's, so that the
+// frames entry's grid fills the card
+constexpr int MOVE_ITEMS = 2;
+// entries of one launch
+constexpr int MAX_ENTRIES = 8;
 
 template <typename T>
 __device__ __forceinline__ uint4 add16(uint4 a, uint4 b);
@@ -75,40 +92,14 @@ __device__ __forceinline__ uint4 add16<__nv_bfloat16>(uint4 a, uint4 b) {
   return a;
 }
 
-// VEC: the slot is a whole number of aligned 16-byte chunks (`n` counts
-// them); otherwise `n` counts elements.
-template <typename T, int MODE, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-slot_kernel(T* file, const int* idx, const T* val, int N, long slot, long n,
-            int chunks) {
-  const int b = blockIdx.x / chunks;
-  const int s = idx[b];
-  if (s < 0 || s >= N) return;
-  T* dst = file + ((long)b * N + s) * slot;
-  const T* src = MODE == MODE_ZERO ? nullptr : val + (long)b * slot;
-  const long i0 =
-      ((long)(blockIdx.x % chunks) * ITEMS) * THREADS + threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const long i = i0 + (long)k * THREADS;
-    if (i >= n) return;
-    if (VEC) {
-      uint4* d = reinterpret_cast<uint4*>(dst) + i;
-      *d = MODE == MODE_ZERO ? make_uint4(0u, 0u, 0u, 0u)
-                             : reinterpret_cast<const uint4*>(src)[i];
-    } else {
-      dst[i] = MODE == MODE_ZERO ? from_f<T>(0.f) : src[i];
-    }
-  }
-}
-
-// The entries of one add launch, passed by value.
-struct AddMany {
-  void* file[MAX_ADDS];
-  const int* idx[MAX_ADDS];
-  const void* val[MAX_ADDS];
-  long slot[MAX_ADDS];   // elements a slot
-  int N[MAX_ADDS];
+// The entries of one launch, passed by value.
+struct Entries {
+  void* file[MAX_ENTRIES];
+  const int* idx[MAX_ENTRIES];
+  // set / add: the values [B, slot]; zero: the read-out [B, slot] or null
+  void* buf[MAX_ENTRIES];
+  long slot[MAX_ENTRIES];   // elements a slot
+  int N[MAX_ENTRIES];
   int n;
 };
 
@@ -118,17 +109,17 @@ struct AddMany {
 // parameter bank at a fixed offset.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-add_many_kernel(const AddMany d, int chunks) {
+add_many_kernel(const Entries d, int chunks) {
   const int b = blockIdx.x / chunks;
   const long i0 =
       ((long)(blockIdx.x % chunks) * ITEMS) * THREADS + threadIdx.x;
 #pragma unroll
-  for (int e = 0; e < MAX_ADDS; ++e) {
+  for (int e = 0; e < MAX_ENTRIES; ++e) {
     if (e >= d.n) break;
     const int s = d.idx[e][b];
     if (s < 0 || s >= d.N[e]) continue;
     T* dst = static_cast<T*>(d.file[e]) + ((long)b * d.N[e] + s) * d.slot[e];
-    const T* src = static_cast<const T*>(d.val[e]) + (long)b * d.slot[e];
+    const T* src = static_cast<const T*>(d.buf[e]) + (long)b * d.slot[e];
     const long n = VEC ? d.slot[e] * (long)sizeof(T) / 16 : d.slot[e];
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
@@ -144,46 +135,80 @@ add_many_kernel(const AddMany d, int chunks) {
   }
 }
 
-template <typename T, int MODE>
-int launch(void* file, const void* idx, const void* val, int B, int N,
-           long slot, cudaStream_t stream) {
-  const long bytes = slot * (long)sizeof(T);
-  const bool vec = bytes % 16 == 0 && (size_t)file % 16 == 0 &&
-                   (MODE == MODE_ZERO || (size_t)val % 16 == 0);
-  const long n = vec ? bytes / 16 : slot;
-  const long per_block = (long)THREADS * ITEMS;
-  const long chunks = (n + per_block - 1) / per_block;
-  if (chunks * B > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)(chunks * B);
-  if (vec)
-    slot_kernel<T, MODE, true><<<grid, THREADS, 0, stream>>>(
-        (T*)file, (const int*)idx, (const T*)val, N, slot, n, (int)chunks);
+template <typename U>
+__device__ __forceinline__ U zero_unit() {
+  if constexpr (std::is_same<U, uint4>::value)
+    return make_uint4(0u, 0u, 0u, 0u);
   else
-    slot_kernel<T, MODE, false><<<grid, THREADS, 0, stream>>>(
-        (T*)file, (const int*)idx, (const T*)val, N, slot, n, (int)chunks);
-  return (int)cudaGetLastError();
+    return from_f<U>(0.f);
 }
 
-template <int MODE>
-int dispatch(void* file, const void* idx, const void* val, int B, int N,
-             long slot, int bf16, void* stream) {
-  if (B <= 0 || N <= 0 || slot <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch<__nv_bfloat16, MODE>(file, idx, val, B, N, slot, st);
-  return launch<float, MODE>(file, idx, val, B, N, slot, st);
+// KIND_SET: file_e[b, idx_e[b]] = val_e[b]; KIND_ZERO: out_e[b] =
+// file_e[b, idx_e[b]] where out_e is named, then file_e[b, idx_e[b]] = 0;
+// for e = 0 .. d.n - 1 in turn, over this block's units (U: 16-byte chunks
+// or elements). A thread loads all its units of an entry before it stores
+// any, so MOVE_ITEMS loads are in flight; its stores to one address keep
+// their program order across entries.
+template <typename T, int KIND, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+move_many_kernel(const Entries d, int chunks) {
+  using U = typename std::conditional<VEC, uint4, T>::type;
+  const int b = blockIdx.x / chunks;
+  const long i0 =
+      ((long)(blockIdx.x % chunks) * MOVE_ITEMS) * THREADS + threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < MAX_ENTRIES; ++e) {
+    if (e >= d.n) break;
+    const long n = VEC ? d.slot[e] * (long)sizeof(T) / 16 : d.slot[e];
+    if (i0 >= n) continue;
+    const int s = d.idx[e][b];
+    if (s < 0 || s >= d.N[e]) continue;
+    U* dst = reinterpret_cast<U*>(static_cast<T*>(d.file[e]) +
+                                  ((long)b * d.N[e] + s) * d.slot[e]);
+    U* buf = d.buf[e] == nullptr
+                 ? nullptr
+                 : reinterpret_cast<U*>(static_cast<T*>(d.buf[e]) +
+                                        (long)b * d.slot[e]);
+    U v[MOVE_ITEMS];
+    if (KIND == KIND_SET || buf != nullptr) {
+#pragma unroll
+      for (int k = 0; k < MOVE_ITEMS; ++k) {
+        const long i = i0 + (long)k * THREADS;
+        if (i < n) v[k] = KIND == KIND_SET ? buf[i] : dst[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < MOVE_ITEMS; ++k) {
+      const long i = i0 + (long)k * THREADS;
+      if (i >= n) break;
+      if (KIND == KIND_SET) {
+        dst[i] = v[k];
+      } else {
+        if (buf != nullptr) buf[i] = v[k];
+        dst[i] = zero_unit<U>();
+      }
+    }
+  }
+}
+
+// The launch's unit: 16-byte chunks where every entry's slot and pointers
+// allow it (*vec), else elements; returns the units of the longest slot.
+template <typename T>
+long launch_units(const Entries& d, bool* vec) {
+  *vec = true;
+  long longest = 0;
+  for (int e = 0; e < d.n; ++e) {
+    *vec = *vec && d.slot[e] * (long)sizeof(T) % 16 == 0 &&
+           (size_t)d.file[e] % 16 == 0 && (size_t)d.buf[e] % 16 == 0;
+    longest = d.slot[e] > longest ? d.slot[e] : longest;
+  }
+  return *vec ? longest * (long)sizeof(T) / 16 : longest;
 }
 
 template <typename T>
-int launch_add(const AddMany& d, int B, cudaStream_t stream) {
-  bool vec = true;
-  long longest = 0;
-  for (int e = 0; e < d.n; ++e) {
-    vec = vec && d.slot[e] * (long)sizeof(T) % 16 == 0 &&
-          (size_t)d.file[e] % 16 == 0 && (size_t)d.val[e] % 16 == 0;
-    longest = d.slot[e] > longest ? d.slot[e] : longest;
-  }
-  const long n = vec ? longest * (long)sizeof(T) / 16 : longest;
+int launch_add(const Entries& d, int B, cudaStream_t stream) {
+  bool vec;
+  const long n = launch_units<T>(d, &vec);
   const long per_block = (long)THREADS * ITEMS;
   const long chunks = (n + per_block - 1) / per_block;
   if (chunks * B > 0x7fffffffL) return (int)cudaErrorInvalidValue;
@@ -195,63 +220,70 @@ int launch_add(const AddMany& d, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int add_many(void* const* files, const void* const* idxs,
-             const void* const* vals, const long* slots, const int* Ns,
-             int n, int B, int bf16, void* stream) {
-  if (n < 1 || n > MAX_ADDS || B <= 0) return (int)cudaErrorInvalidValue;
-  AddMany d;
-  d.n = n;
-  for (int e = 0; e < n; ++e) {
-    if (Ns[e] <= 0 || slots[e] <= 0) return (int)cudaErrorInvalidValue;
-    d.file[e] = files[e];
-    d.idx[e] = (const int*)idxs[e];
-    d.val[e] = vals[e];
-    d.slot[e] = slots[e];
-    d.N[e] = Ns[e];
-  }
-  for (int e = n; e < MAX_ADDS; ++e) {
-    d.file[e] = nullptr;
-    d.idx[e] = nullptr;
-    d.val[e] = nullptr;
-    d.slot[e] = 0;
-    d.N[e] = 0;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) return launch_add<__nv_bfloat16>(d, B, st);
-  return launch_add<float>(d, B, st);
+template <typename T, int KIND>
+int launch_move(const Entries& d, int B, cudaStream_t stream) {
+  bool vec;
+  const long n = launch_units<T>(d, &vec);
+  const long per_block = (long)THREADS * MOVE_ITEMS;
+  const long chunks = (n + per_block - 1) / per_block;
+  if (chunks * B > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(chunks * B);
+  if (vec)
+    move_many_kernel<T, KIND, true>
+        <<<grid, THREADS, 0, stream>>>(d, (int)chunks);
+  else
+    move_many_kernel<T, KIND, false>
+        <<<grid, THREADS, 0, stream>>>(d, (int)chunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_kind(const Entries& d, int B, int kind, cudaStream_t stream) {
+  if (kind == KIND_ADD) return launch_add<T>(d, B, stream);
+  if (kind == KIND_SET) return launch_move<T, KIND_SET>(d, B, stream);
+  return launch_move<T, KIND_ZERO>(d, B, stream);
 }
 
 }  // namespace
 
-// file: [B, N, slot] contiguous, float32 or bf16 (bf16 != 0); idx: [B]
-// int32 on the device; val: [B, slot] contiguous in the file's type. Each
-// returns cudaGetLastError() after its launch (or cudaErrorInvalidValue).
-extern "C" int stair_slot_set(void* file, const void* idx, const void* val,
-                              int B, int N, long slot, int bf16,
-                              void* stream) {
-  return dispatch<MODE_SET>(file, idx, val, B, N, slot, bf16, stream);
-}
+// One launch, described by the caller: mirrored field for field by
+// ops/regslots.py _Launch (ctypes), which must change with it.
+struct SlotLaunch {
+  void* file[MAX_ENTRIES];       // [B, N[e], slot[e]] contiguous
+  const int* idx[MAX_ENTRIES];   // row 0 of a [T, B] int32 index table
+  void* buf[MAX_ENTRIES];        // [B, slot[e]]: values, or read-out / null
+  long slot[MAX_ENTRIES];
+  int N[MAX_ENTRIES];
+  int n;                         // entries, 1 .. MAX_ENTRIES
+  int B;
+  int kind;                      // KIND_ADD, KIND_SET or KIND_ZERO
+  int bf16;                      // bf16 != 0, else float32; one for all
+};
 
-extern "C" int stair_slot_zero(void* file, const void* idx, int B, int N,
-                               long slot, int bf16, void* stream) {
-  return dispatch<MODE_ZERO>(file, idx, nullptr, B, N, slot, bf16, stream);
-}
-
-// The one-entry case of stair_slot_add_many.
-extern "C" int stair_slot_add(void* file, const void* idx, const void* val,
-                              int B, int N, long slot, int bf16,
-                              void* stream) {
-  return add_many(&file, &idx, &val, &slot, &N, 1, B, bf16, stream);
-}
-
-// n (1 .. MAX_ADDS) adds in one launch, in the order given: entry e is
-// files[e] [B, Ns[e], slots[e]], idxs[e] [B] int32, vals[e] [B, slots[e]],
-// all of one type (bf16 != 0: bf16, else float32) and one B. Host arrays of
-// device pointers; entries that share a file name the same pointer.
-extern "C" int stair_slot_add_many(void* const* files,
-                                   const void* const* idxs,
-                                   const void* const* vals,
-                                   const long* slots, const int* Ns, int n,
-                                   int B, int bf16, void* stream) {
-  return add_many(files, idxs, vals, slots, Ns, n, B, bf16, stream);
+// The updates of `launch` at step t (entry e's indices at idx[e] + t * B),
+// in one launch on `stream`. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a description the kernels do not take.
+extern "C" int stair_slot_launch(const SlotLaunch* launch, long t,
+                                 void* stream) {
+  const SlotLaunch& h = *launch;
+  if (h.n < 1 || h.n > MAX_ENTRIES || h.B <= 0 || t < 0 ||
+      (h.kind != KIND_ADD && h.kind != KIND_SET && h.kind != KIND_ZERO))
+    return (int)cudaErrorInvalidValue;
+  Entries d;
+  d.n = h.n;
+  for (int e = 0; e < MAX_ENTRIES; ++e) {
+    const bool live = e < h.n;
+    if (live && (h.N[e] <= 0 || h.slot[e] <= 0 || h.file[e] == nullptr ||
+                 h.idx[e] == nullptr ||
+                 (h.kind != KIND_ZERO && h.buf[e] == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    d.file[e] = live ? h.file[e] : nullptr;
+    d.idx[e] = live ? h.idx[e] + t * h.B : nullptr;
+    d.buf[e] = live ? h.buf[e] : nullptr;
+    d.slot[e] = live ? h.slot[e] : 0;
+    d.N[e] = live ? h.N[e] : 0;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (h.bf16) return launch_kind<__nv_bfloat16>(d, h.B, h.kind, st);
+  return launch_kind<float>(d, h.B, h.kind, st);
 }

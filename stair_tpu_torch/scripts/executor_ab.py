@@ -39,8 +39,22 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   general route, so every checkout hands it the same bits);
 - ``slot_add_ms``: #13, the seven slot adds of one ``"rev"`` backward step
   at the train shapes (bf16, B 128) as the checkout's ``rev_exec`` makes
-  them (one ``slot_add_many`` where the checkout has it, else seven
-  ``slot_add``), and ``slot_add_seven_ms``: seven ``slot_add`` launches.
+  them (one ``SlotPlan`` call where the checkout has it, else one
+  ``slot_add_many``, else seven ``slot_add``), and ``slot_add_seven_ms``:
+  seven ``slot_add`` launches; ``slot_set_ms`` (#11) and ``slot_zero_ms``
+  (#12): the step's four sets and its eight reads-and-zeros (the four
+  output cotangents read out, then zeroed, then the same slots of the
+  register files) as its ``rev_exec`` makes them (one ``SlotPlan`` call
+  each where the checkout has it, else four ``slot_set``, and four
+  gathers and eight ``slot_zero``); the three again by CUDA-graph replay
+  (``slot_add_graph_ms``, ``slot_set_graph_ms``, ``slot_zero_graph_ms``:
+  the device's time without the host's between launches, on files that
+  stay in L2);
+- ``rev_digest``: the same hash of one bf16 ``"rev"`` train step's loss
+  and every gradient leaf (B 128, dropout 0.25, weights from seed 0, the
+  loss's generator from seed 7, ``torch.use_deterministic_algorithms``
+  on), through the model's public API, and ``rev_step_ms``: that step
+  (loss and backward) by CUDA events.
 
 Then, unless ``--no-phases``, that checkout's ``chip_smoke.py`` phases 5
 (serving) and 8 (the train step), which print q/s, device ms per batch,
@@ -176,30 +190,112 @@ def step_rows(dev):
 
 
 def slot_rows(dev):
-    """``slot_add_ms`` and ``slot_add_seven_ms`` (see the module
+    """``slot_add_ms``, ``slot_add_seven_ms``, ``slot_set_ms``,
+    ``slot_zero_ms`` and their graph-replay times (see the module
     docstring) on files of the train step's shapes from a fixed seed."""
+    from stair_tpu_torch.models.rev_exec import take
     from stair_tpu_torch.ops import regslots as TR
-    from stair_tpu_torch.utils.device import cuda_time_ms
+    from stair_tpu_torch.utils.device import cuda_time_ms, graph_ms
 
     gen = torch.Generator().manual_seed(13)
     B = 128
     shapes = {"rv": (B, 25, 512), "rf": (B, 9, 64, 512), "ra": (B, 11, 64)}
     files = {n: torch.randn(s, generator=gen).to(dev, torch.bfloat16)
              for n, s in shapes.items()}
-    adds = [(files[n], torch.randint(0, shapes[n][1], (B,), generator=gen)
-             .to(dev, torch.int32),
-             torch.randn(B, *shapes[n][2:], generator=gen).to(
-                 dev, torch.bfloat16))
+
+    def index(n):
+        return torch.randint(0, shapes[n][1], (B,), generator=gen).to(
+            dev, torch.int32)
+
+    def block(n):
+        return torch.randn(B, *shapes[n][2:], generator=gen).to(
+            dev, torch.bfloat16)
+
+    adds = [(files[n], index(n), block(n))
             for n in ("rv", "rv", "rv", "rf", "rf", "ra", "ra")]
+    # out_vec, out_frames, out_attn, out_attn_b (on one slot for half the
+    # examples, as through the scratch slot)
+    sets = [(files[n], index(n), block(n)) for n in ("rv", "rf", "ra", "ra")]
+    sets[3][1][:B // 2] = sets[2][1][:B // 2]
+    cots = {n: torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+            for n, s in shapes.items()}
+    written = [(f, i) for f, i, _ in reversed(sets)]
+    d_written = [(cots[n], i) for n, (_, i) in zip(("ra", "ra", "rf", "rv"),
+                                                   written)]
 
     def seven():
         for f, i, v in adds:
             TR.slot_add(f, i, v)
 
-    many = getattr(TR, "slot_add_many", None)
-    return {"slot_add_ms": cuda_time_ms(
-                (lambda: many(adds)) if many else seven, iters=20),
-            "slot_add_seven_ms": cuda_time_ms(seven, iters=20)}
+    if hasattr(TR, "SlotPlan"):
+        add_plan = TR.SlotPlan("add", [(f, i.view(1, -1)) for f, i, _ in
+                                       adds])
+        set_plan = TR.SlotPlan("set", [(f, i.view(1, -1)) for f, i, _ in
+                                       sets])
+        outs = [f.new_empty((B, *f.shape[2:])) for f, _ in d_written]
+        zero_plan = TR.SlotPlan("zero", [
+            *((f, i.view(1, -1), o) for (f, i), o in zip(d_written, outs)),
+            *((f, i.view(1, -1)) for f, i in written)])
+
+        def add():
+            add_plan(0, [v for _, _, v in adds])
+
+        def set_():
+            set_plan(0, [v for _, _, v in sets])
+
+        def zero():
+            zero_plan(0)
+    else:
+        many = getattr(TR, "slot_add_many", None)
+
+        def add():
+            many(adds) if many else seven()
+
+        def set_():
+            for f, i, v in sets:
+                TR.slot_set(f, i, v)
+
+        def zero():
+            for f, i in d_written:
+                take(f, i)
+                TR.slot_zero(f, i)
+            for f, i in written:
+                TR.slot_zero(f, i)
+
+    return {"slot_add_ms": cuda_time_ms(add, iters=20),
+            "slot_add_seven_ms": cuda_time_ms(seven, iters=20),
+            "slot_set_ms": cuda_time_ms(set_, iters=20),
+            "slot_zero_ms": cuda_time_ms(zero, iters=20),
+            "slot_add_graph_ms": graph_ms(add),
+            "slot_set_graph_ms": graph_ms(set_),
+            "slot_zero_graph_ms": graph_ms(zero)}
+
+
+def rev_rows(dev, cfg, batch):
+    """``rev_digest`` and ``rev_step_ms`` (see the module docstring)."""
+    from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.train.losses import total_loss
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    model = W.build_model(cfg, seed=0, device=dev, executor="rev")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = total_loss(model, batch, torch.Generator().manual_seed(7),
+                             1.0, 1.0, 1.0, 1.0, contrastive_window=32)
+        loss.backward()
+        return loss
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss = step()
+        row = {"rev_digest": digest([loss.detach(), *(
+            torch.zeros_like(p) if p.grad is None else p.grad
+            for _, p in sorted(model.weights.items()))])}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    row["rev_step_ms"] = cuda_time_ms(step, iters=3, warmup=1)
+    return row
 
 
 def one(root, tag, phases):
@@ -286,7 +382,8 @@ def one(root, tag, phases):
     torch.cuda.empty_cache()
     for rnd in range(2):
         print(json.dumps({"tag": tag, "card": card, "round": rnd,
-                          **step_rows(dev), **slot_rows(dev)}), flush=True)
+                          **step_rows(dev), **slot_rows(dev),
+                          **rev_rows(dev, tcfg, batch)}), flush=True)
 
     if phases:
         import chip_smoke

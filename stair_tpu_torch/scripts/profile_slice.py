@@ -60,7 +60,7 @@ from stair_tpu_torch.utils.device import card_identity, exact_f32
 
 #: substrings of the port's own kernels' names: their rows are printed
 #: even where they fall below the heaviest operators
-PORT_KERNELS = ("bilstm_", "mega_", "flash_", "step_kernel", "slot_kernel")
+PORT_KERNELS = ("bilstm_", "mega_", "flash_", "step_kernel", "_many_kernel")
 
 
 def busy_ms(prof) -> float:

@@ -175,14 +175,15 @@ def test_chip_smoke_lists_nine_kernels_with_launch_counters():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         text = f.read()
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
-    # fifteen since the scan executor's step kernel gained its tensor-core
-    # route and the slot adds their many-entry launch (the test keeps the
-    # name it had when there were nine)
-    assert len(names) == len(set(names)) == 15, names
+    # seventeen since the slot sets and zeros gained their many-entry
+    # launches beside the adds' (the test keeps the name it had when there
+    # were nine)
+    assert len(names) == len(set(names)) == 17, names
     assert set(names) <= set(_build.LAUNCHES), names
     assert {"flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
             "executor_step", "executor_step_tc", "slot_set", "slot_zero",
-            "slot_add", "slot_add_many"} <= set(names)
+            "slot_add", "slot_set_many", "slot_zero_many",
+            "slot_add_many"} <= set(names)
     for src in set(re.findall(r'"(stair_tpu_torch/ops/csrc/\w+\.cu)"',
                               text)):
         assert os.path.exists(os.path.join(REPO, src)), src

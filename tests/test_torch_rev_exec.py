@@ -14,8 +14,12 @@ every gradient leaf by its key path:
   cannot be reproduced, so JAX is no reference there), and another seed
   gives another loss;
 - the ``"rev"`` route really goes through ``rev_exec``'s backward and the
-  slot updates (4 sets per step forward; 8 zeros and 7 adds per step
-  backward), and leaves the caller's register files alone.
+  slot updates (one plan call per step for the 4 sets forward, one for the
+  8 reads-and-zeros and one for the 7 adds backward), and leaves the
+  caller's register files alone;
+- the plan route gives the loss and gradients of the step-by-step route
+  (each update on its own, the read-outs as index gathers) on a batch
+  whose steps write the scratch attn slot twice.
 
 On the card, ``"rev"`` against ``"step"`` with the slot kernels' launch
 counts.
@@ -158,12 +162,15 @@ def _leaves(tree):
 def test_rev_path_engaged(monkeypatch):
     """Training with ``executor="rev"`` must go through ``rev_exec``'s
     forward and backward and the slot updates (a silent use of the
-    autograd route would pass the parity tests vacuously)."""
+    autograd route would pass the parity tests vacuously): per step one
+    call of each plan, and none of the single updates."""
     import stair_tpu_torch.ops.regslots as RS
 
     calls = {"fwd": 0, "bwd": 0, "slot_set": 0, "slot_zero": 0,
-             "slot_add": 0, "slot_add_many": 0}
+             "slot_add": 0, "slot_set_many": 0, "slot_zero_many": 0,
+             "slot_add_many": 0}
     fwd, bwd = TR._RevExec.forward, TR._RevExec.backward
+    plan_call = RS.SlotPlan.__call__
 
     def count(key, fn):
         def wrapped(*a):
@@ -171,22 +178,64 @@ def test_rev_path_engaged(monkeypatch):
             return fn(*a)
         return wrapped
 
+    def counted_plan(self, t, vals=()):
+        calls[self.key] += 1
+        return plan_call(self, t, vals)
+
     monkeypatch.setattr(TR._RevExec, "forward",
                         staticmethod(count("fwd", fwd)))
     monkeypatch.setattr(TR._RevExec, "backward",
                         staticmethod(count("bwd", bwd)))
-    for key in ("slot_set", "slot_zero", "slot_add", "slot_add_many"):
-        monkeypatch.setattr(RS, key, count(key, getattr(RS, key)))
+    monkeypatch.setattr(RS.SlotPlan, "__call__", counted_plan)
     cfg = _cfg(0.25)
     batch = _batch(cfg)
     T = batch["trace"]["opcode"].shape[1]
     _, rev = _models(cfg)
     _port_grads(rev, batch)
-    assert calls == {"fwd": 1, "bwd": 1, "slot_set": 4 * T,
-                     "slot_zero": 8 * T, "slot_add": 0, "slot_add_many": T}
+    assert calls == {"fwd": 1, "bwd": 1, "slot_set": 0, "slot_zero": 0,
+                     "slot_add": 0, "slot_set_many": T, "slot_zero_many": T,
+                     "slot_add_many": T}
     # eval on the same model is the "step" route
     rev(torch_batch(batch))
     assert calls["fwd"] == 1
+
+
+def test_rev_plan_route_matches_step_by_step_plain_route(monkeypatch):
+    """The plans (one call a step for the sets, the reads-and-zeros and the
+    adds) against the route they replace: each update on its own, in the
+    same order, the output cotangents taken by index gathers before their
+    zeros. Equal loss and gradients (float32), on a batch in which some
+    steps write the scratch attn slot twice (out_attn == out_attn_b)."""
+    import stair_tpu_torch.ops.regslots as RS
+
+    class StepByStep(RS.SlotPlan):
+        def __call__(self, t, vals=()):
+            for e, (file, table) in enumerate(zip(self.files, self.tables)):
+                if self.kind == "set":
+                    RS.slot_set_reference(file, table[t], vals[e])
+                elif self.kind == "add":
+                    RS.slot_add_reference(file, table[t], vals[e])
+                else:
+                    if self.outs[e] is not None:
+                        self.outs[e].copy_(TR.take(file, table[t]))
+                    RS.slot_zero_reference(file, table[t])
+            return self.files
+
+    cfg = _cfg(0.25)
+    batch = _batch(cfg)
+    tr = batch["trace"]
+    assert (np.asarray(tr["out_attn"]) == np.asarray(tr["out_attn_b"])).any()
+    _, plan = _models(cfg)
+    _, seq = _models(cfg)
+    lp, gp = _port_grads(plan, batch)
+    monkeypatch.setattr(RS, "SlotPlan", StepByStep)
+    ls, gs = _port_grads(seq, batch)
+    assert lp == ls
+    want, got = list(_leaves(gs)), list(_leaves(gp))
+    assert len(want) == len(got)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    assert any(float(np.abs(g).max()) > 0 for g in got)
 
 
 def test_rev_backward_leaves_the_forward_outputs_alone():
@@ -207,8 +256,10 @@ def test_rev_backward_leaves_the_forward_outputs_alone():
 
 @pytest.mark.cuda
 def test_rev_matches_step_on_card_with_slot_kernel_counts(cuda_device):
-    """On CUDA tensors the ``"rev"`` route launches the slot kernels (4 T
-    sets, 8 T zeros, T launches of the seven adds per step) and no megakernel, and gives the
+    """On CUDA tensors the ``"rev"`` route launches the slot kernels (per
+    step one launch for the four sets, one for the eight reads-and-zeros and
+    one for the seven adds; no single updates) and no megakernel, and gives
+    the
     ``"step"`` route's loss and gradients under one seed (float32, 1e-4 of
     each leaf's scale: the replay reorders no sums, the accumulation of the
     weight cotangents over steps does)."""
@@ -229,10 +280,10 @@ def test_rev_matches_step_on_card_with_slot_kernel_counts(cuda_device):
         got[executor] = (float(loss.detach()), grads_to_numpy(model),
                          dict(_build.LAUNCHES))
     launches = got["rev"][2]
-    assert (launches["slot_set"], launches["slot_zero"],
-            launches["slot_add_many"], launches["slot_add"]) == (
-                4 * T, 8 * T, T, 0)
+    assert (launches["slot_set_many"], launches["slot_zero_many"],
+            launches["slot_add_many"], launches["slot_set"],
+            launches["slot_zero"], launches["slot_add"]) == (T, T, T, 0, 0, 0)
     assert launches["mega_exec_train"] == launches["executor_step"] == 0
-    assert got["step"][2]["slot_set"] == 0
+    assert got["step"][2]["slot_set_many"] == 0
     assert got["rev"][0] == pytest.approx(got["step"][0], rel=1e-5)
     assert_grad_trees_close(got["step"][1], got["rev"][1], rel=1e-4)
