@@ -154,7 +154,25 @@ Phases (any failure raises, and the script exits non-zero):
    whose every slot launch is held to its plain version (equal bits, the
    read-outs included); a finite, falling loss over 10 steps; one step's
    loss and every gradient leaf in float32 against ``executor="step"``
-   under the same seed; ms per step beside phase 8's.
+   under the same seed; ms per step beside phase 8's;
+18. the NMN trainer and evaluate CLIs at full width: a synthetic AGQA world
+   (``testing/agqa_world.py``: 48 videos x 8 questions, 64 frames of 1024
+   features, 300-wide GloVe; preprocessed and split 70 / 15 / 15) and
+   ``train.loop.main`` with the JAX trainer's flags at phase 8's widths
+   (H 512, video 1024, text 300, F 64, B 128, dropout 0.25, window 32,
+   device tables, bf16 through ``--config-filename``) for 3 epochs,
+   evaluating once an epoch: per train step the launches of phase 8
+   (``TRAIN_LAUNCHES``), per eval batch ``EVAL_LAUNCHES`` (three encodes
+   on the BiLSTM's cluster route and one executor forward on its
+   tensor-core route), nothing else; a finite loss, and the answer loss
+   and the mean module-family loss falling from the first report to the
+   last; ``best_model/`` and ``latest/`` with their
+   four files; the JAX trainer's metric names; ms per step by the host
+   clock and by CUDA events beside phase 8's; a resume from ``latest/``
+   for one epoch (optimizer state restored, the step count adding up, the
+   learning rate of every report after it ``lr_schedule(step)``); then
+   ``train.evaluate.main`` on ``best_model/`` over the valid split, whose
+   accuracy must equal the trainer's best exactly, and its Filter audit.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are ``{"kernels": [...]}`` (per
@@ -174,6 +192,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -422,11 +443,13 @@ TRAIN_KEYS = {"tc": "mega_exec_train_tc", "general": "mega_exec_train"}
 @contextlib.contextmanager
 def kernel_route(keys):
     """Fail unless every kernel named in ``keys`` was launched inside the
-    block."""
+    block; yields a dict that holds the block's launches once it ends."""
     from stair_tpu_torch.ops import _build
 
     _build.reset_launches()
-    yield
+    seen = {}
+    yield seen
+    seen.update({k: v for k, v in _build.LAUNCHES.items() if v})
     require(all(_build.LAUNCHES[k] for k in keys),
             f"the kernel route skipped a kernel: {_build.LAUNCHES}")
 
@@ -1011,6 +1034,64 @@ def phase_mega_train(dev):
     return errs
 
 
+def hold_step_routes(tag, models, batch, window, seed=7):
+    """One train step of each ``(model, dtype)`` in ``models`` on ``batch``
+    (a materialized batch), on the kernel route against the plain route:
+    the same weights, batch and dropout masks. Returns each kernel-route
+    run's launches by dtype.
+
+    Gradients are held leaf by leaf in float32: in bf16 the two routes
+    round at different sites and ReLUs take different sides, so leaves
+    move by up to ~0.17 (max) and ~0.09 (norm) with no logic at fault. In
+    float32 a ReLU pre-activation within rounding of 0 still moves a leaf
+    by up to ~2e-3 in norm (a logic error moves it by O(1)): bound 1e-2 on
+    ||kernel - plain|| / ||plain|| per leaf. The loss agrees within 1e-4
+    in both dtypes. float32 takes the backward's general route (the exact
+    one)."""
+    from stair_tpu_torch.train.losses import total_loss
+
+    def grads_of(m):
+        m.zero_grad(set_to_none=True)
+        loss, _ = total_loss(m, batch, torch.Generator().manual_seed(seed),
+                             1.0, 1.0, 1.0, 1.0, contrastive_window=window)
+        loss.backward()
+        return float(loss.detach()), {
+            k: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+            for k, p in m.weights.items()}
+
+    def norm_rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
+    keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
+        "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh",
+        "mega_exec_train", "mega_exec_bwd", "mega_exec_wgrad")
+    launched = {}
+    for m, dtype in models:
+        with kernel_route(keys32 if dtype == "float32" else keys) as seen:
+            lk, gk = grads_of(m)
+        launched[dtype] = seen
+        with plain_route():
+            lp, gp = grads_of(m)
+        require(abs(lk - lp) <= 1e-4 * abs(lp),
+                f"{dtype} step loss kernel {lk} vs plain {lp}")
+        if dtype == "float32":
+            live = [k for k in gk if gp[k].abs().max() > 0]
+            rels = {k: norm_rel(gk[k], gp[k]) for k in live}
+            worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
+            mx = max(rel_err(gk[k], gp[k]) for k in live)
+            require(worst[0][1] <= 1e-2, f"kernel vs plain gradients {worst}")
+            log(f"{tag} one step's float32 gradients, kernel vs plain route"
+                f" over {len(live)} leaves: worst norm rel err "
+                f"{[(k, f'{v:.2e}') for k, v in worst]} (bound 1e-2), median "
+                f"{float(np.median(list(rels.values()))):.2e}, max-based "
+                f"worst {mx:.2e}; loss {lk:.6f} vs {lp:.6f}")
+        else:
+            log(f"{tag} one bf16 step's loss, kernel vs plain route: "
+                f"{lk:.6f} vs {lp:.6f} (bound 1e-4 relative)")
+    return launched
+
+
 def phase_train(dev, card):
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
     from stair_tpu_torch.ops import _build
@@ -1019,7 +1100,6 @@ def phase_train(dev, card):
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.testing import workload as W
     from stair_tpu_torch.train.loop import make_train_step, trainer_defaults
-    from stair_tpu_torch.train.losses import total_loss
     from stair_tpu_torch.utils.device import cuda_time_ms
 
     base = W.workload_config(hidden_size=HIDDEN, video_size=VIDEO_D,
@@ -1034,56 +1114,12 @@ def phase_train(dev, card):
     args = trainer_defaults()    # lr 2e-4, schedule 1.0 -> 0.1, window 32
     model = W.build_model(cfg, seed=0, device=dev)
 
-    def grads_of(m, seed):
-        m.zero_grad(set_to_none=True)
-        loss, _ = total_loss(m, batch, torch.Generator().manual_seed(seed),
-                             1.0, 1.0, 1.0, 1.0,
-                             contrastive_window=args.contrastive_window)
-        loss.backward()
-        return float(loss.detach()), {
-            k: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
-            for k, p in m.weights.items()}
-
-    def norm_rel(a, b):
-        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
-
     # ---- one step, kernel route vs plain route ---------------------------
-    # Gradients leaf by leaf in float32 (the same weights, batch and
-    # dropout masks): in bf16 the two routes round at different sites and
-    # ReLUs take different sides, so leaves move by up to ~0.17 (max) and
-    # ~0.09 (norm) with no logic at fault. In float32 a ReLU pre-activation
-    # within rounding of 0 still moves a leaf by up to ~2e-3 in norm (a
-    # logic error moves it by O(1)): bound 1e-2 on ||kernel - plain|| /
-    # ||plain|| per leaf. The bf16 step's loss agrees within 1e-4.
-    # float32 takes the backward's general route (the exact one)
-    keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
-    keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
-        "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh",
-        "mega_exec_train", "mega_exec_bwd", "mega_exec_wgrad")
     model32 = W.build_model(NMNConfig(**{**cfg.to_dict(),
                                          "compute_dtype": "float32"}),
                             seed=0, device=dev)
-    for m, dtype in ((model32, "float32"), (model, "bfloat16")):
-        with kernel_route(keys32 if dtype == "float32" else keys):
-            lk, gk = grads_of(m, 7)
-        with plain_route():
-            lp, gp = grads_of(m, 7)
-        require(abs(lk - lp) <= 1e-4 * abs(lp),
-                f"{dtype} step loss kernel {lk} vs plain {lp}")
-        if dtype == "float32":
-            live = [k for k in gk if gp[k].abs().max() > 0]
-            rels = {k: norm_rel(gk[k], gp[k]) for k in live}
-            worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
-            mx = max(rel_err(gk[k], gp[k]) for k in live)
-            require(worst[0][1] <= 1e-2, f"kernel vs plain gradients {worst}")
-            log(f"[train] one step's float32 gradients, kernel vs plain route"
-                f" over {len(live)} leaves: worst norm rel err "
-                f"{[(k, f'{v:.2e}') for k, v in worst]} (bound 1e-2), median "
-                f"{float(np.median(list(rels.values()))):.2e}, max-based "
-                f"worst {mx:.2e}; loss {lk:.6f} vs {lp:.6f}")
-        else:
-            log(f"[train] one bf16 step's loss, kernel vs plain route: "
-                f"{lk:.6f} vs {lp:.6f} (bound 1e-4 relative)")
+    hold_step_routes("[train]", ((model32, "float32"), (model, "bfloat16")),
+                     batch, args.contrastive_window)
     del model32
 
     # ---- the counted main-path run: 10 steps on the kernel route --------
@@ -2597,13 +2633,44 @@ def phase_step_kernel(dev):
     return general_launches
 
 
+def hold_files(what, trace, out, ref, keys):
+    """Two bf16 routes' register files ``out[k]`` against ``ref[k]`` for
+    ``k`` in ``keys``: the executor's bf16 tolerance (atol 3e-2 + rtol
+    1e-2) on all but 1e-5 of a file's elements, and twice that on every
+    element. Choose is the one module with a hard select: where its two
+    cosines tie within CHOOSE_TIE the routes may keep different keywords,
+    and such an example (at most one in 200) is held to that and left out.
+    Returns ``(max abs errs, elements outside, flipped examples, widest
+    flipped tie, each example's least Choose gap)``."""
+    from stair_tpu_torch.testing.workload import choose_flips
+
+    flipped, margin = choose_flips(trace, out["regs_vec"], ref["regs_vec"])
+    n_flipped = int(flipped.sum())
+    worst_tie = float(margin[flipped].max()) if n_flipped else 0.0
+    require(n_flipped <= len(flipped) // 200 and worst_tie <= CHOOSE_TIE,
+            f"{what}: {n_flipped} examples chose another keyword, "
+            f"cosines apart by up to {worst_tie:.3e}")
+    same = ~flipped
+    errs, outside = {}, {}
+    for k in keys:
+        diff = (out[k][same] - ref[k][same]).abs()
+        tol = 3e-2 + 1e-2 * ref[k][same].abs()
+        outside[k] = int((diff > tol).sum())
+        errs[k] = float(diff.max())
+        require(outside[k] <= 1e-5 * diff.numel()
+                and bool((diff <= 2 * tol).all()),
+                f"{what} {k}: {outside[k]} of {diff.numel()} elements "
+                f"outside the tolerance, worst {float((diff / tol).max()):.2f}"
+                " of it")
+    return errs, outside, n_flipped, worst_tie, margin
+
+
 def phase_step_slice(dev, card, general_launches):
     """The serving path on the scan executor, beside the megakernel route
     of ``phase_slice`` (the same configuration, batches and weights)."""
     from stair_tpu_torch.models.nmn import VideoNMN
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import executor_step as TE
-    from stair_tpu_torch.testing.workload import choose_flips
     from stair_tpu_torch.utils.device import cuda_time_ms
 
     serving, mega = SEEN["serving"], SEEN["mega_model"]
@@ -2654,30 +2721,10 @@ def phase_step_slice(dev, card, general_launches):
     # Two routes that round to bf16 at the same sites but for one: the
     # Filter head pools the float32 feat tile in the step kernel and the
     # rounded one in the megakernel (as the two TPU kernels do), and the
-    # sums run in other orders. So: the executor's bf16 tolerance (atol
-    # 3e-2 + rtol 1e-2) on all but 1e-5 of a file's elements, and twice
-    # that on every element. Choose is the one module with a hard select:
-    # where its two cosines tie within CHOOSE_TIE the routes may keep
-    # different keywords, and such an example is held to that and left out.
-    flipped, margin = choose_flips(b0["trace"], out["regs_vec"],
-                                   ref["regs_vec"])
-    n_flipped = int(flipped.sum())
-    worst_tie = float(margin[flipped].max()) if n_flipped else 0.0
-    require(n_flipped <= BATCH // 200 and worst_tie <= CHOOSE_TIE,
-            f"step vs mega: {n_flipped} examples chose another keyword, "
-            f"cosines apart by up to {worst_tie:.3e}")
-    same = ~flipped
-    errs, outside = {}, {}
-    for k in ("regs_vec", "regs_frames", "regs_attn"):
-        diff = (out[k][same] - ref[k][same]).abs()
-        tol = 3e-2 + 1e-2 * ref[k][same].abs()
-        outside[k] = int((diff > tol).sum())
-        errs[k] = float(diff.max())
-        require(outside[k] <= 1e-5 * diff.numel()
-                and bool((diff <= 2 * tol).all()),
-                f"step vs mega {k}: {outside[k]} of {diff.numel()} elements "
-                f"outside the tolerance, worst {float((diff / tol).max()):.2f}"
-                " of it")
+    # sums run in other orders.
+    errs, outside, n_flipped, worst_tie, margin = hold_files(
+        "step vs mega", b0["trace"], out, ref,
+        ("regs_vec", "regs_frames", "regs_attn"))
     require(float(out["regs_frames"][:, cfg.num_frames].abs().max()) == 0.0,
             "the scratch frames slot is not zero")
     dev_ms = cuda_time_ms(lambda: forward(b0), iters=5, warmup=1)
@@ -2923,6 +2970,348 @@ def phase_rev_train(dev, card, slot_entries):
     ]
 
 
+#: phase 18's world: 48 videos x 8 questions at the NMN train step's
+#: widths (64 frames of 1024 features, 300-wide GloVe)
+CLI_WORLD = dict(num_videos=48, questions_per_video=8, num_frames=FRAMES,
+                 feature_dim=VIDEO_D, glove_dim=TEXT_D, seed=18)
+CLI_EPOCHS = 3
+#: per eval batch of the trainer and evaluate CLIs: the video, question and
+#: class-table encodes on the BiLSTM eval kernel's cluster route (#1) and
+#: one executor forward on the eval megakernel's tensor-core route (#4)
+EVAL_LAUNCHES = {"bilstm_tc": 3, "mega_exec_tc": 1}
+
+
+#: epochs of the trainer's own batches that time its inner loop
+CLI_TIMED_EPOCHS = 5
+
+
+def write_world(root):
+    """Phase 18's world under ``root``, written by a child process with a
+    fixed string-hash seed: ``make_world`` picks relations and objects by
+    position in lists built from sets (``testing/synthetic.py:139-145``,
+    as the JAX original does), so its questions otherwise change from one
+    process to the next. Returns ``write_agqa_world``'s paths."""
+    code = ("import json, sys\n"
+            "from stair_tpu_torch.testing.agqa_world import write_agqa_world\n"
+            "w = write_agqa_world(sys.argv[1], **json.loads(sys.argv[2]))\n"
+            "print(json.dumps(w))\n")
+    res = subprocess.run(
+        [sys.executable, "-c", code, root, json.dumps(CLI_WORLD)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, env={**os.environ, "PYTHONHASHSEED": "0"})
+    require(res.returncode == 0, f"writing the world failed: {res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def hold_cli_batches(dev, argv, out):
+    """The main path's kernels on the trainer CLI's own batches, as its
+    batcher packs them and its device tables fill them: the world's trace
+    geometry and question lengths, real supervision, and padded rows. On
+    ``best_model``'s weights, the eval step over the valid split's last
+    batch (preds, regs_vec, loss_sums, cos_sum) and one train step on the
+    last batch of a shuffled train epoch (loss in bf16 and float32,
+    gradients in float32) run on the kernel route against the plain route,
+    with the bounds of phases 3, 8 and 16. Then the trainer's inner loop
+    (``make_train_step`` with the tables over ``_device_batches``) is timed
+    over whole epochs. Returns what phase 18 prints."""
+    from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
+    from stair_tpu_torch.train import evaluate, loop
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    args = loop.parse_cli(argv + ["--model-ckpt", f"{out}/best_model"])
+    train_ds, valid_ds = loop.load_datasets(args)
+    model = evaluate.load_model(args, valid_ds, dev)
+
+    def last_batch(ds, seed, shuffle):
+        tables = loop.make_device_tables(ds, dev)
+        batcher = loop.make_batcher(args, ds, model, seed=seed,
+                                    device_tables=True)
+        *_, (batch, bdict) = loop._device_batches(batcher, dev, shuffle)
+        return tables, batcher, batch, bdict
+
+    # ---- the eval step: bounds of phases 3 (preds) and 16 (regs_vec);
+    # each family's loss sum moves by at most 1e-4 of the total (phase 8's
+    # loss bound); the cosine sum by at most 1e-4 a cosine on average (the
+    # cosines are of bf16 register values that the routes round at
+    # different sites, a step moving one by up to ~1e-3 either way; one
+    # Filter output gone wrong moves the sum by O(0.1)); the counts not at
+    # all
+    vtables, _, vbatch, vdict = last_batch(valid_ds, 0, False)
+    eval_step = loop.make_eval_step(model, vtables, keep_regs=True)
+    with kernel_route(("bilstm_tc", "mega_exec_tc")) as eval_launches:
+        ek = eval_step(vdict)
+    with plain_route():
+        ep = eval_step(vdict)
+    agree = float((ek["preds"] == ep["preds"]).float().mean())
+    require(agree >= 0.98, f"CLI eval preds agreement {agree}")
+    errs, outside, n_flipped, _, _ = hold_files(
+        "CLI eval kernel vs plain", vdict["trace"], ek, ep, ("regs_vec",))
+    for k in ("loss_counts", "cos_count"):
+        require(torch.equal(ek[k], ep[k]), f"CLI eval {k} {ek[k]} {ep[k]}")
+    sums_k, sums_p = ek["loss_sums"].double(), ep["loss_sums"].double()
+    loss_err = float((sums_k - sums_p).abs().max() / sums_p.abs().sum())
+    n_cos = float(ep["cos_count"])
+    cos_err = abs(float(ek["cos_sum"]) - float(ep["cos_sum"])) / max(n_cos, 1)
+    require(loss_err <= 1e-4 and cos_err <= 1e-4,
+            f"CLI eval loss_sums {sums_k.tolist()} vs {sums_p.tolist()} "
+            f"({loss_err:.2e} of the total), cos_sum {float(ek['cos_sum'])} "
+            f"vs {float(ep['cos_sum'])} over {n_cos} cosines")
+
+    # ---- one train step on the padded last batch of a shuffled epoch
+    ttables, batcher, tbatch, tdict = last_batch(train_ds, args.rand_seed,
+                                                 True)
+    params = tree_map(lambda x: x.detach().clone(), model.param_tree())
+    model32 = VideoNMN(NMNConfig(**{**model.config.to_dict(),
+                                    "compute_dtype": "float32"}),
+                       params, device=dev)
+    step_launches = hold_step_routes(
+        "[clis]", ((model32, "float32"), (model, "bfloat16")),
+        loop.materialize_batch(tdict, ttables), args.contrastive_window)
+    del model32
+
+    # ---- the batcher's packing alone (host), then the trainer's inner
+    # loop over whole epochs of its batches
+    t0 = time.perf_counter()
+    packed = sum(1 for _ in batcher.epoch(shuffle=True))
+    pack_ms = (time.perf_counter() - t0) * 1e3 / packed
+    step = loop.make_train_step(model, args, tables=ttables)
+    step(tdict, torch.Generator().manual_seed(0), 1.0, 1.0)    # warm-up
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    n = 0
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(CLI_TIMED_EPOCHS):
+        for _, bdict in loop._device_batches(batcher, dev, shuffle=True):
+            step(bdict, torch.Generator().manual_seed(n), 1.0, 1.0)
+            n += 1
+    ev[1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    # the same step on one batch that stays on the card, as phase 8 times
+    resident_ms = cuda_time_ms(lambda: step(
+        tdict, torch.Generator().manual_seed(n), 1.0, 1.0), iters=10,
+        warmup=1)
+    return dict(eval_real=vbatch.meta["real"], train_real=tbatch.meta["real"],
+                batch=len(vbatch.answer), agree=agree, errs=errs,
+                outside=outside, n_flipped=n_flipped, loss_err=loss_err,
+                cos_err=cos_err, n_cos=n_cos, eval_launches=eval_launches,
+                step_launches=step_launches, timed_steps=n, host_ms=host_ms,
+                pack_ms=pack_ms, resident_ms=resident_ms,
+                event_ms=ev[0].elapsed_time(ev[1]) / n)
+
+
+def run_clis(dev, root, hidden=HIDDEN, epochs=CLI_EPOCHS):
+    """Phase 18's runs on ``dev``: the world under ``root``, the trainer
+    (counted), its resume, and evaluate. Returns what the checks read."""
+    import io
+
+    from stair_tpu_torch.data.dataset import AGQADataset
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.testing.agqa_world import trainer_argv
+    from stair_tpu_torch.train import checkpoint as ckpt
+    from stair_tpu_torch.train import evaluate, loop
+
+    t0 = time.perf_counter()
+    w = write_world(f"{root}/world")
+    out = f"{root}/run"
+    common = trainer_argv(w, out, "--text-size", str(TEXT_D), "--dropout",
+                          "0.25", "--contrastive-window", "32",
+                          hidden=hidden, video=VIDEO_D, frames=FRAMES,
+                          batch=TRAIN_BATCH)
+    args = loop.parse_cli(common)
+    paths = loop.data_paths(args)
+    sets = [AGQADataset(paths, split, max_video_length=FRAMES)
+            for split in ("train", "valid")]
+    _, cfg = loop.build_model(args, sets, "cpu")
+    cfg["compute_dtype"] = "bfloat16"
+    with open(f"{root}/config.json", "w") as f:
+        json.dump(cfg, f)
+    n_train, n_valid = (sum(t is not None for t in ds.traces) for ds in sets)
+    steps = -(-n_train // TRAIN_BATCH)
+    eval_batches = -(-n_valid // TRAIN_BATCH)
+    world_s = time.perf_counter() - t0
+    train_argv = common + ["--config-filename", f"{root}/config.json",
+                           "--evaluate-interval", str(steps),
+                           "--report-interval", str(steps),
+                           "--scheduler-total-iters", "20", "--lr", "1e-3"]
+
+    def quiet(fn, *a, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+        return res, buf.getvalue()
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    quiet(loop.main, train_argv + ["--num-epochs", str(epochs)], device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    with open(f"{out}/metrics.jsonl") as f:
+        recs = [json.loads(x) for x in f]
+    files = {d: sorted(os.listdir(f"{out}/{d}"))
+             for d in ("best_model", "latest")}
+    first_state = ckpt.load_trainer_state(f"{out}/latest")
+
+    t0 = time.perf_counter()
+    _, resumed = quiet(loop.main, train_argv + [
+        "--num-epochs", "1", "--model-ckpt", f"{out}/latest"], device=dev)
+    resume_s = time.perf_counter() - t0
+    with open(f"{out}/metrics.jsonl") as f:
+        after = [json.loads(x) for x in f][len(recs):]
+    state = ckpt.load_trainer_state(f"{out}/latest")
+    best_state = ckpt.load_trainer_state(f"{out}/best_model")
+
+    eval_argv = common + ["--model-ckpt", f"{out}/best_model",
+                          "--test-filename", w["valid"]]
+    t0 = time.perf_counter()
+    acc, _ = quiet(evaluate.main, eval_argv + ["--evaluate-func", "acc"],
+                   device=dev)
+    audit, _ = quiet(evaluate.main, eval_argv + [
+        "--evaluate-func", "filter_text_result",
+        "--filter-answer-vocab-filename", w["filter"],
+        "--result-filename", f"{out}/filter.pkl"], device=dev)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = hold_cli_batches(dev, train_argv, out)
+    held_s = time.perf_counter() - t0
+    return dict(args=loop.parse_cli(train_argv), cfg=cfg, n_train=n_train,
+                n_valid=n_valid, steps=steps, eval_batches=eval_batches,
+                launches=launches, recs=recs, files=files,
+                first_state=first_state, resumed=resumed, after=after,
+                state=state, best_state=best_state, acc=acc, audit=audit,
+                audit_file=os.path.exists(f"{out}/filter.pkl"),
+                world_s=world_s, train_s=train_s, resume_s=resume_s,
+                eval_s=eval_s, held=held, held_s=held_s)
+
+
+def phase_clis(dev, card):
+    import shutil
+    import tempfile
+
+    from stair_tpu_torch.train.loop import lr_schedule
+
+    root = tempfile.mkdtemp(prefix="stair_clis_")
+    try:
+        r = run_clis(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps, epochs = r["steps"], CLI_EPOCHS
+    recs = r["recs"]
+    evals = [x for x in recs if "valid/acc" in x]
+    reports = [x for x in recs if "loss/total" in x]
+    total_steps = steps * epochs
+    require(r["first_state"]["step"] == total_steps,
+            f"trainer state step {r['first_state']['step']} != {total_steps}")
+    require(len(evals) == epochs + 1, f"{len(evals)} evaluations")
+    n_eval = len(evals) * r["eval_batches"]
+    want = {k: n * total_steps for k, n in TRAIN_LAUNCHES.items()}
+    for k, n in EVAL_LAUNCHES.items():
+        want[k] = want.get(k, 0) + n * n_eval
+    wrong = {k: (v, want.get(k, 0)) for k, v in r["launches"].items()
+             if v != want.get(k, 0)}
+    require(not wrong, f"CLI launches (got, want): {wrong}")
+    losses = [x["loss/total"] for x in reports]
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    # loss/total sums the module losses over each example's supervised
+    # steps, so a window's value moves with its batches' supervision
+    # density (the padded last batch of an epoch repeats its few examples);
+    # the answer loss and the per-family means are per example and per
+    # supervised step, and must fall from the first report to the last
+    first, last = reports[0], reports[-1]
+    shared = [n for n in first if n.startswith("loss/") and n in last
+              and n not in ("loss/total", "loss/decoder")]
+    fell = (last["loss/decoder"] < first["loss/decoder"],
+            np.mean([last[n] for n in shared])
+            < np.mean([first[n] for n in shared]))
+    require(all(fell), "the answer loss / the mean module-family loss did "
+            f"not fall: {[(x['step'], x['loss/decoder']) for x in reports]}, "
+            f"{first} -> {last}")
+    for d, names in r["files"].items():
+        require({"params.msgpack", "config.json", "opt_state.msgpack",
+                 "trainer_state.json"} <= set(names), f"{d}: {names}")
+    names = set().union(*recs)
+    fams = sorted(n for n in names if n.startswith("loss/")
+                  and n != "loss/total")
+    require({"loss/total", "lr/lr", "valid/acc"} <= names and fams,
+            f"metric names {sorted(names)}")
+
+    # the resume: state restored, steps adding up, the schedule continued
+    require("optimizer state restored" in r["resumed"],
+            "the resume did not restore the optimizer state")
+    require(r["state"]["step"] == total_steps + steps,
+            f"resumed step {r['state']['step']} != {total_steps + steps}")
+    sched = lr_schedule(r["args"])
+    after = [x for x in r["after"] if "lr/lr" in x]
+    require(after and all(x["lr/lr"] == sched(x["step"]) for x in after),
+            f"lr after the resume {[(x['step'], x['lr/lr']) for x in after]}")
+
+    # evaluate on best_model over the valid split: the trainer's best
+    best = r["best_state"]["best_acc"]
+    require(r["acc"] == best, f"evaluate acc {r['acc']} != the trainer's "
+            f"best valid acc {best}")
+    require(r["audit_file"] and r["audit"], "no Filter audit")
+
+    log(f"[clis] world: {r['n_train']} train / {r['n_valid']} valid "
+        f"questions, {steps} steps an epoch at B={TRAIN_BATCH} "
+        f"(world {r['world_s']:.1f} s); config "
+        f"{json.dumps(r['cfg'])}")
+    log(f"[clis] train.loop.main, {epochs} epochs = {total_steps} steps + "
+        f"{len(evals)} evaluations x {r['eval_batches']} batch: loss by "
+        f"report {[round(x, 4) for x in losses]} (families "
+        f"{[f[5:] for f in fams]}); answer loss "
+        f"{[round(x['loss/decoder'], 4) for x in reports]}, mean of "
+        f"{len(shared)} module-family losses "
+        f"{np.mean([first[n] for n in shared]):.4f} -> "
+        f"{np.mean([last[n] for n in shared]):.4f}; valid acc "
+        f"{[round(x['valid/acc'], 4) for x in evals]}; launches "
+        f"{ {k: v for k, v in r['launches'].items() if v} } = "
+        f"{total_steps} x TRAIN_LAUNCHES + {n_eval} x {EVAL_LAUNCHES}; "
+        f"{r['train_s']:.1f} s")
+    h = r["held"]
+    log(f"[clis] the CLI's own batches, kernel vs plain route on best_model's"
+        f" weights: eval step on the valid split's last batch ({h['eval_real']}"
+        f" of {h['batch']} rows real) preds agreement {h['agree']:.4f} (bound"
+        f" 0.98), regs_vec max_abs_err {h['errs']['regs_vec']:.3e} with "
+        f"{h['outside']['regs_vec']} elements outside atol 3e-2 + rtol 1e-2 "
+        f"({h['n_flipped']} Choose flips), loss_sums {h['loss_err']:.2e} of "
+        f"their total (bound 1e-4), cos_sum {h['cos_err']:.2e} a cosine over "
+        f"{h['n_cos']:.0f} (bound 1e-4), counts equal, launches "
+        f"{h['eval_launches']}; one train step on the last "
+        f"train batch of a shuffled epoch ({h['train_real']} rows real), "
+        f"launches {h['step_launches']} ({r['held_s']:.1f} s)")
+    log(f"[clis] the trainer's inner loop (make_train_step with its device "
+        f"tables over _device_batches), {CLI_TIMED_EPOCHS} epochs = "
+        f"{h['timed_steps']} steps: {h['host_ms']:.3f} ms a step by the host "
+        f"clock (synchronized at the ends), {h['event_ms']:.3f} by CUDA "
+        f"events, {1e3 / h['host_ms']:.3f} steps/s; the batcher packs a "
+        f"batch in {h['pack_ms']:.3f} ms on the host; the step on one of "
+        f"these batches left on the card {h['resident_ms']:.3f} ms (CUDA "
+        f"events); phase 8's "
+        f"make_train_step on one resident batch "
+        f"{SEEN.get('mega_train_ms', float('nan')):.3f} ms (CUDA events); "
+        f"card {card}")
+    log(f"[clis] smoke readings of the trainer's last 3-step report window "
+        f"(a padded batch, an evaluation and two saves in it; no per-step "
+        f"cost): perf/step_ms_p50 "
+        f"{last.get('perf/step_ms_p50', float('nan')):.3f}, "
+        f"perf/step_event_ms "
+        f"{last.get('perf/step_event_ms', float('nan')):.3f}, "
+        f"perf/steps_per_sec {last['perf/steps_per_sec']:.3f}; card {card}")
+    log(f"[clis] resume from latest/ for 1 epoch: optimizer state restored, "
+        f"step {r['first_state']['step']} -> {r['state']['step']}, lr/lr "
+        f"{[(x['step'], x['lr/lr']) for x in after]} = lr_schedule(step) "
+        f"({r['resume_s']:.1f} s)")
+    log(f"[clis] train.evaluate.main on best_model/ over the valid split: "
+        f"acc {r['acc']:.4f} = the trainer's best {best:.4f}; "
+        f"filter_text_result for {len(r['audit'])} questions "
+        f"({r['eval_s']:.1f} s)")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
@@ -2978,6 +3367,7 @@ def main():
     general_launches = phase_step_kernel(dev)
     kernels += phase_step_slice(dev, card, general_launches)
     kernels += phase_rev_train(dev, card, slot_entries)
+    phase_clis(dev, card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,9 @@ CPU tensors and launches the kernel (or raises) for CUDA tensors.
 
 Nothing here imports ``jax`` or ``stair_tpu``: the host layers a ported
 path needs (``programs/``, ``ir/``, ``runtime/`` with the C++ parser,
-lowerer and tokenizer, ``train/args.py``, ``data/dataset.py``) are the
-port's own copies at the same relative paths.
+lowerer and tokenizer, ``train/args.py``, ``data/dataset.py``,
+``testing/synthetic.py``, ``utils/snapshot.py``) are the port's own copies
+at the same relative paths.
 """
 
 from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN  # noqa: F401

@@ -27,7 +27,8 @@ executor=...)``, where the JAX package reads environment variables:
   kernels (``ops/regslots.py``, TPU kernels #11-#13); eval as ``"step"``.
 
 Every route runs the encoders' BiLSTM kernels (#1 in eval, #2 / #3 in
-training). ``forward(batch, generator, deterministic=False)`` is the
+training) under the default ``encoder="lstm"``; ``encoder="transformer"``
+(``ops/lstm.py transformer_encode``) is plain torch ops. ``forward(batch, generator, deterministic=False)`` is the
 training forward: the executor's dropout is keyed on a seed drawn from
 ``generator`` (the megakernel's counter hash; on the scan routes a
 ``torch.Generator`` re-seeded from ``(seed, step)``, so that a replayed
@@ -51,6 +52,7 @@ from stair_tpu_torch.models.rev_exec import (
 from stair_tpu_torch.ops import executor_step as ES
 from stair_tpu_torch.ops.lstm import (
     bilstm_forward, bilstm_forward_train, init_lstm_params,
+    init_transformer_encoder_params, transformer_encode,
 )
 from stair_tpu_torch.ops.mega_exec import mega_exec
 from stair_tpu_torch.ops.mega_grad import mega_exec_train
@@ -79,7 +81,7 @@ class NMNConfig:
     filter_attention: str = "parity"
     #: 'float32' or 'bfloat16' (executor matmuls and tokens in bf16).
     compute_dtype: str = "float32"
-    #: only 'lstm' is ported.
+    #: 'lstm' (the BiLSTM kernels) or 'transformer' (plain torch ops).
     encoder: str = "lstm"
     max_steps: int = 32
     num_vec: int = 24
@@ -103,8 +105,9 @@ class VideoNMN(ParamModule):
                  generator: torch.Generator | None = None, device=None,
                  executor: str = "mega"):
         super().__init__()
-        if config.encoder != "lstm":
-            raise NotImplementedError("only the lstm encoder is ported")
+        if config.encoder not in ("lstm", "transformer"):
+            raise ValueError(f"encoder {config.encoder!r}: expected 'lstm' "
+                             "or 'transformer'")
         if executor not in EXECUTORS:
             raise ValueError(f"executor {executor!r}: expected one of "
                              f"{EXECUTORS}")
@@ -122,17 +125,26 @@ class VideoNMN(ParamModule):
         """A fresh params tree with the JAX package's keys and shapes."""
         cfg = self.config
         H = cfg.hidden_size
+        # draws in this order: modules, video encoder, text encoder, decoder
+        modules = M.init_module_params(gen, {
+            "hidden_size": H,
+            "max_video_length": cfg.max_video_length,
+            "object_types": cfg.object_types,
+            "have_pretrain_head": cfg.have_pretrain_head,
+        }, device)
+        if cfg.encoder == "lstm":
+            video_enc = init_lstm_params(gen, cfg.video_size, H // 2, device)
+            text_enc = init_lstm_params(gen, cfg.text_size, H // 2, device)
+        else:
+            video_enc = init_transformer_encoder_params(
+                gen, cfg.video_size, H, max_len=max(cfg.max_video_length, 512),
+                device=device)
+            text_enc = init_transformer_encoder_params(gen, cfg.text_size, H,
+                                                       device=device)
         return {
-            "modules": M.init_module_params(gen, {
-                "hidden_size": H,
-                "max_video_length": cfg.max_video_length,
-                "object_types": cfg.object_types,
-                "have_pretrain_head": cfg.have_pretrain_head,
-            }, device),
-            "video_encoder": init_lstm_params(gen, cfg.video_size, H // 2,
-                                              device),
-            "text_encoder": init_lstm_params(gen, cfg.text_size, H // 2,
-                                             device),
+            "modules": modules,
+            "video_encoder": video_enc,
+            "text_encoder": text_enc,
             "decoder": {
                 "l1": M._init_linear(gen, 2 * H, 2 * H, device),
                 "l2": M._init_linear(gen, 2 * H, cfg.answer_vocab_length,
@@ -153,7 +165,13 @@ class VideoNMN(ParamModule):
         (fwd, bwd) halves [B, L, H/2] dt). The recurrence goes to
         ``bilstm_reference`` for CPU tensors and to the kernel for CUDA
         tensors: the differentiable training pair when autograd is on
-        (``bilstm_forward_train``), the eval kernel otherwise."""
+        (``bilstm_forward_train``), the eval kernel otherwise. The
+        transformer encoder runs in float32 with no kernel; its halves are
+        the two halves of its tokens, which the executor casts."""
+        if self.config.encoder == "transformer":
+            tokens, sent = transformer_encode(enc_params, x, mask)
+            half = tokens.shape[-1] // 2
+            return tokens, sent, (tokens[..., :half], tokens[..., half:])
         dt = self.compute_dtype
         mm = dt if dt != torch.float32 else None
         fn = bilstm_forward_train if torch.is_grad_enabled() else \

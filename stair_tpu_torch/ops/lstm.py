@@ -466,3 +466,71 @@ def bilstm_forward_train(params, x, mask, mm_dtype=None,
     tok_f, tok_b, sent = BiLSTMTrain.apply(*_prep(params, x, mask, mm_dtype),
                                            token_dtype)
     return torch.cat([tok_f, tok_b], dim=-1), sent, (tok_f, tok_b)
+
+
+# ---------------------------------------------------------------------------
+# Transformer encoder alternative (--encoder transformer)
+# ---------------------------------------------------------------------------
+
+def init_transformer_encoder_params(gen, input_size: int, hidden_size: int,
+                                    num_layers: int = 2, max_len: int = 512,
+                                    device=None) -> dict:
+    """A small pre-norm transformer encoder with the BiLSTM's interface
+    (the port of ``stair_tpu/ops/lstm.py init_transformer_encoder_params``:
+    the same key tree and shapes; ``layers`` is a list)."""
+    from stair_tpu_torch.models.modules import _init_linear
+
+    H = hidden_size
+
+    def lin(fi, fo):
+        return _init_linear(gen, fi, fo, device)
+
+    def ln():
+        return {"scale": torch.ones((H,), device=device),
+                "bias": torch.zeros((H,), device=device)}
+
+    return {
+        "in_proj": lin(input_size, H),
+        "pos": (torch.randn((max_len, H), generator=gen) * 0.02).to(device),
+        "layers": [
+            {"ln1": ln(), "q": lin(H, H), "k": lin(H, H), "v": lin(H, H),
+             "o": lin(H, H), "ln2": ln(), "up": lin(H, 2 * H),
+             "down": lin(2 * H, H)}
+            for _ in range(num_layers)
+        ],
+        "ln_f": ln(),
+    }
+
+
+def transformer_encode(params, x, mask, num_heads: int = 4):
+    """Batched transformer encoder (the port of ``transformer_encode``,
+    which JAX vmaps over the batch): ``x`` [B, L, D], ``mask`` [B, L] ->
+    (token features [B, L, H], sentence feature [B, H], the masked mean of
+    the tokens). Plain torch ops in float32; no kernel (the JAX function
+    reaches no ``pallas_call``). Masked keys score -1e30; GELU is the tanh
+    form (``jax.nn.gelu``'s default)."""
+    from stair_tpu_torch.models.modules import layer_norm, linear
+
+    B, L, _ = x.shape
+    h = linear(params["in_proj"], x) + params["pos"][:L]
+    keys_ok = (mask > 0)[:, None, None, :]                # [B, 1, 1, L]
+    for layer in params["layers"]:
+        a_in = layer_norm(layer["ln1"], h)
+        hd = a_in.shape[-1] // num_heads
+
+        def heads(p):
+            return linear(p, a_in).reshape(B, L, num_heads, hd).transpose(1, 2)
+
+        q, k, v = heads(layer["q"]), heads(layer["k"]), heads(layer["v"])
+        s = q @ k.transpose(-1, -2) / math.sqrt(hd)       # [B, nh, L, L]
+        s = torch.where(keys_ok, s, torch.full_like(s, -1e30))
+        attn = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(B, L, -1)
+        h = h + linear(layer["o"], attn)
+        m_in = layer_norm(layer["ln2"], h)
+        up = torch.nn.functional.gelu(linear(layer["up"], m_in),
+                                      approximate="tanh")
+        h = h + linear(layer["down"], up)
+    mask = mask.to(h.dtype)
+    tokens = layer_norm(params["ln_f"], h) * mask[..., None]
+    sentence = tokens.sum(1) / torch.clamp(mask.sum(1, keepdim=True), min=1.0)
+    return tokens, sentence

@@ -7,8 +7,9 @@ compiled on demand with the system toolchain and cached next to the source
 (written under a temporary name and renamed, so concurrent first uses do
 not load a half-written file); every entry point has a numpy fallback so
 the framework degrades gracefully on hosts without a compiler.
-``device_prefetch`` (JAX's ``device_put`` in a worker thread) is left with
-the trainer's batcher and is not copied.
+``device_prefetch`` is the port's own (the JAX trainers start
+``jax.device_put`` in their prefetch worker instead): pinned host-to-device
+copies on a side stream.
 
 ``FeatureArena`` packs all per-video features into one contiguous float32
 block (one allocation, zero per-batch Python object traffic) and assembles
@@ -351,7 +352,8 @@ def windowed(iterable, depth: int = 4):
 
 
 def device_prefetch(batches, device):
-    """Iterate ``batches`` (dicts of numpy arrays) as dicts of tensors on
+    """Iterate ``batches`` (dicts of numpy arrays, or tuples and nested
+    dicts of them) as the same structures with every array a tensor on
     ``device``, prepared one batch ahead on a worker thread. For a CUDA
     device the worker pins each array and starts its host-to-device copy on
     a side stream, so the copy overlaps the previous step; the consumer's
@@ -364,6 +366,10 @@ def device_prefetch(batches, device):
     side = torch.cuda.Stream(device) if on_card else None
 
     def put(v):
+        if isinstance(v, dict):
+            return {k: put(x) for k, x in v.items()}
+        if isinstance(v, tuple):
+            return tuple(put(x) for x in v)
         if not isinstance(v, np.ndarray):
             return v
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -371,13 +377,22 @@ def device_prefetch(batches, device):
             t = t.pin_memory().to(device, non_blocking=True)
         return t
 
+    def tensors(v):
+        if isinstance(v, dict):
+            v = tuple(v.values())
+        if isinstance(v, tuple):
+            for x in v:
+                yield from tensors(x)
+        elif torch.is_tensor(v):
+            yield v
+
     def worker():
         for b in batches:
             if not on_card:
-                yield {k: put(v) for k, v in b.items()}, None
+                yield put(b), None
                 continue
             with torch.cuda.stream(side):
-                out = {k: put(v) for k, v in b.items()}
+                out = put(b)
                 done = torch.cuda.Event()
                 done.record(side)
             yield out, done
@@ -387,9 +402,8 @@ def device_prefetch(batches, device):
             if done is not None:
                 cur = torch.cuda.current_stream(device)
                 cur.wait_event(done)
-                for t in out.values():
-                    if torch.is_tensor(t):
-                        t.record_stream(cur)
+                for t in tensors(out):
+                    t.record_stream(cur)
             yield out
 
     return consume()

@@ -17,11 +17,24 @@ and from ``torch.bfloat16``.
 ``load_params`` has the tolerance of the JAX package's: leaves present in
 both are restored (shapes must match), leaves only in the model keep their
 initialisation, leaves only in the checkpoint are ignored, and both cases
-are reported. Optimizer state and ``trainer_state.json`` are not ported yet.
+are reported.
+
+A trainer checkpoint directory holds what the JAX trainer's does
+(``save_checkpoint``): ``params.msgpack``, ``config.json``,
+``opt_state.msgpack`` and ``trainer_state.json`` (``step``, ``best_acc``,
+``rng``). The optimizer state is written in optax's tree layout, as
+``flax.serialization.to_bytes`` writes ``optax.adam(schedule)``'s state
+(``{"0": {count, mu, nu}, "1": {count}}``) or ``optax.adamw``'s (``{"0":
+{count, mu, nu}, "1": {}, "2": {count}}``), counts as int32 scalars and the
+moments as float32 trees under the params' key paths. ``torch.optim.Adam``
+/ ``AdamW``'s ``exp_avg``, ``exp_avg_sq`` and ``step`` and the scheduler's
+``last_epoch`` map onto those leaves (``opt_state_tree`` /
+``restore_opt_state``), so either package resumes the other's run.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 
@@ -340,3 +353,123 @@ def load_params(ckpt_dir, model):
                     f"does not match the model's {tuple(param.shape)}")
             param.copy_(value.to(device=param.device, dtype=param.dtype))
     return missing, extra
+
+
+# ---------------------------------------------------------------------------
+# trainer checkpoints: config, optimizer state in optax's layout, trainer
+# state
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(out_dir, model, config_dict, opt_state=None,
+                    trainer_state=None):
+    """Write ``params.msgpack`` (``model.param_tree()``) and ``config.json``,
+    and ``opt_state.msgpack`` (a tree from ``opt_state_tree``) and
+    ``trainer_state.json`` when given: the JAX trainer's four files."""
+    save_params(out_dir, model.param_tree())
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config_dict, f, indent=2)
+    if opt_state is not None:
+        with open(os.path.join(out_dir, "opt_state.msgpack"), "wb") as f:
+            f.write(to_bytes(opt_state))
+    if trainer_state is not None:
+        with open(os.path.join(out_dir, "trainer_state.json"), "w") as f:
+            json.dump(trainer_state, f)
+
+
+def load_config(ckpt_dir) -> dict:
+    with open(os.path.join(ckpt_dir, "config.json")) as f:
+        return json.load(f)
+
+
+def load_trainer_state(ckpt_dir) -> dict | None:
+    path = os.path.join(ckpt_dir, "trainer_state.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _is_adamw(optimizer) -> bool:
+    import torch
+
+    return isinstance(optimizer, torch.optim.AdamW)
+
+
+def opt_state_tree(model, optimizer, scheduler) -> dict:
+    """The state of ``optimizer`` (``torch.optim.Adam``, or ``AdamW`` for
+    ``optax.adamw``) over ``model``'s parameters and of its ``scheduler``
+    as the tree ``flax.serialization.to_state_dict`` gives for the optax
+    state: Adam's count, ``mu`` (``exp_avg``) and ``nu`` (``exp_avg_sq``)
+    under the params' key paths (zeros for a parameter that has no state
+    yet), and the schedule's count (``last_epoch``)."""
+    from stair_tpu_torch.weights import tree_map
+
+    count = np.asarray(scheduler.last_epoch, np.int32)
+
+    def moment(name):
+        def leaf(p):
+            st = optimizer.state.get(p)
+            if not st:
+                return np.zeros(tuple(p.shape), np.float32)
+            return st[name].detach().float().cpu().numpy()
+        return tree_map(leaf, model.param_tree())
+
+    adam = {"count": count, "mu": moment("exp_avg"),
+            "nu": moment("exp_avg_sq")}
+    sched = {"count": count.copy()}
+    if _is_adamw(optimizer):
+        return {"0": adam, "1": {}, "2": sched}
+    return {"0": adam, "1": sched}
+
+
+def restore_opt_state(tree, model, optimizer, scheduler):
+    """Load an optax-layout state tree (``opt_state_tree``'s, or the JAX
+    trainer's ``opt_state.msgpack``) into ``optimizer`` and ``scheduler``,
+    in place. The tree must be the layout of this optimizer (``adam`` or
+    ``adamw``), with a moment of the parameter's shape at every key path of
+    the model; the scheduler resumes at the saved count."""
+    import torch
+
+    from stair_tpu_torch.weights import flatten_tree
+
+    want = ["0", "1", "2"] if _is_adamw(optimizer) else ["0", "1"]
+    if sorted(tree) != want:
+        raise ValueError(f"optimizer state holds chain entries {sorted(tree)}"
+                         f", expected {want} for {type(optimizer).__name__}")
+    adam, sched = tree["0"], tree[want[-1]]
+    count = int(np.asarray(adam["count"]))
+    if int(np.asarray(sched["count"])) != count:
+        raise ValueError(f"optimizer state: Adam count {count} and schedule "
+                         f"count {int(np.asarray(sched['count']))} differ")
+    params = flatten_tree(model.param_tree())
+    moments = {k: flatten_tree(adam[k]) for k in ("mu", "nu")}
+    for k in ("mu", "nu"):
+        if set(moments[k]) != set(params):
+            missing = sorted(set(params) - set(moments[k]))
+            extra = sorted(set(moments[k]) - set(params))
+            raise ValueError(f"optimizer state {k}: missing {missing[:4]}, "
+                             f"extra {extra[:4]}")
+    for key, p in params.items():
+        st = {"step": torch.tensor(float(count), dtype=torch.float32)}
+        for k, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            value = _tensor_from_leaf(moments[k][key])
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"optimizer state {k}/{key}: shape "
+                                 f"{tuple(value.shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            st[name] = value.to(device=p.device, dtype=p.dtype)
+        optimizer.state[p] = st
+    scheduler.set_step(count)
+    return count
+
+
+def load_opt_state(ckpt_dir, model, optimizer, scheduler):
+    """``restore_opt_state`` from ``opt_state.msgpack`` in ``ckpt_dir``;
+    returns the restored step count, or None when the file is not
+    there."""
+    path = os.path.join(ckpt_dir, "opt_state.msgpack")
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return restore_opt_state(from_bytes(f.read()), model, optimizer,
+                                 scheduler)

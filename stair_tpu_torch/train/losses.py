@@ -79,13 +79,16 @@ def filterframe_loss(model, out, batch, params=None):
 
 
 def supervision_losses(model, out, batch, train_filterframe=False,
-                       contrastive_window=0, params=None):
+                       contrastive_window=0, params=None, class_reps=None):
     """All intermediate losses and the decoder CE.
 
     Returns (scalars, telemetry): ``module_loss`` and ``decoder_loss``
     (means per example), and per-family loss sums and counts (length
     ``len(FAMILIES)``). ``contrastive_window`` > 0 restricts each example's
-    contrastive negatives to the classes of its window-sized group."""
+    contrastive negatives to the classes of its window-sized group.
+    ``class_reps`` is the batch's ``encode_class_table`` when the caller
+    has it already (the eval step encodes the table once for this and
+    ``eval_contrastive_similarity``)."""
     if params is None:
         params = model.param_tree()
     tr = batch["trace"]
@@ -157,7 +160,8 @@ def supervision_losses(model, out, batch, train_filterframe=False,
                                             mask_a2)
 
     # Contrastive (Filter / ToAction / Superlative)
-    class_reps = encode_class_table(model, batch, params)     # [C, H]
+    if class_reps is None:
+        class_reps = encode_class_table(model, batch, params)  # [C, H]
     pred = l2_normalize(vec_out, dim=-1)
     sims = torch.einsum("bth,ch->btc", pred, class_reps)
     cls = batch["sup_class"].long()                           # [B, T, P]
@@ -194,7 +198,14 @@ def supervision_losses(model, out, batch, train_filterframe=False,
     # Decoder CE
     logits = out["logits"]
     dec_lse = torch.logsumexp(logits, dim=-1)
-    dec_picked = torch.gather(logits, -1, batch["answer"][:, None].long())[:, 0]
+    if logits.shape[-1]:
+        dec_picked = torch.gather(logits, -1,
+                                  batch["answer"][:, None].long())[:, 0]
+    else:
+        # a multiple-choice corpus (STAR) has no open answers: JAX's
+        # take_along_axis reads 0 on the empty axis, so the CE is -inf
+        # there too; total_loss answers through the choice head instead
+        dec_picked = torch.zeros_like(dec_lse)
     dec_ce = dec_lse - dec_picked
     decoder_loss = torch.mean(dec_ce)
     didx = _FAMILY_INDEX["decoder"]
@@ -218,7 +229,8 @@ def supervision_losses(model, out, batch, train_filterframe=False,
     return scalars, telemetry
 
 
-def eval_contrastive_similarity(model, out, batch, params=None):
+def eval_contrastive_similarity(model, out, batch, params=None,
+                                class_reps=None):
     """Cosine similarity of each supervised step's output to the mean gold
     class representation ('cont-valid'); returns (sum, count)."""
     tr = batch["trace"]
@@ -226,7 +238,8 @@ def eval_contrastive_similarity(model, out, batch, params=None):
     B = rv.shape[0]
     bidx = torch.arange(B, device=rv.device)[:, None]
     vec_out = rv[bidx, tr["out_vec"].long()]
-    class_reps = encode_class_table(model, batch, params)
+    if class_reps is None:
+        class_reps = encode_class_table(model, batch, params)
     cls = batch["sup_class"].long()
     pair_valid = (cls >= 0) & (batch["sup_channel"] == SUP_CONTRAST)[..., None]
     reps = class_reps[torch.clamp(cls, min=0)]                 # [B, T, P, H]

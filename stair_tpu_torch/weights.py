@@ -1,7 +1,8 @@
 """Weight bridge between the JAX params pytree and the port.
 
 A JAX params tree (nested dicts of arrays, with lists for a transformer's
-``layers``; ``[in, out]`` linear weights) maps onto the port's parameters
+``layers``, the NMN's transformer encoders' included; ``[in, out]`` linear
+weights) maps onto the port's parameters
 key path by key path, with no renaming or transposing:
 ``VideoNMN(cfg, params_from_numpy(tree))``, and likewise ``Decoder``,
 ``ClipVisionTower``, ``VideoChatModel`` and ``VideoPrefixLM``. A module

@@ -218,3 +218,81 @@ def test_splice_filter_outputs_agrees(kw):
         assert (TP.splice_filter_outputs(q, outputs, **kw)
                 == JP.splice_filter_outputs(q, outputs, **kw))
     assert TP.splice_filter_outputs(q, FILTER_OUTPUTS, **kw) != q
+
+
+def test_make_world_writes_the_same_files(tmp_path):
+    from stair_tpu.testing import synthetic as JSY
+    from stair_tpu_torch.testing import synthetic as TSY
+
+    a = JSY.make_world(str(tmp_path / "jax"), num_videos=3,
+                       questions_per_video=4, num_frames=16, feature_dim=12,
+                       glove_dim=8, seed=11)
+    b = TSY.make_world(str(tmp_path / "port"), num_videos=3,
+                       questions_per_video=4, num_frames=16, feature_dim=12,
+                       glove_dim=8, seed=11)
+    files = []
+    for root, _, names in os.walk(a["root"]):
+        files += [os.path.relpath(os.path.join(root, n), a["root"])
+                  for n in names]
+    assert len(files) == 6 + 3, files
+    for rel in files:
+        with open(os.path.join(a["root"], rel), "rb") as f:
+            want = f.read()
+        with open(os.path.join(b["root"], rel), "rb") as f:
+            assert f.read() == want, rel
+
+
+def test_convert_split_and_the_symbolic_executor_agree(tmp_path):
+    import json
+
+    from stair_tpu.programs import preprocess as JPP
+    from stair_tpu.programs import scene_graph as JSG
+    from stair_tpu.testing import synthetic as JSY
+    from stair_tpu_torch.programs import preprocess as TPP
+    from stair_tpu_torch.programs import scene_graph as TSG
+
+    w = JSY.make_world(str(tmp_path), num_videos=4, questions_per_video=5,
+                       num_frames=20, seed=3)
+    with open(w["questions"]) as f:
+        qs = json.load(f)
+    args = (w["scene_graphs"], w["id2word"], w["word2id"])
+    jx, tx = JSG.SceneGraphExecutor(*args), TSG.SceneGraphExecutor(*args)
+    for rec in qs.values():
+        a = jx.run(video_id=rec["video_id"], program=rec["program"])
+        b = tx.run(video_id=rec["video_id"], program=rec["program"])
+        assert a[0] == b[0] == rec["answer"]
+        assert ({k: v for k, v in a[1].items() if not callable(v)}
+                == {k: v for k, v in b[1].items() if not callable(v)})
+        assert (JSG.parse_sg_program(rec["program"])
+                == TSG.parse_sg_program(rec["program"]))
+    raw = [dict(r, qa_id=k) for k, r in qs.items()]
+    JPP.set_executor(jx)
+    TPP.set_executor(tx)
+    want, got = JPP.convert_split(raw), TPP.convert_split(raw)
+    assert len(got) == len(raw) and got == want
+    assert any(r["sg_res_by_step"] for r in got)
+
+
+def test_port_preprocess_imports_without_pandas():
+    import subprocess
+    import sys
+
+    code = ("import sys\nsys.modules['pandas'] = None\n"
+            "from stair_tpu_torch.programs import preprocess\n"
+            "print(preprocess.convert_split([]))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stderr
+
+
+def test_backup_code_copies_the_port(tmp_path):
+    from stair_tpu_torch.utils.snapshot import backup_code
+
+    dest = backup_code(str(tmp_path))
+    pkg = os.path.join(dest, "stair_tpu_torch")
+    assert os.path.exists(os.path.join(pkg, "train", "loop.py"))
+    assert os.path.exists(os.path.join(pkg, "ops", "csrc", "bilstm.cu"))
+    for root, dirs, names in os.walk(pkg):
+        assert "__pycache__" not in dirs and "build" not in dirs, root
+        assert not [n for n in names if n.endswith((".so", ".pyc"))], root

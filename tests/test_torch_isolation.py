@@ -9,11 +9,15 @@ runs one tiny CPU forward, then ``chip_smoke.py``'s serving path (host
 parse/lower, tokenize, gather, forward), one train step (losses, backward,
 Adam), one tiny forward on the ``"step"`` executor and one train step on the
 ``"rev"`` executor, one tiny
-``video_chatgpt_infer_batch`` at tiny widths and both LLM trainer CLIs
-with their checkpoints; ``chip_smoke.py`` imports only the port and its
-``kernels`` line names the thirteen ported kernels, each with a launch
-counter. The port's sources carry no JAX/flax/optax import and no
-import of ``stair_tpu``. ``python chip_smoke.py`` exits non-zero, quickly
+``video_chatgpt_infer_batch`` at tiny widths, both LLM trainer CLIs
+with their checkpoints, and the NMN trainer and evaluate CLIs on a tiny
+world that the port's own ``testing/synthetic.py`` and
+``programs/preprocess.py`` write (``--executor rev``); records that the JAX package's
+preprocess wrote load with both blocked; ``chip_smoke.py`` imports only
+the port, lists 18 phases, and its ``kernels`` line names the thirteen
+ported kernels (17 entries), each with a launch counter. The port's
+sources carry no JAX, flax or optax import and no import of
+``stair_tpu``. ``python chip_smoke.py`` exits non-zero, quickly
 and without its result line, where there is no CUDA device.
 """
 
@@ -121,6 +125,22 @@ common = ["--rgb-path", paths["rgb"], "--train-filename", paths["train"],
 best = WL.main([*common, "--num-epochs", "1", "--output", root + "/lm"])
 assert WL.main([*common, "--func", "test", "--model-ckpt",
                 root + "/lm"]) == best
+# the NMN trainer and evaluate CLIs on a tiny world that the port's own
+# synthetic world and preprocess copies write
+import stair_tpu_torch.data.dataset
+import stair_tpu_torch.testing.synthetic
+from stair_tpu_torch.programs import preprocess as PP, scene_graph as SG
+from stair_tpu_torch.testing import synthetic as SY
+from stair_tpu_torch.train import evaluate as TEV, loop as TLP
+from stair_tpu_torch.testing.agqa_world import trainer_argv, write_agqa_world
+w = write_agqa_world(root + "/nmn", SY, PP, SG, num_videos=4,
+                     questions_per_video=5, num_frames=16, seed=2)
+argv = trainer_argv(w, root + "/nmn/run", "--executor", "rev", frames=16,
+                    batch=8)
+best = TLP.main(argv + ["--num-epochs", "1"], device="cpu")
+acc = TEV.main(argv + ["--model-ckpt", root + "/nmn/run/best_model",
+                       "--test-filename", w["valid"]], device="cpu")
+assert acc == best, (acc, best)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stair_tpu")
        and sys.modules[m] is not None]
@@ -220,3 +240,54 @@ def test_serving_inputs_do_not_depend_on_the_hash_salt():
         assert proc.returncode == 0, proc.stderr
         seen.add(proc.stdout.strip())
     assert len(seen) == 1, seen
+
+
+_BLOCKED_RECORDS = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "stair_tpu"):
+    sys.modules[name] = None
+from stair_tpu_torch.data.dataset import AGQADataset, Batcher, DataPaths
+paths = DataPaths(**{k: sys.argv[i + 1] for i, k in enumerate((
+    "rgb_path", "glove_filename", "vocab_filename", "video_secs_path",
+    "train_filename", "valid_filename", "test_filename",
+    "word2id_filename"))})
+for split in ("train", "valid", "test"):
+    ds = AGQADataset(paths, split, max_video_length=16)
+    assert len(ds) and all(t is not None for t in ds.traces)
+    T, NV, NF, NA = ds.trace_geometry()
+    b = next(Batcher(ds, 4, T, NV, NF, NA, device_tables=True).epoch())
+    assert b.question_ids.shape[0] == 4
+print("OK")
+"""
+
+
+def test_jax_written_records_load_with_jax_blocked(tmp_path):
+    # the .pkl records of the JAX package's preprocess hold no object of a
+    # stair_tpu class: the port reads them with stair_tpu unimportable
+    from stair_tpu.programs import preprocess, scene_graph
+    from stair_tpu.testing import synthetic
+    from stair_tpu_torch.testing.agqa_world import write_agqa_world
+
+    w = write_agqa_world(tmp_path, synthetic, preprocess, scene_graph,
+                         num_videos=4, questions_per_video=5, num_frames=16,
+                         seed=2)
+    argv = [w["features"], w["glove"], w["vocab"], w["video_secs"],
+            w["train"], w["valid"], w["test"], w["word2id"]]
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RECORDS, *argv], cwd=REPO,
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        text = f.read()
+    doc = ast.get_docstring(ast.parse(text))
+    numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, re.M)]
+    assert numbers == list(range(1, 19)), numbers
+    assert "phase_clis(dev, card)" in text
+    names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
+    assert len(names) == 17, names

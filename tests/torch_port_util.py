@@ -98,3 +98,56 @@ def assert_grad_trees_close(want, got, rel=1e-4, prefix=""):
         assert want.shape == got.shape, prefix
         err = float(np.abs(want - got).max()) if want.size else 0.0
         assert err <= rel * float(np.abs(want).max()) + 1e-6, (prefix, err)
+
+
+def write_star_world(root):
+    """The STAR world of ``tests/test_datasets.py star_world``: 9
+    multiple-choice records over 3 videos (48 rows of 32 features), clips
+    0.5-6.0 s of 8 s, a 16-wide GloVe file. Returns the ``DataPaths``
+    fields as a dict, for either package's ``DataPaths``."""
+    import json
+    import os
+    import pickle
+
+    root = str(root)
+    vids = ["S0", "S1", "S2"]
+    feats = os.path.join(root, "feats")
+    os.makedirs(feats, exist_ok=True)
+    rng = np.random.RandomState(0)
+    for vid in vids:
+        np.save(os.path.join(feats, vid + ".npy"),
+                rng.randn(48, 32).astype(np.float32))
+    program = ["Exists", "dish", "Filter", "video", "objects"]
+    records = []
+    for i in range(9):
+        records.append({
+            "qa_id": "Interaction_T1_%d" % i,
+            "question_id": "Interaction_T1_%d" % i,
+            "question": "what did they do ?",
+            "nmn_program": list(program),
+            "nmn_program_idx": [None] * len(program),
+            "nmn_program_span_by_word": {},
+            "sg_res_by_step": {},
+            "video_id": vids[i % 3],
+            "choices": [{"choice_id": j, "choice": "answer %d" % j}
+                        for j in range(4)],
+            "answer": "answer %d" % (i % 4),
+            "start": 0.5, "end": 6.0,
+        })
+    pkl = os.path.join(root, "star.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(records, f)
+    with open(os.path.join(root, "secs.json"), "w") as f:
+        json.dump({v: 8.0 for v in vids}, f)
+    glove = os.path.join(root, "glove.txt")
+    rng = np.random.RandomState(1)
+    words = ["what", "did", "they", "do", "?", "answer", "0", "1", "2", "3"]
+    with open(glove, "w") as f:
+        f.write("%d 16\n" % len(words))
+        for w in words:
+            f.write(w + " " + " ".join(
+                "%.4f" % x for x in rng.randn(16)) + "\n")
+    return dict(rgb_path=feats, glove_filename=glove,
+                vocab_filename=os.path.join(root, "vocab.json"),
+                video_secs_path=os.path.join(root, "secs.json"),
+                train_filename=pkl, valid_filename=pkl, test_filename=pkl)
