@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the NMN serving
 forward and train step (on the megakernel route, and on the scan
-executor's per-step and reversible routes), Video-ChatGPT serving and LLM
+executor's per-step and reversible routes), the NMN's trainer and
+evaluate CLIs, the program parser, Video-ChatGPT serving and LLM
 training.
 
     python3 chip_smoke.py
@@ -172,7 +173,20 @@ Phases (any failure raises, and the script exits non-zero):
    for one epoch (optimizer state restored, the step count adding up, the
    learning rate of every report after it ``lr_schedule(step)``); then
    ``train.evaluate.main`` on ``best_model/`` over the valid split, whose
-   accuracy must equal the trainer's best exactly, and its Filter audit.
+   accuracy must equal the trainer's best exactly, and its Filter audit;
+19. the program parser on phase 18's world: ``seq2seq.train`` (``--arch
+   lstm`` at the CLI's widths: embed 256, hidden 256, so the BiLSTM
+   encoder runs at h 128, S 32, T 48, float32) for 2 epochs of B 64, then
+   ``--func predict`` over the valid split in chunks of 256 at beam 5,
+   ``check_valid``, ``preprocess --func upgrade`` and ``train.evaluate``
+   with phase 18's checkpoint on the generated programs; exact launch
+   counts (per train step one ``bilstm_train``, ``bilstm_bwd`` and
+   ``bilstm_dwh``, per decode chunk one ``bilstm``: the general routes, the
+   only ones float32 takes; per evaluate batch ``EVAL_LAUNCHES``; nothing
+   else); #2 + #3 on the CLI's first training batch and #1 on a decode
+   chunk of 256 against their plain versions (float32, 1e-4) with equal
+   bits on a second launch, timed beside ``nn.LSTM``; ms a parser train
+   step (host clock and CUDA events) and decode questions/s.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are ``{"kernels": [...]}`` (per
@@ -183,19 +197,24 @@ computes the same function) and ``{"ok": true, "device": {...}}``. The
 step kernel's general route (``executor_step``) counts the launches of its
 own path, phase 15's float32 forward at F = 64; ``slot_set``,
 ``slot_zero`` and ``slot_add`` show 0, as the ``"rev"`` path makes its
-updates through the many-entry launches. Every time printed is measured in
-this run, on the card named above it.
+updates through the many-entry launches. Phase 19's three entries
+(``"path": "parser"``) are #1-#3 again, on the general route at the
+parser's shapes, with the parser path's launches. Every time printed is
+measured in this run, on the card named above it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -326,9 +345,25 @@ def graph_ms(fn, iters=20):
     return device.graph_ms(fn, iters)
 
 
+def quiet(fn, *a, **kw):
+    """``fn(*a, **kw)`` with its standard output captured: (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*a, **kw)
+    return res, buf.getvalue()
+
+
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def require_launches(what, got, want):
+    """Fail unless the launch counts ``got`` are exactly ``want`` (0 for
+    every key not named)."""
+    wrong = {k: (v, want.get(k, 0)) for k, v in got.items()
+             if v != want.get(k, 0)}
+    require(not wrong, f"{what} launches (got, want): {wrong}")
 
 
 @contextlib.contextmanager
@@ -3104,8 +3139,6 @@ def hold_cli_batches(dev, argv, out):
 def run_clis(dev, root, hidden=HIDDEN, epochs=CLI_EPOCHS):
     """Phase 18's runs on ``dev``: the world under ``root``, the trainer
     (counted), its resume, and evaluate. Returns what the checks read."""
-    import io
-
     from stair_tpu_torch.data.dataset import AGQADataset
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.testing.agqa_world import trainer_argv
@@ -3135,12 +3168,6 @@ def run_clis(dev, root, hidden=HIDDEN, epochs=CLI_EPOCHS):
                            "--evaluate-interval", str(steps),
                            "--report-interval", str(steps),
                            "--scheduler-total-iters", "20", "--lr", "1e-3"]
-
-    def quiet(fn, *a, **kw):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            res = fn(*a, **kw)
-        return res, buf.getvalue()
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3179,7 +3206,9 @@ def run_clis(dev, root, hidden=HIDDEN, epochs=CLI_EPOCHS):
     t0 = time.perf_counter()
     held = hold_cli_batches(dev, train_argv, out)
     held_s = time.perf_counter() - t0
-    return dict(args=loop.parse_cli(train_argv), cfg=cfg, n_train=n_train,
+    return dict(root=root, world=w, common=common,
+                best_model=f"{out}/best_model",
+                args=loop.parse_cli(train_argv), cfg=cfg, n_train=n_train,
                 n_valid=n_valid, steps=steps, eval_batches=eval_batches,
                 launches=launches, recs=recs, files=files,
                 first_state=first_state, resumed=resumed, after=after,
@@ -3190,16 +3219,23 @@ def run_clis(dev, root, hidden=HIDDEN, epochs=CLI_EPOCHS):
 
 
 def phase_clis(dev, card):
-    import shutil
+    """Phase 18. Returns ``run_clis``' readings, the world and the trained
+    checkpoint under ``["root"]`` (phase 19 reads them; the caller removes
+    the directory, which a failure removes here)."""
     import tempfile
-
-    from stair_tpu_torch.train.loop import lr_schedule
 
     root = tempfile.mkdtemp(prefix="stair_clis_")
     try:
-        r = run_clis(dev, root)
-    finally:
+        return check_clis(card, run_clis(dev, root))
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+def check_clis(card, r):
+    """Phase 18's checks and prints on ``run_clis``' readings ``r``."""
+    from stair_tpu_torch.train.loop import lr_schedule
+
     steps, epochs = r["steps"], CLI_EPOCHS
     recs = r["recs"]
     evals = [x for x in recs if "valid/acc" in x]
@@ -3212,9 +3248,7 @@ def phase_clis(dev, card):
     want = {k: n * total_steps for k, n in TRAIN_LAUNCHES.items()}
     for k, n in EVAL_LAUNCHES.items():
         want[k] = want.get(k, 0) + n * n_eval
-    wrong = {k: (v, want.get(k, 0)) for k, v in r["launches"].items()
-             if v != want.get(k, 0)}
-    require(not wrong, f"CLI launches (got, want): {wrong}")
+    require_launches("CLI", r["launches"], want)
     losses = [x["loss/total"] for x in reports]
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     # loss/total sums the module losses over each example's supervised
@@ -3310,6 +3344,285 @@ def phase_clis(dev, card):
         f"acc {r['acc']:.4f} = the trainer's best {best:.4f}; "
         f"filter_text_result for {len(r['audit'])} questions "
         f"({r['eval_s']:.1f} s)")
+    return r
+
+
+#: phase 19: the LSTM program parser at the parser CLI's defaults (embed
+#: 256, hidden 256: the BiLSTM at h 128 per direction, S 32, T 48, float32)
+#: on phase 18's world, batches of 64, 2 epochs; decode in chunks of 256
+#: questions x beam 5
+PARSER_EPOCHS, PARSER_BATCH, DECODE_CHUNK, BEAM = 2, 64, 256, 5
+#: parser train steps timed after the counted run
+PARSER_TIMED_STEPS = 12
+
+
+def hold_parser_kernels(dev, model, src, mask):
+    """#2 + #3 on one training batch and #1 on one decode chunk, as the
+    parser's encoder gives them the inputs (the CLI's own batch and chunk,
+    the trained weights): each kernel twice (equal bits) against its plain
+    version, then timed beside the plain version and ``nn.LSTM``.
+    ``src``/``mask``: {"train": ..., "decode": ...}. Returns per kernel
+    (error, ms, plain ms, bound, library ms)."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import lstm as OL
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    from stair_tpu_torch.weights import tree_map
+
+    p = tree_map(lambda t: t.detach(), model.param_tree())
+    out = {}
+    gen = torch.Generator().manual_seed(19)
+    with torch.no_grad():
+        args = {k: OL._prep(p["encoder"], p["src_embed"][src[k]], mask[k])
+                for k in src}
+    for k, a in args.items():
+        require(OL.fwd_route(a[0].dtype, a[0].shape[-1] // 4) == "general"
+                and OL.bwd_route(a[0].dtype, a[0].shape[-1] // 4)
+                == "general", f"parser {k}: not the general route")
+    B, L, G = args["train"][0].shape
+    h = G // 4
+
+    # ---- #2 and #3 on the training batch: f32 1e-4 forward (max abs) and
+    # backward (max |a - b| / max |b|), PERF.md section 2's BiLSTM bounds
+    a = args["train"]
+    _build.reset_launches()
+    k1, k2 = OL.bilstm_train_call(*a), OL.bilstm_train_call(*a)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES["bilstm_train"] == 2
+            and not _build.LAUNCHES["bilstm_train_tc"],
+            f"parser #2 launches {_build.LAUNCHES}")
+    fk = (*k1[:3], *k1[3])
+    require(all(torch.equal(x, y) for x, y in zip(fk, (*k2[:3], *k2[3]))),
+            "parser #2: two launches differ")
+    ref = OL.bilstm_reference(*a, return_stacks=True)
+    e_fwd = max_err(fk, (*ref[:3], *ref[3]))
+    require(e_fwd <= 1e-4, f"parser #2 vs plain: {e_fwd:.3e}")
+    cot = [torch.randn(B, L, h, generator=gen).to(dev) for _ in range(2)]
+    cot.append(torch.randn(B, 2 * h, generator=gen).to(dev))
+    _build.reset_launches()
+    b1 = OL.bilstm_bwd_call(*a, k1[3], *cot)
+    b2 = OL.bilstm_bwd_call(*a, k1[3], *cot)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES["bilstm_bwd"] == 2
+            and _build.LAUNCHES["bilstm_dwh"] == 2
+            and not _build.LAUNCHES["bilstm_bwd_tc"],
+            f"parser #3 launches {_build.LAUNCHES}")
+    require(all(torch.equal(x, y) for x, y in zip(b1, b2)),
+            "parser #3: two launches differ")
+    bref = OL.bilstm_bwd_reference(*a, k1[3], *cot)
+    e_bwd = max(rel_err(x, y) for x, y in zip(b1, bref))
+    require(e_bwd <= 1e-4, f"parser #3 vs plain: {e_bwd:.3e}")
+
+    # ---- #1 on the decode chunk
+    d = args["decode"]
+    _build.reset_launches()
+    o1, o2 = OL.bilstm(*d), OL.bilstm(*d)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES["bilstm"] == 2 and not _build.LAUNCHES[
+        "bilstm_tc"], f"parser #1 launches {_build.LAUNCHES}")
+    require(all(torch.equal(x, y) for x, y in zip(o1, o2)),
+            "parser #1: two launches differ")
+    e_eval = max_err(o1, OL.bilstm_reference(*d))
+    require(e_eval <= 1e-4, f"parser #1 vs plain: {e_eval:.3e}")
+
+    # ---- times, bounds and the library call at these shapes
+    D = p["src_embed"].shape[1]
+    lib_fwd, lib_bwd = lstm_library_ms(B, L, D, h, dev, torch.float32,
+                                       train=True)
+    lib_eval, _ = lstm_library_ms(d[0].shape[0], L, D, h, dev,
+                                  torch.float32)
+    out["bilstm_train"] = dict(
+        err=e_fwd, ms=cuda_time_ms(lambda: OL.bilstm_train_call(*a)),
+        plain_ms=cuda_time_ms(lambda: OL.bilstm_reference(
+            *a, return_stacks=True), iters=3, warmup=1),
+        bound=lstm_bound(a, k1[:3], extra=k1[3]), library_ms=lib_fwd)
+    out["bilstm_bwd"] = dict(
+        err=e_bwd, ms=cuda_time_ms(lambda: OL.bilstm_bwd_call(
+            *a, k1[3], *cot)),
+        plain_ms=cuda_time_ms(lambda: OL.bilstm_bwd_reference(
+            *a, k1[3], *cot), iters=3, warmup=1),
+        bound=lstm_bound(a, b1, passes=3, extra=(k1[3], cot)),
+        library_ms=lib_bwd)
+    out["bilstm"] = dict(
+        err=e_eval, ms=cuda_time_ms(lambda: OL.bilstm(*d)),
+        plain_ms=cuda_time_ms(lambda: OL.bilstm_reference(*d), iters=3,
+                              warmup=1),
+        bound=lstm_bound(d, o1), library_ms=lib_eval)
+    return out
+
+
+def phase_parser(dev, card, clis):
+    """Phase 19: the program parser's CLI on phase 18's world, its kernels
+    held and timed at its shapes, and the parse -> NMN loop."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.programs import preprocess as PP
+    from stair_tpu_torch.seq2seq import train as PC
+    from stair_tpu_torch.seq2seq.vocab import BOS
+    from stair_tpu_torch.train import evaluate
+
+    t_phase = time.perf_counter()
+    w, root = clis["world"], clis["root"]
+    pdir, tsv = f"{root}/parser", f"{root}/parser/gen_valid.tsv"
+    gen_pkl = f"{root}/valid_generated.pkl"
+    train_pairs = PC.load_pairs(w["train"])
+    valid_pairs = PC.load_pairs(w["valid"])
+    n_train, n_valid = len(train_pairs), len(valid_pairs)
+    require(n_train >= DECODE_CHUNK, f"{n_train} parser pairs")
+    bs = min(PARSER_BATCH, n_train)
+    steps = PARSER_EPOCHS * (n_train // bs)
+    words = ["--arch", "lstm", "--train-filename", w["train"],
+             "--valid-filename", w["valid"], "--output", pdir,
+             "--num-epochs", str(PARSER_EPOCHS), "--batch-size",
+             str(PARSER_BATCH), "--report-interval", "1000",
+             "--device", str(dev)]
+
+    # ---- the counted main-path runs: the train CLI (its steps, then the
+    # valid split's exact match in chunks of the batch size), then the
+    # predict CLI over the valid split in chunks of 256, beam 5
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    _, train_log = quiet(PC.main, ["--func", "train", *words])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    chunks = -(-n_valid // min(PARSER_BATCH, n_valid))
+    require_launches("parser train CLI", train_launches, {
+        "bilstm_train": steps, "bilstm_bwd": steps, "bilstm_dwh": steps,
+        "bilstm": chunks})
+    em = float(train_log.split("valid exact-match (top beam):")[1].split()[0])
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    quiet(PC.main, ["--func", "predict", *words, "--model-dir", pdir,
+                    "--test-filename", w["valid"], "--result-filename", tsv,
+                    "--batch-size", str(DECODE_CHUNK), "--beam-size",
+                    str(BEAM)])
+    predict_s = time.perf_counter() - t0
+    predict_launches = dict(_build.LAUNCHES)
+    predict_chunks = -(-n_valid // min(DECODE_CHUNK, n_valid))
+    require_launches("parser predict CLI", predict_launches,
+                     {"bilstm": predict_chunks})
+    with open(tsv) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    require(len(rows) == BEAM * n_valid and all(len(r) == 3 for r in rows),
+            f"the TSV has {len(rows)} rows for {n_valid} questions")
+    (top1, any_beam), _ = quiet(PC.main, ["--func", "check_valid",
+                                          "--result-filename", tsv,
+                                          "--device", str(dev)])
+
+    # ---- the loop: merge the programs, answer with phase 18's checkpoint
+    quiet(PP.main, ["--func", "upgrade", "--generated-format",
+                    "huggingface", "--src-data-filename", w["valid"],
+                    "--dest-data-filename", gen_pkl,
+                    "--generated-filename", tsv])
+    eval_argv = clis["common"] + [
+        "--model-ckpt", clis["best_model"], "--test-filename", gen_pkl,
+        "--evaluate-func", "acc", "--result-filename",
+        "valid_generated_preds.json"]
+    _build.reset_launches()
+    acc_gen, eval_log = quiet(evaluate.main, eval_argv, device=dev)
+    eval_launches = dict(_build.LAUNCHES)
+    with open(os.path.join(os.path.dirname(clis["best_model"]),
+                           "valid_generated_preds.json")) as f:
+        answered = len(json.load(f)["preds"])
+    n_batches = -(-answered // TRAIN_BATCH)
+    require(answered > 0, f"evaluate answered nothing: {eval_log[-300:]}")
+    require_launches("evaluate on generated programs", eval_launches, {
+        k: n * n_batches for k, n in EVAL_LAUNCHES.items()})
+
+    # ---- the kernels on the CLI's own inputs: the first batch of its
+    # first epoch (np.random.RandomState(seed 0)), a chunk of 256 questions
+    model, sv, tv = PC.load_parser(pdir, dev)
+    cfg = model.config
+    args = types.SimpleNamespace(max_src_len=cfg.max_src_len,
+                                 max_tgt_len=cfg.max_tgt_len)
+    data = PC.train_arrays(train_pairs, sv, tv, args, BOS, dev)
+    idx = torch.from_numpy(PC.epoch_batches(np.random.RandomState(0),
+                                            n_train, bs)[0]).to(dev)
+    t0 = time.perf_counter()
+    held = hold_parser_kernels(
+        dev, model, {"train": data[0][idx], "decode": data[0][:DECODE_CHUNK]},
+        {"train": data[1][idx], "decode": data[1][:DECODE_CHUNK]})
+    held_s = time.perf_counter() - t0
+
+    # ---- ms a parser train step (the CLI's step function on its batches)
+    # and decode q/s on one chunk of 256 (beam 5), after a warm pass
+    step = PC.make_step(model, PC.make_optimizer(model, 1e-3))
+    batches = PC.epoch_batches(np.random.RandomState(1), n_train, bs)
+    step(*(x[idx] for x in data))
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(PARSER_TIMED_STEPS):
+        b = torch.from_numpy(batches[i % len(batches)]).to(dev)
+        step(*(x[b] for x in data))
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PARSER_TIMED_STEPS
+    step_event_ms = ev[0].elapsed_time(ev[1]) / PARSER_TIMED_STEPS
+    dargs = types.SimpleNamespace(batch_size=DECODE_CHUNK, beam_size=BEAM,
+                                  max_src_len=cfg.max_src_len,
+                                  max_tgt_len=cfg.max_tgt_len)
+    chunk = train_pairs[:DECODE_CHUNK]
+    list(PC.decode_beams(model, sv, tv, chunk, dargs))
+    t0 = time.perf_counter()
+    list(PC.decode_beams(model, sv, tv, chunk, dargs))
+    decode_qps = DECODE_CHUNK / (time.perf_counter() - t0)
+    phase_s = time.perf_counter() - t_phase
+
+    log(f"[parser] seq2seq.train --arch lstm at the CLI's widths (embed "
+        f"{cfg.embed_dim}, hidden {cfg.hidden}: BiLSTM h "
+        f"{cfg.hidden // 2}, S {cfg.max_src_len}, T {cfg.max_tgt_len}, "
+        f"float32) on phase 18's world: {n_train} train / {n_valid} valid "
+        f"pairs, src vocab {len(sv)}, tgt vocab {len(tv)}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
+        f"{PARSER_EPOCHS} epochs = {steps} steps of B {bs} in "
+        f"{train_s:.1f} s, valid exact match {em:.4f}; launches "
+        f"{ {k: v for k, v in train_launches.items() if v} } = {steps} x "
+        "(bilstm_train + bilstm_bwd + bilstm_dwh) + "
+        f"{chunks} x bilstm (the exact-match decode), nothing else")
+    log(f"[parser] predict over the valid split, chunks of {DECODE_CHUNK}, "
+        f"beam {BEAM}: {predict_s:.2f} s, launches "
+        f"{ {k: v for k, v in predict_launches.items() if v} } = "
+        f"{predict_chunks} x bilstm; check_valid top-beam {top1:.4f}, "
+        f"any-beam {any_beam:.4f}; preprocess --func upgrade, then "
+        f"train.evaluate on phase 18's best_model over the generated "
+        f"programs: acc {acc_gen:.4f} on {answered} of {n_valid} questions "
+        f"(gold programs: {clis['acc']:.4f}), launches "
+        f"{ {k: v for k, v in eval_launches.items() if v} } = "
+        f"{n_batches} x {EVAL_LAUNCHES}")
+    for k, shape in (("bilstm_train", f"B {bs}"), ("bilstm_bwd", f"B {bs}"),
+                     ("bilstm", f"B {DECODE_CHUNK}")):
+        x = held[k]
+        log(f"[parser] {k} general route at {shape}, L {cfg.max_src_len}, h "
+            f"{cfg.hidden // 2}, float32, the CLI's own inputs: "
+            f"{'max |a-b| / max |b|' if k == 'bilstm_bwd' else 'max_abs_err'}"
+            f" {x['err']:.3e} (bound 1e-4), two launches bit-identical; "
+            f"{x['ms']:.4f} ms, plain {x['plain_ms']:.3f} ms, bound "
+            f"{x['bound']['bound_ms']:.4f} ms ({x['bound']['bound_by']}), "
+            f"nn.LSTM {x['library_ms']:.4f} ms; card {card}")
+    log(f"[parser] a train step (the CLI's step function, B {bs}): "
+        f"{step_ms:.3f} ms by the host clock (synchronized at the ends), "
+        f"{step_event_ms:.3f} by CUDA events over {PARSER_TIMED_STEPS} "
+        f"steps; decode {decode_qps:.1f} questions/s (one chunk of "
+        f"{DECODE_CHUNK}, beam {BEAM}, host clock); kernels held in "
+        f"{held_s:.1f} s; phase {phase_s:.1f} s; card {card}")
+    src = "stair_tpu_torch/ops/csrc/bilstm.cu"
+    launches = {"bilstm": train_launches["bilstm"]
+                + predict_launches["bilstm"],
+                "bilstm_train": train_launches["bilstm_train"],
+                "bilstm_bwd": train_launches["bilstm_bwd"]}
+    sites = {"bilstm": "stair_tpu/ops/lstm.py:136",
+             "bilstm_train": "stair_tpu/ops/lstm.py:583",
+             "bilstm_bwd": "stair_tpu/ops/lstm.py:390"}
+    return [{"name": k, "route": "cuda", "path": "parser",
+             "source": src, "replaces": sites[k], "launches": launches[k],
+             "max_abs_err": held[k]["err"], "ms": held[k]["ms"],
+             "plain_ms": held[k]["plain_ms"], **held[k]["bound"],
+             "library_ms": held[k]["library_ms"]}
+            for k in ("bilstm", "bilstm_train", "bilstm_bwd")]
 
 
 def main():
@@ -3367,7 +3680,11 @@ def main():
     general_launches = phase_step_kernel(dev)
     kernels += phase_step_slice(dev, card, general_launches)
     kernels += phase_rev_train(dev, card, slot_entries)
-    phase_clis(dev, card)
+    clis = phase_clis(dev, card)
+    try:
+        kernels += phase_parser(dev, card, clis)
+    finally:
+        shutil.rmtree(clis["root"], ignore_errors=True)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

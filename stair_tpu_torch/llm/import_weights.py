@@ -1,12 +1,13 @@
-"""HF checkpoint converters: GPT-2 / Llama state dicts -> params trees
-(port of ``stair_tpu/llm/import_weights.py``; the T5 pair goes with the
-program parsers).
+"""HF checkpoint converters: GPT-2 / Llama / T5 state dicts -> params trees
+(port of ``stair_tpu/llm/import_weights.py``).
 
 Lets the LLM paths run from pretrained weights that are available locally.
 Conversion is numpy on the host and gives the JAX package's tree (``w``
 stored ``[in, out]``): ``Decoder(cfg, params_from_numpy(import_llama(sd)))``.
 Parity with ``transformers``' implementations is covered by
-tests/test_torch_decoder.py.
+tests/test_torch_decoder.py; ``import_t5`` (the program parser's Flan-T5
+path, ``T5Seq2Seq(cfg, params_from_numpy(import_t5(sd)))``) by
+tests/test_torch_seq2seq.py.
 """
 
 from __future__ import annotations
@@ -129,4 +130,99 @@ def import_llama(state_dict) -> dict:
         params["lm_head"] = {"w": _np(sd["lm_head.weight"]).T}
     else:
         params["lm_head"] = {"w": g("embed_tokens.weight").T}
+    return params
+
+
+def t5_config_from_hf(hf_config, **overrides):
+    """transformers T5Config -> ``seq2seq.t5.T5Config`` (v1.0 relu and
+    v1.1/Flan gated-gelu, ref hf_program_parser.py:142-205 loads
+    google/flan-t5-large)."""
+    from stair_tpu_torch.seq2seq.t5 import T5Config
+
+    ff = hf_config.feed_forward_proj
+    kw = dict(
+        vocab_size=hf_config.vocab_size,
+        d_model=hf_config.d_model,
+        d_kv=hf_config.d_kv,
+        num_heads=hf_config.num_heads,
+        num_layers=hf_config.num_layers,
+        num_decoder_layers=hf_config.num_decoder_layers,
+        d_ff=hf_config.d_ff,
+        feed_forward="gated-gelu" if "gated" in ff else "relu",
+        num_buckets=hf_config.relative_attention_num_buckets,
+        max_distance=getattr(
+            hf_config, "relative_attention_max_distance", 128
+        ),
+        rms_eps=hf_config.layer_norm_epsilon,
+        tie_word_embeddings=hf_config.tie_word_embeddings,
+    )
+    kw.update(overrides)
+    return T5Config(**kw)
+
+
+def import_t5(state_dict) -> dict:
+    """HF T5ForConditionalGeneration (or T5Model) state dict -> T5Seq2Seq
+    params. Torch Linear weights are [out, in]; transposed to x @ w."""
+    sd = dict(state_dict)
+
+    def g(name):
+        return _np(sd[name]).T
+
+    def raw(name):
+        return _np(sd[name])
+
+    def ffn(base):
+        if base + "DenseReluDense.wi_0.weight" in sd:
+            return {"wi_0": {"w": g(base + "DenseReluDense.wi_0.weight")},
+                    "wi_1": {"w": g(base + "DenseReluDense.wi_1.weight")},
+                    "wo": {"w": g(base + "DenseReluDense.wo.weight")}}
+        return {"wi": {"w": g(base + "DenseReluDense.wi.weight")},
+                "wo": {"w": g(base + "DenseReluDense.wo.weight")}}
+
+    def attn(base):
+        return {n: {"w": g(f"{base}.{n}.weight")} for n in "qkvo"}
+
+    def n_blocks(stack):
+        return 1 + max(
+            int(k.split(".")[2]) for k in sd
+            if k.startswith(stack + ".block.")
+        )
+
+    enc = []
+    for i in range(n_blocks("encoder")):
+        b = f"encoder.block.{i}."
+        enc.append({
+            "ln1": raw(b + "layer.0.layer_norm.weight"),
+            "attn": attn(b + "layer.0.SelfAttention"),
+            "ln2": raw(b + "layer.1.layer_norm.weight"),
+            "ffn": ffn(b + "layer.1."),
+        })
+    dec = []
+    for i in range(n_blocks("decoder")):
+        b = f"decoder.block.{i}."
+        dec.append({
+            "ln1": raw(b + "layer.0.layer_norm.weight"),
+            "self": attn(b + "layer.0.SelfAttention"),
+            "ln2": raw(b + "layer.1.layer_norm.weight"),
+            "cross": attn(b + "layer.1.EncDecAttention"),
+            "ln3": raw(b + "layer.2.layer_norm.weight"),
+            "ffn": ffn(b + "layer.2."),
+        })
+    params = {
+        "shared": raw("shared.weight"),
+        "enc_rel": raw(
+            "encoder.block.0.layer.0.SelfAttention"
+            ".relative_attention_bias.weight"
+        ),
+        "dec_rel": raw(
+            "decoder.block.0.layer.0.SelfAttention"
+            ".relative_attention_bias.weight"
+        ),
+        "enc": enc,
+        "dec": dec,
+        "enc_ln": raw("encoder.final_layer_norm.weight"),
+        "dec_ln": raw("decoder.final_layer_norm.weight"),
+    }
+    if "lm_head.weight" in sd:
+        params["lm_head"] = {"w": g("lm_head.weight")}
     return params

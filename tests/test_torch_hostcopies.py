@@ -8,7 +8,9 @@ from the port's own C++ sources), ``train/args.py`` and the constants of
 span-linked, lowered and padded by both; the native batch path of both;
 the argument parsers option by option; the constants value by value;
 ``load_video_features`` on a seeded feature directory and
-``splice_filter_outputs`` string for string.
+``splice_filter_outputs`` string for string; the parsers'
+``seq2seq/{vocab,export}.py``: encodings, decodings, saved JSON and the
+exported fairseq files byte for byte.
 """
 
 import os
@@ -296,3 +298,52 @@ def test_backup_code_copies_the_port(tmp_path):
     for root, dirs, names in os.walk(pkg):
         assert "__pycache__" not in dirs and "build" not in dirs, root
         assert not [n for n in names if n.endswith((".so", ".pyc"))], root
+
+
+def test_parser_vocab_and_export_agree(tmp_path):
+    # seq2seq/vocab.py and seq2seq/export.py: the same encodings,
+    # decodings, saved JSON and exported fairseq files on a converted split
+    import pickle
+
+    from stair_tpu.seq2seq import export as JEx
+    from stair_tpu.seq2seq import vocab as JVo
+    from stair_tpu_torch.seq2seq import export as TEx
+    from stair_tpu_torch.seq2seq import vocab as TVo
+    from stair_tpu_torch.testing.agqa_world import write_agqa_world
+
+    w = write_agqa_world(str(tmp_path / "world"), num_videos=4,
+                         questions_per_video=5, num_frames=16, seed=2)
+    with open(w["train"], "rb") as f:
+        records = pickle.load(f)
+    assert (JVo.PAD, JVo.BOS, JVo.EOS, JVo.UNK, JVo.SPECIALS) == (
+        TVo.PAD, TVo.BOS, TVo.EOS, TVo.UNK, TVo.SPECIALS)
+    questions = [r["question"] for r in records] + SENTENCES
+    qtoks = [JVo.question_tokens(q) for q in questions]
+    assert [TVo.question_tokens(q) for q in questions] == qtoks
+    progs = [list(r["nmn_program"]) for r in records if r.get("nmn_program")]
+    for toks, min_count in ((qtoks, 1), (progs, 1), (progs, 2)):
+        jv, tv = (V.Vocab.build(toks, min_count) for V in (JVo, TVo))
+        assert (tv.id2word, tv.word2id) == (jv.id2word, jv.word2id)
+        for seq in toks + [["never", "seen"], []]:
+            for max_len, eos in ((6, True), (6, False), (40, True)):
+                ids = jv.encode(seq, max_len, add_eos=eos)
+                assert tv.encode(seq, max_len, add_eos=eos) == ids
+                assert tv.decode(ids) == jv.decode(ids)
+        jv.save(tmp_path / "jax.json")
+        tv.save(tmp_path / "port.json")
+        assert ((tmp_path / "port.json").read_bytes()
+                == (tmp_path / "jax.json").read_bytes())
+        loaded = TVo.Vocab.load(tmp_path / "jax.json")
+        assert (loaded.id2word, loaded.word2id) == (jv.id2word, jv.word2id)
+    for split in ("train", "test"):
+        n = [E.export_split(w[split], str(tmp_path / f"{name}_{split}"))
+             for E, name in ((JEx, "jax"), (TEx, "port"))]
+        assert n[0] == n[1] > 0
+        for ext in ("question", "program"):
+            assert ((tmp_path / f"port_{split}.{ext}").read_bytes()
+                    == (tmp_path / f"jax_{split}.{ext}").read_bytes())
+    TEx.main(["--records", w["valid"], "--out-prefixes",
+              str(tmp_path / "cli")])
+    JEx.export_split(w["valid"], str(tmp_path / "jcli"))
+    assert ((tmp_path / "cli.program").read_bytes()
+            == (tmp_path / "jcli.program").read_bytes())

@@ -12,10 +12,12 @@ Adam), one tiny forward on the ``"step"`` executor and one train step on the
 ``video_chatgpt_infer_batch`` at tiny widths, both LLM trainer CLIs
 with their checkpoints, and the NMN trainer and evaluate CLIs on a tiny
 world that the port's own ``testing/synthetic.py`` and
-``programs/preprocess.py`` write (``--executor rev``); records that the JAX package's
+``programs/preprocess.py`` write (``--executor rev``), the program parser's CLI (train, predict,
+check_valid) on that world; records that the JAX package's
 preprocess wrote load with both blocked; ``chip_smoke.py`` imports only
-the port, lists 18 phases, and its ``kernels`` line names the thirteen
-ported kernels (17 entries), each with a launch counter. The port's
+the port, lists 19 phases, and its ``kernels`` line names the thirteen
+ported kernels (17 entries, and #1-#3 again on the parser's path), each
+with a launch counter. The port's
 sources carry no JAX, flax or optax import and no import of
 ``stair_tpu``. ``python chip_smoke.py`` exits non-zero, quickly
 and without its result line, where there is no CUDA device.
@@ -141,6 +143,20 @@ best = TLP.main(argv + ["--num-epochs", "1"], device="cpu")
 acc = TEV.main(argv + ["--model-ckpt", root + "/nmn/run/best_model",
                        "--test-filename", w["valid"]], device="cpu")
 assert acc == best, (acc, best)
+# the program parser's CLI on the same world: train, predict, check_valid;
+# the parity study's module imports
+import stair_tpu_torch.scripts.parity_study
+from stair_tpu_torch.seq2seq import train as TS2
+pwords = ["--arch", "lstm", "--train-filename", w["train"], "--output",
+          root + "/parser", "--embed-dim", "16", "--hidden", "16",
+          "--batch-size", "4", "--num-epochs", "1", "--beam-size", "2",
+          "--max-tgt-len", "12", "--device", "cpu"]
+TS2.main(["--func", "train", *pwords])
+TS2.main(["--func", "predict", *pwords, "--test-filename", w["test"],
+          "--result-filename", root + "/parser/gen.tsv"])
+rates = TS2.main(["--func", "check_valid", *pwords, "--result-filename",
+                  root + "/parser/gen.tsv"])
+assert len(rates) == 2
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stair_tpu")
        and sys.modules[m] is not None]
@@ -286,8 +302,14 @@ def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         text = f.read()
     doc = ast.get_docstring(ast.parse(text))
+    # nineteen phases since the program parser's (the test keeps the name
+    # it had at eighteen); phase 19's three entries are #1-#3 on the
+    # parser's path, built in one comprehension
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, re.M)]
-    assert numbers == list(range(1, 19)), numbers
+    assert numbers == list(range(1, 20)), numbers
     assert "phase_clis(dev, card)" in text
+    assert "kernels += phase_parser(dev, card, clis)" in text
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
     assert len(names) == 17, names
+    assert re.search(r'\{"name": k, "route": "cuda", "path": "parser"',
+                     text)
