@@ -2,8 +2,8 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU: the NMN serving
 forward and train step (on the megakernel route, and on the scan
 executor's per-step and reversible routes), the NMN's trainer and
-evaluate CLIs, the program parser, Video-ChatGPT serving and LLM
-training.
+evaluate CLIs, the program parser, Video-ChatGPT serving and its demo
+server, data-parallel NMN training and evaluation, and LLM training.
 
     python3 chip_smoke.py
 
@@ -186,7 +186,33 @@ Phases (any failure raises, and the script exits non-zero):
    else); #2 + #3 on the CLI's first training batch and #1 on a decode
    chunk of 256 against their plain versions (float32, 1e-4) with equal
    bits on a second launch, timed beside ``nn.LSTM``; ms a parser train
-   step (host clock and CUDA events) and decode questions/s.
+   step (host clock and CUDA events) and decode questions/s;
+20. the demo server at full width, on phase 10's Llama-7B + ViT-L/14
+   (before phase 12 frees it): ``serve/demo.py make_handler(ChatBackend)``
+   on ``127.0.0.1:0`` in a thread, a session opened through
+   ``open_frames`` on 100 seeded frames, three turns through ``POST
+   /api/chat`` (each: status 200 and a string reply, exactly one
+   ``flash_attn`` launch per decoder layer for its prefill and nothing
+   else, the token ids and the reply equal to a direct ``model.generate``
+   with the same prompt and generator seed), a message flagged through
+   ``MODERATION_BLOCKLIST`` (the moderation reply and no launch), ``GET
+   /api/sessions`` and ``GET /api/stats``; the encode time and each turn's
+   time by the host clock;
+21. data parallel on the card: two ranks share ``cuda:0`` over gloo
+   (``parallel.mesh.launch`` with an explicit device list, as the machine
+   has one card), phase 8's training configuration at dropout 0 (B 128
+   global, 64 a rank, window 32), three steps: per rank per step exactly
+   ``TRAIN_LAUNCHES``, the ranks' parameters equal bit for bit after every
+   step, the first step's loss (bf16) and float32 gradient leaves against
+   one process's step on the global batch by phase 8's kernel-vs-plain
+   bounds, the eval step's gathered predictions against one process's
+   (equal accuracy); the evaluate CLI's ranks (``train/evaluate.py``'s
+   rank body) on phase 18's checkpoint: accuracy and result file equal to
+   the one-device evaluate; ms a step per rank (host clock).
+
+A line before the phases gives ``utils/mfu.py``'s peaks for the card's
+name (not None on an H100, equal to the peaks the bounds use on the H100
+SXM).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are ``{"kernels": [...]}`` (per
@@ -248,6 +274,14 @@ STEP_BATCHES = 4
 #: two cosines closer than this (about four bf16 steps below 1) are a tie
 #: that the executor routes may break differently
 CHOOSE_TIE = 1.6e-2
+
+#: phase 20: the demo's turns, and the moderation blocklist it sets
+DEMO_TURNS = ("what is the person doing ?", "where is the laptop ?",
+              "what did the person do after they opened the door of the "
+              "kitchen ?")
+DEMO_BLOCKED = "forbiddenword"
+#: phase 21: data-parallel ranks sharing the one card, and steps
+DP_RANKS, DP_STEPS = 2, 3
 
 #: the SFT step: videochat_train.py's defaults (batch 8, 512 tokens)
 SFT_BATCH, SFT_LEN, SFT_STEPS, SFT_LR = 8, 512, 6, 3e-4
@@ -3625,12 +3659,243 @@ def phase_parser(dev, card, clis):
             for k in ("bilstm", "bilstm_train", "bilstm_bwd")]
 
 
+def _http(port, path, payload=None):
+    """``(status, JSON)`` of a GET (``payload`` None) or a POST to the
+    demo server on ``127.0.0.1:port``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def phase_demo(dev, card, model):
+    """Phase 20: the demo server over phase 10's full-width model."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from stair_tpu_torch.llm.videochat import KeywordsStoppingCriteria
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.serve.demo import (
+        ChatBackend, LatencyTracker, make_handler,
+    )
+    from stair_tpu_torch.serve.logutil import moderation_msg
+    from stair_tpu_torch.testing import videochat as VW
+
+    tokenizer = VW.tokenizer()
+    backend = ChatBackend(model, tokenizer=tokenizer, num_frames=VW.FRAMES)
+    n_layers = model.config.decoder.num_layers
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                make_handler(backend, LatencyTracker()))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    saved = os.environ.pop("MODERATION_BLOCKLIST", None)
+    try:
+        frames = VW.frame_sets(seed=20)[0]          # [100, 240, 320, 3]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sid = backend.open_frames(frames, "seeded-frames")
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        vt = backend.sessions[sid]["video_tokens"]
+        require(vt.shape == (model.config.video_token_len,
+                             model.config.vision.d_model)
+                and bool(torch.isfinite(vt.float()).all()),
+                f"session video tokens {tuple(vt.shape)}")
+        turn_ms, replies, served = [], [], []
+        # keep the token ids each turn generates (the tokenizer reads most
+        # of a random model's 32,000 ids as <unk>, so the strings alone
+        # would hide a difference)
+        generate = model.generate
+        model.generate = lambda *a, **k: served.append(generate(*a, **k)) \
+            or served[-1]
+        for i, msg in enumerate(DEMO_TURNS):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            code, out = _http(port, "/api/chat",
+                              {"session_id": sid, "message": msg})
+            torch.cuda.synchronize()
+            turn_ms.append((time.perf_counter() - t0) * 1e3)
+            require(code == 200 and isinstance(out.get("reply"), str),
+                    f"demo turn {i}: {code} {out}")
+            require_launches(f"demo turn {i}", dict(_build.LAUNCHES),
+                             {"flash_attn": n_layers})
+            # the same prompt and generator seed straight through generate
+            ids, start, plen, stop = backend.prompt(msg)
+            toks = generate(
+                ids, vt[None], start, prompt_len=plen, max_new_tokens=64,
+                temperature=0.2,
+                generator=torch.Generator(device=dev).manual_seed(i),
+                eos_id=tokenizer.eos_token_id)
+            want = KeywordsStoppingCriteria([stop], tokenizer, 0).truncate(
+                tokenizer.decode(toks[0].cpu().numpy()))
+            require(len(served) == i + 1 and torch.equal(served[i], toks)
+                    and out["reply"] == want,
+                    f"demo turn {i}: reply {out['reply']!r} != direct "
+                    f"generate {want!r}, or other token ids")
+            replies.append(out["reply"])
+        os.environ["MODERATION_BLOCKLIST"] = DEMO_BLOCKED
+        _build.reset_launches()
+        code, out = _http(port, "/api/chat", {
+            "session_id": sid, "message": f"please say {DEMO_BLOCKED} now"})
+        require(code == 200 and out == {"reply": moderation_msg,
+                                        "flagged": True},
+                f"moderation: {code} {out}")
+        require(not any(_build.LAUNCHES.values()),
+                f"a flagged message launched {_build.LAUNCHES}")
+        code, sessions = _http(port, "/api/sessions")
+        require(code == 200 and sessions == {sid: {
+            "video": "seeded-frames", "turns": len(DEMO_TURNS)}},
+            f"sessions {sessions}")
+        code, stats = _http(port, "/api/stats")
+        require(code == 200 and stats["chat"]["count"] == len(DEMO_TURNS),
+                f"stats {stats}")
+    finally:
+        model.__dict__.pop("generate", None)
+        if saved is None:
+            os.environ.pop("MODERATION_BLOCKLIST", None)
+        else:
+            os.environ["MODERATION_BLOCKLIST"] = saved
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[demo] Llama-7B + ViT-L/14 bf16 behind serve/demo.py on "
+        f"127.0.0.1:{port}: session on {VW.FRAMES} seeded frames encoded in "
+        f"{encode_ms:.1f} ms (host clock, synchronized: resize, CLIP tower, "
+        f"pooling); {len(DEMO_TURNS)} turns through POST /api/chat at "
+        f"temperature 0.2, 64 new tokens: "
+        f"{[round(t, 1) for t in turn_ms]} ms a turn (host clock, request "
+        f"to answer); {n_layers} flash_attn launches a turn, nothing else; "
+        f"token ids and replies equal to direct generate's; moderation "
+        f"reply with no "
+        f"launch; /api/stats chat p50 {stats['chat']['p50_ms']:.1f} ms, "
+        f"p99 {stats['chat']['p99_ms']:.1f} ms; replies "
+        f"{[r[:24] for r in replies]}; card {card}")
+
+
+def phase_data_parallel(dev, card, clis):
+    """Phase 21: data parallel on one card, two ranks over gloo."""
+    from stair_tpu_torch.models.nmn import NMNConfig
+    from stair_tpu_torch.parallel.mesh import launch, use_data_parallel
+    from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.testing.dp import train_cases, train_steps
+    from stair_tpu_torch.train import evaluate, loop
+    from stair_tpu_torch.weights import flatten_tree, params_to_numpy
+
+    devices = [dev] * DP_RANKS
+    log(f"[dp] {torch.cuda.device_count()} card(s) on this machine: "
+        f"{DP_RANKS} ranks share {dev} over gloo (parallel.mesh.launch "
+        f"with an explicit device list); NCCL across cards is not run here")
+    base = W.workload_config(hidden_size=HIDDEN, video_size=VIDEO_D,
+                             text_size=TEXT_D, max_video_length=FRAMES)
+    cfg = NMNConfig(**{**base.to_dict(), "compute_dtype": "bfloat16",
+                       "dropout": 0.0})
+    cfg32 = NMNConfig(**{**cfg.to_dict(), "compute_dtype": "float32"})
+    # the global batch and the weights are made here, before any rank runs
+    batch = W.add_fake_supervision(
+        W.make_batch(cfg, batch_size=TRAIN_BATCH, question_len=QUESTION_LEN),
+        cfg)
+    params = params_to_numpy(W.build_model(cfg, seed=0))
+    args = loop.trainer_defaults(batch_size=TRAIN_BATCH)   # window 32
+    require(use_data_parallel(args, DP_RANKS), "use_data_parallel")
+    calls = [dict(cfg_dict=cfg.to_dict(), params=params, batch=batch,
+                  args=args, steps=DP_STEPS),
+             dict(cfg_dict=cfg32.to_dict(), params=params, batch=batch,
+                  args=args, steps=1),
+             dict(cfg_dict=cfg.to_dict(), params=params, batch=batch,
+                  args=args, steps=0, eval_batch=batch)]
+    t0 = time.perf_counter()
+    ranks = launch(train_cases, DP_RANKS, devices, "gloo", args=(calls,))
+    launch_s = time.perf_counter() - t0
+    one = [train_steps(None, **c, device=dev) for c in calls]
+
+    bf, f32, ev = (0, 1, 2)
+    for r, res in enumerate(ranks):
+        for s, got in enumerate(res[bf]["launches"]):
+            require_launches(f"[dp] rank {r} step {s}", got, TRAIN_LAUNCHES)
+        require(all(np.isfinite(res[bf]["loss"])), f"loss {res[bf]['loss']}")
+    for case in (bf, f32):
+        require(ranks[0][case]["digest"] == ranks[1][case]["digest"],
+                "the ranks' parameters differ after a step")
+    l_dp, l_one = ranks[0][bf]["loss"][0], one[bf]["loss"][0]
+    require(abs(l_dp - l_one) <= 1e-4 * abs(l_one),
+            f"[dp] bf16 loss {l_dp} vs one process {l_one}")
+    l32_dp, l32_one = ranks[0][f32]["loss"][0], one[f32]["loss"][0]
+    require(abs(l32_dp - l32_one) <= 1e-4 * abs(l32_one),
+            f"[dp] float32 loss {l32_dp} vs one process {l32_one}")
+    g_dp = flatten_tree(ranks[0][f32]["grads"])
+    g_one = flatten_tree(one[f32]["grads"])
+    rels = {k: float(np.linalg.norm(g_dp[k] - g_one[k]))
+            / max(float(np.linalg.norm(g_one[k])), 1e-30)
+            for k in g_one if np.abs(g_one[k]).max() > 0}
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    require(worst[0][1] <= 1e-2, f"[dp] float32 gradient leaves {worst}")
+    answer = batch["answer"]
+    acc_dp = float(np.mean(ranks[0][ev]["eval"]["preds"] == answer))
+    acc_one = float(np.mean(one[ev]["eval"]["preds"] == answer))
+    same = float(np.mean(ranks[0][ev]["eval"]["preds"]
+                         == one[ev]["eval"]["preds"]))
+    require(np.array_equal(ranks[0][ev]["eval"]["preds"],
+                           ranks[1][ev]["eval"]["preds"])
+            and acc_dp == acc_one,
+            f"[dp] eval accuracy {acc_dp} vs one process {acc_one}")
+    ms = [float(np.mean(res[bf]["ms"][1:])) for res in ranks]
+    log(f"[dp] phase 8's configuration at dropout 0, B {TRAIN_BATCH} on "
+        f"{DP_RANKS} ranks ({TRAIN_BATCH // DP_RANKS} a rank), window "
+        f"{args.contrastive_window}: launches per rank per step "
+        f"TRAIN_LAUNCHES exactly; parameters equal bit for bit on both ranks "
+        f"after each of {DP_STEPS} steps; bf16 loss {l_dp:.6f} vs one "
+        f"process {l_one:.6f} (bound 1e-4 relative); float32 loss "
+        f"{l32_dp:.6f} vs {l32_one:.6f}, worst gradient leaves (norm rel) "
+        f"{[(k, f'{v:.2e}') for k, v in worst]} (bound 1e-2); eval step "
+        f"accuracy {acc_dp:.4f} on both ranks vs {acc_one:.4f} one process "
+        f"(predictions equal on {same:.4f}); ms a step per rank (host "
+        f"clock, steps 2-{DP_STEPS}) {[round(m, 3) for m in ms]}, one "
+        f"process {float(np.mean(one[bf]['ms'][1:])):.3f}; launch "
+        f"{launch_s:.1f} s; card {card}")
+
+    # the evaluate CLI's ranks on phase 18's checkpoint over the valid split
+    eval_argv = clis["common"] + [
+        "--model-ckpt", clis["best_model"], "--test-filename",
+        clis["world"]["valid"], "--evaluate-func", "acc",
+        "--result-filename", "dp_result.json"]
+    eargs = loop.parse_cli(eval_argv + ["--mesh-dp", str(DP_RANKS)])
+    out_dp = os.path.join(clis["root"], "eval_dp")
+    out_one = os.path.join(clis["root"], "eval_one")
+    eargs.output = out_dp
+    t0 = time.perf_counter()
+    acc2 = launch(evaluate._evaluate_rank, DP_RANKS, devices, "gloo",
+                  args=(eargs, "mega"))
+    eval_dp_s = time.perf_counter() - t0
+    acc1, _ = quiet(evaluate.main, eval_argv + ["--output", out_one],
+                    device=dev)
+    with open(os.path.join(out_dp, "dp_result.json")) as f2, \
+            open(os.path.join(out_one, "dp_result.json")) as f1:
+        same_file = json.load(f2) == json.load(f1)
+    require(acc2[0] == acc2[1] == acc1 == clis["acc"] and same_file,
+            f"[dp] evaluate accuracy {acc2} vs one device {acc1} (phase 18 "
+            f"{clis['acc']}), result files equal: {same_file}")
+    log(f"[dp] train/evaluate.py's rank body on {DP_RANKS} ranks over "
+        f"phase 18's best_model and valid split ({clis['n_valid']} "
+        f"questions): accuracy {acc2[0]:.4f} on both ranks, equal to one "
+        f"device's and phase 18's; result files equal; {eval_dp_s:.1f} s "
+        f"with the ranks' start; card {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
                          "NVIDIA GPU")
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.utils.device import card_identity, exact_f32
+    from stair_tpu_torch.utils.mfu import chip_peak_flops, chip_peak_hbm_bw
 
     dev = torch.device("cuda", 0)
     card = card_identity().splitlines()[0]
@@ -3638,6 +3903,16 @@ def main():
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} visible")
     exact_f32()
+    name = torch.cuda.get_device_name(0)
+    peak, hbm = chip_peak_flops(dev), chip_peak_hbm_bw(dev)
+    log(f"[mfu] utils/mfu.py peaks for {name}: {peak} FLOP/s dense bf16, "
+        f"{hbm} bytes/s; card {card}")
+    if "H100" in name:
+        require(peak is not None and hbm is not None,
+                f"utils/mfu.py has no peaks for {name}")
+    if name == "NVIDIA H100 80GB HBM3":
+        require(peak == PEAK_FLOPS[torch.bfloat16] and hbm == PEAK_BYTES,
+                "utils/mfu.py's H100 SXM peaks differ from the bounds'")
 
     t0 = time.perf_counter()
     _build.build()
@@ -3670,6 +3945,7 @@ def main():
     phase_attention(dev, card)
     entries, model = phase_videochat(dev, card)
     kernels += entries
+    phase_demo(dev, card, model)
     phase_attention_bwd(dev, card)
     kernels += phase_sft(dev, card, model)
     del model
@@ -3683,6 +3959,7 @@ def main():
     clis = phase_clis(dev, card)
     try:
         kernels += phase_parser(dev, card, clis)
+        phase_data_parallel(dev, card, clis)
     finally:
         shutil.rmtree(clis["root"], ignore_errors=True)
     log(json.dumps({"kernels": kernels}))

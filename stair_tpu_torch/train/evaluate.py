@@ -11,11 +11,16 @@ and the Filter-output audit.
 
 Both go through the trainer's one eval step (``loop.make_eval_step``; the
 audit reads the same step's vec register file). It reads the checkpoints
-either package's trainer writes.
+either package's trainer writes. ``--mesh-dp N`` evaluates the accuracy on
+``N`` data-parallel ranks by the trainer's rule (``parallel/mesh.py
+plan``): each rank runs its shard of every batch and the predictions are
+gathered in example order; rank 0 writes the result file. The Filter audit
+runs on one device, as the JAX CLI's does.
 
 Run: ``python -m stair_tpu_torch.train.evaluate --model-ckpt DIR
---evaluate-func acc ... [--device cpu]``; without ``--device`` it runs on
-the first CUDA device, and exits where there is none.
+--evaluate-func acc ... [--device cpu] [--mesh-dp N]``; without
+``--device`` it runs on the first CUDA device, and exits where there is
+none.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from stair_tpu_torch.ir.lowering import Opcode
 from stair_tpu_torch.models.modules import l2_normalize
 from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
+from stair_tpu_torch.parallel import mesh
 from stair_tpu_torch.programs.parser import children_and_parents, module_levels
 from stair_tpu_torch.train import checkpoint as ckpt
 from stair_tpu_torch.train import loop
@@ -62,7 +68,7 @@ def _tables_and_batcher(args, model, ds, device):
     return tables, batcher
 
 
-def evaluate_acc(args, model, ds, device):
+def evaluate_acc(args, model, ds, device, dp=None):
     id2w = ds.answer_vocab["id2word"]
     tables, batcher = _tables_and_batcher(args, model, ds, device)
     evaluable = len(batcher.indices)
@@ -86,9 +92,10 @@ def evaluate_acc(args, model, ds, device):
         return id2w.get(idx_val, str(idx_val))
 
     acc, _, preds_golds = loop.evaluate_accuracy(
-        batcher, loop.make_eval_step(model, tables), device, to_text)
+        batcher, loop.make_eval_step(model, tables, dp=dp), device, to_text,
+        dp=dp)
     total = len(preds_golds["qa_ids"])
-    if args.result_filename:
+    if args.result_filename and (dp is None or dp.rank == 0):
         out = os.path.join(args.output or ".", args.result_filename)
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
         payload = (star_format_test_output(preds_golds)
@@ -161,14 +168,29 @@ def star_format_test_output(preds_golds: dict) -> dict:
 
 
 def main(args=None, *, device=None, executor=None):
-    """Evaluate as ``python -m stair_tpu.train.evaluate`` does, on one
-    device (``device`` or ``--device``; default the first CUDA device).
-    ``args`` as ``loop.main``'s."""
+    """Evaluate as ``python -m stair_tpu.train.evaluate`` does: on
+    ``device`` (or ``--device``; default the first CUDA device), and for
+    ``acc`` on ``--mesh-dp`` data-parallel ranks where it asks for more
+    than one. ``args`` as ``loop.main``'s."""
     args = loop.parse_cli(args)
     dev = pick_device(device or getattr(args, "device", None))
     executor = executor or getattr(args, "executor", None) or "mega"
-    loop.check_single_device(args, dev)
     print("EVALUATE:", datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S"))
+    ranks = mesh.plan(args, dev)
+    if ranks is not None and args.evaluate_func == "acc":
+        dp, devices, backend = ranks
+        return mesh.launch(_evaluate_rank, dp, devices, backend,
+                           args=(args, executor))[0]
+    return evaluate(args, dev, executor)
+
+
+def _evaluate_rank(dp, args, executor):
+    return evaluate(args, dp.device, executor, dp)
+
+
+def evaluate(args, dev, executor="mega", dp=None):
+    """The evaluate CLI's body on one device, or for ``acc`` on
+    data-parallel rank ``dp``."""
     ds = loop.DATASET_CLASSES[args.dataset](
         loop.data_paths(args), "test", max_video_length=args.max_video_length,
         use_prog_word_embeddings=args.use_prog_word_embeddings,
@@ -181,7 +203,7 @@ def main(args=None, *, device=None, executor=None):
         print(f"evaluating slice [{args.start_index}:{end}]")
     model = load_model(args, ds, dev, executor)
     if args.evaluate_func == "acc":
-        return evaluate_acc(args, model, ds, dev)
+        return evaluate_acc(args, model, ds, dev, dp)
     if args.evaluate_func == "filter_text_result":
         return filter_text_results(args, model, ds, dev)
     raise ValueError(f"unknown evaluate func {args.evaluate_func}")

@@ -21,13 +21,27 @@ batches, keeps the video features and the embedding table on the device
 ``materialize_batch`` gathers on the device), trains, evaluates and writes
 the JAX trainer's checkpoint files (``train/checkpoint.py``), so either
 package resumes or evaluates the other's run. Metrics stay on the device
-and are fetched once per report window. One device: the data-parallel
-route waits for a later slice, and ``--mesh-dp`` / ``--mesh-tp`` asking
-for more than one device raise.
+and are fetched once per report window.
+
+``--mesh-dp N`` trains on ``N`` data-parallel ranks (``parallel/mesh.py``):
+one card each with NCCL, or ``N`` CPU processes with gloo under ``--device
+cpu``. Every rank takes its contiguous shard of each batch and runs the
+kernels on it; the gradients are averaged and the loss scalars averaged
+(the per-family sums summed) in one all-reduce, the dropout generator of
+each rank is the step's folded with the rank, and Adam runs on every rank,
+so the ranks keep equal parameters. Rank 0 alone prints, writes
+``metrics.jsonl`` and checkpoints; a resume loads on every rank; the
+evaluation runs per shard and gathers the predictions in example order.
+``--mesh-tp`` replicates the NMN step (no rank is added; the numbers are
+those of ``--mesh-tp 1``), as the JAX trainer's shard_map route does. A
+batch that does not split into equal shards, or a contrastive window that
+does not divide a rank's batch, is refused: the JAX trainer falls back to
+GSPMD with its kernels off there, a route the port does not have.
 
 Run: ``python -m stair_tpu_torch.train.loop --rgb-path ... --output ...
-[--device cpu] [--executor mega|step|rev]``; without ``--device`` it runs
-on the first CUDA device, and exits where there is none.
+[--device cpu] [--executor mega|step|rev] [--mesh-dp N]``; without
+``--device`` it runs on the first CUDA device (``N`` cards under
+``--mesh-dp N``), and exits where there is none.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from stair_tpu_torch.data.dataset import (
 from stair_tpu_torch.models.nmn import (
     EXECUTORS, NMNConfig, VideoNMN, choice_logits,
 )
+from stair_tpu_torch.parallel import mesh
 from stair_tpu_torch.runtime.loader import device_prefetch
 from stair_tpu_torch.train import checkpoint as ckpt
 from stair_tpu_torch.train.args import build_parser
@@ -95,18 +110,6 @@ def parse_cli(args):
         if args.modules_no_intermediate_train is None:
             args.modules_no_intermediate_train = []
     return args
-
-
-def check_single_device(args, device):
-    """The port runs on one device: ``--mesh-dp`` (0 = every visible
-    device) and ``--mesh-tp`` must come to one."""
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    dp = args.mesh_dp if args.mesh_dp > 0 else n
-    if dp != 1 or args.mesh_tp not in (0, 1):
-        raise NotImplementedError(
-            f"--mesh-dp {args.mesh_dp} --mesh-tp {args.mesh_tp} over {n} "
-            "device(s): data and tensor parallel are not ported yet (ROADMAP "
-            "Queue 1 item 6); pass --mesh-dp 1 to train on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -168,17 +171,21 @@ def metrics_of(loss, aux):
     }
 
 
-def make_train_step(model, args, optimizer=None, tables=None):
+def make_train_step(model, args, optimizer=None, tables=None, dp=None):
     """-> ``train_step(batch, generator, module_gate, decoder_gate)``,
     which updates ``model`` in place and returns the step's metrics (on
     the device; nothing is fetched). ``optimizer`` is an ``(Adam,
     ScheduleLR)`` pair, ``make_optimizer``'s by default; with ``tables``
     (``make_device_tables``) the batch is materialized on the device
-    first."""
+    first. With ``dp`` (a ``parallel.mesh.DataParallel`` rank) the batch is
+    the rank's shard: the gradients and the loss scalars are averaged over
+    the ranks and the per-family sums summed, in one all-reduce, before
+    Adam (JAX's ``pmean`` / ``psum`` under ``shard_map``)."""
     opt, scheduler = optimizer or make_optimizer(model, args)
     train_filterframe = "FilterFrame" not in (
         args.modules_no_intermediate_train or [])
     window = getattr(args, "contrastive_window", 0) or 0
+    rank, size = (dp.rank, dp.size) if dp is not None else (None, 1)
 
     def train_step(batch, generator, module_gate, decoder_gate):
         batch = materialize_batch(batch, tables)
@@ -189,14 +196,24 @@ def make_train_step(model, args, optimizer=None, tables=None):
             decoder_loss_weight=args.decoder_loss_weight,
             module_gate=module_gate, decoder_gate=decoder_gate,
             deterministic=False, train_filterframe=train_filterframe,
-            contrastive_window=window)
+            contrastive_window=window, rank=rank, axis_size=size)
         loss.backward()
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        metrics = metrics_of(loss.detach(), aux)
+        if dp is not None:
+            (loss_, dec, mod), (sums, counts) = dp.average_gradients(
+                model.parameters(),
+                means=(metrics["loss"], metrics["decoder_loss"],
+                       metrics["module_loss"]),
+                sums=(metrics["loss_sums"], metrics["loss_counts"]))
+            metrics = {"loss": loss_[0], "decoder_loss": dec[0],
+                       "module_loss": mod[0], "loss_sums": sums,
+                       "loss_counts": counts}
         opt.step()
         scheduler.step()
-        return metrics_of(loss.detach(), aux)
+        return metrics
 
     train_step.optimizer = opt
     train_step.scheduler = scheduler
@@ -278,13 +295,18 @@ def batch_to_device_dict(batch) -> dict:
     return d
 
 
-def _device_batches(batcher, device, shuffle):
+def _device_batches(batcher, device, shuffle, dp=None):
     """Yield ``(batch, device dict)``: a worker thread packs each batch and
     starts its host-to-device copy (pinned, on a side stream on the card),
-    so batch N+1 crosses while batch N computes."""
-    return device_prefetch(
-        ((b, batch_to_device_dict(b)) for b in batcher.epoch(shuffle=shuffle)),
-        device)
+    so batch N+1 crosses while batch N computes. With ``dp`` only the
+    rank's shard of the dict crosses (``parallel.mesh.shard_batch``)."""
+    def dicts():
+        for b in batcher.epoch(shuffle=shuffle):
+            d = batch_to_device_dict(b)
+            yield b, (d if dp is None else
+                      mesh.shard_batch(d, dp.rank, dp.size))
+
+    return device_prefetch(dicts(), device)
 
 
 def make_device_tables(ds, device) -> dict | None:
@@ -441,13 +463,18 @@ def make_batcher(args, ds, model, seed=0, device_tables=False):
 # evaluation
 # ---------------------------------------------------------------------------
 
-def make_eval_step(model, tables=None, keep_regs=False):
+def make_eval_step(model, tables=None, keep_regs=False, dp=None):
     """-> ``eval_step(batch)``: the deterministic forward, then (when the
     model has the pretrain heads) ``supervision_losses`` and
     ``eval_contrastive_similarity`` on one encoding of the class table,
     and the predictions (``choice_logits`` for multiple-choice batches).
     Returns device tensors: preds, loss_sums, loss_counts, cos_sum,
-    cos_count, and ``regs_vec`` with ``keep_regs``."""
+    cos_count, and ``regs_vec`` with ``keep_regs``. With ``dp`` the batch
+    is the rank's shard: the predictions of every rank come back in
+    example order (all-gather) and the sums are summed over the ranks."""
+    if keep_regs and dp is not None:
+        raise ValueError("keep_regs reads one device's register files")
+    rank = dp.rank if dp is not None else None
     has_heads = "heads" in model.param_tree()["modules"]
     n_fam = len(FAMILIES)
 
@@ -461,7 +488,7 @@ def make_eval_step(model, tables=None, keep_regs=False):
                 reps = encode_class_table(model, batch, params)
                 _, telemetry = supervision_losses(model, out, batch,
                                                   params=params,
-                                                  class_reps=reps)
+                                                  class_reps=reps, rank=rank)
                 cos_sum, cos_count = eval_contrastive_similarity(
                     model, out, batch, params, class_reps=reps)
             else:
@@ -483,24 +510,37 @@ def make_eval_step(model, tables=None, keep_regs=False):
         }
         if keep_regs:
             res["regs_vec"] = out["regs_vec"]
+        if dp is not None:
+            k = len(FAMILIES)
+            sums = dp.all_reduce_sum(torch.cat([
+                res["loss_sums"].float(), res["loss_counts"].float(),
+                res["cos_sum"].float().reshape(1),
+                res["cos_count"].float().reshape(1)]))
+            res = {"preds": dp.all_gather(res["preds"]),
+                   "loss_sums": sums[:k], "loss_counts": sums[k:2 * k],
+                   "cos_sum": sums[2 * k], "cos_count": sums[2 * k + 1]}
         return res
 
     return eval_step
 
 
-def evaluate_accuracy(batcher, eval_step, device, to_text=None):
+def evaluate_accuracy(batcher, eval_step, device, to_text=None, dp=None):
     """Accuracy (gold ``<UNK>`` counts as wrong, ref train_module.py:253),
     per-family mean losses (contrastive families report the cont-valid
     cosine) and the predictions; the results stay on the device until one
     fetch at the end. ``to_text(index, record)`` names each prediction and
-    gold in ``preds_golds`` (default: its answer-vocabulary word)."""
+    gold in ``preds_golds`` (default: its answer-vocabulary word). With
+    ``dp`` each rank feeds its shard of every batch to ``eval_step``
+    (``make_eval_step(..., dp=dp)``, which gathers the predictions), and
+    every rank returns the same result."""
     ds = batcher.ds
     unk = ds.answer_vocab["word2id"].get("<UNK>", -1)
     id2w = ds.answer_vocab["id2word"]
     to_text = to_text or (lambda v, rec: id2w.get(v, v))
     preds, reals, golds, qa_ids, indices = [], [], [], [], []
     sums = counts = cos_sum = cos_count = 0
-    for batch, bdict in _device_batches(batcher, device, shuffle=False):
+    for batch, bdict in _device_batches(batcher, device, shuffle=False,
+                                        dp=dp):
         res = eval_step(bdict)
         real = batch.meta["real"]
         preds.append(res["preds"][:real])
@@ -585,16 +625,25 @@ def new_key(seed: int, prng: str) -> list[int]:
                          dtype=torch.int64).tolist()
 
 
-def split_key(key) -> tuple[list[int], torch.Generator]:
+def _seed_of(raw: bytes) -> int:
+    return int.from_bytes(hashlib.sha256(raw).digest()[:8], "little") >> 1
+
+
+def split_key(key, rank=None) -> tuple[list[int], torch.Generator]:
     """``(next key, the step's generator)`` from a key (a list of uint32,
     the port's or a JAX trainer's): a generator seeded from the key's words
-    draws both, so a run resumed from a saved key continues its stream."""
+    draws both, so a run resumed from a saved key continues its stream.
+    On data-parallel rank ``rank`` the step's seed is folded with the rank
+    (JAX's ``fold_in(rng, axis_index)``), so shards never share masks; the
+    next key is every rank's."""
     raw = b"".join(int(w).to_bytes(4, "little") for w in key)
-    g = torch.Generator().manual_seed(
-        int.from_bytes(hashlib.sha256(raw).digest()[:8], "little") >> 1)
+    g = torch.Generator().manual_seed(_seed_of(raw))
     nxt = torch.randint(0, 2 ** 32, (len(key),), generator=g,
                         dtype=torch.int64).tolist()
     step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=g))
+    if rank is not None:
+        step_seed = _seed_of(step_seed.to_bytes(8, "little")
+                             + int(rank).to_bytes(4, "little"))
     return nxt, torch.Generator().manual_seed(step_seed)
 
 
@@ -607,15 +656,33 @@ def _trainer_state(step, best_acc, key):
 
 
 def main(args=None, *, device=None, executor=None):
-    """Train the NMN as ``python -m stair_tpu.train.loop`` does, on one
-    device: ``device`` (or ``--device``; default the first CUDA device) and
-    ``executor`` (or ``--executor``; default ``"mega"``). ``args`` is a
-    namespace of ``train/args.py``'s options, a list of CLI words, or None
-    for ``sys.argv``. Returns the best valid accuracy."""
+    """Train the NMN as ``python -m stair_tpu.train.loop`` does: on
+    ``device`` (or ``--device``; default the first CUDA device) and
+    ``executor`` (or ``--executor``; default ``"mega"``), on ``--mesh-dp``
+    data-parallel ranks where it asks for more than one
+    (``parallel.mesh.plan``). ``args`` is a namespace of ``train/args.py``'s
+    options, a list of CLI words, or None for ``sys.argv``. Returns the
+    best valid accuracy."""
     args = parse_cli(args)
     dev = pick_device(device or getattr(args, "device", None))
     executor = executor or getattr(args, "executor", None) or "mega"
-    check_single_device(args, dev)
+    ranks = mesh.plan(args, dev)
+    if ranks is None:
+        return train(args, dev, executor)
+    dp, devices, backend = ranks
+    return mesh.launch(_train_rank, dp, devices, backend,
+                       args=(args, executor))[0]
+
+
+def _train_rank(dp, args, executor):
+    return train(args, dp.device, executor, dp)
+
+
+def train(args, dev, executor="mega", dp=None):
+    """The trainer's body on one device, or on data-parallel rank ``dp``
+    (a ``parallel.mesh.DataParallel``; only rank 0 writes). Returns the
+    best valid accuracy."""
+    lead = dp is None or dp.rank == 0
     print(args)
     train_ds, valid_ds = load_datasets(args)
     print(f"train={len(train_ds)} valid={len(valid_ds)} "
@@ -634,6 +701,10 @@ def main(args=None, *, device=None, executor=None):
     if args.model_ckpt:
         print("loading checkpoint from", args.model_ckpt)
         ckpt.load_params(args.model_ckpt, model)
+    if dp is not None:
+        # every rank made or loaded the same weights; rank 0's are copied
+        # to all, so the ranks start equal however the weights were made
+        dp.broadcast_(model.parameters())
     opt, sched = make_optimizer(model, args)
 
     train_tables = valid_tables = None
@@ -644,17 +715,19 @@ def main(args=None, *, device=None, executor=None):
         if train_tables is not None:
             print("device tables: video features + embeddings resident "
                   "(batches ship int32 indices)")
-    train_step = make_train_step(model, args, (opt, sched), train_tables)
-    eval_step = make_eval_step(model, valid_tables)
+    train_step = make_train_step(model, args, (opt, sched), train_tables, dp)
+    eval_step = make_eval_step(model, valid_tables, dp=dp)
     train_batcher = make_batcher(args, train_ds, model, seed=args.rand_seed,
                                  device_tables=train_tables is not None)
     valid_batcher = make_batcher(args, valid_ds, model, seed=0,
                                  device_tables=valid_tables is not None)
 
-    writer = MetricsWriter(args.output)
-    from stair_tpu_torch.utils.snapshot import backup_code
+    writer = None
+    if lead:
+        writer = MetricsWriter(args.output)
+        from stair_tpu_torch.utils.snapshot import backup_code
 
-    backup_code(args.output)
+        backup_code(args.output)
     print(f"model has {sum(p.numel() for p in model.parameters())} "
           "parameters")
 
@@ -681,15 +754,18 @@ def main(args=None, *, device=None, executor=None):
     t_start = time.time()
     window, events = [], []
     t_wait = t_dispatch = 0.0
+    rank = dp.rank if dp is not None else None
 
     def save(where):
-        ckpt.save_checkpoint(
-            os.path.join(args.output, where), model, config_dict,
-            opt_state=ckpt.opt_state_tree(model, opt, sched),
-            trainer_state=_trainer_state(global_step, best_acc, key))
+        if lead:
+            ckpt.save_checkpoint(
+                os.path.join(args.output, where), model, config_dict,
+                opt_state=ckpt.opt_state_tree(model, opt, sched),
+                trainer_state=_trainer_state(global_step, best_acc, key))
 
     for _epoch in range(args.num_epochs):
-        batches = iter(_device_batches(train_batcher, dev, shuffle=True))
+        batches = iter(_device_batches(train_batcher, dev, shuffle=True,
+                                       dp=dp))
         while True:
             t0 = time.perf_counter()
             try:
@@ -697,11 +773,12 @@ def main(args=None, *, device=None, executor=None):
             except StopIteration:
                 break
             t_wait += time.perf_counter() - t0
-            key, step_gen = split_key(key)
+            key, step_gen = split_key(key, rank)
             module_gate = float(global_step < args.train_module_before_iters)
             decoder_gate = float(
                 global_step >= args.train_decoder_after_iters)
-            if args.profile_dir and global_step == args.profile_start:
+            if (lead and args.profile_dir
+                    and global_step == args.profile_start):
                 profile.enter_context(profiling.trace(args.profile_dir))
             t0 = time.perf_counter()
             if on_card:
@@ -715,7 +792,7 @@ def main(args=None, *, device=None, executor=None):
             t_dispatch += time.perf_counter() - t0
             global_step += 1
             profile_end = args.profile_start + args.profile_steps
-            if args.profile_dir and global_step == profile_end:
+            if lead and args.profile_dir and global_step == profile_end:
                 profile.close()
                 print("wrote profiler trace to", args.profile_dir)
             timer.tick()
@@ -754,22 +831,24 @@ def main(args=None, *, device=None, executor=None):
                 for i, fam in enumerate(FAMILIES):
                     if counts[i]:
                         scalars[f"loss/{fam}"] = float(sums[i] / counts[i])
-                writer.write(global_step, scalars)
+                if lead:
+                    writer.write(global_step, scalars)
                 print(f"step {global_step} " + " ".join(
                     f"{n}={v:.4f}" for n, v in scalars.items()))
                 window, events, t_start = [], [], time.time()
 
             if global_step % args.evaluate_interval == 0:
                 acc, fam_means, preds_golds = evaluate_accuracy(
-                    valid_batcher, eval_step, dev)
+                    valid_batcher, eval_step, dev, dp=dp)
                 scalars = {"valid/acc": acc}
                 scalars.update({
                     f"valid/{n}": float(v) for n, v in fam_means.items()
                     if np.isfinite(v)
                 })
-                writer.write(global_step, scalars)
+                if lead:
+                    writer.write(global_step, scalars)
                 print(f"step {global_step} valid acc={acc:.4f}")
-                if args.result_filename:
+                if lead and args.result_filename:
                     with open(os.path.join(args.output, args.result_filename),
                               "w") as f:
                         json.dump(preds_golds, f)
@@ -781,15 +860,17 @@ def main(args=None, *, device=None, executor=None):
     profile.close()
 
     # Final eval + save.
-    acc, _, _ = evaluate_accuracy(valid_batcher, eval_step, dev)
-    writer.write(global_step, {"valid/acc": acc})
+    acc, _, _ = evaluate_accuracy(valid_batcher, eval_step, dev, dp=dp)
+    if lead:
+        writer.write(global_step, {"valid/acc": acc})
     print(f"final valid acc={acc:.4f} (best={best_acc:.4f})")
     if acc >= best_acc:
         best_acc = acc
         save("best_model")
     save("latest")
     gc_timer.close()
-    writer.close()
+    if lead:
+        writer.close()
     return best_acc
 
 

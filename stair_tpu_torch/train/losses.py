@@ -55,10 +55,14 @@ def encode_class_table(model, batch, params=None):
         return l2_normalize(reps, dim=-1)
 
 
-def filterframe_loss(model, out, batch, params=None):
+def filterframe_loss(model, out, batch, params=None, rank=None):
     """BCE between the softmaxed [F, object_types] FilterFrame grid and the
     gold occurrence grid over the batch's packed FilterFrame slots; returns
-    (sum, count)."""
+    (sum, count). On data-parallel rank ``rank`` the slot table carries
+    global example indices while ``out`` holds the rank's shard: they are
+    mapped to local indices and the slots of other shards are zeroed (each
+    slot is counted by one rank; the step's sum over the ranks restores the
+    global sums)."""
     if batch.get("ff_index") is None:
         zero = torch.zeros((), device=out["logits"].device)
         return zero, zero
@@ -69,6 +73,12 @@ def filterframe_loss(model, out, batch, params=None):
     ffb = batch["ff_index"][:, 0].long()
     fft = batch["ff_index"][:, 1].long()
     valid = batch["ff_valid"]
+    if rank is not None:
+        B = rf.shape[0]
+        ffb = ffb - rank * B
+        in_shard = (ffb >= 0) & (ffb < B)
+        valid = valid * in_shard.to(valid.dtype)
+        ffb = torch.clamp(ffb, 0, B - 1)
     frames_out = rf[ffb, tr["out_frames"][ffb, fft].long()]   # [S, F, H]
     logits = linear(params["modules"]["heads"]["filterframe"], frames_out)
     pred = torch.clamp(torch.softmax(logits, dim=-1), _EPS, 1.0 - _EPS)
@@ -79,7 +89,8 @@ def filterframe_loss(model, out, batch, params=None):
 
 
 def supervision_losses(model, out, batch, train_filterframe=False,
-                       contrastive_window=0, params=None, class_reps=None):
+                       contrastive_window=0, params=None, class_reps=None,
+                       rank=None, axis_size=1):
     """All intermediate losses and the decoder CE.
 
     Returns (scalars, telemetry): ``module_loss`` and ``decoder_loss``
@@ -88,7 +99,12 @@ def supervision_losses(model, out, batch, train_filterframe=False,
     contrastive negatives to the classes of its window-sized group.
     ``class_reps`` is the batch's ``encode_class_table`` when the caller
     has it already (the eval step encodes the table once for this and
-    ``eval_contrastive_similarity``)."""
+    ``eval_contrastive_similarity``). On data-parallel rank ``rank`` of
+    ``axis_size`` the batch is the rank's contiguous shard: the window is
+    compared with the global batch ``B * axis_size`` (with the window equal
+    to the shard, its one group is the global window group), and the
+    FilterFrame slots are remapped (``filterframe_loss``). ``rank`` None
+    is one device."""
     if params is None:
         params = model.param_tree()
     tr = batch["trace"]
@@ -167,7 +183,7 @@ def supervision_losses(model, out, batch, train_filterframe=False,
     cls = batch["sup_class"].long()                           # [B, T, P]
     pair_valid = (cls >= 0) & (ch == SUP_CONTRAST)[..., None]
     neg_mask = batch["class_valid"][None, None, :] > 0
-    if contrastive_window and contrastive_window < B:
+    if contrastive_window and contrastive_window < B * axis_size:
         W = contrastive_window
         G = -(-B // W)
         C = class_reps.shape[0]
@@ -216,7 +232,7 @@ def supervision_losses(model, out, batch, train_filterframe=False,
         torch.tensor([float(B)], device=dev))
 
     # FilterFrame (optional)
-    ff_sum, ff_count = filterframe_loss(model, out, batch, params)
+    ff_sum, ff_count = filterframe_loss(model, out, batch, params, rank)
     fidx = torch.tensor([_FAMILY_INDEX["FilterFrame"]], device=dev)
     loss_sums = loss_sums.index_add(0, fidx, ff_sum.reshape(1))
     loss_counts = loss_counts.index_add(0, fidx, ff_count.reshape(1))
@@ -258,14 +274,18 @@ def eval_contrastive_similarity(model, out, batch, params=None,
 def total_loss(model, batch, generator, module_loss_weight,
                decoder_loss_weight, module_gate, decoder_gate,
                deterministic=False, train_filterframe=False,
-               contrastive_window=0):
+               contrastive_window=0, rank=None, axis_size=1):
     """Full training objective; returns (loss, aux). With multiple-choice
-    candidates (STAR) the answer objective is CE over the choice head."""
+    candidates (STAR) the answer objective is CE over the choice head.
+    ``rank`` / ``axis_size``: the data-parallel rank and the number of
+    ranks (``supervision_losses``); the loss is the mean over the rank's
+    shard, and the ranks' mean is the global mean."""
     params = model.param_tree()
     out = model(batch, generator=generator, deterministic=deterministic)
     scalars, telemetry = supervision_losses(
         model, out, batch, train_filterframe=train_filterframe,
-        contrastive_window=contrastive_window, params=params)
+        contrastive_window=contrastive_window, params=params, rank=rank,
+        axis_size=axis_size)
     answer_loss = scalars["decoder_loss"]
     if batch.get("cand_emb") is not None:
         logits = choice_logits(model, out, batch["cand_emb"],

@@ -20,15 +20,19 @@ def card_identity() -> str:
     return out.stdout.strip()
 
 
-def pick_device(name=None) -> torch.device:
-    """The device an entry point runs on: ``name`` when given (``--device
-    cpu`` in the tests), else the first CUDA device; without one it exits
-    instead of falling back to the CPU."""
+def pick_device(name=None, rank: int = 0) -> torch.device:
+    """The device an entry point (or its data-parallel rank ``rank``) runs
+    on: ``name`` when given (``--device cpu`` in the tests; ``cuda``
+    without an index is the rank's card), else the rank's CUDA device;
+    without one it exits instead of falling back to the CPU."""
     if name:
-        return torch.device(name)
+        dev = torch.device(name)
+        if dev.type == "cuda" and dev.index is None:
+            return torch.device("cuda", rank)
+        return dev
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", rank)
 
 
 def exact_f32():

@@ -10,7 +10,10 @@ the argument parsers option by option; the constants value by value;
 ``load_video_features`` on a seeded feature directory and
 ``splice_filter_outputs`` string for string; the parsers'
 ``seq2seq/{vocab,export}.py``: encodings, decodings, saved JSON and the
-exported fairseq files byte for byte.
+exported fairseq files byte for byte; ``serve/logutil.py`` and
+``llm/reformat_agqa.py``: their sources byte for byte, the moderation
+constants, ``StreamToLogger``'s lines, ``reformat`` and its CLI's JSON on
+seeded questions with sharded Filter outputs.
 """
 
 import os
@@ -347,3 +350,62 @@ def test_parser_vocab_and_export_agree(tmp_path):
     JEx.export_split(w["valid"], str(tmp_path / "jcli"))
     assert ((tmp_path / "cli.program").read_bytes()
             == (tmp_path / "jcli.program").read_bytes())
+
+
+def test_logutil_and_reformat_agqa_are_copies(tmp_path):
+    import json
+    import logging
+    import pickle
+
+    from stair_tpu.llm import reformat_agqa as JRf
+    from stair_tpu.serve import logutil as JLu
+    from stair_tpu_torch.llm import reformat_agqa as TRf
+    from stair_tpu_torch.serve import logutil as TLu
+
+    for j, t in ((JLu, TLu), (JRf, TRf)):
+        with open(j.__file__, "rb") as fj, open(t.__file__, "rb") as ft:
+            assert ft.read() == fj.read(), t.__file__
+    assert (TLu.server_error_msg, TLu.moderation_msg) == (
+        JLu.server_error_msg, JLu.moderation_msg)
+    lines = {}
+    for name, mod in (("jax", JLu), ("port", TLu)):
+        seen = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                seen.append(record.getMessage())
+
+        log = logging.getLogger(f"copies.{name}")
+        log.addHandler(Keep())
+        log.setLevel(logging.INFO)
+        stream = mod.StreamToLogger(log)
+        stream.write("one\ntwo")
+        stream.write(" halves\nthree\n")
+        stream.write("tail")
+        stream.flush()
+        lines[name] = seen
+    assert lines["port"] == lines["jax"] == ["one", "two halves", "three",
+                                            "tail"]
+    rng = np.random.RandomState(0)
+    src = {f"q{i}": {"question": f"what happened {i} ?", "answer": "yes",
+                     "video_id": f"V{i % 3}"} for i in range(40)}
+    for shard in range(2):
+        with open(tmp_path / f"filter_{shard}.pkl", "wb") as f:
+            pickle.dump({f"q{i}": {
+                0: (int(rng.randint(1, 4)), "holding", ["cup", "dish"]),
+                1: (int(rng.randint(1, 4)), "before", ["opening the door"])}
+                for i in range(shard, 40, 2)}, f)
+    template = str(tmp_path / "filter_%d.pkl")
+    filt = JRf.load_filter_data(template)
+    assert TRf.load_filter_data(template) == filt and len(filt) == 40
+    for ratio, seed in ((0.25, 0), (0.5, 3)):
+        assert (TRf.reformat(src, filt, ratio, seed)
+                == JRf.reformat(src, filt, ratio, seed))
+    with open(tmp_path / "src.json", "w") as f:
+        json.dump(src, f)
+    for R, name in ((JRf, "jax"), (TRf, "port")):
+        R.main(["--input_fname", str(tmp_path / "src.json"),
+                "--filter_fname", template, "--sample_ratio", "0.3",
+                "--output_fname", str(tmp_path / f"{name}.json")])
+    assert ((tmp_path / "port.json").read_bytes()
+            == (tmp_path / "jax.json").read_bytes())

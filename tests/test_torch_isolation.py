@@ -157,6 +157,23 @@ TS2.main(["--func", "predict", *pwords, "--test-filename", w["test"],
 rates = TS2.main(["--func", "check_valid", *pwords, "--result-filename",
                   root + "/parser/gen.tsv"])
 assert len(rates) == 2
+# the demo server's backend, data-parallel shards, a weight delta, the
+# utilization arithmetic and the copied reformatter
+from stair_tpu_torch.serve.demo import ChatBackend, LatencyTracker, make_handler
+import stair_tpu_torch.llm.reformat_agqa
+from stair_tpu_torch.llm import weight_delta as WD
+from stair_tpu_torch.parallel import mesh as PM
+from stair_tpu_torch.utils import mfu
+chat = ChatBackend(num_frames=4, device="cpu")
+sid = chat.open_frames(frames[0])
+assert isinstance(chat.chat(sid, "what did they do ?"), str)
+assert make_handler(chat, LatencyTracker()) is not None
+half = PM.shard_batch({"answer": np.arange(4), "ff_index": np.zeros((2, 2)),
+                       "trace": {"opcode": np.ones((4, 3))}}, 1, 2)
+assert half["answer"].tolist() == [2, 3] and half["ff_index"].shape == (2, 2)
+tree = WD.params_tree(vmodel)
+assert WD.apply_delta(tree, WD.make_delta(tree, tree)).keys() == tree.keys()
+assert mfu.chip_peak_flops("NVIDIA H100 80GB HBM3") == 989e12
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stair_tpu")
        and sys.modules[m] is not None]
@@ -189,6 +206,8 @@ def test_port_sources_import_no_jax():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "stair_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for pkg in ("parallel", "serve"):
+        assert any(os.sep + pkg + os.sep in p for p in paths), pkg
     offenders = []
     for path in paths:
         with open(path) as f:
@@ -302,13 +321,16 @@ def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         text = f.read()
     doc = ast.get_docstring(ast.parse(text))
-    # nineteen phases since the program parser's (the test keeps the name
-    # it had at eighteen); phase 19's three entries are #1-#3 on the
-    # parser's path, built in one comprehension
+    # twenty-one phases since the demo server's and data parallel's (the
+    # test keeps the name it had at eighteen); phase 19's three entries are
+    # #1-#3 on the parser's path, built in one comprehension; phases 20
+    # and 21 add no kernel entry
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, re.M)]
-    assert numbers == list(range(1, 20)), numbers
+    assert numbers == list(range(1, 22)), numbers
     assert "phase_clis(dev, card)" in text
     assert "kernels += phase_parser(dev, card, clis)" in text
+    assert "phase_demo(dev, card, model)" in text
+    assert "phase_data_parallel(dev, card, clis)" in text
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
     assert len(names) == 17, names
     assert re.search(r'\{"name": k, "route": "cuda", "path": "parser"',

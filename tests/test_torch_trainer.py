@@ -25,7 +25,9 @@ On one tiny world written by the JAX package's ``make_world`` and
 - both evaluate CLIs on one JAX checkpoint, AGQA and STAR (the
   candidates' text): equal accuracy and result files; the trainer on
   STAR, whose open answer vocabulary is empty;
-- ``main`` refuses ``--mesh-dp 2``;
+- ``main`` refuses ``--mesh-dp 3`` on a batch of 16 and ``evaluate.main``
+  ``--mesh-tp 2`` alone (the JAX CLIs' GSPMD fallbacks; the data-parallel
+  route itself is held in tests/test_torch_parallel.py);
 - ``transformer_encode`` (tokens, sentence feature) within 1e-4 of JAX's,
   and a ``VideoNMN`` forward with ``encoder="transformer"``;
 - the seeded initialisation keeps its draw order (a digest of the
@@ -387,10 +389,12 @@ def test_main_and_evaluate_on_a_tiny_world(world, tmp_path):
 
 
 def test_main_refuses_data_parallel(world, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TLP.main(trainer_argv(world, tmp_path, "--mesh-dp", "2"),
+    # where the JAX CLIs fall back to GSPMD with their kernels off, the
+    # port, which has no such route, refuses before starting a rank
+    with pytest.raises(ValueError, match="batch_size % dp == 0"):
+        TLP.main(trainer_argv(world, tmp_path, "--mesh-dp", "3"),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="GSPMD"):
         TEV.main(trainer_argv(world, tmp_path, "--mesh-tp", "2"),
                  device="cpu")
 
