@@ -3681,6 +3681,7 @@ def phase_demo(dev, card, model):
     from http.server import ThreadingHTTPServer
 
     from stair_tpu_torch.llm.videochat import KeywordsStoppingCriteria
+    from stair_tpu_torch.llm.videochat_infer import build_prompt_batch
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.serve.demo import (
         ChatBackend, LatencyTracker, make_handler,
@@ -3729,7 +3730,8 @@ def phase_demo(dev, card, model):
             require_launches(f"demo turn {i}", dict(_build.LAUNCHES),
                              {"flash_attn": n_layers})
             # the same prompt and generator seed straight through generate
-            ids, start, plen, stop = backend.prompt(msg)
+            ids, start, plen, stop = build_prompt_batch(
+                model, tokenizer, [msg])
             toks = generate(
                 ids, vt[None], start, prompt_len=plen, max_new_tokens=64,
                 temperature=0.2,
@@ -3830,6 +3832,24 @@ def phase_data_parallel(dev, card, clis):
     l32_dp, l32_one = ranks[0][f32]["loss"][0], one[f32]["loss"][0]
     require(abs(l32_dp - l32_one) <= 1e-4 * abs(l32_one),
             f"[dp] float32 loss {l32_dp} vs one process {l32_one}")
+    # the per-family loss sums the ranks summed, against one process: each
+    # within 1e-4 of their total (phase 8's loss bound), the counts equal
+    sums_err = 0.0
+    for case in (bf, f32):
+        for r, res in enumerate(ranks):
+            for k in ("loss_sums", "loss_counts"):
+                require(np.array_equal(res[case][k][0], ranks[0][case][k][0]),
+                        f"[dp] rank {r} {k} differs from rank 0's")
+        require(np.array_equal(ranks[0][case]["loss_counts"][0],
+                               one[case]["loss_counts"][0]),
+                f"[dp] step loss_counts {ranks[0][case]['loss_counts'][0]} "
+                f"vs one process {one[case]['loss_counts'][0]}")
+        s_dp = ranks[0][case]["loss_sums"][0].astype(np.float64)
+        s_one = one[case]["loss_sums"][0].astype(np.float64)
+        err = float(np.abs(s_dp - s_one).max() / np.abs(s_one).sum())
+        require(err <= 1e-4, f"[dp] step loss_sums {s_dp.tolist()} vs one "
+                f"process {s_one.tolist()} ({err:.2e} of the total)")
+        sums_err = max(sums_err, err)
     g_dp = flatten_tree(ranks[0][f32]["grads"])
     g_one = flatten_tree(one[f32]["grads"])
     rels = {k: float(np.linalg.norm(g_dp[k] - g_one[k]))
@@ -3837,15 +3857,32 @@ def phase_data_parallel(dev, card, clis):
             for k in g_one if np.abs(g_one[k]).max() > 0}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
     require(worst[0][1] <= 1e-2, f"[dp] float32 gradient leaves {worst}")
+    # the eval step: the gathered predictions equal one process's in
+    # example order on both ranks; the summed loss sums and cosine sum by
+    # phase 18's bounds (1e-4 of the total, 1e-4 a cosine), the counts equal
+    e_dp, e_one = ranks[0][ev]["eval"], one[ev]["eval"]
     answer = batch["answer"]
-    acc_dp = float(np.mean(ranks[0][ev]["eval"]["preds"] == answer))
-    acc_one = float(np.mean(one[ev]["eval"]["preds"] == answer))
-    same = float(np.mean(ranks[0][ev]["eval"]["preds"]
-                         == one[ev]["eval"]["preds"]))
-    require(np.array_equal(ranks[0][ev]["eval"]["preds"],
-                           ranks[1][ev]["eval"]["preds"])
-            and acc_dp == acc_one,
-            f"[dp] eval accuracy {acc_dp} vs one process {acc_one}")
+    acc_dp = float(np.mean(e_dp["preds"] == answer))
+    acc_one = float(np.mean(e_one["preds"] == answer))
+    for r, res in enumerate(ranks):
+        require(np.array_equal(res[ev]["eval"]["preds"], e_one["preds"]),
+                f"[dp] rank {r}'s gathered eval predictions differ from one "
+                f"process's on "
+                f"{int(np.sum(res[ev]['eval']['preds'] != e_one['preds']))} "
+                f"of {len(e_one['preds'])} rows")
+    for k in ("loss_counts", "cos_count"):
+        require(np.array_equal(e_dp[k], e_one[k]),
+                f"[dp] eval {k} {e_dp[k]} vs one process {e_one[k]}")
+    es_dp = e_dp["loss_sums"].astype(np.float64)
+    es_one = e_one["loss_sums"].astype(np.float64)
+    eval_err = float(np.abs(es_dp - es_one).max() / np.abs(es_one).sum())
+    cos_err = (abs(float(e_dp["cos_sum"]) - float(e_one["cos_sum"]))
+               / max(float(e_one["cos_count"]), 1))
+    require(eval_err <= 1e-4 and cos_err <= 1e-4,
+            f"[dp] eval loss_sums {es_dp.tolist()} vs {es_one.tolist()} "
+            f"({eval_err:.2e} of the total), cos_sum {float(e_dp['cos_sum'])} "
+            f"vs {float(e_one['cos_sum'])} over {float(e_one['cos_count'])} "
+            f"cosines")
     ms = [float(np.mean(res[bf]["ms"][1:])) for res in ranks]
     log(f"[dp] phase 8's configuration at dropout 0, B {TRAIN_BATCH} on "
         f"{DP_RANKS} ranks ({TRAIN_BATCH // DP_RANKS} a rank), window "
@@ -3854,9 +3891,13 @@ def phase_data_parallel(dev, card, clis):
         f"after each of {DP_STEPS} steps; bf16 loss {l_dp:.6f} vs one "
         f"process {l_one:.6f} (bound 1e-4 relative); float32 loss "
         f"{l32_dp:.6f} vs {l32_one:.6f}, worst gradient leaves (norm rel) "
-        f"{[(k, f'{v:.2e}') for k, v in worst]} (bound 1e-2); eval step "
-        f"accuracy {acc_dp:.4f} on both ranks vs {acc_one:.4f} one process "
-        f"(predictions equal on {same:.4f}); ms a step per rank (host "
+        f"{[(k, f'{v:.2e}') for k, v in worst]} (bound 1e-2); step loss "
+        f"sums {sums_err:.2e} of the total (bound 1e-4), counts equal; eval "
+        f"step predictions equal to one process's on all "
+        f"{len(e_one['preds'])} rows on both ranks (accuracy {acc_dp:.4f} "
+        f"vs {acc_one:.4f}), loss sums {eval_err:.2e} of the total, cos_sum "
+        f"{cos_err:.2e} a cosine (bounds 1e-4), counts equal; ms a step per "
+        f"rank (host "
         f"clock, steps 2-{DP_STEPS}) {[round(m, 3) for m in ms]}, one "
         f"process {float(np.mean(one[bf]['ms'][1:])):.3f}; launch "
         f"{launch_s:.1f} s; card {card}")

@@ -192,13 +192,16 @@ def plan(args, device: torch.device):
             f"route with its kernels off, which the port does not have; the "
             f"NMN step only replicates over tp, so pass --mesh-tp 1")
     use_data_parallel(args, dp)
+    backend = "nccl" if device.type == "cuda" else "gloo"
     print("mesh: data-parallel route, kernels enabled"
           + (f" (the tp axis replicates the NMN step: {dp} ranks run, and "
-             f"the numbers are those of --mesh-tp 1)" if tp > 1 else ""))
+             f"the numbers are those of --mesh-tp 1)" if tp > 1 else "")
+          + ("; NCCL across cards is unverified: this route has not yet "
+             "run on more than one card" if backend == "nccl" else ""))
     from stair_tpu_torch.utils.device import pick_device
 
     devices = [pick_device(device.type, r) for r in range(dp)]
-    return dp, devices, "nccl" if device.type == "cuda" else "gloo"
+    return dp, devices, backend
 
 
 # ---------------------------------------------------------------------------
@@ -309,30 +312,21 @@ def _rank_main(rank, dp, devices, backend, port, threads, fn, args, queue):
         raise
 
 
-def launch(fn, dp: int, devices=None, backend: str | None = None,
-           args: tuple = (), timeout: float = TIMEOUT_S) -> list:
+def launch(fn, dp: int, devices, backend: str, args: tuple = ()) -> list:
     """Run ``fn(DataParallel, *args)`` on ``dp`` ranks, each a spawned
-    process with its device and a ``torch.distributed`` group on the
-    loopback interface, and return their results in rank order. By default
-    one card per rank with NCCL where CUDA is available, else CPU ranks
-    with gloo; ``devices`` and ``backend`` override (two ranks may share a
-    card under gloo). ``fn`` and ``args`` travel by pickle (``fn`` by its
-    import path). The ranks split this process's torch threads between
-    them. Raises with the rank's traceback when a rank fails."""
+    process on its entry of ``devices`` with a ``torch.distributed`` group
+    of ``backend`` on the loopback interface, and return their results in
+    rank order. ``plan`` picks the devices and backend for the CLIs; a
+    caller may hand its own (two ranks may share a card under gloo). ``fn``
+    and ``args`` travel by pickle (``fn`` by its import path). The ranks
+    split this process's torch threads between them. Raises with the rank's
+    traceback when a rank fails, or after ``TIMEOUT_S`` without a result."""
     import multiprocessing as mp
     import queue as queue_mod
 
-    if devices is None:
-        if torch.cuda.is_available():
-            devices = [torch.device("cuda", i) for i in range(dp)]
-        else:
-            devices = [torch.device("cpu")] * dp
     devices = [str(d) for d in devices]
     if len(devices) != dp:
         raise ValueError(f"{dp} ranks need {dp} devices, got {devices}")
-    if backend is None:
-        backend = ("nccl" if all(d.startswith("cuda") for d in devices)
-                   else "gloo")
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
@@ -355,8 +349,8 @@ def launch(fn, dp: int, devices=None, backend: str | None = None,
                 if dead:
                     errors.append(f"ranks {dead} exited with "
                                   f"{[procs[r].exitcode for r in dead]}")
-                elif waited > timeout:
-                    errors.append(f"no result for {timeout} s")
+                elif waited > TIMEOUT_S:
+                    errors.append(f"no result for {TIMEOUT_S} s")
                 continue
             waited = 0.0
             done.add(rank)

@@ -20,9 +20,11 @@ configured endpoint — ref video_chatgpt/utils.py:101) and flagged
 messages get the reference's moderation reply instead of a generation.
 
 The model is the port's ``VideoChatModel`` on one device: a session's
-video is encoded once (CLIP tower + pooling) and its tokens stay on the
-device; each turn is one prefill through the attention kernel (one launch
-per decoder layer) and a sampled decode. A turn samples at temperature 0.2
+video is encoded once (``videochat_infer.encode_video_batch``: CLIP tower +
+pooling) and its tokens stay on the device; each turn is
+``videochat_infer.video_chatgpt_infer_batch`` at batch 1 over those tokens,
+one prefill through the attention kernel (one launch per decoder layer)
+and a sampled decode. A turn samples at temperature 0.2
 from a ``torch.Generator`` seeded with the turn's index, the counterpart of
 the JAX demo's ``jax.random.PRNGKey(len(history))``: the two draw different
 numbers, so their sampled replies differ.
@@ -163,13 +165,10 @@ class ChatBackend:
         ``new_session`` decodes from ``video_path``): preprocess, encode
         with the model's CLIP tower and pooling, and keep the video tokens
         on the device."""
-        from stair_tpu_torch.llm.clip import preprocess_frames
+        from stair_tpu_torch.llm.videochat_infer import encode_video_batch
 
-        images = preprocess_frames(
-            frames, size=self.model.config.vision.image_size,
-            device=self.device)
         with self._lock:
-            video_tokens = self.model.encode_video(images)
+            video_tokens = encode_video_batch(self.model, [frames])[0]
         sid = uuid.uuid4().hex[:8]
         self.sessions[sid] = {
             "video_path": video_path,
@@ -179,59 +178,22 @@ class ChatBackend:
         logger.info("session %s: %s", sid, video_path)
         return sid
 
-    def prompt(self, message: str):
-        """``(token_ids [1, Lmax], splice_start [1], prompt_len [1],
-        stop_str)`` for one turn, as the JAX demo builds them: the
-        conversation template with the video placeholder block, tokenized,
-        the block as ``video_token_len`` slots of id 0, and room for 64 new
-        tokens rounded up to a multiple of 128."""
-        from stair_tpu_torch.llm.conversation import conv_templates
-        from stair_tpu_torch.llm.videochat import (
-            DEFAULT_VIDEO_PATCH_TOKEN,
-            build_video_prompt,
-        )
-
-        cfg = self.model.config
-        V = cfg.video_token_len
-        conv = conv_templates[self.conv_mode].copy()
-        conv.append_message(
-            conv.roles[0],
-            build_video_prompt(message, V, cfg.use_vid_start_end),
-        )
-        conv.append_message(conv.roles[1], None)
-        prompt = conv.get_prompt()
-        pre, _, post = prompt.partition(DEFAULT_VIDEO_PATCH_TOKEN * V)
-        pre_ids = list(self.tokenizer.encode(pre))
-        post_ids = list(self.tokenizer.encode(post))
-        ids = pre_ids + [0] * V + post_ids
-        Lmax = ((len(ids) + 64 + 127) // 128) * 128
-        token_ids = np.zeros((1, Lmax), np.int64)
-        token_ids[0, : len(ids)] = ids
-        dev = self.device
-        return (torch.from_numpy(token_ids).to(dev),
-                torch.tensor([len(pre_ids)], dtype=torch.int32, device=dev),
-                torch.tensor([len(ids)], dtype=torch.int32, device=dev),
-                conv.stop_str)
-
     def chat(self, session_id: str, message: str) -> str:
-        from stair_tpu_torch.llm.videochat import KeywordsStoppingCriteria
+        from stair_tpu_torch.llm.videochat_infer import (
+            video_chatgpt_infer_batch,
+        )
 
         sess = self.sessions[session_id]
         # Single-turn QA over the cached video (multi-turn history is kept
         # for the transcript; each question is answered independently, as
         # the reference demo effectively does for video QA).
-        token_ids, start, plen, stop_str = self.prompt(message)
         gen = torch.Generator(device=self.device).manual_seed(
             len(sess["history"]))
         with self._lock:
-            toks = self.model.generate(
-                token_ids, sess["video_tokens"][None], start,
-                prompt_len=plen, max_new_tokens=64, temperature=0.2,
-                generator=gen,
-                eos_id=getattr(self.tokenizer, "eos_token_id", None),
-            ).cpu().numpy()
-        stopper = KeywordsStoppingCriteria([stop_str], self.tokenizer, 0)
-        reply = stopper.truncate(self.tokenizer.decode(toks[0]))
+            reply = video_chatgpt_infer_batch(
+                self.model, self.tokenizer, [message], None,
+                conv_mode=self.conv_mode, max_new_tokens=64, temperature=0.2,
+                generator=gen, video_tokens=sess["video_tokens"][None])[0]
         sess["history"].append((message, reply))
         return reply
 

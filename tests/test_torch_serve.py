@@ -159,6 +159,7 @@ def test_demo_http_flow_answers_as_the_jax_demo(servers, monkeypatch):
 def test_chat_equals_a_direct_generate_and_open_frames_new_session(servers):
     from stair_tpu_torch.llm.frames import load_video_frames
     from stair_tpu_torch.llm.videochat import KeywordsStoppingCriteria
+    from stair_tpu_torch.llm.videochat_infer import build_prompt_batch
 
     backend = servers["backend"]
     sid = backend.new_session(servers["video"])
@@ -176,7 +177,8 @@ def test_chat_equals_a_direct_generate_and_open_frames_new_session(servers):
         replies = [backend.chat(sid, "what did they do ?") for _ in range(2)]
     finally:
         del backend.model.generate
-    ids, start, plen, stop = backend.prompt("what did they do ?")
+    ids, start, plen, stop = build_prompt_batch(
+        backend.model, backend.tokenizer, ["what did they do ?"])
     assert ids.shape[1] % 128 == 0 and int(plen) + 64 <= ids.shape[1]
     for turn, reply in enumerate(replies):
         toks = backend.model.generate(
@@ -190,6 +192,58 @@ def test_chat_equals_a_direct_generate_and_open_frames_new_session(servers):
         assert reply == want
     assert backend.sessions[sid]["history"] == [
         ("what did they do ?", r) for r in replies]
+
+
+def test_chat_hands_generate_what_the_jax_demo_hands_it():
+    """Both demos' ``chat`` on the same session and messages: the prompt
+    each hands ``generate`` (token ids with the placeholder block, splice
+    start, prompt length, the Lmax rounding), its sampling options and the
+    turn's seed, and the reply each decodes from the same generated ids."""
+    from stair_tpu.serve.demo import ChatBackend as JChatBackend
+
+    msgs = ("what did they do ?", "question answer video")
+    sides = {"jax": JChatBackend(num_frames=4),
+             "port": TD.ChatBackend(num_frames=4, device="cpu")}
+    seen = {}
+    for name, backend in sides.items():
+        cfg = backend.model.config
+        tok = backend.tokenizer
+        out_ids = np.asarray([tok.encode("what did they do ? video")])
+        if name == "port":
+            out_ids = torch.from_numpy(out_ids)
+        calls = []
+
+        def generate(*a, _calls=calls, _out=out_ids, **k):
+            a = a[-3:]                     # the JAX model takes params first
+            token_ids, video, start = (np.asarray(x) for x in a)
+            seed = (int(k["rng"][1]) if "rng" in k
+                    else k["generator"].initial_seed())
+            _calls.append((token_ids.astype(np.int64), video.shape,
+                           start.astype(np.int64),
+                           np.asarray(k["prompt_len"]).astype(np.int64),
+                           k["max_new_tokens"], k["temperature"],
+                           k["eos_id"], seed))
+            return _out
+
+        backend.model.generate = generate
+        zeros = np.zeros((cfg.video_token_len, cfg.vision.d_model),
+                         np.float32)
+        backend.sessions["s"] = {
+            "video_path": "", "history": [],
+            "video_tokens": zeros if name == "jax" else torch.from_numpy(
+                zeros)}
+        replies = [backend.chat("s", m) for m in msgs]
+        seen[name] = (calls, replies)
+    (jcalls, jreplies), (pcalls, preplies) = seen["jax"], seen["port"]
+    assert preplies == jreplies == ["what did they do ? video"] * 2
+    assert len(pcalls) == len(jcalls) == len(msgs)
+    for turn, (jc, pc) in enumerate(zip(jcalls, pcalls)):
+        np.testing.assert_array_equal(pc[0], jc[0])     # token ids, Lmax
+        assert pc[0].shape[1] % 128 == 0
+        assert pc[1] == jc[1] == (1,) + zeros.shape
+        np.testing.assert_array_equal(pc[2], jc[2])     # splice start
+        np.testing.assert_array_equal(pc[3], jc[3])     # prompt length
+        assert pc[4:] == jc[4:] == (64, 0.2, jc[6], turn)
 
 
 def test_backend_loads_a_params_tree(servers):
