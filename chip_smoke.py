@@ -13,14 +13,16 @@ Phases (any failure raises, and the script exits non-zero):
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. build: compile the CUDA kernels from ``stair_tpu_torch/ops/csrc``, print
    every kernel's ptxas registers and spills, and fail on a spill in the
-   tensor-core kernels (the attention backward's and the executor's);
+   tensor-core kernels (the attention backward's and the executor's) and
+   the BiLSTM's float32 cluster forward;
 3. BiLSTM forward kernels vs their plain version at the slice's shapes (B
    = 1024, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
-   with non-suffix masks and an all-padding row: float32 on the general
-   route, bf16 on the cluster route and the general route, and on both at
-   the batches whose tiles ``lstm.fwd_tile`` picks otherwise (the train
-   step's 128, the class table's 64, a ragged 125); two launches of each
-   with identical bits;
+   with non-suffix masks and an all-padding row: float32 on the float32
+   cluster route and the general route (equal bits on every output), bf16
+   on the cluster route and the general route, both dtypes also at the
+   batches whose tiles ``lstm.fwd_tile`` picks
+   otherwise (the train step's 128, the class table's 64, a ragged 125);
+   two launches of each with identical bits;
 4. executor kernel vs its plain version over the all-opcode program set at
    H = 512, both Filter modes and both temporal modes (F = 16 linear,
    F = 64 conv), float32 (the general route) and bf16 on both of its
@@ -38,8 +40,11 @@ Phases (any failure raises, and the script exits non-zero):
    (B = 128, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
    float32 and bf16, with holes and an all-padding row; the forward and
    the backward each on both of their routes (bf16: the cluster route and
-   the general route; float32: the general route), the backward on the
-   cluster forward's stacks, two runs of each with identical bits;
+   the general route; float32: the forward on the float32 cluster route
+   and the general route, equal bits, the backward on the general route),
+   the backward on the cluster forward's stacks (float32: the same bits on
+   the general forward's), two runs of each with identical bits; float32
+   timed (``[f32]`` lines);
 7. executor training kernels (forward with dropout 0.25, backward and its
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
@@ -59,7 +64,9 @@ Phases (any failure raises, and the script exits non-zero):
    routes, the executor forward and backward on their tensor-core routes,
    none on the general routes) and a falling loss, one step kernel vs
    plain route (the loss in bf16; the gradients leaf by leaf in float32,
-   where rounding sites agree), ms per step on both routes, each training kernel against
+   where rounding sites agree; the float32 step's launches exactly
+   ``TRAIN_LAUNCHES_F32``), ms per step on both routes, each training
+   kernel against
    its plain version on the step's own inputs (the executor backward on
    each route handed that route's forward's register files, as the step
    hands them, against autograd at those files, within 1e-1; and on the
@@ -180,13 +187,16 @@ Phases (any failure raises, and the script exits non-zero):
    ``--func predict`` over the valid split in chunks of 256 at beam 5,
    ``check_valid``, ``preprocess --func upgrade`` and ``train.evaluate``
    with phase 18's checkpoint on the generated programs; exact launch
-   counts (per train step one ``bilstm_train``, ``bilstm_bwd`` and
-   ``bilstm_dwh``, per decode chunk one ``bilstm``: the general routes, the
-   only ones float32 takes; per evaluate batch ``EVAL_LAUNCHES``; nothing
-   else); #2 + #3 on the CLI's first training batch and #1 on a decode
-   chunk of 256 against their plain versions (float32, 1e-4) with equal
-   bits on a second launch, timed beside ``nn.LSTM``; ms a parser train
-   step (host clock and CUDA events) and decode questions/s;
+   counts (per train step one ``bilstm_train_f32c``, ``bilstm_bwd`` and
+   ``bilstm_dwh``, per decode chunk one ``bilstm_f32c``: the forward's
+   float32 cluster route and the backward's general route; per evaluate
+   batch ``EVAL_LAUNCHES``; nothing else); #2 + #3 on the CLI's first
+   training batch and #1 on a decode chunk of 256 against their plain
+   versions (float32, 1e-4) with equal bits on a second launch, #1 and #2
+   also equal to their general route bit for bit (and #3 on either
+   forward's stacks), timed beside the general route and ``nn.LSTM``; ms
+   a parser train step (host clock and CUDA events) and decode
+   questions/s;
 20. the demo server at full width, on phase 10's Llama-7B + ViT-L/14
    (before phase 12 frees it): ``serve/demo.py make_handler(ChatBackend)``
    on ``127.0.0.1:0`` in a thread, a session opened through
@@ -202,7 +212,8 @@ Phases (any failure raises, and the script exits non-zero):
    (``parallel.mesh.launch`` with an explicit device list, as the machine
    has one card), phase 8's training configuration at dropout 0 (B 128
    global, 64 a rank, window 32), three steps: per rank per step exactly
-   ``TRAIN_LAUNCHES``, the ranks' parameters equal bit for bit after every
+   ``TRAIN_LAUNCHES`` (the float32 step ``TRAIN_LAUNCHES_F32``), the
+   ranks' parameters equal bit for bit after every
    step, the first step's loss (bf16) and float32 gradient leaves against
    one process's step on the global batch by phase 8's kernel-vs-plain
    bounds, the eval step's gathered predictions against one process's
@@ -224,8 +235,12 @@ step kernel's general route (``executor_step``) counts the launches of its
 own path, phase 15's float32 forward at F = 64; ``slot_set``,
 ``slot_zero`` and ``slot_add`` show 0, as the ``"rev"`` path makes its
 updates through the many-entry launches. Phase 19's three entries
-(``"path": "parser"``) are #1-#3 again, on the general route at the
-parser's shapes, with the parser path's launches. Every time printed is
+(``"path": "parser"``) are #1-#3 again at the parser's shapes, #1 and #2
+on the float32 cluster route (``bilstm_f32c``, ``bilstm_train_f32c``, with
+the general route's time beside) and #3 on the general route, with the
+parser path's launches. Before them a line ``[f32 routes]`` gathers the
+float32 times of #2, #3 (phase 6's shapes), #4 (phase 4), #5, #6 (phase
+7) and #10 (phase 15, F 64) with their bounds. Every time printed is
 measured in this run, on the card named above it.
 """
 
@@ -266,6 +281,12 @@ TRAIN_LAUNCHES = {"bilstm": 0, "bilstm_train": 0, "bilstm_tc": 1,
                   "mega_exec_train_tc": 1, "mega_exec_bwd": 0,
                   "mega_exec_wgrad": 0, "mega_exec_bwd_tc": 1,
                   "mega_exec_wgrad_tc": 1}
+#: the same step in float32: the encoders' forward on the BiLSTM's float32
+#: cluster route (and the class table's eval forward), their backward and
+#: the executor's kernels on the general routes
+TRAIN_LAUNCHES_F32 = {"bilstm_f32c": 1, "bilstm_train_f32c": 2,
+                      "bilstm_bwd": 2, "bilstm_dwh": 2, "mega_exec_train": 1,
+                      "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
 
 
 #: what an earlier phase measured and a later one prints beside its own
@@ -465,8 +486,10 @@ def general_lstm_fwd():
         TL.fwd_route = pick
 
 
-#: the BiLSTM forward's routes: name, launch-key suffix, context
+#: the BiLSTM forward's routes: name, launch-key suffix, context (the
+#: cluster routes run as ``lstm.fwd_route`` picks them)
 FWD_ROUTES = (("cluster", "_tc", contextlib.nullcontext),
+              ("cluster32", "_f32c", contextlib.nullcontext),
               ("general", "", general_lstm_fwd))
 
 
@@ -551,12 +574,29 @@ LSTM_CASES = (("video", BATCH, 64, 1024), ("question", BATCH, 16, 300),
               ("class table", 64, 16, 300), ("ragged", 125, 16, 300))
 
 
+def lstm_flat(out):
+    """A BiLSTM forward's outputs as one tuple: tokens, sentence and (in
+    training) the four state stacks."""
+    return (*out[:3], *out[3]) if len(out) == 4 else tuple(out)
+
+
+def lstm_tile(dev, route, B, h):
+    """The batch tile the BiLSTM forward's ``route`` launches at B, h."""
+    from stair_tpu_torch.ops import lstm as TL
+
+    if route == "general":
+        return None
+    return TL.fwd_tile(B, TL._clusters_held(dev, h, route), route)
+
+
 def run_lstm_routes(dev, args, dtype, key, call, check):
-    """``call()`` on each of the BiLSTM forward's routes that takes
-    ``dtype`` (float32: the general route alone): twice, with identical
-    bits and two launches of ``key`` plus the route's suffix and none of
-    the other route's; ``check(route, out)`` holds each against the plain
-    version. Returns {route: (out, batch tile or None)}."""
+    """``call()`` on the route the BiLSTM forward picks for ``dtype`` (bf16:
+    the cluster route, float32: the float32 cluster route, at the widths
+    they take) and on the general route: twice each, with identical bits
+    and two launches of ``key`` plus the route's suffix and none of another
+    route's; ``check(route, out)`` holds each against the plain version.
+    The float32 cluster route must equal the general route bit for bit on
+    every output. Returns {route: (out, batch tile or None)}."""
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import lstm as TL
 
@@ -569,21 +609,22 @@ def run_lstm_routes(dev, args, dtype, key, call, check):
             _build.reset_launches()
             out, out2 = call(), call()
             torch.cuda.synchronize()
-        other = key + ("" if sfx else "_tc")
+        others = [key + s for _, s, _ in FWD_ROUTES if s != sfx]
         require(_build.LAUNCHES[key + sfx] == 2
-                and _build.LAUNCHES[other] == 0,
+                and not any(_build.LAUNCHES[k] for k in others),
                 f"{key} {route} route launches {_build.LAUNCHES}")
-        flat = [t for o in (out, out2) for t in (
-            (*o[:3], *o[3]) if len(o) == 4 else o)]
-        n = len(flat) // 2
-        require(all(torch.equal(x, y) for x, y in zip(flat[:n], flat[n:])),
+        require(all(torch.equal(x, y)
+                    for x, y in zip(lstm_flat(out), lstm_flat(out2))),
                 f"{key} {route} route: two launches differ")
         require(out[0][5].abs().max().item() == 0.0,
                 f"{key} {route} route: all-padding row has nonzero tokens")
         check(route, out)
-        tile = (TL.fwd_tile(B, TL._clusters_held(dev, h))
-                if route == "cluster" else None)
-        outs[route] = (out, tile)
+        outs[route] = (out, lstm_tile(dev, route, B, h))
+    if "cluster32" in outs:
+        a, g = (lstm_flat(outs[r][0]) for r in ("cluster32", "general"))
+        require(all(torch.equal(x, y) for x, y in zip(a, g)),
+                f"{key}: the float32 cluster route differs from the general "
+                f"route at B {B}, h {h}")
     return outs
 
 
@@ -593,8 +634,8 @@ def phase_lstm(dev):
     gen = torch.Generator().manual_seed(0)
     errs = {}
     for name, B, L, D in LSTM_CASES:
-        dtypes = ((torch.float32, (1e-4, 1e-4)),) if B == BATCH else ()
-        for dtype, tol in dtypes + ((torch.bfloat16, (0.0, 2e-2)),):
+        for dtype, tol in ((torch.float32, (1e-4, 1e-4)),
+                           (torch.bfloat16, (0.0, 2e-2))):
             args = lstm_inputs(gen, dev, B, L, D, 256, dtype)
             ref = TL.bilstm_reference(*args, token_dtype=dtype)
 
@@ -610,10 +651,12 @@ def phase_lstm(dev):
             for route, (out, tile) in outs.items():
                 e = max_err(out, ref)
                 errs[(name, B, str(dtype), route)] = e
+                same = (", equal to the general route bit for bit"
+                        if route == "cluster32" else "")
                 log(f"[lstm] {name} B={B} L={L} D={D} h=256 {dtype} {route} "
                     f"route{f' (batch tile {tile})' if tile else ''}: "
                     f"max_abs_err {e:.3e} (rtol {tol[0]}, atol {tol[1]}), "
-                    "two launches bit-identical ok")
+                    f"two launches bit-identical{same} ok")
     return errs
 
 
@@ -622,6 +665,7 @@ def phase_mega(dev):
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.utils.device import cuda_time_ms
 
     errs = {}
     for F, attention in ((16, "parity"), (64, "softmax"), (64, "parity")):
@@ -681,6 +725,16 @@ def phase_mega(dev):
                             f"{route} route register argmax agreement {agree}")
                 e = max_err(out, ref)
                 errs[(F, attention, str(dtype), route)] = e
+                if dtype == torch.float32:
+                    f32_record(
+                        "#4", f"opcode programs x8, B {B} H 512 F {F} "
+                        f"{attention}", route,
+                        cuda_time_ms(lambda: TX.mega_exec_call(meta, args),
+                                     iters=5),
+                        cuda_time_ms(lambda: TX.mega_exec_reference(
+                            meta, args), iters=2, warmup=1),
+                        bound(counted_flops(lambda: TX.mega_exec_reference(
+                            meta, args)), tensor_bytes(args, out), dtype))
                 log(f"[mega_exec] all {len(W.OPCODE_PROGRAMS)} opcode "
                     f"programs x8 H=512 F={F} {attention} "
                     f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
@@ -888,7 +942,8 @@ def phase_lstm_train(dev):
                 dev, args, dtype, "bilstm_train",
                 lambda: TL.bilstm_train_call(*args, token_dtype=dtype), check)
             # the backward runs on the stacks of the route the main path
-            # takes (bf16: the cluster forward's)
+            # takes (bf16: the cluster forward's; float32: the float32
+            # cluster forward's, equal to the general route's)
             out = outs[TL.fwd_route(dtype, HIDDEN // 2)][0]
             fwd = max(fwd_errs.values())
             B, h = TRAIN_BATCH, HIDDEN // 2
@@ -898,6 +953,8 @@ def phase_lstm_train(dev):
             rb = TL.bilstm_bwd_reference(*args, ref[3], *dtok, dsent)
             routes = (("cluster", "bilstm_bwd_tc", contextlib.nullcontext),
                       ("general", "bilstm_bwd", general_lstm_bwd))
+            same_bwd = ("; the same bits on the general forward's stacks"
+                        if "cluster32" in outs else "")
             for route, key, ctx in routes:
                 if route != "general" and TL.bwd_route(dtype, h) != route:
                     continue   # float32 takes only the general route
@@ -911,6 +968,14 @@ def phase_lstm_train(dev):
                         f"{_build.LAUNCHES}")
                 require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
                         f"bilstm backward ({route}) is not deterministic")
+                if "cluster32" in outs and route == "general":
+                    # the general backward on the general forward's stacks
+                    kg = TL.bilstm_bwd_call(*args, outs["general"][0][3],
+                                            *dtok, dsent)
+                    require(all(torch.equal(x, y) for x, y in zip(kb, kg)),
+                            "bilstm backward: the float32 cluster forward's "
+                            "stacks give other bits than the general's")
+                    time_f32_lstm(dev, name, args, outs, dtok, dsent, D)
                 bwd = {n: rel_err(x, y) for n, x, y in zip(
                     ("dxp_f", "dxp_b", "dwh_f", "dwh_b", "dbias_f",
                      "dbias_b"), kb, rb)}
@@ -927,8 +992,78 @@ def phase_lstm_train(dev):
                     f"backward on the {route} route ({key}) max rel err "
                     f"{worst:.3e} (bound {btol}: "
                     f"{', '.join(f'{k} {v:.2e}' for k, v in bwd.items())}); "
-                    "two backward runs bit-identical ok")
+                    f"two backward runs bit-identical{same_bwd} ok")
     return errs
+
+
+def f32_record(kernel, shape, route, ms, plain_ms, bnd, library_ms=None,
+               **extra):
+    """One float32 kernel timing for the summary line ``[f32 routes]``
+    that ``main`` prints (``SEEN["f32"]``), logged as it is taken."""
+    from stair_tpu_torch.utils.device import card_identity
+
+    entry = {"kernel": kernel, "shape": shape, "route": route, "ms": ms,
+             "plain_ms": plain_ms, **bnd, "library_ms": library_ms, **extra}
+    SEEN.setdefault("f32", []).append(entry)
+    log(f"[f32] {json.dumps(entry)}; card "
+        f"{card_identity().splitlines()[0]}")
+
+
+def time_f32_lstm(dev, name, args, outs, dtok, dsent, D):
+    """#2 (float32 cluster route, general route) and #3 (general route) at
+    the float32 train step's shapes, beside the plain versions, nn.LSTM in
+    float32 and their bounds."""
+    from stair_tpu_torch.ops import lstm as TL
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    B, L, G = args[0].shape
+    h = G // 4
+    out = outs["cluster32"][0]
+    shape = f"{name} B {B} L {L} D {D} h {h}"
+    lib_fwd, lib_bwd = lstm_library_ms(B, L, D, h, dev, torch.float32,
+                                       train=True)
+    with general_lstm_fwd():
+        general_ms = cuda_time_ms(lambda: TL.bilstm_train_call(*args),
+                                  iters=3)
+    f32_record("#2", shape, "cluster32", cuda_time_ms(
+        lambda: TL.bilstm_train_call(*args), iters=10),
+        cuda_time_ms(lambda: TL.bilstm_reference(*args, return_stacks=True),
+                     iters=2, warmup=1),
+        lstm_bound(args, out[:3], extra=out[3]), lib_fwd,
+        general_ms=general_ms, batch_tile=outs["cluster32"][1])
+    f32_record("#3", shape, "general", cuda_time_ms(
+        lambda: TL.bilstm_bwd_call(*args, out[3], *dtok, dsent), iters=5),
+        cuda_time_ms(lambda: TL.bilstm_bwd_reference(*args, out[3], *dtok,
+                                                     dsent), iters=2,
+                     warmup=1),
+        lstm_bound(args, TL.bilstm_bwd_call(*args, out[3], *dtok, dsent),
+                   passes=3, extra=(out[3], dtok, dsent)), lib_bwd)
+
+
+def time_f32_mega(meta, args, out, gouts, kb, rate, seed, shape, route):
+    """#5 and #6 in float32 (the general routes) on phase 7's inputs,
+    beside their plain versions (the backward's VJP at the kernel
+    forward's files) and their bounds."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    f32 = torch.float32
+    f32_record("#5", shape, route, cuda_time_ms(
+        lambda: TX.mega_exec_train_call(meta, args, rate, seed), iters=5),
+        cuda_time_ms(lambda: TX.mega_exec_reference(
+            meta, args, rate=rate, seed=seed), iters=2, warmup=1),
+        bound(counted_flops(lambda: TX.mega_exec_reference(
+            meta, args, rate=rate, seed=seed)), tensor_bytes(args, out), f32))
+
+    def plain():
+        return TG.mega_exec_bwd_reference(meta, args, out, gouts, rate, seed,
+                                          at_files=True)
+
+    f32_record("#6", shape, route, cuda_time_ms(
+        lambda: TG.mega_exec_bwd_call(meta, args, out, gouts, rate, seed),
+        iters=3), cuda_time_ms(plain, iters=1, warmup=1),
+        bound(counted_flops(plain), tensor_bytes(args, out, gouts, kb), f32))
 
 
 def phase_mega_train(dev):
@@ -937,6 +1072,7 @@ def phase_mega_train(dev):
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.utils.device import cuda_time_ms
 
     rate, seed = 0.25, (1234567, 2 ** 31 - 5)
     names = (("dvf_a", "dvf_b", "dtok_a", "dtok_b", "daux")
@@ -1030,6 +1166,11 @@ def phase_mega_train(dev):
                                         for x, y in zip(kb, kb2)),
                                     f"executor backward ({route} route) is "
                                     "not deterministic")
+                        if k == 0 and dtype == torch.float32:
+                            time_f32_mega(meta, args, out, gouts, kb, rate,
+                                          seed, f"opcode programs x2, B {B} "
+                                          f"H {HIDDEN} F {F} {attention}",
+                                          route)
                     grads = dict(zip(names, kb))
                     ref_scale = max(float(plain["fltw"].float().abs().max()),
                                     1e-12)
@@ -1115,8 +1256,8 @@ def hold_step_routes(tag, models, batch, window, seed=7):
     float32 a ReLU pre-activation within rounding of 0 still moves a leaf
     by up to ~2e-3 in norm (a logic error moves it by O(1)): bound 1e-2 on
     ||kernel - plain|| / ||plain|| per leaf. The loss agrees within 1e-4
-    in both dtypes. float32 takes the backward's general route (the exact
-    one)."""
+    in both dtypes. float32 takes the BiLSTM forward's float32 cluster
+    route and the backward's general route."""
     from stair_tpu_torch.train.losses import total_loss
 
     def grads_of(m):
@@ -1132,14 +1273,14 @@ def hold_step_routes(tag, models, batch, window, seed=7):
         return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
     keys = tuple(k for k, v in TRAIN_LAUNCHES.items() if v)
-    keys32 = tuple(k for k in keys if not k.endswith(("_tc", "_sum"))) + (
-        "bilstm", "bilstm_train", "bilstm_bwd", "bilstm_dwh",
-        "mega_exec_train", "mega_exec_bwd", "mega_exec_wgrad")
+    keys32 = tuple(TRAIN_LAUNCHES_F32)
     launched = {}
     for m, dtype in models:
         with kernel_route(keys32 if dtype == "float32" else keys) as seen:
             lk, gk = grads_of(m)
         launched[dtype] = seen
+        if dtype == "float32":
+            require_launches(f"{tag} float32 step", seen, TRAIN_LAUNCHES_F32)
         with plain_route():
             lp, gp = grads_of(m)
         require(abs(lk - lp) <= 1e-4 * abs(lp),
@@ -2638,10 +2779,12 @@ def phase_step_kernel(dev):
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import executor_step as TE
     from stair_tpu_torch.testing import workload as W
+    from stair_tpu_torch.utils.device import cuda_time_ms
 
     names = ("rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")
     real = TE.fused_step
     general_launches = 0
+    calls32 = []     # the float32 forward's calls at F = 64, to time
     for F in (16, FRAMES):
         for dtype, routes in ((torch.float32, ("general",)),
                               (torch.bfloat16, ("tc", "general"))):
@@ -2661,6 +2804,8 @@ def phase_step_kernel(dev):
                 seen = {"err": 0.0, "e1": set(), "e2": set()}
 
                 def both(*args):
+                    if dtype == torch.float32 and F == FRAMES:
+                        calls32.append(tuple(a.clone() for a in args))
                     want = TE.fused_step_reference(*(a.clone() for a in args))
                     got = real(*args)
                     torch.cuda.synchronize()
@@ -2699,6 +2844,18 @@ def phase_step_kernel(dev):
                     f"output and the whole frames file, max_abs_err "
                     f"{seen['err']:.3e} (rtol {tol[0]}, atol {tol[1]}), "
                     f"stage-1 experts {sorted(seen['e1'])} ok")
+    # #10 in float32 on the general route over the forward's T calls,
+    # timed in place (a repeat rewrites the same frames slots)
+    require(len(calls32) == general_launches, "float32 fused_step calls")
+    B32 = calls32[0][1].shape[0]
+    f32_record(
+        "#10", f"opcode programs x8, B {B32} H {HIDDEN} F {FRAMES}, the "
+        f"{len(calls32)} steps", "general",
+        cuda_time_ms(lambda: [real(*a) for a in calls32], iters=5),
+        cuda_time_ms(lambda: [TE.fused_step_reference(*a) for a in calls32],
+                     iters=2, warmup=1),
+        add_bounds(*[step_bound(a, torch.float32) for a in calls32]),
+        launches=len(calls32))
     return general_launches
 
 
@@ -3394,9 +3551,12 @@ def hold_parser_kernels(dev, model, src, mask):
     """#2 + #3 on one training batch and #1 on one decode chunk, as the
     parser's encoder gives them the inputs (the CLI's own batch and chunk,
     the trained weights): each kernel twice (equal bits) against its plain
-    version, then timed beside the plain version and ``nn.LSTM``.
-    ``src``/``mask``: {"train": ..., "decode": ...}. Returns per kernel
-    (error, ms, plain ms, bound, library ms)."""
+    version, the forward's float32 cluster route against its general route
+    (equal bits on every output, and the general backward equal on either
+    forward's stacks), then timed beside the general route, the plain
+    version and ``nn.LSTM``. ``src``/``mask``: {"train": ..., "decode":
+    ...}. Returns per kernel (error, ms, general ms, plain ms, bound,
+    library ms)."""
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import lstm as OL
     from stair_tpu_torch.utils.device import cuda_time_ms
@@ -3410,26 +3570,38 @@ def hold_parser_kernels(dev, model, src, mask):
         args = {k: OL._prep(p["encoder"], p["src_embed"][src[k]], mask[k])
                 for k in src}
     for k, a in args.items():
-        require(OL.fwd_route(a[0].dtype, a[0].shape[-1] // 4) == "general"
+        require(OL.fwd_route(a[0].dtype, a[0].shape[-1] // 4) == "cluster32"
                 and OL.bwd_route(a[0].dtype, a[0].shape[-1] // 4)
-                == "general", f"parser {k}: not the general route")
+                == "general", f"parser {k}: not the float32 cluster forward "
+                "and the general backward")
     B, L, G = args["train"][0].shape
     h = G // 4
+
+    def on_both(call, key):
+        """``call()`` twice on the float32 cluster route (equal bits, two
+        launches of ``key`` + "_f32c" and no other) and once on the general
+        route (equal bits). Returns the first output."""
+        _build.reset_launches()
+        k1, k2 = call(), call()
+        torch.cuda.synchronize()
+        require_launches(f"parser {key}", dict(_build.LAUNCHES),
+                         {key + "_f32c": 2})
+        with general_lstm_fwd():
+            g = call()
+        for other, what in ((k2, "two launches differ"),
+                            (g, "the float32 cluster route differs from "
+                                "the general route")):
+            require(all(torch.equal(x, y) for x, y in zip(
+                lstm_flat(k1), lstm_flat(other))), f"parser {key}: {what}")
+        return k1, g
 
     # ---- #2 and #3 on the training batch: f32 1e-4 forward (max abs) and
     # backward (max |a - b| / max |b|), PERF.md section 2's BiLSTM bounds
     a = args["train"]
-    _build.reset_launches()
-    k1, k2 = OL.bilstm_train_call(*a), OL.bilstm_train_call(*a)
-    torch.cuda.synchronize()
-    require(_build.LAUNCHES["bilstm_train"] == 2
-            and not _build.LAUNCHES["bilstm_train_tc"],
-            f"parser #2 launches {_build.LAUNCHES}")
-    fk = (*k1[:3], *k1[3])
-    require(all(torch.equal(x, y) for x, y in zip(fk, (*k2[:3], *k2[3]))),
-            "parser #2: two launches differ")
+    k1, g1 = on_both(lambda: OL.bilstm_train_call(*a), "bilstm_train")
+    fk = lstm_flat(k1)
     ref = OL.bilstm_reference(*a, return_stacks=True)
-    e_fwd = max_err(fk, (*ref[:3], *ref[3]))
+    e_fwd = max_err(fk, lstm_flat(ref))
     require(e_fwd <= 1e-4, f"parser #2 vs plain: {e_fwd:.3e}")
     cot = [torch.randn(B, L, h, generator=gen).to(dev) for _ in range(2)]
     cot.append(torch.randn(B, 2 * h, generator=gen).to(dev))
@@ -3441,21 +3613,18 @@ def hold_parser_kernels(dev, model, src, mask):
             and _build.LAUNCHES["bilstm_dwh"] == 2
             and not _build.LAUNCHES["bilstm_bwd_tc"],
             f"parser #3 launches {_build.LAUNCHES}")
+    bg = OL.bilstm_bwd_call(*a, g1[3], *cot)
     require(all(torch.equal(x, y) for x, y in zip(b1, b2)),
             "parser #3: two launches differ")
+    require(all(torch.equal(x, y) for x, y in zip(b1, bg)),
+            "parser #3: other bits on the general forward's stacks")
     bref = OL.bilstm_bwd_reference(*a, k1[3], *cot)
     e_bwd = max(rel_err(x, y) for x, y in zip(b1, bref))
     require(e_bwd <= 1e-4, f"parser #3 vs plain: {e_bwd:.3e}")
 
     # ---- #1 on the decode chunk
     d = args["decode"]
-    _build.reset_launches()
-    o1, o2 = OL.bilstm(*d), OL.bilstm(*d)
-    torch.cuda.synchronize()
-    require(_build.LAUNCHES["bilstm"] == 2 and not _build.LAUNCHES[
-        "bilstm_tc"], f"parser #1 launches {_build.LAUNCHES}")
-    require(all(torch.equal(x, y) for x, y in zip(o1, o2)),
-            "parser #1: two launches differ")
+    o1, _ = on_both(lambda: OL.bilstm(*d), "bilstm")
     e_eval = max_err(o1, OL.bilstm_reference(*d))
     require(e_eval <= 1e-4, f"parser #1 vs plain: {e_eval:.3e}")
 
@@ -3465,11 +3634,18 @@ def hold_parser_kernels(dev, model, src, mask):
                                        train=True)
     lib_eval, _ = lstm_library_ms(d[0].shape[0], L, D, h, dev,
                                   torch.float32)
-    out["bilstm_train"] = dict(
+
+    def general_ms(fn):
+        with general_lstm_fwd():
+            return cuda_time_ms(fn)
+
+    out["bilstm_train_f32c"] = dict(
         err=e_fwd, ms=cuda_time_ms(lambda: OL.bilstm_train_call(*a)),
+        general_ms=general_ms(lambda: OL.bilstm_train_call(*a)),
         plain_ms=cuda_time_ms(lambda: OL.bilstm_reference(
             *a, return_stacks=True), iters=3, warmup=1),
-        bound=lstm_bound(a, k1[:3], extra=k1[3]), library_ms=lib_fwd)
+        bound=lstm_bound(a, k1[:3], extra=k1[3]), library_ms=lib_fwd,
+        tile=lstm_tile(dev, "cluster32", B, h))
     out["bilstm_bwd"] = dict(
         err=e_bwd, ms=cuda_time_ms(lambda: OL.bilstm_bwd_call(
             *a, k1[3], *cot)),
@@ -3477,11 +3653,13 @@ def hold_parser_kernels(dev, model, src, mask):
             *a, k1[3], *cot), iters=3, warmup=1),
         bound=lstm_bound(a, b1, passes=3, extra=(k1[3], cot)),
         library_ms=lib_bwd)
-    out["bilstm"] = dict(
+    out["bilstm_f32c"] = dict(
         err=e_eval, ms=cuda_time_ms(lambda: OL.bilstm(*d)),
+        general_ms=general_ms(lambda: OL.bilstm(*d)),
         plain_ms=cuda_time_ms(lambda: OL.bilstm_reference(*d), iters=3,
                               warmup=1),
-        bound=lstm_bound(d, o1), library_ms=lib_eval)
+        bound=lstm_bound(d, o1), library_ms=lib_eval,
+        tile=lstm_tile(dev, "cluster32", d[0].shape[0], h))
     return out
 
 
@@ -3522,8 +3700,8 @@ def phase_parser(dev, card, clis):
     train_launches = dict(_build.LAUNCHES)
     chunks = -(-n_valid // min(PARSER_BATCH, n_valid))
     require_launches("parser train CLI", train_launches, {
-        "bilstm_train": steps, "bilstm_bwd": steps, "bilstm_dwh": steps,
-        "bilstm": chunks})
+        "bilstm_train_f32c": steps, "bilstm_bwd": steps, "bilstm_dwh": steps,
+        "bilstm_f32c": chunks})
     em = float(train_log.split("valid exact-match (top beam):")[1].split()[0])
 
     _build.reset_launches()
@@ -3536,7 +3714,7 @@ def phase_parser(dev, card, clis):
     predict_launches = dict(_build.LAUNCHES)
     predict_chunks = -(-n_valid // min(DECODE_CHUNK, n_valid))
     require_launches("parser predict CLI", predict_launches,
-                     {"bilstm": predict_chunks})
+                     {"bilstm_f32c": predict_chunks})
     with open(tsv) as f:
         rows = [line.rstrip("\n").split("\t") for line in f]
     require(len(rows) == BEAM * n_valid and all(len(r) == 3 for r in rows),
@@ -3615,22 +3793,27 @@ def phase_parser(dev, card, clis):
         f"{PARSER_EPOCHS} epochs = {steps} steps of B {bs} in "
         f"{train_s:.1f} s, valid exact match {em:.4f}; launches "
         f"{ {k: v for k, v in train_launches.items() if v} } = {steps} x "
-        "(bilstm_train + bilstm_bwd + bilstm_dwh) + "
-        f"{chunks} x bilstm (the exact-match decode), nothing else")
+        "(bilstm_train_f32c + bilstm_bwd + bilstm_dwh) + "
+        f"{chunks} x bilstm_f32c (the exact-match decode), nothing else")
     log(f"[parser] predict over the valid split, chunks of {DECODE_CHUNK}, "
         f"beam {BEAM}: {predict_s:.2f} s, launches "
         f"{ {k: v for k, v in predict_launches.items() if v} } = "
-        f"{predict_chunks} x bilstm; check_valid top-beam {top1:.4f}, "
+        f"{predict_chunks} x bilstm_f32c; check_valid top-beam {top1:.4f}, "
         f"any-beam {any_beam:.4f}; preprocess --func upgrade, then "
         f"train.evaluate on phase 18's best_model over the generated "
         f"programs: acc {acc_gen:.4f} on {answered} of {n_valid} questions "
         f"(gold programs: {clis['acc']:.4f}), launches "
         f"{ {k: v for k, v in eval_launches.items() if v} } = "
         f"{n_batches} x {EVAL_LAUNCHES}")
-    for k, shape in (("bilstm_train", f"B {bs}"), ("bilstm_bwd", f"B {bs}"),
-                     ("bilstm", f"B {DECODE_CHUNK}")):
+    for k, shape in (("bilstm_train_f32c", f"B {bs}"),
+                     ("bilstm_bwd", f"B {bs}"),
+                     ("bilstm_f32c", f"B {DECODE_CHUNK}")):
         x = held[k]
-        log(f"[parser] {k} general route at {shape}, L {cfg.max_src_len}, h "
+        route = ("general route" if k == "bilstm_bwd" else
+                 f"float32 cluster route (batch tile {x['tile']}; bit for "
+                 f"bit the general route's outputs, {x['general_ms']:.4f} "
+                 "ms)")
+        log(f"[parser] {k} {route} at {shape}, L {cfg.max_src_len}, h "
             f"{cfg.hidden // 2}, float32, the CLI's own inputs: "
             f"{'max |a-b| / max |b|' if k == 'bilstm_bwd' else 'max_abs_err'}"
             f" {x['err']:.3e} (bound 1e-4), two launches bit-identical; "
@@ -3644,19 +3827,21 @@ def phase_parser(dev, card, clis):
         f"{DECODE_CHUNK}, beam {BEAM}, host clock); kernels held in "
         f"{held_s:.1f} s; phase {phase_s:.1f} s; card {card}")
     src = "stair_tpu_torch/ops/csrc/bilstm.cu"
-    launches = {"bilstm": train_launches["bilstm"]
-                + predict_launches["bilstm"],
-                "bilstm_train": train_launches["bilstm_train"],
+    launches = {"bilstm_f32c": train_launches["bilstm_f32c"]
+                + predict_launches["bilstm_f32c"],
+                "bilstm_train_f32c": train_launches["bilstm_train_f32c"],
                 "bilstm_bwd": train_launches["bilstm_bwd"]}
-    sites = {"bilstm": "stair_tpu/ops/lstm.py:136",
-             "bilstm_train": "stair_tpu/ops/lstm.py:583",
+    sites = {"bilstm_f32c": "stair_tpu/ops/lstm.py:136",
+             "bilstm_train_f32c": "stair_tpu/ops/lstm.py:583",
              "bilstm_bwd": "stair_tpu/ops/lstm.py:390"}
     return [{"name": k, "route": "cuda", "path": "parser",
              "source": src, "replaces": sites[k], "launches": launches[k],
              "max_abs_err": held[k]["err"], "ms": held[k]["ms"],
+             **({"general_ms": held[k]["general_ms"]}
+                if "general_ms" in held[k] else {}),
              "plain_ms": held[k]["plain_ms"], **held[k]["bound"],
              "library_ms": held[k]["library_ms"]}
-            for k in ("bilstm", "bilstm_train", "bilstm_bwd")]
+            for k in ("bilstm_f32c", "bilstm_train_f32c", "bilstm_bwd")]
 
 
 def _http(port, path, payload=None):
@@ -3822,6 +4007,8 @@ def phase_data_parallel(dev, card, clis):
     for r, res in enumerate(ranks):
         for s, got in enumerate(res[bf]["launches"]):
             require_launches(f"[dp] rank {r} step {s}", got, TRAIN_LAUNCHES)
+        require_launches(f"[dp] rank {r} float32 step",
+                         res[f32]["launches"][0], TRAIN_LAUNCHES_F32)
         require(all(np.isfinite(res[bf]["loss"])), f"loss {res[bf]['loss']}")
     for case in (bf, f32):
         require(ranks[0][case]["digest"] == ranks[1][case]["digest"],
@@ -3887,7 +4074,7 @@ def phase_data_parallel(dev, card, clis):
     log(f"[dp] phase 8's configuration at dropout 0, B {TRAIN_BATCH} on "
         f"{DP_RANKS} ranks ({TRAIN_BATCH // DP_RANKS} a rank), window "
         f"{args.contrastive_window}: launches per rank per step "
-        f"TRAIN_LAUNCHES exactly; parameters equal bit for bit on both ranks "
+        f"TRAIN_LAUNCHES exactly (float32: TRAIN_LAUNCHES_F32); parameters equal bit for bit on both ranks "
         f"after each of {DP_STEPS} steps; bf16 loss {l_dp:.6f} vs one "
         f"process {l_one:.6f} (bound 1e-4 relative); float32 loss "
         f"{l32_dp:.6f} vs {l32_one:.6f}, worst gradient leaves (norm rel) "
@@ -3960,12 +4147,13 @@ def main():
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s "
         f"({'cached' if _build.BUILD_INFO['cached'] else 'compiled'})")
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
-    # the attention backward's and the executor's tensor-core kernels are
-    # designed to keep their accumulators and state in registers
+    # the attention backward's and the executor's tensor-core kernels, and
+    # the BiLSTM's float32 cluster forward, are designed to keep their
+    # accumulators and state in registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
-                "executor_step_tc_kernel")
+                "executor_step_tc_kernel", "bilstm_fwd_f32_kernel")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),
         f"the build log names not all of {no_spill}")
@@ -4003,6 +4191,7 @@ def main():
         phase_data_parallel(dev, card, clis)
     finally:
         shutil.rmtree(clis["root"], ignore_errors=True)
+    log(f"[f32 routes] {json.dumps(SEEN.get('f32', []))}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,13 @@ per kernel launch site, which each wrapper increments where it launches
 its kernel and nowhere else:
 
 - ``bilstm``, ``bilstm_train``: the BiLSTM forward, eval and training,
-  on its general route (float32, and the shapes the cluster kernel
-  refuses; ``csrc/bilstm.cu``);
+  on its general route (the shapes the cluster kernels refuse;
+  ``csrc/bilstm.cu``);
 - ``bilstm_tc``, ``bilstm_train_tc``: the BiLSTM forward, eval and
   training, on its cluster route (bf16, the main path's);
+- ``bilstm_f32c``, ``bilstm_train_f32c``: the BiLSTM forward, eval and
+  training, on its float32 cluster route (the float32 NMN's and the
+  program parser's);
 - ``bilstm_bwd``, ``bilstm_dwh``: its backward on the general route
   (float32, and the shapes the cluster kernel refuses), the reverse walk
   and the dwh/dbias reduction launch;
@@ -54,7 +57,8 @@ its kernel and nowhere else:
 
 ``header_ints`` reads ``constexpr int`` values from a ``csrc`` source, so
 a limit the kernels check has one home (``csrc/mega_limits.cuh``; the
-BiLSTM cluster routes' ``TC_MAX_H`` and batch tiles in ``csrc/bilstm.cu``;
+BiLSTM cluster routes' ``TC_MAX_H``, ``F32_MAX_H`` and batch tiles in
+``csrc/bilstm.cu``;
 the attention backward's dK/dV tile in ``csrc/flash_attn_bwd.cu``).
 ``ptxas_report`` reads registers and spills per kernel from a build log.
 """
@@ -85,6 +89,7 @@ NVCC_FLAGS = [
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES = {
     "bilstm": 0, "bilstm_train": 0, "bilstm_tc": 0, "bilstm_train_tc": 0,
+    "bilstm_f32c": 0, "bilstm_train_f32c": 0,
     "bilstm_bwd": 0, "bilstm_dwh": 0,
     "bilstm_bwd_tc": 0, "bilstm_dwh_tc": 0, "bilstm_dwh_sum": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_tc": 0,
@@ -329,12 +334,13 @@ def bind_bilstm(lib):
         I, I, I, I,                # B, L, h, bf16
         P,                         # stream
     ]
-    lib.stair_bilstm_fwd_tc.restype = I
-    lib.stair_bilstm_fwd_tc.argtypes = [
-        P, P,                      # pointers, state stacks (null in eval)
-        I, I, I, I,                # B, L, h, batch tile
-        P,                         # stream
-    ]
+    for fn in (lib.stair_bilstm_fwd_tc, lib.stair_bilstm_fwd_f32c):
+        fn.restype = I
+        fn.argtypes = [
+            P, P,                  # pointers, state stacks (null in eval)
+            I, I, I, I,            # B, L, h, batch tile
+            P,                     # stream
+        ]
     for fn in (lib.stair_bilstm_bwd, lib.stair_bilstm_dwh):
         fn.restype = I
         fn.argtypes = [P, I, I, I, I, P]   # pointers, B, L, h, bf16, stream
@@ -343,8 +349,10 @@ def bind_bilstm(lib):
         fn.argtypes = [P, I, I, I, P]      # pointers, B, L, h, stream
     lib.stair_bilstm_dwh_sum.restype = I
     lib.stair_bilstm_dwh_sum.argtypes = [P, I, I, P]  # pointers, nb, h, stream
-    lib.stair_bilstm_fwd_tc_clusters.restype = I
-    lib.stair_bilstm_fwd_tc_clusters.argtypes = [I, I, P]  # h, tile, &out
+    for fn in (lib.stair_bilstm_fwd_tc_clusters,
+               lib.stair_bilstm_fwd_f32c_clusters):
+        fn.restype = I
+        fn.argtypes = [I, I, P]            # h, tile, &out
 
 
 def check(err: int, name: str):

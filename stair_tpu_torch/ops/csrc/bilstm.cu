@@ -16,7 +16,7 @@
 // directions write each token row at its original position (the backward
 // direction walks positions L-1 .. 0).
 //
-// Forward, two routes, picked by ops/lstm.py fwd_route before the launch.
+// Forward, three routes, picked by ops/lstm.py fwd_route before the launch.
 //
 // Cluster route (bf16, h a multiple of 64 up to TC_MAX_H; the main path's
 // h = 256): bilstm_fwd_tc_kernel<H, BT>. What bounds the general route
@@ -66,8 +66,14 @@
 // barrier, with the work of a step serial within one CTA per SM; the
 // route stays far from the byte bound.
 //
-// General route (float32, the exact route, and the shapes the cluster
-// kernel refuses): bilstm_kernel. Grid (ceil(B / BT), 2): one block per
+// Forward, float32 (h a multiple of 32 from 64 up to F32_MAX_H): the
+// float32 cluster route, bilstm_fwd_f32_kernel (below, with its design):
+// the same cluster scheme with wh's float32 slice transposed on chip and
+// float32 FMA chains, bit-equal to the general route. lstm.fwd_tile picks
+// its batch tile.
+//
+// General route (float32 at the other h, and the shapes the cluster
+// kernels refuse): bilstm_kernel. Grid (ceil(B / BT), 2): one block per
 // tile of BT = 8 batch rows and direction. The block keeps the carried h
 // and c of its rows in shared memory (float32), plus the matmul operand h
 // (rounded to wh's dtype, as the JAX kernel's h.astype(wh.dtype)) in a
@@ -1388,6 +1394,317 @@ int launch_fwd_tc(void* const* p, void* const* st, int B, int L, int h,
   return fwd_tc(&a, h, bt, nullptr, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Forward, float32 cluster route (h a multiple of F32_U from F32_MIN_H up to
+// F32_MAX_H)
+// ---------------------------------------------------------------------------
+
+constexpr int F32_U = 32;          // hidden units per CTA; h / F32_U CTAs
+constexpr int F32_MIN_H = 64;      // a cluster of two CTAs at least
+constexpr int F32_MAX_H = 256;     // a cluster of eight (the portable most)
+constexpr int F32_BT_MIN = 8;      // batch tiles: the multiples of this
+constexpr int F32_BT_MAX = 24;     // up to this (lstm.fwd_tile picks one)
+constexpr int F32_WARPS = 4;       // one a scheduler of the SM
+constexpr int F32_THREADS = 128;   // F32_WARPS warps of F32_U lanes
+constexpr int F32_PAD = 4;         // float elements of row padding
+
+// Per-CTA shared memory of the float32 cluster forward at hidden size h and
+// batch tile bt: the transposed wh slice [4 F32_U][h] and two operand
+// buffers h_{t-1} [bt][h], float32, rows padded by F32_PAD. The tests
+// mirror it (tests/test_torch_lstm.py).
+__host__ __device__ constexpr size_t f32_smem_bytes(int h, int bt) {
+  return 4 * ((size_t)4 * F32_U + 2 * (size_t)bt) * (h + F32_PAD);
+}
+static_assert(f32_smem_bytes(F32_MAX_H, F32_BT_MAX) <= 232448,
+              "the float32 cluster forward's largest tile does not fit");
+static_assert(F32_MAX_H / F32_U <= 8, "clusters above the portable 8");
+static_assert(F32_BT_MIN % F32_WARPS == 0 && F32_THREADS == 32 * F32_WARPS,
+              "a warp's rows are F32_WARPS apart, a lane per unit");
+
+struct FwdF32Args {
+  const float* xp[2];
+  const float* mask;
+  const float* wh[2];
+  const float* bias[2];
+  float* tok[2];
+  float* sent;
+  float* hst[2];   // null in eval
+  float* cst[2];
+  int B, L;
+};
+
+// The float32 cluster forward (TPU kernels #1 and #2 in float32: the NMN's
+// default compute dtype and the program parser). The general route above
+// streams the whole float32 wh [h, 4h] (256 KB a direction at h 128, 1 MB
+// at h 256) from L2 at every step into 16 blocks at the parser's B 64,
+// with only h of a block's 256 threads at work. Here wh stays on chip
+// across a cluster of C = H / F32_U CTAs per (tile of BT batch rows,
+// direction), both directions in one launch: CTA c owns hidden units
+// [c U, c U + U), U = F32_U, and their four gate columns, and holds its
+// float32 slice wh[:, cols] (64 KB at h 128, C 4; 128 KB at h 256, C 8)
+// transposed in shared memory for the whole sequence, so that a thread
+// reads four consecutive k of a column as one 16-byte load.
+//
+// Exact: the tokens, sent and state stacks equal bilstm_kernel<float>'s bit
+// for bit. Each gate is one FMA chain from 0 over k = 0 .. h-1 in
+// ascending order, fmaf(h_{t-1}[k], wh[k][col], acc), as the general
+// route's loop (no split of k across CTAs or into several chains: the
+// cluster splits only the columns), and the gate math is the general
+// route's, expression for expression (sigmoid_f, tanhf, (xp + bias) + acc,
+// the mask select). So the general backward's gate recompute still meets
+// the forward's exact linearization point.
+//
+// Per step each thread forms the four gates of BT / F32_WARPS (row, unit)
+// pairs: unit lane and rows warp + F32_WARPS i, all 128 threads at work, one
+// warp to each scheduler of the SM. What bounds the step is shared memory:
+// a 16-byte load costs a warp four wavefronts (one a quarter-warp) whether
+// its lanes read one address or 32, so a thread's loads for four k (one of
+// h_{t-1} a row, one of wh a gate; padded rows keep the wh loads free of
+// bank conflicts) cost 4 (BT / 4 + 4) wavefronts a warp for 4 BT FMAs a
+// lane, and the fewer the warps, the fewer times wh is read: four warps
+// are the fewest that still issue an FMA on every scheduler (at h 256, BT
+// 24: 10.3k cycles a step of product against 6.1k of FMA issue,
+// scripts/bilstm_f32_clocks.py). Then it runs the gate math, keeps its
+// carried h and c in registers, writes tokens (and stacks) and h_t into
+// its own operand buffer of parity t+1; after a CTA barrier the CTA
+// pushes its [BT, U] columns of h_t into every peer's buffer of that
+// parity through distributed shared memory (a gather: no sum, no order)
+// and meets them at one cluster barrier. A buffer is written again two
+// steps later, after every peer has passed the barrier between. Masked
+// rows push their carried h; rows past B push zeros. The next step's xp
+// and mask are loaded into registers before the barrier. The wh slice is
+// read with 16-byte loads, four columns of one gate at a time, and
+// written transposed.
+template <int H, int BT>
+__global__ void __cluster_dims__(H / F32_U, 1, 1)
+    __launch_bounds__(F32_THREADS, 1)
+    bilstm_fwd_f32_kernel(const FwdF32Args a) {
+  constexpr int C = H / F32_U, U = F32_U, G = 4 * H;
+  constexpr int LD = H + F32_PAD;
+  constexpr int P = BT / F32_WARPS;   // (row, unit) pairs of a thread
+  static_assert(H % F32_U == 0 && C >= 2 && C <= 8, "h out of range");
+  static_assert(BT % F32_WARPS == 0, "BT a multiple of F32_WARPS");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();   // owns units [c U, c U + U)
+  const int tile = blockIdx.x / C, dir = blockIdx.y;
+  const int B = a.B, L = a.L, b0 = tile * BT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int u = lane, r0 = warp;   // unit u of rows r0 + F32_WARPS i
+  const float* xp = a.xp[dir];
+  float* tok = a.tok[dir];
+  float* hst = a.hst[dir];
+  float* cst = a.cst[dir];
+
+  extern __shared__ __align__(16) float smf[];
+  float* Ws = smf;              // [4U][LD]: Ws[n][k] = wh[k][gate H + c U + u]
+  float* op = Ws + 4 * U * LD;  // [2][BT][LD] h_{t-1}, all H units
+
+  // Local gate column n = gate U + u is global column gate H + c U + u.
+  const float* whd = a.wh[dir];
+#pragma unroll 4
+  for (int i = tid; i < H * U; i += F32_THREADS) {
+    const int k = i / U, n = (i % U) * 4;   // 4 columns of one gate
+    const float4 w = __ldg(reinterpret_cast<const float4*>(
+        whd + (size_t)k * G + (n / U) * H + c * U + n % U));
+    Ws[n * LD + k] = w.x;
+    Ws[(n + 1) * LD + k] = w.y;
+    Ws[(n + 2) * LD + k] = w.z;
+    Ws[(n + 3) * LD + k] = w.w;
+  }
+  for (int i = tid; i < BT * LD; i += F32_THREADS) op[i] = 0.f;  // h_{-1}
+
+  // Step s's xp (four gates) and mask of this thread's pairs, into
+  // registers a step ahead; zero past B.
+  float xv[P][4], mv[P];
+  auto load_step = [&](int s) {
+    const int t = dir ? L - 1 - s : s;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int b = b0 + r0 + F32_WARPS * i;
+      const bool in = b < B;
+      const float* x = xp + ((size_t)b * L + t) * G + c * U + u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xv[i][q] = in ? __ldg(x + q * H) : 0.f;
+      mv[i] = in ? __ldg(a.mask + (size_t)b * L + t) : 0.f;
+    }
+  };
+  load_step(0);
+
+  float bias[4], hc[P], cc[P];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bias[q] = a.bias[dir][q * H + c * U + u];
+#pragma unroll
+  for (int i = 0; i < P; ++i) hc[i] = cc[i] = 0.f;
+
+  // Every CTA of the cluster has started, holds its wh slice and zero
+  // h_{-1}, before any peer writes into it.
+  cluster_arrive();
+  cluster_wait();
+
+  const float* wq = Ws + u * LD;
+  for (int s = 0; s < L; ++s) {
+    const int t = dir ? L - 1 - s : s;
+    const float* cur = op + (s & 1) * BT * LD;    // h_{t-1}, all units
+    float* nxt = op + ((s + 1) & 1) * BT * LD;    // h_t
+    float acc[P][4];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < H; k += 4) {
+      float4 w[4], hv[P];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = *reinterpret_cast<const float4*>(wq + q * U * LD + k);
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(
+            cur + (r0 + F32_WARPS * i) * LD + k);
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][q] = fmaf(hv[i].x, w[q].x, acc[i][q]);
+          acc[i][q] = fmaf(hv[i].y, w[q].y, acc[i][q]);
+          acc[i][q] = fmaf(hv[i].z, w[q].z, acc[i][q]);
+          acc[i][q] = fmaf(hv[i].w, w[q].w, acc[i][q]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int r = r0 + F32_WARPS * i, b = b0 + r;
+      // (xp + bias) + h @ wh, the JAX kernel's summation order; the gate
+      // math of bilstm_kernel, expression for expression.
+      const float gi = (xv[i][0] + bias[0]) + acc[i][0];
+      const float gf = (xv[i][1] + bias[1]) + acc[i][1];
+      const float gg = (xv[i][2] + bias[2]) + acc[i][2];
+      const float go = (xv[i][3] + bias[3]) + acc[i][3];
+      const float ig = sigmoid_f(gi), fg = sigmoid_f(gf);
+      const float og = sigmoid_f(go), g = tanhf(gg);
+      const float c_new = fg * cc[i] + ig * g;
+      const float h_new = og * tanhf(c_new);
+      const bool v = mv[i] > 0.f;
+      const float hh = v ? h_new : hc[i];
+      const float c2 = v ? c_new : cc[i];
+      cc[i] = c2;
+      hc[i] = hh;
+      nxt[r * LD + c * U + u] = hh;
+      if (b < B) {
+        const size_t o = ((size_t)b * L + t) * H + c * U + u;
+        tok[o] = v ? hh : 0.f;
+        if (hst != nullptr) {
+          hst[o] = hh;
+          cst[o] = c2;
+        }
+      }
+    }
+    if (s + 1 == L) break;
+    load_step(s + 1);         // lands during the exchange and the product
+    __syncthreads();          // this CTA's columns of h_t are written
+    // Push them to the peers, 16 bytes at a time at the same offsets.
+    float* peer_buf = op + ((s + 1) & 1) * BT * LD;
+    for (int i = tid; i < BT * (U / 4); i += F32_THREADS) {
+      const int off = (i / (U / 4)) * LD + c * U + (i % (U / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(nxt + off);
+#pragma unroll
+      for (int q = 1; q < C; ++q)
+        *reinterpret_cast<float4*>(
+            cluster.map_shared_rank(peer_buf, (c + q) % C) + off) = v;
+    }
+    cluster_arrive();
+    cluster_wait();
+  }
+
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int b = b0 + r0 + F32_WARPS * i;
+    if (b < B) a.sent[(size_t)b * 2 * H + dir * H + c * U + u] = hc[i];
+  }
+  // No CTA leaves while a peer may still reach its shared memory.
+  cluster.sync();
+}
+
+// With a != null: launch on a's batch; else write to *clusters how many
+// clusters of such CTAs the card holds at once with one CTA an SM (asked
+// with more than half an SM's shared memory: an SM that runs two CTAs of
+// this kernel takes twice as long a step).
+template <int H, int BT>
+int fwd_f32_hb(const FwdF32Args* a, int* clusters, cudaStream_t stream) {
+  constexpr int C = H / F32_U;
+  const size_t smem = f32_smem_bytes(H, BT);
+  const size_t one_an_sm = 232448 / 2 + 16;
+  const size_t asked = a == nullptr && smem < one_an_sm ? one_an_sm : smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      bilstm_fwd_f32_kernel<H, BT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)asked);
+  if (e != cudaSuccess) return (int)e;
+  // Once per (size, tile) before a launch: can one cluster be resident?
+  static bool checked = false;
+  if (a == nullptr || !checked) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 2);
+    cfg.blockDim = dim3(F32_THREADS);
+    cfg.dynamicSmemBytes = asked;
+    cfg.stream = stream;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(
+        &n, (void*)bilstm_fwd_f32_kernel<H, BT>, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (a == nullptr) {
+      *clusters = n;
+      return 0;
+    }
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    checked = true;
+  }
+  const dim3 grid(((a->B + BT - 1) / BT) * C, 2);
+  bilstm_fwd_f32_kernel<H, BT><<<grid, F32_THREADS, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// fwd_f32_hb<H, bt> for a runtime bt, a multiple of F32_BT_MIN up to
+// F32_BT_MAX.
+template <int H, int BT = F32_BT_MIN>
+int fwd_f32_h(const FwdF32Args* a, int bt, int* clusters, cudaStream_t s) {
+  if (bt == BT) return fwd_f32_hb<H, BT>(a, clusters, s);
+  if constexpr (BT < F32_BT_MAX)
+    return fwd_f32_h<H, BT + F32_BT_MIN>(a, bt, clusters, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int fwd_f32(const FwdF32Args* a, int h, int bt, int* clusters,
+            cudaStream_t s) {
+  switch (h) {   // h a multiple of F32_U from F32_MIN_H up to F32_MAX_H
+    case 64: return fwd_f32_h<64>(a, bt, clusters, s);
+    case 96: return fwd_f32_h<96>(a, bt, clusters, s);
+    case 128: return fwd_f32_h<128>(a, bt, clusters, s);
+    case 160: return fwd_f32_h<160>(a, bt, clusters, s);
+    case 192: return fwd_f32_h<192>(a, bt, clusters, s);
+    case 224: return fwd_f32_h<224>(a, bt, clusters, s);
+    case 256: return fwd_f32_h<256>(a, bt, clusters, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_fwd_f32(void* const* p, void* const* st, int B, int L, int h,
+                   int bt, cudaStream_t stream) {
+  FwdF32Args a;
+  for (int d = 0; d < 2; ++d) {
+    a.xp[d] = (const float*)p[0 + d];
+    a.wh[d] = (const float*)p[3 + d];
+    a.bias[d] = (const float*)p[5 + d];
+    a.tok[d] = (float*)p[7 + d];
+    a.hst[d] = st ? (float*)st[2 * d] : nullptr;
+    a.cst[d] = st ? (float*)st[2 * d + 1] : nullptr;
+  }
+  a.mask = (const float*)p[2];
+  a.sent = (float*)p[9];
+  a.B = B;
+  a.L = L;
+  return fwd_f32(&a, h, bt, nullptr, stream);
+}
+
 }  // namespace
 
 // xp_f/xp_b [B, L, 4h], mask [B, L] f32, wh_f/wh_b [h, 4h], bias [4h] f32
@@ -1426,6 +1743,22 @@ extern "C" int stair_bilstm_fwd_tc(void* const* ptrs, void* const* stacks,
 // tile bt) the card holds at once, into *clusters. Returns a cudaError_t.
 extern "C" int stair_bilstm_fwd_tc_clusters(int h, int bt, int* clusters) {
   return fwd_tc(nullptr, h, bt, clusters, 0);
+}
+
+// The forward's float32 cluster route (h a multiple of F32_U from F32_MIN_H
+// up to F32_MAX_H; bt a multiple of F32_BT_MIN up to F32_BT_MAX). ptrs and
+// stacks as stair_bilstm_fwd_tc's, every tensor float32 but the mask's
+// dtype alike. Returns cudaGetLastError() after the launch.
+extern "C" int stair_bilstm_fwd_f32c(void* const* ptrs, void* const* stacks,
+                                     int B, int L, int h, int bt,
+                                     void* stream) {
+  return launch_fwd_f32(ptrs, stacks, B, L, h, bt, (cudaStream_t)stream);
+}
+
+// How many clusters of the float32 cluster forward (hidden size h, batch
+// tile bt) the card holds at once, into *clusters. Returns a cudaError_t.
+extern "C" int stair_bilstm_fwd_f32c_clusters(int h, int bt, int* clusters) {
+  return fwd_f32(nullptr, h, bt, clusters, 0);
 }
 
 // ptrs: xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, h_f, c_f, h_b, c_b

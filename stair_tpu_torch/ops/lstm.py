@@ -12,12 +12,14 @@ sentence feature. Gate layout is torch's ``[i, f, g, o]``.
 the hand-written kernel of the route ``fwd_route`` picks in
 ``csrc/bilstm.cu`` (the cluster route ``bilstm_tc`` for bf16 at the main
 path's shapes, on a batch tile ``fwd_tile`` picks from B and how many
-clusters the card holds; the general route ``bilstm`` otherwise) or
-raises.
+clusters the card holds; the float32 cluster route ``bilstm_f32c``, bit
+for bit the general route's outputs, on the tile ``fwd_tile`` picks; the
+general route ``bilstm`` otherwise) or raises.
 
 Training: ``bilstm_train_call`` is the forward that also returns the
-float32 post-mask h/c state stacks (on the same two routes:
-``bilstm_train_tc``, ``bilstm_train``), ``bilstm_bwd_call`` the backward over
+float32 post-mask h/c state stacks (on the same three routes:
+``bilstm_train_tc``, ``bilstm_train_f32c``, ``bilstm_train``),
+``bilstm_bwd_call`` the backward over
 them (plain ``bilstm_bwd_reference``, an explicit adjoint recurrence, on
 the CPU; on the card the kernels of the route ``bwd_route`` picks: the
 cluster route ``bilstm_bwd_tc`` + ``bilstm_dwh_tc`` + ``bilstm_dwh_sum``
@@ -166,7 +168,8 @@ def _check_kernel_args(name, xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b,
 
 def _launch_fwd(key, args, token_dtype, stacks):
     """Launch the forward on the route ``fwd_route`` picks: the cluster
-    kernel (launch key ``key + "_tc"``) or the general one (``key``)."""
+    kernel (launch key ``key + "_tc"``), the float32 cluster kernel
+    (``key + "_f32c"``) or the general one (``key``)."""
     xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b = args
     dev = xp_f.device
     B, L, h = _check_kernel_args(key, *args, token_dtype,
@@ -182,11 +185,13 @@ def _launch_fwd(key, args, token_dtype, stacks):
     lib = _build.build()
     sptrs = _build.pointers(st) if stacks else None
     stream = _build.stream_ptr(dev)
-    if fwd_route(dt, h) == "cluster":
-        key += "_tc"
-        err = lib.stair_bilstm_fwd_tc(
+    route = fwd_route(dt, h)
+    if route in _CLUSTER_ROUTES:
+        sfx = _CLUSTER_ROUTES[route][0]
+        key += "_" + sfx
+        err = getattr(lib, f"stair_bilstm_fwd_{sfx}")(
             _build.pointers((*args, tok_f, tok_b, sent)), sptrs, B, L, h,
-            fwd_tile(B, _clusters_held(dev, h)), stream)
+            fwd_tile(B, _clusters_held(dev, h, route), route), stream)
     else:
         err = lib.stair_bilstm_fwd(
             xp_f.data_ptr(), xp_b.data_ptr(), mask.data_ptr(),
@@ -299,37 +304,63 @@ def fwd_route(dtype, h) -> str:
     """The forward's kernel route (eval and training) for xp and wh of
     ``dtype`` at hidden size ``h``, chosen before any launch: ``"cluster"``
     (``bilstm_tc`` / ``bilstm_train_tc``: bf16, h a multiple of 64 up to
-    ``TC_MAX_H``) or ``"general"`` (``bilstm`` / ``bilstm_train``: float32,
-    the exact route, and every other h the wrapper takes)."""
+    ``TC_MAX_H``), ``"cluster32"`` (``bilstm_f32c`` /
+    ``bilstm_train_f32c``: float32, h a multiple of ``F32_U`` from
+    ``F32_MIN_H`` up to ``F32_MAX_H``; the general route's outputs bit for
+    bit) or ``"general"`` (``bilstm`` / ``bilstm_train``: every other h the
+    wrapper takes)."""
+    c = _consts()
+    if (dtype == torch.float32 and h % c["F32_U"] == 0
+            and c["F32_MIN_H"] <= h <= c["F32_MAX_H"]):
+        return "cluster32"
     return _cluster_route(dtype, h)
 
 
-def fwd_tile(B, clusters) -> int:
-    """The cluster forward's batch tile for ``B`` rows on a card that holds
-    ``clusters`` of its clusters at once (30 on an H100 SXM: one CTA per
-    SM, four SMs of one GPC per cluster): the smallest multiple of
-    ``FWD_BT_MIN`` up to ``FWD_BT_MAX`` whose grid (2 directions x
-    ``ceil(B / tile)`` clusters) runs in one wave, else ``FWD_BT_MAX``.
-    A step takes longer the larger the tile (``csrc/bilstm.cu``), so the
-    smallest tile that needs no second wave wins, and above ``FWD_BT_MAX``
-    a tile loses to two waves of it (B 1024 takes 40 in two waves, B 128
-    16 in one)."""
-    c = _consts()
-    bt = c["FWD_BT_MIN"]
-    while bt < c["FWD_BT_MAX"] and 2 * -(-B // bt) > clusters:
-        bt += c["FWD_BT_MIN"]
-    return bt
+#: the forward's cluster routes: launch-key and C-entry suffix, and the
+#: prefix of their batch-tile constants in ``csrc/bilstm.cu``
+_CLUSTER_ROUTES = {"cluster": ("tc", "FWD_BT"),
+                   "cluster32": ("f32c", "F32_BT")}
+
+
+def fwd_tiles(route="cluster") -> list:
+    """The batch tiles the cluster ``route``'s kernel is compiled for."""
+    c, pre = _consts(), _CLUSTER_ROUTES[route][1]
+    return list(range(c[pre + "_MIN"], c[pre + "_MAX"] + 1, c[pre + "_MIN"]))
+
+
+def fwd_tile(B, clusters, route="cluster") -> int:
+    """The cluster ``route``'s batch tile for ``B`` rows on a card that
+    holds ``clusters`` of its clusters at once with one CTA an SM: the
+    smallest of ``fwd_tiles(route)`` whose grid (2 directions x ``ceil(B /
+    tile)`` clusters) runs in one wave, else the largest. A step takes
+    longer the larger the tile (``csrc/bilstm.cu``), so the smallest tile
+    that needs no second wave wins, and past the largest a tile loses to
+    more waves of it. ``"cluster"`` (bf16, 30 four-CTA clusters on an H100
+    SXM): B 1024 takes 40 in two waves, B 128 16 in one. ``"cluster32"``
+    (float32; 30 clusters at h 128, 15 eight-CTA clusters at h 256; an SM
+    that runs two of its CTAs takes twice as long a step): the parser's B
+    64 takes 8 and its decode chunk of 256 24, the float32 NMN's B 128 24
+    in one wave and B 1024 24 in six (``scripts/bilstm_fwd_tiles.py
+    --dtype float32``)."""
+    tiles = fwd_tiles(route)
+    for bt in tiles:
+        if 2 * -(-B // bt) <= clusters:
+            return bt
+    return tiles[-1]
 
 
 @functools.lru_cache(maxsize=None)
-def _clusters_held(dev, h) -> int:
-    """How many clusters of the forward's cluster route at hidden size
-    ``h`` (largest tile) the card ``dev`` holds at once."""
+def _clusters_held(dev, h, route="cluster") -> int:
+    """How many clusters of the cluster ``route``'s kernel at hidden size
+    ``h`` (largest tile; the float32 route asked for one CTA an SM) the card
+    ``dev`` holds at once."""
+    sfx = _CLUSTER_ROUTES[route][0]
     n = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        _build.check(_build.build().stair_bilstm_fwd_tc_clusters(
-            h, _consts()["FWD_BT_MAX"], ctypes.byref(n)),
-            "bilstm_fwd_tc_clusters")
+        _build.check(getattr(
+            _build.build(), f"stair_bilstm_fwd_{sfx}_clusters")(
+                h, fwd_tiles(route)[-1], ctypes.byref(n)),
+            f"bilstm_fwd_{sfx}_clusters")
     return n.value
 
 

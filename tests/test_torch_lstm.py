@@ -6,8 +6,9 @@ the JAX package's ``jax.vmap(bilstm)`` (the scan) and against
 interpreter) on the same numpy inputs and weights: float32 at rtol/atol
 2e-5, bf16 matmuls at 2e-2 (as tests/test_lstm_pallas.py). Masks need not
 be a suffix, and an all-padding row gives zero tokens and a zero sentence.
-The CUDA kernels are held against the plain version on the card; the
-forward's route and batch-tile choice and the cluster kernel's shared
+The CUDA kernels are held against the plain version on the card (the
+float32 cluster route also against the general route, bit for bit); the
+forward's route and batch-tile choices and the cluster kernels' shared
 memory are checked on the CPU.
 """
 
@@ -147,10 +148,14 @@ def test_bilstm_kernel_vs_plain_on_card(cuda_device, dtype):
 
 # The forward's route, chosen before any launch: the cluster kernel takes
 # bf16 at h a multiple of 64 up to TC_MAX_H (the main path's h = 256), the
-# general kernel everything else (float32 always: it is the exact route).
+# float32 cluster kernel float32 at h a multiple of 32 from 64 up to
+# F32_MAX_H (the parser's h 128, the float32 NMN's h 256), the general
+# kernel everything else.
 FWD_ROUTE_CASES = [
-    (torch.float32, 16, "general"), (torch.float32, 64, "general"),
-    (torch.float32, 256, "general"), (torch.float32, 1024, "general"),
+    (torch.float32, 16, "general"), (torch.float32, 64, "cluster32"),
+    (torch.float32, 100, "general"), (torch.float32, 128, "cluster32"),
+    (torch.float32, 192, "cluster32"), (torch.float32, 256, "cluster32"),
+    (torch.float32, 320, "general"), (torch.float32, 1024, "general"),
     (torch.bfloat16, 16, "general"), (torch.bfloat16, 64, "cluster"),
     (torch.bfloat16, 100, "general"), (torch.bfloat16, 128, "cluster"),
     (torch.bfloat16, 192, "cluster"), (torch.bfloat16, 256, "cluster"),
@@ -204,6 +209,120 @@ def test_bilstm_fwd_cluster_smem_fits_one_cta(h):
     assert TL.fwd_route(torch.bfloat16, h) == "cluster"
     for bt in range(c["FWD_BT_MIN"], c["FWD_BT_MAX"] + 1, c["FWD_BT_MIN"]):
         assert _fwd_smem_bytes(h, bt) <= 232448, bt
+
+
+def _f32_smem_bytes(h, bt):
+    """Per-CTA shared memory of the float32 cluster forward, as
+    ``csrc/bilstm.cu f32_smem_bytes`` computes it: the transposed ``[4 U,
+    h]`` wh slice and two ``[bt, h]`` operand buffers, float32, rows padded
+    by ``F32_PAD``."""
+    c = _build.header_ints("bilstm.cu")
+    return 4 * (4 * c["F32_U"] + 2 * bt) * (h + c["F32_PAD"])
+
+
+F32_HS = list(range(64, 257, 32))
+
+
+@pytest.mark.parametrize("h", F32_HS)
+def test_bilstm_fwd_f32_cluster_smem_fits_one_cta(h):
+    """Every h the float32 cluster forward takes, at every tile it is
+    compiled for, fits the 232,448 bytes a block may use, on a cluster of
+    h / F32_U <= 8 CTAs (the portable most); h past F32_MAX_H does not
+    take the route."""
+    c = _build.header_ints("bilstm.cu")
+    assert TL.fwd_route(torch.float32, h) == "cluster32"
+    assert 2 <= h // c["F32_U"] <= 8 and h % c["F32_U"] == 0
+    assert TL.fwd_tiles("cluster32") == list(range(
+        c["F32_BT_MIN"], c["F32_BT_MAX"] + 1, c["F32_BT_MIN"]))
+    for bt in TL.fwd_tiles("cluster32"):
+        assert _f32_smem_bytes(h, bt) <= 232448, bt
+    assert TL.fwd_route(torch.float32, c["F32_MAX_H"] + c["F32_U"]) == \
+        "general"
+
+
+# B, clusters the card holds with one CTA an SM, the tile. An H100 SXM
+# holds 30 four-CTA clusters (h 128) and 15 eight-CTA clusters (h 256) so:
+# the parser's B 64 takes 8 and its decode chunk of 256 24 (16 would need
+# 32 clusters); the float32 NMN's B 128 24, its B 1024 the largest tile
+# (24) in several waves.
+F32_TILE_CASES = [(64, 30, 8), (256, 30, 24), (128, 15, 24), (125, 15, 24),
+                  (1024, 15, 24), (1024, 30, 24), (1, 2, 8), (64, 0, 24),
+                  (120, 30, 8), (121, 30, 16), (256, 64, 8)]
+
+
+@pytest.mark.parametrize("B,clusters,tile", F32_TILE_CASES,
+                         ids=[f"B{b}-c{c}" for b, c, _ in F32_TILE_CASES])
+def test_bilstm_fwd_f32_tile_choice(B, clusters, tile):
+    c = _build.header_ints("bilstm.cu")
+    got = TL.fwd_tile(B, clusters, "cluster32")
+    assert got == tile
+    assert got % c["F32_BT_MIN"] == 0 and got <= c["F32_BT_MAX"]
+    if got < c["F32_BT_MAX"]:   # one wave, and no smaller tile gives one
+        assert 2 * -(-B // got) <= clusters
+        smaller = got - c["F32_BT_MIN"]
+        assert smaller == 0 or 2 * -(-B // smaller) > clusters
+
+
+# name, B, L, D, h: the parser's training batch and decode chunk, the
+# float32 NMN's encoders (train step B 128, serving B 1024), a ragged B at
+# an h of six-CTA clusters
+F32_CLUSTER_CASES = [("parser-train", 64, 32, 256, 128),
+                     ("parser-decode", 256, 32, 256, 128),
+                     ("video-train", 128, 64, 1024, 256),
+                     ("question-train", 128, 16, 300, 256),
+                     ("video-serving", 1024, 64, 1024, 256),
+                     ("ragged-B", 125, 20, 64, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CLUSTER_CASES,
+                         ids=[c[0] for c in F32_CLUSTER_CASES])
+def test_bilstm_fwd_f32_cluster_equals_general_on_card(cuda_device, case):
+    """The float32 cluster forward, eval and training, with holes in the
+    masks and an all-padding row: tokens, sentence and the four stacks equal
+    the general route's bit for bit, are within 1e-4 of the plain version,
+    and two launches give the same bits; only its launch keys count. The
+    general backward gives the same bits on either route's stacks."""
+    _, B, L, D, h = case
+    dt = torch.float32
+    gen = torch.Generator().manual_seed(16)
+    x, mask = _data(B, L, D, seed=B + L, holes=True, empty_row=3)
+    p = TL.init_lstm_params(gen, D, h, device=cuda_device)
+    args = TL._prep(p, torch.from_numpy(x).to(cuda_device),
+                    torch.from_numpy(mask).to(cuda_device))
+    assert TL.fwd_route(dt, h) == "cluster32"
+    _build.reset_launches()
+    ev1, ev2 = (TL.bilstm(*args) for _ in range(2))
+    tr1, tr2 = (TL.bilstm_train_call(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bilstm_f32c"] == 2
+    assert _build.LAUNCHES["bilstm_train_f32c"] == 2
+    assert sum(_build.LAUNCHES.values()) == 4
+    pick = TL.fwd_route
+    TL.fwd_route = lambda dtype, hh: "general"
+    try:
+        gev = TL.bilstm(*args)
+        gtr = TL.bilstm_train_call(*args)
+        torch.cuda.synchronize()
+    finally:
+        TL.fwd_route = pick
+    assert _build.LAUNCHES["bilstm"] == _build.LAUNCHES["bilstm_train"] == 1
+    flat = (*ev1, *tr1[:3], *tr1[3])
+    for a, b in zip(flat, (*ev2, *tr2[:3], *tr2[3])):
+        assert torch.equal(a, b)
+    for a, b in zip(flat, (*gev, *gtr[:3], *gtr[3])):
+        assert torch.equal(a, b)
+    ref = TL.bilstm_reference(*args, return_stacks=True)
+    for a, b in zip(flat, (*ref[:3], *ref[:3], *ref[3])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert float(ev1[0][3].abs().max()) == 0.0   # the all-padding row
+    cots = [torch.randn(B, L, h, generator=gen).to(cuda_device)
+            for _ in range(2)] + [torch.randn(B, 2 * h, generator=gen)
+                                  .to(cuda_device)]
+    kb = TL.bilstm_bwd_call(*args, tr1[3], *cots)
+    gb = TL.bilstm_bwd_call(*args, gtr[3], *cots)
+    for a, b in zip(kb, gb):
+        assert torch.equal(a, b)
 
 
 # name, B, L, D: the main paths' encoders (serving's B 1024, the train

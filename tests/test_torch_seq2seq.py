@@ -462,8 +462,9 @@ def test_encoder_runs_the_bilstm_on_the_train_pair_with_gradients(
 
 @pytest.mark.cuda
 def test_parser_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
-    # the encoder's general-route BiLSTM kernels (#1, #2 + #3 at float32)
-    # against the plain versions, through the parser's loss and beam search
+    # the encoder's BiLSTM kernels at float32 (#1, #2 on the float32
+    # cluster route, #3 on the general route) against the plain versions,
+    # through the parser's loss and beam search
     from stair_tpu_torch.ops import _build
 
     cfg = TL.LSTMSeq2SeqConfig(SRC_V, TGT_V, 64, 256, S, T)
@@ -478,7 +479,7 @@ def test_parser_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
                                          (src, mask, ti))), _t(to).to(dev))
         loss.backward()
         losses.append(float(loss))
-    assert _build.LAUNCHES["bilstm_train"] == 1
+    assert _build.LAUNCHES["bilstm_train_f32c"] == 1
     assert _build.LAUNCHES["bilstm_bwd"] == 1
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
     want, got = (flatten_tree(grads_to_numpy(m)) for m in (cpu, card))
@@ -487,7 +488,7 @@ def test_parser_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
     wt, _ = TB.beam_search(cpu, _t(src), _t(mask), beam_size=3, max_len=T)
     gt, _ = TB.beam_search(card, _t(src).to(cuda_device),
                            _t(mask).to(cuda_device), beam_size=3, max_len=T)
-    assert _build.LAUNCHES["bilstm"] == 1
+    assert _build.LAUNCHES["bilstm_f32c"] == 1
     np.testing.assert_array_equal(gt.cpu().numpy(), wt.numpy())
 
 
