@@ -14,7 +14,7 @@ Phases (any failure raises, and the script exits non-zero):
 2. build: compile the CUDA kernels from ``stair_tpu_torch/ops/csrc``, print
    every kernel's ptxas registers and spills, and fail on a spill in the
    tensor-core kernels (the attention backward's and the executor's) and
-   the BiLSTM's float32 cluster forward;
+   the BiLSTM's float32 cluster kernels (forward, walk, dwh);
 3. BiLSTM forward kernels vs their plain version at the slice's shapes (B
    = 1024, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
    with non-suffix masks and an all-padding row: float32 on the float32
@@ -40,11 +40,12 @@ Phases (any failure raises, and the script exits non-zero):
    (B = 128, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
    float32 and bf16, with holes and an all-padding row; the forward and
    the backward each on both of their routes (bf16: the cluster route and
-   the general route; float32: the forward on the float32 cluster route
-   and the general route, equal bits, the backward on the general route),
+   the general route; float32: the float32 cluster routes and the
+   general routes, the forward's equal bits, the backward's within 1e-4 of
+   each other and equal bits in dxp at each row's first valid walk step),
    the backward on the cluster forward's stacks (float32: the same bits on
    the general forward's), two runs of each with identical bits; float32
-   timed (``[f32]`` lines);
+   timed (``[f32]`` lines: #3 on both routes beside ``nn.LSTM``);
 7. executor training kernels (forward with dropout 0.25, backward and its
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
@@ -65,7 +66,10 @@ Phases (any failure raises, and the script exits non-zero):
    none on the general routes) and a falling loss, one step kernel vs
    plain route (the loss in bf16; the gradients leaf by leaf in float32,
    where rounding sites agree; the float32 step's launches exactly
-   ``TRAIN_LAUNCHES_F32``), ms per step on both routes, each training
+   ``TRAIN_LAUNCHES_F32``), the float32 step's ms with the BiLSTM backward
+   on its float32 cluster route and on its general route in turns, #5 and
+   #6 in float32 at B 128 (``[f32]``), ms per step on both routes, each
+   training
    kernel against
    its plain version on the step's own inputs (the executor backward on
    each route handed that route's forward's register files, as the step
@@ -187,14 +191,16 @@ Phases (any failure raises, and the script exits non-zero):
    ``--func predict`` over the valid split in chunks of 256 at beam 5,
    ``check_valid``, ``preprocess --func upgrade`` and ``train.evaluate``
    with phase 18's checkpoint on the generated programs; exact launch
-   counts (per train step one ``bilstm_train_f32c``, ``bilstm_bwd`` and
-   ``bilstm_dwh``, per decode chunk one ``bilstm_f32c``: the forward's
-   float32 cluster route and the backward's general route; per evaluate
-   batch ``EVAL_LAUNCHES``; nothing else); #2 + #3 on the CLI's first
-   training batch and #1 on a decode chunk of 256 against their plain
-   versions (float32, 1e-4) with equal bits on a second launch, #1 and #2
-   also equal to their general route bit for bit (and #3 on either
-   forward's stacks), timed beside the general route and ``nn.LSTM``; ms
+   counts (per train step one ``bilstm_train_f32c``, ``bilstm_bwd_f32c``,
+   ``bilstm_dwh_f32c`` and ``bilstm_dwh_sum``, per decode chunk one
+   ``bilstm_f32c``: the forward's and the backward's float32 cluster
+   routes; per evaluate batch ``EVAL_LAUNCHES``; nothing else); #2 + #3 on
+   the CLI's first training batch and #1 on a decode chunk of 256 against
+   their plain versions (float32, 1e-4) with equal bits on a second
+   launch, #1 and #2 also equal to their general route bit for bit, #3
+   within 1e-4 of its general route with equal bits at the first valid
+   walk steps (and equal on either forward's stacks), timed beside the
+   general route and ``nn.LSTM``; ms
    a parser train step (host clock and CUDA events) and decode
    questions/s;
 20. the demo server at full width, on phase 10's Llama-7B + ViT-L/14
@@ -235,12 +241,12 @@ step kernel's general route (``executor_step``) counts the launches of its
 own path, phase 15's float32 forward at F = 64; ``slot_set``,
 ``slot_zero`` and ``slot_add`` show 0, as the ``"rev"`` path makes its
 updates through the many-entry launches. Phase 19's three entries
-(``"path": "parser"``) are #1-#3 again at the parser's shapes, #1 and #2
-on the float32 cluster route (``bilstm_f32c``, ``bilstm_train_f32c``, with
-the general route's time beside) and #3 on the general route, with the
-parser path's launches. Before them a line ``[f32 routes]`` gathers the
+(``"path": "parser"``) are #1-#3 again at the parser's shapes on the float32
+cluster routes (``bilstm_f32c``, ``bilstm_train_f32c``,
+``bilstm_bwd_f32c``: its walk, dwh slices and their sum timed together),
+with the general route's time beside and the parser path's launches. Before them a line ``[f32 routes]`` gathers the
 float32 times of #2, #3 (phase 6's shapes), #4 (phase 4), #5, #6 (phase
-7) and #10 (phase 15, F 64) with their bounds. Every time printed is
+7, and phase 8's B 128) and #10 (phase 15, F 64) with their bounds. Every time printed is
 measured in this run, on the card named above it.
 """
 
@@ -281,11 +287,13 @@ TRAIN_LAUNCHES = {"bilstm": 0, "bilstm_train": 0, "bilstm_tc": 1,
                   "mega_exec_train_tc": 1, "mega_exec_bwd": 0,
                   "mega_exec_wgrad": 0, "mega_exec_bwd_tc": 1,
                   "mega_exec_wgrad_tc": 1}
-#: the same step in float32: the encoders' forward on the BiLSTM's float32
-#: cluster route (and the class table's eval forward), their backward and
-#: the executor's kernels on the general routes
+#: the same step in float32: the encoders' forward and backward on the
+#: BiLSTM's float32 cluster routes (and the class table's eval forward;
+#: the backward's walk, dwh slices and their sum), the executor's kernels
+#: on the general routes
 TRAIN_LAUNCHES_F32 = {"bilstm_f32c": 1, "bilstm_train_f32c": 2,
-                      "bilstm_bwd": 2, "bilstm_dwh": 2, "mega_exec_train": 1,
+                      "bilstm_bwd_f32c": 2, "bilstm_dwh_f32c": 2,
+                      "bilstm_dwh_sum": 2, "mega_exec_train": 1,
                       "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
 
 
@@ -505,6 +513,33 @@ def general_lstm_bwd():
         yield
     finally:
         TL.bwd_route = pick
+
+
+#: the BiLSTM backward's routes: name, walk launch key, context (the
+#: cluster routes run as ``lstm.bwd_route`` picks them)
+BWD_ROUTES = (("cluster", "bilstm_bwd_tc", contextlib.nullcontext),
+              ("cluster32", "bilstm_bwd_f32c", contextlib.nullcontext),
+              ("general", "bilstm_bwd", general_lstm_bwd))
+
+
+def check_f32_bwd(what, kb, gb, mask):
+    """The float32 cluster backward ``kb`` against the general route's
+    ``gb`` on the same inputs: each output within 1e-4 (max |a - b| / max
+    |b|; the dh sums run in another order), and dxp at each row's first
+    valid step of the walk, where no adjoint partial has entered, equal bit
+    for bit. Returns the worst error."""
+    from stair_tpu_torch.scripts.bilstm_bwd_tiles import first_steps_equal
+
+    err = max(rel_err(x, y) for x, y in zip(kb, gb))
+    require(err <= 1e-4, f"{what}: the float32 cluster backward against the "
+            f"general route {err:.3e} (bound 1e-4)")
+    require(first_steps_equal(kb, gb, mask),
+            f"{what}: dxp at the rows' first valid walk steps differs from "
+            "the general route's bits")
+    log(f"[lstm bwd f32] {what}: the float32 cluster route against the "
+        f"general route max rel err {err:.3e} (bound 1e-4); dxp at each "
+        "row's first valid walk step equal bit for bit ok")
+    return err
 
 
 @contextlib.contextmanager
@@ -951,31 +986,35 @@ def phase_lstm_train(dev):
                     for _ in range(2)]
             dsent = torch.randn(B, 2 * h, generator=gen).to(dev)
             rb = TL.bilstm_bwd_reference(*args, ref[3], *dtok, dsent)
-            routes = (("cluster", "bilstm_bwd_tc", contextlib.nullcontext),
-                      ("general", "bilstm_bwd", general_lstm_bwd))
             same_bwd = ("; the same bits on the general forward's stacks"
                         if "cluster32" in outs else "")
-            for route, key, ctx in routes:
+            kbs = {}
+            for route, key, ctx in BWD_ROUTES:
                 if route != "general" and TL.bwd_route(dtype, h) != route:
-                    continue   # float32 takes only the general route
+                    continue
                 with ctx():
                     _build.reset_launches()
                     kb = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
                     kb2 = TL.bilstm_bwd_call(*args, out[3], *dtok, dsent)
                     torch.cuda.synchronize()
-                require(_build.LAUNCHES[key] == 2,
-                        f"bilstm backward {route} route launches "
-                        f"{_build.LAUNCHES}")
-                require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
-                        f"bilstm backward ({route}) is not deterministic")
-                if "cluster32" in outs and route == "general":
-                    # the general backward on the general forward's stacks
-                    kg = TL.bilstm_bwd_call(*args, outs["general"][0][3],
-                                            *dtok, dsent)
-                    require(all(torch.equal(x, y) for x, y in zip(kb, kg)),
-                            "bilstm backward: the float32 cluster forward's "
-                            "stacks give other bits than the general's")
-                    time_f32_lstm(dev, name, args, outs, dtok, dsent, D)
+                    others = [k for _, k, _ in BWD_ROUTES if k != key]
+                    require(_build.LAUNCHES[key] == 2
+                            and not any(_build.LAUNCHES[k] for k in others),
+                            f"bilstm backward {route} route launches "
+                            f"{_build.LAUNCHES}")
+                    require(all(torch.equal(x, y) for x, y in zip(kb, kb2)),
+                            f"bilstm backward ({route}) is not "
+                            "deterministic")
+                    if "cluster32" in outs:
+                        # the same bits on the general forward's stacks
+                        kg = TL.bilstm_bwd_call(
+                            *args, outs["general"][0][3], *dtok, dsent)
+                        require(all(torch.equal(x, y)
+                                    for x, y in zip(kb, kg)),
+                                f"bilstm backward ({route}): the float32 "
+                                "cluster forward's stacks give other bits "
+                                "than the general's")
+                kbs[route] = kb
                 bwd = {n: rel_err(x, y) for n, x, y in zip(
                     ("dxp_f", "dxp_b", "dwh_f", "dwh_b", "dbias_f",
                      "dbias_b"), kb, rb)}
@@ -993,6 +1032,10 @@ def phase_lstm_train(dev):
                     f"{worst:.3e} (bound {btol}: "
                     f"{', '.join(f'{k} {v:.2e}' for k, v in bwd.items())}); "
                     f"two backward runs bit-identical{same_bwd} ok")
+            if "cluster32" in kbs:
+                check_f32_bwd(f"{name} {dtype}", kbs["cluster32"],
+                              kbs["general"], args[2])
+                time_f32_lstm(dev, name, args, outs, dtok, dsent, D)
     return errs
 
 
@@ -1010,9 +1053,9 @@ def f32_record(kernel, shape, route, ms, plain_ms, bnd, library_ms=None,
 
 
 def time_f32_lstm(dev, name, args, outs, dtok, dsent, D):
-    """#2 (float32 cluster route, general route) and #3 (general route) at
-    the float32 train step's shapes, beside the plain versions, nn.LSTM in
-    float32 and their bounds."""
+    """#2 and #3 (each on its float32 cluster route, beside its general
+    route) at the float32 train step's shapes, beside the plain versions,
+    nn.LSTM in float32 and their bounds."""
     from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.utils.device import cuda_time_ms
 
@@ -1031,13 +1074,18 @@ def time_f32_lstm(dev, name, args, outs, dtok, dsent, D):
                      iters=2, warmup=1),
         lstm_bound(args, out[:3], extra=out[3]), lib_fwd,
         general_ms=general_ms, batch_tile=outs["cluster32"][1])
-    f32_record("#3", shape, "general", cuda_time_ms(
-        lambda: TL.bilstm_bwd_call(*args, out[3], *dtok, dsent), iters=5),
+    with general_lstm_bwd():
+        general_bwd_ms = cuda_time_ms(
+            lambda: TL.bilstm_bwd_call(*args, out[3], *dtok, dsent), iters=3)
+    f32_record("#3", shape, "cluster32", cuda_time_ms(
+        lambda: TL.bilstm_bwd_call(*args, out[3], *dtok, dsent), iters=10),
         cuda_time_ms(lambda: TL.bilstm_bwd_reference(*args, out[3], *dtok,
                                                      dsent), iters=2,
                      warmup=1),
         lstm_bound(args, TL.bilstm_bwd_call(*args, out[3], *dtok, dsent),
-                   passes=3, extra=(out[3], dtok, dsent)), lib_bwd)
+                   passes=3, extra=(out[3], dtok, dsent)), lib_bwd,
+        general_ms=general_bwd_ms,
+        batch_tile=TL.bwd_tile(B, TL._bwd_clusters_held(dev, h)))
 
 
 def time_f32_mega(meta, args, out, gouts, kb, rate, seed, shape, route):
@@ -1256,8 +1304,7 @@ def hold_step_routes(tag, models, batch, window, seed=7):
     float32 a ReLU pre-activation within rounding of 0 still moves a leaf
     by up to ~2e-3 in norm (a logic error moves it by O(1)): bound 1e-2 on
     ||kernel - plain|| / ||plain|| per leaf. The loss agrees within 1e-4
-    in both dtypes. float32 takes the BiLSTM forward's float32 cluster
-    route and the backward's general route."""
+    in both dtypes. float32 takes the BiLSTM's float32 cluster routes."""
     from stair_tpu_torch.train.losses import total_loss
 
     def grads_of(m):
@@ -1302,6 +1349,56 @@ def hold_step_routes(tag, models, batch, window, seed=7):
     return launched
 
 
+def time_f32_step(dev, card, model32, batch, args):
+    """The float32 train step at phase 8's configuration (B 128): ms a step
+    (CUDA events) with the BiLSTM backward on its float32 cluster route and
+    on its general route, in turns (cluster, general, general, cluster);
+    then #5 and #6 in float32 (the general routes) on the step's own
+    inputs, with their bounds (``[f32]`` lines). Updates ``model32``."""
+    from stair_tpu_torch.models.nmn import VideoNMN, tree_map
+    from stair_tpu_torch.ops import lstm as TL
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.train.loop import make_train_step
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    step = make_train_step(model32, args)
+    gens = iter(range(400, 500))
+
+    def one():
+        step(batch, torch.Generator().manual_seed(next(gens)), 1.0, 1.0)
+
+    ms = {"cluster32": [], "general": []}
+    for route in ("cluster32", "general", "general", "cluster32"):
+        ctx = general_lstm_bwd if route == "general" else contextlib.nullcontext
+        with ctx():
+            ms[route].append(cuda_time_ms(one, iters=5, warmup=1))
+    log(f"[train] float32 step B={TRAIN_BATCH} ms (CUDA events, 5 steps "
+        f"after one, in turns): BiLSTM backward on the float32 cluster route "
+        f"{[round(x, 4) for x in ms['cluster32']]}, on the general route "
+        f"{[round(x, 4) for x in ms['general']]}; card {card}")
+    SEEN["f32_step_ms"] = ms
+
+    cfg = model32.config
+    p = tree_map(lambda x: x.detach(), model32.param_tree())
+    vargs = TL._prep(p["video_encoder"], batch["video"], batch["video_mask"])
+    qargs = TL._prep(p["text_encoder"], batch["question"],
+                     batch["question_mask"])
+    kv, kq = TL.bilstm_train_call(*vargs), TL.bilstm_train_call(*qargs)
+    mods = p["modules"]
+    meta, margs = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], kv[:2],
+        batch["video_mask"], kq[:2], batch["question_mask"])
+    seed = (11, 22)
+    km = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
+    gen = torch.Generator().manual_seed(6)
+    gouts = [torch.randn(o.shape, generator=gen).to(dev, o.dtype) for o in km]
+    kb = TG.mega_exec_bwd_call(meta, margs, km, gouts, cfg.dropout, seed)
+    time_f32_mega(meta, margs, km, gouts, kb, cfg.dropout, seed,
+                  f"train step B {TRAIN_BATCH} H {cfg.hidden_size} F "
+                  f"{cfg.max_video_length}", "general")
+
+
 def phase_train(dev, card):
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
     from stair_tpu_torch.ops import _build
@@ -1330,6 +1427,7 @@ def phase_train(dev, card):
                             seed=0, device=dev)
     hold_step_routes("[train]", ((model32, "float32"), (model, "bfloat16")),
                      batch, args.contrastive_window)
+    time_f32_step(dev, card, model32, batch, args)
     del model32
 
     # ---- the counted main-path run: 10 steps on the kernel route --------
@@ -3552,11 +3650,12 @@ def hold_parser_kernels(dev, model, src, mask):
     parser's encoder gives them the inputs (the CLI's own batch and chunk,
     the trained weights): each kernel twice (equal bits) against its plain
     version, the forward's float32 cluster route against its general route
-    (equal bits on every output, and the general backward equal on either
-    forward's stacks), then timed beside the general route, the plain
-    version and ``nn.LSTM``. ``src``/``mask``: {"train": ..., "decode":
-    ...}. Returns per kernel (error, ms, general ms, plain ms, bound,
-    library ms)."""
+    (equal bits on every output), the backward's float32 cluster route
+    against its general route (1e-4, and equal bits at the rows' first
+    valid walk steps) and equal on either forward's stacks, then timed
+    beside the general route, the plain version and ``nn.LSTM``.
+    ``src``/``mask``: {"train": ..., "decode": ...}. Returns per kernel
+    (error, ms, general ms, plain ms, bound, library ms)."""
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import lstm as OL
     from stair_tpu_torch.utils.device import cuda_time_ms
@@ -3572,8 +3671,8 @@ def hold_parser_kernels(dev, model, src, mask):
     for k, a in args.items():
         require(OL.fwd_route(a[0].dtype, a[0].shape[-1] // 4) == "cluster32"
                 and OL.bwd_route(a[0].dtype, a[0].shape[-1] // 4)
-                == "general", f"parser {k}: not the float32 cluster forward "
-                "and the general backward")
+                == "cluster32", f"parser {k}: not the float32 cluster "
+                "forward and backward")
     B, L, G = args["train"][0].shape
     h = G // 4
 
@@ -3609,10 +3708,8 @@ def hold_parser_kernels(dev, model, src, mask):
     b1 = OL.bilstm_bwd_call(*a, k1[3], *cot)
     b2 = OL.bilstm_bwd_call(*a, k1[3], *cot)
     torch.cuda.synchronize()
-    require(_build.LAUNCHES["bilstm_bwd"] == 2
-            and _build.LAUNCHES["bilstm_dwh"] == 2
-            and not _build.LAUNCHES["bilstm_bwd_tc"],
-            f"parser #3 launches {_build.LAUNCHES}")
+    require_launches("parser #3", dict(_build.LAUNCHES), {
+        "bilstm_bwd_f32c": 2, "bilstm_dwh_f32c": 2, "bilstm_dwh_sum": 2})
     bg = OL.bilstm_bwd_call(*a, g1[3], *cot)
     require(all(torch.equal(x, y) for x, y in zip(b1, b2)),
             "parser #3: two launches differ")
@@ -3621,6 +3718,9 @@ def hold_parser_kernels(dev, model, src, mask):
     bref = OL.bilstm_bwd_reference(*a, k1[3], *cot)
     e_bwd = max(rel_err(x, y) for x, y in zip(b1, bref))
     require(e_bwd <= 1e-4, f"parser #3 vs plain: {e_bwd:.3e}")
+    with general_lstm_bwd():
+        bgen = OL.bilstm_bwd_call(*a, k1[3], *cot)
+    check_f32_bwd("parser #3", b1, bgen, a[2])
 
     # ---- #1 on the decode chunk
     d = args["decode"]
@@ -3646,13 +3746,19 @@ def hold_parser_kernels(dev, model, src, mask):
             *a, return_stacks=True), iters=3, warmup=1),
         bound=lstm_bound(a, k1[:3], extra=k1[3]), library_ms=lib_fwd,
         tile=lstm_tile(dev, "cluster32", B, h))
-    out["bilstm_bwd"] = dict(
+    def general_bwd_ms(fn):
+        with general_lstm_bwd():
+            return cuda_time_ms(fn)
+
+    out["bilstm_bwd_f32c"] = dict(
         err=e_bwd, ms=cuda_time_ms(lambda: OL.bilstm_bwd_call(
+            *a, k1[3], *cot)),
+        general_ms=general_bwd_ms(lambda: OL.bilstm_bwd_call(
             *a, k1[3], *cot)),
         plain_ms=cuda_time_ms(lambda: OL.bilstm_bwd_reference(
             *a, k1[3], *cot), iters=3, warmup=1),
         bound=lstm_bound(a, b1, passes=3, extra=(k1[3], cot)),
-        library_ms=lib_bwd)
+        library_ms=lib_bwd, tile=OL.bwd_tile(B, OL._bwd_clusters_held(dev, h)))
     out["bilstm_f32c"] = dict(
         err=e_eval, ms=cuda_time_ms(lambda: OL.bilstm(*d)),
         general_ms=general_ms(lambda: OL.bilstm(*d)),
@@ -3700,7 +3806,8 @@ def phase_parser(dev, card, clis):
     train_launches = dict(_build.LAUNCHES)
     chunks = -(-n_valid // min(PARSER_BATCH, n_valid))
     require_launches("parser train CLI", train_launches, {
-        "bilstm_train_f32c": steps, "bilstm_bwd": steps, "bilstm_dwh": steps,
+        "bilstm_train_f32c": steps, "bilstm_bwd_f32c": steps,
+        "bilstm_dwh_f32c": steps, "bilstm_dwh_sum": steps,
         "bilstm_f32c": chunks})
     em = float(train_log.split("valid exact-match (top beam):")[1].split()[0])
 
@@ -3793,7 +3900,8 @@ def phase_parser(dev, card, clis):
         f"{PARSER_EPOCHS} epochs = {steps} steps of B {bs} in "
         f"{train_s:.1f} s, valid exact match {em:.4f}; launches "
         f"{ {k: v for k, v in train_launches.items() if v} } = {steps} x "
-        "(bilstm_train_f32c + bilstm_bwd + bilstm_dwh) + "
+        "(bilstm_train_f32c + bilstm_bwd_f32c + bilstm_dwh_f32c + "
+        "bilstm_dwh_sum) + "
         f"{chunks} x bilstm_f32c (the exact-match decode), nothing else")
     log(f"[parser] predict over the valid split, chunks of {DECODE_CHUNK}, "
         f"beam {BEAM}: {predict_s:.2f} s, launches "
@@ -3806,16 +3914,18 @@ def phase_parser(dev, card, clis):
         f"{ {k: v for k, v in eval_launches.items() if v} } = "
         f"{n_batches} x {EVAL_LAUNCHES}")
     for k, shape in (("bilstm_train_f32c", f"B {bs}"),
-                     ("bilstm_bwd", f"B {bs}"),
+                     ("bilstm_bwd_f32c", f"B {bs}"),
                      ("bilstm_f32c", f"B {DECODE_CHUNK}")):
         x = held[k]
-        route = ("general route" if k == "bilstm_bwd" else
-                 f"float32 cluster route (batch tile {x['tile']}; bit for "
-                 f"bit the general route's outputs, {x['general_ms']:.4f} "
-                 "ms)")
+        bwd = k == "bilstm_bwd_f32c"
+        route = (f"float32 cluster route (batch tile {x['tile']}; "
+                 + ("within 1e-4 of the general route, its first valid "
+                    "steps' dxp bit for bit" if bwd else
+                    "bit for bit the general route's outputs")
+                 + f"; general route {x['general_ms']:.4f} ms)")
         log(f"[parser] {k} {route} at {shape}, L {cfg.max_src_len}, h "
             f"{cfg.hidden // 2}, float32, the CLI's own inputs: "
-            f"{'max |a-b| / max |b|' if k == 'bilstm_bwd' else 'max_abs_err'}"
+            f"{'max |a-b| / max |b|' if bwd else 'max_abs_err'}"
             f" {x['err']:.3e} (bound 1e-4), two launches bit-identical; "
             f"{x['ms']:.4f} ms, plain {x['plain_ms']:.3f} ms, bound "
             f"{x['bound']['bound_ms']:.4f} ms ({x['bound']['bound_by']}), "
@@ -3830,18 +3940,23 @@ def phase_parser(dev, card, clis):
     launches = {"bilstm_f32c": train_launches["bilstm_f32c"]
                 + predict_launches["bilstm_f32c"],
                 "bilstm_train_f32c": train_launches["bilstm_train_f32c"],
-                "bilstm_bwd": train_launches["bilstm_bwd"]}
+                "bilstm_bwd_f32c": train_launches["bilstm_bwd_f32c"]}
     sites = {"bilstm_f32c": "stair_tpu/ops/lstm.py:136",
              "bilstm_train_f32c": "stair_tpu/ops/lstm.py:583",
-             "bilstm_bwd": "stair_tpu/ops/lstm.py:390"}
+             "bilstm_bwd_f32c": "stair_tpu/ops/lstm.py:390"}
+    # the backward's entry times its three launches together (the walk,
+    # the dwh slices, their sum), as the bf16 route's entry does
+    extra = {"bilstm_bwd_f32c": {
+        "dwh_launches": train_launches["bilstm_dwh_f32c"],
+        "sum_launches": train_launches["bilstm_dwh_sum"]}}
     return [{"name": k, "route": "cuda", "path": "parser",
              "source": src, "replaces": sites[k], "launches": launches[k],
+             **extra.get(k, {}),
              "max_abs_err": held[k]["err"], "ms": held[k]["ms"],
-             **({"general_ms": held[k]["general_ms"]}
-                if "general_ms" in held[k] else {}),
+             "general_ms": held[k]["general_ms"],
              "plain_ms": held[k]["plain_ms"], **held[k]["bound"],
              "library_ms": held[k]["library_ms"]}
-            for k in ("bilstm_f32c", "bilstm_train_f32c", "bilstm_bwd")]
+            for k in ("bilstm_f32c", "bilstm_train_f32c", "bilstm_bwd_f32c")]
 
 
 def _http(port, path, payload=None):
@@ -4148,12 +4263,13 @@ def main():
         f"({'cached' if _build.BUILD_INFO['cached'] else 'compiled'})")
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
     # the attention backward's and the executor's tensor-core kernels, and
-    # the BiLSTM's float32 cluster forward, are designed to keep their
-    # accumulators and state in registers
+    # the BiLSTM's float32 cluster forward, walk and dwh, are designed to
+    # keep their accumulators and state in registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
-                "executor_step_tc_kernel", "bilstm_fwd_f32_kernel")
+                "executor_step_tc_kernel", "bilstm_fwd_f32_kernel",
+                "bilstm_bwd_f32_kernel", "bilstm_dwh_f32_kernel")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),
         f"the build log names not all of {no_spill}")

@@ -22,12 +22,16 @@ its kernel and nowhere else:
   training, on its float32 cluster route (the float32 NMN's and the
   program parser's);
 - ``bilstm_bwd``, ``bilstm_dwh``: its backward on the general route
-  (float32, and the shapes the cluster kernel refuses), the reverse walk
-  and the dwh/dbias reduction launch;
+  (the shapes the cluster kernels refuse), the reverse walk and the
+  dwh/dbias reduction launch;
 - ``bilstm_bwd_tc``, ``bilstm_dwh_tc``, ``bilstm_dwh_sum``: its backward on
   the cluster route (bf16, the main path's), the reverse walk on a
   thread-block cluster, the tensor-core dwh slices and their sum in split
   order with dbias;
+- ``bilstm_bwd_f32c``, ``bilstm_dwh_f32c`` (and ``bilstm_dwh_sum``): its
+  backward on the float32 cluster route (the float32 NMN's and the program
+  parser's), the reverse walk on a thread-block cluster and the float32 dwh
+  slices;
 - ``mega_exec``, ``mega_exec_train``: the executor forward, eval and
   training, on its general route (``csrc/mega_exec.cu``
   ``mega_exec_kernel``: float32, and the widths the other refuses);
@@ -92,6 +96,7 @@ LAUNCHES = {
     "bilstm_f32c": 0, "bilstm_train_f32c": 0,
     "bilstm_bwd": 0, "bilstm_dwh": 0,
     "bilstm_bwd_tc": 0, "bilstm_dwh_tc": 0, "bilstm_dwh_sum": 0,
+    "bilstm_bwd_f32c": 0, "bilstm_dwh_f32c": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_tc": 0,
     "mega_exec_train_tc": 0, "mega_exec_bwd": 0, "mega_exec_wgrad": 0,
     "mega_exec_bwd_tc": 0, "mega_exec_wgrad_tc": 0, "flash_attn": 0,
@@ -344,13 +349,18 @@ def bind_bilstm(lib):
     for fn in (lib.stair_bilstm_bwd, lib.stair_bilstm_dwh):
         fn.restype = I
         fn.argtypes = [P, I, I, I, I, P]   # pointers, B, L, h, bf16, stream
-    for fn in (lib.stair_bilstm_bwd_tc, lib.stair_bilstm_dwh_tc):
+    for fn in (lib.stair_bilstm_bwd_tc, lib.stair_bilstm_dwh_tc,
+               lib.stair_bilstm_dwh_f32c):
         fn.restype = I
         fn.argtypes = [P, I, I, I, P]      # pointers, B, L, h, stream
+    lib.stair_bilstm_bwd_f32c.restype = I
+    # pointers, B, L, h, batch tile, stream
+    lib.stair_bilstm_bwd_f32c.argtypes = [P, I, I, I, I, P]
     lib.stair_bilstm_dwh_sum.restype = I
     lib.stair_bilstm_dwh_sum.argtypes = [P, I, I, P]  # pointers, nb, h, stream
     for fn in (lib.stair_bilstm_fwd_tc_clusters,
-               lib.stair_bilstm_fwd_f32c_clusters):
+               lib.stair_bilstm_fwd_f32c_clusters,
+               lib.stair_bilstm_bwd_f32c_clusters):
         fn.restype = I
         fn.argtypes = [I, I, P]            # h, tile, &out
 

@@ -82,9 +82,15 @@
 // units j and computes their four gate dots from wh in device memory; the
 // weight columns j, j+h, j+2h, j+3h are coalesced across threads.
 //
-// Backward, two routes. The sequential dependence of the adjoint walk is
-// only dh <- dh (1 - valid) + dgates wh^T (and dc's elementwise update);
-// the gate recompute reads the stored h_{t-1} and nothing of the walk.
+// Backward, three routes, picked by ops/lstm.py bwd_route before the
+// launch. The sequential dependence of the adjoint walk is only dh <- dh
+// (1 - valid) + dgates wh^T (and dc's elementwise update); the gate
+// recompute reads the stored h_{t-1} and nothing of the walk.
+//
+// Float32 cluster route (float32, h a multiple of 32 from 64 up to
+// F32_MAX_H): bilstm_bwd_f32_kernel (below, with its design), then
+// bilstm_dwh_f32_kernel and bilstm_dwh_sum_kernel: the bf16 cluster walk's
+// scheme below with the float32 cluster forward's wh slice and FMA chains.
 //
 // Cluster route (bf16, h a multiple of 64 up to TC_MAX_H; the main path's
 // h = 256): bilstm_bwd_tc_kernel, then bilstm_dwh_tc_kernel and
@@ -126,8 +132,8 @@
 // partial; bilstm_dwh_sum_kernel adds the slices in order and the dbias
 // partials in tile order. No float atomics: two runs give the same bits.
 //
-// General route (float32, the exact route, and the shapes the cluster
-// kernel refuses: h not a multiple of 64 or above TC_MAX_H):
+// General route (float32 at the other h, and the shapes the cluster
+// kernels refuse):
 // bilstm_bwd_kernel walks each direction's steps in reverse with the
 // (dh, dc) adjoint of its BT rows in shared memory. It recomputes each
 // step's gates from the stored h_{t-1} cast to wh's dtype with the
@@ -1705,6 +1711,529 @@ int launch_fwd_f32(void* const* p, void* const* st, int B, int L, int h,
   return fwd_f32(&a, h, bt, nullptr, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Backward, float32 cluster route (h a multiple of F32_U from F32_MIN_H up
+// to F32_MAX_H)
+// ---------------------------------------------------------------------------
+
+constexpr int F32B_BT_MIN = 8;    // batch tiles of the walk: multiples of this
+constexpr int F32B_BT_MAX = 24;   // up to this (lstm.bwd_tile picks one)
+
+// Per-CTA shared memory of the float32 cluster walk at hidden size h and
+// batch tile bt: the transposed wh slice [4 F32_U][h], two buffers of
+// adjoint partials [bt][h] and one stage of h_{t-1} [bt][h], rows padded by
+// F32_PAD, and the local dgates [bt][4 F32_U + F32_PAD], all float32. The
+// tests mirror it (tests/test_torch_lstm_train.py).
+__host__ __device__ constexpr size_t f32_bwd_smem_bytes(int h, int bt) {
+  return 4 * (((size_t)4 * F32_U + 3 * (size_t)bt) * (h + F32_PAD) +
+              (size_t)bt * (4 * F32_U + F32_PAD));
+}
+static_assert(f32_bwd_smem_bytes(F32_MAX_H, F32B_BT_MAX) <= 232448,
+              "the float32 cluster walk's largest tile does not fit");
+static_assert(F32B_BT_MIN % F32_WARPS == 0,
+              "a warp's rows are F32_WARPS apart, a lane per unit");
+
+struct BwdF32Args {
+  const float* xp[2];
+  const float* mask;
+  const float* wh[2];
+  const float* bias[2];
+  const float* hst[2];
+  const float* cst[2];
+  const float* dtok[2];
+  const float* dsent;
+  float* dxp[2];
+  float* dbias_part;
+  int B, L;
+};
+
+// The float32 cluster walk (TPU kernel #3 in float32: the NMN's default
+// compute dtype and the program parser). The general walk above streams
+// the whole float32 wh [h, 4h] (1 MB at h 256) from L2 twice a step, by
+// columns for the gate recompute and by rows for dgates wh^T, into 32
+// blocks at B 128, with h of a block's 256 threads at the recompute. Here
+// it is the float32 cluster forward's scheme with the bf16 cluster walk's
+// sum: a cluster of C = H / F32_U CTAs per (tile of BT batch rows,
+// direction), both directions in one launch; CTA c owns hidden units
+// [c U, c U + U), U = F32_U, and their four gate columns, and holds its
+// float32 slice wh[:, cols] transposed (Ws[n][k] = wh[k][col n], the
+// forward's layout) for the whole walk. The one slice serves both
+// products. Per step k (in reverse), thread (warp, lane) owns unit lane of
+// rows warp + F32_WARPS i, as in the forward:
+//  (a) recomputes its four gates from h_{t-1}, read from the float32 state
+//      stack: one FMA chain a gate, fmaf(h[k], wh[k][col], acc) from 0 over
+//      ascending k, the forward's chain (bilstm_kernel<float>,
+//      bilstm_fwd_f32_kernel), so the linearization point equals the
+//      forward's bit for bit on either float32 forward route; Ws[n][k..k+3]
+//      as one 16-byte load, padded rows keep it free of bank conflicts;
+//  (b) runs the elementwise adjoint of bilstm_bwd_kernel<float>,
+//      expression for expression, writes dgates to dxp and to its local
+//      [BT][4U] buffer, and keeps its dbias sums, dh and dc in registers;
+//  (c) forms its partial dgates[:, cols] wh[:, cols]^T, [BT, H], into one
+//      of two buffers: lane on consecutive units i reads Ws[n][i] (no bank
+//      conflict), dgates[r][n] is broadcast; one FMA chain an output over
+//      the CTA's 4U columns in order;
+//  (d) after one cluster barrier, adds the C partials of its own units from
+//      the peers' shared memory (distributed shared memory) in rank order
+//      0 .. C-1, so the bits never depend on scheduling.
+// A partial buffer is written again two steps later, after every peer has
+// passed the barrier between; masked steps and rows past B add zero
+// partials; a final cluster barrier keeps every CTA resident until its
+// peers have read it. Step k - 1's h_{t-1} lands by cp.async during (b) and
+// (c), its xp, dtok, c and mask in registers, and its gate recompute (a)
+// runs between the arrival at the cluster barrier and the wait. dbias is
+// summed per CTA over its steps and then its BT rows in order, one partial
+// a (batch tile, direction). No float atomics: two runs give the same bits.
+// The dh sum runs in another order than the general walk's, so dxp, dwh
+// and dbias differ from it within rounding; at each row's first valid step
+// of the walk no partial has entered yet, and there dxp equals the general
+// route's bit for bit. What bounds it: the dependent steps (64 for the
+// video encoder), each two products bound by shared-memory wavefronts as
+// the forward's, the gate math and a cluster barrier: about 16 us a step
+// at h 256, BT 24 on an H100 SXM at 700 W (scripts/bilstm_bwd_tiles.py),
+// an order of magnitude above the operation bound. There the tile whose
+// clusters run in one wave (BT 24: 12 of the 15 eight-CTA clusters the
+// card holds) beats smaller tiles in two waves, as in the forward. dwh is
+// bilstm_dwh_f32_kernel (below).
+template <int H, int BT>
+__global__ void __cluster_dims__(H / F32_U, 1, 1)
+    __launch_bounds__(F32_THREADS, 1)
+    bilstm_bwd_f32_kernel(const BwdF32Args a) {
+  constexpr int C = H / F32_U, U = F32_U, G = 4 * H;
+  constexpr int LD = H + F32_PAD;           // wh slice, stage and partials
+  constexpr int LDG = 4 * U + F32_PAD;      // local dgates
+  constexpr int P = BT / F32_WARPS;         // (row, unit) pairs of a thread
+  static_assert(H % F32_U == 0 && C >= 2 && C <= 8, "h out of range");
+  static_assert(BT % F32_WARPS == 0, "BT a multiple of F32_WARPS");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();   // owns units [c U, c U + U)
+  const int tile = blockIdx.x / C, dir = blockIdx.y;
+  const int B = a.B, L = a.L, b0 = tile * BT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int u = lane, r0 = warp;   // unit u of rows r0 + F32_WARPS i
+  const float* xp = a.xp[dir];
+  const float* hst = a.hst[dir];
+  const float* cst = a.cst[dir];
+  const float* dtok = a.dtok[dir];
+  float* dxp = a.dxp[dir];
+
+  extern __shared__ __align__(16) float smf[];
+  float* Ws = smf;                 // [4U][LD]: Ws[n][k] = wh[k][col n]
+  float* part = Ws + 4 * U * LD;   // [2][BT][LD] dgates wh^T, all H units
+  float* hp = part + 2 * BT * LD;  // [BT][LD] h_{t-1} of the next step
+  float* dgs = hp + BT * LD;       // [BT][LDG] dgates, local columns
+
+  // Local gate column n = gate U + u is global column gate H + c U + u.
+  const float* whd = a.wh[dir];
+#pragma unroll 4
+  for (int i = tid; i < H * U; i += F32_THREADS) {
+    const int k = i / U, n = (i % U) * 4;   // 4 columns of one gate
+    const float4 w = __ldg(reinterpret_cast<const float4*>(
+        whd + (size_t)k * G + (n / U) * H + c * U + n % U));
+    Ws[n * LD + k] = w.x;
+    Ws[(n + 1) * LD + k] = w.y;
+    Ws[(n + 2) * LD + k] = w.z;
+    Ws[(n + 3) * LD + k] = w.w;
+  }
+
+  // Step k's h_{t-1} (zero at k = 0 and past B) into the stage, as one
+  // cp.async group.
+  auto stage_h = [&](int k) {
+    const int t = dir ? L - 1 - k : k, tp = dir ? t + 1 : t - 1;
+    for (int i = tid; i < BT * H / 4; i += F32_THREADS) {
+      const int r = i / (H / 4), c4 = (i % (H / 4)) * 4, b = b0 + r;
+      const bool in = k > 0 && b < B;
+      cp_async16(hp + r * LD + c4,
+                 in ? hst + ((size_t)b * L + tp) * H + c4 : hst, in);
+    }
+    cp_async_commit();
+  };
+
+  // Step k's xp (four gates), dtok, c_t, c_{t-1} and mask of this thread's
+  // pairs, into registers a step ahead; zero past B.
+  float xv[P][4], dtv[P], ccv[P], cpv[P], mv[P];
+  auto load_step = [&](int k) {
+    const int t = dir ? L - 1 - k : k, tp = dir ? t + 1 : t - 1;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int b = b0 + r0 + F32_WARPS * i;
+      const bool in = b < B;
+      const size_t row = (size_t)b * L + t;
+      const float* x = xp + row * G + c * U + u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xv[i][q] = in ? __ldg(x + q * H) : 0.f;
+      dtv[i] = in ? __ldg(dtok + row * H + c * U + u) : 0.f;
+      ccv[i] = in ? __ldg(cst + row * H + c * U + u) : 0.f;
+      cpv[i] = in && k > 0
+                   ? __ldg(cst + ((size_t)b * L + tp) * H + c * U + u)
+                   : 0.f;
+      mv[i] = in ? __ldg(a.mask + row) : 0.f;
+    }
+  };
+
+  // (a) acc[i][q] = h_{t-1}[row i] wh[:, gate q col u]: the forward's chain.
+  const float* wq = Ws + u * LD;
+  auto recompute = [&](float (&acc)[P][4]) {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < H; k += 4) {
+      float4 w[4], hv[P];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = *reinterpret_cast<const float4*>(wq + q * U * LD + k);
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(
+            hp + (r0 + F32_WARPS * i) * LD + k);
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][q] = fmaf(hv[i].x, w[q].x, acc[i][q]);
+          acc[i][q] = fmaf(hv[i].y, w[q].y, acc[i][q]);
+          acc[i][q] = fmaf(hv[i].z, w[q].z, acc[i][q]);
+          acc[i][q] = fmaf(hv[i].w, w[q].w, acc[i][q]);
+        }
+    }
+  };
+
+  float dh[P], dc[P], db[P][4], bias[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bias[q] = a.bias[dir][q * H + c * U + u];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int b = b0 + r0 + F32_WARPS * i;
+    dh[i] = b < B ? a.dsent[(size_t)b * 2 * H + dir * H + c * U + u] : 0.f;
+    dc[i] = 0.f;
+    db[i][0] = db[i][1] = db[i][2] = db[i][3] = 0.f;
+  }
+
+  // Prologue: wh and step L - 1's h_{t-1}, its gate recompute, then step
+  // L - 2's h_{t-1} in flight.
+  stage_h(L - 1);
+  load_step(L - 1);
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[P][4];
+  recompute(acc);
+  __syncthreads();
+  if (L > 1) stage_h(L - 2);
+
+  for (int k = L - 1; k >= 0; --k) {
+    const int t = dir ? L - 1 - k : k;
+    // (b) The elementwise adjoint of bilstm_bwd_kernel<float>, expression
+    // for expression (at the forward's summation order).
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int r = r0 + F32_WARPS * i, b = b0 + r;
+      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+      if (b < B) {
+        const float gi = (xv[i][0] + bias[0]) + acc[i][0];
+        const float gf = (xv[i][1] + bias[1]) + acc[i][1];
+        const float gg = (xv[i][2] + bias[2]) + acc[i][2];
+        const float go = (xv[i][3] + bias[3]) + acc[i][3];
+        const float ia = sigmoid_f(gi), fa = sigmoid_f(gf);
+        const float oa = sigmoid_f(go), ga = tanhf(gg);
+        const float valid = mv[i] > 0.f ? 1.f : 0.f;
+        const float cp = cpv[i];
+        const float cc = ccv[i];
+        const float dhv = dh[i] + dtv[i] * valid;
+        const float dh_new = dhv * valid;
+        const float tc = tanhf(cc);
+        const float dc_new = dc[i] * valid + dh_new * oa * (1.0f - tc * tc);
+        d0 = dc_new * ga * ia * (1.0f - ia);
+        d1 = dc_new * cp * fa * (1.0f - fa);
+        d2 = dc_new * ia * (1.0f - ga * ga);
+        d3 = dh_new * tc * oa * (1.0f - oa);
+        float* dx = dxp + ((size_t)b * L + t) * G + c * U + u;
+        dx[0] = d0;
+        dx[H] = d1;
+        dx[2 * H] = d2;
+        dx[3 * H] = d3;
+        db[i][0] += d0;
+        db[i][1] += d1;
+        db[i][2] += d2;
+        db[i][3] += d3;
+        // + the cluster's dgates wh^T, (d); a separate rounding, as the
+        // general walk's store to shared memory
+        dh[i] = __fmul_rn(dhv, 1.0f - valid);
+        dc[i] = dc[i] * (1.0f - valid) + dc_new * fa;
+      }
+      float* dg = dgs + r * LDG + u;
+      dg[0] = d0;
+      dg[U] = d1;
+      dg[2 * U] = d2;
+      dg[3 * U] = d3;
+    }
+    if (k == 0) break;   // the adjoint of the zero initial state is unused
+    load_step(k - 1);    // lands during (c), (a) and the cluster barrier
+    __syncthreads();     // dgates of every row are written
+    // (c) partial[r][i] = sum over the CTA's columns n of dgates[r][n]
+    // wh[i][col n], into buffer k & 1: a peer reads it after this step's
+    // cluster barrier and before it arrives at the next one, and this CTA
+    // writes it again only two steps later.
+    float* pb = part + (k & 1) * BT * LD;
+    {
+      float s[P][C];
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int m = 0; m < C; ++m) s[i][m] = 0.f;
+#pragma unroll 2
+      for (int n = 0; n < 4 * U; n += 4) {
+        float4 g[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          g[i] = *reinterpret_cast<const float4*>(
+              dgs + (r0 + F32_WARPS * i) * LDG + n);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float w[C];
+#pragma unroll
+          for (int m = 0; m < C; ++m) w[m] = Ws[(n + e) * LD + m * 32 + lane];
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            const float gv = e == 0 ? g[i].x
+                             : e == 1 ? g[i].y
+                             : e == 2 ? g[i].z
+                                      : g[i].w;
+#pragma unroll
+            for (int m = 0; m < C; ++m) s[i][m] = fmaf(gv, w[m], s[i][m]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int m = 0; m < C; ++m)
+          pb[(r0 + F32_WARPS * i) * LD + m * 32 + lane] = s[i][m];
+    }
+    cp_async_wait<0>();   // step k - 1's h_{t-1} has landed
+    __syncthreads();      // the partials and the stage are visible
+    cluster_arrive();
+    // (a) Step k - 1's gate recompute needs nothing of the walk: it runs
+    // while the cluster barrier completes.
+    recompute(acc);
+    __syncthreads();      // the stage is read
+    if (k >= 2) stage_h(k - 2);
+    cluster_wait();
+    // (d) dh of this CTA's units: the C partials in rank order.
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int off = (r0 + F32_WARPS * i) * LD + c * U + u;
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < C; ++q) sum += cluster.map_shared_rank(pb, q)[off];
+      dh[i] += sum;
+    }
+  }
+  // No CTA leaves while a peer may still read its partials.
+  cluster.sync();
+
+  // dbias of this CTA's columns: the BT rows in order, one partial per
+  // (batch tile, direction), summed in tile order by bilstm_dwh_sum.
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      dgs[(r0 + F32_WARPS * i) * LDG + q * U + u] = db[i][q];
+  __syncthreads();
+  for (int n = tid; n < 4 * U; n += F32_THREADS) {
+    float sum = 0.f;
+    for (int r = 0; r < BT; ++r) sum += dgs[r * LDG + n];
+    a.dbias_part[((size_t)tile * 2 + dir) * G + (n / U) * H + c * U + n % U] =
+        sum;
+  }
+}
+
+// With a != null: launch on a's batch; else write to *clusters how many
+// clusters of such CTAs the card holds at once with one CTA an SM.
+template <int H, int BT>
+int bwd_f32_hb(const BwdF32Args* a, int* clusters, cudaStream_t stream) {
+  constexpr int C = H / F32_U;
+  const size_t smem = f32_bwd_smem_bytes(H, BT);
+  const size_t one_an_sm = 232448 / 2 + 16;
+  const size_t asked = a == nullptr && smem < one_an_sm ? one_an_sm : smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      bilstm_bwd_f32_kernel<H, BT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)asked);
+  if (e != cudaSuccess) return (int)e;
+  // Once per (size, tile) before a launch: can one cluster be resident?
+  static bool checked = false;
+  if (a == nullptr || !checked) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 2);
+    cfg.blockDim = dim3(F32_THREADS);
+    cfg.dynamicSmemBytes = asked;
+    cfg.stream = stream;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(
+        &n, (void*)bilstm_bwd_f32_kernel<H, BT>, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (a == nullptr) {
+      *clusters = n;
+      return 0;
+    }
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    checked = true;
+  }
+  const dim3 grid(((a->B + BT - 1) / BT) * C, 2);
+  bilstm_bwd_f32_kernel<H, BT><<<grid, F32_THREADS, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// bwd_f32_hb<H, bt> for a runtime bt, a multiple of F32B_BT_MIN up to
+// F32B_BT_MAX.
+template <int H, int BT = F32B_BT_MIN>
+int bwd_f32_h(const BwdF32Args* a, int bt, int* clusters, cudaStream_t s) {
+  if (bt == BT) return bwd_f32_hb<H, BT>(a, clusters, s);
+  if constexpr (BT < F32B_BT_MAX)
+    return bwd_f32_h<H, BT + F32B_BT_MIN>(a, bt, clusters, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bwd_f32(const BwdF32Args* a, int h, int bt, int* clusters,
+            cudaStream_t s) {
+  switch (h) {   // h a multiple of F32_U from F32_MIN_H up to F32_MAX_H
+    case 64: return bwd_f32_h<64>(a, bt, clusters, s);
+    case 96: return bwd_f32_h<96>(a, bt, clusters, s);
+    case 128: return bwd_f32_h<128>(a, bt, clusters, s);
+    case 160: return bwd_f32_h<160>(a, bt, clusters, s);
+    case 192: return bwd_f32_h<192>(a, bt, clusters, s);
+    case 224: return bwd_f32_h<224>(a, bt, clusters, s);
+    case 256: return bwd_f32_h<256>(a, bt, clusters, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_bwd_f32(void* const* p, int B, int L, int h, int bt,
+                   cudaStream_t stream) {
+  BwdF32Args a;
+  for (int d = 0; d < 2; ++d) {
+    a.xp[d] = (const float*)p[0 + d];
+    a.wh[d] = (const float*)p[3 + d];
+    a.bias[d] = (const float*)p[5 + d];
+    a.hst[d] = (const float*)p[7 + 2 * d];
+    a.cst[d] = (const float*)p[8 + 2 * d];
+    a.dtok[d] = (const float*)p[11 + d];
+    a.dxp[d] = (float*)p[14 + d];
+  }
+  a.mask = (const float*)p[2];
+  a.dsent = (const float*)p[13];
+  a.dbias_part = (float*)p[16];
+  a.B = B;
+  a.L = L;
+  return bwd_f32(&a, h, bt, nullptr, stream);
+}
+
+// dwh in float32 FMA (no tensor cores, no TF32: the exact route):
+// part[dir][split][i][n] = sum over the split's (b, t) rows m of
+// h_{t-1}[m][i] dxp[m][n], 64 x 128 output tiles of 8 x 8 a thread, 16-row
+// stages double-buffered through cp.async. The B L rows are cut into the
+// same DW_SPLIT slices as bilstm_dwh_tc_kernel's, and bilstm_dwh_sum adds
+// them in order. Per stage row a warp reads 8 broadcast h values and 8
+// rows of 16 consecutive dgates (one wavefront each) for 64 FMAs a lane:
+// FMA issue and shared-memory wavefronts bound it alike (about 29 TFLOP/s,
+// 44% of the float32 peak, at the video encoder's B 128, L 64, h 256).
+constexpr int DF_BM = 64;       // dwh rows (hidden units) per block
+constexpr int DF_BN = 128;      // dwh columns (gates) per block
+constexpr int DF_BK = 16;       // (b, t) rows per stage
+constexpr int DF_THREADS = 128;
+
+__global__ void __launch_bounds__(DF_THREADS)
+    bilstm_dwh_f32_kernel(const float* __restrict__ hst_f,
+                          const float* __restrict__ hst_b,
+                          const float* __restrict__ dxp_f,
+                          const float* __restrict__ dxp_b,
+                          float* __restrict__ part, int B, int L, int h) {
+  __shared__ __align__(16) float As[2][DF_BK][DF_BM];   // h_{t-1} [m][i]
+  __shared__ __align__(16) float Bs[2][DF_BK][DF_BN];   // dgates [m][n]
+  const int G = 4 * h, M = B * L;
+  const int dir = blockIdx.z / DW_SPLIT, split = blockIdx.z % DW_SPLIT;
+  const int i0 = blockIdx.y * DF_BM, n0 = blockIdx.x * DF_BN;
+  const float* hst = dir ? hst_b : hst_f;
+  const float* dxp = dir ? dxp_b : dxp_f;
+  const int per = ((M + DW_SPLIT - 1) / DW_SPLIT + DF_BK - 1) / DF_BK * DF_BK;
+  const int m_begin = split * per, m_end = min(M, m_begin + per);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+
+  // Stage rows m0 .. m0 + DF_BK - 1 into buffer buf, as one cp.async
+  // group; rows past the slice, the first step's h_{t-1} and units past h
+  // read as zero.
+  auto stage = [&](int m0, int buf) {
+    for (int q = tid; q < DF_BK * DF_BM / 4; q += DF_THREADS) {
+      const int mm = q / (DF_BM / 4), c4 = (q % (DF_BM / 4)) * 4;
+      const int m = m0 + mm, b = m / L, tt = m % L;
+      const int tp = dir ? tt + 1 : tt - 1;
+      const bool in = m < m_end && tp >= 0 && tp < L && i0 + c4 < h;
+      cp_async16(&As[buf][mm][c4],
+                 in ? hst + ((size_t)b * L + tp) * h + i0 + c4 : hst, in);
+    }
+    for (int q = tid; q < DF_BK * DF_BN / 4; q += DF_THREADS) {
+      const int mm = q / (DF_BN / 4), c4 = (q % (DF_BN / 4)) * 4;
+      const int m = m0 + mm;
+      const bool in = m < m_end;
+      cp_async16(&Bs[buf][mm][c4], in ? dxp + (size_t)m * G + n0 + c4 : dxp,
+                 in);
+    }
+    cp_async_commit();
+  };
+
+  if (m_begin < m_end) stage(m_begin, 0);
+  int buf = 0;
+  for (int m0 = m_begin; m0 < m_end; m0 += DF_BK) {
+    if (m0 + DF_BK < m_end) {
+      stage(m0 + DF_BK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DF_BK; ++kk) {
+      float av[8], gv[8];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) av[p] = As[buf][kk][ty + 8 * p];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) gv[q] = Bs[buf][kk][tx + 16 * q];
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], gv[q], acc[p][q]);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  float* out = part + (size_t)(dir * DW_SPLIT + split) * h * G;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int i = i0 + ty + 8 * p;
+    if (i < h) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        out[(size_t)i * G + n0 + tx + 16 * q] = acc[p][q];
+    }
+  }
+}
+
+int launch_dwh_f32(void* const* p, int B, int L, int h, cudaStream_t stream) {
+  if (h < 32 || h % 32) return (int)cudaErrorInvalidValue;
+  const dim3 grid(4 * h / DF_BN, (h + DF_BM - 1) / DF_BM, 2 * DW_SPLIT);
+  bilstm_dwh_f32_kernel<<<grid, DF_THREADS, 0, stream>>>(
+      (const float*)p[0], (const float*)p[1], (const float*)p[2],
+      (const float*)p[3], (float*)p[4], B, L, h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xp_f/xp_b [B, L, 4h], mask [B, L] f32, wh_f/wh_b [h, 4h], bias [4h] f32
@@ -1797,9 +2326,33 @@ extern "C" int stair_bilstm_dwh_tc(void* const* ptrs, int B, int L, int h,
   return launch_dwh_tc(ptrs, B, L, h, (cudaStream_t)stream);
 }
 
-// ptrs: part (from stair_bilstm_dwh_tc), dbias_part (from
-// stair_bilstm_bwd_tc) -> dwh_f, dwh_b ([h, 4h] f32), dbias_f, dbias_b
-// ([4h] f32); nb batch tiles. Returns cudaGetLastError().
+// The backward's float32 cluster route (h a multiple of F32_U from
+// F32_MIN_H up to F32_MAX_H; bt a multiple of F32B_BT_MIN up to
+// F32B_BT_MAX). ptrs as stair_bilstm_bwd's, every tensor float32;
+// dbias_part is float32 [ceil(B / bt), 2, 4h]. Returns cudaGetLastError().
+extern "C" int stair_bilstm_bwd_f32c(void* const* ptrs, int B, int L, int h,
+                                     int bt, void* stream) {
+  return launch_bwd_f32(ptrs, B, L, h, bt, (cudaStream_t)stream);
+}
+
+// How many clusters of the float32 cluster walk (hidden size h, batch tile
+// bt) the card holds at once, into *clusters. Returns a cudaError_t.
+extern "C" int stair_bilstm_bwd_f32c_clusters(int h, int bt, int* clusters) {
+  return bwd_f32(nullptr, h, bt, clusters, 0);
+}
+
+// ptrs: h_f, h_b (the forward's h stacks), dxp_f, dxp_b (float32, from
+// stair_bilstm_bwd_f32c) -> part (float32 [2, DW_SPLIT, h, 4h]); h a
+// multiple of 32. Returns cudaGetLastError().
+extern "C" int stair_bilstm_dwh_f32c(void* const* ptrs, int B, int L, int h,
+                                     void* stream) {
+  return launch_dwh_f32(ptrs, B, L, h, (cudaStream_t)stream);
+}
+
+// ptrs: part (from stair_bilstm_dwh_tc or stair_bilstm_dwh_f32c),
+// dbias_part (from stair_bilstm_bwd_tc or stair_bilstm_bwd_f32c) -> dwh_f,
+// dwh_b ([h, 4h] f32), dbias_f, dbias_b ([4h] f32); nb batch tiles. Returns
+// cudaGetLastError().
 extern "C" int stair_bilstm_dwh_sum(void* const* ptrs, int nb, int h,
                                     void* stream) {
   if (h < 1) return (int)cudaErrorInvalidValue;

@@ -23,8 +23,10 @@ float32 post-mask h/c state stacks (on the same three routes:
 them (plain ``bilstm_bwd_reference``, an explicit adjoint recurrence, on
 the CPU; on the card the kernels of the route ``bwd_route`` picks: the
 cluster route ``bilstm_bwd_tc`` + ``bilstm_dwh_tc`` + ``bilstm_dwh_sum``
-for bf16 at the main path's shapes, the general route ``bilstm_bwd`` +
-``bilstm_dwh`` otherwise).
+for bf16 at the main path's shapes, the float32 cluster route
+``bilstm_bwd_f32c`` + ``bilstm_dwh_f32c`` + ``bilstm_dwh_sum`` on the
+tile ``bwd_tile`` picks, the general route ``bilstm_bwd`` + ``bilstm_dwh``
+otherwise).
 ``BiLSTMTrain`` is the ``torch.autograd.Function`` around the two (the
 port of ``_train_core``) and ``bilstm_forward_train`` the port of
 ``bilstm_pallas_train``; ``_prep``'s input projection stays outside the
@@ -316,8 +318,9 @@ def fwd_route(dtype, h) -> str:
     return _cluster_route(dtype, h)
 
 
-#: the forward's cluster routes: launch-key and C-entry suffix, and the
-#: prefix of their batch-tile constants in ``csrc/bilstm.cu``
+#: the cluster routes: launch-key and C-entry suffix (forward and
+#: backward), and the prefix of the forward's batch-tile constants in
+#: ``csrc/bilstm.cu``
 _CLUSTER_ROUTES = {"cluster": ("tc", "FWD_BT"),
                    "cluster32": ("f32c", "F32_BT")}
 
@@ -342,7 +345,12 @@ def fwd_tile(B, clusters, route="cluster") -> int:
     64 takes 8 and its decode chunk of 256 24, the float32 NMN's B 128 24
     in one wave and B 1024 24 in six (``scripts/bilstm_fwd_tiles.py
     --dtype float32``)."""
-    tiles = fwd_tiles(route)
+    return _one_wave_tile(B, clusters, fwd_tiles(route))
+
+
+def _one_wave_tile(B, clusters, tiles) -> int:
+    """The smallest of ``tiles`` whose 2 ``ceil(B / tile)`` clusters run in
+    one wave of ``clusters``, else the largest."""
     for bt in tiles:
         if 2 * -(-B // bt) <= clusters:
             return bt
@@ -367,20 +375,54 @@ def _clusters_held(dev, h, route="cluster") -> int:
 def bwd_route(dtype, h) -> str:
     """The backward's kernel route for xp and wh of ``dtype`` at hidden size
     ``h``, chosen before any launch: ``"cluster"`` (``bilstm_bwd_tc``: bf16,
-    h a multiple of 64 up to ``TC_MAX_H``) or ``"general"`` (``bilstm_bwd``:
-    float32, the exact route, and every other h the wrapper takes)."""
-    return _cluster_route(dtype, h)
+    h a multiple of 64 up to ``TC_MAX_H``), ``"cluster32"``
+    (``bilstm_bwd_f32c``: float32, h a multiple of ``F32_U`` from
+    ``F32_MIN_H`` up to ``F32_MAX_H``, the float32 forward's range) or
+    ``"general"`` (``bilstm_bwd``: every other h the wrapper takes)."""
+    return fwd_route(dtype, h)
+
+
+def bwd_tiles() -> list:
+    """The batch tiles the float32 cluster walk is compiled for."""
+    c = _consts()
+    return list(range(c["F32B_BT_MIN"], c["F32B_BT_MAX"] + 1,
+                      c["F32B_BT_MIN"]))
+
+
+def bwd_tile(B, clusters) -> int:
+    """The float32 cluster walk's batch tile for ``B`` rows on a card that
+    holds ``clusters`` of its clusters at once with one CTA an SM: the
+    smallest of ``bwd_tiles()`` whose grid (2 directions x ``ceil(B /
+    tile)`` clusters) runs in one wave, else the largest, as ``fwd_tile``:
+    on an H100 SXM (30 four-CTA clusters at h 128, 15 eight-CTA clusters at
+    h 256) the parser's B 64 takes 8 and the float32 NMN's B 128 24, and
+    there the tile in one wave beat the others
+    (``scripts/bilstm_bwd_tiles.py``)."""
+    return _one_wave_tile(B, clusters, bwd_tiles())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_clusters_held(dev, h) -> int:
+    """How many clusters of the float32 cluster walk at hidden size ``h``
+    (largest tile, asked for one CTA an SM) the card ``dev`` holds at
+    once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.check(_build.build().stair_bilstm_bwd_f32c_clusters(
+            h, bwd_tiles()[-1], ctypes.byref(n)), "bilstm_bwd_f32c_clusters")
+    return n.value
 
 
 def bilstm_bwd_call(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, stacks,
                     dtok_f, dtok_b, dsent):
     """Backward (TPU kernel #3): plain version on CPU; on the card the
-    kernels of ``bwd_route``: the cluster route ``bilstm_bwd_tc`` (dxp and
-    per-tile dbias partials), ``bilstm_dwh_tc`` (dwh in row slices) and
-    ``bilstm_dwh_sum`` (the slices and the dbias partials in order), or the
-    general route ``bilstm_bwd`` then ``bilstm_dwh`` (dwh and the dbias
-    sum). Same contract as ``bilstm_bwd_reference``; ``dtok`` in xp's
-    dtype, ``dsent`` float32."""
+    kernels of ``bwd_route``: a cluster route, ``bilstm_bwd_tc`` (bf16) or
+    ``bilstm_bwd_f32c`` (float32, on ``bwd_tile``'s batch tile) for dxp
+    and per-tile dbias partials, ``bilstm_dwh_tc`` or ``bilstm_dwh_f32c``
+    (dwh in row slices) and ``bilstm_dwh_sum`` (the slices and the dbias
+    partials in order), or the general route ``bilstm_bwd`` then
+    ``bilstm_dwh`` (dwh and the dbias sum). Same contract as
+    ``bilstm_bwd_reference``; ``dtok`` in xp's dtype, ``dsent`` float32."""
     if _build.on_cpu("bilstm_bwd", xp_f):
         return bilstm_bwd_reference(xp_f, xp_b, mask, wh_f, wh_b, bias_f,
                                     bias_b, stacks, dtok_f, dtok_b, dsent)
@@ -405,36 +447,44 @@ def bilstm_bwd_call(xp_f, xp_b, mask, wh_f, wh_b, bias_f, bias_b, stacks,
                   for _ in range(2))
     if B == 0 or L == 0:
         return dxp_f, dxp_b, dwh_f, dwh_b, db_f, db_b
-    nb = -(-B // _consts()["BT"])  # row tiles
+    route = bwd_route(dt, h)
+    bt = (bwd_tile(B, _bwd_clusters_held(dev, h)) if route == "cluster32"
+          else _consts()["BT"])
+    nb = -(-B // bt)  # row tiles
     part = torch.empty(nb, 2, G, dtype=torch.float32, device=dev)
     lib = _build.build()
     stream = _build.stream_ptr(dev)
     ptrs = _build.pointers((*args, *stacks, dtok_f, dtok_b, dsent, dxp_f,
                             dxp_b, part))
-    if bwd_route(dt, h) == "cluster":
-        _build.check(lib.stair_bilstm_bwd_tc(ptrs, B, L, h, stream),
-                     "bilstm_bwd_tc")
-        _build.LAUNCHES["bilstm_bwd_tc"] += 1
-        slices = torch.empty(2, _consts()["DW_SPLIT"], h, G,
-                             dtype=torch.float32, device=dev)
-        _build.check(lib.stair_bilstm_dwh_tc(
-            _build.pointers((stacks[0], stacks[2], dxp_f, dxp_b, slices)),
-            B, L, h, stream), "bilstm_dwh_tc")
-        _build.LAUNCHES["bilstm_dwh_tc"] += 1
-        _build.check(lib.stair_bilstm_dwh_sum(
-            _build.pointers((slices, part, dwh_f, dwh_b, db_f, db_b)), nb,
-            h, stream), "bilstm_dwh_sum")
-        _build.LAUNCHES["bilstm_dwh_sum"] += 1
+    if route == "general":
+        bf16 = int(dt == torch.bfloat16)
+        err = lib.stair_bilstm_bwd(ptrs, B, L, h, bf16, stream)
+        _build.check(err, "bilstm_bwd")
+        _build.LAUNCHES["bilstm_bwd"] += 1
+        err = lib.stair_bilstm_dwh(
+            _build.pointers((stacks[0], stacks[2], dxp_f, dxp_b, part,
+                             dwh_f, dwh_b, db_f, db_b)), B, L, h, bf16,
+            stream)
+        _build.check(err, "bilstm_dwh")
+        _build.LAUNCHES["bilstm_dwh"] += 1
         return dxp_f, dxp_b, dwh_f, dwh_b, db_f, db_b
-    bf16 = int(dt == torch.bfloat16)
-    err = lib.stair_bilstm_bwd(ptrs, B, L, h, bf16, stream)
-    _build.check(err, "bilstm_bwd")
-    _build.LAUNCHES["bilstm_bwd"] += 1
-    err = lib.stair_bilstm_dwh(
-        _build.pointers((stacks[0], stacks[2], dxp_f, dxp_b, part, dwh_f,
-                         dwh_b, db_f, db_b)), B, L, h, bf16, stream)
-    _build.check(err, "bilstm_dwh")
-    _build.LAUNCHES["bilstm_dwh"] += 1
+    sfx = _CLUSTER_ROUTES[route][0]
+    if route == "cluster32":
+        err = lib.stair_bilstm_bwd_f32c(ptrs, B, L, h, bt, stream)
+    else:
+        err = lib.stair_bilstm_bwd_tc(ptrs, B, L, h, stream)
+    _build.check(err, f"bilstm_bwd_{sfx}")
+    _build.LAUNCHES[f"bilstm_bwd_{sfx}"] += 1
+    slices = torch.empty(2, _consts()["DW_SPLIT"], h, G, dtype=torch.float32,
+                         device=dev)
+    _build.check(getattr(lib, f"stair_bilstm_dwh_{sfx}")(
+        _build.pointers((stacks[0], stacks[2], dxp_f, dxp_b, slices)),
+        B, L, h, stream), f"bilstm_dwh_{sfx}")
+    _build.LAUNCHES[f"bilstm_dwh_{sfx}"] += 1
+    _build.check(lib.stair_bilstm_dwh_sum(
+        _build.pointers((slices, part, dwh_f, dwh_b, db_f, db_b)), nb, h,
+        stream), "bilstm_dwh_sum")
+    _build.LAUNCHES["bilstm_dwh_sum"] += 1
     return dxp_f, dxp_b, dwh_f, dwh_b, db_f, db_b
 
 

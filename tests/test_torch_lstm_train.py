@@ -9,8 +9,8 @@ non-suffix masks and an all-padding row; float32 at rtol 1e-4 / atol 1e-5,
 bf16 at 2e-2 (as tests/test_lstm_pallas.py). The plain explicit backward is
 held against torch autograd of ``bilstm_reference`` in float32. The CUDA
 kernels are held against the plain versions on the card; the backward's
-route choice and the cluster kernel's shared-memory limit are checked on
-the CPU.
+route choice, the float32 walk's batch tile and the cluster kernels'
+shared-memory limits are checked on the CPU.
 """
 
 import numpy as np
@@ -162,10 +162,14 @@ def test_bilstm_train_kernels_vs_plain_on_card(cuda_device, dtype):
 
 # The backward's route, chosen before any launch: the cluster kernel takes
 # bf16 at h a multiple of 64 up to TC_MAX_H (the main path's h = 256), the
-# general kernel everything else (float32 always: it is the exact route).
+# float32 cluster kernel float32 at h a multiple of 32 from 64 up to
+# F32_MAX_H (the parser's h 128, the float32 NMN's h 256), the general
+# kernel everything else.
 ROUTE_CASES = [
-    (torch.float32, 16, "general"), (torch.float32, 64, "general"),
-    (torch.float32, 256, "general"), (torch.float32, 512, "general"),
+    (torch.float32, 16, "general"), (torch.float32, 64, "cluster32"),
+    (torch.float32, 256, "cluster32"), (torch.float32, 512, "general"),
+    (torch.float32, 100, "general"), (torch.float32, 128, "cluster32"),
+    (torch.float32, 192, "cluster32"), (torch.float32, 320, "general"),
     (torch.bfloat16, 16, "general"), (torch.bfloat16, 64, "cluster"),
     (torch.bfloat16, 100, "general"), (torch.bfloat16, 128, "cluster"),
     (torch.bfloat16, 192, "cluster"), (torch.bfloat16, 256, "cluster"),
@@ -203,6 +207,110 @@ def test_bilstm_bwd_cluster_smem_fits_one_cta(h):
     assert _tc_smem_bytes(h, c) <= 232448
     assert _tc_smem_bytes(c["TC_MAX_H"] + 64, c) > 232448
     assert c["TC_CLUSTER"] * (h // c["TC_CLUSTER"]) == h
+
+
+def _f32_bwd_smem_bytes(h, bt, c):
+    """Per-CTA shared memory of the float32 cluster walk, as ``csrc/
+    bilstm.cu f32_bwd_smem_bytes`` computes it: the transposed ``[4 U, h]``
+    wh slice, two ``[bt, h]`` partial buffers and one ``[bt, h]`` stage of
+    h_{t-1} (rows padded by ``F32_PAD``), and the local dgates ``[bt, 4 U +
+    F32_PAD]``, float32."""
+    u, pad = c["F32_U"], c["F32_PAD"]
+    return 4 * ((4 * u + 3 * bt) * (h + pad) + bt * (4 * u + pad))
+
+
+@pytest.mark.parametrize("h", list(range(64, 257, 32)))
+def test_bilstm_bwd_f32_cluster_smem_fits_one_cta(h):
+    """Every h the float32 cluster walk takes, at the largest tile it is
+    compiled for (and every smaller one), fits the 232,448 bytes a block may
+    use, on a cluster of h / F32_U <= 8 CTAs; the walk's range is the
+    float32 forward's, and h past F32_MAX_H takes the general route."""
+    c = _build.header_ints("bilstm.cu")
+    assert TL.bwd_route(torch.float32, h) == "cluster32"
+    assert TL.fwd_route(torch.float32, h) == "cluster32"
+    assert 2 <= h // c["F32_U"] <= 8 and h % c["F32_U"] == 0
+    assert TL.bwd_tiles() == list(range(
+        c["F32B_BT_MIN"], c["F32B_BT_MAX"] + 1, c["F32B_BT_MIN"]))
+    assert TL.bwd_tiles()[-1] == c["F32B_BT_MAX"]
+    for bt in TL.bwd_tiles():
+        assert bt % 4 == 0   # F32_WARPS rows apart, a lane per unit
+        assert _f32_bwd_smem_bytes(h, bt, c) <= 232448, bt
+    assert TL.bwd_route(torch.float32, c["F32_MAX_H"] + c["F32_U"]) == \
+        "general"
+
+
+# B, clusters the card holds with one CTA an SM, the tile: the smallest
+# tile whose 2 ceil(B / tile) clusters run in one wave, else the largest
+# (the parser's B 64 on 30 four-CTA clusters takes 8, the float32 NMN's B
+# 128 on 15 eight-CTA clusters 24)
+BWD_TILE_CASES = [(64, 30, 8), (128, 15, 24), (125, 15, 24), (128, 16, 16),
+                  (128, 32, 8), (1024, 15, 24), (1, 2, 8), (64, 0, 24),
+                  (120, 30, 8), (121, 30, 16)]
+
+
+@pytest.mark.parametrize("B,clusters,tile", BWD_TILE_CASES,
+                         ids=[f"B{b}-c{c}" for b, c, _ in BWD_TILE_CASES])
+def test_bilstm_bwd_f32_tile_choice(B, clusters, tile):
+    c = _build.header_ints("bilstm.cu")
+    got = TL.bwd_tile(B, clusters)
+    assert got == tile
+    assert got % c["F32B_BT_MIN"] == 0 and got <= c["F32B_BT_MAX"]
+    if got < c["F32B_BT_MAX"]:   # one wave, and no smaller tile gives one
+        assert 2 * -(-B // got) <= clusters
+        smaller = got - c["F32B_BT_MIN"]
+        assert smaller == 0 or 2 * -(-B // smaller) > clusters
+
+
+# name, B, L, D, h: the float32 NMN's video and question encoders at the
+# train step's B 128, the parser's training batch, and a ragged B at an h of
+# six-CTA clusters
+F32_BWD_CASES = [("video", 128, 64, 1024, 256), ("question", 128, 16, 300, 256),
+                 ("parser", 64, 32, 256, 128), ("ragged-B", 125, 20, 64, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_BWD_CASES,
+                         ids=[c[0] for c in F32_BWD_CASES])
+def test_bilstm_bwd_f32_cluster_vs_plain_and_general_on_card(cuda_device,
+                                                             case):
+    """The float32 cluster walk, with holes in the masks and an all-padding
+    row: each output within 1e-4 (max |a - b| / max |b|) of the plain
+    backward and of the general route; two launches give the same bits; dxp
+    at each row's first valid step of the walk equals the general route's
+    bit for bit; only its launch keys count."""
+    from stair_tpu_torch.scripts.bilstm_bwd_tiles import first_steps_equal
+
+    _, B, L, D, h = case
+    gen = torch.Generator().manual_seed(17)
+    x, mask, _ = _data(B, L, D, seed=B + L)
+    p = TL.init_lstm_params(gen, D, h, device=cuda_device)
+    args = TL._prep(p, torch.from_numpy(x).to(cuda_device),
+                    torch.from_numpy(mask).to(cuda_device))
+    stacks = TL.bilstm_train_call(*args)[3]
+    cots = [torch.randn(B, L, h, generator=gen).to(cuda_device)
+            for _ in range(2)] + [torch.randn(B, 2 * h, generator=gen)
+                                  .to(cuda_device)]
+    assert TL.bwd_route(torch.float32, h) == "cluster32"
+    _build.reset_launches()
+    k1 = TL.bilstm_bwd_call(*args, stacks, *cots)
+    k2 = TL.bilstm_bwd_call(*args, stacks, *cots)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "bilstm_bwd_f32c": 2, "bilstm_dwh_f32c": 2, "bilstm_dwh_sum": 2}
+    pick = TL.bwd_route
+    TL.bwd_route = lambda dtype, hh: "general"
+    try:
+        gb = TL.bilstm_bwd_call(*args, stacks, *cots)
+    finally:
+        TL.bwd_route = pick
+    rb = TL.bilstm_bwd_reference(*args, stacks, *cots)
+    for a, b, g, r in zip(k1, k2, gb, rb):
+        assert torch.equal(a, b)
+        for want in (r, g):
+            scale = max(float(want.abs().max()), 1e-12)
+            assert float((a - want).abs().max()) / scale <= 1e-4
+    assert first_steps_equal(k1, gb, args[2])
+    assert float(k1[0][2].abs().max()) == 0.0    # the all-padding row
 
 
 # name, B, L, D: the main path's video and question encoders at B 128, and

@@ -462,9 +462,9 @@ def test_encoder_runs_the_bilstm_on_the_train_pair_with_gradients(
 
 @pytest.mark.cuda
 def test_parser_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
-    # the encoder's BiLSTM kernels at float32 (#1, #2 on the float32
-    # cluster route, #3 on the general route) against the plain versions,
-    # through the parser's loss and beam search
+    # the encoder's BiLSTM kernels at float32 (#1, #2, #3 on their float32
+    # cluster routes) against the plain versions, through the parser's loss
+    # and beam search
     from stair_tpu_torch.ops import _build
 
     cfg = TL.LSTMSeq2SeqConfig(SRC_V, TGT_V, 64, 256, S, T)
@@ -480,7 +480,9 @@ def test_parser_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
         loss.backward()
         losses.append(float(loss))
     assert _build.LAUNCHES["bilstm_train_f32c"] == 1
-    assert _build.LAUNCHES["bilstm_bwd"] == 1
+    assert _build.LAUNCHES["bilstm_bwd_f32c"] == 1
+    assert _build.LAUNCHES["bilstm_dwh_f32c"] == 1
+    assert _build.LAUNCHES["bilstm_bwd"] == 0
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
     want, got = (flatten_tree(grads_to_numpy(m)) for m in (cpu, card))
     for k in want:
