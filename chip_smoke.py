@@ -13,8 +13,10 @@ Phases (any failure raises, and the script exits non-zero):
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. build: compile the CUDA kernels from ``stair_tpu_torch/ops/csrc``, print
    every kernel's ptxas registers and spills, and fail on a spill in the
-   tensor-core kernels (the attention backward's and the executor's) and
-   the BiLSTM's float32 cluster kernels (forward, walk, dwh);
+   tensor-core kernels (the attention backward's and the executor's), the
+   BiLSTM's float32 cluster kernels (forward, walk, dwh) and the
+   executor's float32 "fma32" kernels (forward, walk, weight gradients and
+   their row index);
 3. BiLSTM forward kernels vs their plain version at the slice's shapes (B
    = 1024, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
    with non-suffix masks and an all-padding row: float32 on the float32
@@ -25,8 +27,9 @@ Phases (any failure raises, and the script exits non-zero):
    two launches of each with identical bits;
 4. executor kernel vs its plain version over the all-opcode program set at
    H = 512, both Filter modes and both temporal modes (F = 16 linear,
-   F = 64 conv), float32 (the general route) and bf16 on both of its
-   routes (the tensor-core kernel and the general one);
+   F = 64 conv), float32 on both of its routes (the "fma32" kernel and the
+   general one: equal bits in every file, each timed, ``[f32]``) and bf16
+   on both of its routes (the tensor-core kernel and the general one);
 5. the slice end to end at the bench configuration (H = 512, video 1024,
    text 300, F = 64, 172 answers, bf16, B = 1024, the 128-program pool):
    native parse/lower with span linking, tokenization to ids, pinned H2D,
@@ -49,8 +52,10 @@ Phases (any failure raises, and the script exits non-zero):
 7. executor training kernels (forward with dropout 0.25, backward and its
    weight-gradient reduction) vs their plain versions over the all-opcode
    programs at H = 512, both Filter modes and both temporal modes, float32
-   (three runs, the last two on inputs moved by 1e-4 to move ReLU kinks:
-   all within 5e-2, two of three within 1e-4) and bf16 on both routes
+   on both routes ("fma32" and general: equal bits in every file and
+   gradient; three runs, the last two on inputs moved by 1e-4 to move ReLU
+   kinks: all within 5e-2, two of three within 1e-4; #5 and #6 timed on
+   both, #6 as walk and weight gradients too) and bf16 on both routes
    (tensor-core and general: the forward within atol 3e-2 + rtol 1e-2, the
    backward within 1e-1, each backward handed its own route's forward);
    two backward runs must give identical bits; the tensor-core walk's
@@ -66,9 +71,13 @@ Phases (any failure raises, and the script exits non-zero):
    none on the general routes) and a falling loss, one step kernel vs
    plain route (the loss in bf16; the gradients leaf by leaf in float32,
    where rounding sites agree; the float32 step's launches exactly
-   ``TRAIN_LAUNCHES_F32``), the float32 step's ms with the BiLSTM backward
-   on its float32 cluster route and on its general route in turns, #5 and
-   #6 in float32 at B 128 (``[f32]``), ms per step on both routes, each
+   ``TRAIN_LAUNCHES_F32``), the float32 step's ms on its main path, with
+   the executor on its general routes and with the BiLSTM backward on its
+   general route, in turns; ``F32_STEPS`` counted float32 steps and one
+   counted float32 eval forward (``EVAL_LAUNCHES_F32``), whose "fma32"
+   kernels (#4, #5, #6) are held against their plain versions and the
+   general route (equal bits) and timed on both routes at B 128 (``[f32]``
+   and three ``kernels`` entries), ms per step on both routes, each
    training
    kernel against
    its plain version on the step's own inputs (the executor backward on
@@ -290,11 +299,17 @@ TRAIN_LAUNCHES = {"bilstm": 0, "bilstm_train": 0, "bilstm_tc": 1,
 #: the same step in float32: the encoders' forward and backward on the
 #: BiLSTM's float32 cluster routes (and the class table's eval forward;
 #: the backward's walk, dwh slices and their sum), the executor's kernels
-#: on the general routes
+#: on the float32 "fma32" routes (the training forward, the walk and the
+#: weight gradients; none on the general routes)
 TRAIN_LAUNCHES_F32 = {"bilstm_f32c": 1, "bilstm_train_f32c": 2,
                       "bilstm_bwd_f32c": 2, "bilstm_dwh_f32c": 2,
-                      "bilstm_dwh_sum": 2, "mega_exec_train": 1,
-                      "mega_exec_bwd": 1, "mega_exec_wgrad": 1}
+                      "bilstm_dwh_sum": 2, "mega_exec_train_fma32": 1,
+                      "mega_exec_bwd_fma32": 1, "mega_exec_wgrad_fma32": 1}
+#: a float32 eval forward of phase 8's model: the two encoders on the
+#: BiLSTM's float32 cluster route, the executor on its "fma32" route
+EVAL_LAUNCHES_F32 = {"bilstm_f32c": 2, "mega_exec_fma32": 1}
+#: float32 train steps in phase 8's counted float32 run
+F32_STEPS = 3
 
 
 #: what an earlier phase measured and a later one prints beside its own
@@ -563,8 +578,21 @@ def general_mega():
 #: the bf16 executor's routes: name, eval launch key, context
 MEGA_ROUTES = (("tc", "mega_exec_tc", contextlib.nullcontext),
                ("general", "mega_exec", general_mega))
+#: the float32 executor's routes at the widths "fma32" takes (H a multiple
+#: of 128 up to 512, F of 16 up to 64): the two give equal bits
+F32_ROUTES = (("fma32", "mega_exec_fma32", contextlib.nullcontext),
+              ("general", "mega_exec", general_mega))
 #: the training forward's launch key on each route
-TRAIN_KEYS = {"tc": "mega_exec_train_tc", "general": "mega_exec_train"}
+TRAIN_KEYS = {"tc": "mega_exec_train_tc", "fma32": "mega_exec_train_fma32",
+              "general": "mega_exec_train"}
+#: every eval launch key of the executor forward
+EVAL_KEYS = ("mega_exec_tc", "mega_exec_fma32", "mega_exec")
+
+
+def executor_routes(dtype):
+    """The executor's routes a phase drives in ``dtype``, the route the
+    main paths take first."""
+    return MEGA_ROUTES if dtype == torch.bfloat16 else F32_ROUTES
 
 
 @contextlib.contextmanager
@@ -733,8 +761,15 @@ def phase_mega(dev):
                 # [8, 16)), so rtol 1e-2 allows about 1.3 to 2.6 steps; the
                 # float32 check at 1e-4 is what catches logic errors
                 tol = (1e-2, 3e-2)
-            # float32 has the general route alone; bf16 both
-            for route, key, ctx in MEGA_ROUTES:
+            # both routes of the dtype: bf16 tensor-core and general,
+            # float32 "fma32" and general (equal bits)
+            outs = {}
+            if dtype == torch.float32:
+                plain_ms = cuda_time_ms(lambda: TX.mega_exec_reference(
+                    meta, args), iters=2, warmup=1)
+                bnd = bound(counted_flops(lambda: TX.mega_exec_reference(
+                    meta, args)), tensor_bytes(args, ref), dtype)
+            for route, key, ctx in executor_routes(dtype):
                 if TX.fwd_route(dtype, 512, F, False) != route and (
                         route != "general"):
                     continue
@@ -742,10 +777,9 @@ def phase_mega(dev):
                     _build.reset_launches()
                     out = TX.mega_exec_call(meta, args)
                     torch.cuda.synchronize()
-                other = "mega_exec" if key == "mega_exec_tc" else \
-                    "mega_exec_tc"
+                    outs[route] = out
                 require(_build.LAUNCHES[key] == 1
-                        and _build.LAUNCHES[other] == 0,
+                        and sum(_build.LAUNCHES[k] for k in EVAL_KEYS) == 1,
                         f"mega_exec {route} route launches {_build.LAUNCHES}")
                 for o, r, what in zip(out, ref, ("regs_vec", "regs_frames",
                                                  "regs_attn")):
@@ -760,21 +794,26 @@ def phase_mega(dev):
                             f"{route} route register argmax agreement {agree}")
                 e = max_err(out, ref)
                 errs[(F, attention, str(dtype), route)] = e
+                same = ""
                 if dtype == torch.float32:
-                    f32_record(
-                        "#4", f"opcode programs x8, B {B} H 512 F {F} "
-                        f"{attention}", route,
-                        cuda_time_ms(lambda: TX.mega_exec_call(meta, args),
-                                     iters=5),
-                        cuda_time_ms(lambda: TX.mega_exec_reference(
-                            meta, args), iters=2, warmup=1),
-                        bound(counted_flops(lambda: TX.mega_exec_reference(
-                            meta, args)), tensor_bytes(args, out), dtype))
+                    with ctx():
+                        f32_record(
+                            "#4", f"opcode programs x8, B {B} H 512 F {F} "
+                            f"{attention}", route,
+                            cuda_time_ms(lambda: TX.mega_exec_call(
+                                meta, args), iters=5), plain_ms, bnd)
+                    if route == "general":
+                        require(all(torch.equal(a, g) for a, g in zip(
+                            outs["fma32"], out)),
+                            f"mega_exec fma32 route != general route F={F} "
+                            f"{attention}")
+                        same = "; equal bits to the fma32 route"
                 log(f"[mega_exec] all {len(W.OPCODE_PROGRAMS)} opcode "
                     f"programs x8 H=512 F={F} {attention} "
                     f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
                     f"{dtype} {route} route: max_abs_err {e:.3e}, row argmax "
-                    f"agreement {agree:.4f} (rtol {tol[0]}, atol {tol[1]}) ok")
+                    f"agreement {agree:.4f} (rtol {tol[0]}, atol {tol[1]})"
+                    f"{same} ok")
     return errs
 
 
@@ -1088,30 +1127,55 @@ def time_f32_lstm(dev, name, args, outs, dtok, dsent, D):
         batch_tile=TL.bwd_tile(B, TL._bwd_clusters_held(dev, h)))
 
 
-def time_f32_mega(meta, args, out, gouts, kb, rate, seed, shape, route):
-    """#5 and #6 in float32 (the general routes) on phase 7's inputs,
-    beside their plain versions (the backward's VJP at the kernel
-    forward's files) and their bounds."""
+def time_f32_mega(meta, args, gouts, rate, seed, shape):
+    """#5 and #6 in float32 on both float32 routes ("fma32", then
+    "general"), each backward handed its own route's forward files, beside
+    their plain versions (the backward's VJP at the files) and their bounds
+    (``[f32]`` lines; #6 also its walk and weight-gradient launches apart,
+    ``mega_grad.bwd_launches`` timed by CUDA events: ``torch.profiler``
+    here would leave phase 11's profiler without device events). Returns
+    ``{route: {"fwd_ms", "bwd_ms", "walk_ms", "wgrad_ms"}}`` and ``{"fwd",
+    "bwd"}``: each kernel's plain ms and bound."""
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.utils.device import cuda_time_ms
 
     f32 = torch.float32
-    f32_record("#5", shape, route, cuda_time_ms(
-        lambda: TX.mega_exec_train_call(meta, args, rate, seed), iters=5),
-        cuda_time_ms(lambda: TX.mega_exec_reference(
-            meta, args, rate=rate, seed=seed), iters=2, warmup=1),
-        bound(counted_flops(lambda: TX.mega_exec_reference(
-            meta, args, rate=rate, seed=seed)), tensor_bytes(args, out), f32))
+    out = TX.mega_exec_train_call(meta, args, rate, seed)
+    kb = TG.mega_exec_bwd_call(meta, args, out, gouts, rate, seed)
 
     def plain():
         return TG.mega_exec_bwd_reference(meta, args, out, gouts, rate, seed,
                                           at_files=True)
 
-    f32_record("#6", shape, route, cuda_time_ms(
-        lambda: TG.mega_exec_bwd_call(meta, args, out, gouts, rate, seed),
-        iters=3), cuda_time_ms(plain, iters=1, warmup=1),
-        bound(counted_flops(plain), tensor_bytes(args, out, gouts, kb), f32))
+    ref = {"fwd": (cuda_time_ms(lambda: TX.mega_exec_reference(
+        meta, args, rate=rate, seed=seed), iters=2, warmup=1),
+        bound(counted_flops(lambda: TX.mega_exec_reference(
+            meta, args, rate=rate, seed=seed)), tensor_bytes(args, out), f32)),
+        "bwd": (cuda_time_ms(plain, iters=1, warmup=1),
+                bound(counted_flops(plain),
+                      tensor_bytes(args, out, gouts, kb), f32))}
+    res = {}
+    for route, _, ctx in F32_ROUTES:
+        with ctx():
+            o = TX.mega_exec_train_call(meta, args, rate, seed)
+
+            def bwd():
+                return TG.mega_exec_bwd_call(meta, args, o, gouts, rate,
+                                             seed)
+
+            walk, wgrad, _ = TG.bwd_launches(
+                meta, args, o, gouts, TX.dropout_params(rate, seed))
+            r = {"fwd_ms": cuda_time_ms(lambda: TX.mega_exec_train_call(
+                meta, args, rate, seed), iters=5),
+                "bwd_ms": cuda_time_ms(bwd, iters=3),
+                "walk_ms": cuda_time_ms(walk, iters=3),
+                "wgrad_ms": cuda_time_ms(wgrad, iters=3)}
+        res[route] = r
+        f32_record("#5", shape, route, r["fwd_ms"], *ref["fwd"])
+        f32_record("#6", shape, route, r["bwd_ms"], *ref["bwd"],
+                   walk_ms=r["walk_ms"], wgrad_ms=r["wgrad_ms"])
+    return res, ref
 
 
 def phase_mega_train(dev):
@@ -1179,15 +1243,17 @@ def phase_mega_train(dev):
                 rb = TG.mega_exec_bwd_reference(meta, args, ref, gouts, rate,
                                                 seed)
                 plain = dict(zip(names, rb))
-                # float32: the general route alone; bf16: both routes, the
-                # tensor-core one first (its worst error is the run's). Each
+                # both routes of the dtype, the main paths' first (its worst
+                # error is the run's): bf16 tensor-core and general, float32
+                # "fma32" and general (equal bits: files and gradients). Each
                 # route's forward against the plain version, and its backward
                 # handed that forward's files (the walk recomputes its own
                 # route's forward values bit for bit)
-                for route, _, ctx in MEGA_ROUTES:
-                    if route == "tc" and TX.fwd_route(dtype, HIDDEN, F,
-                                                      True) != "tc":
-                        continue
+                first = {}
+                for route, _, ctx in executor_routes(dtype):
+                    if route != "general":
+                        require(TX.fwd_route(dtype, HIDDEN, F, True) == route,
+                                f"{dtype} F={F} not on the {route} route")
                     with ctx():
                         _build.reset_launches()
                         out = TX.mega_exec_train_call(meta, args, rate, seed)
@@ -1214,11 +1280,16 @@ def phase_mega_train(dev):
                                         for x, y in zip(kb, kb2)),
                                     f"executor backward ({route} route) is "
                                     "not deterministic")
-                        if k == 0 and dtype == torch.float32:
-                            time_f32_mega(meta, args, out, gouts, kb, rate,
-                                          seed, f"opcode programs x2, B {B} "
-                                          f"H {HIDDEN} F {F} {attention}",
-                                          route)
+                    if dtype == torch.float32 and route == "general":
+                        require(all(torch.equal(x, y) for x, y in zip(
+                            first["out"], out)) and all(
+                            torch.equal(x, y) for x, y in zip(
+                                first["kb"], kb)),
+                            f"float32 F={F} {attention} run {k}: the fma32 "
+                            "route's files or gradients differ from the "
+                            "general route's")
+                    first.setdefault("out", out)
+                    first.setdefault("kb", kb)
                     grads = dict(zip(names, kb))
                     ref_scale = max(float(plain["fltw"].float().abs().max()),
                                     1e-12)
@@ -1234,19 +1305,23 @@ def phase_mega_train(dev):
                     require(bwd[worst] <= loose,
                             f"mega_exec_bwd {route} route F={F} {attention} "
                             f"{dtype} run {k}: bound {loose}: {bwd}")
-                    if route == "general" and dtype == torch.bfloat16:
+                    if route == "general":
                         general_worst = (bwd[worst], worst)
                         continue
                     worsts.append((bwd[worst], worst))
                     if k == 0:
                         e0 = (fwd_err[route], max_err(kb, rb))
+                if k == 0 and dtype == torch.float32:
+                    time_f32_mega(meta, args, gouts, rate, seed,
+                                  f"opcode programs x2, B {B} H {HIDDEN} F "
+                                  f"{F} {attention}")
             n_tight = sum(w <= tight for w, _ in worsts)
             require(2 * n_tight > runs,
                     f"mega_exec_bwd F={F} {attention} {dtype}: only "
                     f"{n_tight} of {runs} runs within {tight}: {worsts}")
             errs[(F, attention, str(dtype))] = e0
             routes = ("tensor-core route" if dtype == torch.bfloat16
-                      else "general route")
+                      else "fma32 route")
             ferr = ", ".join(f"{r} route {e:.3e}" for r, e in fwd_err.items())
             log(f"[mega_exec train] all {len(W.OPCODE_PROGRAMS)} opcode "
                 f"programs x2 H={HIDDEN} F={F} {attention} rate {rate} {dtype}: "
@@ -1255,7 +1330,9 @@ def phase_mega_train(dev):
                 f"max rel err per run {[(f'{w:.2e}', n) for w, n in worsts]} "
                 f"({n_tight} of {runs} within {tight}, all within {loose})"
                 + (f"; general route {general_worst[0]:.2e} at "
-                   f"{general_worst[1]}" if dtype == torch.bfloat16 else "")
+                   f"{general_worst[1]}" if dtype == torch.bfloat16 else
+                   "; the general route's files and gradients equal bit for "
+                   "bit in every run")
                 + (f"; {'/'.join(vanish)} (0 in exact arithmetic) at "
                    f"{noise:.2e} of the fltw gradient (bound 1e-3)"
                    if vanish else "")
@@ -1351,11 +1428,16 @@ def hold_step_routes(tag, models, batch, window, seed=7):
 
 def time_f32_step(dev, card, model32, batch, args):
     """The float32 train step at phase 8's configuration (B 128): ms a step
-    (CUDA events) with the BiLSTM backward on its float32 cluster route and
-    on its general route, in turns (cluster, general, general, cluster);
-    then #5 and #6 in float32 (the general routes) on the step's own
-    inputs, with their bounds (``[f32]`` lines). Updates ``model32``."""
+    (CUDA events) on the main path (the executor on its "fma32" routes, the
+    BiLSTM on its float32 cluster routes), with the executor on its general
+    routes, and with the BiLSTM backward on its general route, in turns;
+    then ``F32_STEPS`` counted steps (``TRAIN_LAUNCHES_F32`` each) and one
+    counted eval forward (``EVAL_LAUNCHES_F32``); then #4 (on the eval
+    forward's inputs), #5 and #6 (on the step's) on both float32 routes,
+    with their bounds and plain versions (``[f32]`` lines). Updates
+    ``model32``. Returns the kernel entries of the "fma32" route."""
     from stair_tpu_torch.models.nmn import VideoNMN, tree_map
+    from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
@@ -1368,35 +1450,128 @@ def time_f32_step(dev, card, model32, batch, args):
     def one():
         step(batch, torch.Generator().manual_seed(next(gens)), 1.0, 1.0)
 
-    ms = {"cluster32": [], "general": []}
-    for route in ("cluster32", "general", "general", "cluster32"):
-        ctx = general_lstm_bwd if route == "general" else contextlib.nullcontext
-        with ctx():
-            ms[route].append(cuda_time_ms(one, iters=5, warmup=1))
+    turns = {"main": contextlib.nullcontext, "executor general": general_mega,
+             "BiLSTM backward general": general_lstm_bwd}
+    ms = {k: [] for k in turns}
+    for name in (*turns, *reversed(turns)):
+        with turns[name]():
+            ms[name].append(cuda_time_ms(one, iters=5, warmup=1))
     log(f"[train] float32 step B={TRAIN_BATCH} ms (CUDA events, 5 steps "
-        f"after one, in turns): BiLSTM backward on the float32 cluster route "
-        f"{[round(x, 4) for x in ms['cluster32']]}, on the general route "
-        f"{[round(x, 4) for x in ms['general']]}; card {card}")
+        f"after one, in turns): "
+        + "; ".join(f"{k} {[round(x, 4) for x in v]}" for k, v in ms.items())
+        + f"; card {card}")
     SEEN["f32_step_ms"] = ms
+
+    # ---- the counted float32 runs: train steps, one eval forward --------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for _ in range(F32_STEPS):
+        one()
+    torch.cuda.synchronize()
+    f32_launches = dict(_build.LAUNCHES)
+    require_launches(f"[train] {F32_STEPS} float32 steps", f32_launches,
+                     {k: v * F32_STEPS for k, v in TRAIN_LAUNCHES_F32.items()})
+    _build.reset_launches()
+    with torch.no_grad():
+        logits = model32(batch)["logits"]
+    torch.cuda.synchronize()
+    eval_launches = dict(_build.LAUNCHES)
+    require_launches("[train] float32 eval forward", eval_launches,
+                     EVAL_LAUNCHES_F32)
+    require(bool(torch.isfinite(logits).all()), "non-finite float32 logits")
+    log(f"[train] float32 counted runs: {F32_STEPS} steps, launches "
+        f"{ {k: v for k, v in f32_launches.items() if v} }; one eval "
+        f"forward, launches { {k: v for k, v in eval_launches.items() if v} }"
+        f"; card {card}")
 
     cfg = model32.config
     p = tree_map(lambda x: x.detach(), model32.param_tree())
     vargs = TL._prep(p["video_encoder"], batch["video"], batch["video_mask"])
     qargs = TL._prep(p["text_encoder"], batch["question"],
                      batch["question_mask"])
-    kv, kq = TL.bilstm_train_call(*vargs), TL.bilstm_train_call(*qargs)
     mods = p["modules"]
+    shape = (f"train step B {TRAIN_BATCH} H {cfg.hidden_size} F "
+             f"{cfg.max_video_length}")
+    # #4 on the eval forward's inputs
+    kv, kq = TL.bilstm(*vargs), TL.bilstm(*qargs)
+    meta, margs = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], kv[:2],
+        batch["video_mask"], kq[:2], batch["question_mask"])
+    k4 = TX.mega_exec_call(meta, margs)
+    r4 = TX.mega_exec_reference(meta, margs)
+    e4 = max_err(k4, r4)
+    for o, r in zip(k4, r4):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+    with general_mega():
+        require(all(torch.equal(a, g) for a, g in zip(
+            k4, TX.mega_exec_call(meta, margs))),
+            "float32 eval forward: fma32 route != general route")
+        ms4g = cuda_time_ms(lambda: TX.mega_exec_call(meta, margs), iters=5)
+    ms4 = cuda_time_ms(lambda: TX.mega_exec_call(meta, margs), iters=5)
+    p4 = cuda_time_ms(lambda: TX.mega_exec_reference(meta, margs), iters=2,
+                      warmup=1)
+    b4 = bound(counted_flops(lambda: TX.mega_exec_reference(meta, margs)),
+               tensor_bytes(margs, k4), torch.float32)
+    f32_record("#4", f"eval forward B {TRAIN_BATCH} H {cfg.hidden_size} F "
+               f"{cfg.max_video_length}", "fma32", ms4, p4, b4,
+               general_ms=ms4g)
+    # #5 and #6 on the step's inputs
+    kv, kq = TL.bilstm_train_call(*vargs), TL.bilstm_train_call(*qargs)
     meta, margs = TX.prepare_args(
         cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], kv[:2],
         batch["video_mask"], kq[:2], batch["question_mask"])
     seed = (11, 22)
     km = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
+    e5 = max_err(km, TX.mega_exec_reference(meta, margs, rate=cfg.dropout,
+                                            seed=seed))
     gen = torch.Generator().manual_seed(6)
     gouts = [torch.randn(o.shape, generator=gen).to(dev, o.dtype) for o in km]
     kb = TG.mega_exec_bwd_call(meta, margs, km, gouts, cfg.dropout, seed)
-    time_f32_mega(meta, margs, km, gouts, kb, cfg.dropout, seed,
-                  f"train step B {TRAIN_BATCH} H {cfg.hidden_size} F "
-                  f"{cfg.max_video_length}", "general")
+    rb = TG.mega_exec_bwd_reference(meta, margs, km, gouts, cfg.dropout, seed,
+                                    at_files=True)
+    e6 = max_err(kb, rb)
+    r6 = max(rel_err(x, y) for x, y in zip(kb, rb))
+    require(r6 <= 5e-2, f"float32 #6 on the step's inputs: rel err {r6}")
+    with general_mega():
+        kmg = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
+        kbg = TG.mega_exec_bwd_call(meta, margs, kmg, gouts, cfg.dropout,
+                                    seed)
+    require(all(torch.equal(a, g) for a, g in zip(km, kmg))
+            and all(torch.equal(a, g) for a, g in zip(kb, kbg)),
+            "float32 train step's executor: fma32 route != general route")
+    log(f"[train] float32 executor on the step's inputs: #4 max_abs_err "
+        f"{e4:.3e}, #5 {e5:.3e} (atol 1e-4), #6 max rel err {r6:.3e} "
+        f"(max_abs_err {e6:.3e}; bound 5e-2) against the plain versions; "
+        f"fma32 and general routes equal bit for bit (#4, #5 files, #6 "
+        f"gradients); card {card}")
+    res, ref = time_f32_mega(meta, margs, gouts, cfg.dropout, seed, shape)
+    fma, gen_ = res["fma32"], res["general"]
+    base = {"route": "cuda", "path": f"float32 train step and eval forward, "
+            f"B {TRAIN_BATCH} (phase 8)", "executor_route": "fma32",
+            "library_ms": None}
+    return [
+        {"name": "mega_exec_fma32", **base,
+         "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
+         "replaces": "stair_tpu/ops/mega_exec.py:123",
+         "launches": eval_launches["mega_exec_fma32"], "max_abs_err": e4,
+         "ms": ms4, "general_ms": ms4g, "plain_ms": p4, **b4},
+        {"name": "mega_exec_train_fma32", **base,
+         "source": "stair_tpu_torch/ops/csrc/mega_exec.cu",
+         "replaces": "stair_tpu/ops/mega_grad.py:1016",
+         "launches": f32_launches["mega_exec_train_fma32"],
+         "max_abs_err": e5, "ms": fma["fwd_ms"], "general_ms": gen_["fwd_ms"],
+         "plain_ms": ref["fwd"][0], **ref["fwd"][1]},
+        {"name": "mega_exec_bwd_fma32", **base,
+         "source": "stair_tpu_torch/ops/csrc/mega_grad.cu",
+         "replaces": "stair_tpu/ops/mega_grad.py:111",
+         "launches": f32_launches["mega_exec_bwd_fma32"],
+         "wgrad_launches": f32_launches["mega_exec_wgrad_fma32"],
+         "max_abs_err": e6, "ms": fma["bwd_ms"], "walk_ms": fma["walk_ms"],
+         "wgrad_ms": fma["wgrad_ms"], "general_ms": gen_["bwd_ms"],
+         "general_walk_ms": gen_["walk_ms"],
+         "general_wgrad_ms": gen_["wgrad_ms"], "plain_ms": ref["bwd"][0],
+         **ref["bwd"][1]},
+    ]
 
 
 def phase_train(dev, card):
@@ -1427,7 +1602,7 @@ def phase_train(dev, card):
                             seed=0, device=dev)
     hold_step_routes("[train]", ((model32, "float32"), (model, "bfloat16")),
                      batch, args.contrastive_window)
-    time_f32_step(dev, card, model32, batch, args)
+    f32_entries = time_f32_step(dev, card, model32, batch, args)
     del model32
 
     # ---- the counted main-path run: 10 steps on the kernel route --------
@@ -1668,7 +1843,7 @@ def phase_train(dev, card):
          "launches": launches["mega_exec_bwd_tc"], "max_abs_err": e_mb,
          "ms": t["mega_exec_bwd"], "general_ms": t["mega_exec_bwd_general"],
          "plain_ms": t["mega_exec_bwd_plain"]},
-    ]]
+    ]] + f32_entries
 
 
 def attention_bound(q, k, v, valid_len, prefix_len, causal=True):
@@ -4260,16 +4435,21 @@ def main():
     t0 = time.perf_counter()
     _build.build()
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s "
-        f"({'cached' if _build.BUILD_INFO['cached'] else 'compiled'})")
+        f"({'cached' if _build.BUILD_INFO['cached'] else 'compiled'}); "
+        f"each source done at {_build.BUILD_INFO['source_seconds']} s")
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
-    # the attention backward's and the executor's tensor-core kernels, and
-    # the BiLSTM's float32 cluster forward, walk and dwh, are designed to
-    # keep their accumulators and state in registers
+    # the attention backward's and the executor's tensor-core kernels, the
+    # BiLSTM's float32 cluster forward, walk and dwh, and the executor's
+    # float32 "fma32" kernels are designed to keep their accumulators and
+    # state in registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
                 "executor_step_tc_kernel", "bilstm_fwd_f32_kernel",
-                "bilstm_bwd_f32_kernel", "bilstm_dwh_f32_kernel")
+                "bilstm_bwd_f32_kernel", "bilstm_dwh_f32_kernel",
+                "mega_exec_kernel<float, true>",
+                "mega_bwd_kernel<float, true>", "mega_wgrad_fma32_kernel",
+                "mega_wgrad_index_kernel")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),
         f"the build log names not all of {no_spill}")

@@ -38,11 +38,18 @@ its kernel and nowhere else:
 - ``mega_exec_tc``, ``mega_exec_train_tc``: the eval and training forward
   on its tensor-core route (bf16, the main paths'; ``mega_exec_tc_kernel``
   without and with dropout);
+- ``mega_exec_fma32``, ``mega_exec_train_fma32``: the eval and training
+  forward on its float32 "fma32" route (``mega_exec_kernel<float, true>``:
+  the general kernel with its products on ``gemm32``);
 - ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward on the general route
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
 - ``mega_exec_bwd_tc``, ``mega_exec_wgrad_tc``: the backward on the
   tensor-core route (bf16, the main path's; ``csrc/mega_grad_tc.cu``);
+- ``mega_exec_bwd_fma32``, ``mega_exec_wgrad_fma32``: the backward on the
+  float32 "fma32" route (``csrc/mega_grad.cu`` ``mega_bwd_kernel<float,
+  true>``; the weight gradients' call launches its row index, then
+  ``mega_wgrad_fma32_kernel``);
 - ``flash_attn``: the masked flash-attention forward
   (``csrc/flash_attn.cu``);
 - ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
@@ -76,6 +83,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -99,7 +107,9 @@ LAUNCHES = {
     "bilstm_bwd_f32c": 0, "bilstm_dwh_f32c": 0,
     "mega_exec": 0, "mega_exec_train": 0, "mega_exec_tc": 0,
     "mega_exec_train_tc": 0, "mega_exec_bwd": 0, "mega_exec_wgrad": 0,
-    "mega_exec_bwd_tc": 0, "mega_exec_wgrad_tc": 0, "flash_attn": 0,
+    "mega_exec_bwd_tc": 0, "mega_exec_wgrad_tc": 0,
+    "mega_exec_fma32": 0, "mega_exec_train_fma32": 0,
+    "mega_exec_bwd_fma32": 0, "mega_exec_wgrad_fma32": 0, "flash_attn": 0,
     "flash_attn_bwd_dq": 0,
     "flash_attn_bwd_dkv": 0, "executor_step": 0, "executor_step_tc": 0,
     "slot_set": 0, "slot_zero": 0, "slot_add": 0, "slot_set_many": 0,
@@ -107,8 +117,10 @@ LAUNCHES = {
 }
 
 _lib = None
-#: what the last build printed (ptxas register/spill report) and took
-BUILD_INFO = {"seconds": 0.0, "log": "", "cached": False}
+#: what the last build printed (ptxas register/spill report) and took, in
+#: all and by source (seconds from the start until its nvcc ended)
+BUILD_INFO = {"seconds": 0.0, "log": "", "cached": False,
+              "source_seconds": {}}
 
 
 def reset_launches():
@@ -231,8 +243,21 @@ def build():
             [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(srcs, objs)]
-        logs = [p.communicate()[0] for p in procs]
+        logs, secs = [None] * len(procs), {}
+
+        def drain(i):
+            logs[i] = procs[i].communicate()[0]
+            secs[os.path.basename(srcs[i])] = round(
+                time.perf_counter() - t0, 1)
+
+        waits = [threading.Thread(target=drain, args=(i,))
+                 for i in range(len(procs))]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         BUILD_INFO["log"] = "".join(logs)
+        BUILD_INFO["source_seconds"] = secs
         if any(p.returncode for p in procs):
             raise RuntimeError("nvcc failed:\n%s" % BUILD_INFO["log"])
         tmp = f"{so}.{tag}"
@@ -275,7 +300,24 @@ def build():
         I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
         P,                         # stream
     ]
+    lib.stair_mega_exec_fwd_fma32.restype = I
+    lib.stair_mega_exec_fwd_fma32.argtypes = [
+        P, I,                      # pointer table, its length
+        P, P, P, P,                # rv, rf, ra, workspace
+        I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
+        I,                         # fsoft
+        I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
+        P,                         # stream
+    ]
     Lg = ctypes.c_long
+    lib.stair_mega_exec_fma32_smem.restype = Lg
+    lib.stair_mega_exec_fma32_smem.argtypes = []
+    lib.stair_mega_exec_bwd_smem.restype = Lg
+    lib.stair_mega_exec_bwd_smem.argtypes = [I, I, I]       # F, H, fma32
+    lib.stair_mega_f32_product_check.restype = I
+    # A, W, M, K, N, nk, bn, reps, out_gemm, out_gemm32, clocks, stream
+    lib.stair_mega_f32_product_check.argtypes = [P, P, I, I, I, I, I, I, P,
+                                                 P, P, P]
     lib.stair_mega_exec_tc_smem.restype = Lg
     lib.stair_mega_exec_tc_smem.argtypes = [I, I, I]        # F, H, L
     lib.stair_mega_exec_bwd_tc_smem.restype = Lg
@@ -284,7 +326,7 @@ def build():
     # A, B, M, K, N, vec, chain, hbuf, out_fwd, out_walk, stream
     lib.stair_mega_recompute_check.argtypes = [P, P, I, I, I, I, I, P, P, P,
                                                P]
-    for sfx in ("f32", "bf16", "tc"):
+    for sfx in ("f32", "bf16", "tc", "fma32"):
         fn = getattr(lib, f"stair_mega_exec_bwd_{sfx}")
         fn.restype = I
         fn.argtypes = [

@@ -448,5 +448,163 @@ __device__ void vecmat_tc(const float* x0, const float* x1, const float* x2,
   __syncthreads();
 }
 
+// gemm32: the float32 products of the "fma32" route (mega_exec_kernel<float,
+// true>, #4 and #5, and mega_bwd_kernel<float, true>, #6's walk), gemm's
+// contract and arithmetic on Hopper-shaped tiles. C[M, N] = A @ B with
+// A(m, k) = A[m * lda + k] and B(k, n) = W[k * ldw + n] (NK false) or
+// W[n * ldw + k] (NK true: the walk's dY @ W^T); A and W float32, 16-byte
+// aligned, lda % 4 == 0, ldw % 4 == 0; M <= G32_BM, K % 4 == 0, N % 4 == 0.
+//
+// Exactness: every output is gemm's one FMA chain, acc = fmaf(a[k], b[k],
+// acc) from 0.f over ascending k, and no k at or past K enters it, so
+// gemm32 returns gemm's bits on any operands and every value the float32
+// forward writes is unchanged (stair_mega_f32_product_check holds the two
+// equal on the card).
+//
+// Feeding: G32_BM x BN output tiles (all of M in one row tile), G32_BK-deep
+// k slices; the (column tile, k slice) pairs run as one sequence through a
+// G32_STAGES-stage cp.async ring of A and B tiles (ring: g32_ring<NK, BN>()
+// floats, 16-byte aligned), two slices in flight ahead of the one in use,
+// across tile boundaries too; one barrier a slice. Thread (ty, tx) = (tid /
+// 16, tid % 16) keeps its 4 x BN / 16 sums in registers: rows ty + 16 i and
+// columns 64 (j / 4) + 4 tx + j % 4 (NK false: B read as float4 along a row
+// of W) or tx + 16 j (NK true: B read as float4 along k of a row of W, the
+// tile rows padded by G32_PAD so that 16 rows meet no bank conflict). A is
+// read as float4 along k. epi(m, n, acc) per output. Called by the whole
+// block; returns after a barrier.
+constexpr int G32_BM = 64;
+constexpr int G32_BN = 128;
+constexpr int G32_BK = 32;
+constexpr int G32_PAD = 4;
+constexpr int G32_STAGES = 3;
+// the column tile of the walk's gemm32 calls (mega_grad.cu prod): 4 x 4
+// sums a thread, so that the walk (247 registers on gemm) holds every value
+// in registers; at 4 x 8 ptxas spills it
+constexpr int G32_WALK_BN = 64;
+
+// floats of one ring stage: the A tile [G32_BM][G32_BK + G32_PAD], then B
+// as [G32_BK][BN] (NK false) or [BN][G32_BK + G32_PAD] (NK true)
+template <bool NK, int BN = G32_BN>
+__host__ __device__ constexpr int g32_stage() {
+  return G32_BM * (G32_BK + G32_PAD) +
+         (NK ? BN * (G32_BK + G32_PAD) : G32_BK * BN);
+}
+
+// floats of gemm32's ring (NK true also holds the NK false stages)
+template <bool NK, int BN = G32_BN>
+__host__ __device__ constexpr int g32_ring() {
+  return G32_STAGES * g32_stage<NK, BN>();
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+template <bool NK, int BN = G32_BN, typename Epi>
+__device__ void gemm32(const float* A, int lda, const float* W, long ldw,
+                       int M, int K, int N, float* ring, Epi epi) {
+  static_assert(BN % 64 == 0 && THREADS == 256, "16 x 16 threads");
+  constexpr int LDA = G32_BK + G32_PAD, AT = G32_BM * LDA;
+  constexpr int STAGE = g32_stage<NK, BN>(), NJ = BN / 16;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nk = (K + G32_BK - 1) / G32_BK, nc = (N + BN - 1) / BN;
+  const int total = nk * nc;
+  auto load = [&](int it) {
+    float* As = ring + (it % G32_STAGES) * STAGE;
+    float* Bs = As + AT;
+    const int n0 = (it / nk) * BN, k0 = (it % nk) * G32_BK;
+    for (int p = tid; p < G32_BM * G32_BK / 4; p += THREADS) {
+      const int r = p / (G32_BK / 4), c = (p % (G32_BK / 4)) * 4;
+      const bool in = r < M && k0 + c < K;
+      cp_async16(As + r * LDA + c, A + (in ? (long)r * lda + k0 + c : 0), in);
+    }
+    for (int p = tid; p < G32_BK * BN / 4; p += THREADS) {
+      if (NK) {   // stage [n][k]
+        const int r = p / (G32_BK / 4), c = (p % (G32_BK / 4)) * 4;
+        const bool in = n0 + r < N && k0 + c < K;
+        cp_async16(Bs + r * LDA + c,
+                   W + (in ? (long)(n0 + r) * ldw + k0 + c : 0), in);
+      } else {    // stage [k][n]
+        const int r = p / (BN / 4), c = (p % (BN / 4)) * 4;
+        const bool in = k0 + r < K && n0 + c < N;
+        cp_async16(Bs + r * BN + c,
+                   W + (in ? (long)(k0 + r) * ldw + n0 + c : 0), in);
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[4][NJ];
+  load(0);
+  if (total > 1) load(1);
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();   // slice it landed; slice it - 1's stage is free
+    if (it + 2 < total) load(it + 2);
+    const int n0 = (it / nk) * BN, ks = it % nk;
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    }
+    const float* As = ring + (it % G32_STAGES) * STAGE;
+    const float* Bs = As + AT;
+    const int kn = K - ks * G32_BK;   // k of this slice: min(kn, G32_BK)
+    // not unrolled: a 4-deep step is 128 FMAs, and one copy of it keeps the
+    // walk's code (and its build) small; one float4 of B live at a time
+#pragma unroll 1
+    for (int k4 = 0; k4 < G32_BK; k4 += 4) {
+      if (k4 >= kn) break;
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * LDA +
+                                                k4);
+      if constexpr (NK) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              Bs + (tx + 16 * j) * LDA + k4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[i][j] = fmaf(f4_at(a[i], q), f4_at(b, q), acc[i][j]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int j4 = 0; j4 < NJ / 4; ++j4) {
+            const float4 b = *reinterpret_cast<const float4*>(
+                Bs + (k4 + q) * BN + 64 * j4 + 4 * tx);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[i][4 * j4 + jj] = fmaf(f4_at(a[i], q), f4_at(b, jj),
+                                           acc[i][4 * j4 + jj]);
+          }
+      }
+    }
+    if (ks == nk - 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = ty + 16 * i;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int n = n0 + (NK ? tx + 16 * j : 64 * (j / 4) + 4 * tx + j % 4);
+          if (n < N) epi(m, n, acc[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
 }  // namespace mega
 }  // namespace stair

@@ -31,16 +31,24 @@
 // dtype exactly where the JAX kernel casts (lin_dt and friends), so bf16
 // results track the TPU kernel's rounding sites.
 //
-// Two routes (ops/mega_exec.py fwd_route picks one before the launch):
-// mega_exec_kernel below, the general route (float32 and every width the
-// other refuses, eval and training; mega_grad.cu's walk recomputes its
-// training values bit for bit), and mega_exec_tc_kernel further down, the
+// Three routes (ops/mega_exec.py fwd_route picks one before the launch):
+// mega_exec_kernel<T, false> below, the general route (every dtype and
+// width the others refuse, eval and training; mega_grad.cu's walk
+// recomputes its training values bit for bit); mega_exec_kernel<float,
+// true>, the float32 "fma32" route (H a multiple of 128 up to 512, F of 16
+// up to 64), the same kernel with every product on gemm32 (mega_common.cuh:
+// 64 x 128 output tiles, 32-deep k slices through a 3-stage cp.async ring
+// in dynamic shared memory, 4 x 8 sums a thread in registers) and so the
+// same bits in every file; and mega_exec_tc_kernel further down, the
 // tensor-core route for bf16, eval (#4) and training (#5; mega_grad_tc.cu's
 // walk recomputes its values bit for bit).
 //
 // What bounds mega_exec_kernel on an H100: B = 1024 blocks of about three
 // heavy [64 x 512] @ [512 x 512] products per step on the float32 CUDA
-// cores, with the weight tiles re-read from L2 by every block.
+// cores, with the weight tiles re-read from L2 by every block. gemm's
+// operand tiles are loaded synchronously, two barriers a 16-deep slice and
+// eight shared loads for sixteen FMAs; gemm32 keeps two slices in flight
+// and reads float4 operands, a third of gemm's loads an FMA.
 
 #include "mega_common.cuh"
 
@@ -65,35 +73,43 @@ struct Args : Tensors<T> {
   stair::Dropout dr;
 };
 
-struct Smem {
+// Static shared memory of mega_exec_kernel. G32 (the "fma32" route) keeps
+// gemm32's ring in dynamic shared memory instead of gemm's tiles.
+template <bool G32>
+struct SmemT {
   float va[MAX_H], vb[MAX_H], vc[MAX_H], nv[MAX_H], x1[MAX_H], x2[MAX_H];
   float vm[MAX_F], aa[MAX_F], ab[MAX_F], f1[MAX_F], f2[MAX_F], f3[MAX_F];
-  float As[BK][BM + 1];
-  float Ws[BK][BN];
+  float As[G32 ? 1 : BK][BM + 1];
+  float Ws[G32 ? 1 : BK][BN];
   float red[NWARPS];
   int ins[NSF];
 };
 
-// C[M, N] = A[M, K] (row stride lda) @ W[K, N]; epi(m, n, acc) per output.
-// Called by the whole block; returns after a barrier.
-template <typename TA, typename TW, typename Epi>
+// C[M, N] = A[M, K] (row stride lda) @ W[K, N]; epi(m, n, acc) per output:
+// gemm on gemm's tiles in sm, or (G32) gemm32 on its ring. Called by the
+// whole block; returns after a barrier.
+template <bool G32, typename TA, typename TW, typename S, typename Epi>
 __device__ void gemm(const TA* A, int lda, const TW* W, int M, int K, int N,
-                     Smem& sm, Epi epi) {
-  stair::mega::gemm<float, false, false>(A, lda, 1, W, N, 1, M, K, N,
-                                         &sm.As[0][0], &sm.Ws[0][0], epi);
+                     S& sm, float* ring, Epi epi) {
+  if constexpr (G32)
+    gemm32<false>(A, lda, W, N, M, K, N, ring, epi);
+  else
+    stair::mega::gemm<float, false, false>(A, lda, 1, W, N, 1, M, K, N,
+                                           &sm.As[0][0], &sm.Ws[0][0], epi);
 }
 
 // Masked softmax over F entries held one per thread (f = threadIdx.x);
 // an all-masked row gives 0. Returns this thread's weight.
-__device__ float block_masked_softmax(float x, bool valid, Smem& sm) {
+template <typename S>
+__device__ float block_masked_softmax(float x, bool valid, S& sm) {
   return stair::mega::block_masked_softmax(x, valid, sm.red);
 }
 
 // Localize/superlative cosine row of keyword kw [H] (shared) against the
 // feat tile [F, H]: out[f] = (rd(cos) + 1) * 0.49 * vm[f]. Warp per row.
-template <typename T>
+template <typename T, typename S>
 __device__ void loc_cos(const float* kw, const float* feat, int F, int H,
-                        float* out, Smem& sm) {
+                        float* out, S& sm) {
   float nk2 = 0.f;
   for (int k = threadIdx.x; k < H; k += THREADS) nk2 += kw[k] * kw[k];
   const float nk = sqrtf(fmaxf(block_sum(nk2, sm.red), 1e-30f));
@@ -120,9 +136,9 @@ __device__ void loc_cos(const float* kw, const float* feat, int F, int H,
 // Superlative head over K candidate rows with scores row[k] (already
 // summed over frames) and mask; pooled = sum_k w_k * action_k; writes
 // relu(lin_dt(pooled, supw, supb)) to sm.nv. act(k, j) reads action rows.
-template <typename T, typename Act>
+template <typename T, typename S, typename Act>
 __device__ void superlative(float* row, int K, int mode, int count_or_neg,
-                            const T* supw, const T* supb, int H, Smem& sm,
+                            const T* supw, const T* supb, int H, S& sm,
                             Act act, float* pooled) {
   // Weights over K <= MAX_F rows, one per thread. count_or_neg >= 0: the
   // first count rows are valid (SUPERLATIVE_V); < 0: rows with vm > 0.
@@ -151,9 +167,10 @@ __device__ void superlative(float* row, int K, int mode, int count_or_neg,
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool G32>
 __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
-  __shared__ Smem sm;
+  __shared__ SmemT<G32> sm;
+  extern __shared__ __align__(16) float g32_ring[];   // G32: gemm32's ring
   const int b = blockIdx.x;
   const int F = a.F, H = a.H, L = a.L, Hh = H / 2;
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
@@ -225,11 +242,13 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       const T* b1 = a.b1u + (size_t)e1 * H;
       const T* w2 = a.w2u + (size_t)e1 * H * H;
       const T* b2 = a.b2u + (size_t)e1 * H;
-      gemm(fa, H, w1, F, H, H, sm, [&](int m, int n, float acc) {
+      gemm<G32>(fa, H, w1, F, H, H, sm, g32_ring,
+                [&](int m, int n, float acc) {
         ws_h[(size_t)m * H + n] =
             rd<T>(fmaxf(acc + to_f(b1[n]), 0.f) * dr.keep(m, n, b, t, 0));
       });
-      gemm(ws_h, H, w2, F, H, H, sm, [&](int m, int n, float acc) {
+      gemm<G32>(ws_h, H, w2, F, H, H, sm, g32_ring,
+                [&](int m, int n, float acc) {
         const float v = acc + to_f(b2[n]);
         feat[(size_t)m * H + n] =
             rd<T>(is_filter ? fmaxf(v, 0.f) * dr.keep(m, n, b, t, 1) : v);
@@ -405,7 +424,8 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       const T* wk = a.w2t + 2 * (size_t)H * H;
       const T* bk = a.b2t + 2 * (size_t)H;
       // kw_f = lin_dt(fb, w2t[2], b2t[2]) -> ws_h [F, H]
-      gemm(fb, H, wk, F, H, H, sm, [&](int m, int n, float acc) {
+      gemm<G32>(fb, H, wk, F, H, H, sm, g32_ring,
+                [&](int m, int n, float acc) {
         ws_h[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
       });
       // Row norms: f1 = |kw_f[i]|, f2 = |feat[f]|.
@@ -465,7 +485,8 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
         ws_h[i] = rd<T>(sm.f1[i / H] * feat[i]);
       __syncthreads();
       const T* b20 = a.b2t;
-      gemm(ws_h, H, a.w2t, F, H, H, sm, [&](int m, int n, float acc) {
+      gemm<G32>(ws_h, H, a.w2t, F, H, H, sm, g32_ring,
+                [&](int m, int n, float acc) {
         fout[(size_t)m * H + n] = from_f<T>(
             fmaxf(acc + to_f(b20[n]), 0.f) * dr.keep(m, n, b, t, 2) *
             sm.vm[m]);
@@ -505,7 +526,7 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
         ws_h[i] = rd<T>(sm.f3[i / H] * to_f(fa[i]));
       __syncthreads();
       const T* b21 = a.b2t + H;
-      gemm(ws_h, H, a.w2t + (size_t)H * H, F, H, H, sm,
+      gemm<G32>(ws_h, H, a.w2t + (size_t)H * H, F, H, H, sm, g32_ring,
            [&](int m, int n, float acc) {
              ws_y[(size_t)m * H + n] =
                  fmaxf(acc + to_f(b21[n]), 0.f) * dr.keep(m, n, b, t, 2);
@@ -1207,7 +1228,19 @@ int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Dynamic shared memory of mega_exec_kernel<float, true> (gemm32's ring,
+// the one layout its products use), and the block's whole shared memory
+// with the static part; ops/mega_exec.py fma32_smem_bytes mirrors the sum.
+constexpr size_t FMA32_RING_BYTES = g32_ring<false>() * sizeof(float);
+constexpr size_t FMA32_SMEM_BYTES = sizeof(SmemT<true>) + FMA32_RING_BYTES;
+// Shared memory leaves room for two blocks an SM, as the general route
+// runs (228 KB an SM, 1 KB of it reserved for each block); registers hold
+// the route to one: ptxas gives the kernel 246-254 a thread, where the
+// general instantiation's 128 spill.
+static_assert(2 * (FMA32_SMEM_BYTES + 1024) <= 233472,
+              "mega_exec_kernel<float, true>'s shared memory fits twice");
+
+template <typename T, bool G32 = false>
 int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
            int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
            int fsoft, stair::Dropout dr, cudaStream_t stream) {
@@ -1227,7 +1260,15 @@ int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   a.L = L;
   a.fsoft = fsoft;
   a.dr = dr;
-  mega_exec_kernel<T><<<B, THREADS, 0, stream>>>(a);
+  size_t smem = 0;
+  if constexpr (G32) {
+    smem = FMA32_RING_BYTES;
+    cudaError_t e = cudaFuncSetAttribute(
+        mega_exec_kernel<T, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mega_exec_kernel<T, G32><<<B, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1297,4 +1338,36 @@ extern "C" int stair_mega_exec_fwd_tc_train(
 // (F, H, L), in bytes.
 extern "C" long stair_mega_exec_tc_smem(int F, int H, int L) {
   return (long)tc_smem_bytes(F, H, L);
+}
+
+// The widths the "fma32" route takes: H a multiple of G32_BN in [G32_BN,
+// FMA32_MAX_H] (whole column tiles of gemm32), F a multiple of 16 in [16,
+// FMA32_MAX_F] (one row tile), L <= MAX_L.
+static bool fma32_takes(int nptrs, int F, int H, int L) {
+  return nptrs == NARGS && H % G32_BN == 0 && H >= G32_BN &&
+         H <= stair::FMA32_MAX_H && F % 16 == 0 && F >= 16 &&
+         F <= stair::FMA32_MAX_F && L <= MAX_L;
+}
+
+// The "fma32" route (mega_exec_kernel<float, true>): float32 at the widths
+// fma32_takes, eval (#4, drop = 0) and training (#5); ops/mega_exec.py
+// fwd_route picks it. Arguments as stair_mega_exec_fwd's without the dtype
+// flag; ws: a float32 [B, 3, F, H] workspace. Its register files equal the
+// general route's bit for bit.
+extern "C" int stair_mega_exec_fwd_fma32(
+    const void* const* ptrs, int nptrs, void* rv, void* rf, void* ra,
+    void* ws, int B, int T, int Nv, int Nf, int Na, int F, int H, int L,
+    int fsoft, int drop, int seed0, int seed1, unsigned thresh, float scale,
+    void* stream) {
+  if (!fma32_takes(nptrs, F, H, L)) return (int)cudaErrorInvalidValue;
+  return launch<float, true>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L,
+                             fsoft, stair::Dropout{drop, seed0, seed1, thresh,
+                                                   scale},
+                             (cudaStream_t)stream);
+}
+
+// Shared memory of mega_exec_kernel<float, true> per block, static and
+// dynamic, in bytes (the same at every width).
+extern "C" long stair_mega_exec_fma32_smem() {
+  return (long)FMA32_SMEM_BYTES;
 }

@@ -41,6 +41,20 @@
 // products per heavy step on the float32 CUDA cores, with operands read
 // from L2. Tensor cores, grouping examples by expert, and splitting an
 // example across blocks are later work.
+//
+// The float32 "fma32" route (ops/mega_grad.py bwd_route, as the training
+// forward's): mega_bwd_kernel<float, true> runs every [F, H]-sized product
+// (recompute and gradient alike, both B layouts) on gemm32 instead of gemm
+// (the prod wrapper; SUPF's two m1 products with K = F stay on gemm), as
+// mega_exec_kernel<float, true> does, so its recompute is the forward's by
+// construction and every output equals the general walk's bit for bit. Its
+// weight gradients (mega_wgrad_index_kernel, then mega_wgrad_fma32_kernel)
+// list each table's record rows once instead of scanning meta in every
+// block, and stream them through register-blocked 64 x 64 tiles, each
+// output the general reduction's FMA chain in the same order: the same
+// bits, no float atomics.
+
+#include <type_traits>
 
 #include "mega_common.cuh"
 
@@ -73,12 +87,14 @@ __constant__ int TB_SLOT[NTABLES] = {0, 1, 2, 3, 3, 3, 3, 3, 3, 4, 3, 4, 3};
 
 // Offsets of the small tables in a per-example partial (float32):
 // ffwf [H], ffkw [H], ffab [1], fltw [H], fltk [H], fltb [1], lns [H],
-// lnb [H], beta [F], t1/t2/t3 [3, F, F], tb1/tb2/tb3 [3, F].
-struct Small {
-  long ffwf, ffkw, ffab, fltw, fltk, fltb, lns, lnb, beta, t1, t2, t3, tb1,
+// lnb [H], beta [F], t1/t2/t3 [3, F, F], tb1/tb2/tb3 [3, F]. I: the offsets'
+// type (long; the "fma32" walk holds them as int, half the registers).
+template <typename I>
+struct SmallT {
+  I ffwf, ffkw, ffab, fltw, fltk, fltb, lns, lnb, beta, t1, t2, t3, tb1,
       tb2, tb3, size;
-  __host__ __device__ Small(int H, int F) {
-    long o = 0;
+  __host__ __device__ SmallT(int H, int F) {
+    I o = 0;
     ffwf = o; o += H;
     ffkw = o; o += H;
     ffab = o; o += 1;
@@ -97,15 +113,17 @@ struct Small {
     size = o;
   }
 };
+using Small = SmallT<long>;
 
-// Per-example float32 workspace, in floats.
-struct Ws {
-  long grv, gra, grf, feat, hpre, h2, gfeat, w1, w2, gof, m1, m2, dtok, daux,
+// Per-example float32 workspace, in floats (offsets of type I, as SmallT).
+template <typename I>
+struct WsT {
+  I grv, gra, grf, feat, hpre, h2, gfeat, w1, w2, gof, m1, m2, dtok, daux,
       size;
-  __host__ __device__ Ws(int Nv, int Nf, int Na, int F, int H, int L,
-                         int T) {
+  __host__ __device__ WsT(int Nv, int Nf, int Na, int F, int H, int L,
+                          int T) {
     const long FH = (long)F * H;
-    long o = 0;
+    I o = 0;
     grv = o; o += (long)Nv * H;
     gra = o; o += (long)Na * F;
     grf = o; o += Nf * FH;
@@ -123,6 +141,7 @@ struct Ws {
     size = o;
   }
 };
+using Ws = WsT<long>;
 
 template <typename T>
 struct BArgs : Tensors<T> {
@@ -136,15 +155,49 @@ struct BArgs : Tensors<T> {
   stair::Dropout dr;
 };
 
-// Shared-memory scratch, laid out in dynamic shared memory.
-struct Sh {
+// Shared-memory scratch, laid out in dynamic shared memory: NHV [H] and
+// NFV [F] vectors, each reached as hv[i] / fv[i]. The general route keeps
+// a pointer to each (ShT<false>); the "fma32" route computes them from the
+// first and the stride (ShT<true>: 44 fewer registers to hold, which
+// gemm32's sums need).
+struct Strided {
+  float* base;
+  int stride;
+  __device__ float* operator[](int i) const { return base + i * stride; }
+};
+template <bool G32>
+struct ShVecs {
   float* hv[NHV];
   float* fv[NFV];
+};
+template <>
+struct ShVecs<true> {
+  Strided hv, fv;
+};
+template <bool G32>
+struct ShT : ShVecs<G32> {
   float *vm, *aa, *ab, *goa, *goab;
   float *As, *Bs, *red;
+  float* ring;   // gemm32's ring on the "fma32" route (16-byte aligned)
 };
 
 __device__ inline void sync() { __syncthreads(); }
+
+// The walk's [F, H]-sized products, C = A @ B with A(m, k) = A[m * lda +
+// k] and B(k, n) = W[k * ldw + n] (NK false) or W[n * ldw + k] (NK true):
+// gemm on its tiles (RA: A rounded to T as it is loaded), or, on the
+// "fma32" route (G32), gemm32 on its ring, which gives gemm's bits. So the
+// recompute products are the forward's by construction on either route.
+template <bool G32, bool RA, bool NK, typename T, typename TA, typename TW,
+          typename S, typename Epi>
+__device__ void prod(const TA* A, int lda, const TW* W, int ldw, int M,
+                     int K, int N, S& s, Epi epi) {
+  if constexpr (G32)
+    gemm32<NK, G32_WALK_BN>(A, lda, W, ldw, M, K, N, s.ring, epi);
+  else
+    gemm<T, RA, false>(A, lda, 1, W, NK ? 1 : ldw, NK ? ldw : 1, M, K, N,
+                       s.As, s.Bs, epi);
+}
 
 // out[k] = sum_n rd(g[n]) * W[k * ldw + n] for k < K (the JAX kernel's
 // mmT: g.astype(dt) @ W^T). Warp per row of W; lanes walk the row.
@@ -176,9 +229,9 @@ __device__ inline void set_meta(int* meta, int slot, int table, int expert,
 // (shared): adds g_rows into grows [F, H] (global float32) and writes g_kw
 // [H] to gkw (shared). Norms sqrt(max(ss, 1e-30)), denominator
 // max(nr * nk, eps), clamped branches zeroed (the JAX cos_rows_bwd).
-template <typename TR>
+template <typename TR, typename S>
 __device__ void cos_rows_bwd(const float* g, const TR* rows, const float* kw,
-                             int F, int H, float* grows, float* gkw, Sh& s) {
+                             int F, int H, float* grows, float* gkw, S& s) {
   float* gdot = s.fv[9];
   float* gnr = s.fv[10];
   float* gdn = s.fv[11];
@@ -233,12 +286,12 @@ namespace {
 // the softmax cotangent (g_scores[k, f] = grow[k] * vm[f]); gpool [H]
 // (shared) receives mmT(g1, supw). The caller routes g_actions[k, j] =
 // wv[k] * gpool[j].
-template <typename T, typename Score, typename Act>
+template <typename T, typename Score, typename Act, typename S>
 __device__ void superlative_bwd(int K, Score score, Act act,
                                 const float* amask, int mode, const T* supw,
                                 const T* supb, const float* gov, int H,
                                 int F, float* wv, float* grow, float* gpool,
-                                float* X3, float* D3, int* meta, Sh& s) {
+                                float* X3, float* D3, int* meta, S& s) {
   float* row = s.fv[6];
   float* smx = s.fv[7];
   float* pooled = s.hv[8];
@@ -291,7 +344,7 @@ __device__ void superlative_bwd(int K, Score score, Act act,
   sync();
 }
 
-template <typename T>
+template <typename T, bool G32>
 __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
   extern __shared__ float smem[];
   __shared__ int ins[NSF];
@@ -301,13 +354,24 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const stair::Dropout dr = a.dr;
-  const size_t FH = (size_t)F * H;
+  // the "fma32" walk holds sizes and offsets as int (they fit: one
+  // example's workspace is well under 2^31 floats) to free registers
+  using Idx = std::conditional_t<G32, int, long>;
+  using Sz = std::conditional_t<G32, int, size_t>;
+  const Sz FH = (Sz)F * H;
 
-  Sh s;
+  ShT<G32> s;
   {
     float* p = smem;
-    for (int i = 0; i < NHV; ++i) { s.hv[i] = p; p += H; }
-    for (int i = 0; i < NFV; ++i) { s.fv[i] = p; p += F; }
+    if constexpr (G32) {
+      s.hv = Strided{p, H};
+      p += NHV * H;
+      s.fv = Strided{p, F};
+      p += NFV * F;
+    } else {
+      for (int i = 0; i < NHV; ++i) { s.hv[i] = p; p += H; }
+      for (int i = 0; i < NFV; ++i) { s.fv[i] = p; p += F; }
+    }
     s.vm = p; p += F;
     s.aa = p; p += F;
     s.ab = p; p += F;
@@ -316,12 +380,14 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     s.As = p; p += BK * (BM + 1);
     s.Bs = p; p += BK * BN;
     s.red = p;
+    if constexpr (G32)
+      s.ring = (float*)(((uintptr_t)(p + NWARPS) + 15) & ~(uintptr_t)15);
   }
   float *va = s.hv[0], *vb = s.hv[1], *vc = s.hv[2], *gov = s.hv[3];
   float *x1 = s.hv[4], *x2 = s.hv[5], *u1 = s.hv[6], *u2 = s.hv[7];
   float* vm = s.vm;
 
-  const Ws wl(Nv, Nf, Na, F, H, L, T_);
+  const WsT<Idx> wl(Nv, Nf, Na, F, H, L, T_);
   float* ws = a.ws + (size_t)b * wl.size;
   float* grv = ws + wl.grv;
   float* gra = ws + wl.gra;
@@ -337,7 +403,7 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
   float* m2 = ws + wl.m2;
   float* dtokw = ws + wl.dtok;
   float* dauxw = ws + wl.daux;
-  const Small sl(H, F);
+  const SmallT<Idx> sl(H, F);
   float* sp = a.small + (size_t)b * sl.size;
 
   const T* rv = a.rv + (size_t)b * Nv * H;
@@ -361,18 +427,18 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
 
   for (int t = T_ - 1; t >= 0; --t) {
     if (tid < NSF) ins[tid] = a.scal[((size_t)b * T_ + t) * NSF + tid];
-    const size_t rec = (size_t)b * T_ + t;
-    int* meta = a.meta + rec * NSLOT * 3;
-    float* X0 = a.X0 + rec * FH;
-    float* D0 = a.D0 + rec * FH;
-    float* X1 = a.X1 + rec * FH;
-    float* D1 = a.D1 + rec * FH;
-    float* X2 = a.X2 + rec * FH;
-    float* D2 = a.D2 + rec * FH;
-    float* X3 = a.X3 + rec * 3 * H;
-    float* D3 = a.D3 + rec * H;
-    float* X4 = a.X4 + rec * H;
-    float* D4 = a.D4 + rec * H;
+    const Sz rec = (Sz)b * T_ + t;
+    int* meta = a.meta + (size_t)rec * NSLOT * 3;
+    float* X0 = a.X0 + (size_t)rec * FH;
+    float* D0 = a.D0 + (size_t)rec * FH;
+    float* X1 = a.X1 + (size_t)rec * FH;
+    float* D1 = a.D1 + (size_t)rec * FH;
+    float* X2 = a.X2 + (size_t)rec * FH;
+    float* D2 = a.D2 + (size_t)rec * FH;
+    float* X3 = a.X3 + (size_t)rec * 3 * H;
+    float* D3 = a.D3 + (size_t)rec * H;
+    float* X4 = a.X4 + (size_t)rec * H;
+    float* D4 = a.D4 + (size_t)rec * H;
     if (tid < NSLOT) {
       meta[tid * 3] = -1;
       meta[tid * 3 + 1] = 0;
@@ -418,14 +484,14 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     const T* sw2 = a.w2u + (size_t)e1 * H * H;
     const T* sb2 = a.b2u + (size_t)e1 * H;
     if (e1 != 9) {
-      gemm<T, false, false>(fa, H, 1, sw1, H, 1, F, H, H, s.As, s.Bs,
+      prod<G32, false, false, T>(fa, H, sw1, H, F, H, H, s,
                             [&](int m, int n, float acc) {
         const float v = acc + to_f(sb1[n]);
         hpre[(size_t)m * H + n] = v;
         X1[(size_t)m * H + n] =
             rd<T>(fmaxf(v, 0.f) * dr.keep(m, n, b, t, 0));
       });
-      gemm<T, false, false>(X1, H, 1, sw2, H, 1, F, H, H, s.As, s.Bs,
+      prod<G32, false, false, T>(X1, H, sw2, H, F, H, H, s,
                             [&](int m, int n, float acc) {
         const float v = acc + to_f(sb2[n]);
         h2w[(size_t)m * H + n] = v;
@@ -789,11 +855,11 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
         // the F candidate rows of fb, then the cosine-matrix VJP.
         const T* fb = rf + (size_t)ifb * FH;
         float* gfb = grf + (size_t)ifb * FH;
-        gemm<T, false, false>(fb, H, 1, wk, H, 1, F, H, H, s.As, s.Bs,
+        prod<G32, false, false, T>(fb, H, wk, H, F, H, H, s,
                               [&](int m, int n, float acc) {
           w1[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
         });
-        gemm<T, false, false>(w1, H, 1, feat, 1, H, F, H, F, s.As, s.Bs,
+        prod<G32, false, true, T>(w1, H, feat, H, F, H, F, s,
                               [&](int m, int n, float acc) {
           m2[(size_t)m * F + n] = acc;  // dots[i][f]
         });
@@ -868,7 +934,7 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
         for (size_t i = tid; i < FH; i += THREADS) X2[i] = to_f(fb[i]);
         set_meta(meta, 2, TB_W2T, 2, F);
         // fb += mmT(g_kf, w2t[2])
-        gemm<T, true, false>(D2, H, 1, wk, 1, H, F, H, H, s.As, s.Bs,
+        prod<G32, true, true, T>(D2, H, wk, H, F, H, H, s,
                              [&](int m, int n, float acc) {
           gfb[(size_t)m * H + n] += acc;
         });
@@ -892,7 +958,7 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
       for (size_t i = tid; i < FH; i += THREADS)
         X2[i] = rd<T>(gate[i / H] * feat[i]);
       sync();
-      gemm<T, false, false>(X2, H, 1, a.w2t, H, 1, F, H, H, s.As, s.Bs,
+      prod<G32, false, false, T>(X2, H, a.w2t, H, F, H, H, s,
                             [&](int m, int n, float acc) {
         const float y2 = acc + to_f(a.b2t[n]);
         D2[(size_t)m * H + n] = y2 > 0.f
@@ -900,7 +966,7 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
             : 0.f;
       });
       set_meta(meta, 2, TB_W2T, 0, F);
-      gemm<T, true, false>(D2, H, 1, a.w2t, 1, H, F, H, H, s.As, s.Bs,
+      prod<G32, true, true, T>(D2, H, a.w2t, H, F, H, H, s,
                            [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
@@ -972,8 +1038,8 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
         X2[i] = rd<T>(rel[i / H] * to_f(fa[i]));
       sync();
       // y2 into w2, ry = relu(y2) * mask into w1
-      gemm<T, false, false>(X2, H, 1, a.w2t + (size_t)H * H, H, 1, F, H, H,
-                            s.As, s.Bs, [&](int m, int n, float acc) {
+      prod<G32, false, false, T>(X2, H, a.w2t + (size_t)H * H, H, F, H, H,
+                            s, [&](int m, int n, float acc) {
         const float y2 = acc + to_f(a.b2t[H + n]);
         w2[(size_t)m * H + n] = y2;
         w1[(size_t)m * H + n] = fmaxf(y2, 0.f) * dr.keep(m, n, b, t, 2);
@@ -1024,8 +1090,8 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
       }
       set_meta(meta, 2, TB_W2T, 1, F);
       sync();
-      gemm<T, true, false>(D2, H, 1, a.w2t + (size_t)H * H, 1, H, F, H, H,
-                           s.As, s.Bs, [&](int m, int n, float acc) {
+      prod<G32, true, true, T>(D2, H, a.w2t + (size_t)H * H, H, F, H, H,
+                           s, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
       float *gr0 = s.fv[7], *gp3 = s.fv[8], *gh2 = s.fv[9], *gh1 = s.fv[10];
@@ -1152,12 +1218,12 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
       set_meta(meta, 1, TB_W2U, e1, F);
       set_meta(meta, 0, TB_W1U, e1, F);
       sync();
-      gemm<T, true, false>(D1, H, 1, sw2, 1, H, F, H, H, s.As, s.Bs,
+      prod<G32, true, true, T>(D1, H, sw2, H, F, H, H, s,
                            [&](int m, int n, float acc) {
         const size_t i = (size_t)m * H + n;
         D0[i] = hpre[i] > 0.f ? acc * dr.keep(m, n, b, t, 0) : 0.f;
       });
-      gemm<T, true, false>(D0, H, 1, sw1, 1, H, F, H, H, s.As, s.Bs,
+      prod<G32, true, true, T>(D0, H, sw1, H, F, H, H, s,
                            [&](int m, int n, float acc) {
         gfa[(size_t)m * H + n] += acc;
       });
@@ -1266,7 +1332,280 @@ __global__ void __launch_bounds__(THREADS) mega_wgrad_kernel(const WArgs a) {
     a.db[table][(size_t)expert * H + n0 + tid] = bsum;
 }
 
-template <typename T>
+#ifdef STAIR_GRAD_FMA32
+// The "fma32" route's weight gradients (float32 only): what
+// mega_wgrad_kernel computes, on register-blocked tiles, bit for bit.
+//
+// mega_wgrad_index_kernel, one block per job (a table's expert), lists the
+// job's record rows once, in (example, step, row) order: a prefix over the
+// rows of the matching meta entries, 256 records a round. A row is g = rec *
+// R + i (R = F in the [F, H] slots 0-2, 1 in the vec slots 3-4), so its X
+// row is X[slot] + g * xrow and its dY row D[slot] + g * H. The blocks past
+// the jobs sum the small per-example partials over examples in order, as
+// mega_wgrad_kernel does, one element a thread (its loads in flight
+// together: the sum is a chain of B adds).
+//
+// mega_wgrad_fma32_kernel: block (n tile, k tile, job) computes the WG_TILE x
+// WG_TILE tile of dW = sum over the job's rows of X^T dY, each output one
+// FMA chain over the rows in list order (mega_wgrad_kernel's chain without
+// its zero padding rows, which add nothing), 4 x 4 sums a thread in
+// registers, the X and dY rows streamed WG_ROWS at a time through a
+// WG_STAGES-stage cp.async ring, each thread's list entries read a chunk
+// ahead of its copies. A chain cannot be split without moving the bits, so
+// the largest job (phase 8: one expert's 126 records x 64 rows) bounds the
+// launch by its tiles' chains: 64 x 64 tiles give it 64 blocks (128 x 128
+// gave 16), and on the card 256 threads a tile finished the launch sooner
+// than 64 threads with 8 x 8 sums each, which feed the FMAs with fewer
+// shared loads. The blocks of k tile 0 also write db, the float32 row sum
+// of dY in list order. No float atomics: two runs give the same bits.
+struct W32Args : WArgs {
+  int* list;      // record rows of each job, at job_rows(job)
+  int* counts;    // [njobs] rows listed
+};
+
+// Offset of job's list in W32Args::list (nrec * R rows of room a job) and
+// its table and expert.
+__device__ inline long job_rows(int job, int nrec, int F, int& table,
+                                int& expert) {
+  long base = 0;
+  table = 0;
+  while (job >= TB_E[table]) {
+    base += (long)TB_E[table] * nrec * (TB_SLOT[table] <= 2 ? F : 1);
+    job -= TB_E[table++];
+  }
+  expert = job;
+  return base + (long)job * nrec * (TB_SLOT[table] <= 2 ? F : 1);
+}
+
+constexpr int WG_TILE = 64;
+// WG_SIDE^2 threads a block, (WG_TILE / WG_SIDE)^2 sums a thread
+constexpr int WG_SIDE = 16;
+constexpr int WG_THREADS = WG_SIDE * WG_SIDE;
+static_assert(WG_THREADS >= WG_TILE, "a thread a column of db");
+constexpr int WG_ROWS = 32;
+constexpr int WG_STAGES = 3;
+constexpr int WG_STAGE = 2 * WG_ROWS * WG_TILE;   // X rows, then dY rows
+constexpr size_t WG_SMEM_BYTES = WG_STAGES * WG_STAGE * sizeof(float);
+
+__global__ void __launch_bounds__(THREADS)
+    mega_wgrad_index_kernel(const W32Args a) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  if ((int)blockIdx.x >= a.njobs) {   // an element a thread
+    const long n = Small(a.H, a.F).size;
+    const long e = (long)(blockIdx.x - a.njobs) * THREADS + tid;
+    if (e < n) {
+      float acc = 0.f;
+#pragma unroll 8
+      for (int b = 0; b < a.B; ++b) acc += a.small[(size_t)b * n + e];
+      a.dsmall[e] = acc;
+    }
+    return;
+  }
+  __shared__ int wsum[NWARPS];
+  const int nrec = a.B * a.T_;
+  int table, expert;
+  int* list = a.list + job_rows(blockIdx.x, nrec, a.F, table, expert);
+  const int slot = TB_SLOT[table], R = slot <= 2 ? a.F : 1;
+  int base = 0;
+  for (int r0 = 0; r0 < nrec; r0 += THREADS) {
+    const int r = r0 + tid;
+    int rows = 0;
+    if (r < nrec) {
+      const int* m = a.meta + ((size_t)r * NSLOT + slot) * 3;
+      if (m[0] == table && m[1] == expert) rows = m[2];
+    }
+    int incl = rows;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) wsum[w] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int q = 0; q < NWARPS; ++q) {
+      before += q < w ? wsum[q] : 0;
+      total += wsum[q];
+    }
+    const int off = base + before + incl - rows;
+    for (int i = 0; i < rows; ++i) list[off + i] = r * R + i;
+    base += total;
+    __syncthreads();   // wsum is written again next round
+  }
+  if (tid == 0) a.counts[blockIdx.x] = base;
+}
+
+__global__ void __launch_bounds__(WG_THREADS)
+    mega_wgrad_fma32_kernel(const W32Args a) {
+  extern __shared__ __align__(16) float wg_ring[];
+  // WG_SIDE x WG_SIDE threads, NT x NT sums each: thread (ty, tx) owns rows
+  // k0 + 4 WG_SIDE h + 4 ty + i and columns n0 + 4 WG_SIDE h + 4 tx + j (h <
+  // NT / 4, i, j < 4): 16-byte loads a quarter warp reads from one address
+  // (X) or 128 contiguous bytes (dY)
+  constexpr int NT = WG_TILE / WG_SIDE, SPAN = 4 * WG_SIDE;
+  constexpr int COPIES = WG_ROWS * WG_TILE / 4 / WG_THREADS;
+  const int H = a.H, tid = threadIdx.x;
+  const int tx = tid % WG_SIDE, ty = tid / WG_SIDE;
+  int table, expert;
+  const int* list =
+      a.list + job_rows(blockIdx.z, a.B * a.T_, a.F, table, expert);
+  const int Kin = TB_K[table] * H, slot = TB_SLOT[table];
+  const int k0 = blockIdx.y * WG_TILE, n0 = blockIdx.x * WG_TILE;
+  if (k0 >= Kin) return;
+  const long xrow = slot == 3 ? 3L * H : H;
+  const float* X = a.X[slot] + k0;
+  const float* D = a.D[slot] + n0;
+  const int n = a.counts[blockIdx.z];
+  const int nch = (n + WG_ROWS - 1) / WG_ROWS;
+  // the record rows of this thread's copies of chunk c, read a chunk ahead
+  // of their copies so that the list's latency hides behind a chunk's FMAs
+  int g[COPIES];
+  auto rows_of = [&](int c) {
+#pragma unroll
+    for (int q = 0; q < COPIES; ++q) {
+      const int row = c * WG_ROWS + (tid + q * WG_THREADS) / (WG_TILE / 4);
+      g[q] = row < n ? list[row] : -1;
+    }
+  };
+  auto load = [&](int c) {
+    float* Xs = wg_ring + (c % WG_STAGES) * WG_STAGE;
+    float* Ds = Xs + WG_ROWS * WG_TILE;
+#pragma unroll
+    for (int q = 0; q < COPIES; ++q) {
+      const int p = tid + q * WG_THREADS;
+      const int rr = p / (WG_TILE / 4), col = (p % (WG_TILE / 4)) * 4;
+      const bool in = g[q] >= 0;
+      const long r = in ? g[q] : 0;
+      stair::cp_async16(Xs + rr * WG_TILE + col, X + r * xrow + col, in);
+      stair::cp_async16(Ds + rr * WG_TILE + col, D + r * H + col, in);
+    }
+    stair::cp_async_commit();
+  };
+  float acc[NT][NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j] = 0.f;
+  float bsum = 0.f;   // column n0 + tid of db (k tile 0, tid < WG_TILE)
+  const bool dbias = blockIdx.y == 0 && tid < WG_TILE;
+  if (nch > 0) {
+    rows_of(0);
+    load(0);
+  }
+  if (nch > 1) {
+    rows_of(1);
+    load(1);
+  }
+  if (nch > 2) rows_of(2);
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch)
+      stair::cp_async_wait<1>();
+    else
+      stair::cp_async_wait<0>();
+    __syncthreads();   // chunk c landed; chunk c - 1's stage is free
+    if (c + 2 < nch) load(c + 2);
+    if (c + 3 < nch) rows_of(c + 3);
+    const float* Xs = wg_ring + (c % WG_STAGES) * WG_STAGE;
+    const float* Ds = Xs + WG_ROWS * WG_TILE;
+    const int rows = min(WG_ROWS, n - c * WG_ROWS);
+    if (dbias)
+      for (int rr = 0; rr < rows; ++rr) bsum += Ds[rr * WG_TILE + tid];
+#pragma unroll 2
+    for (int rr = 0; rr < rows; ++rr) {
+      float x[NT], d[NT];
+#pragma unroll
+      for (int h = 0; h < NT / 4; ++h) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            Xs + rr * WG_TILE + SPAN * h + 4 * ty);
+        const float4 v = *reinterpret_cast<const float4*>(
+            Ds + rr * WG_TILE + SPAN * h + 4 * tx);
+        x[4 * h] = u.x;
+        x[4 * h + 1] = u.y;
+        x[4 * h + 2] = u.z;
+        x[4 * h + 3] = u.w;
+        d[4 * h] = v.x;
+        d[4 * h + 1] = v.y;
+        d[4 * h + 2] = v.z;
+        d[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[i][j] = fmaf(x[i], d[j], acc[i][j]);
+    }
+  }
+  float* dw = a.dw[table] + (size_t)expert * Kin * H;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int k = k0 + SPAN * (i / 4) + 4 * ty + i % 4;
+#pragma unroll
+    for (int h = 0; h < NT / 4; ++h)
+      *reinterpret_cast<float4*>(dw + (size_t)k * H + n0 + SPAN * h +
+                                 4 * tx) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
+  }
+  if (dbias) a.db[table][(size_t)expert * H + n0 + tid] = bsum;
+}
+
+// stair_mega_f32_product_check's kernel: block 0 runs gemm, block 1 gemm32
+// (column tile BN), reps times each on the same operands (A [M, K], W [K, N]
+// or, NK, [N, K]), the sums stored as they are; clk[block] is the block's
+// clock64() span.
+template <bool NK, int BN>
+__global__ void __launch_bounds__(THREADS)
+    f32_product_check_kernel(const float* A, const float* W, int M, int K,
+                             int N, int reps, float* outg, float* out32,
+                             long long* clk) {
+  extern __shared__ __align__(16) float pc_smem[];
+  const long long c0 = clock64();
+  for (int r = 0; r < reps; ++r) {
+    if (blockIdx.x == 0)
+      gemm<float, false, false>(A, K, 1, W, NK ? 1 : N, NK ? K : 1, M, K, N,
+                                pc_smem, pc_smem + BK * (BM + 1),
+                                [&](int m, int n, float acc) {
+        outg[(size_t)m * N + n] = acc;
+      });
+    else
+      gemm32<NK, BN>(A, K, W, NK ? K : N, M, K, N, pc_smem,
+                     [&](int m, int n, float acc) {
+        out32[(size_t)m * N + n] = acc;
+      });
+  }
+  if (threadIdx.x == 0) clk[blockIdx.x] = clock64() - c0;
+}
+
+template <bool NK, int BN>
+int product_check(const float* A, const float* W, int M, int K, int N,
+                  int reps, float* outg, float* out32, long long* clk,
+                  cudaStream_t stream) {
+  const size_t smem = g32_ring<NK, BN>() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      f32_product_check_kernel<NK, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  f32_product_check_kernel<NK, BN><<<2, THREADS, smem, stream>>>(
+      A, W, M, K, N, reps, outg, out32, clk);
+  return (int)cudaGetLastError();
+}
+#endif  // STAIR_GRAD_FMA32
+
+// Dynamic shared memory of the walk per block, in bytes: NHV [H] and NFV +
+// 5 [F] float vectors, gemm's tiles, the reduction slots; on the "fma32"
+// route (G32) also gemm32's ring at the walk's column tile (both B
+// layouts) after 16 bytes of room to align it. ops/mega_grad.py
+// bwd_smem_bytes mirrors it.
+__host__ __device__ constexpr size_t bwd_smem_bytes(int F, int H, bool G32) {
+  return ((size_t)NHV * H + (size_t)(NFV + 5) * F + BK * (BM + 1) + BK * BN +
+          NWARPS) * sizeof(float) +
+         (G32 ? 16 + g32_ring<true, G32_WALK_BN>() * sizeof(float) : 0);
+}
+static_assert(bwd_smem_bytes(stair::FMA32_MAX_F, stair::FMA32_MAX_H, true) <=
+                  232448,
+              "the fma32 walk's shared memory fits one block's 227 KB");
+
+template <typename T, bool G32 = false>
 int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
                int Na, int F, int H, int L, int fsoft, stair::Dropout dr,
                cudaStream_t stream) {
@@ -1298,21 +1637,22 @@ int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
   a.L = L;
   a.fsoft = fsoft;
   a.dr = dr;
-  const size_t smem = ((size_t)NHV * H + (size_t)(NFV + 5) * F +
-                       BK * (BM + 1) + BK * BN + NWARPS) * sizeof(float);
+  const size_t smem = bwd_smem_bytes(F, H, G32);
   cudaError_t e = cudaFuncSetAttribute(
-      mega_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mega_bwd_kernel<T, G32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  mega_bwd_kernel<T><<<B, THREADS, smem, stream>>>(a);
+  mega_bwd_kernel<T, G32><<<B, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Each translation unit instantiates one compute dtype, so the two build
-// in parallel: this file float32 (entry points *_f32), mega_grad_bf16.cu
-// bf16 (entry points *_bf16).
+// Each translation unit instantiates one route and compute dtype, so the
+// three build in parallel: this file the general route in float32 (entry
+// points *_f32), mega_grad_bf16.cu in bf16 (entry points *_bf16),
+// mega_grad_fma32.cu the float32 "fma32" route (entry points *_fma32,
+// stair_mega_exec_bwd_smem, stair_mega_f32_product_check).
 #ifdef STAIR_GRAD_BF16
 using GradT = __nv_bfloat16;
 #define STAIR_GRAD_ENTRY(name) name##_bf16
@@ -1326,6 +1666,7 @@ using GradT = float;
 // buffers and the small partials.
 constexpr int NBWD = NARGS + 10 + 2 * NSLOT + 1;
 
+#ifndef STAIR_GRAD_FMA32
 // ptrs: see NBWD. ws: float32 [B, Ws(Nv, Nf, Na, F, H, L, T).size]; record
 // buffers X0..D2 [B*T, F, H], X3 [B*T, 3H], D3/X4/D4 [B*T, H], meta int32
 // [B*T, 5, 3], small [B, Small(H, F).size], all float32 unless stated.
@@ -1374,3 +1715,106 @@ extern "C" int STAIR_GRAD_ENTRY(stair_mega_exec_wgrad)(
   mega_wgrad_kernel<GradT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+#else
+// The widths the "fma32" route takes (as mega_exec.cu fma32_takes): H a
+// multiple of G32_BN in [G32_BN, FMA32_MAX_H], F a multiple of 16 in [16,
+// FMA32_MAX_F], L <= MAX_L.
+static bool fma32_takes(int F, int H, int L) {
+  return H % G32_BN == 0 && H >= G32_BN && H <= stair::FMA32_MAX_H &&
+         F % 16 == 0 && F >= 16 && F <= stair::FMA32_MAX_F && L <= MAX_L;
+}
+
+// The "fma32" walk (mega_bwd_kernel<float, true>): float32 at the widths
+// fma32_takes; arguments, records and outputs as stair_mega_exec_bwd_f32's,
+// every output equal to its bit for bit.
+extern "C" int stair_mega_exec_bwd_fma32(
+    const void* const* ptrs, int nptrs, void* ws, int B, int T, int Nv,
+    int Nf, int Na, int F, int H, int L, int fsoft, int drop, int seed0,
+    int seed1, unsigned thresh, float scale, void* stream) {
+  if (nptrs != NBWD || !fma32_takes(F, H, L))
+    return (int)cudaErrorInvalidValue;
+  const stair::Dropout dr{drop, seed0, seed1, thresh, scale};
+  return launch_bwd<float, true>(ptrs, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
+                                 dr, (cudaStream_t)stream);
+}
+
+// The "fma32" weight gradients: ptrs as stair_mega_exec_wgrad_f32's, then
+// list (int32, B * T * (26 F + 10) rows of room: job_rows) and counts
+// (int32 [36]), both scratch. Two launches: the index (and the small
+// tables' sum), then mega_wgrad_fma32_kernel. Outputs equal
+// stair_mega_exec_wgrad_f32's bit for bit.
+extern "C" int stair_mega_exec_wgrad_fma32(const void* const* ptrs,
+                                           int nptrs, int B, int T, int F,
+                                           int H, void* stream) {
+  if (nptrs != 1 + 2 * NSLOT + 1 + 2 * NTABLES + 1 + 2 || H % WG_TILE)
+    return (int)cudaErrorInvalidValue;
+  W32Args a;
+  int i = 0;
+  a.meta = (const int*)ptrs[i++];
+  for (int s = 0; s < NSLOT; ++s) {
+    a.X[s] = (const float*)ptrs[i++];
+    a.D[s] = (const float*)ptrs[i++];
+  }
+  a.small = (const float*)ptrs[i++];
+  for (int t = 0; t < NTABLES; ++t) {
+    a.dw[t] = (float*)ptrs[i++];
+    a.db[t] = (float*)ptrs[i++];
+  }
+  a.dsmall = (float*)ptrs[i++];
+  a.list = (int*)ptrs[i++];
+  a.counts = (int*)ptrs[i++];
+  a.B = B;
+  a.T_ = T;
+  a.F = F;
+  a.H = H;
+  a.njobs = 11 + 11 + 4 + 10;  // sum of TB_E
+  cudaStream_t st = (cudaStream_t)stream;
+  const int small_blocks = (int)((Small(H, F).size + THREADS - 1) / THREADS);
+  mega_wgrad_index_kernel<<<a.njobs + small_blocks, THREADS, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(mega_wgrad_fma32_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)WG_SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H / WG_TILE, 3 * H / WG_TILE, a.njobs);
+  mega_wgrad_fma32_kernel<<<grid, WG_THREADS, WG_SMEM_BYTES, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the walk per block at (F, H): the general route
+// (fma32 = 0) or the "fma32" route.
+extern "C" long stair_mega_exec_bwd_smem(int F, int H, int fma32) {
+  return (long)bwd_smem_bytes(F, H, fma32 != 0);
+}
+
+// The card check of gemm32 against gemm: block 0 runs gemm, block 1
+// gemm32 with column tile bn (64, 128 or 256), reps times each, on A
+// [M, K] and W [K, N] (nk = 0) or [N, K] (nk = 1), float32; outg and out32
+// get the [M, N] sums, clk (int64 [2]) each block's clock64() span. M <=
+// G32_BM, K and N multiples of 4.
+extern "C" int stair_mega_f32_product_check(const void* A, const void* W,
+                                            int M, int K, int N, int nk,
+                                            int bn, int reps, void* outg,
+                                            void* out32, void* clk,
+                                            void* stream) {
+  if (M < 1 || M > G32_BM || K % 4 || N % 4 || reps < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* a = (const float*)A;
+  const float* w = (const float*)W;
+  float* g = (float*)outg;
+  float* o = (float*)out32;
+  long long* c = (long long*)clk;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bn == 64)
+    return nk ? product_check<true, 64>(a, w, M, K, N, reps, g, o, c, st)
+              : product_check<false, 64>(a, w, M, K, N, reps, g, o, c, st);
+  if (bn == 128)
+    return nk ? product_check<true, 128>(a, w, M, K, N, reps, g, o, c, st)
+              : product_check<false, 128>(a, w, M, K, N, reps, g, o, c, st);
+  if (bn == 256)
+    return nk ? product_check<true, 256>(a, w, M, K, N, reps, g, o, c, st)
+              : product_check<false, 256>(a, w, M, K, N, reps, g, o, c, st);
+  return (int)cudaErrorInvalidValue;
+}
+#endif  // STAIR_GRAD_FMA32

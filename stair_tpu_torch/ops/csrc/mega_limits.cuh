@@ -13,4 +13,10 @@ constexpr int MAX_L = 1024;
 // multiple of 64 up to TC_MAX_H, F a multiple of 16 up to TC_MAX_F.
 constexpr int TC_MAX_H = 512;
 constexpr int TC_MAX_F = 64;
+// The float32 "fma32" routes (mega_exec_kernel<float, true>,
+// mega_bwd_kernel<float, true>): H a multiple of gemm32's column tile
+// G32_BN (mega_common.cuh) up to FMA32_MAX_H, F a multiple of 16 up to
+// FMA32_MAX_F (one row tile of gemm32).
+constexpr int FMA32_MAX_H = 512;
+constexpr int FMA32_MAX_F = 64;
 }  // namespace stair

@@ -17,8 +17,12 @@ the CUDA kernel for CUDA tensors, or an error; ``mega_exec`` packs and
 calls it, as the JAX function does. ``fwd_route`` picks the kernel before
 the launch: the tensor-core route (``mega_exec_tc_kernel``, launch keys
 ``mega_exec_tc`` for eval and ``mega_exec_train_tc`` for training) for
-bf16 at the shapes it takes, the general route (``mega_exec_kernel``:
-``mega_exec``, ``mega_exec_train``) for float32 and every other width.
+bf16 at the shapes it takes, the "fma32" route (``mega_exec_kernel<float,
+true>``: the general kernel with its products on ``gemm32``'s
+register-blocked tiles, bit for bit the general route's files;
+``mega_exec_fma32``, ``mega_exec_train_fma32``) for float32 at the shapes
+it takes, the general route (``mega_exec_kernel``: ``mega_exec``,
+``mega_exec_train``) for every other dtype and width.
 
 Training: ``mega_exec_train_call`` is the forward with the counter-hash
 dropout ``hash_keep`` at the JAX kernel's eight sites (TPU kernel #5); the
@@ -574,7 +578,8 @@ def mega_exec_train_call(meta, args, rate, seed):
     ``hash_keep`` dropout at ``rate`` keyed on ``seed`` (two int32 values).
     Plain version for CPU tensors; for CUDA tensors the kernel on the route
     ``fwd_route(dt, H, F, True)`` picks (``mega_exec_tc_kernel<true>``,
-    launch key ``mega_exec_train_tc``, or ``mega_exec_kernel``,
+    launch key ``mega_exec_train_tc``; ``mega_exec_kernel<float, true>``,
+    ``mega_exec_train_fma32``; or ``mega_exec_kernel``,
     ``mega_exec_train``). Hand the backward this call's register files:
     its walk on the same route recomputes them bit for bit."""
     if _build.on_cpu("mega_exec_train", args[0]):
@@ -597,18 +602,52 @@ def tc_shape(H, F) -> bool:
             and 16 <= F <= TC_MAX_F)
 
 
+#: the float32 "fma32" route's limits (``csrc/mega_limits.cuh``)
+FMA32_MAX_H, FMA32_MAX_F = _LIMITS["FMA32_MAX_H"], _LIMITS["FMA32_MAX_F"]
+
+
+def fma32_shape(H, F) -> bool:
+    """True where the executor's float32 "fma32" kernels take the widths:
+    H a multiple of ``gemm32``'s column tile ``G32_BN`` (128) in [G32_BN,
+    FMA32_MAX_H], F a multiple of 16 in [16, FMA32_MAX_F] (one row tile of
+    ``gemm32``)."""
+    bn = _TILES["G32_BN"]
+    return (H % bn == 0 and bn <= H <= FMA32_MAX_H and F % 16 == 0
+            and 16 <= F <= FMA32_MAX_F)
+
+
 def fwd_route(dtype, H, F, drop) -> str:
     """The forward's kernel route, chosen before any launch: ``"tc"``
     (``mega_exec_tc_kernel``: bf16 at the widths ``tc_shape`` takes; eval,
     launch key ``mega_exec_tc``, or the training forward with dropout,
-    ``drop`` true, ``mega_exec_train_tc``) or ``"general"``
-    (``mega_exec_kernel``: float32 and every other width; ``mega_exec``,
-    ``mega_exec_train``). The training forward's route is also the
-    backward's (``mega_grad.bwd_route``): each route's walk recomputes its
-    own forward's values bit for bit."""
+    ``drop`` true, ``mega_exec_train_tc``), ``"fma32"``
+    (``mega_exec_kernel<float, true>``: float32 at the widths
+    ``fma32_shape`` takes, its products on ``gemm32``; ``mega_exec_fma32``,
+    ``mega_exec_train_fma32``; its files equal the general route's bit for
+    bit) or ``"general"`` (``mega_exec_kernel``: every other dtype and
+    width; ``mega_exec``, ``mega_exec_train``). The training forward's route
+    is also the backward's (``mega_grad.bwd_route``): each route's walk
+    recomputes its own forward's values bit for bit."""
     if dtype == torch.bfloat16 and tc_shape(H, F):
         return "tc"
+    if dtype == torch.float32 and fma32_shape(H, F):
+        return "fma32"
     return "general"
+
+
+def fma32_smem_bytes() -> int:
+    """Shared memory of ``mega_exec_kernel<float, true>`` per block, as
+    ``csrc/mega_exec.cu FMA32_SMEM_BYTES`` computes it (the same at every
+    width): the static ``SmemT<true>`` (six float vectors of ``MAX_H``, six
+    of ``MAX_F``, one row of ``gemm``'s two tiles, the reduction slots, the
+    instruction row) and ``gemm32``'s ring in dynamic shared memory (its
+    stages of the A tile and of B as stored)."""
+    t = _TILES
+    static = 4 * (6 * MAX_H + 6 * MAX_F + t["BM"] + 1 + t["BN"]
+                  + t["THREADS"] // 32 + t["NSF"])
+    stage = (t["G32_BM"] * (t["G32_BK"] + t["G32_PAD"])
+             + t["G32_BK"] * t["G32_BN"])
+    return static + 4 * t["G32_STAGES"] * stage
 
 
 def tc_smem_bytes(F, H, L) -> int:
@@ -633,7 +672,8 @@ def _launch(key, meta, args, drop):
         return rv, rf, ra
     lib = _build.build()
     train = key == "mega_exec_train"
-    if fwd_route(dt, H, F, train) == "tc":
+    route = fwd_route(dt, H, F, train)
+    if route == "tc":
         # float32 [F, H] workspace: SUPF's keyword rows, TEMPORAL's pre-LN
         # rows (the hidden and feat tiles stay in shared memory)
         ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
@@ -647,6 +687,16 @@ def _launch(key, meta, args, drop):
         else:
             key = "mega_exec_tc"
             err = lib.stair_mega_exec_fwd_tc(*common, _build.stream_ptr(dev))
+    elif route == "fma32":
+        # the general route's workspace: gemm32 gives gemm's bits, and the
+        # kernel is mega_exec_kernel with gemm32's ring in shared memory
+        ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
+        key = "mega_exec_train_fma32" if train else "mega_exec_fma32"
+        err = lib.stair_mega_exec_fwd_fma32(
+            _build.pointers(args), len(args),
+            rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
+            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop,
+            _build.stream_ptr(dev))
     else:
         # Per-example float32 workspace: stage-1 hidden / GEMM operand
         # tile, the feat tile (persists across steps), and the temporal

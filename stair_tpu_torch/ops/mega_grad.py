@@ -15,9 +15,12 @@ training forward ``mega_exec_reference``); for CUDA tensors it launches
 the reverse walk, then the weight gradient reduction, on the route
 ``bwd_route`` picks before the launch, or raises: the tensor-core route
 (``csrc/mega_grad_tc.cu``, launch keys ``mega_exec_bwd_tc``,
-``mega_exec_wgrad_tc``) for bf16 at the widths it takes, the general route
-(``csrc/mega_grad.cu``, ``mega_exec_bwd``, ``mega_exec_wgrad``)
-otherwise. ``bwd_route`` is the training forward's route
+``mega_exec_wgrad_tc``) for bf16 at the widths it takes, the "fma32" route
+(``csrc/mega_grad.cu``'s walk on ``gemm32`` and its register-blocked
+weight gradients, ``mega_exec_bwd_fma32``, ``mega_exec_wgrad_fma32``) for
+float32 at the widths it takes, the general route (``csrc/mega_grad.cu``,
+``mega_exec_bwd``, ``mega_exec_wgrad``) otherwise. ``bwd_route`` is the
+training forward's route
 (``mega_exec.fwd_route``): each walk recomputes the forward values it needs
 (relu masks, bf16 roundings) with its own forward's product code, bit for
 bit, so it is handed the register files of the forward on its route.
@@ -39,7 +42,9 @@ DATA_GRAD_IDX = (1, 2, 4, 5, 7)
 NSLOT = 5
 
 #: record tables of the reduction launch: (ARG_NAMES of weight and bias,
-#: experts, input rows as a multiple of H), in mega_grad.cu's order
+#: experts, input rows as a multiple of H), in mega_grad.cu's order, and
+#: the record slot of each (``TB_SLOT``: slots 0-2 hold [F, H] rows, 3-4 one
+#: row)
 TABLES = (
     ("w1u", "b1u", 11, 1), ("w2u", "b2u", 11, 1), ("w2t", "b2t", 4, 1),
     ("fdw", "fdb", 1, 1), ("cw", "cb", 1, 2), ("eqw", "eqb", 1, 2),
@@ -47,6 +52,15 @@ TABLES = (
     ("taw2", "tab2", 1, 1), ("exw1", "exb1", 1, 3), ("exw2", "exb2", 1, 1),
     ("supw", "supb", 1, 1),
 )
+SLOTS = (0, 1, 2, 3, 3, 3, 3, 3, 3, 4, 3, 4, 3)
+
+
+def wgrad_rows_room(B, T, F) -> int:
+    """Rows of the "fma32" weight gradients' index (``csrc/mega_grad.cu
+    job_rows``): each job (a table's expert) has room for every record's
+    rows, ``F`` in the ``[F, H]`` slots and 1 in the vec slots."""
+    return B * T * sum(E * (F if slot <= 2 else 1)
+                       for (_, _, E, _), slot in zip(TABLES, SLOTS))
 
 
 def small_tables(H, F):
@@ -77,21 +91,29 @@ def bwd_route(dtype, H, F) -> str:
     ``mega_wgrad_tc_kernel``: bf16 at the widths ``mega_exec.tc_shape``
     takes; the recompute on #5's tensor-core product code, bit for bit
     ``mega_exec_tc_kernel<true>``'s, the bf16 gradient and weight products
-    on the tensor cores) or ``"general"`` (``mega_bwd_kernel`` +
-    ``mega_wgrad_kernel``: float32, the exact route, and every other width;
-    the recompute on ``mega_exec_kernel``'s ``gemm`` and ``vecmat``)."""
+    on the tensor cores), ``"fma32"`` (``mega_bwd_kernel<float, true>`` +
+    ``mega_wgrad_fma32_kernel``: float32 at the widths
+    ``mega_exec.fma32_shape`` takes; the walk's products on ``gemm32``, as
+    #5's on that route, and every output bit for bit the general route's)
+    or ``"general"`` (``mega_bwd_kernel`` + ``mega_wgrad_kernel``: every
+    other dtype and width; the recompute on ``mega_exec_kernel``'s ``gemm``
+    and ``vecmat``)."""
     return TX.fwd_route(dtype, H, F, True)
 
 
-def bwd_smem_bytes(F, H, tc) -> int:
-    """Dynamic shared memory of the walk per block, as ``csrc/mega_grad.cu
-    launch_bwd`` (general route) or ``csrc/mega_grad_tc.cu
-    bwd_smem_floats`` (tensor-core route) computes it: NHV ``[H]`` and NFV
-    + 5 ``[F]`` float vectors (at TC_MAX_H and TC_MAX_F on the tensor-core
-    route), gemm's tiles; on the tensor-core route, 16-byte aligned, the
-    larger of the bf16 ``[F, H + 8]`` operand tile with tc_gemm's ring and
-    vecmat_tc's partials (``THREADS * 8`` floats)."""
+def bwd_smem_bytes(F, H, route) -> int:
+    """Dynamic shared memory of the walk per block on ``route``, as
+    ``csrc/mega_grad.cu bwd_smem_bytes`` (general and "fma32" routes) or
+    ``csrc/mega_grad_tc.cu bwd_smem_floats`` (tensor-core route) computes
+    it: NHV ``[H]`` and NFV + 5 ``[F]`` float vectors (at TC_MAX_H and
+    TC_MAX_F on the tensor-core route), gemm's tiles; on the tensor-core
+    route, 16-byte aligned, the larger of the bf16 ``[F, H + 8]`` operand
+    tile with tc_gemm's ring and vecmat_tc's partials (``THREADS * 8``
+    floats); on the "fma32" route 16 bytes of room to align ``gemm32``'s
+    ring, then the ring at the walk's column tile ``G32_WALK_BN`` (its
+    stages of the A tile and of B in the larger, transposed layout)."""
     t = TX._TILES
+    tc = route == "tc"
     g = _build.header_ints("mega_grad_tc.cu" if tc else "mega_grad.cu")
     SH, SF = (TX.TC_MAX_H, TX.TC_MAX_F) if tc else (H, F)
     n = (g["NHV"] * SH + (g["NFV"] + 5) * SF + t["BK"] * (t["BM"] + 1)
@@ -101,6 +123,10 @@ def bwd_smem_bytes(F, H, tc) -> int:
         stage = t["TC_BN"] * (t["TC_BK"] + t["TC_PAD"])
         n += max((F * (H + t["TC_PAD"]) + t["TC_STAGES"] * stage) // 2,
                  t["THREADS"] * 8)
+    if route == "fma32":
+        ld = t["G32_BK"] + t["G32_PAD"]
+        ring = t["G32_STAGES"] * (t["G32_BM"] + t["G32_WALK_BN"]) * ld
+        return 4 * n + 16 + 4 * ring
     return 4 * n
 
 
@@ -182,12 +208,51 @@ def recompute_check(A, Bm, vec=False, chain=False):
     return out, walk
 
 
-def _launch_bwd(meta, args, outs, gouts, drop):
+def f32_product_check(A, W, nk=False, bn=None, reps=1):
+    """The card check of the "fma32" route's product helper: runs
+    ``stair::mega::gemm`` (the general route's) in one block and ``gemm32``
+    (column tile ``bn``: 64, 128 or 256; default ``G32_BN``) in another,
+    ``reps`` times each, on A float32 ``[M, K]`` (M <= 64) and W float32
+    ``[K, N]`` (B as stored) or, with ``nk``, ``[N, K]`` (B = W^T, the
+    walk's gradient products). Returns gemm's and gemm32's ``[M, N]`` sums,
+    which must be equal bit for bit, and each block's ``clock64()`` span
+    (int64 ``[2]``, on the CPU)."""
+    dev = A.device
+    M, K = A.shape
+    N = W.shape[0] if nk else W.shape[1]
+    _build.check_tensor("f32_product_check A", A, torch.float32, (M, K), dev)
+    _build.check_tensor("f32_product_check W", W, torch.float32,
+                        (N, K) if nk else (K, N), dev)
+    outg = torch.empty(M, N, dtype=torch.float32, device=dev)
+    out32 = torch.empty_like(outg)
+    clk = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = _build.build().stair_mega_f32_product_check(
+        A.data_ptr(), W.data_ptr(), M, K, N, int(bool(nk)),
+        bn or TX._TILES["G32_BN"], reps, outg.data_ptr(), out32.data_ptr(),
+        clk.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "mega_f32_product_check")
+    return outg, out32, clk.cpu()
+
+
+#: launch keys of each backward route: the walk, the weight gradients
+ROUTE_KEYS = {"tc": ("mega_exec_bwd_tc", "mega_exec_wgrad_tc"),
+              "fma32": ("mega_exec_bwd_fma32", "mega_exec_wgrad_fma32"),
+              "general": ("mega_exec_bwd", "mega_exec_wgrad")}
+
+
+def bwd_launches(meta, args, outs, gouts, drop):
+    """The backward's two launches on CUDA tensors, apart (``drop``:
+    ``mega_exec.dropout_params``). Allocates the outputs and scratch once
+    and returns ``(walk, wgrad, result)``: ``walk()`` launches the reverse
+    walk, then ``wgrad()`` the weight gradients on the walk's records
+    (either may be called again, to time it alone), and ``result()`` gives
+    ``mega_exec_bwd_call``'s outputs."""
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = TX.check_args("mega_exec_bwd", meta, args)
     if F > 256:
         raise ValueError(f"mega_exec_bwd kernel: F={F} (<= 256)")
-    tc = bwd_route(dt, H, F) == "tc"
+    route = bwd_route(dt, H, F)
+    tc = route == "tc"
     gouts = tuple(g.to(dt).contiguous() for g in gouts)
     for name, x in zip(("rv", "rf", "ra", "drv", "drf", "dra"),
                        tuple(outs) + gouts):
@@ -213,27 +278,44 @@ def _launch_bwd(meta, args, outs, gouts, drop):
     wgrads = [(torch.zeros(E, K * H, H, **f32), torch.zeros(E, H, **f32))
               for _, _, E, K in TABLES]
     dsmall = torch.zeros(n_small, **f32)
-    if B > 0:
-        ws = torch.empty(B, workspace_floats(Nv, Nf, Na, F, H, L, T, tc),
-                         **f32)
-        lib = _build.build()
-        stream = _build.stream_ptr(dev)
-        sfx = "tc" if tc else ("bf16" if dt == torch.bfloat16 else "f32")
-        walk, wgrad = (("mega_exec_bwd_tc", "mega_exec_wgrad_tc") if tc
-                       else ("mega_exec_bwd", "mega_exec_wgrad"))
-        ptrs = (*args, *outs, *gouts, dvid, dtok, daux, meta_rec, *recs,
-                *bias, small)
-        err = getattr(lib, f"stair_mega_exec_bwd_{sfx}")(
+    ws = torch.empty(B, workspace_floats(Nv, Nf, Na, F, H, L, T, tc), **f32)
+    # the "fma32" weight gradients' row index and its counts (scratch)
+    index = (torch.empty(wgrad_rows_room(B, T, F), dtype=torch.int32,
+                         device=dev),
+             torch.empty(sum(E for _, _, E, _ in TABLES), dtype=torch.int32,
+                         device=dev)) if route == "fma32" else ()
+    sfx = route if route != "general" else (
+        "bf16" if dt == torch.bfloat16 else "f32")
+    walk_key, wgrad_key = ROUTE_KEYS[route]
+    ptrs = (*args, *outs, *gouts, dvid, dtok, daux, meta_rec, *recs, *bias,
+            small)
+    wptrs = (meta_rec, *recs, *bias, small,
+             *[t for pair in wgrads for t in pair], dsmall, *index)
+
+    def walk():
+        err = getattr(_build.build(), f"stair_mega_exec_bwd_{sfx}")(
             _build.pointers(ptrs), len(ptrs), ws.data_ptr(),
-            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop, stream)
-        _build.check(err, walk)
-        _build.LAUNCHES[walk] += 1
-        wptrs = (meta_rec, *recs, *bias, small,
-                 *[t for pair in wgrads for t in pair], dsmall)
-        err = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")(
-            _build.pointers(wptrs), len(wptrs), B, T, F, H, stream)
-        _build.check(err, wgrad)
-        _build.LAUNCHES[wgrad] += 1
+            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop,
+            _build.stream_ptr(dev))
+        _build.check(err, walk_key)
+        _build.LAUNCHES[walk_key] += 1
+
+    def wgrad():
+        err = getattr(_build.build(), f"stair_mega_exec_wgrad_{sfx}")(
+            _build.pointers(wptrs), len(wptrs), B, T, F, H,
+            _build.stream_ptr(dev))
+        _build.check(err, wgrad_key)
+        _build.LAUNCHES[wgrad_key] += 1
+
+    def result():
+        return _bwd_outputs(meta, wgrads, dsmall, dvid, dtok, daux)
+
+    return walk, wgrad, result
+
+
+def _bwd_outputs(meta, wgrads, dsmall, dvid, dtok, daux):
+    """``mega_exec_bwd_call``'s outputs from the kernels' buffers."""
+    B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     by_name = {}
     shapes = dict(zip(TX.ARG_NAMES, TX._arg_shapes(B, T, F, H, Hh, L)))
     for (wn, bn, _, _), (dw, db) in zip(TABLES, wgrads):
@@ -247,6 +329,14 @@ def _launch_bwd(meta, args, outs, gouts, drop):
     return (dvid[..., :Hh].contiguous(), dvid[..., Hh:].contiguous(),
             dtok[..., :Hh].contiguous(), dtok[..., Hh:].contiguous(),
             daux) + weights
+
+
+def _launch_bwd(meta, args, outs, gouts, drop):
+    walk, wgrad, result = bwd_launches(meta, args, outs, gouts, drop)
+    if meta[0] > 0:
+        walk()
+        wgrad()
+    return result()
 
 
 class MegaExecTrain(torch.autograd.Function):

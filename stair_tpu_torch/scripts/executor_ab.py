@@ -19,18 +19,25 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   F 64, bf16, the 128-program pool), ``fwd_general_ms`` on the general
   route where the checkout has ``mega_exec.fwd_route``, and
   ``fwd_digest``: a SHA-256 of #4's three register files, which two
-  checkouts with the same #4 print alike;
+  checkouts with the same #4 print alike; ``fwd_f32_ms`` and
+  ``fwd_f32_digest``: #4 in float32 on the same batch (the float32
+  encoders and weights) on the route the checkout picks, with
+  ``fwd_f32_general_ms`` on the general route;
 - ``train_fwd_ms``: #5, ``mega_exec_train_call`` at the train step's B
   128 (dropout 0.25), ``train_fwd_general_ms`` on the general route where
   the checkout has ``mega_exec.fwd_route``, and ``train_digest`` /
-  ``train_f32_digest``: the same hash of #5's files in bf16 (the route the
-  checkout picks) and in float32 (the general route in every checkout);
+  ``train_f32_digest``: the same hash of #5's files in bf16 and in float32,
+  each on the route the checkout picks (float32: the "fma32" route where
+  the checkout has it, the general route before; the two give equal bits,
+  so the digest stays), with ``train_f32_ms``: #5 in float32 on that route;
 - ``bwd_ms``: #6, one ``mega_exec_bwd_call`` (its two launches and the
   wrapper's allocations), and ``walk_ms`` / ``wgrad_ms``: the device time
   of its walk and weight-gradient kernels (``torch.profiler``), with
   ``bwd_general_ms`` on the general route where the checkout has
-  ``mega_grad.bwd_route``; ``bwd_f32_ms``: the same call in float32 (the
-  general route in every checkout), on a float32 model's inputs.
+  ``mega_grad.bwd_route``; ``bwd_f32_ms``: the same call in float32 on the
+  route the checkout picks, on a float32 model's inputs, and
+  ``walk_f32_ms`` / ``wgrad_f32_ms``: its walk's and weight gradients'
+  device time (``torch.profiler``).
 - ``step_ms``: #10, the ``T`` (13) ``fused_step`` launches of a serving
   batch of 1024 on ``executor="step"`` on the route the checkout picks,
   ``step_general_ms`` on the general route where the checkout has
@@ -332,6 +339,17 @@ def one(root, tag, phases):
     meta, args = TX.prepare_args(
         cfg, mods, VideoNMN._fused_tables(mods), b0["trace"], kv[:2],
         b0["video_mask"].to(dt), kq[:2], b0["question_mask"])
+    # #4 in float32 on the same serving batch (the float32 encoders, the
+    # model's float32 weights)
+    with torch.no_grad():
+        kv = TL.bilstm(*TL._prep(p["video_encoder"], b0["video"],
+                                 b0["video_mask"]))
+        kq = TL.bilstm(*TL._prep(p["text_encoder"], b0["question"],
+                                 b0["question_mask"]))
+    cfg32 = NMNConfig(**{**cfg.to_dict(), "compute_dtype": "float32"})
+    meta32, args32 = TX.prepare_args(
+        cfg32, p["modules"], VideoNMN._fused_tables(p["modules"]),
+        b0["trace"], kv[:2], b0["video_mask"], kq[:2], b0["question_mask"])
     del kv, kq, serving
 
     # #5 and #6 on the train step's own inputs (chip_smoke phase 8's)
@@ -348,6 +366,9 @@ def one(root, tag, phases):
 
     def fwd():
         return TX.mega_exec_call(meta, args)
+
+    def fwd_f32():
+        return TX.mega_exec_call(meta32, args32)
 
     def train_fwd():
         return TX.mega_exec_train_call(tmeta, targs, tcfg.dropout, seed)
@@ -366,8 +387,15 @@ def one(root, tag, phases):
             with forced(TX, "fwd_route", "general"):
                 row["fwd_general_ms"] = cuda_time_ms(fwd, iters=3)
                 row["train_fwd_general_ms"] = cuda_time_ms(train_fwd, iters=3)
+        row["fwd_f32_ms"] = cuda_time_ms(fwd_f32, iters=3)
+        row["fwd_f32_digest"] = digest(fwd_f32())
+        if hasattr(TX, "fwd_route"):
+            with forced(TX, "fwd_route", "general"):
+                row["fwd_f32_general_ms"] = cuda_time_ms(fwd_f32, iters=3)
         row["train_f32_digest"] = digest(TX.mega_exec_train_call(
             f32[0], f32[1], tcfg.dropout, seed))
+        row["train_f32_ms"] = cuda_time_ms(lambda: TX.mega_exec_train_call(
+            f32[0], f32[1], tcfg.dropout, seed), iters=5)
         row["bwd_ms"] = cuda_time_ms(bwd, iters=5)
         parts = kernel_ms(bwd, ("mega_bwd", "mega_wgrad"))
         row["walk_ms"] = parts["mega_bwd"]
@@ -377,8 +405,12 @@ def one(root, tag, phases):
                 row["bwd_general_ms"] = cuda_time_ms(bwd, iters=3)
         row["bwd_f32_ms"] = cuda_time_ms(
             lambda: TG.mega_exec_bwd_call(*f32, tcfg.dropout, seed), iters=3)
+        parts = kernel_ms(lambda: TG.mega_exec_bwd_call(
+            *f32, tcfg.dropout, seed), ("mega_bwd", "mega_wgrad"), iters=3)
+        row["walk_f32_ms"] = parts["mega_bwd"]
+        row["wgrad_f32_ms"] = parts["mega_wgrad"]
         print(json.dumps(row), flush=True)
-    del args, targs, tout, cots, model, f32
+    del args, args32, targs, tout, cots, model, f32
     torch.cuda.empty_cache()
     for rnd in range(2):
         print(json.dumps({"tag": tag, "card": card, "round": rnd,

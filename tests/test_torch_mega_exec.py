@@ -206,12 +206,23 @@ def test_mega_exec_kernel_vs_plain_on_card(cuda_device, dtype, F, fsoft):
 # The forward's route, chosen before any launch: the tensor-core kernel
 # takes bf16, eval and training (drop) alike, at H a multiple of 64 in [64,
 # 512] and F a multiple of 16 in [16, 64] (the main paths' H 512, F 64);
-# float32 and every other width take the general kernel.
+# the "fma32" kernel takes float32 at H a multiple of 128 in [128, 512] and
+# F a multiple of 16 in [16, 64]; every other width takes the general
+# kernel.
 FWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 64, False, "tc"),
     (torch.bfloat16, 512, 64, True, "tc"),
     (torch.bfloat16, 192, 48, True, "tc"),
-    (torch.float32, 512, 64, False, "general"),
+    (torch.float32, 512, 64, False, "fma32"),
+    (torch.float32, 512, 64, True, "fma32"),
+    (torch.float32, 128, 16, False, "fma32"),
+    (torch.float32, 384, 48, True, "fma32"),
+    (torch.float32, 96, 16, False, "general"),
+    (torch.float32, 192, 64, True, "general"),
+    (torch.float32, 64, 16, True, "general"),
+    (torch.float32, 1024, 64, False, "general"),
+    (torch.float32, 512, 8, False, "general"),
+    (torch.float32, 512, 100, False, "general"),
     (torch.bfloat16, 64, 16, False, "tc"),
     (torch.bfloat16, 192, 48, False, "tc"),
     (torch.bfloat16, 32, 16, False, "general"),
@@ -266,6 +277,97 @@ def test_mega_exec_tc_train_shares_the_shared_memory_plan():
         src, re.S))
     assert entries == {"stair_mega_exec_fwd_tc": "false",
                        "stair_mega_exec_fwd_tc_train": "true"}
+
+
+def test_mega_exec_fma32_shared_memory_fits():
+    """The "fma32" forward's block (``mega_exec_kernel<float, true>``: the
+    general kernel's static vectors without gemm's tiles, and gemm32's ring
+    in dynamic shared memory) fits 227 KB, and twice in an SM's 228 KB (1 KB
+    reserved a block), as the general route runs two blocks an SM; the
+    source's plan, the same at every width, reads 108,136 bytes."""
+    assert TX.fma32_smem_bytes() <= TX.SMEM_MAX
+    assert 2 * (TX.fma32_smem_bytes() + 1024) <= 233472
+    assert TX.fma32_smem_bytes() == 108136
+
+
+def test_mega_exec_fma32_launch_shares_the_shared_memory_plan():
+    """The "fma32" entry point launches ``mega_exec_kernel<float, true>``
+    through ``launch<float, true>``, which sizes the dynamic shared memory
+    with ``FMA32_RING_BYTES``; the library reports ``FMA32_SMEM_BYTES`` (the
+    sum ``TX.fma32_smem_bytes`` mirrors and the card tests compare); eval
+    and training share the one entry (``drop`` 0 or 1), as on the general
+    route."""
+    import os
+
+    from stair_tpu_torch.ops import _build
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_exec.cu")) as f:
+        src = f.read()
+    launch = src[src.index("template <typename T, bool G32 = false>\n"
+                           "int launch("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "smem = FMA32_RING_BYTES;" in launch
+    assert "mega_exec_kernel<T, G32><<<B, THREADS, smem, stream>>>" in launch
+    entry = src[src.index('extern "C" int stair_mega_exec_fwd_fma32('):]
+    assert "launch<float, true>(" in entry[:entry.index("\n}\n")]
+    assert ("constexpr size_t FMA32_SMEM_BYTES = sizeof(SmemT<true>) + "
+            "FMA32_RING_BYTES;") in src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,fsoft", [(16, False), (16, True), (64, False),
+                                     (64, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_mega_exec_fma32_equals_general_on_card(cuda_device, monkeypatch,
+                                                F, fsoft, rate):
+    """The float32 "fma32" forward (``mega_exec_kernel<float, true>``, its
+    products on ``gemm32``) over every opcode, eval (rate 0, launch key
+    ``mega_exec_fma32``) and training (``mega_exec_train_fma32``): its
+    three files equal the general route's bit for bit (every relu side,
+    dropout site and rounding is the general route's), and both are within
+    1e-4 of the plain version. The library's shared memory is what
+    ``fma32_smem_bytes`` says."""
+    from stair_tpu_torch.ops import _build
+
+    cfg = NMNConfig(
+        hidden_size=128, video_size=24, text_size=20, answer_vocab_length=7,
+        max_video_length=F, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8,
+        filter_attention="softmax" if fsoft else "parity")
+    assert TX.fwd_route(torch.float32, 128, F, rate > 0) == "fma32"
+    model = TW.build_model(cfg, seed=1, device=cuda_device)
+    batch = TW.to_device(TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS * 2,
+                                         seed=8), cuda_device)
+    rng = np.random.RandomState(F)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.from_numpy(rng.randn(B, n, 64).astype(np.float32))
+              .to(cuda_device) for n in (F, F, L, L)]
+    mods = tree_map(lambda x: x.detach(), model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, model._fused_tables(mods), batch["trace"], halves[:2],
+        batch["video_mask"], halves[2:], batch["question_mask"])
+    seed = (123, 456)
+
+    def run():
+        if rate:
+            return TX.mega_exec_train_call(meta, args, rate, seed)
+        return TX.mega_exec_call(meta, args)
+
+    _build.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    key = "mega_exec_train_fma32" if rate else "mega_exec_fma32"
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 1}
+    monkeypatch.setattr(TX, "fwd_route", lambda *a: "general")
+    gen = run()
+    torch.cuda.synchronize()
+    ref = TX.mega_exec_reference(meta, args, rate, seed if rate else None)
+    for name, a, g, r in zip(("rv", "rf", "ra"), out, gen, ref):
+        assert torch.equal(a, g), name
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+    assert (_build.build().stair_mega_exec_fma32_smem()
+            == TX.fma32_smem_bytes())
 
 
 @pytest.mark.cuda

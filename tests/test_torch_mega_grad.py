@@ -362,14 +362,20 @@ def test_mega_train_kernels_vs_plain_on_card(cuda_device, dtype, F,
 
 # The backward's route, chosen before any launch: the tensor-core walk and
 # weight-gradient kernels take bf16 at the widths mega_exec.tc_shape takes
-# (H a multiple of 64 in [64, 512], F a multiple of 16 in [16, 64]);
-# float32 (the exact route) and every other width take the general kernels.
+# (H a multiple of 64 in [64, 512], F a multiple of 16 in [16, 64]); the
+# "fma32" kernels take float32 at the widths mega_exec.fma32_shape takes (H
+# a multiple of 128 in [128, 512], F a multiple of 16 in [16, 64]); every
+# other width takes the general kernels.
 BWD_ROUTE_CASES = [
-    (torch.bfloat16, 512, 64, "tc"), (torch.float32, 512, 64, "general"),
+    (torch.bfloat16, 512, 64, "tc"), (torch.float32, 512, 64, "fma32"),
     (torch.bfloat16, 64, 16, "tc"), (torch.bfloat16, 192, 48, "tc"),
     (torch.bfloat16, 32, 16, "general"), (torch.bfloat16, 160, 16, "general"),
     (torch.bfloat16, 576, 64, "general"), (torch.bfloat16, 512, 24, "general"),
     (torch.bfloat16, 512, 80, "general"), (torch.float32, 64, 16, "general"),
+    (torch.float32, 128, 16, "fma32"), (torch.float32, 256, 48, "fma32"),
+    (torch.float32, 96, 16, "general"), (torch.float32, 1024, 64, "general"),
+    (torch.float32, 512, 8, "general"), (torch.float32, 512, 100, "general"),
+    (torch.float32, 320, 64, "general"),
 ]
 
 
@@ -401,7 +407,7 @@ def test_mega_bwd_tc_shared_memory_fits():
     unchanged (37,216 bytes at F 64, H 512)."""
     for H in range(64, TX.TC_MAX_H + 1, 64):
         for F in range(16, TX.TC_MAX_F + 1, 16):
-            assert TG.bwd_smem_bytes(F, H, True) <= TX.SMEM_MAX, (F, H)
+            assert TG.bwd_smem_bytes(F, H, "tc") <= TX.SMEM_MAX, (F, H)
     t = TX._TILES
     g = _build.header_ints("mega_grad_tc.cu")
     vectors = 4 * ((g["NHV"] * TX.TC_MAX_H + (g["NFV"] + 5) * TX.TC_MAX_F
@@ -409,11 +415,60 @@ def test_mega_bwd_tc_shared_memory_fits():
                     + t["THREADS"] // 32 + 3) & ~3)
     for H in range(64, TX.TC_MAX_H + 1, 64):
         for F in range(16, TX.TC_MAX_F + 1, 16):
-            scratch = TG.bwd_smem_bytes(F, H, True) - vectors
+            scratch = TG.bwd_smem_bytes(F, H, "tc") - vectors
             assert scratch >= 2 * F * (H + t["TC_PAD"]), (F, H)
             assert scratch >= 4 * t["THREADS"] * 8, (F, H)
-    assert TG.bwd_smem_bytes(64, 512, False) == 37216
-    assert TG.bwd_smem_bytes(64, 512, True) == 131424
+    assert TG.bwd_smem_bytes(64, 512, "general") == 37216
+    assert TG.bwd_smem_bytes(64, 512, "tc") == 131424
+
+
+def test_mega_bwd_fma32_shared_memory_fits():
+    """The "fma32" walk's shared memory is the general route's (its vectors
+    and gemm's tiles, which the m1 products keep using), 16 bytes of room
+    to align gemm32's ring, and the ring at the walk's column tile (three
+    stages of the A tile and of B transposed, the larger layout); it fits one block's 227 KB at every
+    width the route takes (the source's static_assert at the largest), and
+    the launch sizes it with the function ``bwd_smem_bytes`` mirrors."""
+    t = TX._TILES
+    ring = 4 * t["G32_STAGES"] * (t["G32_BM"] + t["G32_WALK_BN"]) * (
+        t["G32_BK"] + t["G32_PAD"])
+    assert ring == 55296
+    for H in range(128, TX.FMA32_MAX_H + 1, 128):
+        for F in range(16, TX.FMA32_MAX_F + 1, 16):
+            assert TX.fma32_shape(H, F)
+            got = TG.bwd_smem_bytes(F, H, "fma32")
+            assert got == TG.bwd_smem_bytes(F, H, "general") + 16 + ring
+            assert got <= TX.SMEM_MAX, (F, H)
+    assert TG.bwd_smem_bytes(64, 512, "fma32") == 92528
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_grad.cu")) as f:
+        src = f.read()
+    launch = src[src.index("template <typename T, bool G32 = false>\n"
+                           "int launch_bwd("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "const size_t smem = bwd_smem_bytes(F, H, G32);" in launch
+    assert "mega_bwd_kernel<T, G32><<<B, THREADS, smem, stream>>>" in launch
+
+
+def test_mega_wgrad_slots_and_rows_room_follow_the_source():
+    """``SLOTS`` is ``TB_SLOT`` of ``csrc/mega_grad.cu`` (and ``TABLES``' experts
+    and input widths its ``TB_E`` and ``TB_K``), so ``wgrad_rows_room``
+    gives the "fma32" weight gradients' index the room ``job_rows`` lays out:
+    every record's rows for each table's expert, F in the ``[F, H]`` slots,
+    1 in the vec slots."""
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_grad.cu")) as f:
+        src = f.read()
+
+    def table(name):
+        body = re.search(name + r"\[NTABLES\] = \{([^}]*)\}", src).group(1)
+        return tuple(int(x) for x in body.split(","))
+
+    assert table("TB_SLOT") == TG.SLOTS
+    assert table("TB_E") == tuple(E for _, _, E, _ in TG.TABLES)
+    assert table("TB_K") == tuple(K for _, _, _, K in TG.TABLES)
+    assert TG.wgrad_rows_room(128, 13, 64) == 128 * 13 * (26 * 64 + 10)
+    assert TG.wgrad_rows_room(2, 3, 16) == 6 * (26 * 16 + 10)
 
 
 def test_mega_bwd_tc_workspace_adds_the_dy_rows():
@@ -583,4 +638,96 @@ def test_recompute_products_equal_forward_on_card(cuda_device, M, K, N,
         float(want.abs().max()), 1.0)
     # the walk's shared memory at (F, H) = (M, K), as bwd_smem_bytes says
     assert (_build.build().stair_mega_exec_bwd_tc_smem(M, K)
-            == TG.bwd_smem_bytes(M, K, True))
+            == TG.bwd_smem_bytes(M, K, "tc"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("nk", [False, True])
+@pytest.mark.parametrize("M,K,N", RECOMPUTE_SHAPES)
+def test_f32_product_check_equal_bits_on_card(cuda_device, M, K, N, nk, bn):
+    """``gemm32`` (the "fma32" route's product helper, at each column tile
+    timed) gives ``stair::mega::gemm``'s bits on the same float32 operands
+    in both B layouts (W as stored, and W^T as the walk's gradient products
+    read it), at the walk's product shapes, including ragged 128-column
+    tiles at H 192 and an N of 64; both within 1e-5 of the float64 product.
+    Each block reports a positive ``clock64()`` span. The walk's shared
+    memory on both float32 routes is what ``bwd_smem_bytes`` says."""
+    gen = torch.Generator().manual_seed(M + K + N + nk)
+    A = torch.randn(M, K, generator=gen).to(cuda_device)
+    W = (torch.randn(*((N, K) if nk else (K, N)), generator=gen)
+         / K ** 0.5).to(cuda_device)
+    outg, out32, clk = TG.f32_product_check(A, W, nk, bn, reps=2)
+    torch.cuda.synchronize()
+    assert torch.equal(outg, out32)
+    want = A.double() @ (W.double().T if nk else W.double())
+    assert float((out32.double() - want).abs().max()) < 1e-5 * max(
+        float(want.abs().max()), 1.0)
+    assert int(clk[0]) > 0 and int(clk[1]) > 0
+    lib = _build.build()
+    for route, flag in (("general", 0), ("fma32", 1)):
+        assert (lib.stair_mega_exec_bwd_smem(M, K, flag)
+                == TG.bwd_smem_bytes(M, K, route))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (16, "softmax"),
+                                         (64, "parity"), (64, "softmax")])
+def test_mega_bwd_fma32_equals_general_on_card(cuda_device, monkeypatch, F,
+                                               attention):
+    """The float32 "fma32" backward (the walk on ``gemm32`` and the
+    register-blocked weight gradients) at H 128 over the all-opcode
+    programs twice at dropout 0.25, handed its own forward's files (equal
+    to the general forward's bit for bit): every data cotangent and weight
+    gradient equals the general route's bit for bit, a second launch gives
+    the same bits, and each is within phase 7's float32 bound (5e-2 of its
+    scale) of the plain backward at those files. Launches: one
+    ``mega_exec_train_fma32``, one ``mega_exec_bwd_fma32`` and one
+    ``mega_exec_wgrad_fma32``, none of the general route's."""
+    cfg = NMNConfig(
+        hidden_size=128, video_size=24, text_size=20, answer_vocab_length=7,
+        max_video_length=F, object_types=3, max_steps=16, num_vec=10,
+        num_frames=6, num_attn=8, filter_attention=attention)
+    assert TG.bwd_route(torch.float32, 128, F) == "fma32"
+    model = TW.build_model(cfg, seed=1, device=cuda_device)
+    batch = TW.to_device(
+        TW.opcode_batch(cfg, TW.OPCODE_PROGRAMS * 2, seed=8), cuda_device)
+    gen = torch.Generator().manual_seed(F)
+    B, L = batch["question"].shape[:2]
+    halves = [torch.randn(B, n, 64, generator=gen).to(cuda_device)
+              for n in (F, F, L, L)]
+    mods = tree_map(lambda x: x.detach(), model.param_tree()["modules"])
+    meta, args = TX.prepare_args(
+        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], halves[:2],
+        batch["video_mask"], halves[2:], batch["question_mask"])
+    seed = (123, 456)
+    _build.reset_launches()
+    out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda_device) for o in out]
+    k1 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "mega_exec_train_fma32": 1, "mega_exec_bwd_fma32": 1,
+        "mega_exec_wgrad_fma32": 1}
+    k2 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    monkeypatch.setattr(TX, "fwd_route", lambda *a: "general")
+    out_gen = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    gen_b = TG.mega_exec_bwd_call(meta, args, out_gen, cots, 0.25, seed)
+    rb = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed,
+                                    at_files=True)
+    torch.cuda.synchronize()
+    for a, g in zip(out, out_gen):
+        assert torch.equal(a, g)
+    grads = dict(zip(GRAD_NAMES, rb))
+    for name, a, b, g, r in zip(GRAD_NAMES, k1, k2, gen_b, rb):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, g), name
+        if attention == "softmax" and name in ("fltk", "fltb"):
+            # 0 in exact arithmetic: float32 noise, bounded against the
+            # Filter logit weights' gradient
+            ref = float(grads["fltw"].float().abs().max())
+            assert float(a.float().abs().max()) <= 1e-3 * ref, name
+            continue
+        scale = max(float(r.float().abs().max()), 1e-12)
+        assert float((a.float() - r.float()).abs().max()) <= 5e-2 * scale, \
+            name
