@@ -90,9 +90,21 @@ Phases (any failure raises, and the script exits non-zero):
 9. the attention kernel vs its plain version: B = 4, H = 32, D = 128 at
    L = 640 and a ragged L = 611 (strided views), grouped heads 32 / 8,
    D = 64 with mixed ``prefix_len``, non-causal with Lq != Lkv, a head_dim
-   the tensor-core kernel refuses, ``valid_len`` from 0 to L and at 1,
-   127, 128, 129 (edges of the tensor-core kernel's query tiles); out and
-   lse, float32 within 1e-4 and bf16 within 2e-2; its time beside the plain
+   the tensor-core kernels refuse, ``valid_len`` from 0 to L and at 1,
+   127, 128, 129 (edges of the tensor-core kernels' query tiles), rows
+   one element off 16 bytes and rows of D + 1 elements; each case on the
+   route ``attention.fwd_route`` picks (bf16 ``"mma"``, float32 ``"mma32"``
+   where the rows are aligned and D is 64 or 128, else ``"simple"``; the
+   route tally shows it), out and lse, float32 within 1e-4 and bf16 within
+   2e-2; float32 also against ``flash_fwd_simple`` (1e-4, the same +inf
+   pattern) and against itself on a second launch (equal bits); a forced
+   tensor-core route on the unaligned rows must raise; float32 at the LLM
+   trainer CLIs' shapes (``with_video_lm``'s reply and video forwards, the
+   SFT step's) and at L = 640, D = 128, each checked as above on
+   ``"mma32"`` at its timed lengths and with ragged ``valid_len``, then
+   timed on ``"mma32"`` and ``"simple"`` beside the plain version, SDPA
+   float32 and the bound (bytes against three TF32 products a product at
+   495 TFLOP/s, with the 67 TFLOP/s float32 figure beside); bf16 timed beside the plain
    version's and ``scaled_dot_product_attention``'s (a yardstick only),
    the kernel's and the yardstick's as device time over calls replayed
    from a CUDA graph (``graph_ms``: the wrapper's host time exceeds the
@@ -132,7 +144,10 @@ Phases (any failure raises, and the script exits non-zero):
    seeded tiny data: ``videochat_train.main`` then ``videochat_infer`` on
    the checkpoint it saved; ``with_video_lm.main`` for the GPT-2 family
    with the video loss and for Llama with LoRA, each then ``--func test``
-   on what it saved;
+   on what it saved; every attention forward of these float32 runs on the
+   ``"mma32"`` route (``attention.ROUTE_LAUNCHES``), and the ``kernels``
+   line gets phase 9's float32 ``flash_attn`` entry (``"dtype":
+   "float32"``) with the VideoGPT run's launches;
 14. the register-slot kernels (set, zero, add) vs their plain versions on
    the three register files at the training shapes (B = 128: vec
    ``[128, 25, 512]``, frames ``[128, 9, 64, 512]``, attn ``[128, 11, 64]``),
@@ -1846,10 +1861,10 @@ def phase_train(dev, card):
     ]] + f32_entries
 
 
-def attention_bound(q, k, v, valid_len, prefix_len, causal=True):
-    """Attention forward on these inputs: 4 D operations per live (row,
-    column) pair and head (two products); q, k and v rows below
-    ``valid_len`` read once, out written once."""
+def attention_work(q, k, v, valid_len, prefix_len, causal=True):
+    """Attention forward on these inputs, as (operations, bytes): 4 D
+    operations per live (row, column) pair and head (two products); q, k
+    and v rows below ``valid_len`` read once, out written once."""
     from stair_tpu_torch.ops.attention import attention_mask
 
     B, H, Lq, D = q.shape
@@ -1860,7 +1875,174 @@ def attention_bound(q, k, v, valid_len, prefix_len, causal=True):
     rows_kv = float(valid_len.clamp(max=Lkv).sum())
     es = q.element_size()
     nbytes = es * D * (H * rows_q + 2 * Hkv * rows_kv + B * H * Lq)
-    return bound(4.0 * D * H * pairs, nbytes, q.dtype)
+    return 4.0 * D * H * pairs, nbytes
+
+
+def attention_bound(q, k, v, valid_len, prefix_len, causal=True):
+    """``attention_work`` at the peak rate of q's type."""
+    return bound(*attention_work(q, k, v, valid_len, prefix_len, causal),
+                 q.dtype)
+
+
+#: dense TF32 tensor-core rate of the H100 SXM (NVIDIA's data sheet)
+PEAK_TF32 = 495e12
+
+
+def attention_bound_mma32(q, k, v, valid_len, prefix_len, causal=True):
+    """The float32 "mma32" route's bound: ``attention_work``'s bytes
+    against its operations as three TF32 products each (split TF32) at
+    ``PEAK_TF32``; ``fma32_bound_ms`` is the float32 FMA figure (67
+    TFLOP/s) beside it."""
+    flops, nbytes = attention_work(q, k, v, valid_len, prefix_len, causal)
+    ops_ms = 3 * flops / PEAK_TF32 * 1e3
+    mem_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, mem_ms),
+            "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+            "fma32_bound_ms": bound(flops, nbytes,
+                                    torch.float32)["bound_ms"]}
+
+
+#: phase 9's timed float32 forwards (causal): the LLM trainer CLIs' at
+#: full lengths (phase 13 runs the CLIs) and phase 9's head_dim 128 case;
+#: name, B, heads, L, head_dim, prefix_len, valid_len (None: L)
+F32_ATTENTION_SHAPES = (
+    ("with_video_lm reply", 32, 8, 214, 64, 0, None),
+    ("with_video_lm video", 32, 8, 214, 64, 150, None),
+    ("videochat_train SFT", 8, 4, 512, 64, 0, None),
+    ("L640 D128", 4, 32, 640, 128, 0, (531, 560, 548, 537)),
+)
+
+
+def time_f32_attention(TA, dev, card, gen):
+    """Phase 9's float32 block, at each of ``F32_ATTENTION_SHAPES``:
+    ``check_attention`` on the "mma32" route at the timed lengths and with
+    ragged ``valid_len``, then "mma32" and "simple" (with lse, as training
+    calls them) and SDPA float32 with the boolean mask by CUDA-graph
+    replay, the plain version by CUDA events, and the bound
+    (``attention_bound_mma32``). Keeps the ``kernels`` entry of the video
+    forward (the heaviest CLI call) in ``SEEN["flash_attn_f32"]`` for
+    phase 13 to give its launches."""
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, B, H, L, D, prefix, valid in F32_ATTENTION_SHAPES:
+        q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev)
+                   .transpose(1, 2) for _ in range(3))
+        pl = torch.full((B,), prefix, dtype=torch.int32, device=dev)
+        vl = torch.tensor(valid or [L] * B, dtype=torch.int32, device=dev)
+        ragged = torch.tensor([L - (37 * i) % L for i in range(B)],
+                              dtype=torch.int32, device=dev)
+        require(TA.fwd_route(q.dtype, D, all(TA._aligned(t)
+                                             for t in (q, k, v))) == "mma32",
+                f"attention {name} float32: not on \"mma32\"")
+        err = lse_err = 0.0
+        for lens, what in ((vl, "timed lengths"), (ragged, "ragged")):
+            e_out, e_lse, note = check_attention(
+                TA, f"{name} {what}", q, k, v, pl, lens, True, 1e-4,
+                "mma32")
+            err, lse_err = max(err, e_out), max(lse_err, e_lse)
+            log(f"[flash_attn] float32 {name} {what} B={B} H={H} L={L} "
+                f"D={D} prefix {prefix} route mma32: out max_abs_err "
+                f"{e_out:.3e}, lse {e_lse:.3e} (atol 1e-4) ok{note}")
+        mask = TA.attention_mask(pl, vl, L, L)[:, None]
+
+        def on(route):
+            return lambda: TA._launch(q, k, v, pl, vl, True, D ** -0.5, True,
+                                      route=route)
+
+        def library():
+            with torch.no_grad():
+                sdpa(q, k, v, attn_mask=mask)
+
+        t = {"ms": graph_ms(on("mma32")), "simple_ms": graph_ms(on("simple")),
+             "plain_ms": cuda_time_ms(
+                 lambda: TA.reference_attention(q, k, v, pl, vl), iters=5),
+             "library_ms": graph_ms(library)}
+        b = attention_bound_mma32(q, k, v, vl, pl)
+        log(f"[flash_attn] float32 {name} B={B} H={H} L={L} D={D} prefix "
+            f"{prefix}: \"mma32\" {t['ms']:.4f} ms, \"simple\" "
+            f"{t['simple_ms']:.4f} ms (both with lse, CUDA graph replay), "
+            f"plain version {t['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention float32 with the boolean mask "
+            f"{t['library_ms']:.4f} ms (yardstick only), bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} (split-TF32 products "
+            f"at 495 TFLOP/s, 3.35 TB/s; at the 67 TFLOP/s float32 FMA rate "
+            f"{b['fma32_bound_ms']:.4f} ms); max_abs_err {err:.3e}; "
+            f"card {card}")
+        if name == "with_video_lm video":
+            SEEN["flash_attn_f32"] = {
+                "name": "flash_attn", "route": "cuda", "dtype": "float32",
+                "attention_route": "mma32",
+                "source": "stair_tpu_torch/ops/csrc/flash_attn.cu",
+                "replaces": "stair_tpu/ops/attention.py:73",
+                "shape": f"B {B} H {H} L {L} D {D} prefix {prefix} "
+                         "(with_video_lm video forward)",
+                "max_abs_err": err, "lse_err": lse_err, **t, **b}
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+
+
+def f32_route_checks(TA, name, q, k, v, pl, vl, causal, out, lse, route):
+    """A float32 case's route against ``flash_fwd_simple`` (out and lse
+    within 1e-4, the same +inf pattern) and against itself on a second
+    launch (equal bits); returns the largest difference from the simple
+    kernel."""
+    scale = q.shape[-1] ** -0.5
+    again = TA._launch(q, k, v, pl, vl, causal, scale, True, route=route)
+    simple = TA._launch(q, k, v, pl, vl, causal, scale, True,
+                        route="simple")
+    torch.cuda.synchronize()
+    require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+            f"attention {name} float32 {route}: bits differ between two "
+            "launches")
+    fin = torch.isfinite(simple[1])
+    require(torch.equal(torch.isfinite(lse), fin),
+            f"attention {name} float32 {route}: lse +inf pattern differs "
+            "from flash_fwd_simple's")
+    e = max(float((out - simple[0]).abs().max()),
+            float((lse[fin] - simple[1][fin]).abs().max()) if bool(
+                fin.any()) else 0.0)
+    require(e <= 1e-4, f"attention {name} float32 {route}: {e} from "
+            "flash_fwd_simple")
+    return e
+
+
+def check_attention(TA, name, q, k, v, pl, vl, causal, atol, route):
+    """One case through ``flash_attention``: one launch, on ``route``; out
+    within ``atol`` and lse within 1e-4 of the plain version (all rows:
+    below valid_len the function, at and past it the port's rule, 0 and
+    +inf, that kernel and plain version share), the same +inf pattern,
+    padding rows exactly 0; a float32 case also against flash_fwd_simple
+    and itself (``f32_route_checks``). Returns (out error, lse error, a
+    note for the log)."""
+    TA.reset_route_launches()
+    out, lse = TA.flash_attention(q, k, v, pl, vl, causal=causal,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    require(TA.ROUTE_LAUNCHES[route] == 1
+            and sum(TA.ROUTE_LAUNCHES.values()) == 1,
+            f"attention {name} {q.dtype}: {TA.ROUTE_LAUNCHES} for route "
+            f"{route}")
+    ref, ref_lse = TA.reference_attention(q, k, v, pl, vl, causal)
+    e_out = float((out.float() - ref.float()).abs().max())
+    fin = torch.isfinite(ref_lse)
+    require(torch.equal(torch.isfinite(lse), fin),
+            f"attention {name} {q.dtype}: lse +inf pattern differs")
+    e_lse = float((lse[fin] - ref_lse[fin]).abs().max()) if bool(
+        fin.any()) else 0.0
+    require(e_out <= atol and e_lse <= 1e-4,
+            f"attention {name} {q.dtype}: out {e_out} lse {e_lse}")
+    Lq = q.shape[2]
+    for b, n in enumerate(vl.tolist()):
+        require(n >= Lq or float(out[b, :, n:].abs().max()) == 0.0,
+                f"attention {name}: padding rows not zero")
+    note = ""
+    if q.dtype == torch.float32:
+        e_simple = f32_route_checks(TA, name, q, k, v, pl, vl, causal, out,
+                                    lse, route)
+        note = (f"; {e_simple:.3e} from flash_fwd_simple (bound 1e-4), "
+                "same bits twice")
+    return e_out, e_lse, note
 
 
 def phase_attention(dev, card):
@@ -1869,7 +2051,10 @@ def phase_attention(dev, card):
 
     gen = torch.Generator(device=dev).manual_seed(9)
     L = 640
-    # name, B, H, Hkv, Lq, Lkv, D, prefix_len, valid_len, causal, strided
+    # layout: 0 [B, heads, L, D]; 1 [B, L, heads, D] memory (the decoder's);
+    # 2 one element past a 16-byte boundary; 3 rows of D + 1 elements (2
+    # and 3 are unaligned: no tensor-core route takes them)
+    # name, B, H, Hkv, Lq, Lkv, D, prefix_len, valid_len, causal, layout
     cases = [
         ("L640", 4, 32, 32, L, L, 128, [0] * 4, [L, 500, 0, 611], True, 0),
         ("ragged L611", 4, 32, 32, 611, 611, 128, [0] * 4, [611, 300, 1, 64],
@@ -1886,38 +2071,52 @@ def phase_attention(dev, card):
          0),
         ("valid at query-tile edges", 4, 8, 8, 300, 300, 128,
          [0, 0, 5, 0], [1, 127, 128, 129], True, 1),
+        ("unaligned (offset 1 element)", 2, 4, 4, 100, 100, 64, [0, 10],
+         [100, 77], True, 2),
+        ("row stride D + 1", 2, 4, 4, 100, 100, 64, [0, 10], [100, 77], True,
+         3),
     ]
-    for name, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, strided in cases:
+    tensor_route = {torch.float32: "mma32", torch.bfloat16: "mma"}
+    for name, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, layout in cases:
         for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             def draw(heads, n):
-                shape = (B, n, heads, D) if strided else (B, heads, n, D)
-                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-                return x.transpose(1, 2) if strided else x
+                if layout == 1:
+                    return torch.randn(B, n, heads, D, generator=gen,
+                                       device=dev).to(dtype).transpose(1, 2)
+                if layout == 2:
+                    flat = torch.randn(B * heads * n * D + 1, generator=gen,
+                                       device=dev).to(dtype)
+                    return flat[1:].view(B, heads, n, D)
+                x = torch.randn(B, heads, n, D + (layout == 3),
+                                generator=gen, device=dev).to(dtype)
+                return x[..., :D]
 
             q, k, v = draw(H, Lq), draw(Hkv, Lkv), draw(Hkv, Lkv)
             pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-            out, lse = TA.flash_attention(q, k, v, pl, vl, causal=causal,
-                                          return_lse=True)
-            torch.cuda.synchronize()
-            ref, ref_lse = TA.reference_attention(q, k, v, pl, vl, causal)
-            # all rows: below valid_len the function, at and past it the
-            # port's rule (0 and +inf) that kernel and plain version share
-            e_out = float((out.float() - ref.float()).abs().max())
-            fin = torch.isfinite(ref_lse)
-            require(torch.equal(torch.isfinite(lse), fin),
-                    f"attention {name} {dtype}: lse +inf pattern differs")
-            e_lse = float((lse[fin] - ref_lse[fin]).abs().max()) if bool(
-                fin.any()) else 0.0
-            require(e_out <= atol and e_lse <= 1e-4,
-                    f"attention {name} {dtype}: out {e_out} lse {e_lse}")
-            for b, n in enumerate(valid):
-                require(float(out[b, :, n:].abs().max()) == 0.0
-                        if n < Lq else True,
-                        f"attention {name}: padding rows not zero")
+            route = TA.fwd_route(dtype, D, all(TA._aligned(t)
+                                               for t in (q, k, v)))
+            require(route == ("simple" if layout >= 2 or D == 40
+                              else tensor_route[dtype]),
+                    f"attention {name} {dtype}: route {route}")
+            e_out, e_lse, extra = check_attention(
+                TA, name, q, k, v, pl, vl, causal, atol, route)
+            if layout >= 2 and D in (64, 128):
+                try:
+                    TA._launch(q, k, v, pl, vl, causal, D ** -0.5, True,
+                               route=tensor_route[dtype])
+                except ValueError:
+                    extra += f"; a forced {tensor_route[dtype]!r} raised"
+                else:
+                    raise AssertionError(
+                        f"attention {name} {dtype}: a forced "
+                        f"{tensor_route[dtype]!r} launch ran on unaligned "
+                        "rows")
             log(f"[flash_attn] {name} B={B} H={H}/{Hkv} L={Lq}/{Lkv} D={D} "
-                f"{dtype}: out max_abs_err {e_out:.3e} (atol {atol}), lse "
-                f"{e_lse:.3e} (atol 1e-4) ok")
+                f"{dtype} route {route}: out max_abs_err {e_out:.3e} (atol "
+                f"{atol}), lse {e_lse:.3e} (atol 1e-4) ok{extra}")
+
+    time_f32_attention(TA, dev, card, gen)
 
     # ---- time at B 4, H 32, D 128, L 640, bf16 -----------------------------
     q, k, v = (torch.randn(4, L, 32, 128, generator=gen, device=dev)
@@ -2045,7 +2244,8 @@ def phase_videochat(dev, card):
             lambda: TA.reference_attention(q, k, v, zeros, plen), iters=5),
         "library_ms": graph_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
     }
-    entry = {"name": "flash_attn", "route": "cuda",
+    entry = {"name": "flash_attn", "route": "cuda", "dtype": "bfloat16",
+             "attention_route": "mma",
              "source": "stair_tpu_torch/ops/csrc/flash_attn.cu",
              "replaces": "stair_tpu/ops/attention.py:73",
              "launches": launches["flash_attn"], "max_abs_err": err, **t,
@@ -2521,9 +2721,23 @@ def phase_sft_routes(dev):
         torch.cuda.empty_cache()
 
 
+def on_mma32(what, launches):
+    """Fail unless every forward launch of the block just ended (``launches``
+    its ``_build.LAUNCHES``) ran on the float32 tensor-core route; returns
+    their number."""
+    from stair_tpu_torch.ops import attention as TA
+
+    n = launches["flash_attn"]
+    require(TA.ROUTE_LAUNCHES == {"simple": 0, "mma": 0, "mma32": n},
+            f"{what}: forward routes {TA.ROUTE_LAUNCHES}, {n} launches")
+    return n
+
+
 def phase_trainers(dev):
     """Both trainer CLIs on the card at their defaults, on seeded tiny data
-    written to a temporary directory."""
+    written to a temporary directory; their float32 forwards on the
+    "mma32" route. Returns phase 9's float32 ``flash_attn`` entry with the
+    launches of the ``with_video_lm`` VideoGPT run."""
     import argparse
     import shutil
     import tempfile
@@ -2532,19 +2746,23 @@ def phase_trainers(dev):
     from stair_tpu_torch.llm import videochat_train as VT
     from stair_tpu_torch.llm import with_video_lm as WL
     from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import attention as TA
     from stair_tpu_torch.testing import videochat as VW
 
     root = tempfile.mkdtemp(prefix="stair_smoke_")
+    entry = dict(SEEN["flash_attn_f32"])
     try:
         paths = VW.write_tiny_data(root)
         keys = ("flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
         out = f"{root}/sft"
+        TA.reset_route_launches()
         with kernel_route(keys):
             loss = VT.main(["--data-path", paths["conv"], "--features-dir",
                             paths["chat_features"], "--output", out,
                             "--num-epochs", "1", "--report-interval", "1"])
             launches = dict(_build.LAUNCHES)
+        on_mma32("videochat_train", launches)
         # 16 conversations, batch 8: 2 steps of 4 layers
         require(np.isfinite(loss) and all(launches[k] == 8 for k in keys),
                 f"videochat_train: loss {loss}, launches {launches}")
@@ -2552,10 +2770,12 @@ def phase_trainers(dev):
             model_path=None, vision_path=None, model_ckpt=out, device=None))
         require(model.decoder.embed.is_cuda
                 and model.config.decoder.d_model == 256, "reloaded model")
-        with kernel_route(("flash_attn",)):
+        TA.reset_route_launches()
+        with kernel_route(("flash_attn",)) as seen:
             answers = VI.video_chatgpt_infer_batch(
                 model, tok, VW.QUESTIONS, VW.frame_sets(frames=8),
                 max_new_tokens=8)
+        on_mma32("videochat_infer", seen)
         require(len(answers) == 4 and all(isinstance(a, str)
                                           for a in answers), "answers")
         log(f"[trainers] videochat_train.main (defaults: d 256, 4 layers, "
@@ -2571,24 +2791,32 @@ def phase_trainers(dev):
                   "--report-interval", "1"]
         for family, extra in (("VideoGPT", []), ("Llama", ["--llm-lora"])):
             out = f"{root}/{family}"
+            TA.reset_route_launches()
             with kernel_route(keys):
                 best = WL.main([*common, "--lm-model", family, "--output",
                                 out, "--num-epochs", "1",
                                 "--gpt-video-loss-weight", "1", *extra])
                 launches = dict(_build.LAUNCHES)
-            with kernel_route(("flash_attn",)):
+            n = on_mma32(f"with_video_lm {family}", launches)
+            if family == "VideoGPT":
+                entry["launches"] = n
+            TA.reset_route_launches()
+            with kernel_route(("flash_attn",)) as seen:
                 acc = WL.main([*common, "--func", "test", "--model-ckpt",
                                out])
+            on_mma32(f"with_video_lm {family} --func test", seen)
             require(0.0 <= best <= 1.0 and acc == best,
                     f"with_video_lm {family}: valid {best} test {acc} (the "
                     "same records)")
             log(f"[trainers] with_video_lm.main --lm-model {family} "
                 f"{' '.join(extra)} (defaults: d 512, 4 layers, head_dim 64, "
                 f"float32) with the video loss (prefix_len > 0), 1 epoch: "
-                f"launches {({k: launches[k] for k in keys})}; --func test "
-                f"on what it saved: acc {acc:.4f}")
+                f"launches {({k: launches[k] for k in keys})}, every forward "
+                f"on \"mma32\"; --func test on what it saved: acc "
+                f"{acc:.4f}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return [entry]
 
 
 def slot_files(dev, dtype, gen):
@@ -4439,9 +4667,10 @@ def main():
         f"each source done at {_build.BUILD_INFO['source_seconds']} s")
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
     # the attention backward's and the executor's tensor-core kernels, the
-    # BiLSTM's float32 cluster forward, walk and dwh, and the executor's
-    # float32 "fma32" kernels are designed to keep their accumulators and
-    # state in registers
+    # BiLSTM's float32 cluster forward, walk and dwh, the executor's
+    # float32 "fma32" kernels and the attention forward's float32
+    # tensor-core kernel are designed to keep their accumulators and state
+    # in registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
@@ -4449,7 +4678,7 @@ def main():
                 "bilstm_bwd_f32_kernel", "bilstm_dwh_f32_kernel",
                 "mega_exec_kernel<float, true>",
                 "mega_bwd_kernel<float, true>", "mega_wgrad_fma32_kernel",
-                "mega_wgrad_index_kernel")
+                "mega_wgrad_index_kernel", "flash_fwd_mma32")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),
         f"the build log names not all of {no_spill}")
@@ -4476,7 +4705,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_sft_routes(dev)
-    phase_trainers(dev)
+    kernels += phase_trainers(dev)
     slot_entries = phase_slots(dev, card)
     general_launches = phase_step_kernel(dev)
     kernels += phase_step_slice(dev, card, general_launches)

@@ -10,8 +10,10 @@ mask is two integers per example, never a tensor.
 ``flash_attention`` is the kernel wrapper: for CPU tensors it runs
 ``reference_attention`` (the plain version); for CUDA tensors it launches
 the hand-written kernel ``csrc/flash_attn.cu`` (TPU kernel #7,
-``_flash_kernel``) or raises. Both return ``(out, lse)`` conventions of the
-kernel:
+``_flash_kernel``) on the route ``fwd_route`` picks before the launch
+(``"mma"``: bf16 on the tensor cores; ``"mma32"``: float32 on the tensor
+cores in split TF32; ``"simple"``: float32 FMA loops, every other shape)
+or raises. Both return ``(out, lse)`` conventions of the kernel:
 
 * ``out`` is ``[B, H, Lq, D]`` in q's dtype, a view of ``[B, Lq, H, D]``
   memory, so the caller's ``out.transpose(1, 2).reshape(B, Lq, H * D)``
@@ -187,9 +189,22 @@ class _Args(ctypes.Structure):
            ("q_sb", "q_sh", "q_sl", "k_sb", "k_sh", "k_sl",
             "v_sb", "v_sh", "v_sl", "o_sb", "o_sh", "o_sl")]
         + [(n, ctypes.c_int) for n in
-           ("B", "H", "Hkv", "Lq", "Lkv", "D", "causal", "bf16", "mma")]
+           ("B", "H", "Hkv", "Lq", "Lkv", "D", "causal", "bf16", "route")]
         + [("sm_scale", ctypes.c_float)]
     )
+
+
+#: the forward's routes in the order of their codes in ``FlashArgs.route``
+#: (``ROUTE_SIMPLE``, ``ROUTE_MMA``, ``ROUTE_MMA32`` of csrc/flash_attn.cu)
+FWD_ROUTES = ("simple", "mma", "mma32")
+#: forward launches by route since the last ``reset_route_launches`` (the
+#: launch count of ``_build.LAUNCHES`` stays ``flash_attn`` for every route)
+ROUTE_LAUNCHES = dict.fromkeys(FWD_ROUTES, 0)
+
+
+def reset_route_launches():
+    for r in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[r] = 0
 
 
 def _check(name, t, dtype, shape, dev):
@@ -204,7 +219,11 @@ def _check(name, t, dtype, shape, dev):
                          "tensors; differentiate through FlashAttention")
 
 
-def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse):
+def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse,
+            route=None):
+    """Kernel #7 on detached CUDA tensors, on ``route`` (default: the one
+    ``fwd_route`` picks; ``"simple"`` takes every input, another route
+    only the inputs ``fwd_route`` gives it, else this raises)."""
     dev = q.device
     B, H, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
@@ -212,6 +231,12 @@ def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse):
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: q must be float32 or bf16, "
                          f"got {dt}")
+    picked = fwd_route(dt, D, all(_aligned(t) for t in (q, k, v)))
+    if route is None:
+        route = picked
+    elif route not in ("simple", picked):
+        raise ValueError(f"flash_attention: route {route!r} does not take "
+                         f"these inputs (theirs is {picked!r})")
     if D < 1 or D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} not in "
                          f"1..{MAX_HEAD_DIM}")
@@ -237,7 +262,6 @@ def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse):
         if lse is not None:
             lse.fill_(math.inf)
         return out, lse
-    mma = route(dt, D, all(_aligned(t) for t in (q, k, v))) == "mma"
     args = _Args(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -246,13 +270,14 @@ def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3],
         B, H, Hkv, Lq, Lkv, D, int(bool(causal)),
-        int(dt == torch.bfloat16), int(mma), float(scale),
+        int(dt == torch.bfloat16), FWD_ROUTES.index(route), float(scale),
     )
     lib = _build.build()
     err = lib.stair_flash_attn_fwd(ctypes.byref(args),
                                    _build.stream_ptr(dev))
     _build.check(err, "flash_attn")
     _build.LAUNCHES["flash_attn"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return out, lse
 
 
@@ -272,16 +297,48 @@ class _BwdArgs(ctypes.Structure):
 
 
 def _aligned(t):
-    """What the tensor-core kernels' 16-byte loads need of a bf16 tensor."""
+    """What the tensor-core kernels' 16-byte loads need of a tensor: every
+    row starts on 16 bytes."""
+    step = 16 // t.element_size()
     return (t.data_ptr() % 16 == 0
-            and all(t.stride(i) % 8 == 0 for i in range(3)))
+            and all(t.stride(i) % step == 0 for i in range(3)))
+
+
+def fwd_route(dtype, head_dim, aligned):
+    """The forward kernel's route (``aligned``: every row of q, k and v
+    starts on 16 bytes, as the tensor-core kernels' 16-byte loads need):
+    ``"mma"`` (``flash_fwd_mma``: bf16, head_dim 64 or 128, aligned; what
+    ``route`` gives bf16), ``"mma32"`` (``flash_fwd_mma32``, split-TF32
+    tensor-core products: float32, head_dim 64 or 128, aligned) or
+    ``"simple"`` (``flash_fwd_simple``, float32 FMA loops: everything
+    else)."""
+    if head_dim in (64, 128) and aligned:
+        if dtype == torch.bfloat16:
+            return "mma"
+        if dtype == torch.float32:
+            return "mma32"
+    return "simple"
+
+
+def mma32_smem_bytes(head_dim):
+    """Shared memory of one ``flash_fwd_mma32<head_dim>`` block (head_dim 64
+    or 128), as ``csrc/flash_attn.cu Mma32<D>::SMEM`` computes it: Q's
+    ``M32_Q`` rows and the ``M32_STAGES``-deep K and V rings of the
+    head_dim's key tile, rows of ``head_dim + PAD32`` floats."""
+    c = {**_build.header_ints("flash_attn.cu"),
+         **_build.header_ints("flash_common.cuh")}
+    kv = c["M32_KV_D64"] if head_dim == 64 else c["M32_KV_D128"]
+    return 4 * (c["M32_Q"] + 2 * c["M32_STAGES"] * kv) * (head_dim
+                                                          + c["PAD32"])
 
 
 def route(dtype, head_dim, aligned):
-    """The attention kernels' route, forward and backward: ``"mma"`` (the
-    tensor-core kernels, which load 16-byte chunks: bf16, head_dim 64 or
-    128, every row of every operand 16-byte aligned) or ``"simple"`` (the
-    float32-FMA kernels: everything else)."""
+    """The backward kernels' route: ``"mma"`` (the tensor-core kernels,
+    which load 16-byte chunks: bf16, head_dim 64 or 128, every row of every
+    operand 16-byte aligned) or ``"simple"`` (the float32-FMA kernels:
+    everything else, float32 included). The forward picks with
+    ``fwd_route``, which gives bf16 the same answer and float32 its own
+    tensor-core route."""
     if dtype == torch.bfloat16 and head_dim in (64, 128) and aligned:
         return "mma"
     return "simple"

@@ -18,7 +18,7 @@
 // the diagonal and past the prefix, or past valid, are never visited; a
 // block whose rows are all padding writes zeros and leaves.
 //
-// Two kernels share that shape:
+// Three kernels share that shape:
 //  - flash_fwd_mma (bf16, head_dim 64 or 128, 16-byte aligned rows). In
 //    practice it is bound by how well the key-tile loads and the barriers
 //    overlap the products, not by the card's peaks, so the design aims at
@@ -44,11 +44,37 @@
 //    The mask test runs only on tiles that cut a warp's rows (the diagonal,
 //    valid or prefix); tiles wholly inside skip it. Under a causal mask the
 //    grid launches the heaviest query tiles (the last rows) first;
+//  - flash_fwd_mma32 (float32, head_dim 64 or 128, 16-byte aligned rows):
+//    flash_fwd_mma's shape in float32 (one block per example, head and 64
+//    query rows, 4 warps of 16 rows, heaviest causal tiles first, K and V
+//    through a two-stage cp.async ring with zero fill past Lkv, the mask
+//    test only on tiles that cut a warp's rows, base-2 softmax, one
+//    division at the end). Both products run on the tensor cores as
+//    mma.sync m16n8k8 in split TF32 (flash_common.cuh): each operand as
+//    a TF32 high part and a remainder, three TF32 products, about
+//    float32's accuracy (one TF32 product keeps ~3 digits, and float32's
+//    bound is 1e-4). At D 64 the warp's Q fragments are split once and
+//    stay in registers; at D 128 they would need 128 registers, so they
+//    are read and split from shared memory on every tile. K and V are
+//    split as their fragments are read: for every three products a warp
+//    issues two shared loads and four split operations, and the kernel is
+//    bound by that issue and its latency more than by the tensor cores
+//    (whose three products would take ~0.4x the float32 FMA bound). P reaches the P V product's A operand in registers: the
+//    score accumulator holds keys 2t, 2t + 1 where the A fragment wants
+//    depth t, t + 4, so V's rows are read in that permuted key order (the
+//    float32 sum over keys may run in any order). The alternative, P
+//    through a shared-memory tile a warp in the natural order, measured
+//    1-4% slower at the CLI shapes and needs 10-19 KB more shared memory
+//    a block, so the kernel keeps P in registers (PERF.md, section 6).
+//    Rows of D + 4 floats put every fragment load on 32 distinct
+//    banks. Key tiles: 64 rows at D 64 (87,040 bytes a block), 32 at D
+//    128 (101,376): two blocks fit an SM at both;
 //  - flash_fwd_simple (float32 or bf16, any head_dim <= 128, any strides):
 //    plain float32 FMA loops, one key column per lane, 64 query rows per
-//    block and synchronous tile loads; it is the exact float32 route and
-//    takes the shapes the tensor-core kernel refuses.
-// Both mask ragged edges themselves (lengths need not divide a tile), use
+//    block and synchronous tile loads; it takes the shapes the tensor-core
+//    kernels refuse, and is the float32 check that chip_smoke.py holds
+//    flash_fwd_mma32 against.
+// All three mask ragged edges themselves (lengths need not divide a tile), use
 // MASK_VALUE = -1e30 with the running max starting at -inf (a later live
 // column wipes an all-masked tile through alpha = 0, and inf - inf never
 // occurs because the new max is finite), round p to v's type before P V,
@@ -70,9 +96,14 @@ struct FlashArgs {
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   int B, H, Hkv, Lq, Lkv, D;
-  int causal, bf16, mma;
+  int causal, bf16, route;  // route: ROUTE_SIMPLE, ROUTE_MMA or ROUTE_MMA32
   float sm_scale;
 };
+
+// The kernel a launch runs (ops/attention.py fwd_route picks it).
+constexpr int ROUTE_SIMPLE = 0;
+constexpr int ROUTE_MMA = 1;
+constexpr int ROUTE_MMA32 = 2;
 
 constexpr int BQ = 64;       // query rows per block (16 per warp)
 constexpr int THREADS = 128;
@@ -409,6 +440,233 @@ flash_fwd_mma(const FlashArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 tensor-core kernel (float32, head_dim 64 or 128)
+// ---------------------------------------------------------------------------
+
+constexpr int M32_Q = 64;         // query rows per block (16 per warp)
+constexpr int M32_THREADS = 128;  // 4 warps; two blocks per SM
+constexpr int M32_KV_D64 = 64;    // key rows per tile at head_dim 64
+constexpr int M32_KV_D128 = 32;   // and at 128, so that two blocks fit an SM
+constexpr int M32_STAGES = 2;     // tiles in the cp.async ring
+
+// What a head_dim fixes: the key tile, whether the warp's Q fragments stay
+// in registers (split once) or are read and split from shared memory each
+// tile (at D 128 the 128 registers of the split fragments would spill),
+// and the shared memory: Q, then the K and V rings
+// (ops/attention.py mma32_smem_bytes computes the same sum).
+template <int D>
+struct Mma32 {
+  static constexpr int KV = D == 64 ? M32_KV_D64 : M32_KV_D128;
+  static constexpr bool QREG = D == 64;
+  static constexpr int LD = D + PAD32;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)M32_Q * LD + (size_t)M32_STAGES * KV * 2 * LD);
+};
+static_assert(2 * (Mma32<64>::SMEM + 1024) <= 233472 &&
+                  2 * (Mma32<128>::SMEM + 1024) <= 233472,
+              "two flash_fwd_mma32 blocks share an SM");
+
+template <int D>
+__global__ void __launch_bounds__(M32_THREADS, 2)
+flash_fwd_mma32(const FlashArgs a) {
+  typedef Mma32<D> C;
+  constexpr int KV = C::KV, LD = C::LD;
+  constexpr int NT = KV / 8;   // score n-tiles per warp, and P V k-steps
+  constexpr int OT = D / 8;    // output n-tiles per warp
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;                      // [M32_Q][LD]
+  float* Ks = Qs + M32_Q * LD;               // [STAGES][KV][LD]
+  float* Vs = Ks + M32_STAGES * KV * LD;     // [STAGES][KV][LD]
+
+  // Grid (H, B, query tiles), the heaviest causal tiles first (as
+  // flash_fwd_mma).
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * M32_Q, h = blockIdx.x, b = blockIdx.y;
+  const int valid_q = a.valid_len[b];         // rows at or past it: padding
+  const int valid = min(valid_q, a.Lkv);      // live key columns end here
+  const int prefix = a.prefix_len[b];
+  if (q0 >= valid_q || valid <= 0) {
+    write_dead_tile<float, M32_Q, M32_THREADS>(a, b, h, q0);
+    return;
+  }
+  const int hk = h / (a.H / a.Hkv);
+  const float* q = (const float*)a.q + b * a.q_sb + h * a.q_sh;
+  const float* k = (const float*)a.k + b * a.k_sb + hk * a.k_sh;
+  const float* v = (const float*)a.v + b * a.v_sb + hk * a.v_sh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
+  const float c2 = a.sm_scale * LOG2E;   // raw score -> base-2 exponent
+
+  const int kv_end = kv_end_of(q0, M32_Q, valid, prefix, a.causal);
+  const int ntiles = (kv_end + KV - 1) / KV;
+  // Group 0: Q and the first K/V tile.
+  stage_tile_f32_async<D, LD, M32_THREADS>(Qs, q, a.q_sl, q0, a.Lq, M32_Q);
+  stage_tile_f32_async<D, LD, M32_THREADS>(Ks, k, a.k_sl, 0, a.Lkv, KV);
+  stage_tile_f32_async<D, LD, M32_THREADS>(Vs, v, a.v_sl, 0, a.Lkv, KV);
+  cp_async_commit();
+
+  const float* Qw = Qs + warp * 16 * LD;
+  uint32_t qh[C::QREG ? D / 8 : 1][4], ql[C::QREG ? D / 8 : 1][4];
+  auto qa = [&](int kk, uint32_t(&ah)[4], uint32_t(&al)[4]) {
+    if constexpr (C::QREG) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = qh[kk][i];
+        al[i] = ql[kk][i];
+      }
+    } else {
+      load_a_split(ah, al, Qw + kk * 8, LD, g, t);
+    }
+  };
+  float o[OT][4];
+#pragma unroll
+  for (int n = 0; n < OT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  // Row state of rows g (index 0) and g + 8 (index 1), as flash_fwd_mma.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row_min = q0 + warp * 16;
+  const int row_lo = row_min + g;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * KV;
+    if (j + 1 < ntiles) {
+      const int st = (j + 1) % M32_STAGES;
+      stage_tile_f32_async<D, LD, M32_THREADS>(Ks + st * KV * LD, k, a.k_sl,
+                                               kv0 + KV, a.Lkv, KV);
+      stage_tile_f32_async<D, LD, M32_THREADS>(Vs + st * KV * LD, v, a.v_sl,
+                                               kv0 + KV, a.Lkv, KV);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (C::QREG) {
+      if (j == 0) {
+        // This warp's 16 query rows, split once, kept for the whole walk.
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk)
+          load_a_split(qh[kk], ql[kk], Qw + kk * 8, LD, g, t);
+      }
+    }
+    const float* Kt = Ks + (j % M32_STAGES) * KV * LD;
+    const float* Vt = Vs + (j % M32_STAGES) * KV * LD;
+
+    float s[NT][4];
+    scores_tf32x3<D, NT, LD>(s, qa, Kt, g, t);
+
+    // Mask and online softmax in base 2: flash_fwd_mma's code.
+    const bool inside =
+        kv0 + KV <= valid &&
+        (!a.causal || kv0 + KV - 1 <= row_min || kv0 + KV <= prefix);
+    float m_cur[2] = {MASK_VALUE, MASK_VALUE};
+    if (inside) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          m_cur[i / 2] = fmaxf(m_cur[i / 2], s[n][i]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = row_lo + (i / 2) * 8;
+          const int col = kv0 + n * 8 + t * 2 + (i % 2);
+          if (!live(row, col, valid, prefix, a.causal)) s[n][i] = MASK_VALUE;
+          m_cur[i / 2] = fmaxf(m_cur[i / 2], s[n][i]);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 1));
+      m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 2));
+      const float m_new = fmaxf(m[r], m_cur[r] * c2);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(fmaf(s[n][i], c2, -m[i / 2]));
+        l[i / 2] += s[n][i];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < OT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // P V without shared memory. The C fragment of score n-tile kk holds
+    // keys 2t, 2t + 1 of rows g, g + 8, and the A fragment wants depth
+    // t, t + 4: so depth t is read as key 2t and t + 4 as key 2t + 1, and
+    // V's B fragment reads its rows in the same order (rows 2t, 2t + 1 for
+    // column g). The sum over keys runs in another order, which float32
+    // sums allow; rows 2t LD apart put the 32 lanes on distinct banks.
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kk][0], ph[0], pl[0]);
+      split_tf32(s[kk][2], ph[1], pl[1]);
+      split_tf32(s[kk][1], ph[2], pl[2]);
+      split_tf32(s[kk][3], ph[3], pl[3]);
+      const float* vb = Vt + (kk * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < OT; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vb[n * 8], bh[0], bl[0]);
+        split_tf32(vb[LD + n * 8], bh[1], bl[1]);
+        mma_tf32x3(o[n], ph, pl, bh, bl);
+      }
+    }
+    // Every warp is done with this stage before tile j + 2 refills it.
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* out = (float*)a.o + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + r * 8;
+    if (row >= a.Lq) continue;
+    const bool pad = row >= valid_q || l[r] == 0.f;
+    const float inv = pad ? 0.f : 1.f / l[r];
+    float* orow = out + (long long)row * a.o_sl + t * 2;
+#pragma unroll
+    for (int n = 0; n < OT; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    if (a.lse && t == 0)
+      a.lse[((long long)b * a.H + h) * a.Lq + row] =
+          pad ? INFINITY : (m[r] + log2f(l[r])) * LN2;
+  }
+}
+
+// Every row of q, k, v and out starts on 16 bytes (what the float32
+// kernel's 16-byte cp.async chunks and 8-byte stores need).
+inline bool rows_aligned16(const FlashArgs& a) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.o};
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % 16) return false;
+  const long long strides[12] = {a.q_sb, a.q_sh, a.q_sl, a.k_sb,
+                                 a.k_sh, a.k_sl, a.v_sb, a.v_sh,
+                                 a.v_sl, a.o_sb, a.o_sh, a.o_sl};
+  for (long long s : strides)
+    if (s % 4) return false;
+  return true;
+}
+
 template <typename K>
 cudaError_t launch(K kernel, const FlashArgs& a, size_t smem, dim3 grid,
                    int threads, cudaStream_t stream) {
@@ -427,7 +685,16 @@ extern "C" int stair_flash_attn_fwd(const stair::FlashArgs* args,
   const FlashArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.D < 1 || a.D > 32 * SDJ) return (int)cudaErrorInvalidValue;
-  if (a.mma) {
+  if (a.route == ROUTE_MMA32) {
+    if (a.bf16 || (a.D != 64 && a.D != 128) || !rows_aligned16(a))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(a.H, a.B, (a.Lq + M32_Q - 1) / M32_Q);
+    return (int)(a.D == 64 ? launch(flash_fwd_mma32<64>, a, Mma32<64>::SMEM,
+                                    grid, M32_THREADS, st)
+                           : launch(flash_fwd_mma32<128>, a,
+                                    Mma32<128>::SMEM, grid, M32_THREADS, st));
+  }
+  if (a.route == ROUTE_MMA) {
     if (!a.bf16 || (a.D != 64 && a.D != 128))
       return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(MQ + 2 * STAGES * MKV) * (a.D + PAD) *
@@ -438,6 +705,7 @@ extern "C" int stair_flash_attn_fwd(const stair::FlashArgs* args,
                      : launch(flash_fwd_mma<128>, a, smem, grid, MTHREADS,
                               st));
   }
+  if (a.route != ROUTE_SIMPLE) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)BQ * a.D + SKV * (a.D + 1) +
                                        SKV * a.D + 4 * SROWS * SKV);
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);

@@ -9,13 +9,16 @@ bf16 at atol 2e-2 (one bf16 step of an O(1) output is 8e-3). Padding rows
 (at or past ``valid_len``) are 0 with lse +inf by the port's rule and are
 checked as such. Lengths that divide no tile go against the dense
 reference only (the JAX kernel refuses them). The CUDA kernel is held
-against the plain version on the card.
+against the plain version on the card, on the route ``fwd_route`` picks
+(float32 at head_dim 64 / 128 on aligned rows: ``"mma32"``, the split-TF32
+tensor-core kernel, also against ``flash_fwd_simple`` and itself).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from stair_tpu_torch.ops import _build
 from stair_tpu_torch.ops import attention as TA
 from torch_port_util import cuda_device  # noqa: F401
 
@@ -178,7 +181,28 @@ CARD_CASES = [
      True, 0),
     ("noncausal-edges", 3, 4, 4, 257, 257, 128, [0, 0, 0], [1, 128, 257],
      False, 1),
+    # the float32 LLM trainer CLIs' shapes: with_video_lm's video forward
+    # (the video-visible prefix) and the SFT step, with ragged valid_len
+    ("with_video_lm-video", 32, 8, 8, 214, 214, 64, [150] * 32,
+     [214 - (11 * i) % 97 for i in range(32)], True, 1),
+    ("sft", 8, 4, 4, 512, 512, 64, [0] * 8,
+     [512, 386, 442, 494, 466, 464, 441, 417], True, 1),
 ]
+#: the cases whose float32 rows the split-TF32 kernel takes (head_dim 64
+#: or 128; every case's rows are 16-byte aligned)
+MMA32_CASES = [c for c in CARD_CASES if c[6] in (64, 128)]
+
+
+def _card_qkv(case, dt, dev):
+    _, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, strided = case
+    q, k, v = (torch.from_numpy(x).to(dev, dt)
+               for x in _qkv(B, H, Hkv, Lq, Lkv, D, seed=Lq))
+    if strided:
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v))
+    pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    return q, k, v, pl, vl
 
 
 @pytest.mark.cuda
@@ -188,18 +212,17 @@ def test_kernel_vs_plain_on_card(cuda_device, case, dtype):
     """The CUDA kernel against the plain version on the same CUDA tensors:
     float32 within 1e-4, bf16 within 2e-2, lse within 1e-4, the same +inf
     pattern, padding rows exactly 0."""
-    _, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal, strided = case
+    D, valid, causal = case[6], case[8], case[9]
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(x).to(cuda_device, dt)
-               for x in _qkv(B, H, Hkv, Lq, Lkv, D, seed=Lq))
-    if strided:
-        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
-                   for x in (q, k, v))
-    pl = torch.tensor(prefix, dtype=torch.int32, device=cuda_device)
-    vl = torch.tensor(valid, dtype=torch.int32, device=cuda_device)
+    q, k, v, pl, vl = _card_qkv(case, dt, cuda_device)
+    route = TA.fwd_route(dt, D, all(TA._aligned(t) for t in (q, k, v)))
+    assert route == ({torch.float32: "mma32", torch.bfloat16: "mma"}[dt]
+                     if D in (64, 128) else "simple")
+    TA.reset_route_launches()
     out, lse = TA.flash_attention(q, k, v, pl, vl, causal=causal,
                                   return_lse=True)
     torch.cuda.synchronize()
+    assert TA.ROUTE_LAUNCHES[route] == 1, TA.ROUTE_LAUNCHES
     ref, ref_lse = TA.reference_attention(q, k, v, pl, vl, causal)
     atol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
@@ -207,3 +230,119 @@ def test_kernel_vs_plain_on_card(cuda_device, case, dtype):
     assert torch.equal(torch.isfinite(lse), fin)
     torch.testing.assert_close(lse[fin], ref_lse[fin], rtol=0, atol=1e-4)
     _check_padding_rows(out.float().cpu().numpy(), lse.cpu().numpy(), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MMA32_CASES, ids=[c[0] for c in MMA32_CASES])
+def test_mma32_vs_simple_and_itself_on_card(cuda_device, case):
+    """The float32 tensor-core route against ``flash_fwd_simple`` on the
+    same inputs (out and lse within 1e-4, the same +inf pattern) and
+    against itself on a second launch (equal bits: no atomics)."""
+    D, causal = case[6], case[9]
+    q, k, v, pl, vl = _card_qkv(case, torch.float32, cuda_device)
+    scale = D ** -0.5
+    got = TA._launch(q, k, v, pl, vl, causal, scale, True, route="mma32")
+    again = TA._launch(q, k, v, pl, vl, causal, scale, True, route="mma32")
+    simple = TA._launch(q, k, v, pl, vl, causal, scale, True,
+                        route="simple")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    torch.testing.assert_close(got[0], simple[0], rtol=0, atol=1e-4)
+    fin = torch.isfinite(simple[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    torch.testing.assert_close(got[1][fin], simple[1][fin], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_float32_d64_forward_launches_mma32_on_card(cuda_device):
+    """A float32 head_dim-64 forward is one device kernel, and it is
+    ``flash_fwd_mma32`` (``torch.profiler``'s device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, pl, vl = _card_qkv(MMA32_CASES[-1], torch.float32, cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TA.flash_attention(q, k, v, pl, vl)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "flash_fwd_mma32" in names[0], names
+
+
+# dtype, head_dim, aligned -> the forward's route
+FWD_ROUTES = [
+    (torch.bfloat16, 64, True, "mma"),
+    (torch.bfloat16, 128, True, "mma"),
+    (torch.bfloat16, 128, False, "simple"),
+    (torch.bfloat16, 96, True, "simple"),
+    (torch.float32, 64, True, "mma32"),
+    (torch.float32, 128, True, "mma32"),
+    (torch.float32, 40, True, "simple"),
+    (torch.float32, 96, True, "simple"),
+    (torch.float32, 64, False, "simple"),
+    (torch.float32, 128, False, "simple"),
+]
+
+
+@pytest.mark.parametrize(
+    "route", FWD_ROUTES,
+    ids=[f"{str(r[0])[6:]}-D{r[1]}-{'al' if r[2] else 'un'}"
+         for r in FWD_ROUTES])
+def test_fwd_route_choice(route):
+    """bf16 takes the route the backward takes (``route``), unchanged;
+    float32 at head_dim 64 / 128 on aligned rows takes the split-TF32
+    kernel, every other float32 shape the FMA kernel."""
+    dtype, D, aligned, want = route
+    assert TA.fwd_route(dtype, D, aligned) == want
+    if dtype == torch.bfloat16:
+        assert TA.route(dtype, D, aligned) == want
+
+
+def _float32_views():
+    """float32 q views: [B, L, H, D] memory (aligned), one element past a
+    16-byte boundary, rows of D + 1 floats (both unaligned)."""
+    B, H, L, D = 2, 3, 8, 64
+    return {
+        "BLHD": (torch.randn(B, L, H, D).transpose(1, 2), True),
+        "offset": (torch.randn(B * H * L * D + 1)[1:].view(B, H, L, D),
+                   False),
+        "row-stride": (torch.randn(B, H, L, D + 1)[..., :D], False),
+    }
+
+
+@pytest.mark.parametrize("layout", ["BLHD", "offset", "row-stride"])
+def test_alignment_of_float32_rows(layout):
+    """``_aligned`` asks of float32 rows what the split-TF32 kernel's
+    16-byte loads need; a forced ``"mma32"`` on rows it refuses raises
+    before anything is launched."""
+    q, want = _float32_views()[layout]
+    assert TA._aligned(q) is want
+    k = v = torch.randn(2, 3, 8, 64)
+    ln = torch.tensor([8, 5], dtype=torch.int32)
+    aligned = all(TA._aligned(t) for t in (q, k, v))
+    assert TA.fwd_route(torch.float32, 64, aligned) == (
+        "mma32" if want else "simple")
+    if not want:
+        with pytest.raises(ValueError, match="route 'mma32' does not take"):
+            TA._launch(q, k, v, ln, ln, True, 0.125, True, route="mma32")
+
+
+def test_route_codes_match_the_source():
+    """``FWD_ROUTES`` is in the order of ``ROUTE_*`` in flash_attn.cu, and
+    the argument block carries the code where it carried the mma flag."""
+    codes = _build.header_ints("flash_attn.cu")
+    assert [codes[f"ROUTE_{r.upper()}"] for r in TA.FWD_ROUTES] == [0, 1, 2]
+    assert [f for f, _ in TA._Args._fields_][-2:] == ["route", "sm_scale"]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_mma32_shared_memory_fits(D):
+    """``flash_fwd_mma32<D>``'s shared memory, from flash_attn.cu's
+    constants, fits a block's 227 KB, and twice in an SM's 228 KB (1 KB
+    reserved a block): two blocks an SM, as its launch bounds ask."""
+    smem = TA.mma32_smem_bytes(D)
+    assert smem == {64: 87040, 128: 101376}[D]
+    assert smem <= 232448
+    assert 2 * (smem + 1024) <= 233472

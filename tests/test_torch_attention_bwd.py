@@ -403,8 +403,10 @@ ROUTES = [
     "route", ROUTES,
     ids=[f"{str(r[0])[6:]}-D{r[1]}-{'al' if r[2] else 'un'}" for r in ROUTES])
 def test_kernel_route_choice(route):
-    """Forward and backward take the tensor-core kernels on the same
-    inputs."""
+    """The backward's route: the tensor-core kernels for bf16 on the inputs
+    where the forward takes its bf16 tensor-core kernel (``fwd_route``),
+    the float32-FMA kernels for float32 (the forward's ``"mma32"`` has no
+    backward counterpart yet)."""
     dtype, D, aligned, want = route
     assert TA.route(dtype, D, aligned) == want
 
