@@ -93,7 +93,7 @@ Phases (any failure raises, and the script exits non-zero):
    the tensor-core kernels refuse, ``valid_len`` from 0 to L and at 1,
    127, 128, 129 (edges of the tensor-core kernels' query tiles), rows
    one element off 16 bytes and rows of D + 1 elements; each case on the
-   route ``attention.fwd_route`` picks (bf16 ``"mma"``, float32 ``"mma32"``
+   route ``attention.route`` picks (bf16 ``"mma"``, float32 ``"mma32"``
    where the rows are aligned and D is 64 or 128, else ``"simple"``; the
    route tally shows it), out and lse, float32 within 1e-4 and bf16 within
    2e-2; float32 also against ``flash_fwd_simple`` (1e-4, the same +inf
@@ -121,13 +121,25 @@ Phases (any failure raises, and the script exits non-zero):
 11. the attention backward kernels (dQ; dK/dV) vs their plain version over
    the mask cases of phase 9 plus grouped heads with one kv head and D = 32,
    float32 (within 2e-4 of each gradient's largest value) and bf16 (within
-   2e-2), on strided q/k/v and a non-contiguous dO: identical bits on a
-   second launch, padding rows exactly 0, no NaN at ``valid_len`` 0, the
-   ``di`` that the dQ launch writes against the plain version's (1e-5 of
-   each row's sum of |O dO|, 0 on padding rows), and exactly two CUDA
-   launches in one backward (``torch.profiler``'s device events); the
-   build's ptxas lines for every kernel, with no spill allowed in the
-   backward's tensor-core kernels;
+   2e-2), on strided q/k/v and a non-contiguous dO, each on the route
+   ``attention.route`` picks (bf16 ``"mma"``, float32 ``"mma32"`` at D 64
+   and 128, else ``"simple"``; the backward's route tally shows it):
+   identical bits on a second launch, padding rows exactly 0, no NaN at
+   ``valid_len`` 0, the ``di`` that the dQ launch writes against the plain
+   version's (1e-5 of each row's sum of |O dO|, 0 on padding rows), and
+   exactly two CUDA launches in one backward, the route's two kernels
+   (``torch.profiler``'s device events); a float32 case on ``"mma32"`` also
+   against the forced ``"simple"`` backward (2e-4); float32 rows one
+   element off 16 bytes and dO rows of D + 1 floats, on which a forced
+   ``"mma32"`` backward must raise; float32 at the LLM trainer CLIs' shapes
+   and at L = 640, D = 128, each checked as above on ``"mma32"`` at its
+   timed lengths and with ragged ``valid_len``, then the dQ launch, the
+   dK/dV launch and the whole backward on ``"mma32"``, the whole backward
+   on ``"simple"``, SDPA float32's autograd backward (its kernels named)
+   timed by CUDA-graph replay, the plain version by CUDA events, beside
+   the bounds (bytes against three TF32 products a product at 495 TFLOP/s,
+   and the 67 TFLOP/s float32 figure); the build's ptxas lines for every
+   kernel, with no spill allowed in the backward's tensor-core kernels;
 12. the SFT train step at full width: phase 10's Llama-7B in bf16 with the
    projector alone tuned (in float32), batch 8 x 512 tokens with ragged
    ``valid_len``, through ``videochat_train.make_sft_step``: a finite loss
@@ -144,9 +156,11 @@ Phases (any failure raises, and the script exits non-zero):
    seeded tiny data: ``videochat_train.main`` then ``videochat_infer`` on
    the checkpoint it saved; ``with_video_lm.main`` for the GPT-2 family
    with the video loss and for Llama with LoRA, each then ``--func test``
-   on what it saved; every attention forward of these float32 runs on the
-   ``"mma32"`` route (``attention.ROUTE_LAUNCHES``), and the ``kernels``
-   line gets phase 9's float32 ``flash_attn`` entry (``"dtype":
+   on what it saved; every attention forward and backward launch of these
+   float32 runs on the ``"mma32"`` route (``attention.ROUTE_LAUNCHES``,
+   ``attention.BWD_ROUTE_LAUNCHES``), and the ``kernels`` line gets phase
+   9's float32 ``flash_attn`` entry and phase 11's float32
+   ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkv`` entries (``"dtype":
    "float32"``) with the VideoGPT run's launches;
 14. the register-slot kernels (set, zero, add) vs their plain versions on
    the three register files at the training shapes (B = 128: vec
@@ -1932,8 +1946,7 @@ def time_f32_attention(TA, dev, card, gen):
         vl = torch.tensor(valid or [L] * B, dtype=torch.int32, device=dev)
         ragged = torch.tensor([L - (37 * i) % L for i in range(B)],
                               dtype=torch.int32, device=dev)
-        require(TA.fwd_route(q.dtype, D, all(TA._aligned(t)
-                                             for t in (q, k, v))) == "mma32",
+        require(TA._route_of(q, k, v) == "mma32",
                 f"attention {name} float32: not on \"mma32\"")
         err = lse_err = 0.0
         for lens, what in ((vl, "timed lengths"), (ragged, "ragged")):
@@ -2094,8 +2107,7 @@ def phase_attention(dev, card):
             q, k, v = draw(H, Lq), draw(Hkv, Lkv), draw(Hkv, Lkv)
             pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-            route = TA.fwd_route(dtype, D, all(TA._aligned(t)
-                                               for t in (q, k, v)))
+            route = TA._route_of(q, k, v)
             require(route == ("simple" if layout >= 2 or D == 40
                               else tensor_route[dtype]),
                     f"attention {name} {dtype}: route {route}")
@@ -2342,13 +2354,13 @@ def phase_videochat(dev, card):
     return [entry], model
 
 
-def attention_bwd_bounds(q, k, v, valid_len, prefix_len, causal=True):
-    """The two backward kernels on these inputs. dQ: three products per
-    live (row, column) pair and head (``Q K^T``, ``dO V^T``, ``dS K``), 6 D
-    operations; q, O, dO, k, v rows below ``valid_len`` and lse read, dQ
-    and di written. dK/dV: four products (the first two again, ``P^T dO``,
-    ``dS^T Q``), 8 D operations; q, dO, k, v rows below ``valid_len``, lse
-    and di read, dK and dV written."""
+def attention_bwd_work(q, k, v, valid_len, prefix_len, causal=True):
+    """The two backward kernels on these inputs, as (operations, bytes)
+    each. dQ: three products per live (row, column) pair and head (``Q
+    K^T``, ``dO V^T``, ``dS K``), 6 D operations; q, O, dO, k, v rows below
+    ``valid_len`` and lse read, dQ and di written. dK/dV: four products
+    (the first two again, ``P^T dO``, ``dS^T Q``), 8 D operations; q, dO,
+    k, v rows below ``valid_len``, lse and di read, dK and dV written."""
     from stair_tpu_torch.ops.attention import attention_mask
 
     B, H, Lq, D = q.shape
@@ -2360,11 +2372,35 @@ def attention_bwd_bounds(q, k, v, valid_len, prefix_len, causal=True):
     es = q.element_size()
     reads = es * D * (2 * H * rows_q + 2 * Hkv * rows_kv) + 4 * B * H * Lq
     stat = 4 * B * H * Lq                       # di, written then read
-    return (bound(6.0 * D * H * pairs,
-                  reads + es * D * H * rows_q + es * D * B * H * Lq + stat,
-                  q.dtype),
-            bound(8.0 * D * H * pairs,
-                  reads + stat + 2 * es * D * B * Hkv * Lkv, q.dtype))
+    return ((6.0 * D * H * pairs,
+             reads + es * D * H * rows_q + es * D * B * H * Lq + stat),
+            (8.0 * D * H * pairs,
+             reads + stat + 2 * es * D * B * Hkv * Lkv))
+
+
+def attention_bwd_bounds(q, k, v, valid_len, prefix_len, causal=True):
+    """``attention_bwd_work`` of the dQ and the dK/dV kernel at the peak
+    rate of q's type."""
+    return tuple(bound(*w, q.dtype) for w in attention_bwd_work(
+        q, k, v, valid_len, prefix_len, causal))
+
+
+def attention_bwd_bounds_mma32(q, k, v, valid_len, prefix_len, causal=True):
+    """The float32 "mma32" backward's bounds, dQ and dK/dV: each kernel's
+    bytes against its operations as three TF32 products each at
+    ``PEAK_TF32`` (as ``attention_bound_mma32``); ``fma32_bound_ms`` is
+    the float32 FMA figure (67 TFLOP/s) beside it."""
+    out = []
+    for flops, nbytes in attention_bwd_work(q, k, v, valid_len, prefix_len,
+                                            causal):
+        ops_ms = 3 * flops / PEAK_TF32 * 1e3
+        mem_ms = nbytes / PEAK_BYTES * 1e3
+        out.append({"bound_ms": max(ops_ms, mem_ms),
+                    "bound_by": "operations" if ops_ms >= mem_ms
+                    else "bytes",
+                    "fma32_bound_ms": bound(flops, nbytes,
+                                            torch.float32)["bound_ms"]})
+    return tuple(out)
 
 
 def check_di(TA, q, k, v, out, lse, dout, pl, vl, causal, scale, valid):
@@ -2388,28 +2424,233 @@ def check_di(TA, q, k, v, out, lse, dout, pl, vl, causal, scale, valid):
     return rel
 
 
-def backward_launches(TA, q, k, v, out, lse, dout, pl, vl, causal, scale):
+def backward_launches(TA, q, k, v, out, lse, dout, pl, vl, causal, scale,
+                      route):
     """CUDA launches (kernels, copies, fills) of one ``_launch_backward``
     call, from ``torch.profiler``'s device events; fails unless they are
-    exactly the dQ and the dK/dV kernels."""
+    exactly the dQ and the dK/dV kernels of ``route``."""
+    names = device_kernels(lambda: TA._launch_backward(
+        q, k, v, out, lse, dout, pl, vl, causal, scale), ordered=True)
+    require(len(names) == 2
+            and all(on_route(n, kernel, route) for n, kernel in
+                    zip(names, ("flash_bwd_dq", "flash_bwd_dkv"))),
+            f"one attention backward on {route!r} launched {names}")
+    return len(names)
+
+
+def device_kernels(fn, ordered=False):
+    """Names of the device kernels one call of ``fn`` launches
+    (``torch.profiler``'s device events): in launch order, or the set of
+    them sorted."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        TA._launch_backward(q, k, v, out, lse, dout, pl, vl, causal, scale)
+        fn()
         torch.cuda.synchronize()
-    names = [e.name for e in sorted(prof.events(),
-                                    key=lambda e: e.time_range.start)
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(len(names) == 2 and "flash_bwd_dq" in names[0]
-            and "flash_bwd_dkv" in names[1],
-            f"one attention backward launched {names}")
-    return len(names)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    return names if ordered else sorted(set(names))
+
+
+def on_route(name, kernel, route):
+    """``name`` (a device kernel's) is ``kernel``'s variant of ``route``:
+    ``flash_bwd_dq_mma32``, ``flash_bwd_dq_mma`` (not ``..._mma32``) or
+    ``flash_bwd_dq_simple``."""
+    return f"{kernel}_{route}" in name and (
+        route != "mma" or f"{kernel}_mma32" not in name)
+
+
+def check_backward(TA, name, q, k, v, dout, pl, vl, causal, tol, route):
+    """One backward case on the route ``route`` picks (``_launch_backward``'s
+    default, checked by the backward's route tally): dQ, dK, dV within
+    ``tol`` of the plain version (``max|a-b| / max|b|``), identical bits
+    on a second launch, finite, in ``[B, L, heads, D]`` memory, padding rows
+    exactly 0; ``di`` of the dQ launch against ``reference_di``; exactly two
+    CUDA launches, the route's two kernels; a float32 case on ``"mma32"``
+    also against the forced ``"simple"`` backward (2e-4). Returns
+    (relative errors of dq, dk, dv, their absolute errors, di error,
+    launches, error against ``"simple"`` or None)."""
+    from stair_tpu_torch.ops import _build
+
+    scale = q.shape[-1] ** -0.5
+    Lq, Lkv = q.shape[2], k.shape[2]
+    valid = vl.tolist()
+    out, lse = TA.flash_attention(q, k, v, pl, vl, causal=causal,
+                                  return_lse=True)
+    TA.reset_route_launches()
+    with kernel_route(("flash_attn_bwd_dq", "flash_attn_bwd_dkv")):
+        got = TA._launch_backward(q, k, v, out, lse, dout, pl, vl, causal,
+                                  scale)
+    require(TA.BWD_ROUTE_LAUNCHES[route] == 2
+            and sum(TA.BWD_ROUTE_LAUNCHES.values()) == 2,
+            f"attention backward {name} {q.dtype}: "
+            f"{TA.BWD_ROUTE_LAUNCHES} for route {route}")
+    again = TA._launch_backward(q, k, v, out, lse, dout, pl, vl, causal,
+                                scale)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    want = TA.flash_backward_reference(q, k, v, out, lse, dout, pl, vl,
+                                       causal, scale)
+    require(not any(_build.LAUNCHES.values()),
+            "the plain backward launched a kernel")
+    di_err = check_di(TA, q, k, v, out, lse, dout, pl, vl, causal, scale,
+                      valid)
+    n_launch = backward_launches(TA, q, k, v, out, lse, dout, pl, vl, causal,
+                                 scale, route)
+
+    def rel(a, b):
+        return (float((a.float() - b.float()).abs().max())
+                / max(float(b.float().abs().max()), 1e-30))
+
+    errs, abs_errs = [], []
+    for g, g2, w, n_rows in zip(got, again, want, (Lq, Lkv, Lkv)):
+        require(torch.equal(g, g2),
+                f"attention backward {name} {q.dtype}: bits differ "
+                "between two launches")
+        require(bool(torch.isfinite(g.float()).all()),
+                f"attention backward {name} {q.dtype}: not finite")
+        require(g.transpose(1, 2).is_contiguous(),
+                "gradient not in [B, L, heads, D] memory")
+        for b, n in enumerate(valid):
+            require(n >= n_rows
+                    or float(g[b, :, n:].float().abs().max()) == 0.0,
+                    f"attention backward {name}: padding rows not 0")
+        errs.append(rel(g, w))
+        abs_errs.append(float((g.float() - w.float()).abs().max()))
+    require(max(errs) <= tol,
+            f"attention backward {name} {q.dtype}: dq/dk/dv {errs}")
+    e_simple = None
+    if route == "mma32":
+        simple = TA._launch_backward(q, k, v, out, lse, dout, pl, vl,
+                                     causal, scale, route="simple")
+        e_simple = max(rel(g, w) for g, w in zip(got, simple))
+        require(e_simple <= 2e-4, f"attention backward {name}: \"mma32\" "
+                f"{e_simple} from the forced \"simple\" backward")
+    return errs, abs_errs, di_err, n_launch, e_simple
+
+
+def backward_note(errs, abs_errs, di_err, n_launch, e_simple, tol):
+    """The log's account of ``check_backward``'s checks."""
+    note = (f"max|a-b|/max|b| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+            f"{errs[2]:.3e} (bound {tol}; max|a-b| {max(abs_errs):.3e}), "
+            "same bits twice, padding rows 0 "
+            f"ok; di from the dQ launch {di_err:.3e} of its row's sum "
+            f"|O dO| (bound 1e-5), 0 on padding rows; {n_launch} CUDA "
+            "launches in one backward")
+    if e_simple is not None:
+        note += (f"; {e_simple:.3e} from the forced \"simple\" backward "
+                 "(bound 2e-4)")
+    return note
+
+
+def time_f32_attention_bwd(TA, dev, card, gen):
+    """Phase 11's float32 block, at each of ``F32_ATTENTION_SHAPES``:
+    ``check_backward`` on the "mma32" route at the timed lengths and with
+    ragged ``valid_len``, then by CUDA-graph replay the dQ launch, the
+    dK/dV launch and the whole backward on "mma32", the whole backward on
+    "simple", and SDPA float32's autograd backward with the boolean mask
+    (forward + backward less forward, a yardstick only; its kernels named
+    by ``torch.profiler``), the plain version by CUDA events, and both
+    bounds (``attention_bwd_bounds_mma32``). Keeps the ``kernels`` entries
+    of the video backward (the heaviest CLI call) in
+    ``SEEN["flash_attn_bwd_f32"]`` for phase 13 to give their launches."""
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, B, H, L, D, prefix, valid in F32_ATTENTION_SHAPES:
+        q, k, v, dout = (torch.randn(B, L, H, D, generator=gen, device=dev)
+                         .transpose(1, 2) for _ in range(4))
+        pl = torch.full((B,), prefix, dtype=torch.int32, device=dev)
+        vl = torch.tensor(valid or [L] * B, dtype=torch.int32, device=dev)
+        ragged = torch.tensor([L - (37 * i) % L for i in range(B)],
+                              dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        errs, abs_errs = [0.0] * 3, [0.0] * 3
+        for lens, what in ((vl, "timed lengths"), (ragged, "ragged")):
+            require(TA._route_of(q, k, v, dout) == "mma32",
+                    f"attention backward {name} float32: not on \"mma32\"")
+            checked = check_backward(TA, f"{name} {what}", q, k, v, dout, pl,
+                                     lens, True, 2e-4, "mma32")
+            errs = [max(a, b) for a, b in zip(errs, checked[0])]
+            abs_errs = [max(a, b) for a, b in zip(abs_errs, checked[1])]
+            log(f"[flash_attn_bwd] float32 {name} {what} B={B} H={H} L={L} "
+                f"D={D} prefix {prefix} route mma32: "
+                + backward_note(*checked, 2e-4))
+        out, lse = TA._launch(q, k, v, pl, vl, True, scale, True)
+        mask = TA.attention_mask(pl, vl, L, L)[:, None]
+
+        def whole(route):
+            return lambda: TA._launch_backward(q, k, v, out, lse, dout, pl,
+                                               vl, True, scale, route=route)
+
+        def library_forward():
+            with torch.no_grad():
+                sdpa(q, k, v, attn_mask=mask)
+
+        def library():
+            a, b, c = (x.detach().requires_grad_() for x in (q, k, v))
+            sdpa(a, b, c, attn_mask=mask).backward(dout)
+
+        # the dK/dV launch reads the di that the dQ launch wrote: one dQ
+        # launch first
+        args, _, keep = TA._backward_args(q, k, v, out, lse, dout, pl, vl,
+                                          True, scale)
+        TA._launch_dq(args, dev)
+        t = {"dq": graph_ms(lambda: TA._launch_dq(args, dev)),
+             "dkv": graph_ms(lambda: TA._launch_dkv(args, dev)),
+             "whole": graph_ms(whole("mma32")),
+             "simple": graph_ms(whole("simple")),
+             "plain": cuda_time_ms(
+                 lambda: TA.flash_backward_reference(
+                     q, k, v, out, lse, dout, pl, vl, True, scale),
+                 iters=3, warmup=1)}
+        lib = max(graph_ms(library) - graph_ms(library_forward), 0.0)
+        fwd_kernels = device_kernels(library_forward)
+        lib_kernels = [n.split("(")[0] for n in device_kernels(library)
+                       if n not in fwd_kernels]
+        b_dq, b_dkv = attention_bwd_bounds_mma32(q, k, v, vl, pl)
+        log(f"[flash_attn_bwd] float32 {name} B={B} H={H} L={L} D={D} "
+            f"prefix {prefix}: \"mma32\" dQ {t['dq']:.4f} ms (bound "
+            f"{b_dq['bound_ms']:.4f} by {b_dq['bound_by']}; at 67 TFLOP/s "
+            f"{b_dq['fma32_bound_ms']:.4f}), dK/dV {t['dkv']:.4f} ms (bound "
+            f"{b_dkv['bound_ms']:.4f} by {b_dkv['bound_by']}; at 67 TFLOP/s "
+            f"{b_dkv['fma32_bound_ms']:.4f}), whole backward {t['whole']:.4f}"
+            f" ms; \"simple\" whole {t['simple']:.4f} ms (all by CUDA "
+            f"graph replay); plain version {t['plain']:.3f} ms; "
+            f"scaled_dot_product_attention float32 backward through "
+            f"autograd with the boolean mask {lib:.4f} ms for dQ, dK and dV "
+            f"together (yardstick only; its backward's kernels "
+            f"{lib_kernels}); bounds at split-TF32 products (495 TFLOP/s, "
+            f"3.35 TB/s); max|a-b|/max|b| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+            f"dv {errs[2]:.3e}; card {card}")
+        if name == "with_video_lm video":
+            src = "stair_tpu_torch/ops/csrc/flash_attn_bwd.cu"
+            common = {"route": "cuda", "dtype": "float32",
+                      "attention_route": "mma32", "source": src,
+                      "shape": f"B {B} H {H} L {L} D {D} prefix {prefix} "
+                               "(with_video_lm video backward)",
+                      "whole_ms": t["whole"], "simple_whole_ms": t["simple"],
+                      "plain_ms": t["plain"], "library_ms": lib}
+            SEEN["flash_attn_bwd_f32"] = [
+                {"name": "flash_attn_bwd_dq",
+                 "replaces": "stair_tpu/ops/attention.py:238",
+                 "max_abs_err": abs_errs[0], "max_rel_err": errs[0],
+                 "ms": t["dq"], **common, **b_dq},
+                {"name": "flash_attn_bwd_dkv",
+                 "replaces": "stair_tpu/ops/attention.py:292",
+                 "max_abs_err": max(abs_errs[1:]),
+                 "max_rel_err": max(errs[1:]), "ms": t["dkv"], **common,
+                 **b_dkv},
+            ]
+        del q, k, v, dout, out, lse, mask, args, keep
+        torch.cuda.empty_cache()
 
 
 def phase_attention_bwd(dev, card):
-    from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import attention as TA
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -2433,6 +2674,7 @@ def phase_attention_bwd(dev, card):
         ("D32 odd lengths", 2, 3, 3, 77, 77, 32, [5, 0], [77, 60], True),
         ("D40 (scalar kernels)", 2, 3, 3, 77, 91, 40, [5, 0], [91, 60], True),
     ]
+    tensor_route = {torch.float32: "mma32", torch.bfloat16: "mma"}
     for name, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal in cases:
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
             def draw(heads, n):       # [B, L, H, D] seen as [B, H, L, D]
@@ -2444,47 +2686,44 @@ def phase_attention_bwd(dev, card):
                                device=dev).to(dtype)[..., :D]
             pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-            scale = D ** -0.5
-            out, lse = TA.flash_attention(q, k, v, pl, vl, causal=causal,
-                                          return_lse=True)
-            with kernel_route(("flash_attn_bwd_dq", "flash_attn_bwd_dkv")):
-                got = TA._launch_backward(q, k, v, out, lse, dout, pl, vl,
-                                          causal, scale)
-            again = TA._launch_backward(q, k, v, out, lse, dout, pl, vl,
-                                        causal, scale)
-            torch.cuda.synchronize()
-            _build.reset_launches()
-            want = TA.flash_backward_reference(q, k, v, out, lse, dout, pl,
-                                               vl, causal, scale)
-            require(not any(_build.LAUNCHES.values()),
-                    "the plain backward launched a kernel")
-            di_err = check_di(TA, q, k, v, out, lse, dout, pl, vl, causal,
-                              scale, valid)
-            n_launch = backward_launches(TA, q, k, v, out, lse, dout, pl, vl,
-                                         causal, scale)
-            errs = []
-            for g, g2, w, n_rows in zip(got, again, want, (Lq, Lkv, Lkv)):
-                require(torch.equal(g, g2),
-                        f"attention backward {name} {dtype}: bits differ "
-                        "between two launches")
-                require(bool(torch.isfinite(g.float()).all()),
-                        f"attention backward {name} {dtype}: not finite")
-                require(g.transpose(1, 2).is_contiguous(),
-                        "gradient not in [B, L, heads, D] memory")
-                for b, n in enumerate(valid):
-                    require(n >= n_rows
-                            or float(g[b, :, n:].float().abs().max()) == 0.0,
-                            f"attention backward {name}: padding rows not 0")
-                errs.append(float((g.float() - w.float()).abs().max())
-                            / max(float(w.float().abs().max()), 1e-30))
-            require(max(errs) <= tol,
-                    f"attention backward {name} {dtype}: dq/dk/dv {errs}")
+            route = ("simple" if D not in (64, 128) else tensor_route[dtype])
+            note = backward_note(*check_backward(
+                TA, name, q, k, v, dout, pl, vl, causal, tol, route), tol)
             log(f"[flash_attn_bwd] {name} B={B} H={H}/{Hkv} L={Lq}/{Lkv} "
-                f"D={D} {dtype}: max|a-b|/max|b| dq {errs[0]:.3e} dk "
-                f"{errs[1]:.3e} dv {errs[2]:.3e} (bound {tol}), same bits "
-                f"twice, padding rows 0 ok; di from the dQ launch "
-                f"{di_err:.3e} of its row's sum |O dO| (bound 1e-5), 0 on "
-                f"padding rows; {n_launch} CUDA launches in one backward")
+                f"D={D} {dtype} route {route}: {note}")
+
+    # float32 rows a tensor-core kernel cannot take: q, k, v one element
+    # past 16 bytes; dO rows of D + 1 floats. The route is "simple", and a
+    # forced "mma32" raises before any launch.
+    B, H, Lq, D = 2, 4, 100, 64
+    pl = torch.tensor([0, 10], dtype=torch.int32, device=dev)
+    vl = torch.tensor([100, 77], dtype=torch.int32, device=dev)
+    for name in ("q, k, v offset 1 element", "dO row stride D + 1"):
+        def draw(extra=0, offset=0):
+            flat = torch.randn(B * H * Lq * (D + extra) + offset,
+                               generator=gen, device=dev)
+            return flat[offset:].view(B, H, Lq, D + extra)[..., :D]
+
+        off = 1 if name.startswith("q") else 0
+        q, k, v = draw(offset=off), draw(offset=off), draw(offset=off)
+        dout = draw(extra=1 - off)
+        out, lse = TA.flash_attention(q, k, v, pl, vl, return_lse=True)
+        require(TA._route_of(q, k, v, out, dout) == "simple",
+                f"attention backward {name}: not on \"simple\"")
+        try:
+            TA._launch_backward(q, k, v, out, lse, dout, pl, vl, True,
+                                D ** -0.5, route="mma32")
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"attention backward {name}: a forced "
+                                 "\"mma32\" backward ran on unaligned rows")
+        note = backward_note(*check_backward(
+            TA, name, q, k, v, dout, pl, vl, True, 2e-4, "simple"), 2e-4)
+        log(f"[flash_attn_bwd] {name} B={B} H={H} L={Lq} D={D} float32 "
+            f"route simple: a forced \"mma32\" raised; {note}")
+
+    time_f32_attention_bwd(TA, dev, card, gen)
 
 
 def sft_attention_entries(dev, card, model, batch, launches):
@@ -2722,22 +2961,29 @@ def phase_sft_routes(dev):
 
 
 def on_mma32(what, launches):
-    """Fail unless every forward launch of the block just ended (``launches``
-    its ``_build.LAUNCHES``) ran on the float32 tensor-core route; returns
-    their number."""
+    """Fail unless every forward and every backward launch of the block just
+    ended (``launches`` its ``_build.LAUNCHES``) ran on the float32
+    tensor-core route; returns the forward launches."""
     from stair_tpu_torch.ops import attention as TA
 
-    n = launches["flash_attn"]
+    n = launches.get("flash_attn", 0)
+    n_bwd = (launches.get("flash_attn_bwd_dq", 0)
+             + launches.get("flash_attn_bwd_dkv", 0))
     require(TA.ROUTE_LAUNCHES == {"simple": 0, "mma": 0, "mma32": n},
             f"{what}: forward routes {TA.ROUTE_LAUNCHES}, {n} launches")
+    require(TA.BWD_ROUTE_LAUNCHES == {"simple": 0, "mma": 0, "mma32": n_bwd},
+            f"{what}: backward routes {TA.BWD_ROUTE_LAUNCHES}, {n_bwd} "
+            "launches")
     return n
 
 
 def phase_trainers(dev):
     """Both trainer CLIs on the card at their defaults, on seeded tiny data
-    written to a temporary directory; their float32 forwards on the
-    "mma32" route. Returns phase 9's float32 ``flash_attn`` entry with the
-    launches of the ``with_video_lm`` VideoGPT run."""
+    written to a temporary directory; their float32 forwards and backwards
+    on the "mma32" route. Returns phase 9's float32 ``flash_attn`` entry
+    and phase 11's float32 ``flash_attn_bwd_dq`` and
+    ``flash_attn_bwd_dkv`` entries with the launches of the
+    ``with_video_lm`` VideoGPT run."""
     import argparse
     import shutil
     import tempfile
@@ -2751,6 +2997,7 @@ def phase_trainers(dev):
 
     root = tempfile.mkdtemp(prefix="stair_smoke_")
     entry = dict(SEEN["flash_attn_f32"])
+    bwd_entries = [dict(e) for e in SEEN["flash_attn_bwd_f32"]]
     try:
         paths = VW.write_tiny_data(root)
         keys = ("flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
@@ -2780,7 +3027,8 @@ def phase_trainers(dev):
                                           for a in answers), "answers")
         log(f"[trainers] videochat_train.main (defaults: d 256, 4 layers, "
             f"head_dim 64, float32, batch 8 x 512), 1 epoch = 2 steps: loss "
-            f"{loss:.4f}, launches {({k: launches[k] for k in keys})}; "
+            f"{loss:.4f}, launches {({k: launches[k] for k in keys})}, "
+            f"every forward and backward on \"mma32\"; "
             f"videochat_infer --model-ckpt on what it saved answered "
             f"{[a[:16] for a in answers]}")
 
@@ -2800,6 +3048,8 @@ def phase_trainers(dev):
             n = on_mma32(f"with_video_lm {family}", launches)
             if family == "VideoGPT":
                 entry["launches"] = n
+                for e in bwd_entries:
+                    e["launches"] = launches[e["name"]]
             TA.reset_route_launches()
             with kernel_route(("flash_attn",)) as seen:
                 acc = WL.main([*common, "--func", "test", "--model-ckpt",
@@ -2812,11 +3062,11 @@ def phase_trainers(dev):
                 f"{' '.join(extra)} (defaults: d 512, 4 layers, head_dim 64, "
                 f"float32) with the video loss (prefix_len > 0), 1 epoch: "
                 f"launches {({k: launches[k] for k in keys})}, every forward "
-                f"on \"mma32\"; --func test on what it saved: acc "
-                f"{acc:.4f}")
+                f"and backward on \"mma32\"; --func test on what it saved: "
+                f"acc {acc:.4f}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return [entry]
+    return [entry, *bwd_entries]
 
 
 def slot_files(dev, dtype, gen):
@@ -4668,9 +4918,9 @@ def main():
     report = _build.ptxas_report(_build.BUILD_INFO["log"])
     # the attention backward's and the executor's tensor-core kernels, the
     # BiLSTM's float32 cluster forward, walk and dwh, the executor's
-    # float32 "fma32" kernels and the attention forward's float32
-    # tensor-core kernel are designed to keep their accumulators and state
-    # in registers
+    # float32 "fma32" kernels and the attention's float32 tensor-core
+    # kernels are designed to keep their accumulators and state in
+    # registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
@@ -4678,7 +4928,8 @@ def main():
                 "bilstm_bwd_f32_kernel", "bilstm_dwh_f32_kernel",
                 "mega_exec_kernel<float, true>",
                 "mega_bwd_kernel<float, true>", "mega_wgrad_fma32_kernel",
-                "mega_wgrad_index_kernel", "flash_fwd_mma32")
+                "mega_wgrad_index_kernel", "flash_fwd_mma32",
+                "flash_bwd_dq_mma32", "flash_bwd_dkv_mma32")
     require(_build.BUILD_INFO["cached"] or all(
         any(r["kernel"].startswith(k) for r in report) for k in no_spill),
         f"the build log names not all of {no_spill}")

@@ -10,7 +10,7 @@ mask is two integers per example, never a tensor.
 ``flash_attention`` is the kernel wrapper: for CPU tensors it runs
 ``reference_attention`` (the plain version); for CUDA tensors it launches
 the hand-written kernel ``csrc/flash_attn.cu`` (TPU kernel #7,
-``_flash_kernel``) on the route ``fwd_route`` picks before the launch
+``_flash_kernel``) on the route ``route`` picks before the launch
 (``"mma"``: bf16 on the tensor cores; ``"mma32"``: float32 on the tensor
 cores in split TF32; ``"simple"``: float32 FMA loops, every other shape)
 or raises. Both return ``(out, lse)`` conventions of the kernel:
@@ -39,7 +39,8 @@ When an input requires grad, ``flash_attention`` goes through
 ``FlashAttention`` (a ``torch.autograd.Function``): the forward launches
 the same kernel with the lse and saves ``q, k, v, out, lse``; the backward
 launches ``csrc/flash_attn_bwd.cu`` (TPU kernels #8 ``_bwd_dq_kernel`` and
-#9 ``_bwd_dkv_kernel``) on detached tensors. For CPU tensors the same
+#9 ``_bwd_dkv_kernel``) on detached tensors, on the route ``route`` gives
+the forward's inputs and out and dO. For CPU tensors the same
 Function runs ``reference_attention`` and ``flash_backward_reference``, the
 backward's plain version. Conventions of the backward:
 
@@ -194,17 +195,23 @@ class _Args(ctypes.Structure):
     )
 
 
-#: the forward's routes in the order of their codes in ``FlashArgs.route``
-#: (``ROUTE_SIMPLE``, ``ROUTE_MMA``, ``ROUTE_MMA32`` of csrc/flash_attn.cu)
-FWD_ROUTES = ("simple", "mma", "mma32")
+#: the kernels' routes in the order of their codes in ``FlashArgs.route``
+#: and ``FlashBwdArgs.route`` (``ROUTE_SIMPLE``, ``ROUTE_MMA``,
+#: ``ROUTE_MMA32`` of csrc/flash_common.cuh)
+ROUTES = ("simple", "mma", "mma32")
 #: forward launches by route since the last ``reset_route_launches`` (the
 #: launch count of ``_build.LAUNCHES`` stays ``flash_attn`` for every route)
-ROUTE_LAUNCHES = dict.fromkeys(FWD_ROUTES, 0)
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+#: backward launches by route, each dQ and each dK/dV launch one (their
+#: ``_build.LAUNCHES`` keys stay ``flash_attn_bwd_dq`` and
+#: ``flash_attn_bwd_dkv`` for every route)
+BWD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def reset_route_launches():
-    for r in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[r] = 0
+    for counts in (ROUTE_LAUNCHES, BWD_ROUTE_LAUNCHES):
+        for r in counts:
+            counts[r] = 0
 
 
 def _check(name, t, dtype, shape, dev):
@@ -222,8 +229,8 @@ def _check(name, t, dtype, shape, dev):
 def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse,
             route=None):
     """Kernel #7 on detached CUDA tensors, on ``route`` (default: the one
-    ``fwd_route`` picks; ``"simple"`` takes every input, another route
-    only the inputs ``fwd_route`` gives it, else this raises)."""
+    ``route`` picks; ``"simple"`` takes every input, another route only
+    the inputs ``route`` gives it, else this raises)."""
     dev = q.device
     B, H, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
@@ -231,12 +238,7 @@ def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse,
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: q must be float32 or bf16, "
                          f"got {dt}")
-    picked = fwd_route(dt, D, all(_aligned(t) for t in (q, k, v)))
-    if route is None:
-        route = picked
-    elif route not in ("simple", picked):
-        raise ValueError(f"flash_attention: route {route!r} does not take "
-                         f"these inputs (theirs is {picked!r})")
+    route = _forced(route, _route_of(q, k, v), "flash_attention")
     if D < 1 or D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} not in "
                          f"1..{MAX_HEAD_DIM}")
@@ -270,7 +272,7 @@ def _launch(q, k, v, prefix_len, valid_len, causal, scale, return_lse,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3],
         B, H, Hkv, Lq, Lkv, D, int(bool(causal)),
-        int(dt == torch.bfloat16), FWD_ROUTES.index(route), float(scale),
+        int(dt == torch.bfloat16), ROUTES.index(route), float(scale),
     )
     lib = _build.build()
     err = lib.stair_flash_attn_fwd(ctypes.byref(args),
@@ -291,7 +293,7 @@ class _BwdArgs(ctypes.Structure):
            for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
            for s in ("sb", "sh", "sl")]
         + [(n, ctypes.c_int) for n in
-           ("B", "H", "Hkv", "Lq", "Lkv", "D", "causal", "bf16", "mma")]
+           ("B", "H", "Hkv", "Lq", "Lkv", "D", "causal", "bf16", "route")]
         + [("sm_scale", ctypes.c_float)]
     )
 
@@ -304,20 +306,40 @@ def _aligned(t):
             and all(t.stride(i) % step == 0 for i in range(3)))
 
 
-def fwd_route(dtype, head_dim, aligned):
-    """The forward kernel's route (``aligned``: every row of q, k and v
-    starts on 16 bytes, as the tensor-core kernels' 16-byte loads need):
-    ``"mma"`` (``flash_fwd_mma``: bf16, head_dim 64 or 128, aligned; what
-    ``route`` gives bf16), ``"mma32"`` (``flash_fwd_mma32``, split-TF32
-    tensor-core products: float32, head_dim 64 or 128, aligned) or
-    ``"simple"`` (``flash_fwd_simple``, float32 FMA loops: everything
-    else)."""
+def route(dtype, head_dim, aligned):
+    """The attention kernels' route, forward and backward alike
+    (``aligned``: every row of the inputs, q, k and v, and out and dO for
+    the backward, starts on 16 bytes, as the tensor-core kernels' 16-byte
+    loads need): ``"mma"`` (``flash_fwd_mma``, ``flash_bwd_*_mma``: bf16,
+    head_dim 64 or 128, aligned), ``"mma32"`` (``flash_fwd_mma32``,
+    ``flash_bwd_*_mma32``, split-TF32 tensor-core products: float32,
+    head_dim 64 or 128, aligned) or ``"simple"`` (the float32 FMA kernels:
+    everything else)."""
     if head_dim in (64, 128) and aligned:
         if dtype == torch.bfloat16:
             return "mma"
         if dtype == torch.float32:
             return "mma32"
     return "simple"
+
+
+def _route_of(q, *others):
+    """``route`` of q's dtype and head_dim, with every row of q and
+    ``others`` aligned."""
+    return route(q.dtype, q.shape[-1],
+                 all(_aligned(t) for t in (q, *others)))
+
+
+def _forced(want, picked, what):
+    """The route a launch runs: ``picked``, or ``want`` where given;
+    ``"simple"`` takes every input, a tensor-core route only the inputs
+    ``route`` gives it, else this raises before any launch."""
+    if want is None:
+        return picked
+    if want not in ("simple", picked):
+        raise ValueError(f"{what}: route {want!r} does not take these "
+                         f"inputs (theirs is {picked!r})")
+    return want
 
 
 def mma32_smem_bytes(head_dim):
@@ -332,26 +354,37 @@ def mma32_smem_bytes(head_dim):
                                                           + c["PAD32"])
 
 
-def route(dtype, head_dim, aligned):
-    """The backward kernels' route: ``"mma"`` (the tensor-core kernels,
-    which load 16-byte chunks: bf16, head_dim 64 or 128, every row of every
-    operand 16-byte aligned) or ``"simple"`` (the float32-FMA kernels:
-    everything else, float32 included). The forward picks with
-    ``fwd_route``, which gives bf16 the same answer and float32 its own
-    tensor-core route."""
-    if dtype == torch.bfloat16 and head_dim in (64, 128) and aligned:
-        return "mma"
-    return "simple"
+def mma32_bwd_smem_bytes(head_dim, consts=None):
+    """Shared memory of one ``flash_bwd_dq_mma32<head_dim>`` and one
+    ``flash_bwd_dkv_mma32<head_dim>`` block (head_dim 64 or 128) and the
+    blocks an SM each is designed for: ``((dq bytes, blocks), (dkv bytes,
+    blocks))``, as ``csrc/flash_attn_bwd.cu Dq32<D>::SMEM`` and
+    ``Dkv32<D>::SMEM`` compute them from the source's constants
+    (``consts`` overrides some: a tile script's candidate). dQ: Q and dO,
+    the ``STAGES``-deep K and V rings of its key tile, ``di``; dK/dV: its
+    key rows of K and V, the Q and dO rings of its query step, the lse and
+    ``di`` rings; rows of ``head_dim + PAD32`` floats."""
+    c = {**_build.header_ints("flash_attn_bwd.cu"),
+         **_build.header_ints("flash_common.cuh"), **(consts or {})}
+    d, ld, st = f"D{head_dim}", head_dim + c["PAD32"], c["STAGES"]
+    dq = 4 * ((2 * c["BQ"] + 2 * st * c[f"DQ32_KV_{d}"]) * ld + c["BQ"])
+    mq = c[f"DKV32_MQ_{d}"]
+    dkv = 4 * ((2 * 16 * c[f"DKV32_WARPS_{d}"] + 2 * st * mq) * ld
+               + 2 * st * mq)
+    return (dq, c[f"DQ32_MINB_{d}"]), (dkv, c[f"DKV32_MINB_{d}"])
 
 
 def _backward_args(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
-                   scale):
+                   scale, route=None):
     """Check the backward's tensors, allocate dQ, dK, dV and the ``di``
-    buffer that the dQ launch fills, and fill the kernels' argument block.
-    Returns ``(args, (dq, dk, dv), keep)``; ``args`` is None where there is
-    nothing to launch (an empty dimension; the gradients are then zeros).
-    ``keep`` maps names to the tensors whose pointers ``args`` carries
-    (``keep["di"]`` holds ``di`` once ``_launch_dq`` has run)."""
+    buffer that the dQ launch fills, and fill the kernels' argument block
+    for ``route`` (default: the one ``route`` picks for q, k, v, out and
+    dO; a forced tensor-core route these inputs do not take raises here,
+    before any launch). Returns ``(args, (dq, dk, dv), keep)``; ``args`` is
+    None where there is nothing to launch (an empty dimension; the
+    gradients are then zeros). ``keep`` maps names to the tensors whose
+    pointers ``args`` carries (``keep["di"]`` holds ``di`` once
+    ``_launch_dq`` has run)."""
     dev = q.device
     B, H, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
@@ -360,6 +393,8 @@ def _backward_args(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
         dout = dout.contiguous()
     if out.stride(3) != 1:
         out = out.contiguous()
+    route = _forced(route, _route_of(q, k, v, out, dout),
+                    "flash_attention backward")
     _check("q", q, dt, (B, H, Lq, D), dev)
     _check("k", k, dt, (B, Hkv, Lkv, D), dev)
     _check("v", v, dt, (B, Hkv, Lkv, D), dev)
@@ -376,8 +411,6 @@ def _backward_args(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
             "di": torch.empty(B, H, Lq, dtype=torch.float32, device=dev),
             "prefix_len": prefix_len.contiguous(),
             "valid_len": valid_len.contiguous()}
-    aligned = all(_aligned(t) for t in (q, k, v, out, dout))
-    mma = route(dt, D, aligned) == "mma"
     args = _BwdArgs(
         *(keep[n].data_ptr() for n in ("q", "k", "v", "out", "dout", "lse",
                                        "di")),
@@ -387,7 +420,7 @@ def _backward_args(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
         *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
         *dv.stride()[:3],
         B, H, Hkv, Lq, Lkv, D, int(bool(causal)),
-        int(dt == torch.bfloat16), int(mma), float(scale),
+        int(dt == torch.bfloat16), ROUTES.index(route), float(scale),
     )
     return args, (dq, dk, dv), keep
 
@@ -399,6 +432,7 @@ def _launch_dq(args, dev):
                                              _build.stream_ptr(dev)),
                  "flash_attn_bwd_dq")
     _build.LAUNCHES["flash_attn_bwd_dq"] += 1
+    BWD_ROUTE_LAUNCHES[ROUTES[args.route]] += 1
 
 
 def _launch_dkv(args, dev):
@@ -410,13 +444,15 @@ def _launch_dkv(args, dev):
                                               _build.stream_ptr(dev)),
                  "flash_attn_bwd_dkv")
     _build.LAUNCHES["flash_attn_bwd_dkv"] += 1
+    BWD_ROUTE_LAUNCHES[ROUTES[args.route]] += 1
 
 
 def _launch_backward(q, k, v, out, lse, dout, prefix_len, valid_len, causal,
-                     scale):
-    """Kernels #8 and #9 on detached CUDA tensors; returns (dq, dk, dv)."""
+                     scale, route=None):
+    """Kernels #8 and #9 on detached CUDA tensors, on ``route`` (as
+    ``_backward_args``); returns (dq, dk, dv)."""
     args, grads, _keep = _backward_args(q, k, v, out, lse, dout, prefix_len,
-                                        valid_len, causal, scale)
+                                        valid_len, causal, scale, route)
     if args is not None:
         _launch_dq(args, q.device)
         _launch_dkv(args, q.device)

@@ -96,14 +96,9 @@ struct FlashArgs {
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   int B, H, Hkv, Lq, Lkv, D;
-  int causal, bf16, route;  // route: ROUTE_SIMPLE, ROUTE_MMA or ROUTE_MMA32
+  int causal, bf16, route;  // route: ROUTE_* of flash_common.cuh
   float sm_scale;
 };
-
-// The kernel a launch runs (ops/attention.py fwd_route picks it).
-constexpr int ROUTE_SIMPLE = 0;
-constexpr int ROUTE_MMA = 1;
-constexpr int ROUTE_MMA32 = 2;
 
 constexpr int BQ = 64;       // query rows per block (16 per warp)
 constexpr int THREADS = 128;
@@ -607,22 +602,18 @@ flash_fwd_mma32(const FlashArgs a) {
     // P V without shared memory. The C fragment of score n-tile kk holds
     // keys 2t, 2t + 1 of rows g, g + 8, and the A fragment wants depth
     // t, t + 4: so depth t is read as key 2t and t + 4 as key 2t + 1, and
-    // V's B fragment reads its rows in the same order (rows 2t, 2t + 1 for
-    // column g). The sum over keys runs in another order, which float32
-    // sums allow; rows 2t LD apart put the 32 lanes on distinct banks.
+    // V's B fragment reads its rows in the same order (acc_as_a_split,
+    // load_b_perm_split). The sum over keys runs in another order, which
+    // float32 sums allow.
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
       uint32_t ph[4], pl[4];
-      split_tf32(s[kk][0], ph[0], pl[0]);
-      split_tf32(s[kk][2], ph[1], pl[1]);
-      split_tf32(s[kk][1], ph[2], pl[2]);
-      split_tf32(s[kk][3], ph[3], pl[3]);
-      const float* vb = Vt + (kk * 8 + 2 * t) * LD + g;
+      acc_as_a_split(ph, pl, s[kk]);
+      const float* vb = Vt + kk * 8 * LD;
 #pragma unroll
       for (int n = 0; n < OT; ++n) {
         uint32_t bh[2], bl[2];
-        split_tf32(vb[n * 8], bh[0], bl[0]);
-        split_tf32(vb[LD + n * 8], bh[1], bl[1]);
+        load_b_perm_split(bh, bl, vb + n * 8, LD, g, t);
         mma_tf32x3(o[n], ph, pl, bh, bl);
       }
     }
@@ -653,18 +644,13 @@ flash_fwd_mma32(const FlashArgs a) {
   }
 }
 
-// Every row of q, k, v and out starts on 16 bytes (what the float32
-// kernel's 16-byte cp.async chunks and 8-byte stores need).
+// Every row of q, k, v and out starts on 16 bytes.
 inline bool rows_aligned16(const FlashArgs& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.o};
-  for (const void* p : ptrs)
-    if ((uintptr_t)p % 16) return false;
   const long long strides[12] = {a.q_sb, a.q_sh, a.q_sl, a.k_sb,
                                  a.k_sh, a.k_sl, a.v_sb, a.v_sh,
                                  a.v_sl, a.o_sb, a.o_sh, a.o_sl};
-  for (long long s : strides)
-    if (s % 4) return false;
-  return true;
+  return rows_aligned16(ptrs, strides, 4);
 }
 
 template <typename K>

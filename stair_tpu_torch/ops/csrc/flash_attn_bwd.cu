@@ -47,7 +47,10 @@
 // TFLOP/s there, and the whole backward in 0.35 ms against about 0.8 ms
 // for the first port with its eager di:
 //
-// Two variants per launch behind one C entry point each:
+// Three variants per launch behind one C entry point each, on the route
+// ops/attention.py route picks (FlashBwdArgs.route, ROUTE_* of
+// flash_common.cuh; a launch with an unknown code, or a tensor-core route
+// on inputs it does not take, returns an error):
 //  - *_mma (bf16, head_dim 64 or 128, 16-byte aligned rows): mma.sync
 //    m16n8k16 with float32 accumulation, every operand fragment through
 //    ldmatrix. The streamed tiles come through two-stage cp.async rings
@@ -80,10 +83,50 @@
 //    block per SM); 0.0403 ms at the prefix-LM trainer's D 64 against
 //    0.0420-0.0474 (H100 SXM, 700 W). At D 128 it takes 255 registers a
 //    thread and no spill;
+//  - *_mma32 (float32, head_dim 64 or 128, every row of q, k, v, out, dO,
+//    dQ, dK, dV 16-byte aligned): the *_mma kernels' structure in float32
+//    (the same grids and walks, heaviest causal query tiles first, a
+//    two-stage cp.async ring, di from the dQ launch, the mask test only on
+//    tiles that cut a warp's rows, P as exp2 of one FMA with the lse in
+//    base 2, wholly masked warp tiles skipped, grouped heads summed in
+//    ascending order, no atomics). Every product runs on the tensor cores
+//    as mma.sync m16n8k8 in split TF32 (flash_common.cuh: each operand a
+//    TF32 high part and a remainder, three TF32 products, about float32's
+//    accuracy; one TF32 product keeps ~3 digits and misses float32's 2e-4):
+//    dQ's S, dP and dS K, dK/dV's S^T, dP^T, P^T dO and dS^T Q. P and dS
+//    (P^T and dS^T) reach the next product's A operand from the
+//    accumulators in registers: C holds columns 2t, 2t + 1 where A wants
+//    depth t, t + 4, so the B operand (K's rows in dS K, dO's in P^T dO,
+//    Q's in dS^T Q) is read in that permuted order, as flash_fwd_mma32
+//    reads V; a float32 sum may run in any order. Rows of D + 4 floats put
+//    every fragment load on 32 distinct banks. Where to split was measured
+//    at the LLM trainer CLIs' D 64 shapes (H100 SXM, 700 W; PERF.md): as
+//    each fragment is read, 0.165 / 0.204 / 0.114 ms for the whole
+//    backward at the prefix-LM reply / video and SFT shapes; the
+//    stationary operands (Q and dO, K and V) split once into hi and lo
+//    planes in shared memory, 0.193 / 0.236 / 0.117 (twice the shared
+//    loads in the products, and 2x the bytes cost the 64-row tiles); each
+//    streamed tile split once after it lands, 0.208 / 0.264 / 0.147 (a
+//    second barrier a tile as well). So every operand is split as it is
+//    read. The kernels are bound by issue (two shared loads and four split
+//    operations for three products) and latency, not by the tensor cores,
+//    so the tiles are picked for blocks in flight (DQ32_*, DKV32_*;
+//    PERF.md has each candidate's times): at D 64, 32 key rows a dQ tile
+//    (164 registers, 69,888 bytes) and 32 query rows a dK/dV step (4 warps
+//    of 16 key rows; 168 registers under its launch bounds, 70,144 bytes),
+//    three blocks an SM each. 64-key tiles (193 registers, two blocks) ran
+//    dQ 11-18% slower at the prefix-LM shapes and 4% faster at the SFT
+//    shape; the dK/dV step at two blocks an SM (177 registers) 5-6% slower
+//    at the prefix-LM shapes and 2% faster at SFT, at 16 query rows 15-19%
+//    slower, and 8 warps (one block an SM) 20-25% slower than 4. At
+//    D 128 (dK and dV alone take 128 floats a thread): 16-key tiles and
+//    16-query steps, 163 and 236 registers, 101,632 bytes each, two blocks
+//    an SM; 32-key tiles and 32-query steps at one block an SM ran 18-20%
+//    slower;
 //  - *_simple (float32 or bf16, any head_dim <= 128, any strides): float32
-//    FMA loops and synchronous tile loads; the exact float32 route and the
-//    shapes the other refuses. Its dQ kernel computes di as the tensor-core
-//    one does.
+//    FMA loops and synchronous tile loads; the shapes the others refuse,
+//    and the float32 check that chip_smoke.py holds *_mma32 against. Its
+//    dQ kernel computes di as the tensor-core ones do.
 #include "flash_common.cuh"
 
 namespace stair {
@@ -110,7 +153,7 @@ struct FlashBwdArgs {
   long long dk_sb, dk_sh, dk_sl;
   long long dv_sb, dv_sh, dv_sl;
   int B, H, Hkv, Lq, Lkv, D;
-  int causal, bf16, mma;
+  int causal, bf16, route;  // route: ROUTE_* of flash_common.cuh
   float sm_scale;
 };
 
@@ -809,6 +852,422 @@ flash_bwd_dkv_mma(const FlashBwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 tensor-core kernels (float32, head_dim 64 or 128)
+// ---------------------------------------------------------------------------
+
+// The float32 kernels' tiles per head_dim, picked by measurement
+// (scripts/flash_bwd_tiles.py --dtype float32 builds and times the
+// candidates): the dQ kernel's key rows per tile and the blocks per SM it
+// is designed for; the dK/dV kernel's warps (16 key rows each), query rows
+// per ring step and blocks per SM.
+constexpr int DQ32_KV_D64 = 32;
+constexpr int DQ32_MINB_D64 = 3;
+constexpr int DQ32_KV_D128 = 16;
+constexpr int DQ32_MINB_D128 = 2;
+constexpr int DKV32_WARPS_D64 = 4;
+constexpr int DKV32_MQ_D64 = 32;
+constexpr int DKV32_MINB_D64 = 3;
+constexpr int DKV32_WARPS_D128 = 4;
+constexpr int DKV32_MQ_D128 = 16;
+constexpr int DKV32_MINB_D128 = 2;
+
+// What a head_dim fixes for the dQ kernel: the key tile and the shared
+// memory: Q, dO, the K and V rings, di (ops/attention.py
+// mma32_bwd_smem_bytes computes the same sum).
+template <int D>
+struct Dq32 {
+  static constexpr int KV = D == 64 ? DQ32_KV_D64 : DQ32_KV_D128;
+  static constexpr int MINB = D == 64 ? DQ32_MINB_D64 : DQ32_MINB_D128;
+  static constexpr int LD = D + PAD32;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)2 * BQ * LD + (size_t)2 * STAGES * KV * LD +
+                       BQ);
+};
+
+// The same for the dK/dV kernel: K and V of the block's key rows, the Q
+// and dO rings, the lse and di rings.
+template <int D>
+struct Dkv32 {
+  static constexpr int WARPS = D == 64 ? DKV32_WARPS_D64 : DKV32_WARPS_D128;
+  static constexpr int MQ = D == 64 ? DKV32_MQ_D64 : DKV32_MQ_D128;
+  static constexpr int MINB = D == 64 ? DKV32_MINB_D64 : DKV32_MINB_D128;
+  static constexpr int NTH = WARPS * 32;
+  static constexpr int BKV = WARPS * 16;
+  static constexpr int LD = D + PAD32;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)2 * BKV * LD + (size_t)2 * STAGES * MQ * LD +
+                       2 * STAGES * MQ);
+};
+// each kernel's blocks per SM fit an SM's shared memory (1 KB reserved a
+// block)
+static_assert(Dq32<64>::MINB * (Dq32<64>::SMEM + 1024) <= 233472 &&
+                  Dq32<128>::MINB * (Dq32<128>::SMEM + 1024) <= 233472 &&
+                  Dkv32<64>::MINB * (Dkv32<64>::SMEM + 1024) <= 233472 &&
+                  Dkv32<128>::MINB * (Dkv32<128>::SMEM + 1024) <= 233472,
+              "the float32 backward kernels' blocks fit an SM");
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, Dq32<D>::MINB)
+flash_bwd_dq_mma32(const FlashBwdArgs a) {
+  typedef Dq32<D> C;
+  constexpr int KV = C::KV, LD = C::LD;
+  constexpr int NT = KV / 8;   // score n-tiles per warp, dS K k-steps
+  constexpr int OT = D / 8;    // dQ n-tiles per warp
+  constexpr int CH = D / 4;    // 16-byte chunks per row
+  constexpr int OCH = BQ * CH / THREADS;  // chunks of O per thread
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;                    // [BQ][LD]
+  float* Gs = Qs + BQ * LD;                // [BQ][LD]   dO
+  float* Ks = Gs + BQ * LD;                // [STAGES][KV][LD]
+  float* Vs = Ks + STAGES * KV * LD;       // [STAGES][KV][LD]
+  float* di_s = Vs + STAGES * KV * LD;     // [BQ]
+
+  // Grid (H, B, query tiles), the heaviest causal tiles first (as
+  // flash_bwd_dq_mma).
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ, h = blockIdx.x, b = blockIdx.y;
+  const int valid_q = a.valid_len[b];
+  const int valid = min(valid_q, a.Lkv);
+  const int prefix = a.prefix_len[b];
+  float* dq = (float*)a.dq + b * a.dq_sb + h * a.dq_sh;
+  const long long stat = ((long long)b * a.H + h) * a.Lq;
+  if (q0 >= valid_q || valid <= 0) {
+    dead_dq_tile<float>(a, dq, a.di + stat, q0);
+    return;
+  }
+  const int hk = h / (a.H / a.Hkv);
+  const float* q = (const float*)a.q + b * a.q_sb + h * a.q_sh;
+  const float* o = (const float*)a.o + b * a.o_sb + h * a.o_sh;
+  const float* go = (const float*)a.dout + b * a.do_sb + h * a.do_sh;
+  const float* k = (const float*)a.k + b * a.k_sb + hk * a.k_sh;
+  const float* v = (const float*)a.v + b * a.v_sb + hk * a.v_sh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
+  const int q_end = min(a.Lq, valid_q);
+  const float c2 = a.sm_scale * LOG2E;   // raw score -> base-2 exponent
+
+  const int kv_end = kv_end_of(q0, BQ, valid, prefix, a.causal);
+  const int ntiles = (kv_end + KV - 1) / KV;
+  // Group 0: Q, dO and the first K/V tile.
+  stage_tile_f32_async<D, LD, THREADS>(Qs, q, a.q_sl, q0, q_end, BQ);
+  stage_tile_f32_async<D, LD, THREADS>(Gs, go, a.do_sl, q0, q_end, BQ);
+  stage_tile_f32_async<D, LD, THREADS>(Ks, k, a.k_sl, 0, a.Lkv, KV);
+  stage_tile_f32_async<D, LD, THREADS>(Vs, v, a.v_sl, 0, a.Lkv, KV);
+  cp_async_commit();
+  // This thread's chunks of O for di, loaded while the group is in flight
+  // (chunk i = tid + j THREADS: row i / CH, the CH lanes of a row are
+  // neighbours in one warp). Padding rows read nothing.
+  float4 oc[OCH];
+#pragma unroll
+  for (int j = 0; j < OCH; ++j) {
+    const int i = tid + j * THREADS, r = i / CH, c = i % CH;
+    oc[j] = q0 + r < q_end
+                ? *reinterpret_cast<const float4*>(
+                      o + (long long)(q0 + r) * a.o_sl + c * 4)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // Row state of rows g (index 0) and g + 8 (index 1); lse in base 2.
+  const int row_min = q0 + warp * 16;
+  const int row_lo = row_min + g;
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + r * 8;
+    lse2[r] = row < q_end ? a.lse[stat + row] * LOG2E : INFINITY;
+  }
+
+  // di = rowsum(O dO) once dO has landed, as flash_bwd_dq_mma forms it.
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < OCH; ++j) {
+    const int i = tid + j * THREADS, r = i / CH, c = i % CH;
+    const float4 gv = *reinterpret_cast<const float4*>(Gs + r * LD + c * 4);
+    float part = fmaf(oc[j].x, gv.x, 0.f);
+    part = fmaf(oc[j].y, gv.y, part);
+    part = fmaf(oc[j].z, gv.z, part);
+    part = fmaf(oc[j].w, gv.w, part);
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (c == 0) di_s[r] = part;
+  }
+  __syncthreads();
+  const float di_r[2] = {di_s[warp * 16 + g], di_s[warp * 16 + g + 8]};
+  if (tid < BQ && q0 + tid < a.Lq) a.di[stat + q0 + tid] = di_s[tid];
+  float acc[OT][4];
+#pragma unroll
+  for (int n = 0; n < OT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const float* Qw = Qs + warp * 16 * LD;
+  const float* Gw = Gs + warp * 16 * LD;
+  // A warp whose 16 rows are all padding has dQ = 0: it skips the products.
+  const bool warp_live = row_min < q_end;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * KV;
+    // Tile j + 1 goes into the other stage while tile j is used; the group
+    // is committed even when empty, so "all but the newest" is tile j.
+    if (j + 1 < ntiles) {
+      const int st = (j + 1) % STAGES;
+      stage_tile_f32_async<D, LD, THREADS>(Ks + st * KV * LD, k, a.k_sl,
+                                           kv0 + KV, a.Lkv, KV);
+      stage_tile_f32_async<D, LD, THREADS>(Vs + st * KV * LD, v, a.v_sl,
+                                           kv0 + KV, a.Lkv, KV);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + (j % STAGES) * KV * LD;
+    const float* Vt = Vs + (j % STAGES) * KV * LD;
+
+    if (warp_live) {
+      // S = Q K^T and dP = dO V^T, 16 rows x KV keys a warp.
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t qh[4], ql[4], gh[4], gl[4];
+        load_a_split(qh, ql, Qw + kk * 8, LD, g, t);
+        load_a_split(gh, gl, Gw + kk * 8, LD, g, t);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bh[2], bl[2];
+          load_bt_split(bh, bl, Kt + n * 8 * LD + kk * 8, LD, g, t);
+          mma_tf32x3(s[n], qh, ql, bh, bl);
+          load_bt_split(bh, bl, Vt + n * 8 * LD + kk * 8, LD, g, t);
+          mma_tf32x3(dp[n], gh, gl, bh, bl);
+        }
+      }
+      // s becomes dS; the mask test only where the tile cuts this warp's
+      // rows (as flash_bwd_dq_mma).
+      const bool inside =
+          kv0 + KV <= valid && row_min + 16 <= q_end &&
+          (!a.causal || kv0 + KV - 1 <= row_min || kv0 + KV <= prefix);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = exp2f(fmaf(s[n][i], c2, -lse2[i / 2]));
+          if (!inside) {
+            const int row = row_lo + (i / 2) * 8;
+            const int col = kv0 + n * 8 + t * 2 + (i % 2);
+            if (!(row < q_end && live(row, col, valid, prefix, a.causal)))
+              p = 0.f;
+          }
+          s[n][i] = p * (dp[n][i] - di_r[i / 2]) * a.sm_scale;
+        }
+      }
+      // dQ += dS K: dS from the accumulators, K's rows in the permuted
+      // key order.
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t ah[4], al[4];
+        acc_as_a_split(ah, al, s[kk]);
+        const float* kb = Kt + kk * 8 * LD;
+#pragma unroll
+        for (int n = 0; n < OT; ++n) {
+          uint32_t bh[2], bl[2];
+          load_b_perm_split(bh, bl, kb + n * 8, LD, g, t);
+          mma_tf32x3(acc[n], ah, al, bh, bl);
+        }
+      }
+    }
+    // Every warp is done with this stage before tile j + 2 refills it.
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + r * 8;
+    if (row >= a.Lq) continue;
+    float* orow = dq + (long long)row * a.dq_sl + t * 2;
+#pragma unroll
+    for (int n = 0; n < OT; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Dkv32<D>::NTH, Dkv32<D>::MINB)
+flash_bwd_dkv_mma32(const FlashBwdArgs a) {
+  typedef Dkv32<D> C;
+  constexpr int NTH = C::NTH, BKV = C::BKV, MQ = C::MQ, LD = C::LD;
+  constexpr int NQ = MQ / 8;   // transposed-score n-tiles, P^T dO k-steps
+  constexpr int OT = D / 8;    // dK / dV n-tiles per warp
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Ks = smem_f32;                    // [BKV][LD]
+  float* Vs = Ks + BKV * LD;               // [BKV][LD]
+  float* Qs = Vs + BKV * LD;               // [STAGES][MQ][LD]
+  float* Gs = Qs + STAGES * MQ * LD;       // [STAGES][MQ][LD]   dO
+  float* lse_s = Gs + STAGES * MQ * LD;    // [STAGES][MQ]
+  float* di_s = lse_s + STAGES * MQ;       // [STAGES][MQ]
+
+  // Grid (Hkv, B, key tiles), the key-tile index slowest and ascending (as
+  // flash_bwd_dkv_mma).
+  const int kv0 = blockIdx.z * BKV, hk = blockIdx.x, b = blockIdx.y;
+  const int valid_q = a.valid_len[b];
+  const int valid = min(valid_q, a.Lkv);
+  const int prefix = a.prefix_len[b];
+  float* dk = (float*)a.dk + b * a.dk_sb + hk * a.dk_sh;
+  float* dv = (float*)a.dv + b * a.dv_sb + hk * a.dv_sh;
+  if (kv0 >= valid) {
+    const int rows = min(BKV, a.Lkv - kv0);
+    zero_rows<float>(dk, a.dk_sl, kv0, rows, D, NTH);
+    zero_rows<float>(dv, a.dv_sl, kv0, rows, D, NTH);
+    return;
+  }
+  const float* k = (const float*)a.k + b * a.k_sb + hk * a.k_sh;
+  const float* v = (const float*)a.v + b * a.v_sb + hk * a.v_sh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int G = a.H / a.Hkv;
+  const float c2 = a.sm_scale * LOG2E;
+
+  // Steps: the G query heads of the group in ascending order, and in each
+  // the query tiles from q_begin to q_end (the same count for every head).
+  const int q_end = min(a.Lq, valid_q);
+  const int q_begin = q_begin_of(kv0, prefix, a.causal, MQ);
+  const int nq = q_end > q_begin ? (q_end - q_begin + MQ - 1) / MQ : 0;
+  const int nsteps = G * nq;
+  auto stage_step = [&](int i, int st) {
+    const int hq = hk * G + i / nq, r0 = q_begin + (i % nq) * MQ;
+    const float* q = (const float*)a.q + b * a.q_sb + hq * a.q_sh;
+    const float* go = (const float*)a.dout + b * a.do_sb + hq * a.do_sh;
+    stage_tile_f32_async<D, LD, NTH>(Qs + st * MQ * LD, q, a.q_sl, r0,
+                                     q_end, MQ);
+    stage_tile_f32_async<D, LD, NTH>(Gs + st * MQ * LD, go, a.do_sl, r0,
+                                     q_end, MQ);
+    const long long stat = ((long long)b * a.H + hq) * a.Lq;
+    for (int r = tid; r < MQ; r += NTH) {
+      const bool in = r0 + r < q_end;
+      const long long at = stat + (in ? r0 + r : 0);
+      cp_async4(lse_s + st * MQ + r, a.lse + at, in);
+      cp_async4(di_s + st * MQ + r, a.di + at, in);
+    }
+  };
+  // Group 0: this block's K and V rows and the first step's tiles.
+  stage_tile_f32_async<D, LD, NTH>(Ks, k, a.k_sl, kv0, a.Lkv, BKV);
+  stage_tile_f32_async<D, LD, NTH>(Vs, v, a.v_sl, kv0, a.Lkv, BKV);
+  if (nsteps > 0) stage_step(0, 0);
+  cp_async_commit();
+
+  float acc_k[OT][4], acc_v[OT][4];
+#pragma unroll
+  for (int n = 0; n < OT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+  const int kw0 = kv0 + warp * 16;       // this warp's first key row
+  const int col_lo = kw0 + g;            // key rows g and g + 8
+  const float* Kw = Ks + warp * 16 * LD;
+  const float* Vw = Vs + warp * 16 * LD;
+
+  for (int i = 0; i < nsteps; ++i) {
+    if (i + 1 < nsteps) stage_step(i + 1, (i + 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int r0 = q_begin + (i % nq) * MQ;
+    const int stage = i % STAGES;
+    const float* Qt = Qs + stage * MQ * LD;
+    const float* Gt = Gs + stage * MQ * LD;
+    const float* lse_t = lse_s + stage * MQ;
+    const float* di_t = di_s + stage * MQ;
+    // This warp's keys are all past valid, or all above the step's last
+    // query row and past the prefix: P = 0, nothing to add.
+    const bool dead = kw0 >= valid || (a.causal && kw0 >= prefix &&
+                                       kw0 > r0 + MQ - 1);
+    if (!dead) {
+      // Transposed tiles S^T = K Q^T and dP^T = V dO^T: rows are this
+      // warp's 16 key rows, columns the step's query rows.
+      float pt[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pt[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        load_a_split(kh, kl, Kw + kk * 8, LD, g, t);
+        load_a_split(vh, vl, Vw + kk * 8, LD, g, t);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          uint32_t bh[2], bl[2];
+          load_bt_split(bh, bl, Qt + n * 8 * LD + kk * 8, LD, g, t);
+          mma_tf32x3(pt[n], kh, kl, bh, bl);
+          load_bt_split(bh, bl, Gt + n * 8 * LD + kk * 8, LD, g, t);
+          mma_tf32x3(dpt[n], vh, vl, bh, bl);
+        }
+      }
+      // pt becomes P^T, dpt becomes dS^T; the mask test only where the
+      // step cuts this warp's keys.
+      const bool inside =
+          kw0 + 16 <= valid && r0 + MQ <= q_end &&
+          (!a.causal || kw0 + 15 <= r0 || kw0 + 16 <= prefix);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int rl = n * 8 + t * 2;
+        const float l2[2] = {lse_t[rl] * LOG2E, lse_t[rl + 1] * LOG2E};
+        const float dd[2] = {di_t[rl], di_t[rl + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(pt[n][e], c2, -l2[e % 2]));
+          if (!inside) {
+            const int col = col_lo + (e / 2) * 8;
+            const int row = r0 + rl + (e % 2);
+            if (!(row < q_end && live(row, col, valid, prefix, a.causal)))
+              p = 0.f;
+          }
+          pt[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - dd[e % 2]) * a.sm_scale;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T from the accumulators,
+      // dO's and Q's rows in the permuted query order.
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        uint32_t ph[4], pl[4], sh[4], sl[4];
+        acc_as_a_split(ph, pl, pt[kk]);
+        acc_as_a_split(sh, sl, dpt[kk]);
+        const float* gb = Gt + kk * 8 * LD;
+        const float* qb = Qt + kk * 8 * LD;
+#pragma unroll
+        for (int n = 0; n < OT; ++n) {
+          uint32_t bh[2], bl[2];
+          load_b_perm_split(bh, bl, gb + n * 8, LD, g, t);
+          mma_tf32x3(acc_v[n], ph, pl, bh, bl);
+          load_b_perm_split(bh, bl, qb + n * 8, LD, g, t);
+          mma_tf32x3(acc_k[n], sh, sl, bh, bl);
+        }
+      }
+    }
+    // Every warp is done with this stage before step i + 2 refills it.
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int col = col_lo + r * 8;
+    if (col >= a.Lkv) continue;
+    float* krow = dk + (long long)col * a.dk_sl + t * 2;
+    float* vrow = dv + (long long)col * a.dv_sl + t * 2;
+#pragma unroll
+    for (int n = 0; n < OT; ++n) {
+      *reinterpret_cast<float2*>(krow + n * 8) =
+          make_float2(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(vrow + n * 8) =
+          make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+    }
+  }
+}
+
 // Shared memory of the tensor-core kernels per block (bytes).
 constexpr size_t dq_mma_smem(int D) {
   return (size_t)(2 * BQ + 2 * STAGES * MKV) * (D + PAD) * 2 + BQ * 4;
@@ -849,11 +1308,47 @@ cudaError_t launch_dkv_mma(const FlashBwdArgs& a, cudaStream_t stream) {
                 dkv_mma_smem(D, WARPS, MQ), MINB, stream);
 }
 
+template <int D>
+cudaError_t launch_dq_mma32(const FlashBwdArgs& a, cudaStream_t stream) {
+  const dim3 grid(a.H, a.B, (a.Lq + BQ - 1) / BQ);
+  return launch(flash_bwd_dq_mma32<D>, a, grid, THREADS, Dq32<D>::SMEM,
+                Dq32<D>::MINB, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv_mma32(const FlashBwdArgs& a, cudaStream_t stream) {
+  typedef Dkv32<D> C;
+  const dim3 grid(a.Hkv, a.B, (a.Lkv + C::BKV - 1) / C::BKV);
+  return launch(flash_bwd_dkv_mma32<D>, a, grid, C::NTH, C::SMEM, C::MINB,
+                stream);
+}
+
+// Every row of q, k, v, out, dO, dQ, dK and dV starts on 16 bytes.
+static bool rows_aligned16(const FlashBwdArgs& a) {
+  const void* ptrs[8] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  const long long strides[24] = {
+      a.q_sb,  a.q_sh,  a.q_sl,  a.k_sb,  a.k_sh,  a.k_sl,
+      a.v_sb,  a.v_sh,  a.v_sl,  a.o_sb,  a.o_sh,  a.o_sl,
+      a.do_sb, a.do_sh, a.do_sl, a.dq_sb, a.dq_sh, a.dq_sl,
+      a.dk_sb, a.dk_sh, a.dk_sl, a.dv_sb, a.dv_sh, a.dv_sl};
+  return rows_aligned16(ptrs, strides, 8);
+}
+
+// A launch the route does not take: an unknown code, a tensor-core route on
+// another dtype or head_dim, "mma32" on rows not 16-byte aligned.
 static bool bad_args(const FlashBwdArgs& a) {
   if (a.D < 1 || a.D > 32 * SDJ) return true;
   if (a.Hkv < 1 || a.H % a.Hkv) return true;
-  if (a.mma && (!a.bf16 || (a.D != 64 && a.D != 128))) return true;
-  return false;
+  switch (a.route) {
+    case ROUTE_SIMPLE:
+      return false;
+    case ROUTE_MMA:
+      return !a.bf16 || (a.D != 64 && a.D != 128);
+    case ROUTE_MMA32:
+      return a.bf16 || (a.D != 64 && a.D != 128) || !rows_aligned16(a);
+    default:
+      return true;
+  }
 }
 
 }  // namespace stair
@@ -864,7 +1359,10 @@ extern "C" int stair_flash_attn_bwd_dq(const stair::FlashBwdArgs* args,
   const FlashBwdArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
-  if (a.mma) {
+  if (a.route == ROUTE_MMA32)
+    return (int)(a.D == 64 ? launch_dq_mma32<64>(a, st)
+                           : launch_dq_mma32<128>(a, st));
+  if (a.route == ROUTE_MMA) {
     const dim3 grid(a.H, a.B, (a.Lq + BQ - 1) / BQ);
     return (int)(a.D == 64 ? launch(flash_bwd_dq_mma<64>, a, grid, THREADS,
                                     dq_mma_smem(64), 2, st)
@@ -886,7 +1384,10 @@ extern "C" int stair_flash_attn_bwd_dkv(const stair::FlashBwdArgs* args,
   const FlashBwdArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
-  if (a.mma)
+  if (a.route == ROUTE_MMA32)
+    return (int)(a.D == 64 ? launch_dkv_mma32<64>(a, st)
+                           : launch_dkv_mma32<128>(a, st));
+  if (a.route == ROUTE_MMA)
     return (int)(a.D == 64
                      ? launch_dkv_mma<64, DKV_WARPS_D64, DKV_MQ_D64,
                                       DKV_MINB_D64>(a, st)

@@ -1,13 +1,33 @@
 // What the flash-attention forward (flash_attn.cu) and backward
-// (flash_attn_bwd.cu) kernels share: the two-integer mask, the cp.async
-// staging of a bf16 or float32 tile into padded shared memory for the
-// kernels' tile rings, the fragment loads of the bf16 mma.sync product, and
-// the float32 tile product in split TF32.
+// (flash_attn_bwd.cu) kernels share: the route codes, the two-integer mask,
+// the cp.async staging of a bf16 or float32 tile into padded shared memory
+// for the kernels' tile rings, the fragment loads of the bf16 mma.sync
+// product, and the float32 tile product in split TF32.
 #pragma once
 
 #include "common.cuh"
 
 namespace stair {
+
+// The kernels a launch runs, in FlashArgs.route and FlashBwdArgs.route
+// (ops/attention.py route picks them, ROUTES in this order).
+constexpr int ROUTE_SIMPLE = 0;  // float32 FMA loops: any shape
+constexpr int ROUTE_MMA = 1;     // bf16 mma.sync: head_dim 64 / 128
+constexpr int ROUTE_MMA32 = 2;   // float32 split-TF32 mma.sync: head_dim
+                                 // 64 / 128, 16-byte aligned rows
+
+// Every row of ``n`` float32 tensors starts on 16 bytes: each data pointer
+// p[i] and each element stride s[3 i .. 3 i + 2] (batch, head, row) is a
+// multiple of 16 bytes, 4 floats (what the float32 tensor-core kernels'
+// 16-byte cp.async chunks and 8-byte stores need).
+inline bool rows_aligned16(const void* const* p, const long long* s, int n) {
+  for (int i = 0; i < n; ++i) {
+    if ((uintptr_t)p[i] % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (s[3 * i + j] % 4) return false;
+  }
+  return true;
+}
 
 constexpr float MASK_VALUE = -1e30f;
 constexpr int PAD = 8;       // bf16 elements of row padding in shared memory
@@ -173,6 +193,32 @@ __device__ __forceinline__ void load_bt_split(uint32_t (&hi)[2],
                                               int g, int t) {
   split_tf32(base[g * ld + t], hi[0], lo[0]);
   split_tf32(base[g * ld + t + 4], hi[1], lo[1]);
+}
+
+// An accumulator tile (16 x 8, C's layout) as the split A fragment of the
+// next product, without shared memory: C holds columns 2t, 2t + 1 where A
+// wants depth t, t + 4, so depth t is taken as column 2t and t + 4 as
+// 2t + 1. The B operand reads its rows in the same permuted order
+// (load_b_perm_split); a float32 sum over the depth may run in any order.
+__device__ __forceinline__ void acc_as_a_split(uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4],
+                                               const float (&c)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// The split B fragment of an 8-deep slice whose B is row-major in shared
+// memory (rows = the product's depth), in acc_as_a_split's permuted depth
+// order: base[2t ld + g] and base[(2t + 1) ld + g]. Rows 2t ld apart put
+// the 32 lanes on distinct banks at ld = D + PAD32.
+__device__ __forceinline__ void load_b_perm_split(uint32_t (&hi)[2],
+                                                  uint32_t (&lo)[2],
+                                                  const float* base, int ld,
+                                                  int g, int t) {
+  split_tf32(base[2 * t * ld + g], hi[0], lo[0]);
+  split_tf32(base[(2 * t + 1) * ld + g], hi[1], lo[1]);
 }
 
 // S (16 rows x NT * 8 keys) = A K^T in split TF32 for one warp: ``qa(kk,

@@ -9,7 +9,7 @@ bf16 at atol 2e-2 (one bf16 step of an O(1) output is 8e-3). Padding rows
 (at or past ``valid_len``) are 0 with lse +inf by the port's rule and are
 checked as such. Lengths that divide no tile go against the dense
 reference only (the JAX kernel refuses them). The CUDA kernel is held
-against the plain version on the card, on the route ``fwd_route`` picks
+against the plain version on the card, on the route ``route`` picks
 (float32 at head_dim 64 / 128 on aligned rows: ``"mma32"``, the split-TF32
 tensor-core kernel, also against ``flash_fwd_simple`` and itself).
 """
@@ -215,7 +215,7 @@ def test_kernel_vs_plain_on_card(cuda_device, case, dtype):
     D, valid, causal = case[6], case[8], case[9]
     dt = getattr(torch, dtype)
     q, k, v, pl, vl = _card_qkv(case, dt, cuda_device)
-    route = TA.fwd_route(dt, D, all(TA._aligned(t) for t in (q, k, v)))
+    route = TA._route_of(q, k, v)
     assert route == ({torch.float32: "mma32", torch.bfloat16: "mma"}[dt]
                      if D in (64, 128) else "simple")
     TA.reset_route_launches()
@@ -291,13 +291,11 @@ FWD_ROUTES = [
     ids=[f"{str(r[0])[6:]}-D{r[1]}-{'al' if r[2] else 'un'}"
          for r in FWD_ROUTES])
 def test_fwd_route_choice(route):
-    """bf16 takes the route the backward takes (``route``), unchanged;
-    float32 at head_dim 64 / 128 on aligned rows takes the split-TF32
-    kernel, every other float32 shape the FMA kernel."""
+    """The forward's route, ``route`` (the backward's too): bf16 at head_dim
+    64 / 128 on aligned rows the bf16 tensor-core kernel, float32 there the
+    split-TF32 kernel, every other shape the FMA kernel."""
     dtype, D, aligned, want = route
-    assert TA.fwd_route(dtype, D, aligned) == want
-    if dtype == torch.bfloat16:
-        assert TA.route(dtype, D, aligned) == want
+    assert TA.route(dtype, D, aligned) == want
 
 
 def _float32_views():
@@ -322,7 +320,7 @@ def test_alignment_of_float32_rows(layout):
     k = v = torch.randn(2, 3, 8, 64)
     ln = torch.tensor([8, 5], dtype=torch.int32)
     aligned = all(TA._aligned(t) for t in (q, k, v))
-    assert TA.fwd_route(torch.float32, 64, aligned) == (
+    assert TA.route(torch.float32, 64, aligned) == (
         "mma32" if want else "simple")
     if not want:
         with pytest.raises(ValueError, match="route 'mma32' does not take"):
@@ -330,10 +328,12 @@ def test_alignment_of_float32_rows(layout):
 
 
 def test_route_codes_match_the_source():
-    """``FWD_ROUTES`` is in the order of ``ROUTE_*`` in flash_attn.cu, and
-    the argument block carries the code where it carried the mma flag."""
-    codes = _build.header_ints("flash_attn.cu")
-    assert [codes[f"ROUTE_{r.upper()}"] for r in TA.FWD_ROUTES] == [0, 1, 2]
+    """``ROUTES`` is in the order of ``ROUTE_*`` in flash_common.cuh (which
+    both attention sources read), and the argument block carries the code
+    where it carried the mma flag."""
+    codes = _build.header_ints("flash_common.cuh")
+    assert [codes[f"ROUTE_{r.upper()}"] for r in TA.ROUTES] == [0, 1, 2]
+    assert "ROUTE_MMA32" not in _build.header_ints("flash_attn.cu")
     assert [f for f, _ in TA._Args._fields_][-2:] == ["route", "sm_scale"]
 
 

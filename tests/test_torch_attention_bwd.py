@@ -262,7 +262,24 @@ CARD_CASES = [
      [63, 64, 65, 127, 128, 129], True),
     ("gqa32", 2, 32, 1, 200, 200, 128, [0, 50], [200, 131], True),
     ("noncausal-D128", 2, 4, 2, 130, 70, 128, [0, 0], [70, 50], False),
+    # the float32 LLM trainer CLIs' backward shapes: with_video_lm's video
+    # backward (the video-visible prefix) and its reply backward, with
+    # ragged valid_len
+    ("with_video_lm-video", 32, 8, 8, 214, 214, 64, [150] * 32,
+     [214 - (11 * i) % 97 for i in range(32)], True),
+    ("with_video_lm-reply", 32, 8, 8, 214, 214, 64, [0] * 32,
+     [214 - (13 * i) % 89 for i in range(32)], True),
 ]
+#: the float32 cases the split-TF32 kernels take (head_dim 64 or 128;
+#: every card case's rows are 16-byte aligned)
+MMA32_CASES = [c for c in CARD_CASES if c[6] in (64, 128)]
+
+
+def _want_route(dtype, D):
+    """The route ``route`` gives a card case (aligned rows)."""
+    if D not in (64, 128):
+        return "simple"
+    return "mma32" if dtype in ("float32", torch.float32) else "mma"
 
 
 @pytest.mark.cuda
@@ -270,9 +287,10 @@ CARD_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_vs_plain_on_card(cuda_device, case, dtype):
     """Kernels #8 and #9 against the plain backward on the same CUDA
-    tensors (strided q/k/v, a non-contiguous dO): float32 within 2e-4 of
-    each gradient's scale, bf16 within 2e-2; the same bits twice; padding
-    rows exactly 0; one launch of each kernel per backward."""
+    tensors (strided q/k/v, a non-contiguous dO), on the route ``route``
+    picks (float32 at head_dim 64 / 128: ``"mma32"``): float32 within 2e-4
+    of each gradient's scale, bf16 within 2e-2; the same bits twice;
+    padding rows exactly 0; one launch of each kernel per backward."""
     _, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal = case
     q, k, v, do = _inputs(B, H, Hkv, Lq, Lkv, D, seed=Lq, scale=1.0)
     dt = torch.float32 if dtype == "float32" else torch.bfloat16
@@ -285,10 +303,14 @@ def test_kernels_vs_plain_on_card(cuda_device, case, dtype):
     out, lse = TA.flash_attention(tq, tk, tv, pl, vl, causal=causal,
                                   return_lse=True)
     _build.reset_launches()
+    TA.reset_route_launches()
     got = TA._launch_backward(tq, tk, tv, out, lse, tdo, pl, vl, causal,
                               scale)
     assert _build.LAUNCHES["flash_attn_bwd_dq"] == 1
     assert _build.LAUNCHES["flash_attn_bwd_dkv"] == 1
+    route = _want_route(dtype, D)
+    assert TA.BWD_ROUTE_LAUNCHES[route] == 2, TA.BWD_ROUTE_LAUNCHES
+    assert sum(TA.BWD_ROUTE_LAUNCHES.values()) == 2
     again = TA._launch_backward(tq, tk, tv, out, lse, tdo, pl, vl, causal,
                                 scale)
     torch.cuda.synchronize()
@@ -304,6 +326,30 @@ def test_kernels_vs_plain_on_card(cuda_device, case, dtype):
             float(w.abs().max()), 1e-6), name
         for b, nv in enumerate(valid):
             assert float(a[b, :, nv:].abs().sum()) == 0.0, (name, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MMA32_CASES, ids=[c[0] for c in MMA32_CASES])
+def test_mma32_vs_simple_and_itself_on_card(cuda_device, case):
+    """The float32 split-TF32 backward against the forced ``"simple"``
+    backward (the FMA kernels) on the same inputs, each gradient within
+    2e-4 of its scale, and against itself on a second launch (equal bits:
+    no atomics)."""
+    _, B, H, Hkv, Lq, Lkv, D, prefix, valid, causal = case
+    tq, tk, tv, out, lse, tdo, pl, vl = _card_inputs(case, torch.float32,
+                                                     cuda_device)
+    scale = 1.0 / math.sqrt(D)
+    got = TA._launch_backward(tq, tk, tv, out, lse, tdo, pl, vl, causal,
+                              scale, route="mma32")
+    again = TA._launch_backward(tq, tk, tv, out, lse, tdo, pl, vl, causal,
+                                scale, route="mma32")
+    simple = TA._launch_backward(tq, tk, tv, out, lse, tdo, pl, vl, causal,
+                                 scale, route="simple")
+    torch.cuda.synchronize()
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, simple):
+        assert torch.equal(a, a2), name
+        assert float((a - w).abs().max()) <= 2e-4 * max(
+            float(w.abs().max()), 1e-6), name
 
 
 @pytest.mark.cuda
@@ -352,6 +398,7 @@ def test_di_written_by_the_dq_launch_on_card(cuda_device, case, dtype):
     D = tq.shape[-1]
     args, _, keep = TA._backward_args(tq, tk, tv, out, lse, tdo, pl, vl,
                                       case[-1], 1.0 / math.sqrt(D))
+    assert TA.ROUTES[args.route] == _want_route(dtype, D)
     TA._launch_dq(args, cuda_device)
     torch.cuda.synchronize()
     got = keep["di"]
@@ -367,8 +414,10 @@ def test_di_written_by_the_dq_launch_on_card(cuda_device, case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_one_backward_is_two_launches_on_card(cuda_device, dtype):
     """One ``_launch_backward`` call is the dQ launch then the dK/dV launch
-    and nothing else on the device (``torch.profiler`` device events): no
-    eager ``di``, no copies."""
+    of the route's kernels (float32: ``flash_bwd_dq_mma32``,
+    ``flash_bwd_dkv_mma32``; bf16: ``flash_bwd_dq_mma``,
+    ``flash_bwd_dkv_mma``) and nothing else on the device
+    (``torch.profiler`` device events): no eager ``di``, no copies."""
     from torch.profiler import ProfilerActivity, profile
 
     dt = torch.float32 if dtype == "float32" else torch.bfloat16
@@ -384,7 +433,11 @@ def test_one_backward_is_two_launches_on_card(cuda_device, dtype):
                                     key=lambda e: e.time_range.start)
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 2, names
-    assert "flash_bwd_dq" in names[0] and "flash_bwd_dkv" in names[1], names
+    sfx = "_mma32" if dt == torch.float32 else "_mma"
+    assert f"flash_bwd_dq{sfx}" in names[0], names
+    assert f"flash_bwd_dkv{sfx}" in names[1], names
+    if dt == torch.bfloat16:
+        assert not any("mma32" in n for n in names), names
 
 
 # dtype, head_dim, aligned -> route
@@ -394,8 +447,10 @@ ROUTES = [
     (torch.bfloat16, 128, False, "simple"),
     (torch.bfloat16, 96, True, "simple"),
     (torch.bfloat16, 32, True, "simple"),
-    (torch.float32, 64, True, "simple"),
-    (torch.float32, 128, True, "simple"),
+    (torch.float32, 64, True, "mma32"),
+    (torch.float32, 128, True, "mma32"),
+    (torch.float32, 64, False, "simple"),
+    (torch.float32, 40, True, "simple"),
 ]
 
 
@@ -403,12 +458,47 @@ ROUTES = [
     "route", ROUTES,
     ids=[f"{str(r[0])[6:]}-D{r[1]}-{'al' if r[2] else 'un'}" for r in ROUTES])
 def test_kernel_route_choice(route):
-    """The backward's route: the tensor-core kernels for bf16 on the inputs
-    where the forward takes its bf16 tensor-core kernel (``fwd_route``),
-    the float32-FMA kernels for float32 (the forward's ``"mma32"`` has no
-    backward counterpart yet)."""
+    """The backward's route, ``route`` (the forward's too): the bf16
+    tensor-core kernels for bf16 at head_dim 64 / 128 on aligned rows, the
+    split-TF32 kernels for float32 there, the FMA kernels for every other
+    shape (unaligned float32 rows included)."""
     dtype, D, aligned, want = route
     assert TA.route(dtype, D, aligned) == want
+
+
+def test_backward_route_codes_match_the_source():
+    """The backward's argument block carries the route code (``ROUTES``,
+    in the order of ``ROUTE_*`` in flash_common.cuh) where it carried the
+    mma flag."""
+    codes = _build.header_ints("flash_common.cuh")
+    assert [codes[f"ROUTE_{r.upper()}"] for r in TA.ROUTES] == [0, 1, 2]
+    fields = [f for f, _ in TA._BwdArgs._fields_]
+    assert fields[-2:] == ["route", "sm_scale"] and "mma" not in fields
+
+
+@pytest.mark.parametrize("layout", ["q-offset", "dout-row-stride"])
+def test_forced_mma32_backward_on_unaligned_rows_raises(monkeypatch, layout):
+    """float32 q, k, v one element past 16 bytes, or dO rows of D + 1
+    floats, take the ``"simple"`` backward; a forced ``"mma32"`` raises
+    before anything is launched or built."""
+    def no_build():
+        raise AssertionError("built or launched a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    B, H, L, D = 2, 3, 8, 64
+    off = 1 if layout == "q-offset" else 0
+    q, k, v = (torch.randn(B * H * L * D + off)[off:].view(B, H, L, D)
+               for _ in range(3))
+    dout = torch.randn(B, H, L, D + 1 - off)[..., :D]
+    pl, vl = _lens([0, 2], [8, 5])
+    out, lse = TA.reference_attention(q, k, v, pl, vl)
+    assert TA._route_of(q, k, v, out, dout) == "simple"
+    with pytest.raises(ValueError, match="route 'mma32' does not take"):
+        TA._launch_backward(q, k, v, out, lse, dout, pl, vl, True, 0.125,
+                            route="mma32")
+    with pytest.raises(ValueError, match="route 'mma' does not take"):
+        TA._backward_args(q, k, v, out, lse, dout, pl, vl, True, 0.125,
+                          route="mma")
 
 
 #: the card's shared memory: per block, and per SM (each block reserves
@@ -434,6 +524,50 @@ def test_backward_shared_memory_fits(tile, D):
     assert flash_bwd_tiles.smem_bytes(128, (4, 32, 2))[1] == (
         (2 * 64 + 4 * 32) * 136 * 2 + 512)
     assert dq == (2 * 64 + 4 * 64) * (D + 8) * 2 + 256
+
+
+@pytest.mark.parametrize("cands", ["source", *flash_bwd_tiles.CANDIDATES32])
+@pytest.mark.parametrize("D", [64, 128])
+def test_mma32_backward_shared_memory_fits(cands, D):
+    """``flash_bwd_dq_mma32<D>`` and ``flash_bwd_dkv_mma32<D>`` (the
+    source's constants and each float32 candidate of the tile script):
+    shared memory per block from the source's constants fits a block's
+    227 KB, and the blocks per SM each is designed for fit an SM's 228 KB
+    (1 KB reserved a block)."""
+    consts = None if cands == "source" else flash_bwd_tiles.CANDIDATES32[
+        cands]
+    for smem, blocks in TA.mma32_bwd_smem_bytes(D, consts):
+        assert smem <= SMEM_BLOCK
+        assert blocks in (1, 2, 3)
+        assert blocks * (smem + SMEM_RESERVED) <= SMEM_SM
+    if consts is None:
+        (dq, dq_blocks), (dkv, dkv_blocks) = TA.mma32_bwd_smem_bytes(D)
+        # three blocks an SM at D 64, two at D 128
+        assert dq_blocks == dkv_blocks == {64: 3, 128: 2}[D]
+        # the source's arithmetic: Q, dO, the K / V rings, di; K, V, the
+        # Q / dO rings, the lse / di rings (rows of D + 4 floats)
+        c = _build.header_ints("flash_attn_bwd.cu")
+        kv, mq = c[f"DQ32_KV_D{D}"], c[f"DKV32_MQ_D{D}"]
+        bkv = 16 * c[f"DKV32_WARPS_D{D}"]
+        assert dq == 4 * ((2 * 64 + 4 * kv) * (D + 4) + 64)
+        assert dkv == 4 * ((2 * bkv + 4 * mq) * (D + 4) + 4 * mq)
+
+
+def test_tile_script_rewrites_the_float32_constants():
+    """Every float32 candidate of the tile script rewrites the
+    ``DQ32_*`` / ``DKV32_*`` constants it names, and nothing else."""
+    have = _build.header_ints("flash_attn_bwd.cu")
+    for name, consts in flash_bwd_tiles.CANDIDATES32.items():
+        text = flash_bwd_tiles.source_with(consts)
+        for key, val in consts.items():
+            assert key.startswith(("DQ32_", "DKV32_")), key
+            assert f"constexpr int {key} = {val};" in text, (name, key)
+        for key, val in have.items():
+            if key not in consts:
+                assert f"constexpr int {key} = {val};" in text, (name, key)
+    with pytest.raises(RuntimeError, match="no longer has"):
+        flash_bwd_tiles.source_with({"DQ32_KV_D64": 8,
+                                     "NOT_A_CONSTANT": 1})
 
 
 def test_tile_script_rewrites_the_source_tile():
@@ -477,7 +611,8 @@ def test_backward_args_allocate_di_and_compute_nothing(monkeypatch, dtype):
     assert di.shape == (B, H, L) and di.dtype == torch.float32
     assert args.di == di.data_ptr() and args.o == out.data_ptr()
     assert (args.o_sb, args.o_sh, args.o_sl) == out.stride()[:3]
-    assert args.mma == (dtype == torch.bfloat16)
+    assert TA.ROUTES[args.route] == (
+        "mma" if dtype == torch.bfloat16 else "mma32")
     assert [g.shape for g in grads] == [tq.shape, tk.shape, tv.shape]
 
 
