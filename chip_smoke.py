@@ -16,7 +16,8 @@ Phases (any failure raises, and the script exits non-zero):
    tensor-core kernels (the attention backward's and the executor's), the
    BiLSTM's float32 cluster kernels (forward, walk, dwh) and the
    executor's float32 "fma32" kernels (forward, walk, weight gradients and
-   their row index);
+   their row index, the step kernel), and on more than 128 registers a
+   thread in the "fma32" step kernel (two CTAs an SM);
 3. BiLSTM forward kernels vs their plain version at the slice's shapes (B
    = 1024, h = 256; video L = 64 / D = 1024, question L = 16 / D = 300),
    with non-suffix masks and an all-padding row: float32 on the float32
@@ -182,10 +183,14 @@ Phases (any failure raises, and the script exits non-zero):
    (both ways), the plain versions', ``index_put_``'s and the bound;
 15. the fused executor-step kernel vs its plain version at every step of
    the all-opcode programs at H = 512 (F = 16 linear and F = 64 conv
-   temporal), float32 on the general route within 1e-4 and bf16 on both
-   routes (the tensor-core kernel, which ``step_route`` picks, and the
-   general one) within atol 3e-2 + rtol 1e-2: every output and the whole
-   frames file, ``T`` launches of the route's key;
+   temporal), float32 on both of its routes (the "fma32" kernel, which
+   ``step_route`` picks, and the general one) within 1e-4, each "fma32"
+   call also against the general route on clones (equal bits in every
+   output and the whole frames file), and bf16 on both of its routes (the
+   tensor-core kernel, which ``step_route`` picks, and the general one)
+   within atol 3e-2 + rtol 1e-2: every output and the whole frames file,
+   ``T`` launches of the route's key; the float32 forward's 16 launches at F
+   64 timed on both float32 routes (``[f32]``);
 16. the serving path at full width on the scan executor (phase 5's
    configuration and batches through ``VideoNMN(executor="step")``): per
    batch ``T`` launches of the tensor-core step kernel, none of the
@@ -195,7 +200,16 @@ Phases (any failure raises, and the script exits non-zero):
    and kept another keyword on each route, is held to that tie and left
    out of the file comparison); q/s and device ms per batch beside that
    route's; the 13 launches of the batch on both routes against the plain
-   version, with their times and bound;
+   version, with their times and bound. Then the same in float32
+   (``compute_dtype="float32"``, the same weights): per batch ``T``
+   launches of the "fma32" step kernel, none of the other two, 2 of the
+   BiLSTM's float32 cluster kernel and no megakernel; the logits against
+   the float32 megakernel route (its "fma32" #4; argmax agreement >= 0.98,
+   the register files' max abs errors printed) and the plain route (>=
+   0.98); q/s and device ms per batch beside the bf16 step route's and the
+   float32 megakernel's; the batch's 13 calls on the "fma32" route against
+   the general route (equal bits) and the plain version (1e-4), timed on
+   both routes (``[f32]``);
 17. the train step on the reversible executor (phase 8's configuration with
    ``executor="rev"``): per step ``T`` launches each of ``slot_set_many``
    (a step's four sets), ``slot_zero_many`` (its eight reads-and-zeros)
@@ -275,8 +289,10 @@ kernel: launches on its main path, error against the plain version on the
 main path's inputs, its time, the plain version's, the bound the card's
 peaks allow for this run's inputs, and a library call's time where one
 computes the same function) and ``{"ok": true, "device": {...}}``. The
-step kernel's general route (``executor_step``) counts the launches of its
-own path, phase 15's float32 forward at F = 64; ``slot_set``,
+step kernel's "fma32" route (``executor_step_fma32``) counts the launches
+of phase 16's float32 serving run; its general route (``executor_step``),
+which no main path takes any more, those of phase 15's float32 forward at
+F = 64 with the general route forced; ``slot_set``,
 ``slot_zero`` and ``slot_add`` show 0, as the ``"rev"`` path makes its
 updates through the many-entry launches. Phase 19's three entries
 (``"path": "parser"``) are #1-#3 again at the parser's shapes on the float32
@@ -284,7 +300,8 @@ cluster routes (``bilstm_f32c``, ``bilstm_train_f32c``,
 ``bilstm_bwd_f32c``: its walk, dwh slices and their sum timed together),
 with the general route's time beside and the parser path's launches. Before them a line ``[f32 routes]`` gathers the
 float32 times of #2, #3 (phase 6's shapes), #4 (phase 4), #5, #6 (phase
-7, and phase 8's B 128) and #10 (phase 15, F 64) with their bounds. Every time printed is
+7, and phase 8's B 128) and #10 (phase 15, F 64, and phase 16's float32
+serving batch) with their bounds. Every time printed is
 measured in this run, on the card named above it.
 """
 
@@ -3503,8 +3520,10 @@ def step_bound(args, dtype):
 
 @contextlib.contextmanager
 def step_route(route):
-    """Send the fused step through ``route`` (``"tc"`` or ``"general"``)
-    whatever ``executor_step.step_route`` picks; ``None``: as it picks."""
+    """Send the fused step through ``route`` (``"tc"``, ``"fma32"`` or
+    ``"general"``) whatever ``executor_step.step_route`` picks; ``None``: as
+    it picks. A route that does not take the call's dtype or widths makes
+    ``fused_step`` raise."""
     from stair_tpu_torch.ops import executor_step as TE
 
     pick = TE.step_route
@@ -3516,16 +3535,20 @@ def step_route(route):
         TE.step_route = pick
 
 
-#: the fused step's launch key on each route
-STEP_KEYS = {"tc": "executor_step_tc", "general": "executor_step"}
+#: the fused step's routes a phase drives in each dtype, the route
+#: ``step_route`` picks first (the bf16 loops never force "fma32")
+STEP_ROUTES = {torch.float32: ("fma32", "general"),
+               torch.bfloat16: ("tc", "general")}
 
 
 def phase_step_kernel(dev):
     """Kernel #10 against its plain version at every step of the all-opcode
     programs: the model runs on the ``"step"`` executor and each call of
     ``fused_step`` is made twice, kernel and plain version, on clones; bf16
-    on both routes, float32 on the general one. Returns the launches of the
-    float32 forward at F = 64, the general route's own path."""
+    on the tensor-core and the general route, float32 on the "fma32" and the
+    general route, each "fma32" call also against the general route on
+    clones (equal bits). Returns the launches of the float32 forward at F =
+    64 on the forced general route."""
     from stair_tpu_torch.models.nmn import NMNConfig
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import executor_step as TE
@@ -3537,8 +3560,7 @@ def phase_step_kernel(dev):
     general_launches = 0
     calls32 = []     # the float32 forward's calls at F = 64, to time
     for F in (16, FRAMES):
-        for dtype, routes in ((torch.float32, ("general",)),
-                              (torch.bfloat16, ("tc", "general"))):
+        for dtype, routes in STEP_ROUTES.items():
             cfg = NMNConfig(
                 hidden_size=HIDDEN, video_size=VIDEO_D, text_size=TEXT_D,
                 max_video_length=F, object_types=3, max_steps=16,
@@ -3552,18 +3574,29 @@ def phase_step_kernel(dev):
                 cfg, W.OPCODE_PROGRAMS * 8, seed=F), dev)
             tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 3e-2)
             for route in routes:
-                seen = {"err": 0.0, "e1": set(), "e2": set()}
+                seen = {"err": 0.0, "e1": set(), "e2": set(), "same": 0}
 
                 def both(*args):
-                    if dtype == torch.float32 and F == FRAMES:
+                    if route == "fma32" and F == FRAMES:
                         calls32.append(tuple(a.clone() for a in args))
                     want = TE.fused_step_reference(*(a.clone() for a in args))
+                    if route == "fma32":
+                        # the general route on clones, its launch not counted
+                        counted = dict(_build.LAUNCHES)
+                        with step_route("general"):
+                            general = real(*(a.clone() for a in args))
+                        _build.LAUNCHES.update(counted)
                     got = real(*args)
                     torch.cuda.synchronize()
                     for g, w, what in zip(got, want, names):
                         torch.testing.assert_close(
                             g.float(), w.float(), rtol=tol[0], atol=tol[1],
                             msg=lambda m: f"executor_step {route} {what}: {m}")
+                    if route == "fma32":
+                        for g, k, what in zip(got, general, names):
+                            require(torch.equal(g, k), f"executor_step fma32 "
+                                    f"route != general route, {what}, F={F}")
+                        seen["same"] += 1
                     seen["err"] = max(seen["err"], max_err(got, want))
                     seen["e1"] |= set(args[0][TE.S_E1].tolist())
                     seen["e2"] |= set(args[0][TE.S_E2].tolist())
@@ -3578,35 +3611,51 @@ def phase_step_kernel(dev):
                 finally:
                     TE.fused_step = real
                 T = batch["trace"]["opcode"].shape[1]
-                key = STEP_KEYS[route]
+                key = TE.STEP_KEYS[route]
                 require(launches[key] == T and all(
-                    launches[k] == 0 for k in STEP_KEYS.values() if k != key),
+                    launches[k] == 0 for k in TE.STEP_KEYS.values()
+                    if k != key),
                         f"{key} launches {launches}")
-                if dtype == torch.float32 and F == FRAMES:
+                if dtype == torch.float32 and F == FRAMES and \
+                        route == "general":
                     general_launches = launches[key]
                 require(seen["e2"] == set(range(5)) and {0, 4, 8, 9, 10}
                         <= seen["e1"], f"families not covered: {seen}")
                 require(bool(torch.isfinite(out["logits"]).all()),
                         "non-finite logits on the step route")
+                same = (f", equal bits to the general route at all "
+                        f"{seen['same']} steps" if route == "fma32" else "")
                 log(f"[executor_step] all {len(W.OPCODE_PROGRAMS)} opcode "
                     f"programs x8 H={HIDDEN} F={F} "
                     f"{'conv' if cfg.conv_temporal else 'linear'}-temporal "
                     f"{dtype} on the {route} route ({key}): {T} steps, every "
                     f"output and the whole frames file, max_abs_err "
-                    f"{seen['err']:.3e} (rtol {tol[0]}, atol {tol[1]}), "
-                    f"stage-1 experts {sorted(seen['e1'])} ok")
-    # #10 in float32 on the general route over the forward's T calls,
-    # timed in place (a repeat rewrites the same frames slots)
+                    f"{seen['err']:.3e} (rtol {tol[0]}, atol {tol[1]})"
+                    f"{same}, stage-1 experts {sorted(seen['e1'])} ok")
+    # #10 in float32 on both routes over the forward's T calls, timed in
+    # place (a repeat rewrites the same frames slots)
     require(len(calls32) == general_launches, "float32 fused_step calls")
     B32 = calls32[0][1].shape[0]
+
+    def run32():
+        return [real(*a) for a in calls32]
+
+    # back to back (the host's time between launches included: 11 of the
+    # 16 launches have no live tile) and by graph replay (the device's)
+    ms, graph = cuda_time_ms(run32, iters=5), graph_ms(run32, iters=2)
+    with step_route("general"):
+        general_ms = cuda_time_ms(run32, iters=5)
+        general_graph = graph_ms(run32, iters=2)
     f32_record(
         "#10", f"opcode programs x8, B {B32} H {HIDDEN} F {FRAMES}, the "
-        f"{len(calls32)} steps", "general",
-        cuda_time_ms(lambda: [real(*a) for a in calls32], iters=5),
+        f"{len(calls32)} steps", "fma32", ms,
         cuda_time_ms(lambda: [TE.fused_step_reference(*a) for a in calls32],
                      iters=2, warmup=1),
         add_bounds(*[step_bound(a, torch.float32) for a in calls32]),
-        launches=len(calls32))
+        launches=len(calls32), general_ms=general_ms, graph_ms=graph,
+        general_graph_ms=general_graph,
+        cluster=_build.build().stair_executor_step_fma32_cluster(
+            B32, FRAMES, HIDDEN))
     return general_launches
 
 
@@ -3725,6 +3774,7 @@ def phase_step_slice(dev, card, general_launches):
     log(f"[step slice] device forward per batch of {BATCH} (CUDA events): "
         f"executor='step' {dev_ms:.3f} ms (plain route {plain_ms:.3f} ms), "
         f"megakernel route {SEEN['mega_dev_ms']:.3f} ms; card {card}")
+    SEEN.update(step_qps=qps, step_dev_ms=dev_ms)
 
     # ---- the kernel on the main path's own inputs, step by step -----------
     calls = []
@@ -3741,13 +3791,13 @@ def phase_step_slice(dev, card, general_launches):
         TE.fused_step = real
     require(len(calls) == T, "fused_step calls")
     errs, ms = {}, {}
-    for route in STEP_KEYS:
+    for route in STEP_ROUTES[torch.bfloat16]:
         err = 0.0
         with step_route(route):
             for args in calls:
                 _build.reset_launches()
                 got = real(*(a.clone() for a in args))
-                require(_build.LAUNCHES[STEP_KEYS[route]] == 1,
+                require(_build.LAUNCHES[TE.STEP_KEYS[route]] == 1,
                         f"{route} route: {_build.LAUNCHES}")
                 want = TE.fused_step_reference(*(a.clone() for a in args))
                 for g, w in zip(got, want):
@@ -3766,6 +3816,8 @@ def phase_step_slice(dev, card, general_launches):
         f"ms, general route max_abs_err {errs['general']:.3e} and "
         f"{ms['general']:.3f} ms (rtol 1e-2, atol 3e-2); plain version "
         f"{plain_ms:.3f} ms, bound {b} (CUDA events, bf16); card {card}")
+    del calls
+    torch.cuda.empty_cache()
     source = "stair_tpu_torch/ops/csrc/executor_step.cu"
     return [
         {"name": "executor_step_tc", "route": "cuda", "source": source,
@@ -3773,15 +3825,171 @@ def phase_step_slice(dev, card, general_launches):
          "launches": launches["executor_step_tc"], "max_abs_err": errs["tc"],
          "ms": ms["tc"], "general_ms": ms["general"], "plain_ms": plain_ms,
          **b, "library_ms": None},
-        # the general route: timed on the same inputs; its launches are
-        # those of its own path, the float32 forward of phase 15
+        # the general route: timed on the same inputs; no main path takes
+        # it, so its launches are those of phase 15's forced general run
         {"name": "executor_step", "route": "cuda", "source": source,
          "replaces": "stair_tpu/ops/executor_step.py:49",
          "launches": general_launches, "launches_path": "float32 forward "
-         "on executor='step', F 64 (phase 15)",
+         "on executor='step', F 64, the general route forced (phase 15)",
          "max_abs_err": errs["general"], "ms": ms["general"],
          "plain_ms": plain_ms, **b, "library_ms": None},
+        step_slice_f32(dev, card),
     ]
+
+
+def step_slice_f32(dev, card):
+    """Float32 serving on ``executor="step"`` (phase 16's configuration,
+    batches and weights, ``compute_dtype="float32"``): per batch ``T``
+    launches of the "fma32" step kernel and none of the other two, the
+    BiLSTM on its float32 cluster route and no megakernel; logits against
+    the float32 megakernel route (``"fma32"`` #4) and the plain route on
+    one batch; q/s and device ms a batch beside the bf16 step route's and
+    the float32 megakernel's; the batch's 13 ``fused_step`` calls on the
+    "fma32" route against the general route (equal bits) and the plain
+    version (1e-4), each timed. Returns the ``executor_step_fma32``
+    entry."""
+    from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    serving = SEEN["serving"]
+    cfg = NMNConfig(**{**serving.cfg.to_dict(), "compute_dtype": "float32"})
+    params = SEEN["mega_model"].param_tree()
+    model = VideoNMN(cfg, params, device=dev, executor="step")
+    mega = VideoNMN(cfg, params, device=dev)
+    host_batch, device_batch = serving.host_batch, serving.device_batch
+    b0 = device_batch(host_batch(NUM_BATCHES))
+    T = b0["trace"]["opcode"].shape[1]
+    require(TE.step_route(torch.float32, cfg.max_video_length,
+                          cfg.hidden_size) == "fma32", "float32 step route")
+
+    # ---- the counted main-path runs: the step route, then the megakernel
+    qps, per_batch = {}, {
+        "step": {"executor_step_fma32": T, "bilstm_f32c": 2},
+        "mega": {"mega_exec_fma32": 1, "bilstm_f32c": 2}}
+    for name, m in (("step", model), ("mega", mega)):
+        m(b0)                                     # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        fetched = [m(device_batch(host_batch(i)))["logits"].cpu()
+                   for i in range(STEP_BATCHES)]
+        wall = time.perf_counter() - t0
+        for lg in fetched:
+            require(lg.shape == (BATCH, cfg.answer_vocab_length)
+                    and lg.dtype == torch.float32
+                    and bool(torch.isfinite(lg).all()),
+                    f"float32 {name} route logits")
+        require_launches(f"float32 serving on executor={name!r}",
+                         dict(_build.LAUNCHES),
+                         {k: v * STEP_BATCHES
+                          for k, v in per_batch[name].items()})
+        qps[name] = STEP_BATCHES * BATCH / wall
+    launches = T * STEP_BATCHES
+    log(f"[step slice f32] {STEP_BATCHES} batches x {BATCH} questions in "
+        f"float32 on executor='step': {qps['step']:.1f} q/s end to end "
+        f"(float32 megakernel route {qps['mega']:.1f}; bf16 step route "
+        f"{SEEN['step_qps']:.1f}), launches per batch: executor_step_fma32 "
+        f"{T}, executor_step 0, executor_step_tc 0, bilstm_f32c 2, bilstm 0, "
+        f"no megakernel; card {card}")
+
+    # ---- against the float32 megakernel and the plain route, one batch ---
+    with kernel_route(("bilstm_f32c", "executor_step_fma32")):
+        out = model(b0)
+    with kernel_route(("bilstm_f32c", "mega_exec_fma32")):
+        ref = mega(b0)
+    agree = (out["logits"].argmax(-1) == ref["logits"].argmax(-1)
+             ).float().mean().item()
+    require(agree >= 0.98, f"float32 step / mega argmax agreement {agree}")
+    file_errs = {k: f"{float((out[k] - ref[k]).abs().max()):.3e}"
+                 for k in ("regs_vec", "regs_frames", "regs_attn")}
+    with plain_route():
+        plain = model(b0)["logits"]
+        plain_dev_ms = cuda_time_ms(lambda: model(b0), iters=2, warmup=1)
+    p_agree = (plain.argmax(-1) == out["logits"].argmax(-1)
+               ).float().mean().item()
+    require(p_agree >= 0.98,
+            f"float32 step kernel / plain route agreement {p_agree}")
+    dev_ms = cuda_time_ms(lambda: model(b0), iters=5, warmup=1)
+    mega_ms = cuda_time_ms(lambda: mega(b0), iters=5, warmup=1)
+    log(f"[step slice f32] vs the float32 megakernel route on one batch: "
+        f"argmax agreement {agree:.4f}, logits max_abs_err "
+        f"{float((out['logits'] - ref['logits']).abs().max()):.3e}, register "
+        f"files max_abs_err {file_errs}; kernel vs plain route argmax "
+        f"agreement {p_agree:.4f}")
+    log(f"[step slice f32] device forward per batch of {BATCH} (CUDA "
+        f"events): float32 executor='step' {dev_ms:.3f} ms (plain route "
+        f"{plain_dev_ms:.3f} ms), float32 megakernel route {mega_ms:.3f} ms, "
+        f"bf16 executor='step' {SEEN['step_dev_ms']:.3f} ms; card {card}")
+    del out, ref, plain
+
+    # ---- the kernel on the main path's own inputs, step by step -----------
+    calls, real = [], TE.fused_step
+
+    def record(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return real(*args)
+
+    TE.fused_step = record
+    try:
+        model(b0)
+    finally:
+        TE.fused_step = real
+    require(len(calls) == T, "float32 fused_step calls")
+    names = ("rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")
+    err = 0.0
+    for args in calls:
+        _build.reset_launches()
+        got = real(*(a.clone() for a in args))
+        require_launches("one float32 fused_step", dict(_build.LAUNCHES),
+                         {"executor_step_fma32": 1})
+        with step_route("general"):
+            general = real(*(a.clone() for a in args))
+        for g, k, what in zip(got, general, names):
+            require(torch.equal(g, k), f"float32 serving step: the fma32 "
+                    f"route != the general route in {what}")
+        del general
+        want = TE.fused_step_reference(*(a.clone() for a in args))
+        for g, w, what in zip(got, want, names):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"fma32 {what}: {m}")
+        err = max(err, max_err(got, want))
+        del got, want
+
+    def run():
+        return [real(*a) for a in calls]
+
+    # timed in place (a repeat rewrites the same frames slots), back to
+    # back and by graph replay
+    ms, graph = cuda_time_ms(run, iters=5), graph_ms(run, iters=2)
+    with step_route("general"):
+        general_ms = cuda_time_ms(run, iters=5)
+    plain_ms = cuda_time_ms(
+        lambda: [TE.fused_step_reference(*a) for a in calls], iters=2)
+    b = add_bounds(*[step_bound(a, torch.float32) for a in calls])
+    f32_record("#10", f"float32 serving batch, B {BATCH} H "
+               f"{cfg.hidden_size} F {cfg.max_video_length}, the {T} steps",
+               "fma32", ms, plain_ms, b, launches=T, general_ms=general_ms,
+               graph_ms=graph, cluster=_build.build()
+               .stair_executor_step_fma32_cluster(
+                   BATCH, cfg.max_video_length, cfg.hidden_size))
+    log(f"[main-path inputs] float32 executor_step over the {T} steps of "
+        f"one batch: fma32 route {ms:.3f} ms, equal bits to the general "
+        f"route ({general_ms:.3f} ms) in every output and the whole frames "
+        f"file, max_abs_err {err:.3e} against the plain version (rtol 1e-4, "
+        f"atol 1e-4; {plain_ms:.3f} ms), bound {b} (CUDA events); card {card}")
+    del calls
+    torch.cuda.empty_cache()
+    return {"name": "executor_step_fma32", "route": "cuda",
+            "source": "stair_tpu_torch/ops/csrc/executor_step.cu",
+            "replaces": "stair_tpu/ops/executor_step.py:49",
+            "dtype": "float32", "launches": launches,
+            "launches_path": f"float32 serving on executor='step', B "
+            f"{BATCH}: {T} a batch, {STEP_BATCHES} batches",
+            "max_abs_err": err, "ms": ms, "graph_ms": graph,
+            "general_ms": general_ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def phase_rev_train(dev, card, slot_entries):
@@ -4924,7 +5132,8 @@ def main():
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                 "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
-                "executor_step_tc_kernel", "bilstm_fwd_f32_kernel",
+                "executor_step_tc_kernel", "executor_step_fma32_kernel",
+                "bilstm_fwd_f32_kernel",
                 "bilstm_bwd_f32_kernel", "bilstm_dwh_f32_kernel",
                 "mega_exec_kernel<float, true>",
                 "mega_bwd_kernel<float, true>", "mega_wgrad_fma32_kernel",
@@ -4940,6 +5149,11 @@ def main():
         if r["kernel"].startswith(no_spill):
             require(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
                     f"ptxas spills in {r['kernel']}: {r}")
+        # two CTAs an SM (__launch_bounds__(THREADS, 2)): 65,536 registers
+        # over 2 x 256 threads
+        if r["kernel"].startswith("executor_step_fma32_kernel"):
+            require((r.get("registers") or 999) <= 128,
+                    f"executor_step_fma32_kernel above 128 registers: {r}")
 
     phase_lstm(dev)
     phase_mega(dev)

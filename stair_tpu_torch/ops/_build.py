@@ -55,10 +55,13 @@ its kernel and nowhere else:
 - ``flash_attn_bwd_dq``, ``flash_attn_bwd_dkv``: its backward
   (``csrc/flash_attn_bwd.cu``), the dQ launch and the dK/dV launch;
 - ``executor_step``: one step of the scan executor on its general route
-  (``csrc/executor_step.cu`` ``step_kernel``: float32, and the widths the
-  other refuses);
+  (``csrc/executor_step.cu`` ``step_kernel``: the dtypes and widths the
+  other two refuse);
 - ``executor_step_tc``: one step on its tensor-core route (bf16, the main
   path's; ``executor_step_tc_kernel``);
+- ``executor_step_fma32``: one step on its float32 "fma32" route
+  (``executor_step_fma32_kernel``: a small batch's tiles each on a
+  thread-block cluster, its products on ``gemm32``);
 - ``slot_set_many``, ``slot_zero_many``, ``slot_add_many``: several
   in-place register-slot updates of one kind in one launch
   (``csrc/regslots.cu``; the reversible executor's four sets, eight zeros
@@ -112,6 +115,7 @@ LAUNCHES = {
     "mega_exec_bwd_fma32": 0, "mega_exec_wgrad_fma32": 0, "flash_attn": 0,
     "flash_attn_bwd_dq": 0,
     "flash_attn_bwd_dkv": 0, "executor_step": 0, "executor_step_tc": 0,
+    "executor_step_fma32": 0,
     "slot_set": 0, "slot_zero": 0, "slot_add": 0, "slot_set_many": 0,
     "slot_zero_many": 0, "slot_add_many": 0,
 }
@@ -345,6 +349,18 @@ def build():
     for fn in (lib.stair_flash_attn_bwd_dq, lib.stair_flash_attn_bwd_dkv):
         fn.restype = I
         fn.argtypes = [P, P]                     # FlashBwdArgs*, stream
+    bind_step(lib)
+    lib.stair_slot_launch.restype = I
+    # SlotLaunch* (regslots._Launch), step t, stream
+    lib.stair_slot_launch.argtypes = [P, Lg, P]
+    _lib = lib
+    return lib
+
+
+def bind_step(lib):
+    """Set the argument types of ``csrc/executor_step.cu``'s entry points
+    on ``lib`` (the whole library, or that source built alone)."""
+    P, I, Lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.stair_executor_step.restype = I
     lib.stair_executor_step.argtypes = [
         P, I,                      # pointer table, its length
@@ -362,11 +378,17 @@ def build():
     ]
     lib.stair_executor_step_tc_smem.restype = Lg
     lib.stair_executor_step_tc_smem.argtypes = [I, I]       # F, H
-    lib.stair_slot_launch.restype = I
-    # SlotLaunch* (regslots._Launch), step t, stream
-    lib.stair_slot_launch.argtypes = [P, Lg, P]
-    _lib = lib
-    return lib
+    lib.stair_executor_step_fma32.restype = I
+    lib.stair_executor_step_fma32.argtypes = [
+        P, I,                      # pointer table, its length
+        P,                         # workspace
+        I, I, I, I, I, I,          # B, Nv, Nf, Na, F, H
+        P,                         # stream
+    ]
+    lib.stair_executor_step_fma32_smem.restype = Lg
+    lib.stair_executor_step_fma32_smem.argtypes = [I, I]    # F, H
+    lib.stair_executor_step_fma32_cluster.restype = I
+    lib.stair_executor_step_fma32_cluster.argtypes = [I, I, I]  # B, F, H
 
 
 def bind_bilstm(lib):

@@ -11,25 +11,29 @@
 // frames result is stored in place into slot (example, out_frames) of the
 // frames register file.
 //
-// Two routes, which ops/executor_step.py step_route picks before the
-// launch: step_kernel (the general route: float32, and bf16 at widths the
-// other refuses) and executor_step_tc_kernel further down (bf16 at the
-// widths mega_exec.py tc_shape takes, on the tensor cores).
+// Three routes, which ops/executor_step.py step_route picks before the
+// launch: executor_step_tc_kernel further down (bf16 at the widths
+// mega_exec.py tc_shape takes, on the tensor cores),
+// executor_step_fma32_kernel at the end (float32 at the widths
+// mega_exec.py fma32_shape takes: a small launch's tiles each on a
+// thread-block cluster, its products on gemm32, every output bit for bit
+// step_kernel's) and
+// step_kernel (the general route: every other dtype and width).
 //
-// Design of both. One thread block per tile; tile i works on example
-// perm[i] of the expert-sorted order the caller computed (S_PERM), so
-// neighbouring blocks read the same [H, H] expert weights from L2. The
-// block reads its own column of the [12, B] schedule from global memory
-// and indexes the register files directly (the TPU kernel's scalar
-// prefetch, block index maps and one-hot row selects are gone), and it
-// writes its frames result straight into rf: SSA guarantees that slot (b,
-// out_frames) is none of the tile's operands, and each example is exactly
-// one tile, so the in-place write races with nothing. A tile with no
-// frames result writes nothing. Both round to the compute dtype where the
+// Design of step_kernel and executor_step_tc_kernel. One thread block per
+// tile; tile i works on example perm[i] of the expert-sorted order the
+// caller computed (S_PERM), so neighbouring blocks read the same [H, H]
+// expert weights from L2. The block reads its own column of the [12, B]
+// schedule from global memory and indexes the register files directly (the
+// TPU kernel's scalar prefetch, block index maps and one-hot row selects are
+// gone), and it writes its frames result straight into rf: SSA guarantees
+// that slot (b, out_frames) is none of the tile's operands, and each example
+// is exactly one tile, so the in-place write races with nothing. A tile with
+// no frames result writes nothing. Both round to the compute dtype where the
 // TPU kernel casts, so that the plain version (ops/executor_step.py
-// fused_step_reference) shares every rounding site. Rows the executor
-// never reads (pooled / hasitem of a null stage 1, loc_a / loc_b of a tile
-// that is not Localize / Superlative) are written as 0.
+// fused_step_reference) shares every rounding site. Rows the executor never
+// reads (pooled / hasitem of a null stage 1, loc_a / loc_b of a tile that is
+// not Localize / Superlative) are written as 0.
 //
 // step_kernel: the [F, H] intermediates (stage-1 hidden / stage-2 operand,
 // and the float32 feat tile, later the pre-LayerNorm rows) sit in a
@@ -37,7 +41,8 @@
 // and per-frame rows sit in shared memory. Products are the shared-memory
 // tiled float32-FMA loops of mega_common.cuh. What bounds it on an H100:
 // operations, on the float32 CUDA cores (a live tile does two to three
-// [F, H] @ [H, H] products, about 0.1 GFLOP at F = 64, H = 512).
+// [F, H] @ [H, H] products, about 0.1 GFLOP at F = 64, H = 512); what holds
+// it back: the loop's synchronous loads, and each tile's products on one SM.
 
 #include "mega_common.cuh"
 
@@ -579,6 +584,353 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 route: executor_step_fma32_kernel (float32 at the widths
+// mega_exec.py fma32_shape takes: H a multiple of G32_BN up to FMA32_MAX_H,
+// F a multiple of 16 up to FMA32_MAX_F).
+//
+// step_kernel's arithmetic, redesigned for Hopper in two ways.
+// (1) Every [F, H] @ [H, H] product on gemm32 (mega_common.cuh): 64 x 128
+// register-blocked float32 FMA tiles fed by a 3-stage cp.async ring, where
+// step_kernel's gemm loads each k slice with synchronous loads. gemm32 keeps
+// gemm's one FMA chain per output (from 0, ascending k), so every output is
+// step_kernel<float>'s bit for bit.
+// (2) While a launch's B tiles, one CTA each, would fill the card's CTA
+// slots (its SMs x CTAs an SM) less than twice, one tile on a thread-block
+// cluster of C = H / G32_BN CTAs, else C = 1 (step32_cluster, chosen in
+// the launch), split by output columns: CTA r computes columns
+// [r H / C, (r + 1) H / C) of each product (gemm32 on W + r H / C, ldw H),
+// so a live tile's serial path on one SM is cut by C and each output keeps
+// its chain. What a product reads whole (the hidden, the gated or related
+// stage-2 operand) and the rows the per-row reductions read whole (feat,
+// the Temporal pre-LayerNorm rows) go through step_kernel's per-tile
+// float32 workspace, with one cluster barrier between the writes and the
+// reads (release / acquire: the peers' global writes are visible after it;
+// cp.async.cg and __ldcg read them from L2). The per-row reductions over H
+// run a warp a row with step_kernel's lane order on CTA r's rows [r F / C,
+// (r + 1) F / C): the ExistsFrame cosine, the Localize dots and norms, the
+// FilterFrame gate (then the CTA writes those rows of the stage-2 operand)
+// and the LayerNorm. Each CTA computes what step_kernel reduces over the
+// whole block (|va|, the Localize keywords by vecmat and |kw|) itself, with
+// the same threads in the same order. pooled is each column's chain over
+// ascending f on the CTA that owns the column; hasitem reads column 0, on
+// CTA 0. A tile without a stage 1 splits its cheap passes the same way.
+// Nothing is read from a peer's shared memory, so a CTA may leave when it is
+// done. The schedule is the tile's, so every CTA meets the same barriers:
+// stage 1 two (after the hidden, after feat), FilterFrame and Temporal one
+// before their product, Temporal one more before the LayerNorm.
+//
+// Shared memory: gemm32's ring and step_kernel's vectors, 83.7 KB at F =
+// 64, H = 512 (step32_smem_bytes), and at most 128 registers a thread
+// (__launch_bounds__(THREADS, 2)): two CTAs an SM, 10-24% faster than one
+// on an H100 at 216 tiles. The cluster against one CTA a tile, on an H100
+// (132 SMs: 528 tiles fill its slots twice): 3.0x faster at 32 tiles, 1.9x
+// at 128, 2.0x at 216, 1.3x at 256, 7% at 512; 1% slower at 384, 8% at
+// 768, 4% at 1,024, but 10% faster at 640, where one CTA a tile leaves its
+// last wave part empty (timed by scripts/step_fma32_variants.py, which
+// builds this file with C or the shared memory asked patched).
+//
+// What bounds it on an H100: operations, on the float32 CUDA cores, as
+// step_kernel.
+
+using stair::FMA32_MAX_F;
+using stair::FMA32_MAX_H;
+using stair::mega::G32_BN;
+using stair::mega::g32_ring;
+using stair::mega::gemm32;
+
+// CTAs of one tile's cluster at width H for a launch of B tiles on a card
+// with `slots` CTA slots (SMs x CTAs an SM): the cluster while one CTA a
+// tile would fill the card less than twice (ops/executor_step.py
+// step_fma32_cluster mirrors it).
+__host__ __device__ inline int step32_cluster(int B, int H, int slots) {
+  return B < 2 * slots ? H / G32_BN : 1;
+}
+
+// Dynamic shared memory of executor_step_fma32_kernel in bytes
+// (ops/executor_step.py step_fma32_smem_bytes mirrors it).
+__host__ __device__ inline size_t step32_smem_bytes(int F, int H) {
+  return ((size_t)g32_ring<false>() + 3 * (size_t)H + 3 * (size_t)F +
+          NWARPS) * sizeof(float);
+}
+
+// All threads of the cluster's CTAs: every write before it, to shared or
+// global memory, is visible to every thread after it.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Columns [c0, c0 + N) of A[F, H] @ W[H, H] on gemm32 (A and W float32,
+// row stride H, 16-byte aligned); epi(m, n, acc) with n the column of W.
+template <typename Epi>
+__device__ void prod32(const float* A, const float* W, int F, int H, int c0,
+                       int N, float* ring, Epi epi) {
+  gemm32<false>(A, H, W + c0, H, F, H, N, ring,
+                [&](int m, int n, float acc) { epi(m, c0 + n, acc); });
+}
+
+// loc_cos<float> on the feat rows [f0, f1) of the workspace (written by
+// the cluster, read from L2; loc_cos's roundings are identities in
+// float32): kw = v wk + bk by vecmat, out[f] = (cos + 1) * 0.49 * vm[f].
+// Warp per frame row.
+__device__ void loc_cos32(const float* v, const Args<float>& a,
+                          const float* feat, int f0, int f1, float* kw,
+                          const float* vm, float* red, float* out) {
+  const int H = a.H;
+  vecmat<float>(v, nullptr, nullptr, a.wk, H, H, [&](int n, float y) {
+    kw[n] = y + a.bk[n];
+  });
+  __syncthreads();
+  float nk2 = 0.f;
+  for (int k = threadIdx.x; k < H; k += THREADS) nk2 += kw[k] * kw[k];
+  const float nk = sqrtf(fmaxf(block_sum(nk2, red), 1e-30f));
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int f = f0 + w; f < f1; f += NWARPS) {
+    const float* row = feat + (size_t)f * H;
+    float d = 0.f, n2 = 0.f;
+    for (int k = lane; k < H; k += 32) {
+      const float x = __ldcg(row + k);
+      d += x * kw[k];
+      n2 += x * x;
+    }
+    d = warp_sum(d);
+    n2 = warp_sum(n2);
+    if (lane == 0) {
+      const float nf = sqrtf(fmaxf(n2, 1e-30f));
+      const float c = d / fmaxf(nf * nk, COS_EPS);
+      out[f] = (c + 1.0f) * 0.49f * vm[f];
+    }
+  }
+  __syncthreads();
+}
+
+// C: the CTAs of a tile's cluster (launched with cluster dimension C). The
+// tile's schedule and this CTA's share of it stay in shared memory (ins,
+// own) and are read where they are used, so that none of it is held in
+// registers across the products (held, they leave gemm32 too few of 128).
+__global__ void __launch_bounds__(THREADS, 2)
+    executor_step_fma32_kernel(const Args<float> a, int C) {
+  extern __shared__ __align__(16) unsigned char step_smem[];
+  __shared__ int ins[NS];
+  __shared__ int own[5];   // tile; columns [c0, c1); rows [f0, f1)
+  enum { O_TILE, O_C0, O_C1, O_F0, O_F1 };
+  const int F = a.F, H = a.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t FH = (size_t)F * H;
+
+  float* ring = reinterpret_cast<float*>(step_smem);
+  float* va = ring + g32_ring<false>();
+  float* vb = va + H;
+  float* kw = vb + H;
+  float* vm = kw + H;
+  float* g1 = vm + F;
+  float* g2 = g1 + F;
+  float* red = g2 + F;
+
+  if (tid < NS) ins[tid] = a.scal[(size_t)tid * a.B + blockIdx.x / C];
+  if (tid == 0) {
+    const int r = blockIdx.x % C;
+    own[O_TILE] = blockIdx.x / C;
+    own[O_C0] = r * (H / C);
+    own[O_C1] = (r + 1) * (H / C);
+    own[O_F0] = r * F / C;
+    own[O_F1] = (r + 1) * F / C;
+  }
+  __syncthreads();
+  auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
+  auto example = [&] { return clampi(ins[S_PERM], a.B); };
+  auto stage1 = [&] {
+    const int e1 = ins[S_E1];
+    return e1 >= 0 && e1 != E1_NULL && e1 < 11;
+  };
+  // the frames slot of schedule row `row`; the tile's workspace k (0: the
+  // hidden, then x2; 1: feat32, then the pre-LayerNorm rows)
+  auto frames = [&](int row) {
+    return a.rf + ((size_t)example() * a.Nf + clampi(ins[row], a.Nf)) * FH;
+  };
+  auto work = [&](int k) { return a.ws + ((size_t)own[O_TILE] * 2 + k) * FH; };
+
+  {
+    const int b = example();
+    const int iva = clampi(ins[S_VA], a.Nv), ivb = clampi(ins[S_VB], a.Nv);
+    for (int f = tid; f < F; f += THREADS) vm[f] = a.vmask[(size_t)b * F + f];
+    for (int j = tid; j < H; j += THREADS) {
+      va[j] = a.rv[((size_t)b * a.Nv + iva) * H + j];
+      vb[j] = a.rv[((size_t)b * a.Nv + ivb) * H + j];
+    }
+  }
+  __syncthreads();
+
+  // ---- stage 1 on this CTA's columns; pooled and hasitem ---------------
+  if (stage1()) {
+    {
+      const int e1 = ins[S_E1], c0 = own[O_C0];
+      const float* b1 = a.b1u + (size_t)e1 * H;
+      float* ws_h = work(0);
+      prod32(frames(S_FA), a.w1u + (size_t)e1 * H * H, F, H, c0,
+             own[O_C1] - c0, ring, [&](int m, int n, float acc) {
+        ws_h[(size_t)m * H + n] = fmaxf(acc + b1[n], 0.f);
+      });
+    }
+    cluster_barrier();   // the whole hidden
+    {
+      const int e1 = ins[S_E1], c0 = own[O_C0];
+      const bool filt = ins[S_FILT] > 0;
+      const float* b2 = a.b2u + (size_t)e1 * H;
+      float* feat = work(1);
+      prod32(work(0), a.w2u + (size_t)e1 * H * H, F, H, c0, own[O_C1] - c0,
+             ring, [&](int m, int n, float acc) {
+        const float v = acc + b2[n];
+        if (n == 0) g1[m] = v;                     // h2[:, 0], unrounded
+        feat[(size_t)m * H + n] = filt ? fmaxf(v, 0.f) : v;
+      });
+    }
+    {
+      const float* feat = work(1);
+      const int i = own[O_TILE];
+      for (int k = own[O_C0] + tid; k < own[O_C1]; k += THREADS) {
+        float p = 0.f;
+        for (int f = 0; f < F; ++f)
+          p += feat[(size_t)f * H + k] * (vm[f] * vm[f]);
+        a.pooled[(size_t)i * H + k] = p;
+      }
+      if (own[O_C0] == 0) {
+        const int b = example();
+        for (int f = tid; f < F; f += THREADS)
+          a.has[(size_t)b * F + f] = sigmoid_f(g1[f]) * vm[f];
+      }
+    }
+    cluster_barrier();   // the whole feat; every read of the hidden done
+  } else {
+    const int i = own[O_TILE], b = example();
+    for (int k = own[O_C0] + tid; k < own[O_C1]; k += THREADS)
+      a.pooled[(size_t)i * H + k] = 0.f;
+    for (int f = own[O_F0] + tid; f < own[O_F1]; f += THREADS)
+      a.has[(size_t)b * F + f] = 0.f;
+  }
+
+  // ---- existsframe cosine of the frames operand against va, my rows -----
+  {
+    const float* x = frames(S_FA);
+    const int b = example();
+    float n2 = 0.f;
+    for (int k = tid; k < H; k += THREADS) n2 += va[k] * va[k];
+    const float nva = sqrtf(fmaxf(block_sum(n2, red), 1e-30f));
+    for (int f = own[O_F0] + warp; f < own[O_F1]; f += NWARPS) {
+      float d = 0.f, nx = 0.f;
+      for (int k = lane; k < H; k += 32) {
+        const float v = x[(size_t)f * H + k];
+        d += v * va[k];
+        nx += v * v;
+      }
+      d = warp_sum(d);
+      nx = sqrtf(fmaxf(warp_sum(nx), 1e-30f));
+      if (lane == 0) {
+        const float c = d / fmaxf(nx * nva, COS_EPS);
+        a.exf[(size_t)b * F + f] = (c + 1.0f) * 0.49f * vm[f];
+      }
+    }
+  }
+
+  // ---- localize scores against both keyword operands, my rows ---------
+  if (ins[S_E1] == E1_LOCALIZE) {
+    loc_cos32(va, a, work(1), own[O_F0], own[O_F1], kw, vm, red, g1);
+    loc_cos32(vb, a, work(1), own[O_F0], own[O_F1], kw, vm, red, g2);
+    const int b = example();
+    for (int f = own[O_F0] + tid; f < own[O_F1]; f += THREADS) {
+      a.loc_a[(size_t)b * F + f] = g1[f];
+      a.loc_b[(size_t)b * F + f] = g2[f];
+    }
+  } else {
+    const int b = example();
+    for (int f = own[O_F0] + tid; f < own[O_F1]; f += THREADS) {
+      a.loc_a[(size_t)b * F + f] = 0.f;
+      a.loc_b[(size_t)b * F + f] = 0.f;
+    }
+  }
+
+  // ---- stage 2: FilterFrame / Temporal projection, or AttnVideo -------
+  const int e2 = ins[S_E2];
+  if (e2 == E2_FF && stage1()) {
+    {
+      // my rows of x2 = gate * feat, gate = sigmoid(feat @ ffwf + gkb) for
+      // the vec keyword, else 1 (every lane holds the warp's sum)
+      const bool ffv = ins[S_FFV] > 0;
+      const float gk = a.gkb[example()];
+      const float* feat = work(1);
+      float* x2 = work(0);
+      for (int f = own[O_F0] + warp; f < own[O_F1]; f += NWARPS) {
+        const float* fr = feat + (size_t)f * H;
+        float d = 0.f;
+        if (ffv)
+          for (int k = lane; k < H; k += 32) d += __ldcg(fr + k) * a.ffwf[k];
+        d = warp_sum(d);
+        const float g = ffv ? sigmoid_f(d + gk) : 1.0f;
+        for (int k = lane; k < H; k += 32)
+          x2[(size_t)f * H + k] = g * __ldcg(fr + k);
+      }
+    }
+    cluster_barrier();   // the whole stage-2 operand
+    float* fout = frames(S_OUTF);
+    const int c0 = own[O_C0];
+    prod32(work(0), a.w2t, F, H, c0, own[O_C1] - c0, ring,
+           [&](int m, int n, float acc) {
+      fout[(size_t)m * H + n] = fmaxf(acc + a.b2t[n], 0.f) * vm[m];
+    });
+  } else if (e2 == E2_TEMPORAL) {
+    {
+      const float* x = frames(S_FA);
+      const int b = example();
+      float* x2 = work(0);
+      for (int f = own[O_F0] + warp; f < own[O_F1]; f += NWARPS) {
+        const float rel = a.related[(size_t)b * F + f];
+        for (int k = lane; k < H; k += 32)
+          x2[(size_t)f * H + k] = rel * x[(size_t)f * H + k];
+      }
+    }
+    cluster_barrier();   // the whole stage-2 operand
+    {
+      const float* b21 = a.b2t + H;
+      float* y = work(1);
+      const int c0 = own[O_C0];
+      prod32(work(0), a.w2t + (size_t)H * H, F, H, c0, own[O_C1] - c0, ring,
+             [&](int m, int n, float acc) {
+        y[(size_t)m * H + n] = fmaxf(acc + b21[n], 0.f);
+      });
+    }
+    cluster_barrier();   // the whole pre-LayerNorm rows
+    float* fout = frames(S_OUTF);
+    const float* yt = work(1);
+    for (int f = own[O_F0] + warp; f < own[O_F1]; f += NWARPS) {
+      const float* y = yt + (size_t)f * H;
+      float s = 0.f;
+      for (int k = lane; k < H; k += 32) s += __ldcg(y + k);
+      const float mu = warp_sum(s) / H;
+      float s2 = 0.f;
+      // as step_kernel: the square and the last product rounded on their
+      // own, rsqrt
+      for (int k = lane; k < H; k += 32) {
+        const float yk = __ldcg(y + k);
+        s2 += __fmul_rn(yk - mu, yk - mu);
+      }
+      const float var = warp_sum(s2) / H;
+      const float inv = rsqrtf(var + 1e-5f);
+      for (int k = lane; k < H; k += 32)
+        fout[(size_t)f * H + k] =
+            __fmul_rn((__ldcg(y + k) - mu) * inv, a.lns[k]) + a.lnb[k];
+    }
+  } else if (e2 == E2_ATTNVIDEO) {
+    const float* x = frames(S_FA);
+    float* fout = frames(S_OUTF);
+    const float* aa = a.ra + ((size_t)example() * a.Na +
+                              clampi(ins[S_AA], a.Na)) * F;
+    for (int f = own[O_F0] + warp; f < own[O_F1]; f += NWARPS)
+      for (int k = lane; k < H; k += 32)
+        fout[(size_t)f * H + k] = aa[f] * x[(size_t)f * H + k];
+  }
+}
+
 // The pointer table of stair_executor_step as Args<T>.
 template <typename T>
 Args<T> args_of(const void* const* p, void* ws, int B, int Nv, int Nf,
@@ -663,4 +1015,75 @@ extern "C" int stair_executor_step_tc(const void* const* ptrs, int nptrs,
 // Dynamic shared memory of executor_step_tc_kernel at (F, H), in bytes.
 extern "C" long stair_executor_step_tc_smem(int F, int H) {
   return (long)step_tc_smem_bytes(F, H);
+}
+
+// CTA slots of the current card for executor_step_fma32_kernel at `smem`
+// bytes of dynamic shared memory (set as the kernel's maximum first): its
+// SMs x the CTAs an SM holds.
+static cudaError_t step32_slots(size_t smem, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, executor_step_fma32_kernel, THREADS, smem);
+  *slots = sms * per_sm;
+  return e;
+}
+
+// The float32 route (executor_step_fma32_kernel): float32 at H a multiple
+// of G32_BN in [G32_BN, FMA32_MAX_H] and F a multiple of 16 in [16,
+// FMA32_MAX_F] (mega_limits.cuh); ops/executor_step.py step_route picks
+// it. Arguments as stair_executor_step's, all float32; rf and the w1u,
+// w2u, w2t and localize.k tables 16-byte aligned; ws: a float32 [B, 2, F,
+// H] workspace. The launch picks the cluster size (step32_cluster).
+extern "C" int stair_executor_step_fma32(const void* const* ptrs, int nptrs,
+                                         void* ws, int B, int Nv, int Nf,
+                                         int Na, int F, int H, void* stream) {
+  if (nptrs != NPTRS || B <= 0 || H % G32_BN != 0 || H < G32_BN ||
+      H > FMA32_MAX_H || F % 16 != 0 || F < 16 || F > FMA32_MAX_F)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = step32_smem_bytes(F, H);
+  cudaError_t e = cudaFuncSetAttribute(
+      executor_step_fma32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int slots = 0;
+  if (e == cudaSuccess) e = step32_slots(smem, &slots);
+  if (e != cudaSuccess) return (int)e;
+  const int C = step32_cluster(B, H, slots);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, executor_step_fma32_kernel,
+                         args_of<float>(ptrs, ws, B, Nv, Nf, Na, F, H), C);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of executor_step_fma32_kernel at (F, H), in bytes.
+extern "C" long stair_executor_step_fma32_smem(int F, int H) {
+  return (long)step32_smem_bytes(F, H);
+}
+
+// The CTAs of one tile's cluster that a launch of B tiles at (F, H) takes
+// on the current card, or -1 on an error.
+extern "C" int stair_executor_step_fma32_cluster(int B, int F, int H) {
+  const size_t smem = step32_smem_bytes(F, H);
+  int slots = 0;
+  if (cudaFuncSetAttribute(executor_step_fma32_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      step32_slots(smem, &slots) != cudaSuccess)
+    return -1;
+  return step32_cluster(B, H, slots);
 }

@@ -19,7 +19,11 @@ bias, the Localize cosine before ``(+ 1) * 0.49``, the stage-2 operand; the
 LayerNorm in float32 with eps 1e-5. The wrapper runs it for CPU tensors and
 the kernel for CUDA tensors, on the route ``step_route`` picks: the
 tensor-core kernel (``executor_step_tc_kernel``, bf16 at the widths
-``mega_exec.tc_shape`` takes) or the general one (``step_kernel``).
+``mega_exec.tc_shape`` takes), the float32 one (``executor_step_fma32_kernel``
+at the widths ``mega_exec.fma32_shape`` takes: a small batch's tiles each
+on a thread-block cluster, every output bit for bit the general kernel's)
+or the general one
+(``step_kernel``, every other dtype and width).
 
 Rows nobody reads: the TPU kernel leaves ``pooled`` / ``hasitem`` of a tile
 without a stage 1 and ``loc_a`` / ``loc_b`` of a tile that is neither
@@ -150,15 +154,25 @@ def fused_step_reference(scal, rv, rf, ra, related, vmask, gkb,
 
 
 def step_route(dtype, F, H) -> str:
-    """The fused step's kernel route, chosen before the launch: ``"tc"``
-    (``executor_step_tc_kernel``, launch key ``executor_step_tc``: bf16 at
-    the widths ``mega_exec.tc_shape`` takes, H a multiple of 64 up to
-    ``TC_MAX_H`` and F a multiple of 16 up to ``TC_MAX_F``) or
-    ``"general"`` (``step_kernel``, ``executor_step``: float32 and every
-    other width)."""
+    """The fused step's kernel route, chosen before the launch, one of
+    three: ``"tc"`` (``executor_step_tc_kernel``, launch key
+    ``executor_step_tc``: bf16 at the widths ``mega_exec.tc_shape`` takes,
+    H a multiple of 64 up to ``TC_MAX_H`` and F a multiple of 16 up to
+    ``TC_MAX_F``), ``"fma32"`` (``executor_step_fma32_kernel``,
+    ``executor_step_fma32``: float32 at the widths ``mega_exec.fma32_shape``
+    takes, H a multiple of 128 up to ``FMA32_MAX_H`` and F a multiple of 16
+    up to ``FMA32_MAX_F``) or ``"general"`` (``step_kernel``,
+    ``executor_step``: every other dtype and width)."""
     if dtype == torch.bfloat16 and TX.tc_shape(H, F):
         return "tc"
+    if dtype == torch.float32 and TX.fma32_shape(H, F):
+        return "fma32"
     return "general"
+
+
+#: the launch key of each route
+STEP_KEYS = {"tc": "executor_step_tc", "fma32": "executor_step_fma32",
+             "general": "executor_step"}
 
 
 #: the pooled partials' row groups of the tensor-core kernel
@@ -176,6 +190,34 @@ def step_tc_smem_bytes(F, H) -> int:
     parts = max(POOL_ROWS * H, t["THREADS"] * 8)
     return (2 * F * (H + t["TC_PAD"]) * 2 + ring * 2
             + (3 * H + parts + 3 * F + t["THREADS"] // 32) * 4)
+
+
+def step_fma32_cluster(B, H, slots) -> int:
+    """CTAs of one tile's thread-block cluster on the ``"fma32"`` route for
+    a launch of ``B`` tiles on a card with ``slots`` CTA slots (its SMs x
+    the kernel's CTAs an SM), as ``csrc/executor_step.cu step32_cluster``
+    computes it in the launch: one a column tile of ``gemm32``
+    (``G32_BN``) while one CTA a tile would fill the slots less than twice,
+    else one."""
+    return H // TX._TILES["G32_BN"] if B < 2 * slots else 1
+
+
+def step_fma32_smem_bytes(F, H) -> int:
+    """Dynamic shared memory of ``executor_step_fma32_kernel`` per CTA, as
+    ``csrc/executor_step.cu step32_smem_bytes`` computes it: ``gemm32``'s
+    ring, three float vectors of ``H``, three ``[F]`` vectors and the warp
+    sums."""
+    t = TX._TILES
+    stage = (t["G32_BM"] * (t["G32_BK"] + t["G32_PAD"])
+             + t["G32_BK"] * t["G32_BN"])
+    return (t["G32_STAGES"] * stage + 3 * H + 3 * F
+            + t["THREADS"] // 32) * 4
+
+
+#: tensors the "tc" and "fma32" routes take 16-byte aligned only (cp.async
+#: and the weight rings read them as 16-byte vectors: the "tc" route all of
+#: them, with vecmat_tc, the "fma32" route all but loc_kw)
+ALIGNED = ("rf", "w1u", "w2u", "w2t", "loc_kw")
 
 
 def fused_step(scal, rv, rf, ra, related, vmask, gkb,
@@ -235,15 +277,22 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
     if B == 0:
         return rf, pooled, has, exf, loc_a, loc_b
     ptrs = (*(t for _, t, _, _ in ins), pooled, has, exf, loc_a, loc_b)
+    route = step_route(dt, F, H)
+    key = STEP_KEYS[route]
+    if route != "general":
+        takes = (TX.tc_shape if route == "tc" else TX.fma32_shape)(H, F)
+        want = torch.bfloat16 if route == "tc" else torch.float32
+        if dt != want or not takes:
+            raise ValueError(f"{key}: the {route!r} route takes {want} at "
+                             f"the widths it was built for, not {dt} at "
+                             f"F={F}, H={H}")
+        named = {name: t for name, t, _, _ in ins}
+        for name in ALIGNED:
+            if named[name].data_ptr() % 16:
+                raise ValueError(f"{key} {name}: the {route!r} kernel needs "
+                                 "16-byte aligned data")
     lib = _build.build()
-    if step_route(dt, F, H) == "tc":
-        # read as 16-byte vectors (cp.async, the weight ring, vecmat_tc)
-        for name, t in (("rf", rf), ("w1u", w1u), ("w2u", w2u),
-                        ("w2t", w2t), ("loc_kw", loc_kw)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"executor_step_tc {name}: the tensor-core "
-                                 "kernel needs 16-byte aligned data")
-        key = "executor_step_tc"
+    if route == "tc":
         # float32 workspace: the Temporal pre-LayerNorm rows (the hidden
         # and feat tiles stay in shared memory)
         ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
@@ -251,13 +300,17 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
             _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf, Na,
             F, H, _build.stream_ptr(dev))
     else:
-        key = "executor_step"
         # Per-tile float32 workspace: the stage-1 hidden / stage-2
         # operand, and the feat tile (later the Temporal pre-LN rows).
         ws = torch.empty(B, 2, F, H, dtype=torch.float32, device=dev)
-        err = lib.stair_executor_step(
-            _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf, Na,
-            F, H, int(dt == torch.bfloat16), _build.stream_ptr(dev))
+        if route == "fma32":
+            err = lib.stair_executor_step_fma32(
+                _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf,
+                Na, F, H, _build.stream_ptr(dev))
+        else:
+            err = lib.stair_executor_step(
+                _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf,
+                Na, F, H, int(dt == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
     return rf, pooled, has, exf, loc_a, loc_b

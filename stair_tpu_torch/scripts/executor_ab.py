@@ -43,7 +43,12 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   ``step_general_ms`` on the general route where the checkout has
   ``executor_step.step_route``, and ``step_digest``: the same hash of the
   general route's outputs on those 13 calls (their inputs recorded with the
-  general route, so every checkout hands it the same bits);
+  general route, so every checkout hands it the same bits); ``step_f32_ms``
+  and ``step_f32_digest``: the same in float32 (a serving batch of the same
+  weights with ``compute_dtype="float32"``) on the route the checkout picks
+  (the "fma32" route where the checkout has it), with
+  ``step_f32_general_ms`` and ``step_f32_general_digest`` on the general
+  route; the two digests are equal where the routes give the same bits;
 - ``slot_add_ms``: #13, the seven slot adds of one ``"rev"`` backward step
   at the train shapes (bf16, B 128) as the checkout's ``rev_exec`` makes
   them (one ``SlotPlan`` call where the checkout has it, else one
@@ -155,44 +160,59 @@ def train_inputs(cfg, batch, dtype, dev, seed):
 
 
 def step_rows(dev):
-    """``step_ms``, ``step_general_ms`` and ``step_digest`` (see the module
-    docstring) on the 13 ``fused_step`` calls of one serving batch."""
-    from stair_tpu_torch.models.nmn import VideoNMN
+    """``step_ms``, ``step_general_ms`` and ``step_digest``, and their
+    float32 twins ``step_f32_*`` (see the module docstring), on the 13
+    ``fused_step`` calls of one serving batch."""
+    from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN
     from stair_tpu_torch.ops import executor_step as TE
     from stair_tpu_torch.testing import workload as W
     from stair_tpu_torch.utils.device import cuda_time_ms
 
     serving = W.ServingBatches(dev, batch_size=1024, question_len=16)
     base = W.build_model(serving.cfg, seed=0, device=dev)
-    model = VideoNMN(serving.cfg, base.param_tree(), device=dev,
-                     executor="step")
     b0 = serving.device_batch(serving.host_batch(0))
     routed = hasattr(TE, "step_route")
-    calls, real = [], TE.fused_step
+    real = TE.fused_step
 
-    def record(*a):
-        calls.append(tuple(x.clone() for x in a))
-        return real(*a)
+    def general():
+        return (forced(TE, "step_route", "general") if routed
+                else contextlib.nullcontext())
 
-    TE.fused_step = record
-    try:
-        with (forced(TE, "step_route", "general") if routed
-              else contextlib.nullcontext()):
-            model(b0)
-    finally:
-        TE.fused_step = real
+    row = {}
+    for tag, dtype in (("step", "bfloat16"), ("step_f32", "float32")):
+        cfg = NMNConfig(**{**serving.cfg.to_dict(), "compute_dtype": dtype})
+        model = VideoNMN(cfg, base.param_tree(), device=dev, executor="step")
+        calls = []
 
-    def run():
-        return [real(*a) for a in calls]
+        def record(*a):
+            calls.append(tuple(x.clone() for x in a))
+            return real(*a)
 
-    row = {"step_ms": cuda_time_ms(run, iters=5)}
-    with (forced(TE, "step_route", "general") if routed
-          else contextlib.nullcontext()):
-        if routed:
-            row["step_general_ms"] = cuda_time_ms(run, iters=5)
-        # hashed call by call (a generator: one call's outputs held at once)
-        row["step_digest"] = digest(
-            x for a in calls for x in real(*(t.clone() for t in a)))
+        TE.fused_step = record
+        try:
+            with general():
+                model(b0)
+        finally:
+            TE.fused_step = real
+
+        def run():
+            return [real(*a) for a in calls]
+
+        def hashed():
+            # call by call (a generator: one call's outputs held at once)
+            return digest(
+                x for a in calls for x in real(*(t.clone() for t in a)))
+
+        row[f"{tag}_ms"] = cuda_time_ms(run, iters=5)
+        if tag == "step_f32":
+            row["step_f32_digest"] = hashed()
+        with general():
+            if routed:
+                row[f"{tag}_general_ms"] = cuda_time_ms(run, iters=5)
+            row["step_digest" if tag == "step"
+                else "step_f32_general_digest"] = hashed()
+        del calls, model
+        torch.cuda.empty_cache()
     return row
 
 

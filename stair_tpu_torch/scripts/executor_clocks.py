@@ -1,8 +1,10 @@
 """Section clocks of the executor's kernels at the train step's shapes, on
 one NVIDIA GPU: the share of #5 (the training forward) and of #6's walk
-spent in each product helper, on each route.
+spent in each product helper, on each route; with ``--step``, the share of
+the float32 step kernel (#10) spent in each of its sections.
 
     python -m stair_tpu_torch.scripts.executor_clocks [--routes tc,general,fma32]
+    python -m stair_tpu_torch.scripts.executor_clocks --step [--routes general,fma32]
 
 Routes (``mega_exec.fwd_route`` / ``mega_grad.bwd_route`` forced to each):
 
@@ -34,6 +36,22 @@ walk's and the weight-gradient kernels apart (``torch.profiler``; the
 weight-gradient kernels hold no clock). The helpers that end in a barrier
 (all but ``vecmat``) give the block's time in them. The repository's
 sources are not touched.
+
+``--step``: the fused step in float32 on the routes ``general``
+(``step_kernel<float>``) and ``fma32`` (``executor_step_fma32_kernel``),
+over the 16 launches of ``chip_smoke.py`` phase 15's float32 forward at F
+64 (B 216, H 512; recorded on the CPU by
+``scripts/step_fma32_variants.opcode_calls``). It patches a copy of
+``csrc/executor_step.cu`` alone and builds it alone: each block's thread 0
+reads ``clock64()`` at the end of each section and adds the time since the
+last, less the time spent meanwhile in the products (``gemm`` /
+``prod32``) and the cluster barriers, which have clocks of their own.
+Sections: the products, the ExistsFrame cosine, pooled and HasItem, the
+Localize cosines, the FilterFrame gate and the stage-2 operand, the stage-2
+epilogue (LayerNorm, AttnVideo), the cluster barriers, and the schedule and
+vector loads. It prints, per launch, the tiles with a product and the most
+products a tile does, and per route the time of the 16 launches (CUDA
+events, instrumented) and each section's share of the blocks' clocks.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import json
 import os
 import shutil
 import subprocess
@@ -129,6 +148,112 @@ _PATCHES = (
      "  Clk clk(4);\n"),
 )
 
+#: the step kernel's clock slots (``--step``) -> section; STEP_KERNEL
+#: holds the whole kernel
+STEP_SECTIONS = {0: "products", 1: "ExistsFrame", 2: "pooled and HasItem",
+                 3: "Localize", 4: "gate and stage-2 operand",
+                 5: "stage-2 epilogue", 6: "cluster barriers",
+                 7: "schedule and vectors"}
+STEP_KERNEL = 8
+
+_SCLK = '''__device__ unsigned long long g_sclk[%d];
+// thread 0's lap start, and the nested clocks' time since
+__device__ __forceinline__ long long* sclk_state() {
+  __shared__ long long st[2];
+  return st;
+}
+__device__ __forceinline__ void lap_start() {
+  if (threadIdx.x == 0) {
+    sclk_state()[0] = clock64();
+    sclk_state()[1] = 0;
+  }
+}
+// the time since the last lap, less the nested clocks', into slot
+__device__ __forceinline__ void lap(int slot) {
+  if (threadIdx.x == 0) {
+    long long* st = sclk_state();
+    const long long now = clock64();
+    atomicAdd(&g_sclk[slot], (unsigned long long)(now - st[0] - st[1]));
+    st[0] = now;
+    st[1] = 0;
+  }
+}
+// a nested clock: products, cluster barriers, the whole kernel
+struct SClk {
+  int slot;
+  long long c0;
+  __device__ SClk(int s) : slot(s) { c0 = clock64(); }
+  __device__ ~SClk() {
+    if (threadIdx.x == 0) {
+      const long long d = clock64() - c0;
+      atomicAdd(&g_sclk[slot], (unsigned long long)d);
+      sclk_state()[1] += d;
+    }
+  }
+};
+''' % 16
+
+_STEP_READ = '''
+extern "C" void stair_sclk(unsigned long long* out, int reset) {
+  if (reset) {
+    unsigned long long z[16] = {0};
+    cudaMemcpyToSymbol(g_sclk, z, sizeof(z));
+  } else {
+    cudaMemcpyFromSymbol(out, g_sclk, 16 * sizeof(unsigned long long));
+  }
+}
+'''
+
+#: (anchor, text before it, text after it) in executor_step.cu; each
+#: anchor occurs once
+_STEP_PATCHES = (
+    ("namespace {\n", None, _SCLK),
+    # the general route, step_kernel
+    ("__device__ void gemm(const TA* A, const TW* W, int M, int H, Smem& sm,\n"
+     "                     Epi epi) {\n", None, "  SClk clk(0);\n"),
+    ("step_kernel(const Args<T> a) {\n  __shared__ Smem sm;\n", None,
+     "  SClk kclk(8);\n  lap_start();\n"),
+    ("  // ---- stage 1: expert two-layer MLP; pooled and hasitem ------------"
+     "--\n  if (stage1) {\n    const T* w1", "  lap(7);\n", None),
+    ("  // ---- existsframe cosine of the frames operand against va ---------"
+     "---\n", "  lap(2);\n", None),
+    ("  // ---- localize scores against both keyword operands --------------"
+     "----\n  if (e1 == E1_LOCALIZE) {\n    loc_cos<T>(", "  lap(1);\n",
+     None),
+    ("  // ---- stage 2: FilterFrame / Temporal projection, or AttnVideo ----"
+     "---\n  if (e2 == E2_FF && stage1) {\n    // gate = sigmoid(feat @ ffwf "
+     "+ gkb) for the vec keyword, else 1\n    const float gk = a.gkb[b];\n"
+     "    for (int f = warp; f < F; f += NWARPS) {\n      float d = 0.f;\n"
+     "      if (ffv)\n        for (int k = lane; k < H; k += 32)\n"
+     "          d += rd<T>(", "  lap(3);\n", None),
+    ("    const T* b20 = a.b2t;\n", "    lap(4);\n", None),
+    ("    const T* b21 = a.b2t + H;\n    gemm(ws_h", "    lap(4);\n", None),
+    ("      fout[j] = from_f<T>(sm.f1[j / H] * to_f(x[j]));\n  }\n", None,
+     "  lap(5);\n"),
+    # the float32 route, executor_step_fma32_kernel
+    ("__device__ void prod32(const float* A, const float* W, int F, int H, "
+     "int c0,\n                       int N, float* ring, Epi epi) {\n", None,
+     "  SClk clk(0);\n"),
+    ("__device__ __forceinline__ void cluster_barrier() {\n", None,
+     "  SClk clk(6);\n"),
+    ("executor_step_fma32_kernel(const Args<float> a, int C) {\n", None,
+     "  SClk kclk(8);\n  lap_start();\n"),
+    ("  // ---- stage 1 on this CTA's columns; pooled and hasitem -----------"
+     "----\n", "  lap(7);\n", None),
+    ("  // ---- existsframe cosine of the frames operand against va, my rows "
+     "-----\n", "  lap(2);\n", None),
+    ("  // ---- localize scores against both keyword operands, my rows -----"
+     "----\n", "  lap(1);\n", None),
+    ("  // ---- stage 2: FilterFrame / Temporal projection, or AttnVideo ----"
+     "---\n  const int e2 = ins[S_E2];\n", "  lap(3);\n", None),
+    ("    cluster_barrier();   // the whole stage-2 operand\n    float* fout",
+     "    lap(4);\n", None),
+    ("    cluster_barrier();   // the whole stage-2 operand\n    {\n      const "
+     "float* b21", "    lap(4);\n", None),
+    ("        fout[(size_t)f * H + k] = aa[f] * x[(size_t)f * H + k];\n  }\n",
+     None, "  lap(5);\n"),
+)
+
 P, I, U, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [I, I, I, U, Fl]
 _WALK = [P, I, P] + [I] * 9 + _DROP + [P]
@@ -172,6 +297,75 @@ def patched_sources(out_dir):
     for name in ("mega_exec.cu", "mega_grad.cu", "mega_grad_tc.cu"):
         with open(os.path.join(out_dir, name), "a") as f:
             f.write(_READ)
+
+
+def patched_step_source(out_dir):
+    """A copy of ``ops/csrc`` in ``out_dir`` with the step kernel's section
+    clocks in ``executor_step.cu``."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    if os.path.exists(out_dir):
+        shutil.rmtree(out_dir)
+    shutil.copytree(csrc, out_dir)
+    path = os.path.join(out_dir, "executor_step.cu")
+    with open(path) as f:
+        src = f.read()
+    for anchor, before, after in _STEP_PATCHES:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"executor_step.cu: anchor {anchor!r} found "
+                               f"{src.count(anchor)} times")
+        src = src.replace(anchor, (before or "") + anchor + (after or ""))
+    with open(path, "w") as f:
+        f.write(src + _STEP_READ)
+
+
+def step_clocks(routes, dev, card, n=5):
+    """The step kernel's sections on each route (``--step``)."""
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.scripts.step_fma32_variants import (
+        opcode_calls, tiles_of,
+    )
+
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_ROOT), "clocks_step")
+    patched_step_source(out_dir)
+    lib = build(out_dir, ["executor_step"])["executor_step"]
+    _build.bind_step(lib)
+    lib.stair_sclk.argtypes = [P, I]
+    calls = opcode_calls(dev)
+    for t, c in enumerate(calls):
+        print(f"[clocks] #10 launch {t}: {json.dumps(tiles_of(c[0]))}",
+              flush=True)
+    pick, held = TE.step_route, _build._lib
+    _build._lib = lib
+    try:
+        for route in routes:
+            TE.step_route = lambda *a: route
+
+            def run():
+                return [TE.fused_step(*a) for a in calls]
+
+            run()
+            torch.cuda.synchronize()
+            lib.stair_sclk(None, 1)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(n):
+                run()
+            ev1.record()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 16)()
+            lib.stair_sclk(ctypes.cast(buf, P), 0)
+            total = buf[STEP_KERNEL]
+            held_s = sum(buf[i] for i in STEP_SECTIONS)
+            shares = ", ".join(f"{name} {buf[i] / total:.3f}"
+                               for i, name in STEP_SECTIONS.items() if buf[i])
+            print(f"[clocks] #10 {route} route, float32, phase 15's "
+                  f"{len(calls)} launches at B {calls[0][2].shape[0]} F 64: "
+                  f"{ev0.elapsed_time(ev1) / n:.3f} ms (CUDA events, "
+                  f"instrumented); share of the blocks' clocks: {shares}, "
+                  f"rest {1 - held_s / total:.3f}; card {card}", flush=True)
+    finally:
+        TE.step_route, _build._lib = pick, held
 
 
 def build(out_dir, names):
@@ -300,12 +494,21 @@ def main():
     from stair_tpu_torch.utils.device import card_identity, exact_f32
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--routes", default=",".join(ROUTES),
-                    help="comma-separated routes (%s)" % ", ".join(ROUTES))
+    ap.add_argument("--routes", default=None,
+                    help="comma-separated routes (%s; with --step: general, "
+                    "fma32)" % ", ".join(ROUTES))
+    ap.add_argument("--step", action="store_true",
+                    help="the float32 step kernel (#10) by section")
     opts = ap.parse_args()
-    routes = opts.routes.split(",")
+    routes = (opts.routes or ("general,fma32" if opts.step
+                              else ",".join(ROUTES))).split(",")
     if not torch.cuda.is_available():
         raise SystemExit("executor_clocks: no CUDA device")
+    if opts.step:
+        exact_f32()
+        step_clocks(routes, torch.device("cuda", 0),
+                    card_identity().splitlines()[0])
+        return
     out_dir = os.path.join(os.path.dirname(_build.BUILD_ROOT), "clocks")
     patched_sources(out_dir)
     libs = build(out_dir, sorted({n for r in routes for n in ROUTES[r][1]}))

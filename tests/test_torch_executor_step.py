@@ -178,7 +178,9 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 STEP_ROUTE_CASES = [
     (torch.bfloat16, 64, 512, "tc"), (torch.bfloat16, 16, 64, "tc"),
     (torch.bfloat16, 48, 128, "tc"), (torch.bfloat16, 16, 192, "tc"),
-    (torch.float32, 64, 512, "general"), (torch.float32, 16, 128, "general"),
+    (torch.float32, 64, 512, "fma32"), (torch.float32, 16, 128, "fma32"),
+    (torch.float32, 48, 384, "fma32"), (torch.float32, 64, 96, "general"),
+    (torch.float32, 64, 640, "general"), (torch.float32, 8, 512, "general"),
     (torch.bfloat16, 20, 96, "general"), (torch.bfloat16, 20, 512, "general"),
     (torch.bfloat16, 64, 96, "general"), (torch.bfloat16, 80, 512, "general"),
     (torch.bfloat16, 64, 576, "general"), (torch.bfloat16, 8, 64, "general"),
@@ -191,26 +193,40 @@ STEP_ROUTE_CASES = [
     ids=[f"{str(d)[6:]}-F{f}-H{h}" for d, f, h, _ in STEP_ROUTE_CASES])
 def test_step_route_choice(dtype, F, H, route):
     """bf16 at the widths the megakernel's tensor-core route takes goes to
-    the tensor-core step kernel, everything else to the general one."""
+    the tensor-core step kernel, float32 at the widths its "fma32" route
+    takes to the float32 one, everything else to the general one."""
+    from stair_tpu_torch.ops import mega_exec as TX
+
     assert TE.step_route(dtype, F, H) == route
+    assert (route == "fma32") == (dtype == torch.float32
+                                  and TX.fma32_shape(H, F))
+
+
+def _source_expr(signature):
+    """The return expression of the ``csrc/executor_step.cu`` function
+    that begins with ``signature``, on one line, its casts dropped."""
+    import os
+
+    from stair_tpu_torch.ops import _build
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "executor_step.cu")) as f:
+        src = f.read()
+    body = src[src.index(signature):]
+    expr = body[body.index("return") + 6:body.index(";")]
+    return " ".join(expr.split()).replace("(size_t)", "")
 
 
 def _source_smem_bytes():
     """``step_tc_smem_bytes`` of ``csrc/executor_step.cu`` as a Python
     function: its return expression with the casts dropped, the sizes and
     constants filled in and the ternary as ``max``."""
-    import os
     import re
 
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import mega_exec as TX
 
-    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
-                           "executor_step.cu")) as f:
-        src = f.read()
-    body = src[src.index("inline size_t step_tc_smem_bytes(int F, int H) {"):]
-    expr = body[body.index("return") + 6:body.index(";")]
-    expr = " ".join(expr.split()).replace("(size_t)", "")
+    expr = _source_expr("inline size_t step_tc_smem_bytes(int F, int H) {")
     expr = expr.replace("sizeof(bf16)", "2").replace("sizeof(float)", "4")
     expr = expr.replace("tc_ring<FWD_BN>()",
                         "(TC_STAGES * FWD_BN * (TC_BK + TC_PAD))")
@@ -239,6 +255,93 @@ def test_step_tc_shared_memory_matches_the_source_and_fits():
     assert TE.step_tc_smem_bytes(64, 512) == 228128
 
 
+def test_step_fma32_shared_memory_and_cluster_match_the_source():
+    """``step_fma32_smem_bytes`` and ``step_fma32_cluster`` equal the CUDA
+    source's formulas (``step32_smem_bytes``, ``step32_cluster``) at every
+    width the "fma32" route takes; the cluster is one CTA a ``gemm32``
+    column tile (``H / G32_BN``, read through ``_build.header_ints``), at
+    most the portable 8, while a launch's tiles number fewer than twice the
+    card's CTA slots, and one CTA a tile from there on; two CTAs fit an SM
+    (227 KB a block, 228 KB an SM with 1 KB reserved a block), the main
+    path's F 64, H 512 at 83,744 bytes."""
+    import re
+
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import mega_exec as TX
+
+    t = _build.header_ints("mega_common.cuh")
+    smem = _source_expr("inline size_t step32_smem_bytes(int F, int H) {")
+    smem = smem.replace("sizeof(float)", "4").replace(
+        "g32_ring<false>()",
+        "(G32_STAGES * (G32_BM * (G32_BK + G32_PAD) + G32_BK * G32_BN))")
+    cluster = _source_expr(
+        "inline int step32_cluster(int B, int H, int slots) {")
+    assert cluster == "B < 2 * slots ? H / G32_BN : 1", cluster
+    cluster = re.sub(r"^(.+) \? (.+) : (.+)$", r"(\2) if (\1) else (\3)",
+                     cluster)
+    consts = {**t, "NWARPS": t["THREADS"] // 32}
+    slots = 2 * 132                       # two CTAs on each of 132 SMs
+    n = 0
+    for H in range(16, TX.MAX_H + 1, 16):
+        for F in range(8, TX.MAX_F + 1, 8):
+            if TE.step_route(torch.float32, F, H) != "fma32":
+                continue
+            n += 1
+            env = {**consts, "F": F, "H": H}
+            assert TE.step_fma32_smem_bytes(F, H) == eval(smem, {}, env)
+            for B in (1, 32, 216, 512, 2 * slots - 1, 2 * slots, 1024):
+                env.update(B=B, slots=slots)
+                want = H // t["G32_BN"] if B < 2 * slots else 1
+                assert TE.step_fma32_cluster(B, H, slots) == \
+                    eval(cluster, {}, env) == want, (B, F, H)
+            assert 1 <= TE.step_fma32_cluster(1, H, slots) <= 8
+            per_cta = TE.step_fma32_smem_bytes(F, H) + 4 * TE.NS
+            assert per_cta <= TX.SMEM_MAX
+            assert 2 * (per_cta + 1024) <= 228 * 1024, (F, H)
+    assert n == 4 * 4   # H 128, 256, 384, 512 x F 16, 32, 48, 64
+    assert TE.step_fma32_smem_bytes(64, 512) == 83744
+
+
+def test_step_fma32_variant_patches_match_the_source():
+    """``scripts/step_fma32_variants.py`` finds each of its anchors in
+    ``csrc/executor_step.cu`` exactly once: every fixed variant replaces the
+    launch's choice of the cluster size by its own, and the one-CTA-an-SM
+    variants ask more shared memory than half an SM holds; the route's own
+    build is the source unchanged."""
+    import os
+
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.scripts import step_fma32_variants as V
+
+    with open(os.path.join(_build._CSRC, "executor_step.cu")) as f:
+        src = f.read()
+    assert V.patched_source("base") == src
+    assert set(V.VARIANTS) == {"general", "fma32", *V.PATCHES}
+    for name in V.PATCHES:
+        out = V.patched_source(name)
+        assert V._PICK not in out and V._PICK in src
+        want = "1" if "_c1_" in name else "H / G32_BN"
+        assert f"  const int C = {want};\n" in out
+        assert ("232448 / 2 + 16" in out) == name.endswith("_1sm"), name
+
+
+def test_step_clock_patches_match_the_source(tmp_path):
+    """``scripts/executor_clocks.py --step`` finds each of its anchors in
+    ``csrc/executor_step.cu`` exactly once and puts a lap clock at the end
+    of every section of both float32 kernels (seven in each, the epilogue
+    one at the kernel's end) and a nested clock in each product helper, the
+    cluster barrier and both kernels."""
+    from stair_tpu_torch.scripts import executor_clocks as C
+
+    C.patched_step_source(str(tmp_path))
+    src = (tmp_path / "executor_step.cu").read_text()
+    assert src.count("  lap(") == 2 * 7
+    for slot in (0, 6, 8):
+        assert f"SClk clk({slot});" in src or f"SClk kclk({slot});" in src
+    assert src.count("SClk kclk(8);\n  lap_start();") == 2
+    assert 'extern "C" void stair_sclk(' in src
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype,rtol,atol", [
     ("float32", 1e-4, 1e-4), ("bfloat16", 1e-2, 3e-2)])
@@ -246,8 +349,8 @@ def test_step_tc_shared_memory_matches_the_source_and_fits():
 def test_fused_step_kernel_vs_plain_version_on_card(cuda_device, F,
                                                     compute_dtype, rtol,
                                                     atol):
-    """The kernel of the route ``step_route`` picks (float32: the general
-    one; bf16 at H 128: the tensor-core one) against
+    """The kernel of the route ``step_route`` picks (float32 at H 128: the
+    "fma32" one; bf16 at H 128: the tensor-core one) against
     ``fused_step_reference`` on CUDA tensors: every output whole, and the
     whole frames file."""
     from stair_tpu_torch.ops import _build
@@ -258,8 +361,8 @@ def test_fused_step_kernel_vs_plain_version_on_card(cuda_device, F,
     got = TE.fused_step(*args)
     torch.cuda.synchronize()
     route = TE.step_route(args[2].dtype, F, 128)
-    assert route == ("tc" if compute_dtype == "bfloat16" else "general")
-    key = "executor_step_tc" if route == "tc" else "executor_step"
+    assert route == ("tc" if compute_dtype == "bfloat16" else "fma32")
+    key = TE.STEP_KEYS[route]
     assert _build.LAUNCHES[key] == 1 and sum(_build.LAUNCHES.values()) == 1
     assert got[0] is args[2]
     for w, g, what in zip(want, got, ("rf", "pooled", "hasitem",
@@ -320,3 +423,86 @@ def test_fused_step_tc_refuses_unaligned_rows_on_card(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         TE.fused_step(*args)
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,H", [(16, 128), (48, 256), (32, 384), (64, 512)])
+def test_fused_step_fma32_vs_general_and_plain_on_card(cuda_device, F, H):
+    """The float32 "fma32" route (at this small batch a tile on a cluster
+    of H / 128 CTAs, its products on ``gemm32``) equals the forced general
+    route bit for bit in every output and the whole frames file, launch for
+    launch (one ``executor_step_fma32``, then one ``executor_step``),
+    repeats its own bits, and is within 1e-4 of ``fused_step_reference``;
+    the library's shared memory equals the Python mirror's, and the
+    cluster size its launch picks equals the mirror's at two CTAs an SM,
+    on both sides of the card's CTA slots."""
+    from stair_tpu_torch.ops import _build
+
+    args = step_inputs("float32", F=F, H=H, device=cuda_device)
+    assert TE.step_route(torch.float32, F, H) == "fma32"
+    want = TE.fused_step_reference(*(a.clone() for a in args))
+    _build.reset_launches()
+    got = TE.fused_step(*(a.clone() for a in args))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "executor_step_fma32": 1}
+    again = TE.fused_step(*(a.clone() for a in args))
+    pick = TE.step_route
+    TE.step_route = lambda *a: "general"
+    try:
+        _build.reset_launches()
+        general = TE.fused_step(*(a.clone() for a in args))
+        torch.cuda.synchronize()
+    finally:
+        TE.step_route = pick
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "executor_step": 1}
+    for w, g, g2, gen, what in zip(want, got, again, general, (
+            "rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")):
+        assert torch.equal(g, gen), what
+        assert torch.equal(g, g2), what
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=what)
+    lib = _build.build()
+    assert lib.stair_executor_step_fma32_smem(F, H) == \
+        TE.step_fma32_smem_bytes(F, H)
+    slots = 2 * torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    for B in (args[2].shape[0], 2 * slots - 1, 2 * slots, 4 * slots):
+        assert lib.stair_executor_step_fma32_cluster(B, F, H) == \
+            TE.step_fma32_cluster(B, H, slots) == \
+            (H // 128 if B < 2 * slots else 1), B
+
+
+@pytest.mark.cuda
+def test_fused_step_fma32_refuses_what_it_does_not_take_on_card(
+        cuda_device):
+    """A forced "fma32" on bf16 inputs or at a width ``fma32_shape``
+    refuses, and float32 rows that are not 16-byte aligned on the route
+    ``step_route`` picks, raise before any launch: no fallback to another
+    route."""
+    from stair_tpu_torch.ops import _build
+
+    for dtype, F, H in (("bfloat16", 16, 128), ("float32", 16, 64)):
+        args = step_inputs(dtype, F=F, H=H, device=cuda_device)
+        pick = TE.step_route
+        TE.step_route = lambda *a: "fma32"
+        try:
+            _build.reset_launches()
+            with pytest.raises(ValueError, match="'fma32' route takes"):
+                TE.fused_step(*args)
+            assert sum(_build.LAUNCHES.values()) == 0
+        finally:
+            TE.step_route = pick
+    args = list(step_inputs("float32", F=16, H=128, device=cuda_device))
+    for i in (2, 7):    # rf, w1u
+        t = args[i]
+        shifted = torch.empty(t.numel() + 1, dtype=t.dtype,
+                              device=cuda_device)[1:].view(t.shape)
+        shifted.copy_(t)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        moved = list(args)
+        moved[i] = shifted
+        _build.reset_launches()
+        with pytest.raises(ValueError, match="16-byte"):
+            TE.fused_step(*moved)
+        assert sum(_build.LAUNCHES.values()) == 0

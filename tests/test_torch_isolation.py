@@ -230,15 +230,16 @@ def test_chip_smoke_lists_nine_kernels_with_launch_counters():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         text = f.read()
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
-    # seventeen since the slot sets and zeros gained their many-entry
-    # launches beside the adds' (the test keeps the name it had when there
+    # eighteen since the step kernel's float32 "fma32" route gained its
+    # entry (seventeen when the slot sets and zeros gained their many-entry
+    # launches beside the adds'; the test keeps the name it had when there
     # were nine)
-    assert len(names) == len(set(names)) == 17, names
+    assert len(names) == len(set(names)) == 18, names
     assert set(names) <= set(_build.LAUNCHES), names
     assert {"flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-            "executor_step", "executor_step_tc", "slot_set", "slot_zero",
-            "slot_add", "slot_set_many", "slot_zero_many",
-            "slot_add_many"} <= set(names)
+            "executor_step", "executor_step_tc", "executor_step_fma32",
+            "slot_set", "slot_zero", "slot_add", "slot_set_many",
+            "slot_zero_many", "slot_add_many"} <= set(names)
     for src in set(re.findall(r'"(stair_tpu_torch/ops/csrc/\w+\.cu)"',
                               text)):
         assert os.path.exists(os.path.join(REPO, src)), src
@@ -322,9 +323,10 @@ def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
         text = f.read()
     doc = ast.get_docstring(ast.parse(text))
     # twenty-one phases since the demo server's and data parallel's (the
-    # test keeps the name it had at eighteen); phase 19's three entries are
-    # #1-#3 on the parser's path, built in one comprehension; phases 20
-    # and 21 add no kernel entry
+    # test keeps the name it had at eighteen phases and seventeen entries;
+    # eighteen entries since phase 16's float32 "fma32" step entry);
+    # phase 19's three entries are #1-#3 on the parser's path, built in one
+    # comprehension; phases 20 and 21 add no kernel entry
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, re.M)]
     assert numbers == list(range(1, 22)), numbers
     assert "phase_clis(dev, card)" in text
@@ -332,6 +334,6 @@ def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
     assert "phase_demo(dev, card, model)" in text
     assert "phase_data_parallel(dev, card, clis)" in text
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
-    assert len(names) == 17, names
+    assert len(names) == 18, names
     assert re.search(r'\{"name": k, "route": "cuda", "path": "parser"',
                      text)
