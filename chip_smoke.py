@@ -277,7 +277,26 @@ Phases (any failure raises, and the script exits non-zero):
    bounds, the eval step's gathered predictions against one process's
    (equal accuracy); the evaluate CLI's ranks (``train/evaluate.py``'s
    rank body) on phase 18's checkpoint: accuracy and result file equal to
-   the one-device evaluate; ms a step per rank (host clock).
+   the one-device evaluate; ms a step per rank (host clock);
+22. the NMN trainer and evaluate CLIs at their own defaults (H 512, video
+   2048, text 300, F 150, B 32, dropout 0.25, float32: ``train/args.py``
+   and ``models/nmn.py``; no flag or config file sets them) on a world of
+   24 videos x 8 questions of 300 saved frames (150 after the loader's
+   stride), ``train.loop.main`` for 3 epochs with an evaluation each, then
+   ``train.evaluate.main`` on ``best_model``: launches exactly
+   ``TRAIN_LAUNCHES_F32`` a step and ``CLI_EVAL_LAUNCHES_F32`` an eval
+   batch (the executor on its "fma32" keys only, which now take F 150 over
+   ``gemm32``'s row tiles; no general launch), a finite loss whose answer
+   loss and mean module-family loss fall, evaluate's accuracy equal to the
+   trainer's best; on the CLI's padded last train batch (best_model's
+   weights) #4, #5's files and #6's outputs equal to the general route's
+   (forced) bit for bit and within phase 8's float32 bounds of the plain
+   versions, one step's loss and every gradient leaf equal on both routes
+   (deterministic algorithms) and within phase 8's bounds of the plain
+   route; ms a step of the CLI's inner loop and one train step at B 32
+   and B 128, each beside the general route; #4, #5, #6 at B 32 and B 128
+   by graph replay on both routes beside the plain versions and their
+   bounds; three ``kernels`` entries at F 150.
 
 A line before the phases gives ``utils/mfu.py``'s peaks for the card's
 name (not None on an H100, equal to the peaks the bounds use on the H100
@@ -298,11 +317,15 @@ updates through the many-entry launches. Phase 19's three entries
 (``"path": "parser"``) are #1-#3 again at the parser's shapes on the float32
 cluster routes (``bilstm_f32c``, ``bilstm_train_f32c``,
 ``bilstm_bwd_f32c``: its walk, dwh slices and their sum timed together),
-with the general route's time beside and the parser path's launches. Before them a line ``[f32 routes]`` gathers the
-float32 times of #2, #3 (phase 6's shapes), #4 (phase 4), #5, #6 (phase
-7, and phase 8's B 128) and #10 (phase 15, F 64, and phase 16's float32
-serving batch) with their bounds. Every time printed is
-measured in this run, on the card named above it.
+with the general route's time beside and the parser path's launches.
+Phase 22's three entries (``"path"`` naming the NMN CLIs' defaults) are
+#4-#6 again at F 150 on the "fma32" route, timed at the CLI's B 32 (and
+B 128 under ``b128_*``) with the general route beside, with the launches of
+phase 22's trainer and evaluate runs. Before them a line ``[f32 routes]``
+gathers the float32 times of #2, #3 (phase 6's shapes), #4 (phase 4), #5,
+#6 (phase 7, phase 8's B 128, and phase 22's F 150 at B 32 and 128) and #10
+(phase 15, F 64, and phase 16's float32 serving batch) with their bounds.
+Every time printed is measured in this run, on the card named above it.
 """
 
 from __future__ import annotations
@@ -625,7 +648,7 @@ def general_mega():
 MEGA_ROUTES = (("tc", "mega_exec_tc", contextlib.nullcontext),
                ("general", "mega_exec", general_mega))
 #: the float32 executor's routes at the widths "fma32" takes (H a multiple
-#: of 128 up to 512, F of 16 up to 64): the two give equal bits
+#: of 128 up to 512, any F from 16 to 256): the two give equal bits
 F32_ROUTES = (("fma32", "mega_exec_fma32", contextlib.nullcontext),
               ("general", "mega_exec", general_mega))
 #: the training forward's launch key on each route
@@ -1415,6 +1438,21 @@ def phase_mega_train(dev):
     return errs
 
 
+def step_grads(m, batch, window, seed=7):
+    """One train step's loss and every gradient leaf of ``m`` on ``batch``
+    (a materialized batch), the dropout masks from ``seed``; ``m`` keeps
+    its weights."""
+    from stair_tpu_torch.train.losses import total_loss
+
+    m.zero_grad(set_to_none=True)
+    loss, _ = total_loss(m, batch, torch.Generator().manual_seed(seed),
+                         1.0, 1.0, 1.0, 1.0, contrastive_window=window)
+    loss.backward()
+    return float(loss.detach()), {
+        k: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+        for k, p in m.weights.items()}
+
+
 def hold_step_routes(tag, models, batch, window, seed=7):
     """One train step of each ``(model, dtype)`` in ``models`` on ``batch``
     (a materialized batch), on the kernel route against the plain route:
@@ -1428,16 +1466,8 @@ def hold_step_routes(tag, models, batch, window, seed=7):
     by up to ~2e-3 in norm (a logic error moves it by O(1)): bound 1e-2 on
     ||kernel - plain|| / ||plain|| per leaf. The loss agrees within 1e-4
     in both dtypes. float32 takes the BiLSTM's float32 cluster routes."""
-    from stair_tpu_torch.train.losses import total_loss
-
     def grads_of(m):
-        m.zero_grad(set_to_none=True)
-        loss, _ = total_loss(m, batch, torch.Generator().manual_seed(seed),
-                             1.0, 1.0, 1.0, 1.0, contrastive_window=window)
-        loss.backward()
-        return float(loss.detach()), {
-            k: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
-            for k, p in m.weights.items()}
+        return step_grads(m, batch, window, seed)
 
     def norm_rel(a, b):
         return float((a - b).norm()) / max(float(b.norm()), 1e-30)
@@ -1472,6 +1502,79 @@ def hold_step_routes(tag, models, batch, window, seed=7):
     return launched
 
 
+def executor_inputs(model, batch, train):
+    """The executor's ``(meta, args)`` on ``batch`` (materialized) and
+    ``model``'s weights: the video and question encodes (the BiLSTM eval
+    forward #1, or with ``train`` the training forward #2), then
+    ``prepare_args``, as the model's forward makes them."""
+    from stair_tpu_torch.models.nmn import VideoNMN, tree_map
+    from stair_tpu_torch.ops import lstm as TL
+    from stair_tpu_torch.ops import mega_exec as TX
+
+    p = tree_map(lambda x: x.detach(), model.param_tree())
+    enc = TL.bilstm_train_call if train else TL.bilstm
+    kv = enc(*TL._prep(p["video_encoder"], batch["video"],
+                       batch["video_mask"]))
+    kq = enc(*TL._prep(p["text_encoder"], batch["question"],
+                       batch["question_mask"]))
+    mods = p["modules"]
+    return TX.prepare_args(
+        model.config, mods, VideoNMN._fused_tables(mods), batch["trace"],
+        kv[:2], batch["video_mask"], kq[:2], batch["question_mask"])
+
+
+def hold_f32_executor(dev, model, batch, rate, seed=(11, 22)):
+    """#4 on ``batch``'s eval inputs, #5 and #6 on its training inputs
+    (``executor_inputs``), on the "fma32" route (one launch of each of its
+    keys) against the general route forced (equal bits: the three files,
+    every data cotangent and weight gradient) and the plain versions
+    (phase 8's float32 bounds: files within 1e-4, #6 within 5e-2 of each
+    gradient's largest value). Returns the errors and what the timings
+    reuse."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+
+    ins = {"eval": executor_inputs(model, batch, train=False),
+           "train": executor_inputs(model, batch, train=True)}
+    meta4, a4 = ins["eval"]
+    meta5, a5 = ins["train"]
+    with kernel_route(("mega_exec_fma32",)) as l4:
+        k4 = TX.mega_exec_call(meta4, a4)
+    require_launches("float32 #4", l4, {"mega_exec_fma32": 1})
+    keys = ("mega_exec_train_fma32", "mega_exec_bwd_fma32",
+            "mega_exec_wgrad_fma32")
+    gen = torch.Generator().manual_seed(6)
+    with kernel_route(keys) as l56:
+        k5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
+        gouts = [torch.randn(o.shape, generator=gen).to(dev) for o in k5]
+        k6 = TG.mega_exec_bwd_call(meta5, a5, k5, gouts, rate, seed)
+    require_launches("float32 #5 + #6", l56, dict.fromkeys(keys, 1))
+    with general_mega(), kernel_route(("mega_exec", "mega_exec_train",
+                                       "mega_exec_bwd", "mega_exec_wgrad")):
+        g4 = TX.mega_exec_call(meta4, a4)
+        g5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
+        g6 = TG.mega_exec_bwd_call(meta5, a5, g5, gouts, rate, seed)
+    torch.cuda.synchronize()
+    for what, k, g in (("#4 files", k4, g4), ("#5 files", k5, g5),
+                       ("#6 gradients", k6, g6)):
+        require(all(torch.equal(a, b) for a, b in zip(k, g)),
+                f"float32 {what}: the fma32 route differs from the "
+                "general route")
+    r4 = TX.mega_exec_reference(meta4, a4)
+    r5 = TX.mega_exec_reference(meta5, a5, rate=rate, seed=seed)
+    for what, k, r in (("#4", k4, r4), ("#5", k5, r5)):
+        for o, p in zip(k, r):
+            torch.testing.assert_close(o, p, rtol=1e-4, atol=1e-4,
+                                       msg=f"float32 {what} vs plain")
+    r6 = TG.mega_exec_bwd_reference(meta5, a5, k5, gouts, rate, seed,
+                                    at_files=True)
+    rel6 = max(rel_err(x, y) for x, y in zip(k6, r6))
+    require(rel6 <= 5e-2, f"float32 #6 vs plain: rel err {rel6}")
+    return dict(e4=max_err(k4, r4), e5=max_err(k5, r5), e6=max_err(k6, r6),
+                rel6=rel6, ins=ins, gouts=gouts, seed=seed, rate=rate,
+                outs={"#4": k4, "#5": k5, "#6": k6})
+
+
 def time_f32_step(dev, card, model32, batch, args):
     """The float32 train step at phase 8's configuration (B 128): ms a step
     (CUDA events) on the main path (the executor on its "fma32" routes, the
@@ -1482,11 +1585,8 @@ def time_f32_step(dev, card, model32, batch, args):
     forward's inputs), #5 and #6 (on the step's) on both float32 routes,
     with their bounds and plain versions (``[f32]`` lines). Updates
     ``model32``. Returns the kernel entries of the "fma32" route."""
-    from stair_tpu_torch.models.nmn import VideoNMN, tree_map
     from stair_tpu_torch.ops import _build
-    from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.ops import mega_exec as TX
-    from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.train.loop import make_train_step
     from stair_tpu_torch.utils.device import cuda_time_ms
 
@@ -1531,66 +1631,30 @@ def time_f32_step(dev, card, model32, batch, args):
         f"; card {card}")
 
     cfg = model32.config
-    p = tree_map(lambda x: x.detach(), model32.param_tree())
-    vargs = TL._prep(p["video_encoder"], batch["video"], batch["video_mask"])
-    qargs = TL._prep(p["text_encoder"], batch["question"],
-                     batch["question_mask"])
-    mods = p["modules"]
     shape = (f"train step B {TRAIN_BATCH} H {cfg.hidden_size} F "
              f"{cfg.max_video_length}")
-    # #4 on the eval forward's inputs
-    kv, kq = TL.bilstm(*vargs), TL.bilstm(*qargs)
-    meta, margs = TX.prepare_args(
-        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], kv[:2],
-        batch["video_mask"], kq[:2], batch["question_mask"])
-    k4 = TX.mega_exec_call(meta, margs)
-    r4 = TX.mega_exec_reference(meta, margs)
-    e4 = max_err(k4, r4)
-    for o, r in zip(k4, r4):
-        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+    # #4 on the eval forward's inputs, #5 and #6 on the step's
+    h = hold_f32_executor(dev, model32, batch, cfg.dropout)
+    e4, e5, e6, r6 = h["e4"], h["e5"], h["e6"], h["rel6"]
+    meta, margs = h["ins"]["eval"]
     with general_mega():
-        require(all(torch.equal(a, g) for a, g in zip(
-            k4, TX.mega_exec_call(meta, margs))),
-            "float32 eval forward: fma32 route != general route")
         ms4g = cuda_time_ms(lambda: TX.mega_exec_call(meta, margs), iters=5)
     ms4 = cuda_time_ms(lambda: TX.mega_exec_call(meta, margs), iters=5)
     p4 = cuda_time_ms(lambda: TX.mega_exec_reference(meta, margs), iters=2,
                       warmup=1)
     b4 = bound(counted_flops(lambda: TX.mega_exec_reference(meta, margs)),
-               tensor_bytes(margs, k4), torch.float32)
+               tensor_bytes(margs, h["outs"]["#4"]), torch.float32)
     f32_record("#4", f"eval forward B {TRAIN_BATCH} H {cfg.hidden_size} F "
                f"{cfg.max_video_length}", "fma32", ms4, p4, b4,
                general_ms=ms4g)
-    # #5 and #6 on the step's inputs
-    kv, kq = TL.bilstm_train_call(*vargs), TL.bilstm_train_call(*qargs)
-    meta, margs = TX.prepare_args(
-        cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], kv[:2],
-        batch["video_mask"], kq[:2], batch["question_mask"])
-    seed = (11, 22)
-    km = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
-    e5 = max_err(km, TX.mega_exec_reference(meta, margs, rate=cfg.dropout,
-                                            seed=seed))
-    gen = torch.Generator().manual_seed(6)
-    gouts = [torch.randn(o.shape, generator=gen).to(dev, o.dtype) for o in km]
-    kb = TG.mega_exec_bwd_call(meta, margs, km, gouts, cfg.dropout, seed)
-    rb = TG.mega_exec_bwd_reference(meta, margs, km, gouts, cfg.dropout, seed,
-                                    at_files=True)
-    e6 = max_err(kb, rb)
-    r6 = max(rel_err(x, y) for x, y in zip(kb, rb))
-    require(r6 <= 5e-2, f"float32 #6 on the step's inputs: rel err {r6}")
-    with general_mega():
-        kmg = TX.mega_exec_train_call(meta, margs, cfg.dropout, seed)
-        kbg = TG.mega_exec_bwd_call(meta, margs, kmg, gouts, cfg.dropout,
-                                    seed)
-    require(all(torch.equal(a, g) for a, g in zip(km, kmg))
-            and all(torch.equal(a, g) for a, g in zip(kb, kbg)),
-            "float32 train step's executor: fma32 route != general route")
     log(f"[train] float32 executor on the step's inputs: #4 max_abs_err "
         f"{e4:.3e}, #5 {e5:.3e} (atol 1e-4), #6 max rel err {r6:.3e} "
         f"(max_abs_err {e6:.3e}; bound 5e-2) against the plain versions; "
         f"fma32 and general routes equal bit for bit (#4, #5 files, #6 "
         f"gradients); card {card}")
-    res, ref = time_f32_mega(meta, margs, gouts, cfg.dropout, seed, shape)
+    meta, margs = h["ins"]["train"]
+    res, ref = time_f32_mega(meta, margs, h["gouts"], cfg.dropout, h["seed"],
+                             shape)
     fma, gen_ = res["fma32"], res["general"]
     base = {"route": "cuda", "path": f"float32 train step and eval forward, "
             f"B {TRAIN_BATCH} (phase 8)", "executor_route": "fma32",
@@ -4170,22 +4234,46 @@ EVAL_LAUNCHES = {"bilstm_tc": 3, "mega_exec_tc": 1}
 CLI_TIMED_EPOCHS = 5
 
 
-def write_world(root):
-    """Phase 18's world under ``root``, written by a child process with a
-    fixed string-hash seed: ``make_world`` picks relations and objects by
-    position in lists built from sets (``testing/synthetic.py:139-145``,
-    as the JAX original does), so its questions otherwise change from one
-    process to the next. Returns ``write_agqa_world``'s paths."""
+def write_world(root, world=CLI_WORLD):
+    """A world under ``root`` (``write_agqa_world(**world)``: phase 18's by
+    default), written by a child process with a fixed string-hash seed:
+    ``make_world`` picks relations and objects by position in lists built
+    from sets (``testing/synthetic.py:139-145``, as the JAX original does),
+    so its questions otherwise change from one process to the next. Returns
+    ``write_agqa_world``'s paths."""
     code = ("import json, sys\n"
             "from stair_tpu_torch.testing.agqa_world import write_agqa_world\n"
             "w = write_agqa_world(sys.argv[1], **json.loads(sys.argv[2]))\n"
             "print(json.dumps(w))\n")
     res = subprocess.run(
-        [sys.executable, "-c", code, root, json.dumps(CLI_WORLD)],
+        [sys.executable, "-c", code, root, json.dumps(world)],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, env={**os.environ, "PYTHONHASHSEED": "0"})
     require(res.returncode == 0, f"writing the world failed: {res.stderr}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def time_inner_loop(step, batcher, dev, epochs, warm):
+    """The trainer's inner loop: ``step`` over ``epochs`` shuffled epochs
+    of ``batcher``'s batches through ``_device_batches``, after one step on
+    ``warm``. Returns ms a step by the host clock (synchronized at the
+    ends) and by CUDA events, and the steps."""
+    from stair_tpu_torch.train import loop
+
+    step(warm, torch.Generator().manual_seed(0), 1.0, 1.0)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    n = 0
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(epochs):
+        for _, bdict in loop._device_batches(batcher, dev, shuffle=True):
+            step(bdict, torch.Generator().manual_seed(n), 1.0, 1.0)
+            n += 1
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / n,
+            ev[0].elapsed_time(ev[1]) / n, n)
 
 
 def hold_cli_batches(dev, argv, out):
@@ -4260,19 +4348,8 @@ def hold_cli_batches(dev, argv, out):
     packed = sum(1 for _ in batcher.epoch(shuffle=True))
     pack_ms = (time.perf_counter() - t0) * 1e3 / packed
     step = loop.make_train_step(model, args, tables=ttables)
-    step(tdict, torch.Generator().manual_seed(0), 1.0, 1.0)    # warm-up
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    n = 0
-    t0 = time.perf_counter()
-    ev[0].record()
-    for _ in range(CLI_TIMED_EPOCHS):
-        for _, bdict in loop._device_batches(batcher, dev, shuffle=True):
-            step(bdict, torch.Generator().manual_seed(n), 1.0, 1.0)
-            n += 1
-    ev[1].record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    host_ms, event_ms, n = time_inner_loop(step, batcher, dev,
+                                           CLI_TIMED_EPOCHS, tdict)
     # the same step on one batch that stays on the card, as phase 8 times
     resident_ms = cuda_time_ms(lambda: step(
         tdict, torch.Generator().manual_seed(n), 1.0, 1.0), iters=10,
@@ -4282,8 +4359,7 @@ def hold_cli_batches(dev, argv, out):
                 outside=outside, n_flipped=n_flipped, loss_err=loss_err,
                 cos_err=cos_err, n_cos=n_cos, eval_launches=eval_launches,
                 step_launches=step_launches, timed_steps=n, host_ms=host_ms,
-                pack_ms=pack_ms, resident_ms=resident_ms,
-                event_ms=ev[0].elapsed_time(ev[1]) / n)
+                pack_ms=pack_ms, resident_ms=resident_ms, event_ms=event_ms)
 
 
 def run_clis(dev, root, hidden=HIDDEN, epochs=CLI_EPOCHS):
@@ -4382,6 +4458,30 @@ def phase_clis(dev, card):
         raise
 
 
+def require_loss_falls(reports):
+    """A trainer's report lines (``metrics.jsonl`` lines with
+    ``loss/total``): every loss finite, and the answer loss and the mean
+    module-family loss falling from the first report to the last. Returns
+    the first and last reports and the families both hold."""
+    losses = [x["loss/total"] for x in reports]
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    # loss/total sums the module losses over each example's supervised
+    # steps, so a window's value moves with its batches' supervision
+    # density (the padded last batch of an epoch repeats its few examples);
+    # the answer loss and the per-family means are per example and per
+    # supervised step, and must fall from the first report to the last
+    first, last = reports[0], reports[-1]
+    shared = [n for n in first if n.startswith("loss/") and n in last
+              and n not in ("loss/total", "loss/decoder")]
+    fell = (last["loss/decoder"] < first["loss/decoder"],
+            np.mean([last[n] for n in shared])
+            < np.mean([first[n] for n in shared]))
+    require(all(fell), "the answer loss / the mean module-family loss did "
+            f"not fall: {[(x['step'], x['loss/decoder']) for x in reports]}, "
+            f"{first} -> {last}")
+    return first, last, shared
+
+
 def check_clis(card, r):
     """Phase 18's checks and prints on ``run_clis``' readings ``r``."""
     from stair_tpu_torch.train.loop import lr_schedule
@@ -4400,21 +4500,7 @@ def check_clis(card, r):
         want[k] = want.get(k, 0) + n * n_eval
     require_launches("CLI", r["launches"], want)
     losses = [x["loss/total"] for x in reports]
-    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    # loss/total sums the module losses over each example's supervised
-    # steps, so a window's value moves with its batches' supervision
-    # density (the padded last batch of an epoch repeats its few examples);
-    # the answer loss and the per-family means are per example and per
-    # supervised step, and must fall from the first report to the last
-    first, last = reports[0], reports[-1]
-    shared = [n for n in first if n.startswith("loss/") and n in last
-              and n not in ("loss/total", "loss/decoder")]
-    fell = (last["loss/decoder"] < first["loss/decoder"],
-            np.mean([last[n] for n in shared])
-            < np.mean([first[n] for n in shared]))
-    require(all(fell), "the answer loss / the mean module-family loss did "
-            f"not fall: {[(x['step'], x['loss/decoder']) for x in reports]}, "
-            f"{first} -> {last}")
+    first, last, shared = require_loss_falls(reports)
     for d, names in r["files"].items():
         require({"params.msgpack", "config.json", "opt_state.msgpack",
                  "trainer_state.json"} <= set(names), f"{d}: {names}")
@@ -5093,6 +5179,364 @@ def phase_data_parallel(dev, card, clis):
         f"with the ranks' start; card {card}")
 
 
+#: phase 22: the NMN trainer and evaluate CLIs at their own defaults
+#: (``train/args.py``: hidden 512, video 2048, text 300, F 150, B 32,
+#: dropout 0.25, window 32, lr 2e-4, float32), on a world cut to 24 videos
+#: x 8 questions of 300 saved frames (150 after the loader's stride of 2)
+DEFAULT_WORLD = dict(num_videos=24, questions_per_video=8, num_frames=150,
+                     feature_dim=2048, glove_dim=300, seed=22)
+DEFAULT_EPOCHS = 3
+#: per eval batch of the float32 CLIs: the video, question and class-table
+#: encodes on the BiLSTM's float32 cluster route (#1) and one executor
+#: forward on its "fma32" route (#4)
+CLI_EVAL_LAUNCHES_F32 = {"bilstm_f32c": 3, "mega_exec_fma32": 1}
+#: epochs of the CLI's own batches that time its inner loop, a route each
+DEFAULT_TIMED_EPOCHS = 2
+#: the batches at which #4-#6 and the train step are timed: the CLI's, and
+#: phase 8's
+DEFAULT_TIMED_BATCHES = (32, TRAIN_BATCH)
+#: what phase 22 requires of the trained model's config and the batch: the
+#: defaults of ``train/args.py`` and ``models/nmn.py``
+CLI_DEFAULTS = dict(hidden_size=512, max_video_length=150, batch_size=32,
+                    compute_dtype="float32", dropout=0.25, video_size=2048,
+                    text_size=300)
+
+
+def run_default_clis(dev, root):
+    """Phase 22's runs: the world under ``root``, ``train.loop.main`` with
+    only the data paths, the output and what keeps the run short, then
+    ``train.evaluate.main`` on its ``best_model``, each counted. Returns
+    what the checks read."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.testing.agqa_world import data_argv
+    from stair_tpu_torch.train import checkpoint as ckpt
+    from stair_tpu_torch.train import evaluate, loop
+
+    t0 = time.perf_counter()
+    w = write_world(f"{root}/world", DEFAULT_WORLD)
+    out = f"{root}/run"
+    args = loop.parse_cli(data_argv(w, out))
+    train_ds, valid_ds = loop.load_datasets(args)
+    n_train, n_valid = (sum(t is not None for t in ds.traces)
+                        for ds in (train_ds, valid_ds))
+    steps = -(-n_train // args.batch_size)
+    eval_batches = -(-n_valid // args.batch_size)
+    world_s = time.perf_counter() - t0
+    argv = data_argv(w, out, "--num-epochs", str(DEFAULT_EPOCHS),
+                     "--report-interval", str(steps),
+                     "--evaluate-interval", str(steps))
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    best, _ = quiet(loop.main, argv, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    with open(f"{out}/metrics.jsonl") as f:
+        recs = [json.loads(x) for x in f]
+    cfg = ckpt.load_config(f"{out}/best_model")
+    best_state = ckpt.load_trainer_state(f"{out}/best_model")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    acc, _ = quiet(evaluate.main, argv + [
+        "--model-ckpt", f"{out}/best_model", "--test-filename", w["valid"],
+        "--evaluate-func", "acc"], device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(_build.LAUNCHES)
+    return dict(world=w, out=out, argv=argv, args=loop.parse_cli(argv),
+                n_train=n_train, n_valid=n_valid, steps=steps,
+                eval_batches=eval_batches, best=best, acc=acc, cfg=cfg,
+                best_state=best_state, recs=recs,
+                train_launches=train_launches, eval_launches=eval_launches,
+                world_s=world_s, train_s=train_s, eval_s=eval_s)
+
+
+def time_default_kernels(held, label):
+    """#4, #5 and #6 on ``hold_f32_executor``' inputs by CUDA-graph
+    replay on the "fma32" route and the general route forced (#6 also its
+    walk and weight-gradient launches apart), beside the plain versions
+    (CUDA events) and their bounds (the flop counter's operations on the
+    plain version at these inputs, 67 TFLOP/s; each argument read and each
+    output written once). Returns ``{kernel: record}``."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    f32 = torch.float32
+    meta4, a4 = held["ins"]["eval"]
+    meta5, a5 = held["ins"]["train"]
+    rate, seed, gouts = held["rate"], held["seed"], held["gouts"]
+    out = held["outs"]
+
+    def plain4():
+        return TX.mega_exec_reference(meta4, a4)
+
+    def plain5():
+        return TX.mega_exec_reference(meta5, a5, rate=rate, seed=seed)
+
+    def plain6():
+        return TG.mega_exec_bwd_reference(meta5, a5, out["#5"], gouts, rate,
+                                          seed, at_files=True)
+
+    rec = {
+        "#4": {"plain_ms": cuda_time_ms(plain4, iters=2, warmup=1),
+               **bound(counted_flops(plain4), tensor_bytes(a4, out["#4"]),
+                       f32)},
+        "#5": {"plain_ms": cuda_time_ms(plain5, iters=2, warmup=1),
+               **bound(counted_flops(plain5), tensor_bytes(a5, out["#5"]),
+                       f32)},
+        "#6": {"plain_ms": cuda_time_ms(plain6, iters=1, warmup=1),
+               **bound(counted_flops(plain6),
+                       tensor_bytes(a5, out["#5"], gouts, out["#6"]), f32)}}
+    for route, _, ctx in F32_ROUTES:
+        with ctx():
+            o = TX.mega_exec_train_call(meta5, a5, rate, seed)
+            walk, wgrad, _ = TG.bwd_launches(meta5, a5, o, gouts,
+                                             TX.dropout_params(rate, seed))
+            times = {
+                "#4": graph_ms(lambda: TX.mega_exec_call(meta4, a4), 5),
+                "#5": graph_ms(lambda: TX.mega_exec_train_call(
+                    meta5, a5, rate, seed), 5),
+                "#6": graph_ms(lambda: (walk(), wgrad()), 5),
+                "walk": graph_ms(walk, 5), "wgrad": graph_ms(wgrad, 5)}
+        key = "ms" if route == "fma32" else "general_ms"
+        for k in ("#4", "#5", "#6"):
+            rec[k][key] = times[k]
+        rec["#6"]["walk_ms" if route == "fma32" else "general_walk_ms"] = \
+            times["walk"]
+        rec["#6"]["wgrad_ms" if route == "fma32" else "general_wgrad_ms"] = \
+            times["wgrad"]
+    for k, r in rec.items():
+        f32_record(k, label, "fma32", r["ms"], r["plain_ms"],
+                   {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"]},
+                   general_ms=r["general_ms"], timing="graph replay")
+    return rec
+
+
+def default_batch(dev, args, ds, model, tables, B, seed, shuffle):
+    """A CLI batch of ``B`` rows from ``ds`` as the trainer packs it (its
+    batcher over ``tables``, ``ds``'s device tables, and
+    ``_device_batches``): the first batch of an epoch, or with ``shuffle``
+    the padded last one of a shuffled epoch. Returns ``(batch dict,
+    materialized batch, real rows)``."""
+    from stair_tpu_torch.train import loop
+
+    bargs = copy.copy(args)
+    bargs.batch_size = B
+    batcher = loop.make_batcher(bargs, ds, model, seed=seed,
+                                device_tables=True)
+    batches = list(loop._device_batches(batcher, dev, shuffle))
+    batch, bdict = batches[-1] if shuffle else batches[0]
+    return bdict, loop.materialize_batch(bdict, tables), batch.meta["real"]
+
+
+def phase_default_clis(dev, card):
+    """Phase 22: the NMN trainer and evaluate CLIs at their own defaults
+    (H 512, F 150, float32, B 32): every executor launch on the "fma32"
+    routes, which take F 150 on ``gemm32``'s row tiles. Returns the F 150
+    kernel entries."""
+    import tempfile
+
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.train import evaluate, loop
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stair_defaults_")
+    try:
+        r = run_default_clis(dev, root)
+        args, cfg = r["args"], r["cfg"]
+        H, F, B = cfg["hidden_size"], cfg["max_video_length"], args.batch_size
+        # the CLIs' own defaults, no flag or config file setting them
+        got = {**{k: cfg[k] for k in CLI_DEFAULTS if k in cfg},
+               "batch_size": B}
+        require(got == CLI_DEFAULTS,
+                f"[defaults] not the CLI's defaults {CLI_DEFAULTS}: {got}")
+        require(TX.fwd_route(torch.float32, H, F, False)
+                == TG.bwd_route(torch.float32, H, F) == "fma32",
+                f"[defaults] H {H} F {F} float32 not on the fma32 routes")
+        steps, epochs = r["steps"], DEFAULT_EPOCHS
+        total = steps * epochs
+        n_eval = (epochs + 1) * r["eval_batches"]
+        want = {k: n * total for k, n in TRAIN_LAUNCHES_F32.items()}
+        for k, n in CLI_EVAL_LAUNCHES_F32.items():
+            want[k] = want.get(k, 0) + n * n_eval
+        require_launches("[defaults] train.loop.main", r["train_launches"],
+                         want)
+        require_launches("[defaults] train.evaluate.main",
+                         r["eval_launches"],
+                         {k: n * r["eval_batches"]
+                          for k, n in CLI_EVAL_LAUNCHES_F32.items()})
+        reports = [x for x in r["recs"] if "loss/total" in x]
+        evals = [x for x in r["recs"] if "valid/acc" in x]
+        require(len(evals) == epochs + 1, f"{len(evals)} evaluations")
+        first, last, shared = require_loss_falls(reports)
+        require(r["acc"] == r["best_state"]["best_acc"] == r["best"],
+                f"[defaults] evaluate acc {r['acc']} != the trainer's best "
+                f"{r['best_state']['best_acc']} ({r['best']})")
+        log(f"[defaults] world: {r['n_train']} train / {r['n_valid']} valid "
+            f"questions of {F} frames x {cfg['video_size']} features "
+            f"(world {r['world_s']:.1f} s); train.loop.main with only the "
+            f"data paths, the output, --num-epochs {epochs}, the report and "
+            f"evaluate intervals: H {H}, F {F}, B {B}, "
+            f"{cfg['compute_dtype']}, dropout {cfg['dropout']}, lr "
+            f"{args.lr}, window {args.contrastive_window}; {epochs} epochs "
+            f"= {total} steps + {len(evals)} evaluations x "
+            f"{r['eval_batches']} batch ({r['train_s']:.1f} s): launches "
+            f"{ {k: v for k, v in r['train_launches'].items() if v} } = "
+            f"{total} x TRAIN_LAUNCHES_F32 + {n_eval} x "
+            f"{CLI_EVAL_LAUNCHES_F32}, no general executor launch; answer "
+            f"loss {[round(x['loss/decoder'], 4) for x in reports]}, mean "
+            f"of {len(shared)} module-family losses "
+            f"{np.mean([first[n] for n in shared]):.4f} -> "
+            f"{np.mean([last[n] for n in shared]):.4f}; valid acc "
+            f"{[round(x['valid/acc'], 4) for x in evals]}; "
+            f"train.evaluate.main on best_model: acc {r['acc']:.4f} = the "
+            f"trainer's best, launches "
+            f"{ {k: v for k, v in r['eval_launches'].items() if v} } "
+            f"({r['eval_s']:.1f} s); card {card}")
+
+        # ---- one CLI batch on best_model's weights: the kernels against
+        # the general route (equal bits) and their plain versions, then
+        # one step's every gradient leaf on both routes (equal bits) and
+        # against the plain route (phase 8's bounds)
+        targs = loop.parse_cli(r["argv"] + ["--model-ckpt",
+                                            f"{r['out']}/best_model"])
+        train_ds, valid_ds = loop.load_datasets(targs)
+        model = evaluate.load_model(targs, valid_ds, dev)
+        window = targs.contrastive_window
+        tables = loop.make_device_tables(train_ds, dev)
+        tdict, tbatch, real = default_batch(
+            dev, targs, train_ds, model, tables, B, targs.rand_seed, True)
+        h = hold_f32_executor(dev, model, tbatch, cfg["dropout"])
+        hold_step_routes("[defaults]", ((model, "float32"),), tbatch, window)
+        prior = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            l1, g1 = step_grads(model, tbatch, window)
+            l2, g2 = step_grads(model, tbatch, window)
+            with general_mega():
+                lg, gg = step_grads(model, tbatch, window)
+        finally:
+            torch.use_deterministic_algorithms(prior)
+        require(l1 == l2 and all(torch.equal(g1[k], g2[k]) for k in g1),
+                "[defaults] the step is not deterministic on the card")
+        differ = [k for k in g1 if not torch.equal(g1[k], gg[k])]
+        require(lg == l1 and not differ,
+                f"[defaults] the step's loss {l1} / {lg} or leaves {differ} "
+                "differ between the fma32 and general routes")
+        log(f"[defaults] the CLI's padded last train batch ({real} of {B} "
+            f"rows real), best_model's weights: #4, #5 files and #6's "
+            f"{len(h['outs']['#6'])} gradients on the fma32 route equal the "
+            f"general route's bit for bit; against the plain versions #4 "
+            f"max_abs_err {h['e4']:.3e}, #5 {h['e5']:.3e} (1e-4), #6 max rel "
+            f"err {h['rel6']:.3e} (5e-2; max_abs_err {h['e6']:.3e}); one "
+            f"train step's loss and all {len(g1)} gradient leaves equal bit "
+            f"for bit on both routes (deterministic algorithms, twice on "
+            f"the fma32 route); card {card}")
+
+        # ---- times: the CLI's inner loop, a train step at B 32 and 128,
+        # and #4-#6 at both, each beside the general route
+        step = loop.make_train_step(model, targs, tables=tables)
+        batcher = loop.make_batcher(targs, train_ds, model,
+                                    seed=targs.rand_seed, device_tables=True)
+        loop_ms = {}
+        for name, ctx in (("fma32", contextlib.nullcontext),
+                          ("general", general_mega)):
+            with ctx():
+                loop_ms[name] = time_inner_loop(step, batcher, dev,
+                                                DEFAULT_TIMED_EPOCHS, tdict)
+        # the first batch of an epoch in order: every row real at B 32
+        step_ms, real_rows, held = {}, {}, {}
+        turns = {"fma32": contextlib.nullcontext, "general": general_mega}
+        for b in DEFAULT_TIMED_BATCHES:
+            bdict, mat, real_rows[b] = default_batch(
+                dev, targs, train_ds, model, tables, b, 0, False)
+            held[b] = hold_f32_executor(dev, model, mat, cfg["dropout"])
+            ms = {k: [] for k in turns}
+            for name in (*turns, *reversed(turns)):
+                with turns[name]():
+                    ms[name].append(cuda_time_ms(lambda: step(
+                        bdict, torch.Generator().manual_seed(1), 1.0, 1.0),
+                        iters=5, warmup=1))
+            step_ms[b] = ms
+        timed = {b: time_default_kernels(
+            held[b], f"NMN CLIs' defaults, B {b} H {H} F {F} float32")
+            for b in DEFAULT_TIMED_BATCHES}
+        log(f"[defaults] the trainer's inner loop (make_train_step with its "
+            f"device tables over _device_batches), {DEFAULT_TIMED_EPOCHS} "
+            f"epochs = {loop_ms['fma32'][2]} steps a route: "
+            + "; ".join(f"{k} {v[0]:.3f} ms a step by the host clock, "
+                        f"{v[1]:.3f} by CUDA events" for k, v in
+                        loop_ms.items())
+            + f"; card {card}")
+        for b, ms in step_ms.items():
+            log(f"[defaults] one train step at B {b} ({real_rows[b]} rows "
+                f"real; CUDA events, 5 steps "
+                f"after one, in turns): "
+                + "; ".join(f"{k} {[round(x, 4) for x in v]}"
+                            for k, v in ms.items()) + f"; card {card}")
+        for b, rec in timed.items():
+            log(f"[defaults] #4, #5, #6 at B {b} H {H} F {F} float32 (#4 and"
+                f" #5 files, #6 gradients equal to the general route's, #6 "
+                f"within {held[b]['rel6']:.2e} of the plain version) by "
+                f"graph replay: "
+                + "; ".join(f"{k} fma32 {v['ms']:.4f} ms, general "
+                            f"{v['general_ms']:.4f}, plain {v['plain_ms']:.3f}"
+                            f", bound {v['bound_ms']:.4f} ({v['bound_by']})"
+                            for k, v in rec.items())
+                + f"; #6's walk {rec['#6']['walk_ms']:.4f} + weight "
+                f"gradients {rec['#6']['wgrad_ms']:.4f} (general "
+                f"{rec['#6']['general_walk_ms']:.4f} + "
+                f"{rec['#6']['general_wgrad_ms']:.4f}); card {card}")
+        SEEN["defaults"] = dict(loop_ms=loop_ms, step_ms=step_ms,
+                                timed=timed)
+        log(f"[defaults] phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    launches = {k: r["train_launches"].get(k, 0) + r["eval_launches"].get(
+        k, 0) for k in ("mega_exec_fma32", "mega_exec_train_fma32",
+                        "mega_exec_bwd_fma32", "mega_exec_wgrad_fma32")}
+    base = {"route": "cuda", "path": f"NMN trainer and evaluate CLIs at "
+            f"their defaults, H {H} F {F} float32 B {B} (phase 22)",
+            "executor_route": "fma32", "library_ms": None}
+    big = DEFAULT_TIMED_BATCHES[-1]
+
+    def entry(name, kernel, source, replaces, launches_n, err, **more):
+        t, tb = timed[B][kernel], timed[big][kernel]
+        return {"name": name, **base, "source": source,
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": err, "ms": t["ms"],
+                "general_ms": t["general_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                f"b{big}_ms": tb["ms"], f"b{big}_general_ms": tb["general_ms"],
+                f"b{big}_plain_ms": tb["plain_ms"],
+                f"b{big}_bound_ms": tb["bound_ms"], **more}
+
+    h = held[B]   # the errors on the timed B 32 batch
+    return [
+        entry("mega_exec_fma32", "#4", "stair_tpu_torch/ops/csrc/mega_exec.cu",
+              "stair_tpu/ops/mega_exec.py:123", launches["mega_exec_fma32"],
+              h["e4"]),
+        entry("mega_exec_train_fma32", "#5",
+              "stair_tpu_torch/ops/csrc/mega_exec.cu",
+              "stair_tpu/ops/mega_grad.py:1016",
+              launches["mega_exec_train_fma32"], h["e5"]),
+        entry("mega_exec_bwd_fma32", "#6",
+              "stair_tpu_torch/ops/csrc/mega_grad.cu",
+              "stair_tpu/ops/mega_grad.py:111",
+              launches["mega_exec_bwd_fma32"], h["e6"],
+              wgrad_launches=launches["mega_exec_wgrad_fma32"],
+              walk_ms=timed[B]["#6"]["walk_ms"],
+              wgrad_ms=timed[B]["#6"]["wgrad_ms"]),
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
@@ -5181,6 +5625,7 @@ def main():
         phase_data_parallel(dev, card, clis)
     finally:
         shutil.rmtree(clis["root"], ignore_errors=True)
+    kernels += phase_default_clis(dev, card)
     log(f"[f32 routes] {json.dumps(SEEN.get('f32', []))}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

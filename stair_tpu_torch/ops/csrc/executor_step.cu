@@ -15,7 +15,7 @@
 // launch: executor_step_tc_kernel further down (bf16 at the widths
 // mega_exec.py tc_shape takes, on the tensor cores),
 // executor_step_fma32_kernel at the end (float32 at the widths
-// mega_exec.py fma32_shape takes: a small launch's tiles each on a
+// executor_step.py step_fma32_shape takes: a small launch's tiles each on a
 // thread-block cluster, its products on gemm32, every output bit for bit
 // step_kernel's) and
 // step_kernel (the general route: every other dtype and width).
@@ -586,8 +586,9 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---------------------------------------------------------------------------
 // The float32 route: executor_step_fma32_kernel (float32 at the widths
-// mega_exec.py fma32_shape takes: H a multiple of G32_BN up to FMA32_MAX_H,
-// F a multiple of 16 up to FMA32_MAX_F).
+// ops/executor_step.py step_fma32_shape takes: H a multiple of G32_BN up to
+// FMA32_MAX_H, F a multiple of 16 up to STEP32_MAX_F, one row tile of
+// gemm32).
 //
 // step_kernel's arithmetic, redesigned for Hopper in two ways.
 // (1) Every [F, H] @ [H, H] product on gemm32 (mega_common.cuh): 64 x 128
@@ -633,8 +634,8 @@ __global__ void __launch_bounds__(THREADS)
 // What bounds it on an H100: operations, on the float32 CUDA cores, as
 // step_kernel.
 
-using stair::FMA32_MAX_F;
 using stair::FMA32_MAX_H;
+using stair::STEP32_MAX_F;
 using stair::mega::G32_BN;
 using stair::mega::g32_ring;
 using stair::mega::gemm32;
@@ -1034,7 +1035,7 @@ static cudaError_t step32_slots(size_t smem, int* slots) {
 
 // The float32 route (executor_step_fma32_kernel): float32 at H a multiple
 // of G32_BN in [G32_BN, FMA32_MAX_H] and F a multiple of 16 in [16,
-// FMA32_MAX_F] (mega_limits.cuh); ops/executor_step.py step_route picks
+// STEP32_MAX_F] (mega_limits.cuh); ops/executor_step.py step_route picks
 // it. Arguments as stair_executor_step's, all float32; rf and the w1u,
 // w2u, w2t and localize.k tables 16-byte aligned; ws: a float32 [B, 2, F,
 // H] workspace. The launch picks the cluster size (step32_cluster).
@@ -1042,7 +1043,7 @@ extern "C" int stair_executor_step_fma32(const void* const* ptrs, int nptrs,
                                          void* ws, int B, int Nv, int Nf,
                                          int Na, int F, int H, void* stream) {
   if (nptrs != NPTRS || B <= 0 || H % G32_BN != 0 || H < G32_BN ||
-      H > FMA32_MAX_H || F % 16 != 0 || F < 16 || F > FMA32_MAX_F)
+      H > FMA32_MAX_H || F % 16 != 0 || F < 16 || F > STEP32_MAX_F)
     return (int)cudaErrorInvalidValue;
   const size_t smem = step32_smem_bytes(F, H);
   cudaError_t e = cudaFuncSetAttribute(

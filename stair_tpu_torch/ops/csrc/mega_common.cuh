@@ -453,7 +453,8 @@ __device__ void vecmat_tc(const float* x0, const float* x1, const float* x2,
 // contract and arithmetic on Hopper-shaped tiles. C[M, N] = A @ B with
 // A(m, k) = A[m * lda + k] and B(k, n) = W[k * ldw + n] (NK false) or
 // W[n * ldw + k] (NK true: the walk's dY @ W^T); A and W float32, 16-byte
-// aligned, lda % 4 == 0, ldw % 4 == 0; M <= G32_BM, K % 4 == 0, N % 4 == 0.
+// aligned, lda % 4 == 0, ldw % 4 == 0; M <= MAX_F, K % 4 == 0, and N % 4 ==
+// 0 where NK is false (NK true reads B by rows of W: any N).
 //
 // Exactness: every output is gemm's one FMA chain, acc = fmaf(a[k], b[k],
 // acc) from 0.f over ascending k, and no k at or past K enters it, so
@@ -461,17 +462,19 @@ __device__ void vecmat_tc(const float* x0, const float* x1, const float* x2,
 // forward writes is unchanged (stair_mega_f32_product_check holds the two
 // equal on the card).
 //
-// Feeding: G32_BM x BN output tiles (all of M in one row tile), G32_BK-deep
-// k slices; the (column tile, k slice) pairs run as one sequence through a
-// G32_STAGES-stage cp.async ring of A and B tiles (ring: g32_ring<NK, BN>()
-// floats, 16-byte aligned), two slices in flight ahead of the one in use,
-// across tile boundaries too; one barrier a slice. Thread (ty, tx) = (tid /
-// 16, tid % 16) keeps its 4 x BN / 16 sums in registers: rows ty + 16 i and
-// columns 64 (j / 4) + 4 tx + j % 4 (NK false: B read as float4 along a row
-// of W) or tx + 16 j (NK true: B read as float4 along k of a row of W, the
-// tile rows padded by G32_PAD so that 16 rows meet no bank conflict). A is
-// read as float4 along k. epi(m, n, acc) per output. Called by the whole
-// block; returns after a barrier.
+// Feeding: G32_BM x BN output tiles, G32_BK-deep k slices; the (row tile,
+// column tile, k slice) triples, row tiles outermost, run as one sequence
+// through a G32_STAGES-stage cp.async ring of A and B tiles (ring:
+// g32_ring<NK, BN>() floats, 16-byte aligned), two slices in flight ahead of
+// the one in use, across tile boundaries too; one barrier a slice. The last
+// row tile may be ragged: its rows at or past M load as zeros and reach no
+// epilogue. At M <= G32_BM the sequence is the one row tile's. Thread (ty,
+// tx) = (tid / 16, tid % 16) keeps its 4 x BN / 16 sums in registers: rows
+// m0 + ty + 16 i of the row tile at m0 and columns 64 (j / 4) + 4 tx + j % 4
+// (NK false: B read as float4 along a row of W) or tx + 16 j (NK true: B
+// read as float4 along k of a row of W, the tile rows padded by G32_PAD so
+// that 16 rows meet no bank conflict). A is read as float4 along k. epi(m,
+// n, acc) per output. Called by the whole block; returns after a barrier.
 constexpr int G32_BM = 64;
 constexpr int G32_BN = 128;
 constexpr int G32_BK = 32;
@@ -508,15 +511,19 @@ __device__ void gemm32(const float* A, int lda, const float* W, long ldw,
   constexpr int STAGE = g32_stage<NK, BN>(), NJ = BN / 16;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int nk = (K + G32_BK - 1) / G32_BK, nc = (N + BN - 1) / BN;
-  const int total = nk * nc;
+  const int total = nk * nc * ((M + G32_BM - 1) / G32_BM);
+  // slice it of the sequence: tile t = it / nk, row tile t / nc, column
+  // tile t % nc, k slice it % nk
   auto load = [&](int it) {
     float* As = ring + (it % G32_STAGES) * STAGE;
     float* Bs = As + AT;
-    const int n0 = (it / nk) * BN, k0 = (it % nk) * G32_BK;
+    const int t = it / nk, k0 = (it % nk) * G32_BK;
+    const int m0 = (t / nc) * G32_BM, n0 = (t % nc) * BN;
     for (int p = tid; p < G32_BM * G32_BK / 4; p += THREADS) {
-      const int r = p / (G32_BK / 4), c = (p % (G32_BK / 4)) * 4;
+      const int r = m0 + p / (G32_BK / 4), c = (p % (G32_BK / 4)) * 4;
       const bool in = r < M && k0 + c < K;
-      cp_async16(As + r * LDA + c, A + (in ? (long)r * lda + k0 + c : 0), in);
+      cp_async16(As + (r - m0) * LDA + c,
+                 A + (in ? (long)r * lda + k0 + c : 0), in);
     }
     for (int p = tid; p < G32_BK * BN / 4; p += THREADS) {
       if (NK) {   // stage [n][k]
@@ -543,7 +550,7 @@ __device__ void gemm32(const float* A, int lda, const float* W, long ldw,
       cp_async_wait<0>();
     __syncthreads();   // slice it landed; slice it - 1's stage is free
     if (it + 2 < total) load(it + 2);
-    const int n0 = (it / nk) * BN, ks = it % nk;
+    const int t = it / nk, ks = it % nk;
     if (ks == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -591,9 +598,10 @@ __device__ void gemm32(const float* A, int lda, const float* W, long ldw,
       }
     }
     if (ks == nk - 1) {
+      const int m0 = (t / nc) * G32_BM, n0 = (t % nc) * BN;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int m = ty + 16 * i;
+        const int m = m0 + ty + 16 * i;
         if (m >= M) continue;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {

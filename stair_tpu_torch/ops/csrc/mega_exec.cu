@@ -35,13 +35,14 @@
 // mega_exec_kernel<T, false> below, the general route (every dtype and
 // width the others refuse, eval and training; mega_grad.cu's walk
 // recomputes its training values bit for bit); mega_exec_kernel<float,
-// true>, the float32 "fma32" route (H a multiple of 128 up to 512, F of 16
-// up to 64), the same kernel with every product on gemm32 (mega_common.cuh:
-// 64 x 128 output tiles, 32-deep k slices through a 3-stage cp.async ring
-// in dynamic shared memory, 4 x 8 sums a thread in registers) and so the
-// same bits in every file; and mega_exec_tc_kernel further down, the
-// tensor-core route for bf16, eval (#4) and training (#5; mega_grad_tc.cu's
-// walk recomputes its values bit for bit).
+// true>, the float32 "fma32" route (H a multiple of 128 up to 512, any F
+// from 16 to 256), the same kernel with every product on gemm32
+// (mega_common.cuh: 64 x 128 output tiles over the frames' row tiles,
+// 32-deep k slices through a 3-stage cp.async ring in dynamic shared
+// memory, 4 x 8 sums a thread in registers) and so the same bits in every
+// file; and mega_exec_tc_kernel further down, the tensor-core route for
+// bf16, eval (#4) and training (#5; mega_grad_tc.cu's walk recomputes its
+// values bit for bit).
 //
 // What bounds mega_exec_kernel on an H100: B = 1024 blocks of about three
 // heavy [64 x 512] @ [512 x 512] products per step on the float32 CUDA
@@ -1341,11 +1342,11 @@ extern "C" long stair_mega_exec_tc_smem(int F, int H, int L) {
 }
 
 // The widths the "fma32" route takes: H a multiple of G32_BN in [G32_BN,
-// FMA32_MAX_H] (whole column tiles of gemm32), F a multiple of 16 in [16,
-// FMA32_MAX_F] (one row tile), L <= MAX_L.
+// FMA32_MAX_H] (whole column tiles of gemm32), F in [FMA32_MIN_F,
+// FMA32_MAX_F] (row tiles of gemm32, the last one ragged), L <= MAX_L.
 static bool fma32_takes(int nptrs, int F, int H, int L) {
   return nptrs == NARGS && H % G32_BN == 0 && H >= G32_BN &&
-         H <= stair::FMA32_MAX_H && F % 16 == 0 && F >= 16 &&
+         H <= stair::FMA32_MAX_H && F >= stair::FMA32_MIN_F &&
          F <= stair::FMA32_MAX_F && L <= MAX_L;
 }
 

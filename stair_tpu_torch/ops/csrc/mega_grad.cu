@@ -116,6 +116,11 @@ struct SmallT {
 using Small = SmallT<long>;
 
 // Per-example float32 workspace, in floats (offsets of type I, as SmallT).
+// Every slot and every example's workspace starts on 16 bytes (H is even,
+// and the [F]- and [F, F]-sized slots are padded to 4 floats): the "fma32"
+// walk reads the [F, H] slots with cp.async, at any F.
+__host__ __device__ constexpr long pad4(long n) { return (n + 3) & ~3L; }
+
 template <typename I>
 struct WsT {
   I grv, gra, grf, feat, hpre, h2, gfeat, w1, w2, gof, m1, m2, dtok, daux,
@@ -125,7 +130,7 @@ struct WsT {
     const long FH = (long)F * H;
     I o = 0;
     grv = o; o += (long)Nv * H;
-    gra = o; o += (long)Na * F;
+    gra = o; o += pad4((long)Na * F);
     grf = o; o += Nf * FH;
     feat = o; o += FH;
     hpre = o; o += FH;
@@ -134,8 +139,8 @@ struct WsT {
     w1 = o; o += FH;
     w2 = o; o += FH;
     gof = o; o += FH;
-    m1 = o; o += (long)F * F;
-    m2 = o; o += (long)F * F;
+    m1 = o; o += pad4((long)F * F);
+    m2 = o; o += pad4((long)F * F);
     dtok = o; o += (long)L * H;
     daux = o; o += (long)T * H;
     size = o;
@@ -1717,11 +1722,11 @@ extern "C" int STAIR_GRAD_ENTRY(stair_mega_exec_wgrad)(
 }
 #else
 // The widths the "fma32" route takes (as mega_exec.cu fma32_takes): H a
-// multiple of G32_BN in [G32_BN, FMA32_MAX_H], F a multiple of 16 in [16,
+// multiple of G32_BN in [G32_BN, FMA32_MAX_H], F in [FMA32_MIN_F,
 // FMA32_MAX_F], L <= MAX_L.
 static bool fma32_takes(int F, int H, int L) {
   return H % G32_BN == 0 && H >= G32_BN && H <= stair::FMA32_MAX_H &&
-         F % 16 == 0 && F >= 16 && F <= stair::FMA32_MAX_F && L <= MAX_L;
+         F >= stair::FMA32_MIN_F && F <= stair::FMA32_MAX_F && L <= MAX_L;
 }
 
 // The "fma32" walk (mega_bwd_kernel<float, true>): float32 at the widths
@@ -1792,13 +1797,13 @@ extern "C" long stair_mega_exec_bwd_smem(int F, int H, int fma32) {
 // gemm32 with column tile bn (64, 128 or 256), reps times each, on A
 // [M, K] and W [K, N] (nk = 0) or [N, K] (nk = 1), float32; outg and out32
 // get the [M, N] sums, clk (int64 [2]) each block's clock64() span. M <=
-// G32_BM, K and N multiples of 4.
+// MAX_F (several row tiles of gemm32 past G32_BM), K and N multiples of 4.
 extern "C" int stair_mega_f32_product_check(const void* A, const void* W,
                                             int M, int K, int N, int nk,
                                             int bn, int reps, void* outg,
                                             void* out32, void* clk,
                                             void* stream) {
-  if (M < 1 || M > G32_BM || K % 4 || N % 4 || reps < 1)
+  if (M < 1 || M > MAX_F || K % 4 || N % 4 || reps < 1)
     return (int)cudaErrorInvalidValue;
   const float* a = (const float*)A;
   const float* w = (const float*)W;

@@ -15,8 +15,14 @@ constexpr int TC_MAX_H = 512;
 constexpr int TC_MAX_F = 64;
 // The float32 "fma32" routes (mega_exec_kernel<float, true>,
 // mega_bwd_kernel<float, true>): H a multiple of gemm32's column tile
-// G32_BN (mega_common.cuh) up to FMA32_MAX_H, F a multiple of 16 up to
-// FMA32_MAX_F (one row tile of gemm32).
+// G32_BN (mega_common.cuh) up to FMA32_MAX_H, any F in [FMA32_MIN_F,
+// FMA32_MAX_F] (gemm32 walks the frames in row tiles of G32_BM, the last
+// one ragged).
 constexpr int FMA32_MAX_H = 512;
-constexpr int FMA32_MAX_F = 64;
+constexpr int FMA32_MIN_F = 16;
+constexpr int FMA32_MAX_F = 256;
+// The float32 step kernel's route (executor_step_fma32_kernel, #10): H as
+// the "fma32" routes', F a multiple of 16 in [16, STEP32_MAX_F] (one row
+// tile of gemm32 a product).
+constexpr int STEP32_MAX_F = 64;
 }  // namespace stair

@@ -20,7 +20,7 @@ LayerNorm in float32 with eps 1e-5. The wrapper runs it for CPU tensors and
 the kernel for CUDA tensors, on the route ``step_route`` picks: the
 tensor-core kernel (``executor_step_tc_kernel``, bf16 at the widths
 ``mega_exec.tc_shape`` takes), the float32 one (``executor_step_fma32_kernel``
-at the widths ``mega_exec.fma32_shape`` takes: a small batch's tiles each
+at the widths ``step_fma32_shape`` takes: a small batch's tiles each
 on a thread-block cluster, every output bit for bit the general kernel's)
 or the general one
 (``step_kernel``, every other dtype and width).
@@ -159,15 +159,29 @@ def step_route(dtype, F, H) -> str:
     ``executor_step_tc``: bf16 at the widths ``mega_exec.tc_shape`` takes,
     H a multiple of 64 up to ``TC_MAX_H`` and F a multiple of 16 up to
     ``TC_MAX_F``), ``"fma32"`` (``executor_step_fma32_kernel``,
-    ``executor_step_fma32``: float32 at the widths ``mega_exec.fma32_shape``
-    takes, H a multiple of 128 up to ``FMA32_MAX_H`` and F a multiple of 16
-    up to ``FMA32_MAX_F``) or ``"general"`` (``step_kernel``,
-    ``executor_step``: every other dtype and width)."""
+    ``executor_step_fma32``: float32 at the widths ``step_fma32_shape``
+    takes) or ``"general"`` (``step_kernel``, ``executor_step``: every
+    other dtype and width)."""
     if dtype == torch.bfloat16 and TX.tc_shape(H, F):
         return "tc"
-    if dtype == torch.float32 and TX.fma32_shape(H, F):
+    if dtype == torch.float32 and step_fma32_shape(H, F):
         return "fma32"
     return "general"
+
+
+#: the float32 step kernel's largest F (``csrc/mega_limits.cuh``)
+STEP32_MAX_F = TX._LIMITS["STEP32_MAX_F"]
+
+
+def step_fma32_shape(H, F) -> bool:
+    """True where ``executor_step_fma32_kernel`` takes the widths: H as
+    ``mega_exec.fma32_shape`` takes it (a multiple of ``G32_BN`` up to
+    ``FMA32_MAX_H``), F a multiple of 16 in [16, ``STEP32_MAX_F``] (64: one
+    row tile of ``gemm32`` a product, narrower than the executor
+    megakernel's "fma32" routes)."""
+    bn = TX._TILES["G32_BN"]
+    return (H % bn == 0 and bn <= H <= TX.FMA32_MAX_H and F % 16 == 0
+            and 16 <= F <= STEP32_MAX_F)
 
 
 #: the launch key of each route
@@ -280,7 +294,7 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
     route = step_route(dt, F, H)
     key = STEP_KEYS[route]
     if route != "general":
-        takes = (TX.tc_shape if route == "tc" else TX.fma32_shape)(H, F)
+        takes = (TX.tc_shape if route == "tc" else step_fma32_shape)(H, F)
         want = torch.bfloat16 if route == "tc" else torch.float32
         if dt != want or not takes:
             raise ValueError(f"{key}: the {route!r} route takes {want} at "

@@ -603,17 +603,18 @@ def tc_shape(H, F) -> bool:
 
 
 #: the float32 "fma32" route's limits (``csrc/mega_limits.cuh``)
-FMA32_MAX_H, FMA32_MAX_F = _LIMITS["FMA32_MAX_H"], _LIMITS["FMA32_MAX_F"]
+FMA32_MAX_H, FMA32_MIN_F, FMA32_MAX_F = (
+    _LIMITS["FMA32_MAX_H"], _LIMITS["FMA32_MIN_F"], _LIMITS["FMA32_MAX_F"])
 
 
 def fma32_shape(H, F) -> bool:
     """True where the executor's float32 "fma32" kernels take the widths:
     H a multiple of ``gemm32``'s column tile ``G32_BN`` (128) in [G32_BN,
-    FMA32_MAX_H], F a multiple of 16 in [16, FMA32_MAX_F] (one row tile of
-    ``gemm32``)."""
+    FMA32_MAX_H], any F in [FMA32_MIN_F, FMA32_MAX_F] (16 to 256: ``gemm32``
+    walks the frames in row tiles of ``G32_BM``, the last one ragged)."""
     bn = _TILES["G32_BN"]
-    return (H % bn == 0 and bn <= H <= FMA32_MAX_H and F % 16 == 0
-            and 16 <= F <= FMA32_MAX_F)
+    return (H % bn == 0 and bn <= H <= FMA32_MAX_H
+            and FMA32_MIN_F <= F <= FMA32_MAX_F)
 
 
 def fwd_route(dtype, H, F, drop) -> str:

@@ -73,15 +73,21 @@ def small_tables(H, F):
 
 
 def workspace_floats(Nv, Nf, Na, F, H, L, T, tc=False):
-    """Per-example float32 workspace of the walk (mega_grad.cu ``Ws``). The
-    tensor-core route adds the float32 dY rows of its five record slots
-    and lays its ten ``[F, H]``, two ``[F, F]`` and two ``[H]`` slots out at
-    ``TC_MAX_F`` and ``TC_MAX_H``."""
-    rest = Nv * H + Na * F + Nf * F * H + L * H + T * H
+    """Per-example float32 workspace of the walk (mega_grad.cu ``Ws``, its
+    ``[F]``- and ``[F, F]``-sized slots padded to 4 floats so that every
+    slot starts on 16 bytes). The tensor-core route adds the float32 dY
+    rows of its five record slots and lays its ten ``[F, H]``, two ``[F,
+    F]`` and two ``[H]`` slots out at ``TC_MAX_F`` and ``TC_MAX_H``
+    (``mega_grad_tc.cu``, unpadded: F is a multiple of 16 there)."""
+    rest = Nv * H + Nf * F * H + L * H + T * H
     if tc:
         F_, H_ = TX.TC_MAX_F, TX.TC_MAX_H
-        return 10 * F_ * H_ + 2 * F_ * F_ + 2 * H_ + rest
-    return rest + 7 * F * H + 2 * F * F
+        return 10 * F_ * H_ + 2 * F_ * F_ + 2 * H_ + Na * F + rest
+    return rest + _pad4(Na * F) + 7 * F * H + 2 * _pad4(F * F)
+
+
+def _pad4(n):
+    return (n + 3) & ~3
 
 
 def bwd_route(dtype, H, F) -> str:
@@ -212,7 +218,8 @@ def f32_product_check(A, W, nk=False, bn=None, reps=1):
     """The card check of the "fma32" route's product helper: runs
     ``stair::mega::gemm`` (the general route's) in one block and ``gemm32``
     (column tile ``bn``: 64, 128 or 256; default ``G32_BN``) in another,
-    ``reps`` times each, on A float32 ``[M, K]`` (M <= 64) and W float32
+    ``reps`` times each, on A float32 ``[M, K]`` (M <= ``MAX_F``: past 64
+    rows, ``gemm32``'s row tiles, the last one ragged) and W float32
     ``[K, N]`` (B as stored) or, with ``nk``, ``[N, K]`` (B = W^T, the
     walk's gradient products). Returns gemm's and gemm32's ``[M, N]`` sums,
     which must be equal bit for bit, and each block's ``clock64()`` span

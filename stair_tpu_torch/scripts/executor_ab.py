@@ -38,6 +38,15 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   route the checkout picks, on a float32 model's inputs, and
   ``walk_f32_ms`` / ``wgrad_f32_ms``: its walk's and weight gradients'
   device time (``torch.profiler``).
+- ``f150_digest``: the same hash of #5's files and #6's outputs in float32
+  at the NMN CLIs' default F 150 (B 32, H 512, video 2048, dropout 0.25,
+  a float32 model from seed 0), each on the route the checkout picks (the
+  "fma32" route where the checkout takes F 150 there, else the general
+  route: the two give equal bits, so the digest stays), with
+  ``f150_train_ms`` and ``f150_bwd_ms`` (#5 and #6 on that route) and, where
+  the checkout has the routes, ``f150_general_digest``,
+  ``f150_train_general_ms`` and ``f150_bwd_general_ms`` on the general
+  route;
 - ``step_ms``: #10, the ``T`` (13) ``fused_step`` launches of a serving
   batch of 1024 on ``executor="step"`` on the route the checkout picks,
   ``step_general_ms`` on the general route where the checkout has
@@ -157,6 +166,39 @@ def train_inputs(cfg, batch, dtype, dev, seed):
     cots = [torch.randn(o.shape, generator=gen).to(dev, o.dtype)
             for o in outs]
     return meta, args, outs, cots
+
+
+def f150_rows(inputs, rate, seed):
+    """``f150_digest`` and its times, and their general-route twins (see
+    the module docstring), on ``train_inputs``' float32 inputs at F 150."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    meta, args, _, cots = inputs
+
+    def train():
+        return TX.mega_exec_train_call(meta, args, rate, seed)
+
+    def both():
+        outs = train()
+        return (*outs, *TG.mega_exec_bwd_call(meta, args, outs, cots, rate,
+                                              seed))
+
+    outs = train()
+    row = {"f150_digest": digest(both()),
+           "f150_train_ms": cuda_time_ms(train, iters=3),
+           "f150_bwd_ms": cuda_time_ms(lambda: TG.mega_exec_bwd_call(
+               meta, args, outs, cots, rate, seed), iters=3)}
+    if hasattr(TX, "fwd_route"):
+        with forced(TX, "fwd_route", "general"):
+            outs = train()
+            row["f150_general_digest"] = digest(both())
+            row["f150_train_general_ms"] = cuda_time_ms(train, iters=3)
+            row["f150_bwd_general_ms"] = cuda_time_ms(
+                lambda: TG.mega_exec_bwd_call(meta, args, outs, cots, rate,
+                                              seed), iters=3)
+    return row
 
 
 def step_rows(dev):
@@ -383,6 +425,14 @@ def one(root, tag, phases):
     tmeta, targs, tout, cots = train_inputs(tcfg, batch, "bfloat16", dev,
                                             seed)
     f32 = train_inputs(tcfg, batch, "float32", dev, seed)
+    # #5 and #6 in float32 at the NMN CLIs' default F 150 (train/args.py)
+    wide = W.workload_config(hidden_size=512, video_size=2048, text_size=300,
+                             max_video_length=150)
+    fcfg = NMNConfig(**{**wide.to_dict(), "compute_dtype": "float32",
+                        "dropout": 0.25})
+    f150 = train_inputs(fcfg, W.to_device(W.add_fake_supervision(
+        W.make_batch(fcfg, batch_size=32, question_len=16), fcfg), dev),
+        "float32", dev, seed)
 
     def fwd():
         return TX.mega_exec_call(meta, args)
@@ -429,8 +479,9 @@ def one(root, tag, phases):
             *f32, tcfg.dropout, seed), ("mega_bwd", "mega_wgrad"), iters=3)
         row["walk_f32_ms"] = parts["mega_bwd"]
         row["wgrad_f32_ms"] = parts["mega_wgrad"]
+        row.update(f150_rows(f150, fcfg.dropout, seed))
         print(json.dumps(row), flush=True)
-    del args, args32, targs, tout, cots, model, f32
+    del args, args32, targs, tout, cots, model, f32, f150
     torch.cuda.empty_cache()
     for rnd in range(2):
         print(json.dumps({"tag": tag, "card": card, "round": rnd,

@@ -4,6 +4,7 @@ spent in each product helper, on each route; with ``--step``, the share of
 the float32 step kernel (#10) spent in each of its sections.
 
     python -m stair_tpu_torch.scripts.executor_clocks [--routes tc,general,fma32]
+        [--frames 64] [--batch 128]
     python -m stair_tpu_torch.scripts.executor_clocks --step [--routes general,fma32]
 
 Routes (``mega_exec.fwd_route`` / ``mega_grad.bwd_route`` forced to each):
@@ -29,7 +30,8 @@ place of the library's entry points and runs #5, then #6 (walk and weight
 gradients), five times each on the inputs of
 ``scripts/bench_train_step.py``'s configuration (B 128, H 512, F 64,
 dropout 0.25; weights from seed 0, the BiLSTM's plain version for the
-token rows). It prints each kernel's time a call (CUDA events,
+token rows), or at ``--frames`` and ``--batch`` (the NMN CLIs' defaults:
+``--frames 150 --batch 32``). It prints each kernel's time a call (CUDA events,
 instrumented), each section's share of the kernel's clocks summed over
 blocks (``rest``: what no section holds), and the device time of the
 walk's and the weight-gradient kernels apart (``torch.profiler``; the
@@ -399,20 +401,20 @@ def on_route(route):
         TX.fwd_route, TG.bwd_route = picks
 
 
-def train_inputs(dtype, dev):
-    """#5's and #6's inputs at the train step's shapes in ``dtype``: meta,
-    args, dropout rate, seed and the cotangents' generator."""
+def train_inputs(dtype, dev, frames=64, batch_size=128):
+    """#5's and #6's inputs at the train step's shapes (F ``frames``, B
+    ``batch_size``) in ``dtype``: meta, args and the dropout rate."""
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
     from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.testing import workload as W
 
     base = W.workload_config(hidden_size=512, video_size=1024,
-                             text_size=300, max_video_length=64)
+                             text_size=300, max_video_length=frames)
     cfg = NMNConfig(**{**base.to_dict(), "compute_dtype": dtype,
                        "dropout": 0.25})
-    batch = W.to_device(W.make_batch(cfg, batch_size=128, question_len=16),
-                        dev)
+    batch = W.to_device(W.make_batch(cfg, batch_size=batch_size,
+                                     question_len=16), dev)
     model = W.build_model(cfg, seed=0, device=dev)
     dt = model.compute_dtype
     p = tree_map(lambda x: x.detach(), model.param_tree())
@@ -429,9 +431,10 @@ def train_inputs(dtype, dev):
     return meta, args, cfg.dropout
 
 
-def clock_route(route, libs, dev, card, n=5):
-    """Run #5 and #6 on ``route`` with the patched library; print the
-    sections' shares and the walk's and weight gradients' device times."""
+def clock_route(route, libs, dev, card, frames=64, batch_size=128, n=5):
+    """Run #5 and #6 on ``route`` with the patched library at F ``frames``
+    and B ``batch_size``; print the sections' shares and the walk's and
+    weight gradients' device times."""
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.scripts.executor_ab import kernel_ms
@@ -447,7 +450,8 @@ def clock_route(route, libs, dev, card, n=5):
     for lib in libs.values():
         lib.stair_clk.argtypes = [P, I]
     _build._lib = types.SimpleNamespace(**fns)
-    meta, args, rate = train_inputs(dtype, dev)
+    meta, args, rate = train_inputs(dtype, dev, frames, batch_size)
+    shape = f"B {batch_size} F {frames}"
     seed = (11, 22)
     with on_route(route):
         out = TX.mega_exec_train_call(meta, args, rate, seed)
@@ -477,13 +481,13 @@ def clock_route(route, libs, dev, card, n=5):
             held = sum(buf[i] for i in SECTIONS)
             shares = ", ".join(f"{name} {buf[i] / total:.3f}"
                                for i, name in SECTIONS.items() if buf[i])
-            print(f"[clocks] {route} route, {dtype}: {label}: "
+            print(f"[clocks] {route} route, {dtype}, {shape}: {label}: "
                   f"{ev0.elapsed_time(ev1) / n:.3f} ms a call (CUDA events, "
                   f"instrumented); share of the kernel's clocks: {shares}, "
                   f"rest {1 - held / total:.3f}; card {card}", flush=True)
         parts = kernel_ms(runs[1][2], ("mega_bwd", "mega_wgrad"), iters=n)
-        print(f"[clocks] {route} route, {dtype}: #6 device time a call "
-              f"(torch.profiler, walk instrumented): walk "
+        print(f"[clocks] {route} route, {dtype}, {shape}: #6 device time a "
+              f"call (torch.profiler, walk instrumented): walk "
               f"{parts['mega_bwd']:.3f} ms, weight gradients "
               f"{parts['mega_wgrad']:.3f} ms; card {card}", flush=True)
     del out, cots, args
@@ -499,6 +503,10 @@ def main():
                     "fma32)" % ", ".join(ROUTES))
     ap.add_argument("--step", action="store_true",
                     help="the float32 step kernel (#10) by section")
+    ap.add_argument("--frames", type=int, default=64,
+                    help="F of #5 and #6 (150: the NMN CLIs' default)")
+    ap.add_argument("--batch", type=int, default=128,
+                    help="B of #5 and #6 (32: the NMN CLIs' default)")
     opts = ap.parse_args()
     routes = (opts.routes or ("general,fma32" if opts.step
                               else ",".join(ROUTES))).split(",")
@@ -516,7 +524,8 @@ def main():
     exact_f32()
     card = card_identity().splitlines()[0]
     for route in routes:
-        clock_route(route, {n: libs[n] for n in ROUTES[route][1]}, dev, card)
+        clock_route(route, {n: libs[n] for n in ROUTES[route][1]}, dev, card,
+                    opts.frames, opts.batch)
 
 
 if __name__ == "__main__":

@@ -59,15 +59,21 @@ def write_agqa_world(root, synthetic=None, preprocess=None, scene_graph=None,
     return paths
 
 
-def trainer_argv(w, output, *extra, hidden=32, video=64, frames=24,
-                 batch=16):
-    """The trainer / evaluate CLI words (the JAX CLIs' flags) for a world
-    from ``write_agqa_world``, writing under ``output``."""
+def data_argv(w, output, *extra):
+    """The trainer / evaluate CLI words that name a world from
+    ``write_agqa_world`` and the output directory, and nothing else: with
+    them alone the CLIs run at their own defaults (``train/args.py``)."""
     return ["--rgb-path", w["features"], "--glove-filename", w["glove"],
             "--train-filename", w["train"], "--valid-filename", w["valid"],
             "--test-filename", w["test"], "--video-secs-path",
             w["video_secs"], "--word2id-filename", w["word2id"],
-            "--vocab-filename", w["vocab"], "--output", str(output),
-            "--video-size", str(video), "--hidden-size", str(hidden),
-            "--max-video-length", str(frames), "--batch-size", str(batch),
-            *extra]
+            "--vocab-filename", w["vocab"], "--output", str(output), *extra]
+
+
+def trainer_argv(w, output, *extra, hidden=32, video=64, frames=24,
+                 batch=16):
+    """The trainer / evaluate CLI words (the JAX CLIs' flags) for a world
+    from ``write_agqa_world``, writing under ``output``."""
+    return data_argv(w, output, "--video-size", str(video), "--hidden-size",
+                     str(hidden), "--max-video-length", str(frames),
+                     "--batch-size", str(batch), *extra)

@@ -185,6 +185,8 @@ STEP_ROUTE_CASES = [
     (torch.bfloat16, 64, 96, "general"), (torch.bfloat16, 80, 512, "general"),
     (torch.bfloat16, 64, 576, "general"), (torch.bfloat16, 8, 64, "general"),
     (torch.bfloat16, 16, 32, "general"), (torch.float16, 64, 512, "general"),
+    (torch.float32, 150, 512, "general"), (torch.float32, 72, 512, "general"),
+    (torch.float32, 256, 128, "general"), (torch.bfloat16, 150, 512, "general"),
 ]
 
 
@@ -193,13 +195,17 @@ STEP_ROUTE_CASES = [
     ids=[f"{str(d)[6:]}-F{f}-H{h}" for d, f, h, _ in STEP_ROUTE_CASES])
 def test_step_route_choice(dtype, F, H, route):
     """bf16 at the widths the megakernel's tensor-core route takes goes to
-    the tensor-core step kernel, float32 at the widths its "fma32" route
-    takes to the float32 one, everything else to the general one."""
+    the tensor-core step kernel, float32 at the widths of the step kernel's
+    own predicate ``step_fma32_shape`` (F a multiple of 16 up to 64, where
+    the megakernel's "fma32" route takes any F up to 256) to the float32
+    one, everything else to the general one."""
     from stair_tpu_torch.ops import mega_exec as TX
 
     assert TE.step_route(dtype, F, H) == route
     assert (route == "fma32") == (dtype == torch.float32
-                                  and TX.fma32_shape(H, F))
+                                  and TE.step_fma32_shape(H, F))
+    if TE.step_fma32_shape(H, F):
+        assert TX.fma32_shape(H, F) and F <= TE.STEP32_MAX_F == 64
 
 
 def _source_expr(signature):
@@ -476,13 +482,15 @@ def test_fused_step_fma32_vs_general_and_plain_on_card(cuda_device, F, H):
 @pytest.mark.cuda
 def test_fused_step_fma32_refuses_what_it_does_not_take_on_card(
         cuda_device):
-    """A forced "fma32" on bf16 inputs or at a width ``fma32_shape``
-    refuses, and float32 rows that are not 16-byte aligned on the route
+    """A forced "fma32" on bf16 inputs or at a width ``step_fma32_shape``
+    refuses (F 72: the megakernel's "fma32" width, not the step kernel's),
+    and float32 rows that are not 16-byte aligned on the route
     ``step_route`` picks, raise before any launch: no fallback to another
     route."""
     from stair_tpu_torch.ops import _build
 
-    for dtype, F, H in (("bfloat16", 16, 128), ("float32", 16, 64)):
+    for dtype, F, H in (("bfloat16", 16, 128), ("float32", 16, 64),
+                        ("float32", 72, 128)):
         args = step_inputs(dtype, F=F, H=H, device=cuda_device)
         pick = TE.step_route
         TE.step_route = lambda *a: "fma32"

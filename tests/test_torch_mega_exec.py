@@ -112,6 +112,37 @@ def test_mega_exec_reference_vs_jax_megakernel_interpret():
 
 
 @needs_jax
+def test_mega_exec_reference_vs_jax_megakernel_interpret_at_150_frames():
+    """As above at the NMN CLIs' default F 150 (three row tiles of 64 on the
+    "fma32" route, the last one ragged), softmax Filter, every program."""
+    cfg, model, params = _build(max_video_length=150,
+                                filter_attention="softmax")
+    batch, _ = _batch(cfg, PROGRAMS, seed=7)
+    vf_a, vf_b, tok_a, tok_b = _prepared_inputs(cfg, params, batch)
+    mods = params["modules"]
+    rv, rf, ra = JX.mega_exec(
+        cfg, mods, model._fused_tables(mods),
+        {k: jnp.asarray(v) for k, v in batch["trace"].items()},
+        (jnp.asarray(vf_a), jnp.asarray(vf_b)),
+        jnp.asarray(batch["video_mask"]),
+        (jnp.asarray(tok_a), jnp.asarray(tok_b)),
+        jnp.asarray(batch["question_mask"]), interpret=True)
+    pm = port_model(cfg, params)
+    tmods = pm.param_tree()["modules"]
+    out = TX.mega_exec(
+        pm.config, tmods, pm._fused_tables(tmods),
+        {k: torch.from_numpy(v) for k, v in batch["trace"].items()},
+        (torch.from_numpy(vf_a), torch.from_numpy(vf_b)),
+        torch.from_numpy(batch["video_mask"]),
+        (torch.from_numpy(tok_a), torch.from_numpy(tok_b)),
+        torch.from_numpy(batch["question_mask"]))
+    assert out[1].shape[2] == 150
+    for j, t in zip((rv, rf, ra), out):
+        np.testing.assert_allclose(np.asarray(j), t.detach().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@needs_jax
 def test_prepare_args_matches_jax():
     """Scalar pack (with the e1 expert code) and temporal bands agree."""
     for F in (16, 48):
@@ -207,8 +238,8 @@ def test_mega_exec_kernel_vs_plain_on_card(cuda_device, dtype, F, fsoft):
 # takes bf16, eval and training (drop) alike, at H a multiple of 64 in [64,
 # 512] and F a multiple of 16 in [16, 64] (the main paths' H 512, F 64);
 # the "fma32" kernel takes float32 at H a multiple of 128 in [128, 512] and
-# F a multiple of 16 in [16, 64]; every other width takes the general
-# kernel.
+# any F in [16, 256] (the NMN CLIs' default F 150 too); every other width
+# takes the general kernel.
 FWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 64, False, "tc"),
     (torch.bfloat16, 512, 64, True, "tc"),
@@ -222,7 +253,17 @@ FWD_ROUTE_CASES = [
     (torch.float32, 64, 16, True, "general"),
     (torch.float32, 1024, 64, False, "general"),
     (torch.float32, 512, 8, False, "general"),
-    (torch.float32, 512, 100, False, "general"),
+    (torch.float32, 512, 100, False, "fma32"),
+    (torch.float32, 512, 150, False, "fma32"),
+    (torch.float32, 512, 150, True, "fma32"),
+    (torch.float32, 512, 256, False, "fma32"),
+    (torch.float32, 512, 256, True, "fma32"),
+    (torch.float32, 128, 17, True, "fma32"),
+    (torch.float32, 512, 257, False, "general"),
+    (torch.float32, 512, 257, True, "general"),
+    (torch.float32, 512, 8, True, "general"),
+    (torch.bfloat16, 512, 150, False, "general"),
+    (torch.bfloat16, 512, 150, True, "general"),
     (torch.bfloat16, 64, 16, False, "tc"),
     (torch.bfloat16, 192, 48, False, "tc"),
     (torch.bfloat16, 32, 16, False, "general"),
@@ -284,7 +325,11 @@ def test_mega_exec_fma32_shared_memory_fits():
     general kernel's static vectors without gemm's tiles, and gemm32's ring
     in dynamic shared memory) fits 227 KB, and twice in an SM's 228 KB (1 KB
     reserved a block), as the general route runs two blocks an SM; the
-    source's plan, the same at every width, reads 108,136 bytes."""
+    source's plan, the same at every width (its frame vectors hold MAX_F,
+    the route's largest F, 256), reads 108,136 bytes."""
+    assert TX.FMA32_MAX_F == TX.MAX_F == 256
+    assert TX.fwd_route(torch.float32, TX.FMA32_MAX_H, TX.FMA32_MAX_F,
+                        True) == "fma32"
     assert TX.fma32_smem_bytes() <= TX.SMEM_MAX
     assert 2 * (TX.fma32_smem_bytes() + 1024) <= 233472
     assert TX.fma32_smem_bytes() == 108136
@@ -317,7 +362,8 @@ def test_mega_exec_fma32_launch_shares_the_shared_memory_plan():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F,fsoft", [(16, False), (16, True), (64, False),
-                                     (64, True)])
+                                     (64, True), (72, False), (150, False),
+                                     (150, True), (256, True)])
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 def test_mega_exec_fma32_equals_general_on_card(cuda_device, monkeypatch,
                                                 F, fsoft, rate):

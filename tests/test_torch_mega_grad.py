@@ -125,7 +125,8 @@ def _train_parity(F, attention, programs, rate, seed_data=1):
 
 
 @needs_jax
-@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax")])
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax"),
+                                         (150, "softmax")])
 def test_mega_exec_train_matches_jax_at_dropout(F, attention):
     _train_parity(F, attention, PROGRAMS, rate=0.25)
 
@@ -152,7 +153,8 @@ def test_abs_slope_and_min_ties_follow_jax():
 
 
 @needs_jax
-@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax")])
+@pytest.mark.parametrize("F,attention", [(16, "parity"), (48, "softmax"),
+                                         (150, "parity")])
 def test_mega_bwd_reference_at_files_matches_jax_kernel(F, attention):
     """The JAX backward kernel #6 (``backward_call``, interpreted) reads
     every register value from the files it is handed. Handed files that
@@ -364,8 +366,8 @@ def test_mega_train_kernels_vs_plain_on_card(cuda_device, dtype, F,
 # weight-gradient kernels take bf16 at the widths mega_exec.tc_shape takes
 # (H a multiple of 64 in [64, 512], F a multiple of 16 in [16, 64]); the
 # "fma32" kernels take float32 at the widths mega_exec.fma32_shape takes (H
-# a multiple of 128 in [128, 512], F a multiple of 16 in [16, 64]); every
-# other width takes the general kernels.
+# a multiple of 128 in [128, 512], any F in [16, 256]); every other width
+# takes the general kernels.
 BWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 64, "tc"), (torch.float32, 512, 64, "fma32"),
     (torch.bfloat16, 64, 16, "tc"), (torch.bfloat16, 192, 48, "tc"),
@@ -374,8 +376,10 @@ BWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 80, "general"), (torch.float32, 64, 16, "general"),
     (torch.float32, 128, 16, "fma32"), (torch.float32, 256, 48, "fma32"),
     (torch.float32, 96, 16, "general"), (torch.float32, 1024, 64, "general"),
-    (torch.float32, 512, 8, "general"), (torch.float32, 512, 100, "general"),
-    (torch.float32, 320, 64, "general"),
+    (torch.float32, 512, 8, "general"), (torch.float32, 512, 100, "fma32"),
+    (torch.float32, 320, 64, "general"), (torch.float32, 512, 150, "fma32"),
+    (torch.float32, 512, 256, "fma32"), (torch.float32, 512, 257, "general"),
+    (torch.float32, 256, 72, "fma32"), (torch.bfloat16, 512, 150, "general"),
 ]
 
 
@@ -427,19 +431,23 @@ def test_mega_bwd_fma32_shared_memory_fits():
     and gemm's tiles, which the m1 products keep using), 16 bytes of room
     to align gemm32's ring, and the ring at the walk's column tile (three
     stages of the A tile and of B transposed, the larger layout); it fits one block's 227 KB at every
-    width the route takes (the source's static_assert at the largest), and
-    the launch sizes it with the function ``bwd_smem_bytes`` mirrors."""
+    width the route takes, every F from 16 to the largest, 256 (the
+    source's static_assert at the largest), and the launch sizes it with
+    the function ``bwd_smem_bytes`` mirrors."""
     t = TX._TILES
     ring = 4 * t["G32_STAGES"] * (t["G32_BM"] + t["G32_WALK_BN"]) * (
         t["G32_BK"] + t["G32_PAD"])
     assert ring == 55296
+    assert (TX.FMA32_MIN_F, TX.FMA32_MAX_F) == (16, 256) == (16, TX.MAX_F)
     for H in range(128, TX.FMA32_MAX_H + 1, 128):
-        for F in range(16, TX.FMA32_MAX_F + 1, 16):
+        for F in range(TX.FMA32_MIN_F, TX.FMA32_MAX_F + 1):
             assert TX.fma32_shape(H, F)
             got = TG.bwd_smem_bytes(F, H, "fma32")
             assert got == TG.bwd_smem_bytes(F, H, "general") + 16 + ring
             assert got <= TX.SMEM_MAX, (F, H)
     assert TG.bwd_smem_bytes(64, 512, "fma32") == 92528
+    assert TG.bwd_smem_bytes(150, 512, "fma32") == 98376
+    assert TG.bwd_smem_bytes(256, 512, "fma32") == 105584
     with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
                            "mega_grad.cu")) as f:
         src = f.read()
@@ -469,6 +477,27 @@ def test_mega_wgrad_slots_and_rows_room_follow_the_source():
     assert table("TB_K") == tuple(K for _, _, _, K in TG.TABLES)
     assert TG.wgrad_rows_room(128, 13, 64) == 128 * 13 * (26 * 64 + 10)
     assert TG.wgrad_rows_room(2, 3, 16) == 6 * (26 * 16 + 10)
+
+
+def test_mega_bwd_workspace_slots_start_on_16_bytes():
+    """The general and "fma32" walks' workspace pads its ``[Na, F]`` and two
+    ``[F, F]`` slots to 4 floats, so that every ``[F, H]`` slot, which the
+    "fma32" walk reads with cp.async, and every example's workspace start
+    on 16 bytes at any F the route takes (F 150: the NMN CLIs' default);
+    at F a multiple of 4 the layout is the unpadded one."""
+    for F in range(TX.FMA32_MIN_F, TX.FMA32_MAX_F + 1):
+        for Na in (1, 3, 8, 11):
+            n = TG.workspace_floats(10, 6, Na, F, 512, 16, 13)
+            assert n % 4 == 0, (F, Na)
+            if F % 4 == 0:
+                assert n == (10 * 512 + Na * F + 6 * F * 512 + 16 * 512
+                             + 13 * 512 + 7 * F * 512 + 2 * F * F)
+    src = open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                            "mega_grad.cu")).read()
+    ws = src[src.index("struct WsT {"):]
+    ws = ws[:ws.index("};")]
+    assert "gra = o; o += pad4((long)Na * F);" in ws
+    assert ws.count("o += pad4((long)F * F);") == 2
 
 
 def test_mega_bwd_tc_workspace_adds_the_dy_rows():
@@ -641,16 +670,24 @@ def test_recompute_products_equal_forward_on_card(cuda_device, M, K, N,
             == TG.bwd_smem_bytes(M, K, "tc"))
 
 
+#: gemm32's card check: the walk's product shapes, and M past one row tile
+#: of 64 (the NMN CLIs' default F 150, and 72 and 256, the last row tile
+#: ragged at 72 and 150)
+F32_PRODUCT_SHAPES = RECOMPUTE_SHAPES + [(72, 512, 512), (150, 512, 512),
+                                         (256, 512, 512), (150, 512, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bn", [64, 128, 256])
 @pytest.mark.parametrize("nk", [False, True])
-@pytest.mark.parametrize("M,K,N", RECOMPUTE_SHAPES)
+@pytest.mark.parametrize("M,K,N", F32_PRODUCT_SHAPES)
 def test_f32_product_check_equal_bits_on_card(cuda_device, M, K, N, nk, bn):
     """``gemm32`` (the "fma32" route's product helper, at each column tile
     timed) gives ``stair::mega::gemm``'s bits on the same float32 operands
     in both B layouts (W as stored, and W^T as the walk's gradient products
     read it), at the walk's product shapes, including ragged 128-column
-    tiles at H 192 and an N of 64; both within 1e-5 of the float64 product.
+    tiles at H 192, an N of 64 and M over several row tiles of 64 with a
+    ragged last one; both within 1e-5 of the float64 product.
     Each block reports a positive ``clock64()`` span. The walk's shared
     memory on both float32 routes is what ``bwd_smem_bytes`` says."""
     gen = torch.Generator().manual_seed(M + K + N + nk)
@@ -672,7 +709,9 @@ def test_f32_product_check_equal_bits_on_card(cuda_device, M, K, N, nk, bn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F,attention", [(16, "parity"), (16, "softmax"),
-                                         (64, "parity"), (64, "softmax")])
+                                         (64, "parity"), (64, "softmax"),
+                                         (72, "parity"), (150, "parity"),
+                                         (150, "softmax"), (256, "softmax")])
 def test_mega_bwd_fma32_equals_general_on_card(cuda_device, monkeypatch, F,
                                                attention):
     """The float32 "fma32" backward (the walk on ``gemm32`` and the
