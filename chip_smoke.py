@@ -644,6 +644,30 @@ def general_mega():
         TX.fwd_route, TG.bwd_route = picks
 
 
+@contextlib.contextmanager
+def one_cta():
+    """Launch the executor's "fma32" kernels (#4, #5, #6's walk) one CTA an
+    example, whatever cluster size their launches would pick
+    (``mega_exec.fma32_cluster``): the wrappers' ``cluster`` argument,
+    forced to 1 on every call that does not give it."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+
+    fwd, bwd = TX._launch, TG._launch_bwd
+
+    def fwd1(key, meta, args, drop, cluster=None):
+        return fwd(key, meta, args, drop, cluster or 1)
+
+    def bwd1(meta, args, outs, gouts, drop, cluster=None):
+        return bwd(meta, args, outs, gouts, drop, cluster or 1)
+
+    TX._launch, TG._launch_bwd = fwd1, bwd1
+    try:
+        yield
+    finally:
+        TX._launch, TG._launch_bwd = fwd, bwd
+
+
 #: the bf16 executor's routes: name, eval launch key, context
 MEGA_ROUTES = (("tc", "mega_exec_tc", contextlib.nullcontext),
                ("general", "mega_exec", general_mega))
@@ -1241,9 +1265,16 @@ def time_f32_mega(meta, args, gouts, rate, seed, shape):
                 "walk_ms": cuda_time_ms(walk, iters=3),
                 "wgrad_ms": cuda_time_ms(wgrad, iters=3)}
         res[route] = r
-        f32_record("#5", shape, route, r["fwd_ms"], *ref["fwd"])
+        # the "fma32" launches' cluster sizes (mega_exec.fma32_cluster)
+        more = {} if route != "fma32" else {
+            "cluster": TX.fma32_launch_cluster(meta[0], meta[6]),
+            "walk_cluster": TX.fma32_launch_cluster(meta[0], meta[6],
+                                                    meta[5])}
+        f32_record("#5", shape, route, r["fwd_ms"], *ref["fwd"],
+                   **{k: v for k, v in more.items() if k == "cluster"})
         f32_record("#6", shape, route, r["bwd_ms"], *ref["bwd"],
-                   walk_ms=r["walk_ms"], wgrad_ms=r["wgrad_ms"])
+                   walk_ms=r["walk_ms"], wgrad_ms=r["wgrad_ms"],
+                   **{k: v for k, v in more.items() if k == "walk_cluster"})
     return res, ref
 
 
@@ -1526,11 +1557,14 @@ def executor_inputs(model, batch, train):
 def hold_f32_executor(dev, model, batch, rate, seed=(11, 22)):
     """#4 on ``batch``'s eval inputs, #5 and #6 on its training inputs
     (``executor_inputs``), on the "fma32" route (one launch of each of its
-    keys) against the general route forced (equal bits: the three files,
+    keys, #4, #5 and #6's walk each on the cluster size its launch picks,
+    ``mega_exec.fma32_launch_cluster``) against the same kernels one CTA an
+    example and the general route forced (equal bits: the three files,
     every data cotangent and weight gradient) and the plain versions
     (phase 8's float32 bounds: files within 1e-4, #6 within 5e-2 of each
-    gradient's largest value). Returns the errors and what the timings
-    reuse."""
+    gradient's largest value). Returns the errors, the cluster sizes and
+    what the timings reuse."""
+    from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
 
@@ -1538,9 +1572,14 @@ def hold_f32_executor(dev, model, batch, rate, seed=(11, 22)):
            "train": executor_inputs(model, batch, train=True)}
     meta4, a4 = ins["eval"]
     meta5, a5 = ins["train"]
+    B, F, H = meta4[0], meta4[5], meta4[6]
+    clusters = {"#4": TX.fma32_launch_cluster(B, H),
+                "#5": TX.fma32_launch_cluster(B, H),
+                "#6": TX.fma32_launch_cluster(B, H, F)}
     with kernel_route(("mega_exec_fma32",)) as l4:
         k4 = TX.mega_exec_call(meta4, a4)
     require_launches("float32 #4", l4, {"mega_exec_fma32": 1})
+    seen = {"#4": dict(_build.CLUSTERS["mega_exec_fma32"])}
     keys = ("mega_exec_train_fma32", "mega_exec_bwd_fma32",
             "mega_exec_wgrad_fma32")
     gen = torch.Generator().manual_seed(6)
@@ -1549,14 +1588,26 @@ def hold_f32_executor(dev, model, batch, rate, seed=(11, 22)):
         gouts = [torch.randn(o.shape, generator=gen).to(dev) for o in k5]
         k6 = TG.mega_exec_bwd_call(meta5, a5, k5, gouts, rate, seed)
     require_launches("float32 #5 + #6", l56, dict.fromkeys(keys, 1))
+    seen["#5"] = dict(_build.CLUSTERS["mega_exec_train_fma32"])
+    seen["#6"] = dict(_build.CLUSTERS["mega_exec_bwd_fma32"])
+    require(seen == {k: {c: 1} for k, c in clusters.items()},
+            f"float32 #4-#6 B {B} H {H} F {F}: cluster launches {seen}, "
+            f"the launches' picks {clusters}")
+    with one_cta():
+        o4 = TX.mega_exec_call(meta4, a4)
+        o5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
+        o6 = TG.mega_exec_bwd_call(meta5, a5, o5, gouts, rate, seed)
     with general_mega(), kernel_route(("mega_exec", "mega_exec_train",
                                        "mega_exec_bwd", "mega_exec_wgrad")):
         g4 = TX.mega_exec_call(meta4, a4)
         g5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
         g6 = TG.mega_exec_bwd_call(meta5, a5, g5, gouts, rate, seed)
     torch.cuda.synchronize()
-    for what, k, g in (("#4 files", k4, g4), ("#5 files", k5, g5),
-                       ("#6 gradients", k6, g6)):
+    for what, k, o, g in (("#4 files", k4, o4, g4), ("#5 files", k5, o5, g5),
+                          ("#6 gradients", k6, o6, g6)):
+        require(all(torch.equal(a, b) for a, b in zip(k, o)),
+                f"float32 {what}: the fma32 route on its cluster "
+                f"{clusters} differs from one CTA an example")
         require(all(torch.equal(a, b) for a, b in zip(k, g)),
                 f"float32 {what}: the fma32 route differs from the "
                 "general route")
@@ -1572,7 +1623,7 @@ def hold_f32_executor(dev, model, batch, rate, seed=(11, 22)):
     require(rel6 <= 5e-2, f"float32 #6 vs plain: rel err {rel6}")
     return dict(e4=max_err(k4, r4), e5=max_err(k5, r5), e6=max_err(k6, r6),
                 rel6=rel6, ins=ins, gouts=gouts, seed=seed, rate=rate,
-                outs={"#4": k4, "#5": k5, "#6": k6})
+                outs={"#4": k4, "#5": k5, "#6": k6}, clusters=clusters)
 
 
 def time_f32_step(dev, card, model32, batch, args):
@@ -1646,7 +1697,7 @@ def time_f32_step(dev, card, model32, batch, args):
                tensor_bytes(margs, h["outs"]["#4"]), torch.float32)
     f32_record("#4", f"eval forward B {TRAIN_BATCH} H {cfg.hidden_size} F "
                f"{cfg.max_video_length}", "fma32", ms4, p4, b4,
-               general_ms=ms4g)
+               cluster=h["clusters"]["#4"], general_ms=ms4g)
     log(f"[train] float32 executor on the step's inputs: #4 max_abs_err "
         f"{e4:.3e}, #5 {e5:.3e} (atol 1e-4), #6 max rel err {r6:.3e} "
         f"(max_abs_err {e6:.3e}; bound 5e-2) against the plain versions; "
@@ -5192,9 +5243,10 @@ DEFAULT_EPOCHS = 3
 CLI_EVAL_LAUNCHES_F32 = {"bilstm_f32c": 3, "mega_exec_fma32": 1}
 #: epochs of the CLI's own batches that time its inner loop, a route each
 DEFAULT_TIMED_EPOCHS = 2
-#: the batches at which #4-#6 and the train step are timed: the CLI's, and
-#: phase 8's
-DEFAULT_TIMED_BATCHES = (32, TRAIN_BATCH)
+#: the batches at which #4-#6 and the train step are timed: the CLI's
+#: (clusters of 4 CTAs an example on an H100), 64 (clusters of 2) and
+#: phase 8's (one CTA an example)
+DEFAULT_TIMED_BATCHES = (32, 64, TRAIN_BATCH)
 #: what phase 22 requires of the trained model's config and the batch: the
 #: defaults of ``train/args.py`` and ``models/nmn.py``
 CLI_DEFAULTS = dict(hidden_size=512, max_video_length=150, batch_size=32,
@@ -5233,6 +5285,7 @@ def run_default_clis(dev, root):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = dict(_build.LAUNCHES)
+    train_clusters = {k: dict(v) for k, v in _build.CLUSTERS.items()}
     with open(f"{out}/metrics.jsonl") as f:
         recs = [json.loads(x) for x in f]
     cfg = ckpt.load_config(f"{out}/best_model")
@@ -5246,21 +5299,32 @@ def run_default_clis(dev, root):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_launches = dict(_build.LAUNCHES)
+    eval_clusters = {k: dict(v) for k, v in _build.CLUSTERS.items()}
     return dict(world=w, out=out, argv=argv, args=loop.parse_cli(argv),
                 n_train=n_train, n_valid=n_valid, steps=steps,
                 eval_batches=eval_batches, best=best, acc=acc, cfg=cfg,
                 best_state=best_state, recs=recs,
                 train_launches=train_launches, eval_launches=eval_launches,
+                train_clusters=train_clusters, eval_clusters=eval_clusters,
                 world_s=world_s, train_s=train_s, eval_s=eval_s)
+
+
+#: phase 22's timed routes of #4-#6: key prefix of the record (ms,
+#: walk_ms, wgrad_ms), context, cluster argument of the walk's launch
+DEFAULT_ROUTES = (("", contextlib.nullcontext, None),
+                  ("one_cta_", one_cta, 1),
+                  ("general_", general_mega, None))
 
 
 def time_default_kernels(held, label):
     """#4, #5 and #6 on ``hold_f32_executor``' inputs by CUDA-graph
-    replay on the "fma32" route and the general route forced (#6 also its
-    walk and weight-gradient launches apart), beside the plain versions
-    (CUDA events) and their bounds (the flop counter's operations on the
-    plain version at these inputs, 67 TFLOP/s; each argument read and each
-    output written once). Returns ``{kernel: record}``."""
+    replay on the "fma32" route (each on the cluster its launch picks,
+    ``held["clusters"]``), on the same kernels one CTA an example and on
+    the general route forced (#6 also its walk and weight-gradient launches
+    apart), beside the plain versions (CUDA events) and their bounds (the
+    flop counter's operations on the plain version at these inputs, 67
+    TFLOP/s; each argument read and each output written once). Returns
+    ``{kernel: record}``."""
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.utils.device import cuda_time_ms
@@ -5291,27 +5355,25 @@ def time_default_kernels(held, label):
         "#6": {"plain_ms": cuda_time_ms(plain6, iters=1, warmup=1),
                **bound(counted_flops(plain6),
                        tensor_bytes(a5, out["#5"], gouts, out["#6"]), f32)}}
-    for route, _, ctx in F32_ROUTES:
+    for pre, ctx, cluster in DEFAULT_ROUTES:
         with ctx():
             o = TX.mega_exec_train_call(meta5, a5, rate, seed)
-            walk, wgrad, _ = TG.bwd_launches(meta5, a5, o, gouts,
-                                             TX.dropout_params(rate, seed))
+            walk, wgrad, _ = TG.bwd_launches(
+                meta5, a5, o, gouts, TX.dropout_params(rate, seed), cluster)
             times = {
                 "#4": graph_ms(lambda: TX.mega_exec_call(meta4, a4), 5),
                 "#5": graph_ms(lambda: TX.mega_exec_train_call(
                     meta5, a5, rate, seed), 5),
                 "#6": graph_ms(lambda: (walk(), wgrad()), 5),
                 "walk": graph_ms(walk, 5), "wgrad": graph_ms(wgrad, 5)}
-        key = "ms" if route == "fma32" else "general_ms"
         for k in ("#4", "#5", "#6"):
-            rec[k][key] = times[k]
-        rec["#6"]["walk_ms" if route == "fma32" else "general_walk_ms"] = \
-            times["walk"]
-        rec["#6"]["wgrad_ms" if route == "fma32" else "general_wgrad_ms"] = \
-            times["wgrad"]
+            rec[k][f"{pre}ms"] = times[k]
+        rec["#6"][f"{pre}walk_ms"] = times["walk"]
+        rec["#6"][f"{pre}wgrad_ms"] = times["wgrad"]
     for k, r in rec.items():
         f32_record(k, label, "fma32", r["ms"], r["plain_ms"],
                    {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"]},
+                   cluster=held["clusters"][k], one_cta_ms=r["one_cta_ms"],
                    general_ms=r["general_ms"], timing="graph replay")
     return rec
 
@@ -5371,6 +5433,23 @@ def phase_default_clis(dev, card):
                          r["eval_launches"],
                          {k: n * r["eval_batches"]
                           for k, n in CLI_EVAL_LAUNCHES_F32.items()})
+        # every CLI batch is padded to B rows: each "fma32" launch on the
+        # cluster its launch picks at B (clusters of 4 at the CLIs' B 32 on
+        # an H100), none one CTA an example
+        pick, pick6 = (TX.fma32_launch_cluster(B, H),
+                       TX.fma32_launch_cluster(B, H, F))
+        want_c = {"mega_exec_fma32": {pick: want["mega_exec_fma32"]},
+                  "mega_exec_train_fma32": {
+                      pick: want["mega_exec_train_fma32"]},
+                  "mega_exec_bwd_fma32": {pick6: want["mega_exec_bwd_fma32"]}}
+        require(r["train_clusters"] == want_c,
+                f"[defaults] train.loop.main cluster launches "
+                f"{r['train_clusters']}, want {want_c}")
+        want_e = {k: {pick: n * r["eval_batches"]} if k == "mega_exec_fma32"
+                  else {} for k in want_c}
+        require(r["eval_clusters"] == want_e,
+                f"[defaults] train.evaluate.main cluster launches "
+                f"{r['eval_clusters']}, want {want_e}")
         reports = [x for x in r["recs"] if "loss/total" in x]
         evals = [x for x in r["recs"] if "valid/acc" in x]
         require(len(evals) == epochs + 1, f"{len(evals)} evaluations")
@@ -5389,7 +5468,9 @@ def phase_default_clis(dev, card):
             f"{r['eval_batches']} batch ({r['train_s']:.1f} s): launches "
             f"{ {k: v for k, v in r['train_launches'].items() if v} } = "
             f"{total} x TRAIN_LAUNCHES_F32 + {n_eval} x "
-            f"{CLI_EVAL_LAUNCHES_F32}, no general executor launch; answer "
+            f"{CLI_EVAL_LAUNCHES_F32}, no general executor launch, by "
+            f"cluster size {r['train_clusters']} (#4, #5 on clusters of "
+            f"{pick}, #6's walk {pick6}); answer "
             f"loss {[round(x['loss/decoder'], 4) for x in reports]}, mean "
             f"of {len(shared)} module-family losses "
             f"{np.mean([first[n] for n in shared]):.4f} -> "
@@ -5398,7 +5479,8 @@ def phase_default_clis(dev, card):
             f"train.evaluate.main on best_model: acc {r['acc']:.4f} = the "
             f"trainer's best, launches "
             f"{ {k: v for k, v in r['eval_launches'].items() if v} } "
-            f"({r['eval_s']:.1f} s); card {card}")
+            f"(clusters {r['eval_clusters']['mega_exec_fma32']}; "
+            f"{r['eval_s']:.1f} s); card {card}")
 
         # ---- one CLI batch on best_model's weights: the kernels against
         # the general route (equal bits) and their plain versions, then
@@ -5413,6 +5495,12 @@ def phase_default_clis(dev, card):
         tdict, tbatch, real = default_batch(
             dev, targs, train_ds, model, tables, B, targs.rand_seed, True)
         h = hold_f32_executor(dev, model, tbatch, cfg["dropout"])
+        # the evaluate CLI's batch: the valid split's last (and only), its
+        # rows past the split's end cycled in
+        vdict, vbatch, vreal = default_batch(
+            dev, targs, valid_ds, model, loop.make_device_tables(
+                valid_ds, dev), B, targs.rand_seed, False)
+        hv = hold_f32_executor(dev, model, vbatch, cfg["dropout"])
         hold_step_routes("[defaults]", ((model, "float32"),), tbatch, window)
         prior = torch.are_deterministic_algorithms_enabled()
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -5431,10 +5519,14 @@ def phase_default_clis(dev, card):
                 "differ between the fma32 and general routes")
         log(f"[defaults] the CLI's padded last train batch ({real} of {B} "
             f"rows real), best_model's weights: #4, #5 files and #6's "
-            f"{len(h['outs']['#6'])} gradients on the fma32 route equal the "
-            f"general route's bit for bit; against the plain versions #4 "
+            f"{len(h['outs']['#6'])} gradients on the fma32 route (clusters "
+            f"{h['clusters']}) equal one CTA an example's and the general "
+            f"route's bit for bit; against the plain versions #4 "
             f"max_abs_err {h['e4']:.3e}, #5 {h['e5']:.3e} (1e-4), #6 max rel "
-            f"err {h['rel6']:.3e} (5e-2; max_abs_err {h['e6']:.3e}); one "
+            f"err {h['rel6']:.3e} (5e-2; max_abs_err {h['e6']:.3e}); the "
+            f"evaluate CLI's batch ({vreal} of {B} rows real) likewise "
+            f"(clusters {hv['clusters']}; #4 {hv['e4']:.3e}, #5 "
+            f"{hv['e5']:.3e}, #6 {hv['rel6']:.3e}); one "
             f"train step's loss and all {len(g1)} gradient leaves equal bit "
             f"for bit on both routes (deterministic algorithms, twice on "
             f"the fma32 route); card {card}")
@@ -5446,13 +5538,14 @@ def phase_default_clis(dev, card):
                                     seed=targs.rand_seed, device_tables=True)
         loop_ms = {}
         for name, ctx in (("fma32", contextlib.nullcontext),
-                          ("general", general_mega)):
+                          ("one CTA", one_cta), ("general", general_mega)):
             with ctx():
                 loop_ms[name] = time_inner_loop(step, batcher, dev,
                                                 DEFAULT_TIMED_EPOCHS, tdict)
         # the first batch of an epoch in order: every row real at B 32
         step_ms, real_rows, held = {}, {}, {}
-        turns = {"fma32": contextlib.nullcontext, "general": general_mega}
+        turns = {"fma32": contextlib.nullcontext, "one CTA": one_cta,
+                 "general": general_mega}
         for b in DEFAULT_TIMED_BATCHES:
             bdict, mat, real_rows[b] = default_batch(
                 dev, targs, train_ds, model, tables, b, 0, False)
@@ -5482,15 +5575,19 @@ def phase_default_clis(dev, card):
                             for k, v in ms.items()) + f"; card {card}")
         for b, rec in timed.items():
             log(f"[defaults] #4, #5, #6 at B {b} H {H} F {F} float32 (#4 and"
-                f" #5 files, #6 gradients equal to the general route's, #6 "
-                f"within {held[b]['rel6']:.2e} of the plain version) by "
-                f"graph replay: "
-                + "; ".join(f"{k} fma32 {v['ms']:.4f} ms, general "
+                f" #5 files, #6 gradients equal to one CTA an example's and "
+                f"the general route's, #6 within {held[b]['rel6']:.2e} of "
+                f"the plain version) by graph replay, on clusters "
+                f"{held[b]['clusters']}: "
+                + "; ".join(f"{k} fma32 {v['ms']:.4f} ms, one CTA "
+                            f"{v['one_cta_ms']:.4f}, general "
                             f"{v['general_ms']:.4f}, plain {v['plain_ms']:.3f}"
                             f", bound {v['bound_ms']:.4f} ({v['bound_by']})"
                             for k, v in rec.items())
                 + f"; #6's walk {rec['#6']['walk_ms']:.4f} + weight "
-                f"gradients {rec['#6']['wgrad_ms']:.4f} (general "
+                f"gradients {rec['#6']['wgrad_ms']:.4f} (one CTA "
+                f"{rec['#6']['one_cta_walk_ms']:.4f} + "
+                f"{rec['#6']['one_cta_wgrad_ms']:.4f}; general "
                 f"{rec['#6']['general_walk_ms']:.4f} + "
                 f"{rec['#6']['general_wgrad_ms']:.4f}); card {card}")
         SEEN["defaults"] = dict(loop_ms=loop_ms, step_ms=step_ms,
@@ -5505,18 +5602,27 @@ def phase_default_clis(dev, card):
     base = {"route": "cuda", "path": f"NMN trainer and evaluate CLIs at "
             f"their defaults, H {H} F {F} float32 B {B} (phase 22)",
             "executor_route": "fma32", "library_ms": None}
-    big = DEFAULT_TIMED_BATCHES[-1]
 
     def entry(name, kernel, source, replaces, launches_n, err, **more):
-        t, tb = timed[B][kernel], timed[big][kernel]
+        t = timed[B][kernel]
+        other = {}
+        for b in DEFAULT_TIMED_BATCHES:
+            if b != B:
+                tb = timed[b][kernel]
+                other.update({f"b{b}_ms": tb["ms"],
+                              f"b{b}_cluster": held[b]["clusters"][kernel],
+                              f"b{b}_one_cta_ms": tb["one_cta_ms"],
+                              f"b{b}_general_ms": tb["general_ms"],
+                              f"b{b}_plain_ms": tb["plain_ms"],
+                              f"b{b}_bound_ms": tb["bound_ms"]})
         return {"name": name, **base, "source": source,
                 "replaces": replaces, "launches": launches_n,
                 "max_abs_err": err, "ms": t["ms"],
+                "cluster": held[B]["clusters"][kernel],
+                "one_cta_ms": t["one_cta_ms"],
                 "general_ms": t["general_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                f"b{big}_ms": tb["ms"], f"b{big}_general_ms": tb["general_ms"],
-                f"b{big}_plain_ms": tb["plain_ms"],
-                f"b{big}_bound_ms": tb["bound_ms"], **more}
+                **other, **more}
 
     h = held[B]   # the errors on the timed B 32 batch
     return [
@@ -5533,7 +5639,8 @@ def phase_default_clis(dev, card):
               launches["mega_exec_bwd_fma32"], h["e6"],
               wgrad_launches=launches["mega_exec_wgrad_fma32"],
               walk_ms=timed[B]["#6"]["walk_ms"],
-              wgrad_ms=timed[B]["#6"]["wgrad_ms"]),
+              wgrad_ms=timed[B]["#6"]["wgrad_ms"],
+              one_cta_walk_ms=timed[B]["#6"]["one_cta_walk_ms"]),
     ]
 
 

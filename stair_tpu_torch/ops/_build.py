@@ -40,7 +40,9 @@ its kernel and nowhere else:
   without and with dropout);
 - ``mega_exec_fma32``, ``mega_exec_train_fma32``: the eval and training
   forward on its float32 "fma32" route (``mega_exec_kernel<float, true>``:
-  the general kernel with its products on ``gemm32``);
+  the general kernel with its products on ``gemm32``, an example on a
+  thread-block cluster while one CTA an example under-fills the card;
+  ``CLUSTERS`` counts these launches by cluster size);
 - ``mega_exec_bwd``, ``mega_exec_wgrad``: its backward on the general route
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
@@ -79,6 +81,7 @@ the attention backward's dK/dV tile in ``csrc/flash_attn_bwd.cu``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -120,6 +123,14 @@ LAUNCHES = {
     "slot_zero_many": 0, "slot_add_many": 0,
 }
 
+#: the "fma32" executor launches by cluster size (``csrc/mega_common.cuh``
+#: mega32_cluster; 1: one CTA an example) since the last
+#: ``reset_launches``: launch key -> {CTAs of an example's cluster: launches}
+#: (``mega_exec_fma32``, ``mega_exec_train_fma32``, ``mega_exec_bwd_fma32``;
+#: each also counted in ``LAUNCHES``)
+CLUSTERS = {k: collections.Counter() for k in (
+    "mega_exec_fma32", "mega_exec_train_fma32", "mega_exec_bwd_fma32")}
+
 _lib = None
 #: what the last build printed (ptxas register/spill report) and took, in
 #: all and by source (seconds from the start until its nvcc ended)
@@ -130,6 +141,8 @@ BUILD_INFO = {"seconds": 0.0, "log": "", "cached": False,
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for c in CLUSTERS.values():
+        c.clear()
 
 
 def header_ints(name: str) -> dict:
@@ -311,8 +324,17 @@ def build():
         I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
         I,                         # fsoft
         I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
+        I, P,                      # cluster (0: the launch's pick), &used
         P,                         # stream
     ]
+    lib.stair_mega_exec_fma32_fit.restype = I
+    lib.stair_mega_exec_fma32_fit.argtypes = [I]            # cluster size
+    lib.stair_mega_exec_bwd_fma32_fit.restype = I
+    lib.stair_mega_exec_bwd_fma32_fit.argtypes = [I, I, I]  # F, H, cluster
+    lib.stair_mega_exec_fma32_cluster.restype = I
+    lib.stair_mega_exec_fma32_cluster.argtypes = [I, I]     # B, H
+    lib.stair_mega_exec_bwd_fma32_cluster.restype = I
+    lib.stair_mega_exec_bwd_fma32_cluster.argtypes = [I, I, I]  # B, F, H
     Lg = ctypes.c_long
     lib.stair_mega_exec_fma32_smem.restype = Lg
     lib.stair_mega_exec_fma32_smem.argtypes = []
@@ -339,7 +361,10 @@ def build():
             I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
             I,                         # fsoft
             I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh,
-            P,                         # scale; stream
+                                       # scale
+            # the "fma32" walk: cluster (0: the launch's pick), &used
+            *((I, P) if sfx == "fma32" else ()),
+            P,                         # stream
         ]
         fn = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")
         fn.restype = I

@@ -1022,15 +1022,7 @@ extern "C" long stair_executor_step_tc_smem(int F, int H) {
 // bytes of dynamic shared memory (set as the kernel's maximum first): its
 // SMs x the CTAs an SM holds.
 static cudaError_t step32_slots(size_t smem, int* slots) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, executor_step_fma32_kernel, THREADS, smem);
-  *slots = sms * per_sm;
-  return e;
+  return stair::mega::cta_slots(executor_step_fma32_kernel, smem, slots);
 }
 
 // The float32 route (executor_step_fma32_kernel): float32 at H a multiple
@@ -1053,20 +1045,9 @@ extern "C" int stair_executor_step_fma32(const void* const* ptrs, int nptrs,
   if (e == cudaSuccess) e = step32_slots(smem, &slots);
   if (e != cudaSuccess) return (int)e;
   const int C = step32_cluster(B, H, slots);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * C));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, executor_step_fma32_kernel,
-                         args_of<float>(ptrs, ws, B, Nv, Nf, Na, F, H), C);
+  e = stair::mega::launch_clusters(
+      executor_step_fma32_kernel, B, C, smem, (cudaStream_t)stream,
+      args_of<float>(ptrs, ws, B, Nv, Nf, Na, F, H), C);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

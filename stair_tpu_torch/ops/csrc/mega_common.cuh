@@ -614,5 +614,148 @@ __device__ void gemm32(const float* A, int lda, const float* W, long ldw,
   __syncthreads();
 }
 
+// All threads of the cluster's CTAs: every write before it, to shared or
+// global memory, is visible to every thread after it (release / acquire at
+// cluster scope).
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// gemm32 on an example's cluster of C CTAs (the "fma32" kernels' cluster
+// mode; C = 1: one CTA an example, gemm32 itself): CTA r = blockIdx.x % C
+// computes the output columns [r N / C, (r + 1) N / C) over all M rows
+// (gemm32 on W's columns from there, NK false, or its rows, NK true; W's
+// row stride stays ldw), so each output keeps its FMA chain and its bits.
+// epi(m, n, acc) gets the product's own column n. Between two cluster
+// barriers (C > 1): the CTAs' earlier writes, of A and of whatever the
+// epilogues read, are visible to the product, and its outputs to every CTA
+// after it. r N / C is a multiple of 4 where NK is false (N = H and C
+// divides H / G32_BN), so B's rows stay 16-byte aligned.
+template <bool NK, int BN = G32_BN, typename Epi>
+__device__ __forceinline__ void gemm32_part(const float* A, int lda,
+                                            const float* W, long ldw, int M,
+                                            int K, int N, int C, float* ring,
+                                            Epi epi) {
+  if (C > 1) cluster_barrier();
+  const int r = (int)(blockIdx.x % C);
+  const int c0 = r * N / C, n = (r + 1) * N / C - c0;
+  gemm32<NK, BN>(A, lda, W + (NK ? c0 * ldw : (long)c0), ldw, M, K, n, ring,
+                 [&](int m, int j, float acc) { epi(m, c0 + j, acc); });
+  if (C > 1) cluster_barrier();
+}
+
+// The "fma32" kernels' cluster mode (mega_exec_kernel<float, true>, #4 and
+// #5, and mega_grad.cu's walk mega_bwd_kernel<float, true>, #6). Each holds
+// one CTA an SM (ptxas gives them 254-255 registers a thread), so a launch
+// of B examples, one CTA each, leaves all but B of the card's SMs idle.
+// Below that, example b runs on a thread-block cluster of C CTAs, b's CTAs
+// blockIdx.x = b C .. b C + C - 1: CTA r computes the columns [r N / C,
+// (r + 1) N / C) of every [F, H]-sized product (gemm32_part), over all of
+// F's row tiles, so that each output keeps its FMA chain and every file,
+// gradient and recomputed value stays bit for bit the one-CTA route's. CTA
+// 0, the lead, runs everything else (the row passes, the vec-level
+// products, the softmaxes, every register-file write but the products'
+// other columns) on the rows the cluster shares through the per-example
+// workspace in L2; the others wait at the products' cluster barriers. So a
+// product's serial time on one SM is cut by C and the rest is not.
+//
+// C: H / G32_BN while one wave of CTAs holds the launch at that size (B C
+// <= slots, the card's SMs x the kernel's CTAs an SM), else 2 while it
+// holds it at 2 (2 a proper divisor of H / G32_BN), else 1: the largest
+// cluster that runs the launch in one wave, each size only where its
+// clusters fit the card at all (fit_h, fit_2: cudaOccupancyMaxActiveClusters
+// at H / G32_BN and at 2; 0 where the size is not a candidate). The slots
+// and not the clusters that fit bound B: on an H100 (132 slots) 30 clusters
+// of 4 fit by cudaOccupancyMaxActiveClusters, yet at B 31-33 clusters of 4
+// take no longer than at 30 (their examples' runs differ in length, and a
+// cluster starts where a shorter one ends) and beat clusters of 2 by 1.5x,
+// as clusters of 2 beat 4 at B 64 and one CTA an example ties 2 at B 128
+// (scripts/fma32_clusters.py). ops/mega_exec.py fma32_cluster mirrors it.
+__host__ __device__ inline int mega32_cluster(int B, int H, int slots,
+                                              int fit_2, int fit_h) {
+  return fit_h > 0 && B * (H / G32_BN) <= slots
+             ? H / G32_BN
+             : (fit_2 > 0 && 2 * B <= slots ? 2 : 1);
+}
+
+// A launch of `ctas` CTAs of THREADS threads as clusters of c, `smem`
+// bytes of dynamic shared memory each; `attr` holds its one attribute.
+inline cudaLaunchConfig_t cluster_config(int ctas, int c, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `c` CTAs of `kernel` (THREADS threads, `smem` bytes of
+// dynamic shared memory, set as its maximum first) that fit the current card
+// at once, or 0.
+template <typename K>
+inline cudaError_t clusters_fit(K kernel, size_t smem, int c, int* fit) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(c, c, smem, 0, &attr);
+  *fit = 0;
+  return cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
+}
+
+// CTA slots of the current card for `kernel` at `smem` bytes of dynamic
+// shared memory (set as its maximum first): its SMs x the CTAs an SM holds.
+template <typename K>
+inline cudaError_t cta_slots(K kernel, size_t smem, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  *slots = sms * per_sm;
+  return e;
+}
+
+// The cluster size of a launch of B examples at width H: `cluster` itself
+// where it is forced (> 0: it must divide H / G32_BN), else
+// mega32_cluster's pick from the card's slots and fits.
+template <typename K>
+inline cudaError_t pick_cluster(K kernel, size_t smem, int B, int H,
+                                int cluster, int* C) {
+  const int most = H / G32_BN;
+  if (cluster > 0) {
+    *C = cluster;
+    return most % cluster == 0 && cluster <= 8 ? cudaSuccess
+                                               : cudaErrorInvalidValue;
+  }
+  int slots = 0, fit_2 = 0, fit_h = 0;
+  cudaError_t e = cta_slots(kernel, smem, &slots);
+  if (e == cudaSuccess && most > 1)
+    e = clusters_fit(kernel, smem, most, &fit_h);
+  if (e == cudaSuccess && most > 2 && most % 2 == 0)
+    e = clusters_fit(kernel, smem, 2, &fit_2);
+  *C = mega32_cluster(B, H, slots, fit_2, fit_h);
+  return e;
+}
+
+// Launches `kernel(args...)` on B examples (or tiles), C CTAs each, as
+// thread-block clusters of C (C = 1 too).
+template <typename K, typename... A>
+inline cudaError_t launch_clusters(K kernel, int B, int C, size_t smem,
+                                   cudaStream_t stream, const A&... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(B * C, C, smem, stream,
+                                                &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 }  // namespace mega
 }  // namespace stair

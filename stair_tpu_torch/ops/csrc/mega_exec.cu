@@ -40,7 +40,10 @@
 // (mega_common.cuh: 64 x 128 output tiles over the frames' row tiles,
 // 32-deep k slices through a 3-stage cp.async ring in dynamic shared
 // memory, 4 x 8 sums a thread in registers) and so the same bits in every
-// file; and mega_exec_tc_kernel further down, the tensor-core route for
+// file, an example on a thread-block cluster that splits each product by
+// output columns while one CTA an example would leave the card under-filled
+// (mega_common.cuh mega32_cluster; the same bits again); and
+// mega_exec_tc_kernel further down, the tensor-core route for
 // bf16, eval (#4) and training (#5; mega_grad_tc.cu's walk recomputes its
 // values bit for bit).
 //
@@ -71,6 +74,7 @@ struct Args : Tensors<T> {
   T *rv, *rf, *ra;
   float* ws;
   int B, T_, Nv, Nf, Na, F, H, L, fsoft;
+  int C;   // CTAs of an example's cluster (the "fma32" route; else 1)
   stair::Dropout dr;
 };
 
@@ -87,13 +91,15 @@ struct SmemT {
 };
 
 // C[M, N] = A[M, K] (row stride lda) @ W[K, N]; epi(m, n, acc) per output:
-// gemm on gemm's tiles in sm, or (G32) gemm32 on its ring. Called by the
-// whole block; returns after a barrier.
+// gemm on gemm's tiles in sm, or (G32) gemm32 on its ring, this CTA's
+// columns of it on an example's cluster of C CTAs (gemm32_part). Called by
+// the whole block (G32: by every CTA of the cluster); returns after a
+// barrier.
 template <bool G32, typename TA, typename TW, typename S, typename Epi>
 __device__ void gemm(const TA* A, int lda, const TW* W, int M, int K, int N,
-                     S& sm, float* ring, Epi epi) {
+                     S& sm, float* ring, int C, Epi epi) {
   if constexpr (G32)
-    gemm32<false>(A, lda, W, N, M, K, N, ring, epi);
+    gemm32_part<false>(A, lda, W, N, M, K, N, C, ring, epi);
   else
     stair::mega::gemm<float, false, false>(A, lda, 1, W, N, 1, M, K, N,
                                            &sm.As[0][0], &sm.Ws[0][0], epi);
@@ -172,7 +178,12 @@ template <typename T, bool G32>
 __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
   __shared__ SmemT<G32> sm;
   extern __shared__ __align__(16) float g32_ring[];   // G32: gemm32's ring
-  const int b = blockIdx.x;
+  // G32: example b on a cluster of C = a.C CTAs (1: one CTA an example).
+  // Its CTA 0, the lead, runs every pass and writes every file; the others
+  // only compute their columns of each product (gemm).
+  const int C = G32 ? a.C : 1;
+  const int b = (int)(blockIdx.x / C);
+  auto lead = [&] { return blockIdx.x % C == 0; };
   const int F = a.F, H = a.H, L = a.L, Hh = H / 2;
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
   const int tid = threadIdx.x;
@@ -189,18 +200,20 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
 
   // ---- register-file init: frames register 0 <- video * vmask ----------
   for (int f = tid; f < F; f += THREADS) sm.vm[f] = to_f(a.vm[(size_t)b * F + f]);
-  for (int i = tid; i < Nv * H; i += THREADS) rv[i] = from_f<T>(0.f);
-  for (int i = tid; i < Na * F; i += THREADS) ra[i] = from_f<T>(0.f);
   __syncthreads();
-  for (size_t i = tid; i < FH; i += THREADS) {
-    const int f = (int)(i / H), j = (int)(i % H);
-    const T v = j < Hh ? a.vf_a[((size_t)b * F + f) * Hh + j]
-                       : a.vf_b[((size_t)b * F + f) * Hh + j - Hh];
-    rf[i] = from_f<T>(to_f(v) * sm.vm[f]);
+  if (lead()) {
+    for (int i = tid; i < Nv * H; i += THREADS) rv[i] = from_f<T>(0.f);
+    for (int i = tid; i < Na * F; i += THREADS) ra[i] = from_f<T>(0.f);
+    for (size_t i = tid; i < FH; i += THREADS) {
+      const int f = (int)(i / H), j = (int)(i % H);
+      const T v = j < Hh ? a.vf_a[((size_t)b * F + f) * Hh + j]
+                         : a.vf_b[((size_t)b * F + f) * Hh + j - Hh];
+      rf[i] = from_f<T>(to_f(v) * sm.vm[f]);
+    }
+    for (size_t i = FH + tid; i < (size_t)Nf * FH; i += THREADS)
+      rf[i] = from_f<T>(0.f);
+    __syncthreads();
   }
-  for (size_t i = FH + tid; i < (size_t)Nf * FH; i += THREADS)
-    rf[i] = from_f<T>(0.f);
-  __syncthreads();
 
   auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
 
@@ -221,21 +234,23 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
     const T* fa = rf + (size_t)ifa * FH;
 
     // ---- operand reads, then the zero writes of out_attn/out_attn_b ----
-    for (int j = tid; j < H; j += THREADS) {
-      sm.va[j] = to_f(rv[(size_t)iva * H + j]);
-      sm.vb[j] = to_f(rv[(size_t)ivb * H + j]);
-      sm.nv[j] = 0.f;
+    if (lead()) {
+      for (int j = tid; j < H; j += THREADS) {
+        sm.va[j] = to_f(rv[(size_t)iva * H + j]);
+        sm.vb[j] = to_f(rv[(size_t)ivb * H + j]);
+        sm.nv[j] = 0.f;
+      }
+      for (int f = tid; f < F; f += THREADS) {
+        sm.aa[f] = to_f(ra[(size_t)iaa * F + f]);
+        sm.ab[f] = to_f(ra[(size_t)iab * F + f]);
+      }
+      __syncthreads();
+      for (int f = tid; f < F; f += THREADS) {
+        ra[(size_t)out_a * F + f] = from_f<T>(0.f);
+        ra[(size_t)out_ab * F + f] = from_f<T>(0.f);
+      }
+      __syncthreads();
     }
-    for (int f = tid; f < F; f += THREADS) {
-      sm.aa[f] = to_f(ra[(size_t)iaa * F + f]);
-      sm.ab[f] = to_f(ra[(size_t)iab * F + f]);
-    }
-    __syncthreads();
-    for (int f = tid; f < F; f += THREADS) {
-      ra[(size_t)out_a * F + f] = from_f<T>(0.f);
-      ra[(size_t)out_ab * F + f] = from_f<T>(0.f);
-    }
-    __syncthreads();
 
     // ---- stage 1: expert two-layer frames MLP (e1 == 9: null) ---------
     if (e1 != 9) {
@@ -243,12 +258,12 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
       const T* b1 = a.b1u + (size_t)e1 * H;
       const T* w2 = a.w2u + (size_t)e1 * H * H;
       const T* b2 = a.b2u + (size_t)e1 * H;
-      gemm<G32>(fa, H, w1, F, H, H, sm, g32_ring,
+      gemm<G32>(fa, H, w1, F, H, H, sm, g32_ring, C,
                 [&](int m, int n, float acc) {
         ws_h[(size_t)m * H + n] =
             rd<T>(fmaxf(acc + to_f(b1[n]), 0.f) * dr.keep(m, n, b, t, 0));
       });
-      gemm<G32>(ws_h, H, w2, F, H, H, sm, g32_ring,
+      gemm<G32>(ws_h, H, w2, F, H, H, sm, g32_ring, C,
                 [&](int m, int n, float acc) {
         const float v = acc + to_f(b2[n]);
         feat[(size_t)m * H + n] =
@@ -257,361 +272,381 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
     }
 
     // ---- vec producers (write sm.nv; zeros for non-vec ops) -----------
-    if (op == OP_PUSH) {
-      const int ss = sm.ins[F_SS], se = sm.ins[F_SE];
-      float* span_w = sm.x1;  // [L]
-      for (int p = tid; p < L; p += THREADS) {
-        const bool valid = to_f(a.tm[(size_t)b * L + p]) > 0.f;
-        const bool in_span = p >= ss && p < se;
-        span_w[p] = (ss < 0 ? valid : (in_span && valid)) ? 1.f : 0.f;
-      }
-      __syncthreads();
-      float den = 0.f;
-      for (int p = 0; p < L; ++p) den += span_w[p];
-      den = fmaxf(den, 1.0f);
-      for (int j = tid; j < H; j += THREADS) {
-        float v;
-        if (ss == -2) {
-          v = to_f(a.aux[((size_t)b * a.T_ + t) * H + j]);
-        } else {
-          const T* tok = j < Hh ? a.tok_a : a.tok_b;
-          const int jj = j < Hh ? j : j - Hh;
-          float acc = 0.f;
-          for (int p = 0; p < L; ++p)
-            acc += span_w[p] * to_f(tok[((size_t)b * L + p) * Hh + jj]);
-          v = acc / den;
-        }
-        sm.nv[j] = rd<T>(v);
-      }
-      __syncthreads();
-    } else if (op == OP_ANDV) {
-      for (int j = tid; j < H; j += THREADS)
-        sm.nv[j] = rd<T>(fminf(sm.va[j], sm.vb[j]));
-      __syncthreads();
-    } else if (op == OP_CHOOSE) {
-      float dac = 0.f, dbc = 0.f, na = 0.f, nb = 0.f, nc = 0.f;
-      for (int j = tid; j < H; j += THREADS) {
-        const float c = to_f(rv[(size_t)ivc * H + j]);
-        dac += sm.va[j] * c;
-        dbc += sm.vb[j] * c;
-        na += sm.va[j] * sm.va[j];
-        nb += sm.vb[j] * sm.vb[j];
-        nc += c * c;
-      }
-      dac = block_sum(dac, sm.red);
-      dbc = block_sum(dbc, sm.red);
-      na = sqrtf(fmaxf(block_sum(na, sm.red), 1e-30f));
-      nb = sqrtf(fmaxf(block_sum(nb, sm.red), 1e-30f));
-      nc = sqrtf(fmaxf(block_sum(nc, sm.red), 1e-30f));
-      const bool first =
-          dac / fmaxf(na * nc, COS_EPS) > dbc / fmaxf(nb * nc, COS_EPS);
-      for (int j = tid; j < H; j += THREADS)
-        sm.nv[j] = first ? sm.va[j] : sm.vb[j];
-      __syncthreads();
-    } else if (op == OP_CMP || op == OP_EQ) {
-      const T* w = op == OP_CMP ? a.cw : a.eqw;
-      const T* bb = op == OP_CMP ? a.cb : a.eqb;
-      vecmat<T>(sm.va, sm.vb, nullptr, w, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(bb[n])), 0.f);
-      });
-      __syncthreads();
-    } else if (op == OP_XOR) {
-      for (int j = tid; j < H; j += THREADS)
-        sm.x1[j] = rd<T>(fabsf(sm.va[j] - sm.vb[j]));
-      __syncthreads();
-      vecmat<T>(sm.x1, sm.va, sm.vb, a.xw, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.xb[n])), 0.f);
-      });
-      __syncthreads();
-    } else if (op == OP_QUERY) {
-      vecmat<T>(sm.va, nullptr, nullptr, a.qw, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f) *
-                   dr.keep(0, n, b, t, 4);
-      });
-      __syncthreads();
-    } else if (op == OP_TOA) {
-      vecmat<T>(sm.va, sm.vb, nullptr, a.taw1, H, H, [&](int n, float y) {
-        sm.x1[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f) *
-                         dr.keep(0, n, b, t, 5));
-      });
-      __syncthreads();
-      vecmat<T>(sm.x1, nullptr, nullptr, a.taw2, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.tab2[n])), 0.f);
-      });
-      __syncthreads();
-    } else if (op == OP_EX) {
-      // exists: kw = va, feat = vb, x = [feat, kw, feat * kw]
-      for (int j = tid; j < H; j += THREADS)
-        sm.x1[j] = rd<T>(sm.vb[j] * sm.va[j]);
-      __syncthreads();
-      vecmat<T>(sm.vb, sm.va, sm.x1, a.exw1, H, H, [&](int n, float y) {
-        sm.x2[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f) *
-                         dr.keep(0, n, b, t, 6));
-      });
-      __syncthreads();
-      vecmat<T>(sm.x2, nullptr, nullptr, a.exw2, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f) *
-                   dr.keep(0, n, b, t, 7);
-      });
-      __syncthreads();
-    } else if (op == OP_FV || op == OP_FK) {
-      // Frame weights w * vm into f2: parity pooling (w = vm), or the
-      // softmax mode's masked softmax for FILTER_V.
-      if (a.fsoft) {
-        for (int f = warp; f < F; f += NWARPS) {
-          float d = 0.f;
-          for (int k = lane; k < H; k += 32)
-            d += feat[(size_t)f * H + k] * to_f(a.fltw[k]);
-          d = warp_sum(d);
-          if (lane == 0) sm.f1[f] = d;
-        }
-        float kb = 0.f;
-        for (int k = tid; k < H; k += THREADS) kb += sm.va[k] * to_f(a.fltk[k]);
-        kb = block_sum(kb, sm.red) + to_f(a.fltb[0]);
-        const int f = tid;
-        const bool valid = f < F && sm.vm[f] > 0.f;
-        const float x = f < F ? sm.f1[f] + kb : 0.f;
-        const float soft = block_masked_softmax(x, valid, sm);
-        if (f < F) {
-          const float w = op == OP_FV ? soft : sm.vm[f];
-          sm.f2[f] = w * sm.vm[f];
-        }
-      } else {
-        for (int f = tid; f < F; f += THREADS) sm.f2[f] = sm.vm[f] * sm.vm[f];
-      }
-      __syncthreads();
-      for (int k = tid; k < H; k += THREADS) {
-        float p = 0.f;
-        for (int f = 0; f < F; ++f) p += feat[(size_t)f * H + k] * sm.f2[f];
-        sm.x1[k] = rd<T>(p);
-      }
-      __syncthreads();
-      vecmat<T>(sm.x1, nullptr, nullptr, a.fdw, H, H, [&](int n, float y) {
-        sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.fdb[n])), 0.f);
-      });
-      __syncthreads();
-    } else if (op == OP_SUPV) {
-      const T* wk = a.w2t + 2 * (size_t)H * H;
-      const T* bk = a.b2t + 2 * (size_t)H;
-      vecmat<T>(sm.va, nullptr, nullptr, wk, H, H, [&](int n, float y) {
-        sm.x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
-      });
-      vecmat<T>(sm.vb, nullptr, nullptr, wk, H, H, [&](int n, float y) {
-        sm.x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
-      });
-      __syncthreads();
-      loc_cos<T>(sm.x1, feat, F, H, sm.f1, sm);
-      loc_cos<T>(sm.x2, feat, F, H, sm.f2, sm);
-      // row[k] = sum_f scores[k, f] * vm[f], k in {0, 1}
-      float r0 = 0.f, r1 = 0.f;
-      for (int f = tid; f < F; f += THREADS) {
-        r0 += sm.f1[f] * sm.vm[f];
-        r1 += sm.f2[f] * sm.vm[f];
-      }
-      r0 = block_sum(r0, sm.red);
-      r1 = block_sum(r1, sm.red);
-      if (tid == 0) {
-        sm.f3[0] = r0;
-        sm.f3[1] = r1;
-      }
-      __syncthreads();
-      const float* va = sm.va;
-      const float* vb = sm.vb;
-      superlative<T>(sm.f3, 2, mode, count < 0 ? 0 : count, a.supw, a.supb,
-                     H, sm, [&](int k, int j) { return k == 0 ? va[j] : vb[j]; },
-                     sm.vc);
-    } else if (op == OP_SUPF) {
+    // (SUPF's keyword product on every CTA of the cluster, the rest on the
+    // lead)
+    if (op == OP_SUPF) {
       const T* fb = rf + (size_t)ifb * FH;
       const T* wk = a.w2t + 2 * (size_t)H * H;
       const T* bk = a.b2t + 2 * (size_t)H;
       // kw_f = lin_dt(fb, w2t[2], b2t[2]) -> ws_h [F, H]
-      gemm<G32>(fb, H, wk, F, H, H, sm, g32_ring,
+      gemm<G32>(fb, H, wk, F, H, H, sm, g32_ring, C,
                 [&](int m, int n, float acc) {
         ws_h[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
       });
-      // Row norms: f1 = |kw_f[i]|, f2 = |feat[f]|.
-      for (int r = warp; r < F; r += NWARPS) {
-        float n1 = 0.f, n2 = 0.f;
-        for (int k = lane; k < H; k += 32) {
-          const float x = ws_h[(size_t)r * H + k], y = feat[(size_t)r * H + k];
-          n1 += x * x;
-          n2 += y * y;
+      if (lead()) {
+        // Row norms: f1 = |kw_f[i]|, f2 = |feat[f]|.
+        for (int r = warp; r < F; r += NWARPS) {
+          float n1 = 0.f, n2 = 0.f;
+          for (int k = lane; k < H; k += 32) {
+            const float x = ws_h[(size_t)r * H + k];
+            const float y = feat[(size_t)r * H + k];
+            n1 += x * x;
+            n2 += y * y;
+          }
+          n1 = warp_sum(n1);
+          n2 = warp_sum(n2);
+          if (lane == 0) {
+            sm.f1[r] = sqrtf(fmaxf(n1, 1e-30f));
+            sm.f2[r] = sqrtf(fmaxf(n2, 1e-30f));
+          }
         }
-        n1 = warp_sum(n1);
-        n2 = warp_sum(n2);
-        if (lane == 0) {
-          sm.f1[r] = sqrtf(fmaxf(n1, 1e-30f));
-          sm.f2[r] = sqrtf(fmaxf(n2, 1e-30f));
+        __syncthreads();
+        // row[i] = sum_f ((rd(cos(kw_i, feat_f)) + 1) * 0.49 * vm[f]) * vm[f]
+        for (int i = warp; i < F; i += NWARPS) {
+          const float* ki = ws_h + (size_t)i * H;
+          float row = 0.f;
+          for (int f = 0; f < F; ++f) {
+            const float* ff = feat + (size_t)f * H;
+            float d = 0.f;
+            for (int k = lane; k < H; k += 32) d += ki[k] * ff[k];
+            d = warp_sum(d);
+            const float c = rd<T>(d / fmaxf(sm.f1[i] * sm.f2[f], COS_EPS));
+            row += ((c + 1.0f) * 0.49f * sm.vm[f]) * sm.vm[f];
+          }
+          if (lane == 0) sm.f3[i] = row;
         }
+        __syncthreads();
+        superlative<T>(sm.f3, F, mode, -1, a.supw, a.supb, H, sm,
+                       [&](int k, int j) {
+                         return to_f(fb[(size_t)k * H + j]);
+                       },
+                       sm.x1);
       }
-      __syncthreads();
-      // row[i] = sum_f ((rd(cos(kw_i, feat_f)) + 1) * 0.49 * vm[f]) * vm[f]
-      for (int i = warp; i < F; i += NWARPS) {
-        const float* ki = ws_h + (size_t)i * H;
-        float row = 0.f;
-        for (int f = 0; f < F; ++f) {
-          const float* ff = feat + (size_t)f * H;
-          float d = 0.f;
-          for (int k = lane; k < H; k += 32) d += ki[k] * ff[k];
-          d = warp_sum(d);
-          const float c = rd<T>(d / fmaxf(sm.f1[i] * sm.f2[f], COS_EPS));
-          row += ((c + 1.0f) * 0.49f * sm.vm[f]) * sm.vm[f];
-        }
-        if (lane == 0) sm.f3[i] = row;
-      }
-      __syncthreads();
-      superlative<T>(sm.f3, F, mode, -1, a.supw, a.supb, H, sm,
-                     [&](int k, int j) { return to_f(fb[(size_t)k * H + j]); },
-                     sm.x1);
     }
+    if (lead()) {
+      if (op == OP_PUSH) {
+        const int ss = sm.ins[F_SS], se = sm.ins[F_SE];
+        float* span_w = sm.x1;  // [L]
+        for (int p = tid; p < L; p += THREADS) {
+          const bool valid = to_f(a.tm[(size_t)b * L + p]) > 0.f;
+          const bool in_span = p >= ss && p < se;
+          span_w[p] = (ss < 0 ? valid : (in_span && valid)) ? 1.f : 0.f;
+        }
+        __syncthreads();
+        float den = 0.f;
+        for (int p = 0; p < L; ++p) den += span_w[p];
+        den = fmaxf(den, 1.0f);
+        for (int j = tid; j < H; j += THREADS) {
+          float v;
+          if (ss == -2) {
+            v = to_f(a.aux[((size_t)b * a.T_ + t) * H + j]);
+          } else {
+            const T* tok = j < Hh ? a.tok_a : a.tok_b;
+            const int jj = j < Hh ? j : j - Hh;
+            float acc = 0.f;
+            for (int p = 0; p < L; ++p)
+              acc += span_w[p] * to_f(tok[((size_t)b * L + p) * Hh + jj]);
+            v = acc / den;
+          }
+          sm.nv[j] = rd<T>(v);
+        }
+        __syncthreads();
+      } else if (op == OP_ANDV) {
+        for (int j = tid; j < H; j += THREADS)
+          sm.nv[j] = rd<T>(fminf(sm.va[j], sm.vb[j]));
+        __syncthreads();
+      } else if (op == OP_CHOOSE) {
+        float dac = 0.f, dbc = 0.f, na = 0.f, nb = 0.f, nc = 0.f;
+        for (int j = tid; j < H; j += THREADS) {
+          const float c = to_f(rv[(size_t)ivc * H + j]);
+          dac += sm.va[j] * c;
+          dbc += sm.vb[j] * c;
+          na += sm.va[j] * sm.va[j];
+          nb += sm.vb[j] * sm.vb[j];
+          nc += c * c;
+        }
+        dac = block_sum(dac, sm.red);
+        dbc = block_sum(dbc, sm.red);
+        na = sqrtf(fmaxf(block_sum(na, sm.red), 1e-30f));
+        nb = sqrtf(fmaxf(block_sum(nb, sm.red), 1e-30f));
+        nc = sqrtf(fmaxf(block_sum(nc, sm.red), 1e-30f));
+        const bool first =
+            dac / fmaxf(na * nc, COS_EPS) > dbc / fmaxf(nb * nc, COS_EPS);
+        for (int j = tid; j < H; j += THREADS)
+          sm.nv[j] = first ? sm.va[j] : sm.vb[j];
+        __syncthreads();
+      } else if (op == OP_CMP || op == OP_EQ) {
+        const T* w = op == OP_CMP ? a.cw : a.eqw;
+        const T* bb = op == OP_CMP ? a.cb : a.eqb;
+        vecmat<T>(sm.va, sm.vb, nullptr, w, H, H, [&](int n, float y) {
+          sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(bb[n])), 0.f);
+        });
+        __syncthreads();
+      } else if (op == OP_XOR) {
+        for (int j = tid; j < H; j += THREADS)
+          sm.x1[j] = rd<T>(fabsf(sm.va[j] - sm.vb[j]));
+        __syncthreads();
+        vecmat<T>(sm.x1, sm.va, sm.vb, a.xw, H, H, [&](int n, float y) {
+          sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.xb[n])), 0.f);
+        });
+        __syncthreads();
+      } else if (op == OP_QUERY) {
+        vecmat<T>(sm.va, nullptr, nullptr, a.qw, H, H, [&](int n, float y) {
+          sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.qb[n])), 0.f) *
+                     dr.keep(0, n, b, t, 4);
+        });
+        __syncthreads();
+      } else if (op == OP_TOA) {
+        vecmat<T>(sm.va, sm.vb, nullptr, a.taw1, H, H, [&](int n, float y) {
+          sm.x1[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.tab1[n])), 0.f) *
+                           dr.keep(0, n, b, t, 5));
+        });
+        __syncthreads();
+        vecmat<T>(sm.x1, nullptr, nullptr, a.taw2, H, H, [&](int n, float y) {
+          sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.tab2[n])), 0.f);
+        });
+        __syncthreads();
+      } else if (op == OP_EX) {
+        // exists: kw = va, feat = vb, x = [feat, kw, feat * kw]
+        for (int j = tid; j < H; j += THREADS)
+          sm.x1[j] = rd<T>(sm.vb[j] * sm.va[j]);
+        __syncthreads();
+        vecmat<T>(sm.vb, sm.va, sm.x1, a.exw1, H, H, [&](int n, float y) {
+          sm.x2[n] = rd<T>(fmaxf(rd<T>(rd<T>(y) + to_f(a.exb1[n])), 0.f) *
+                           dr.keep(0, n, b, t, 6));
+        });
+        __syncthreads();
+        vecmat<T>(sm.x2, nullptr, nullptr, a.exw2, H, H, [&](int n, float y) {
+          sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.exb2[n])), 0.f) *
+                     dr.keep(0, n, b, t, 7);
+        });
+        __syncthreads();
+      } else if (op == OP_FV || op == OP_FK) {
+        // Frame weights w * vm into f2: parity pooling (w = vm), or the
+        // softmax mode's masked softmax for FILTER_V.
+        if (a.fsoft) {
+          for (int f = warp; f < F; f += NWARPS) {
+            float d = 0.f;
+            for (int k = lane; k < H; k += 32)
+              d += feat[(size_t)f * H + k] * to_f(a.fltw[k]);
+            d = warp_sum(d);
+            if (lane == 0) sm.f1[f] = d;
+          }
+          float kb = 0.f;
+          for (int k = tid; k < H; k += THREADS)
+            kb += sm.va[k] * to_f(a.fltk[k]);
+          kb = block_sum(kb, sm.red) + to_f(a.fltb[0]);
+          const int f = tid;
+          const bool valid = f < F && sm.vm[f] > 0.f;
+          const float x = f < F ? sm.f1[f] + kb : 0.f;
+          const float soft = block_masked_softmax(x, valid, sm);
+          if (f < F) {
+            const float w = op == OP_FV ? soft : sm.vm[f];
+            sm.f2[f] = w * sm.vm[f];
+          }
+        } else {
+          for (int f = tid; f < F; f += THREADS) sm.f2[f] = sm.vm[f] * sm.vm[f];
+        }
+        __syncthreads();
+        for (int k = tid; k < H; k += THREADS) {
+          float p = 0.f;
+          for (int f = 0; f < F; ++f) p += feat[(size_t)f * H + k] * sm.f2[f];
+          sm.x1[k] = rd<T>(p);
+        }
+        __syncthreads();
+        vecmat<T>(sm.x1, nullptr, nullptr, a.fdw, H, H, [&](int n, float y) {
+          sm.nv[n] = fmaxf(rd<T>(rd<T>(y) + to_f(a.fdb[n])), 0.f);
+        });
+        __syncthreads();
+      } else if (op == OP_SUPV) {
+        const T* wk = a.w2t + 2 * (size_t)H * H;
+        const T* bk = a.b2t + 2 * (size_t)H;
+        vecmat<T>(sm.va, nullptr, nullptr, wk, H, H, [&](int n, float y) {
+          sm.x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+        });
+        vecmat<T>(sm.vb, nullptr, nullptr, wk, H, H, [&](int n, float y) {
+          sm.x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+        });
+        __syncthreads();
+        loc_cos<T>(sm.x1, feat, F, H, sm.f1, sm);
+        loc_cos<T>(sm.x2, feat, F, H, sm.f2, sm);
+        // row[k] = sum_f scores[k, f] * vm[f], k in {0, 1}
+        float r0 = 0.f, r1 = 0.f;
+        for (int f = tid; f < F; f += THREADS) {
+          r0 += sm.f1[f] * sm.vm[f];
+          r1 += sm.f2[f] * sm.vm[f];
+        }
+        r0 = block_sum(r0, sm.red);
+        r1 = block_sum(r1, sm.red);
+        if (tid == 0) {
+          sm.f3[0] = r0;
+          sm.f3[1] = r1;
+        }
+        __syncthreads();
+        const float* va = sm.va;
+        const float* vb = sm.vb;
+        superlative<T>(sm.f3, 2, mode, count < 0 ? 0 : count, a.supw, a.supb,
+                       H, sm,
+                       [&](int k, int j) { return k == 0 ? va[j] : vb[j]; },
+                       sm.vc);
+      }
 
-    for (int j = tid; j < H; j += THREADS)
-      rv[(size_t)out_v * H + j] = from_f<T>(sm.nv[j]);
+      for (int j = tid; j < H; j += THREADS)
+        rv[(size_t)out_v * H + j] = from_f<T>(sm.nv[j]);
+    }
 
     // ---- frames producers --------------------------------------------
     T* fout = rf + (size_t)out_f * FH;
     if (op == OP_FFV || op == OP_FFK) {
-      float gk = 0.f;
-      for (int k = tid; k < H; k += THREADS) gk += sm.va[k] * to_f(a.ffkw[k]);
-      gk = block_sum(gk, sm.red) + to_f(a.ffab[0]);
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f;
-        for (int k = lane; k < H; k += 32)
-          d += feat[(size_t)f * H + k] * to_f(a.ffwf[k]);
-        d = warp_sum(d);
-        if (lane == 0) sm.f1[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+      if (lead()) {
+        float gk = 0.f;
+        for (int k = tid; k < H; k += THREADS) gk += sm.va[k] * to_f(a.ffkw[k]);
+        gk = block_sum(gk, sm.red) + to_f(a.ffab[0]);
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32)
+            d += feat[(size_t)f * H + k] * to_f(a.ffwf[k]);
+          d = warp_sum(d);
+          if (lane == 0) sm.f1[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+        }
+        __syncthreads();
+        for (size_t i = tid; i < FH; i += THREADS)
+          ws_h[i] = rd<T>(sm.f1[i / H] * feat[i]);
+        __syncthreads();
       }
-      __syncthreads();
-      for (size_t i = tid; i < FH; i += THREADS)
-        ws_h[i] = rd<T>(sm.f1[i / H] * feat[i]);
-      __syncthreads();
       const T* b20 = a.b2t;
-      gemm<G32>(ws_h, H, a.w2t, F, H, H, sm, g32_ring,
+      gemm<G32>(ws_h, H, a.w2t, F, H, H, sm, g32_ring, C,
                 [&](int m, int n, float acc) {
         fout[(size_t)m * H + n] = from_f<T>(
             fmaxf(acc + to_f(b20[n]), 0.f) * dr.keep(m, n, b, t, 2) *
             sm.vm[m]);
       });
     } else if (op == OP_TEMP) {
-      const int midx = mode - 1 > 0 ? mode - 1 : 0;
-      const size_t FF = (size_t)F * F;
-      for (int f = tid; f < F; f += THREADS) {
-        const float am = count == 2 ? (sm.aa[f] + sm.ab[f]) * 0.5f : sm.aa[f];
-        sm.f1[f] = am;
-        sm.f2[f] = rd<T>(am);
+      if (lead()) {
+        const int midx = mode - 1 > 0 ? mode - 1 : 0;
+        const size_t FF = (size_t)F * F;
+        for (int f = tid; f < F; f += THREADS) {
+          const float am = count == 2 ? (sm.aa[f] + sm.ab[f]) * 0.5f : sm.aa[f];
+          sm.f1[f] = am;
+          sm.f2[f] = rd<T>(am);
+        }
+        __syncthreads();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += sm.f2[i] * to_f(a.t1[midx * FF + (size_t)i * F + j]);
+          sm.f3[j] = rd<T>(fmaxf(acc + to_f(a.tb1[midx * F + j]), 0.f));
+        }
+        __syncthreads();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += sm.f3[i] * to_f(a.t2[midx * FF + (size_t)i * F + j]);
+          sm.f2[j] = rd<T>(fmaxf(acc + to_f(a.tb2[midx * F + j]), 0.f));
+        }
+        __syncthreads();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += sm.f2[i] * to_f(a.t3[midx * FF + (size_t)i * F + j]);
+          const float g = sigmoid_f(acc + to_f(a.tb3[midx * F + j]));
+          sm.f3[j] = (mode == 0 ? sm.f1[j] : g) * sm.vm[j];  // related
+        }
+        __syncthreads();
+        for (size_t i = tid; i < FH; i += THREADS)
+          ws_h[i] = rd<T>(sm.f3[i / H] * to_f(fa[i]));
+        __syncthreads();
       }
-      __syncthreads();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i)
-          acc += sm.f2[i] * to_f(a.t1[midx * FF + (size_t)i * F + j]);
-        sm.f3[j] = rd<T>(fmaxf(acc + to_f(a.tb1[midx * F + j]), 0.f));
-      }
-      __syncthreads();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i)
-          acc += sm.f3[i] * to_f(a.t2[midx * FF + (size_t)i * F + j]);
-        sm.f2[j] = rd<T>(fmaxf(acc + to_f(a.tb2[midx * F + j]), 0.f));
-      }
-      __syncthreads();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i)
-          acc += sm.f2[i] * to_f(a.t3[midx * FF + (size_t)i * F + j]);
-        const float g = sigmoid_f(acc + to_f(a.tb3[midx * F + j]));
-        sm.f3[j] = (mode == 0 ? sm.f1[j] : g) * sm.vm[j];  // related
-      }
-      __syncthreads();
-      for (size_t i = tid; i < FH; i += THREADS)
-        ws_h[i] = rd<T>(sm.f3[i / H] * to_f(fa[i]));
-      __syncthreads();
       const T* b21 = a.b2t + H;
-      gemm<G32>(ws_h, H, a.w2t + (size_t)H * H, F, H, H, sm, g32_ring,
-           [&](int m, int n, float acc) {
-             ws_y[(size_t)m * H + n] =
-                 fmaxf(acc + to_f(b21[n]), 0.f) * dr.keep(m, n, b, t, 2);
-           });
-      for (int f = warp; f < F; f += NWARPS) {
-        const float* y = ws_y + (size_t)f * H;
-        float s = 0.f;
-        for (int k = lane; k < H; k += 32) s += y[k];
-        const float mu = warp_sum(s) / H;
-        float s2 = 0.f;
-        // as the plain version and the TPU kernel: the square and the
-        // last product rounded on their own (no contraction into an
-        // FMA), rsqrt (the backward's recompute in mega_grad.cu too)
-        for (int k = lane; k < H; k += 32)
-          s2 += __fmul_rn(y[k] - mu, y[k] - mu);
-        const float var = warp_sum(s2) / H;
-        const float inv = rsqrtf(var + 1e-5f);
-        for (int k = lane; k < H; k += 32)
-          fout[(size_t)f * H + k] = from_f<T>(
-              __fmul_rn((y[k] - mu) * inv, to_f(a.lns[k])) +
-              to_f(a.lnb[k]));
+      gemm<G32>(ws_h, H, a.w2t + (size_t)H * H, F, H, H, sm, g32_ring, C,
+                [&](int m, int n, float acc) {
+        ws_y[(size_t)m * H + n] =
+            fmaxf(acc + to_f(b21[n]), 0.f) * dr.keep(m, n, b, t, 2);
+      });
+      if (lead()) {
+        for (int f = warp; f < F; f += NWARPS) {
+          const float* y = ws_y + (size_t)f * H;
+          float s = 0.f;
+          for (int k = lane; k < H; k += 32) s += y[k];
+          const float mu = warp_sum(s) / H;
+          float s2 = 0.f;
+          // as the plain version and the TPU kernel: the square and the
+          // last product rounded on their own (no contraction into an
+          // FMA), rsqrt (the backward's recompute in mega_grad.cu too)
+          for (int k = lane; k < H; k += 32)
+            s2 += __fmul_rn(y[k] - mu, y[k] - mu);
+          const float var = warp_sum(s2) / H;
+          const float inv = rsqrtf(var + 1e-5f);
+          for (int k = lane; k < H; k += 32)
+            fout[(size_t)f * H + k] = from_f<T>(
+                __fmul_rn((y[k] - mu) * inv, to_f(a.lns[k])) +
+                to_f(a.lnb[k]));
+        }
+        for (int f = tid; f < F; f += THREADS)
+          ra[(size_t)out_ab * F + f] = from_f<T>(sm.f3[f]);
+        __syncthreads();
       }
-      for (int f = tid; f < F; f += THREADS)
-        ra[(size_t)out_ab * F + f] = from_f<T>(sm.f3[f]);
-      __syncthreads();
-    } else if (op == OP_ATTNV) {
+    } else if (op == OP_ATTNV && lead()) {
       for (size_t i = tid; i < FH; i += THREADS)
         fout[i] = from_f<T>(sm.aa[i / H] * to_f(fa[i]));
       __syncthreads();
     }
 
     // ---- attn producers ----------------------------------------------
-    T* aout = ra + (size_t)out_a * F;
-    if (op == OP_ANDA || op == OP_XORF) {
-      for (int f = tid; f < F; f += THREADS)
-        aout[f] = from_f<T>(op == OP_ANDA ? fminf(sm.aa[f], sm.ab[f])
-                                          : fabsf(sm.aa[f] - sm.ab[f]));
-    } else if (op == OP_HAS) {
-      for (int f = tid; f < F; f += THREADS)
-        aout[f] = from_f<T>(sigmoid_f(feat[(size_t)f * H]) *
-                            dr.keep(0, f, b, t, 3) * sm.vm[f]);
-    } else if (op == OP_EXF) {
-      float n2 = 0.f;
-      for (int k = tid; k < H; k += THREADS) n2 += sm.va[k] * sm.va[k];
-      const float nva = sqrtf(fmaxf(block_sum(n2, sm.red), 1e-30f));
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f, nx = 0.f;
-        for (int k = lane; k < H; k += 32) {
-          const float x = to_f(fa[(size_t)f * H + k]);
-          d += x * sm.va[k];
-          nx += x * x;
+    if (lead()) {
+      T* aout = ra + (size_t)out_a * F;
+      if (op == OP_ANDA || op == OP_XORF) {
+        for (int f = tid; f < F; f += THREADS)
+          aout[f] = from_f<T>(op == OP_ANDA ? fminf(sm.aa[f], sm.ab[f])
+                                            : fabsf(sm.aa[f] - sm.ab[f]));
+      } else if (op == OP_HAS) {
+        for (int f = tid; f < F; f += THREADS)
+          aout[f] = from_f<T>(sigmoid_f(feat[(size_t)f * H]) *
+                              dr.keep(0, f, b, t, 3) * sm.vm[f]);
+      } else if (op == OP_EXF) {
+        float n2 = 0.f;
+        for (int k = tid; k < H; k += THREADS) n2 += sm.va[k] * sm.va[k];
+        const float nva = sqrtf(fmaxf(block_sum(n2, sm.red), 1e-30f));
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f, nx = 0.f;
+          for (int k = lane; k < H; k += 32) {
+            const float x = to_f(fa[(size_t)f * H + k]);
+            d += x * sm.va[k];
+            nx += x * x;
+          }
+          d = warp_sum(d);
+          nx = sqrtf(fmaxf(warp_sum(nx), 1e-30f));
+          if (lane == 0) {
+            const float c = d / fmaxf(nx * nva, COS_EPS);
+            aout[f] = from_f<T>((c + 1.0f) * 0.49f * sm.vm[f]);
+          }
         }
-        d = warp_sum(d);
-        nx = sqrtf(fmaxf(warp_sum(nx), 1e-30f));
-        if (lane == 0) {
-          const float c = d / fmaxf(nx * nva, COS_EPS);
-          aout[f] = from_f<T>((c + 1.0f) * 0.49f * sm.vm[f]);
+      } else if (op == OP_REL) {
+        const int f = tid;
+        const bool valid = f < F && sm.vm[f] > 0.f;
+        float x = 0.f;
+        if (f < F) {
+          const float beta = to_f(a.beta[f]);
+          x = mode == 1 ? sm.aa[f] - beta : sm.aa[f] + beta;
         }
-      }
-    } else if (op == OP_REL) {
-      const int f = tid;
-      const bool valid = f < F && sm.vm[f] > 0.f;
-      float x = 0.f;
-      if (f < F) {
-        const float beta = to_f(a.beta[f]);
-        x = mode == 1 ? sm.aa[f] - beta : sm.aa[f] + beta;
-      }
-      const float w = block_masked_softmax(x, valid, sm);
-      if (f < F) aout[f] = from_f<T>(w);
-    } else if (op == OP_LOC) {
-      const T* wk = a.w2t + 2 * (size_t)H * H;
-      const T* bk = a.b2t + 2 * (size_t)H;
-      vecmat<T>(sm.va, nullptr, nullptr, wk, H, H, [&](int n, float y) {
-        sm.x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
-      });
-      vecmat<T>(sm.vb, nullptr, nullptr, wk, H, H, [&](int n, float y) {
-        sm.x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
-      });
-      __syncthreads();
-      loc_cos<T>(sm.x1, feat, F, H, sm.f1, sm);
-      loc_cos<T>(sm.x2, feat, F, H, sm.f2, sm);
-      for (int f = tid; f < F; f += THREADS) {
-        aout[f] = from_f<T>(sm.f1[f]);
-        ra[(size_t)out_ab * F + f] = from_f<T>(sm.f2[f]);
+        const float w = block_masked_softmax(x, valid, sm);
+        if (f < F) aout[f] = from_f<T>(w);
+      } else if (op == OP_LOC) {
+        const T* wk = a.w2t + 2 * (size_t)H * H;
+        const T* bk = a.b2t + 2 * (size_t)H;
+        vecmat<T>(sm.va, nullptr, nullptr, wk, H, H, [&](int n, float y) {
+          sm.x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+        });
+        vecmat<T>(sm.vb, nullptr, nullptr, wk, H, H, [&](int n, float y) {
+          sm.x2[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
+        });
+        __syncthreads();
+        loc_cos<T>(sm.x1, feat, F, H, sm.f1, sm);
+        loc_cos<T>(sm.x2, feat, F, H, sm.f2, sm);
+        for (int f = tid; f < F; f += THREADS) {
+          aout[f] = from_f<T>(sm.f1[f]);
+          ra[(size_t)out_ab * F + f] = from_f<T>(sm.f2[f]);
+        }
       }
     }
     __syncthreads();
@@ -1219,6 +1254,7 @@ int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   a.H = H;
   a.L = L;
   a.fsoft = fsoft;
+  a.C = 1;
   a.dr = dr;
   const size_t smem = tc_smem_bytes(F, H, L);
   cudaError_t e = cudaFuncSetAttribute(
@@ -1244,7 +1280,8 @@ static_assert(2 * (FMA32_SMEM_BYTES + 1024) <= 233472,
 template <typename T, bool G32 = false>
 int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
            int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
-           int fsoft, stair::Dropout dr, cudaStream_t stream) {
+           int fsoft, stair::Dropout dr, cudaStream_t stream,
+           int cluster = 1, int* used = nullptr) {
   Args<T> a;
   a.fill(p);
   a.rv = (T*)rv;
@@ -1260,16 +1297,22 @@ int launch(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   a.H = H;
   a.L = L;
   a.fsoft = fsoft;
+  a.C = 1;
   a.dr = dr;
-  size_t smem = 0;
   if constexpr (G32) {
-    smem = FMA32_RING_BYTES;
+    const size_t smem = FMA32_RING_BYTES;
     cudaError_t e = cudaFuncSetAttribute(
         mega_exec_kernel<T, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = pick_cluster(mega_exec_kernel<T, true>, smem, B, H, cluster, &a.C);
+    if (used) *used = a.C;
+    if (e == cudaSuccess)
+      e = launch_clusters(mega_exec_kernel<T, true>, B, a.C, smem, stream, a);
     if (e != cudaSuccess) return (int)e;
+  } else {
+    mega_exec_kernel<T, false><<<B, THREADS, 0, stream>>>(a);
   }
-  mega_exec_kernel<T, G32><<<B, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1353,22 +1396,52 @@ static bool fma32_takes(int nptrs, int F, int H, int L) {
 // The "fma32" route (mega_exec_kernel<float, true>): float32 at the widths
 // fma32_takes, eval (#4, drop = 0) and training (#5); ops/mega_exec.py
 // fwd_route picks it. Arguments as stair_mega_exec_fwd's without the dtype
-// flag; ws: a float32 [B, 3, F, H] workspace. Its register files equal the
-// general route's bit for bit.
+// flag; ws: a float32 [B, 3, F, H] workspace. cluster: the CTAs of an
+// example's cluster, 0 for the launch's pick (mega32_cluster) or forced (a
+// divisor of H / G32_BN); *used gets the size launched. Its register files
+// equal the general route's bit for bit at every cluster size. A cluster
+// that cannot launch returns its error: nothing falls back.
 extern "C" int stair_mega_exec_fwd_fma32(
     const void* const* ptrs, int nptrs, void* rv, void* rf, void* ra,
     void* ws, int B, int T, int Nv, int Nf, int Na, int F, int H, int L,
     int fsoft, int drop, int seed0, int seed1, unsigned thresh, float scale,
-    void* stream) {
-  if (!fma32_takes(nptrs, F, H, L)) return (int)cudaErrorInvalidValue;
+    int cluster, int* used, void* stream) {
+  if (!fma32_takes(nptrs, F, H, L) || B <= 0 || cluster < 0)
+    return (int)cudaErrorInvalidValue;
   return launch<float, true>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L,
                              fsoft, stair::Dropout{drop, seed0, seed1, thresh,
                                                    scale},
-                             (cudaStream_t)stream);
+                             (cudaStream_t)stream, cluster, used);
 }
 
 // Shared memory of mega_exec_kernel<float, true> per block, static and
 // dynamic, in bytes (the same at every width).
 extern "C" long stair_mega_exec_fma32_smem() {
   return (long)FMA32_SMEM_BYTES;
+}
+
+// Clusters of c CTAs of mega_exec_kernel<float, true> that fit the current
+// card at once (cudaOccupancyMaxActiveClusters), or -1 on an error.
+extern "C" int stair_mega_exec_fma32_fit(int c) {
+  int fit = 0;
+  if (cudaFuncSetAttribute(mega_exec_kernel<float, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)FMA32_RING_BYTES) != cudaSuccess ||
+      clusters_fit(mega_exec_kernel<float, true>, FMA32_RING_BYTES, c, &fit) !=
+          cudaSuccess)
+    return -1;
+  return fit;
+}
+
+// The CTAs of an example's cluster that a launch of B examples at width H
+// takes on the current card (mega32_cluster), or -1 on an error.
+extern "C" int stair_mega_exec_fma32_cluster(int B, int H) {
+  int C = 0;
+  if (cudaFuncSetAttribute(mega_exec_kernel<float, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)FMA32_RING_BYTES) != cudaSuccess ||
+      pick_cluster(mega_exec_kernel<float, true>, FMA32_RING_BYTES, B, H, 0,
+                   &C) != cudaSuccess)
+    return -1;
+  return C;
 }

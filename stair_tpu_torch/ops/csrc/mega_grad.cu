@@ -46,8 +46,9 @@
 // forward's): mega_bwd_kernel<float, true> runs every [F, H]-sized product
 // (recompute and gradient alike, both B layouts) on gemm32 instead of gemm
 // (the prod wrapper; SUPF's two m1 products with K = F stay on gemm), as
-// mega_exec_kernel<float, true> does, so its recompute is the forward's by
-// construction and every output equals the general walk's bit for bit. Its
+// mega_exec_kernel<float, true> does, on the forward's thread-block cluster
+// mode (mega_common.cuh mega32_cluster), so its recompute is the forward's
+// by construction and every output equals the general walk's bit for bit. Its
 // weight gradients (mega_wgrad_index_kernel, then mega_wgrad_fma32_kernel)
 // list each table's record rows once instead of scanning meta in every
 // block, and stream them through register-blocked 64 x 64 tiles, each
@@ -157,6 +158,7 @@ struct BArgs : Tensors<T> {
   float* small;                    // [B, Small.size]
   float* ws;                       // [B, Ws.size]
   int B, T_, Nv, Nf, Na, F, H, L, fsoft;
+  int C;                           // CTAs of an example's cluster ("fma32")
   stair::Dropout dr;
 };
 
@@ -191,14 +193,16 @@ __device__ inline void sync() { __syncthreads(); }
 // The walk's [F, H]-sized products, C = A @ B with A(m, k) = A[m * lda +
 // k] and B(k, n) = W[k * ldw + n] (NK false) or W[n * ldw + k] (NK true):
 // gemm on its tiles (RA: A rounded to T as it is loaded), or, on the
-// "fma32" route (G32), gemm32 on its ring, which gives gemm's bits. So the
-// recompute products are the forward's by construction on either route.
+// "fma32" route (G32), gemm32 on its ring, which gives gemm's bits, this
+// CTA's columns of it on an example's cluster of C CTAs (gemm32_part:
+// called by every CTA of the cluster). So the recompute products are the
+// forward's by construction on either route.
 template <bool G32, bool RA, bool NK, typename T, typename TA, typename TW,
           typename S, typename Epi>
 __device__ void prod(const TA* A, int lda, const TW* W, int ldw, int M,
-                     int K, int N, S& s, Epi epi) {
+                     int K, int N, int C, S& s, Epi epi) {
   if constexpr (G32)
-    gemm32<NK, G32_WALK_BN>(A, lda, W, ldw, M, K, N, s.ring, epi);
+    gemm32_part<NK, G32_WALK_BN>(A, lda, W, ldw, M, K, N, C, s.ring, epi);
   else
     gemm<T, RA, false>(A, lda, 1, W, NK ? 1 : ldw, NK ? ldw : 1, M, K, N,
                        s.As, s.Bs, epi);
@@ -353,7 +357,12 @@ template <typename T, bool G32>
 __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
   extern __shared__ float smem[];
   __shared__ int ins[NSF];
-  const int b = blockIdx.x;
+  // G32: example b on a cluster of C = a.C CTAs (1: one CTA an example).
+  // Its CTA 0, the lead, runs every pass and writes every gradient and
+  // record; the others only compute their columns of each product (prod).
+  const int C = G32 ? a.C : 1;
+  const int b = (int)(blockIdx.x / C);
+  auto lead = [&] { return blockIdx.x % C == 0; };
   const int F = a.F, H = a.H, L = a.L, T_ = a.T_, Hh = H / 2;
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
   const int tid = threadIdx.x;
@@ -417,15 +426,17 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
 
   // ---- init: cotangents in (f32), accumulators zeroed -------------------
   for (int f = tid; f < F; f += THREADS) vm[f] = to_f(a.vm[(size_t)b * F + f]);
-  for (int i = tid; i < Nv * H; i += THREADS)
-    grv[i] = to_f(a.drv[(size_t)b * Nv * H + i]);
-  for (int i = tid; i < Na * F; i += THREADS)
-    gra[i] = to_f(a.dra[(size_t)b * Na * F + i]);
-  for (size_t i = tid; i < Nf * FH; i += THREADS)
-    grf[i] = to_f(a.drf[(size_t)b * Nf * FH + i]);
-  for (size_t i = tid; i < (size_t)L * H; i += THREADS) dtokw[i] = 0.f;
-  for (size_t i = tid; i < (size_t)T_ * H; i += THREADS) dauxw[i] = 0.f;
-  for (long i = tid; i < sl.size; i += THREADS) sp[i] = 0.f;
+  if (lead()) {
+    for (int i = tid; i < Nv * H; i += THREADS)
+      grv[i] = to_f(a.drv[(size_t)b * Nv * H + i]);
+    for (int i = tid; i < Na * F; i += THREADS)
+      gra[i] = to_f(a.dra[(size_t)b * Na * F + i]);
+    for (size_t i = tid; i < Nf * FH; i += THREADS)
+      grf[i] = to_f(a.drf[(size_t)b * Nf * FH + i]);
+    for (size_t i = tid; i < (size_t)L * H; i += THREADS) dtokw[i] = 0.f;
+    for (size_t i = tid; i < (size_t)T_ * H; i += THREADS) dauxw[i] = 0.f;
+    for (long i = tid; i < sl.size; i += THREADS) sp[i] = 0.f;
+  }
   sync();
 
   auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
@@ -444,7 +455,7 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     float* D3 = a.D3 + (size_t)rec * H;
     float* X4 = a.X4 + (size_t)rec * H;
     float* D4 = a.D4 + (size_t)rec * H;
-    if (tid < NSLOT) {
+    if (tid < NSLOT && lead()) {
       meta[tid * 3] = -1;
       meta[tid * 3 + 1] = 0;
       meta[tid * 3 + 2] = 0;
@@ -464,22 +475,24 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     const T* fa = rf + (size_t)ifa * FH;
     float* gfa = grf + (size_t)ifa * FH;
 
-    for (int j = tid; j < H; j += THREADS) {
-      va[j] = to_f(rv[(size_t)iva * H + j]);
-      vb[j] = to_f(rv[(size_t)ivb * H + j]);
-      gov[j] = grv[(size_t)out_v * H + j];
+    if (lead()) {
+      for (int j = tid; j < H; j += THREADS) {
+        va[j] = to_f(rv[(size_t)iva * H + j]);
+        vb[j] = to_f(rv[(size_t)ivb * H + j]);
+        gov[j] = grv[(size_t)out_v * H + j];
+      }
+      const bool loc_alias = op == OP_LOC && out_a == out_ab;
+      for (int f = tid; f < F; f += THREADS) {
+        s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
+        s.ab[f] = to_f(ra[(size_t)iab * F + f]);
+        s.goab[f] = gra[(size_t)out_ab * F + f];
+        s.goa[f] = loc_alias ? 0.f : gra[(size_t)out_a * F + f];
+      }
+      for (size_t i = tid; i < FH; i += THREADS) gfeat[i] = 0.f;
+      if (op == OP_FFV || op == OP_FFK || op == OP_TEMP || op == OP_ATTNV)
+        for (size_t i = tid; i < FH; i += THREADS)
+          gof[i] = grf[(size_t)out_f * FH + i];
     }
-    const bool loc_alias = op == OP_LOC && out_a == out_ab;
-    for (int f = tid; f < F; f += THREADS) {
-      s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
-      s.ab[f] = to_f(ra[(size_t)iab * F + f]);
-      s.goab[f] = gra[(size_t)out_ab * F + f];
-      s.goa[f] = loc_alias ? 0.f : gra[(size_t)out_a * F + f];
-    }
-    for (size_t i = tid; i < FH; i += THREADS) gfeat[i] = 0.f;
-    if (op == OP_FFV || op == OP_FFK || op == OP_TEMP || op == OP_ATTNV)
-      for (size_t i = tid; i < FH; i += THREADS)
-        gof[i] = grf[(size_t)out_f * FH + i];
     sync();
 
     // ---- stage-1 recompute: hidden into X1 (the w2u record's X), its
@@ -489,14 +502,14 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     const T* sw2 = a.w2u + (size_t)e1 * H * H;
     const T* sb2 = a.b2u + (size_t)e1 * H;
     if (e1 != 9) {
-      prod<G32, false, false, T>(fa, H, sw1, H, F, H, H, s,
+      prod<G32, false, false, T>(fa, H, sw1, H, F, H, H, C, s,
                             [&](int m, int n, float acc) {
         const float v = acc + to_f(sb1[n]);
         hpre[(size_t)m * H + n] = v;
         X1[(size_t)m * H + n] =
             rd<T>(fmaxf(v, 0.f) * dr.keep(m, n, b, t, 0));
       });
-      prod<G32, false, false, T>(X1, H, sw2, H, F, H, H, s,
+      prod<G32, false, false, T>(X1, H, sw2, H, F, H, H, C, s,
                             [&](int m, int n, float acc) {
         const float v = acc + to_f(sb2[n]);
         h2w[(size_t)m * H + n] = v;
@@ -506,268 +519,363 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     }
 
     // ================= vec producers ===================================
-    if (op == OP_PUSH) {
-      const int ss = ins[F_SS], se = ins[F_SE];
-      const T* tm = a.tm + (size_t)b * L;
-      auto span_w = [&](int p) {
-        const bool valid = to_f(tm[p]) > 0.f;
-        const bool in_span = p >= ss && p < se;
-        return (ss < 0 ? valid : (in_span && valid)) ? 1.f : 0.f;
-      };
-      float den = 0.f;
-      for (int p = 0; p < L; ++p) den += span_w(p);
-      den = fmaxf(den, 1.0f);
-      const bool is_aux = ss == -2;
-      for (int j = tid; j < H; j += THREADS) {
-        const float gp = is_aux ? 0.f : gov[j] / den;
-        for (int p = 0; p < L; ++p)
-          dtokw[(size_t)p * H + j] += span_w(p) * gp;
-        dauxw[(size_t)t * H + j] += is_aux ? gov[j] : 0.f;
-      }
-      sync();
-    } else if (op == OP_ANDV) {
-      for (int j = tid; j < H; j += THREADS) {
-        const float lt = va[j] < vb[j] ? 1.f : 0.f;
-        const float eq = va[j] == vb[j] ? 1.f : 0.f;
-        const float ga = gov[j] * (lt + 0.5f * eq);
-        grv[(size_t)iva * H + j] += ga;
-        grv[(size_t)ivb * H + j] += gov[j] - ga;
-      }
-      sync();
-    } else if (op == OP_CHOOSE) {
-      float dac = 0.f, dbc = 0.f, na = 0.f, nb = 0.f, nc = 0.f;
-      for (int j = tid; j < H; j += THREADS) {
-        const float c = to_f(rv[(size_t)ivc * H + j]);
-        dac += va[j] * c;
-        dbc += vb[j] * c;
-        na += va[j] * va[j];
-        nb += vb[j] * vb[j];
-        nc += c * c;
-      }
-      dac = block_sum(dac, s.red);
-      dbc = block_sum(dbc, s.red);
-      na = sqrtf(fmaxf(block_sum(na, s.red), 1e-30f));
-      nb = sqrtf(fmaxf(block_sum(nb, s.red), 1e-30f));
-      nc = sqrtf(fmaxf(block_sum(nc, s.red), 1e-30f));
-      const bool first =
-          dac / fmaxf(na * nc, COS_EPS) > dbc / fmaxf(nb * nc, COS_EPS);
-      for (int j = tid; j < H; j += THREADS) {
-        grv[(size_t)iva * H + j] += first ? gov[j] : 0.f;
-        grv[(size_t)ivb * H + j] += first ? 0.f : gov[j];
-      }
-      sync();
-    } else if (op == OP_CMP || op == OP_EQ || op == OP_XOR) {
-      // relu(lin over [d,] va, vb) backward (Compare / Equals / Xor)
-      const bool x = op == OP_XOR;
-      const T* w = op == OP_CMP ? a.cw : (op == OP_EQ ? a.eqw : a.xw);
-      const T* bb = op == OP_CMP ? a.cb : (op == OP_EQ ? a.eqb : a.xb);
-      const int nseg = x ? 3 : 2;
-      float* g1 = s.hv[9];
-      for (int j = tid; j < H; j += THREADS) {
-        const float d = fabsf(va[j] - vb[j]);
-        x1[j] = rd<T>(d);
-        if (x) {
-          X3[j] = x1[j];
-          X3[H + j] = va[j];
-          X3[2 * H + j] = vb[j];
-        } else {
-          X3[j] = va[j];
-          X3[H + j] = vb[j];
-        }
-      }
-      sync();
-      auto epi = [&](int n, float y) {
-        const float pre = rd<T>(rd<T>(y) + to_f(bb[n]));
-        g1[n] = pre > 0.f ? gov[n] : 0.f;
-        D3[n] = g1[n];
-      };
-      if (x)
-        vecmat<T>(x1, va, vb, w, H, H, epi);
-      else
-        vecmat<T>(va, vb, nullptr, w, H, H, epi);
-      set_meta(meta, 3, op == OP_CMP ? TB_CW : (op == OP_EQ ? TB_EQW : TB_XW),
-               0, 1);
-      sync();
-      // segment s of W^T: rows s*H .. s*H + H - 1
-      mmT_vec<T>(g1, w, H, H, H, u1);
-      mmT_vec<T>(g1, w + (size_t)H * H, H, H, H, u2);
-      if (x) {
-        mmT_vec<T>(g1, w + (size_t)2 * H * H, H, H, H, x2);
-        for (int j = tid; j < H; j += THREADS) {
-          const float sgn = va[j] - vb[j] >= 0.f ? 1.f : -1.f;
-          grv[(size_t)iva * H + j] += u1[j] * sgn + u2[j];
-          grv[(size_t)ivb * H + j] += -u1[j] * sgn + x2[j];
-        }
-      } else {
-        for (int j = tid; j < H; j += THREADS) {
-          grv[(size_t)iva * H + j] += u1[j];
-          grv[(size_t)ivb * H + j] += u2[j];
-        }
-      }
-      sync();
-    } else if (op == OP_QUERY) {
-      float* g1 = s.hv[9];
-      for (int j = tid; j < H; j += THREADS) X3[j] = va[j];
-      vecmat<T>(va, nullptr, nullptr, a.qw, H, H, [&](int n, float y) {
-        const float pre = rd<T>(rd<T>(y) + to_f(a.qb[n]));
-        g1[n] = pre > 0.f ? gov[n] * dr.keep(0, n, b, t, 4) : 0.f;
-        D3[n] = g1[n];
-      });
-      set_meta(meta, 3, TB_QW, 0, 1);
-      sync();
-      mmT_vec<T>(g1, a.qw, H, H, H, u1);
-      for (int j = tid; j < H; j += THREADS) grv[(size_t)iva * H + j] += u1[j];
-      sync();
-    } else if (op == OP_TOA || op == OP_EX) {
-      // Two-layer heads: pre1 = lin over segments, h = rd(relu(pre1) *
-      // mask), out = relu(lin_dt(h)) [* mask7 for Exists].
-      const bool ex = op == OP_EX;
-      const T* wA = ex ? a.exw1 : a.taw1;
-      const T* bA = ex ? a.exb1 : a.tab1;
-      const T* wB = ex ? a.exw2 : a.taw2;
-      const T* bB = ex ? a.exb2 : a.tab2;
-      const int siteA = ex ? 6 : 5;
-      float* pre1 = s.hv[8];
-      float* g2 = s.hv[9];
-      float* gh = s.hv[10];
-      float* hh = s.hv[11];
-      for (int j = tid; j < H; j += THREADS) {
-        x1[j] = rd<T>(vb[j] * va[j]);  // Exists' product operand
-        if (ex) {
-          X3[j] = vb[j];
-          X3[H + j] = va[j];
-          X3[2 * H + j] = x1[j];
-        } else {
-          X3[j] = va[j];
-          X3[H + j] = vb[j];
-        }
-      }
-      sync();
-      auto epiA = [&](int n, float y) {
-        pre1[n] = rd<T>(rd<T>(y) + to_f(bA[n]));
-        hh[n] = rd<T>(fmaxf(pre1[n], 0.f) * dr.keep(0, n, b, t, siteA));
-        X4[n] = hh[n];
-      };
-      if (ex)
-        vecmat<T>(vb, va, x1, wA, H, H, epiA);
-      else
-        vecmat<T>(va, vb, nullptr, wA, H, H, epiA);
-      sync();
-      vecmat<T>(hh, nullptr, nullptr, wB, H, H, [&](int n, float y) {
-        const float pre2 = rd<T>(rd<T>(y) + to_f(bB[n]));
-        const float g = ex ? gov[n] * dr.keep(0, n, b, t, 7) : gov[n];
-        g2[n] = pre2 > 0.f ? g : 0.f;
-        D4[n] = g2[n];
-      });
-      set_meta(meta, 4, ex ? TB_EXW2 : TB_TAW2, 0, 1);
-      sync();
-      mmT_vec<T>(g2, wB, H, H, H, u1);
-      for (int j = tid; j < H; j += THREADS) {
-        gh[j] = pre1[j] > 0.f ? u1[j] * dr.keep(0, j, b, t, siteA) : 0.f;
-        D3[j] = gh[j];
-      }
-      set_meta(meta, 3, ex ? TB_EXW1 : TB_TAW1, 0, 1);
-      sync();
-      mmT_vec<T>(gh, wA, H, H, H, u1);
-      mmT_vec<T>(gh, wA + (size_t)H * H, H, H, H, u2);
-      if (ex) {
-        mmT_vec<T>(gh, wA + (size_t)2 * H * H, H, H, H, x2);  // g3
-        for (int j = tid; j < H; j += THREADS) {
-          grv[(size_t)ivb * H + j] += u1[j] + x2[j] * va[j];
-          grv[(size_t)iva * H + j] += u2[j] + x2[j] * vb[j];
-        }
-      } else {
-        for (int j = tid; j < H; j += THREADS) {
-          grv[(size_t)iva * H + j] += u1[j];
-          grv[(size_t)ivb * H + j] += u2[j];
-        }
-      }
-      sync();
-    } else if (op == OP_FV || op == OP_FK) {
-      float* wvm = s.fv[0];   // w * vm
-      float* soft = s.fv[1];
-      float* gpool = s.hv[10];
-      float* g1 = s.hv[9];
-      const bool sm_on = a.fsoft && op == OP_FV;
-      if (a.fsoft) {
-        for (int f = warp; f < F; f += NWARPS) {
-          float d = 0.f;
-          for (int k = lane; k < H; k += 32)
-            d += feat[(size_t)f * H + k] * to_f(a.fltw[k]);
-          d = warp_sum(d);
-          if (lane == 0) s.fv[2][f] = d;
-        }
-        float kb = 0.f;
-        for (int k = tid; k < H; k += THREADS) kb += va[k] * to_f(a.fltk[k]);
-        kb = block_sum(kb, s.red) + to_f(a.fltb[0]);
-        const int f = tid;
-        const bool valid = f < F && vm[f] > 0.f;
-        const float x = f < F ? s.fv[2][f] + kb : 0.f;
-        const float sw = block_masked_softmax(x, valid, s.red);
-        if (f < F) {
-          soft[f] = sw;
-          wvm[f] = (op == OP_FV ? sw : vm[f]) * vm[f];
-        }
-      } else {
-        for (int f = tid; f < F; f += THREADS) wvm[f] = vm[f] * vm[f];
-      }
-      sync();
-      for (int k = tid; k < H; k += THREADS) {
-        float p = 0.f;
-        for (int f = 0; f < F; ++f) p += feat[(size_t)f * H + k] * wvm[f];
-        x1[k] = rd<T>(p);
-        X3[k] = x1[k];
-      }
-      sync();
-      vecmat<T>(x1, nullptr, nullptr, a.fdw, H, H, [&](int n, float y) {
-        const float pre = rd<T>(rd<T>(y) + to_f(a.fdb[n]));
-        g1[n] = pre > 0.f ? gov[n] : 0.f;
-        D3[n] = g1[n];
-      });
-      set_meta(meta, 3, TB_FDW, 0, 1);
-      sync();
-      mmT_vec<T>(g1, a.fdw, H, H, H, gpool);
-      for (size_t i = tid; i < FH; i += THREADS)
-        gfeat[i] += wvm[i / H] * gpool[i % H];
-      sync();
-      if (sm_on) {
-        float* gw = s.fv[2];
-        float* gl = s.fv[3];
-        for (int f = warp; f < F; f += NWARPS) {
-          float d = 0.f;
-          for (int k = lane; k < H; k += 32)
-            d += feat[(size_t)f * H + k] * gpool[k];
-          d = warp_sum(d);
-          if (lane == 0) gw[f] = d * vm[f];
-        }
-        sync();
-        float dl = 0.f;
-        for (int f = tid; f < F; f += THREADS) dl += gw[f] * soft[f];
-        const float dot = block_sum(dl, s.red);
-        for (int f = tid; f < F; f += THREADS)
-          gl[f] = soft[f] * (gw[f] - dot);
-        sync();
-        for (size_t i = tid; i < FH; i += THREADS)
-          gfeat[i] += gl[i / H] * to_f(a.fltw[i % H]);
-        float gs = 0.f;
-        for (int f = tid; f < F; f += THREADS) gs += gl[f];
-        const float gkb = block_sum(gs, s.red);
-        for (int k = tid; k < H; k += THREADS) {
-          float acc = 0.f;
-          for (int f = 0; f < F; ++f)
-            acc += feat[(size_t)f * H + k] * rd<T>(gl[f]);
-          sp[sl.fltw + k] += acc;
-          sp[sl.fltk + k] += va[k] * gkb;
-          grv[(size_t)iva * H + k] += gkb * to_f(a.fltk[k]);
-        }
-        if (tid == 0) sp[sl.fltb] += gkb;
-        sync();
-      }
-    } else if (op == OP_LOC || op == OP_SUPV || op == OP_SUPF) {
+    // (SUPF's products on every CTA of the cluster, the rest on the lead)
+    if (op == OP_SUPF) {
       const T* wk = a.w2t + 2 * (size_t)H * H;
       const T* bk = a.b2t + 2 * (size_t)H;
-      float* gkw = s.hv[11];
-      if (op != OP_SUPF) {
+      // SUPF: kw_f = lin_dt(fb, w2t[2], b2t[2]) [F, H] into w1 (the
+      // forward's product), cosine matrix vs feat, superlative VJP over
+      // the F candidate rows of fb, then the cosine-matrix VJP.
+      const T* fb = rf + (size_t)ifb * FH;
+      float* gfb = grf + (size_t)ifb * FH;
+      prod<G32, false, false, T>(fb, H, wk, H, F, H, H, C, s,
+                            [&](int m, int n, float acc) {
+        w1[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
+      });
+      prod<G32, false, true, T>(w1, H, feat, H, F, H, F, C, s,
+                            [&](int m, int n, float acc) {
+        m2[(size_t)m * F + n] = acc;  // dots[i][f]
+      });
+      if (lead()) {
+        float* nk = s.fv[0];
+        float* nf = s.fv[1];
+        float* ssk = s.fv[2];
+        float* ssf = s.fv[3];
+        for (int r = warp; r < F; r += NWARPS) {
+          float n1 = 0.f, n2 = 0.f;
+          for (int k = lane; k < H; k += 32) {
+            const float x = w1[(size_t)r * H + k], y = feat[(size_t)r * H + k];
+            n1 += x * x;
+            n2 += y * y;
+          }
+          n1 = warp_sum(n1);
+          n2 = warp_sum(n2);
+          if (lane == 0) {
+            ssk[r] = n1;
+            ssf[r] = n2;
+            nk[r] = sqrtf(fmaxf(n1, 1e-30f));
+            nf[r] = sqrtf(fmaxf(n2, 1e-30f));
+          }
+        }
+        sync();
+        for (int i = tid; i < F * F; i += THREADS) {
+          const int r = i / F, f = i % F;
+          const float c = m2[i] / fmaxf(nk[r] * nf[f], COS_EPS);
+          m1[i] = (c + 1.0f) * 0.49f * vm[f];
+        }
+        sync();
+        float* wv = s.fv[4];
+        float* grow = s.fv[5];
+        superlative_bwd<T>(
+            F, [&](int k, int f) { return m1[(size_t)k * F + f]; },
+            [&](int k, int j) { return to_f(fb[(size_t)k * H + j]); }, vm,
+            mode, a.supw, a.supb, gov, H, F, wv, grow, u1, X3, D3, meta, s);
+        for (size_t i = tid; i < FH; i += THREADS)
+          gfb[i] += wv[i / H] * u1[i % H];
+        // gcosm [F, F] into m1; then gdot (m1) and gden (m2)
+        for (int i = tid; i < F * F; i += THREADS) {
+          const int r = i / F, f = i % F;
+          const float g = grow[r] * vm[f] * 0.49f * vm[f];
+          const float prod = nk[r] * nf[f];
+          const float den = fmaxf(prod, COS_EPS);
+          m1[i] = g / den;
+          m2[i] = prod > COS_EPS ? -g * m2[i] / (den * den) : 0.f;
+        }
+        sync();
+        float* dnk = s.fv[6];
+        float* dnf = s.fv[7];
+        for (int r = tid; r < F; r += THREADS) {
+          float gk = 0.f, gf = 0.f;
+          for (int q = 0; q < F; ++q) {
+            gk += m2[(size_t)r * F + q] * nf[q];
+            gf += m2[(size_t)q * F + r] * nk[q];
+          }
+          dnk[r] = ssk[r] > 1e-30f ? gk / (2.0f * nk[r]) : 0.f;
+          dnf[r] = ssf[r] > 1e-30f ? gf / (2.0f * nf[r]) : 0.f;
+        }
+        sync();
+        // g_kf = gdot @ feat + 2 dnk kf -> D2 (the w2t[2] record's dY)
+        gemm<T, false, false>(m1, F, 1, feat, H, 1, F, F, H, s.As, s.Bs,
+                              [&](int m, int n, float acc) {
+          D2[(size_t)m * H + n] = acc + 2.0f * dnk[m] * w1[(size_t)m * H + n];
+        });
+        // g_feat = gdot^T @ kf + 2 dnf feat
+        gemm<T, false, false>(m1, 1, F, w1, H, 1, F, F, H, s.As, s.Bs,
+                              [&](int m, int n, float acc) {
+          gfeat[(size_t)m * H + n] +=
+              acc + 2.0f * dnf[m] * feat[(size_t)m * H + n];
+        });
+        for (size_t i = tid; i < FH; i += THREADS) X2[i] = to_f(fb[i]);
+        set_meta(meta, 2, TB_W2T, 2, F);
+      }
+      // fb += mmT(g_kf, w2t[2])
+      prod<G32, true, true, T>(D2, H, wk, H, F, H, H, C, s,
+                           [&](int m, int n, float acc) {
+        gfb[(size_t)m * H + n] += acc;
+      });
+    } else if (lead()) {
+      if (op == OP_PUSH) {
+        const int ss = ins[F_SS], se = ins[F_SE];
+        const T* tm = a.tm + (size_t)b * L;
+        auto span_w = [&](int p) {
+          const bool valid = to_f(tm[p]) > 0.f;
+          const bool in_span = p >= ss && p < se;
+          return (ss < 0 ? valid : (in_span && valid)) ? 1.f : 0.f;
+        };
+        float den = 0.f;
+        for (int p = 0; p < L; ++p) den += span_w(p);
+        den = fmaxf(den, 1.0f);
+        const bool is_aux = ss == -2;
+        for (int j = tid; j < H; j += THREADS) {
+          const float gp = is_aux ? 0.f : gov[j] / den;
+          for (int p = 0; p < L; ++p)
+            dtokw[(size_t)p * H + j] += span_w(p) * gp;
+          dauxw[(size_t)t * H + j] += is_aux ? gov[j] : 0.f;
+        }
+        sync();
+      } else if (op == OP_ANDV) {
+        for (int j = tid; j < H; j += THREADS) {
+          const float lt = va[j] < vb[j] ? 1.f : 0.f;
+          const float eq = va[j] == vb[j] ? 1.f : 0.f;
+          const float ga = gov[j] * (lt + 0.5f * eq);
+          grv[(size_t)iva * H + j] += ga;
+          grv[(size_t)ivb * H + j] += gov[j] - ga;
+        }
+        sync();
+      } else if (op == OP_CHOOSE) {
+        float dac = 0.f, dbc = 0.f, na = 0.f, nb = 0.f, nc = 0.f;
+        for (int j = tid; j < H; j += THREADS) {
+          const float c = to_f(rv[(size_t)ivc * H + j]);
+          dac += va[j] * c;
+          dbc += vb[j] * c;
+          na += va[j] * va[j];
+          nb += vb[j] * vb[j];
+          nc += c * c;
+        }
+        dac = block_sum(dac, s.red);
+        dbc = block_sum(dbc, s.red);
+        na = sqrtf(fmaxf(block_sum(na, s.red), 1e-30f));
+        nb = sqrtf(fmaxf(block_sum(nb, s.red), 1e-30f));
+        nc = sqrtf(fmaxf(block_sum(nc, s.red), 1e-30f));
+        const bool first =
+            dac / fmaxf(na * nc, COS_EPS) > dbc / fmaxf(nb * nc, COS_EPS);
+        for (int j = tid; j < H; j += THREADS) {
+          grv[(size_t)iva * H + j] += first ? gov[j] : 0.f;
+          grv[(size_t)ivb * H + j] += first ? 0.f : gov[j];
+        }
+        sync();
+      } else if (op == OP_CMP || op == OP_EQ || op == OP_XOR) {
+        // relu(lin over [d,] va, vb) backward (Compare / Equals / Xor)
+        const bool x = op == OP_XOR;
+        const T* w = op == OP_CMP ? a.cw : (op == OP_EQ ? a.eqw : a.xw);
+        const T* bb = op == OP_CMP ? a.cb : (op == OP_EQ ? a.eqb : a.xb);
+        const int nseg = x ? 3 : 2;
+        float* g1 = s.hv[9];
+        for (int j = tid; j < H; j += THREADS) {
+          const float d = fabsf(va[j] - vb[j]);
+          x1[j] = rd<T>(d);
+          if (x) {
+            X3[j] = x1[j];
+            X3[H + j] = va[j];
+            X3[2 * H + j] = vb[j];
+          } else {
+            X3[j] = va[j];
+            X3[H + j] = vb[j];
+          }
+        }
+        sync();
+        auto epi = [&](int n, float y) {
+          const float pre = rd<T>(rd<T>(y) + to_f(bb[n]));
+          g1[n] = pre > 0.f ? gov[n] : 0.f;
+          D3[n] = g1[n];
+        };
+        if (x)
+          vecmat<T>(x1, va, vb, w, H, H, epi);
+        else
+          vecmat<T>(va, vb, nullptr, w, H, H, epi);
+        set_meta(meta, 3, op == OP_CMP ? TB_CW : (op == OP_EQ ? TB_EQW : TB_XW),
+                 0, 1);
+        sync();
+        // segment s of W^T: rows s*H .. s*H + H - 1
+        mmT_vec<T>(g1, w, H, H, H, u1);
+        mmT_vec<T>(g1, w + (size_t)H * H, H, H, H, u2);
+        if (x) {
+          mmT_vec<T>(g1, w + (size_t)2 * H * H, H, H, H, x2);
+          for (int j = tid; j < H; j += THREADS) {
+            const float sgn = va[j] - vb[j] >= 0.f ? 1.f : -1.f;
+            grv[(size_t)iva * H + j] += u1[j] * sgn + u2[j];
+            grv[(size_t)ivb * H + j] += -u1[j] * sgn + x2[j];
+          }
+        } else {
+          for (int j = tid; j < H; j += THREADS) {
+            grv[(size_t)iva * H + j] += u1[j];
+            grv[(size_t)ivb * H + j] += u2[j];
+          }
+        }
+        sync();
+      } else if (op == OP_QUERY) {
+        float* g1 = s.hv[9];
+        for (int j = tid; j < H; j += THREADS) X3[j] = va[j];
+        vecmat<T>(va, nullptr, nullptr, a.qw, H, H, [&](int n, float y) {
+          const float pre = rd<T>(rd<T>(y) + to_f(a.qb[n]));
+          g1[n] = pre > 0.f ? gov[n] * dr.keep(0, n, b, t, 4) : 0.f;
+          D3[n] = g1[n];
+        });
+        set_meta(meta, 3, TB_QW, 0, 1);
+        sync();
+        mmT_vec<T>(g1, a.qw, H, H, H, u1);
+        for (int j = tid; j < H; j += THREADS)
+          grv[(size_t)iva * H + j] += u1[j];
+        sync();
+      } else if (op == OP_TOA || op == OP_EX) {
+        // Two-layer heads: pre1 = lin over segments, h = rd(relu(pre1) *
+        // mask), out = relu(lin_dt(h)) [* mask7 for Exists].
+        const bool ex = op == OP_EX;
+        const T* wA = ex ? a.exw1 : a.taw1;
+        const T* bA = ex ? a.exb1 : a.tab1;
+        const T* wB = ex ? a.exw2 : a.taw2;
+        const T* bB = ex ? a.exb2 : a.tab2;
+        const int siteA = ex ? 6 : 5;
+        float* pre1 = s.hv[8];
+        float* g2 = s.hv[9];
+        float* gh = s.hv[10];
+        float* hh = s.hv[11];
+        for (int j = tid; j < H; j += THREADS) {
+          x1[j] = rd<T>(vb[j] * va[j]);  // Exists' product operand
+          if (ex) {
+            X3[j] = vb[j];
+            X3[H + j] = va[j];
+            X3[2 * H + j] = x1[j];
+          } else {
+            X3[j] = va[j];
+            X3[H + j] = vb[j];
+          }
+        }
+        sync();
+        auto epiA = [&](int n, float y) {
+          pre1[n] = rd<T>(rd<T>(y) + to_f(bA[n]));
+          hh[n] = rd<T>(fmaxf(pre1[n], 0.f) * dr.keep(0, n, b, t, siteA));
+          X4[n] = hh[n];
+        };
+        if (ex)
+          vecmat<T>(vb, va, x1, wA, H, H, epiA);
+        else
+          vecmat<T>(va, vb, nullptr, wA, H, H, epiA);
+        sync();
+        vecmat<T>(hh, nullptr, nullptr, wB, H, H, [&](int n, float y) {
+          const float pre2 = rd<T>(rd<T>(y) + to_f(bB[n]));
+          const float g = ex ? gov[n] * dr.keep(0, n, b, t, 7) : gov[n];
+          g2[n] = pre2 > 0.f ? g : 0.f;
+          D4[n] = g2[n];
+        });
+        set_meta(meta, 4, ex ? TB_EXW2 : TB_TAW2, 0, 1);
+        sync();
+        mmT_vec<T>(g2, wB, H, H, H, u1);
+        for (int j = tid; j < H; j += THREADS) {
+          gh[j] = pre1[j] > 0.f ? u1[j] * dr.keep(0, j, b, t, siteA) : 0.f;
+          D3[j] = gh[j];
+        }
+        set_meta(meta, 3, ex ? TB_EXW1 : TB_TAW1, 0, 1);
+        sync();
+        mmT_vec<T>(gh, wA, H, H, H, u1);
+        mmT_vec<T>(gh, wA + (size_t)H * H, H, H, H, u2);
+        if (ex) {
+          mmT_vec<T>(gh, wA + (size_t)2 * H * H, H, H, H, x2);  // g3
+          for (int j = tid; j < H; j += THREADS) {
+            grv[(size_t)ivb * H + j] += u1[j] + x2[j] * va[j];
+            grv[(size_t)iva * H + j] += u2[j] + x2[j] * vb[j];
+          }
+        } else {
+          for (int j = tid; j < H; j += THREADS) {
+            grv[(size_t)iva * H + j] += u1[j];
+            grv[(size_t)ivb * H + j] += u2[j];
+          }
+        }
+        sync();
+      } else if (op == OP_FV || op == OP_FK) {
+        float* wvm = s.fv[0];   // w * vm
+        float* soft = s.fv[1];
+        float* gpool = s.hv[10];
+        float* g1 = s.hv[9];
+        const bool sm_on = a.fsoft && op == OP_FV;
+        if (a.fsoft) {
+          for (int f = warp; f < F; f += NWARPS) {
+            float d = 0.f;
+            for (int k = lane; k < H; k += 32)
+              d += feat[(size_t)f * H + k] * to_f(a.fltw[k]);
+            d = warp_sum(d);
+            if (lane == 0) s.fv[2][f] = d;
+          }
+          float kb = 0.f;
+          for (int k = tid; k < H; k += THREADS) kb += va[k] * to_f(a.fltk[k]);
+          kb = block_sum(kb, s.red) + to_f(a.fltb[0]);
+          const int f = tid;
+          const bool valid = f < F && vm[f] > 0.f;
+          const float x = f < F ? s.fv[2][f] + kb : 0.f;
+          const float sw = block_masked_softmax(x, valid, s.red);
+          if (f < F) {
+            soft[f] = sw;
+            wvm[f] = (op == OP_FV ? sw : vm[f]) * vm[f];
+          }
+        } else {
+          for (int f = tid; f < F; f += THREADS) wvm[f] = vm[f] * vm[f];
+        }
+        sync();
+        for (int k = tid; k < H; k += THREADS) {
+          float p = 0.f;
+          for (int f = 0; f < F; ++f) p += feat[(size_t)f * H + k] * wvm[f];
+          x1[k] = rd<T>(p);
+          X3[k] = x1[k];
+        }
+        sync();
+        vecmat<T>(x1, nullptr, nullptr, a.fdw, H, H, [&](int n, float y) {
+          const float pre = rd<T>(rd<T>(y) + to_f(a.fdb[n]));
+          g1[n] = pre > 0.f ? gov[n] : 0.f;
+          D3[n] = g1[n];
+        });
+        set_meta(meta, 3, TB_FDW, 0, 1);
+        sync();
+        mmT_vec<T>(g1, a.fdw, H, H, H, gpool);
+        for (size_t i = tid; i < FH; i += THREADS)
+          gfeat[i] += wvm[i / H] * gpool[i % H];
+        sync();
+        if (sm_on) {
+          float* gw = s.fv[2];
+          float* gl = s.fv[3];
+          for (int f = warp; f < F; f += NWARPS) {
+            float d = 0.f;
+            for (int k = lane; k < H; k += 32)
+              d += feat[(size_t)f * H + k] * gpool[k];
+            d = warp_sum(d);
+            if (lane == 0) gw[f] = d * vm[f];
+          }
+          sync();
+          float dl = 0.f;
+          for (int f = tid; f < F; f += THREADS) dl += gw[f] * soft[f];
+          const float dot = block_sum(dl, s.red);
+          for (int f = tid; f < F; f += THREADS)
+            gl[f] = soft[f] * (gw[f] - dot);
+          sync();
+          for (size_t i = tid; i < FH; i += THREADS)
+            gfeat[i] += gl[i / H] * to_f(a.fltw[i % H]);
+          float gs = 0.f;
+          for (int f = tid; f < F; f += THREADS) gs += gl[f];
+          const float gkb = block_sum(gs, s.red);
+          for (int k = tid; k < H; k += THREADS) {
+            float acc = 0.f;
+            for (int f = 0; f < F; ++f)
+              acc += feat[(size_t)f * H + k] * rd<T>(gl[f]);
+            sp[sl.fltw + k] += acc;
+            sp[sl.fltk + k] += va[k] * gkb;
+            grv[(size_t)iva * H + k] += gkb * to_f(a.fltk[k]);
+          }
+          if (tid == 0) sp[sl.fltb] += gkb;
+          sync();
+        }
+      } else if (op == OP_LOC || op == OP_SUPV) {
+        const T* wk = a.w2t + 2 * (size_t)H * H;
+        const T* bk = a.b2t + 2 * (size_t)H;
+        float* gkw = s.hv[11];
         // keywords ka, kb = lin_dt(va|vb, w2t[2], b2t[2]) into x1, x2
         vecmat<T>(va, nullptr, nullptr, wk, H, H, [&](int n, float y) {
           x1[n] = rd<T>(rd<T>(y) + to_f(bk[n]));
@@ -854,155 +962,70 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
           sync();
         }
         set_meta(meta, 2, TB_W2T, 2, 2);
-      } else {
-        // SUPF: kw_f = lin_dt(fb, w2t[2], b2t[2]) [F, H] into w1 (the
-        // forward's product), cosine matrix vs feat, superlative VJP over
-        // the F candidate rows of fb, then the cosine-matrix VJP.
-        const T* fb = rf + (size_t)ifb * FH;
-        float* gfb = grf + (size_t)ifb * FH;
-        prod<G32, false, false, T>(fb, H, wk, H, F, H, H, s,
-                              [&](int m, int n, float acc) {
-          w1[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
-        });
-        prod<G32, false, true, T>(w1, H, feat, H, F, H, F, s,
-                              [&](int m, int n, float acc) {
-          m2[(size_t)m * F + n] = acc;  // dots[i][f]
-        });
-        float* nk = s.fv[0];
-        float* nf = s.fv[1];
-        float* ssk = s.fv[2];
-        float* ssf = s.fv[3];
-        for (int r = warp; r < F; r += NWARPS) {
-          float n1 = 0.f, n2 = 0.f;
-          for (int k = lane; k < H; k += 32) {
-            const float x = w1[(size_t)r * H + k], y = feat[(size_t)r * H + k];
-            n1 += x * x;
-            n2 += y * y;
-          }
-          n1 = warp_sum(n1);
-          n2 = warp_sum(n2);
-          if (lane == 0) {
-            ssk[r] = n1;
-            ssf[r] = n2;
-            nk[r] = sqrtf(fmaxf(n1, 1e-30f));
-            nf[r] = sqrtf(fmaxf(n2, 1e-30f));
-          }
-        }
-        sync();
-        for (int i = tid; i < F * F; i += THREADS) {
-          const int r = i / F, f = i % F;
-          const float c = m2[i] / fmaxf(nk[r] * nf[f], COS_EPS);
-          m1[i] = (c + 1.0f) * 0.49f * vm[f];
-        }
-        sync();
-        float* wv = s.fv[4];
-        float* grow = s.fv[5];
-        superlative_bwd<T>(
-            F, [&](int k, int f) { return m1[(size_t)k * F + f]; },
-            [&](int k, int j) { return to_f(fb[(size_t)k * H + j]); }, vm,
-            mode, a.supw, a.supb, gov, H, F, wv, grow, u1, X3, D3, meta, s);
-        for (size_t i = tid; i < FH; i += THREADS)
-          gfb[i] += wv[i / H] * u1[i % H];
-        // gcosm [F, F] into m1; then gdot (m1) and gden (m2)
-        for (int i = tid; i < F * F; i += THREADS) {
-          const int r = i / F, f = i % F;
-          const float g = grow[r] * vm[f] * 0.49f * vm[f];
-          const float prod = nk[r] * nf[f];
-          const float den = fmaxf(prod, COS_EPS);
-          m1[i] = g / den;
-          m2[i] = prod > COS_EPS ? -g * m2[i] / (den * den) : 0.f;
-        }
-        sync();
-        float* dnk = s.fv[6];
-        float* dnf = s.fv[7];
-        for (int r = tid; r < F; r += THREADS) {
-          float gk = 0.f, gf = 0.f;
-          for (int q = 0; q < F; ++q) {
-            gk += m2[(size_t)r * F + q] * nf[q];
-            gf += m2[(size_t)q * F + r] * nk[q];
-          }
-          dnk[r] = ssk[r] > 1e-30f ? gk / (2.0f * nk[r]) : 0.f;
-          dnf[r] = ssf[r] > 1e-30f ? gf / (2.0f * nf[r]) : 0.f;
-        }
-        sync();
-        // g_kf = gdot @ feat + 2 dnk kf -> D2 (the w2t[2] record's dY)
-        gemm<T, false, false>(m1, F, 1, feat, H, 1, F, F, H, s.As, s.Bs,
-                              [&](int m, int n, float acc) {
-          D2[(size_t)m * H + n] = acc + 2.0f * dnk[m] * w1[(size_t)m * H + n];
-        });
-        // g_feat = gdot^T @ kf + 2 dnf feat
-        gemm<T, false, false>(m1, 1, F, w1, H, 1, F, F, H, s.As, s.Bs,
-                              [&](int m, int n, float acc) {
-          gfeat[(size_t)m * H + n] +=
-              acc + 2.0f * dnf[m] * feat[(size_t)m * H + n];
-        });
-        for (size_t i = tid; i < FH; i += THREADS) X2[i] = to_f(fb[i]);
-        set_meta(meta, 2, TB_W2T, 2, F);
-        // fb += mmT(g_kf, w2t[2])
-        prod<G32, true, true, T>(D2, H, wk, H, F, H, H, s,
-                             [&](int m, int n, float acc) {
-          gfb[(size_t)m * H + n] += acc;
-        });
       }
     }
 
     // ================= frames producers ================================
     if (op == OP_FFV || op == OP_FFK) {
       float* gate = s.fv[0];
-      float gk = 0.f;
-      for (int k = tid; k < H; k += THREADS) gk += va[k] * to_f(a.ffkw[k]);
-      gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f;
-        for (int k = lane; k < H; k += 32)
-          d += feat[(size_t)f * H + k] * to_f(a.ffwf[k]);
-        d = warp_sum(d);
-        if (lane == 0) gate[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+      if (lead()) {
+        float gk = 0.f;
+        for (int k = tid; k < H; k += THREADS) gk += va[k] * to_f(a.ffkw[k]);
+        gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32)
+            d += feat[(size_t)f * H + k] * to_f(a.ffwf[k]);
+          d = warp_sum(d);
+          if (lane == 0) gate[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+        }
+        sync();
+        for (size_t i = tid; i < FH; i += THREADS)
+          X2[i] = rd<T>(gate[i / H] * feat[i]);
+        sync();
       }
-      sync();
-      for (size_t i = tid; i < FH; i += THREADS)
-        X2[i] = rd<T>(gate[i / H] * feat[i]);
-      sync();
-      prod<G32, false, false, T>(X2, H, a.w2t, H, F, H, H, s,
+      prod<G32, false, false, T>(X2, H, a.w2t, H, F, H, H, C, s,
                             [&](int m, int n, float acc) {
         const float y2 = acc + to_f(a.b2t[n]);
         D2[(size_t)m * H + n] = y2 > 0.f
             ? gof[(size_t)m * H + n] * vm[m] * dr.keep(m, n, b, t, 2)
             : 0.f;
       });
-      set_meta(meta, 2, TB_W2T, 0, F);
-      prod<G32, true, true, T>(D2, H, a.w2t, H, F, H, H, s,
+      if (lead()) set_meta(meta, 2, TB_W2T, 0, F);
+      prod<G32, true, true, T>(D2, H, a.w2t, H, F, H, H, C, s,
                            [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
-      for (size_t i = tid; i < FH; i += THREADS)
-        gfeat[i] += gate[i / H] * w2[i];
-      sync();
-      if (op == OP_FFV) {
-        float* gpre = s.fv[1];
-        for (int f = warp; f < F; f += NWARPS) {
-          float d = 0.f;
-          for (int k = lane; k < H; k += 32)
-            d += w2[(size_t)f * H + k] * feat[(size_t)f * H + k];
-          d = warp_sum(d);
-          if (lane == 0) gpre[f] = d * gate[f] * (1.0f - gate[f]);
-        }
-        sync();
+      if (lead()) {
         for (size_t i = tid; i < FH; i += THREADS)
-          gfeat[i] += gpre[i / H] * to_f(a.ffwf[i % H]);
-        float gs = 0.f;
-        for (int f = tid; f < F; f += THREADS) gs += gpre[f];
-        const float ggk = block_sum(gs, s.red);
-        for (int k = tid; k < H; k += THREADS) {
-          float acc = 0.f;
-          for (int f = 0; f < F; ++f)
-            acc += feat[(size_t)f * H + k] * rd<T>(gpre[f]);
-          sp[sl.ffwf + k] += acc;
-          sp[sl.ffkw + k] += va[k] * ggk;
-          grv[(size_t)iva * H + k] += ggk * to_f(a.ffkw[k]);
-        }
-        if (tid == 0) sp[sl.ffab] += ggk;
+          gfeat[i] += gate[i / H] * w2[i];
         sync();
+        if (op == OP_FFV) {
+          float* gpre = s.fv[1];
+          for (int f = warp; f < F; f += NWARPS) {
+            float d = 0.f;
+            for (int k = lane; k < H; k += 32)
+              d += w2[(size_t)f * H + k] * feat[(size_t)f * H + k];
+            d = warp_sum(d);
+            if (lane == 0) gpre[f] = d * gate[f] * (1.0f - gate[f]);
+          }
+          sync();
+          for (size_t i = tid; i < FH; i += THREADS)
+            gfeat[i] += gpre[i / H] * to_f(a.ffwf[i % H]);
+          float gs = 0.f;
+          for (int f = tid; f < F; f += THREADS) gs += gpre[f];
+          const float ggk = block_sum(gs, s.red);
+          for (int k = tid; k < H; k += THREADS) {
+            float acc = 0.f;
+            for (int f = 0; f < F; ++f)
+              acc += feat[(size_t)f * H + k] * rd<T>(gpre[f]);
+            sp[sl.ffwf + k] += acc;
+            sp[sl.ffkw + k] += va[k] * ggk;
+            grv[(size_t)iva * H + k] += ggk * to_f(a.ffkw[k]);
+          }
+          if (tid == 0) sp[sl.ffab] += ggk;
+          sync();
+        }
       }
     } else if (op == OP_TEMP) {
       const int midx = mode - 1 > 0 ? mode - 1 : 0;
@@ -1013,144 +1036,151 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
       float *am = s.fv[0], *p1 = s.fv[1], *h1 = s.fv[2], *p2 = s.fv[3];
       float *hh2 = s.fv[4], *gsig = s.fv[5], *rel = s.fv[6];
       float *mu = s.fv[7], *rstd = s.fv[8];
-      for (int f = tid; f < F; f += THREADS)
-        am[f] = count == 2 ? (s.aa[f] + s.ab[f]) * 0.5f : s.aa[f];
-      sync();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i)
-          acc += rd<T>(am[i]) * to_f(t1w[(size_t)i * F + j]);
-        p1[j] = acc + to_f(a.tb1[midx * F + j]);
-        h1[j] = rd<T>(fmaxf(p1[j], 0.f));
+      if (lead()) {
+        for (int f = tid; f < F; f += THREADS)
+          am[f] = count == 2 ? (s.aa[f] + s.ab[f]) * 0.5f : s.aa[f];
+        sync();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += rd<T>(am[i]) * to_f(t1w[(size_t)i * F + j]);
+          p1[j] = acc + to_f(a.tb1[midx * F + j]);
+          h1[j] = rd<T>(fmaxf(p1[j], 0.f));
+        }
+        sync();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += h1[i] * to_f(t2w[(size_t)i * F + j]);
+          p2[j] = acc + to_f(a.tb2[midx * F + j]);
+          hh2[j] = rd<T>(fmaxf(p2[j], 0.f));
+        }
+        sync();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += hh2[i] * to_f(t3w[(size_t)i * F + j]);
+          gsig[j] = sigmoid_f(acc + to_f(a.tb3[midx * F + j]));
+          rel[j] = (mode == 0 ? am[j] : gsig[j]) * vm[j];
+        }
+        sync();
+        for (size_t i = tid; i < FH; i += THREADS)
+          X2[i] = rd<T>(rel[i / H] * to_f(fa[i]));
+        sync();
       }
-      sync();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i) acc += h1[i] * to_f(t2w[(size_t)i * F + j]);
-        p2[j] = acc + to_f(a.tb2[midx * F + j]);
-        hh2[j] = rd<T>(fmaxf(p2[j], 0.f));
-      }
-      sync();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i)
-          acc += hh2[i] * to_f(t3w[(size_t)i * F + j]);
-        gsig[j] = sigmoid_f(acc + to_f(a.tb3[midx * F + j]));
-        rel[j] = (mode == 0 ? am[j] : gsig[j]) * vm[j];
-      }
-      sync();
-      for (size_t i = tid; i < FH; i += THREADS)
-        X2[i] = rd<T>(rel[i / H] * to_f(fa[i]));
-      sync();
       // y2 into w2, ry = relu(y2) * mask into w1
-      prod<G32, false, false, T>(X2, H, a.w2t + (size_t)H * H, H, F, H, H,
+      prod<G32, false, false, T>(X2, H, a.w2t + (size_t)H * H, H, F, H, H, C,
                             s, [&](int m, int n, float acc) {
         const float y2 = acc + to_f(a.b2t[H + n]);
         w2[(size_t)m * H + n] = y2;
         w1[(size_t)m * H + n] = fmaxf(y2, 0.f) * dr.keep(m, n, b, t, 2);
       });
-      float* mgx = s.fv[9];
-      float* mgxx = s.fv[10];
-      for (int f = warp; f < F; f += NWARPS) {
-        const float* ry = w1 + (size_t)f * H;
-        float sum = 0.f;
-        for (int k = lane; k < H; k += 32) sum += ry[k];
-        const float m = warp_sum(sum) / H;
-        float s2 = 0.f;
-        for (int k = lane; k < H; k += 32) s2 += (ry[k] - m) * (ry[k] - m);
-        const float var = warp_sum(s2) / H;
-        const float r = rsqrtf(var + 1e-5f);
-        float g1s = 0.f, g2s = 0.f;
-        for (int k = lane; k < H; k += 32) {
-          const float gx = gof[(size_t)f * H + k] * to_f(a.lns[k]);
-          g1s += gx;
-          g2s += gx * (ry[k] - m) * r;
+      if (lead()) {
+        float* mgx = s.fv[9];
+        float* mgxx = s.fv[10];
+        for (int f = warp; f < F; f += NWARPS) {
+          const float* ry = w1 + (size_t)f * H;
+          float sum = 0.f;
+          for (int k = lane; k < H; k += 32) sum += ry[k];
+          const float m = warp_sum(sum) / H;
+          float s2 = 0.f;
+          for (int k = lane; k < H; k += 32) s2 += (ry[k] - m) * (ry[k] - m);
+          const float var = warp_sum(s2) / H;
+          const float r = rsqrtf(var + 1e-5f);
+          float g1s = 0.f, g2s = 0.f;
+          for (int k = lane; k < H; k += 32) {
+            const float gx = gof[(size_t)f * H + k] * to_f(a.lns[k]);
+            g1s += gx;
+            g2s += gx * (ry[k] - m) * r;
+          }
+          g1s = warp_sum(g1s);
+          g2s = warp_sum(g2s);
+          if (lane == 0) {
+            mu[f] = m;
+            rstd[f] = r;
+            mgx[f] = g1s / H;
+            mgxx[f] = g2s / H;
+          }
         }
-        g1s = warp_sum(g1s);
-        g2s = warp_sum(g2s);
-        if (lane == 0) {
-          mu[f] = m;
-          rstd[f] = r;
-          mgx[f] = g1s / H;
-          mgxx[f] = g2s / H;
+        sync();
+        for (int k = tid; k < H; k += THREADS) {
+          float gs = 0.f, bs = 0.f;
+          for (int f = 0; f < F; ++f) {
+            const float g = gof[(size_t)f * H + k];
+            gs += g * (w1[(size_t)f * H + k] - mu[f]) * rstd[f];
+            bs += g;
+          }
+          sp[sl.lns + k] += gs;
+          sp[sl.lnb + k] += bs;
         }
-      }
-      sync();
-      for (int k = tid; k < H; k += THREADS) {
-        float gs = 0.f, bs = 0.f;
-        for (int f = 0; f < F; ++f) {
-          const float g = gof[(size_t)f * H + k];
-          gs += g * (w1[(size_t)f * H + k] - mu[f]) * rstd[f];
-          bs += g;
+        for (size_t i = tid; i < FH; i += THREADS) {
+          const int f = (int)(i / H), k = (int)(i % H);
+          const float xhat = (w1[i] - mu[f]) * rstd[f];
+          const float gx = gof[i] * to_f(a.lns[k]);
+          const float gb = rstd[f] * (gx - mgx[f] - xhat * mgxx[f]);
+          D2[i] = w2[i] > 0.f ? gb * dr.keep(f, k, b, t, 2) : 0.f;
         }
-        sp[sl.lns + k] += gs;
-        sp[sl.lnb + k] += bs;
+        set_meta(meta, 2, TB_W2T, 1, F);
+        sync();
       }
-      for (size_t i = tid; i < FH; i += THREADS) {
-        const int f = (int)(i / H), k = (int)(i % H);
-        const float xhat = (w1[i] - mu[f]) * rstd[f];
-        const float gx = gof[i] * to_f(a.lns[k]);
-        const float gb = rstd[f] * (gx - mgx[f] - xhat * mgxx[f]);
-        D2[i] = w2[i] > 0.f ? gb * dr.keep(f, k, b, t, 2) : 0.f;
-      }
-      set_meta(meta, 2, TB_W2T, 1, F);
-      sync();
-      prod<G32, true, true, T>(D2, H, a.w2t + (size_t)H * H, H, F, H, H,
+      prod<G32, true, true, T>(D2, H, a.w2t + (size_t)H * H, H, F, H, H, C,
                            s, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
-      float *gr0 = s.fv[7], *gp3 = s.fv[8], *gh2 = s.fv[9], *gh1 = s.fv[10];
-      for (size_t i = tid; i < FH; i += THREADS)
-        gfa[i] += rel[i / H] * w2[i];
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f;
-        for (int k = lane; k < H; k += 32)
-          d += w2[(size_t)f * H + k] * to_f(fa[(size_t)f * H + k]);
-        d = warp_sum(d);
-        if (lane == 0) {
-          const float g = (d + s.goab[f]) * vm[f];
-          gr0[f] = g;
-          gp3[f] = mode == 0 ? 0.f : g * gsig[f] * (1.0f - gsig[f]);
+      if (lead()) {
+        float *gr0 = s.fv[7], *gp3 = s.fv[8], *gh2 = s.fv[9], *gh1 = s.fv[10];
+        for (size_t i = tid; i < FH; i += THREADS)
+          gfa[i] += rel[i / H] * w2[i];
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32)
+            d += w2[(size_t)f * H + k] * to_f(fa[(size_t)f * H + k]);
+          d = warp_sum(d);
+          if (lane == 0) {
+            const float g = (d + s.goab[f]) * vm[f];
+            gr0[f] = g;
+            gp3[f] = mode == 0 ? 0.f : g * gsig[f] * (1.0f - gsig[f]);
+          }
         }
+        sync();
+        float* st1 = sp + sl.t1 + midx * FF;
+        float* st2 = sp + sl.t2 + midx * FF;
+        float* st3 = sp + sl.t3 + midx * FF;
+        for (int i = tid; i < F * F; i += THREADS)
+          st3[i] += hh2[i / F] * rd<T>(gp3[i % F]);
+        for (int j = tid; j < F; j += THREADS) {
+          sp[sl.tb3 + midx * F + j] += gp3[j];
+          float acc = 0.f;
+          for (int q = 0; q < F; ++q)
+            acc += rd<T>(gp3[q]) * to_f(t3w[(size_t)j * F + q]);
+          gh2[j] = p2[j] > 0.f ? acc : 0.f;
+        }
+        sync();
+        for (int i = tid; i < F * F; i += THREADS)
+          st2[i] += h1[i / F] * rd<T>(gh2[i % F]);
+        for (int j = tid; j < F; j += THREADS) {
+          sp[sl.tb2 + midx * F + j] += gh2[j];
+          float acc = 0.f;
+          for (int q = 0; q < F; ++q)
+            acc += rd<T>(gh2[q]) * to_f(t2w[(size_t)j * F + q]);
+          gh1[j] = p1[j] > 0.f ? acc : 0.f;
+        }
+        sync();
+        for (int i = tid; i < F * F; i += THREADS)
+          st1[i] += rd<T>(am[i / F]) * rd<T>(gh1[i % F]);
+        const float half = count == 2 ? 1.f : 0.f;
+        for (int j = tid; j < F; j += THREADS) {
+          sp[sl.tb1 + midx * F + j] += gh1[j];
+          float acc = 0.f;
+          for (int q = 0; q < F; ++q)
+            acc += rd<T>(gh1[q]) * to_f(t1w[(size_t)j * F + q]);
+          const float gam = (mode == 0 ? gr0[j] : 0.f) + acc;
+          gra[(size_t)iaa * F + j] += gam * (1.0f - half) + 0.5f * half * gam;
+          gra[(size_t)iab * F + j] += 0.5f * half * gam;
+        }
+        sync();
       }
-      sync();
-      float* st1 = sp + sl.t1 + midx * FF;
-      float* st2 = sp + sl.t2 + midx * FF;
-      float* st3 = sp + sl.t3 + midx * FF;
-      for (int i = tid; i < F * F; i += THREADS)
-        st3[i] += hh2[i / F] * rd<T>(gp3[i % F]);
-      for (int j = tid; j < F; j += THREADS) {
-        sp[sl.tb3 + midx * F + j] += gp3[j];
-        float acc = 0.f;
-        for (int q = 0; q < F; ++q)
-          acc += rd<T>(gp3[q]) * to_f(t3w[(size_t)j * F + q]);
-        gh2[j] = p2[j] > 0.f ? acc : 0.f;
-      }
-      sync();
-      for (int i = tid; i < F * F; i += THREADS)
-        st2[i] += h1[i / F] * rd<T>(gh2[i % F]);
-      for (int j = tid; j < F; j += THREADS) {
-        sp[sl.tb2 + midx * F + j] += gh2[j];
-        float acc = 0.f;
-        for (int q = 0; q < F; ++q)
-          acc += rd<T>(gh2[q]) * to_f(t2w[(size_t)j * F + q]);
-        gh1[j] = p1[j] > 0.f ? acc : 0.f;
-      }
-      sync();
-      for (int i = tid; i < F * F; i += THREADS)
-        st1[i] += rd<T>(am[i / F]) * rd<T>(gh1[i % F]);
-      const float half = count == 2 ? 1.f : 0.f;
-      for (int j = tid; j < F; j += THREADS) {
-        sp[sl.tb1 + midx * F + j] += gh1[j];
-        float acc = 0.f;
-        for (int q = 0; q < F; ++q)
-          acc += rd<T>(gh1[q]) * to_f(t1w[(size_t)j * F + q]);
-        const float gam = (mode == 0 ? gr0[j] : 0.f) + acc;
-        gra[(size_t)iaa * F + j] += gam * (1.0f - half) + 0.5f * half * gam;
-        gra[(size_t)iab * F + j] += 0.5f * half * gam;
-      }
-      sync();
-    } else if (op == OP_ATTNV) {
+    } else if (op == OP_ATTNV && lead()) {
       for (size_t i = tid; i < FH; i += THREADS)
         gfa[i] += s.aa[i / H] * gof[i];
       for (int f = warp; f < F; f += NWARPS) {
@@ -1164,71 +1194,76 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
     }
 
     // ================= attn producers ==================================
-    if (op == OP_ANDA || op == OP_XORF) {
-      for (int f = tid; f < F; f += THREADS) {
-        const float x = s.aa[f], y = s.ab[f], g = s.goa[f];
-        float ga;
-        if (op == OP_ANDA)
-          ga = g * ((x < y ? 1.f : 0.f) + 0.5f * (x == y ? 1.f : 0.f));
-        else
-          ga = g * (x - y >= 0.f ? 1.f : -1.f);
-        gra[(size_t)iaa * F + f] += ga;
-        gra[(size_t)iab * F + f] += op == OP_ANDA ? g - ga : -ga;
+    if (lead()) {
+      if (op == OP_ANDA || op == OP_XORF) {
+        for (int f = tid; f < F; f += THREADS) {
+          const float x = s.aa[f], y = s.ab[f], g = s.goa[f];
+          float ga;
+          if (op == OP_ANDA)
+            ga = g * ((x < y ? 1.f : 0.f) + 0.5f * (x == y ? 1.f : 0.f));
+          else
+            ga = g * (x - y >= 0.f ? 1.f : -1.f);
+          gra[(size_t)iaa * F + f] += ga;
+          gra[(size_t)iab * F + f] += op == OP_ANDA ? g - ga : -ga;
+        }
+        sync();
+      } else if (op == OP_HAS) {
+        for (int f = tid; f < F; f += THREADS) {
+          const float sg = sigmoid_f(feat[(size_t)f * H]);
+          const float g = s.goa[f] * vm[f] * dr.keep(0, f, b, t, 3);
+          gfeat[(size_t)f * H] += g * sg * (1.0f - sg);
+        }
+        sync();
+      } else if (op == OP_EXF) {
+        float* gcos = s.fv[0];
+        for (int f = tid; f < F; f += THREADS)
+          gcos[f] = s.goa[f] * 0.49f * vm[f];
+        sync();
+        cos_rows_bwd(gcos, fa, va, F, H, gfa, u1, s);
+        for (int j = tid; j < H; j += THREADS)
+          grv[(size_t)iva * H + j] += u1[j];
+        sync();
+      } else if (op == OP_REL) {
+        const int f = tid;
+        const bool valid = f < F && vm[f] > 0.f;
+        float x = 0.f;
+        if (f < F) {
+          const float beta = to_f(a.beta[f]);
+          x = mode == 1 ? s.aa[f] - beta : s.aa[f] + beta;
+        }
+        const float w = block_masked_softmax(x, valid, s.red);
+        const float gw = f < F ? s.goa[f] * w : 0.f;
+        const float tot = block_sum(gw, s.red);
+        if (f < F) {
+          const float gs = w * (s.goa[f] - tot);
+          gra[(size_t)iaa * F + f] += gs;
+          sp[sl.beta + f] += mode == 1 ? -gs : gs;
+        }
+        sync();
       }
-      sync();
-    } else if (op == OP_HAS) {
-      for (int f = tid; f < F; f += THREADS) {
-        const float sg = sigmoid_f(feat[(size_t)f * H]);
-        const float g = s.goa[f] * vm[f] * dr.keep(0, f, b, t, 3);
-        gfeat[(size_t)f * H] += g * sg * (1.0f - sg);
-      }
-      sync();
-    } else if (op == OP_EXF) {
-      float* gcos = s.fv[0];
-      for (int f = tid; f < F; f += THREADS)
-        gcos[f] = s.goa[f] * 0.49f * vm[f];
-      sync();
-      cos_rows_bwd(gcos, fa, va, F, H, gfa, u1, s);
-      for (int j = tid; j < H; j += THREADS) grv[(size_t)iva * H + j] += u1[j];
-      sync();
-    } else if (op == OP_REL) {
-      const int f = tid;
-      const bool valid = f < F && vm[f] > 0.f;
-      float x = 0.f;
-      if (f < F) {
-        const float beta = to_f(a.beta[f]);
-        x = mode == 1 ? s.aa[f] - beta : s.aa[f] + beta;
-      }
-      const float w = block_masked_softmax(x, valid, s.red);
-      const float gw = f < F ? s.goa[f] * w : 0.f;
-      const float tot = block_sum(gw, s.red);
-      if (f < F) {
-        const float gs = w * (s.goa[f] - tot);
-        gra[(size_t)iaa * F + f] += gs;
-        sp[sl.beta + f] += mode == 1 ? -gs : gs;
-      }
-      sync();
     }
 
     // ---- stage-1 backward over the collected g_feat ---------------------
     if (e1 != 9) {
-      for (size_t i = tid; i < FH; i += THREADS) {
-        const int m = (int)(i / H), n = (int)(i % H);
-        D1[i] = is_filter ? (h2w[i] > 0.f
-                                 ? gfeat[i] * dr.keep(m, n, b, t, 1)
-                                 : 0.f)
-                          : gfeat[i];
-        X0[i] = to_f(fa[i]);
+      if (lead()) {
+        for (size_t i = tid; i < FH; i += THREADS) {
+          const int m = (int)(i / H), n = (int)(i % H);
+          D1[i] = is_filter ? (h2w[i] > 0.f
+                                   ? gfeat[i] * dr.keep(m, n, b, t, 1)
+                                   : 0.f)
+                            : gfeat[i];
+          X0[i] = to_f(fa[i]);
+        }
+        set_meta(meta, 1, TB_W2U, e1, F);
+        set_meta(meta, 0, TB_W1U, e1, F);
+        sync();
       }
-      set_meta(meta, 1, TB_W2U, e1, F);
-      set_meta(meta, 0, TB_W1U, e1, F);
-      sync();
-      prod<G32, true, true, T>(D1, H, sw2, H, F, H, H, s,
+      prod<G32, true, true, T>(D1, H, sw2, H, F, H, H, C, s,
                            [&](int m, int n, float acc) {
         const size_t i = (size_t)m * H + n;
         D0[i] = hpre[i] > 0.f ? acc * dr.keep(m, n, b, t, 0) : 0.f;
       });
-      prod<G32, true, true, T>(D0, H, sw1, H, F, H, H, s,
+      prod<G32, true, true, T>(D0, H, sw1, H, F, H, H, C, s,
                            [&](int m, int n, float acc) {
         gfa[(size_t)m * H + n] += acc;
       });
@@ -1236,6 +1271,7 @@ __global__ void __launch_bounds__(THREADS) mega_bwd_kernel(const BArgs<T> a) {
   }
 
   // ---- data cotangents out -------------------------------------------
+  if (!lead()) return;
   for (size_t i = tid; i < FH; i += THREADS)
     a.dvid[(size_t)b * FH + i] = from_f<T>(grf[i] * vm[i / H]);
   for (size_t i = tid; i < (size_t)L * H; i += THREADS)
@@ -1613,7 +1649,7 @@ static_assert(bwd_smem_bytes(stair::FMA32_MAX_F, stair::FMA32_MAX_H, true) <=
 template <typename T, bool G32 = false>
 int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
                int Na, int F, int H, int L, int fsoft, stair::Dropout dr,
-               cudaStream_t stream) {
+               cudaStream_t stream, int cluster = 1, int* used = nullptr) {
   BArgs<T> a;
   a.fill(p);
   int i = NARGS;
@@ -1641,13 +1677,23 @@ int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
   a.H = H;
   a.L = L;
   a.fsoft = fsoft;
+  a.C = 1;
   a.dr = dr;
   const size_t smem = bwd_smem_bytes(F, H, G32);
   cudaError_t e = cudaFuncSetAttribute(
       mega_bwd_kernel<T, G32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  mega_bwd_kernel<T, G32><<<B, THREADS, smem, stream>>>(a);
+  if constexpr (G32) {
+    // the cluster mode (mega_common.cuh mega32_cluster)
+    e = pick_cluster(mega_bwd_kernel<T, true>, smem, B, H, cluster, &a.C);
+    if (used) *used = a.C;
+    if (e == cudaSuccess)
+      e = launch_clusters(mega_bwd_kernel<T, true>, B, a.C, smem, stream, a);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    mega_bwd_kernel<T, false><<<B, THREADS, smem, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1731,16 +1777,49 @@ static bool fma32_takes(int F, int H, int L) {
 
 // The "fma32" walk (mega_bwd_kernel<float, true>): float32 at the widths
 // fma32_takes; arguments, records and outputs as stair_mega_exec_bwd_f32's,
-// every output equal to its bit for bit.
+// every output equal to its bit for bit at every cluster size. cluster:
+// the CTAs of an example's cluster, 0 for the launch's pick
+// (mega32_cluster) or forced (a divisor of H / G32_BN); *used gets the size
+// launched. A cluster that cannot launch returns its error.
 extern "C" int stair_mega_exec_bwd_fma32(
     const void* const* ptrs, int nptrs, void* ws, int B, int T, int Nv,
     int Nf, int Na, int F, int H, int L, int fsoft, int drop, int seed0,
-    int seed1, unsigned thresh, float scale, void* stream) {
-  if (nptrs != NBWD || !fma32_takes(F, H, L))
+    int seed1, unsigned thresh, float scale, int cluster, int* used,
+    void* stream) {
+  if (nptrs != NBWD || !fma32_takes(F, H, L) || B <= 0 || cluster < 0)
     return (int)cudaErrorInvalidValue;
   const stair::Dropout dr{drop, seed0, seed1, thresh, scale};
   return launch_bwd<float, true>(ptrs, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
-                                 dr, (cudaStream_t)stream);
+                                 dr, (cudaStream_t)stream, cluster, used);
+}
+
+// Clusters of c CTAs of the "fma32" walk at (F, H) that fit the current
+// card at once (cudaOccupancyMaxActiveClusters), or -1 on an error.
+extern "C" int stair_mega_exec_bwd_fma32_fit(int F, int H, int c) {
+  const size_t smem = bwd_smem_bytes(F, H, true);
+  int fit = 0;
+  if (cudaFuncSetAttribute(mega_bwd_kernel<float, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      clusters_fit(mega_bwd_kernel<float, true>, smem, c, &fit) !=
+          cudaSuccess)
+    return -1;
+  return fit;
+}
+
+// The CTAs of an example's cluster that a launch of the "fma32" walk on B
+// examples at (F, H) takes on the current card (mega32_cluster), or -1 on
+// an error.
+extern "C" int stair_mega_exec_bwd_fma32_cluster(int B, int F, int H) {
+  const size_t smem = bwd_smem_bytes(F, H, true);
+  int C = 0;
+  if (cudaFuncSetAttribute(mega_bwd_kernel<float, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      pick_cluster(mega_bwd_kernel<float, true>, smem, B, H, 0, &C) !=
+          cudaSuccess)
+    return -1;
+  return C;
 }
 
 // The "fma32" weight gradients: ptrs as stair_mega_exec_wgrad_f32's, then

@@ -33,6 +33,8 @@ recomputes its own route's forward bit for bit.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from stair_tpu_torch.ir.lowering import Opcode
@@ -565,26 +567,31 @@ def check_args(key, meta, args):
     return dev
 
 
-def mega_exec_call(meta, args):
+def mega_exec_call(meta, args, cluster=None):
     """Executor over prepared args: plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (or an error). Returns (rv, rf, ra) in dt."""
+    kernel for CUDA tensors (or an error). Returns (rv, rf, ra) in dt.
+    ``cluster`` forces the CTAs of an example's cluster on the "fma32"
+    route (``fma32_cluster``; None: the launch's pick)."""
     if _build.on_cpu("mega_exec", args[0]):
         return mega_exec_reference(meta, args)
-    return _launch("mega_exec", meta, args, dropout_params(0.0, None))
+    return _launch("mega_exec", meta, args, dropout_params(0.0, None),
+                   cluster)
 
 
-def mega_exec_train_call(meta, args, rate, seed):
+def mega_exec_train_call(meta, args, rate, seed, cluster=None):
     """Training forward (TPU kernel #5): ``mega_exec_call`` with
     ``hash_keep`` dropout at ``rate`` keyed on ``seed`` (two int32 values).
     Plain version for CPU tensors; for CUDA tensors the kernel on the route
     ``fwd_route(dt, H, F, True)`` picks (``mega_exec_tc_kernel<true>``,
     launch key ``mega_exec_train_tc``; ``mega_exec_kernel<float, true>``,
-    ``mega_exec_train_fma32``; or ``mega_exec_kernel``,
-    ``mega_exec_train``). Hand the backward this call's register files:
-    its walk on the same route recomputes them bit for bit."""
+    ``mega_exec_train_fma32``, on the cluster size ``cluster`` forces or the
+    launch picks; or ``mega_exec_kernel``, ``mega_exec_train``). Hand the
+    backward this call's register files: its walk on the same route
+    recomputes them bit for bit."""
     if _build.on_cpu("mega_exec_train", args[0]):
         return mega_exec_reference(meta, args, rate=rate, seed=seed)
-    return _launch("mega_exec_train", meta, args, dropout_params(rate, seed))
+    return _launch("mega_exec_train", meta, args, dropout_params(rate, seed),
+                   cluster)
 
 
 #: the tensor-core route's limits (``csrc/mega_limits.cuh``)
@@ -615,6 +622,53 @@ def fma32_shape(H, F) -> bool:
     bn = _TILES["G32_BN"]
     return (H % bn == 0 and bn <= H <= FMA32_MAX_H
             and FMA32_MIN_F <= F <= FMA32_MAX_F)
+
+
+def fma32_cluster(B, H, slots, fit_2, fit_h) -> int:
+    """CTAs of one example's thread-block cluster on the "fma32" route (the
+    forward ``mega_exec_kernel<float, true>`` and the walk
+    ``mega_bwd_kernel<float, true>`` alike) for a launch of ``B`` examples
+    at width ``H`` on a card with ``slots`` CTA slots (its SMs x the
+    kernel's CTAs an SM: one), as ``csrc/mega_common.cuh mega32_cluster``
+    computes it in the launch: ``H / G32_BN`` (one CTA a column tile of
+    ``gemm32``) while ``B`` such clusters fill at most one wave of slots,
+    else 2 while ``B`` clusters of 2 do, else one CTA an example; a size
+    only where its clusters fit the card at all (``fit_h``, ``fit_2``:
+    ``fma32_fit`` at ``H / G32_BN`` and at 2, 0 where the size is not a
+    candidate: 2 must be a proper divisor of ``H / G32_BN``). Each CTA
+    computes its columns of every ``[F, H]``-sized product; the files are
+    the one-CTA route's bit for bit at every size."""
+    most = H // _TILES["G32_BN"]
+    if fit_h > 0 and B * most <= slots:
+        return most
+    return 2 if fit_2 > 0 and 2 * B <= slots else 1
+
+
+def fma32_fit(c, F=None, H=None) -> int:
+    """Clusters of ``c`` CTAs that fit the current card at once
+    (``cudaOccupancyMaxActiveClusters``): of the forward
+    ``mega_exec_kernel<float, true>``, or with ``F`` and ``H`` of the walk
+    ``mega_bwd_kernel<float, true>`` at those widths (its shared memory
+    grows with them); ``c`` 1 gives the card's CTA slots."""
+    lib = _build.build()
+    fit = (lib.stair_mega_exec_fma32_fit(c) if F is None
+           else lib.stair_mega_exec_bwd_fma32_fit(F, H, c))
+    if fit < 0:
+        raise RuntimeError(f"fma32_fit: cudaOccupancyMaxActiveClusters at "
+                           f"cluster {c} failed")
+    return fit
+
+
+def fma32_launch_cluster(B, H, F=None) -> int:
+    """The cluster size the "fma32" launch picks for ``B`` examples at
+    width ``H`` on the current card, as the library computes it (the
+    forward's, or with ``F`` the walk's)."""
+    lib = _build.build()
+    C = (lib.stair_mega_exec_fma32_cluster(B, H) if F is None
+         else lib.stair_mega_exec_bwd_fma32_cluster(B, F, H))
+    if C < 1:
+        raise RuntimeError(f"fma32_launch_cluster: B {B} H {H} F {F} failed")
+    return C
 
 
 def fwd_route(dtype, H, F, drop) -> str:
@@ -663,7 +717,7 @@ def tc_smem_bytes(F, H, L) -> int:
             + (6 * V + t["THREADS"] * 8 + 6 * F + t["THREADS"] // 32) * 4)
 
 
-def _launch(key, meta, args, drop):
+def _launch(key, meta, args, drop, cluster=None):
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = check_args(key, meta, args)
     rv = torch.empty(B, Nv, H, dtype=dt, device=dev)
@@ -693,11 +747,12 @@ def _launch(key, meta, args, drop):
         # kernel is mega_exec_kernel with gemm32's ring in shared memory
         ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
         key = "mega_exec_train_fma32" if train else "mega_exec_fma32"
+        used = ctypes.c_int(0)
         err = lib.stair_mega_exec_fwd_fma32(
             _build.pointers(args), len(args),
             rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
             B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop,
-            _build.stream_ptr(dev))
+            int(cluster or 0), ctypes.byref(used), _build.stream_ptr(dev))
     else:
         # Per-example float32 workspace: stage-1 hidden / GEMM operand
         # tile, the feat tile (persists across steps), and the temporal
@@ -712,6 +767,8 @@ def _launch(key, meta, args, drop):
         )
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
+    if route == "fma32":
+        _build.CLUSTERS[key][used.value] += 1
     return rv, rf, ra
 
 

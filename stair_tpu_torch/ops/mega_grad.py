@@ -16,9 +16,10 @@ the reverse walk, then the weight gradient reduction, on the route
 ``bwd_route`` picks before the launch, or raises: the tensor-core route
 (``csrc/mega_grad_tc.cu``, launch keys ``mega_exec_bwd_tc``,
 ``mega_exec_wgrad_tc``) for bf16 at the widths it takes, the "fma32" route
-(``csrc/mega_grad.cu``'s walk on ``gemm32`` and its register-blocked
-weight gradients, ``mega_exec_bwd_fma32``, ``mega_exec_wgrad_fma32``) for
-float32 at the widths it takes, the general route (``csrc/mega_grad.cu``,
+(``csrc/mega_grad.cu``'s walk on ``gemm32``, an example on a thread-block
+cluster while one CTA an example under-fills the card, and its
+register-blocked weight gradients, ``mega_exec_bwd_fma32``,
+``mega_exec_wgrad_fma32``) for float32 at the widths it takes, the general route (``csrc/mega_grad.cu``,
 ``mega_exec_bwd``, ``mega_exec_wgrad``) otherwise. ``bwd_route`` is the
 training forward's route
 (``mega_exec.fwd_route``): each walk recomputes the forward values it needs
@@ -29,6 +30,8 @@ float32 and the Function casts them to each argument's dtype.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -166,15 +169,18 @@ def mega_exec_bwd_reference(meta, args, outs, gouts, rate=0.0, seed=None,
     return data + tuple(g.float() for g in grads[len(DATA_GRAD_IDX):])
 
 
-def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None):
+def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None,
+                       cluster=None):
     """Backward (TPU kernel #6): plain version for CPU tensors, the kernels
     for CUDA tensors. ``outs`` are the forward's final files (rv, rf, ra),
     ``gouts`` their cotangents. Same contract as
-    ``mega_exec_bwd_reference``."""
+    ``mega_exec_bwd_reference``. ``cluster`` forces the CTAs of an
+    example's cluster of the "fma32" walk (``mega_exec.fma32_cluster``;
+    None: the launch's pick)."""
     if _build.on_cpu("mega_exec_bwd", args[0]):
         return mega_exec_bwd_reference(meta, args, outs, gouts, rate, seed)
     return _launch_bwd(meta, args, outs, gouts,
-                       TX.dropout_params(rate, seed))
+                       TX.dropout_params(rate, seed), cluster)
 
 
 def recompute_check(A, Bm, vec=False, chain=False):
@@ -247,13 +253,14 @@ ROUTE_KEYS = {"tc": ("mega_exec_bwd_tc", "mega_exec_wgrad_tc"),
               "general": ("mega_exec_bwd", "mega_exec_wgrad")}
 
 
-def bwd_launches(meta, args, outs, gouts, drop):
+def bwd_launches(meta, args, outs, gouts, drop, cluster=None):
     """The backward's two launches on CUDA tensors, apart (``drop``:
-    ``mega_exec.dropout_params``). Allocates the outputs and scratch once
-    and returns ``(walk, wgrad, result)``: ``walk()`` launches the reverse
-    walk, then ``wgrad()`` the weight gradients on the walk's records
-    (either may be called again, to time it alone), and ``result()`` gives
-    ``mega_exec_bwd_call``'s outputs."""
+    ``mega_exec.dropout_params``; ``cluster``: as ``mega_exec_bwd_call``'s).
+    Allocates the outputs and scratch once and returns ``(walk, wgrad,
+    result)``: ``walk()`` launches the reverse walk, then ``wgrad()`` the
+    weight gradients on the walk's records (either may be called again, to
+    time it alone), and ``result()`` gives ``mega_exec_bwd_call``'s
+    outputs."""
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = TX.check_args("mega_exec_bwd", meta, args)
     if F > 256:
@@ -300,12 +307,18 @@ def bwd_launches(meta, args, outs, gouts, drop):
              *[t for pair in wgrads for t in pair], dsmall, *index)
 
     def walk():
+        # the "fma32" walk: the cluster size, and the one launched
+        used = ctypes.c_int(0)
+        more = ((int(cluster or 0), ctypes.byref(used))
+                if route == "fma32" else ())
         err = getattr(_build.build(), f"stair_mega_exec_bwd_{sfx}")(
             _build.pointers(ptrs), len(ptrs), ws.data_ptr(),
-            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop,
+            B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop, *more,
             _build.stream_ptr(dev))
         _build.check(err, walk_key)
         _build.LAUNCHES[walk_key] += 1
+        if route == "fma32":
+            _build.CLUSTERS[walk_key][used.value] += 1
 
     def wgrad():
         err = getattr(_build.build(), f"stair_mega_exec_wgrad_{sfx}")(
@@ -338,8 +351,9 @@ def _bwd_outputs(meta, wgrads, dsmall, dvid, dtok, daux):
             daux) + weights
 
 
-def _launch_bwd(meta, args, outs, gouts, drop):
-    walk, wgrad, result = bwd_launches(meta, args, outs, gouts, drop)
+def _launch_bwd(meta, args, outs, gouts, drop, cluster=None):
+    walk, wgrad, result = bwd_launches(meta, args, outs, gouts, drop,
+                                       cluster)
     if meta[0] > 0:
         walk()
         wgrad()

@@ -43,10 +43,13 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   a float32 model from seed 0), each on the route the checkout picks (the
   "fma32" route where the checkout takes F 150 there, else the general
   route: the two give equal bits, so the digest stays), with
-  ``f150_train_ms`` and ``f150_bwd_ms`` (#5 and #6 on that route) and, where
-  the checkout has the routes, ``f150_general_digest``,
+  ``f150_train_ms`` and ``f150_bwd_ms`` (#5 and #6 on that route: where the
+  checkout has the "fma32" cluster mode, on the cluster its launches pick)
+  and, where the checkout has the routes, ``f150_general_digest``,
   ``f150_train_general_ms`` and ``f150_bwd_general_ms`` on the general
-  route;
+  route; where it has the cluster mode, ``f150_one_cta_digest``,
+  ``f150_train_one_cta_ms`` and ``f150_bwd_one_cta_ms`` on one CTA an
+  example (the wrappers' ``cluster=1``; the digest stays);
 - ``step_ms``: #10, the ``T`` (13) ``fused_step`` launches of a serving
   batch of 1024 on ``executor="step"`` on the route the checkout picks,
   ``step_general_ms`` on the general route where the checkout has
@@ -198,6 +201,20 @@ def f150_rows(inputs, rate, seed):
             row["f150_bwd_general_ms"] = cuda_time_ms(
                 lambda: TG.mega_exec_bwd_call(meta, args, outs, cots, rate,
                                               seed), iters=3)
+    if hasattr(TX, "fma32_cluster"):
+
+        def train1():
+            return TX.mega_exec_train_call(meta, args, rate, seed, cluster=1)
+
+        def bwd1(o):
+            return TG.mega_exec_bwd_call(meta, args, o, cots, rate, seed,
+                                         cluster=1)
+
+        outs = train1()
+        row["f150_one_cta_digest"] = digest((*outs, *bwd1(outs)))
+        row["f150_train_one_cta_ms"] = cuda_time_ms(train1, iters=3)
+        row["f150_bwd_one_cta_ms"] = cuda_time_ms(lambda: bwd1(outs),
+                                                  iters=3)
     return row
 
 

@@ -4,7 +4,7 @@ spent in each product helper, on each route; with ``--step``, the share of
 the float32 step kernel (#10) spent in each of its sections.
 
     python -m stair_tpu_torch.scripts.executor_clocks [--routes tc,general,fma32]
-        [--frames 64] [--batch 128]
+        [--frames 64] [--batch 128] [--clusters 1,4]
     python -m stair_tpu_torch.scripts.executor_clocks --step [--routes general,fma32]
 
 Routes (``mega_exec.fwd_route`` / ``mega_grad.bwd_route`` forced to each):
@@ -20,7 +20,11 @@ Routes (``mega_exec.fwd_route`` / ``mega_grad.bwd_route`` forced to each):
   ``mmT_vec``;
 - ``fma32``: float32, ``mega_exec_kernel<float, true>`` and
   ``mega_bwd_kernel<float, true>``: the same sections with ``gemm32`` in
-  ``gemm``'s place (SUPF's ``m1`` products stay on ``gemm``).
+  ``gemm``'s place (SUPF's ``m1`` products stay on ``gemm``), on the
+  cluster size each launch picks or, with ``--clusters 1,4``, on each size
+  given; a cluster's CTAs wait for each other in ``cluster barriers`` (the
+  shares are of every CTA's clocks: on a cluster the lead's passes show as
+  the other CTAs' barrier time).
 
 It copies ``ops/csrc`` into ``build/clocks/`` and patches the copy: each
 block's thread 0 reads ``clock64()`` on entry to and return from each
@@ -75,7 +79,8 @@ from stair_tpu_torch.ops import _build
 SECTIONS = {0: "fwd_gemm", 1: "walk_gemm", 2: "vecmat_tc",
             3: "grad products", 5: "gemm (B as stored)",
             6: "gemm (B transposed)", 7: "vecmat", 8: "mmT_vec",
-            9: "gemm32 (B as stored)", 10: "gemm32 (B transposed)"}
+            9: "gemm32 (B as stored)", 10: "gemm32 (B transposed)",
+            11: "cluster barriers"}
 KERNEL = 4
 NSLOTS = 16
 
@@ -130,6 +135,9 @@ _PATCHES = (
     ("mega_common.cuh",
      "int M, int K, int N, float* ring, Epi epi) {\n",
      "  Clk clk(NK ? 10 : 9);\n"),
+    ("mega_common.cuh",
+     "__device__ __forceinline__ void cluster_barrier() {\n",
+     "  Clk clk(11);\n"),
     ("mega_grad.cu",
      "__device__ void mmT_vec(const float* g, const T* W, long ldw, int K, "
      "int N,\n                        float* out) {\n",
@@ -259,6 +267,8 @@ _STEP_PATCHES = (
 P, I, U, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [I, I, I, U, Fl]
 _WALK = [P, I, P] + [I] * 9 + _DROP + [P]
+#: the "fma32" entry points also take the cluster size and &used
+_WALK32 = [P, I, P] + [I] * 9 + _DROP + [I, P, P]
 _WGRAD = [P, I, I, I, I, I, P]
 #: route -> (compute dtype, sources, {entry point: argtypes}, kernels)
 ROUTES = {
@@ -274,8 +284,8 @@ ROUTES = {
         ("mega_exec_kernel<float, false>", "mega_bwd_kernel<float, false>")),
     "fma32": ("float32", ("mega_exec", "mega_grad_fma32"), {
         "stair_mega_exec_fwd_fma32": [P, I, P, P, P, P] + [I] * 9 + _DROP
-        + [P],
-        "stair_mega_exec_bwd_fma32": _WALK,
+        + [I, P, P],
+        "stair_mega_exec_bwd_fma32": _WALK32,
         "stair_mega_exec_wgrad_fma32": _WGRAD},
         ("mega_exec_kernel<float, true>", "mega_bwd_kernel<float, true>")),
 }
@@ -431,10 +441,12 @@ def train_inputs(dtype, dev, frames=64, batch_size=128):
     return meta, args, cfg.dropout
 
 
-def clock_route(route, libs, dev, card, frames=64, batch_size=128, n=5):
+def clock_route(route, libs, dev, card, frames=64, batch_size=128, n=5,
+                cluster=None):
     """Run #5 and #6 on ``route`` with the patched library at F ``frames``
-    and B ``batch_size``; print the sections' shares and the walk's and
-    weight gradients' device times."""
+    and B ``batch_size`` (the "fma32" route on ``cluster`` CTAs an example,
+    None: the launch's pick); print the sections' shares and the walk's
+    and weight gradients' device times."""
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
     from stair_tpu_torch.scripts.executor_ab import kernel_ms
@@ -452,17 +464,20 @@ def clock_route(route, libs, dev, card, frames=64, batch_size=128, n=5):
     _build._lib = types.SimpleNamespace(**fns)
     meta, args, rate = train_inputs(dtype, dev, frames, batch_size)
     shape = f"B {batch_size} F {frames}"
+    if route == "fma32":
+        shape += f", cluster {cluster or 'picked by the launch'}"
     seed = (11, 22)
     with on_route(route):
-        out = TX.mega_exec_train_call(meta, args, rate, seed)
+        out = TX.mega_exec_train_call(meta, args, rate, seed, cluster=cluster)
         gen = torch.Generator().manual_seed(5)
         cots = [torch.randn(o.shape, generator=gen).to(dev, o.dtype)
                 for o in out]
         runs = ((f"#5 {kernels[0]}", names[0],
-                 lambda: TX.mega_exec_train_call(meta, args, rate, seed)),
+                 lambda: TX.mega_exec_train_call(meta, args, rate, seed,
+                                                 cluster=cluster)),
                 (f"#6 {kernels[1]} (the call with its weight gradients)",
                  names[1], lambda: TG.mega_exec_bwd_call(
-                     meta, args, out, cots, rate, seed)))
+                     meta, args, out, cots, rate, seed, cluster=cluster)))
         for label, lib_name, fn in runs:
             lib = libs[lib_name]
             fn()
@@ -507,6 +522,9 @@ def main():
                     help="F of #5 and #6 (150: the NMN CLIs' default)")
     ap.add_argument("--batch", type=int, default=128,
                     help="B of #5 and #6 (32: the NMN CLIs' default)")
+    ap.add_argument("--clusters", default=None,
+                    help="comma-separated cluster sizes of the fma32 route "
+                    "(CTAs an example; default: the launch's pick)")
     opts = ap.parse_args()
     routes = (opts.routes or ("general,fma32" if opts.step
                               else ",".join(ROUTES))).split(",")
@@ -523,9 +541,12 @@ def main():
     dev = torch.device("cuda", 0)
     exact_f32()
     card = card_identity().splitlines()[0]
+    clusters = ([int(c) for c in opts.clusters.split(",")]
+                if opts.clusters else [None])
     for route in routes:
-        clock_route(route, {n: libs[n] for n in ROUTES[route][1]}, dev, card,
-                    opts.frames, opts.batch)
+        for c in (clusters if route == "fma32" else [None]):
+            clock_route(route, {n: libs[n] for n in ROUTES[route][1]}, dev,
+                        card, opts.frames, opts.batch, cluster=c)
 
 
 if __name__ == "__main__":

@@ -352,8 +352,10 @@ def test_mega_exec_fma32_launch_shares_the_shared_memory_plan():
     launch = src[src.index("template <typename T, bool G32 = false>\n"
                            "int launch("):]
     launch = launch[:launch.index("\n}\n")]
-    assert "smem = FMA32_RING_BYTES;" in launch
-    assert "mega_exec_kernel<T, G32><<<B, THREADS, smem, stream>>>" in launch
+    assert "const size_t smem = FMA32_RING_BYTES;" in launch
+    # one launch, of an example's cluster (one CTA too), at that size
+    assert ("launch_clusters(mega_exec_kernel<T, true>, B, a.C, smem, "
+            "stream, a)") in launch
     entry = src[src.index('extern "C" int stair_mega_exec_fwd_fma32('):]
     assert "launch<float, true>(" in entry[:entry.index("\n}\n")]
     assert ("constexpr size_t FMA32_SMEM_BYTES = sizeof(SmemT<true>) + "
@@ -513,3 +515,138 @@ def test_mega_exec_bf16_routes_vs_plain_on_card(cuda_device, monkeypatch,
                                    atol=3e-2, msg=name)
     assert (_build.build().stair_mega_exec_tc_smem(F, 192, L)
             == TX.tc_smem_bytes(F, 192, L))
+
+
+def _cluster_rule():
+    """``mega32_cluster`` of ``csrc/mega_common.cuh`` as a Python function
+    of (B, H, slots, fit_2, fit_h), its one return expression translated
+    (C's ``a ? b : c`` and ``&&``), ``G32_BN`` read from the source."""
+    import os
+    import re
+
+    from stair_tpu_torch.ops import _build
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_common.cuh")) as f:
+        src = f.read()
+    head = ("__host__ __device__ inline int mega32_cluster(int B, int H, "
+            "int slots,\n")
+    body = src[src.index(head):]
+    body = body[body.index("{") + 1:body.index("}")]
+    expr = " ".join(body.split())
+    assert expr.startswith("return ") and expr.endswith(";"), expr
+    expr = expr[len("return "):-1].replace("&&", "and")
+    want = ("fit_h > 0 and B * (H / G32_BN) <= slots ? H / G32_BN : "
+            "(fit_2 > 0 and 2 * B <= slots ? 2 : 1)")
+    assert expr == want, expr
+    py = ("(H // G32_BN) if (fit_h > 0 and B * (H // G32_BN) <= slots) "
+          "else ((2) if (fit_2 > 0 and 2 * B <= slots) else (1))")
+    g32 = TX._TILES["G32_BN"]
+    return lambda B, H, slots, fit_2, fit_h: eval(
+        py, {}, dict(B=B, H=H, slots=slots, fit_2=fit_2, fit_h=fit_h,
+                     G32_BN=g32))
+
+
+def test_mega_exec_fma32_cluster_rule_matches_the_source():
+    """``fma32_cluster`` equals the CUDA source's ``mega32_cluster`` at
+    every width the "fma32" route takes (H 128, 256, 384, 512) and every
+    batch up to 300, on an H100's 132 CTA slots (one CTA an SM: the
+    kernels hold 254-255 registers a thread) with the clusters that fit it
+    (66 of 2, 30 of 4, 44 of 3 by cudaOccupancyMaxActiveClusters), on a
+    card of half the slots, and where a size fits nowhere (0). The
+    NMN CLIs' B 32 at H 512 takes clusters of 4, B 64 of 2, B 128 one CTA
+    an example."""
+    rule = _cluster_rule()
+    g32 = TX._TILES["G32_BN"]
+    n = 0
+    for H in range(g32, TX.FMA32_MAX_H + 1, g32):
+        assert TX.fma32_shape(H, 150)
+        most = H // g32
+        for slots, fits in ((132, {2: 66, 3: 44, 4: 30}),
+                            (66, {2: 33, 3: 22, 4: 15}),
+                            (132, {2: 0, 3: 0, 4: 0})):
+            fit_h = fits[most] if most > 1 else 0
+            fit_2 = fits[2] if most > 2 and most % 2 == 0 else 0
+            for B in range(1, 301):
+                got = TX.fma32_cluster(B, H, slots, fit_2, fit_h)
+                assert got == rule(B, H, slots, fit_2, fit_h), (B, H, slots)
+                assert most % got == 0 and (got == 1 or B * got <= slots)
+                n += 1
+    assert n == 4 * 3 * 300
+    picks = {B: TX.fma32_cluster(B, 512, 132, 66, 30)
+             for B in (1, 29, 32, 33, 34, 64, 66, 67, 128)}
+    assert picks == {1: 4, 29: 4, 32: 4, 33: 4, 34: 2, 64: 2, 66: 2, 67: 1,
+                     128: 1}
+
+
+def test_mega_exec_cluster_argument_leaves_the_cpu_route_alone():
+    """On CPU tensors ``cluster`` changes nothing: the plain version runs
+    (no launch), eval and training alike, and the route choice of a float32
+    batch at the NMN CLIs' widths is still "fma32" for the card."""
+    from stair_tpu_torch.ops import _build
+    from torch_port_util import fma32_case
+
+    meta, args = fma32_case(torch.device("cpu"), 128, 24, "parity", 3)
+    _build.reset_launches()
+    for c in (None, 1):
+        want = TX.mega_exec_reference(meta, args)
+        got = TX.mega_exec_call(meta, args, cluster=c)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+        want = TX.mega_exec_reference(meta, args, rate=0.25, seed=(1, 2))
+        got = TX.mega_exec_train_call(meta, args, 0.25, (1, 2), cluster=c)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert not any(_build.LAUNCHES.values())
+    assert not any(_build.CLUSTERS.values())
+    assert TX.fwd_route(torch.float32, 512, 150, True) == "fma32"
+
+
+#: the cluster card tests' widths (H, F); each at every batch of
+#: CLUSTER_BATCHES (below, at and above the CLIs' B 32)
+CLUSTER_WIDTHS = [(256, 72), (512, 72), (256, 150), (512, 150), (256, 256),
+                  (512, 256)]
+CLUSTER_BATCHES = (1, 29, 32, 33, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,F", CLUSTER_WIDTHS,
+                         ids=[f"H{h}-F{f}" for h, f in CLUSTER_WIDTHS])
+def test_mega_exec_fma32_clusters_equal_one_cta_on_card(cuda_device,
+                                                        monkeypatch, H, F):
+    """#4 and #5 (rate 0.25) on the "fma32" route at every cluster size
+    the width takes (1, 2, H / 128) and every batch of CLUSTER_BATCHES,
+    over the all-opcode programs: every size's three files equal one CTA
+    an example's and the general route's bit for bit. The launch's own
+    pick is the one the library reports (``fma32_launch_cluster``), which
+    is ``fma32_cluster`` over the card's slots and fits, and is counted
+    under it in ``_build.CLUSTERS``."""
+    from stair_tpu_torch.ops import _build
+    from torch_port_util import fma32_case
+
+    most = H // TX._TILES["G32_BN"]
+    sizes = sorted({1, 2, most})
+    fits = {c: TX.fma32_fit(c) for c in sizes}
+    seed = (123, 456)
+    for B in CLUSTER_BATCHES:
+        meta, args = fma32_case(cuda_device, H, F, "softmax", B)
+        pick = TX.fma32_launch_cluster(B, H)
+        assert pick == TX.fma32_cluster(
+            B, H, fits[1], fits[2] if most > 2 else 0,
+            fits[most] if most > 1 else 0), B
+        _build.reset_launches()
+        out4 = TX.mega_exec_call(meta, args)
+        out5 = TX.mega_exec_train_call(meta, args, 0.25, seed)
+        assert _build.CLUSTERS["mega_exec_fma32"] == {pick: 1}
+        assert _build.CLUSTERS["mega_exec_train_fma32"] == {pick: 1}
+        for c in sizes:
+            k4 = TX.mega_exec_call(meta, args, cluster=c)
+            k5 = TX.mega_exec_train_call(meta, args, 0.25, seed, cluster=c)
+            for name, a, b in zip(("rv", "rf", "ra") * 2, out4 + out5,
+                                  k4 + k5):
+                assert torch.equal(a, b), (B, c, name)
+        with monkeypatch.context() as m:
+            m.setattr(TX, "fwd_route", lambda *a: "general")
+            g4 = TX.mega_exec_call(meta, args)
+            g5 = TX.mega_exec_train_call(meta, args, 0.25, seed)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("rv", "rf", "ra") * 2, out4 + out5, g4 + g5):
+            assert torch.equal(a, b), (B, "general", name)

@@ -455,7 +455,10 @@ def test_mega_bwd_fma32_shared_memory_fits():
                            "int launch_bwd("):]
     launch = launch[:launch.index("\n}\n")]
     assert "const size_t smem = bwd_smem_bytes(F, H, G32);" in launch
-    assert "mega_bwd_kernel<T, G32><<<B, THREADS, smem, stream>>>" in launch
+    assert "mega_bwd_kernel<T, false><<<B, THREADS, smem, stream>>>" in launch
+    # the "fma32" walk: one launch of an example's cluster (one CTA too)
+    assert ("launch_clusters(mega_bwd_kernel<T, true>, B, a.C, smem, "
+            "stream, a)") in launch
 
 
 def test_mega_wgrad_slots_and_rows_room_follow_the_source():
@@ -770,3 +773,88 @@ def test_mega_bwd_fma32_equals_general_on_card(cuda_device, monkeypatch, F,
         scale = max(float(r.float().abs().max()), 1e-12)
         assert float((a.float() - r.float()).abs().max()) <= 5e-2 * scale, \
             name
+
+
+def test_mega_bwd_fma32_cluster_takes_the_forward_rule():
+    """The "fma32" walk and forward pick their cluster with the one
+    ``pick_cluster`` (``csrc/mega_common.cuh``: ``mega32_cluster`` over the
+    card's slots and fits, each kernel's own), so that #5 and #6 of a step
+    split alike; on CPU tensors ``cluster`` leaves the plain backward as it
+    is and launches nothing."""
+    from torch_port_util import fma32_case
+
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    with open(os.path.join(csrc, "mega_grad.cu")) as f:
+        grad = f.read()
+    with open(os.path.join(csrc, "mega_exec.cu")) as f:
+        fwd = f.read()
+    assert ("pick_cluster(mega_bwd_kernel<T, true>, smem, B, H, cluster, "
+            "&a.C)") in grad
+    assert ("pick_cluster(mega_exec_kernel<T, true>, smem, B, H, cluster, "
+            "&a.C)") in fwd
+    meta, args = fma32_case(torch.device("cpu"), 128, 24, "parity", 3)
+    out = TX.mega_exec_reference(meta, args, rate=0.25, seed=(1, 2))
+    gen = torch.Generator().manual_seed(3)
+    cots = [torch.randn(o.shape, generator=gen) for o in out]
+    _build.reset_launches()
+    want = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, (1, 2))
+    got = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, (1, 2),
+                                cluster=1)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert not any(_build.LAUNCHES.values())
+
+
+#: the cluster card tests' widths (H, F) and batches (as the forward's in
+#: tests/test_torch_mega_exec.py)
+CLUSTER_WIDTHS = [(256, 72), (512, 72), (256, 150), (512, 150), (256, 256),
+                  (512, 256)]
+CLUSTER_BATCHES = (1, 29, 32, 33, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,F", CLUSTER_WIDTHS,
+                         ids=[f"H{h}-F{f}" for h, f in CLUSTER_WIDTHS])
+def test_mega_bwd_fma32_clusters_equal_one_cta_on_card(cuda_device,
+                                                       monkeypatch, H, F):
+    """#6 on the "fma32" route (the walk at every cluster size the width
+    takes: 1, 2, H / 128; then the weight gradients) at every batch of
+    CLUSTER_BATCHES over the all-opcode programs at dropout 0.25, handed
+    the training forward's files: every data cotangent and weight gradient
+    equals one CTA an example's and the general route's bit for bit. The
+    launch's own pick is the library's (``fma32_launch_cluster`` with F),
+    ``fma32_cluster`` over the walk's slots and fits, counted under it in
+    ``_build.CLUSTERS``."""
+    from torch_port_util import fma32_case
+
+    most = H // TX._TILES["G32_BN"]
+    sizes = sorted({1, 2, most})
+    fits = {c: TX.fma32_fit(c, F, H) for c in sizes}
+    seed = (123, 456)
+    for B in CLUSTER_BATCHES:
+        meta, args = fma32_case(cuda_device, H, F, "parity", B)
+        out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+        gen = torch.Generator().manual_seed(B)
+        cots = [torch.randn(o.shape, generator=gen).to(cuda_device)
+                for o in out]
+        pick = TX.fma32_launch_cluster(B, H, F)
+        assert pick == TX.fma32_cluster(
+            B, H, fits[1], fits[2] if most > 2 else 0,
+            fits[most] if most > 1 else 0), B
+        _build.reset_launches()
+        want = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+        assert _build.CLUSTERS["mega_exec_bwd_fma32"] == {pick: 1}
+        for c in sizes:
+            got = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed,
+                                        cluster=c)
+            for name, a, b in zip(GRAD_NAMES, want, got):
+                assert torch.equal(a, b), (B, c, name)
+        with monkeypatch.context() as m:
+            m.setattr(TX, "fwd_route", lambda *a: "general")
+            gen_out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+            gen_b = TG.mega_exec_bwd_call(meta, args, gen_out, cots, 0.25,
+                                          seed)
+        torch.cuda.synchronize()
+        for a, b in zip(out, gen_out):
+            assert torch.equal(a, b), (B, "general files")
+        for name, a, b in zip(GRAD_NAMES, want, gen_b):
+            assert torch.equal(a, b), (B, "general", name)
