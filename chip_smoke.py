@@ -297,6 +297,27 @@ Phases (any failure raises, and the script exits non-zero):
    and B 128, each beside the general route; #4, #5, #6 at B 32 and B 128
    by graph replay on both routes beside the plain versions and their
    bounds; three ``kernels`` entries at F 150.
+23. the same CLIs at the same defaults in bf16, on phase 22's world:
+   ``--config-filename`` names the config the port's ``train/loop.py
+   build_model`` makes for that world with only ``compute_dtype`` set to
+   "bfloat16" (the JAX trainer's way to bf16); launches exactly
+   ``TRAIN_LAUNCHES`` a step and ``EVAL_LAUNCHES`` an eval batch (every
+   BiLSTM launch on its bf16 cluster route, every executor launch on the
+   tensor-core route's row-slice mode: #4, #5 and #6's walk on clusters
+   of 3 CTAs an example at F 150 and B 32, counted by size in
+   ``_build.CLUSTERS``; no general launch), falling answer and mean
+   module-family losses, evaluate's accuracy equal to the trainer's best;
+   on the CLI's padded last train batch and the evaluate CLI's batch #4,
+   #5's files and #6's outputs equal to one CTA an example's and a second
+   run's bit for bit, #4 and #5 within atol 3e-2 + rtol 1e-2 of the plain
+   versions, #6 within 1e-1 of each gradient's scale at its own files,
+   the walk's recompute products at F 150 equal to the forward's, the
+   eval step's predictions in agreement >= 0.98 with the plain route, one
+   step's loss within 1e-4 of the plain route's and every gradient leaf
+   equal bit for bit twice; the inner loop on both routes, one train step
+   at B 32, 64 and 128 and #4-#6 there by graph replay on the cluster, one
+   CTA an example and the general route beside the plain versions and
+   their bounds; three ``kernels`` entries at F 150 in bf16.
 
 A line before the phases gives ``utils/mfu.py``'s peaks for the card's
 name (not None on an H100, equal to the peaks the bounds use on the H100
@@ -338,6 +359,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -646,10 +668,12 @@ def general_mega():
 
 @contextlib.contextmanager
 def one_cta():
-    """Launch the executor's "fma32" kernels (#4, #5, #6's walk) one CTA an
-    example, whatever cluster size their launches would pick
-    (``mega_exec.fma32_cluster``): the wrappers' ``cluster`` argument,
-    forced to 1 on every call that does not give it."""
+    """Launch the executor's "fma32" and tensor-core kernels (#4, #5, #6's
+    walk) one CTA an example, whatever cluster size their launches would
+    pick (``mega_exec.fma32_cluster``, ``mega_exec.tc_launch_cluster``;
+    above 64 frames the tensor-core kernels keep their row-slice mode, all
+    slices on the one CTA): the wrappers' ``cluster`` argument, forced to 1
+    on every call that does not give it."""
     from stair_tpu_torch.ops import mega_exec as TX
     from stair_tpu_torch.ops import mega_grad as TG
 
@@ -1537,21 +1561,25 @@ def executor_inputs(model, batch, train):
     """The executor's ``(meta, args)`` on ``batch`` (materialized) and
     ``model``'s weights: the video and question encodes (the BiLSTM eval
     forward #1, or with ``train`` the training forward #2), then
-    ``prepare_args``, as the model's forward makes them."""
+    ``prepare_args``, as the model's forward makes them in its compute
+    dtype (bf16: the projections' matmul and the tokens in bf16, the
+    modules and the video mask cast)."""
     from stair_tpu_torch.models.nmn import VideoNMN, tree_map
     from stair_tpu_torch.ops import lstm as TL
     from stair_tpu_torch.ops import mega_exec as TX
 
+    dt = model.compute_dtype
+    mm = dt if dt != torch.float32 else None
     p = tree_map(lambda x: x.detach(), model.param_tree())
     enc = TL.bilstm_train_call if train else TL.bilstm
     kv = enc(*TL._prep(p["video_encoder"], batch["video"],
-                       batch["video_mask"]))
+                       batch["video_mask"], mm), token_dtype=dt)
     kq = enc(*TL._prep(p["text_encoder"], batch["question"],
-                       batch["question_mask"]))
-    mods = p["modules"]
+                       batch["question_mask"], mm), token_dtype=dt)
+    mods = tree_map(lambda x: x.to(dt), p["modules"])
     return TX.prepare_args(
         model.config, mods, VideoNMN._fused_tables(mods), batch["trace"],
-        kv[:2], batch["video_mask"], kq[:2], batch["question_mask"])
+        kv[:2], batch["video_mask"].to(dt), kq[:2], batch["question_mask"])
 
 
 def hold_f32_executor(dev, model, batch, rate, seed=(11, 22)):
@@ -2573,17 +2601,23 @@ def backward_launches(TA, q, k, v, out, lse, dout, pl, vl, causal, scale,
 def device_kernels(fn, ordered=False):
     """Names of the device kernels one call of ``fn`` launches
     (``torch.profiler``'s device events): in launch order, or the set of
-    them sorted."""
+    them sorted. Every ``fn`` given launches at least one kernel, so a
+    session that records no device event at all lost the card's trace (an
+    H100's profiler did, now and then, within a run whose other sessions
+    recorded theirs): it is run again, up to three sessions."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
     names = [e.name for e in events]
     return names if ordered else sorted(set(names))
 
@@ -5254,9 +5288,10 @@ CLI_DEFAULTS = dict(hidden_size=512, max_video_length=150, batch_size=32,
                     text_size=300)
 
 
-def run_default_clis(dev, root):
-    """Phase 22's runs: the world under ``root``, ``train.loop.main`` with
-    only the data paths, the output and what keeps the run short, then
+def run_default_clis(dev, root, world=None, extra=(), run="run"):
+    """Phase 22's runs: the world under ``root`` (or ``world``, one written
+    before), ``train.loop.main`` with only the data paths, the output (under
+    ``root/run``), ``extra`` and what keeps the run short, then
     ``train.evaluate.main`` on its ``best_model``, each counted. Returns
     what the checks read."""
     from stair_tpu_torch.ops import _build
@@ -5265,16 +5300,16 @@ def run_default_clis(dev, root):
     from stair_tpu_torch.train import evaluate, loop
 
     t0 = time.perf_counter()
-    w = write_world(f"{root}/world", DEFAULT_WORLD)
-    out = f"{root}/run"
-    args = loop.parse_cli(data_argv(w, out))
+    w = world or write_world(f"{root}/world", DEFAULT_WORLD)
+    out = f"{root}/{run}"
+    args = loop.parse_cli(data_argv(w, out, *extra))
     train_ds, valid_ds = loop.load_datasets(args)
     n_train, n_valid = (sum(t is not None for t in ds.traces)
                         for ds in (train_ds, valid_ds))
     steps = -(-n_train // args.batch_size)
     eval_batches = -(-n_valid // args.batch_size)
     world_s = time.perf_counter() - t0
-    argv = data_argv(w, out, "--num-epochs", str(DEFAULT_EPOCHS),
+    argv = data_argv(w, out, *extra, "--num-epochs", str(DEFAULT_EPOCHS),
                      "--report-interval", str(steps),
                      "--evaluate-interval", str(steps))
 
@@ -5395,11 +5430,12 @@ def default_batch(dev, args, ds, model, tables, B, seed, shuffle):
     return bdict, loop.materialize_batch(bdict, tables), batch.meta["real"]
 
 
-def phase_default_clis(dev, card):
+def phase_default_clis(dev, card, root=None):
     """Phase 22: the NMN trainer and evaluate CLIs at their own defaults
     (H 512, F 150, float32, B 32): every executor launch on the "fma32"
-    routes, which take F 150 on ``gemm32``'s row tiles. Returns the F 150
-    kernel entries."""
+    routes, which take F 150 on ``gemm32``'s row tiles. With ``root`` (a
+    directory the caller removes) its world stays there for phase 23
+    (``SEEN["defaults"]["world"]``). Returns the F 150 kernel entries."""
     import tempfile
 
     from stair_tpu_torch.ops import mega_exec as TX
@@ -5408,7 +5444,8 @@ def phase_default_clis(dev, card):
     from stair_tpu_torch.utils.device import cuda_time_ms
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="stair_defaults_")
+    own = root is None
+    root = root or tempfile.mkdtemp(prefix="stair_defaults_")
     try:
         r = run_default_clis(dev, root)
         args, cfg = r["args"], r["cfg"]
@@ -5442,11 +5479,12 @@ def phase_default_clis(dev, card):
                   "mega_exec_train_fma32": {
                       pick: want["mega_exec_train_fma32"]},
                   "mega_exec_bwd_fma32": {pick6: want["mega_exec_bwd_fma32"]}}
-        require(r["train_clusters"] == want_c,
+        require(r["train_clusters"] == {**want_c, **{
+                    k: {} for k in r["train_clusters"] if k not in want_c}},
                 f"[defaults] train.loop.main cluster launches "
                 f"{r['train_clusters']}, want {want_c}")
         want_e = {k: {pick: n * r["eval_batches"]} if k == "mega_exec_fma32"
-                  else {} for k in want_c}
+                  else {} for k in r["eval_clusters"]}
         require(r["eval_clusters"] == want_e,
                 f"[defaults] train.evaluate.main cluster launches "
                 f"{r['eval_clusters']}, want {want_e}")
@@ -5591,10 +5629,11 @@ def phase_default_clis(dev, card):
                 f"{rec['#6']['general_walk_ms']:.4f} + "
                 f"{rec['#6']['general_wgrad_ms']:.4f}); card {card}")
         SEEN["defaults"] = dict(loop_ms=loop_ms, step_ms=step_ms,
-                                timed=timed)
+                                timed=timed, world=r["world"])
         log(f"[defaults] phase {time.perf_counter() - t_phase:.1f} s")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
 
     launches = {k: r["train_launches"].get(k, 0) + r["eval_launches"].get(
         k, 0) for k in ("mega_exec_fma32", "mega_exec_train_fma32",
@@ -5644,6 +5683,438 @@ def phase_default_clis(dev, card):
     ]
 
 
+#: phase 23: the NMN trainer and evaluate CLIs at their defaults in bf16:
+#: phase 22's world and driver, ``--config-filename`` naming the config the
+#: port's ``train/loop.py build_model`` makes for that world with only
+#: ``compute_dtype`` set to "bfloat16" (the JAX trainer's one way to bf16,
+#: ``stair_tpu/train/loop.py:612-615``)
+BF16_CLI_DEFAULTS = dict(CLI_DEFAULTS, compute_dtype="bfloat16")
+#: phase 23's timed routes of #4-#6: key prefix of the record, context,
+#: cluster argument of the walk's launch (the row-slice mode on the
+#: launch's cluster, on one CTA an example, and the general route forced)
+BF16_DEFAULT_ROUTES = (("", contextlib.nullcontext, None),
+                       ("one_cta_", one_cta, 1),
+                       ("general_", general_mega, None))
+
+
+def bf16_cli_config(dev, world, path):
+    """The model config the port's trainer makes for ``world`` at the CLIs'
+    defaults (``train/loop.py build_model`` on the data paths alone), with
+    ``compute_dtype`` "bfloat16", written to ``path`` as the file
+    ``--config-filename`` reads. Returns it."""
+    from stair_tpu_torch.testing.agqa_world import data_argv
+    from stair_tpu_torch.train import loop
+
+    args = loop.parse_cli(data_argv(world, os.path.dirname(path)))
+    model, cfg = loop.build_model(args, list(loop.load_datasets(args)), dev)
+    del model
+    cfg["compute_dtype"] = "bfloat16"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg
+
+
+def executor_files(out):
+    """The executor's three register files by the names the file checks
+    (``hold_files``) read, in float32."""
+    return dict(zip(("regs_vec", "regs_frames", "regs_attn"),
+                    (o.float() for o in out)))
+
+
+def hold_tc_executor(dev, model, batch, rate, seed=(11, 22)):
+    """#4 on ``batch``'s eval inputs, #5 and #6 on its training inputs
+    (``executor_inputs``), bf16, on the tensor-core route in its row-slice
+    mode: one launch of each of its keys, each counted under the cluster
+    its launch picks (``mega_exec.tc_launch_cluster``: ``F`` / 64 CTAs an
+    example while the batch fits one wave of the card's CTA slots, else 2,
+    else one CTA); against one CTA an example (the same mode, every slice on
+    one CTA; equal bits) and a second run (equal bits); against the plain
+    versions (#4 and #5 files by ``hold_files``: atol 3e-2 + rtol 1e-2, the
+    executor's bf16 bound; #6 within 1e-1 of each gradient's largest value
+    at its own files, ``at_files``); and the walk's recompute products at
+    this F against the forward's (``mega_grad.recompute_check``, equal
+    bits). Returns the errors, the cluster and what the timings reuse."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+
+    ins = {"eval": executor_inputs(model, batch, train=False),
+           "train": executor_inputs(model, batch, train=True)}
+    meta4, a4 = ins["eval"]
+    meta5, a5 = ins["train"]
+    B, F, H = meta4[0], meta4[5], meta4[6]
+    require(meta4[9] == meta5[9] == torch.bfloat16,
+            f"bf16 executor inputs in {meta4[9]} / {meta5[9]}")
+    C = TX.tc_launch_cluster(B, F, H, meta4[8])
+    C6 = TX.tc_launch_cluster(B, F, H, walk=True)
+    slots = TX.tc_slots(F, H, meta4[8])
+    require(C == C6 == TX.tc_cluster(B, F, slots),
+            f"bf16 B {B} F {F}: the launches pick {C} / {C6}, tc_cluster "
+            f"over {slots} slots {TX.tc_cluster(B, F, slots)}")
+    require(TX.fwd_route(torch.bfloat16, H, F, True) == "tc"
+            and TX.tc_sliced(F), f"bf16 H {H} F {F}: not the row-slice mode")
+    with kernel_route(("mega_exec_tc",)) as l4:
+        k4 = TX.mega_exec_call(meta4, a4)
+    require_launches("bf16 #4", l4, {"mega_exec_tc": 1})
+    seen = {"#4": dict(_build.CLUSTERS["mega_exec_tc"])}
+    keys = ("mega_exec_train_tc", "mega_exec_bwd_tc", "mega_exec_wgrad_tc")
+    gen = torch.Generator().manual_seed(6)
+    with kernel_route(keys) as l56:
+        k5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
+        gouts = [torch.randn(o.shape, generator=gen).to(dev) for o in k5]
+        k6 = TG.mega_exec_bwd_call(meta5, a5, k5, gouts, rate, seed)
+    require_launches("bf16 #5 + #6", l56, dict.fromkeys(keys, 1))
+    seen["#5"] = dict(_build.CLUSTERS["mega_exec_train_tc"])
+    seen["#6"] = dict(_build.CLUSTERS["mega_exec_bwd_tc"])
+    require(seen == {k: {C: 1} for k in ("#4", "#5", "#6")},
+            f"bf16 #4-#6 B {B} H {H} F {F}: cluster launches {seen}, the "
+            f"launch's pick {C}")
+    with one_cta():
+        o4 = TX.mega_exec_call(meta4, a4)
+        o5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
+        o6 = TG.mega_exec_bwd_call(meta5, a5, o5, gouts, rate, seed)
+    t5 = TX.mega_exec_train_call(meta5, a5, rate, seed)
+    t6 = TG.mega_exec_bwd_call(meta5, a5, k5, gouts, rate, seed)
+    torch.cuda.synchronize()
+    for what, k, o, t in (("#4 files", k4, o4, k4), ("#5 files", k5, o5, t5),
+                          ("#6 gradients", k6, o6, t6)):
+        require(all(torch.equal(a, b) for a, b in zip(k, o)),
+                f"bf16 {what}: the row-slice mode on clusters of {C} "
+                "differs from one CTA an example")
+        require(all(torch.equal(a, b) for a, b in zip(k, t)),
+                f"bf16 {what}: two runs differ")
+    r4 = TX.mega_exec_reference(meta4, a4)
+    r5 = TX.mega_exec_reference(meta5, a5, rate=rate, seed=seed)
+    trace = batch["trace"]
+    e4 = hold_files("bf16 #4 vs plain", trace, executor_files(k4),
+                    executor_files(r4), ("regs_vec", "regs_frames",
+                                         "regs_attn"))
+    e5 = hold_files("bf16 #5 vs plain", trace, executor_files(k5),
+                    executor_files(r5), ("regs_vec", "regs_frames",
+                                         "regs_attn"))
+    r6 = TG.mega_exec_bwd_reference(meta5, a5, k5, gouts, rate, seed,
+                                    at_files=True)
+    rel6 = max(rel_err(x, y) for x, y in zip(k6, r6))
+    require(rel6 <= 1e-1, f"bf16 #6 vs plain at its files: rel err {rel6}")
+    # the walk's recompute at this F: each product (the [F, H] @ [H, H]
+    # one over row slices, alone and as stage 1's chained pair, and the
+    # vec-level one) gives the forward's bits
+    rg = torch.Generator().manual_seed(F)
+    for vec in (False, True):
+        for chain in (False, True):
+            A = torch.randn(3 if vec else F, H, generator=rg).to(
+                dev, torch.bfloat16)
+            A = A.float() if vec else A
+            Bm = (torch.randn((3 if vec else 1) * H, H, generator=rg)
+                  / H ** 0.5).to(dev, torch.bfloat16)
+            fw, wk = TG.recompute_check(A, Bm, vec, chain)
+            torch.cuda.synchronize()
+            require(torch.equal(fw, wk), f"bf16 recompute check at F {F} "
+                    f"(vec {vec}, chain {chain}): walk differs from forward")
+    return dict(e4=max_err(k4, r4), e5=max_err(k5, r5), e6=max_err(k6, r6),
+                rel6=rel6, outside=(e4[1], e5[1]), flipped=(e4[2], e5[2]),
+                ins=ins, gouts=gouts, seed=seed, rate=rate, cluster=C,
+                outs={"#4": k4, "#5": k5, "#6": k6})
+
+
+def time_tc_kernels(held, label):
+    """#4, #5 and #6 on ``hold_tc_executor``'s inputs by CUDA-graph replay
+    on the tensor-core route's row-slice mode (on the cluster its launch
+    picks), on one CTA an example and on the general route forced (#6 also
+    its walk and weight-gradient launches apart), beside the plain versions
+    (CUDA events) and their bounds (the flop counter's operations on the
+    plain version at these inputs, 989 TFLOP/s bf16; each argument read and
+    each output written once). Returns ``{kernel: record}``."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    bf = torch.bfloat16
+    meta4, a4 = held["ins"]["eval"]
+    meta5, a5 = held["ins"]["train"]
+    rate, seed, gouts = held["rate"], held["seed"], held["gouts"]
+    out = held["outs"]
+
+    def plain4():
+        return TX.mega_exec_reference(meta4, a4)
+
+    def plain5():
+        return TX.mega_exec_reference(meta5, a5, rate=rate, seed=seed)
+
+    def plain6():
+        return TG.mega_exec_bwd_reference(meta5, a5, out["#5"], gouts, rate,
+                                          seed, at_files=True)
+
+    rec = {
+        "#4": {"plain_ms": cuda_time_ms(plain4, iters=2, warmup=1),
+               **bound(counted_flops(plain4), tensor_bytes(a4, out["#4"]),
+                       bf)},
+        "#5": {"plain_ms": cuda_time_ms(plain5, iters=2, warmup=1),
+               **bound(counted_flops(plain5), tensor_bytes(a5, out["#5"]),
+                       bf)},
+        "#6": {"plain_ms": cuda_time_ms(plain6, iters=1, warmup=1),
+               **bound(counted_flops(plain6),
+                       tensor_bytes(a5, out["#5"], gouts, out["#6"]), bf)}}
+    for pre, ctx, cluster in BF16_DEFAULT_ROUTES:
+        with ctx():
+            o = TX.mega_exec_train_call(meta5, a5, rate, seed)
+            walk, wgrad, _ = TG.bwd_launches(
+                meta5, a5, o, gouts, TX.dropout_params(rate, seed), cluster)
+            times = {
+                "#4": graph_ms(lambda: TX.mega_exec_call(meta4, a4), 5),
+                "#5": graph_ms(lambda: TX.mega_exec_train_call(
+                    meta5, a5, rate, seed), 5),
+                "#6": graph_ms(lambda: (walk(), wgrad()), 5),
+                "walk": graph_ms(walk, 5), "wgrad": graph_ms(wgrad, 5)}
+        for k in ("#4", "#5", "#6"):
+            rec[k][f"{pre}ms"] = times[k]
+        rec["#6"][f"{pre}walk_ms"] = times["walk"]
+        rec["#6"][f"{pre}wgrad_ms"] = times["wgrad"]
+    for k, r in rec.items():
+        entry = {"kernel": k, "shape": label, **r}
+        log(f"[bf16 defaults] {json.dumps(entry)}")
+    return rec
+
+
+def phase_bf16_clis(dev, card, root):
+    """Phase 23: the NMN trainer and evaluate CLIs at their defaults (H
+    512, F 150, B 32, dropout 0.25) in bf16, through ``--config-filename``
+    on phase 22's world (under ``root``): every executor launch on the
+    tensor-core route's row-slice mode (#4, #5 and #6's walk on clusters of
+    F / 64 CTAs an example at the CLIs' B 32), none general; every BiLSTM
+    launch on its bf16 cluster route. Returns the F 150 bf16 kernel
+    entries."""
+    from stair_tpu_torch.ops import mega_exec as TX
+    from stair_tpu_torch.ops import mega_grad as TG
+    from stair_tpu_torch.train import evaluate, loop
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    t_phase = time.perf_counter()
+    world = SEEN["defaults"]["world"]
+    cfg_path = f"{root}/bf16_config.json"
+    made = bf16_cli_config(dev, world, cfg_path)
+    r = run_default_clis(dev, root, world, ("--config-filename", cfg_path),
+                         "run_bf16")
+    args, cfg = r["args"], r["cfg"]
+    H, F, B = cfg["hidden_size"], cfg["max_video_length"], args.batch_size
+    got = {**{k: cfg[k] for k in BF16_CLI_DEFAULTS if k in cfg},
+           "batch_size": B}
+    require(got == BF16_CLI_DEFAULTS and cfg == made,
+            f"[bf16 defaults] not the CLI's defaults in bf16 "
+            f"{BF16_CLI_DEFAULTS}: {got}")
+    require(TX.fwd_route(torch.bfloat16, H, F, False)
+            == TG.bwd_route(torch.bfloat16, H, F) == "tc" and TX.tc_sliced(F),
+            f"[bf16 defaults] H {H} F {F} bf16 not on the tc row-slice mode")
+    C = TX.tc_launch_cluster(B, F, H)
+    steps, epochs = r["steps"], DEFAULT_EPOCHS
+    total = steps * epochs
+    n_eval = (epochs + 1) * r["eval_batches"]
+    want = {k: n * total for k, n in TRAIN_LAUNCHES.items() if n}
+    for k, n in EVAL_LAUNCHES.items():
+        want[k] = want.get(k, 0) + n * n_eval
+    require_launches("[bf16 defaults] train.loop.main", r["train_launches"],
+                     want)
+    require_launches("[bf16 defaults] train.evaluate.main",
+                     r["eval_launches"],
+                     {k: n * r["eval_batches"]
+                      for k, n in EVAL_LAUNCHES.items()})
+    want_c = {k: {} for k in r["train_clusters"]}
+    want_c.update({"mega_exec_tc": {C: want["mega_exec_tc"]},
+                   "mega_exec_train_tc": {C: want["mega_exec_train_tc"]},
+                   "mega_exec_bwd_tc": {C: want["mega_exec_bwd_tc"]}})
+    require(r["train_clusters"] == want_c,
+            f"[bf16 defaults] train.loop.main cluster launches "
+            f"{r['train_clusters']}, want {want_c}")
+    want_e = {k: {} for k in r["eval_clusters"]}
+    want_e["mega_exec_tc"] = {C: r["eval_batches"]}
+    require(r["eval_clusters"] == want_e,
+            f"[bf16 defaults] train.evaluate.main cluster launches "
+            f"{r['eval_clusters']}, want {want_e}")
+    reports = [x for x in r["recs"] if "loss/total" in x]
+    evals = [x for x in r["recs"] if "valid/acc" in x]
+    require(len(evals) == epochs + 1, f"{len(evals)} evaluations")
+    first, last, shared = require_loss_falls(reports)
+    require(r["acc"] == r["best_state"]["best_acc"] == r["best"],
+            f"[bf16 defaults] evaluate acc {r['acc']} != the trainer's best "
+            f"{r['best_state']['best_acc']} ({r['best']})")
+    log(f"[bf16 defaults] phase 22's world ({r['n_train']} train / "
+        f"{r['n_valid']} valid questions of {F} frames); train.loop.main "
+        f"with the data paths, --config-filename (build_model's config for "
+        f"it, compute_dtype bfloat16), the output, --num-epochs {epochs} and"
+        f" the report and evaluate intervals: H {H}, F {F}, B {B}, "
+        f"{cfg['compute_dtype']}, dropout {cfg['dropout']}, lr {args.lr}; "
+        f"{epochs} epochs = {total} steps + {len(evals)} evaluations x "
+        f"{r['eval_batches']} batch ({r['train_s']:.1f} s): launches "
+        f"{ {k: v for k, v in r['train_launches'].items() if v} } = "
+        f"{total} x TRAIN_LAUNCHES + {n_eval} x {EVAL_LAUNCHES}, no general "
+        f"executor or BiLSTM launch, by cluster size "
+        f"{ {k: v for k, v in r['train_clusters'].items() if v} } (#4, #5 "
+        f"and #6's walk on clusters of {C}); answer loss "
+        f"{[round(x['loss/decoder'], 4) for x in reports]}, mean of "
+        f"{len(shared)} module-family losses "
+        f"{np.mean([first[n] for n in shared]):.4f} -> "
+        f"{np.mean([last[n] for n in shared]):.4f}; valid acc "
+        f"{[round(x['valid/acc'], 4) for x in evals]}; train.evaluate.main "
+        f"on best_model: acc {r['acc']:.4f} = the trainer's best, launches "
+        f"{ {k: v for k, v in r['eval_launches'].items() if v} } (clusters "
+        f"{r['eval_clusters']['mega_exec_tc']}; {r['eval_s']:.1f} s); card "
+        f"{card}")
+
+    # ---- one CLI batch and the evaluate batch on best_model's weights:
+    # #4-#6 against one CTA, a second run and the plain versions; the eval
+    # step's predictions on both routes; one step against the plain route
+    # and twice on the kernel route (equal bits)
+    targs = loop.parse_cli(r["argv"] + ["--model-ckpt",
+                                        f"{r['out']}/best_model"])
+    train_ds, valid_ds = loop.load_datasets(targs)
+    model = evaluate.load_model(targs, valid_ds, dev)
+    require(model.config.compute_dtype == "bfloat16", "best_model not bf16")
+    window = targs.contrastive_window
+    tables = loop.make_device_tables(train_ds, dev)
+    tdict, tbatch, real = default_batch(
+        dev, targs, train_ds, model, tables, B, targs.rand_seed, True)
+    h = hold_tc_executor(dev, model, tbatch, cfg["dropout"])
+    vtables = loop.make_device_tables(valid_ds, dev)
+    vdict, vbatch, vreal = default_batch(
+        dev, targs, valid_ds, model, vtables, B, targs.rand_seed, False)
+    hv = hold_tc_executor(dev, model, vbatch, cfg["dropout"])
+    eval_step = loop.make_eval_step(model, vtables)
+    with kernel_route(("bilstm_tc", "mega_exec_tc")):
+        ek = eval_step(vdict)
+    with plain_route():
+        ep = eval_step(vdict)
+    agree = float((ek["preds"] == ep["preds"]).float().mean())
+    require(agree >= 0.98, f"[bf16 defaults] eval preds agreement {agree}")
+    hold_step_routes("[bf16 defaults]", ((model, "bfloat16"),), tbatch,
+                     window)
+    prior = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        l1, g1 = step_grads(model, tbatch, window)
+        l2, g2 = step_grads(model, tbatch, window)
+    finally:
+        torch.use_deterministic_algorithms(prior)
+    require(l1 == l2 and all(torch.equal(g1[k], g2[k]) for k in g1),
+            "[bf16 defaults] the step is not deterministic on the card")
+    log(f"[bf16 defaults] the CLI's padded last train batch ({real} of {B} "
+        f"rows real), best_model's weights: #4, #5 files and #6's "
+        f"{len(h['outs']['#6'])} gradients on the tc route's row-slice mode "
+        f"(clusters of {h['cluster']}) equal one CTA an example's and a "
+        f"second run's bit for bit; against the plain versions #4 "
+        f"max_abs_err {h['e4']:.3e}, #5 {h['e5']:.3e} (atol 3e-2 + rtol "
+        f"1e-2; elements outside {h['outside']}, Choose flips "
+        f"{h['flipped']}), #6 max rel err {h['rel6']:.3e} (1e-1; max_abs_err"
+        f" {h['e6']:.3e}); the walk's recompute products at F {F} equal the "
+        f"forward's; the evaluate CLI's batch ({vreal} of {B} rows real) "
+        f"likewise (#4 {hv['e4']:.3e}, #5 {hv['e5']:.3e}, #6 "
+        f"{hv['rel6']:.3e}), its eval step's predictions agree {agree:.4f} "
+        f"with the plain route; one train step's loss and all {len(g1)} "
+        f"gradient leaves equal bit for bit twice (deterministic "
+        f"algorithms); card {card}")
+
+    # ---- times: the CLI's inner loop, a train step at B 32, 64 and 128,
+    # and #4-#6 at each, beside one CTA an example and the general route
+    step = loop.make_train_step(model, targs, tables=tables)
+    batcher = loop.make_batcher(targs, train_ds, model,
+                                seed=targs.rand_seed, device_tables=True)
+    loop_ms = {}
+    for name, ctx in (("tc", contextlib.nullcontext),
+                      ("general", general_mega)):
+        with ctx():
+            loop_ms[name] = time_inner_loop(step, batcher, dev,
+                                            DEFAULT_TIMED_EPOCHS, tdict)
+    step_ms, real_rows, held = {}, {}, {}
+    turns = {"tc": contextlib.nullcontext, "one CTA": one_cta,
+             "general": general_mega}
+    for b in DEFAULT_TIMED_BATCHES:
+        bdict, mat, real_rows[b] = default_batch(
+            dev, targs, train_ds, model, tables, b, 0, False)
+        held[b] = h if b == B else hold_tc_executor(dev, model, mat,
+                                                    cfg["dropout"])
+        ms = {k: [] for k in turns}
+        for name in (*turns, *reversed(turns)):
+            with turns[name]():
+                ms[name].append(cuda_time_ms(lambda: step(
+                    bdict, torch.Generator().manual_seed(1), 1.0, 1.0),
+                    iters=5, warmup=1))
+        step_ms[b] = ms
+    timed = {b: time_tc_kernels(
+        held[b], f"NMN CLIs' defaults in bf16, B {b} H {H} F {F}")
+        for b in DEFAULT_TIMED_BATCHES}
+    log(f"[bf16 defaults] the trainer's inner loop, "
+        f"{DEFAULT_TIMED_EPOCHS} epochs = {loop_ms['tc'][2]} steps a route: "
+        + "; ".join(f"{k} {v[0]:.3f} ms a step by the host clock, "
+                    f"{v[1]:.3f} by CUDA events" for k, v in loop_ms.items())
+        + f"; card {card}")
+    for b, ms in step_ms.items():
+        log(f"[bf16 defaults] one train step at B {b} ({real_rows[b]} rows "
+            f"real; CUDA events, 5 steps after one, in turns): "
+            + "; ".join(f"{k} {[round(x, 4) for x in v]}"
+                        for k, v in ms.items()) + f"; card {card}")
+    for b, rec in timed.items():
+        log(f"[bf16 defaults] #4, #5, #6 at B {b} H {H} F {F} bf16 by graph "
+            f"replay, tc on clusters of {held[b]['cluster']}: "
+            + "; ".join(f"{k} tc {v['ms']:.4f} ms, one CTA "
+                        f"{v['one_cta_ms']:.4f}, general "
+                        f"{v['general_ms']:.4f}, plain {v['plain_ms']:.3f}"
+                        f", bound {v['bound_ms']:.4f} ({v['bound_by']})"
+                        for k, v in rec.items())
+            + f"; #6's walk {rec['#6']['walk_ms']:.4f} + weight gradients "
+            f"{rec['#6']['wgrad_ms']:.4f} (one CTA "
+            f"{rec['#6']['one_cta_walk_ms']:.4f} + "
+            f"{rec['#6']['one_cta_wgrad_ms']:.4f}; general "
+            f"{rec['#6']['general_walk_ms']:.4f} + "
+            f"{rec['#6']['general_wgrad_ms']:.4f}); card {card}")
+    SEEN["bf16_defaults"] = dict(loop_ms=loop_ms, step_ms=step_ms,
+                                 timed=timed)
+    log(f"[bf16 defaults] phase {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {k: r["train_launches"].get(k, 0) + r["eval_launches"].get(
+        k, 0) for k in ("mega_exec_tc", "mega_exec_train_tc",
+                        "mega_exec_bwd_tc", "mega_exec_wgrad_tc")}
+    base = {"route": "cuda", "path": f"NMN trainer and evaluate CLIs at "
+            f"their defaults in bf16, H {H} F {F} B {B} (phase 23)",
+            "executor_route": "tc", "library_ms": None}
+
+    def entry(name, kernel, source, replaces, launches_n, err, **more):
+        t = timed[B][kernel]
+        other = {}
+        for b in DEFAULT_TIMED_BATCHES:
+            if b != B:
+                tb = timed[b][kernel]
+                other.update({f"b{b}_ms": tb["ms"],
+                              f"b{b}_one_cta_ms": tb["one_cta_ms"],
+                              f"b{b}_general_ms": tb["general_ms"],
+                              f"b{b}_plain_ms": tb["plain_ms"],
+                              f"b{b}_bound_ms": tb["bound_ms"]})
+        return {"name": name, **base, "source": source,
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": err, "ms": t["ms"], "cluster": h["cluster"],
+                "one_cta_ms": t["one_cta_ms"],
+                "general_ms": t["general_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                **other, **more}
+
+    return [
+        entry("mega_exec_tc", "#4", "stair_tpu_torch/ops/csrc/mega_exec.cu",
+              "stair_tpu/ops/mega_exec.py:123", launches["mega_exec_tc"],
+              h["e4"]),
+        entry("mega_exec_train_tc", "#5",
+              "stair_tpu_torch/ops/csrc/mega_exec.cu",
+              "stair_tpu/ops/mega_grad.py:1016",
+              launches["mega_exec_train_tc"], h["e5"]),
+        entry("mega_exec_bwd_tc", "#6",
+              "stair_tpu_torch/ops/csrc/mega_grad_tc.cu",
+              "stair_tpu/ops/mega_grad.py:111",
+              launches["mega_exec_bwd_tc"], h["e6"],
+              wgrad_launches=launches["mega_exec_wgrad_tc"],
+              walk_ms=timed[B]["#6"]["walk_ms"],
+              wgrad_ms=timed[B]["#6"]["wgrad_ms"],
+              one_cta_walk_ms=timed[B]["#6"]["one_cta_walk_ms"],
+              general_walk_ms=timed[B]["#6"]["general_walk_ms"]),
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
@@ -5681,7 +6152,7 @@ def main():
     # kernels are designed to keep their accumulators and state in
     # registers
     no_spill = ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
-                "mega_exec_tc_kernel<false>", "mega_exec_tc_kernel<true>",
+                "mega_exec_tc_kernel<false", "mega_exec_tc_kernel<true",
                 "mega_bwd_tc_kernel", "mega_wgrad_tc_kernel",
                 "executor_step_tc_kernel", "executor_step_fma32_kernel",
                 "bilstm_fwd_f32_kernel",
@@ -5732,7 +6203,12 @@ def main():
         phase_data_parallel(dev, card, clis)
     finally:
         shutil.rmtree(clis["root"], ignore_errors=True)
-    kernels += phase_default_clis(dev, card)
+    root = tempfile.mkdtemp(prefix="stair_defaults_")
+    try:
+        kernels += phase_default_clis(dev, card, root)
+        kernels += phase_bf16_clis(dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[f32 routes] {json.dumps(SEEN.get('f32', []))}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

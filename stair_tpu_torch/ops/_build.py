@@ -37,7 +37,8 @@ its kernel and nowhere else:
   ``mega_exec_kernel``: float32, and the widths the other refuses);
 - ``mega_exec_tc``, ``mega_exec_train_tc``: the eval and training forward
   on its tensor-core route (bf16, the main paths'; ``mega_exec_tc_kernel``
-  without and with dropout);
+  without and with dropout; above 64 frames an example on a thread-block
+  cluster of frame-row slices, ``CLUSTERS`` counting them by size);
 - ``mega_exec_fma32``, ``mega_exec_train_fma32``: the eval and training
   forward on its float32 "fma32" route (``mega_exec_kernel<float, true>``:
   the general kernel with its products on ``gemm32``, an example on a
@@ -47,7 +48,8 @@ its kernel and nowhere else:
   (``csrc/mega_grad.cu``), the reverse walk and the weight-gradient
   reduction launch;
 - ``mega_exec_bwd_tc``, ``mega_exec_wgrad_tc``: the backward on the
-  tensor-core route (bf16, the main path's; ``csrc/mega_grad_tc.cu``);
+  tensor-core route (bf16, the main path's; ``csrc/mega_grad_tc.cu``; the
+  walk on the forward's cluster, counted in ``CLUSTERS``);
 - ``mega_exec_bwd_fma32``, ``mega_exec_wgrad_fma32``: the backward on the
   float32 "fma32" route (``csrc/mega_grad.cu`` ``mega_bwd_kernel<float,
   true>``; the weight gradients' call launches its row index, then
@@ -123,13 +125,18 @@ LAUNCHES = {
     "slot_zero_many": 0, "slot_add_many": 0,
 }
 
-#: the "fma32" executor launches by cluster size (``csrc/mega_common.cuh``
-#: mega32_cluster; 1: one CTA an example) since the last
-#: ``reset_launches``: launch key -> {CTAs of an example's cluster: launches}
-#: (``mega_exec_fma32``, ``mega_exec_train_fma32``, ``mega_exec_bwd_fma32``;
-#: each also counted in ``LAUNCHES``)
-CLUSTERS = {k: collections.Counter() for k in (
-    "mega_exec_fma32", "mega_exec_train_fma32", "mega_exec_bwd_fma32")}
+#: the "fma32" and tensor-core executor launches by cluster size
+#: (``csrc/mega_common.cuh`` mega32_cluster, tc_cluster; 1: one CTA an
+#: example) since the last ``reset_launches``: launch key -> {CTAs of an
+#: example's cluster: launches} (``mega_exec_fma32``,
+#: ``mega_exec_train_fma32``, ``mega_exec_bwd_fma32``; ``mega_exec_tc``,
+#: ``mega_exec_train_tc``, ``mega_exec_bwd_tc``; each also counted in
+#: ``LAUNCHES``)
+FMA32_CLUSTER_KEYS = ("mega_exec_fma32", "mega_exec_train_fma32",
+                      "mega_exec_bwd_fma32")
+TC_CLUSTER_KEYS = ("mega_exec_tc", "mega_exec_train_tc", "mega_exec_bwd_tc")
+CLUSTERS = {k: collections.Counter()
+            for k in FMA32_CLUSTER_KEYS + TC_CLUSTER_KEYS}
 
 _lib = None
 #: what the last build printed (ptxas register/spill report) and took, in
@@ -306,6 +313,7 @@ def build():
         P, P, P, P,                # rv, rf, ra, workspace
         I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
         I,                         # fsoft
+        I, P,                      # cluster (0: the launch's pick), &used
         P,                         # stream
     ]
     lib.stair_mega_exec_fwd_tc_train.restype = I
@@ -315,6 +323,7 @@ def build():
         I, I, I, I, I, I, I, I,    # B, T, Nv, Nf, Na, F, H, L
         I,                         # fsoft
         I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh, scale
+        I, P,                      # cluster (0: the launch's pick), &used
         P,                         # stream
     ]
     lib.stair_mega_exec_fwd_fma32.restype = I
@@ -346,6 +355,14 @@ def build():
                                                  P, P, P]
     lib.stair_mega_exec_tc_smem.restype = Lg
     lib.stair_mega_exec_tc_smem.argtypes = [I, I, I]        # F, H, L
+    lib.stair_mega_exec_tc_sliced_smem.restype = Lg
+    lib.stair_mega_exec_tc_sliced_smem.argtypes = [I, I, I]  # F, H, L
+    lib.stair_mega_exec_tc_slots.restype = I
+    lib.stair_mega_exec_tc_slots.argtypes = [I, I, I]       # F, H, L
+    lib.stair_mega_exec_tc_cluster.restype = I
+    lib.stair_mega_exec_tc_cluster.argtypes = [I, I, I, I]  # B, F, H, L
+    lib.stair_mega_exec_bwd_tc_cluster.restype = I
+    lib.stair_mega_exec_bwd_tc_cluster.argtypes = [I, I, I]  # B, F, H
     lib.stair_mega_exec_bwd_tc_smem.restype = Lg
     lib.stair_mega_exec_bwd_tc_smem.argtypes = [I, I]       # F, H
     lib.stair_mega_recompute_check.restype = I
@@ -362,8 +379,9 @@ def build():
             I,                         # fsoft
             I, I, I, U, Fl,            # dropout: on, seed0, seed1, thresh,
                                        # scale
-            # the "fma32" walk: cluster (0: the launch's pick), &used
-            *((I, P) if sfx == "fma32" else ()),
+            # the "fma32" and tensor-core walks: cluster (0: the launch's
+            # pick), &used
+            *((I, P) if sfx in ("fma32", "tc") else ()),
             P,                         # stream
         ]
         fn = getattr(lib, f"stair_mega_exec_wgrad_{sfx}")

@@ -372,10 +372,10 @@ __device__ inline void load_tile(__nv_bfloat16* dst, int ld,
 // fwd_gemm: as mega_exec_tc_kernel (#4, #5) runs them, A a bf16 tile in
 // shared memory (row stride K + TC_PAD), chunks of FWD_BN columns (two row
 // tiles a warp), the ring apart.
-// walk_gemm: as mega_bwd_tc_kernel (#6) recomputes them, A bf16 rows in
-// global memory (a register file or a record), staged into tile [M, K +
-// TC_PAD] with the ring after it, chunks of TC_BN columns (one row tile a
-// warp: the walk is short of registers).
+// walk_gemm (below, with the row-slice mode): as mega_bwd_tc_kernel (#6)
+// recomputes them, A bf16 rows in global memory (a register file or a
+// record), staged into a tile with the ring after it, chunks of TC_BN
+// columns (one row tile a warp: the walk is short of registers).
 // Each output takes the same k steps in the same order with its operands in
 // the same fragment positions (row tiles start at multiples of 16, column
 // tiles at multiples of 8 in both), so the two give the same bits;
@@ -388,12 +388,141 @@ __device__ void fwd_gemm(const __nv_bfloat16* As, const __nv_bfloat16* W,
   tc_gemm<false, FWD_BN>(As, K + TC_PAD, W, N, M, K, N, ring, epi);
 }
 
+// All threads of the cluster's CTAs: every write before it, to shared or
+// global memory, is visible to every thread after it (release / acquire at
+// cluster scope).
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The tensor-core route's row-slice mode (F above TC_MAX_F, or not a multiple
+// of 16): every [F, H] @ [H, H] product runs over slices of at most TC_MAX_F
+// rows, each staged into one bf16 [rows, K + TC_PAD] tile in shared memory
+// with its rows padded by zeros to whole 16-row mma tiles; the padded rows'
+// outputs reach no epilogue. An output row's sum is the same k steps on the
+// same fragments in any slice (row tiles start at multiples of 16 in each),
+// so a slice gives the bits of the whole-tile product.
+
+// rows of the staging tile of the row-slice mode at F frames
+__host__ __device__ constexpr int tc_slice_rows(int F) {
+  return F < TC_MAX_F ? (F + 15) & ~15 : TC_MAX_F;
+}
+
+// Rows [0, rows) of A (row stride lda: bf16, or float32 rounded to bf16 as it
+// is staged, the walk's rd(dY)) into dst (row stride ld), rows [rows,
+// pad16(rows)) zeroed. K % 8 == 0, rows 16-byte aligned. Called by the whole
+// block; returns after a barrier.
+__device__ inline void stage_rows(__nv_bfloat16* dst, int ld,
+                                  const __nv_bfloat16* src, long lds,
+                                  int rows, int K) {
+  const int per = K / 8, n = ((rows + 15) & ~15) * per;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * THREADS) {
+    uint4 v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * THREADS, r = i / per;
+      v[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < n && r < rows)
+        v[j] = *reinterpret_cast<const uint4*>(src + r * lds + (i % per) * 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n)
+        *reinterpret_cast<uint4*>(dst + (size_t)(i / per) * ld +
+                                  (i % per) * 8) = v[j];
+    }
+  }
+  __syncthreads();
+}
+
+__device__ inline void stage_rows(__nv_bfloat16* dst, int ld,
+                                  const float* src, long lds, int rows,
+                                  int K) {
+  const int per = K / 4, n = ((rows + 15) & ~15) * per;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int r = i / per, c = i % per;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) v = *reinterpret_cast<const float4*>(src + r * lds + c * 4);
+    __nv_bfloat162* d =
+        reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * ld + c * 4);
+    d[0] = __floats2bfloat162_rn(v.x, v.y);
+    d[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  __syncthreads();
+}
+
+// An example's cluster in the row-slice mode: C CTAs, CTA r = blockIdx.x % C
+// owning the rows [r R, min(F, (r + 1) R)) of every [F, H] product, R =
+// tc_cta_rows(F, C) (a multiple of 16); a CTA walks its rows in slices of
+// TC_MAX_F. Forced C from 1 to 8 (tests, scripts), else the launch's pick,
+// tc_cluster (ops/mega_exec.py tc_cluster mirrors it).
+__host__ __device__ constexpr int tc_cta_rows(int F, int C) {
+  return ((F + C - 1) / C + 15) & ~15;
+}
+
+// slices of TC_MAX_F rows at F frames
+__host__ __device__ constexpr int tc_slice_count(int F) {
+  return (F + TC_MAX_F - 1) / TC_MAX_F;
+}
+
+// The launch's cluster size for B examples at F frames on a card of
+// `slots` CTA slots (its SMs x the kernel's CTAs an SM: one): one CTA a
+// slice while B such clusters fit one wave of slots, else 2 while B
+// clusters of 2 do, else one CTA an example (every slice on it). On an
+// H100 at F 150 (scripts/tc_clusters.py): clusters of 3 took #5 2.29 ms
+// and the walk 6.48 at B 32 (one CTA 2.88, 8.62), clusters of 2 2.53 and
+// 8.21 at B 64 (3: 2.90, 10.16; one CTA 2.92, 9.32), one CTA 2.96 and
+// 10.37 at B 128 (2: 3.73, 14.61): the lead's passes stay whole, so a CTA
+// that waits at a barrier while another example could run is lost.
+__host__ __device__ constexpr int tc_cluster(int B, int F, int slots) {
+  return B * tc_slice_count(F) <= slots
+             ? tc_slice_count(F)
+             : (tc_slice_count(F) > 2 && 2 * B <= slots ? 2 : 1);
+}
+
+// prod(m0, rows) on each slice [m0, m0 + rows) of this CTA's rows, between
+// two cluster barriers (C > 1): the cluster's earlier writes (the lead's
+// operand rows, whatever the epilogues read) are visible to the product, and
+// its outputs to every CTA after it. Called by every CTA of the cluster.
+template <typename Prod>
+__device__ __forceinline__ void tc_slices(int F, int C, Prod prod) {
+  if (C > 1) cluster_barrier();
+  const int R = tc_cta_rows(F, C), r = (int)(blockIdx.x % C);
+  const int end = F < (r + 1) * R ? F : (r + 1) * R;
+  for (int m0 = r * R; m0 < end; m0 += TC_MAX_F)
+    prod(m0, end - m0 < TC_MAX_F ? end - m0 : TC_MAX_F);
+  if (C > 1) cluster_barrier();
+}
+
+// fwd_rows: fwd_gemm in the row-slice mode; walk_gemm: the walk's products
+// at every F. Both on rows [0, rows) of A (bf16 rows in global memory, row
+// stride lda; rows <= TC_MAX_F), staged into tile [pad16(rows), K + TC_PAD]
+// (zero rows past rows) with tc_gemm's ring apart (fwd_rows) or after the
+// tile (walk_gemm); epi(m, n, acc) for m < rows only. Each output row keeps
+// fwd_gemm's k steps and fragments in both, so both give its bits.
 template <typename Epi>
-__device__ void walk_gemm(const __nv_bfloat16* A, const __nv_bfloat16* W,
-                          int M, int K, int N, __nv_bfloat16* tile, Epi epi) {
-  const int ld = K + TC_PAD;
-  load_tile(tile, ld, A, M, K);
-  tc_gemm<false, TC_BN>(tile, ld, W, N, M, K, N, tile + (size_t)M * ld, epi);
+__device__ void fwd_rows(const __nv_bfloat16* A, long lda,
+                         const __nv_bfloat16* W, int rows, int K, int N,
+                         __nv_bfloat16* tile, __nv_bfloat16* ring, Epi epi) {
+  stage_rows(tile, K + TC_PAD, A, lda, rows, K);
+  fwd_gemm(tile, W, (rows + 15) & ~15, K, N, ring,
+           [&](int m, int n, float acc) {
+             if (m < rows) epi(m, n, acc);
+           });
+}
+
+template <typename Epi>
+__device__ void walk_gemm(const __nv_bfloat16* A, long lda,
+                          const __nv_bfloat16* W, int rows, int K, int N,
+                          __nv_bfloat16* tile, Epi epi) {
+  const int ld = K + TC_PAD, M = (rows + 15) & ~15;
+  stage_rows(tile, ld, A, lda, rows, K);
+  tc_gemm<false, TC_BN>(tile, ld, W, N, M, K, N, tile + (size_t)M * ld,
+                        [&](int m, int n, float acc) {
+                          if (m < rows) epi(m, n, acc);
+                        });
 }
 
 // float slots of vecmat_tc's k-split partials
@@ -612,14 +741,6 @@ __device__ void gemm32(const float* A, int lda, const float* W, long ldw,
     }
   }
   __syncthreads();
-}
-
-// All threads of the cluster's CTAs: every write before it, to shared or
-// global memory, is visible to every thread after it (release / acquire at
-// cluster scope).
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // gemm32 on an example's cluster of C CTAs (the "fma32" kernels' cluster

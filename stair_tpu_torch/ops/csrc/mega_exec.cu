@@ -683,6 +683,21 @@ __global__ void __launch_bounds__(THREADS) mega_exec_kernel(const Args<T> a) {
 // the W ring 54 KB (three stages of 64 x 128 bf16), six [max(H, L)] float
 // vectors, the vec products' 8 KB of partials: ~206 KB, one block an SM.
 //
+// The row-slice mode (SLICED: F above TC_MAX_F or not a multiple of 16, the
+// NMN CLIs' default F 150; or a forced cluster): the two tiles cannot stay on
+// chip (two [160, 520] bf16 tiles are 333 KB), so they live in the
+// per-example workspace after its float32 rows, and each [F, H] @ [H, H]
+// product stages its A rows into one shared-memory tile of at most TC_MAX_F
+// rows (fwd_rows, mega_common.cuh: the same k steps and fragments, so the
+// same bits per row). An example runs on a thread-block cluster of C CTAs
+// (tc_cluster: one CTA a 64-row slice while the launch fits one wave of the
+// card's CTA slots, so the CLIs' B 32 at F 150 takes 96 of an H100's 132
+// SMs): CTA r computes its rows of every product (tc_slices, a cluster
+// barrier on each side), and CTA 0, the lead, runs every other pass in the
+// one-CTA order and writes rv, ra and every frames row the products do not
+// write; the other CTAs wait at the products' barriers. So every file equals
+// one CTA's bit for bit at any C, and a change to a pass moves both modes.
+//
 // What bounds it on an H100: per heavy step two or three [64 x 512] @ [512
 // x 512] products whose 512 KB weight tables each block reads from L2 (64
 // operations a byte, so L2 bandwidth and the mma.sync rate are of one
@@ -701,6 +716,14 @@ __host__ __device__ inline size_t tc_smem_bytes(int F, int H, int L) {
   return 2 * (size_t)F * (H + TC_PAD) * sizeof(bf16) +
          (size_t)tc_ring<FWD_BN>() * sizeof(bf16) +
          (6 * V + TC_PARTS + 6 * (size_t)F + NWARPS) * sizeof(float);
+}
+
+// Dynamic shared memory of the row-slice mode (SLICED) in bytes: one
+// staging tile of tc_slice_rows(F) rows instead of the two [F, H + 8] tiles
+// (ops/mega_exec.py tc_sliced_smem_bytes mirrors it).
+__host__ __device__ inline size_t tc_sliced_smem_bytes(int F, int H, int L) {
+  return tc_smem_bytes(F, H, L) -
+         (2 * (size_t)F - tc_slice_rows(F)) * (H + TC_PAD) * sizeof(bf16);
 }
 
 // Pointers into mega_exec_tc_kernel's dynamic shared memory.
@@ -766,13 +789,16 @@ __device__ void superlative_tc(float* row, int K, int mode, int count_or_neg,
   });
 }
 
-template <bool TRAIN>
+template <bool TRAIN, bool SLICED = false>
 __global__ void __launch_bounds__(THREADS)
     mega_exec_tc_kernel(const Args<bf16> a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ int ins[NSF];
   using T = bf16;
-  const int b = blockIdx.x;
+  // SLICED: example b on a cluster of C = a.C CTAs (1 too), CTA 0 the lead
+  const int C = SLICED ? a.C : 1;
+  const int b = (int)(blockIdx.x / C);
+  auto lead = [&] { return !SLICED || blockIdx.x % C == 0; };
   const int F = a.F, H = a.H, L = a.L, Hh = H / 2, LDT = H + TC_PAD;
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
   const int tid = threadIdx.x;
@@ -781,8 +807,9 @@ __global__ void __launch_bounds__(THREADS)
   TcSmem s;
   {
     bf16* p = reinterpret_cast<bf16*>(tc_smem);
-    s.tile[0] = p; p += (size_t)F * LDT;
-    s.tile[1] = p; p += (size_t)F * LDT;
+    // SLICED: one staging tile (tile[0]) of a product's A rows
+    s.tile[0] = p; p += (size_t)(SLICED ? tc_slice_rows(F) : F) * LDT;
+    s.tile[1] = p; p += SLICED ? 0 : (size_t)F * LDT;
     s.ring = p; p += tc_ring<FWD_BN>();
     float* q = reinterpret_cast<float*>(p);
     const int V = ((H > L ? H : L) + 3) & ~3;
@@ -797,25 +824,46 @@ __global__ void __launch_bounds__(THREADS)
   T* rv = a.rv + (size_t)b * Nv * H;
   T* rf = a.rf + (size_t)b * Nf * F * H;
   T* ra = a.ra + (size_t)b * Na * F;
-  float* wsg = a.ws + (size_t)b * F * H;   // SUPF kw_f / TEMP pre-LN rows
+  // SUPF kw_f / TEMP pre-LN rows; SLICED: then the two [F, H + TC_PAD] bf16
+  // tiles
+  float* wsg = a.ws + (size_t)b * (SLICED ? F * (H + LDT) : F * H);
   const size_t FH = (size_t)F * H;
-
+  bf16* const tiles[2] = {
+      SLICED ? reinterpret_cast<bf16*>(wsg + FH) : s.tile[0],
+      SLICED ? reinterpret_cast<bf16*>(wsg + FH) + (size_t)F * LDT
+             : s.tile[1]};
+  // C[F, H] = A[F, H] (bf16 rows, stride lda) @ W[H, H] for the products
+  // whose A is a tile (SLICED: this CTA's rows, staged; else the shared
+  // tile A itself); epi(m, n, acc) per output row m of the example
+  auto prod = [&](const bf16* A, int lda, const T* W, auto epi) {
+    if constexpr (SLICED)
+      tc_slices(F, C, [&](int m0, int rows) {
+        fwd_rows(A + (size_t)m0 * lda, lda, W, rows, H, H, s.tile[0],
+                 s.ring, [&](int m, int n, float acc) { epi(m0 + m, n, acc); });
+      });
+    else
+      fwd_gemm(A, W, F, H, H, s.ring, epi);
+  };
 
   // ---- register-file init: frames register 0 <- video * vmask ----------
   for (int f = tid; f < F; f += THREADS)
     s.vm[f] = to_f(a.vm[(size_t)b * F + f]);
-  for (int i = tid; i < Nv * H; i += THREADS) rv[i] = from_f<T>(0.f);
-  for (int i = tid; i < Na * F; i += THREADS) ra[i] = from_f<T>(0.f);
-  for (int i = tid; i < F * LDT; i += THREADS) s.tile[0][i] = from_f<T>(0.f);
+  if (lead()) {
+    for (int i = tid; i < Nv * H; i += THREADS) rv[i] = from_f<T>(0.f);
+    for (int i = tid; i < Na * F; i += THREADS) ra[i] = from_f<T>(0.f);
+    for (int i = tid; i < F * LDT; i += THREADS) tiles[0][i] = from_f<T>(0.f);
+  }
   __syncthreads();
-  pass<true>(FH, [&](size_t i) {
-    const int f = (int)(i / H), j = (int)(i % H);
-    const T v = j < Hh ? a.vf_a[((size_t)b * F + f) * Hh + j]
-                       : a.vf_b[((size_t)b * F + f) * Hh + j - Hh];
-    return to_f(v) * s.vm[f];
-  }, [&](size_t i, float v) { rf[i] = from_f<T>(v); });
-  for (size_t i = FH + tid; i < (size_t)Nf * FH; i += THREADS)
-    rf[i] = from_f<T>(0.f);
+  if (lead()) {
+    pass<true>(FH, [&](size_t i) {
+      const int f = (int)(i / H), j = (int)(i % H);
+      const T v = j < Hh ? a.vf_a[((size_t)b * F + f) * Hh + j]
+                         : a.vf_b[((size_t)b * F + f) * Hh + j - Hh];
+      return to_f(v) * s.vm[f];
+    }, [&](size_t i, float v) { rf[i] = from_f<T>(v); });
+    for (size_t i = FH + tid; i < (size_t)Nf * FH; i += THREADS)
+      rf[i] = from_f<T>(0.f);
+  }
   __syncthreads();
 
   auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
@@ -846,49 +894,67 @@ __global__ void __launch_bounds__(THREADS)
     };
 
     // ---- operand reads, then the zero writes of out_attn/out_attn_b ----
-    for (int j = tid; j < H; j += THREADS) {
-      s.va[j] = to_f(rv[(size_t)iva * H + j]);
-      s.vb[j] = to_f(rv[(size_t)ivb * H + j]);
-      s.nv[j] = 0.f;
+    if (lead()) {
+      for (int j = tid; j < H; j += THREADS) {
+        s.va[j] = to_f(rv[(size_t)iva * H + j]);
+        s.vb[j] = to_f(rv[(size_t)ivb * H + j]);
+        s.nv[j] = 0.f;
+      }
+      for (int f = tid; f < F; f += THREADS) {
+        s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
+        s.ab[f] = to_f(ra[(size_t)iab * F + f]);
+      }
+      __syncthreads();
+      for (int f = tid; f < F; f += THREADS) {
+        ra[(size_t)out_a * F + f] = from_f<T>(0.f);
+        ra[(size_t)out_ab * F + f] = from_f<T>(0.f);
+      }
+      __syncthreads();
     }
-    for (int f = tid; f < F; f += THREADS) {
-      s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
-      s.ab[f] = to_f(ra[(size_t)iab * F + f]);
-    }
-    __syncthreads();
-    for (int f = tid; f < F; f += THREADS) {
-      ra[(size_t)out_a * F + f] = from_f<T>(0.f);
-      ra[(size_t)out_ab * F + f] = from_f<T>(0.f);
-    }
-    __syncthreads();
 
     // ---- stage 1: expert two-layer frames MLP (e1 == 9: null) ---------
-    // fa -> the free tile; hidden -> feat's tile; feat -> the free tile.
+    // fa -> the free tile; hidden -> feat's tile; feat -> the free tile
+    // (SLICED: fa's rows straight from the file).
     if (e1 != 9) {
-      bf16* x = s.tile[fcur ^ 1];
-      bf16* h = s.tile[fcur];
+      bf16* x = tiles[fcur ^ 1];
+      bf16* h = tiles[fcur];
       const T* b1 = a.b1u + (size_t)e1 * H;
       const T* b2 = a.b2u + (size_t)e1 * H;
-      load_tile(x, LDT, fa, F, H);
-      fwd_gemm(x, a.w1u + (size_t)e1 * H * H, F, H, H, s.ring,
-               [&](int m, int n, float acc) {
+      if constexpr (!SLICED) load_tile(x, LDT, fa, F, H);
+      prod(SLICED ? fa : x, SLICED ? H : LDT, a.w1u + (size_t)e1 * H * H,
+           [&](int m, int n, float acc) {
         h[(size_t)m * LDT + n] =
             from_f<T>(drop(fmaxf(acc + to_f(b1[n]), 0.f), m, n, 0));
       });
-      fwd_gemm(h, a.w2u + (size_t)e1 * H * H, F, H, H, s.ring,
-               [&](int m, int n, float acc) {
+      prod(h, LDT, a.w2u + (size_t)e1 * H * H, [&](int m, int n, float acc) {
         const float v = acc + to_f(b2[n]);
         x[(size_t)m * LDT + n] =
             from_f<T>(is_filter ? drop(fmaxf(v, 0.f), m, n, 1) : v);
       });
       fcur ^= 1;
     }
-    const bf16* feat = s.tile[fcur];
-    bf16* opnd = s.tile[fcur ^ 1];
+    const bf16* feat = tiles[fcur];
+    bf16* opnd = tiles[fcur ^ 1];
     auto ft = [&](int f, int k) { return to_f(feat[(size_t)f * LDT + k]); };
 
-    // ---- vec producers (write s.nv; zeros for non-vec ops) ------------
-    if (op == OP_PUSH) {
+    // ---- SUPF's keyword rows kw_f = lin_dt(fb, w2t[2], b2t[2]) -> wsg
+    // [F, H] (on every CTA of the cluster); fb's rows stay at fbt for the
+    // pooling: the free tile, or (SLICED) the file
+    const T* fb = rf + (size_t)ifb * FH;
+    const bf16* fbt = SLICED ? fb : opnd;
+    const int ldb = SLICED ? H : LDT;
+    if (op == OP_SUPF) {
+      const T* wk = a.w2t + 2 * (size_t)H * H;
+      const T* bk = a.b2t + 2 * (size_t)H;
+      if constexpr (!SLICED) load_tile(opnd, LDT, fb, F, H);
+      prod(fbt, ldb, wk, [&](int m, int n, float acc) {
+        wsg[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
+      });
+    }
+
+    // ---- vec producers (write s.nv; zeros for non-vec ops), the lead ----
+    if (!lead()) {
+    } else if (op == OP_PUSH) {
       const int ss = ins[F_SS], se = ins[F_SE];
       float* span_w = s.x1;  // [L]
       for (int p = tid; p < L; p += THREADS) {
@@ -1042,14 +1108,6 @@ __global__ void __launch_bounds__(THREADS)
                      s, [&](int k, int j) { return k == 0 ? va[j] : vb[j]; },
                      s.vc);
     } else if (op == OP_SUPF) {
-      const T* wk = a.w2t + 2 * (size_t)H * H;
-      const T* bk = a.b2t + 2 * (size_t)H;
-      // kw_f = lin_dt(fb, w2t[2], b2t[2]) -> wsg [F, H]; fb stays in the
-      // free tile for the pooling
-      load_tile(opnd, LDT, rf + (size_t)ifb * FH, F, H);
-      fwd_gemm(opnd, wk, F, H, H, s.ring, [&](int m, int n, float acc) {
-        wsg[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
-      });
       for (int r = warp; r < F; r += NWARPS) {
         float n1 = 0.f, n2 = 0.f;
         for (int k = lane; k < H; k += 32) {
@@ -1078,42 +1136,46 @@ __global__ void __launch_bounds__(THREADS)
         if (lane == 0) s.f3[i] = row;
       }
       __syncthreads();
-      const bf16* fbt = opnd;
       superlative_tc(s.f3, F, mode, -1, a.supw, a.supb, H, s,
                      [&](int k, int j) {
-                       return to_f(fbt[(size_t)k * LDT + j]);
+                       return to_f(fbt[(size_t)k * ldb + j]);
                      },
                      s.x1);
     }
 
-    for (int j = tid; j < H; j += THREADS)
-      rv[(size_t)out_v * H + j] = from_f<T>(s.nv[j]);
+    if (lead())
+      for (int j = tid; j < H; j += THREADS)
+        rv[(size_t)out_v * H + j] = from_f<T>(s.nv[j]);
 
-    // ---- frames producers --------------------------------------------
+    // ---- frames producers (the stage-2 products on every CTA of the
+    // cluster, the rest on the lead) ------------------------------------
     T* fout = rf + (size_t)out_f * FH;
+    const int midx = mode - 1 > 0 ? mode - 1 : 0;
     if (op == OP_FFV || op == OP_FFK) {
-      float gk = 0.f;
-      for (int k = tid; k < H; k += THREADS) gk += s.va[k] * to_f(a.ffkw[k]);
-      gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f;
-        for (int k = lane; k < H; k += 32) d += ft(f, k) * to_f(a.ffwf[k]);
-        d = warp_sum(d);
-        if (lane == 0) s.f1[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+      if (lead()) {
+        float gk = 0.f;
+        for (int k = tid; k < H; k += THREADS)
+          gk += s.va[k] * to_f(a.ffkw[k]);
+        gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32) d += ft(f, k) * to_f(a.ffwf[k]);
+          d = warp_sum(d);
+          if (lane == 0) s.f1[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+        }
+        __syncthreads();
+        for (int i = tid; i < F * H; i += THREADS) {
+          const int f = i / H, k = i % H;
+          opnd[(size_t)f * LDT + k] = from_f<T>(s.f1[f] * ft(f, k));
+        }
+        __syncthreads();
       }
-      __syncthreads();
-      for (int i = tid; i < F * H; i += THREADS) {
-        const int f = i / H, k = i % H;
-        opnd[(size_t)f * LDT + k] = from_f<T>(s.f1[f] * ft(f, k));
-      }
-      __syncthreads();
       const T* b20 = a.b2t;
-      fwd_gemm(opnd, a.w2t, F, H, H, s.ring, [&](int m, int n, float acc) {
+      prod(opnd, LDT, a.w2t, [&](int m, int n, float acc) {
         fout[(size_t)m * H + n] =
             from_f<T>(drop(fmaxf(acc + to_f(b20[n]), 0.f), m, n, 2) * s.vm[m]);
       });
-    } else if (op == OP_TEMP) {
-      const int midx = mode - 1 > 0 ? mode - 1 : 0;
+    } else if (op == OP_TEMP && lead()) {
       const size_t FF = (size_t)F * F;
       for (int f = tid; f < F; f += THREADS) {
         const float am = count == 2 ? (s.aa[f] + s.ab[f]) * 0.5f : s.aa[f];
@@ -1148,11 +1210,14 @@ __global__ void __launch_bounds__(THREADS)
                    opnd[(i / H) * LDT + i % H] = from_f<T>(v);
                  });
       __syncthreads();
+    }
+    if (op == OP_TEMP) {
       const T* b21 = a.b2t + H;
-      fwd_gemm(opnd, a.w2t + (size_t)H * H, F, H, H, s.ring,
-               [&](int m, int n, float acc) {
+      prod(opnd, LDT, a.w2t + (size_t)H * H, [&](int m, int n, float acc) {
         wsg[(size_t)m * H + n] = drop(fmaxf(acc + to_f(b21[n]), 0.f), m, n, 2);
       });
+    }
+    if (op == OP_TEMP && lead()) {
       for (int f = warp; f < F; f += NWARPS) {
         const float* y = wsg + (size_t)f * H;
         float sm = 0.f;
@@ -1172,15 +1237,16 @@ __global__ void __launch_bounds__(THREADS)
       for (int f = tid; f < F; f += THREADS)
         ra[(size_t)out_ab * F + f] = from_f<T>(s.f3[f]);
       __syncthreads();
-    } else if (op == OP_ATTNV) {
+    } else if (op == OP_ATTNV && lead()) {
       pass<true>(FH, [&](size_t i) { return s.aa[i / H] * to_f(fa[i]); },
                  [&](size_t i, float v) { fout[i] = from_f<T>(v); });
       __syncthreads();
     }
 
-    // ---- attn producers ----------------------------------------------
+    // ---- attn producers, the lead --------------------------------------
     T* aout = ra + (size_t)out_a * F;
-    if (op == OP_ANDA || op == OP_XORF) {
+    if (!lead()) {
+    } else if (op == OP_ANDA || op == OP_XORF) {
       for (int f = tid; f < F; f += THREADS)
         aout[f] = from_f<T>(op == OP_ANDA ? fminf(s.aa[f], s.ab[f])
                                           : fabsf(s.aa[f] - s.ab[f]));
@@ -1235,10 +1301,43 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The row-slice mode's cluster size for B examples at (F, H, L): `cluster`
+// where forced (> 0), else tc_cluster over the card's CTA slots for the
+// kernel at its shared memory (one an SM).
+template <bool TRAIN>
+cudaError_t tc_sliced_pick(int B, int F, int H, int L, int cluster,
+                           int* C) {
+  const auto kernel = mega_exec_tc_kernel<TRAIN, true>;
+  const size_t smem = tc_sliced_smem_bytes(F, H, L);
+  *C = cluster;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess || cluster > 0) return e;
+  int slots = 0;
+  e = cta_slots(kernel, smem, &slots);
+  *C = tc_cluster(B, F, slots);
+  return e;
+}
+
+// The row-slice mode's launch: example b on CTAs b C .. b C + C - 1.
+template <bool TRAIN>
+int launch_tc_sliced(const Args<bf16>& a, cudaStream_t stream) {
+  const auto kernel = mega_exec_tc_kernel<TRAIN, true>;
+  const size_t smem = tc_sliced_smem_bytes(a.F, a.H, a.L);
+  const cudaError_t e = launch_clusters(kernel, a.B, a.C, smem, stream, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// cluster: the CTAs of an example's cluster, 0 for the launch's pick (one
+// CTA at the widths the shared tiles hold, else tc_sliced_pick's); *used
+// gets the size launched. The row-slice mode wherever the shared tiles
+// cannot hold F or a cluster of 2 or more is asked for.
 template <bool TRAIN>
 int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
               int B, int T_, int Nv, int Nf, int Na, int F, int H, int L,
-              int fsoft, stair::Dropout dr, cudaStream_t stream) {
+              int fsoft, stair::Dropout dr, cudaStream_t stream,
+              int cluster, int* used) {
   Args<bf16> a;
   a.fill(p);
   a.rv = (bf16*)rv;
@@ -1256,6 +1355,13 @@ int launch_tc(const void* const* p, void* rv, void* rf, void* ra, void* ws,
   a.fsoft = fsoft;
   a.C = 1;
   a.dr = dr;
+  if (cluster > 1 || F % 16 || F > stair::TC_MAX_F) {
+    const cudaError_t e = tc_sliced_pick<TRAIN>(B, F, H, L, cluster, &a.C);
+    *used = a.C;
+    if (e != cudaSuccess) return (int)e;
+    return launch_tc_sliced<TRAIN>(a, stream);
+  }
+  *used = 1;
   const size_t smem = tc_smem_bytes(F, H, L);
   cudaError_t e = cudaFuncSetAttribute(
       mega_exec_tc_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1343,24 +1449,31 @@ extern "C" int stair_mega_exec_fwd(const void* const* ptrs, int nptrs,
 }
 
 // The widths the tensor-core route takes: H a multiple of 64 in [64,
-// TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F], L <= MAX_L.
-static bool tc_takes(int nptrs, int F, int H, int L) {
-  return nptrs == NARGS && H % 64 == 0 && H >= 64 && H <= stair::TC_MAX_H &&
-         F % 16 == 0 && F >= 16 && F <= stair::TC_MAX_F && L <= MAX_L;
+// TC_MAX_H], any F in [TC_MIN_F, TC_ROUTE_MAX_F] (above TC_MAX_F or at a
+// ragged F in the row-slice mode), L <= MAX_L; a forced cluster of at most
+// 8 CTAs (the portable cluster size).
+static bool tc_takes(int nptrs, int B, int F, int H, int L, int cluster) {
+  return nptrs == NARGS && B > 0 && H % 64 == 0 && H >= 64 &&
+         H <= stair::TC_MAX_H && F >= stair::TC_MIN_F &&
+         F <= stair::TC_ROUTE_MAX_F && L <= MAX_L && cluster >= 0 &&
+         cluster <= 8;
 }
 
 // The tensor-core route, eval (mega_exec_tc_kernel<false>, #4): bf16 at
 // the widths tc_takes; ops/mega_exec.py fwd_route picks it. Arguments as
-// stair_mega_exec_fwd's; ws: a float32 [B, F, H] workspace.
+// stair_mega_exec_fwd's; ws: a float32 workspace of [B, F, H] (one CTA an
+// example with the tiles in shared memory) or [B, F, 2 H + TC_PAD] (the
+// row-slice mode: then the tiles); cluster, used: as launch_tc's. A cluster
+// that cannot launch returns its error: nothing falls back.
 extern "C" int stair_mega_exec_fwd_tc(const void* const* ptrs, int nptrs,
                                       void* rv, void* rf, void* ra, void* ws,
                                       int B, int T, int Nv, int Nf, int Na,
                                       int F, int H, int L, int fsoft,
-                                      void* stream) {
-  if (!tc_takes(nptrs, F, H, L)) return (int)cudaErrorInvalidValue;
+                                      int cluster, int* used, void* stream) {
+  if (!tc_takes(nptrs, B, F, H, L, cluster)) return (int)cudaErrorInvalidValue;
   return launch_tc<false>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L,
                           fsoft, stair::Dropout{0, 0, 0, 0u, 1.f},
-                          (cudaStream_t)stream);
+                          (cudaStream_t)stream, cluster, used);
 }
 
 // The tensor-core route, training (mega_exec_tc_kernel<true>, #5): as
@@ -1370,18 +1483,47 @@ extern "C" int stair_mega_exec_fwd_tc_train(
     const void* const* ptrs, int nptrs, void* rv, void* rf, void* ra,
     void* ws, int B, int T, int Nv, int Nf, int Na, int F, int H, int L,
     int fsoft, int drop, int seed0, int seed1, unsigned thresh, float scale,
-    void* stream) {
-  if (!tc_takes(nptrs, F, H, L)) return (int)cudaErrorInvalidValue;
+    int cluster, int* used, void* stream) {
+  if (!tc_takes(nptrs, B, F, H, L, cluster)) return (int)cudaErrorInvalidValue;
   return launch_tc<true>(ptrs, rv, rf, ra, ws, B, T, Nv, Nf, Na, F, H, L,
                          fsoft, stair::Dropout{drop, seed0, seed1, thresh,
                                                scale},
-                         (cudaStream_t)stream);
+                         (cudaStream_t)stream, cluster, used);
 }
 
 // Dynamic shared memory of mega_exec_tc_kernel (both instantiations) at
-// (F, H, L), in bytes.
+// (F, H, L), in bytes: one CTA an example with the tiles in shared memory.
 extern "C" long stair_mega_exec_tc_smem(int F, int H, int L) {
   return (long)tc_smem_bytes(F, H, L);
+}
+
+// The same per CTA in the row-slice mode.
+extern "C" long stair_mega_exec_tc_sliced_smem(int F, int H, int L) {
+  return (long)tc_sliced_smem_bytes(F, H, L);
+}
+
+// CTA slots of the row-slice mode's forward at (F, H, L) on the current
+// card (its SMs x the kernel's CTAs an SM), or -1 on an error.
+extern "C" int stair_mega_exec_tc_slots(int F, int H, int L) {
+  const auto kernel = mega_exec_tc_kernel<true, true>;
+  const size_t smem = tc_sliced_smem_bytes(F, H, L);
+  int slots = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cta_slots(kernel, smem, &slots) != cudaSuccess)
+    return -1;
+  return slots;
+}
+
+// The CTAs of an example's cluster that a tensor-core launch of B examples
+// at (F, H, L) takes on the current card (1 at the widths the shared tiles
+// hold), or -1 on an error.
+extern "C" int stair_mega_exec_tc_cluster(int B, int F, int H, int L) {
+  if (!(F % 16 || F > stair::TC_MAX_F)) return 1;
+  int C = 0;
+  if (tc_sliced_pick<true>(B, F, H, L, 0, &C) != cudaSuccess) return -1;
+  return C;
 }
 
 // The widths the "fma32" route takes: H a multiple of G32_BN in [G32_BN,

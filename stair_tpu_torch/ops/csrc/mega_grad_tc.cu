@@ -2,26 +2,30 @@
 //
 // Replaces the TPU kernel stair_tpu/ops/mega_grad.py _make_bwd_kernel,
 // reached through backward_call / _train_fn (mega_exec_train), for bf16 at
-// H a multiple of 64 up to TC_MAX_H and F a multiple of 16 up to TC_MAX_F
-// (ops/mega_grad.py bwd_route picks the route before the launch). float32
-// and every other width take the general route, mega_grad.cu (float32) and
-// mega_grad_bf16.cu (bf16): mega_bwd_kernel and mega_wgrad_kernel, every
-// product on gemm, float32 records. This file follows that design and
-// changes its products and records:
+// H a multiple of 64 up to TC_MAX_H and any F from TC_MIN_F to
+// TC_ROUTE_MAX_F (ops/mega_grad.py bwd_route picks the route before the
+// launch). float32 and every other width take the general route,
+// mega_grad.cu (float32) and mega_grad_bf16.cu (bf16): mega_bwd_kernel and
+// mega_wgrad_kernel, every product on gemm, float32 records. This file
+// follows that design and changes its products and records:
 //
 // - The walk (mega_bwd_tc_kernel), one block per example in reverse, as
-//   the general route's. Its recompute products (stage 1, SUPF's keyword
-//   rows, the FilterFrame and Temporal projections, the vec-level layers)
-//   rebuild values of this route's training forward (#5,
-//   mega_exec_tc_kernel<true>), so they call #5's own product code on the
-//   tensor cores: walk_gemm (tc_gemm at #5's k order, the A rows staged
-//   from the files or records into a bf16 tile) and vecmat_tc, with #5's
-//   epilogues; stair_mega_recompute_check holds each equal to the
-//   forward's call on the card. The gradient products whose operands are
-//   both exact in bf16 (the cotangent rounded as it is loaded, as the JAX
-//   kernel's .astype(dt), and a bf16 weight table: SUPF, FilterFrame and
-//   Temporal's rd(dY) @ W^T and stage 1's two) run on mma.sync (grad_tc,
-//   tc_gemm); only their order of sums changes. The products of the
+//   the general route's; where the forward runs its row-slice mode (F above
+//   TC_MAX_F or ragged, the NMN CLIs' F 150), on the forward's thread-block
+//   cluster: each CTA its frame rows of every [F, H] product, in slices of
+//   at most TC_MAX_F rows, the lead CTA the rest (bwd_walk). Its recompute
+//   products (stage 1, SUPF's keyword rows, the FilterFrame and Temporal
+//   projections, the vec-level layers) rebuild values of this route's
+//   training forward (#5, mega_exec_tc_kernel<true>), so they call #5's
+//   own product code on the tensor cores: walk_gemm (tc_gemm at #5's k
+//   order, the A rows staged from the files or records into a bf16 tile)
+//   and vecmat_tc, with #5's epilogues; stair_mega_recompute_check
+//   holds each equal to the forward's call on the card. The gradient
+//   products whose operands are both exact in bf16 (the cotangent rounded
+//   as it is loaded, as the JAX kernel's .astype(dt), and a bf16 weight
+//   table: SUPF, FilterFrame and Temporal's rd(dY) @ W^T and stage 1's
+//   two) run on mma.sync (grad_tc, tc_gemm); only their order of sums
+//   changes. The products of the
 //   float32 cotangent m1 (SUPF) stay on gemm.
 // - Its records are bf16 rows (the weight products round them anyway:
 //   half the bytes), and each (record, slot) gets a float32 [H] bias
@@ -35,8 +39,8 @@
 // training shape, under one per SM): the latency of the per-step vec and
 // elementwise passes over float32 [F, H] rows through L2, then the tensor-
 // core products (about four recompute and four gradient products per heavy
-// step). Splitting an example across a thread-block cluster is later
-// work.
+// step). On a cluster (F 150: 3 CTAs) the products split by rows and the
+// lead's passes stay whole.
 
 #include "mega_common.cuh"
 
@@ -100,8 +104,10 @@ struct Small {
 // until the step ends and its bf16 records and bias partials are written;
 // the [F, H], [F, F] and [H] slots first, at strides of the route's largest
 // F and H, so that their offsets are compile-time constants (no register
-// holds them across the walk). ops/mega_grad.py workspace_floats mirrors
-// it.
+// holds them across the walk); the [Na, F] slot padded to 4 floats, so
+// that at any F every slot and every example's workspace start on 16 bytes
+// (the dY rows are staged as float4). ops/mega_grad.py workspace_floats
+// mirrors it.
 struct Ws {
   int grv, gra, grf, feat, hpre, h2, gfeat, w1, w2, gof, m1, m2, dtok, daux,
       d0, d1, d2, d3, d4, size;
@@ -109,8 +115,8 @@ struct Ws {
                          int T) {
     const int FH = F * H;
     int o = 0;
-    const int S = stair::TC_MAX_F * stair::TC_MAX_H;
-    const int SF = stair::TC_MAX_F * stair::TC_MAX_F;
+    const int S = stair::TC_ROUTE_MAX_F * stair::TC_MAX_H;
+    const int SF = stair::TC_ROUTE_MAX_F * stair::TC_ROUTE_MAX_F;
     int* fh[] = {&feat, &hpre, &h2, &gfeat, &w1, &w2, &gof, &d0, &d1, &d2};
     for (int* f : fh) { *f = o; o += S; }
     m1 = o; o += SF;
@@ -118,7 +124,7 @@ struct Ws {
     d3 = o; o += stair::TC_MAX_H;
     d4 = o; o += stair::TC_MAX_H;
     grv = o; o += (long)Nv * H;
-    gra = o; o += (long)Na * F;
+    gra = o; o += ((long)Na * F + 3) & ~3L;   // the next slots on 16 bytes
     grf = o; o += Nf * FH;
     dtok = o; o += (long)L * H;
     daux = o; o += (long)T * H;
@@ -138,12 +144,13 @@ struct BArgs : Tensors<T> {
   float* small;                    // [B, Small.size]
   float* ws;                       // [B, Ws.size]
   int B, T_, Nv, Nf, Na, F, H, L, fsoft;
+  int C;                           // CTAs of an example's cluster
   stair::Dropout dr;
 };
 
 // Shared-memory scratch, laid out in dynamic shared memory; tc: the
-// product scratch (a bf16 [F, H + TC_PAD] operand tile and tc_gemm's ring,
-// or vecmat_tc's partials).
+// product scratch (a bf16 [tc_slice_rows(F), H + TC_PAD] operand tile and
+// tc_gemm's ring, or vecmat_tc's partials).
 struct Sh {
   float* hv[NHV];
   float* fv[NFV];
@@ -152,16 +159,18 @@ struct Sh {
 };
 
 // Dynamic shared memory of the walk in floats (the product scratch 16-byte
-// aligned at the end: the larger of the operand tile with tc_gemm's ring
-// and vecmat_tc's partials); ops/mega_grad.py bwd_smem_bytes mirrors it.
-// The vectors are laid out at the route's largest H and F, so that every
-// shared-memory address is a compile-time offset and holds no register
-// across the walk.
+// aligned at the end: the larger of the operand tile of a row slice with
+// tc_gemm's ring and vecmat_tc's partials); ops/mega_grad.py bwd_smem_bytes
+// mirrors it. The vectors are laid out at the route's largest H and F, so
+// that every shared-memory address is a compile-time offset and holds no
+// register across the walk.
 __host__ __device__ inline long bwd_smem_floats(int F, int H) {
-  long n = (long)NHV * stair::TC_MAX_H + (long)(NFV + 5) * stair::TC_MAX_F +
-           BK * (BM + 1) + BK * BN + NWARPS;
+  long n = (long)NHV * stair::TC_MAX_H +
+           (long)(NFV + 5) * stair::TC_ROUTE_MAX_F + BK * (BM + 1) +
+           BK * BN + NWARPS;
   n = (n + 3) & ~3L;
-  const long t = ((long)F * (H + TC_PAD) + tc_ring<TC_BN>()) / 2;
+  const long t =
+      ((long)tc_slice_rows(F) * (H + TC_PAD) + tc_ring<TC_BN>()) / 2;
   return n + (t > TC_PARTS ? t : TC_PARTS);
 }
 
@@ -337,36 +346,40 @@ __device__ void superlative_bwd(int K, Score score, Act act,
   sync();
 }
 
-// rd(D) @ W^T on the tensor cores (the walk's gradient products): D [F, H] float32 is rounded to bf16 as it is staged
-// into a tile in shared memory (the JAX kernel's .astype(dt) of the
-// cotangent), B(k, n) = W[n * H + k]; scratch holds the tile, then
-// tc_gemm's ring. epi(m, n, acc) per output.
+// rd(D) @ W^T on the tensor cores (the walk's gradient products) over rows
+// [0, rows) of D (a row slice, rows <= TC_MAX_F): D float32 [rows, H] is
+// rounded to bf16 as it is staged into a tile in shared memory (the JAX
+// kernel's .astype(dt) of the cotangent; zero rows to a multiple of 16), B(k,
+// n) = W[n * H + k]; scratch holds the tile, then tc_gemm's ring. epi(m, n,
+// acc) per output row m < rows.
 template <typename Epi>
-__device__ void grad_tc(const float* D, const __nv_bfloat16* W, int F, int H,
+__device__ void grad_tc(const float* D, const __nv_bfloat16* W, int rows, int H,
                         float* scratch, Epi epi) {
   __nv_bfloat16* At = reinterpret_cast<__nv_bfloat16*>(scratch);
-  const int ld = H + TC_PAD, per = H / 4;
-  for (int i = threadIdx.x; i < F * per; i += THREADS) {
-    const int r = i / per, c = i % per;
-    const float4 v =
-        *reinterpret_cast<const float4*>(D + (size_t)r * H + c * 4);
-    __nv_bfloat162* d =
-        reinterpret_cast<__nv_bfloat162*>(At + (size_t)r * ld + c * 4);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-  __syncthreads();
-  tc_gemm<true>(At, ld, W, H, F, H, H, At + (size_t)F * ld, epi);
+  const int ld = H + TC_PAD, M = (rows + 15) & ~15;
+  stage_rows(At, ld, D, H, rows, H);
+  tc_gemm<true>(At, ld, W, H, M, H, H, At + (size_t)M * ld,
+                [&](int m, int n, float acc) {
+                  if (m < rows) epi(m, n, acc);
+                });
 }
 
-// The reverse walk of one example (block): #5's walk_gemm and vecmat_tc
+// The reverse walk of one example: #5's walk_gemm and vecmat_tc
 // for the recompute products, grad_tc for the bf16 gradient products, bf16
-// records with bias partials.
+// records with bias partials. Example b on a cluster of C = a.C CTAs (1:
+// one CTA an example), the forward's: CTA r runs its frame rows of every
+// [F, H] product (tc_slices; every product's operand and output rows live
+// in the files, the records and the workspace), CTA 0, the lead, runs
+// every other pass in the one-CTA order and writes every gradient, record
+// and bias partial; the others wait at the products' cluster barriers. So
+// every output equals one CTA's bit for bit at any C.
 template <typename T>
 __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
   using RT = typename BArgs<T>::RT;
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x;
+  const int C = a.C;
+  const int b = (int)(blockIdx.x / C);
+  auto lead = [&] { return blockIdx.x % C == 0; };
   const int F = a.F, H = a.H, L = a.L, T_ = a.T_, Hh = H / 2;
   const int Nv = a.Nv, Nf = a.Nf, Na = a.Na;
   const int tid = threadIdx.x;
@@ -375,7 +388,7 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
   const size_t FH = (size_t)F * H;
 
   // vector strides: compile-time (bwd_smem_floats)
-  constexpr int SH = stair::TC_MAX_H, SF = stair::TC_MAX_F;
+  constexpr int SH = stair::TC_MAX_H, SF = stair::TC_ROUTE_MAX_F;
   Sh s;
   {
     float* p = smem;
@@ -419,25 +432,34 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
   const T* ra = a.ra + (size_t)b * Na * F;
 
   // ---- init: cotangents in (f32), accumulators zeroed -------------------
-  for (int f = tid; f < F; f += THREADS) vm[f] = to_f(a.vm[(size_t)b * F + f]);
-  for (int i = tid; i < Nv * H; i += THREADS)
-    grv[i] = to_f(a.drv[(size_t)b * Nv * H + i]);
-  for (int i = tid; i < Na * F; i += THREADS)
-    gra[i] = to_f(a.dra[(size_t)b * Na * F + i]);
-  for (size_t i = tid; i < Nf * FH; i += THREADS)
-    grf[i] = to_f(a.drf[(size_t)b * Nf * FH + i]);
-  for (size_t i = tid; i < (size_t)L * H; i += THREADS) dtokw[i] = 0.f;
-  for (size_t i = tid; i < (size_t)T_ * H; i += THREADS) dauxw[i] = 0.f;
-  for (int i = tid; i < sl.size; i += THREADS) sp[i] = 0.f;
+  if (lead()) {
+    for (int f = tid; f < F; f += THREADS)
+      vm[f] = to_f(a.vm[(size_t)b * F + f]);
+    for (int i = tid; i < Nv * H; i += THREADS)
+      grv[i] = to_f(a.drv[(size_t)b * Nv * H + i]);
+    for (int i = tid; i < Na * F; i += THREADS)
+      gra[i] = to_f(a.dra[(size_t)b * Na * F + i]);
+    for (size_t i = tid; i < Nf * FH; i += THREADS)
+      grf[i] = to_f(a.drf[(size_t)b * Nf * FH + i]);
+    for (size_t i = tid; i < (size_t)L * H; i += THREADS) dtokw[i] = 0.f;
+    for (size_t i = tid; i < (size_t)T_ * H; i += THREADS) dauxw[i] = 0.f;
+    for (int i = tid; i < sl.size; i += THREADS) sp[i] = 0.f;
+  }
   sync();
 
   auto clampi = [](int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); };
 
-  // [F, H] @ [H, H] products: the recompute of a forward value (A bf16
-  // rows of a file or a record, B(k, n) = B[k * H + n]), bit for bit as #5
-  // computed it; and a gradient product rd(D) @ W^T.
+  // [F, H] @ [H, H] products, this CTA's rows of them (every CTA of the
+  // cluster calls each): the recompute of a forward value (A bf16 rows of a
+  // file or a record, B(k, n) = B[k * H + n]), bit for bit as #5 computed
+  // it; and a gradient product rd(D) @ W^T. epi(m, n, acc) per output row m
+  // of the example.
   auto recompute = [&](const RT* A, const T* Bm, auto epi) {
-    walk_gemm(A, Bm, F, H, H, reinterpret_cast<RT*>(s.tc), epi);
+    tc_slices(F, C, [&](int m0, int rows) {
+      walk_gemm(A + (size_t)m0 * H, H, Bm, rows, H, H,
+                reinterpret_cast<RT*>(s.tc),
+                [&](int m, int n, float acc) { epi(m0 + m, n, acc); });
+    });
   };
   // the vec-level recompute ([1, H] @ [H, H] over up to three segments)
   auto vecmul = [&](const float* x0, const float* x1, const float* x2,
@@ -445,7 +467,10 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
     vecmat_tc(x0, x1, x2, W, H, H, s.tc, epi);
   };
   auto grad = [&](const float* D, const T* W, auto epi) {
-    grad_tc(D, W, F, H, s.tc, epi);
+    tc_slices(F, C, [&](int m0, int rows) {
+      grad_tc(D + (size_t)m0 * H, W, rows, H, s.tc,
+              [&](int m, int n, float acc) { epi(m0 + m, n, acc); });
+    });
   };
 
   for (int t = T_ - 1; t >= 0; --t) {
@@ -464,7 +489,7 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       const int d[NSLOT] = {wl.d0, wl.d1, wl.d2, wl.d3, wl.d4};
       return ws + d[q];
     };
-    if (tid < NSLOT) {
+    if (lead() && tid < NSLOT) {
       meta[tid * 3] = -1;
       meta[tid * 3 + 1] = 0;
       meta[tid * 3 + 2] = 0;
@@ -484,23 +509,25 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
     const T* fa = rf + (size_t)ifa * FH;
     float* gfa = grf + (size_t)ifa * FH;
 
-    for (int j = tid; j < H; j += THREADS) {
-      va[j] = to_f(rv[(size_t)iva * H + j]);
-      vb[j] = to_f(rv[(size_t)ivb * H + j]);
-      gov[j] = grv[(size_t)out_v * H + j];
+    if (lead()) {
+      for (int j = tid; j < H; j += THREADS) {
+        va[j] = to_f(rv[(size_t)iva * H + j]);
+        vb[j] = to_f(rv[(size_t)ivb * H + j]);
+        gov[j] = grv[(size_t)out_v * H + j];
+      }
+      const bool loc_alias = op == OP_LOC && out_a == out_ab;
+      for (int f = tid; f < F; f += THREADS) {
+        s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
+        s.ab[f] = to_f(ra[(size_t)iab * F + f]);
+        s.goab[f] = gra[(size_t)out_ab * F + f];
+        s.goa[f] = loc_alias ? 0.f : gra[(size_t)out_a * F + f];
+      }
+      for (size_t i = tid; i < FH; i += THREADS) gfeat[i] = 0.f;
+      if (op == OP_FFV || op == OP_FFK || op == OP_TEMP || op == OP_ATTNV)
+        pass<true>(FH, [&](size_t i) { return grf[(size_t)out_f * FH + i]; },
+                   [&](size_t i, float v) { gof[i] = v; });
+      sync();
     }
-    const bool loc_alias = op == OP_LOC && out_a == out_ab;
-    for (int f = tid; f < F; f += THREADS) {
-      s.aa[f] = to_f(ra[(size_t)iaa * F + f]);
-      s.ab[f] = to_f(ra[(size_t)iab * F + f]);
-      s.goab[f] = gra[(size_t)out_ab * F + f];
-      s.goa[f] = loc_alias ? 0.f : gra[(size_t)out_a * F + f];
-    }
-    for (size_t i = tid; i < FH; i += THREADS) gfeat[i] = 0.f;
-    if (op == OP_FFV || op == OP_FFK || op == OP_TEMP || op == OP_ATTNV)
-      pass<true>(FH, [&](size_t i) { return grf[(size_t)out_f * FH + i]; },
-               [&](size_t i, float v) { gof[i] = v; });
-    sync();
 
     // ---- stage-1 recompute: hidden into X1 (the w2u record's X), its
     // pre-activation, h2, and feat -------------------------------------
@@ -515,26 +542,32 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       recompute(fa, sw1, [&](int m, int n, float acc) {
         hpre[(size_t)m * H + n] = acc + to_f(sb1[n]);
       });
-      pass<true>(FH, [&](size_t i) {
-        return rd<T>(fmaxf(hpre[i], 0.f) *
-                     dr.keep((int)(i / H), (int)(i % H), b, t, 0));
-      }, [&](size_t i, float v) { X1[i] = from_f<RT>(v); });
-      sync();
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) {
+          return rd<T>(fmaxf(hpre[i], 0.f) *
+                       dr.keep((int)(i / H), (int)(i % H), b, t, 0));
+        }, [&](size_t i, float v) { X1[i] = from_f<RT>(v); });
+        sync();
+      }
       recompute(X1, sw2, [&](int m, int n, float acc) {
         h2w[(size_t)m * H + n] = acc + to_f(sb2[n]);
       });
-      pass<true>(FH, [&](size_t i) {
-        const float v = h2w[i];
-        return rd<T>(is_filter ? fmaxf(v, 0.f) * dr.keep((int)(i / H),
-                                                         (int)(i % H), b, t,
-                                                         1)
-                               : v);
-      }, [&](size_t i, float v) { feat[i] = v; });
-      sync();
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) {
+          const float v = h2w[i];
+          return rd<T>(is_filter ? fmaxf(v, 0.f) * dr.keep((int)(i / H),
+                                                           (int)(i % H), b,
+                                                           t, 1)
+                                 : v);
+        }, [&](size_t i, float v) { feat[i] = v; });
+        sync();
+      }
     }
 
-    // ================= vec producers ===================================
-    if (op == OP_PUSH) {
+    // ================= vec producers (the lead; SUPF's products on every
+    // CTA of the cluster) ==================================================
+    if (!lead() && op != OP_SUPF) {
+    } else if (op == OP_PUSH) {
       const int ss = ins[F_SS], se = ins[F_SE];
       const T* tm = a.tm + (size_t)b * L;
       auto span_w = [&](int p) {
@@ -907,29 +940,31 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
         recompute(fb, wk, [&](int m, int n, float acc) {
           w1[(size_t)m * H + n] = rd<T>(rd<T>(acc) + to_f(bk[n]));
         });
-        gemm<T, false, false>(w1, H, 1, feat, 1, H, F, H, F, s.As, s.Bs,
-                              [&](int m, int n, float acc) {
-          m2[(size_t)m * F + n] = acc;  // dots[i][f]
-        });
-        float* nk = s.fv[0];
-        float* nf = s.fv[1];
-        float* ssk = s.fv[2];
-        float* ssf = s.fv[3];
-        for (int r = warp; r < F; r += NWARPS) {
-          float n1 = 0.f, n2 = 0.f;
-          for (int k = lane; k < H; k += 32) {
-            const float x = w1[(size_t)r * H + k], y = feat[(size_t)r * H + k];
-            n1 += x * x;
-            n2 += y * y;
-          }
-          n1 = warp_sum(n1);
-          n2 = warp_sum(n2);
-          if (lane == 0) {
-            ssk[r] = n1;
-            ssf[r] = n2;
-            nk[r] = sqrtf(fmaxf(n1, 1e-30f));
-            nf[r] = sqrtf(fmaxf(n2, 1e-30f));
-          }
+        if (lead()) {
+          gemm<T, false, false>(w1, H, 1, feat, 1, H, F, H, F, s.As, s.Bs,
+                                [&](int m, int n, float acc) {
+            m2[(size_t)m * F + n] = acc;  // dots[i][f]
+          });
+          float* nk = s.fv[0];
+          float* nf = s.fv[1];
+          float* ssk = s.fv[2];
+          float* ssf = s.fv[3];
+          for (int r = warp; r < F; r += NWARPS) {
+            float n1 = 0.f, n2 = 0.f;
+            for (int k = lane; k < H; k += 32) {
+              const float x = w1[(size_t)r * H + k];
+              const float y = feat[(size_t)r * H + k];
+              n1 += x * x;
+              n2 += y * y;
+            }
+            n1 = warp_sum(n1);
+            n2 = warp_sum(n2);
+            if (lane == 0) {
+              ssk[r] = n1;
+              ssf[r] = n2;
+              nk[r] = sqrtf(fmaxf(n1, 1e-30f));
+              nf[r] = sqrtf(fmaxf(n2, 1e-30f));
+            }
         }
         sync();
         for (int i = tid; i < F * F; i += THREADS) {
@@ -982,14 +1017,17 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
         pass<true>(FH, [&](size_t i) { return to_f(fb[i]); },
                  [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
         set_meta(meta, 2, TB_W2T, 2, F);
+        }
         // fb += mmT(g_kf, w2t[2]): the product stored, then added in a
         // batched pass
         grad(D2, wk, [&](int m, int n, float acc) {
           w2[(size_t)m * H + n] = acc;
         });
-        pass<true>(FH, [&](size_t i) { return gfb[i] + w2[i]; },
-                   [&](size_t i, float v) { gfb[i] = v; });
-        sync();
+        if (lead()) {
+          pass<true>(FH, [&](size_t i) { return gfb[i] + w2[i]; },
+                     [&](size_t i, float v) { gfb[i] = v; });
+          sync();
+        }
       }
     }
 
@@ -998,20 +1036,22 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       RT* const X2 = Xq(2);
       float* const D2 = Dq(2);
       float* gate = s.fv[0];
-      float gk = 0.f;
-      for (int k = tid; k < H; k += THREADS) gk += va[k] * to_f(a.ffkw[k]);
-      gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f;
-        for (int k = lane; k < H; k += 32)
-          d += feat[(size_t)f * H + k] * to_f(a.ffwf[k]);
-        d = warp_sum(d);
-        if (lane == 0) gate[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+      if (lead()) {
+        float gk = 0.f;
+        for (int k = tid; k < H; k += THREADS) gk += va[k] * to_f(a.ffkw[k]);
+        gk = block_sum(gk, s.red) + to_f(a.ffab[0]);
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32)
+            d += feat[(size_t)f * H + k] * to_f(a.ffwf[k]);
+          d = warp_sum(d);
+          if (lane == 0) gate[f] = op == OP_FFV ? sigmoid_f(d + gk) : 1.0f;
+        }
+        sync();
+        pass<true>(FH, [&](size_t i) { return rd<T>(gate[i / H] * feat[i]); },
+                 [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
+        sync();
       }
-      sync();
-      pass<true>(FH, [&](size_t i) { return rd<T>(gate[i / H] * feat[i]); },
-               [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
-      sync();
       // D2 = relu'(y2) * g_out * vm * mask: y2 stored, the rest applied in
       // a batched pass
       auto d2_of = [&](int m, int n, float y2) {
@@ -1023,18 +1063,23 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
         const float y2 = acc + to_f(a.b2t[n]);
         D2[(size_t)m * H + n] = y2;
       });
-      pass<true>(FH, [&](size_t i) {
-        return d2_of((int)(i / H), (int)(i % H), D2[i]);
-      }, [&](size_t i, float v) { D2[i] = v; });
-      sync();
-      set_meta(meta, 2, TB_W2T, 0, F);
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) {
+          return d2_of((int)(i / H), (int)(i % H), D2[i]);
+        }, [&](size_t i, float v) { D2[i] = v; });
+        sync();
+        set_meta(meta, 2, TB_W2T, 0, F);
+      }
       grad(D2, a.w2t, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
-      pass<true>(FH, [&](size_t i) { return gfeat[i] + gate[i / H] * w2[i]; },
-               [&](size_t i, float v) { gfeat[i] = v; });
-      sync();
-      if (op == OP_FFV) {
+      if (lead()) {
+        pass<true>(FH,
+                   [&](size_t i) { return gfeat[i] + gate[i / H] * w2[i]; },
+                   [&](size_t i, float v) { gfeat[i] = v; });
+        sync();
+      }
+      if (op == OP_FFV && lead()) {
         float* gpre = s.fv[1];
         for (int f = warp; f < F; f += NWARPS) {
           float d = 0.f;
@@ -1072,15 +1117,16 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       float *am = s.fv[0], *p1 = s.fv[1], *h1 = s.fv[2], *p2 = s.fv[3];
       float *hh2 = s.fv[4], *gsig = s.fv[5], *rel = s.fv[6];
       float *mu = s.fv[7], *rstd = s.fv[8];
-      for (int f = tid; f < F; f += THREADS)
-        am[f] = count == 2 ? (s.aa[f] + s.ab[f]) * 0.5f : s.aa[f];
-      sync();
-      for (int j = tid; j < F; j += THREADS) {
-        float acc = 0.f;
-        for (int i = 0; i < F; ++i)
-          acc += rd<T>(am[i]) * to_f(t1w[(size_t)i * F + j]);
-        p1[j] = acc + to_f(a.tb1[midx * F + j]);
-        h1[j] = rd<T>(fmaxf(p1[j], 0.f));
+      if (lead()) {
+        for (int f = tid; f < F; f += THREADS)
+          am[f] = count == 2 ? (s.aa[f] + s.ab[f]) * 0.5f : s.aa[f];
+        sync();
+        for (int j = tid; j < F; j += THREADS) {
+          float acc = 0.f;
+          for (int i = 0; i < F; ++i)
+            acc += rd<T>(am[i]) * to_f(t1w[(size_t)i * F + j]);
+          p1[j] = acc + to_f(a.tb1[midx * F + j]);
+          h1[j] = rd<T>(fmaxf(p1[j], 0.f));
       }
       sync();
       for (int j = tid; j < F; j += THREADS) {
@@ -1101,40 +1147,42 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       pass<true>(FH, [&](size_t i) { return rd<T>(rel[i / H] * to_f(fa[i])); },
                [&](size_t i, float v) { X2[i] = from_f<RT>(v); });
       sync();
+      }
       // y2 into w2, ry = relu(y2) * mask into w1
       recompute(X2, a.w2t + (size_t)H * H, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc + to_f(a.b2t[H + n]);
       });
-      pass<true>(FH, [&](size_t i) {
-        return fmaxf(w2[i], 0.f) *
-               dr.keep((int)(i / H), (int)(i % H), b, t, 2);
-      }, [&](size_t i, float v) { w1[i] = v; });
-      sync();
       float* mgx = s.fv[9];
       float* mgxx = s.fv[10];
-      for (int f = warp; f < F; f += NWARPS) {
-        const float* ry = w1 + (size_t)f * H;
-        float sum = 0.f;
-        for (int k = lane; k < H; k += 32) sum += ry[k];
-        const float m = warp_sum(sum) / H;
-        float s2 = 0.f;
-        for (int k = lane; k < H; k += 32) s2 += (ry[k] - m) * (ry[k] - m);
-        const float var = warp_sum(s2) / H;
-        const float r = rsqrtf(var + 1e-5f);
-        float g1s = 0.f, g2s = 0.f;
-        for (int k = lane; k < H; k += 32) {
-          const float gx = gof[(size_t)f * H + k] * to_f(a.lns[k]);
-          g1s += gx;
-          g2s += gx * (ry[k] - m) * r;
-        }
-        g1s = warp_sum(g1s);
-        g2s = warp_sum(g2s);
-        if (lane == 0) {
-          mu[f] = m;
-          rstd[f] = r;
-          mgx[f] = g1s / H;
-          mgxx[f] = g2s / H;
-        }
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) {
+          return fmaxf(w2[i], 0.f) *
+                 dr.keep((int)(i / H), (int)(i % H), b, t, 2);
+        }, [&](size_t i, float v) { w1[i] = v; });
+        sync();
+        for (int f = warp; f < F; f += NWARPS) {
+          const float* ry = w1 + (size_t)f * H;
+          float sum = 0.f;
+          for (int k = lane; k < H; k += 32) sum += ry[k];
+          const float m = warp_sum(sum) / H;
+          float s2 = 0.f;
+          for (int k = lane; k < H; k += 32) s2 += (ry[k] - m) * (ry[k] - m);
+          const float var = warp_sum(s2) / H;
+          const float r = rsqrtf(var + 1e-5f);
+          float g1s = 0.f, g2s = 0.f;
+          for (int k = lane; k < H; k += 32) {
+            const float gx = gof[(size_t)f * H + k] * to_f(a.lns[k]);
+            g1s += gx;
+            g2s += gx * (ry[k] - m) * r;
+          }
+          g1s = warp_sum(g1s);
+          g2s = warp_sum(g2s);
+          if (lane == 0) {
+            mu[f] = m;
+            rstd[f] = r;
+            mgx[f] = g1s / H;
+            mgxx[f] = g2s / H;
+          }
       }
       sync();
       for (int k = tid; k < H; k += THREADS) {
@@ -1156,22 +1204,24 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       }, [&](size_t i, float v) { D2[i] = v; });
       set_meta(meta, 2, TB_W2T, 1, F);
       sync();
+      }
       grad(D2, a.w2t + (size_t)H * H, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;  // gx2
       });
       float *gr0 = s.fv[7], *gp3 = s.fv[8], *gh2 = s.fv[9], *gh1 = s.fv[10];
-      pass<true>(FH, [&](size_t i) { return gfa[i] + rel[i / H] * w2[i]; },
-               [&](size_t i, float v) { gfa[i] = v; });
-      for (int f = warp; f < F; f += NWARPS) {
-        float d = 0.f;
-        for (int k = lane; k < H; k += 32)
-          d += w2[(size_t)f * H + k] * to_f(fa[(size_t)f * H + k]);
-        d = warp_sum(d);
-        if (lane == 0) {
-          const float g = (d + s.goab[f]) * vm[f];
-          gr0[f] = g;
-          gp3[f] = mode == 0 ? 0.f : g * gsig[f] * (1.0f - gsig[f]);
-        }
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) { return gfa[i] + rel[i / H] * w2[i]; },
+                 [&](size_t i, float v) { gfa[i] = v; });
+        for (int f = warp; f < F; f += NWARPS) {
+          float d = 0.f;
+          for (int k = lane; k < H; k += 32)
+            d += w2[(size_t)f * H + k] * to_f(fa[(size_t)f * H + k]);
+          d = warp_sum(d);
+          if (lane == 0) {
+            const float g = (d + s.goab[f]) * vm[f];
+            gr0[f] = g;
+            gp3[f] = mode == 0 ? 0.f : g * gsig[f] * (1.0f - gsig[f]);
+          }
       }
       sync();
       float* st1 = sp + sl.t1 + midx * FF;
@@ -1210,7 +1260,8 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
         gra[(size_t)iab * F + j] += 0.5f * half * gam;
       }
       sync();
-    } else if (op == OP_ATTNV) {
+      }
+    } else if (op == OP_ATTNV && lead()) {
       pass<true>(FH, [&](size_t i) { return gfa[i] + s.aa[i / H] * gof[i]; },
                [&](size_t i, float v) { gfa[i] = v; });
       for (int f = warp; f < F; f += NWARPS) {
@@ -1223,8 +1274,9 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       sync();
     }
 
-    // ================= attn producers ==================================
-    if (op == OP_ANDA || op == OP_XORF) {
+    // ================= attn producers (the lead) =======================
+    if (!lead()) {
+    } else if (op == OP_ANDA || op == OP_XORF) {
       for (int f = tid; f < F; f += THREADS) {
         const float x = s.aa[f], y = s.ab[f], g = s.goa[f];
         float ga;
@@ -1275,18 +1327,20 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       RT* const X0 = Xq(0);
       float* const D0 = Dq(0);
       float* const D1 = Dq(1);
-      pass<true>(FH, [&](size_t i) {
-        const int m = (int)(i / H), n = (int)(i % H);
-        return is_filter ? (h2w[i] > 0.f
-                                ? gfeat[i] * dr.keep(m, n, b, t, 1)
-                                : 0.f)
-                         : gfeat[i];
-      }, [&](size_t i, float v) { D1[i] = v; });
-      pass<true>(FH, [&](size_t i) { return to_f(fa[i]); },
-               [&](size_t i, float v) { X0[i] = from_f<RT>(v); });
-      set_meta(meta, 1, TB_W2U, e1, F);
-      set_meta(meta, 0, TB_W1U, e1, F);
-      sync();
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) {
+          const int m = (int)(i / H), n = (int)(i % H);
+          return is_filter ? (h2w[i] > 0.f
+                                  ? gfeat[i] * dr.keep(m, n, b, t, 1)
+                                  : 0.f)
+                           : gfeat[i];
+        }, [&](size_t i, float v) { D1[i] = v; });
+        pass<true>(FH, [&](size_t i) { return to_f(fa[i]); },
+                   [&](size_t i, float v) { X0[i] = from_f<RT>(v); });
+        set_meta(meta, 1, TB_W2U, e1, F);
+        set_meta(meta, 0, TB_W1U, e1, F);
+        sync();
+      }
       auto d0_of = [&](size_t i, float acc) {
         return hpre[i] > 0.f
             ? acc * dr.keep((int)(i / H), (int)(i % H), b, t, 0) : 0.f;
@@ -1296,20 +1350,23 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
       grad(D1, sw2, [&](int m, int n, float acc) {
         D0[(size_t)m * H + n] = acc;
       });
-      pass<true>(FH, [&](size_t i) { return d0_of(i, D0[i]); },
-                 [&](size_t i, float v) { D0[i] = v; });
-      sync();
+      if (lead()) {
+        pass<true>(FH, [&](size_t i) { return d0_of(i, D0[i]); },
+                   [&](size_t i, float v) { D0[i] = v; });
+        sync();
+      }
       grad(D0, sw1, [&](int m, int n, float acc) {
         w2[(size_t)m * H + n] = acc;
       });
-      pass<true>(FH, [&](size_t i) { return gfa[i] + w2[i]; },
-                 [&](size_t i, float v) { gfa[i] = v; });
+      if (lead())
+        pass<true>(FH, [&](size_t i) { return gfa[i] + w2[i]; },
+                   [&](size_t i, float v) { gfa[i] = v; });
     }
 
     // ---- the step's records as bf16 rows, and each
     // used slot's bias partial (the float32 row sum of dY, rows in order) -
-    {
-      sync();
+    sync();   // every CTA: this step's reads of ins are done
+    if (lead()) {
       RT* const Rs[NSLOT] = {a.D0, a.D1, a.D2, a.D3, a.D4};
       for (int q = 0; q < NSLOT; ++q) {
         if (meta[q * 3] < 0) continue;
@@ -1339,6 +1396,7 @@ __device__ __forceinline__ void bwd_walk(const BArgs<T>& a, int* ins) {
   }
 
   // ---- data cotangents out -------------------------------------------
+  if (!lead()) return;
   for (size_t i = tid; i < FH; i += THREADS)
     a.dvid[(size_t)b * FH + i] = from_f<T>(grf[i] * vm[i / H]);
   for (size_t i = tid; i < (size_t)L * H; i += THREADS)
@@ -1544,10 +1602,31 @@ __global__ void __launch_bounds__(THREADS)
     a.db[table][(size_t)expert * H + n0 + tid] = bsum;
 }
 
+// The walk's cluster size for B examples at (F, H): `cluster` where forced
+// (> 0), one CTA at the widths the forward's shared tiles hold, else
+// tc_cluster over the walk's CTA slots. Sets the walk's shared memory.
+static cudaError_t bwd_tc_pick(int B, int F, int H, int cluster, int* C) {
+  const size_t smem = bwd_smem_floats(F, H) * sizeof(float);
+  *C = cluster > 0 ? cluster : 1;
+  cudaError_t e = cudaFuncSetAttribute(
+      mega_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess || cluster > 0 || !(F % 16 || F > stair::TC_MAX_F))
+    return e;
+  int slots = 0;
+  e = cta_slots(mega_bwd_tc_kernel, smem, &slots);
+  *C = tc_cluster(B, F, slots);
+  return e;
+}
+
+// cluster: as launch_tc's (mega_exec.cu): 0 for the forward's rule (one CTA
+// at the widths its shared tiles hold, else tc_cluster over the walk's own
+// CTA slots: one an SM, as the forward's), else forced; *used gets the size
+// launched.
 template <typename T>
 int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
                int Na, int F, int H, int L, int fsoft, stair::Dropout dr,
-               cudaStream_t stream) {
+               cudaStream_t stream, int cluster, int* used) {
   using RT = typename BArgs<T>::RT;
   BArgs<T> a;
   a.fill(p);
@@ -1578,12 +1657,17 @@ int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
   a.L = L;
   a.fsoft = fsoft;
   a.dr = dr;
+  cudaError_t e = bwd_tc_pick(B, F, H, cluster, &a.C);
+  *used = a.C;
+  if (e != cudaSuccess) return (int)e;
   const size_t smem = bwd_smem_floats(F, H) * sizeof(float);
   const auto kernel = mega_bwd_tc_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<B, THREADS, smem, stream>>>(a);
+  if (a.C > 1) {
+    e = launch_clusters(kernel, B, a.C, smem, stream, a);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    kernel<<<B, THREADS, smem, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1595,20 +1679,25 @@ int launch_bwd(const void* const* p, void* ws, int B, int T_, int Nv, int Nf,
 // bias partials besides).
 constexpr int NBWD = NARGS + 10 + 2 * NSLOT + 1;
 
-// The walk: bf16, H a multiple of 64 in [64, TC_MAX_H], F a multiple of 16
-// in [16, TC_MAX_F]. ptrs: as stair_mega_exec_bwd_bf16's (mega_grad.cu),
-// with the record buffers in bf16 and the bias partials (float32 [B*T,
-// NSLOT, H]) after them; ws: float32 [B, Ws(Nv, Nf, Na, F, H, L, T).size].
+// The walk: bf16, H a multiple of 64 in [64, TC_MAX_H], any F in
+// [TC_MIN_F, TC_ROUTE_MAX_F]. ptrs: as stair_mega_exec_bwd_bf16's
+// (mega_grad.cu), with the record buffers in bf16 and the bias partials
+// (float32 [B*T, NSLOT, H]) after them; ws: float32 [B, Ws(Nv, Nf, Na, F,
+// H, L, T).size]. cluster, used: as launch_bwd's; hand the walk the
+// forward's cluster size or 0 (its outputs equal at every size). A cluster
+// that cannot launch returns its error: nothing falls back.
 extern "C" int stair_mega_exec_bwd_tc(
     const void* const* ptrs, int nptrs, void* ws, int B, int T, int Nv,
     int Nf, int Na, int F, int H, int L, int fsoft, int drop, int seed0,
-    int seed1, unsigned thresh, float scale, void* stream) {
-  if (nptrs != NBWD + 1 || H % 64 || H < 64 || H > stair::TC_MAX_H ||
-      F % 16 || F < 16 || F > stair::TC_MAX_F || L > MAX_L)
+    int seed1, unsigned thresh, float scale, int cluster, int* used,
+    void* stream) {
+  if (nptrs != NBWD + 1 || B <= 0 || H % 64 || H < 64 ||
+      H > stair::TC_MAX_H || F < stair::TC_MIN_F ||
+      F > stair::TC_ROUTE_MAX_F || L > MAX_L || cluster < 0 || cluster > 8)
     return (int)cudaErrorInvalidValue;
   const stair::Dropout dr{drop, seed0, seed1, thresh, scale};
   return launch_bwd<__nv_bfloat16>(ptrs, ws, B, T, Nv, Nf, Na, F, H, L, fsoft,
-                                   dr, (cudaStream_t)stream);
+                                   dr, (cudaStream_t)stream, cluster, used);
 }
 
 // ptrs: meta, X0, D0, ..., X4, D4 (bf16), the bias partials, small, then
@@ -1648,18 +1737,29 @@ extern "C" long stair_mega_exec_bwd_tc_smem(int F, int H) {
   return bwd_smem_floats(F, H) * (long)sizeof(float);
 }
 
+// The CTAs of an example's cluster that the walk on B examples at (F, H)
+// takes on the current card, or -1 on an error.
+extern "C" int stair_mega_exec_bwd_tc_cluster(int B, int F, int H) {
+  int C = 0;
+  return bwd_tc_pick(B, F, H, 0, &C) == cudaSuccess ? C : -1;
+}
+
 // The recompute products' check: block 0 runs each product as the
 // training forward #5 (mega_exec_tc_kernel<true>) calls it, block 1 as the
 // walk (mega_bwd_tc_kernel) recomputes it, on the same operands and
 // epilogue (the float32 sum stored as it is), into out_fwd and out_walk.
 //
-// Matrix (vec 0): A bf16 [M, K], B bf16 [K, N]; out [M, N] = A @ B: fwd_gemm
-// on A staged into a shared-memory tile, against walk_gemm on A's rows in
-// global memory. With chain, stage 1's pair instead: h = bf16(relu(A @ B)),
-// out = h @ B[:N, :N], the forward keeping h as a tile in shared memory, the
-// walk as bf16 rows in global memory (hbuf [M, N], as its X1 record).
-// M % 16 == 0, M <= 64, K % 64 == 0, N % 8 == 0; chained N % 64 == 0 and N
-// <= K.
+// Matrix (vec 0): A bf16 [M, K], B bf16 [K, N]; out [M, N] = A @ B: the
+// walk's walk_gemm on A's rows in global memory over slices of TC_MAX_F
+// rows, against the forward's fwd_gemm on A staged into a shared-memory
+// tile (M a multiple of 16 up to TC_MAX_F: one CTA an example) or its
+// fwd_rows over the same slices (any other M up to TC_ROUTE_MAX_F: the
+// row-slice mode). With chain, stage 1's pair instead: h = bf16(relu(A @
+// B)), out = h @ B[:N, :N], the forward keeping h as a tile in shared
+// memory (one CTA) or as bf16 rows in hbuf's first half (the row-slice
+// mode, as its tiles in the workspace), the walk as bf16 rows in hbuf's
+// second half (hbuf [2, M, N]; as its X1 record). K % 64 == 0, N % 8 ==
+// 0; chained N % 64 == 0 and N <= K.
 // Vec (vec 1): x float32 [M, K], M <= 3 segments, B bf16 [M K, N]; out [N]
 // = vecmat_tc over the segments (the forward's partials after its vectors,
 // the walk's in its product scratch); with chain h = rd(relu(rd(y))), out =
@@ -1696,33 +1796,52 @@ __global__ void __launch_bounds__(THREADS)
   }
   const bf16* Ab = reinterpret_cast<const bf16*>(A);
   bf16* t0 = reinterpret_cast<bf16*>(buf);
-  if (fwd) {
-    bf16* th = t0 + (size_t)M * (K + TC_PAD);
-    bf16* ring = th + (size_t)M * (N + TC_PAD);
-    load_tile(t0, K + TC_PAD, Ab, M, K);
+  if (!fwd || M % 16 || M > stair::TC_MAX_F) {
+    // slices of rows: h = relu(A @ B) rows into this side's half of hbuf
+    bf16* hb = hbuf + (fwd ? 0 : (size_t)M * N);
+    bf16* ring = t0 + (size_t)tc_slice_rows(M) * (K + TC_PAD);
+    auto slices = [&](const bf16* X, int KX, auto epi) {
+      for (int m0 = 0; m0 < M; m0 += stair::TC_MAX_F) {
+        const int rows =
+            M - m0 < stair::TC_MAX_F ? M - m0 : stair::TC_MAX_F;
+        auto e = [&](int m, int n, float acc) { epi(m0 + m, n, acc); };
+        if (fwd)
+          fwd_rows(X + (size_t)m0 * KX, KX, Bm, rows, KX, N, t0, ring, e);
+        else
+          walk_gemm(X + (size_t)m0 * KX, KX, Bm, rows, KX, N, t0, e);
+      }
+    };
     if (!chain) {
-      fwd_gemm(t0, Bm, M, K, N, ring, store);
+      slices(Ab, K, store);
       return;
     }
-    fwd_gemm(t0, Bm, M, K, N, ring, [&](int m, int n, float acc) {
-      th[(size_t)m * (N + TC_PAD) + n] = from_f<bf16>(fmaxf(acc, 0.f));
+    slices(Ab, K, [&](int m, int n, float acc) {
+      hb[(size_t)m * N + n] = from_f<bf16>(rd<bf16>(fmaxf(acc, 0.f)));
     });
-    fwd_gemm(th, Bm, M, N, N, ring, store);
-  } else {
-    if (!chain) {
-      walk_gemm(Ab, Bm, M, K, N, t0, store);
-      return;
-    }
-    walk_gemm(Ab, Bm, M, K, N, t0, [&](int m, int n, float acc) {
-      hbuf[(size_t)m * N + n] = from_f<bf16>(rd<bf16>(fmaxf(acc, 0.f)));
-    });
-    walk_gemm(hbuf, Bm, M, N, N, t0, store);
+    __syncthreads();
+    slices(hb, N, store);
+    return;
   }
+  // the forward, one CTA an example: A and h as tiles in shared memory
+  bf16* th = t0 + (size_t)M * (K + TC_PAD);
+  bf16* ring = th + (size_t)M * (N + TC_PAD);
+  load_tile(t0, K + TC_PAD, Ab, M, K);
+  if (!chain) {
+    fwd_gemm(t0, Bm, M, K, N, ring, store);
+    return;
+  }
+  fwd_gemm(t0, Bm, M, K, N, ring, [&](int m, int n, float acc) {
+    th[(size_t)m * (N + TC_PAD) + n] = from_f<bf16>(fmaxf(acc, 0.f));
+  });
+  fwd_gemm(th, Bm, M, N, N, ring, store);
 }
 
 // Dynamic shared memory of recompute_check_kernel in bytes.
 static size_t check_smem_bytes(int M, int K, int N, int vec) {
   if (vec) return ((size_t)M * K + N + 4 + TC_PARTS) * sizeof(float);
+  if (M % 16 || M > stair::TC_MAX_F)   // one staging tile, the larger ring
+    return ((size_t)tc_slice_rows(M) * (K + TC_PAD) + tc_ring<FWD_BN>()) *
+           sizeof(__nv_bfloat16);
   return ((size_t)M * (K + TC_PAD) + (size_t)M * (N + TC_PAD) +
           tc_ring<FWD_BN>()) * sizeof(__nv_bfloat16);
 }
@@ -1734,7 +1853,7 @@ extern "C" int stair_mega_recompute_check(const void* A, const void* Bm,
                                           void* stream) {
   const bool ok =
       vec ? (M >= 1 && M <= 3 && N % 8 == 0 && (!chain || N <= K))
-          : (M % 16 == 0 && M >= 16 && M <= 64 && K % TC_BK == 0 &&
+          : (M >= 16 && M <= stair::TC_ROUTE_MAX_F && K % TC_BK == 0 &&
              N % 8 == 0 && (!chain || (N % TC_BK == 0 && N <= K)));
   if (!ok) return (int)cudaErrorInvalidValue;
   const size_t smem = check_smem_bytes(M, K, N, vec);

@@ -571,7 +571,9 @@ def mega_exec_call(meta, args, cluster=None):
     """Executor over prepared args: plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (or an error). Returns (rv, rf, ra) in dt.
     ``cluster`` forces the CTAs of an example's cluster on the "fma32"
-    route (``fma32_cluster``; None: the launch's pick)."""
+    route (``fma32_cluster``) or the tensor-core route
+    (``tc_cluster``: 2 or more run the row-slice mode at any F);
+    None: the launch's pick."""
     if _build.on_cpu("mega_exec", args[0]):
         return mega_exec_reference(meta, args)
     return _launch("mega_exec", meta, args, dropout_params(0.0, None),
@@ -584,8 +586,8 @@ def mega_exec_train_call(meta, args, rate, seed, cluster=None):
     Plain version for CPU tensors; for CUDA tensors the kernel on the route
     ``fwd_route(dt, H, F, True)`` picks (``mega_exec_tc_kernel<true>``,
     launch key ``mega_exec_train_tc``; ``mega_exec_kernel<float, true>``,
-    ``mega_exec_train_fma32``, on the cluster size ``cluster`` forces or the
-    launch picks; or ``mega_exec_kernel``, ``mega_exec_train``). Hand the
+    ``mega_exec_train_fma32``; on the cluster size ``cluster`` forces or the
+    launch picks, both; or ``mega_exec_kernel``, ``mega_exec_train``). Hand the
     backward this call's register files: its walk on the same route
     recomputes them bit for bit."""
     if _build.on_cpu("mega_exec_train", args[0]):
@@ -594,19 +596,94 @@ def mega_exec_train_call(meta, args, rate, seed, cluster=None):
                    cluster)
 
 
-#: the tensor-core route's limits (``csrc/mega_limits.cuh``)
+#: the tensor-core route's limits (``csrc/mega_limits.cuh``): its largest H,
+#: the frame rows a CTA's bf16 tiles hold, its smallest and largest F
 TC_MAX_H, TC_MAX_F = _LIMITS["TC_MAX_H"], _LIMITS["TC_MAX_F"]
+TC_MIN_F, TC_ROUTE_MAX_F = _LIMITS["TC_MIN_F"], _LIMITS["TC_ROUTE_MAX_F"]
 #: the CUDA sources' tiles that size the tensor-core route's shared memory
 _TILES = _build.header_ints("mega_common.cuh")
 SMEM_MAX = 232448   # bytes a block may use on an H100 (227 KB)
 
 
 def tc_shape(H, F) -> bool:
-    """True where the executor's tensor-core kernels take the widths: H a
-    multiple of 64 in [64, TC_MAX_H], F a multiple of 16 in [16,
-    TC_MAX_F] (whole mma tiles; the bf16 tiles fit in shared memory)."""
+    """True where a CTA's bf16 tiles hold the whole example: H a multiple
+    of 64 in [64, TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F] (whole
+    mma tiles in shared memory). The executor forward's tensor-core route
+    runs one CTA an example there; the step kernel's (#10) takes only these
+    widths."""
     return (H % 64 == 0 and 64 <= H <= TC_MAX_H and F % 16 == 0
             and 16 <= F <= TC_MAX_F)
+
+
+def tc_route_shape(H, F) -> bool:
+    """True where the executor's tensor-core kernels (#4-#6) take the
+    widths: H a multiple of 64 in [64, TC_MAX_H], any F in [TC_MIN_F,
+    TC_ROUTE_MAX_F] (16 to 256; the NMN CLIs' default F 150 too): at the
+    widths ``tc_shape`` takes one CTA an example, elsewhere the row-slice
+    mode (``tc_sliced``)."""
+    return (H % 64 == 0 and 64 <= H <= TC_MAX_H
+            and TC_MIN_F <= F <= TC_ROUTE_MAX_F)
+
+
+def tc_sliced(F, cluster=None) -> bool:
+    """Whether the tensor-core forward and walk run an example in the
+    row-slice mode (``csrc/mega_exec.cu launch_tc``): where the shared
+    tiles cannot hold F (above TC_MAX_F or not a multiple of 16) or a
+    cluster of 2 or more is forced. The walk takes the forward's mode and
+    cluster."""
+    return (cluster or 0) > 1 or F % 16 != 0 or F > TC_MAX_F
+
+
+def tc_slice_count(F) -> int:
+    """Slices of TC_MAX_F frame rows at F frames (F 150: 3)."""
+    return -(-F // TC_MAX_F)
+
+
+def tc_cluster(B, F, slots) -> int:
+    """CTAs of one example's thread-block cluster in the row-slice mode for a
+    launch of ``B`` examples at ``F`` frames on a card of ``slots`` CTA
+    slots, as ``csrc/mega_common.cuh tc_cluster`` computes it in the
+    launch: one CTA a slice while ``B`` such clusters fit one wave of
+    slots, else 2 while ``B`` clusters of 2 do, else one CTA an example
+    (the forward and the walk alike, each over its own slots: one CTA an
+    SM). On an H100 (132 slots) at F 150: B 32 takes 3, B 64 2, B 128 1."""
+    most = tc_slice_count(F)
+    if B * most <= slots:
+        return most
+    return 2 if most > 2 and 2 * B <= slots else 1
+
+
+def tc_cta_rows(F, C) -> int:
+    """Frame rows of each CTA of a cluster of ``C`` in the row-slice mode
+    (``csrc/mega_common.cuh tc_cta_rows``: ceil(F / C) rounded up to whole
+    16-row mma tiles; the last CTA's rows end at F)."""
+    return (-(-F // C) + 15) & ~15
+
+
+def tc_slots(F, H, L) -> int:
+    """CTA slots of the row-slice mode's forward at ``(F, H, L)`` on the
+    current card (its SMs x the kernel's CTAs an SM), as its launch reads
+    them."""
+    slots = _build.build().stair_mega_exec_tc_slots(F, H, L)
+    if slots < 1:
+        raise RuntimeError(f"tc_slots: F {F} H {H} L {L} failed")
+    return slots
+
+
+def tc_launch_cluster(B, F, H, L=None, walk=False) -> int:
+    """The cluster size a tensor-core launch of ``B`` examples at ``(F, H,
+    L)`` (``L`` the question length; None: at most H) takes on the current
+    card, as the library computes it: one CTA where the shared tiles hold
+    F, else ``tc_cluster`` over the card's slots (the forward's, or with
+    ``walk`` the walk's)."""
+    if not tc_sliced(F):
+        return 1
+    lib = _build.build()
+    C = (lib.stair_mega_exec_bwd_tc_cluster(B, F, H) if walk
+         else lib.stair_mega_exec_tc_cluster(B, F, H, L or H))
+    if C < 1:
+        raise RuntimeError(f"tc_launch_cluster: B {B} F {F} H {H} failed")
+    return C
 
 
 #: the float32 "fma32" route's limits (``csrc/mega_limits.cuh``)
@@ -673,9 +750,9 @@ def fma32_launch_cluster(B, H, F=None) -> int:
 
 def fwd_route(dtype, H, F, drop) -> str:
     """The forward's kernel route, chosen before any launch: ``"tc"``
-    (``mega_exec_tc_kernel``: bf16 at the widths ``tc_shape`` takes; eval,
-    launch key ``mega_exec_tc``, or the training forward with dropout,
-    ``drop`` true, ``mega_exec_train_tc``), ``"fma32"``
+    (``mega_exec_tc_kernel``: bf16 at the widths ``tc_route_shape`` takes;
+    eval, launch key ``mega_exec_tc``, or the training forward with
+    dropout, ``drop`` true, ``mega_exec_train_tc``), ``"fma32"``
     (``mega_exec_kernel<float, true>``: float32 at the widths
     ``fma32_shape`` takes, its products on ``gemm32``; ``mega_exec_fma32``,
     ``mega_exec_train_fma32``; its files equal the general route's bit for
@@ -683,7 +760,7 @@ def fwd_route(dtype, H, F, drop) -> str:
     width; ``mega_exec``, ``mega_exec_train``). The training forward's route
     is also the backward's (``mega_grad.bwd_route``): each route's walk
     recomputes its own forward's values bit for bit."""
-    if dtype == torch.bfloat16 and tc_shape(H, F):
+    if dtype == torch.bfloat16 and tc_route_shape(H, F):
         return "tc"
     if dtype == torch.float32 and fma32_shape(H, F):
         return "fma32"
@@ -717,6 +794,22 @@ def tc_smem_bytes(F, H, L) -> int:
             + (6 * V + t["THREADS"] * 8 + 6 * F + t["THREADS"] // 32) * 4)
 
 
+def tc_slice_rows(F) -> int:
+    """Rows of the row-slice mode's staging tile (``csrc/mega_common.cuh
+    tc_slice_rows``): F in whole 16-row mma tiles, at most TC_MAX_F."""
+    return min((F + 15) & ~15, TC_MAX_F)
+
+
+def tc_sliced_smem_bytes(F, H, L) -> int:
+    """Dynamic shared memory of ``mega_exec_tc_kernel`` per CTA in the
+    row-slice mode, as ``csrc/mega_exec.cu tc_sliced_smem_bytes`` computes
+    it: ``tc_smem_bytes`` with one staging tile of ``tc_slice_rows(F)``
+    rows in place of the two ``[F, H + 8]`` tiles (which live in the
+    workspace)."""
+    return (tc_smem_bytes(F, H, L)
+            - (2 * F - tc_slice_rows(F)) * (H + _TILES["TC_PAD"]) * 2)
+
+
 def _launch(key, meta, args, drop, cluster=None):
     B, T, Nv, Nf, Na, F, H, Hh, L, dt, fsoft = meta
     dev = check_args(key, meta, args)
@@ -728,26 +821,29 @@ def _launch(key, meta, args, drop, cluster=None):
     lib = _build.build()
     train = key == "mega_exec_train"
     route = fwd_route(dt, H, F, train)
+    used = ctypes.c_int(0)
     if route == "tc":
         # float32 [F, H] workspace: SUPF's keyword rows, TEMPORAL's pre-LN
-        # rows (the hidden and feat tiles stay in shared memory)
-        ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
+        # rows; in the row-slice mode then the hidden and feat tiles (bf16
+        # [F, H + 8] each), else in shared memory
+        pad = _TILES["TC_PAD"]
+        ws = torch.empty(B, F, 2 * H + pad if tc_sliced(F, cluster) else H,
+                         dtype=torch.float32, device=dev)
         common = (_build.pointers(args), len(args),
                   rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
                   B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)))
+        more = (int(cluster or 0), ctypes.byref(used), _build.stream_ptr(dev))
         if train:
             key = "mega_exec_train_tc"
-            err = lib.stair_mega_exec_fwd_tc_train(
-                *common, *drop, _build.stream_ptr(dev))
+            err = lib.stair_mega_exec_fwd_tc_train(*common, *drop, *more)
         else:
             key = "mega_exec_tc"
-            err = lib.stair_mega_exec_fwd_tc(*common, _build.stream_ptr(dev))
+            err = lib.stair_mega_exec_fwd_tc(*common, *more)
     elif route == "fma32":
         # the general route's workspace: gemm32 gives gemm's bits, and the
         # kernel is mega_exec_kernel with gemm32's ring in shared memory
         ws = torch.empty(B, 3, F, H, dtype=torch.float32, device=dev)
         key = "mega_exec_train_fma32" if train else "mega_exec_fma32"
-        used = ctypes.c_int(0)
         err = lib.stair_mega_exec_fwd_fma32(
             _build.pointers(args), len(args),
             rv.data_ptr(), rf.data_ptr(), ra.data_ptr(), ws.data_ptr(),
@@ -767,7 +863,7 @@ def _launch(key, meta, args, drop, cluster=None):
         )
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
-    if route == "fma32":
+    if route != "general":
         _build.CLUSTERS[key][used.value] += 1
     return rv, rf, ra
 

@@ -80,12 +80,13 @@ def workspace_floats(Nv, Nf, Na, F, H, L, T, tc=False):
     ``[F]``- and ``[F, F]``-sized slots padded to 4 floats so that every
     slot starts on 16 bytes). The tensor-core route adds the float32 dY
     rows of its five record slots and lays its ten ``[F, H]``, two ``[F,
-    F]`` and two ``[H]`` slots out at ``TC_MAX_F`` and ``TC_MAX_H``
-    (``mega_grad_tc.cu``, unpadded: F is a multiple of 16 there)."""
+    F]`` and two ``[H]`` slots out at its largest F and H,
+    ``TC_ROUTE_MAX_F`` and ``TC_MAX_H`` (``mega_grad_tc.cu``), its ``[Na,
+    F]`` slot padded as the others' are."""
     rest = Nv * H + Nf * F * H + L * H + T * H
     if tc:
-        F_, H_ = TX.TC_MAX_F, TX.TC_MAX_H
-        return 10 * F_ * H_ + 2 * F_ * F_ + 2 * H_ + Na * F + rest
+        F_, H_ = TX.TC_ROUTE_MAX_F, TX.TC_MAX_H
+        return 10 * F_ * H_ + 2 * F_ * F_ + 2 * H_ + _pad4(Na * F) + rest
     return rest + _pad4(Na * F) + 7 * F * H + 2 * _pad4(F * F)
 
 
@@ -97,8 +98,9 @@ def bwd_route(dtype, H, F) -> str:
     """The backward's kernel route, chosen before any launch: the training
     forward's (``mega_exec.fwd_route(dtype, H, F, True)``), so that the two
     cannot drift apart. ``"tc"`` (``mega_bwd_tc_kernel`` +
-    ``mega_wgrad_tc_kernel``: bf16 at the widths ``mega_exec.tc_shape``
-    takes; the recompute on #5's tensor-core product code, bit for bit
+    ``mega_wgrad_tc_kernel``: bf16 at the widths ``mega_exec.tc_route_shape``
+    takes, above 64 frames on the forward's cluster of frame-row slices; the
+    recompute on #5's tensor-core product code, bit for bit
     ``mega_exec_tc_kernel<true>``'s, the bf16 gradient and weight products
     on the tensor cores), ``"fma32"`` (``mega_bwd_kernel<float, true>`` +
     ``mega_wgrad_fma32_kernel``: float32 at the widths
@@ -115,23 +117,24 @@ def bwd_smem_bytes(F, H, route) -> int:
     ``csrc/mega_grad.cu bwd_smem_bytes`` (general and "fma32" routes) or
     ``csrc/mega_grad_tc.cu bwd_smem_floats`` (tensor-core route) computes
     it: NHV ``[H]`` and NFV + 5 ``[F]`` float vectors (at TC_MAX_H and
-    TC_MAX_F on the tensor-core route), gemm's tiles; on the tensor-core
-    route, 16-byte aligned, the larger of the bf16 ``[F, H + 8]`` operand
-    tile with tc_gemm's ring and vecmat_tc's partials (``THREADS * 8``
-    floats); on the "fma32" route 16 bytes of room to align ``gemm32``'s
-    ring, then the ring at the walk's column tile ``G32_WALK_BN`` (its
-    stages of the A tile and of B in the larger, transposed layout)."""
+    TC_ROUTE_MAX_F on the tensor-core route), gemm's tiles; on the
+    tensor-core route, 16-byte aligned, the larger of a row slice's bf16
+    ``[tc_slice_rows(F), H + 8]`` operand tile with tc_gemm's ring and
+    vecmat_tc's partials (``THREADS * 8`` floats); on the "fma32" route 16
+    bytes of room to align ``gemm32``'s ring, then the ring at the walk's
+    column tile ``G32_WALK_BN`` (its stages of the A tile and of B in the
+    larger, transposed layout)."""
     t = TX._TILES
     tc = route == "tc"
     g = _build.header_ints("mega_grad_tc.cu" if tc else "mega_grad.cu")
-    SH, SF = (TX.TC_MAX_H, TX.TC_MAX_F) if tc else (H, F)
+    SH, SF = (TX.TC_MAX_H, TX.TC_ROUTE_MAX_F) if tc else (H, F)
     n = (g["NHV"] * SH + (g["NFV"] + 5) * SF + t["BK"] * (t["BM"] + 1)
          + t["BK"] * t["BN"] + t["THREADS"] // 32)
     if tc:
         n = (n + 3) & ~3
         stage = t["TC_BN"] * (t["TC_BK"] + t["TC_PAD"])
-        n += max((F * (H + t["TC_PAD"]) + t["TC_STAGES"] * stage) // 2,
-                 t["THREADS"] * 8)
+        n += max((TX.tc_slice_rows(F) * (H + t["TC_PAD"])
+                  + t["TC_STAGES"] * stage) // 2, t["THREADS"] * 8)
     if route == "fma32":
         ld = t["G32_BK"] + t["G32_PAD"]
         ring = t["G32_STAGES"] * (t["G32_BM"] + t["G32_WALK_BN"]) * ld
@@ -175,8 +178,9 @@ def mega_exec_bwd_call(meta, args, outs, gouts, rate=0.0, seed=None,
     for CUDA tensors. ``outs`` are the forward's final files (rv, rf, ra),
     ``gouts`` their cotangents. Same contract as
     ``mega_exec_bwd_reference``. ``cluster`` forces the CTAs of an
-    example's cluster of the "fma32" walk (``mega_exec.fma32_cluster``;
-    None: the launch's pick)."""
+    example's cluster of the "fma32" walk (``mega_exec.fma32_cluster``) or
+    the tensor-core walk (``mega_exec.tc_launch_cluster``); None: the
+    launch's pick."""
     if _build.on_cpu("mega_exec_bwd", args[0]):
         return mega_exec_bwd_reference(meta, args, outs, gouts, rate, seed)
     return _launch_bwd(meta, args, outs, gouts,
@@ -194,7 +198,10 @@ def recompute_check(A, Bm, vec=False, chain=False):
     Matrix product (``vec`` false): A bf16 ``[M, K]`` (the walk's operands
     are bf16 rows of a file or a record), B bf16 ``[K, N]``; ``fwd_gemm``
     (A in a shared-memory tile, 128-column chunks) against ``walk_gemm``
-    (64-column chunks); M a multiple of 16 up to 64, K of 64, N of 8.
+    (A's rows from global memory over slices of 64 rows, 64-column chunks)
+    at M a multiple of 16 up to 64; at any other M up to 256 (the
+    row-slice mode, F 150 among them) ``fwd_rows`` over the same slices
+    against ``walk_gemm``; K a multiple of 64, N of 8.
     Vec-level product (``vec``): A float32 ``[S, K]``, S <= 3 segments, B
     bf16 ``[S K, N]``; ``vecmat_tc`` as each kernel calls it. With
     ``chain``, stage 1's two products in a row: ``h = bf16(relu(A @ B))``
@@ -211,7 +218,7 @@ def recompute_check(A, Bm, vec=False, chain=False):
     out = torch.empty(*(() if vec else (M,)), N, dtype=torch.float32,
                       device=dev)
     walk = torch.empty_like(out)
-    hbuf = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    hbuf = torch.empty(2 * M, N, dtype=torch.bfloat16, device=dev)
     err = _build.build().stair_mega_recompute_check(
         A.data_ptr(), Bm.data_ptr(), M, K, N, int(bool(vec)),
         int(bool(chain)), hbuf.data_ptr(), out.data_ptr(), walk.data_ptr(),
@@ -307,17 +314,18 @@ def bwd_launches(meta, args, outs, gouts, drop, cluster=None):
              *[t for pair in wgrads for t in pair], dsmall, *index)
 
     def walk():
-        # the "fma32" walk: the cluster size, and the one launched
+        # the "fma32" and tensor-core walks: the cluster size, and the one
+        # launched
         used = ctypes.c_int(0)
         more = ((int(cluster or 0), ctypes.byref(used))
-                if route == "fma32" else ())
+                if route in ("fma32", "tc") else ())
         err = getattr(_build.build(), f"stair_mega_exec_bwd_{sfx}")(
             _build.pointers(ptrs), len(ptrs), ws.data_ptr(),
             B, T, Nv, Nf, Na, F, H, L, int(bool(fsoft)), *drop, *more,
             _build.stream_ptr(dev))
         _build.check(err, walk_key)
         _build.LAUNCHES[walk_key] += 1
-        if route == "fma32":
+        if route != "general":
             _build.CLUSTERS[walk_key][used.value] += 1
 
     def wgrad():

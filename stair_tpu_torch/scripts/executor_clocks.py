@@ -121,7 +121,7 @@ _PATCHES = (
      "int M, int K, int N, __nv_bfloat16* ring, Epi epi) {\n",
      "  Clk clk(0);\n"),
     ("mega_common.cuh",
-     "int M, int K, int N, __nv_bfloat16* tile, Epi epi) {\n",
+     "  const int ld = K + TC_PAD, M = (rows + 15) & ~15;\n",
      "  Clk clk(1);\n"),
     ("mega_common.cuh", "float* part,\n                          Epi epi) {\n",
      "  Clk clk(2);\n"),
@@ -267,15 +267,16 @@ _STEP_PATCHES = (
 P, I, U, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [I, I, I, U, Fl]
 _WALK = [P, I, P] + [I] * 9 + _DROP + [P]
-#: the "fma32" entry points also take the cluster size and &used
+#: the "fma32" and tensor-core entry points also take the cluster size and
+#: &used
 _WALK32 = [P, I, P] + [I] * 9 + _DROP + [I, P, P]
 _WGRAD = [P, I, I, I, I, I, P]
 #: route -> (compute dtype, sources, {entry point: argtypes}, kernels)
 ROUTES = {
     "tc": ("bfloat16", ("mega_exec", "mega_grad_tc"), {
         "stair_mega_exec_fwd_tc_train": [P, I, P, P, P, P] + [I] * 9 + _DROP
-        + [P],
-        "stair_mega_exec_bwd_tc": _WALK, "stair_mega_exec_wgrad_tc": _WGRAD},
+        + [I, P, P],
+        "stair_mega_exec_bwd_tc": _WALK32, "stair_mega_exec_wgrad_tc": _WGRAD},
         ("mega_exec_tc_kernel<true>", "mega_bwd_tc_kernel")),
     "general": ("float32", ("mega_exec", "mega_grad"), {
         "stair_mega_exec_fwd": [P, I, P, P, P, P] + [I] * 10 + _DROP + [P],

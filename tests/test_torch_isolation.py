@@ -328,14 +328,16 @@ def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
     # phase 19's three entries are #1-#3 on the parser's path, built in one
     # comprehension; phases 20 and 21 add no kernel entry; phase 22's
     # three entries are #4-#6 at the NMN CLIs' default F 150, built by one
-    # helper
+    # helper, and phase 23's the same in bf16 on phase 22's world (one
+    # directory for both)
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, re.M)]
-    assert numbers == list(range(1, 23)), numbers
+    assert numbers == list(range(1, 24)), numbers
     assert "phase_clis(dev, card)" in text
     assert "kernels += phase_parser(dev, card, clis)" in text
     assert "phase_demo(dev, card, model)" in text
     assert "phase_data_parallel(dev, card, clis)" in text
-    assert "kernels += phase_default_clis(dev, card)" in text
+    assert "kernels += phase_default_clis(dev, card, root)" in text
+    assert "kernels += phase_bf16_clis(dev, card, root)" in text
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
     assert len(names) == 18, names
     assert re.search(r'\{"name": k, "route": "cuda", "path": "parser"',

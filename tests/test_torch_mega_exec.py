@@ -11,6 +11,8 @@ directly on the same prepared inputs. The CUDA kernel is held against the
 plain version on the card.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from torch_port_util import (  # noqa: F401
 )
 
 try:
+    import jax
     import jax.numpy as jnp
 
     from stair_tpu.ops import mega_exec as JX
@@ -236,10 +239,11 @@ def test_mega_exec_kernel_vs_plain_on_card(cuda_device, dtype, F, fsoft):
 
 # The forward's route, chosen before any launch: the tensor-core kernel
 # takes bf16, eval and training (drop) alike, at H a multiple of 64 in [64,
-# 512] and F a multiple of 16 in [16, 64] (the main paths' H 512, F 64);
-# the "fma32" kernel takes float32 at H a multiple of 128 in [128, 512] and
-# any F in [16, 256] (the NMN CLIs' default F 150 too); every other width
-# takes the general kernel.
+# 512] and any F in [16, 256] (the main paths' H 512, F 64 on one CTA an
+# example; the NMN CLIs' default F 150, and every F above 64 or not a
+# multiple of 16, in the row-slice mode); the "fma32" kernel takes float32
+# at H a multiple of 128 in [128, 512] and any F in [16, 256] (the NMN
+# CLIs' default F 150 too); every other width takes the general kernel.
 FWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 64, False, "tc"),
     (torch.bfloat16, 512, 64, True, "tc"),
@@ -262,16 +266,20 @@ FWD_ROUTE_CASES = [
     (torch.float32, 512, 257, False, "general"),
     (torch.float32, 512, 257, True, "general"),
     (torch.float32, 512, 8, True, "general"),
-    (torch.bfloat16, 512, 150, False, "general"),
-    (torch.bfloat16, 512, 150, True, "general"),
+    (torch.bfloat16, 512, 150, False, "tc"),
+    (torch.bfloat16, 512, 150, True, "tc"),
     (torch.bfloat16, 64, 16, False, "tc"),
     (torch.bfloat16, 192, 48, False, "tc"),
     (torch.bfloat16, 32, 16, False, "general"),
     (torch.bfloat16, 96, 16, False, "general"),
     (torch.bfloat16, 1024, 64, False, "general"),
     (torch.bfloat16, 512, 8, False, "general"),
-    (torch.bfloat16, 512, 100, False, "general"),
-    (torch.bfloat16, 512, 128, False, "general"),
+    (torch.bfloat16, 512, 100, False, "tc"),
+    (torch.bfloat16, 512, 128, False, "tc"),
+    (torch.bfloat16, 512, 72, False, "tc"),
+    (torch.bfloat16, 512, 256, True, "tc"),
+    (torch.bfloat16, 512, 257, False, "general"),
+    (torch.bfloat16, 576, 150, True, "general"),
 ]
 
 
@@ -650,3 +658,293 @@ def test_mega_exec_fma32_clusters_equal_one_cta_on_card(cuda_device,
         torch.cuda.synchronize()
         for name, a, b in zip(("rv", "rf", "ra") * 2, out4 + out5, g4 + g5):
             assert torch.equal(a, b), (B, "general", name)
+
+
+@needs_jax
+@pytest.mark.parametrize("F,attention", [(150, "softmax"), (72, "parity")])
+def test_mega_exec_bf16_reference_vs_jax_megakernel_interpret(F, attention):
+    """bf16 at the NMN CLIs' default F 150 and at F 72 (the row-slice
+    mode's widths on the card: 150 = 64 + 64 + 22 rows, 72 = 48 + 24): the
+    plain version against the JAX TPU kernel itself (Pallas interpreter) on
+    identical prepared inputs in bf16, H 64, every program. Both round at
+    the JAX kernel's bf16 sites and sum in float32 in different orders, so
+    the files agree within atol 3e-2 plus rtol 1e-2, the executor's bf16
+    bound (one bf16 rounding step is 2^-8 of the value)."""
+    cfg, model, params = _build(max_video_length=F, hidden=64,
+                                filter_attention=attention)
+    batch, _ = _batch(cfg, PROGRAMS, seed=7)
+    halves = _prepared_inputs(cfg, params, batch)
+    bf = jnp.bfloat16
+    mods = jax.tree_util.tree_map(lambda x: x.astype(bf), params["modules"])
+    rv, rf, ra = JX.mega_exec(
+        cfg, mods, model._fused_tables(mods),
+        {k: jnp.asarray(v) for k, v in batch["trace"].items()},
+        (jnp.asarray(halves[0], bf), jnp.asarray(halves[1], bf)),
+        jnp.asarray(batch["video_mask"]),
+        (jnp.asarray(halves[2], bf), jnp.asarray(halves[3], bf)),
+        jnp.asarray(batch["question_mask"]), interpret=True)
+    pm = port_model(cfg, params)
+    tmods = tree_map(lambda x: x.detach().to(torch.bfloat16),
+                     pm.param_tree()["modules"])
+    th = [torch.from_numpy(h).to(torch.bfloat16) for h in halves]
+    out = TX.mega_exec(
+        pm.config, tmods, pm._fused_tables(tmods),
+        {k: torch.from_numpy(v) for k, v in batch["trace"].items()},
+        (th[0], th[1]), torch.from_numpy(batch["video_mask"]),
+        (th[2], th[3]), torch.from_numpy(batch["question_mask"]))
+    assert out[1].dtype == torch.bfloat16 and out[1].shape[2] == F
+    assert TX.fwd_route(torch.bfloat16, 512, F, False) == "tc"
+    for name, j, t in zip(("rv", "rf", "ra"), (rv, rf, ra), out):
+        np.testing.assert_allclose(np.asarray(j, np.float32),
+                                   t.float().numpy(), rtol=1e-2, atol=3e-2,
+                                   err_msg=name)
+
+
+def _c_return_expr(src, head):
+    """The one ``return`` expression of the C function that starts with
+    ``head``, whitespace collapsed."""
+    body = src[src.index(head):]
+    body = body[body.index("{") + 1:body.index("}")]
+    expr = " ".join(body.split())
+    assert expr.startswith("return ") and expr.endswith(";"), expr
+    return expr[len("return "):-1]
+
+
+def test_mega_exec_tc_cluster_rule_matches_the_source():
+    """The tensor-core route's row-slice rule in ``csrc/mega_common.cuh``
+    (``tc_slice_count``, ``tc_cluster``, ``tc_cta_rows``, ``tc_slice_rows``:
+    one return expression each, C's integer arithmetic on positive ints)
+    equals the Python mirrors at every F the route takes, every batch up to
+    300 on an H100's 132 CTA slots (one CTA an SM) and on half of them,
+    and every cluster size from 1 to 8. At each pick every CTA owns at most
+    its share of whole 16-row mma tiles, the CTAs' rows cover the F frames
+    once and a CTA's slice fits the staging tile; the NMN CLIs' F 150 takes
+    3 CTAs of 64, 64 and 22 rows at B 32, 2 at B 64 and one CTA at B 128;
+    the widths the shared tiles hold take one CTA. The forward's and the
+    walk's launches pick with ``tc_cluster`` over the card's slots, the
+    walk at the forward's widths alike."""
+    import os
+    import re
+
+    from stair_tpu_torch.ops import _build
+
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    with open(os.path.join(csrc, "mega_common.cuh")) as f:
+        src = f.read()
+    count = _c_return_expr(src, "constexpr int tc_slice_count(int F) {")
+    cluster = _c_return_expr(
+        src, "constexpr int tc_cluster(int B, int F, int slots) {")
+    rows = _c_return_expr(src, "constexpr int tc_cta_rows(int F, int C) {")
+    stage = _c_return_expr(src, "constexpr int tc_slice_rows(int F) {")
+    assert count == "(F + TC_MAX_F - 1) / TC_MAX_F", count
+    assert cluster == ("B * tc_slice_count(F) <= slots ? tc_slice_count(F) "
+                       ": (tc_slice_count(F) > 2 && 2 * B <= slots ? 2 : 1)"
+                       ), cluster
+    assert rows == "((F + C - 1) / C + 15) & ~15", rows
+    assert stage == "F < TC_MAX_F ? (F + 15) & ~15 : TC_MAX_F", stage
+
+    def ternary(expr):   # C's a ? b : c (the outer one) in Python
+        cond, rest = expr.split(" ? ", 1)
+        then, other = rest.split(" : ", 1)
+        return f"({then}) if ({cond}) else ({other})"
+
+    py_cluster = ternary(cluster).replace("&&", "and")
+    py_cluster = re.sub(r"\((tc_slice_count\(F\) > 2 and 2 \* B <= "
+                        r"slots) \? 2 : 1\)", r"(2 if \1 else 1)",
+                        py_cluster)
+    env = {"TC_MAX_F": TX.TC_MAX_F,
+           "tc_slice_count": lambda F: eval(count.replace("/", "//"), {},
+                                            {"F": F, "TC_MAX_F": TX.TC_MAX_F})}
+    for F in range(TX.TC_MIN_F, TX.TC_ROUTE_MAX_F + 1):
+        assert TX.tc_slice_count(F) == env["tc_slice_count"](F), F
+        assert TX.tc_slice_rows(F) == eval(ternary(stage), {},
+                                           dict(env, F=F)), F
+        for C in range(1, 9):
+            assert TX.tc_cta_rows(F, C) == eval(
+                rows.replace("/", "//"), {}, dict(env, F=F, C=C)), (F, C)
+        for slots in (132, 66):
+            for B in range(1, 301):
+                C = TX.tc_cluster(B, F, slots)
+                assert C == eval(py_cluster, {}, dict(env, F=F, B=B,
+                                                      slots=slots)), (F, B)
+                assert C == 1 or B * C <= slots
+                R = TX.tc_cta_rows(F, C)
+                spans = [(r * R, min(F, (r + 1) * R)) for r in range(C)]
+                assert spans[0][0] == 0 and spans[-1][1] == F, (F, B, C)
+                assert all(a % 16 == 0 and b > a for a, b in spans), (F, C)
+                assert all(spans[i][1] == spans[i + 1][0]
+                           for i in range(C - 1))
+                if C == TX.tc_slice_count(F):
+                    assert max(b - a for a, b in spans) <= TX.TC_MAX_F
+    picks = {B: TX.tc_cluster(B, 150, 132) for B in (1, 32, 44, 45, 64, 66,
+                                                      67, 128)}
+    assert picks == {1: 3, 32: 3, 44: 3, 45: 2, 64: 2, 66: 2, 67: 1, 128: 1}
+    assert [min(150, r * 64 + 64) - r * 64 for r in range(3)] == [64, 64, 22]
+    assert TX.tc_cta_rows(150, 3) == 64 and TX.tc_cta_rows(72, 2) == 48
+    assert TX.tc_cta_rows(150, 2) == 80 and TX.tc_cta_rows(150, 1) == 160
+    assert TX.tc_cluster(32, 256, 132) == 4 and TX.tc_cluster(32, 72, 132) == 2
+    assert TX.tc_sliced(64, cluster=2) and not TX.tc_sliced(64, cluster=1)
+    assert TX.tc_sliced(24) and not TX.tc_sliced(64) and not TX.tc_sliced(48)
+    with open(os.path.join(csrc, "mega_exec.cu")) as f:
+        fwd = f.read()
+    with open(os.path.join(csrc, "mega_grad_tc.cu")) as f:
+        walk = f.read()
+    assert ("if (cluster > 1 || F % 16 || F > stair::TC_MAX_F) {\n"
+            "    const cudaError_t e = tc_sliced_pick<TRAIN>(B, F, H, L, "
+            "cluster, &a.C);") in fwd
+    for src in (fwd, walk):
+        assert src.count("*C = tc_cluster(B, F, slots);") == 1
+    assert ("if (e != cudaSuccess || cluster > 0 || !(F % 16 || F > "
+            "stair::TC_MAX_F))") in walk
+
+
+@pytest.mark.parametrize("L", [16, 1024])
+def test_mega_exec_tc_sliced_shared_memory_fits(L):
+    """The row-slice mode's CTA (one staging tile of ``tc_slice_rows(F)``
+    rows, the weight ring, the vectors; the two ``[F, H + 8]`` tiles live in
+    the workspace) fits 227 KB at every width the route takes, every F from
+    16 to 256; at F 150, H 512 it holds 145,968 bytes where two on-chip
+    tiles would need 391,408. The source's formula is the mirror's, and the
+    launch sizes the row-slice kernel with it."""
+    import os
+
+    from stair_tpu_torch.ops import _build
+
+    for H in range(64, TX.TC_MAX_H + 1, 64):
+        for F in range(TX.TC_MIN_F, TX.TC_ROUTE_MAX_F + 1):
+            assert TX.tc_route_shape(H, F)
+            assert TX.tc_sliced_smem_bytes(F, H, L) <= TX.SMEM_MAX, (F, H)
+            if not TX.tc_sliced(F):
+                assert TX.tc_shape(H, F)
+                assert TX.tc_smem_bytes(F, H, L) <= TX.SMEM_MAX, (F, H)
+    if L == 16:
+        assert TX.tc_sliced_smem_bytes(150, 512, 16) == 145968
+        assert TX.tc_smem_bytes(150, 512, 16) == 391408
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_exec.cu")) as f:
+        src = f.read()
+    body = src[src.index("inline size_t tc_sliced_smem_bytes(int F, int H, "
+                         "int L) {"):]
+    body = " ".join(body[:body.index("\n}\n")].split())
+    assert ("return tc_smem_bytes(F, H, L) - (2 * (size_t)F - "
+            "tc_slice_rows(F)) * (H + TC_PAD) * sizeof(bf16);") in body
+    launch = src[src.index("int launch_tc_sliced("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "const size_t smem = tc_sliced_smem_bytes(a.F, a.H, a.L);" in launch
+    assert "launch_clusters(kernel, a.B, a.C, smem, stream, a)" in launch
+
+
+def test_mega_exec_tc_cluster_argument_leaves_the_cpu_route_alone():
+    """On CPU tensors ``cluster`` changes nothing on bf16 inputs at the
+    row-slice widths (F 72 and 150): the plain version runs, eval and
+    training alike, and nothing is launched or counted."""
+    from stair_tpu_torch.ops import _build
+    from torch_port_util import tc_case
+
+    _build.reset_launches()
+    for F in (72, 150):
+        meta, args = tc_case(torch.device("cpu"), 64, F, "softmax", 3)
+        assert TX.fwd_route(torch.bfloat16, 64, F, True) == "tc"
+        for c in (None, 1, 2, 3):
+            want = TX.mega_exec_reference(meta, args)
+            got = TX.mega_exec_call(meta, args, cluster=c)
+            assert all(torch.equal(a, b) for a, b in zip(want, got))
+            want = TX.mega_exec_reference(meta, args, rate=0.25, seed=(1, 2))
+            got = TX.mega_exec_train_call(meta, args, 0.25, (1, 2),
+                                          cluster=c)
+            assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert not any(_build.LAUNCHES.values())
+    assert not any(_build.CLUSTERS.values())
+
+
+#: bf16 widths of the row-slice mode's card checks (H, F): ragged slices
+#: (72 = 48 + 24, 100 = 64 + 36), the NMN CLIs' F 150 and the largest F
+TC_SLICED_WIDTHS = [(192, 72), (192, 100), (192, 150), (128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fsoft", [False, True])
+@pytest.mark.parametrize("H,F", TC_SLICED_WIDTHS,
+                         ids=[f"H{h}-F{f}" for h, f in TC_SLICED_WIDTHS])
+def test_mega_exec_tc_sliced_vs_plain_on_card(cuda_device, H, F, fsoft):
+    """#4 and #5 (rate 0.25) on the tensor-core route's row-slice mode
+    against the plain version over every opcode (the all-opcode programs
+    twice), atol 3e-2 plus rtol 1e-2 (as the bf16 checks above), argmax of
+    the vec file's rows equal on at least 98%; one launch of each key,
+    counted under the launch's cluster (``tc_launch_cluster``, which is
+    ``tc_cluster`` over the card's slots), none on the
+    general route; the CTA's shared memory is what
+    ``tc_sliced_smem_bytes`` says."""
+    from stair_tpu_torch.ops import _build
+    from torch_port_util import tc_case
+
+    att = "softmax" if fsoft else "parity"
+    meta, args = tc_case(cuda_device, H, F, att, 2 * len(TW.OPCODE_PROGRAMS))
+    B, L = meta[0], meta[8]
+    C = TX.tc_launch_cluster(B, F, H, L)
+    assert C == TX.tc_cluster(B, F, TX.tc_slots(F, H, L))
+    _build.reset_launches()
+    out4 = TX.mega_exec_call(meta, args)
+    out5 = TX.mega_exec_train_call(meta, args, 0.25, (123, 456))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mega_exec_tc"] == 1
+    assert _build.LAUNCHES["mega_exec_train_tc"] == 1
+    assert not _build.LAUNCHES["mega_exec"]
+    assert not _build.LAUNCHES["mega_exec_train"]
+    assert _build.CLUSTERS["mega_exec_tc"] == {C: 1}
+    assert _build.CLUSTERS["mega_exec_train_tc"] == {C: 1}
+    ref4 = TX.mega_exec_reference(meta, args)
+    ref5 = TX.mega_exec_reference(meta, args, rate=0.25, seed=(123, 456))
+    for name, a, b in zip(("rv", "rf", "ra") * 2, out4 + out5, ref4 + ref5):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=3e-2, msg=name)
+        if name == "rv":
+            agree = (a.float().argmax(-1) == b.float().argmax(-1)).float()
+            assert float(agree.mean()) >= 0.98
+    L = meta[8]
+    assert (_build.build().stair_mega_exec_tc_sliced_smem(F, H, L)
+            == TX.tc_sliced_smem_bytes(F, H, L))
+
+
+#: (H, F, cluster sizes) of the row-slice mode's bit checks: a cluster
+#: forced at widths the shared tiles hold (F 64, 48) against one CTA with
+#: both tiles on chip, and every size at F 72, 150 and 256
+TC_CLUSTER_CASES = [(64, 64, (2, 3, 4)), (192, 48, (2, 3)),
+                    (512, 64, (2,)), (192, 72, (1, 2, 3)),
+                    (512, 150, (1, 2, 3, 4)), (128, 256, (1, 2, 4, 8))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "H,F,sizes", TC_CLUSTER_CASES,
+    ids=[f"H{h}-F{f}" for h, f, _ in TC_CLUSTER_CASES])
+def test_mega_exec_tc_clusters_equal_one_cta_on_card(cuda_device, H, F,
+                                                     sizes):
+    """#4 and #5 (rate 0.25) on the tensor-core route at every cluster size
+    of ``sizes`` (2 or more, or 1 above 64 frames: the row-slice mode, the
+    frame rows split over the cluster's CTAs) over the all-opcode programs
+    at B 1 and 33: every file equals the launch's own pick's bit for bit,
+    and at F 64 / 48 the pick is one CTA with both tiles in shared memory,
+    so the row-slice mode's products, staged from the workspace, give the
+    on-chip tiles' bits."""
+    from stair_tpu_torch.ops import _build
+    from torch_port_util import tc_case
+
+    seed = (123, 456)
+    for B in (1, 33):
+        meta, args = tc_case(cuda_device, H, F, "softmax", B)
+        _build.reset_launches()
+        out4 = TX.mega_exec_call(meta, args)
+        out5 = TX.mega_exec_train_call(meta, args, 0.25, seed)
+        pick = TX.tc_launch_cluster(B, F, H, meta[8])
+        assert _build.CLUSTERS["mega_exec_tc"] == {pick: 1}
+        for c in sizes:
+            k4 = TX.mega_exec_call(meta, args, cluster=c)
+            k5 = TX.mega_exec_train_call(meta, args, 0.25, seed, cluster=c)
+            for name, a, b in zip(("rv", "rf", "ra") * 2, out4 + out5,
+                                  k4 + k5):
+                assert torch.equal(a, b), (B, c, name)
+        want = collections.Counter((pick,) + tuple(sizes))
+        assert _build.CLUSTERS["mega_exec_tc"] == want, B
+        assert _build.CLUSTERS["mega_exec_train_tc"] == want, B
+        torch.cuda.synchronize()

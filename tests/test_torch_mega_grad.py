@@ -16,6 +16,7 @@ the min tie split (AND_VEC / AND_ATTN). The CUDA kernels are held against
 the plain versions on the card.
 """
 
+import collections
 import os
 import re
 
@@ -290,19 +291,28 @@ def test_kernels_take_detached_tensors_only():
 
 
 def test_executor_size_limits_have_one_home():
-    """MAX_H / MAX_F / MAX_L live in csrc/mega_limits.cuh only; the Python
-    wrappers read them from there, and no kernel source redefines them."""
+    """MAX_H / MAX_F / MAX_L, and the tensor-core route's two frame limits
+    (TC_MAX_F, the rows a CTA's bf16 tiles hold, 64; TC_ROUTE_MAX_F, the
+    largest F it takes, 256) with its smallest F, live in
+    csrc/mega_limits.cuh only; the Python wrappers read them from there, and
+    no kernel source redefines them."""
     csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
     with open(os.path.join(csrc, "mega_limits.cuh")) as f:
-        header = dict(re.findall(r"constexpr int (MAX_\w+) = (\d+);",
-                                 f.read()))
+        text = f.read()
+    header = dict(re.findall(r"constexpr int (MAX_\w+) = (\d+);", text))
     assert {k: int(v) for k, v in header.items()} == {
         "MAX_H": TX.MAX_H, "MAX_F": TX.MAX_F, "MAX_L": TX.MAX_L}
+    tc = dict(re.findall(r"constexpr int (TC_\w*_F) = (\d+);", text))
+    assert {k: int(v) for k, v in tc.items()} == {
+        "TC_MAX_F": TX.TC_MAX_F, "TC_MIN_F": TX.TC_MIN_F,
+        "TC_ROUTE_MAX_F": TX.TC_ROUTE_MAX_F}
+    assert (TX.TC_MIN_F, TX.TC_MAX_F, TX.TC_ROUTE_MAX_F) == (16, 64, 256)
     for name in os.listdir(csrc):
         if name.endswith((".cu", ".cuh")) and name != "mega_limits.cuh":
             with open(os.path.join(csrc, name)) as f:
-                assert not re.search(r"constexpr int MAX_[HFL]\b", f.read()), \
-                    name
+                src = f.read()
+            assert not re.search(r"constexpr int MAX_[HFL]\b", src), name
+            assert not re.search(r"constexpr int TC_\w*_F\b", src), name
 
 
 @pytest.mark.cuda
@@ -363,8 +373,8 @@ def test_mega_train_kernels_vs_plain_on_card(cuda_device, dtype, F,
 
 
 # The backward's route, chosen before any launch: the tensor-core walk and
-# weight-gradient kernels take bf16 at the widths mega_exec.tc_shape takes
-# (H a multiple of 64 in [64, 512], F a multiple of 16 in [16, 64]); the
+# weight-gradient kernels take bf16 at the widths mega_exec.tc_route_shape
+# takes (H a multiple of 64 in [64, 512], any F in [16, 256]); the
 # "fma32" kernels take float32 at the widths mega_exec.fma32_shape takes (H
 # a multiple of 128 in [128, 512], any F in [16, 256]); every other width
 # takes the general kernels.
@@ -372,14 +382,17 @@ BWD_ROUTE_CASES = [
     (torch.bfloat16, 512, 64, "tc"), (torch.float32, 512, 64, "fma32"),
     (torch.bfloat16, 64, 16, "tc"), (torch.bfloat16, 192, 48, "tc"),
     (torch.bfloat16, 32, 16, "general"), (torch.bfloat16, 160, 16, "general"),
-    (torch.bfloat16, 576, 64, "general"), (torch.bfloat16, 512, 24, "general"),
-    (torch.bfloat16, 512, 80, "general"), (torch.float32, 64, 16, "general"),
+    (torch.bfloat16, 576, 64, "general"), (torch.bfloat16, 512, 24, "tc"),
+    (torch.bfloat16, 512, 80, "tc"), (torch.float32, 64, 16, "general"),
     (torch.float32, 128, 16, "fma32"), (torch.float32, 256, 48, "fma32"),
     (torch.float32, 96, 16, "general"), (torch.float32, 1024, 64, "general"),
     (torch.float32, 512, 8, "general"), (torch.float32, 512, 100, "fma32"),
     (torch.float32, 320, 64, "general"), (torch.float32, 512, 150, "fma32"),
     (torch.float32, 512, 256, "fma32"), (torch.float32, 512, 257, "general"),
-    (torch.float32, 256, 72, "fma32"), (torch.bfloat16, 512, 150, "general"),
+    (torch.float32, 256, 72, "fma32"), (torch.bfloat16, 512, 150, "tc"),
+    (torch.bfloat16, 512, 72, "tc"), (torch.bfloat16, 512, 256, "tc"),
+    (torch.bfloat16, 512, 257, "general"), (torch.bfloat16, 512, 8, "general"),
+    (torch.bfloat16, 1024, 150, "general"),
 ]
 
 
@@ -404,26 +417,45 @@ def test_mega_bwd_route_follows_fwd_route(dtype, H, F):
 
 
 def test_mega_bwd_tc_shared_memory_fits():
-    """The walk's shared memory on the tensor-core route (its vectors, then
-    the bf16 operand tile with tc_gemm's ring or vecmat_tc's partials,
-    whichever is larger) fits one block's 227 KB at every width the route
-    takes, and holds the partials at the smallest; the general route's is
-    unchanged (37,216 bytes at F 64, H 512)."""
+    """The walk's shared memory on the tensor-core route (its vectors, laid
+    out at the route's largest H and F, then a row slice's bf16 operand
+    tile, ``tc_slice_rows(F)`` rows, with tc_gemm's ring or vecmat_tc's
+    partials, whichever is larger) fits one block's 227 KB at every width
+    the route takes (every F from 16 to 256: its products run over slices
+    of at most 64 rows), and holds the partials at the smallest; the
+    general route's is unchanged (37,216 bytes at F 64, H 512). The source
+    lays the vectors out at ``TC_ROUTE_MAX_F`` and the tile at
+    ``tc_slice_rows(F)``, as the mirror does."""
     for H in range(64, TX.TC_MAX_H + 1, 64):
-        for F in range(16, TX.TC_MAX_F + 1, 16):
+        for F in range(TX.TC_MIN_F, TX.TC_ROUTE_MAX_F + 1):
             assert TG.bwd_smem_bytes(F, H, "tc") <= TX.SMEM_MAX, (F, H)
     t = TX._TILES
     g = _build.header_ints("mega_grad_tc.cu")
-    vectors = 4 * ((g["NHV"] * TX.TC_MAX_H + (g["NFV"] + 5) * TX.TC_MAX_F
+    vectors = 4 * ((g["NHV"] * TX.TC_MAX_H
+                    + (g["NFV"] + 5) * TX.TC_ROUTE_MAX_F
                     + t["BK"] * (t["BM"] + 1) + t["BK"] * t["BN"]
                     + t["THREADS"] // 32 + 3) & ~3)
     for H in range(64, TX.TC_MAX_H + 1, 64):
-        for F in range(16, TX.TC_MAX_F + 1, 16):
+        for F in range(TX.TC_MIN_F, TX.TC_ROUTE_MAX_F + 1):
             scratch = TG.bwd_smem_bytes(F, H, "tc") - vectors
-            assert scratch >= 2 * F * (H + t["TC_PAD"]), (F, H)
+            rows = TX.tc_slice_rows(F)
+            assert rows % 16 == 0 and F <= rows or rows == TX.TC_MAX_F
+            assert scratch >= 2 * rows * (H + t["TC_PAD"]), (F, H)
             assert scratch >= 4 * t["THREADS"] * 8, (F, H)
     assert TG.bwd_smem_bytes(64, 512, "general") == 37216
-    assert TG.bwd_smem_bytes(64, 512, "tc") == 131424
+    assert TG.bwd_smem_bytes(64, 512, "tc") == 144480
+    assert TG.bwd_smem_bytes(150, 512, "tc") == 144480
+    assert TG.bwd_smem_bytes(72, 64, "tc") == TG.bwd_smem_bytes(64, 64, "tc")
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "mega_grad_tc.cu")) as f:
+        src = f.read()
+    body = src[src.index("inline long bwd_smem_floats(int F, int H) {"):]
+    body = " ".join(body[:body.index("\n}\n")].split())
+    assert "(long)(NFV + 5) * stair::TC_ROUTE_MAX_F" in body
+    assert "(long)tc_slice_rows(F) * (H + TC_PAD) + tc_ring<TC_BN>()" in body
+    ws = src[src.index("struct Ws {"):]
+    ws = ws[:ws.index("};")]
+    assert "const int S = stair::TC_ROUTE_MAX_F * stair::TC_MAX_H;" in ws
 
 
 def test_mega_bwd_fma32_shared_memory_fits():
@@ -507,14 +539,31 @@ def test_mega_bwd_tc_workspace_adds_the_dy_rows():
     """The tensor-core walk keeps its five slots' float32 dY rows in the
     workspace (three [F, H], two [H]) until a step's records are written,
     and lays its [F, H], [F, F] and [H] slots out at the route's largest F
-    and H: at those widths it is the general layout plus the dY rows."""
-    args = (10, 6, 8, TX.TC_MAX_F, TX.TC_MAX_H, 16, 13)
-    F, H = TX.TC_MAX_F, TX.TC_MAX_H
+    and H (``TC_ROUTE_MAX_F``, ``TC_MAX_H``): at those widths it is the
+    general layout plus the dY rows."""
+    args = (10, 6, 8, TX.TC_ROUTE_MAX_F, TX.TC_MAX_H, 16, 13)
+    F, H = TX.TC_ROUTE_MAX_F, TX.TC_MAX_H
     assert (TG.workspace_floats(*args, tc=True)
             - TG.workspace_floats(*args)) == 3 * F * H + 2 * H
     small = (10, 6, 8, 16, 64, 16, 13)
     assert (TG.workspace_floats(*small, tc=True)
             > TG.workspace_floats(*small))
+
+
+def test_mega_bwd_tc_workspace_slots_start_on_16_bytes():
+    """The tensor-core walk pads its ``[Na, F]`` slot to 4 floats, so that
+    every later slot and every example's workspace start on 16 bytes at any
+    F the route takes (the walk stages its float32 dY rows as float4: at
+    the NMN CLIs' F 150 an odd Na left them misaligned)."""
+    for F in range(TX.TC_MIN_F, TX.TC_ROUTE_MAX_F + 1):
+        for Na in (1, 3, 8, 11):
+            assert TG.workspace_floats(10, 6, Na, F, 512, 16, 13,
+                                       tc=True) % 4 == 0, (F, Na)
+    src = open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                            "mega_grad_tc.cu")).read()
+    ws = src[src.index("struct Ws {"):]
+    ws = ws[:ws.index("\n};\n")]
+    assert "gra = o; o += ((long)Na * F + 3) & ~3L;" in ws
 
 
 def _bwd_case(dev, H, F, attention, copies):
@@ -622,12 +671,16 @@ def test_mega_bwd_tc_route_equals_general_route_on_card(cuda_device,
 
 
 #: the walk's product shapes (M, K, N): [F, H] @ [H, H] at F 64 and 16,
-#: ragged 128-column chunks at H 192, and [F, H] @ [H, F]; the vec-level
-#: product takes the same K and N over ``VEC_SEGMENTS`` segments
+#: ragged 128-column chunks at H 192, and [F, H] @ [H, F]; in the row-slice
+#: mode the NMN CLIs' F 150 (slices of 64, 64 and 22 rows), F 72 and 24
+#: (ragged 16-row tiles) and 256; the vec-level product takes the same K
+#: and N over ``VEC_SEGMENTS`` segments
 RECOMPUTE_SHAPES = [(64, 512, 512), (16, 512, 512), (48, 192, 192),
-                    (64, 512, 64)]
+                    (64, 512, 64), (150, 512, 512), (72, 192, 192),
+                    (24, 512, 512), (256, 128, 128), (150, 512, 64)]
 VEC_SEGMENTS = {(64, 512, 512): 3, (16, 512, 512): 1, (48, 192, 192): 2,
-                (64, 512, 64): 3}
+                (64, 512, 64): 3, (150, 512, 512): 3, (72, 192, 192): 2,
+                (24, 512, 512): 1, (256, 128, 128): 3, (150, 512, 64): 2}
 
 
 @pytest.mark.cuda
@@ -639,13 +692,15 @@ def test_recompute_products_equal_forward_on_card(cuda_device, M, K, N,
     """The tensor-core walk's recompute products give the bits of the
     training forward's own calls on the same operands (``recompute_check``):
     the matrix product (``walk_gemm``, 64-column chunks, A's bf16 rows from
-    global memory, against ``fwd_gemm``, 128-column chunks, A in a
-    shared-memory tile) and the vec-level product (``vecmat_tc``, partials
-    at each kernel's place), alone and as stage 1's chained pair (the
-    hidden rounded to bf16, kept in shared memory by the forward and in
-    global memory by the walk). Both are the float32 sums of the bf16
-    products within 1e-3; the walk's shared memory is what
-    ``bwd_smem_bytes`` says."""
+    global memory in slices of 64, against ``fwd_gemm``, 128-column chunks,
+    A in a shared-memory tile) and the vec-level product (``vecmat_tc``,
+    partials at each kernel's place), alone and as stage 1's chained pair
+    (the hidden rounded to bf16, kept in shared memory by the forward and
+    in global memory by the walk); at M above 64 or not a multiple of 16,
+    the row-slice mode's ``fwd_rows`` against ``walk_gemm`` over slices of
+    64 rows (the hidden as bf16 rows in global memory on both sides). Both are
+    the float32 sums of the bf16 products within 1e-3; the walk's shared
+    memory is what ``bwd_smem_bytes`` says."""
     vec = product == "vec"
     gen = torch.Generator().manual_seed(M + K + N)
     S = VEC_SEGMENTS[(M, K, N)]
@@ -858,3 +913,165 @@ def test_mega_bwd_fma32_clusters_equal_one_cta_on_card(cuda_device,
             assert torch.equal(a, b), (B, "general files")
         for name, a, b in zip(GRAD_NAMES, want, gen_b):
             assert torch.equal(a, b), (B, "general", name)
+
+
+@needs_jax
+@pytest.mark.parametrize("F,attention", [(150, "softmax"), (72, "parity")])
+def test_mega_exec_train_bf16_matches_jax(F, attention):
+    """bf16 at the NMN CLIs' default F 150 and at F 72 (the tensor-core
+    route's row-slice widths on the card), H 64, every program, dropout 0:
+    the port's training executor (the plain forward and its autograd
+    backward) against the JAX megakernel pair (#5 and its backward #6)
+    under the Pallas interpreter, on the same numpy inputs, weights and
+    cotangents cast to bf16. The files within atol 3e-2 plus rtol 1e-2 (the
+    executor's bf16 bound); every gradient within 1e-1 of its largest
+    magnitude (the bf16 backward bound of the card checks: the JAX kernel
+    rounds cotangents at its own sites, autograd at the forward's casts;
+    measured <= 4.3e-2, the Temporal tables')."""
+    cfg, model, params = _jbuild(max_video_length=F, hidden=64,
+                                 filter_attention=attention)
+    batch, _ = _batch(cfg, PROGRAMS, seed=7)
+    rng = np.random.RandomState(0)
+    B, L = batch["video"].shape[0], batch["question"].shape[1]
+    halves = [rng.randn(B, n, 32).astype(np.float32) for n in (F, F, L, L)]
+    bf = jnp.bfloat16
+    seed = (12345, 2 ** 31 - 7)
+    trace = batch["trace"]
+
+    def jf(vfa, vfb, toka, tokb, mods):
+        return JG.mega_exec_train(
+            cfg, mods, model._fused_tables(mods),
+            {k: jnp.asarray(v) for k, v in trace.items()}, (vfa, vfb),
+            jnp.asarray(batch["video_mask"]), (toka, tokb),
+            jnp.asarray(batch["question_mask"]), 0.0,
+            jnp.asarray(seed, jnp.int32), interpret=True)
+
+    jmods = jax.tree_util.tree_map(lambda x: x.astype(bf), params["modules"])
+    outs, vjp = jax.vjp(jf, *[jnp.asarray(h, bf) for h in halves], jmods)
+    cots = [rng.randn(*o.shape).astype(np.float32) for o in outs]
+    jgrads = vjp(tuple(jnp.asarray(c, bf) for c in cots))
+
+    pm = port_model(cfg, params)
+    mods = tree_map(
+        lambda x: x.detach().to(torch.bfloat16).requires_grad_(True),
+        pm.param_tree()["modules"])
+    th = [torch.from_numpy(h).to(torch.bfloat16).requires_grad_(True)
+          for h in halves]
+    tout = TG.mega_exec_train(
+        pm.config, mods, pm._fused_tables(mods),
+        {k: torch.from_numpy(v) for k, v in trace.items()}, (th[0], th[1]),
+        torch.from_numpy(batch["video_mask"]), (th[2], th[3]),
+        torch.from_numpy(batch["question_mask"]), 0.0, seed)
+    assert TG.bwd_route(torch.bfloat16, 512, F) == "tc"
+    for name, j, t in zip(("regs_vec", "regs_frames", "regs_attn"), outs,
+                          tout):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_allclose(np.asarray(j, np.float32),
+                                   t.detach().float().numpy(), rtol=1e-2,
+                                   atol=3e-2, err_msg=name)
+    torch.autograd.backward(
+        tout, [torch.from_numpy(c).to(torch.bfloat16) for c in cots])
+
+    def check(a, b, name):
+        a = np.asarray(a, np.float32)
+        b = b.float().numpy()
+        scale = max(np.abs(a).max(), 1e-6)
+        assert np.abs(a - b).max() <= 1e-1 * scale, name
+
+    for i, name in enumerate(("vf_a", "vf_b", "tok_a", "tok_b")):
+        check(jgrads[i], th[i].grad, name)
+    n = 0
+
+    def walk(j, t, path):
+        nonlocal n
+        if isinstance(j, dict):
+            for k in j:
+                walk(j[k], t[k], f"{path}/{k}")
+        else:
+            n += 1
+            check(j, t.grad if t.grad is not None else torch.zeros_like(t),
+                  path)
+
+    walk(jgrads[4], mods, "modules")
+    assert n > 40
+
+
+#: bf16 widths (H, F) of the walk's row-slice checks on the card
+TC_SLICED_WALK = [(64, 72), (64, 150), (192, 100), (128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", ["parity", "softmax"])
+@pytest.mark.parametrize("H,F", TC_SLICED_WALK,
+                         ids=[f"H{h}-F{f}" for h, f in TC_SLICED_WALK])
+def test_mega_bwd_tc_sliced_vs_plain_at_files_on_card(cuda_device, H, F,
+                                                      attention):
+    """#6 on the tensor-core route in the row-slice mode (the walk on the
+    forward's cluster, ``tc_launch_cluster``), handed its own route's
+    training forward at dropout 0.25, against the plain VJP at those files
+    (``mega_exec_bwd_reference(at_files=True)``: the function the kernel
+    computes) within 1e-1 of each gradient's scale; two runs give equal
+    bits; one launch of the walk (counted under the forward's cluster) and
+    of the weight gradients, none on the general route."""
+    seed = (123, 456)
+    meta, args, out, cots = _bwd_case(cuda_device, H, F, attention, 1)
+    C = TX.tc_launch_cluster(meta[0], F, H, walk=True)
+    assert C == TX.tc_launch_cluster(meta[0], F, H, meta[8])
+    _build.reset_launches()
+    k1 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    assert _build.LAUNCHES["mega_exec_bwd_tc"] == 1
+    assert _build.LAUNCHES["mega_exec_wgrad_tc"] == 1
+    assert not _build.LAUNCHES["mega_exec_bwd"]
+    assert _build.CLUSTERS["mega_exec_bwd_tc"] == {C: 1}
+    k2 = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    torch.cuda.synchronize()
+    rb = TG.mega_exec_bwd_reference(meta, args, out, cots, 0.25, seed,
+                                    at_files=True)
+    grads = dict(zip(GRAD_NAMES, rb))
+    for name, a, b, r in zip(GRAD_NAMES, k1, k2, rb):
+        assert torch.equal(a, b), name
+        if attention == "softmax" and name in ("fltk", "fltb"):
+            ref = float(grads["fltw"].float().abs().max())
+            assert float(a.float().abs().max()) <= 1e-3 * ref, name
+            continue
+        scale = max(float(r.float().abs().max()), 1e-12)
+        assert float((a.float() - r.float()).abs().max()) <= 1e-1 * scale, \
+            name
+
+
+#: (H, F, cluster sizes) of the walk's bit checks, as the forward's
+TC_WALK_CLUSTERS = [(64, 64, (2, 4)), (192, 48, (3,)), (192, 72, (1, 2, 3)),
+                    (512, 150, (1, 2, 3)), (128, 256, (1, 4, 8))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "H,F,sizes", TC_WALK_CLUSTERS,
+    ids=[f"H{h}-F{f}" for h, f, _ in TC_WALK_CLUSTERS])
+def test_mega_bwd_tc_clusters_equal_one_cta_on_card(cuda_device, H, F,
+                                                    sizes):
+    """#6 on the tensor-core route at every cluster size of ``sizes`` (the
+    walk's frame rows split over the CTAs of an example's cluster; at F 64
+    and 48 against one CTA an example, the launch's pick there), handed the
+    training forward's files at dropout 0.25 over the all-opcode programs:
+    every data cotangent and weight gradient equals the launch's pick's bit
+    for bit, and each launch is counted under its size."""
+    from torch_port_util import tc_case
+
+    seed = (123, 456)
+    meta, args = tc_case(cuda_device, H, F, "parity", 33)
+    out = TX.mega_exec_train_call(meta, args, 0.25, seed)
+    gen = torch.Generator().manual_seed(F)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda_device)
+            for o in out]
+    pick = TX.tc_launch_cluster(33, F, H, walk=True)
+    _build.reset_launches()
+    want = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed)
+    for c in sizes:
+        got = TG.mega_exec_bwd_call(meta, args, out, cots, 0.25, seed,
+                                    cluster=c)
+        for name, a, b in zip(GRAD_NAMES, want, got):
+            assert torch.equal(a, b), (c, name)
+    torch.cuda.synchronize()
+    assert _build.CLUSTERS["mega_exec_bwd_tc"] == collections.Counter(
+        (pick,) + tuple(sizes))

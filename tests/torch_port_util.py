@@ -153,9 +153,9 @@ def write_star_world(root):
                 train_filename=pkl, valid_filename=pkl, test_filename=pkl)
 
 
-def fma32_case(dev, H, F, attention, B, seed=8):
-    """Float32 executor inputs on ``dev`` at width ``H``, ``F`` frames and
-    ``B`` examples (the all-opcode programs, repeated as often as ``B``
+def executor_case(dev, H, F, attention, B, seed=8, dtype=torch.float32):
+    """Executor inputs in ``dtype`` on ``dev`` at width ``H``, ``F`` frames
+    and ``B`` examples (the all-opcode programs, repeated as often as ``B``
     needs and cut to ``B``), with a seeded model and seeded BiLSTM-sized
     direction stacks: ``(meta, args)`` as ``prepare_args`` gives them."""
     from stair_tpu_torch.models.nmn import NMNConfig, VideoNMN, tree_map
@@ -165,16 +165,28 @@ def fma32_case(dev, H, F, attention, B, seed=8):
     cfg = NMNConfig(
         hidden_size=H, video_size=24, text_size=20, answer_vocab_length=7,
         max_video_length=F, object_types=3, max_steps=16, num_vec=10,
-        num_frames=6, num_attn=8, filter_attention=attention)
+        num_frames=6, num_attn=8, filter_attention=attention,
+        compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
     model = TW.build_model(cfg, seed=1, device=dev)
     n = len(TW.OPCODE_PROGRAMS)
     programs = (TW.OPCODE_PROGRAMS * -(-B // n))[:B]
     batch = TW.to_device(TW.opcode_batch(cfg, programs, seed=seed), dev)
     gen = torch.Generator().manual_seed(F + H)
     L = batch["question"].shape[1]
-    halves = [torch.randn(B, m, H // 2, generator=gen).to(dev)
+    halves = [torch.randn(B, m, H // 2, generator=gen).to(dev, dtype)
               for m in (F, F, L, L)]
-    mods = tree_map(lambda x: x.detach(), model.param_tree()["modules"])
+    mods = tree_map(lambda x: x.detach().to(dtype),
+                    model.param_tree()["modules"])
     return TX.prepare_args(
         cfg, mods, VideoNMN._fused_tables(mods), batch["trace"], halves[:2],
         batch["video_mask"], halves[2:], batch["question_mask"])
+
+
+def fma32_case(dev, H, F, attention, B, seed=8):
+    """Float32 executor inputs (``executor_case``), the "fma32" route's."""
+    return executor_case(dev, H, F, attention, B, seed)
+
+
+def tc_case(dev, H, F, attention, B, seed=8):
+    """bf16 executor inputs (``executor_case``), the tensor-core route's."""
+    return executor_case(dev, H, F, attention, B, seed, torch.bfloat16)
