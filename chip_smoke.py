@@ -183,8 +183,11 @@ Phases (any failure raises, and the script exits non-zero):
    (both ways), the plain versions', ``index_put_``'s and the bound;
 15. the fused executor-step kernel vs its plain version at every step of
    the all-opcode programs at H = 512 (F = 16 linear and F = 64 conv
-   temporal), float32 on both of its routes (the "fma32" kernel, which
-   ``step_route`` picks, and the general one) within 1e-4, each "fma32"
+   temporal, and the NMN CLIs' F = 150, where both routes below run over
+   frame-row tiles: "fma32" over ``gemm32``'s row tiles, the tensor-core
+   route in its row-slice mode), float32 on both of its routes (the
+   "fma32" kernel, which ``step_route`` picks, and the general one) within
+   1e-4, each "fma32"
    call also against the general route on clones (equal bits in every
    output and the whole frames file), and bf16 on both of its routes (the
    tensor-core kernel, which ``step_route`` picks, and the general one)
@@ -318,6 +321,23 @@ Phases (any failure raises, and the script exits non-zero):
    at B 32, 64 and 128 and #4-#6 there by graph replay on the cluster, one
    CTA an example and the general route beside the plain versions and
    their bounds; three ``kernels`` entries at F 150 in bf16.
+24. the evaluate CLI on ``--executor step`` at the same defaults, on phase
+   22's float32 and phase 23's bf16 ``best_model`` over phase 22's world
+   (the CLI's one eval batch of 32, ``T`` scan steps): per eval batch
+   exactly ``T`` launches of the step route's key (``executor_step_fma32``
+   on clusters of H / 128 CTAs, ``executor_step_tc`` in the row-slice mode
+   on clusters of 3, counted by size in ``_build.CLUSTERS``), none of the
+   general ``executor_step``, no megakernel, and the eval batch's three
+   BiLSTM encodes; argmax agreement >= 0.98 with ``--executor mega`` on the
+   same checkpoint (the CLI's predictions on the valid split and both eval
+   steps' on the train split; both accuracies printed); the eval batch's
+   ``T`` ``fused_step`` calls on clones, float32 equal to the general route
+   bit for bit and within 1e-4 of the plain version, bf16 equal to one CTA
+   a tile and to a second run bit for bit and within atol 3e-2 + rtol 1e-2
+   of the plain version, every output and the whole frames file; a batch's
+   calls by graph replay at B 32, 128 and 1024 on the route and the general
+   route beside the plain version and the bound; two ``kernels`` entries,
+   #10 at F 150 in each dtype.
 
 A line before the phases gives ``utils/mfu.py``'s peaks for the card's
 name (not None on an H100, equal to the peaks the bounds use on the H100
@@ -346,6 +366,11 @@ phase 22's trainer and evaluate runs. Before them a line ``[f32 routes]``
 gathers the float32 times of #2, #3 (phase 6's shapes), #4 (phase 4), #5,
 #6 (phase 7, phase 8's B 128, and phase 22's F 150 at B 32 and 128) and #10
 (phase 15, F 64, and phase 16's float32 serving batch) with their bounds.
+Phase 24's two entries are #10 again at the NMN CLIs' F 150 (float32
+``executor_step_fma32``, bf16 ``executor_step_tc``), timed at the evaluate
+CLI's B 32 (B 128 and 1024 under ``b128_*``, ``b1024_*``) with the general
+route beside, with the launches of the evaluate CLI's ``--executor step``
+run.
 Every time printed is measured in this run, on the card named above it.
 """
 
@@ -2603,11 +2628,12 @@ def device_kernels(fn, ordered=False):
     (``torch.profiler``'s device events): in launch order, or the set of
     them sorted. Every ``fn`` given launches at least one kernel, so a
     session that records no device event at all lost the card's trace (an
-    H100's profiler did, now and then, within a run whose other sessions
-    recorded theirs): it is run again, up to three sessions."""
+    H100's profiler did, now and then, after CUDA graph replays, while
+    Kineto still tore CUPTI down between sessions; ``main`` now keeps it
+    set up): it is logged and run again, up to three sessions."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for session in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2618,6 +2644,8 @@ def device_kernels(fn, ordered=False):
                         key=lambda e: e.time_range.start)
         if events:
             break
+        log(f"[profiler] session {session + 1} of 3 recorded no device "
+            "event; run again")
     names = [e.name for e in events]
     return names if ordered else sorted(set(names))
 
@@ -3692,12 +3720,14 @@ STEP_ROUTES = {torch.float32: ("fma32", "general"),
 
 def phase_step_kernel(dev):
     """Kernel #10 against its plain version at every step of the all-opcode
-    programs: the model runs on the ``"step"`` executor and each call of
-    ``fused_step`` is made twice, kernel and plain version, on clones; bf16
-    on the tensor-core and the general route, float32 on the "fma32" and the
-    general route, each "fma32" call also against the general route on
-    clones (equal bits). Returns the launches of the float32 forward at F =
-    64 on the forced general route."""
+    programs at F 16, 64 and 150 (the NMN CLIs' default, where both
+    redesigned routes run over frame-row tiles): the model runs on the
+    ``"step"`` executor and each call of ``fused_step`` is made twice,
+    kernel and plain version, on clones; bf16 on the tensor-core and the
+    general route, float32 on the "fma32" and the general route, each
+    "fma32" call also against the general route on clones (equal bits).
+    Returns the launches of the float32 forward at F = 64 on the forced
+    general route."""
     from stair_tpu_torch.models.nmn import NMNConfig
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import executor_step as TE
@@ -3708,7 +3738,7 @@ def phase_step_kernel(dev):
     real = TE.fused_step
     general_launches = 0
     calls32 = []     # the float32 forward's calls at F = 64, to time
-    for F in (16, FRAMES):
+    for F in (16, FRAMES, CLI_DEFAULTS["max_video_length"]):
         for dtype, routes in STEP_ROUTES.items():
             cfg = NMNConfig(
                 hidden_size=HIDDEN, video_size=VIDEO_D, text_size=TEXT_D,
@@ -5629,7 +5659,8 @@ def phase_default_clis(dev, card, root=None):
                 f"{rec['#6']['general_walk_ms']:.4f} + "
                 f"{rec['#6']['general_wgrad_ms']:.4f}); card {card}")
         SEEN["defaults"] = dict(loop_ms=loop_ms, step_ms=step_ms,
-                                timed=timed, world=r["world"])
+                                timed=timed, world=r["world"],
+                                argv=r["argv"], out=r["out"], acc=r["acc"])
         log(f"[defaults] phase {time.perf_counter() - t_phase:.1f} s")
     finally:
         if own:
@@ -6066,7 +6097,8 @@ def phase_bf16_clis(dev, card, root):
             f"{rec['#6']['general_walk_ms']:.4f} + "
             f"{rec['#6']['general_wgrad_ms']:.4f}); card {card}")
     SEEN["bf16_defaults"] = dict(loop_ms=loop_ms, step_ms=step_ms,
-                                 timed=timed)
+                                 timed=timed, world=world, argv=r["argv"],
+                                 out=r["out"], acc=r["acc"])
     log(f"[bf16 defaults] phase {time.perf_counter() - t_phase:.1f} s")
 
     launches = {k: r["train_launches"].get(k, 0) + r["eval_launches"].get(
@@ -6115,6 +6147,260 @@ def phase_bf16_clis(dev, card, root):
     ]
 
 
+#: phase 24: per eval batch of the evaluate CLI on ``--executor step``, the
+#: encodes of ``CLI_EVAL_LAUNCHES_F32`` / ``EVAL_LAUNCHES`` (video,
+#: question, class table) without the megakernel; the step kernel adds T
+STEP_CLI_ENCODES = {torch.float32: {"bilstm_f32c": 3},
+                    torch.bfloat16: {"bilstm_tc": 3}}
+#: the batches at which an eval batch's ``fused_step`` calls are timed: the
+#: CLIs' B 32 (the evaluate CLI's own batch), 128 and phase 16's 1024
+STEP_TIMED_BATCHES = (32, 128, 1024)
+
+
+def record_step_calls(fn, clone=True):
+    """``fn()`` with the arguments of each ``fused_step`` call recorded:
+    cloned, or with ``clone`` false the tensors themselves (the register
+    files then hold their last state, which a timing rewrites in place).
+    Returns the list of argument tuples."""
+    from stair_tpu_torch.ops import executor_step as TE
+
+    calls, real = [], TE.fused_step
+
+    def record(*args):
+        calls.append(tuple(a.clone() for a in args) if clone else args)
+        return real(*args)
+
+    TE.fused_step = record
+    try:
+        fn()
+    finally:
+        TE.fused_step = real
+    return calls
+
+
+def time_step_calls(calls, dtype):
+    """A batch's ``fused_step`` calls by CUDA-graph replay on the route
+    ``step_route`` picks and on the general route forced, the plain
+    version by CUDA events, and the bound of footnote 6 (each launch's
+    live tiles' products or bytes, summed)."""
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.utils.device import cuda_time_ms
+
+    def run():
+        return [TE.fused_step(*a) for a in calls]
+
+    rec = {"ms": graph_ms(run, 2)}
+    with step_route("general"):
+        rec["general_ms"] = graph_ms(run, 2)
+    rec["plain_ms"] = cuda_time_ms(
+        lambda: [TE.fused_step_reference(*a) for a in calls], iters=2,
+        warmup=1)
+    return {**rec, **add_bounds(*[step_bound(a, dtype) for a in calls])}
+
+
+def hold_step_calls(calls, dtype):
+    """An eval batch's ``fused_step`` calls on clones, each one launch of
+    the route ``step_route`` picks: float32 "fma32" equal to the general
+    route forced bit for bit and within 1e-4 of the plain version; bf16
+    "tc" equal to one CTA a tile (``cluster=1``) and to a second run bit
+    for bit and within atol 3e-2 + rtol 1e-2 of the plain version; every
+    output and the whole frames file. Returns the largest error against
+    the plain version."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import executor_step as TE
+
+    names = ("rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")
+    B, _, F, H = calls[0][2].shape
+    key = TE.STEP_KEYS[TE.step_route(dtype, F, H)]
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 3e-2)
+    err = 0.0
+    for args in calls:
+        _build.reset_launches()
+        got = TE.fused_step(*(a.clone() for a in args))
+        require_launches(f"one {dtype} fused_step", dict(_build.LAUNCHES),
+                         {key: 1})
+        if dtype == torch.float32:
+            with step_route("general"):
+                others = {"the general route": TE.fused_step(
+                    *(a.clone() for a in args))}
+        else:
+            others = {"one CTA a tile": TE.fused_step(
+                *(a.clone() for a in args), cluster=1),
+                "a second run": TE.fused_step(*(a.clone() for a in args))}
+        for what, other in others.items():
+            for g, o, name in zip(got, other, names):
+                require(torch.equal(g, o), f"[step defaults] {key} B {B} F "
+                        f"{F}: {name} differs from {what}")
+        del others
+        want = TE.fused_step_reference(*(a.clone() for a in args))
+        for g, w, name in zip(got, want, names):
+            torch.testing.assert_close(
+                g.float(), w.float(), rtol=tol[0], atol=tol[1],
+                msg=lambda m: f"[step defaults] {key} {name}: {m}")
+        err = max(err, max_err(got, want))
+        del got, want
+    return err
+
+
+def step_cli_run(dev, card, dtype, seen):
+    """Phase 24 in one dtype, on the world, the flags and the best_model of
+    phase 22 (float32) or 23 (bf16), ``seen``. Returns the kernel
+    entry's fields."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import executor_step as TE
+    from stair_tpu_torch.train import evaluate, loop
+
+    w, argv, out = seen["world"], seen["argv"], seen["out"]
+    ckpt = f"{out}/best_model"
+    targs = loop.parse_cli(argv + ["--model-ckpt", ckpt])
+    train_ds, valid_ds = loop.load_datasets(targs)
+    model = evaluate.load_model(targs, valid_ds, dev, "step")
+    cfg = model.config
+    H, F, B = cfg.hidden_size, cfg.max_video_length, targs.batch_size
+    require(model.compute_dtype == dtype and (H, F, B) == (
+        CLI_DEFAULTS["hidden_size"], CLI_DEFAULTS["max_video_length"],
+        CLI_DEFAULTS["batch_size"]),
+        f"[step defaults] not the CLIs' defaults in {dtype}: H {H} F {F} "
+        f"B {B}, {model.compute_dtype}")
+    route = TE.step_route(dtype, F, H)
+    require(route == ("fma32" if dtype == torch.float32 else "tc"),
+            f"[step defaults] {dtype} F {F} H {H} on {route!r}")
+    key = TE.STEP_KEYS[route]
+    C = TE.step_launch_cluster(route, B, F, H)
+    vtables = loop.make_device_tables(valid_ds, dev)
+    vdict, vbatch, vreal = default_batch(dev, targs, valid_ds, model,
+                                         vtables, B, targs.rand_seed, False)
+    T = vbatch["trace"]["opcode"].shape[1]
+    n_valid = sum(t is not None for t in valid_ds.traces)
+    batches = -(-n_valid // B)
+
+    # ---- the evaluate CLI on --executor step (counted), then on mega ------
+    runs = {}
+    for executor in ("step", "mega"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        acc, _ = quiet(evaluate.main, argv + [
+            "--model-ckpt", ckpt, "--test-filename", w["valid"],
+            "--evaluate-func", "acc", "--executor", executor,
+            "--result-filename", f"preds_{executor}.json"], device=dev)
+        torch.cuda.synchronize()
+        with open(os.path.join(out, f"preds_{executor}.json")) as f:
+            preds = json.load(f)["preds"]
+        runs[executor] = dict(
+            acc=acc, preds=preds, s=time.perf_counter() - t0,
+            launches=dict(_build.LAUNCHES),
+            clusters={k: dict(v) for k, v in _build.CLUSTERS.items() if v})
+    step = runs["step"]
+    want = {key: T * batches, **{k: n * batches for k, n in
+                                 STEP_CLI_ENCODES[dtype].items()}}
+    require_launches(f"[step defaults] {dtype} train.evaluate.main "
+                     "--executor step", step["launches"], want)
+    require(step["clusters"] == {key: {C: T * batches}},
+            f"[step defaults] {dtype} cluster launches {step['clusters']}, "
+            f"want {key}: {C} x {T * batches}")
+    # argmax agreement with --executor mega on the same checkpoint: the
+    # evaluate CLI's split, and the train split through both eval steps
+    same = sum(a == b for a, b in zip(step["preds"], runs["mega"]["preds"]))
+    n = len(step["preds"])
+    require(n == len(runs["mega"]["preds"]) == n_valid,
+            f"[step defaults] {n} predictions")
+    tables = loop.make_device_tables(train_ds, dev)
+    train_preds = {}
+    for executor in ("step", "mega"):
+        m = evaluate.load_model(targs, train_ds, dev, executor)
+        _, _, pg = loop.evaluate_accuracy(
+            loop.make_batcher(targs, train_ds, m, device_tables=True),
+            loop.make_eval_step(m, tables), dev)
+        train_preds[executor] = pg["preds"]
+        del m
+    same_t = sum(a == b for a, b in zip(*train_preds.values()))
+    n_t = len(train_preds["step"])
+    agree = (same + same_t) / (n + n_t)
+    require(agree >= 0.98, f"[step defaults] {dtype} step / mega argmax "
+            f"agreement {agree} ({same} of {n} valid, {same_t} of {n_t} "
+            "train)")
+    log(f"[step defaults] train.evaluate.main --executor step on phase "
+        f"{22 if dtype == torch.float32 else 23}'s best_model ({dtype}, H "
+        f"{H}, F {F}, B {B}; {n_valid} valid questions, {batches} batch of "
+        f"T {T}): acc {step['acc']:.4f} (--executor mega "
+        f"{runs['mega']['acc']:.4f}; phase's own evaluate "
+        f"{seen['acc']:.4f}), {step['s']:.1f} s (mega "
+        f"{runs['mega']['s']:.1f}); launches "
+        f"{ {k: v for k, v in step['launches'].items() if v} }, no "
+        f"executor_step and no megakernel launch, by cluster size "
+        f"{step['clusters']}; argmax agreement with --executor mega "
+        f"{same} of {n} on the valid split and {same_t} of {n_t} on the "
+        f"train split (eval steps): {agree:.4f}; card {card}")
+
+    # ---- the CLI's eval batch: its T calls against the other routes and
+    # the plain version, then the calls timed at B 32, 128 and 1024
+    eval_step = loop.make_eval_step(model, vtables)
+    calls = record_step_calls(lambda: eval_step(vdict))
+    require(len(calls) == T, f"[step defaults] {len(calls)} fused_step "
+            f"calls, T {T}")
+    err = hold_step_calls(calls, dtype)
+    timed = {B: time_step_calls(calls, dtype)}
+    clusters = {B: C}
+    del calls
+    for b in STEP_TIMED_BATCHES:
+        if b == B:
+            continue
+        bdict, _, _ = default_batch(dev, targs, train_ds, model, tables, b,
+                                    0, False)
+        tstep = loop.make_eval_step(model, tables)
+        calls = record_step_calls(lambda: tstep(bdict), clone=False)
+        timed[b] = time_step_calls(calls, dtype)
+        clusters[b] = TE.step_launch_cluster(route, b, F, H)
+        del calls, bdict
+        torch.cuda.empty_cache()
+    what = ("equal bits to the general route" if dtype == torch.float32
+            else "equal bits to one CTA a tile and to a second run")
+    log(f"[step defaults] the evaluate CLI's batch ({vreal} of {B} rows "
+        f"real): its {T} fused_step calls on {route!r} (clusters of {C}) "
+        f"{what} in every output and the whole frames file, max_abs_err "
+        f"{err:.3e} against the plain version; by graph replay: "
+        + "; ".join(f"B {b} {route} {r['ms']:.4f} ms (clusters of "
+                    f"{clusters[b]}), general {r['general_ms']:.4f}, plain "
+                    f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
+                    f"({r['bound_by']})" for b, r in timed.items())
+        + f"; card {card}")
+    other = {}
+    for b, r in timed.items():
+        if b != B:
+            other.update({f"b{b}_ms": r["ms"], f"b{b}_cluster": clusters[b],
+                          f"b{b}_general_ms": r["general_ms"],
+                          f"b{b}_plain_ms": r["plain_ms"],
+                          f"b{b}_bound_ms": r["bound_ms"]})
+    t = timed[B]
+    return {"source": "stair_tpu_torch/ops/csrc/executor_step.cu",
+            "replaces": "stair_tpu/ops/executor_step.py:49",
+            "dtype": str(dtype).replace("torch.", ""),
+            "path": f"train.evaluate --executor step at the NMN CLIs' "
+            f"defaults, H {H} F {F} B {B} (phase 24)",
+            "executor_route": route, "launches": step["launches"][key],
+            "launches_path": f"{T} a batch, {batches} eval batch",
+            "max_abs_err": err, "ms": t["ms"], "cluster": C,
+            "general_ms": t["general_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "timing": "graph replay", **other}
+
+
+def phase_step_clis(dev, card):
+    """Phase 24: the evaluate CLI on ``--executor step`` at the NMN CLIs'
+    defaults (H 512, F 150, B 32), in float32 on phase 22's best_model and
+    in bf16 on phase 23's (``--config-filename``), over phase 22's world:
+    #10 on its redesigned routes at F 150 ("fma32" over ``gemm32``'s row
+    tiles, "tc" in its row-slice mode), no general step launch and no
+    megakernel. Returns the two #10 entries at F 150."""
+    t_phase = time.perf_counter()
+    f32 = step_cli_run(dev, card, torch.float32, SEEN["defaults"])
+    bf16 = step_cli_run(dev, card, torch.bfloat16, SEEN["bf16_defaults"])
+    log(f"[step defaults] phase {time.perf_counter() - t_phase:.1f} s")
+    return [{"name": name, "route": "cuda", **rec} for name, rec in (
+        ("executor_step_fma32", f32), ("executor_step_tc", bf16))]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on an "
@@ -6123,6 +6409,13 @@ def main():
     from stair_tpu_torch.utils.device import card_identity, exact_f32
     from stair_tpu_torch.utils.mfu import chip_peak_flops, chip_peak_hbm_bw
 
+    # The run mixes CUDA graphs with torch.profiler sessions. Kineto tears
+    # CUPTI down after each session and sets it up again for the next, and
+    # after graph replays such a session can record no device event at all
+    # (phase 11 lost three in a row that way). Keep CUPTI set up between
+    # sessions, as torch.profiler itself does for programs with CUDA graphs.
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
     dev = torch.device("cuda", 0)
     card = card_identity().splitlines()[0]
     log(card)
@@ -6207,6 +6500,7 @@ def main():
     try:
         kernels += phase_default_clis(dev, card, root)
         kernels += phase_bf16_clis(dev, card, root)
+        kernels += phase_step_clis(dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[f32 routes] {json.dumps(SEEN.get('f32', []))}")

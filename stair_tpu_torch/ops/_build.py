@@ -62,10 +62,13 @@ its kernel and nowhere else:
   (``csrc/executor_step.cu`` ``step_kernel``: the dtypes and widths the
   other two refuse);
 - ``executor_step_tc``: one step on its tensor-core route (bf16, the main
-  path's; ``executor_step_tc_kernel``);
+  path's; ``executor_step_tc_kernel``: above 64 frames a tile on a
+  thread-block cluster of frame-row slices, ``CLUSTERS`` counting them by
+  size);
 - ``executor_step_fma32``: one step on its float32 "fma32" route
   (``executor_step_fma32_kernel``: a small batch's tiles each on a
-  thread-block cluster, its products on ``gemm32``);
+  thread-block cluster, its products on ``gemm32``; ``CLUSTERS`` counts
+  these launches by cluster size);
 - ``slot_set_many``, ``slot_zero_many``, ``slot_add_many``: several
   in-place register-slot updates of one kind in one launch
   (``csrc/regslots.cu``; the reversible executor's four sets, eight zeros
@@ -126,17 +129,20 @@ LAUNCHES = {
 }
 
 #: the "fma32" and tensor-core executor launches by cluster size
-#: (``csrc/mega_common.cuh`` mega32_cluster, tc_cluster; 1: one CTA an
-#: example) since the last ``reset_launches``: launch key -> {CTAs of an
-#: example's cluster: launches} (``mega_exec_fma32``,
+#: (``csrc/mega_common.cuh`` mega32_cluster, tc_cluster; ``csrc/
+#: executor_step.cu`` step32_cluster, step_tc_pick; 1: one CTA an example
+#: or tile) since the last ``reset_launches``: launch key -> {CTAs of an
+#: example's or a tile's cluster: launches} (``mega_exec_fma32``,
 #: ``mega_exec_train_fma32``, ``mega_exec_bwd_fma32``; ``mega_exec_tc``,
-#: ``mega_exec_train_tc``, ``mega_exec_bwd_tc``; each also counted in
+#: ``mega_exec_train_tc``, ``mega_exec_bwd_tc``; the step kernel's
+#: ``executor_step_tc``, ``executor_step_fma32``; each also counted in
 #: ``LAUNCHES``)
 FMA32_CLUSTER_KEYS = ("mega_exec_fma32", "mega_exec_train_fma32",
                       "mega_exec_bwd_fma32")
 TC_CLUSTER_KEYS = ("mega_exec_tc", "mega_exec_train_tc", "mega_exec_bwd_tc")
+STEP_CLUSTER_KEYS = ("executor_step_tc", "executor_step_fma32")
 CLUSTERS = {k: collections.Counter()
-            for k in FMA32_CLUSTER_KEYS + TC_CLUSTER_KEYS}
+            for k in FMA32_CLUSTER_KEYS + TC_CLUSTER_KEYS + STEP_CLUSTER_KEYS}
 
 _lib = None
 #: what the last build printed (ptxas register/spill report) and took, in
@@ -412,22 +418,19 @@ def bind_step(lib):
         I,                         # bf16
         P,                         # stream
     ]
-    lib.stair_executor_step_tc.restype = I
-    lib.stair_executor_step_tc.argtypes = [
-        P, I,                      # pointer table, its length
-        P,                         # workspace
-        I, I, I, I, I, I,          # B, Nv, Nf, Na, F, H
-        P,                         # stream
-    ]
+    for fn in (lib.stair_executor_step_tc, lib.stair_executor_step_fma32):
+        fn.restype = I
+        fn.argtypes = [
+            P, I,                  # pointer table, its length
+            P,                     # workspace
+            I, I, I, I, I, I,      # B, Nv, Nf, Na, F, H
+            I, P,                  # cluster (0: the launch's pick), &used
+            P,                     # stream
+        ]
     lib.stair_executor_step_tc_smem.restype = Lg
-    lib.stair_executor_step_tc_smem.argtypes = [I, I]       # F, H
-    lib.stair_executor_step_fma32.restype = I
-    lib.stair_executor_step_fma32.argtypes = [
-        P, I,                      # pointer table, its length
-        P,                         # workspace
-        I, I, I, I, I, I,          # B, Nv, Nf, Na, F, H
-        P,                         # stream
-    ]
+    lib.stair_executor_step_tc_smem.argtypes = [I, I, I]    # F, H, sliced
+    lib.stair_executor_step_tc_cluster.restype = I
+    lib.stair_executor_step_tc_cluster.argtypes = [I, I, I]  # B, F, H
     lib.stair_executor_step_fma32_smem.restype = Lg
     lib.stair_executor_step_fma32_smem.argtypes = [I, I]    # F, H
     lib.stair_executor_step_fma32_cluster.restype = I

@@ -15,7 +15,7 @@ constexpr int MAX_L = 1024;
 // [F, H + 8] tiles there (one CTA an example); above, or at a ragged F, each
 // product runs over row slices of at most TC_MAX_F rows (the row-slice mode,
 // an example on a thread-block cluster). The step kernel's tensor-core route
-// (#10) keeps F a multiple of 16 up to TC_MAX_F.
+// (executor_step_tc_kernel, #10) takes the same widths and modes.
 constexpr int TC_MAX_H = 512;
 constexpr int TC_MAX_F = 64;
 constexpr int TC_MIN_F = 16;
@@ -24,12 +24,9 @@ constexpr int TC_ROUTE_MAX_F = 256;
 // mega_bwd_kernel<float, true>): H a multiple of gemm32's column tile
 // G32_BN (mega_common.cuh) up to FMA32_MAX_H, any F in [FMA32_MIN_F,
 // FMA32_MAX_F] (gemm32 walks the frames in row tiles of G32_BM, the last
-// one ragged).
+// one ragged). The float32 step kernel's route (executor_step_fma32_kernel,
+// #10) takes the same widths.
 constexpr int FMA32_MAX_H = 512;
 constexpr int FMA32_MIN_F = 16;
 constexpr int FMA32_MAX_F = 256;
-// The float32 step kernel's route (executor_step_fma32_kernel, #10): H as
-// the "fma32" routes', F a multiple of 16 in [16, STEP32_MAX_F] (one row
-// tile of gemm32 a product).
-constexpr int STEP32_MAX_F = 64;
 }  // namespace stair

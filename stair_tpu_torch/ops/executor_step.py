@@ -19,10 +19,12 @@ bias, the Localize cosine before ``(+ 1) * 0.49``, the stage-2 operand; the
 LayerNorm in float32 with eps 1e-5. The wrapper runs it for CPU tensors and
 the kernel for CUDA tensors, on the route ``step_route`` picks: the
 tensor-core kernel (``executor_step_tc_kernel``, bf16 at the widths
-``mega_exec.tc_shape`` takes), the float32 one (``executor_step_fma32_kernel``
-at the widths ``step_fma32_shape`` takes: a small batch's tiles each
-on a thread-block cluster, every output bit for bit the general kernel's)
-or the general one
+``mega_exec.tc_route_shape`` takes, any F from 16 to 256: above 64 frames
+or at a ragged F a tile's frame rows in slices over a thread-block
+cluster, bit for bit one CTA's), the float32 one
+(``executor_step_fma32_kernel`` at the widths ``step_fma32_shape`` takes,
+any F from 16 to 256: a small batch's tiles each on a thread-block
+cluster, every output bit for bit the general kernel's) or the general one
 (``step_kernel``, every other dtype and width).
 
 Rows nobody reads: the TPU kernel leaves ``pooled`` / ``hasitem`` of a tile
@@ -34,6 +36,8 @@ so every element of every output is defined and comparable.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -156,32 +160,26 @@ def fused_step_reference(scal, rv, rf, ra, related, vmask, gkb,
 def step_route(dtype, F, H) -> str:
     """The fused step's kernel route, chosen before the launch, one of
     three: ``"tc"`` (``executor_step_tc_kernel``, launch key
-    ``executor_step_tc``: bf16 at the widths ``mega_exec.tc_shape`` takes,
-    H a multiple of 64 up to ``TC_MAX_H`` and F a multiple of 16 up to
-    ``TC_MAX_F``), ``"fma32"`` (``executor_step_fma32_kernel``,
-    ``executor_step_fma32``: float32 at the widths ``step_fma32_shape``
-    takes) or ``"general"`` (``step_kernel``, ``executor_step``: every
-    other dtype and width)."""
-    if dtype == torch.bfloat16 and TX.tc_shape(H, F):
+    ``executor_step_tc``: bf16 at the widths ``mega_exec.tc_route_shape``
+    takes, H a multiple of 64 up to ``TC_MAX_H`` and any F from
+    ``TC_MIN_F`` to ``TC_ROUTE_MAX_F``), ``"fma32"``
+    (``executor_step_fma32_kernel``, ``executor_step_fma32``: float32 at
+    the widths ``step_fma32_shape`` takes) or ``"general"``
+    (``step_kernel``, ``executor_step``: every other dtype and width)."""
+    if dtype == torch.bfloat16 and TX.tc_route_shape(H, F):
         return "tc"
     if dtype == torch.float32 and step_fma32_shape(H, F):
         return "fma32"
     return "general"
 
 
-#: the float32 step kernel's largest F (``csrc/mega_limits.cuh``)
-STEP32_MAX_F = TX._LIMITS["STEP32_MAX_F"]
-
-
 def step_fma32_shape(H, F) -> bool:
-    """True where ``executor_step_fma32_kernel`` takes the widths: H as
-    ``mega_exec.fma32_shape`` takes it (a multiple of ``G32_BN`` up to
-    ``FMA32_MAX_H``), F a multiple of 16 in [16, ``STEP32_MAX_F``] (64: one
-    row tile of ``gemm32`` a product, narrower than the executor
-    megakernel's "fma32" routes)."""
-    bn = TX._TILES["G32_BN"]
-    return (H % bn == 0 and bn <= H <= TX.FMA32_MAX_H and F % 16 == 0
-            and 16 <= F <= STEP32_MAX_F)
+    """True where ``executor_step_fma32_kernel`` takes the widths: those of
+    the executor megakernels' "fma32" routes, ``mega_exec.fma32_shape`` (H
+    a multiple of ``G32_BN`` up to ``FMA32_MAX_H``, any F from
+    ``FMA32_MIN_F`` to ``FMA32_MAX_F``: each product walks ``gemm32``'s
+    row tiles of 64 frames, the last one ragged)."""
+    return TX.fma32_shape(H, F)
 
 
 #: the launch key of each route
@@ -193,17 +191,36 @@ STEP_KEYS = {"tc": "executor_step_tc", "fma32": "executor_step_fma32",
 POOL_ROWS = _build.header_ints("executor_step.cu")["POOL_ROWS"]
 
 
-def step_tc_smem_bytes(F, H) -> int:
-    """Dynamic shared memory of ``executor_step_tc_kernel`` per block, as
-    ``csrc/executor_step.cu step_tc_smem_bytes`` computes it: two ``[F, H
-    + 8]`` bf16 tiles, the weight ring, three float vectors of ``H``, the
-    pooled partials (``POOL_ROWS`` rows of ``H``; the vec products'
-    partials share them), three ``[F]`` vectors and the warp sums."""
+def step_tc_smem_bytes(F, H, sliced) -> int:
+    """Dynamic shared memory of ``executor_step_tc_kernel`` per CTA, as
+    ``csrc/executor_step.cu step_tc_smem_bytes`` computes it: two bf16
+    tiles of ``H + 8`` columns (``F`` rows, or in the row-slice mode,
+    ``sliced``, ``mega_exec.tc_slice_rows(F)``), the weight ring, four
+    float vectors of ``H``, the pooled partials (``POOL_ROWS`` rows of
+    ``H``; the vec products' partials share them; in the row-slice mode
+    those partials alone), two ``[F]`` vectors and the warp sums."""
     t = TX._TILES
+    rows = TX.tc_slice_rows(F) if sliced else F
     ring = t["TC_STAGES"] * t["FWD_BN"] * (t["TC_BK"] + t["TC_PAD"])
-    parts = max(POOL_ROWS * H, t["THREADS"] * 8)
-    return (2 * F * (H + t["TC_PAD"]) * 2 + ring * 2
-            + (3 * H + parts + 3 * F + t["THREADS"] // 32) * 4)
+    vec_parts = t["THREADS"] * 8
+    parts = vec_parts if sliced else max(POOL_ROWS * H, vec_parts)
+    return (2 * rows * (H + t["TC_PAD"]) * 2 + ring * 2
+            + (4 * H + parts + 2 * F + t["THREADS"] // 32) * 4)
+
+
+def step_launch_cluster(route, B, F, H) -> int:
+    """The cluster size a launch of ``B`` tiles at ``(F, H)`` on ``route``
+    (``"tc"`` or ``"fma32"``) takes on the current card, as the library
+    computes it (``"tc"``: one CTA where the shared tiles hold F, else
+    ``mega_exec.tc_cluster`` over the row-slice mode's CTA slots;
+    ``"fma32"``: ``step_fma32_cluster`` over its slots)."""
+    lib = _build.build()
+    C = (lib.stair_executor_step_tc_cluster(B, F, H) if route == "tc"
+         else lib.stair_executor_step_fma32_cluster(B, F, H))
+    if C < 1:
+        raise RuntimeError(f"step_launch_cluster: {route} B {B} F {F} H {H} "
+                           "failed")
+    return C
 
 
 def step_fma32_cluster(B, H, slots) -> int:
@@ -236,7 +253,7 @@ ALIGNED = ("rf", "w1u", "w2u", "w2t", "loc_kw")
 
 def fused_step(scal, rv, rf, ra, related, vmask, gkb,
                w1u, b1u, w2u, b2u, w2t, b2t, ffwf, ln_scale, ln_bias,
-               loc_kw, loc_kb):
+               loc_kw, loc_kb, cluster=None):
     """Run one fused executor step over an expert-sorted batch.
 
     ``scal`` [NS, B] int32 (the ``S_*`` rows; ``S_PERM`` expert-sorted so
@@ -256,6 +273,12 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
     ``loc_a`` / ``loc_b`` [B, F] float32 in example order. SUPERLATIVE_F's
     inputs are not produced here. Plain version for CPU tensors, the CUDA
     kernel of ``step_route`` for CUDA tensors.
+
+    ``cluster`` forces the CTAs of a tile's thread-block cluster (tests,
+    scripts): on ``"tc"`` 1 to 8, where 2 or more runs the row-slice mode at
+    any F; on ``"fma32"`` a divisor of ``H / G32_BN`` up to 8; None: the
+    launch's pick. Each launch on those routes is counted under the size it
+    took in ``_build.CLUSTERS``.
     """
     if _build.on_cpu("executor_step", rf):
         return fused_step_reference(
@@ -294,7 +317,8 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
     route = step_route(dt, F, H)
     key = STEP_KEYS[route]
     if route != "general":
-        takes = (TX.tc_shape if route == "tc" else step_fma32_shape)(H, F)
+        takes = (TX.tc_route_shape if route == "tc"
+                 else step_fma32_shape)(H, F)
         want = torch.bfloat16 if route == "tc" else torch.float32
         if dt != want or not takes:
             raise ValueError(f"{key}: the {route!r} route takes {want} at "
@@ -306,13 +330,16 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
                 raise ValueError(f"{key} {name}: the {route!r} kernel needs "
                                  "16-byte aligned data")
     lib = _build.build()
+    used = ctypes.c_int(0)
     if route == "tc":
-        # float32 workspace: the Temporal pre-LayerNorm rows (the hidden
-        # and feat tiles stay in shared memory)
-        ws = torch.empty(B, F, H, dtype=torch.float32, device=dev)
+        # float32 workspace: the Temporal pre-LayerNorm rows, in the
+        # row-slice mode after feat32 (the bf16 tiles stay in shared memory)
+        planes = 2 if TX.tc_sliced(F, cluster) else 1
+        ws = torch.empty(B, planes, F, H, dtype=torch.float32, device=dev)
         err = lib.stair_executor_step_tc(
             _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf, Na,
-            F, H, _build.stream_ptr(dev))
+            F, H, int(cluster or 0), ctypes.byref(used),
+            _build.stream_ptr(dev))
     else:
         # Per-tile float32 workspace: the stage-1 hidden / stage-2
         # operand, and the feat tile (later the Temporal pre-LN rows).
@@ -320,11 +347,14 @@ def fused_step(scal, rv, rf, ra, related, vmask, gkb,
         if route == "fma32":
             err = lib.stair_executor_step_fma32(
                 _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf,
-                Na, F, H, _build.stream_ptr(dev))
+                Na, F, H, int(cluster or 0), ctypes.byref(used),
+                _build.stream_ptr(dev))
         else:
             err = lib.stair_executor_step(
                 _build.pointers(ptrs), len(ptrs), ws.data_ptr(), B, Nv, Nf,
                 Na, F, H, int(dt == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
+    if route != "general":
+        _build.CLUSTERS[key][used.value] += 1
     return rf, pooled, has, exf, loc_a, loc_b

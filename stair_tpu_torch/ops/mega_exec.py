@@ -609,8 +609,8 @@ def tc_shape(H, F) -> bool:
     """True where a CTA's bf16 tiles hold the whole example: H a multiple
     of 64 in [64, TC_MAX_H], F a multiple of 16 in [16, TC_MAX_F] (whole
     mma tiles in shared memory). The executor forward's tensor-core route
-    runs one CTA an example there; the step kernel's (#10) takes only these
-    widths."""
+    and the step kernel's (#10) run one CTA an example or tile there, and
+    the row-slice mode at the other widths ``tc_route_shape`` takes."""
     return (H % 64 == 0 and 64 <= H <= TC_MAX_H and F % 16 == 0
             and 16 <= F <= TC_MAX_F)
 

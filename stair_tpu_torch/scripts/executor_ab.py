@@ -55,7 +55,9 @@ turn). It prints one JSON line per round, on the main paths' own inputs
   ``step_general_ms`` on the general route where the checkout has
   ``executor_step.step_route``, and ``step_digest``: the same hash of the
   general route's outputs on those 13 calls (their inputs recorded with the
-  general route, so every checkout hands it the same bits); ``step_f32_ms``
+  general route, so every checkout hands it the same bits), and
+  ``step_tc_digest``: the same calls' outputs on the route the checkout
+  picks (the tensor-core route at F 64, one CTA a tile); ``step_f32_ms``
   and ``step_f32_digest``: the same in float32 (a serving batch of the same
   weights with ``compute_dtype="float32"``) on the route the checkout picks
   (the "fma32" route where the checkout has it), with
@@ -263,8 +265,8 @@ def step_rows(dev):
                 x for a in calls for x in real(*(t.clone() for t in a)))
 
         row[f"{tag}_ms"] = cuda_time_ms(run, iters=5)
-        if tag == "step_f32":
-            row["step_f32_digest"] = hashed()
+        row["step_f32_digest" if tag == "step_f32"
+            else "step_tc_digest"] = hashed()
         with general():
             if routed:
                 row[f"{tag}_general_ms"] = cuda_time_ms(run, iters=5)

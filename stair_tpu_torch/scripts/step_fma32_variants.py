@@ -45,7 +45,8 @@ import torch
 from stair_tpu_torch.ops import _build
 
 #: the launch's choice of the cluster size, and the shared memory it asks
-_PICK = "  const int C = step32_cluster(B, H, slots);\n"
+_PICK = ("  const int C = cluster > 0 ? cluster : "
+         "step32_cluster(B, H, slots);\n")
 _SMEM = ("  const size_t smem = step32_smem_bytes(F, H);\n"
          "  cudaError_t e = cudaFuncSetAttribute(\n"
          "      executor_step_fma32_kernel,")

@@ -107,7 +107,25 @@ def _families(scal):
 @pytest.mark.parametrize("compute_dtype,rtol,atol", [
     ("float32", 1e-5, 1e-5), ("bfloat16", 1e-2, 3e-2)])
 def test_fused_step_reference_matches_jax_kernel(compute_dtype, rtol, atol):
-    args = step_inputs(compute_dtype)
+    _hold_against_jax_kernel(compute_dtype, rtol, atol)
+
+
+@needs_jax
+@pytest.mark.parametrize("compute_dtype,rtol,atol", [
+    ("float32", 1e-5, 1e-5), ("bfloat16", 1e-2, 3e-2)])
+@pytest.mark.parametrize("F", [72, 150])
+def test_fused_step_reference_matches_jax_kernel_above_64_frames(
+        F, compute_dtype, rtol, atol):
+    """As above at the widths the redesigned routes now take above 64
+    frames (F 150, the NMN CLIs' default, and a ragged 72), at H 64:
+    JAX's ``_step_kernel`` holds a whole ``[F, H]`` example at any F."""
+    _hold_against_jax_kernel(compute_dtype, rtol, atol, F=F)
+
+
+def _hold_against_jax_kernel(compute_dtype, rtol, atol, F=16, H=64):
+    """``fused_step_reference`` against ``JE.fused_step(interpret=True)``
+    on ``step_inputs(compute_dtype, F, H)`` (see the module docstring)."""
+    args = step_inputs(compute_dtype, F=F, H=H)
     scal = args[0]
     e1s, e2s = _families(scal)
     # every stage-1 expert family and every stage-2 family is present
@@ -181,12 +199,16 @@ STEP_ROUTE_CASES = [
     (torch.float32, 64, 512, "fma32"), (torch.float32, 16, 128, "fma32"),
     (torch.float32, 48, 384, "fma32"), (torch.float32, 64, 96, "general"),
     (torch.float32, 64, 640, "general"), (torch.float32, 8, 512, "general"),
-    (torch.bfloat16, 20, 96, "general"), (torch.bfloat16, 20, 512, "general"),
-    (torch.bfloat16, 64, 96, "general"), (torch.bfloat16, 80, 512, "general"),
+    (torch.bfloat16, 20, 96, "general"), (torch.bfloat16, 20, 512, "tc"),
+    (torch.bfloat16, 64, 96, "general"), (torch.bfloat16, 80, 512, "tc"),
     (torch.bfloat16, 64, 576, "general"), (torch.bfloat16, 8, 64, "general"),
     (torch.bfloat16, 16, 32, "general"), (torch.float16, 64, 512, "general"),
-    (torch.float32, 150, 512, "general"), (torch.float32, 72, 512, "general"),
-    (torch.float32, 256, 128, "general"), (torch.bfloat16, 150, 512, "general"),
+    (torch.float32, 150, 512, "fma32"), (torch.float32, 72, 512, "fma32"),
+    (torch.float32, 256, 128, "fma32"), (torch.bfloat16, 150, 512, "tc"),
+    (torch.float32, 15, 512, "general"), (torch.bfloat16, 15, 512, "general"),
+    (torch.float32, 257, 128, "general"),
+    (torch.bfloat16, 257, 512, "general"),
+    (torch.float32, 150, 96, "general"), (torch.bfloat16, 150, 96, "general"),
 ]
 
 
@@ -194,18 +216,21 @@ STEP_ROUTE_CASES = [
     "dtype,F,H,route", STEP_ROUTE_CASES,
     ids=[f"{str(d)[6:]}-F{f}-H{h}" for d, f, h, _ in STEP_ROUTE_CASES])
 def test_step_route_choice(dtype, F, H, route):
-    """bf16 at the widths the megakernel's tensor-core route takes goes to
-    the tensor-core step kernel, float32 at the widths of the step kernel's
-    own predicate ``step_fma32_shape`` (F a multiple of 16 up to 64, where
-    the megakernel's "fma32" route takes any F up to 256) to the float32
-    one, everything else to the general one."""
+    """bf16 at the widths the megakernel's tensor-core route takes
+    (``tc_route_shape``: H a multiple of 64 up to 512, any F from 16 to 256,
+    above 64 frames or at a ragged F in the row-slice mode) goes to the
+    tensor-core step kernel, float32 at the widths of the megakernel's
+    "fma32" routes (``step_fma32_shape``: H a multiple of 128 up to 512, any
+    F from 16 to 256) to the float32 one, everything else (F 15 or 257, H
+    96, other dtypes) to the general one."""
     from stair_tpu_torch.ops import mega_exec as TX
 
     assert TE.step_route(dtype, F, H) == route
     assert (route == "fma32") == (dtype == torch.float32
                                   and TE.step_fma32_shape(H, F))
-    if TE.step_fma32_shape(H, F):
-        assert TX.fma32_shape(H, F) and F <= TE.STEP32_MAX_F == 64
+    assert (route == "tc") == (dtype == torch.bfloat16
+                               and TX.tc_route_shape(H, F))
+    assert TE.step_fma32_shape(H, F) == TX.fma32_shape(H, F)
 
 
 def _source_expr(signature):
@@ -223,53 +248,87 @@ def _source_expr(signature):
     return " ".join(expr.split()).replace("(size_t)", "")
 
 
+def _ternaries(expr):
+    """``expr`` with every parenthesized C ternary ``(c ? a : b)`` written
+    as Python's ``((a) if (c) else (b))``, the last one first (so the
+    innermost before the one around it)."""
+    while "?" in expr:
+        q = expr.rindex("?")
+        depth, lo = 0, q
+        while depth >= 0:
+            lo -= 1
+            depth += {")": 1, "(": -1}.get(expr[lo], 0)
+        depth, hi, colon = 0, q, None
+        while depth >= 0:
+            hi += 1
+            depth += {"(": 1, ")": -1}.get(expr[hi], 0)
+            if depth == 0 and expr[hi] == ":":
+                colon = hi
+        c, a, b = expr[lo + 1:q], expr[q + 1:colon], expr[colon + 1:hi]
+        expr = f"{expr[:lo]}(({a.strip()}) if ({c.strip()}) else " \
+            f"({b.strip()})){expr[hi + 1:]}"
+    return expr
+
+
 def _source_smem_bytes():
     """``step_tc_smem_bytes`` of ``csrc/executor_step.cu`` as a Python
-    function: its return expression with the casts dropped, the sizes and
-    constants filled in and the ternary as ``max``."""
-    import re
-
+    function of ``(F, H, sliced)``: its return expression with the casts
+    dropped, the sizes and constants filled in, the ternaries as Python's
+    and ``tc_slice_rows`` as ``mega_exec``'s mirror of it."""
     from stair_tpu_torch.ops import _build
     from stair_tpu_torch.ops import mega_exec as TX
 
-    expr = _source_expr("inline size_t step_tc_smem_bytes(int F, int H) {")
+    expr = _source_expr("inline size_t step_tc_smem_bytes(int F, int H,")
     expr = expr.replace("sizeof(bf16)", "2").replace("sizeof(float)", "4")
     expr = expr.replace("tc_ring<FWD_BN>()",
                         "(TC_STAGES * FWD_BN * (TC_BK + TC_PAD))")
-    expr = re.sub(r"\(([^()?]+) > ([^()?]+) \? \1 : \2\)", r"max(\1, \2)",
-                  expr)
-    assert "?" not in expr and "<" not in expr, expr
+    expr = _ternaries(expr)
+    assert "<" not in expr, expr
     consts = {**TX._TILES, **_build.header_ints("executor_step.cu")}
     consts["TC_PARTS"] = consts["THREADS"] * 8
     consts["NWARPS"] = consts["THREADS"] // 32
-    return lambda F, H: eval(expr, {"max": max}, {**consts, "F": F, "H": H})
+    return lambda F, H, sliced: eval(
+        expr, {"tc_slice_rows": TX.tc_slice_rows},
+        {**consts, "F": F, "H": H, "sliced": sliced})
 
 
 def test_step_tc_shared_memory_matches_the_source_and_fits():
     """``step_tc_smem_bytes`` equals the CUDA source's formula at every
-    width the tensor-core route takes, and every such block (the dynamic
-    plan and the schedule column) fits the 227 KB a block may use, the
-    main path's F 64, H 512 at 228,128 bytes."""
+    width the tensor-core route takes, in both modes: one CTA a tile with
+    the whole ``[F, H + 8]`` tiles at F a multiple of 16 up to 64, the
+    row-slice mode (tiles of at most 64 rows) at every F from 16 to 256;
+    every such CTA (the dynamic plan and the schedule column) fits the 227
+    KB a block may use. The serving path's F 64, H 512 at 229,920 bytes, the
+    NMN CLIs' F 150 at 206,032."""
     from stair_tpu_torch.ops import mega_exec as TX
 
     source = _source_smem_bytes()
     for H in range(64, TX.TC_MAX_H + 1, 64):
-        for F in range(16, TX.TC_MAX_F + 1, 16):
+        for F in range(TX.TC_MIN_F, TX.TC_ROUTE_MAX_F + 1):
             assert TE.step_route(torch.bfloat16, F, H) == "tc"
-            assert TE.step_tc_smem_bytes(F, H) == source(F, H), (F, H)
-            assert TE.step_tc_smem_bytes(F, H) + 4 * TE.NS <= TX.SMEM_MAX
-    assert TE.step_tc_smem_bytes(64, 512) == 228128
+            sliced = F % 16 != 0 or F > TX.TC_MAX_F
+            assert TX.tc_sliced(F) == sliced
+            modes = (True,) if sliced else (False, True)
+            for mode in modes:
+                got = TE.step_tc_smem_bytes(F, H, mode)
+                assert got == source(F, H, mode), (F, H, mode)
+                assert got + 4 * TE.NS <= TX.SMEM_MAX, (F, H, mode)
+    assert TE.step_tc_smem_bytes(64, 512, False) == 229920
+    assert TE.step_tc_smem_bytes(150, 512, True) == source(150, 512, True) \
+        == 206032
+    assert TE.step_route(torch.bfloat16, 150, 512) == "tc"
 
 
 def test_step_fma32_shared_memory_and_cluster_match_the_source():
     """``step_fma32_smem_bytes`` and ``step_fma32_cluster`` equal the CUDA
     source's formulas (``step32_smem_bytes``, ``step32_cluster``) at every
-    width the "fma32" route takes; the cluster is one CTA a ``gemm32``
-    column tile (``H / G32_BN``, read through ``_build.header_ints``), at
-    most the portable 8, while a launch's tiles number fewer than twice the
-    card's CTA slots, and one CTA a tile from there on; two CTAs fit an SM
-    (227 KB a block, 228 KB an SM with 1 KB reserved a block), the main
-    path's F 64, H 512 at 83,744 bytes."""
+    width the "fma32" route takes (every F from 16 to 256); the cluster is
+    one CTA a ``gemm32`` column tile (``H / G32_BN``, read through
+    ``_build.header_ints``), at most the portable 8, while a launch's tiles
+    number fewer than twice the card's CTA slots, and one CTA a tile from
+    there on; two CTAs fit an SM (227 KB a block, 228 KB an SM with 1 KB
+    reserved a block), the serving path's F 64, H 512 at 83,744 bytes and
+    the NMN CLIs' F 150 at 84,776."""
     import re
 
     from stair_tpu_torch.ops import _build
@@ -289,7 +348,7 @@ def test_step_fma32_shared_memory_and_cluster_match_the_source():
     slots = 2 * 132                       # two CTAs on each of 132 SMs
     n = 0
     for H in range(16, TX.MAX_H + 1, 16):
-        for F in range(8, TX.MAX_F + 1, 8):
+        for F in range(8, TX.MAX_F + 2):
             if TE.step_route(torch.float32, F, H) != "fma32":
                 continue
             n += 1
@@ -304,8 +363,10 @@ def test_step_fma32_shared_memory_and_cluster_match_the_source():
             per_cta = TE.step_fma32_smem_bytes(F, H) + 4 * TE.NS
             assert per_cta <= TX.SMEM_MAX
             assert 2 * (per_cta + 1024) <= 228 * 1024, (F, H)
-    assert n == 4 * 4   # H 128, 256, 384, 512 x F 16, 32, 48, 64
+    assert n == 4 * 241   # H 128, 256, 384, 512 x F 16 to 256
     assert TE.step_fma32_smem_bytes(64, 512) == 83744
+    assert TE.step_fma32_smem_bytes(150, 512) == eval(
+        smem, {}, {**consts, "F": 150, "H": 512}) == 84776
 
 
 def test_step_fma32_variant_patches_match_the_source():
@@ -407,8 +468,10 @@ def test_fused_step_bf16_routes_vs_plain_and_repeat_on_card(cuda_device, F,
                                    atol=3e-2, msg=what)
         assert torch.equal(g, g2), what
     if route == "tc":
-        assert (_build.build().stair_executor_step_tc_smem(F, 128)
-                == TE.step_tc_smem_bytes(F, 128))
+        lib = _build.build()
+        for sliced in (0, 1):
+            assert (lib.stair_executor_step_tc_smem(F, 128, sliced)
+                    == TE.step_tc_smem_bytes(F, 128, bool(sliced)))
 
 
 @pytest.mark.cuda
@@ -483,14 +546,13 @@ def test_fused_step_fma32_vs_general_and_plain_on_card(cuda_device, F, H):
 def test_fused_step_fma32_refuses_what_it_does_not_take_on_card(
         cuda_device):
     """A forced "fma32" on bf16 inputs or at a width ``step_fma32_shape``
-    refuses (F 72: the megakernel's "fma32" width, not the step kernel's),
-    and float32 rows that are not 16-byte aligned on the route
-    ``step_route`` picks, raise before any launch: no fallback to another
-    route."""
+    refuses (H 64; F 8, below the "fma32" routes' 16), and float32 rows
+    that are not 16-byte aligned on the route ``step_route`` picks, raise
+    before any launch: no fallback to another route."""
     from stair_tpu_torch.ops import _build
 
     for dtype, F, H in (("bfloat16", 16, 128), ("float32", 16, 64),
-                        ("float32", 72, 128)):
+                        ("float32", 8, 128)):
         args = step_inputs(dtype, F=F, H=H, device=cuda_device)
         pick = TE.step_route
         TE.step_route = lambda *a: "fma32"
@@ -514,3 +576,94 @@ def test_fused_step_fma32_refuses_what_it_does_not_take_on_card(
         with pytest.raises(ValueError, match="16-byte"):
             TE.fused_step(*moved)
         assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [20, 72, 150])
+def test_fused_step_fma32_above_64_frames_every_cluster_on_card(cuda_device,
+                                                                F):
+    """float32 "fma32" at F 20, 72 and 150 (H 512: each product over
+    ``gemm32``'s row tiles, the last one ragged) on the cluster its launch
+    picks and on every forced size (the divisors 1, 2 and 4 of H / 128):
+    every output and the whole frames file equal to the forced general
+    route bit for bit, each launch counted under its size in
+    ``_build.CLUSTERS``, and within 1e-4 of ``fused_step_reference``."""
+    from stair_tpu_torch.ops import _build
+
+    H = 512
+    args = step_inputs("float32", F=F, H=H, device=cuda_device)
+    B = args[2].shape[0]
+    assert TE.step_route(torch.float32, F, H) == "fma32"
+    want = TE.fused_step_reference(*(a.clone() for a in args))
+    pick = TE.step_route
+    TE.step_route = lambda *a: "general"
+    try:
+        general = TE.fused_step(*(a.clone() for a in args))
+    finally:
+        TE.step_route = pick
+    picked = TE.step_launch_cluster("fma32", B, F, H)
+    for cluster in (None, 1, 2, 4):
+        _build.reset_launches()
+        got = TE.fused_step(*(a.clone() for a in args), cluster=cluster)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+            "executor_step_fma32": 1}
+        assert _build.CLUSTERS["executor_step_fma32"] == {
+            cluster or picked: 1}
+        for g, k, w, what in zip(got, general, want, (
+                "rf", "pooled", "hasitem", "existsframe", "loc_a", "loc_b")):
+            assert torch.equal(g, k), (what, cluster)
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=what)
+    assert _build.build().stair_executor_step_fma32_smem(F, H) == \
+        TE.step_fma32_smem_bytes(F, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [20, 72, 150])
+def test_fused_step_tc_row_slices_every_cluster_on_card(cuda_device, F):
+    """bf16 "tc" in its row-slice mode at F 20, 72 and 150 (H 512: a
+    tile's frame rows in slices of at most 64, over a thread-block
+    cluster): on the cluster its launch picks and on every forced size
+    from 1 to 4 and 8, every output and the whole frames file equal to one
+    CTA a tile's bit for bit (pooled in a fixed order whatever the size)
+    and to a second run's, each launch counted under its size in
+    ``_build.CLUSTERS``; within atol 3e-2 + rtol 1e-2 of
+    ``fused_step_reference``; the library's shared memory and cluster
+    pick equal the Python mirrors'."""
+    from stair_tpu_torch.ops import _build
+    from stair_tpu_torch.ops import mega_exec as TX
+
+    H = 512
+    args = step_inputs("bfloat16", F=F, H=H, device=cuda_device)
+    B = args[2].shape[0]
+    assert TE.step_route(torch.bfloat16, F, H) == "tc" and TX.tc_sliced(F)
+    want = TE.fused_step_reference(*(a.clone() for a in args))
+    one = TE.fused_step(*(a.clone() for a in args), cluster=1)
+    for g, w, what in zip(one, want, ("rf", "pooled", "hasitem",
+                                      "existsframe", "loc_a", "loc_b")):
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                   atol=3e-2, msg=what)
+    picked = TE.step_launch_cluster("tc", B, F, H)
+    slots = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert picked == TX.tc_cluster(B, F, slots)
+    for cluster in (None, 1, 2, 3, 4, 8):
+        for _ in range(2):
+            _build.reset_launches()
+            got = TE.fused_step(*(a.clone() for a in args), cluster=cluster)
+            torch.cuda.synchronize()
+            assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+                "executor_step_tc": 1}
+            assert _build.CLUSTERS["executor_step_tc"] == {
+                cluster or picked: 1}
+            for g, o, what in zip(got, one, ("rf", "pooled", "hasitem",
+                                             "existsframe", "loc_a",
+                                             "loc_b")):
+                assert torch.equal(g, o), (what, cluster)
+    lib = _build.build()
+    for sliced in (0, 1):
+        assert lib.stair_executor_step_tc_smem(F, H, sliced) == \
+            TE.step_tc_smem_bytes(F, H, bool(sliced))
+    for b in (1, 32, 64, 128, 1024):
+        assert lib.stair_executor_step_tc_cluster(b, F, H) == \
+            TX.tc_cluster(b, F, slots), b

@@ -329,16 +329,22 @@ def test_chip_smoke_has_eighteen_phases_and_seventeen_kernel_entries():
     # comprehension; phases 20 and 21 add no kernel entry; phase 22's
     # three entries are #4-#6 at the NMN CLIs' default F 150, built by one
     # helper, and phase 23's the same in bf16 on phase 22's world (one
-    # directory for both)
+    # directory for both); phase 24's two are #10 at F 150 in float32 and
+    # bf16 on the evaluate CLI's --executor step, built in one
+    # comprehension
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, re.M)]
-    assert numbers == list(range(1, 24)), numbers
+    assert numbers == list(range(1, 25)), numbers
     assert "phase_clis(dev, card)" in text
     assert "kernels += phase_parser(dev, card, clis)" in text
     assert "phase_demo(dev, card, model)" in text
     assert "phase_data_parallel(dev, card, clis)" in text
     assert "kernels += phase_default_clis(dev, card, root)" in text
     assert "kernels += phase_bf16_clis(dev, card, root)" in text
+    assert "kernels += phase_step_clis(dev, card)" in text
     names = re.findall(r'\{"name": "(\w+)", "route": "cuda"', text)
     assert len(names) == 18, names
+    assert re.search(r'\{"name": name, "route": "cuda", \*\*rec\} for name, '
+                     r'rec in \(\s+\("executor_step_fma32", f32\), '
+                     r'\("executor_step_tc", bf16\)\)', text)
     assert re.search(r'\{"name": k, "route": "cuda", "path": "parser"',
                      text)

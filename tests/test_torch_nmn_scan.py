@@ -7,10 +7,11 @@ and ``STAIR_FUSED_EXEC=0`` (the XLA scan, which is what JAX runs on the CPU
 anyway), from the same weights and numpy batches: logits and the three
 register files at rtol/atol 1e-4 in float32, over every opcode, both
 Filter modes, linear and conv temporal, with and without aux embeddings.
-One case runs the JAX side through its fused step kernel under the Pallas
-interpreter (``STAIR_FUSED_EXEC=interpret``). The port's ``"step"`` and
-``"mega"`` routes are held against each other, in eval and (the grouped
-stages through autograd) in one training step's gradients at dropout 0.
+Two cases run the JAX side through its fused step kernel under the Pallas
+interpreter (``STAIR_FUSED_EXEC=interpret``), at F 16 and at a ragged F
+72. The port's ``"step"`` and ``"mega"`` routes are held against each
+other, in eval and (the grouped stages through autograd) in one training
+step's gradients at dropout 0.
 The schedule of all ``T`` steps reaches the host in one transfer. On the
 card, the kernel route against the plain route.
 """
@@ -88,6 +89,20 @@ def test_step_forward_matches_jax_fused_kernel_interpret(monkeypatch):
     monkeypatch.setenv("STAIR_FUSED_EXEC", "interpret")
     cfg, model, params = _build()
     batch, _ = _batch(cfg, PROGRAMS[7::4], seed=5)
+    _parity(cfg, params, model, batch)
+
+
+@needs_jax
+def test_step_forward_above_64_frames_matches_jax_fused_kernel_interpret(
+        monkeypatch):
+    """The same at a ragged F above 64 (72): the widths at which the port's
+    step kernel now runs its redesigned routes (the tensor-core route's
+    row-slice mode in bf16, ``"fma32"`` over ``gemm32``'s row tiles in
+    float32) and JAX's kernel holds a whole ``[F, H]`` example."""
+    monkeypatch.setenv("STAIR_MEGA_EXEC", "0")
+    monkeypatch.setenv("STAIR_FUSED_EXEC", "interpret")
+    cfg, model, params = _build(max_video_length=72)
+    batch, _ = _batch(cfg, PROGRAMS[7::4], seed=6)
     _parity(cfg, params, model, batch)
 
 
